@@ -1,0 +1,535 @@
+#!/usr/bin/env python3
+"""Chip smoke of the PyTorch/CUDA port (theroundtaible_tpu_torch).
+
+Run from the repository root on a machine with one NVIDIA Hopper card:
+
+    python3 chip_smoke.py
+
+Phases, each printing one JSON line; any failure exits non-zero:
+
+1. device  - the card's name and power limit (nvidia-smi).
+2. build   - nvcc builds the CUDA kernels from engine/kernels/csrc.
+3. kernels - K1 (paged decode) and K2 (paged prefill) against their plain
+             PyTorch versions on the card in bf16 at Llama-3-8B's attention
+             shape (H=32, K=8, D=128, page 128), plus window, softcap,
+             D=64 and D=256 cases; kernel and plain times from CUDA events
+             beside each kernel's device-memory/operations bound.
+4. engine  - InferenceEngine.from_config for llama-3-8b-instruct (full
+             width, 32 layers, seeded random weights, byte tokenizer),
+             paged pool, bf16, 8 slots, max_seq_len 8192; warmup(); two
+             3-knight rounds through TorchLlmAdapter.execute_round whose
+             prompts share a long prefix, the second extending the first
+             (two knights greedy, one sampling top-k/top-p).
+             The kernels' launch counts are zeroed before and read after
+             each round: both kernels must have launched.
+5. profile - torch.profiler over one decode-dominated engine call: wall
+             time, device busy share, kernel time by name.
+6. path    - one prefill chunk and 16 decode steps of forward_paged at full
+             width with the depth cut to 2 layers, through the kernels and
+             through the plain versions, logits compared.
+
+Then a `{"kernels": [...]}` line, the nvidia-smi line, and last
+`{"ok": true, "device": {...}}`. Details go to chiprun_out/chip_smoke/.
+The script exits non-zero without a result when no card is present or the
+package is missing next to it.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+OUT = ROOT / "chiprun_out" / "chip_smoke"
+
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, dense bf16 tensor FLOP/s.
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOPS_PER_S = 989e12
+# bf16 kernel vs plain version: both round p and the output to bf16 (one
+# ulp at |x| ~ 1 is 7.8e-3) and sum in different orders.
+KERNEL_TOL = 2e-2
+# Whole path: two layers of bf16 activations carry those differences into
+# the logits through o_proj, the MLP and the 4096-wide head.
+PATH_TOL = 5e-2
+SEED = 0
+
+
+def emit(phase: str, **fields) -> None:
+    print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+class Failed(RuntimeError):
+    pass
+
+
+def check(ok: bool, what: str) -> None:
+    if not ok:
+        raise Failed(what)
+
+
+# --- kernel phase helpers ---
+
+
+def make_pool(torch, gen, B, S, K, D, ps, dtype, dev):
+    """Per-row views scattered into a pool at shuffled page ids (page 0 is
+    scratch); pages and cells past each row's frontier are poisoned with
+    NaN by the caller."""
+    n_pages = S // ps
+    k_pool = torch.zeros(1 + B * n_pages, ps, K, D, dtype=dtype, device=dev)
+    v_pool = torch.zeros_like(k_pool)
+    k_pool[1:] = torch.randn(B * n_pages, ps, K, D, generator=gen,
+                             device=dev).to(dtype)
+    v_pool[1:] = torch.randn(B * n_pages, ps, K, D, generator=gen,
+                             device=dev).to(dtype)
+    perm = torch.randperm(B * n_pages, generator=gen, device=dev) + 1
+    table = perm.reshape(B, n_pages).to(torch.int32)
+    return k_pool, v_pool, table
+
+
+def poison_past_frontier(k_pool, v_pool, table, valid, ps):
+    """NaN into every cell at or past each row's kv_valid: stale cells of
+    the frontier page and whole pages beyond it."""
+    for b, n in enumerate(valid.tolist()):
+        for j in range(table.shape[1]):
+            lo = max(n - j * ps, 0)
+            if lo < ps:
+                page = int(table[b, j])
+                k_pool[page, lo:] = float("nan")
+                v_pool[page, lo:] = float("nan")
+
+
+def kv_cells(valid, starts, window):
+    """KV cells each row must read: [max(0, start - window + 1), valid)."""
+    cells = 0
+    for v, s in zip(valid, starts):
+        lo = max(0, s - window + 1) if window else 0
+        cells += max(v - lo, 0)
+    return cells
+
+
+def attended_pairs(valid, offsets, lengths, window):
+    """(query, key) pairs the real query rows attend: causal, valid,
+    window."""
+    pairs = 0
+    for v, o, n in zip(valid, offsets, lengths):
+        for p in range(o, o + n):
+            lo = max(0, p - window + 1) if window else 0
+            pairs += max(min(p + 1, v) - lo, 0)
+    return pairs
+
+
+def bound_ms(bytes_moved, flops):
+    t_bytes = bytes_moved / HBM_BYTES_PER_S
+    t_ops = flops / BF16_FLOPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def time_ms(torch, fn, reps, flush):
+    """Median of `reps` single-launch CUDA-event timings, the L2 cache
+    flushed (a 64 MB write) before each: serving finds the pages cold."""
+    fn()
+    times = []
+    for _ in range(reps):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def max_err(torch, out, ref, rows=None):
+    """max |out - ref| over real rows, and whether all is within the bf16
+    tolerance (atol = rtol = KERNEL_TOL)."""
+    if rows is not None:
+        out = torch.cat([out[b, :n] for b, n in enumerate(rows)])
+        ref = torch.cat([ref[b, :n] for b, n in enumerate(rows)])
+    out, ref = out.float(), ref.float()
+    diff = (out - ref).abs()
+    ok = bool(torch.isfinite(out).all()) and bool(
+        (diff <= KERNEL_TOL + KERNEL_TOL * ref.abs()).all())
+    return float(diff.max()), ok
+
+
+def kernels_phase(torch, kattn):
+    dev = torch.device("cuda")
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    flush = torch.empty(16 << 20, dtype=torch.float32, device=dev)
+    results = {}
+
+    # K1: B=8 rows at the edges of a page and the context.
+    errs = []
+    cases = [(32, 8, 128, None, None), (32, 8, 128, 4096, None),
+             (32, 8, 128, None, 50.0), (32, 8, 128, 4096, 50.0),
+             (32, 8, 64, None, None), (8, 1, 256, None, None)]
+    for H, K, D, window, softcap in cases:
+        ps, S, B = 128, 8192, 8
+        k_pool, v_pool, table = make_pool(torch, gen, B, S, K, D, ps, bf16,
+                                          dev)
+        valid = torch.tensor([1, 127, 128, 129, 2048, 4000, 5000, 8192],
+                             dtype=torch.int32, device=dev)
+        poison_past_frontier(k_pool, v_pool, table, valid, ps)
+        q = (torch.randn(B, 1, H, D, generator=gen, device=dev)
+             * D ** -0.5).to(bf16)
+        args = (q, k_pool, v_pool, table, valid)
+        out = kattn.paged_decode_attention(*args, sliding_window=window,
+                                           softcap=softcap)
+        ref = kattn.paged_decode_attention_ref(*args, sliding_window=window,
+                                               softcap=softcap)
+        err, ok = max_err(torch, out, ref)
+        errs.append({"H": H, "K": K, "D": D, "window": window,
+                     "softcap": softcap, "max_abs_err": err})
+        check(ok, f"K1 disagrees with its plain version: {errs[-1]}")
+    results["decode_cases"] = errs
+
+    # K2: T=512 chunks at offsets 0/100/3000 with partial lengths.
+    errs = []
+    for H, K, D, window, softcap in cases:
+        ps, S, B, T = 128, 4096, 3, 512
+        k_pool, v_pool, table = make_pool(torch, gen, B, S, K, D, ps, bf16,
+                                          dev)
+        offsets = torch.tensor([0, 100, 3000], dtype=torch.int32,
+                               device=dev)
+        lengths = [512, 300, 512]
+        valid = offsets + torch.tensor(lengths, dtype=torch.int32,
+                                       device=dev)
+        poison_past_frontier(k_pool, v_pool, table, valid, ps)
+        q = (torch.randn(B, T, H, D, generator=gen, device=dev)
+             * D ** -0.5).to(bf16)
+        args = (q, k_pool, v_pool, table, offsets, valid)
+        out = kattn.paged_prefill_attention(*args, sliding_window=window,
+                                            softcap=softcap)
+        ref = kattn.paged_prefill_attention_ref(
+            *args, sliding_window=window, softcap=softcap)
+        err, ok = max_err(torch, out, ref, rows=lengths)
+        errs.append({"H": H, "K": K, "D": D, "window": window,
+                     "softcap": softcap, "max_abs_err": err})
+        check(ok, f"K2 disagrees with its plain version: {errs[-1]}")
+    results["prefill_cases"] = errs
+
+    # Times at the serving shape of a 3-knight round (H=32, K=8, D=128):
+    # decode at ~1.7k cached tokens, a 512-row delta chunk over a 1.2k
+    # shared prefix.
+    H, K, D, ps, B = 32, 8, 128, 128, 3
+    k_pool, v_pool, table = make_pool(torch, gen, B, 8192, K, D, ps, bf16,
+                                      dev)
+    valid_l = [1600, 1650, 1700]
+    valid = torch.tensor(valid_l, dtype=torch.int32, device=dev)
+    q = (torch.randn(B, 1, H, D, generator=gen, device=dev)
+         * D ** -0.5).to(bf16)
+    args = (q, k_pool, v_pool, table, valid)
+    cells = kv_cells(valid_l, [v - 1 for v in valid_l], None)
+    timing = {"decode": {
+        "shape": {"B": B, "H": H, "K": K, "D": D, "ps": ps,
+                  "kv_valid": valid_l},
+        "ms": time_ms(torch, lambda: kattn.paged_decode_attention(*args),
+                      50, flush),
+        "plain_ms": time_ms(
+            torch, lambda: kattn.paged_decode_attention_ref(*args), 5,
+            flush),
+        "sdpa_view_ms": sdpa_view_ms(torch, q, k_pool, v_pool, table,
+                                     valid, None, flush),
+        "bytes": 2 * q.numel() * 2 + cells * K * D * 2 * 2,
+        "flops": cells * H * D * 4}}
+    offsets_l, lengths_l, T = [1200, 1200, 1200], [300, 320, 340], 512
+    offsets = torch.tensor(offsets_l, dtype=torch.int32, device=dev)
+    valid_l = [o + n for o, n in zip(offsets_l, lengths_l)]
+    valid = torch.tensor(valid_l, dtype=torch.int32, device=dev)
+    q = (torch.randn(B, T, H, D, generator=gen, device=dev)
+         * D ** -0.5).to(bf16)
+    args = (q, k_pool, v_pool, table, offsets, valid)
+    cells = kv_cells(valid_l, offsets_l, None)
+    pairs = attended_pairs(valid_l, offsets_l, lengths_l, None)
+    timing["prefill"] = {
+        "shape": {"B": B, "T": T, "H": H, "K": K, "D": D, "ps": ps,
+                  "offsets": offsets_l, "lengths": lengths_l},
+        "ms": time_ms(torch, lambda: kattn.paged_prefill_attention(*args),
+                      20, flush),
+        "plain_ms": time_ms(
+            torch, lambda: kattn.paged_prefill_attention_ref(*args), 5,
+            flush),
+        "sdpa_view_ms": sdpa_view_ms(torch, q, k_pool, v_pool, table,
+                                     valid, offsets, flush),
+        "bytes": 2 * sum(lengths_l) * H * D * 2 + cells * K * D * 2 * 2,
+        "flops": pairs * H * D * 4}
+    for t in timing.values():
+        t["bound_ms"], t["bound_by"] = bound_ms(t["bytes"], t["flops"])
+    results["timing"] = timing
+    return results
+
+
+def sdpa_view_ms(torch, q, k_pool, v_pool, table, valid, offsets, flush):
+    """Yardstick only, never called by the port: PyTorch's
+    scaled_dot_product_attention over the rows' pages gathered into a
+    contiguous view beforehand (the gather is not timed), with the causal
+    and valid-length mask."""
+    import torch.nn.functional as F
+    b, t, h, d = q.shape
+    ps, kh = k_pool.shape[1], k_pool.shape[2]
+    s = max(int(valid.max()), 1)
+    n_pages = -(-s // ps)
+    idx = table[:, :n_pages].long()
+    k = k_pool[idx].reshape(b, n_pages * ps, kh, d)[:, :s].transpose(1, 2)
+    v = v_pool[idx].reshape(b, n_pages * ps, kh, d)[:, :s].transpose(1, 2)
+    k = torch.nan_to_num(k).contiguous()
+    v = torch.nan_to_num(v).contiguous()
+    starts = (valid - 1) if offsets is None else offsets
+    q_pos = starts.long()[:, None] + torch.arange(t, device=q.device)
+    kv_pos = torch.arange(s, device=q.device)
+    mask = ((kv_pos[None, None] <= q_pos[..., None])
+            & (kv_pos[None, None] < valid.long()[:, None, None]))[:, None]
+    qt = q.transpose(1, 2).contiguous()
+    return time_ms(torch, lambda: F.scaled_dot_product_attention(
+        qt, k, v, attn_mask=mask, scale=1.0, enable_gqa=True), 20, flush)
+
+
+# --- engine phase ---
+
+
+def knight_prompts(round_no: int, previous=None) -> dict:
+    """~1.5k-token prompts (byte tokenizer) sharing a ~1.2k-token
+    preamble; round 2 extends each knight's round-1 prompt."""
+    knights = ("lancelot", "gawain", "percival")
+    if previous is None:
+        preamble = ("Round table session. The knights review a design for "
+                    "a write-ahead session journal with periodic snapshots"
+                    ", replay on restart, and per-turn commit records. "
+                    * 9)[:1200]
+        return {k: preamble + f" Knight {k}, state your position on the "
+                f"journal format, snapshot cadence and recovery time. "
+                * 3 for k in knights}
+    return {k: previous[k] + f" Round {round_no}: {k}, answer the "
+            "strongest objection raised so far and give a final score."
+            for k in knights}
+
+
+def engine_phase(torch, kattn):
+    from theroundtaible_tpu_torch.adapters.base import KnightTurn
+    from theroundtaible_tpu_torch.adapters.torch_llm import TorchLlmAdapter
+    config = {"model": "llama-3-8b-instruct", "kv_layout": "paged",
+              "dtype": "bfloat16", "num_slots": 8, "max_seq_len": 8192,
+              "page_size": 128, "seed": SEED,
+              "sampling": {"temperature": 0.0, "max_new_tokens": 32},
+              # one knight samples, so the sampled decode path runs too
+              "knight_sampling": {"percival": {"temperature": 0.8,
+                                               "top_k": 40,
+                                               "top_p": 0.95}}}
+    adapter = TorchLlmAdapter.from_config("torch-llm-llama3", config)
+    t0 = time.monotonic()
+    engine = adapter._get_engine()
+    torch.cuda.synchronize()
+    build_s = time.monotonic() - t0
+    warm_s = engine.warmup()
+    emit("engine", model=engine.cfg.name, params=engine.num_params,
+         construct_s=build_s, warmup_s=warm_s,
+         kv_pool_bytes=engine.kv.hbm_bytes(), num_pages=engine.kv.num_pages,
+         memory_allocated=torch.cuda.memory_allocated())
+    totals = dict.fromkeys(kattn.KERNELS, 0)
+    prompts = None
+    for rnd in (1, 2):
+        prompts = knight_prompts(rnd, prompts)
+        turns = [KnightTurn(k, p) for k, p in prompts.items()]
+        kattn.reset_launch_counts()
+        t0 = time.monotonic()
+        responses = adapter.execute_round(turns, timeout_ms=600_000)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches = kattn.launch_counts()
+        stats = adapter.last_stats()
+        emit("round", round=rnd, wall_s=wall,
+             prompt_tokens=[len(engine.tokenizer.encode(p))
+                            for p in prompts.values()],
+             launches=launches, responses=len(responses), **stats)
+        check(adapter.last_degradation is None,
+              f"round {rnd} degraded: {adapter.last_degradation}")
+        check(all(n > 0 for n in launches.values()),
+              f"round {rnd}: a kernel never launched: {launches}")
+        check(stats["decode_tokens"] > 0, f"round {rnd} decoded nothing")
+        if rnd == 2:
+            check(stats["reused_tokens"] > 0, "round 2 reused no tokens")
+        for name, n in launches.items():
+            totals[name] += n
+    return totals, engine
+
+
+# --- whole-path phase ---
+
+
+def path_phase(torch, engine):
+    from theroundtaible_tpu_torch.engine.models.common import init_params
+    from theroundtaible_tpu_torch.engine.paged_forward import forward_paged
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(engine.cfg, num_layers=2)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    params = init_params(cfg, gen, torch.bfloat16, dev)
+    B, T, ps = 3, 512, 128
+    pp = cfg.max_seq_len // ps
+    table = (torch.randperm(B * pp, generator=gen, device=dev) + 1) \
+        .reshape(B, pp).to(torch.int32)
+
+    def pools():
+        shape = (1 + B * pp, ps, cfg.num_kv_heads, cfg.head_dim)
+        return [(torch.zeros(shape, dtype=torch.bfloat16, device=dev),
+                 torch.zeros(shape, dtype=torch.bfloat16, device=dev))
+                for _ in range(cfg.num_layers)]
+
+    kernel_pools, plain_pools = pools(), pools()
+    lengths = torch.tensor([512, 400, 300], dtype=torch.int32, device=dev)
+    tokens = torch.randint(3, 259, (B, T), generator=gen, device=dev)
+    positions = torch.arange(T, dtype=torch.int32, device=dev) \
+        .expand(B, T).contiguous()
+    worst, agree, steps = 0.0, 0, 0
+
+    def compare(lk, lp):
+        nonlocal worst
+        diff = (lk - lp).abs()
+        worst = max(worst, float(diff.max()))
+        check(bool(torch.isfinite(lk).all()), "non-finite kernel logits")
+        check(bool((diff <= PATH_TOL + PATH_TOL * lp.abs()).all()),
+              f"whole path: kernel and plain logits differ by {worst}")
+        return int((lk.argmax(-1) == lp.argmax(-1)).sum())
+
+    lk = forward_paged(params, cfg, tokens, positions, kernel_pools, table,
+                       lengths, last_pos=lengths - 1)
+    lp = forward_paged(params, cfg, tokens, positions, plain_pools, table,
+                       lengths, last_pos=lengths - 1, plain=True)
+    agree += compare(lk[:, 0], lp[:, 0])
+    steps += B
+    cur = lk[:, 0].argmax(-1)
+    valid = lengths.clone()
+    for _ in range(16):
+        # teacher-forced with the kernel path's greedy tokens, so both
+        # paths see the same inputs at every step
+        lk = forward_paged(params, cfg, cur[:, None], valid[:, None],
+                           kernel_pools, table, valid + 1)
+        lp = forward_paged(params, cfg, cur[:, None], valid[:, None],
+                           plain_pools, table, valid + 1, plain=True)
+        agree += compare(lk[:, 0], lp[:, 0])
+        steps += B
+        cur = lk[:, 0].argmax(-1)
+        valid = valid + 1
+    torch.cuda.synchronize()
+    emit("path", layers=cfg.num_layers, batch=B, chunk=T, decode_steps=16,
+         max_abs_err=worst, tolerance=PATH_TOL,
+         greedy_agreement=agree / steps)
+
+
+def profile_phase(torch, engine):
+    """torch.profiler over one decode-dominated call of the 8B engine: 3
+    rows whose prompts are already cached (one token of prefill each),
+    then 32 decode steps. Device busy share = kernel time / wall time;
+    kernel time by name. The profiler's own overhead lengthens the wall,
+    so the share is a lower bound."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    turns = [(f"profile{i}", [1] + [5 + i] * 1600) for i in range(3)]
+    engine.generate_batch(turns, max_new_tokens=1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        engine.generate_batch(turns, max_new_tokens=32)
+        torch.cuda.synchronize()
+        wall_us = (time.monotonic() - t0) * 1e6
+    by_name: dict[str, float] = {}
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            by_name[ev.name] = by_name.get(ev.name, 0.0) + ev.time_range \
+                .elapsed_us()
+    device_us = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    emit("profile", wall_ms=wall_us / 1e3, device_ms=device_us / 1e3,
+         device_busy_share=device_us / wall_us if wall_us else None,
+         top_kernels=[{"name": n[:90], "ms": us / 1e3,
+                       "share_of_device": us / device_us}
+                      for n, us in top] if device_us else [])
+    for name, _ in turns:
+        engine.kv.release(name)
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    try:
+        from theroundtaible_tpu_torch.engine.kernels import attention \
+            as kattn
+        from theroundtaible_tpu_torch.engine.kernels import build
+    except ImportError as e:
+        print(f"chip_smoke: the theroundtaible_tpu_torch package is not "
+              f"next to this script ({e})", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    OUT.mkdir(parents=True, exist_ok=True)
+    smi = nvidia_smi()
+    print(smi, flush=True)
+    emit("device", name=torch.cuda.get_device_name(0), nvidia_smi=smi,
+         torch=torch.__version__, cuda=torch.version.cuda)
+
+    t0 = time.monotonic()
+    build.build_all()
+    emit("build", seconds=time.monotonic() - t0,
+         sources=list(build.SOURCES))
+    for name, log in build.build_logs().items():
+        (OUT / f"{name}.ptxas.log").write_text(log)
+
+    kernels = kernels_phase(torch, kattn)
+    emit("kernels_check", tolerance=KERNEL_TOL,
+         decode_cases=kernels["decode_cases"],
+         prefill_cases=kernels["prefill_cases"])
+    emit("kernels_timing", **kernels["timing"])
+
+    launches, engine = engine_phase(torch, kattn)
+    profile_phase(torch, engine)
+    path_phase(torch, engine)
+
+    src = "theroundtaible_tpu_torch/engine/kernels/csrc/"
+    rows = []
+    for name, kind, replaces in (
+            ("paged_decode_attention", "decode",
+             "theroundtaible_tpu/engine/pallas/attention.py:891"),
+            ("paged_prefill_attention", "prefill",
+             "theroundtaible_tpu/engine/pallas/attention.py:374")):
+        t = kernels["timing"][kind]
+        cases = kernels[f"{kind}_cases"]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": src + f"paged_{kind}.cu", "replaces": replaces,
+            "launches": launches[name],
+            "max_abs_err": max(c["max_abs_err"] for c in cases),
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": None, "sdpa_view_ms": t["sdpa_view_ms"]})
+    summary = {"kernels": rows}
+    (OUT / "summary.json").write_text(json.dumps(summary, indent=1))
+    print(json.dumps(summary), flush=True)
+    print(nvidia_smi(), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,95 @@
+"""PyTorch port, CUDA kernels K1/K2 against their plain versions on the
+card (`cuda` marker; each test skips itself where there is no card). The
+file imports neither jax nor the JAX package, so it runs on a machine that
+has only the port's dependencies:
+
+    python -m pytest --noconftest tests/test_torch_cuda.py -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from theroundtaible_tpu_torch.engine.kernels import attention as kattn
+
+WINDOW_SOFTCAP = [(None, None), (48, None), (None, 30.0), (700, None),
+                  (48, 30.0)]
+
+
+def shuffled_pool(rng, B, S, K, D, ps):
+    """Per-row position-aligned views scattered into a pool at shuffled
+    page ids (page 0 reserved scratch)."""
+    n_pages = S // ps
+    k_view = rng.normal(size=(B, S, K, D)).astype(np.float32)
+    v_view = rng.normal(size=(B, S, K, D)).astype(np.float32)
+    table = (rng.permutation(B * n_pages) + 1).reshape(B, n_pages)
+    k_pool = np.zeros((1 + B * n_pages, ps, K, D), np.float32)
+    v_pool = np.zeros_like(k_pool)
+    k_pool[table.reshape(-1)] = k_view.reshape(B * n_pages, ps, K, D)
+    v_pool[table.reshape(-1)] = v_view.reshape(B * n_pages, ps, K, D)
+    return k_pool, v_pool, table.astype(np.int32)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+# bf16: p and the output round to bf16 and sums run in another order;
+# f32: only the summation order differs.
+DTYPES = [(torch.bfloat16, 2e-2), (torch.float32, 1e-4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+def test_cuda_decode_kernel_matches_plain(cuda_device, dtype, tol):
+    """K1 against its plain version on the card at the serving shape
+    (H=32, K=8, D=128, ps=128)."""
+    B, S, K, D, ps = 4, 2048, 8, 128, 128
+    rng = np.random.default_rng(11)
+    k_pool, v_pool, table = shuffled_pool(rng, B, S, K, D, ps)
+    q = rng.normal(size=(B, 1, 32, D)).astype(np.float32) * D ** -0.5
+    valid = np.asarray([1, 129, 1000, 2048], np.int32)
+    dev = cuda_device
+    args = [torch.from_numpy(q).to(dev, dtype),
+            torch.from_numpy(k_pool).to(dev, dtype),
+            torch.from_numpy(v_pool).to(dev, dtype),
+            torch.from_numpy(table).to(dev), torch.from_numpy(valid).to(dev)]
+    for window, softcap in WINDOW_SOFTCAP:
+        out = kattn.paged_decode_attention(*args, sliding_window=window,
+                                           softcap=softcap)
+        ref = kattn.paged_decode_attention_ref(
+            *args, sliding_window=window, softcap=softcap)
+        torch.testing.assert_close(out.float(), ref.float(), atol=tol,
+                                   rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+def test_cuda_prefill_kernel_matches_plain(cuda_device, dtype, tol):
+    """K2 against its plain version on the card, offsets and partial
+    lengths; real rows only."""
+    B, T, K, D, S, ps = 3, 256, 8, 128, 2048, 128
+    rng = np.random.default_rng(12)
+    k_pool, v_pool, table = shuffled_pool(rng, B, S, K, D, ps)
+    q = rng.normal(size=(B, T, 32, D)).astype(np.float32) * D ** -0.5
+    offsets = np.asarray([0, 100, 1700], np.int32)
+    lengths = np.asarray([256, 77, 256], np.int32)
+    dev = cuda_device
+    args = [torch.from_numpy(q).to(dev, dtype),
+            torch.from_numpy(k_pool).to(dev, dtype),
+            torch.from_numpy(v_pool).to(dev, dtype),
+            torch.from_numpy(table).to(dev),
+            torch.from_numpy(offsets).to(dev),
+            torch.from_numpy(offsets + lengths).to(dev)]
+    for window, softcap in WINDOW_SOFTCAP:
+        out = kattn.paged_prefill_attention(*args, sliding_window=window,
+                                            softcap=softcap)
+        ref = kattn.paged_prefill_attention_ref(
+            *args, sliding_window=window, softcap=softcap)
+        for b, n in enumerate(lengths):
+            torch.testing.assert_close(out[b, :n].float(),
+                                       ref[b, :n].float(), atol=tol,
+                                       rtol=tol)

@@ -1,0 +1,581 @@
+"""InferenceEngine - chunked prefill + segmented decode over persistent,
+paged per-knight KV slots, on one device (counterpart of
+theroundtaible_tpu/engine/engine.py, trimmed to the paged single-device
+path in bf16 or f32).
+
+tokenize -> own-slot LCP reuse + cross-knight prefix sharing (page
+aliasing) -> copy-on-write of the write range -> chunked, bucketed prefill
+-> first token -> decode segments -> eos trim, commit, detokenize. Every
+prefill chunk and decode step runs paged_forward.forward_paged, which
+attends through the CUDA kernels on a card and through their plain
+versions on the CPU.
+
+PyTorch runs eagerly, so there are no compiled programs to warm: warmup()
+builds the kernels and runs every (batch, bucket) once. The decode segment
+is a host loop of single-token steps. Host syncs: the first token after
+prefill, the all-done flag at every decode step, and the segment's tokens
+at its end. CUDA graphs are later work.
+
+Features the JAX engine turns on by default for a paged pool (prefix
+cache, host offload, ragged dispatch, speculative decoding) stay off here,
+with `<feature>_reason: "not_ported"` in describe(); asking for them - or
+for any other unported option - raises NotImplementedError naming the
+ROADMAP item.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from dataclasses import dataclass
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from . import deadlines, faults
+from .device import resolve_device
+from .kernels import attention as kattn
+from .kernels import build as kbuild
+from .kvcache import scoped_slot, share_prefixes
+from .models.common import ModelConfig, init_params, param_count
+from .models.registry import get_model_config
+from .paged_forward import forward_paged
+from .paging import PagedKVCache
+from .sampling import SamplingParams, sample_token_batch, sampling_arrays
+from .serving_loop import (DECODE_SEGMENT, MAX_PREFILL_CHUNK,
+                           PREFILL_BUCKETS, bucket_for, chunked_prefill,
+                           clamp_max_new, decode_segments, finalize_outputs,
+                           host_sync, prompt_budget, row_budget_fn)
+from .tokenizer import load_tokenizer
+
+# Below this many shared tokens a plain prefill beats sharing a span.
+MIN_SHARED_PREFIX = 64
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+# Config keys of the JAX engine that select paths this port does not have
+# yet, with the ROADMAP item that brings each.
+_FEATURES = {
+    "prefix_cache": "slice 7: prefix cache and host-RAM offload",
+    "kv_offload": "slice 7: prefix cache and host-RAM offload",
+    "ragged_attn": "slice 2: scheduler and ragged path, K3",
+    "spec_decode": "slice 7: speculative decoding",
+}
+
+
+@dataclass
+class GenStats:
+    prefill_tokens: int = 0
+    reused_tokens: int = 0
+    # cross-session prefix-cache hits: always 0 (not ported)
+    prefix_reused_tokens: int = 0
+    decode_tokens: int = 0
+    prefill_seconds: float = 0.0
+    decode_seconds: float = 0.0
+
+    @property
+    def prefill_tps(self) -> float:
+        return self.prefill_tokens / self.prefill_seconds \
+            if self.prefill_seconds else 0.0
+
+    @property
+    def decode_tps(self) -> float:
+        return self.decode_tokens / self.decode_seconds \
+            if self.decode_seconds else 0.0
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to the PyTorch engine yet (ROADMAP, {item})")
+
+
+class InferenceEngine:
+    """One resident model + its paged slot cache on one device."""
+
+    def __init__(self, model_cfg: ModelConfig, *, checkpoint: str = "",
+                 mesh_shape: Optional[dict[str, int]] = None,
+                 num_slots: int = 8, dtype=torch.bfloat16,
+                 sampling: Optional[SamplingParams] = None,
+                 seed: int = 0, seq_parallel: int = 0,
+                 attn: str = "auto", kv_layout: str = "paged",
+                 page_size: int = 128, num_pages: Optional[int] = None,
+                 quant: str = "none",
+                 prefix_cache: Optional[bool] = None,
+                 kv_offload: Optional[bool] = None,
+                 ragged_attn: Optional[bool] = None,
+                 spec_decode: Optional[bool] = None,
+                 lora: Optional[dict] = None, kv_quant: Any = None,
+                 params: Optional[dict] = None, device="cuda"):
+        self.device = resolve_device(device)
+        self._check_ported(model_cfg, checkpoint, mesh_shape, dtype,
+                           seq_parallel, attn, kv_layout, quant, lora,
+                           kv_quant, prefix_cache=prefix_cache,
+                           kv_offload=kv_offload, ragged_attn=ragged_attn,
+                           spec_decode=spec_decode)
+        self.cfg = model_cfg
+        self.max_seq_len = model_cfg.max_seq_len
+        self.sampling = sampling or SamplingParams()
+        self.tokenizer = load_tokenizer(None)
+        self.quant = quant
+        self.dtype = dtype
+        self.kv_layout = kv_layout
+        if params is None:
+            gen = torch.Generator(device=self.device).manual_seed(seed)
+            params = init_params(model_cfg, gen, dtype, self.device)
+        self.params = params
+        self.num_params = param_count(params)
+
+        # Pool-direct serving needs both kernels to take the pool shape
+        # (chunks up to MAX_PREFILL_CHUNK rows and decode steps); a shape
+        # they decline fails construction - there is no gather-view path.
+        group = model_cfg.num_heads // model_cfg.num_kv_heads
+        reason = kattn.pool_direct_decline_reason(
+            MAX_PREFILL_CHUNK, page_size, model_cfg.head_dim,
+            model_cfg.num_kv_heads, group, self.device)
+        if reason is not None:
+            raise ValueError(
+                f"the paged attention kernels decline this pool shape on "
+                f"{self.device}: {reason}")
+        self.kv = PagedKVCache(model_cfg, num_slots, self.max_seq_len,
+                               dtype, self.device, page_size=page_size,
+                               num_pages=num_pages)
+        self._generator = torch.Generator(
+            device=self.device).manual_seed(seed + 1)
+        self._chars_per_token: Optional[float] = None
+        self.last_stats = GenStats()
+        # Serving mutates the slot cache: one generation at a time.
+        self._serve_lock = threading.Lock()
+        self.retry = faults.DEFAULT_RETRY
+
+    @staticmethod
+    def _check_ported(cfg, checkpoint, mesh_shape, dtype, seq_parallel,
+                      attn, kv_layout, quant, lora, kv_quant,
+                      **features) -> None:
+        """Raise NotImplementedError for every option this slice does not
+        serve, naming the ROADMAP item that brings it."""
+        for name, value in features.items():
+            if value:
+                raise _not_ported(name, _FEATURES[name])
+        if checkpoint:
+            raise _not_ported("checkpoint loading",
+                              "slice 4: checkpoint load")
+        if kv_layout == "contiguous":
+            raise _not_ported("kv_layout 'contiguous'",
+                              "slice 3: contiguous layout, K8/K9")
+        if kv_layout != "paged":
+            raise ValueError(
+                f"kv_layout must be contiguous|paged, got {kv_layout!r}")
+        if quant != "none":
+            if quant not in ("int8", "int4"):
+                raise ValueError(
+                    f"quant must be none|int8|int4, got {quant!r}")
+            raise _not_ported(f"quant {quant!r}",
+                              "slice 5: quantization, K4/K5/K6")
+        if kv_quant not in (None, False, "none"):
+            raise _not_ported("kv_quant",
+                              "slice 5: quantization, K4/K5/K6")
+        if lora:
+            raise _not_ported("lora", "slice 6: LoRA, K7")
+        if seq_parallel and seq_parallel > 0:
+            raise _not_ported("seq_parallel",
+                              "slice 7: multi-device")
+        if mesh_shape:
+            size = 1
+            for n in mesh_shape.values():
+                size *= max(int(n), 1)
+            if size > 1:
+                raise _not_ported(f"mesh {mesh_shape}",
+                                  "slice 7: multi-device")
+        if attn not in ("auto", "flash", "dense"):
+            raise ValueError(f"attn must be auto|flash|dense, got {attn!r}")
+        if attn == "dense":
+            raise _not_ported("attn 'dense' (the gather-view paged path)",
+                              "slice 3: contiguous layout, K8/K9")
+        if cfg.num_experts:
+            raise _not_ported("MoE models", "slice 7: MoE and float16")
+        if dtype not in _DTYPES.values():
+            raise _not_ported(f"dtype {dtype}",
+                              "slice 7: MoE and float16")
+
+    # --- construction from adapter config ---
+
+    @classmethod
+    def from_config(cls, config: dict[str, Any],
+                    device="cuda") -> "InferenceEngine":
+        """The JAX engine's from_config keys. `kv_layout` defaults to
+        "paged", the only layout this slice serves."""
+        overrides = {}
+        if config.get("max_seq_len"):
+            overrides["max_seq_len"] = int(config["max_seq_len"])
+        model_cfg = get_model_config(config.get("model", "tiny-gemma"),
+                                     **overrides)
+        dtype_name = config.get("dtype", "bfloat16")
+        if dtype_name not in _DTYPES:
+            if dtype_name != "float16":
+                raise ValueError(f"unknown dtype {dtype_name!r}")
+            raise _not_ported("dtype 'float16'", "slice 7: MoE and float16")
+        sampling_cfg = config.get("sampling", {})
+        sampling = SamplingParams(
+            temperature=float(sampling_cfg.get("temperature", 0.7)),
+            top_k=int(sampling_cfg.get("top_k", 0)),
+            top_p=float(sampling_cfg.get("top_p", 1.0)),
+            max_new_tokens=int(sampling_cfg.get("max_new_tokens", 1024)),
+        )
+        engine = cls(
+            model_cfg,
+            checkpoint=config.get("checkpoint", "") or "",
+            mesh_shape=config.get("mesh"),
+            num_slots=int(config.get("num_slots", 8)),
+            dtype=_DTYPES[dtype_name],
+            sampling=sampling,
+            seed=int(config.get("seed", 0)),
+            seq_parallel=int(config.get("seq_parallel", 0)),
+            attn=config.get("attn", "auto"),
+            kv_layout=config.get("kv_layout", "paged"),
+            page_size=int(config.get("page_size", 128)),
+            num_pages=(int(config["num_pages"])
+                       if config.get("num_pages") else None),
+            quant=config.get("quant", "none"),
+            prefix_cache=config.get("prefix_cache"),
+            kv_offload=config.get("kv_offload"),
+            ragged_attn=config.get("ragged_attn"),
+            spec_decode=config.get("spec_decode"),
+            lora=config.get("lora"),
+            kv_quant=config.get("kv_quant"),
+            device=device,
+        )
+        if "dispatch_retries" in config:
+            engine.retry = faults.RetryPolicy(
+                max_retries=max(0, int(config["dispatch_retries"])))
+        return engine
+
+    # --- serving ---
+
+    def warmup(self, max_prompt_tokens: int = MAX_PREFILL_CHUNK,
+               batch_sizes: tuple[int, ...] = (1,)) -> float:
+        """Build the kernels (on a card) and serve every (batch, bucket)
+        prefill shape plus one shared-prefix batch once, so the first real
+        round meets no build and no first-launch cost. Returns seconds."""
+        t0 = time.monotonic()
+        if self.device.type == "cuda":
+            kbuild.build_all()
+        limit = min(max_prompt_tokens, self.max_seq_len - DECODE_SEGMENT - 1)
+        for b in batch_sizes:
+            if b > self.kv.num_slots:
+                continue
+            limit_b = min(limit, self._warm_prompt_cap(b))
+            if limit_b < 2:
+                continue
+            for bucket in [x for x in PREFILL_BUCKETS
+                           if x <= bucket_for(limit_b)]:
+                n = min(bucket, limit_b)  # lands exactly in `bucket`
+                # Rows diverge at position 1 so prefix sharing cannot
+                # collapse the batch.
+                turns = [(f"__warmup_{i}",
+                          [self.tokenizer.bos_id] + [5 + i] * (n - 1))
+                         for i in range(b)]
+                self._release_warm_slots()
+                self.generate_batch(turns, max_new_tokens=1)
+        if (self.kv.num_slots >= 2
+                and min(limit, self._warm_prompt_cap(2))
+                > MIN_SHARED_PREFIX + 8):
+            shared = [self.tokenizer.bos_id] + [7] * (MIN_SHARED_PREFIX + 4)
+            self._release_warm_slots()
+            self.generate_batch([(f"__warmup_{i}", shared + [9 + i] * 4)
+                                 for i in range(2)], max_new_tokens=1)
+        self._release_warm_slots()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return time.monotonic() - t0
+
+    def _release_warm_slots(self) -> None:
+        for i in range(self.kv.num_slots):
+            self.kv.release(f"__warmup_{i}")
+
+    def _warm_prompt_cap(self, b: int) -> int:
+        """Longest prompt a b-row batch can pin without exhausting the
+        pool (each row pins ceil((len + DECODE_SEGMENT) / page_size)
+        pages)."""
+        return ((self.kv.usable_pages() // max(b, 1)) * self.kv.page_size
+                - DECODE_SEGMENT)
+
+    def chars_per_token(self) -> float:
+        if self._chars_per_token is None:
+            sample = ("The quick brown fox jumps over the lazy dog. "
+                      "def main(args): return 0  # typical source text\n" * 4)
+            n = len(self.tokenizer.encode(sample, add_bos=False))
+            self._chars_per_token = max(len(sample) / max(n, 1), 0.25)
+        return self._chars_per_token
+
+    def _ints(self, values) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(values, np.int32),
+                               device=self.device)
+
+    def _prefill(self, token_lists: list[list[int]], offsets: list[int],
+                 tables: np.ndarray, deadline: float = float("inf"),
+                 budget=None) -> torch.Tensor:
+        """Chunked, bucketed prefill of B rows through forward_paged.
+        Returns last-token logits [B, V]."""
+        table = self._ints(tables)
+
+        def dispatch(chunk, offs, lengths):
+            t = chunk.shape[1]
+            offs_t = self._ints(offs)
+            lengths_t = self._ints(lengths)
+            positions = offs_t[:, None] + torch.arange(
+                t, dtype=torch.int32, device=self.device)[None, :]
+            # The chunk writes the pools in place: a watchdog-abandoned
+            # dispatch must not write after recovery took over.
+            with deadlines.commit_guard():
+                logits = forward_paged(
+                    self.params, self.cfg, self._ints(chunk).long(),
+                    positions, self.kv.pools, table, offs_t + lengths_t,
+                    last_pos=lengths_t - 1)
+            return logits[:, 0]
+
+        return chunked_prefill(dispatch, token_lists, offsets,
+                               self.kv.max_seq_len, self.tokenizer.pad_id,
+                               deadline, retry=self.retry, budget=budget)
+
+    def _share_prefixes(self, names: list[str], all_tokens, offsets,
+                        deadline: float, budget=None) -> tuple[list[int],
+                                                               int]:
+        """Cross-knight shared-prefix reuse (kvcache.share_prefixes): paged
+        slots ALIAS the donor's whole pages and copy only partial boundary
+        pages; a batch's common span is prefilled once by its leader."""
+        pinned = tuple(names)
+
+        def add_share(donor, i, lo, hi):
+            self.kv.alias_span(donor.name, names[i], lo, hi, pinned)
+
+        def prefill_span(m, lo, hi):
+            self.kv.ensure_capacity(names[m], hi, write_from=lo,
+                                    pinned=pinned)
+            self._prefill([all_tokens[m][lo:hi]], [lo],
+                          self.kv.table_for([names[m]]), deadline,
+                          budget=budget)
+
+        return share_prefixes(
+            self.kv, names, all_tokens, offsets,
+            min_shared=MIN_SHARED_PREFIX, add_share=add_share,
+            flush_shares=lambda: None, prefill_span=prefill_span)
+
+    def _prepare_batch(self, turns, max_new_padded, deadline, pre_budget,
+                       sampling_per_turn=None) -> dict:
+        """The pre-decode phase: tokenize + tail-truncate -> own-slot
+        reuse_plan -> cross-knight share_prefixes -> capacity/COW -> chunked
+        prefill -> first token. Returns names, all_tokens, offsets,
+        tables_np, per_row, temps/top_ks/top_ps, greedy, first_np,
+        prefill_tokens and reused_tokens."""
+        pinned = tuple(name for name, _ in turns)
+        offsets, all_tokens = [], []
+        for name, prompt in turns:
+            # A list of ids is accepted as a pre-tokenized prompt.
+            tokens = (list(prompt) if isinstance(prompt, list)
+                      else self.tokenizer.encode(prompt))
+            budget_tok = prompt_budget(self.max_seq_len, max_new_padded)
+            if len(tokens) > budget_tok:
+                # Keep the tail - the turn ask and latest transcript live
+                # there.
+                tokens = tokens[:1] + tokens[len(tokens) - budget_tok + 1:]
+            _, reuse = self.kv.reuse_plan(name, tokens, pinned)
+            offsets.append(reuse)
+            all_tokens.append(tokens)
+        names = [name for name, _ in turns]
+        offsets, leader_prefill = self._share_prefixes(
+            names, all_tokens, offsets, deadline, budget=pre_budget)
+        # Pages for the whole call (prompt + padded decode); copy-on-write
+        # any shared page in the write range, so no step below allocates
+        # or writes an aliased page.
+        for i, name in enumerate(names):
+            self.kv.ensure_capacity(
+                name, len(all_tokens[i]) + max_new_padded,
+                write_from=offsets[i], pinned=pinned)
+        tables_np = self.kv.table_for(names)
+        suffixes = [t[o:] for t, o in zip(all_tokens, offsets)]
+        prefill_tokens = leader_prefill + sum(len(s) for s in suffixes)
+        # "reused" counts own-slot LCP hits and shared donor spans
+        reused_tokens = sum(len(t) for t in all_tokens) - prefill_tokens
+        last_logits = self._prefill(suffixes, offsets, tables_np,
+                                    deadline=deadline, budget=pre_budget)
+        # A blocking read (prefill time is not billed to decode), through
+        # the deadline seam.
+        host_sync(lambda: float(last_logits[0, 0]), pre_budget, "prefill")
+
+        per_row = sampling_per_turn or [self.sampling] * len(turns)
+        if len(per_row) != len(turns):
+            raise ValueError(
+                f"sampling_per_turn has {len(per_row)} entries for "
+                f"{len(turns)} turns")
+        temps, top_ks, top_ps = sampling_arrays(per_row, self.device)
+        greedy = all(p.temperature <= 0.0 for p in per_row)
+        logits = last_logits.float()
+        if greedy:
+            first = torch.argmax(logits, dim=-1)
+        else:
+            first = sample_token_batch(logits, self._generator, temps,
+                                       top_ks, top_ps)
+        first_np = host_sync(lambda: first.to(torch.int32).cpu().numpy(),
+                             pre_budget, "prefill")
+        return {
+            "names": names, "all_tokens": all_tokens, "offsets": offsets,
+            "tables_np": tables_np, "per_row": per_row, "temps": temps,
+            "top_ks": top_ks, "top_ps": top_ps, "greedy": greedy,
+            "first_np": first_np, "prefill_tokens": prefill_tokens,
+            "reused_tokens": reused_tokens,
+        }
+
+    def _decode_dispatch_paged(self, table, first_token, start_valid,
+                               budget, temps, top_ks, top_ps, row_budgets,
+                               done0, *, greedy: bool,
+                               max_new: int = DECODE_SEGMENT):
+        """One paged decode segment: up to min(max_new, budget) single-token
+        forward_paged steps, stopping early once every row is done. A row
+        whose own budget is spent emits eos; done rows keep their valid
+        length. The all-done flag is read from the device every step - the
+        only host sync inside the segment. Returns (out [B, max_new],
+        steps, last, valid, done)."""
+        b = first_token.shape[0]
+        out = torch.zeros((b, max_new), dtype=torch.int32,
+                          device=self.device)
+        eos = torch.tensor(self.tokenizer.eos_id, dtype=torch.int32,
+                           device=self.device)
+        last, valid, done = first_token, start_valid, done0
+        step = 0
+        while (step < max_new and step < budget
+               and not bool(torch.all(done).item())):
+            # Each step writes the pools in place: a watchdog-abandoned
+            # segment stops here instead of writing after recovery.
+            with deadlines.commit_guard():
+                logits = forward_paged(
+                    self.params, self.cfg, last.long()[:, None],
+                    valid[:, None], self.kv.pools, table, valid + 1)
+            row_logits = logits[:, 0].float()
+            if greedy:
+                nxt = torch.argmax(row_logits, dim=-1)
+            else:
+                nxt = sample_token_batch(row_logits, self._generator, temps,
+                                         top_ks, top_ps)
+            nxt = torch.where(done | (step >= row_budgets), eos,
+                              nxt.to(torch.int32))
+            out[:, step] = nxt
+            valid = torch.where(done, valid, valid + 1)
+            done = done | (nxt == eos)
+            last = nxt
+            step += 1
+        return out, step, last, valid, done
+
+    def generate(self, prompt: str, slot_name: str = "default",
+                 max_new_tokens: Optional[int] = None,
+                 timeout_s: float = 600.0,
+                 session: Optional[str] = None) -> str:
+        return self.generate_batch([(slot_name, prompt)],
+                                   max_new_tokens=max_new_tokens,
+                                   timeout_s=timeout_s, session=session)[0]
+
+    def generate_batch(self, turns: list[tuple[str, Any]],
+                       max_new_tokens: Optional[int] = None,
+                       timeout_s: float = 600.0,
+                       sampling_per_turn: Optional[
+                           list[SamplingParams]] = None,
+                       budget=None,
+                       session: Optional[str] = None) -> list[str]:
+        return self.generate_batch_with_stats(
+            turns, max_new_tokens=max_new_tokens, timeout_s=timeout_s,
+            sampling_per_turn=sampling_per_turn, budget=budget,
+            session=session)[0]
+
+    def generate_batch_with_stats(
+            self, turns: list[tuple[str, Any]],
+            max_new_tokens: Optional[int] = None,
+            timeout_s: float = 600.0,
+            sampling_per_turn: Optional[list[SamplingParams]] = None,
+            budget=None,
+            session: Optional[str] = None,
+    ) -> tuple[list[str], GenStats]:
+        """Serve N (slot_name, prompt) turns as one batch.
+
+        sampling_per_turn: per-row SamplingParams (None = the engine
+        default); `budget`: a turn-rung deadlines.Budget (None builds a
+        root from `timeout_s`); `session` namespaces the slot names so two
+        discussions' same-named knights never collide. Returns (responses,
+        this call's stats)."""
+        if session:
+            turns = [(scoped_slot(session, name), prompt)
+                     for name, prompt in turns]
+        deadlines.check_admission()
+        with self._serve_lock:
+            return self._generate_batch_locked(
+                turns, max_new_tokens, timeout_s, sampling_per_turn, budget)
+
+    def _generate_batch_locked(self, turns, max_new_tokens, timeout_s,
+                               sampling_per_turn=None, budget=None):
+        stats = GenStats()
+        turn_budget = budget if budget is not None \
+            else deadlines.Budget.root(timeout_s, rung="turn")
+        deadline = min(turn_budget.deadline, time.monotonic() + timeout_s)
+        pre_budget = turn_budget.child("prefill")
+        max_new, max_new_padded = clamp_max_new(
+            max_new_tokens or self.sampling.max_new_tokens,
+            self.max_seq_len)
+
+        t0 = time.monotonic()
+        prep = self._prepare_batch(turns, max_new_padded, deadline,
+                                   pre_budget, sampling_per_turn)
+        stats.prefill_tokens = prep["prefill_tokens"]
+        stats.reused_tokens = prep["reused_tokens"]
+        stats.prefill_seconds = time.monotonic() - t0
+
+        all_tokens = prep["all_tokens"]
+        first_np = prep["first_np"]
+        per_row = prep["per_row"]
+        first = self._ints(first_np)
+        cur_valid = self._ints([len(t) for t in all_tokens])
+        t1 = time.monotonic()
+        dec_budget = turn_budget.child("decode")
+        table = self._ints(prep["tables_np"])
+        row_remaining = row_budget_fn(per_row, sampling_per_turn, max_new,
+                                      self.device)
+
+        def decode_dispatch(cur_last, cur_valid, budget, done0):
+            return self._decode_dispatch_paged(
+                table, cur_last, cur_valid, budget, prep["temps"],
+                prep["top_ks"], prep["top_ps"], row_remaining(budget),
+                done0, greedy=prep["greedy"])
+
+        out_np = decode_segments(decode_dispatch, first, cur_valid,
+                                 self.tokenizer.eos_id, max_new, deadline,
+                                 timeout_s, retry=self.retry,
+                                 budget=dec_budget)
+        stats.decode_seconds = time.monotonic() - t1
+        results = finalize_outputs(
+            turns, first_np, out_np, all_tokens, max_new,
+            self.tokenizer.eos_id, self.kv.commit, self.tokenizer.decode,
+            stats)
+        self.last_stats = stats
+        return results, stats
+
+    # --- introspection ---
+
+    def describe(self) -> dict[str, Any]:
+        info = {
+            "model": self.cfg.name,
+            "params": self.num_params,
+            "max_seq_len": self.max_seq_len,
+            "num_slots": self.kv.num_slots,
+            "kv_layout": self.kv_layout,
+            "quant": self.quant,
+            "dtype": str(self.dtype).replace("torch.", ""),
+            "devices": [str(self.device)],
+            "page_size": self.kv.page_size,
+            "num_pages": self.kv.num_pages,
+            "kv_hbm_bytes": self.kv.hbm_bytes(),
+            "paged_decode": "pool-direct",
+            "attention_kernels": ("cuda" if self.device.type == "cuda"
+                                  else "plain"),
+            "kernel_launches": kattn.launch_counts(),
+        }
+        for feature in _FEATURES:
+            info[f"{feature}_reason"] = "not_ported"
+        return info

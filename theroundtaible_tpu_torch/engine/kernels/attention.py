@@ -1,0 +1,301 @@
+"""Paged attention for the serving hot path: hand-written CUDA kernels,
+their plain PyTorch versions, and their gates.
+
+Counterpart of theroundtaible_tpu/engine/pallas/attention.py for the two
+kernels the paged single-device serving path calls
+(paged_forward.forward_paged):
+
+- paged_decode_attention (K1, csrc/paged_decode.cu) - one query position
+  per row against the page pool through the page table; replaces the TPU
+  kernel `paged_decode_attention`.
+- paged_prefill_attention (K2, csrc/paged_prefill.cu) - a causal prefill
+  chunk at per-row offsets against the pool; replaces the TPU kernel
+  `paged_prefill_attention`.
+
+Each wrapper checks device, dtype, shape and contiguity and raises on what
+its kernel does not take. A tensor on the CPU takes the plain version (the
+CPU tests); a CUDA tensor launches the kernel or raises - there is no
+fallback. Each launch adds one to the wrapper's count (launch_counts()), so
+a run can show that its main path went through the kernels.
+
+The plain versions gather each row's pages through the table and run a
+masked softmax in f32 with the same finite MASK_VALUE. Cells at or past a
+row's kv_valid are zeroed before use: they are stale (the frontier page's
+tail, pages never written) and may hold anything, NaN included.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ..models.common import MASK_VALUE
+from . import build
+
+KERNELS = ("paged_decode_attention", "paged_prefill_attention")
+_launches = dict.fromkeys(KERNELS, 0)
+
+# What the CUDA kernels take (csrc/paged_common.cuh kMaxGroup; the D and
+# page sizes each kernel is instantiated and tested for).
+HEAD_DIMS = (64, 128, 256)
+PAGE_SIZES = (16, 32, 64, 128, 256)
+MAX_GROUP = 16
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def launch_counts() -> dict[str, int]:
+    """Kernel launches per wrapper since the last reset."""
+    return dict(_launches)
+
+
+def reset_launch_counts() -> None:
+    for name in _launches:
+        _launches[name] = 0
+
+
+# --- gates ---
+
+
+_declines: dict[tuple, Optional[str]] = {}
+
+
+def _decline(kernel: str, t: int, page_size: int, d: int, group: int,
+             device) -> Optional[str]:
+    """Why `kernel` cannot serve this shape on `device`, or None. On the
+    CPU every shape goes (the plain versions take any). Answers are
+    remembered per shape: the serving loop asks on every launch."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        return None
+    key = (kernel, t, page_size, d, group, device)
+    if key not in _declines:
+        _declines[key] = _cuda_decline(kernel, t, page_size, d, group,
+                                       device)
+    return _declines[key]
+
+
+def _cuda_decline(kernel: str, t: int, page_size: int, d: int, group: int,
+                  device: torch.device) -> Optional[str]:
+    if device.type != "cuda":
+        return f"device:{device.type}"
+    if d not in HEAD_DIMS:
+        return f"head_dim:{d} not in {HEAD_DIMS}"
+    if page_size not in PAGE_SIZES:
+        return f"page_size:{page_size} not in {PAGE_SIZES}"
+    if not 1 <= group <= MAX_GROUP:
+        return f"group:{group} not in 1..{MAX_GROUP}"
+    index = device.index if device.index is not None else 0
+    lib = build.library("paged_decode" if kernel == "decode"
+                        else "paged_prefill")
+    limit = lib.rt_max_smem_optin(index)
+    need = (lib.rt_paged_decode_smem_bytes(group, d, page_size)
+            if kernel == "decode"
+            else lib.rt_paged_prefill_smem_bytes(group, d, page_size, t))
+    if need > limit:
+        return f"smem:{need}>{limit}"
+    return None
+
+
+def paged_decode_supported(page_size: int, d: int, kh: int = 1,
+                           group: int = 1, device="cpu") -> bool:
+    """Can paged_decode_attention serve this pool shape on `device`?"""
+    return _decline("decode", 1, page_size, d, group, device) is None
+
+
+def paged_prefill_supported(t: int, page_size: int, d: int, kh: int = 1,
+                            group: int = 1, device="cpu") -> bool:
+    """Can paged_prefill_attention serve this chunk/pool shape?"""
+    return _decline("prefill", t, page_size, d, group, device) is None
+
+
+def pool_direct_decline_reason(chunk: int, page_size: int, d: int,
+                               kh: int, group: int,
+                               device) -> Optional[str]:
+    """The build-time gate of pool-direct paged serving: prefill chunks up
+    to `chunk` rows AND decode steps run off the pool, so both kernels
+    must take the shape. None when they do, else the reason."""
+    return (_decline("prefill", chunk, page_size, d, group, device)
+            or _decline("decode", 1, page_size, d, group, device))
+
+
+def paged_pool_direct_supported(chunk: int, page_size: int, d: int,
+                                kh_local: int, group: int,
+                                device="cpu") -> bool:
+    return pool_direct_decline_reason(chunk, page_size, d, kh_local, group,
+                                      device) is None
+
+
+# --- plain versions ---
+
+
+def paged_prefill_attention_ref(q, k_pool, v_pool, table, offsets, kv_valid,
+                                *, sliding_window: Optional[int] = None,
+                                softcap: Optional[float] = None):
+    """Plain version of K2: gather every row's pages, masked softmax in
+    f32, p cast to v's dtype before the PV product. [B,T,H,D]."""
+    b, t, h, d = q.shape
+    ps, kh = k_pool.shape[1], k_pool.shape[2]
+    group = h // kh
+    s = table.shape[1] * ps
+    dev = q.device
+    kv_pos = torch.arange(s, device=dev)
+    live = kv_pos[None, :] < kv_valid.to(dev)[:, None].long()   # [B,S]
+    idx = table.to(dev).long()
+    k = k_pool[idx].reshape(b, s, kh, d)
+    v = v_pool[idx].reshape(b, s, kh, d)
+    zero = torch.zeros((), dtype=k.dtype, device=dev)
+    k = torch.where(live[:, :, None, None], k, zero)
+    v = torch.where(live[:, :, None, None], v, zero)
+    q_pos = offsets.to(dev).long()[:, None] + torch.arange(t, device=dev)
+    mask = (kv_pos[None, None, :] <= q_pos[:, :, None]) & live[:, None, :]
+    if sliding_window is not None:
+        mask &= kv_pos[None, None, :] > q_pos[:, :, None] - sliding_window
+    qg = q.reshape(b, t, kh, group, d)       # head h = kh_i * group + g
+    logits = torch.einsum("btkgd,bskd->bkgts", qg.float(), k.float())
+    if softcap is not None:
+        logits = softcap * torch.tanh(logits / softcap)
+    logits = torch.where(mask[:, None, None], logits,
+                         torch.tensor(MASK_VALUE, device=dev))
+    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    out = torch.einsum("bkgts,bskd->btkgd", probs.float(), v.float())
+    return out.reshape(b, t, h, d).to(q.dtype)
+
+
+def paged_decode_attention_ref(q, k_pool, v_pool, table, kv_valid, *,
+                               sliding_window: Optional[int] = None,
+                               softcap: Optional[float] = None):
+    """Plain version of K1: the prefill math at one position per row,
+    q position kv_valid - 1 (kv_valid includes this step). [B,1,H,D]."""
+    return paged_prefill_attention_ref(
+        q, k_pool, v_pool, table, kv_valid - 1, kv_valid,
+        sliding_window=sliding_window, softcap=softcap)
+
+
+# --- kernel wrappers ---
+
+
+def _check(q, k_pool, v_pool, table, rows, what: str) -> None:
+    b, _, h, d = q.shape
+    if k_pool.dim() != 4 or k_pool.shape != v_pool.shape:
+        raise ValueError(f"{what}: pools must be [P,ps,K,D] and equal, got "
+                         f"{tuple(k_pool.shape)} / {tuple(v_pool.shape)}")
+    kh = k_pool.shape[2]
+    if k_pool.shape[3] != d or h % kh:
+        raise ValueError(f"{what}: q {tuple(q.shape)} does not match pools "
+                         f"{tuple(k_pool.shape)}")
+    if table.dim() != 2 or table.shape[0] != b:
+        raise ValueError(f"{what}: table must be [B, pages_per_seq], got "
+                         f"{tuple(table.shape)}")
+    for name, x in rows.items():
+        if x.shape != (b,):
+            raise ValueError(f"{what}: {name} must be [B], got "
+                             f"{tuple(x.shape)}")
+    if k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
+        raise ValueError(f"{what}: pool dtype {k_pool.dtype} != q dtype "
+                         f"{q.dtype}")
+    devices = {x.device for x in (q, k_pool, v_pool, table, *rows.values())}
+    if len(devices) != 1:
+        raise ValueError(f"{what}: operands on several devices {devices}")
+
+
+def _cuda_operands(q, k_pool, v_pool, table, rows, what: str):
+    """Kernel-side checks; returns int32 index tensors."""
+    if q.dtype not in _DTYPE_CODES:
+        raise ValueError(f"{what}: dtype {q.dtype} not in "
+                         f"{tuple(_DTYPE_CODES)}")
+    for name, x in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool)):
+        if not x.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous")
+        if x.data_ptr() % 16:
+            raise ValueError(f"{what}: {name} must be 16-byte aligned")
+    ints = {}
+    for name, x in {"table": table, **rows}.items():
+        if x.dtype != torch.int32 or not x.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous int32")
+        ints[name] = x
+    return ints
+
+
+def paged_decode_attention(q, k_pool, v_pool, table, kv_valid, *,
+                           sliding_window: Optional[int] = None,
+                           softcap: Optional[float] = None,
+                           k_scale=None, v_scale=None):
+    """Single-position decode attention straight off the page pool (K1).
+
+    q [B,1,H,D] pre-scaled and rope'd; pools [P,ps,K,D]; table [B,pp]
+    int32; kv_valid [B] int32 INCLUDING this step, whose K/V the caller
+    has written into the pool already. Returns [B,1,H,D] in q's dtype."""
+    if k_scale is not None or v_scale is not None:
+        raise NotImplementedError(
+            "quantized KV pages (in-kernel dequant, K4) are not ported yet")
+    if q.dim() != 4 or q.shape[1] != 1:
+        raise ValueError(f"paged_decode_attention serves one position, got "
+                         f"q {tuple(q.shape)}")
+    _check(q, k_pool, v_pool, table, {"kv_valid": kv_valid},
+           "paged_decode_attention")
+    if q.device.type == "cpu":
+        return paged_decode_attention_ref(
+            q, k_pool, v_pool, table, kv_valid,
+            sliding_window=sliding_window, softcap=softcap)
+    b, _, h, d = q.shape
+    p, ps, kh, _ = k_pool.shape
+    reason = _decline("decode", 1, ps, d, h // kh, q.device)
+    if reason is not None:
+        raise ValueError(f"paged_decode_attention declines: {reason}")
+    ints = _cuda_operands(q, k_pool, v_pool, table, {"kv_valid": kv_valid},
+                          "paged_decode_attention")
+    out = torch.empty_like(q)
+    rc = build.library("paged_decode").rt_paged_decode(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        ints["table"].data_ptr(), ints["kv_valid"].data_ptr(),
+        out.data_ptr(), b, h, kh, d, ps, table.shape[1],
+        int(sliding_window or 0), float(softcap or 0.0),
+        _DTYPE_CODES[q.dtype], q.device.index or 0,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(rc, "paged_decode_attention launch")
+    _launches["paged_decode_attention"] += 1
+    return out
+
+
+def paged_prefill_attention(q, k_pool, v_pool, table, offsets, kv_valid, *,
+                            sliding_window: Optional[int] = None,
+                            softcap: Optional[float] = None,
+                            k_scale=None, v_scale=None):
+    """Causal prefill attention of a chunk straight off the page pool (K2).
+
+    q [B,T,H,D] pre-scaled and rope'd, row i of batch row b at absolute
+    position offsets[b] + i; kv_valid [B] = offsets + real lengths. The
+    caller has scattered the chunk's K/V into the rows' pages; pages below
+    a row's offset may be aliased donor pages and are only read. Returns
+    [B,T,H,D] in q's dtype; rows past a row's real length are garbage the
+    caller drops."""
+    if k_scale is not None or v_scale is not None:
+        raise NotImplementedError(
+            "quantized KV pages (in-kernel dequant, K4) are not ported yet")
+    if q.dim() != 4:
+        raise ValueError(f"q must be [B,T,H,D], got {tuple(q.shape)}")
+    rows = {"offsets": offsets, "kv_valid": kv_valid}
+    _check(q, k_pool, v_pool, table, rows, "paged_prefill_attention")
+    if q.device.type == "cpu":
+        return paged_prefill_attention_ref(
+            q, k_pool, v_pool, table, offsets, kv_valid,
+            sliding_window=sliding_window, softcap=softcap)
+    b, t, h, d = q.shape
+    p, ps, kh, _ = k_pool.shape
+    reason = _decline("prefill", t, ps, d, h // kh, q.device)
+    if reason is not None:
+        raise ValueError(f"paged_prefill_attention declines: {reason}")
+    ints = _cuda_operands(q, k_pool, v_pool, table, rows,
+                          "paged_prefill_attention")
+    out = torch.empty_like(q)
+    rc = build.library("paged_prefill").rt_paged_prefill(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        ints["table"].data_ptr(), ints["offsets"].data_ptr(),
+        ints["kv_valid"].data_ptr(), out.data_ptr(), b, t, h, kh, d, ps,
+        table.shape[1], int(sliding_window or 0), float(softcap or 0.0),
+        _DTYPE_CODES[q.dtype], q.device.index or 0,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(rc, "paged_prefill_attention launch")
+    _launches["paged_prefill_attention"] += 1
+    return out

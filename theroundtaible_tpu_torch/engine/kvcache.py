@@ -1,0 +1,171 @@
+"""Per-knight slot bookkeeping and cross-knight prefix sharing
+(counterpart of theroundtaible_tpu/engine/kvcache.py).
+
+Each knight owns a slot whose cache holds the token ids already baked into
+it; the next turn prefills only the delta beyond the longest common token
+prefix. The paged pool (paging.PagedKVCache) is this slice's cache; the
+contiguous KVCache is not ported yet.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Optional
+
+# Session-namespaced slot names: the ASCII unit separator, which no
+# tokenizer/config surface produces, so a scoped name can never collide
+# with a legal knight name.
+SESSION_SEP = "\x1f"
+
+
+def scoped_slot(session: Optional[str], name: str) -> str:
+    """The canonical session-namespaced slot name `session<US>name`;
+    None/"" session returns the bare name."""
+    return f"{session}{SESSION_SEP}{name}" if session else name
+
+
+def session_of(name: str) -> str:
+    """The session namespace of a (possibly scoped) slot name; "" for
+    un-scoped names. Prefix donation stays within one session."""
+    return name.split(SESSION_SEP, 1)[0] if SESSION_SEP in name else ""
+
+
+def lcp(a: list[int], b: list[int]) -> int:
+    """Longest common prefix of two token-id sequences."""
+    n = min(len(a), len(b))
+    i = 0
+    while i < n and a[i] == b[i]:
+        i += 1
+    return i
+
+
+@dataclass
+class SlotState:
+    """Host-side bookkeeping for one knight's slot."""
+
+    slot_id: int
+    name: str
+    tokens: list[int] = field(default_factory=list)  # ids baked into cache
+
+
+class SlotBook:
+    """Slot-id bookkeeping alone - LRU allocation, LCP reuse planning,
+    donor search - for caches addressed by slot id."""
+
+    def __init__(self, num_slots: int):
+        self.num_slots = num_slots
+        self._slots: dict[str, SlotState] = {}
+        self._free = list(range(num_slots))
+
+    def acquire(self, name: str, pinned: tuple[str, ...] = ()) -> SlotState:
+        """The named knight's slot, allocated on first use. `pinned` names
+        are never evicted, so two rows of one batch cannot share a slot."""
+        if name in self._slots:
+            self._slots[name] = self._slots.pop(name)  # LRU refresh
+            return self._slots[name]
+        if not self._free:
+            victim = next((n for n in self._slots if n not in pinned), None)
+            if victim is None:
+                raise RuntimeError(
+                    f"KVCache has {self.num_slots} slots but "
+                    f"{len(pinned)} knights are pinned in one batch - "
+                    "raise num_slots in the adapter config")
+            self.release(victim)
+        state = SlotState(slot_id=self._free.pop(0), name=name)
+        self._slots[name] = state
+        return state
+
+    def release(self, name: str) -> None:
+        state = self._slots.pop(name, None)
+        if state is not None:
+            self._free.append(state.slot_id)
+
+    def slot_names(self) -> list[str]:
+        return list(self._slots)
+
+    @staticmethod
+    def common_prefix_len(cached: list[int], new: list[int]) -> int:
+        return lcp(cached, new)
+
+    def reuse_plan(self, name: str, tokens: list[int],
+                   pinned: tuple[str, ...] = ()) -> tuple[int, int]:
+        """(slot_id, reuse_len), reuse_len capped at len(tokens)-1; the
+        record is truncated now so a turn dying mid-flight never claims
+        clobbered positions."""
+        state = self.acquire(name, pinned)
+        reuse = min(self.common_prefix_len(state.tokens, tokens),
+                    len(tokens) - 1)
+        state.tokens = state.tokens[:reuse]
+        return state.slot_id, reuse
+
+    def commit(self, name: str, tokens: list[int]) -> None:
+        self.acquire(name).tokens = list(tokens)
+
+    def best_donor(self, name: str,
+                   tokens: list[int]) -> tuple[Optional[SlotState], int]:
+        """The OTHER slot of the same session sharing the longest committed
+        token prefix with `tokens`."""
+        best, best_len = None, 0
+        scope = session_of(name)
+        for state in self._slots.values():
+            if state.name == name or not state.tokens:
+                continue
+            if session_of(state.name) != scope:
+                continue
+            n = self.common_prefix_len(state.tokens, tokens)
+            if n > best_len:
+                best, best_len = state, n
+        return best, best_len
+
+
+def share_prefixes(kv, names, all_tokens, offsets, *, min_shared: int,
+                   add_share, flush_shares, prefill_span,
+                   extra_pinned: tuple[str, ...] = ()) -> tuple[list[int],
+                                                                 int]:
+    """Two-pass cross-knight shared-prefix reuse:
+
+    (a) donor pass - a slot committed by an earlier call that shares a
+        longer token prefix than a row's own history donates its span;
+    (b) leader pass - within one batch, the row with the most cache
+        coverage prefills the batch-wide common span ONCE and the
+        laggards take it.
+
+    Callbacks own the device mechanics: add_share(donor_state, row_i, lo,
+    hi) shares one span (paged: page aliasing); flush_shares() applies
+    queued shares; prefill_span(row_i, lo, hi) prefills a row's span.
+    Returns (updated offsets, leader-prefilled token count)."""
+    b = len(names)
+    pinned = tuple(names) + tuple(extra_pinned)
+    offsets = list(offsets)
+    extra_prefill = 0
+
+    for i in range(b):
+        cap = len(all_tokens[i]) - 1
+        donor, dlen = kv.best_donor(names[i], all_tokens[i])
+        dlen = min(dlen, cap)
+        if donor is not None and dlen - offsets[i] >= min_shared:
+            add_share(donor, i, offsets[i], dlen)
+            offsets[i] = dlen
+    flush_shares()
+
+    if b < 2:
+        return offsets, extra_prefill
+    shared = all_tokens[0]
+    for t in all_tokens[1:]:
+        shared = shared[:kv.common_prefix_len(shared, t)]
+    l_shared = min(len(shared), min(len(t) for t in all_tokens) - 1)
+    m = max(range(b), key=lambda i: offsets[i])
+    laggards = [i for i in range(b)
+                if i != m and l_shared - offsets[i] >= min_shared]
+    if not laggards:
+        return offsets, extra_prefill
+    if offsets[m] < l_shared:
+        prefill_span(m, offsets[m], l_shared)
+        extra_prefill += l_shared - offsets[m]
+        offsets[m] = l_shared
+    leader = kv.acquire(names[m], pinned)
+    for i in laggards:
+        add_share(leader, i, offsets[i], l_shared)
+        offsets[i] = l_shared
+    flush_shares()
+    return offsets, extra_prefill

@@ -1,0 +1,379 @@
+"""Transformer core shared by Gemma / Llama / Mistral / Qwen - PyTorch.
+
+Counterpart of theroundtaible_tpu/engine/models/common.py. Parameters are a
+plain dict of tensors in the JAX package's axis layouts (q_proj [E,H,D],
+k_proj/v_proj [E,K,D], o_proj [H,D,E], gate/up [E,F], down [F,E],
+embedding and lm_head [V,E]), so a weight tree moves between the two
+packages unchanged (engine/weights.py). Numerics follow the JAX code:
+norms, rope and softmax in f32, activations in the parameter dtype, and
+every matrix product's result widened to f32 where the JAX code asks for an
+f32 result (`preferred_element_type`).
+
+The dense `attention`/`forward` over a position-aligned cache is the
+whole-model oracle of the tests; serving runs paged_forward.forward_paged.
+MoE (`moe_mlp`), int4/int8 leaves and LoRA routing are not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable, Optional
+
+import torch
+import torch.nn.functional as F
+
+Params = dict[str, Any]
+
+# Masked-attention-logit sentinel - finite (not -inf) so a fully-masked row
+# softmaxes to uniform instead of NaN. The CUDA kernels
+# (kernels/csrc/paged_common.cuh kMaskValue) use the same value.
+MASK_VALUE = -2.3819763e38
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    """Architecture hyperparameters + family behavior flags."""
+
+    name: str
+    vocab_size: int
+    num_layers: int
+    embed_dim: int
+    num_heads: int
+    num_kv_heads: int
+    head_dim: int
+    mlp_dim: int
+    max_seq_len: int = 8192
+    rope_theta: float = 10_000.0
+    norm_eps: float = 1e-6
+    # family flags
+    gelu_mlp: bool = False            # Gemma: GeGLU; Llama/Mistral: SiLU
+    scale_embeddings: bool = False    # Gemma: embeddings *= sqrt(embed_dim)
+    rmsnorm_unit_offset: bool = False  # Gemma: weight is (1 + w)
+    post_attn_norm: bool = False      # Gemma2-style extra norms
+    post_mlp_norm: bool = False
+    attn_logit_softcap: Optional[float] = None   # Gemma2: 50.0
+    final_logit_softcap: Optional[float] = None  # Gemma2: 30.0
+    sliding_window: Optional[int] = None         # Mistral: 4096
+    query_pre_attn_scalar: Optional[float] = None  # Gemma: head_dim**-0.5
+    attn_bias: bool = False           # Qwen2: bias on q/k/v projections
+    tie_embeddings: bool = True       # output head = embedding table
+    # MoE (Mixtral): None = dense MLP; X experts, top-k routed
+    num_experts: Optional[int] = None
+    num_experts_per_tok: int = 2
+    # Runtime implementation choice kept for config parity with the JAX
+    # package; the port's forward is always the dense oracle and serving
+    # always goes through the paged kernels.
+    attn_impl: str = "dense"
+
+    @property
+    def kv_repeat(self) -> int:
+        return self.num_heads // self.num_kv_heads
+
+
+# --- primitives ---
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float,
+             unit_offset: bool) -> torch.Tensor:
+    dtype = x.dtype
+    x = x.float()
+    var = torch.mean(x * x, dim=-1, keepdim=True)
+    x = x * torch.rsqrt(var + eps)
+    w = weight.float()
+    if unit_offset:
+        w = 1.0 + w
+    return (x * w).to(dtype)
+
+
+def rope_tables(positions: torch.Tensor, head_dim: int,
+                theta: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """(sin, cos) [B, T, 1, D/2] f32 of the rotary angles at `positions`
+    [B, T] - the same for every layer, so a forward computes them once."""
+    half = head_dim // 2
+    fraction = torch.arange(0, half, dtype=torch.float32,
+                            device=positions.device) / half
+    timescale = theta ** fraction                            # [D/2]
+    angles = positions[..., None].float() / timescale        # [B,T,D/2]
+    angles = angles[:, :, None, :]                           # [B,T,1,D/2]
+    return torch.sin(angles), torch.cos(angles)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+         tables: Optional[tuple[torch.Tensor, torch.Tensor]] = None
+         ) -> torch.Tensor:
+    """Rotary position embedding. x: [B, T, H, D], positions: [B, T];
+    `tables` = rope_tables(positions, D, theta) when already computed."""
+    half = x.shape[-1] // 2
+    sin, cos = (tables if tables is not None
+                else rope_tables(positions, x.shape[-1], theta))
+    x1, x2 = x.float().split(half, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def _softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
+    if cap is None:
+        return x
+    return cap * torch.tanh(x / cap)
+
+
+def _matmul(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """a [..., C] @ w [C, ...] -> [..., *w.shape[1:]]: the JAX einsums that
+    contract a's last axis with the weight's first. The result keeps the
+    working dtype: a bf16 product accumulates in f32 and rounds once,
+    which is the JAX einsum's f32 result cast back to the working dtype -
+    what most callers do next. Callers whose next math is f32 (biases,
+    the MLP activation) widen it."""
+    out = torch.matmul(a, w.reshape(w.shape[0], -1))
+    return out.reshape(*a.shape[:-1], *w.shape[1:])
+
+
+def embed_tokens(emb: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """Embedding lookup; the result's dtype follows the table."""
+    return emb[tokens]
+
+
+def project_qkv(
+    x: torch.Tensor,              # [B, T, E]
+    layer: Params,
+    cfg: ModelConfig,
+    positions: torch.Tensor,      # [B, T] absolute positions
+    rope_tabs: Optional[tuple[torch.Tensor, torch.Tensor]] = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """QKV projection + rope + query scaling. `rope_tabs`: the forward's
+    rope_tables, shared by every layer."""
+    q = _matmul(x, layer["q_proj"])                          # [B,T,H,D]
+    k = _matmul(x, layer["k_proj"])                          # [B,T,K,D]
+    v = _matmul(x, layer["v_proj"])
+    if cfg.attn_bias:  # Qwen2: linear bias applied BEFORE rotary (HF order)
+        q = q.float() + layer["q_bias"].float()
+        k = k.float() + layer["k_bias"].float()
+        v = v.float() + layer["v_bias"].float()
+    if rope_tabs is None:
+        rope_tabs = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+    q = rope(q.to(x.dtype), positions, cfg.rope_theta, rope_tabs)
+    k = rope(k.to(x.dtype), positions, cfg.rope_theta, rope_tabs)
+    v = v.to(x.dtype)
+    scale = (cfg.query_pre_attn_scalar
+             if cfg.query_pre_attn_scalar is not None
+             else cfg.head_dim ** -0.5)
+    return q * scale, k, v
+
+
+def attention(
+    x: torch.Tensor,              # [B, T, E]
+    layer: Params,
+    cfg: ModelConfig,
+    positions: torch.Tensor,      # [B, T]
+    kv_cache: Optional[tuple[torch.Tensor, torch.Tensor]],  # [B,S,K,D]
+    cache_offset: Optional[torch.Tensor],   # [B] write offset
+    attn_mask: torch.Tensor,      # [B, T, S] bool, True = attend
+    rope_tabs=None,
+) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
+    """Dense GQA attention over a position-aligned cache. Returns
+    (output [B,T,E], updated (k_cache, v_cache)); the input cache is not
+    modified. With kv_cache None the k/v of this call form the cache."""
+    q, k, v = project_qkv(x, layer, cfg, positions, rope_tabs)
+    if kv_cache is not None:
+        k_cache, v_cache = kv_cache[0].clone(), kv_cache[1].clone()
+        t = k.shape[1]
+        for row in range(k.shape[0]):
+            off = int(cache_offset[row])
+            k_cache[row, off:off + t] = k[row]
+            v_cache[row, off:off + t] = v[row]
+    else:
+        k_cache, v_cache = k, v
+    k_att = k_cache.repeat_interleave(cfg.kv_repeat, dim=2)
+    v_att = v_cache.repeat_interleave(cfg.kv_repeat, dim=2)
+    # f32 products of the working-dtype values, as the JAX einsums'
+    # preferred_element_type=f32 gives
+    logits = torch.einsum("bthd,bshd->bhts", q.float(), k_att.float())
+    logits = _softcap(logits, cfg.attn_logit_softcap)
+    logits = torch.where(attn_mask[:, None, :, :], logits,
+                         torch.tensor(MASK_VALUE, device=logits.device))
+    probs = torch.softmax(logits, dim=-1).to(x.dtype)
+    out = torch.einsum("bhts,bshd->bthd", probs.float(),
+                       v_att.float()).to(x.dtype)
+    out = _matmul(out.reshape(*out.shape[:2], -1),
+                  layer["o_proj"].reshape(-1, cfg.embed_dim)).to(x.dtype)
+    return out, (k_cache, v_cache)
+
+
+def mlp(x: torch.Tensor, layer: Params, cfg: ModelConfig) -> torch.Tensor:
+    if cfg.num_experts:
+        raise NotImplementedError(
+            "MoE (moe_mlp) is not ported yet (ROADMAP, slice 7)")
+    gate = _matmul(x, layer["gate_proj"]).float()
+    up = _matmul(x, layer["up_proj"]).float()
+    act = (F.gelu(gate, approximate="tanh") if cfg.gelu_mlp
+           else F.silu(gate))
+    hidden = (act * up).to(x.dtype)
+    return _matmul(hidden, layer["down_proj"]).to(x.dtype)
+
+
+def transformer_block(
+    x: torch.Tensor, layer: Params, cfg: ModelConfig,
+    positions: torch.Tensor, kv_cache, cache_offset, attn_mask,
+    attn_fn: Optional[Callable] = None, rope_tabs=None,
+) -> tuple[torch.Tensor, Any]:
+    """One block. `attn_fn(h, layer) -> (out, cache)`, when given,
+    replaces dense attention - the hook paged_forward uses, so the
+    norm/residual/MLP wiring and every family flag live in one place."""
+    h = rms_norm(x, layer["input_norm"], cfg.norm_eps,
+                 cfg.rmsnorm_unit_offset)
+    if attn_fn is None:
+        attn_out, new_cache = attention(h, layer, cfg, positions, kv_cache,
+                                        cache_offset, attn_mask, rope_tabs)
+    else:
+        attn_out, new_cache = attn_fn(h, layer)
+    if cfg.post_attn_norm:
+        attn_out = rms_norm(attn_out, layer["post_attn_norm"], cfg.norm_eps,
+                            cfg.rmsnorm_unit_offset)
+    x = x + attn_out
+    h = rms_norm(x, layer["pre_mlp_norm"], cfg.norm_eps,
+                 cfg.rmsnorm_unit_offset)
+    mlp_out = mlp(h, layer, cfg)
+    if cfg.post_mlp_norm:
+        mlp_out = rms_norm(mlp_out, layer["post_mlp_norm"], cfg.norm_eps,
+                           cfg.rmsnorm_unit_offset)
+    return x + mlp_out, new_cache
+
+
+def make_attention_mask(positions: torch.Tensor, kv_len: int,
+                        kv_valid_len: torch.Tensor,
+                        sliding_window: Optional[int]) -> torch.Tensor:
+    """Causal (+ optional sliding window) mask against a position-aligned
+    cache of kv_len entries: pos_kv <= pos_q and s < valid."""
+    kv_pos = torch.arange(kv_len, device=positions.device)[None, None, :]
+    q_pos = positions[:, :, None]
+    mask = (kv_pos <= q_pos) & (kv_pos < kv_valid_len[:, None, None])
+    if sliding_window is not None:
+        mask &= kv_pos > q_pos - sliding_window
+    return mask
+
+
+def scale_embeddings(x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    if not cfg.scale_embeddings:
+        return x
+    return x * torch.tensor(math.sqrt(cfg.embed_dim),
+                            dtype=torch.float32).to(x.dtype)
+
+
+def lm_head(params: Params, cfg: ModelConfig,
+            x: torch.Tensor) -> torch.Tensor:
+    """Final-normed hidden [B,T,E] -> f32 logits [B,T,V] (softcapped)."""
+    head = params["embedding"] if cfg.tie_embeddings else params["lm_head"]
+    logits = torch.matmul(x, head.t()).float()
+    return _softcap(logits, cfg.final_logit_softcap)
+
+
+def forward(
+    params: Params, cfg: ModelConfig,
+    tokens: torch.Tensor,          # [B, T]
+    positions: torch.Tensor,       # [B, T]
+    kv_caches: Optional[list[tuple[torch.Tensor, torch.Tensor]]],
+    cache_offset: Optional[torch.Tensor],   # [B]
+    kv_valid_len: torch.Tensor,    # [B] valid entries AFTER this step
+    last_pos: Optional[torch.Tensor] = None,   # [B] row index into T
+) -> tuple[torch.Tensor, list[tuple[torch.Tensor, torch.Tensor]]]:
+    """Full model forward over a position-aligned cache. Returns (logits
+    [B,T,V] - [B,1,V] when `last_pos` is given, gathered before the head -
+    and the updated caches)."""
+    x = scale_embeddings(embed_tokens(params["embedding"], tokens), cfg)
+    kv_len = (kv_caches[0][0].shape[1] if kv_caches is not None
+              else tokens.shape[1])
+    mask = make_attention_mask(positions, kv_len, kv_valid_len,
+                               cfg.sliding_window)
+    tabs = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+    new_caches = []
+    for i, layer in enumerate(params["layers"]):
+        cache_i = kv_caches[i] if kv_caches is not None else None
+        x, new_cache = transformer_block(x, layer, cfg, positions, cache_i,
+                                         cache_offset, mask, rope_tabs=tabs)
+        new_caches.append(new_cache)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps,
+                 cfg.rmsnorm_unit_offset)
+    if last_pos is not None:
+        x = gather_rows(x, last_pos)
+    return lm_head(params, cfg, x), new_caches
+
+
+def gather_rows(x: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """Gather one T-row per batch element: [B,T,E], [B] -> [B,1,E]."""
+    idx = pos.long()[:, None, None].expand(x.shape[0], 1, x.shape[2])
+    return torch.gather(x, 1, idx)
+
+
+# --- initialization ---
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator,
+                dtype=torch.bfloat16, device="cpu") -> Params:
+    """Random init with the JAX package's distributions (normal scaled by
+    fan_in^-0.5, unit or zero norms, 0.02 biases), drawn in a fixed order
+    from `generator` - the counterpart of the JAX key splits. The values
+    differ from jax.random's; tests bridge weights instead
+    (engine/weights.py)."""
+    device = torch.device(device)
+
+    def normal(shape, scale):
+        x = torch.randn(shape, generator=generator, dtype=torch.float32,
+                        device=device)
+        return (x * scale).to(dtype)
+
+    def norm(n):
+        return (torch.zeros(n, dtype=dtype, device=device)
+                if cfg.rmsnorm_unit_offset
+                else torch.ones(n, dtype=dtype, device=device))
+
+    if cfg.num_experts:
+        raise NotImplementedError(
+            "MoE parameters are not ported yet (ROADMAP, slice 7)")
+    e, h, k_, d, f = (cfg.embed_dim, cfg.num_heads, cfg.num_kv_heads,
+                      cfg.head_dim, cfg.mlp_dim)
+    params: Params = {"embedding": normal((cfg.vocab_size, e), e ** -0.5)}
+    layers = []
+    for _ in range(cfg.num_layers):
+        layer = {
+            "q_proj": normal((e, h, d), e ** -0.5),
+            "k_proj": normal((e, k_, d), e ** -0.5),
+            "v_proj": normal((e, k_, d), e ** -0.5),
+            "o_proj": normal((h, d, e), (h * d) ** -0.5),
+            "input_norm": norm(e),
+            "pre_mlp_norm": norm(e),
+            "gate_proj": normal((e, f), e ** -0.5),
+            "up_proj": normal((e, f), e ** -0.5),
+            "down_proj": normal((f, e), f ** -0.5),
+        }
+        if cfg.attn_bias:
+            layer["q_bias"] = normal((h, d), 0.02)
+            layer["k_bias"] = normal((k_, d), 0.02)
+            layer["v_bias"] = normal((k_, d), 0.02)
+        if cfg.post_attn_norm:
+            layer["post_attn_norm"] = layer["input_norm"]
+        if cfg.post_mlp_norm:
+            layer["post_mlp_norm"] = layer["pre_mlp_norm"]
+        layers.append(layer)
+    params["layers"] = layers
+    params["final_norm"] = norm(e)
+    if not cfg.tie_embeddings:
+        params["lm_head"] = normal((cfg.vocab_size, e), e ** -0.5)
+    return params
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def param_count(params: Params) -> int:
+    """Logical parameter count: every leaf's elements (a leaf reachable
+    under two names counts twice, as jax.tree_util.tree_leaves does)."""
+    return sum(x.numel() for x in _leaves(params))
