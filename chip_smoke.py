@@ -9,11 +9,14 @@ Phases, each printing one JSON line; any failure exits non-zero:
 
 1. device  - the card's name and power limit (nvidia-smi).
 2. build   - nvcc builds the CUDA kernels from engine/kernels/csrc.
-3. kernels - K1 (paged decode) and K2 (paged prefill) against their plain
-             PyTorch versions on the card in bf16 at Llama-3-8B's attention
-             shape (H=32, K=8, D=128, page 128), plus window, softcap,
-             D=64 and D=256 cases; kernel and plain times from CUDA events
-             beside each kernel's device-memory/operations bound.
+3. kernels - K1 (paged decode), K2 (paged prefill) and K3 (ragged mixed
+             prefill/decode) against their plain PyTorch versions on the
+             card in bf16 at Llama-3-8B's attention shape (H=32, K=8,
+             D=128, page 128), plus window, softcap, D=64 and D=256 cases
+             (K3 also a mid-page chunk with inert blocks), NaN in every
+             cell past kv_valid; kernel and plain times from CUDA events
+             beside each kernel's device-memory/operations bound and SDPA
+             on a pre-gathered view.
 4. engine  - InferenceEngine.from_config for llama-3-8b-instruct (full
              width, 32 layers, seeded random weights, byte tokenizer),
              paged pool, bf16, 8 slots, max_seq_len 8192; warmup(); two
@@ -27,6 +30,18 @@ Phases, each printing one JSON line; any failure exits non-zero:
 6. path    - one prefill chunk and 16 decode steps of forward_paged at full
              width with the depth cut to 2 layers, through the kernels and
              through the plain versions, logits compared.
+7. ragged_path - one flat buffer (3 decode rows at ~1.6k cached tokens and
+             a 1000-row chunk) through forward_ragged at full width, 2
+             layers: K3 against its plain version, and forward_ragged
+             against forward_paged (K1 for the decode rows, K2 for the
+             chunk) on identical pools; logits compared.
+8. scheduler - the engine phase's 32-layer engine behind a SessionScheduler:
+             session alpha (the round-1 prompts, 96 greedy tokens) and
+             session beta (another 1.2k preamble) submitted once alpha has
+             live rows, so beta joins through ragged mixed dispatches.
+             K1, K2 and K3 must all launch within the phase; beta's TTFT,
+             alpha's decode rate and the ragged dispatches' walls are
+             printed.
 
 Then a `{"kernels": [...]}` line, the nvidia-smi line, and last
 `{"ok": true, "device": {...}}`. Details go to chiprun_out/chip_smoke/.
@@ -41,6 +56,7 @@ import json
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -270,10 +286,136 @@ def kernels_phase(torch, kattn):
                                      valid, offsets, flush),
         "bytes": 2 * sum(lengths_l) * H * D * 2 + cells * K * D * 2 * 2,
         "flops": pairs * H * D * 4}
+    results["ragged_cases"], timing["ragged"] = ragged_kernel_cases(
+        torch, kattn, gen, flush)
     for t in timing.values():
         t["bound_ms"], t["bound_by"] = bound_ms(t["bytes"], t["flops"])
     results["timing"] = timing
     return results
+
+
+# K3's main case: three decode rows at ~1.6k cached tokens and a 1000-row
+# chunk at offset 0 fill a 1024-row flat buffer (no inert blocks).
+RAGGED_MAIN = [(1599, 1), (1649, 1), (1699, 1), (0, 1000)]
+
+
+def ragged_inputs(torch, gen, runs, T, H, K, D, ps, dtype, dev):
+    """A flat buffer of `runs` [(query offset, rows)], one sequence each,
+    over shuffled pages of an 8192-token context, plus the inert sequence
+    on the scratch page 0 that every unused block points at. NaN in every
+    cell past each sequence's kv_valid."""
+    n = len(runs)
+    k_pool, v_pool, table = make_pool(torch, gen, n, 8192, K, D, ps, dtype,
+                                      dev)
+    valid = torch.tensor([o + m for o, m in runs], dtype=torch.int32,
+                         device=dev)
+    poison_past_frontier(k_pool, v_pool, table, valid, ps)
+    tables = torch.cat([table, torch.zeros_like(table[:1])])
+    seq_of_block = torch.full((T // 8,), n, dtype=torch.int32)
+    block_qstart = torch.zeros(T // 8, dtype=torch.int32)
+    blk = 0
+    for s, (_o, m) in enumerate(runs):
+        for k in range(-(-m // 8)):
+            seq_of_block[blk], block_qstart[blk] = s, 8 * k
+            blk += 1
+    offsets = torch.tensor([o for o, _ in runs] + [0], dtype=torch.int32)
+    kv_valid = torch.cat([valid, torch.ones(1, dtype=torch.int32,
+                                            device=dev)])
+    q = (torch.randn(T, H, D, generator=gen, device=dev)
+         * D ** -0.5).to(dtype)
+    return (q, k_pool, v_pool, tables, seq_of_block.to(dev),
+            block_qstart.to(dev), offsets.to(dev), kv_valid)
+
+
+def ragged_kernel_cases(torch, kattn, gen, flush):
+    """K3 against its plain version on every row (pad rows are 0 in both),
+    then its times at the main case."""
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    cases = [(32, 8, 128, None, None, RAGGED_MAIN, 1024),
+             # a chunk starting mid-page, inert blocks behind it
+             (32, 8, 128, None, None, [(1000, 300), (700, 1), (2000, 1)],
+              512),
+             (32, 8, 128, 4096, None, [(4999, 1), (6999, 1), (4000, 480)],
+              512),
+             (32, 8, 128, None, 50.0, RAGGED_MAIN, 1024),
+             (32, 8, 64, None, None, RAGGED_MAIN, 1024),
+             (8, 1, 256, None, None, RAGGED_MAIN, 1024)]
+    errs = []
+    for H, K, D, window, softcap, runs, T in cases:
+        args = ragged_inputs(torch, gen, runs, T, H, K, D, 128, bf16, dev)
+        out = kattn.ragged_paged_attention(*args, sliding_window=window,
+                                           softcap=softcap)
+        ref = kattn.ragged_paged_attention_ref(
+            *args, sliding_window=window, softcap=softcap)
+        err, ok = max_err(torch, out, ref)
+        errs.append({"H": H, "K": K, "D": D, "window": window,
+                     "softcap": softcap, "T": T, "runs": runs,
+                     "max_abs_err": err})
+        check(ok, f"K3 disagrees with its plain version: {errs[-1]}")
+    H, K, D, T = 32, 8, 128, 1024
+    args = ragged_inputs(torch, gen, RAGGED_MAIN, T, H, K, D, 128, bf16, dev)
+    valid = [o + m for o, m in RAGGED_MAIN]
+    offsets = [o for o, _ in RAGGED_MAIN]
+    lengths = [m for _, m in RAGGED_MAIN]
+    cells = kv_cells(valid, offsets, None)
+    pairs = attended_pairs(valid, offsets, lengths, None)
+    timing = {
+        "shape": {"T": T, "H": H, "K": K, "D": D, "ps": 128,
+                  "runs": RAGGED_MAIN},
+        "ms": time_ms(torch, lambda: kattn.ragged_paged_attention(*args),
+                      20, flush),
+        "plain_ms": time_ms(
+            torch, lambda: kattn.ragged_paged_attention_ref(*args), 3,
+            flush),
+        "sdpa_view_ms": sdpa_ragged_ms(torch, args, RAGGED_MAIN, flush),
+        "bytes": 2 * T * H * D * 2 + cells * K * D * 2 * 2,
+        "flops": pairs * H * D * 4}
+    # Where K3's time goes: the same buffer with only its decode rows, and
+    # with only its chunk (every other block inert).
+    for key, runs in (("decode_rows_only_ms", RAGGED_MAIN[:3]),
+                      ("chunk_only_ms", RAGGED_MAIN[3:])):
+        part = ragged_inputs(torch, gen, runs, T, H, K, D, 128, bf16, dev)
+        timing[key] = time_ms(
+            torch, lambda: kattn.ragged_paged_attention(*part), 20, flush)
+    return errs, timing
+
+
+def sdpa_ragged_ms(torch, args, runs, flush):
+    """Yardstick only, never called by the port: one
+    scaled_dot_product_attention call over the sequences' live cells
+    gathered and concatenated beforehand (not timed), every row masked to
+    its own sequence's causal prefix (block-diagonal mask; pad rows keep
+    their sequence's cells so no row is empty)."""
+    import torch.nn.functional as F
+    q, k_pool, v_pool, tables = args[:4]
+    t, h, d = q.shape
+    ps, kh = k_pool.shape[1], k_pool.shape[2]
+    dev = q.device
+    keys, vals, kv_seq, kv_pos = [], [], [], []
+    row_seq = torch.full((t,), -1, dtype=torch.long, device=dev)
+    row_pos = torch.zeros(t, dtype=torch.long, device=dev)
+    row = 0
+    for s, (o, m) in enumerate(runs):
+        n = o + m
+        pages = tables[s, :-(-n // ps)].long()
+        keys.append(k_pool[pages].reshape(-1, kh, d)[:n])
+        vals.append(v_pool[pages].reshape(-1, kh, d)[:n])
+        kv_seq.append(torch.full((n,), s, device=dev))
+        kv_pos.append(torch.arange(n, device=dev))
+        span = -(-m // 8) * 8
+        row_seq[row:row + span] = s
+        row_pos[row:row + span] = torch.clamp(
+            o + torch.arange(span, device=dev), max=n - 1)
+        row += span
+    row_seq[row:] = 0
+    k = torch.cat(keys).transpose(0, 1)[None].contiguous()
+    v = torch.cat(vals).transpose(0, 1)[None].contiguous()
+    kv_seq, kv_pos = torch.cat(kv_seq), torch.cat(kv_pos)
+    mask = ((kv_seq[None] == row_seq[:, None])
+            & (kv_pos[None] <= row_pos[:, None]))[None, None]
+    qt = q.transpose(0, 1)[None].contiguous()
+    return time_ms(torch, lambda: F.scaled_dot_product_attention(
+        qt, k, v, attn_mask=mask, scale=1.0, enable_gqa=True), 20, flush)
 
 
 def sdpa_view_ms(torch, q, k_pool, v_pool, table, valid, offsets, flush):
@@ -360,8 +502,9 @@ def engine_phase(torch, kattn):
              launches=launches, responses=len(responses), **stats)
         check(adapter.last_degradation is None,
               f"round {rnd} degraded: {adapter.last_degradation}")
-        check(all(n > 0 for n in launches.values()),
-              f"round {rnd}: a kernel never launched: {launches}")
+        check(launches["paged_decode_attention"] > 0
+              and launches["paged_prefill_attention"] > 0,
+              f"round {rnd}: K1 or K2 never launched: {launches}")
         check(stats["decode_tokens"] > 0, f"round {rnd} decoded nothing")
         if rnd == 2:
             check(stats["reused_tokens"] > 0, "round 2 reused no tokens")
@@ -432,6 +575,194 @@ def path_phase(torch, engine):
          greedy_agreement=agree / steps)
 
 
+def ragged_path_phase(torch, engine):
+    """One flat buffer at full width, depth cut to 2 layers: 3 decode rows
+    at 1600/1650/1700 cached tokens (random cache content) and a 1000-row
+    chunk of a 4th sequence at offset 0. forward_ragged through K3 against
+    its plain version, and against forward_paged on identical pools (K1 for
+    the decode rows, K2 for the chunk)."""
+    from theroundtaible_tpu_torch.engine.models.common import init_params
+    from theroundtaible_tpu_torch.engine.paged_forward import (
+        forward_paged, forward_ragged)
+    from theroundtaible_tpu_torch.engine.serving_loop import (
+        RaggedSeq, build_ragged_batch)
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    cfg = dataclasses.replace(engine.cfg, num_layers=2)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    params = init_params(cfg, gen, bf16, dev)
+    ps, S = 128, 4
+    pp = cfg.max_seq_len // ps
+    table = (torch.randperm(S * pp, generator=gen, device=dev) + 1) \
+        .reshape(S, pp).to(torch.int32)
+    shape = (1 + S * pp, ps, cfg.num_kv_heads, cfg.head_dim)
+    base = [(torch.randn(shape, generator=gen, device=dev).to(bf16),
+             torch.randn(shape, generator=gen, device=dev).to(bf16))
+            for _ in range(cfg.num_layers)]
+    kernel_pools, plain_pools, paged_pools = (
+        [(k.clone(), v.clone()) for k, v in base] for _ in range(3))
+    del base
+    starts = [1599, 1649, 1699]
+    dec = torch.randint(3, 259, (3,), generator=gen, device=dev)
+    chunk = torch.randint(3, 259, (1000,), generator=gen, device=dev)
+    table_np = table.cpu().numpy()
+    seqs = [RaggedSeq([int(dec[i])], starts[i], table_np[i])
+            for i in range(3)]
+    seqs.append(RaggedSeq(chunk.tolist(), 0, table_np[3]))
+    batch = build_ragged_batch(seqs, t_budget=1024, s_max=S + 1,
+                               pages_per_seq=pp, scratch_page=0, pad_id=0,
+                               page_size=ps)
+    t = {k: torch.as_tensor(batch[k], device=dev) for k in (
+        "tokens", "positions", "tables", "seq_of_block", "block_qstart",
+        "query_offsets", "kv_valid", "token_pages", "token_offs",
+        "last_rows")}
+
+    def ragged(pools, plain):
+        return forward_ragged(
+            params, cfg, t["tokens"].long(), t["positions"], pools,
+            t["tables"],
+            t["seq_of_block"], t["block_qstart"], t["query_offsets"],
+            t["kv_valid"], t["token_pages"], t["token_offs"],
+            t["last_rows"], plain=plain)[:S]
+
+    lk, lp = ragged(kernel_pools, False), ragged(plain_pools, True)
+    starts_t = torch.tensor(starts, dtype=torch.int32, device=dev)
+    ld = forward_paged(params, cfg, dec.long()[:, None], starts_t[:, None],
+                       paged_pools, table[:3], starts_t + 1)
+    n = torch.tensor([1000], dtype=torch.int32, device=dev)
+    lc = forward_paged(params, cfg, chunk.long()[None],
+                       torch.arange(1000, dtype=torch.int32,
+                                    device=dev)[None],
+                       paged_pools, table[3:], n, last_pos=n - 1)
+    lpg = torch.cat([ld[:, 0], lc[:, 0]])
+    torch.cuda.synchronize()
+    result = {}
+    for name, other in (("vs_plain", lp), ("vs_paged", lpg)):
+        diff = (lk - other).abs()
+        err = float(diff.max())
+        check(bool(torch.isfinite(lk).all()), "non-finite ragged logits")
+        check(bool((diff <= PATH_TOL + PATH_TOL * other.abs()).all()),
+              f"ragged path {name}: logits differ by {err}")
+        result[name] = {"max_abs_err": err, "greedy_agreement": float(
+            (lk.argmax(-1) == other.argmax(-1)).float().mean())}
+    emit("ragged_path", layers=cfg.num_layers, tokens=batch["n_tokens"],
+         buffer=1024, tolerance=PATH_TOL, **result)
+
+
+def beta_prompts() -> dict:
+    """Session beta: three knights on another ~1.2k-token preamble."""
+    knights = ("tristan", "gareth", "bedivere")
+    preamble = ("Second session. The knights weigh a sharded key-value "
+                "store with quorum reads, hinted handoff and anti-entropy "
+                "repair across three regions. " * 10)[:1200]
+    return {k: preamble + f" Knight {k}, argue for or against a quorum of "
+            "three, the repair interval and the failure budget." * 3
+            for k in knights}
+
+
+def scheduler_phase(torch, kattn, engine):
+    """The full-depth engine behind a SessionScheduler: alpha admits into
+    an empty batch (blocking prologue, K2) and decodes (K1); beta submits
+    once alpha has live rows and joins through ragged mixed dispatches
+    (K3). Returns the phase's launch counts."""
+    from theroundtaible_tpu_torch.engine.kvcache import scoped_slot
+    from theroundtaible_tpu_torch.engine.scheduler import SessionScheduler
+    engine.kv.flush()   # the engine phase's slots
+    prompts = {"alpha": knight_prompts(1), "beta": beta_prompts()}
+    walls, segments = [], []
+    dispatch = engine._ragged_dispatch
+    decode = engine._decode_dispatch_paged
+
+    def timed(batch):   # the scheduler host-reads the result right after
+        t0 = time.monotonic()
+        out = dispatch(batch)
+        torch.cuda.synchronize()
+        walls.append(time.monotonic() - t0)
+        return out
+
+    def timed_decode(table, *args, **kwargs):
+        t0 = time.monotonic()
+        out = decode(table, *args, **kwargs)
+        torch.cuda.synchronize()
+        segments.append({"rows": table.shape[0], "steps": out[1],
+                         "wall_s": time.monotonic() - t0})
+        return out
+
+    engine._ragged_dispatch = timed
+    engine._decode_dispatch_paged = timed_decode
+    sched = SessionScheduler(engine)
+    results, errors = {}, {}
+
+    def run(session, wait_active):
+        try:
+            if wait_active:
+                deadline = time.monotonic() + 300
+                while not sched._active and time.monotonic() < deadline:
+                    time.sleep(0.005)
+            results[session] = sched.submit(
+                session, list(prompts[session].items()),
+                max_new_tokens=96, timeout_s=600)
+        except Exception as e:  # noqa: BLE001 - checked below
+            errors[session] = e
+
+    kattn.reset_launch_counts()
+    t0 = time.monotonic()
+    threads = [threading.Thread(target=run, args=(s, i > 0))
+               for i, s in enumerate(prompts)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=900)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = kattn.launch_counts()
+    sched.close()
+    del engine._ragged_dispatch, engine._decode_dispatch_paged
+    d = sched.describe()
+    check(not errors, f"scheduler sessions failed: {errors}")
+    check(set(results) == {"alpha", "beta"}, "a session never returned")
+    check(d["completed"] == 2 and d["failed"] == 0,
+          f"scheduler: completed {d['completed']}, failed {d['failed']}")
+    check(d["ragged_joins"] >= 1 and d["ragged_segments"] >= 1,
+          "beta never joined through ragged dispatches")
+    check(d["max_occupancy"] >= 4,
+          f"max_occupancy {d['max_occupancy']} < 4")
+    check(all(n > 0 for n in launches.values()),
+          f"scheduler phase: a kernel never launched: {launches}")
+    alpha, beta = results["alpha"][1], results["beta"][1]
+    # beta's scheduled tokens against generate_batch on fresh slot names
+    # (bf16 K3 and K2 sum in different orders: reported, not checked)
+    sched_recs = {k: list(engine.kv._slots[scoped_slot("beta", k)].tokens)
+                  for k in prompts["beta"]}
+    engine.generate_batch(list(prompts["beta"].items()), max_new_tokens=96,
+                          session="beta-direct")
+    same = total = 0
+    for k, rec in sched_recs.items():
+        direct = engine.kv._slots[scoped_slot("beta-direct", k)].tokens
+        start = len(engine.tokenizer.encode(prompts["beta"][k]))
+        a, b = rec[start:], direct[start:]
+        total += max(len(a), len(b))
+        same += sum(x == y for x, y in zip(a, b))
+    emit("scheduler", wall_s=wall, beta_ttft_s=beta.sched["ttft_s"],
+         beta_queue_wait_s=beta.sched["queue_wait_s"],
+         alpha_decode_tokens=alpha.decode_tokens,
+         alpha_decode_tps=alpha.decode_tps,
+         alpha_decode_tokens_per_phase_s=alpha.decode_tokens / wall,
+         ragged_dispatches=len(walls),
+         ragged_mean_wall_s=(statistics.mean(walls) if walls else None),
+         ragged_walls_s=walls, decode_segments=segments,
+         decode_ms_per_step=[1e3 * s["wall_s"] / max(s["steps"], 1)
+                             for s in segments],
+         launches=launches,
+         beta_greedy_agreement=same / max(total, 1),
+         **{k: d[k] for k in ("segments", "ragged_segments", "ragged_joins",
+                              "max_occupancy", "occupancy_mean",
+                              "segment_prefill_tokens",
+                              "segment_decode_tokens", "preemptions")})
+    for name in engine.kv.slot_names():
+        engine.kv.release(name)
+    return launches
+
+
 def profile_phase(torch, engine):
     """torch.profiler over one decode-dominated call of the 8B engine: 3
     rows whose prompts are already cached (one token of prefill each),
@@ -497,30 +828,39 @@ def main() -> int:
     kernels = kernels_phase(torch, kattn)
     emit("kernels_check", tolerance=KERNEL_TOL,
          decode_cases=kernels["decode_cases"],
-         prefill_cases=kernels["prefill_cases"])
+         prefill_cases=kernels["prefill_cases"],
+         ragged_cases=kernels["ragged_cases"])
     emit("kernels_timing", **kernels["timing"])
 
     launches, engine = engine_phase(torch, kattn)
     profile_phase(torch, engine)
     path_phase(torch, engine)
+    ragged_path_phase(torch, engine)
+    # The scheduler path's own counts: K3 runs only there.
+    launches["ragged_paged_attention"] = scheduler_phase(
+        torch, kattn, engine)["ragged_paged_attention"]
 
     src = "theroundtaible_tpu_torch/engine/kernels/csrc/"
     rows = []
-    for name, kind, replaces in (
-            ("paged_decode_attention", "decode",
+    for name, kind, source, replaces in (
+            ("paged_decode_attention", "decode", "paged_decode.cu",
              "theroundtaible_tpu/engine/pallas/attention.py:891"),
-            ("paged_prefill_attention", "prefill",
-             "theroundtaible_tpu/engine/pallas/attention.py:374")):
+            ("paged_prefill_attention", "prefill", "paged_prefill.cu",
+             "theroundtaible_tpu/engine/pallas/attention.py:374"),
+            ("ragged_paged_attention", "ragged", "ragged_paged.cu",
+             "theroundtaible_tpu/engine/pallas/attention.py:1160")):
         t = kernels["timing"][kind]
         cases = kernels[f"{kind}_cases"]
         rows.append({
-            "name": name, "route": "cuda",
-            "source": src + f"paged_{kind}.cu", "replaces": replaces,
-            "launches": launches[name],
+            "name": name, "route": "cuda", "source": src + source,
+            "replaces": replaces, "launches": launches[name],
             "max_abs_err": max(c["max_abs_err"] for c in cases),
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": None, "sdpa_view_ms": t["sdpa_view_ms"]})
+            # K3: SDPA over the pre-gathered, block-diagonally masked view
+            # is the one-call yardstick; K1/K2 keep theirs beside null.
+            "library_ms": t["sdpa_view_ms"] if kind == "ragged" else None,
+            "sdpa_view_ms": t["sdpa_view_ms"]})
     summary = {"kernels": rows}
     (OUT / "summary.json").write_text(json.dumps(summary, indent=1))
     print(json.dumps(summary), flush=True)

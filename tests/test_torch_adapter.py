@@ -28,6 +28,16 @@ CONFIG = {
 KNIGHTS = ("lancelot", "gawain", "percival")
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """The suite runs in parallel workers: keep this file's torch CPU math
+    on one thread so it does not crowd the other workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture
 def adapters():
     jax_engine_mod.reset_engines()

@@ -1,4 +1,4 @@
-"""PyTorch port, CUDA kernels K1/K2 against their plain versions on the
+"""PyTorch port, CUDA kernels K1/K2/K3 against their plain versions on the
 card (`cuda` marker; each test skips itself where there is no card). The
 file imports neither jax nor the JAX package, so it runs on a machine that
 has only the port's dependencies:
@@ -93,3 +93,54 @@ def test_cuda_prefill_kernel_matches_plain(cuda_device, dtype, tol):
             torch.testing.assert_close(out[b, :n].float(),
                                        ref[b, :n].float(), atol=tol,
                                        rtol=tol)
+
+
+def flat_buffer(runs, t, inert):
+    """Flat-buffer block metadata for `runs` [(seq, n_rows)]: each run
+    takes ceil(n/8) consecutive 8-row blocks; the rest point at `inert`."""
+    nb = t // 8
+    seq_of_block = np.full(nb, inert, np.int32)
+    block_qstart = np.zeros(nb, np.int32)
+    blk = 0
+    for seq, n in runs:
+        for k in range(-(-n // 8)):
+            seq_of_block[blk], block_qstart[blk] = seq, 8 * k
+            blk += 1
+    return seq_of_block, block_qstart
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+def test_cuda_ragged_kernel_matches_plain(cuda_device, dtype, tol):
+    """K3 against its plain version on the card at the serving shape: three
+    decode rows at ~1.6k cached tokens, a 300-row chunk at offset 200,
+    inert blocks behind them; NaN in every cell past each sequence's
+    kv_valid. Every row is compared: pad rows are 0 in both."""
+    S, K, D, ps, T = 2048, 8, 128, 128, 384
+    rng = np.random.default_rng(13)
+    k_pool, v_pool, table = shuffled_pool(rng, 4, S, K, D, ps)
+    tables = np.concatenate([table, np.zeros((1, S // ps), np.int32)])
+    offsets = np.asarray([1599, 1649, 1699, 200, 0], np.int32)
+    valid = np.asarray([1600, 1650, 1700, 500, 1], np.int32)
+    for s in range(4):
+        for j in range(S // ps):
+            lo = max(valid[s] - j * ps, 0)
+            if lo < ps:
+                k_pool[tables[s, j], lo:] = np.nan
+                v_pool[tables[s, j], lo:] = np.nan
+    seq_of_block, block_qstart = flat_buffer(
+        [(0, 1), (1, 1), (2, 1), (3, 300)], T, 4)
+    q = rng.normal(size=(T, 32, D)).astype(np.float32) * D ** -0.5
+    dev = cuda_device
+    args = [torch.from_numpy(q).to(dev, dtype),
+            torch.from_numpy(k_pool).to(dev, dtype),
+            torch.from_numpy(v_pool).to(dev, dtype)] + [
+        torch.from_numpy(x).to(dev) for x in (
+            tables, seq_of_block, block_qstart, offsets, valid)]
+    for window, softcap in WINDOW_SOFTCAP:
+        out = kattn.ragged_paged_attention(*args, sliding_window=window,
+                                           softcap=softcap)
+        ref = kattn.ragged_paged_attention_ref(
+            *args, sliding_window=window, softcap=softcap)
+        torch.testing.assert_close(out.float(), ref.float(), atol=tol,
+                                   rtol=tol)

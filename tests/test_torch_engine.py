@@ -25,6 +25,16 @@ OFF = dict(prefix_cache=False, kv_offload=False, ragged_attn=False,
            spec_decode=False)
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """The suite runs in parallel workers: keep this file's torch CPU math
+    on one thread so it does not crowd the other workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def engines():
     jeng = JaxEngine(jax_config("tiny-llama", max_seq_len=256),
@@ -97,14 +107,18 @@ def test_describe_keys_match(engines):
     for key in ("model", "params", "max_seq_len", "num_slots", "kv_layout",
                 "paged_decode", "page_size", "num_pages", "kv_hbm_bytes"):
         assert dt[key] == dj[key], key
-    for feature in ("prefix_cache", "kv_offload", "ragged_attn",
-                    "spec_decode"):
+    for feature in ("prefix_cache", "kv_offload", "spec_decode"):
         assert dt[f"{feature}_reason"] == "not_ported"
+    # the ragged seam is ported: the same provenance block as JAX's
+    assert set(dt["ragged"]) == set(jeng.ragged_describe())
+    assert dt["ragged"]["enabled"] is True
+    assert dt["ragged"]["path"] == "plain_ragged"
+    assert dt["ragged"]["tokens_budget"] == 1024
 
 
 @pytest.mark.parametrize("key,value", [
-    ("prefix_cache", True), ("kv_offload", True), ("ragged_attn", True),
-    ("spec_decode", True), ("kv_layout", "contiguous"), ("quant", "int8"),
+    ("prefix_cache", True), ("kv_offload", True), ("spec_decode", True),
+    ("kv_layout", "contiguous"), ("quant", "int8"),
     ("mesh", {"data": 1, "model": 4}), ("seq_parallel", 2),
     ("lora", {"adapters": {}}), ("kv_quant", "int8"), ("attn", "dense"),
     ("checkpoint", "/nonexistent"), ("dtype", "float16"),

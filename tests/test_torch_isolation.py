@@ -65,6 +65,7 @@ def test_every_module_imports_here():
     for name in names:
         importlib.import_module(name)
     assert "theroundtaible_tpu_torch.engine.kernels.attention" in names
+    assert "theroundtaible_tpu_torch.engine.scheduler" in names
 
 
 def test_no_silent_cpu_fallback():

@@ -7,8 +7,10 @@ adapter_config keys as the tpu-llm adapter. Fault tolerance is the same
 ladder: a failed batched round invalidates the batch's slots and retries
 the knights serially inside the round's remaining budget; every final
 outcome feeds the engine's shared circuit breaker, and an open breaker
-makes is_available() False with its reason. Scheduler attachment and LoRA
-personas come with later slices.
+makes is_available() False with its reason. With a SessionScheduler
+attached (attach_scheduler), every rung - the batched attempt and the
+serial retries - goes through the scheduler's queue instead of the engine.
+LoRA personas come with a later slice.
 """
 
 from __future__ import annotations
@@ -48,6 +50,7 @@ class TorchLlmAdapter(BaseAdapter):
         self.device = device
         self._engine = None
         self._engine_error: Optional[str] = None
+        self._scheduler = None
         self._last_stats: Optional[dict] = None
         # Which degradation rung served the last round ("serial_retry").
         self.last_degradation: Optional[str] = None
@@ -88,10 +91,44 @@ class TorchLlmAdapter(BaseAdapter):
                 kind=classify_error(RuntimeError(self._engine_error or "")))
         return self._engine
 
+    def attach_scheduler(self, scheduler,
+                         session: Optional[str] = None) -> None:
+        """Route this adapter's rounds through a shared continuous-batching
+        SessionScheduler (engine/scheduler.py): the batched attempt and the
+        per-knight serial retries then both go through its queue, so a
+        degraded session keeps co-scheduling with healthy ones.
+
+        A scheduled adapter always has a session id: with none given (and
+        none set) a unique one is generated - the adapter name is not
+        unique, and two adapters sharing a name would share an isolation
+        domain."""
+        self._scheduler = scheduler
+        if session is not None:
+            self.session = session
+        elif not self.session:
+            import uuid
+            self.session = f"{self.name}-{uuid.uuid4().hex[:8]}"
+
+    def _effective_session(self) -> Optional[str]:
+        """The session namespace the engine-side slots live under; _serve
+        and _slot_name must agree, or serial-retry slot invalidation would
+        release a name the scheduler never allocated."""
+        return self.session
+
+    def _serve(self, engine, turn_pairs, **kwargs):
+        """The one engine-call seam: scheduled sessions submit to the
+        shared batch; unscheduled calls hit the engine directly with the
+        session namespace applied."""
+        if self._scheduler is not None:
+            return self._scheduler.submit(
+                self._effective_session(), turn_pairs, **kwargs)
+        return engine.generate_batch_with_stats(
+            turn_pairs, session=self.session, **kwargs)
+
     def _slot_name(self, knight_name: str) -> str:
         """The engine-side slot name for a knight of THIS session."""
         from ..engine.kvcache import scoped_slot
-        return scoped_slot(self.session, knight_name)
+        return scoped_slot(self._effective_session(), knight_name)
 
     def known_unhealthy(self) -> bool:
         return self.breaker().is_open or self._engine_error is not None
@@ -226,9 +263,8 @@ class TorchLlmAdapter(BaseAdapter):
             kwargs["max_new_tokens"] = max(p.max_new_tokens
                                            for p in per_turn)
         try:
-            return engine.generate_batch_with_stats(
-                [(t.knight_name, t.prompt) for t in turns],
-                session=self.session, **kwargs)
+            return self._serve(
+                engine, [(t.knight_name, t.prompt) for t in turns], **kwargs)
         except Exception as batch_err:  # noqa: BLE001
             if len(turns) < 2:
                 raise
@@ -274,9 +310,8 @@ class TorchLlmAdapter(BaseAdapter):
                 kwargs["sampling_per_turn"] = [per_turn[i]]
                 kwargs["max_new_tokens"] = per_turn[i].max_new_tokens
             try:
-                out, stats = engine.generate_batch_with_stats(
-                    [(t.knight_name, t.prompt)], session=self.session,
-                    **kwargs)
+                out, stats = self._serve(
+                    engine, [(t.knight_name, t.prompt)], **kwargs)
             except Exception as serial_err:  # noqa: BLE001
                 failures.append((t.knight_name, serial_err))
                 continue

@@ -11,22 +11,26 @@ attends through the CUDA kernels on a card and through their plain
 versions on the CPU.
 
 PyTorch runs eagerly, so there are no compiled programs to warm: warmup()
-builds the kernels and runs every (batch, bucket) once. The decode segment
-is a host loop of single-token steps. Host syncs: the first token after
-prefill, the all-done flag at every decode step, and the segment's tokens
-at its end. CUDA graphs are later work.
+builds the kernels and runs every (batch, bucket) and every ragged shape
+once. The decode segment is a host loop of single-token steps. Host syncs:
+the first token after prefill, the all-done flag at every decode step, and
+the segment's tokens at its end. CUDA graphs are later work.
 
-Features the JAX engine turns on by default for a paged pool (prefix
-cache, host offload, ragged dispatch, speculative decoding) stay off here,
-with `<feature>_reason: "not_ported"` in describe(); asking for them - or
-for any other unported option - raises NotImplementedError naming the
-ROADMAP item.
+The ragged seam (_ragged_dispatch: forward_ragged through K3) serves the
+continuous-batching scheduler's mixed prefill/decode dispatches; it is on
+by default for the paged pool, as in the JAX engine. Features the JAX
+engine also turns on by default (prefix cache, host offload, speculative
+decoding) stay off here, with `<feature>_reason: "not_ported"` in
+describe(); asking for them - or for any other unported option - raises
+NotImplementedError naming the ROADMAP item.
 """
 
 from __future__ import annotations
 
+import os
 import threading
 import time
+from collections import deque
 from dataclasses import dataclass
 from typing import Any, Optional
 
@@ -40,13 +44,16 @@ from .kernels import build as kbuild
 from .kvcache import scoped_slot, share_prefixes
 from .models.common import ModelConfig, init_params, param_count
 from .models.registry import get_model_config
-from .paged_forward import forward_paged
-from .paging import PagedKVCache
+from .paged_forward import forward_paged, forward_ragged
+from .paging import SCRATCH_PAGE, PagedKVCache
 from .sampling import SamplingParams, sample_token_batch, sampling_arrays
 from .serving_loop import (DECODE_SEGMENT, MAX_PREFILL_CHUNK,
-                           PREFILL_BUCKETS, bucket_for, chunked_prefill,
+                           PREFILL_BUCKETS, RaggedSeq, bucket_for,
+                           build_ragged_batch, chunked_prefill,
                            clamp_max_new, decode_segments, finalize_outputs,
-                           host_sync, prompt_budget, row_budget_fn)
+                           host_sync, prompt_budget, ragged_defer_min,
+                           ragged_shape_grid, ragged_token_budget,
+                           row_budget_fn)
 from .tokenizer import load_tokenizer
 
 # Below this many shared tokens a plain prefill beats sharing a span.
@@ -59,7 +66,6 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 _FEATURES = {
     "prefix_cache": "slice 7: prefix cache and host-RAM offload",
     "kv_offload": "slice 7: prefix cache and host-RAM offload",
-    "ragged_attn": "slice 2: scheduler and ragged path, K3",
     "spec_decode": "slice 7: speculative decoding",
 }
 
@@ -73,6 +79,10 @@ class GenStats:
     decode_tokens: int = 0
     prefill_seconds: float = 0.0
     decode_seconds: float = 0.0
+    # Scheduler provenance: set only on calls served through the
+    # continuous-batching SessionScheduler (queue_wait_s, segments,
+    # occupancy_mean/max, sessions_max, ttft_s); None on direct calls.
+    sched: Optional[dict] = None
 
     @property
     def prefill_tps(self) -> float:
@@ -83,6 +93,18 @@ class GenStats:
     def decode_tps(self) -> float:
         return self.decode_tokens / self.decode_seconds \
             if self.decode_seconds else 0.0
+
+
+def env_flag(flag: Optional[bool], env_name: str) -> bool:
+    """On/off decision of a paged-pool subsystem: an explicit config value
+    wins, then the env kill-switch ("0", "false", "off"), then default
+    ON."""
+    if flag is not None:
+        return bool(flag)
+    env = os.environ.get(env_name)
+    if env is not None:
+        return env not in ("0", "false", "off")
+    return True
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -111,8 +133,7 @@ class InferenceEngine:
         self._check_ported(model_cfg, checkpoint, mesh_shape, dtype,
                            seq_parallel, attn, kv_layout, quant, lora,
                            kv_quant, prefix_cache=prefix_cache,
-                           kv_offload=kv_offload, ragged_attn=ragged_attn,
-                           spec_decode=spec_decode)
+                           kv_offload=kv_offload, spec_decode=spec_decode)
         self.cfg = model_cfg
         self.max_seq_len = model_cfg.max_seq_len
         self.sampling = sampling or SamplingParams()
@@ -140,6 +161,37 @@ class InferenceEngine:
         self.kv = PagedKVCache(model_cfg, num_slots, self.max_seq_len,
                                dtype, self.device, page_size=page_size,
                                num_pages=num_pages)
+        # Ragged mixed prefill/decode dispatch (the scheduler's chunk-
+        # interleaved admission): on by default; ragged_attn=False or
+        # ROUNDTABLE_RAGGED_ATTN=0 turns the seam off and the scheduler
+        # keeps the blocking admission prologue. A pool shape K3 declines
+        # fails construction, like K1/K2: there is no fallback path, so
+        # ragged_fallback_reason stays None.
+        self.ragged_enabled = False
+        self.ragged_path: Optional[str] = None
+        self.ragged_reason: Optional[str] = None
+        self.ragged_fallback_reason: Optional[str] = None
+        self.ragged_tokens = 0
+        self.ragged_shapes: tuple[int, ...] = ()
+        self.ragged_defer_min = 0
+        self._ragged_dispatches: dict[str, int] = {}
+        self._ragged_recent: deque = deque(maxlen=32)
+        if not env_flag(ragged_attn, "ROUNDTABLE_RAGGED_ATTN"):
+            self.ragged_reason = "disabled:config/env"
+        else:
+            reason = kattn.ragged_decline_reason(
+                page_size, model_cfg.head_dim, model_cfg.num_kv_heads,
+                group, self.device)
+            if reason is not None:
+                raise ValueError(
+                    f"the ragged attention kernel declines this pool shape "
+                    f"on {self.device}: {reason}")
+            self.ragged_enabled = True
+            self.ragged_path = ("cuda_ragged" if self.device.type == "cuda"
+                                else "plain_ragged")
+            self.ragged_tokens = ragged_token_budget(num_slots)
+            self.ragged_shapes = ragged_shape_grid(self.ragged_tokens)
+            self.ragged_defer_min = ragged_defer_min()
         self._generator = torch.Generator(
             device=self.device).manual_seed(seed + 1)
         self._chars_per_token: Optional[float] = None
@@ -147,6 +199,8 @@ class InferenceEngine:
         # Serving mutates the slot cache: one generation at a time.
         self._serve_lock = threading.Lock()
         self.retry = faults.DEFAULT_RETRY
+        # The attached SessionScheduler (scheduler.acquire_scheduler).
+        self._scheduler = None
 
     @staticmethod
     def _check_ported(cfg, checkpoint, mesh_shape, dtype, seq_parallel,
@@ -285,9 +339,41 @@ class InferenceEngine:
             self.generate_batch([(f"__warmup_{i}", shared + [9 + i] * 4)
                                  for i in range(2)], max_new_tokens=1)
         self._release_warm_slots()
+        if self.ragged_enabled:
+            self._warm_ragged()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         return time.monotonic() - t0
+
+    def _warm_ragged(self) -> None:
+        """Run every flat-buffer shape of the ragged grid once through the
+        real _ragged_dispatch seam (a prefill chunk plus a decode-shaped
+        row), so K3 is built and launched before real traffic - greedy,
+        plus the sampled mode when the engine samples by default. The
+        decode-shaped row attends warm garbage; outputs are discarded."""
+        names = ("__warmup_0", "__warmup_1")
+        if self.kv.num_slots < 2:
+            return
+        self._release_warm_slots()
+        self.kv.ensure_capacity(names[0], 32, write_from=0, pinned=names)
+        self.kv.ensure_capacity(names[1], 16, write_from=0, pinned=names)
+        t0 = self.kv.table_for([names[0]])[0]
+        t1 = self.kv.table_for([names[1]])[0]
+        bos = self.tokenizer.bos_id
+        temps = [0.0]
+        if self.sampling.temperature > 0.0:
+            temps.append(self.sampling.temperature)
+        for temp in temps:
+            seqs = [RaggedSeq([bos] + [5] * 23, 0, t0, temperature=temp),
+                    RaggedSeq([7], 8, t1, temperature=temp)]
+            for shape in self.ragged_shapes:
+                self._ragged_dispatch(build_ragged_batch(
+                    seqs, t_budget=shape, s_max=self.kv.num_slots + 1,
+                    pages_per_seq=self.kv.pages_per_seq,
+                    scratch_page=SCRATCH_PAGE,
+                    pad_id=self.tokenizer.pad_id,
+                    page_size=self.kv.page_size))
+        self._release_warm_slots()
 
     def _release_warm_slots(self) -> None:
         for i in range(self.kv.num_slots):
@@ -339,12 +425,14 @@ class InferenceEngine:
                                deadline, retry=self.retry, budget=budget)
 
     def _share_prefixes(self, names: list[str], all_tokens, offsets,
-                        deadline: float, budget=None) -> tuple[list[int],
-                                                               int]:
+                        deadline: float, budget=None,
+                        extra_pinned: tuple[str, ...] = (),
+                        defer_span=None) -> tuple[list[int], int]:
         """Cross-knight shared-prefix reuse (kvcache.share_prefixes): paged
         slots ALIAS the donor's whole pages and copy only partial boundary
-        pages; a batch's common span is prefilled once by its leader."""
-        pinned = tuple(names)
+        pages; a batch's common span is prefilled once by its leader, or,
+        with `defer_span`, recorded for the scheduler's ragged chunks."""
+        pinned = tuple(names) + tuple(extra_pinned)
 
         def add_share(donor, i, lo, hi):
             self.kv.alias_span(donor.name, names[i], lo, hi, pinned)
@@ -359,17 +447,31 @@ class InferenceEngine:
         return share_prefixes(
             self.kv, names, all_tokens, offsets,
             min_shared=MIN_SHARED_PREFIX, add_share=add_share,
-            flush_shares=lambda: None, prefill_span=prefill_span)
+            flush_shares=lambda: None, prefill_span=prefill_span,
+            extra_pinned=extra_pinned, defer_span=defer_span)
 
     def _prepare_batch(self, turns, max_new_padded, deadline, pre_budget,
-                       sampling_per_turn=None) -> dict:
-        """The pre-decode phase: tokenize + tail-truncate -> own-slot
-        reuse_plan -> cross-knight share_prefixes -> capacity/COW -> chunked
-        prefill -> first token. Returns names, all_tokens, offsets,
-        tables_np, per_row, temps/top_ks/top_ps, greedy, first_np,
-        prefill_tokens and reused_tokens."""
-        pinned = tuple(name for name, _ in turns)
-        offsets, all_tokens = [], []
+                       sampling_per_turn=None,
+                       extra_pinned: tuple[str, ...] = (),
+                       defer_prefill: bool = False) -> dict:
+        """The pre-decode phase, one definition shared by generate_batch
+        and the session scheduler's admission: tokenize + tail-truncate ->
+        own-slot reuse_plan -> cross-knight share_prefixes -> capacity/COW
+        -> chunked prefill -> first token. Returns names, slot_ids (-1 per
+        paged row), all_tokens, offsets, tables_np, per_row,
+        temps/top_ks/top_ps, greedy, first_np, prefill_tokens,
+        reused_tokens and prefix_reused_tokens (0: no prefix cache).
+
+        `extra_pinned` names survive every eviction this phase can trigger
+        (the scheduler pins its live rows). `defer_prefill` (the mixed-
+        dispatch seam) stops after the host/aliasing work: the suffixes
+        all_tokens[i][offsets[i]:] stay unprefilled for the scheduler's
+        ragged dispatches, first_np is None and temps/top_ks/top_ps are
+        None, and `share_plan` lists the deferred leader spans
+        ({"leader", "lo", "hi", "followers"}). A join whose suffixes sum
+        below ragged_defer_min resolves back to the prologue."""
+        pinned = tuple(name for name, _ in turns) + tuple(extra_pinned)
+        slot_ids, offsets, all_tokens = [], [], []
         for name, prompt in turns:
             # A list of ids is accepted as a pre-tokenized prompt.
             tokens = (list(prompt) if isinstance(prompt, list)
@@ -379,16 +481,38 @@ class InferenceEngine:
                 # Keep the tail - the turn ask and latest transcript live
                 # there.
                 tokens = tokens[:1] + tokens[len(tokens) - budget_tok + 1:]
-            _, reuse = self.kv.reuse_plan(name, tokens, pinned)
+            slot_id, reuse = self.kv.reuse_plan(name, tokens, pinned)
+            slot_ids.append(slot_id)
             offsets.append(reuse)
             all_tokens.append(tokens)
         names = [name for name, _ in turns]
+        if defer_prefill:
+            # Deferral pays off only for cold prefills: a warm join's few
+            # leftover tokens cost less as one blocking prefill.
+            est = sum(len(t) - o for t, o in zip(all_tokens, offsets))
+            if est < self.ragged_defer_min:
+                defer_prefill = False
+        share_plan: list[dict] = []
+        defer_span = None
+        if defer_prefill:
+            def defer_span(m, lo, hi, followers):
+                share_plan.append({"leader": m, "lo": lo, "hi": hi,
+                                   "followers": followers})
         offsets, leader_prefill = self._share_prefixes(
-            names, all_tokens, offsets, deadline, budget=pre_budget)
+            names, all_tokens, offsets, deadline, budget=pre_budget,
+            extra_pinned=tuple(extra_pinned), defer_span=defer_span)
         # Pages for the whole call (prompt + padded decode); copy-on-write
         # any shared page in the write range, so no step below allocates
-        # or writes an aliased page.
+        # or writes an aliased page. Deferred-share laggards skip this:
+        # their span pages arrive by alias once the leader's chunks have
+        # written them, and their tail capacity is ensured then
+        # (scheduler._apply_share_plans) - allocating now would double the
+        # pool demand of the join.
+        deferred_followers = {i for p in share_plan
+                              for i, _lo in p["followers"]}
         for i, name in enumerate(names):
+            if i in deferred_followers:
+                continue
             self.kv.ensure_capacity(
                 name, len(all_tokens[i]) + max_new_padded,
                 write_from=offsets[i], pinned=pinned)
@@ -397,6 +521,22 @@ class InferenceEngine:
         prefill_tokens = leader_prefill + sum(len(s) for s in suffixes)
         # "reused" counts own-slot LCP hits and shared donor spans
         reused_tokens = sum(len(t) for t in all_tokens) - prefill_tokens
+        common = {
+            "names": names, "slot_ids": slot_ids, "all_tokens": all_tokens,
+            "offsets": offsets, "tables_np": tables_np,
+            "prefill_tokens": prefill_tokens,
+            "reused_tokens": reused_tokens, "prefix_reused_tokens": 0,
+        }
+        if defer_prefill:
+            per_row = sampling_per_turn or [self.sampling] * len(turns)
+            if len(per_row) != len(turns):
+                raise ValueError(
+                    f"sampling_per_turn has {len(per_row)} entries for "
+                    f"{len(turns)} turns")
+            return {**common, "per_row": per_row, "temps": None,
+                    "top_ks": None, "top_ps": None,
+                    "greedy": all(p.temperature <= 0.0 for p in per_row),
+                    "first_np": None, "share_plan": share_plan}
         last_logits = self._prefill(suffixes, offsets, tables_np,
                                     deadline=deadline, budget=pre_budget)
         # A blocking read (prefill time is not billed to decode), through
@@ -418,13 +558,9 @@ class InferenceEngine:
                                        top_ks, top_ps)
         first_np = host_sync(lambda: first.to(torch.int32).cpu().numpy(),
                              pre_budget, "prefill")
-        return {
-            "names": names, "all_tokens": all_tokens, "offsets": offsets,
-            "tables_np": tables_np, "per_row": per_row, "temps": temps,
-            "top_ks": top_ks, "top_ps": top_ps, "greedy": greedy,
-            "first_np": first_np, "prefill_tokens": prefill_tokens,
-            "reused_tokens": reused_tokens,
-        }
+        return {**common, "per_row": per_row, "temps": temps,
+                "top_ks": top_ks, "top_ps": top_ps, "greedy": greedy,
+                "first_np": first_np}
 
     def _decode_dispatch_paged(self, table, first_token, start_valid,
                                budget, temps, top_ks, top_ps, row_budgets,
@@ -465,6 +601,62 @@ class InferenceEngine:
             last = nxt
             step += 1
         return out, step, last, valid, done
+
+    def _ragged_dispatch(self, batch: dict) -> torch.Tensor:
+        """One mixed prefill/decode dispatch over a flat token buffer
+        (serving_loop.build_ragged_batch output), the scheduler's
+        chunk-interleaved admission seam: forward_ragged writes the pools
+        in place under commit_guard, then each sequence's next token is its
+        greedy argmax or a sample from the engine's generator. Returns the
+        next-token tensor [S_max] int32 on the device; the caller reads it
+        through its own watchdog seam. On a card a K3 failure raises into
+        the scheduler's preempt ladder: there is no fallback path."""
+        if not self.ragged_enabled:
+            raise RuntimeError(
+                f"ragged dispatch on an engine whose ragged path is off "
+                f"({self.ragged_reason})")
+        t = {k: self._ints(batch[k]) for k in (
+            "tokens", "positions", "tables", "seq_of_block", "block_qstart",
+            "query_offsets", "kv_valid", "token_pages", "token_offs",
+            "last_rows")}
+        # The dispatch writes the pools in place: a watchdog-abandoned
+        # dispatch must not write after recovery took over.
+        with deadlines.commit_guard():
+            logits = forward_ragged(
+                self.params, self.cfg, t["tokens"].long(), t["positions"],
+                self.kv.pools, t["tables"], t["seq_of_block"],
+                t["block_qstart"], t["query_offsets"], t["kv_valid"],
+                t["token_pages"], t["token_offs"], t["last_rows"])
+        if batch["greedy"]:
+            nxt = torch.argmax(logits, dim=-1)
+        else:
+            nxt = sample_token_batch(
+                logits, self._generator,
+                torch.as_tensor(batch["temps"], device=self.device),
+                torch.as_tensor(batch["top_ks"], device=self.device),
+                torch.as_tensor(batch["top_ps"], device=self.device))
+        path = self.ragged_path
+        self._ragged_dispatches[path] = \
+            self._ragged_dispatches.get(path, 0) + 1
+        self._ragged_recent.append({"path": path,
+                                    "tokens": int(batch["n_tokens"]),
+                                    "seqs": int(batch["n_seqs"])})
+        return nxt.to(torch.int32)
+
+    def ragged_describe(self) -> dict[str, Any]:
+        """Ragged-path provenance: the resolved path, why the seam is off,
+        the per-path dispatch counts and the recent-dispatch ring."""
+        return {
+            "enabled": self.ragged_enabled,
+            "path": self.ragged_path,
+            "reason": self.ragged_reason,
+            "fallback_reason": self.ragged_fallback_reason,
+            "tokens_budget": self.ragged_tokens,
+            "shapes": list(self.ragged_shapes),
+            "defer_min_tokens": self.ragged_defer_min,
+            "dispatches": dict(self._ragged_dispatches),
+            "recent": list(self._ragged_recent)[-8:],
+        }
 
     def generate(self, prompt: str, slot_name: str = "default",
                  max_new_tokens: Optional[int] = None,
@@ -575,7 +767,10 @@ class InferenceEngine:
             "attention_kernels": ("cuda" if self.device.type == "cuda"
                                   else "plain"),
             "kernel_launches": kattn.launch_counts(),
+            "ragged": self.ragged_describe(),
         }
         for feature in _FEATURES:
             info[f"{feature}_reason"] = "not_ported"
+        if self._scheduler is not None:
+            info["scheduler"] = self._scheduler.describe()
         return info

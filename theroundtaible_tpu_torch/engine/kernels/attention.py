@@ -1,9 +1,9 @@
 """Paged attention for the serving hot path: hand-written CUDA kernels,
 their plain PyTorch versions, and their gates.
 
-Counterpart of theroundtaible_tpu/engine/pallas/attention.py for the two
-kernels the paged single-device serving path calls
-(paged_forward.forward_paged):
+Counterpart of theroundtaible_tpu/engine/pallas/attention.py for the
+kernels the paged single-device serving path calls (paged_forward's
+forward_paged and forward_ragged):
 
 - paged_decode_attention (K1, csrc/paged_decode.cu) - one query position
   per row against the page pool through the page table; replaces the TPU
@@ -11,6 +11,9 @@ kernels the paged single-device serving path calls
 - paged_prefill_attention (K2, csrc/paged_prefill.cu) - a causal prefill
   chunk at per-row offsets against the pool; replaces the TPU kernel
   `paged_prefill_attention`.
+- ragged_paged_attention (K3, csrc/ragged_paged.cu) - mixed prefill/decode
+  rows of a flat token buffer, each 8-row block belonging to one sequence,
+  against the pool; replaces the TPU kernel `ragged_paged_attention`.
 
 Each wrapper checks device, dtype, shape and contiguity and raises on what
 its kernel does not take. A tensor on the CPU takes the plain version (the
@@ -31,9 +34,11 @@ from typing import Optional
 import torch
 
 from ..models.common import MASK_VALUE
+from ..serving_loop import RAGGED_BLOCK_Q
 from . import build
 
-KERNELS = ("paged_decode_attention", "paged_prefill_attention")
+KERNELS = ("paged_decode_attention", "paged_prefill_attention",
+           "ragged_paged_attention")
 _launches = dict.fromkeys(KERNELS, 0)
 
 # What the CUDA kernels take (csrc/paged_common.cuh kMaxGroup; the D and
@@ -86,12 +91,15 @@ def _cuda_decline(kernel: str, t: int, page_size: int, d: int, group: int,
     if not 1 <= group <= MAX_GROUP:
         return f"group:{group} not in 1..{MAX_GROUP}"
     index = device.index if device.index is not None else 0
-    lib = build.library("paged_decode" if kernel == "decode"
-                        else "paged_prefill")
+    lib = build.library({"decode": "paged_decode", "prefill": "paged_prefill",
+                         "ragged": "ragged_paged"}[kernel])
     limit = lib.rt_max_smem_optin(index)
-    need = (lib.rt_paged_decode_smem_bytes(group, d, page_size)
-            if kernel == "decode"
-            else lib.rt_paged_prefill_smem_bytes(group, d, page_size, t))
+    if kernel == "decode":
+        need = lib.rt_paged_decode_smem_bytes(group, d, page_size)
+    elif kernel == "prefill":
+        need = lib.rt_paged_prefill_smem_bytes(group, d, page_size, t)
+    else:
+        need = lib.rt_ragged_smem_bytes(group, d, page_size)
     if need > limit:
         return f"smem:{need}>{limit}"
     return None
@@ -117,6 +125,14 @@ def pool_direct_decline_reason(chunk: int, page_size: int, d: int,
     must take the shape. None when they do, else the reason."""
     return (_decline("prefill", chunk, page_size, d, group, device)
             or _decline("decode", 1, page_size, d, group, device))
+
+
+def ragged_decline_reason(page_size: int, d: int, kh: int = 1,
+                          group: int = 1, device="cpu") -> Optional[str]:
+    """Why ragged_paged_attention cannot serve this pool shape on `device`,
+    or None when it can (the engine's build-time gate of the ragged
+    path)."""
+    return _decline("ragged", RAGGED_BLOCK_Q, page_size, d, group, device)
 
 
 def paged_pool_direct_supported(chunk: int, page_size: int, d: int,
@@ -170,6 +186,63 @@ def paged_decode_attention_ref(q, k_pool, v_pool, table, kv_valid, *,
     return paged_prefill_attention_ref(
         q, k_pool, v_pool, table, kv_valid - 1, kv_valid,
         sliding_window=sliding_window, softcap=softcap)
+
+
+def ragged_paged_attention_ref(q, k_pool, v_pool, tables, seq_of_block,
+                               block_qstart, query_offsets, kv_valid, *,
+                               sliding_window: Optional[int] = None,
+                               softcap: Optional[float] = None):
+    """Plain version of K3. Loops over the sequences present in the flat
+    buffer: each gathers its pages once, up to its own frontier, and its
+    rows run the masked f32 softmax, p cast to v's dtype before the PV
+    product. Pad rows (q_pos >= kv_valid of their sequence) are 0.
+    [T,H,D]."""
+    t, h, d = q.shape
+    ps, kh = k_pool.shape[1], k_pool.shape[2]
+    group = h // kh
+    dev = q.device
+    bq = RAGGED_BLOCK_Q
+    out = torch.zeros_like(q)
+    blk_seq = seq_of_block.tolist()
+    blk_start = block_qstart.tolist()
+    offsets = query_offsets.tolist()
+    valid = kv_valid.tolist()
+    blocks_of: dict[int, list[int]] = {}
+    for blk, s in enumerate(blk_seq):
+        blocks_of.setdefault(s, []).append(blk)
+    for s, blocks in blocks_of.items():
+        rows = torch.tensor([blk * bq + i for blk in blocks
+                             for i in range(bq)], device=dev)
+        q_pos = torch.tensor([offsets[s] + blk_start[blk] + i
+                              for blk in blocks for i in range(bq)],
+                             device=dev)
+        real = q_pos < valid[s]
+        n_pages = min(-(-valid[s] // ps), tables.shape[1])
+        if n_pages < 1 or not bool(real.any()):
+            continue
+        length = n_pages * ps
+        idx = tables[s, :n_pages].to(dev).long()
+        kv_pos = torch.arange(length, device=dev)
+        live = kv_pos < valid[s]
+        zero = torch.zeros((), dtype=k_pool.dtype, device=dev)
+        k = torch.where(live[:, None, None],
+                        k_pool[idx].reshape(length, kh, d), zero)
+        v = torch.where(live[:, None, None],
+                        v_pool[idx].reshape(length, kh, d), zero)
+        mask = (kv_pos[None, :] <= q_pos[:, None]) & live[None, :]
+        if sliding_window is not None:
+            mask &= kv_pos[None, :] > q_pos[:, None] - sliding_window
+        qg = q[rows].reshape(len(rows), kh, group, d)
+        logits = torch.einsum("nkgd,lkd->kgnl", qg.float(), k.float())
+        if softcap is not None:
+            logits = softcap * torch.tanh(logits / softcap)
+        logits = torch.where(mask[None, None], logits,
+                             torch.tensor(MASK_VALUE, device=dev))
+        probs = torch.softmax(logits, dim=-1).to(v.dtype)
+        o = torch.einsum("kgnl,lkd->nkgd", probs.float(), v.float())
+        o = torch.where(real[:, None, None, None], o, 0.0)
+        out[rows] = o.reshape(len(rows), h, d).to(q.dtype)
+    return out
 
 
 # --- kernel wrappers ---
@@ -298,4 +371,78 @@ def paged_prefill_attention(q, k_pool, v_pool, table, offsets, kv_valid, *,
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(rc, "paged_prefill_attention launch")
     _launches["paged_prefill_attention"] += 1
+    return out
+
+
+def ragged_paged_attention(q, k_pool, v_pool, tables, seq_of_block,
+                           block_qstart, query_offsets, kv_valid, *,
+                           sliding_window: Optional[int] = None,
+                           softcap: Optional[float] = None,
+                           k_scale=None, v_scale=None):
+    """Mixed prefill/decode attention over a flat token buffer straight off
+    the page pool (K3).
+
+    q [T,H,D] pre-scaled and rope'd, T a multiple of RAGGED_BLOCK_Q; block
+    qb (rows qb*8 .. qb*8+7) belongs to sequence seq_of_block[qb] and its
+    row i sits at absolute position query_offsets[seq] + block_qstart[qb]
+    + i, causal within the sequence; tables [S,pp] int32; kv_valid [S]
+    valid entries AFTER this call. The caller has scattered every real
+    token's K/V into its pages. Every index must lie inside its table
+    (serving_loop.build_ragged_batch keeps them there). Returns [T,H,D] in
+    q's dtype; pad rows (q_pos >= kv_valid) are 0."""
+    what = "ragged_paged_attention"
+    if k_scale is not None or v_scale is not None:
+        raise NotImplementedError(
+            "quantized KV pages (in-kernel dequant, K4) are not ported yet")
+    if q.dim() != 3 or q.shape[0] % RAGGED_BLOCK_Q or q.shape[0] == 0:
+        raise ValueError(f"{what}: q must be [T,H,D] with T a multiple of "
+                         f"{RAGGED_BLOCK_Q}, got {tuple(q.shape)}")
+    t, h, d = q.shape
+    if k_pool.dim() != 4 or k_pool.shape != v_pool.shape:
+        raise ValueError(f"{what}: pools must be [P,ps,K,D] and equal, got "
+                         f"{tuple(k_pool.shape)} / {tuple(v_pool.shape)}")
+    kh = k_pool.shape[2]
+    if k_pool.shape[3] != d or h % kh:
+        raise ValueError(f"{what}: q {tuple(q.shape)} does not match pools "
+                         f"{tuple(k_pool.shape)}")
+    if tables.dim() != 2:
+        raise ValueError(f"{what}: tables must be [S, pages_per_seq], got "
+                         f"{tuple(tables.shape)}")
+    s = tables.shape[0]
+    shapes = {"seq_of_block": (seq_of_block, t // RAGGED_BLOCK_Q),
+              "block_qstart": (block_qstart, t // RAGGED_BLOCK_Q),
+              "query_offsets": (query_offsets, s),
+              "kv_valid": (kv_valid, s)}
+    for name, (x, n) in shapes.items():
+        if x.shape != (n,):
+            raise ValueError(f"{what}: {name} must be [{n}], got "
+                             f"{tuple(x.shape)}")
+    if k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
+        raise ValueError(f"{what}: pool dtype {k_pool.dtype} != q dtype "
+                         f"{q.dtype}")
+    rows = {name: x for name, (x, _) in shapes.items()}
+    devices = {x.device for x in (q, k_pool, v_pool, tables, *rows.values())}
+    if len(devices) != 1:
+        raise ValueError(f"{what}: operands on several devices {devices}")
+    if q.device.type == "cpu":
+        return ragged_paged_attention_ref(
+            q, k_pool, v_pool, tables, seq_of_block, block_qstart,
+            query_offsets, kv_valid, sliding_window=sliding_window,
+            softcap=softcap)
+    ps = k_pool.shape[1]
+    reason = ragged_decline_reason(ps, d, kh, h // kh, q.device)
+    if reason is not None:
+        raise ValueError(f"{what} declines: {reason}")
+    ints = _cuda_operands(q, k_pool, v_pool, tables, rows, what)
+    out = torch.empty_like(q)
+    rc = build.library("ragged_paged").rt_ragged_paged(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        ints["table"].data_ptr(), ints["seq_of_block"].data_ptr(),
+        ints["block_qstart"].data_ptr(), ints["query_offsets"].data_ptr(),
+        ints["kv_valid"].data_ptr(), out.data_ptr(), t, h, kh, d, ps,
+        tables.shape[1], int(sliding_window or 0), float(softcap or 0.0),
+        _DTYPE_CODES[q.dtype], q.device.index or 0,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(rc, "ragged_paged_attention launch")
+    _launches["ragged_paged_attention"] += 1
     return out

@@ -22,7 +22,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("paged_decode", "paged_prefill")
+SOURCES = ("paged_decode", "paged_prefill", "ragged_paged")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -40,6 +40,10 @@ _SIGNATURES = {
         "rt_paged_prefill": ([_P] * 7 + [_I] * 8 + [_F, _I, _I, _P], _I),
         "rt_paged_prefill_smem_bytes": ([_I, _I, _I, _I],
                                         ctypes.c_longlong),
+    },
+    "ragged_paged": {
+        "rt_ragged_paged": ([_P] * 9 + [_I] * 7 + [_F, _I, _I, _P], _I),
+        "rt_ragged_smem_bytes": ([_I, _I, _I], ctypes.c_longlong),
     },
 }
 _COMMON_SIGNATURES = {

@@ -120,8 +120,8 @@ class SlotBook:
 
 def share_prefixes(kv, names, all_tokens, offsets, *, min_shared: int,
                    add_share, flush_shares, prefill_span,
-                   extra_pinned: tuple[str, ...] = ()) -> tuple[list[int],
-                                                                 int]:
+                   extra_pinned: tuple[str, ...] = (),
+                   defer_span=None) -> tuple[list[int], int]:
     """Two-pass cross-knight shared-prefix reuse:
 
     (a) donor pass - a slot committed by an earlier call that shares a
@@ -133,6 +133,18 @@ def share_prefixes(kv, names, all_tokens, offsets, *, min_shared: int,
     Callbacks own the device mechanics: add_share(donor_state, row_i, lo,
     hi) shares one span (paged: page aliasing); flush_shares() applies
     queued shares; prefill_span(row_i, lo, hi) prefills a row's span.
+    `extra_pinned`: slot names outside this batch that survive any
+    eviction the passes trigger (the scheduler's live rows).
+
+    `defer_span(m, lo, hi, followers)` (the scheduler's ragged admission):
+    when given and the leader's cache does not cover the common span yet,
+    the leader pass dispatches nothing. The leader's offset stays at its
+    own coverage (its span joins the live decode segment as ragged
+    chunks), the laggards' offsets still rise to the span end, and the
+    callback records (leader index, leader coverage, span end,
+    [(laggard, its pre-raise coverage), ...]) so the caller aliases the
+    laggards once the leader's chunks have written the span. A leader that
+    already covers the span aliases at once.
     Returns (updated offsets, leader-prefilled token count)."""
     b = len(names)
     pinned = tuple(names) + tuple(extra_pinned)
@@ -160,6 +172,12 @@ def share_prefixes(kv, names, all_tokens, offsets, *, min_shared: int,
     if not laggards:
         return offsets, extra_prefill
     if offsets[m] < l_shared:
+        if defer_span is not None:
+            defer_span(m, offsets[m], l_shared,
+                       [(i, offsets[i]) for i in laggards])
+            for i in laggards:
+                offsets[i] = l_shared
+            return offsets, extra_prefill
         prefill_span(m, offsets[m], l_shared)
         extra_prefill += l_shared - offsets[m]
         offsets[m] = l_shared

@@ -1,5 +1,6 @@
 """Pool-direct paged serving forward (counterpart of
-theroundtaible_tpu/engine/paged_forward.py, `forward_paged`).
+theroundtaible_tpu/engine/paged_forward.py, `forward_paged` and
+`forward_ragged`).
 
 Serves decode steps AND prefill chunks straight off the page pools: each
 layer writes its K/V into the rows' pages (an indexed in-place write -
@@ -9,10 +10,17 @@ K2 (prefill chunk), which read only the pages inside each row's
 causal/valid frontier. Block wiring (norms, residuals, MLP, family flags)
 comes from models/common.transformer_block through its attn_fn hook.
 
+forward_ragged serves the scheduler's mixed dispatches: every sequence's
+prefill chunk or decode token in one flat buffer
+(serving_loop.build_ragged_batch), attending through K3.
+
 Write-exclusivity: the engine's ensure_capacity copy-on-writes any shared
-page in a row's write range before dispatch, and distinct batch rows own
-their frontier pages exclusively, so the write never touches an aliased
-page.
+page in a row's write range before dispatch (the scheduler's
+_apply_share_plans does it at alias time), and distinct rows own their
+frontier pages exclusively, so a real token's write never touches an
+aliased page. Pad tokens of a flat buffer all write the scratch page with
+duplicate indices; in-place indexing then keeps an arbitrary one, which is
+harmless because those cells are never read.
 """
 
 from __future__ import annotations
@@ -91,3 +99,72 @@ def forward_paged(
     if last_pos is not None:
         x = gather_rows(x, last_pos)
     return lm_head(params, cfg, x)
+
+
+def forward_ragged(
+    params: Params, cfg: ModelConfig,
+    tokens: torch.Tensor,          # [T] flat token buffer
+    positions: torch.Tensor,       # [T] absolute positions
+    pools: list,                   # per-layer (k_pool, v_pool) [P,ps,K,D]
+    tables: torch.Tensor,          # [S, pages_per_seq] int32
+    seq_of_block: torch.Tensor,    # [T/8] sequence id per q block
+    block_qstart: torch.Tensor,    # [T/8] block start row within its seq
+    query_offsets: torch.Tensor,   # [S] absolute position of seq's row 0
+    kv_valid: torch.Tensor,        # [S] valid entries AFTER this call
+    token_pages: torch.Tensor,     # [T] pool page per token (pads: scratch)
+    token_offs: torch.Tensor,      # [T] in-page offset per token
+    last_rows: torch.Tensor,       # [S] flat row of each seq's last token
+    plain: bool = False,
+    sample_rows: Optional[torch.Tensor] = None,
+    scales: Optional[list] = None,
+    copy_src: Optional[torch.Tensor] = None,
+    copy_dst: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """One mixed prefill/decode step over the flat token buffer: each
+    layer writes the buffer's K/V into the owning sequences' pages in place
+    (pads land on the scratch page, never read), then attends through K3
+    (`plain=True`: its plain version, on any device). Returns f32
+    per-sequence last-token logits [S,V], gathered before the head; the
+    inert pad sequence's row is garbage the caller drops.
+
+    Speculative verify rows (`sample_rows`), tree pre-copies
+    (`copy_src`/`copy_dst`) and quantized pools (`scales`) are not
+    ported."""
+    if sample_rows is not None or copy_src is not None \
+            or copy_dst is not None:
+        raise NotImplementedError(
+            "sample_rows/copy_src/copy_dst (speculative verify) are not "
+            "ported to the PyTorch engine yet (ROADMAP, slice 7: "
+            "speculative decoding)")
+    if scales is not None:
+        raise NotImplementedError(
+            "quantized KV pools are not ported to the PyTorch engine yet "
+            "(ROADMAP, slice 5: quantization, K4/K5/K6)")
+    pos2 = positions[None]
+    pages = token_pages.long()
+    offs = token_offs.long()
+    attend = (kattn.ragged_paged_attention_ref if plain
+              else kattn.ragged_paged_attention)
+    tabs = rope_tables(pos2, cfg.head_dim, cfg.rope_theta)
+    x = scale_embeddings(embed_tokens(params["embedding"], tokens[None]),
+                         cfg)
+    for layer, (k_pool, v_pool) in zip(params["layers"], pools):
+
+        def attn_fn(h, layer, k_pool=k_pool, v_pool=v_pool):
+            q, k, v = project_qkv(h, layer, cfg, pos2, tabs)   # [1,T,.,D]
+            # In place: the JAX package's `pool.at[pages, offs].set`.
+            k_pool[pages, offs] = k[0]
+            v_pool[pages, offs] = v[0]
+            out = attend(q[0], k_pool, v_pool, tables, seq_of_block,
+                         block_qstart, query_offsets, kv_valid,
+                         sliding_window=cfg.sliding_window,
+                         softcap=cfg.attn_logit_softcap)
+            out = _matmul(out.reshape(1, out.shape[0], -1),
+                          layer["o_proj"].reshape(-1, cfg.embed_dim))
+            return out.to(h.dtype), None
+
+        x, _ = transformer_block(x, layer, cfg, pos2, None, None, None,
+                                 attn_fn=attn_fn)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps,
+                 cfg.rmsnorm_unit_offset)
+    return lm_head(params, cfg, x[:, last_rows.long()])[0]

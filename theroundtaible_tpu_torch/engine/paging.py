@@ -88,6 +88,13 @@ class PagedKVCache:
         """Total non-scratch pages."""
         return self.num_pages - 1
 
+    def pages_held(self, names: list[str]) -> int:
+        """Pages currently mapped by the named slots (missing names count
+        0): the scheduler's admission backpressure counts what its live
+        rows pin; the rest is reclaimable by LRU eviction."""
+        return sum(len(self._slots[n].pages)
+                   for n in names if n in self._slots)
+
     def hbm_bytes(self) -> int:
         """Resident pool bytes across all layers."""
         k, _ = self.pools[0]

@@ -1,14 +1,16 @@
 """Host-side serving loop pieces (counterpart of
 theroundtaible_tpu/engine/serving_loop.py): chunked bucketed prefill with
 the cache-end bucket-shrink guard, the decode segment loop with deadline
-checks, and the eos-trim/commit epilogue. The engine passes its dispatch
-closures; everything else lives here once.
+checks, the ragged flat buffer (build_ragged_batch) of the scheduler's mixed
+prefill/decode dispatches, and the eos-trim/commit epilogue. The engine
+passes its dispatch closures; everything else lives here once.
 
-The ragged flat-buffer builder and the data-replica plan are not ported.
+The data-replica plan is not ported.
 """
 
 from __future__ import annotations
 
+import os
 import time
 from typing import Callable, Optional
 
@@ -20,6 +22,50 @@ from . import deadlines
 PREFILL_BUCKETS = (64, 128, 256, 512, 1024, 2048)
 MAX_PREFILL_CHUNK = 2048
 DECODE_SEGMENT = 64  # tokens per decode segment; timeout checks in between
+
+# Ragged mixed prefill/decode dispatch: the flat token buffer's row
+# granularity (one decode token occupies one 8-row block) and the env
+# overrides of the per-dispatch token budget and the deferral threshold.
+RAGGED_BLOCK_Q = 8
+RAGGED_TOKENS_ENV = "ROUNDTABLE_RAGGED_TOKENS"
+RAGGED_DEFER_MIN_ENV = "ROUNDTABLE_RAGGED_DEFER_MIN"
+
+
+def ragged_token_budget(num_slots: int) -> int:
+    """Flat-buffer capacity per ragged dispatch: big enough that a typical
+    cold join's leader span streams in one dispatch, floored so every
+    resident row's 8-row decode block still leaves chunk room.
+    ROUNDTABLE_RAGGED_TOKENS overrides (rounded up to a block multiple)."""
+    forced = int(os.environ.get(RAGGED_TOKENS_ENV, "0") or 0)
+    if forced > 0:
+        return -(-forced // RAGGED_BLOCK_Q) * RAGGED_BLOCK_Q
+    return max(1024, RAGGED_BLOCK_Q * num_slots + 64)
+
+
+def ragged_defer_min() -> int:
+    """Suffix-token threshold below which a join keeps the blocking
+    prologue even on a ragged engine: a warm join's few dozen tokens cost
+    less as one small prefill than spread across ragged ticks. Only cold
+    prefills are deferred. ROUNDTABLE_RAGGED_DEFER_MIN overrides."""
+    return int(os.environ.get(RAGGED_DEFER_MIN_ENV, "256") or 256)
+
+
+def ragged_shape_grid(budget: int) -> tuple[int, ...]:
+    """The small fixed grid of flat-buffer shapes, {64, 256, 1024, budget}
+    capped at the budget: a dispatch computes its whole buffer, pads
+    included, so a lone decode step plus a short tail chunk must not pay
+    for the full budget. A fixed grid also keeps the set of shapes a later
+    CUDA-graph capture has to cover small."""
+    return tuple(sorted({s for s in (64, 256, 1024, budget)
+                         if s <= budget}))
+
+
+def ragged_pick_shape(grid: tuple[int, ...], want: int) -> int:
+    """Smallest grid shape >= want (the last shape when none is)."""
+    for s in grid:
+        if want <= s:
+            return s
+    return grid[-1]
 
 
 def run_dispatch(dispatch: Callable, retry, deadline: float = float("inf"),
@@ -216,6 +262,126 @@ def decode_segments(
                 f"({produced}/{max_new} tokens)")
     return (np.concatenate(segments, axis=1) if segments
             else np.zeros((b, 0), np.int32))
+
+
+class RaggedSeq:
+    """One sequence's slice of a ragged dispatch: the tokens it feeds this
+    call (a prefill chunk, or the single last-sampled token of a decode
+    row), the absolute position of the first one, its page-table row and
+    its sampling params. The JAX fields `n_scores` (speculative verify)
+    and `adapter` (LoRA slot) come with their slices."""
+
+    __slots__ = ("tokens", "pos", "table", "temperature", "top_k",
+                 "top_p")
+
+    def __init__(self, tokens: list[int], pos: int, table: np.ndarray,
+                 temperature: float = 0.0, top_k: int = 0,
+                 top_p: float = 1.0):
+        self.tokens = tokens
+        self.pos = pos
+        self.table = table
+        self.temperature = temperature
+        self.top_k = top_k
+        self.top_p = top_p
+
+
+def build_ragged_batch(seqs: list[RaggedSeq], *, t_budget: int,
+                       s_max: int, pages_per_seq: int, scratch_page: int,
+                       pad_id: int, page_size: int,
+                       score_width: int = 0,
+                       copy_pairs: Optional[list] = None,
+                       copy_slots: int = 0) -> dict:
+    """Host inputs (numpy) of one ragged mixed prefill/decode dispatch.
+
+    Every array's shape follows from (t_budget, s_max) alone; the
+    composition lives in the values. Each sequence occupies a
+    RAGGED_BLOCK_Q-aligned run of the flat buffer; the last slot of s_max
+    is the inert sequence every pad block points at (kv_valid 1 over the
+    scratch page). Pad tokens scatter their K/V to the scratch page, which
+    no real sequence reads. Every table entry and position index stays
+    inside the sequence's table (torch indexing raises where JAX clamps).
+
+    Returns flat tokens/positions/token_pages/token_offs/token_seq
+    [t_budget], per-block seq_of_block/block_qstart [t_budget/8], per-seq
+    tables/query_offsets/kv_valid/last_rows/temps/top_ks/top_ps
+    [s_max, ...], token_adapter (all 0, the base model: LoRA is not
+    ported), `greedy`, and the accounting fields
+    n_seqs/n_tokens. Speculative verify (`score_width`) and tree copies
+    (`copy_pairs`/`copy_slots`) belong to speculative decoding, which is
+    not ported."""
+    if score_width or copy_pairs or copy_slots:
+        raise NotImplementedError(
+            "score_width/copy_pairs (speculative verify) are not ported to "
+            "the PyTorch engine yet (ROADMAP, slice 7: speculative "
+            "decoding)")
+    bq = RAGGED_BLOCK_Q
+    if t_budget % bq:
+        raise ValueError(f"t_budget {t_budget} not a multiple of {bq}")
+    nb = t_budget // bq
+    inert = s_max - 1
+    if len(seqs) > inert:
+        raise ValueError(
+            f"{len(seqs)} sequences > {inert} (one slot is the inert "
+            "pad sequence)")
+    tokens = np.full(t_budget, pad_id, np.int32)
+    positions = np.zeros(t_budget, np.int32)
+    token_pages = np.full(t_budget, scratch_page, np.int32)
+    token_offs = np.zeros(t_budget, np.int32)
+    token_seq = np.full(t_budget, inert, np.int32)
+    seq_of_block = np.full(nb, inert, np.int32)
+    block_qstart = np.zeros(nb, np.int32)
+    tables = np.full((s_max, pages_per_seq), scratch_page, np.int32)
+    query_offsets = np.zeros(s_max, np.int32)
+    kv_valid = np.ones(s_max, np.int32)
+    last_rows = np.zeros(s_max, np.int32)
+    token_adapter = np.zeros(t_budget, np.int32)
+    temps = np.ones(s_max, np.float32)
+    top_ks = np.zeros(s_max, np.int32)
+    top_ps = np.ones(s_max, np.float32)
+
+    row = 0
+    n_tokens = 0
+    for i, s in enumerate(seqs):
+        n = len(s.tokens)
+        if n < 1:
+            raise ValueError("RaggedSeq needs at least one token")
+        span = -(-n // bq) * bq
+        if row + span > t_budget:
+            raise ValueError(
+                f"sequences overflow the {t_budget}-token budget")
+        tokens[row:row + n] = s.tokens
+        # Pad rows inside the span continue the position run: their
+        # outputs are dropped, the positions only steer causal frontiers.
+        positions[row:row + span] = s.pos + np.arange(span)
+        pos_n = s.pos + np.arange(n)
+        token_pages[row:row + n] = s.table[pos_n // page_size]
+        token_offs[row:row + n] = pos_n % page_size
+        token_seq[row:row + span] = i
+        b0 = row // bq
+        for k in range(span // bq):
+            seq_of_block[b0 + k] = i
+            block_qstart[b0 + k] = k * bq
+        tables[i] = s.table
+        query_offsets[i] = s.pos
+        kv_valid[i] = s.pos + n
+        last_rows[i] = row + n - 1
+        temps[i] = s.temperature
+        top_ks[i] = s.top_k
+        top_ps[i] = s.top_p
+        row += span
+        n_tokens += n
+    return {
+        "tokens": tokens, "positions": positions,
+        "token_pages": token_pages, "token_offs": token_offs,
+        "token_seq": token_seq, "seq_of_block": seq_of_block,
+        "block_qstart": block_qstart, "tables": tables,
+        "query_offsets": query_offsets, "kv_valid": kv_valid,
+        "last_rows": last_rows, "temps": temps, "top_ks": top_ks,
+        "top_ps": top_ps, "token_adapter": token_adapter,
+        "greedy": all(s.temperature <= 0.0 for s in seqs),
+        "n_seqs": len(seqs), "n_tokens": n_tokens,
+        "score_width": score_width,
+    }
 
 
 def eos_trim(ids: list[int], eos_id: int, max_new: int) -> list[int]:
