@@ -9,14 +9,17 @@ Phases, each printing one JSON line; any failure exits non-zero:
 
 1. device  - the card's name and power limit (nvidia-smi).
 2. build   - nvcc builds the CUDA kernels from engine/kernels/csrc.
-3. kernels - K1 (paged decode), K2 (paged prefill) and K3 (ragged mixed
-             prefill/decode) against their plain PyTorch versions on the
-             card in bf16 at Llama-3-8B's attention shape (H=32, K=8,
-             D=128, page 128), plus window, softcap, D=64 and D=256 cases
-             (K3 also a mid-page chunk with inert blocks), NaN in every
-             cell past kv_valid; kernel and plain times from CUDA events
-             beside each kernel's device-memory/operations bound and SDPA
-             on a pre-gathered view.
+3. kernels - K1 (paged decode), K2 (paged prefill), K3 (ragged mixed
+             prefill/decode), K8 (contiguous prefill) and K9 (contiguous
+             decode) against their plain PyTorch versions on the card in
+             bf16 at Llama-3-8B's attention shape (H=32, K=8, D=128, page
+             128; K8/K9 on an 8-slot, 8192-position cache read through a
+             permutation of its slots, one K8 row ending at the cache
+             end), plus window, softcap, D=64 and D=256 cases (K3 also a
+             mid-page chunk with inert blocks), NaN in every cell past
+             kv_valid; kernel and plain times from CUDA events beside each
+             kernel's device-memory/operations bound and SDPA on a
+             pre-gathered view (K8/K9: on the batch's slot rows).
 4. engine  - InferenceEngine.from_config for llama-3-8b-instruct (full
              width, 32 layers, seeded random weights, byte tokenizer),
              paged pool, bf16, 8 slots, max_seq_len 8192; warmup(); two
@@ -42,6 +45,23 @@ Phases, each printing one JSON line; any failure exits non-zero:
              K1, K2 and K3 must all launch within the phase; beta's TTFT,
              alpha's decode rate and the ragged dispatches' walls are
              printed.
+9. contiguous - the paged engine released, TorchLlmAdapter.from_config
+             with the engine phase's config minus `kv_layout`: the default
+             builds a contiguous engine (same weights, 8 slots of 8192
+             positions, attention resolved to K8/K9); warmup() and the same
+             two rounds. K8 and K9 must launch in each round, K1-K3 never;
+             prefill/decode seconds, reused tokens, cache bytes, peak
+             memory and the greedy knights' token agreement with the paged
+             rounds (reported, not checked) are printed.
+    contiguous_profile - the profile phase on the contiguous engine.
+10. contiguous_path - the path phase on the contiguous layout (2 layers,
+             one chunk, 16 decode steps through forward_cached): K8/K9
+             against their plain versions, and against forward_paged
+             (K2/K1) fed the same tokens; logits compared.
+11. contiguous_scheduler - the scheduler phase on the contiguous engine:
+             no ragged seam, so beta waits for alpha's segment boundary and
+             admits through the blocking prologue. K8 and K9 must launch,
+             K1-K3 never.
 
 Then a `{"kernels": [...]}` line, the nvidia-smi line, and last
 `{"ok": true, "device": {...}}`. Details go to chiprun_out/chip_smoke/.
@@ -52,6 +72,7 @@ package is missing next to it.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import statistics
 import subprocess
@@ -288,6 +309,9 @@ def kernels_phase(torch, kattn):
         "flops": pairs * H * D * 4}
     results["ragged_cases"], timing["ragged"] = ragged_kernel_cases(
         torch, kattn, gen, flush)
+    (results["cdecode_cases"], results["cprefill_cases"],
+     timing["cdecode"], timing["cprefill"]) = contiguous_kernel_cases(
+        torch, kattn, gen, flush)
     for t in timing.values():
         t["bound_ms"], t["bound_by"] = bound_ms(t["bytes"], t["flops"])
     results["timing"] = timing
@@ -443,6 +467,129 @@ def sdpa_view_ms(torch, q, k_pool, v_pool, table, valid, offsets, flush):
         qt, k, v, attn_mask=mask, scale=1.0, enable_gqa=True), 20, flush)
 
 
+# K8/K9's check and timing shapes: an 8-slot cache of 8192 positions, the
+# batch rows reading a permutation of its slots.
+SLOTS, CACHE_LEN = 8, 8192
+
+
+def slot_cache(torch, gen, K, D, dtype, dev, valid, rows):
+    """A contiguous cache [SLOTS, CACHE_LEN, K, D] with NaN in every cell at
+    or past each batch row's kv_valid in its slot: a reused slot's stale
+    K/V, which the kernels must never load."""
+    shape = (SLOTS, CACHE_LEN, K, D)
+    k = torch.randn(shape, generator=gen, device=dev).to(dtype)
+    v = torch.randn(shape, generator=gen, device=dev).to(dtype)
+    for n, r in zip(valid, rows):
+        k[r, n:] = float("nan")
+        v[r, n:] = float("nan")
+    return k, v
+
+
+def contiguous_kernel_cases(torch, kattn, gen, flush):
+    """K9 and K8 against their plain versions on every output row (pad rows
+    are 0 in both), then their times at the serving shapes of a 3-knight
+    round beside K1's and K2's cases."""
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    i32 = lambda x: torch.tensor(x, dtype=torch.int32, device=dev)  # noqa
+    cases = [(32, 8, 128, None, None), (32, 8, 128, 4096, None),
+             (32, 8, 128, None, 50.0), (32, 8, 128, 4096, 50.0),
+             (32, 8, 64, None, None), (8, 1, 256, None, None)]
+    dec_errs, pre_errs = [], []
+    for H, K, D, window, softcap in cases:
+        # K9: 8 rows at the edges of a block and of the cache, rows mapped
+        # onto a permutation of the slots.
+        rows = [5, 2, 7, 0, 3, 6, 1, 4]
+        valid = [1, 127, 128, 129, 2048, 4000, 5000, CACHE_LEN]
+        k, v = slot_cache(torch, gen, K, D, bf16, dev, valid, rows)
+        q = (torch.randn(8, 1, H, D, generator=gen, device=dev)
+             * D ** -0.5).to(bf16)
+        args = (q, k, v, i32(valid))
+        kw = dict(sliding_window=window, softcap=softcap, rows=i32(rows))
+        err, ok = max_err(torch, kattn.ragged_decode_attention(*args, **kw),
+                          kattn.ragged_decode_attention_ref(*args, **kw))
+        dec_errs.append({"H": H, "K": K, "D": D, "window": window,
+                         "softcap": softcap, "max_abs_err": err})
+        check(ok, f"K9 disagrees with its plain version: {dec_errs[-1]}")
+        # K8: T=512 chunks at offsets 0/100 and one ending at the cache
+        # end, partial lengths (pad rows compared too).
+        rows, T = [6, 1, 3], 512
+        offsets, lengths = [0, 100, CACHE_LEN - T], [512, 300, 512]
+        valid = [o + n for o, n in zip(offsets, lengths)]
+        k, v = slot_cache(torch, gen, K, D, bf16, dev, valid, rows)
+        q = (torch.randn(3, T, H, D, generator=gen, device=dev)
+             * D ** -0.5).to(bf16)
+        args = (q, k, v, i32(offsets), i32(valid))
+        kw = dict(sliding_window=window, softcap=softcap, rows=i32(rows))
+        err, ok = max_err(torch, kattn.flash_prefill_attention(*args, **kw),
+                          kattn.flash_prefill_attention_ref(*args, **kw))
+        pre_errs.append({"H": H, "K": K, "D": D, "window": window,
+                         "softcap": softcap, "max_abs_err": err})
+        check(ok, f"K8 disagrees with its plain version: {pre_errs[-1]}")
+        del k, v
+
+    # Times: K1's and K2's serving cases on the slot cache.
+    H, K, D, B = 32, 8, 128, 3
+    rows_l = [5, 2, 7]
+    rows = i32(rows_l)
+    valid_l = [1600, 1650, 1700]
+    k, v = slot_cache(torch, gen, K, D, bf16, dev, valid_l, rows_l)
+    q = (torch.randn(B, 1, H, D, generator=gen, device=dev)
+         * D ** -0.5).to(bf16)
+    valid = i32(valid_l)
+    cells = kv_cells(valid_l, [n - 1 for n in valid_l], None)
+    timing = {"cdecode": {
+        "shape": {"B": B, "H": H, "K": K, "D": D, "S": CACHE_LEN,
+                  "slots": SLOTS, "rows": rows_l, "kv_valid": valid_l},
+        "ms": time_ms(torch, lambda: kattn.ragged_decode_attention(
+            q, k, v, valid, rows=rows), 50, flush),
+        "plain_ms": time_ms(torch, lambda: kattn.ragged_decode_attention_ref(
+            q, k, v, valid, rows=rows), 5, flush),
+        "sdpa_ms": sdpa_slots_ms(torch, q, k, v, rows, valid, None, flush),
+        "bytes": 2 * q.numel() * 2 + cells * K * D * 2 * 2,
+        "flops": cells * H * D * 4}}
+    offsets_l, lengths_l, T = [1200, 1200, 1200], [300, 320, 340], 512
+    valid_l = [o + n for o, n in zip(offsets_l, lengths_l)]
+    offsets, valid = i32(offsets_l), i32(valid_l)
+    q = (torch.randn(B, T, H, D, generator=gen, device=dev)
+         * D ** -0.5).to(bf16)
+    cells = kv_cells(valid_l, offsets_l, None)
+    pairs = attended_pairs(valid_l, offsets_l, lengths_l, None)
+    timing["cprefill"] = {
+        "shape": {"B": B, "T": T, "H": H, "K": K, "D": D, "S": CACHE_LEN,
+                  "slots": SLOTS, "rows": rows_l, "offsets": offsets_l,
+                  "lengths": lengths_l},
+        "ms": time_ms(torch, lambda: kattn.flash_prefill_attention(
+            q, k, v, offsets, valid, rows=rows), 20, flush),
+        "plain_ms": time_ms(torch, lambda: kattn.flash_prefill_attention_ref(
+            q, k, v, offsets, valid, rows=rows), 5, flush),
+        "sdpa_ms": sdpa_slots_ms(torch, q, k, v, rows, valid, offsets,
+                                 flush),
+        "bytes": 2 * sum(lengths_l) * H * D * 2 + cells * K * D * 2 * 2,
+        "flops": pairs * H * D * 4}
+    return dec_errs, pre_errs, timing["cdecode"], timing["cprefill"]
+
+
+def sdpa_slots_ms(torch, q, k_cache, v_cache, rows, valid, offsets, flush):
+    """Yardstick only, never called by the port: one
+    scaled_dot_product_attention call (enable_gqa, boolean causal and
+    valid-length mask) over the batch's slot rows, gathered up to the
+    longest kv_valid and laid out [B,K,S,D] beforehand (not timed)."""
+    import torch.nn.functional as F
+    b, t, h, d = q.shape
+    s = max(int(valid.max()), 1)
+    idx = rows.long()
+    k = torch.nan_to_num(k_cache[idx, :s]).transpose(1, 2).contiguous()
+    v = torch.nan_to_num(v_cache[idx, :s]).transpose(1, 2).contiguous()
+    starts = (valid - 1) if offsets is None else offsets
+    q_pos = starts.long()[:, None] + torch.arange(t, device=q.device)
+    kv_pos = torch.arange(s, device=q.device)
+    mask = ((kv_pos[None, None] <= q_pos[..., None])
+            & (kv_pos[None, None] < valid.long()[:, None, None]))[:, None]
+    qt = q.transpose(1, 2).contiguous()
+    return time_ms(torch, lambda: F.scaled_dot_product_attention(
+        qt, k, v, attn_mask=mask, scale=1.0, enable_gqa=True), 20, flush)
+
+
 # --- engine phase ---
 
 
@@ -463,28 +610,32 @@ def knight_prompts(round_no: int, previous=None) -> dict:
             for k in knights}
 
 
-def engine_phase(torch, kattn):
+# The engine phase's adapter config: llama-3-8b-instruct at full width,
+# seeded random weights, the paged pool. The contiguous phase drops
+# `kv_layout` and so gets the default, contiguous layout.
+ENGINE_CONFIG = {
+    "model": "llama-3-8b-instruct", "kv_layout": "paged",
+    "dtype": "bfloat16", "num_slots": 8, "max_seq_len": 8192,
+    "page_size": 128, "seed": SEED,
+    "sampling": {"temperature": 0.0, "max_new_tokens": 32},
+    # one knight samples, so the sampled decode path runs too
+    "knight_sampling": {"percival": {"temperature": 0.8, "top_k": 40,
+                                     "top_p": 0.95}}}
+PAGED_KERNELS = ("paged_decode_attention", "paged_prefill_attention",
+                 "ragged_paged_attention")
+CONTIGUOUS_KERNELS = ("flash_prefill_attention", "ragged_decode_attention")
+GREEDY_KNIGHTS = ("lancelot", "gawain")
+
+
+def serve_rounds(torch, kattn, adapter, engine, phase, required,
+                 forbidden=()):
+    """Two 3-knight rounds through execute_round. The launch counts are
+    zeroed before and read after each round: every `required` kernel must
+    have launched in it, no `forbidden` one. Returns (launch totals, each
+    round's generated tokens per knight)."""
     from theroundtaible_tpu_torch.adapters.base import KnightTurn
-    from theroundtaible_tpu_torch.adapters.torch_llm import TorchLlmAdapter
-    config = {"model": "llama-3-8b-instruct", "kv_layout": "paged",
-              "dtype": "bfloat16", "num_slots": 8, "max_seq_len": 8192,
-              "page_size": 128, "seed": SEED,
-              "sampling": {"temperature": 0.0, "max_new_tokens": 32},
-              # one knight samples, so the sampled decode path runs too
-              "knight_sampling": {"percival": {"temperature": 0.8,
-                                               "top_k": 40,
-                                               "top_p": 0.95}}}
-    adapter = TorchLlmAdapter.from_config("torch-llm-llama3", config)
-    t0 = time.monotonic()
-    engine = adapter._get_engine()
-    torch.cuda.synchronize()
-    build_s = time.monotonic() - t0
-    warm_s = engine.warmup()
-    emit("engine", model=engine.cfg.name, params=engine.num_params,
-         construct_s=build_s, warmup_s=warm_s,
-         kv_pool_bytes=engine.kv.hbm_bytes(), num_pages=engine.kv.num_pages,
-         memory_allocated=torch.cuda.memory_allocated())
     totals = dict.fromkeys(kattn.KERNELS, 0)
+    generated = {}
     prompts = None
     for rnd in (1, 2):
         prompts = knight_prompts(rnd, prompts)
@@ -496,20 +647,82 @@ def engine_phase(torch, kattn):
         wall = time.monotonic() - t0
         launches = kattn.launch_counts()
         stats = adapter.last_stats()
-        emit("round", round=rnd, wall_s=wall,
+        emit(phase, round=rnd, wall_s=wall,
              prompt_tokens=[len(engine.tokenizer.encode(p))
                             for p in prompts.values()],
              launches=launches, responses=len(responses), **stats)
         check(adapter.last_degradation is None,
-              f"round {rnd} degraded: {adapter.last_degradation}")
-        check(launches["paged_decode_attention"] > 0
-              and launches["paged_prefill_attention"] > 0,
-              f"round {rnd}: K1 or K2 never launched: {launches}")
-        check(stats["decode_tokens"] > 0, f"round {rnd} decoded nothing")
+              f"{phase} {rnd} degraded: {adapter.last_degradation}")
+        check(all(launches[k] > 0 for k in required),
+              f"{phase} {rnd}: a kernel of {required} never launched: "
+              f"{launches}")
+        check(not any(launches[k] for k in forbidden),
+              f"{phase} {rnd}: a kernel of {forbidden} launched: "
+              f"{launches}")
+        check(stats["decode_tokens"] > 0, f"{phase} {rnd} decoded nothing")
         if rnd == 2:
-            check(stats["reused_tokens"] > 0, "round 2 reused no tokens")
+            check(stats["reused_tokens"] > 0, f"{phase} 2 reused no tokens")
         for name, n in launches.items():
             totals[name] += n
+        generated[rnd] = {
+            k: engine.kv._slots[k].tokens[len(engine.tokenizer.encode(p)):]
+            for k, p in prompts.items()}
+    return totals, generated
+
+
+def engine_phase(torch, kattn):
+    from theroundtaible_tpu_torch.adapters.torch_llm import TorchLlmAdapter
+    adapter = TorchLlmAdapter.from_config("torch-llm-llama3",
+                                          dict(ENGINE_CONFIG))
+    t0 = time.monotonic()
+    engine = adapter._get_engine()
+    torch.cuda.synchronize()
+    build_s = time.monotonic() - t0
+    warm_s = engine.warmup()
+    emit("engine", model=engine.cfg.name, params=engine.num_params,
+         construct_s=build_s, warmup_s=warm_s,
+         kv_pool_bytes=engine.kv.hbm_bytes(), num_pages=engine.kv.num_pages,
+         memory_allocated=torch.cuda.memory_allocated())
+    totals, generated = serve_rounds(
+        torch, kattn, adapter, engine, "round",
+        required=PAGED_KERNELS[:2], forbidden=CONTIGUOUS_KERNELS)
+    return totals, engine, generated
+
+
+def contiguous_phase(torch, kattn, paged_generated):
+    """The engine phase's config minus `kv_layout`: the default builds a
+    contiguous engine (the same weights from the same seed), attention
+    resolved to K8/K9 on the card. warmup(), then the same two rounds:
+    K8 and K9 must launch in each, K1-K3 never."""
+    from theroundtaible_tpu_torch.adapters.torch_llm import TorchLlmAdapter
+    config = {k: v for k, v in ENGINE_CONFIG.items() if k != "kv_layout"}
+    torch.cuda.reset_peak_memory_stats()
+    adapter = TorchLlmAdapter.from_config("torch-llm-llama3", config)
+    t0 = time.monotonic()
+    engine = adapter._get_engine()
+    torch.cuda.synchronize()
+    build_s = time.monotonic() - t0
+    d = engine.describe()
+    check(d["kv_layout"] == "contiguous" and d["attn"] == "flash",
+          f"the default config built {d['kv_layout']}/{d.get('attn')}")
+    warm_s = engine.warmup()
+    emit("contiguous_engine", construct_s=build_s, warmup_s=warm_s,
+         kv_cache_bytes=engine.kv.hbm_bytes(),
+         memory_allocated=torch.cuda.memory_allocated())
+    totals, generated = serve_rounds(
+        torch, kattn, adapter, engine, "contiguous_round",
+        required=CONTIGUOUS_KERNELS, forbidden=PAGED_KERNELS)
+    # bf16 K8/K9 and K1/K2 sum in other orders: reported, not checked.
+    same = total = 0
+    for rnd in (1, 2):
+        for k in GREEDY_KNIGHTS:
+            a, b = generated[rnd][k], paged_generated[rnd][k]
+            total += max(len(a), len(b))
+            same += sum(x == y for x, y in zip(a, b))
+    emit("contiguous", kv_cache_bytes=engine.kv.hbm_bytes(),
+         max_memory_allocated=torch.cuda.max_memory_allocated(),
+         greedy_agreement_with_paged=same / max(total, 1),
+         launches=totals)
     return totals, engine
 
 
@@ -648,6 +861,90 @@ def ragged_path_phase(torch, engine):
          buffer=1024, tolerance=PATH_TOL, **result)
 
 
+def contiguous_path_phase(torch, engine):
+    """The path phase on the contiguous layout: full width, depth cut to 2
+    layers (the path phase's seed, so its weights), one 512-row prefill
+    chunk (3 rows of 512/400/300 real tokens into slots 5/2/7 of an 8-slot
+    cache) and 16 decode steps through forward_cached with K8/K9, against
+    the same with their plain versions, and against forward_paged (K2/K1)
+    fed the same tokens on its own pages; teacher-forced with the kernel
+    path's greedy tokens."""
+    from theroundtaible_tpu_torch.engine.models.common import (
+        forward_cached, init_params)
+    from theroundtaible_tpu_torch.engine.paged_forward import forward_paged
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    cfg = dataclasses.replace(engine.cfg, num_layers=2)
+    check(cfg.attn_impl == "flash", f"attn_impl {cfg.attn_impl}")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    params = init_params(cfg, gen, bf16, dev)
+    B, T, ps = 3, 512, 128
+    S = cfg.max_seq_len
+    shape = (SLOTS, S, cfg.num_kv_heads, cfg.head_dim)
+
+    def cache():
+        return [(torch.zeros(shape, dtype=bf16, device=dev),
+                 torch.zeros(shape, dtype=bf16, device=dev))
+                for _ in range(cfg.num_layers)]
+
+    kernel_cache, plain_cache = cache(), cache()
+    pp = S // ps
+    table = (torch.randperm(B * pp, generator=gen, device=dev) + 1) \
+        .reshape(B, pp).to(torch.int32)
+    pool_shape = (1 + B * pp, ps, cfg.num_kv_heads, cfg.head_dim)
+    pools = [(torch.zeros(pool_shape, dtype=bf16, device=dev),
+              torch.zeros(pool_shape, dtype=bf16, device=dev))
+             for _ in range(cfg.num_layers)]
+    rows = torch.tensor([5, 2, 7], dtype=torch.int32, device=dev)
+    lengths = torch.tensor([512, 400, 300], dtype=torch.int32, device=dev)
+    zeros = torch.zeros(B, dtype=torch.int32, device=dev)
+    tokens = torch.randint(3, 259, (B, T), generator=gen, device=dev)
+    positions = torch.arange(T, dtype=torch.int32, device=dev) \
+        .expand(B, T).contiguous()
+    worst = {"vs_plain": 0.0, "vs_paged": 0.0}
+    agree = {"vs_plain": 0, "vs_paged": 0}
+    steps = 0
+
+    def compare(lk, others):
+        for name, other in others.items():
+            diff = (lk - other).abs()
+            worst[name] = max(worst[name], float(diff.max()))
+            check(bool(torch.isfinite(lk).all()),
+                  "non-finite contiguous logits")
+            check(bool((diff <= PATH_TOL + PATH_TOL * other.abs()).all()),
+                  f"contiguous path {name}: logits differ by "
+                  f"{worst[name]}")
+            agree[name] += int((lk.argmax(-1) == other.argmax(-1)).sum())
+
+    last = lengths - 1
+    lk = forward_cached(params, cfg, tokens, positions, kernel_cache, rows,
+                        zeros, lengths, last_pos=last)
+    lp = forward_cached(params, cfg, tokens, positions, plain_cache, rows,
+                        zeros, lengths, last_pos=last, plain=True)
+    lg = forward_paged(params, cfg, tokens, positions, pools, table,
+                       lengths, last_pos=last)
+    compare(lk[:, 0], {"vs_plain": lp[:, 0], "vs_paged": lg[:, 0]})
+    steps += B
+    cur = lk[:, 0].argmax(-1)
+    valid = lengths.clone()
+    for _ in range(16):
+        lk = forward_cached(params, cfg, cur[:, None], valid[:, None],
+                            kernel_cache, rows, valid, valid + 1)
+        lp = forward_cached(params, cfg, cur[:, None], valid[:, None],
+                            plain_cache, rows, valid, valid + 1, plain=True)
+        lg = forward_paged(params, cfg, cur[:, None], valid[:, None], pools,
+                           table, valid + 1)
+        compare(lk[:, 0], {"vs_plain": lp[:, 0], "vs_paged": lg[:, 0]})
+        steps += B
+        cur = lk[:, 0].argmax(-1)
+        valid = valid + 1
+    torch.cuda.synchronize()
+    emit("contiguous_path", layers=cfg.num_layers, batch=B, chunk=T,
+         decode_steps=16, tolerance=PATH_TOL,
+         **{name: {"max_abs_err": worst[name],
+                   "greedy_agreement": agree[name] / steps}
+            for name in worst})
+
+
 def beta_prompts() -> dict:
     """Session beta: three knights on another ~1.2k-token preamble."""
     knights = ("tristan", "gareth", "bedivere")
@@ -659,18 +956,24 @@ def beta_prompts() -> dict:
             for k in knights}
 
 
-def scheduler_phase(torch, kattn, engine):
+def scheduler_phase(torch, kattn, engine, phase="scheduler"):
     """The full-depth engine behind a SessionScheduler: alpha admits into
-    an empty batch (blocking prologue, K2) and decodes (K1); beta submits
-    once alpha has live rows and joins through ragged mixed dispatches
-    (K3). Returns the phase's launch counts."""
+    an empty batch (blocking prologue) and decodes; beta submits once
+    alpha has live rows. On the paged pool alpha runs K2 then K1, and beta
+    joins through ragged mixed dispatches (K3). On the contiguous layout
+    (no ragged seam) beta queues for alpha's segment boundary and admits
+    through the blocking prologue: K8 and K9 must launch, K1-K3 never.
+    Returns the phase's launch counts."""
     from theroundtaible_tpu_torch.engine.kvcache import scoped_slot
     from theroundtaible_tpu_torch.engine.scheduler import SessionScheduler
+    contiguous = engine.kv_layout == "contiguous"
     engine.kv.flush()   # the engine phase's slots
     prompts = {"alpha": knight_prompts(1), "beta": beta_prompts()}
     walls, segments = [], []
     dispatch = engine._ragged_dispatch
-    decode = engine._decode_dispatch_paged
+    seam = "_decode_dispatch_slots" if contiguous else \
+        "_decode_dispatch_paged"
+    decode = getattr(engine, seam)
 
     def timed(batch):   # the scheduler host-reads the result right after
         t0 = time.monotonic()
@@ -679,16 +982,16 @@ def scheduler_phase(torch, kattn, engine):
         walls.append(time.monotonic() - t0)
         return out
 
-    def timed_decode(table, *args, **kwargs):
+    def timed_decode(index, *args, **kwargs):
         t0 = time.monotonic()
-        out = decode(table, *args, **kwargs)
+        out = decode(index, *args, **kwargs)
         torch.cuda.synchronize()
-        segments.append({"rows": table.shape[0], "steps": out[1],
+        segments.append({"rows": index.shape[0], "steps": out[1],
                          "wall_s": time.monotonic() - t0})
         return out
 
     engine._ragged_dispatch = timed
-    engine._decode_dispatch_paged = timed_decode
+    setattr(engine, seam, timed_decode)
     sched = SessionScheduler(engine)
     results, errors = {}, {}
 
@@ -716,18 +1019,27 @@ def scheduler_phase(torch, kattn, engine):
     wall = time.monotonic() - t0
     launches = kattn.launch_counts()
     sched.close()
-    del engine._ragged_dispatch, engine._decode_dispatch_paged
+    del engine._ragged_dispatch
+    delattr(engine, seam)
     d = sched.describe()
-    check(not errors, f"scheduler sessions failed: {errors}")
+    check(not errors, f"{phase} sessions failed: {errors}")
     check(set(results) == {"alpha", "beta"}, "a session never returned")
     check(d["completed"] == 2 and d["failed"] == 0,
-          f"scheduler: completed {d['completed']}, failed {d['failed']}")
-    check(d["ragged_joins"] >= 1 and d["ragged_segments"] >= 1,
-          "beta never joined through ragged dispatches")
+          f"{phase}: completed {d['completed']}, failed {d['failed']}")
+    if contiguous:
+        check(d["ragged_joins"] == 0 and not walls,
+              "a contiguous engine ran ragged dispatches")
+    else:
+        check(d["ragged_joins"] >= 1 and d["ragged_segments"] >= 1,
+              "beta never joined through ragged dispatches")
     check(d["max_occupancy"] >= 4,
           f"max_occupancy {d['max_occupancy']} < 4")
-    check(all(n > 0 for n in launches.values()),
-          f"scheduler phase: a kernel never launched: {launches}")
+    required, forbidden = ((CONTIGUOUS_KERNELS, PAGED_KERNELS) if contiguous
+                           else (PAGED_KERNELS, CONTIGUOUS_KERNELS))
+    check(all(launches[k] > 0 for k in required)
+          and not any(launches[k] for k in forbidden),
+          f"{phase}: launches {launches}, needs {required} and none of "
+          f"{forbidden}")
     alpha, beta = results["alpha"][1], results["beta"][1]
     # beta's scheduled tokens against generate_batch on fresh slot names
     # (bf16 K3 and K2 sum in different orders: reported, not checked)
@@ -742,7 +1054,7 @@ def scheduler_phase(torch, kattn, engine):
         a, b = rec[start:], direct[start:]
         total += max(len(a), len(b))
         same += sum(x == y for x, y in zip(a, b))
-    emit("scheduler", wall_s=wall, beta_ttft_s=beta.sched["ttft_s"],
+    emit(phase, wall_s=wall, beta_ttft_s=beta.sched["ttft_s"],
          beta_queue_wait_s=beta.sched["queue_wait_s"],
          alpha_decode_tokens=alpha.decode_tokens,
          alpha_decode_tps=alpha.decode_tps,
@@ -763,7 +1075,7 @@ def scheduler_phase(torch, kattn, engine):
     return launches
 
 
-def profile_phase(torch, engine):
+def profile_phase(torch, engine, phase="profile"):
     """torch.profiler over one decode-dominated call of the 8B engine: 3
     rows whose prompts are already cached (one token of prefill each),
     then 32 decode steps. Device busy share = kernel time / wall time;
@@ -787,7 +1099,7 @@ def profile_phase(torch, engine):
                 .elapsed_us()
     device_us = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    emit("profile", wall_ms=wall_us / 1e3, device_ms=device_us / 1e3,
+    emit(phase, wall_ms=wall_us / 1e3, device_ms=device_us / 1e3,
          device_busy_share=device_us / wall_us if wall_us else None,
          top_kernels=[{"name": n[:90], "ms": us / 1e3,
                        "share_of_device": us / device_us}
@@ -829,10 +1141,12 @@ def main() -> int:
     emit("kernels_check", tolerance=KERNEL_TOL,
          decode_cases=kernels["decode_cases"],
          prefill_cases=kernels["prefill_cases"],
-         ragged_cases=kernels["ragged_cases"])
+         ragged_cases=kernels["ragged_cases"],
+         contiguous_decode_cases=kernels["cdecode_cases"],
+         contiguous_prefill_cases=kernels["cprefill_cases"])
     emit("kernels_timing", **kernels["timing"])
 
-    launches, engine = engine_phase(torch, kattn)
+    launches, engine, paged_generated = engine_phase(torch, kattn)
     profile_phase(torch, engine)
     path_phase(torch, engine)
     ragged_path_phase(torch, engine)
@@ -840,15 +1154,39 @@ def main() -> int:
     launches["ragged_paged_attention"] = scheduler_phase(
         torch, kattn, engine)["ragged_paged_attention"]
 
+    # Release the paged engine (the engine cache holds it too) before the
+    # contiguous one takes its weights and 8.6 GB of slots.
+    from theroundtaible_tpu_torch.engine import reset_engines
+    reset_engines()
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    contiguous, engine = contiguous_phase(torch, kattn, paged_generated)
+    for name in CONTIGUOUS_KERNELS:
+        launches[name] = contiguous[name]
+    profile_phase(torch, engine, phase="contiguous_profile")
+    contiguous_path_phase(torch, engine)
+    scheduler_phase(torch, kattn, engine, phase="contiguous_scheduler")
+
     src = "theroundtaible_tpu_torch/engine/kernels/csrc/"
     rows = []
-    for name, kind, source, replaces in (
+    for name, kind, source, replaces, library in (
             ("paged_decode_attention", "decode", "paged_decode.cu",
-             "theroundtaible_tpu/engine/pallas/attention.py:891"),
+             "theroundtaible_tpu/engine/pallas/attention.py:891", None),
             ("paged_prefill_attention", "prefill", "paged_prefill.cu",
-             "theroundtaible_tpu/engine/pallas/attention.py:374"),
+             "theroundtaible_tpu/engine/pallas/attention.py:374", None),
+            # K3: SDPA over the pre-gathered, block-diagonally masked view
+            # is the one-call yardstick; K1/K2 keep theirs beside null.
             ("ragged_paged_attention", "ragged", "ragged_paged.cu",
-             "theroundtaible_tpu/engine/pallas/attention.py:1160")):
+             "theroundtaible_tpu/engine/pallas/attention.py:1160",
+             "sdpa_view_ms"),
+            # K8/K9: SDPA over the batch's slot rows.
+            ("flash_prefill_attention", "cprefill", "flash_prefill.cu",
+             "theroundtaible_tpu/engine/pallas/attention.py:216",
+             "sdpa_ms"),
+            ("ragged_decode_attention", "cdecode", "ragged_decode.cu",
+             "theroundtaible_tpu/engine/pallas/attention.py:1339",
+             "sdpa_ms")):
         t = kernels["timing"][kind]
         cases = kernels[f"{kind}_cases"]
         rows.append({
@@ -857,10 +1195,8 @@ def main() -> int:
             "max_abs_err": max(c["max_abs_err"] for c in cases),
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            # K3: SDPA over the pre-gathered, block-diagonally masked view
-            # is the one-call yardstick; K1/K2 keep theirs beside null.
-            "library_ms": t["sdpa_view_ms"] if kind == "ragged" else None,
-            "sdpa_view_ms": t["sdpa_view_ms"]})
+            "library_ms": t[library] if library else None,
+            "sdpa_view_ms": t.get("sdpa_view_ms", t.get("sdpa_ms"))})
     summary = {"kernels": rows}
     (OUT / "summary.json").write_text(json.dumps(summary, indent=1))
     print(json.dumps(summary), flush=True)

@@ -1,5 +1,6 @@
-"""PyTorch port, CUDA kernels K1/K2/K3 against their plain versions on the
-card (`cuda` marker; each test skips itself where there is no card). The
+"""PyTorch port, CUDA kernels K1/K2/K3/K8/K9 against their plain versions
+on the card (`cuda` marker; each test skips itself where there is no card).
+The
 file imports neither jax nor the JAX package, so it runs on a machine that
 has only the port's dependencies:
 
@@ -142,5 +143,71 @@ def test_cuda_ragged_kernel_matches_plain(cuda_device, dtype, tol):
                                            softcap=softcap)
         ref = kattn.ragged_paged_attention_ref(
             *args, sliding_window=window, softcap=softcap)
+        torch.testing.assert_close(out.float(), ref.float(), atol=tol,
+                                   rtol=tol)
+
+
+def slot_cache(rng, N, S, K, D, valid, rows):
+    """A contiguous cache [N,S,K,D] whose cells at or past each batch row's
+    kv_valid (in its cache row) hold NaN - a reused slot's stale cells."""
+    k = rng.normal(size=(N, S, K, D)).astype(np.float32)
+    v = rng.normal(size=(N, S, K, D)).astype(np.float32)
+    for n, r in zip(valid, rows):
+        k[r, n:] = np.nan
+        v[r, n:] = np.nan
+    return k, v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+def test_cuda_contiguous_decode_kernel_matches_plain(cuda_device, dtype,
+                                                     tol):
+    """K9 against its plain version on the card: batch rows read a
+    permutation of 8 cache rows, one row at the cache end, NaN past every
+    row's kv_valid."""
+    N, S, K, D = 8, 2048, 8, 128
+    rng = np.random.default_rng(14)
+    rows = np.asarray([5, 0, 7, 2], np.int32)
+    valid = np.asarray([1, 129, 1000, 2048], np.int32)
+    k, v = slot_cache(rng, N, S, K, D, valid, rows)
+    q = rng.normal(size=(4, 1, 32, D)).astype(np.float32) * D ** -0.5
+    dev = cuda_device
+    args = [torch.from_numpy(x).to(dev, dtype) for x in (q, k, v)] + [
+        torch.from_numpy(valid).to(dev)]
+    rows_t = torch.from_numpy(rows).to(dev)
+    for window, softcap in WINDOW_SOFTCAP:
+        out = kattn.ragged_decode_attention(*args, sliding_window=window,
+                                            softcap=softcap, rows=rows_t)
+        ref = kattn.ragged_decode_attention_ref(
+            *args, sliding_window=window, softcap=softcap, rows=rows_t)
+        torch.testing.assert_close(out.float(), ref.float(), atol=tol,
+                                   rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+def test_cuda_contiguous_prefill_kernel_matches_plain(cuda_device, dtype,
+                                                      tol):
+    """K8 against its plain version on the card: offsets, partial lengths
+    (pad rows are 0 in both, so every row is compared), a row whose chunk
+    ends at the cache end, a T that is no multiple of 8, a row map, NaN
+    past every row's kv_valid."""
+    N, S, K, D, T = 6, 2048, 8, 128, 200
+    rng = np.random.default_rng(15)
+    rows = np.asarray([4, 1, 3], np.int32)
+    offsets = np.asarray([0, 100, S - T], np.int32)
+    lengths = np.asarray([200, 77, 200], np.int32)
+    valid = offsets + lengths
+    k, v = slot_cache(rng, N, S, K, D, valid, rows)
+    q = rng.normal(size=(3, T, 32, D)).astype(np.float32) * D ** -0.5
+    dev = cuda_device
+    args = [torch.from_numpy(x).to(dev, dtype) for x in (q, k, v)] + [
+        torch.from_numpy(x).to(dev) for x in (offsets, valid)]
+    rows_t = torch.from_numpy(rows).to(dev)
+    for window, softcap in WINDOW_SOFTCAP:
+        out = kattn.flash_prefill_attention(*args, sliding_window=window,
+                                            softcap=softcap, rows=rows_t)
+        ref = kattn.flash_prefill_attention_ref(
+            *args, sliding_window=window, softcap=softcap, rows=rows_t)
         torch.testing.assert_close(out.float(), ref.float(), atol=tol,
                                    rtol=tol)

@@ -45,7 +45,8 @@ def engines():
     assert jeng.paged_direct
     cfg = torch_config("tiny-llama", max_seq_len=256)
     teng = InferenceEngine(
-        cfg, num_slots=4, page_size=32, dtype=torch.float32,
+        cfg, num_slots=4, kv_layout="paged", page_size=32,
+        dtype=torch.float32,
         sampling=SamplingParams(temperature=0.0, max_new_tokens=8),
         params=params_from_numpy(jax.device_get(jeng.params), cfg,
                                  torch.float32, "cpu"),
@@ -118,30 +119,54 @@ def test_describe_keys_match(engines):
 
 @pytest.mark.parametrize("key,value", [
     ("prefix_cache", True), ("kv_offload", True), ("spec_decode", True),
-    ("kv_layout", "contiguous"), ("quant", "int8"),
+    ("quant", "int8"),
     ("mesh", {"data": 1, "model": 4}), ("seq_parallel", 2),
     ("lora", {"adapters": {}}), ("kv_quant", "int8"), ("attn", "dense"),
     ("checkpoint", "/nonexistent"), ("dtype", "float16"),
 ])
 def test_unported_options_raise(key, value):
     config = {"model": "tiny-llama", "max_seq_len": 128, key: value}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    if key == "attn":
+        # dense attention is served on the contiguous layout; on the paged
+        # pool it is the JAX engine's gather view, which comes with the
+        # quantized-KV slice
+        config["kv_layout"] = "paged"
+    with pytest.raises(NotImplementedError, match="ROADMAP") as err:
         InferenceEngine.from_config(config, device="cpu")
+    if key == "attn":
+        assert "slice 5" in str(err.value)
 
 
-def test_from_config_defaults_to_the_paged_pool():
+def test_from_config_defaults_to_contiguous():
+    """No kv_layout key: the contiguous KVCache, as the JAX engine
+    builds (tests/test_torch_contiguous.py compares the describe()s)."""
     eng = InferenceEngine.from_config(
-        {"model": "tiny-llama", "max_seq_len": 128, "page_size": 32,
+        {"model": "tiny-llama", "max_seq_len": 128,
          "mesh": {"data": 1, "model": 1}, "prefix_cache": False},
         device="cpu")
+    assert eng.kv_layout == "contiguous"
+    assert eng.kv.layers[0][0].shape == (8, 128, 2, 16)
+    assert not eng.ragged_enabled
+    assert eng.warmup() > 0.0
+    assert eng.kv.slot_names() == []
+
+
+def test_from_config_paged_gives_the_pool():
+    eng = InferenceEngine.from_config(
+        {"model": "tiny-llama", "max_seq_len": 128, "kv_layout": "paged",
+         "page_size": 32, "mesh": {"data": 1, "model": 1},
+         "prefix_cache": False},
+        device="cpu")
     assert eng.kv_layout == "paged" and eng.kv.page_size == 32
+    assert eng.ragged_enabled
     assert eng.warmup() > 0.0
     assert eng.kv.slot_names() == []
 
 
 def test_prefill_bucket_shrinks_at_the_cache_end():
     """No chunk ever writes past max_seq_len: near the end the bucket
-    shrinks (so forward_paged's page lookup never leaves the table)."""
+    shrinks (so forward_paged's page lookup never leaves the table and
+    forward_cached's in-place write never leaves the slot)."""
     widths = []
 
     def dispatch(chunk, offs, lengths):

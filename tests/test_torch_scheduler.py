@@ -78,7 +78,7 @@ def make_engine(jax_engine, **kw):
     cfg = torch_config("tiny-llama", max_seq_len=MAX_SEQ)
     kw.setdefault("num_slots", 8)
     eng = InferenceEngine(
-        cfg, page_size=32, dtype=torch.float32,
+        cfg, kv_layout="paged", page_size=32, dtype=torch.float32,
         sampling=SamplingParams(temperature=0.0, max_new_tokens=8),
         params=params_from_numpy(jax.device_get(jax_engine.params), cfg,
                                  torch.float32, "cpu"),

@@ -1,14 +1,19 @@
-"""InferenceEngine - chunked prefill + segmented decode over persistent,
-paged per-knight KV slots, on one device (counterpart of
-theroundtaible_tpu/engine/engine.py, trimmed to the paged single-device
-path in bf16 or f32).
+"""InferenceEngine - chunked prefill + segmented decode over persistent
+per-knight KV slots, on one device (counterpart of
+theroundtaible_tpu/engine/engine.py, trimmed to the single-device paths in
+bf16 or f32).
 
-tokenize -> own-slot LCP reuse + cross-knight prefix sharing (page
-aliasing) -> copy-on-write of the write range -> chunked, bucketed prefill
--> first token -> decode segments -> eos trim, commit, detokenize. Every
-prefill chunk and decode step runs paged_forward.forward_paged, which
-attends through the CUDA kernels on a card and through their plain
-versions on the CPU.
+Two KV layouts, as in the JAX engine. The default, "contiguous", keeps
+kvcache.KVCache ([num_slots, max_seq_len, K, D] per layer): tokenize ->
+own-slot LCP reuse + cross-knight prefix sharing (K/V span copies between
+slots) -> chunked, bucketed prefill -> first token -> decode segments ->
+eos trim, commit, detokenize, every chunk and step through
+models/common.forward_cached, which writes the slots in place and attends
+through K8/K9 (`attn` "auto" on a card, or "flash") or the dense math
+("auto" on the CPU, or "dense"). "paged" keeps paging.PagedKVCache: prefix
+sharing aliases pages, the write range is copied on write, and every chunk
+and step runs paged_forward.forward_paged through K1/K2. The kernels run
+as CUDA on a card and as their plain versions on the CPU.
 
 PyTorch runs eagerly, so there are no compiled programs to warm: warmup()
 builds the kernels and runs every (batch, bucket) and every ragged shape
@@ -18,7 +23,8 @@ the segment's tokens at its end. CUDA graphs are later work.
 
 The ragged seam (_ragged_dispatch: forward_ragged through K3) serves the
 continuous-batching scheduler's mixed prefill/decode dispatches; it is on
-by default for the paged pool, as in the JAX engine. Features the JAX
+by default for the paged pool and off on the contiguous layout, as in the
+JAX engine. Features the JAX
 engine also turns on by default (prefix cache, host offload, speculative
 decoding) stay off here, with `<feature>_reason: "not_ported"` in
 describe(); asking for them - or for any other unported option - raises
@@ -41,8 +47,9 @@ from . import deadlines, faults
 from .device import resolve_device
 from .kernels import attention as kattn
 from .kernels import build as kbuild
-from .kvcache import scoped_slot, share_prefixes
-from .models.common import ModelConfig, init_params, param_count
+from .kvcache import KVCache, scoped_slot, share_prefixes
+from .models.common import (ModelConfig, forward_cached, init_params,
+                            param_count)
 from .models.registry import get_model_config
 from .paged_forward import forward_paged, forward_ragged
 from .paging import SCRATCH_PAGE, PagedKVCache
@@ -113,14 +120,15 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 
 
 class InferenceEngine:
-    """One resident model + its paged slot cache on one device."""
+    """One resident model + its slot cache (contiguous or paged) on one
+    device."""
 
     def __init__(self, model_cfg: ModelConfig, *, checkpoint: str = "",
                  mesh_shape: Optional[dict[str, int]] = None,
                  num_slots: int = 8, dtype=torch.bfloat16,
                  sampling: Optional[SamplingParams] = None,
                  seed: int = 0, seq_parallel: int = 0,
-                 attn: str = "auto", kv_layout: str = "paged",
+                 attn: str = "auto", kv_layout: str = "contiguous",
                  page_size: int = 128, num_pages: Optional[int] = None,
                  quant: str = "none",
                  prefix_cache: Optional[bool] = None,
@@ -134,6 +142,8 @@ class InferenceEngine:
                            seq_parallel, attn, kv_layout, quant, lora,
                            kv_quant, prefix_cache=prefix_cache,
                            kv_offload=kv_offload, spec_decode=spec_decode)
+        if kv_layout == "contiguous":
+            model_cfg = self._resolve_attn(model_cfg, attn, self.device)
         self.cfg = model_cfg
         self.max_seq_len = model_cfg.max_seq_len
         self.sampling = sampling or SamplingParams()
@@ -147,26 +157,33 @@ class InferenceEngine:
         self.params = params
         self.num_params = param_count(params)
 
-        # Pool-direct serving needs both kernels to take the pool shape
-        # (chunks up to MAX_PREFILL_CHUNK rows and decode steps); a shape
-        # they decline fails construction - there is no gather-view path.
         group = model_cfg.num_heads // model_cfg.num_kv_heads
-        reason = kattn.pool_direct_decline_reason(
-            MAX_PREFILL_CHUNK, page_size, model_cfg.head_dim,
-            model_cfg.num_kv_heads, group, self.device)
-        if reason is not None:
-            raise ValueError(
-                f"the paged attention kernels decline this pool shape on "
-                f"{self.device}: {reason}")
-        self.kv = PagedKVCache(model_cfg, num_slots, self.max_seq_len,
-                               dtype, self.device, page_size=page_size,
-                               num_pages=num_pages)
+        if kv_layout == "contiguous":
+            self.kv = KVCache(model_cfg, num_slots, self.max_seq_len, dtype,
+                              self.device)
+        else:
+            # Pool-direct serving needs both kernels to take the pool
+            # shape (chunks up to MAX_PREFILL_CHUNK rows and decode steps);
+            # a shape they decline fails construction - there is no
+            # gather-view path.
+            reason = kattn.pool_direct_decline_reason(
+                MAX_PREFILL_CHUNK, page_size, model_cfg.head_dim,
+                model_cfg.num_kv_heads, group, self.device)
+            if reason is not None:
+                raise ValueError(
+                    f"the paged attention kernels decline this pool shape "
+                    f"on {self.device}: {reason}")
+            self.kv = PagedKVCache(model_cfg, num_slots, self.max_seq_len,
+                                   dtype, self.device, page_size=page_size,
+                                   num_pages=num_pages)
         # Ragged mixed prefill/decode dispatch (the scheduler's chunk-
-        # interleaved admission): on by default; ragged_attn=False or
-        # ROUNDTABLE_RAGGED_ATTN=0 turns the seam off and the scheduler
-        # keeps the blocking admission prologue. A pool shape K3 declines
-        # fails construction, like K1/K2: there is no fallback path, so
-        # ragged_fallback_reason stays None.
+        # interleaved admission): on by default for the paged pool;
+        # ragged_attn=False or ROUNDTABLE_RAGGED_ATTN=0 turns the seam off
+        # and the scheduler keeps the blocking admission prologue. A pool
+        # shape K3 declines fails construction, like K1/K2: there is no
+        # fallback path, so ragged_fallback_reason stays None. The flat
+        # buffer addresses pages, so the contiguous layout never has the
+        # seam (ragged_reason None, as in the JAX engine).
         self.ragged_enabled = False
         self.ragged_path: Optional[str] = None
         self.ragged_reason: Optional[str] = None
@@ -176,7 +193,9 @@ class InferenceEngine:
         self.ragged_defer_min = 0
         self._ragged_dispatches: dict[str, int] = {}
         self._ragged_recent: deque = deque(maxlen=32)
-        if not env_flag(ragged_attn, "ROUNDTABLE_RAGGED_ATTN"):
+        if kv_layout == "contiguous":
+            pass
+        elif not env_flag(ragged_attn, "ROUNDTABLE_RAGGED_ATTN"):
             self.ragged_reason = "disabled:config/env"
         else:
             reason = kattn.ragged_decline_reason(
@@ -214,10 +233,7 @@ class InferenceEngine:
         if checkpoint:
             raise _not_ported("checkpoint loading",
                               "slice 4: checkpoint load")
-        if kv_layout == "contiguous":
-            raise _not_ported("kv_layout 'contiguous'",
-                              "slice 3: contiguous layout, K8/K9")
-        if kv_layout != "paged":
+        if kv_layout not in ("contiguous", "paged"):
             raise ValueError(
                 f"kv_layout must be contiguous|paged, got {kv_layout!r}")
         if quant != "none":
@@ -243,22 +259,48 @@ class InferenceEngine:
                                   "slice 7: multi-device")
         if attn not in ("auto", "flash", "dense"):
             raise ValueError(f"attn must be auto|flash|dense, got {attn!r}")
-        if attn == "dense":
-            raise _not_ported("attn 'dense' (the gather-view paged path)",
-                              "slice 3: contiguous layout, K8/K9")
+        if attn == "dense" and kv_layout == "paged":
+            # The JAX engine's gather view of the pool, which kv_quant
+            # declines also route to.
+            raise _not_ported("attn 'dense' on the paged pool (the gather "
+                              "view)", "slice 5: quantization, K4/K5/K6")
         if cfg.num_experts:
             raise _not_ported("MoE models", "slice 7: MoE and float16")
         if dtype not in _DTYPES.values():
             raise _not_ported(f"dtype {dtype}",
                               "slice 7: MoE and float16")
 
+    @staticmethod
+    def _resolve_attn(model_cfg: ModelConfig, attn: str,
+                      device: torch.device) -> ModelConfig:
+        """The contiguous layout's attention implementation (JAX
+        _resolve_attn for one device): "auto" is "flash" on a card and
+        "dense" on the CPU - what the JAX engine's auto gives off a TPU;
+        explicit "flash"/"dense" always win ("flash" on the CPU runs the
+        kernels' plain versions). On a card, a shape K8/K9 decline fails
+        construction with the reason: there is no silent dense
+        fallback."""
+        import dataclasses
+        impl = attn
+        if attn == "auto":
+            impl = "flash" if device.type == "cuda" else "dense"
+        if impl == "flash":
+            reason = kattn.contiguous_decline_reason(
+                MAX_PREFILL_CHUNK, model_cfg.head_dim,
+                model_cfg.num_heads // model_cfg.num_kv_heads, device)
+            if reason is not None:
+                raise ValueError(
+                    f"the contiguous attention kernels (K8/K9) decline "
+                    f"this shape on {device}: {reason}")
+        return dataclasses.replace(model_cfg, attn_impl=impl)
+
     # --- construction from adapter config ---
 
     @classmethod
     def from_config(cls, config: dict[str, Any],
                     device="cuda") -> "InferenceEngine":
-        """The JAX engine's from_config keys. `kv_layout` defaults to
-        "paged", the only layout this slice serves."""
+        """The JAX engine's from_config keys; `kv_layout` defaults to
+        "contiguous", as in the JAX engine."""
         overrides = {}
         if config.get("max_seq_len"):
             overrides["max_seq_len"] = int(config["max_seq_len"])
@@ -286,7 +328,7 @@ class InferenceEngine:
             seed=int(config.get("seed", 0)),
             seq_parallel=int(config.get("seq_parallel", 0)),
             attn=config.get("attn", "auto"),
-            kv_layout=config.get("kv_layout", "paged"),
+            kv_layout=config.get("kv_layout", "contiguous"),
             page_size=int(config.get("page_size", 128)),
             num_pages=(int(config["num_pages"])
                        if config.get("num_pages") else None),
@@ -382,7 +424,9 @@ class InferenceEngine:
     def _warm_prompt_cap(self, b: int) -> int:
         """Longest prompt a b-row batch can pin without exhausting the
         pool (each row pins ceil((len + DECODE_SEGMENT) / page_size)
-        pages)."""
+        pages). Contiguous slots have no cap."""
+        if self.kv_layout != "paged":
+            return self.max_seq_len
         return ((self.kv.usable_pages() // max(b, 1)) * self.kv.page_size
                 - DECODE_SEGMENT)
 
@@ -399,11 +443,14 @@ class InferenceEngine:
                                device=self.device)
 
     def _prefill(self, token_lists: list[list[int]], offsets: list[int],
-                 tables: np.ndarray, deadline: float = float("inf"),
+                 rows, deadline: float = float("inf"),
                  budget=None) -> torch.Tensor:
-        """Chunked, bucketed prefill of B rows through forward_paged.
+        """Chunked, bucketed prefill of B rows: through forward_cached at
+        the rows' slot ids (`rows` [B], contiguous layout) or through
+        forward_paged over their page tables (`rows` [B, pages], paged).
         Returns last-token logits [B, V]."""
-        table = self._ints(tables)
+        index = self._ints(rows)
+        contiguous = self.kv_layout == "contiguous"
 
         def dispatch(chunk, offs, lengths):
             t = chunk.shape[1]
@@ -411,43 +458,78 @@ class InferenceEngine:
             lengths_t = self._ints(lengths)
             positions = offs_t[:, None] + torch.arange(
                 t, dtype=torch.int32, device=self.device)[None, :]
-            # The chunk writes the pools in place: a watchdog-abandoned
+            tokens = self._ints(chunk).long()
+            # The chunk writes the cache in place: a watchdog-abandoned
             # dispatch must not write after recovery took over.
             with deadlines.commit_guard():
-                logits = forward_paged(
-                    self.params, self.cfg, self._ints(chunk).long(),
-                    positions, self.kv.pools, table, offs_t + lengths_t,
-                    last_pos=lengths_t - 1)
+                if contiguous:
+                    logits = forward_cached(
+                        self.params, self.cfg, tokens, positions,
+                        self.kv.layers, index, offs_t, offs_t + lengths_t,
+                        last_pos=lengths_t - 1)
+                else:
+                    logits = forward_paged(
+                        self.params, self.cfg, tokens, positions,
+                        self.kv.pools, index, offs_t + lengths_t,
+                        last_pos=lengths_t - 1)
             return logits[:, 0]
 
         return chunked_prefill(dispatch, token_lists, offsets,
                                self.kv.max_seq_len, self.tokenizer.pad_id,
                                deadline, retry=self.retry, budget=budget)
 
-    def _share_prefixes(self, names: list[str], all_tokens, offsets,
-                        deadline: float, budget=None,
+    def _apply_copies(self, copies: list[tuple[int, int, int, int]]) -> None:
+        """Apply queued (src_slot, dst_slot, lo, hi) K/V span copies in
+        place, one slice copy per copy and layer (the JAX engine's
+        copy_spans pads to one compiled shape; nothing compiles here).
+        Sources never overlap a pass's destinations' spans (a donor's
+        span ends at its own reuse frontier), so copying one by one equals
+        the JAX program's simultaneous copy."""
+        if not copies:
+            return
+        with deadlines.commit_guard():
+            for k, v in self.kv.layers:
+                for src, dst, lo, hi in copies:
+                    k[dst, lo:hi] = k[src, lo:hi]
+                    v[dst, lo:hi] = v[src, lo:hi]
+
+    def _share_prefixes(self, names: list[str], slot_ids: list[int],
+                        all_tokens, offsets, deadline: float, budget=None,
                         extra_pinned: tuple[str, ...] = (),
                         defer_span=None) -> tuple[list[int], int]:
         """Cross-knight shared-prefix reuse (kvcache.share_prefixes): paged
         slots ALIAS the donor's whole pages and copy only partial boundary
-        pages; a batch's common span is prefilled once by its leader, or,
-        with `defer_span`, recorded for the scheduler's ragged chunks."""
+        pages, contiguous slots queue K/V span copies; a batch's common
+        span is prefilled once by its leader, or, with `defer_span`,
+        recorded for the scheduler's ragged chunks."""
+        paged = self.kv_layout == "paged"
         pinned = tuple(names) + tuple(extra_pinned)
+        copies: list[tuple[int, int, int, int]] = []
 
         def add_share(donor, i, lo, hi):
-            self.kv.alias_span(donor.name, names[i], lo, hi, pinned)
+            if paged:
+                self.kv.alias_span(donor.name, names[i], lo, hi, pinned)
+            else:
+                copies.append((donor.slot_id, slot_ids[i], lo, hi))
+
+        def flush_shares():
+            self._apply_copies(copies)
+            copies.clear()
 
         def prefill_span(m, lo, hi):
-            self.kv.ensure_capacity(names[m], hi, write_from=lo,
-                                    pinned=pinned)
-            self._prefill([all_tokens[m][lo:hi]], [lo],
-                          self.kv.table_for([names[m]]), deadline,
+            if paged:
+                self.kv.ensure_capacity(names[m], hi, write_from=lo,
+                                        pinned=pinned)
+                rows = self.kv.table_for([names[m]])
+            else:
+                rows = [slot_ids[m]]
+            self._prefill([all_tokens[m][lo:hi]], [lo], rows, deadline,
                           budget=budget)
 
         return share_prefixes(
             self.kv, names, all_tokens, offsets,
             min_shared=MIN_SHARED_PREFIX, add_share=add_share,
-            flush_shares=lambda: None, prefill_span=prefill_span,
+            flush_shares=flush_shares, prefill_span=prefill_span,
             extra_pinned=extra_pinned, defer_span=defer_span)
 
     def _prepare_batch(self, turns, max_new_padded, deadline, pre_budget,
@@ -458,7 +540,8 @@ class InferenceEngine:
         and the session scheduler's admission: tokenize + tail-truncate ->
         own-slot reuse_plan -> cross-knight share_prefixes -> capacity/COW
         -> chunked prefill -> first token. Returns names, slot_ids (-1 per
-        paged row), all_tokens, offsets, tables_np, per_row,
+        paged row), all_tokens, offsets, tables_np (None on the contiguous
+        layout), per_row,
         temps/top_ks/top_ps, greedy, first_np, prefill_tokens,
         reused_tokens and prefix_reused_tokens (0: no prefix cache).
 
@@ -499,8 +582,9 @@ class InferenceEngine:
                 share_plan.append({"leader": m, "lo": lo, "hi": hi,
                                    "followers": followers})
         offsets, leader_prefill = self._share_prefixes(
-            names, all_tokens, offsets, deadline, budget=pre_budget,
-            extra_pinned=tuple(extra_pinned), defer_span=defer_span)
+            names, slot_ids, all_tokens, offsets, deadline,
+            budget=pre_budget, extra_pinned=tuple(extra_pinned),
+            defer_span=defer_span)
         # Pages for the whole call (prompt + padded decode); copy-on-write
         # any shared page in the write range, so no step below allocates
         # or writes an aliased page. Deferred-share laggards skip this:
@@ -508,15 +592,17 @@ class InferenceEngine:
         # written them, and their tail capacity is ensured then
         # (scheduler._apply_share_plans) - allocating now would double the
         # pool demand of the join.
-        deferred_followers = {i for p in share_plan
-                              for i, _lo in p["followers"]}
-        for i, name in enumerate(names):
-            if i in deferred_followers:
-                continue
-            self.kv.ensure_capacity(
-                name, len(all_tokens[i]) + max_new_padded,
-                write_from=offsets[i], pinned=pinned)
-        tables_np = self.kv.table_for(names)
+        tables_np = None
+        if self.kv_layout == "paged":
+            deferred_followers = {i for p in share_plan
+                                  for i, _lo in p["followers"]}
+            for i, name in enumerate(names):
+                if i in deferred_followers:
+                    continue
+                self.kv.ensure_capacity(
+                    name, len(all_tokens[i]) + max_new_padded,
+                    write_from=offsets[i], pinned=pinned)
+            tables_np = self.kv.table_for(names)
         suffixes = [t[o:] for t, o in zip(all_tokens, offsets)]
         prefill_tokens = leader_prefill + sum(len(s) for s in suffixes)
         # "reused" counts own-slot LCP hits and shared donor spans
@@ -537,8 +623,10 @@ class InferenceEngine:
                     "top_ks": None, "top_ps": None,
                     "greedy": all(p.temperature <= 0.0 for p in per_row),
                     "first_np": None, "share_plan": share_plan}
-        last_logits = self._prefill(suffixes, offsets, tables_np,
-                                    deadline=deadline, budget=pre_budget)
+        last_logits = self._prefill(
+            suffixes, offsets,
+            tables_np if tables_np is not None else slot_ids,
+            deadline=deadline, budget=pre_budget)
         # A blocking read (prefill time is not billed to decode), through
         # the deadline seam.
         host_sync(lambda: float(last_logits[0, 0]), pre_budget, "prefill")
@@ -566,12 +654,43 @@ class InferenceEngine:
                                budget, temps, top_ks, top_ps, row_budgets,
                                done0, *, greedy: bool,
                                max_new: int = DECODE_SEGMENT):
-        """One paged decode segment: up to min(max_new, budget) single-token
-        forward_paged steps, stopping early once every row is done. A row
-        whose own budget is spent emits eos; done rows keep their valid
-        length. The all-done flag is read from the device every step - the
-        only host sync inside the segment. Returns (out [B, max_new],
-        steps, last, valid, done)."""
+        """One paged decode segment: single-token forward_paged steps over
+        the rows' page tables (_decode_segment)."""
+        def step(last, valid):
+            return forward_paged(self.params, self.cfg, last.long()[:, None],
+                                 valid[:, None], self.kv.pools, table,
+                                 valid + 1)
+        return self._decode_segment(step, first_token, start_valid, budget,
+                                    temps, top_ks, top_ps, row_budgets,
+                                    done0, greedy=greedy, max_new=max_new)
+
+    def _decode_dispatch_slots(self, slot_idx, first_token, start_valid,
+                               budget, temps, top_ks, top_ps, row_budgets,
+                               done0, *, greedy: bool,
+                               max_new: int = DECODE_SEGMENT):
+        """Contiguous-layout counterpart of _decode_dispatch_paged:
+        single-token forward_cached steps over the rows' slots `slot_idx`
+        [B] int32 (the JAX engine's cached_step: write at `valid`, attend
+        over valid + 1)."""
+        def step(last, valid):
+            return forward_cached(self.params, self.cfg,
+                                  last.long()[:, None], valid[:, None],
+                                  self.kv.layers, slot_idx, valid,
+                                  valid + 1)
+        return self._decode_segment(step, first_token, start_valid, budget,
+                                    temps, top_ks, top_ps, row_budgets,
+                                    done0, greedy=greedy, max_new=max_new)
+
+    def _decode_segment(self, step_fn, first_token, start_valid, budget,
+                        temps, top_ks, top_ps, row_budgets, done0, *,
+                        greedy: bool, max_new: int = DECODE_SEGMENT):
+        """One decode segment, once for both layouts (`step_fn(last,
+        valid) -> logits [B,1,V]` is the layout's forward): up to
+        min(max_new, budget) single-token steps, stopping early once every
+        row is done. A row whose own budget is spent emits eos; done rows
+        keep their valid length. The all-done flag is read from the device
+        every step - the only host sync inside the segment. Returns (out
+        [B, max_new], steps, last, valid, done)."""
         b = first_token.shape[0]
         out = torch.zeros((b, max_new), dtype=torch.int32,
                           device=self.device)
@@ -581,12 +700,10 @@ class InferenceEngine:
         step = 0
         while (step < max_new and step < budget
                and not bool(torch.all(done).item())):
-            # Each step writes the pools in place: a watchdog-abandoned
+            # Each step writes the cache in place: a watchdog-abandoned
             # segment stops here instead of writing after recovery.
             with deadlines.commit_guard():
-                logits = forward_paged(
-                    self.params, self.cfg, last.long()[:, None],
-                    valid[:, None], self.kv.pools, table, valid + 1)
+                logits = step_fn(last, valid)
             row_logits = logits[:, 0].float()
             if greedy:
                 nxt = torch.argmax(row_logits, dim=-1)
@@ -726,15 +843,19 @@ class InferenceEngine:
         cur_valid = self._ints([len(t) for t in all_tokens])
         t1 = time.monotonic()
         dec_budget = turn_budget.child("decode")
-        table = self._ints(prep["tables_np"])
+        if self.kv_layout == "paged":
+            seam = self._decode_dispatch_paged
+            index = self._ints(prep["tables_np"])
+        else:
+            seam = self._decode_dispatch_slots
+            index = self._ints(prep["slot_ids"])
         row_remaining = row_budget_fn(per_row, sampling_per_turn, max_new,
                                       self.device)
 
         def decode_dispatch(cur_last, cur_valid, budget, done0):
-            return self._decode_dispatch_paged(
-                table, cur_last, cur_valid, budget, prep["temps"],
-                prep["top_ks"], prep["top_ps"], row_remaining(budget),
-                done0, greedy=prep["greedy"])
+            return seam(index, cur_last, cur_valid, budget, prep["temps"],
+                        prep["top_ks"], prep["top_ps"], row_remaining(budget),
+                        done0, greedy=prep["greedy"])
 
         out_np = decode_segments(decode_dispatch, first, cur_valid,
                                  self.tokenizer.eos_id, max_new, deadline,
@@ -751,6 +872,11 @@ class InferenceEngine:
     # --- introspection ---
 
     def describe(self) -> dict[str, Any]:
+        """The JAX engine's keys for this layout (page keys, pool-direct
+        decode and the ragged block on the paged pool only), plus the
+        resolved attention, the kernels' route and launch counts."""
+        paged = self.kv_layout == "paged"
+        kernels = "cuda" if self.device.type == "cuda" else "plain"
         info = {
             "model": self.cfg.name,
             "params": self.num_params,
@@ -760,15 +886,19 @@ class InferenceEngine:
             "quant": self.quant,
             "dtype": str(self.dtype).replace("torch.", ""),
             "devices": [str(self.device)],
-            "page_size": self.kv.page_size,
-            "num_pages": self.kv.num_pages,
             "kv_hbm_bytes": self.kv.hbm_bytes(),
-            "paged_decode": "pool-direct",
-            "attention_kernels": ("cuda" if self.device.type == "cuda"
-                                  else "plain"),
+            "attention_kernels": kernels,
             "kernel_launches": kattn.launch_counts(),
-            "ragged": self.ragged_describe(),
         }
+        if paged:
+            info.update({"page_size": self.kv.page_size,
+                         "num_pages": self.kv.num_pages,
+                         "paged_decode": "pool-direct",
+                         "ragged": self.ragged_describe()})
+        else:
+            info["attn"] = self.cfg.attn_impl
+            if self.cfg.attn_impl == "dense":
+                info["attention_kernels"] = "none"
         for feature in _FEATURES:
             info[f"{feature}_reason"] = "not_ported"
         if self._scheduler is not None:

@@ -1,9 +1,10 @@
-"""Paged attention for the serving hot path: hand-written CUDA kernels,
-their plain PyTorch versions, and their gates.
+"""Attention for the serving hot path: hand-written CUDA kernels, their
+plain PyTorch versions, and their gates.
 
 Counterpart of theroundtaible_tpu/engine/pallas/attention.py for the
-kernels the paged single-device serving path calls (paged_forward's
-forward_paged and forward_ragged):
+kernels the single-device serving paths call - the paged pool's
+(paged_forward's forward_paged and forward_ragged) and the contiguous
+cache's (models/common's forward_cached):
 
 - paged_decode_attention (K1, csrc/paged_decode.cu) - one query position
   per row against the page pool through the page table; replaces the TPU
@@ -14,6 +15,17 @@ forward_paged and forward_ragged):
 - ragged_paged_attention (K3, csrc/ragged_paged.cu) - mixed prefill/decode
   rows of a flat token buffer, each 8-row block belonging to one sequence,
   against the pool; replaces the TPU kernel `ragged_paged_attention`.
+- flash_prefill_attention (K8, csrc/flash_prefill.cu) - a causal prefill
+  chunk at per-row offsets against the position-aligned cache
+  [N,S,K,D]; replaces the TPU kernel `flash_prefill_attention`.
+- ragged_decode_attention (K9, csrc/ragged_decode.cu) - one query position
+  per row against the position-aligned cache; replaces the TPU kernel
+  `ragged_decode_attention`.
+
+K8 and K9 take the JAX signature plus `rows`, a [B] int32 map from batch
+row to cache row: the engine passes its batch's slot ids, so the kernels
+read the slots in place from the [num_slots, S, K, D] cache. rows=None
+reads cache row b for batch row b, which is the JAX call.
 
 Each wrapper checks device, dtype, shape and contiguity and raises on what
 its kernel does not take. A tensor on the CPU takes the plain version (the
@@ -21,10 +33,11 @@ CPU tests); a CUDA tensor launches the kernel or raises - there is no
 fallback. Each launch adds one to the wrapper's count (launch_counts()), so
 a run can show that its main path went through the kernels.
 
-The plain versions gather each row's pages through the table and run a
-masked softmax in f32 with the same finite MASK_VALUE. Cells at or past a
-row's kv_valid are zeroed before use: they are stale (the frontier page's
-tail, pages never written) and may hold anything, NaN included.
+The plain versions gather each row's pages through the table (or its
+cache row through `rows`) and run a masked softmax in f32 with the same
+finite MASK_VALUE. Cells at or past a row's kv_valid are zeroed before
+use: they are stale (the frontier page's tail, pages never written, a
+reused slot's previous occupant) and may hold anything, NaN included.
 """
 
 from __future__ import annotations
@@ -38,7 +51,8 @@ from ..serving_loop import RAGGED_BLOCK_Q
 from . import build
 
 KERNELS = ("paged_decode_attention", "paged_prefill_attention",
-           "ragged_paged_attention")
+           "ragged_paged_attention", "flash_prefill_attention",
+           "ragged_decode_attention")
 _launches = dict.fromkeys(KERNELS, 0)
 
 # What the CUDA kernels take (csrc/paged_common.cuh kMaxGroup; the D and
@@ -86,20 +100,26 @@ def _cuda_decline(kernel: str, t: int, page_size: int, d: int, group: int,
         return f"device:{device.type}"
     if d not in HEAD_DIMS:
         return f"head_dim:{d} not in {HEAD_DIMS}"
-    if page_size not in PAGE_SIZES:
+    paged = kernel in ("decode", "prefill", "ragged")
+    if paged and page_size not in PAGE_SIZES:
         return f"page_size:{page_size} not in {PAGE_SIZES}"
     if not 1 <= group <= MAX_GROUP:
         return f"group:{group} not in 1..{MAX_GROUP}"
     index = device.index if device.index is not None else 0
     lib = build.library({"decode": "paged_decode", "prefill": "paged_prefill",
-                         "ragged": "ragged_paged"}[kernel])
+                         "ragged": "ragged_paged", "flash": "flash_prefill",
+                         "rdecode": "ragged_decode"}[kernel])
     limit = lib.rt_max_smem_optin(index)
     if kernel == "decode":
         need = lib.rt_paged_decode_smem_bytes(group, d, page_size)
     elif kernel == "prefill":
         need = lib.rt_paged_prefill_smem_bytes(group, d, page_size, t)
-    else:
+    elif kernel == "ragged":
         need = lib.rt_ragged_smem_bytes(group, d, page_size)
+    elif kernel == "flash":
+        need = lib.rt_flash_prefill_smem_bytes(group, d, t)
+    else:
+        need = lib.rt_ragged_decode_smem_bytes(group, d)
     if need > limit:
         return f"smem:{need}>{limit}"
     return None
@@ -133,6 +153,16 @@ def ragged_decline_reason(page_size: int, d: int, kh: int = 1,
     or None when it can (the engine's build-time gate of the ragged
     path)."""
     return _decline("ragged", RAGGED_BLOCK_Q, page_size, d, group, device)
+
+
+def contiguous_decline_reason(chunk: int, d: int, group: int,
+                              device) -> Optional[str]:
+    """The build-time gate of the contiguous layout's kernel path: prefill
+    chunks up to `chunk` rows (K8, any T >= 1 and any cache length) AND
+    decode steps (K9) must take the shape. None when they do, else the
+    reason. Unlike the TPU gate, T and S need not be multiples of 8."""
+    return (_decline("flash", chunk, 0, d, group, device)
+            or _decline("rdecode", 1, 0, d, group, device))
 
 
 def paged_pool_direct_supported(chunk: int, page_size: int, d: int,
@@ -245,6 +275,61 @@ def ragged_paged_attention_ref(q, k_pool, v_pool, tables, seq_of_block,
     return out
 
 
+def flash_prefill_attention_ref(q, k_cache, v_cache, offsets, kv_valid, *,
+                                sliding_window: Optional[int] = None,
+                                softcap: Optional[float] = None,
+                                rows=None):
+    """Plain version of K8: gather each batch row's cache row (`rows`, or
+    row b), run the masked f32 softmax with p cast to v's dtype before the
+    PV product. Pad rows (q_pos >= kv_valid) are 0, as in the kernel.
+    [B,T,H,D]."""
+    b, t, h, d = q.shape
+    s, kh = k_cache.shape[1], k_cache.shape[2]
+    group = h // kh
+    dev = q.device
+    idx = (torch.arange(b, device=dev) if rows is None
+           else rows.to(dev).long())
+    if rows is not None and (int(idx.min()) < 0
+                             or int(idx.max()) >= k_cache.shape[0]):
+        raise IndexError(f"rows {idx.tolist()} outside the cache's "
+                         f"{k_cache.shape[0]} rows")
+    valid = torch.clamp(kv_valid.to(dev).long(), max=s)          # [B]
+    # Positions at or past every row's frontier are masked for all rows:
+    # attend over the longest live prefix only.
+    n = max(min(int(valid.max()), s), 1)
+    kv_pos = torch.arange(n, device=dev)
+    live = kv_pos[None, :] < valid[:, None]                       # [B,n]
+    zero = torch.zeros((), dtype=k_cache.dtype, device=dev)
+    k = torch.where(live[:, :, None, None], k_cache[idx, :n], zero)
+    v = torch.where(live[:, :, None, None], v_cache[idx, :n], zero)
+    q_pos = offsets.to(dev).long()[:, None] + torch.arange(t, device=dev)
+    mask = (kv_pos[None, None, :] <= q_pos[:, :, None]) & live[:, None, :]
+    if sliding_window is not None:
+        mask &= kv_pos[None, None, :] > q_pos[:, :, None] - sliding_window
+    qg = q.reshape(b, t, kh, group, d)       # head h = kh_i * group + g
+    logits = torch.einsum("btkgd,bskd->bkgts", qg.float(), k.float())
+    if softcap is not None:
+        logits = softcap * torch.tanh(logits / softcap)
+    logits = torch.where(mask[:, None, None], logits,
+                         torch.tensor(MASK_VALUE, device=dev))
+    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    out = torch.einsum("bkgts,bskd->btkgd", probs.float(), v.float())
+    real = (q_pos < valid[:, None])[:, :, None, None, None]
+    out = torch.where(real, out, 0.0)
+    return out.reshape(b, t, h, d).to(q.dtype)
+
+
+def ragged_decode_attention_ref(q, k_cache, v_cache, kv_valid, *,
+                                sliding_window: Optional[int] = None,
+                                softcap: Optional[float] = None,
+                                rows=None):
+    """Plain version of K9: the prefill math at one position per row,
+    q position kv_valid - 1 (kv_valid includes this step). [B,1,H,D]."""
+    return flash_prefill_attention_ref(
+        q, k_cache, v_cache, kv_valid - 1, kv_valid,
+        sliding_window=sliding_window, softcap=softcap, rows=rows)
+
+
 # --- kernel wrappers ---
 
 
@@ -272,18 +357,18 @@ def _check(q, k_pool, v_pool, table, rows, what: str) -> None:
         raise ValueError(f"{what}: operands on several devices {devices}")
 
 
-def _cuda_operands(q, k_pool, v_pool, table, rows, what: str):
-    """Kernel-side checks; returns int32 index tensors."""
+def _cuda_operands(q, k_pool, v_pool, index: dict, what: str):
+    """Kernel-side checks of q, the caches and the index tensors."""
     if q.dtype not in _DTYPE_CODES:
         raise ValueError(f"{what}: dtype {q.dtype} not in "
                          f"{tuple(_DTYPE_CODES)}")
-    for name, x in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool)):
+    for name, x in (("q", q), ("k_cache", k_pool), ("v_cache", v_pool)):
         if not x.is_contiguous():
             raise ValueError(f"{what}: {name} must be contiguous")
         if x.data_ptr() % 16:
             raise ValueError(f"{what}: {name} must be 16-byte aligned")
     ints = {}
-    for name, x in {"table": table, **rows}.items():
+    for name, x in index.items():
         if x.dtype != torch.int32 or not x.is_contiguous():
             raise ValueError(f"{what}: {name} must be contiguous int32")
         ints[name] = x
@@ -316,7 +401,8 @@ def paged_decode_attention(q, k_pool, v_pool, table, kv_valid, *,
     reason = _decline("decode", 1, ps, d, h // kh, q.device)
     if reason is not None:
         raise ValueError(f"paged_decode_attention declines: {reason}")
-    ints = _cuda_operands(q, k_pool, v_pool, table, {"kv_valid": kv_valid},
+    ints = _cuda_operands(q, k_pool, v_pool,
+                          {"table": table, "kv_valid": kv_valid},
                           "paged_decode_attention")
     out = torch.empty_like(q)
     rc = build.library("paged_decode").rt_paged_decode(
@@ -359,7 +445,7 @@ def paged_prefill_attention(q, k_pool, v_pool, table, offsets, kv_valid, *,
     reason = _decline("prefill", t, ps, d, h // kh, q.device)
     if reason is not None:
         raise ValueError(f"paged_prefill_attention declines: {reason}")
-    ints = _cuda_operands(q, k_pool, v_pool, table, rows,
+    ints = _cuda_operands(q, k_pool, v_pool, {"table": table, **rows},
                           "paged_prefill_attention")
     out = torch.empty_like(q)
     rc = build.library("paged_prefill").rt_paged_prefill(
@@ -433,7 +519,8 @@ def ragged_paged_attention(q, k_pool, v_pool, tables, seq_of_block,
     reason = ragged_decline_reason(ps, d, kh, h // kh, q.device)
     if reason is not None:
         raise ValueError(f"{what} declines: {reason}")
-    ints = _cuda_operands(q, k_pool, v_pool, tables, rows, what)
+    ints = _cuda_operands(q, k_pool, v_pool, {"table": tables, **rows},
+                          what)
     out = torch.empty_like(q)
     rc = build.library("ragged_paged").rt_ragged_paged(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
@@ -445,4 +532,114 @@ def ragged_paged_attention(q, k_pool, v_pool, tables, seq_of_block,
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(rc, "ragged_paged_attention launch")
     _launches["ragged_paged_attention"] += 1
+    return out
+
+
+def _cached_operands(q, k_cache, v_cache, per_row: dict, rows, what: str):
+    """Shape/dtype/device checks of a contiguous-cache call; returns the
+    [B] int32 row map (arange(B) when `rows` is None)."""
+    b, _, h, d = q.shape
+    if k_cache.dim() != 4 or k_cache.shape != v_cache.shape:
+        raise ValueError(f"{what}: caches must be [N,S,K,D] and equal, got "
+                         f"{tuple(k_cache.shape)} / {tuple(v_cache.shape)}")
+    kh = k_cache.shape[2]
+    if k_cache.shape[3] != d or h % kh:
+        raise ValueError(f"{what}: q {tuple(q.shape)} does not match caches "
+                         f"{tuple(k_cache.shape)}")
+    if rows is None:
+        if k_cache.shape[0] != b:
+            raise ValueError(f"{what}: without `rows` the caches must hold "
+                             f"B={b} rows, got {k_cache.shape[0]}")
+        rows = torch.arange(b, dtype=torch.int32, device=q.device)
+    for name, x in {**per_row, "rows": rows}.items():
+        if x.shape != (b,):
+            raise ValueError(f"{what}: {name} must be [B], got "
+                             f"{tuple(x.shape)}")
+    if k_cache.dtype != q.dtype or v_cache.dtype != q.dtype:
+        raise ValueError(f"{what}: cache dtype {k_cache.dtype} != q dtype "
+                         f"{q.dtype}")
+    devices = {x.device for x in (q, k_cache, v_cache, rows,
+                                  *per_row.values())}
+    if len(devices) != 1:
+        raise ValueError(f"{what}: operands on several devices {devices}")
+    return rows
+
+
+def flash_prefill_attention(q, k_cache, v_cache, offsets, kv_valid, *,
+                            sliding_window: Optional[int] = None,
+                            softcap: Optional[float] = None, rows=None):
+    """Causal prefill attention of a chunk against the position-aligned
+    cache (K8).
+
+    q [B,T,H,D] pre-scaled and rope'd, row i of batch row b at absolute
+    position offsets[b] + i; caches [N,S,K,D]; kv_valid [B] = offsets +
+    real lengths; `rows` [B] int32 cache row of each batch row (None: row
+    b). The caller has written the chunk's K/V into the cache. Returns
+    [B,T,H,D] in q's dtype; pad rows (q_pos >= kv_valid) are 0."""
+    what = "flash_prefill_attention"
+    if q.dim() != 4:
+        raise ValueError(f"{what}: q must be [B,T,H,D], got "
+                         f"{tuple(q.shape)}")
+    per_row = {"offsets": offsets, "kv_valid": kv_valid}
+    rows_t = _cached_operands(q, k_cache, v_cache, per_row, rows, what)
+    if q.device.type == "cpu":
+        return flash_prefill_attention_ref(
+            q, k_cache, v_cache, offsets, kv_valid,
+            sliding_window=sliding_window, softcap=softcap, rows=rows)
+    b, t, h, d = q.shape
+    n, s, kh, _ = k_cache.shape
+    reason = _decline("flash", t, 0, d, h // kh, q.device)
+    if reason is not None:
+        raise ValueError(f"{what} declines: {reason}")
+    ints = _cuda_operands(q, k_cache, v_cache, {"rows": rows_t, **per_row},
+                          what)
+    out = torch.empty_like(q)
+    rc = build.library("flash_prefill").rt_flash_prefill(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+        ints["rows"].data_ptr(), ints["offsets"].data_ptr(),
+        ints["kv_valid"].data_ptr(), out.data_ptr(), b, t, h, kh, d, s, n,
+        int(sliding_window or 0), float(softcap or 0.0),
+        _DTYPE_CODES[q.dtype], q.device.index or 0,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(rc, f"{what} launch")
+    _launches[what] += 1
+    return out
+
+
+def ragged_decode_attention(q, k_cache, v_cache, kv_valid, *,
+                            sliding_window: Optional[int] = None,
+                            softcap: Optional[float] = None, rows=None):
+    """Single-position decode attention against the position-aligned
+    cache (K9).
+
+    q [B,1,H,D] pre-scaled and rope'd; caches [N,S,K,D]; kv_valid [B]
+    INCLUDING this step, whose K/V the caller has written already; `rows`
+    [B] int32 cache row of each batch row (None: row b). Returns [B,1,H,D]
+    in q's dtype."""
+    what = "ragged_decode_attention"
+    if q.dim() != 4 or q.shape[1] != 1:
+        raise ValueError(f"{what} serves one position, got q "
+                         f"{tuple(q.shape)}")
+    per_row = {"kv_valid": kv_valid}
+    rows_t = _cached_operands(q, k_cache, v_cache, per_row, rows, what)
+    if q.device.type == "cpu":
+        return ragged_decode_attention_ref(
+            q, k_cache, v_cache, kv_valid, sliding_window=sliding_window,
+            softcap=softcap, rows=rows)
+    b, _, h, d = q.shape
+    n, s, kh, _ = k_cache.shape
+    reason = _decline("rdecode", 1, 0, d, h // kh, q.device)
+    if reason is not None:
+        raise ValueError(f"{what} declines: {reason}")
+    ints = _cuda_operands(q, k_cache, v_cache, {"rows": rows_t, **per_row},
+                          what)
+    out = torch.empty_like(q)
+    rc = build.library("ragged_decode").rt_ragged_decode(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+        ints["rows"].data_ptr(), ints["kv_valid"].data_ptr(), out.data_ptr(),
+        b, h, kh, d, s, n, int(sliding_window or 0), float(softcap or 0.0),
+        _DTYPE_CODES[q.dtype], q.device.index or 0,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(rc, f"{what} launch")
+    _launches[what] += 1
     return out

@@ -22,7 +22,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("paged_decode", "paged_prefill", "ragged_paged")
+SOURCES = ("paged_decode", "paged_prefill", "ragged_paged", "flash_prefill",
+           "ragged_decode")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -44,6 +45,14 @@ _SIGNATURES = {
     "ragged_paged": {
         "rt_ragged_paged": ([_P] * 9 + [_I] * 7 + [_F, _I, _I, _P], _I),
         "rt_ragged_smem_bytes": ([_I, _I, _I], ctypes.c_longlong),
+    },
+    "flash_prefill": {
+        "rt_flash_prefill": ([_P] * 7 + [_I] * 8 + [_F, _I, _I, _P], _I),
+        "rt_flash_prefill_smem_bytes": ([_I, _I, _I], ctypes.c_longlong),
+    },
+    "ragged_decode": {
+        "rt_ragged_decode": ([_P] * 6 + [_I] * 7 + [_F, _I, _I, _P], _I),
+        "rt_ragged_decode_smem_bytes": ([_I, _I], ctypes.c_longlong),
     },
 }
 _COMMON_SIGNATURES = {

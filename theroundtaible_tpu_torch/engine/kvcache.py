@@ -3,14 +3,20 @@
 
 Each knight owns a slot whose cache holds the token ids already baked into
 it; the next turn prefills only the delta beyond the longest common token
-prefix. The paged pool (paging.PagedKVCache) is this slice's cache; the
-contiguous KVCache is not ported yet.
+prefix. Two caches serve slots: the contiguous KVCache below (the JAX
+engine's default layout: per layer [num_slots, max_seq_len, K, D],
+position-aligned, cache index s holds position s) and the paged pool
+(paging.PagedKVCache).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 from typing import Optional
+
+import torch
+
+from .models.common import ModelConfig
 
 # Session-namespaced slot names: the ASCII unit separator, which no
 # tokenizer/config surface produces, so a scoped name can never collide
@@ -80,8 +86,61 @@ class SlotBook:
         if state is not None:
             self._free.append(state.slot_id)
 
+    def reset_slot(self, name: str) -> None:
+        """Forget cached tokens (cache rows need no zeroing: the
+        valid-length mask makes stale entries unreachable)."""
+        if name in self._slots:
+            self._slots[name].tokens = []
+
+    def forget_all(self) -> None:
+        """Drop every slot record: every later prefill starts from
+        scratch."""
+        self._slots.clear()
+        self._free = list(range(self.num_slots))
+
+    def flush(self) -> int:
+        """Release every slot through the normal release path. Returns how
+        many slots were flushed."""
+        names = list(self._slots)
+        for name in names:
+            self.release(name)
+        return len(names)
+
+    def scratch_slot(self, pinned: tuple[str, ...] = ()) -> Optional[int]:
+        """A slot id safe to use as a throwaway write target - the
+        scheduler's bucketed decode batch points its masked pad rows here
+        (all pads write identical bytes at one position, so the
+        duplicate-index write is deterministic; a free slot's stale cells
+        are unreachable behind valid-length masks and the next real
+        acquire prefills over them). Returns a free slot's id, evicting
+        the LRU unpinned slot first when none is free; the id is NOT
+        allocated, so use it within the current dispatch only. None when
+        every slot is pinned."""
+        if not self._free:
+            victim = next((n for n in self._slots if n not in pinned),
+                          None)
+            if victim is None:
+                return None
+            self.release(victim)
+        return self._free[0]
+
     def slot_names(self) -> list[str]:
         return list(self._slots)
+
+    def memory_ledger(self) -> dict:
+        """Slot-occupancy accounting: a contiguous layout pays memory per
+        slot whether used or not, so `cached_tokens` against capacity is
+        the waste number."""
+        in_use = len(self._slots)
+        return {
+            "layout": "contiguous",
+            "slots_in_use": in_use,
+            "num_slots": self.num_slots,
+            "slot_occupancy": round(in_use / max(self.num_slots, 1), 3),
+            "cached_tokens": sum(len(s.tokens)
+                                 for s in self._slots.values()),
+            "hbm_bytes": None,  # SlotBook owns no buffers
+        }
 
     @staticmethod
     def common_prefix_len(cached: list[int], new: list[int]) -> int:
@@ -187,3 +246,33 @@ def share_prefixes(kv, names, all_tokens, offsets, *, min_shared: int,
         offsets[i] = l_shared
     flush_shares()
     return offsets, extra_prefill
+
+
+class KVCache(SlotBook):
+    """num_slots x num_layers of contiguous device KV plus SlotBook's
+    bookkeeping. Layout per layer: [num_slots, max_seq_len, K, D], zeros
+    at construction. Serving writes it in place (models/common
+    forward_cached) and the kernels read slots through their row map, so
+    no slot is ever gathered or copied whole."""
+
+    def __init__(self, cfg: ModelConfig, num_slots: int,
+                 max_seq_len: Optional[int] = None, dtype=torch.bfloat16,
+                 device="cpu"):
+        super().__init__(num_slots)
+        self.cfg = cfg
+        self.max_seq_len = max_seq_len or cfg.max_seq_len
+        shape = (num_slots, self.max_seq_len, cfg.num_kv_heads, cfg.head_dim)
+        self.layers: list[tuple[torch.Tensor, torch.Tensor]] = [
+            (torch.zeros(shape, dtype=dtype, device=device),
+             torch.zeros(shape, dtype=dtype, device=device))
+            for _ in range(cfg.num_layers)]
+
+    def hbm_bytes(self) -> int:
+        """Device bytes of every layer's K and V cache."""
+        k, _ = self.layers[0]
+        return 2 * k.numel() * k.element_size() * len(self.layers)
+
+    def memory_ledger(self) -> dict:
+        led = super().memory_ledger()
+        led["hbm_bytes"] = self.hbm_bytes()
+        return led

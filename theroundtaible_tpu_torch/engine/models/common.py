@@ -10,8 +10,11 @@ every matrix product's result widened to f32 where the JAX code asks for an
 f32 result (`preferred_element_type`).
 
 The dense `attention`/`forward` over a position-aligned cache is the
-whole-model oracle of the tests; serving runs paged_forward.forward_paged.
-MoE (`moe_mlp`), int4/int8 leaves and LoRA routing are not ported yet.
+whole-model oracle of the tests (it clones the cache it is given). Serving
+runs `forward_cached` below on the contiguous layout, which writes the
+cache in place and attends through K8/K9 (`attn_impl == "flash"`) or the
+dense math, and paged_forward.forward_paged on the paged pool. MoE
+(`moe_mlp`), int4/int8 leaves and LoRA routing are not ported yet.
 """
 
 from __future__ import annotations
@@ -61,9 +64,10 @@ class ModelConfig:
     # MoE (Mixtral): None = dense MLP; X experts, top-k routed
     num_experts: Optional[int] = None
     num_experts_per_tok: int = 2
-    # Runtime implementation choice kept for config parity with the JAX
-    # package; the port's forward is always the dense oracle and serving
-    # always goes through the paged kernels.
+    # Attention implementation on a position-aligned cache: "flash" runs
+    # K8 (prefill chunks) and K9 (decode steps), "dense" the masked
+    # softmax below (the engine's _resolve_attn picks). The paged pool
+    # always runs its own kernels.
     attn_impl: str = "dense"
 
     @property
@@ -161,6 +165,54 @@ def project_qkv(
     return q * scale, k, v
 
 
+def dense_attend(q: torch.Tensor, k_all: torch.Tensor, v_all: torch.Tensor,
+                 attn_mask: torch.Tensor, cfg: ModelConfig,
+                 dtype) -> torch.Tensor:
+    """softmax(QK^T)V of q [B,T,H,D] against k/v [B,S,K,D] under the
+    [B,T,S] mask, GQA by repeating kv heads; [B,T,H,D] in `dtype`."""
+    k_att = k_all.repeat_interleave(cfg.kv_repeat, dim=2)
+    v_att = v_all.repeat_interleave(cfg.kv_repeat, dim=2)
+    # f32 products of the working-dtype values, as the JAX einsums'
+    # preferred_element_type=f32 gives
+    logits = torch.einsum("bthd,bshd->bhts", q.float(), k_att.float())
+    logits = _softcap(logits, cfg.attn_logit_softcap)
+    logits = torch.where(attn_mask[:, None, :, :], logits,
+                         torch.tensor(MASK_VALUE, device=logits.device))
+    probs = torch.softmax(logits, dim=-1).to(dtype)
+    return torch.einsum("bhts,bshd->bthd", probs.float(),
+                        v_att.float()).to(dtype)
+
+
+def _kernels(plain: bool):
+    """(K8, K9) callables: the CUDA wrappers, or their plain versions.
+    Imported here: kernels/attention imports this module."""
+    from ..kernels import attention as kattn
+    if plain:
+        return (kattn.flash_prefill_attention_ref,
+                kattn.ragged_decode_attention_ref)
+    return kattn.flash_prefill_attention, kattn.ragged_decode_attention
+
+
+def _flash(q, k_all, v_all, cfg: ModelConfig, offsets, kv_valid,
+           plain: bool = False, rows=None) -> torch.Tensor:
+    """JAX common.attention's flash branch: K8 for a chunk, K9 for one
+    position."""
+    prefill, decode = _kernels(plain)
+    if q.shape[1] > 1:
+        return prefill(q, k_all, v_all, offsets, kv_valid,
+                       sliding_window=cfg.sliding_window,
+                       softcap=cfg.attn_logit_softcap, rows=rows)
+    return decode(q, k_all, v_all, kv_valid,
+                  sliding_window=cfg.sliding_window,
+                  softcap=cfg.attn_logit_softcap, rows=rows)
+
+
+def _o_proj(out: torch.Tensor, layer: Params, cfg: ModelConfig,
+            dtype) -> torch.Tensor:
+    return _matmul(out.reshape(*out.shape[:2], -1),
+                   layer["o_proj"].reshape(-1, cfg.embed_dim)).to(dtype)
+
+
 def attention(
     x: torch.Tensor,              # [B, T, E]
     layer: Params,
@@ -170,10 +222,13 @@ def attention(
     cache_offset: Optional[torch.Tensor],   # [B] write offset
     attn_mask: torch.Tensor,      # [B, T, S] bool, True = attend
     rope_tabs=None,
+    kv_valid: Optional[torch.Tensor] = None,  # [B] valid after the step
 ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
-    """Dense GQA attention over a position-aligned cache. Returns
-    (output [B,T,E], updated (k_cache, v_cache)); the input cache is not
-    modified. With kv_cache None the k/v of this call form the cache."""
+    """GQA attention over a position-aligned cache. Returns (output
+    [B,T,E], updated (k_cache, v_cache)); the input cache is not modified.
+    With kv_cache None the k/v of this call form the cache. With
+    cfg.attn_impl "flash" and kv_valid given, K8/K9 attend (their plain
+    versions on the CPU), else the dense math."""
     q, k, v = project_qkv(x, layer, cfg, positions, rope_tabs)
     if kv_cache is not None:
         k_cache, v_cache = kv_cache[0].clone(), kv_cache[1].clone()
@@ -184,20 +239,12 @@ def attention(
             v_cache[row, off:off + t] = v[row]
     else:
         k_cache, v_cache = k, v
-    k_att = k_cache.repeat_interleave(cfg.kv_repeat, dim=2)
-    v_att = v_cache.repeat_interleave(cfg.kv_repeat, dim=2)
-    # f32 products of the working-dtype values, as the JAX einsums'
-    # preferred_element_type=f32 gives
-    logits = torch.einsum("bthd,bshd->bhts", q.float(), k_att.float())
-    logits = _softcap(logits, cfg.attn_logit_softcap)
-    logits = torch.where(attn_mask[:, None, :, :], logits,
-                         torch.tensor(MASK_VALUE, device=logits.device))
-    probs = torch.softmax(logits, dim=-1).to(x.dtype)
-    out = torch.einsum("bhts,bshd->bthd", probs.float(),
-                       v_att.float()).to(x.dtype)
-    out = _matmul(out.reshape(*out.shape[:2], -1),
-                  layer["o_proj"].reshape(-1, cfg.embed_dim)).to(x.dtype)
-    return out, (k_cache, v_cache)
+    if cfg.attn_impl == "flash" and kv_valid is not None:
+        out = _flash(q, k_cache, v_cache, cfg, positions[:, 0].contiguous(),
+                     kv_valid)
+    else:
+        out = dense_attend(q, k_cache, v_cache, attn_mask, cfg, x.dtype)
+    return _o_proj(out, layer, cfg, x.dtype), (k_cache, v_cache)
 
 
 def mlp(x: torch.Tensor, layer: Params, cfg: ModelConfig) -> torch.Tensor:
@@ -215,16 +262,18 @@ def mlp(x: torch.Tensor, layer: Params, cfg: ModelConfig) -> torch.Tensor:
 def transformer_block(
     x: torch.Tensor, layer: Params, cfg: ModelConfig,
     positions: torch.Tensor, kv_cache, cache_offset, attn_mask,
-    attn_fn: Optional[Callable] = None, rope_tabs=None,
+    attn_fn: Optional[Callable] = None, rope_tabs=None, kv_valid=None,
 ) -> tuple[torch.Tensor, Any]:
     """One block. `attn_fn(h, layer) -> (out, cache)`, when given,
-    replaces dense attention - the hook paged_forward uses, so the
-    norm/residual/MLP wiring and every family flag live in one place."""
+    replaces `attention` - the hook forward_cached and paged_forward use,
+    so the norm/residual/MLP wiring and every family flag live in one
+    place."""
     h = rms_norm(x, layer["input_norm"], cfg.norm_eps,
                  cfg.rmsnorm_unit_offset)
     if attn_fn is None:
         attn_out, new_cache = attention(h, layer, cfg, positions, kv_cache,
-                                        cache_offset, attn_mask, rope_tabs)
+                                        cache_offset, attn_mask, rope_tabs,
+                                        kv_valid=kv_valid)
     else:
         attn_out, new_cache = attn_fn(h, layer)
     if cfg.post_attn_norm:
@@ -290,13 +339,91 @@ def forward(
     for i, layer in enumerate(params["layers"]):
         cache_i = kv_caches[i] if kv_caches is not None else None
         x, new_cache = transformer_block(x, layer, cfg, positions, cache_i,
-                                         cache_offset, mask, rope_tabs=tabs)
+                                         cache_offset, mask, rope_tabs=tabs,
+                                         kv_valid=kv_valid_len)
         new_caches.append(new_cache)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps,
                  cfg.rmsnorm_unit_offset)
     if last_pos is not None:
         x = gather_rows(x, last_pos)
     return lm_head(params, cfg, x), new_caches
+
+
+def _check_cached_write(rows: torch.Tensor, offsets: torch.Tensor, t: int,
+                        n_rows: int, s: int) -> None:
+    """Every row writes cache row rows[b], positions offsets[b] ..
+    offsets[b]+t-1, inside the cache. JAX's dynamic_update_slice clamps a
+    start that would overrun (overwriting earlier cells) and its gather
+    clamps a row index; here an overrun raises. Index tensors on the CPU
+    are checked here; on a card the in-place write's own bounds check
+    raises at the next synchronisation (the engine's bucket shrink and
+    prompt budget keep every write inside, without a host read per
+    step)."""
+    if rows.device.type != "cpu" or offsets.device.type != "cpu":
+        return
+    if rows.numel() and (int(rows.min()) < 0 or int(rows.max()) >= n_rows):
+        raise IndexError(f"rows {rows.tolist()} outside the cache's "
+                         f"{n_rows} rows")
+    if offsets.numel() and (int(offsets.min()) < 0
+                            or int(offsets.max()) + t > s):
+        raise IndexError(f"a {t}-token write at offsets {offsets.tolist()} "
+                         f"overruns the {s}-position cache")
+
+
+def forward_cached(
+    params: Params, cfg: ModelConfig,
+    tokens: torch.Tensor,          # [B, T] (T == 1: a decode step)
+    positions: torch.Tensor,       # [B, T] absolute positions
+    cache_layers: list,            # per-layer (k, v) [num_slots, S, K, D]
+    rows: torch.Tensor,            # [B] int32 cache row (slot) of each row
+    offsets: torch.Tensor,         # [B] int32 write offset (= positions[:, 0])
+    kv_valid: torch.Tensor,        # [B] int32 valid entries AFTER this call
+    last_pos: Optional[torch.Tensor] = None,   # [B] row index into T
+    plain: bool = False,
+) -> torch.Tensor:
+    """One serving step against the contiguous cache - a prefill chunk or a
+    decode step; the counterpart of the JAX engine's prefill_step and
+    cached_step around `forward`. Each layer writes this call's K/V in
+    place into cache[rows, offsets:offsets+T], then attends through K8/K9
+    reading the slots in place through `rows` (cfg.attn_impl "flash";
+    `plain=True`: their plain versions, on any device) or through the
+    dense masked softmax over the rows' gathered slots ("dense"). Where
+    the JAX programs gather the batch's slots and scatter them back every
+    call, nothing here copies a slot. Returns f32 logits [B,T,V], or
+    [B,1,V] when `last_pos` is given (gathered before the head)."""
+    n_rows, s = cache_layers[0][0].shape[:2]
+    t = tokens.shape[1]
+    _check_cached_write(rows, offsets, t, n_rows, s)
+    rows_l = rows.long()
+    write_pos = offsets.long()[:, None] + torch.arange(
+        t, device=offsets.device)[None, :]                      # [B, T]
+    flash = cfg.attn_impl == "flash"
+    mask = (None if flash else
+            make_attention_mask(positions, s, kv_valid, cfg.sliding_window))
+    tabs = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+    x = scale_embeddings(embed_tokens(params["embedding"], tokens), cfg)
+    for layer, (k_cache, v_cache) in zip(params["layers"], cache_layers):
+
+        def attn_fn(h, layer, k_cache=k_cache, v_cache=v_cache):
+            q, k, v = project_qkv(h, layer, cfg, positions, tabs)
+            # In place: JAX's per-row dynamic_update_slice of the chunk.
+            k_cache[rows_l[:, None], write_pos] = k
+            v_cache[rows_l[:, None], write_pos] = v
+            if flash:
+                out = _flash(q, k_cache, v_cache, cfg, offsets, kv_valid,
+                             plain=plain, rows=rows)
+            else:
+                out = dense_attend(q, k_cache[rows_l], v_cache[rows_l],
+                                   mask, cfg, h.dtype)
+            return _o_proj(out, layer, cfg, h.dtype), None
+
+        x, _ = transformer_block(x, layer, cfg, positions, None, None, None,
+                                 attn_fn=attn_fn)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps,
+                 cfg.rmsnorm_unit_offset)
+    if last_pos is not None:
+        x = gather_rows(x, last_pos)
+    return lm_head(params, cfg, x)
 
 
 def gather_rows(x: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:

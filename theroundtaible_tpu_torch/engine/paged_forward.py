@@ -30,9 +30,10 @@ from typing import Optional
 import torch
 
 from .kernels import attention as kattn
-from .models.common import (ModelConfig, Params, _matmul, embed_tokens,
-                            gather_rows, lm_head, project_qkv, rms_norm,
-                            rope_tables, scale_embeddings, transformer_block)
+from .models.common import (ModelConfig, Params, _matmul, _o_proj,
+                            embed_tokens, gather_rows, lm_head, project_qkv,
+                            rms_norm, rope_tables, scale_embeddings,
+                            transformer_block)
 
 
 def forward_paged(
@@ -88,9 +89,7 @@ def forward_paged(
                               kv_valid_len,
                               sliding_window=cfg.sliding_window,
                               softcap=cfg.attn_logit_softcap)
-            out = _matmul(out.reshape(*out.shape[:2], -1),
-                          layer["o_proj"].reshape(-1, cfg.embed_dim))
-            return out.to(h.dtype), None
+            return _o_proj(out, layer, cfg, h.dtype), None
 
         x, _ = transformer_block(x, layer, cfg, positions, None, None, None,
                                  attn_fn=attn_fn)

@@ -1,6 +1,6 @@
 """Continuous-batching session scheduler - many discussions, one engine
 (counterpart of theroundtaible_tpu/engine/scheduler.py, trimmed to one
-paged engine on one device).
+engine on one device, contiguous or paged).
 
 `generate_batch` owns the engine's serve lock end to end, so a second
 session's round serializes behind the first. This module batches sessions
@@ -11,24 +11,26 @@ continuously instead:
   segments the host owns every row's (last, valid, done, budget) state, so
   rows retire and join there. The batch pads to a power-of-two bucket
   (capped at max_rows) with masked pad rows (done from step 0, zero budget,
-  tables on the scratch page), which keeps the set of decode shapes small
-  for a later CUDA-graph capture.
+  writing a throwaway slot or the paged scratch page), which keeps the set
+  of decode shapes small for a later CUDA-graph capture.
 - **Join = admission into freed capacity.** A queued round admits at a
   segment boundary through the engine's own _prepare_batch (reuse plan,
   intra-session prefix sharing, prefill), with every live row pinned
   against eviction. While rows are decoding and the engine's ragged path
-  is on, the join's prefill is deferred: its prompt tokens ride the live
-  decode rows' ragged mixed dispatches (forward_ragged through K3) as
-  chunks, so admission never stalls the batch. A deferred leader span is
+  is on (the paged pool's default; the contiguous layout has none and
+  admits through the blocking prologue), the join's prefill is deferred:
+  its prompt tokens ride the live decode rows' ragged mixed dispatches
+  (forward_ragged through K3) as chunks, so admission never stalls the
+  batch. A deferred leader span is
   aliased into the round's laggards once the leader's chunks have written
   it.
 - **Retire = drop out of the next segment.** A row at eos or out of budget
   stops being dispatched; its round completes when all its rows are done,
   committing each slot's tokens for next-round prefix reuse.
 - **Admission queue with capacity-aware backpressure.** A round whose rows
-  or pages cannot fit next to the pinned live rows stays queued; a round
-  that could never fit is refused (SchedulerRefused). All knights of a
-  round join together.
+  (or, on the paged pool, pages) cannot fit next to the pinned live rows
+  stays queued; a round that could never fit is refused
+  (SchedulerRefused). All knights of a round join together.
 - **Sessions are isolation domains.** Slot names are session-scoped, and a
   failed dispatch is preempted into per-session dispatches: the sick
   session fails into its adapter's ladder while every other session's rows
@@ -128,6 +130,7 @@ class _Row:
     tokens: list[int]            # truncated prompt ids (committed base)
     sampling: SamplingParams
     max_new: int                 # per-row token cap (<= request cap)
+    slot_id: int = -1            # contiguous layouts only (paged: -1)
     produced: list[int] = field(default_factory=list)  # [first, ...]
     last: int = 0
     valid: int = 0
@@ -202,13 +205,17 @@ class SessionScheduler:
                  idle_spill_s: Optional[float] = None,
                  journal=None):
         # The loop recomposes rows at the decode-segment seam and admits
-        # through the engine's own prefill/share seams.
-        for attr in ("_prefill", "_decode_dispatch_paged",
-                     "_share_prefixes"):
+        # through the engine's own prefill/share seams; either decode seam
+        # serves (paged pool or contiguous slots).
+        for attr in ("_prefill", "_share_prefixes"):
             if not hasattr(engine, attr):
                 raise TypeError(
                     "SessionScheduler requires the port's InferenceEngine "
                     f"(missing {attr!r})")
+        if not (hasattr(engine, "_decode_dispatch_paged")
+                or hasattr(engine, "_decode_dispatch_slots")):
+            raise TypeError("SessionScheduler requires the port's "
+                            "InferenceEngine (no decode seam)")
         if idle_spill_s is not None:
             raise _not_ported("idle_spill_s (host-RAM spill)",
                               "slice 7: prefix cache and host-RAM offload")
@@ -313,9 +320,11 @@ class SessionScheduler:
                 reason="rows_never_fit")
         max_new = max_new_tokens or engine.sampling.max_new_tokens
         # Never-fits is a LOWER bound (1-token prompts): a request
-        # generate_batch could serve is never refused here.
-        need = self._pages_needed(turns, max_new, minimal=True)
-        if need > engine.kv.usable_pages():
+        # generate_batch could serve is never refused here. Paged only:
+        # contiguous slots hold any prompt within max_seq_len.
+        need = (self._pages_needed(turns, max_new, minimal=True)
+                if engine.kv_layout == "paged" else 0)
+        if need and need > engine.kv.usable_pages():
             with self._cv:
                 self.refused += 1
             self._event("refuse", session=session,
@@ -624,7 +633,7 @@ class SessionScheduler:
             # An earlier admission of this request hit real pool
             # exhaustion at this batch size: wait for retirement.
             return False
-        if self._active:
+        if engine.kv_layout == "paged" and self._active:
             # Pages the live rows pin are untouchable; the rest (free, or
             # held by idle evictable slots) is what a join can claim.
             kv = engine.kv
@@ -694,14 +703,15 @@ class SessionScheduler:
                         pinned=tuple(prep["names"]) + active_names)
                 rows.append(_Row(
                     name=scoped, tokens=toks, sampling=per_row[i],
-                    max_new=row_cap, pending=list(toks[off:]), pos=off,
-                    valid=off))
+                    max_new=row_cap, slot_id=prep["slot_ids"][i],
+                    pending=list(toks[off:]), pos=off, valid=off))
             else:
                 tok = int(prep["first_np"][i])
                 rows.append(_Row(
                     name=scoped, tokens=toks, sampling=per_row[i],
-                    max_new=row_cap, produced=[tok], last=tok,
-                    valid=len(toks), done=(tok == eos)))
+                    max_new=row_cap, slot_id=prep["slot_ids"][i],
+                    produced=[tok], last=tok, valid=len(toks),
+                    done=(tok == eos)))
         req.rows = rows
         if deferred:
             # Laggard rows block until the leader's chunks have written
@@ -1072,8 +1082,12 @@ class SessionScheduler:
 
     def _build_batch(self, rows: list[_Row]) -> dict:
         """Device inputs of one decode segment over `rows`, padded to
-        _row_bucket with masked pad rows (done from step 0, zero budget,
-        every table entry on the scratch page)."""
+        _row_bucket with masked pad rows (done from step 0, zero budget).
+        Paged pad rows point every table entry at the scratch page;
+        contiguous pad rows all point at kv.scratch_slot (a free slot, or
+        the LRU unpinned one), writing identical bytes at one position,
+        or the dispatch runs at its exact size when every slot is
+        pinned."""
         engine = self.engine
         dev = engine.device
         eos = engine.tokenizer.eos_id
@@ -1086,9 +1100,18 @@ class SessionScheduler:
         deadline = min((req.deadline for req in reqs),
                        default=float("inf"))
         pad = self._row_bucket(len(rows)) - len(rows)
-        tables = engine.kv.table_for([r.name for r in rows])
-        tables = np.concatenate([tables, np.full(
-            (pad, tables.shape[1]), SCRATCH_PAGE, tables.dtype)])
+        if engine.kv_layout == "paged":
+            index = engine.kv.table_for([r.name for r in rows])
+            index = np.concatenate([index, np.full(
+                (pad, index.shape[1]), SCRATCH_PAGE, index.dtype)])
+        else:
+            index = np.asarray([r.slot_id for r in rows], np.int32)
+            pad_slot = (engine.kv.scratch_slot(
+                pinned=tuple(r.name for r in self._active)) if pad else None)
+            if pad_slot is None:
+                pad = 0
+            index = np.concatenate([index, np.full(pad, pad_slot or 0,
+                                                   np.int32)])
         last = [r.last for r in rows] + [eos] * pad
         valid = [r.valid for r in rows] + [1] * pad
         done0 = [False] * len(rows) + [True] * pad
@@ -1099,7 +1122,7 @@ class SessionScheduler:
         temps, top_ks, top_ps = sampling_arrays(params, dev)
         return {
             "rows": rows, "reqs": reqs,
-            "tables": torch.as_tensor(tables, device=dev),
+            "index": torch.as_tensor(index, device=dev),
             "last_d": engine._ints(last), "valid_d": engine._ints(valid),
             "done_d": torch.tensor(done0, device=dev),
             "budgets_d": engine._ints(budgets), "temps": temps,
@@ -1115,9 +1138,12 @@ class SessionScheduler:
         retry/watchdog seam. Returns (out, steps, last, valid, done) with
         device tensors."""
         engine = self.engine
+        seam = (engine._decode_dispatch_paged
+                if engine.kv_layout == "paged"
+                else engine._decode_dispatch_slots)
         return run_dispatch(
-            lambda: engine._decode_dispatch_paged(
-                ctx["tables"], ctx["last_d"], ctx["valid_d"],
+            lambda: seam(
+                ctx["index"], ctx["last_d"], ctx["valid_d"],
                 DECODE_SEGMENT, ctx["temps"], ctx["top_ks"], ctx["top_ps"],
                 ctx["budgets_d"], ctx["done_d"], greedy=ctx["greedy"]),
             engine.retry, ctx["deadline"], budget=ctx["seg_budget"])
