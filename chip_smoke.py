@@ -62,6 +62,33 @@ Phases, each printing one JSON line; any failure exits non-zero:
              no ragged seam, so beta waits for alpha's segment boundary and
              admits through the blocking prologue. K8 and K9 must launch,
              K1-K3 never.
+12. quant_kernels - K4 (in-kernel dequant) inside K1, K2 and K3 on int8
+             and int4 pages at the kernels phase's cases (NaN scales in
+             every cell past kv_valid), K5 at Llama-3-8B's five decode
+             projections (3 rows, int4 groups of 64) and K6 at the
+             128256-row head, each against its plain version and K5/K6
+             each called twice for the same bits; CUDA-event
+             times beside the bound and a yardstick (K4: the same kernel
+             on the unquantized pool; K5/K6: torch.matmul on the weight
+             dequantized to bf16 beforehand).
+13. quant_int8, quant_int4 - the engine phase's config with `"quant":
+             "int8", "kv_quant": "int8"` (the shipped knights' quant), then
+             `"int4"`/`"int4"`, from TorchLlmAdapter.from_config (32
+             layers), warmup() and the same two rounds: K1/K2 must launch
+             on the quantized pool, K5/K6 on int4 and never on int8, and
+             the int4 engine's plan (`int4_paths`) must send only
+             prefill-sized products past them. Pages, pool bytes, peak memory, decode ms
+             per step beside the unquantized rounds' and the greedy
+             agreement with them (reported, not checked); then the profile
+             phase on each (quant_int8_profile, quant_int4_profile).
+14. quant_scheduler - the scheduler phase on the int4 engine: K3 must
+             launch on int4 pages.
+15. quant_path - 2 layers at full width, int4 weights and int8 pages:
+             forward_paged, forward_ragged and forward_cached through the
+             kernels against their plain versions, and pool-direct against
+             the gather view at each decode step.
+
+Run time: ~5 minutes on an H100 with the build; no earlier phase was cut.
 
 Then a `{"kernels": [...]}` line, the nvidia-smi line, and last
 `{"ok": true, "device": {...}}`. Details go to chiprun_out/chip_smoke/.
@@ -627,30 +654,53 @@ CONTIGUOUS_KERNELS = ("flash_prefill_attention", "ragged_decode_attention")
 GREEDY_KNIGHTS = ("lancelot", "gawain")
 
 
+def reset_launches() -> None:
+    from theroundtaible_tpu_torch.engine.kernels import attention, int4mm
+    attention.reset_launch_counts()
+    int4mm.reset_launch_counts()
+
+
+def launches_now() -> dict:
+    """Every wrapper's launches since the last reset: K1-K3 and K8/K9 by
+    name, K1-K3 on quantized pools ("<name>:int8", "<name>:int4": K4 ran
+    inside) and K5/K6."""
+    from theroundtaible_tpu_torch.engine.kernels import attention, int4mm
+    return {**attention.launch_counts(), **attention.dequant_launch_counts(),
+            **int4mm.launch_counts()}
+
+
+def decode_ms_per_step(stats: dict, rows: int = 3) -> float:
+    """A round's decode wall per step of its `rows` rows."""
+    return 1e3 * stats["decode_seconds"] / max(stats["decode_tokens"] / rows,
+                                               1)
+
+
 def serve_rounds(torch, kattn, adapter, engine, phase, required,
                  forbidden=()):
     """Two 3-knight rounds through execute_round. The launch counts are
     zeroed before and read after each round: every `required` kernel must
     have launched in it, no `forbidden` one. Returns (launch totals, each
-    round's generated tokens per knight)."""
+    round's generated tokens per knight, each round's stats)."""
     from theroundtaible_tpu_torch.adapters.base import KnightTurn
-    totals = dict.fromkeys(kattn.KERNELS, 0)
-    generated = {}
+    totals = dict.fromkeys(launches_now(), 0)
+    generated, round_stats = {}, {}
     prompts = None
     for rnd in (1, 2):
         prompts = knight_prompts(rnd, prompts)
         turns = [KnightTurn(k, p) for k, p in prompts.items()]
-        kattn.reset_launch_counts()
+        reset_launches()
         t0 = time.monotonic()
         responses = adapter.execute_round(turns, timeout_ms=600_000)
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
-        launches = kattn.launch_counts()
+        launches = launches_now()
         stats = adapter.last_stats()
+        round_stats[rnd] = stats
         emit(phase, round=rnd, wall_s=wall,
              prompt_tokens=[len(engine.tokenizer.encode(p))
                             for p in prompts.values()],
-             launches=launches, responses=len(responses), **stats)
+             launches=launches, responses=len(responses),
+             decode_ms_per_step=decode_ms_per_step(stats), **stats)
         check(adapter.last_degradation is None,
               f"{phase} {rnd} degraded: {adapter.last_degradation}")
         check(all(launches[k] > 0 for k in required),
@@ -667,11 +717,24 @@ def serve_rounds(torch, kattn, adapter, engine, phase, required,
         generated[rnd] = {
             k: engine.kv._slots[k].tokens[len(engine.tokenizer.encode(p)):]
             for k, p in prompts.items()}
-    return totals, generated
+    return totals, generated, round_stats
+
+
+def greedy_agreement(generated, reference) -> float:
+    """Share of the greedy knights' generated tokens that equal the
+    reference rounds' at the same place."""
+    same = total = 0
+    for rnd in (1, 2):
+        for k in GREEDY_KNIGHTS:
+            a, b = generated[rnd][k], reference[rnd][k]
+            total += max(len(a), len(b))
+            same += sum(x == y for x, y in zip(a, b))
+    return same / max(total, 1)
 
 
 def engine_phase(torch, kattn):
     from theroundtaible_tpu_torch.adapters.torch_llm import TorchLlmAdapter
+    torch.cuda.reset_peak_memory_stats()
     adapter = TorchLlmAdapter.from_config("torch-llm-llama3",
                                           dict(ENGINE_CONFIG))
     t0 = time.monotonic()
@@ -683,10 +746,18 @@ def engine_phase(torch, kattn):
          construct_s=build_s, warmup_s=warm_s,
          kv_pool_bytes=engine.kv.hbm_bytes(), num_pages=engine.kv.num_pages,
          memory_allocated=torch.cuda.memory_allocated())
-    totals, generated = serve_rounds(
+    totals, generated, stats = serve_rounds(
         torch, kattn, adapter, engine, "round",
         required=PAGED_KERNELS[:2], forbidden=CONTIGUOUS_KERNELS)
-    return totals, engine, generated
+    # The unquantized paged engine's numbers the quant phases print beside
+    # their own.
+    reference = {"num_pages": engine.kv.num_pages,
+                 "kv_pool_bytes": engine.kv.hbm_bytes(),
+                 "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                 "decode_ms_per_step": [decode_ms_per_step(stats[r])
+                                        for r in (1, 2)],
+                 "generated": generated}
+    return totals, engine, reference
 
 
 def contiguous_phase(torch, kattn, paged_generated):
@@ -709,19 +780,14 @@ def contiguous_phase(torch, kattn, paged_generated):
     emit("contiguous_engine", construct_s=build_s, warmup_s=warm_s,
          kv_cache_bytes=engine.kv.hbm_bytes(),
          memory_allocated=torch.cuda.memory_allocated())
-    totals, generated = serve_rounds(
+    totals, generated, _ = serve_rounds(
         torch, kattn, adapter, engine, "contiguous_round",
         required=CONTIGUOUS_KERNELS, forbidden=PAGED_KERNELS)
     # bf16 K8/K9 and K1/K2 sum in other orders: reported, not checked.
-    same = total = 0
-    for rnd in (1, 2):
-        for k in GREEDY_KNIGHTS:
-            a, b = generated[rnd][k], paged_generated[rnd][k]
-            total += max(len(a), len(b))
-            same += sum(x == y for x, y in zip(a, b))
     emit("contiguous", kv_cache_bytes=engine.kv.hbm_bytes(),
          max_memory_allocated=torch.cuda.max_memory_allocated(),
-         greedy_agreement_with_paged=same / max(total, 1),
+         greedy_agreement_with_paged=greedy_agreement(generated,
+                                                      paged_generated),
          launches=totals)
     return totals, engine
 
@@ -1007,7 +1073,7 @@ def scheduler_phase(torch, kattn, engine, phase="scheduler"):
         except Exception as e:  # noqa: BLE001 - checked below
             errors[session] = e
 
-    kattn.reset_launch_counts()
+    reset_launches()
     t0 = time.monotonic()
     threads = [threading.Thread(target=run, args=(s, i > 0))
                for i, s in enumerate(prompts)]
@@ -1017,7 +1083,7 @@ def scheduler_phase(torch, kattn, engine, phase="scheduler"):
         th.join(timeout=900)
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
-    launches = kattn.launch_counts()
+    launches = launches_now()
     sched.close()
     del engine._ragged_dispatch
     delattr(engine, seam)
@@ -1108,6 +1174,484 @@ def profile_phase(torch, engine, phase="profile"):
         engine.kv.release(name)
 
 
+# --- quantization phases ---
+
+
+# The shipped knights' quantization, and int4 throughout.
+QUANT_CONFIGS = {"quant_int8": {"quant": "int8", "kv_quant": "int8"},
+                 "quant_int4": {"quant": "int4", "kv_quant": "int4"}}
+INT4_KERNELS = ("mm_pack_out", "mm_pack_contract")
+# Llama-3-8B's decode products at 3 rows, (x shape, weight shape), with
+# how many of each one layer makes; the lm head separately.
+K5_SHAPES = {"q_proj": ((3, 4096), (4096, 4096), 1),
+             "kv_proj": ((3, 4096), (4096, 1024), 2),
+             "o_proj": ((3, 4096), (4096, 4096), 1),
+             "gate_up_proj": ((3, 4096), (4096, 14336), 2),
+             "down_proj": ((3, 14336), (14336, 4096), 1)}
+K6_SHAPE = ((3, 4096), (128256, 4096))
+INT4_GROUP = 64
+
+
+def quantized_pools(kvq, k_pool, v_pool, bits):
+    """int8/int4 payload pools and f32 scales of unquantized pools (cells
+    poisoned with NaN get NaN scales: stale cells K4 must never load), as
+    the keyword arguments of K1-K3."""
+    spec = kvq.KVQuantSpec(bits=bits)
+    kq, ks = kvq.quantize_cells(k_pool, spec)
+    vq, vs = kvq.quantize_cells(v_pool, spec)
+    return kq, vq, dict(k_scale=ks, v_scale=vs, kv_bits=bits)
+
+
+def quant_cell_bytes(cells, K, D, bits):
+    """Bytes of `cells` quantized K and V cells: payload plus f32 scales."""
+    dp, groups = (D, 1) if bits == 8 else (D // 2, D // 32)
+    return cells * K * (dp + 4 * groups) * 2
+
+
+def dequant_kernel_cases(torch, kattn, kvq, gen, flush):
+    """K4 inside K1, K2 and K3 against their plain versions on int8 and int4
+    pages (NaN scales in every cell past kv_valid), then their times at the
+    serving shapes beside the same kernel on the unquantized pool."""
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    errs = {8: [], 4: []}
+    cases = [(32, 8, 128, None, None), (32, 8, 128, 4096, 50.0),
+             (32, 8, 64, None, None), (8, 1, 256, None, None)]
+    for bits in (8, 4):
+        for H, K, D, window, softcap in cases:
+            kw = dict(sliding_window=window, softcap=softcap)
+            k_pool, v_pool, table = make_pool(torch, gen, 8, 8192, K, D, 128,
+                                              bf16, dev)
+            valid = torch.tensor([1, 127, 128, 129, 2048, 4000, 5000, 8192],
+                                 dtype=torch.int32, device=dev)
+            poison_past_frontier(k_pool, v_pool, table, valid, 128)
+            kq, vq, qkw = quantized_pools(kvq, k_pool, v_pool, bits)
+            q = (torch.randn(8, 1, H, D, generator=gen, device=dev)
+                 * D ** -0.5).to(bf16)
+            args = (q, kq, vq, table, valid)
+            err, ok = max_err(torch, kattn.paged_decode_attention(
+                *args, **kw, **qkw), kattn.paged_decode_attention_ref(
+                *args, **kw, **qkw))
+            errs[bits].append({"kernel": "K1", "H": H, "K": K, "D": D,
+                               "window": window, "softcap": softcap,
+                               "max_abs_err": err})
+            check(ok, f"K1+K4 int{bits} disagrees: {errs[bits][-1]}")
+            k_pool, v_pool, table = make_pool(torch, gen, 3, 4096, K, D, 128,
+                                              bf16, dev)
+            offsets = torch.tensor([0, 100, 3000], dtype=torch.int32,
+                                   device=dev)
+            lengths = [512, 300, 512]
+            valid = offsets + torch.tensor(lengths, dtype=torch.int32,
+                                           device=dev)
+            poison_past_frontier(k_pool, v_pool, table, valid, 128)
+            kq, vq, qkw = quantized_pools(kvq, k_pool, v_pool, bits)
+            q = (torch.randn(3, 512, H, D, generator=gen, device=dev)
+                 * D ** -0.5).to(bf16)
+            args = (q, kq, vq, table, offsets, valid)
+            err, ok = max_err(torch, kattn.paged_prefill_attention(
+                *args, **kw, **qkw), kattn.paged_prefill_attention_ref(
+                *args, **kw, **qkw), rows=lengths)
+            errs[bits].append({"kernel": "K2", "H": H, "K": K, "D": D,
+                               "window": window, "softcap": softcap,
+                               "max_abs_err": err})
+            check(ok, f"K2+K4 int{bits} disagrees: {errs[bits][-1]}")
+            for runs, T in ((RAGGED_MAIN, 1024),
+                            ([(1000, 300), (700, 1), (2000, 1)], 512)):
+                args = ragged_inputs(torch, gen, runs, T, H, K, D, 128, bf16,
+                                     dev)
+                kq, vq, qkw = quantized_pools(kvq, args[1], args[2], bits)
+                args = (args[0], kq, vq) + tuple(args[3:])
+                err, ok = max_err(torch, kattn.ragged_paged_attention(
+                    *args, **kw, **qkw), kattn.ragged_paged_attention_ref(
+                    *args, **kw, **qkw))
+                errs[bits].append({"kernel": "K3", "H": H, "K": K, "D": D,
+                                   "window": window, "softcap": softcap,
+                                   "T": T, "max_abs_err": err})
+                check(ok, f"K3+K4 int{bits} disagrees: {errs[bits][-1]}")
+
+    # Times at the serving shapes (H=32, K=8, D=128): decode at ~1.7k
+    # cached tokens, a 512-row delta chunk over a 1.2k prefix, K3's main
+    # buffer; `library_ms` is the same kernel on the unquantized pool.
+    H, K, D, B = 32, 8, 128, 3
+    timing = {}
+    k_pool, v_pool, table = make_pool(torch, gen, B, 8192, K, D, 128, bf16,
+                                      dev)
+    valid_l = [1600, 1650, 1700]
+    valid = torch.tensor(valid_l, dtype=torch.int32, device=dev)
+    q = (torch.randn(B, 1, H, D, generator=gen, device=dev)
+         * D ** -0.5).to(bf16)
+    cells = kv_cells(valid_l, [v - 1 for v in valid_l], None)
+    offs_l, lens_l = [1200, 1200, 1200], [300, 320, 340]
+    offs = torch.tensor(offs_l, dtype=torch.int32, device=dev)
+    pvalid_l = [o + n for o, n in zip(offs_l, lens_l)]
+    pvalid = torch.tensor(pvalid_l, dtype=torch.int32, device=dev)
+    qp = (torch.randn(B, 512, H, D, generator=gen, device=dev)
+          * D ** -0.5).to(bf16)
+    pcells = kv_cells(pvalid_l, offs_l, None)
+    pairs = attended_pairs(pvalid_l, offs_l, lens_l, None)
+    rargs = ragged_inputs(torch, gen, RAGGED_MAIN, 1024, H, K, D, 128, bf16,
+                          dev)
+    rvalid = [o + m for o, m in RAGGED_MAIN]
+    roffs = [o for o, _ in RAGGED_MAIN]
+    rcells = kv_cells(rvalid, roffs, None)
+    rpairs = attended_pairs(rvalid, roffs, [m for _, m in RAGGED_MAIN], None)
+    for bits in (8, 4):
+        kq, vq, qkw = quantized_pools(kvq, k_pool, v_pool, bits)
+        rkq, rvq, rkw = quantized_pools(kvq, rargs[1], rargs[2], bits)
+        rq = (rargs[0], rkq, rvq) + tuple(rargs[3:])
+        timing[bits] = {
+            "decode": {
+                "ms": time_ms(torch, lambda: kattn.paged_decode_attention(
+                    q, kq, vq, table, valid, **qkw), 50, flush),
+                "plain_ms": time_ms(
+                    torch, lambda: kattn.paged_decode_attention_ref(
+                        q, kq, vq, table, valid, **qkw), 5, flush),
+                "library_ms": time_ms(
+                    torch, lambda: kattn.paged_decode_attention(
+                        q, k_pool, v_pool, table, valid), 50, flush),
+                "bytes": 2 * q.numel() * 2 + quant_cell_bytes(cells, K, D,
+                                                              bits),
+                "flops": cells * H * D * 4},
+            "prefill": {
+                "ms": time_ms(torch, lambda: kattn.paged_prefill_attention(
+                    qp, kq, vq, table, offs, pvalid, **qkw), 20, flush),
+                "plain_ms": time_ms(
+                    torch, lambda: kattn.paged_prefill_attention_ref(
+                        qp, kq, vq, table, offs, pvalid, **qkw), 3, flush),
+                "library_ms": time_ms(
+                    torch, lambda: kattn.paged_prefill_attention(
+                        qp, k_pool, v_pool, table, offs, pvalid), 20, flush),
+                "bytes": (2 * sum(lens_l) * H * D * 2
+                          + quant_cell_bytes(pcells, K, D, bits)),
+                "flops": pairs * H * D * 4},
+            "ragged": {
+                "ms": time_ms(torch, lambda: kattn.ragged_paged_attention(
+                    *rq, **rkw), 20, flush),
+                "plain_ms": time_ms(
+                    torch, lambda: kattn.ragged_paged_attention_ref(
+                        *rq, **rkw), 3, flush),
+                "library_ms": time_ms(
+                    torch, lambda: kattn.ragged_paged_attention(*rargs), 20,
+                    flush),
+                "bytes": (2 * 1024 * H * D * 2
+                          + quant_cell_bytes(rcells, K, D, bits)),
+                "flops": rpairs * H * D * 4}}
+        for t in timing[bits].values():
+            t["bound_ms"], t["bound_by"] = bound_ms(t["bytes"], t["flops"])
+        del kq, vq, qkw, rkq, rvq, rkw, rq
+    return errs, timing
+
+
+def int4_weight(torch, gen, shape, dev):
+    """A random packed int4 weight [rows, cols/2] with bf16 scales per
+    INT4_GROUP values (any byte is two valid nibbles)."""
+    rows, cols = shape
+    q4 = torch.randint(-128, 128, (rows, cols // 2), generator=gen,
+                       device=dev, dtype=torch.int8)
+    s4 = (torch.rand(rows, cols // INT4_GROUP, generator=gen, device=dev)
+          * 0.025 + 0.005).to(torch.bfloat16)
+    return q4, s4
+
+
+def w4a16_cases(torch, int4mm, common, gen, flush):
+    """K5 at the five decode projections and K6 at the 128256-row head
+    against their plain versions, with times beside `torch.matmul` on the
+    weight dequantized to bf16 beforehand (not timed), the yardstick."""
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    gp = INT4_GROUP // 2
+    out = {}
+    for name, (xs, ws, per_layer) in list(K5_SHAPES.items()) + [
+            ("lm_head", K6_SHAPE + (1,))]:
+        head = name == "lm_head"
+        x = torch.randn(*xs, generator=gen, device=dev).to(bf16)
+        q4, s4 = int4_weight(torch, gen, ws, dev)
+        w = common.dequant_int4(q4, s4, 1, INT4_GROUP, bf16)
+        if head:   # [V, E] packed along the contracted E
+            fn = lambda: int4mm.mm_pack_contract(x, q4, s4, gp)  # noqa
+            ref = lambda: int4mm.mm_pack_contract_ref(x, q4, s4, gp)  # noqa
+            lib = lambda: torch.matmul(x, w.t())  # noqa
+            n_out = ws[0]
+        else:      # [C, out] packed along the output axis
+            fn = lambda: int4mm.mm_pack_out(x, q4, s4, gp)  # noqa
+            ref = lambda: int4mm.mm_pack_out_ref(x, q4, s4, gp)  # noqa
+            lib = lambda: torch.matmul(x, w)  # noqa
+            n_out = ws[1]
+        first = fn()
+        err, ok = max_err(torch, first, ref())
+        check(ok, f"{name}: int4 kernel disagrees with its plain version "
+                  f"by {err}")
+        same = bool(torch.equal(first, fn()))
+        check(same, f"{name}: two identical calls of the int4 kernel "
+                    f"differ")
+        m = xs[0]
+        t = {"x": list(xs), "weight": list(ws), "per_layer": per_layer,
+             "max_abs_err": err, "repeat_bit_identical": same,
+             "ms": time_ms(torch, fn, 50, flush),
+             "plain_ms": time_ms(torch, ref, 3, flush),
+             "library_ms": time_ms(torch, lib, 50, flush),
+             "bytes": (q4.numel() + s4.numel() * 2 + x.numel() * 2
+                       + m * n_out * 4),
+             "flops": 2 * m * ws[0] * ws[1]}
+        t["bound_ms"], t["bound_by"] = bound_ms(t["bytes"], t["flops"])
+        out[name] = t
+        del x, q4, s4, w
+    return out
+
+
+def quant_kernels_phase(torch, kattn):
+    from theroundtaible_tpu_torch.engine import kv_quant as kvq
+    from theroundtaible_tpu_torch.engine.kernels import int4mm
+    from theroundtaible_tpu_torch.engine.models import common
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    flush = torch.empty(16 << 20, dtype=torch.float32, device=dev)
+    errs, timing = dequant_kernel_cases(torch, kattn, kvq, gen, flush)
+    w4 = w4a16_cases(torch, int4mm, common, gen, flush)
+    emit("quant_kernels", tolerance=KERNEL_TOL,
+         dequant_cases={f"int{b}": errs[b] for b in errs},
+         dequant_timing={f"int{b}": timing[b] for b in timing},
+         w4a16=w4)
+    return errs, timing, w4
+
+
+def quant_engine_phase(torch, kattn, phase, reference):
+    """The engine phase's config plus quantization (QUANT_CONFIGS[phase]):
+    int8 weights on int8 pages (the shipped knights' quant) or int4 on
+    int4 pages. warmup(), the same two rounds, then the profile phase.
+    K1/K2 must launch on the quantized pool in each round (K4 inside),
+    K5/K6 in each int4 round and never in an int8 one; on int4 every
+    dequant-path product must be a prefill-sized one. Greedy agreement
+    with the unquantized paged rounds is reported, not checked."""
+    from theroundtaible_tpu_torch.adapters.torch_llm import TorchLlmAdapter
+    extra = QUANT_CONFIGS[phase]
+    bits = 8 if extra["kv_quant"] == "int8" else 4
+    int4 = extra["quant"] == "int4"
+    torch.cuda.reset_peak_memory_stats()
+    adapter = TorchLlmAdapter.from_config("torch-llm-llama3",
+                                          {**ENGINE_CONFIG, **extra})
+    t0 = time.monotonic()
+    engine = adapter._get_engine()
+    torch.cuda.synchronize()
+    build_s = time.monotonic() - t0
+    d = engine.describe()
+    check(d["quant"] == extra["quant"]
+          and d["kv_quant"]["dtype"] == extra["kv_quant"]
+          and d["paged_decode"] == "pool-direct",
+          f"{phase} built quant {d['quant']}, kv_quant {d['kv_quant']}")
+    warm_s = engine.warmup()
+    emit(f"{phase}_engine", params=engine.num_params, construct_s=build_s,
+         warmup_s=warm_s, num_pages=engine.kv.num_pages,
+         kv_pool_bytes=engine.kv.hbm_bytes(),
+         kv_pool_bytes_unquantized_layout=engine.kv.hbm_bytes_logical(),
+         memory_allocated=torch.cuda.memory_allocated())
+    required = PAGED_KERNELS[:2] + tuple(
+        f"{k}:int{bits}" for k in PAGED_KERNELS[:2])
+    required += INT4_KERNELS if int4 else ()
+    forbidden = CONTIGUOUS_KERNELS + (() if int4 else INT4_KERNELS)
+    totals, generated, stats = serve_rounds(
+        torch, kattn, adapter, engine, phase, required=required,
+        forbidden=forbidden)
+    paths = None
+    if int4:
+        paths = engine.describe()["int4_paths"]
+        declines = {e.get("fallback_reason") for e in paths["xla_dequant"]}
+        check(paths["cuda_w4a16"] and declines <= {"rows:prefill-m"},
+              f"{phase}: a decode product left K5/K6: {declines}")
+        paths = {"cuda_w4a16": len(paths["cuda_w4a16"]),
+                 "xla_dequant": len(paths["xla_dequant"]),
+                 "fallback_reasons": sorted(r for r in declines if r)}
+    emit(phase, num_pages=engine.kv.num_pages,
+         kv_pool_bytes=engine.kv.hbm_bytes(),
+         max_memory_allocated=torch.cuda.max_memory_allocated(),
+         decode_ms_per_step=[decode_ms_per_step(stats[r]) for r in (1, 2)],
+         unquantized=dict((k, v) for k, v in reference.items()
+                          if k != "generated"),
+         greedy_agreement_with_unquantized=greedy_agreement(
+             generated, reference["generated"]),
+         kv_quant=engine.kv_quant_describe()["dispatches"],
+         int4_paths=paths, launches=totals)
+    profile_phase(torch, engine, phase=f"{phase}_profile")
+    return totals, engine
+
+
+def quant_path_phase(torch, cfg):
+    """The whole path at full width, depth cut to 2 layers, int4 weights
+    and int8 pages (logits within PATH_TOL, greedy agreement >= 0.9):
+    forward_paged (one 512-row chunk, 16 decode steps) through the kernels
+    (K1/K2 with K4, K5/K6) against its plain versions and, at each decode
+    step on the same quantized cells, against the gather view (dequantize,
+    dense attention, requantize; the chunk's difference is reported, not
+    checked: the view attends to the chunk's own K/V before requantizing
+    them); forward_ragged
+    (3 decode rows and a 1000-row chunk) through K3 with K4 against its
+    plain versions; forward_cached (contiguous slots, K8/K9 with K5/K6)
+    against its plain versions."""
+    from theroundtaible_tpu_torch.engine.kv_quant import (KVQuantSpec,
+                                                          quantize_cells)
+    from theroundtaible_tpu_torch.engine.models.common import (
+        forward_cached, init_params)
+    from theroundtaible_tpu_torch.engine.paged_forward import (
+        forward_paged, forward_ragged, gather_view, scatter_view)
+    from theroundtaible_tpu_torch.engine.quant import quantize_params
+    from theroundtaible_tpu_torch.engine.serving_loop import (
+        RaggedSeq, build_ragged_batch)
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    cfg = dataclasses.replace(cfg, num_layers=2, attn_impl="dense")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    params = quantize_params(init_params(cfg, gen, bf16, dev), cfg,
+                             act_dtype=bf16, free_source=True, bits=4)
+    spec = KVQuantSpec(bits=8)
+    B, T, ps = 3, 512, 128
+    pp = cfg.max_seq_len // ps
+    table = (torch.randperm(B * pp, generator=gen, device=dev) + 1) \
+        .reshape(B, pp).to(torch.int32)
+    head = (1 + B * pp, ps, cfg.num_kv_heads)
+
+    def pools():
+        def pair(width, dt):
+            return (torch.zeros(head + (width,), dtype=dt, device=dev),
+                    torch.zeros(head + (width,), dtype=dt, device=dev))
+        return ([pair(cfg.head_dim, torch.int8) for _ in range(2)],
+                [pair(1, torch.float32) for _ in range(2)])
+
+    worst, agree, steps = {}, {}, {}
+
+    def compare(name, lk, other):
+        diff = (lk - other).abs()
+        worst[name] = max(worst.get(name, 0.0), float(diff.max()))
+        check(bool(torch.isfinite(lk).all()), f"{name}: non-finite logits")
+        check(bool((diff <= PATH_TOL + PATH_TOL * other.abs()).all()),
+              f"quant_path {name}: logits differ by {worst[name]}")
+        agree[name] = agree.get(name, 0) + int(
+            (lk.argmax(-1) == other.argmax(-1)).sum())
+        steps[name] = steps.get(name, 0) + lk.shape[0]
+
+    (kp, ks), (pp_, ps_), (gp_, gs_) = pools(), pools(), pools()
+    lengths = torch.tensor([512, 400, 300], dtype=torch.int32, device=dev)
+    tokens = torch.randint(3, 259, (B, T), generator=gen, device=dev)
+    positions = torch.arange(T, dtype=torch.int32, device=dev) \
+        .expand(B, T).contiguous()
+    rows = torch.arange(B, dtype=torch.int32, device=dev)
+    zeros = torch.zeros(B, dtype=torch.int32, device=dev)
+
+    def gathered(tok, pos, offsets, valid, last_pos=None):
+        """The gather view's forward on gp_/gs_: dequantize the rows'
+        pages, dense attention, requantize."""
+        view = gather_view(gp_, gs_, table, spec, bf16)
+        out = forward_cached(params, cfg, tok, pos, view, rows, offsets,
+                             valid, last_pos=last_pos)
+        scatter_view(gp_, gs_, table, view, spec)
+        return out
+
+    q = dict(quant_spec=spec)
+    lk = forward_paged(params, cfg, tokens, positions, kp, table, lengths,
+                       last_pos=lengths - 1, scales=ks, **q)
+    lp = forward_paged(params, cfg, tokens, positions, pp_, table, lengths,
+                       last_pos=lengths - 1, scales=ps_, plain=True, **q)
+    lg = gathered(tokens, positions, zeros, lengths, lengths - 1)
+    compare("paged_vs_plain", lk[:, 0], lp[:, 0])
+    # The gather view attends to a call's own K/V before it requantizes
+    # them (as the JAX engine does), pool-direct after: over a 512-row
+    # chunk the two also differ by that int8 rounding, so the chunk's
+    # difference is reported, and each decode step compares the two on
+    # the same quantized cells (the view reads a copy of the kernel
+    # path's pools), where only the step's own token differs so.
+    gather_chunk_err = float((lk[:, 0] - lg[:, 0]).abs().max())
+    cur, valid = lk[:, 0].argmax(-1), lengths.clone()
+    for _ in range(16):
+        tok, pos = cur[:, None], valid[:, None]
+        for (dk, dv), (sk, sv) in zip(gp_ + gs_, kp + ks):
+            dk.copy_(sk)
+            dv.copy_(sv)
+        lg = gathered(tok, pos, valid, valid + 1)
+        lk = forward_paged(params, cfg, tok, pos, kp, table, valid + 1,
+                           scales=ks, **q)
+        lp = forward_paged(params, cfg, tok, pos, pp_, table, valid + 1,
+                           scales=ps_, plain=True, **q)
+        compare("paged_vs_plain", lk[:, 0], lp[:, 0])
+        compare("paged_vs_gather_view", lk[:, 0], lg[:, 0])
+        cur, valid = lk[:, 0].argmax(-1), valid + 1
+
+    # forward_ragged: 3 decode rows at 1600/1650/1700 random cached tokens
+    # and a 1000-row chunk of a 4th sequence, on int8 pages.
+    S = 4
+    rtable = (torch.randperm(S * pp, generator=gen, device=dev) + 1) \
+        .reshape(S, pp).to(torch.int32)
+    shape = (1 + S * pp, ps, cfg.num_kv_heads, cfg.head_dim)
+    def random_quantized():
+        g = torch.Generator(device=dev).manual_seed(SEED + 17)
+        out_p, out_s = [], []
+        for _ in range(cfg.num_layers):
+            kq, kss = quantize_cells(torch.randn(
+                shape, generator=g, device=dev).to(bf16), spec)
+            vq, vss = quantize_cells(torch.randn(
+                shape, generator=g, device=dev).to(bf16), spec)
+            out_p.append((kq, vq))
+            out_s.append((kss, vss))
+        return out_p, out_s
+
+    starts = [1599, 1649, 1699]
+    dec = torch.randint(3, 259, (3,), generator=gen, device=dev)
+    chunk = torch.randint(3, 259, (1000,), generator=gen, device=dev)
+    table_np = rtable.cpu().numpy()
+    seqs = [RaggedSeq([int(dec[i])], starts[i], table_np[i])
+            for i in range(3)]
+    seqs.append(RaggedSeq(chunk.tolist(), 0, table_np[3]))
+    batch = build_ragged_batch(seqs, t_budget=1024, s_max=S + 1,
+                               pages_per_seq=pp, scratch_page=0, pad_id=0,
+                               page_size=ps)
+    t = {k: torch.as_tensor(batch[k], device=dev) for k in (
+        "tokens", "positions", "tables", "seq_of_block", "block_qstart",
+        "query_offsets", "kv_valid", "token_pages", "token_offs",
+        "last_rows")}
+    ragged = {}
+    for plain in (False, True):
+        rp, rs = random_quantized()
+        ragged[plain] = forward_ragged(
+            params, cfg, t["tokens"].long(), t["positions"], rp,
+            t["tables"], t["seq_of_block"], t["block_qstart"],
+            t["query_offsets"], t["kv_valid"], t["token_pages"],
+            t["token_offs"], t["last_rows"], plain=plain, scales=rs,
+            **q)[:S]
+        del rp, rs
+    compare("ragged_vs_plain", ragged[False], ragged[True])
+
+    # forward_cached: 8 slots of 8192 positions, K8/K9 with K5/K6.
+    ccfg = dataclasses.replace(cfg, attn_impl="flash")
+    cshape = (SLOTS, cfg.max_seq_len, cfg.num_kv_heads, cfg.head_dim)
+
+    def cache():
+        return [(torch.zeros(cshape, dtype=bf16, device=dev),
+                 torch.zeros(cshape, dtype=bf16, device=dev))
+                for _ in range(cfg.num_layers)]
+
+    kc, pc = cache(), cache()
+    crows = torch.tensor([5, 2, 7], dtype=torch.int32, device=dev)
+    lk = forward_cached(params, ccfg, tokens, positions, kc, crows, zeros,
+                        lengths, last_pos=lengths - 1)
+    lp = forward_cached(params, ccfg, tokens, positions, pc, crows, zeros,
+                        lengths, last_pos=lengths - 1, plain=True)
+    compare("cached_vs_plain", lk[:, 0], lp[:, 0])
+    cur, valid = lk[:, 0].argmax(-1), lengths.clone()
+    for _ in range(16):
+        tok, pos = cur[:, None], valid[:, None]
+        lk = forward_cached(params, ccfg, tok, pos, kc, crows, valid,
+                            valid + 1)
+        lp = forward_cached(params, ccfg, tok, pos, pc, crows, valid,
+                            valid + 1, plain=True)
+        compare("cached_vs_plain", lk[:, 0], lp[:, 0])
+        cur, valid = lk[:, 0].argmax(-1), valid + 1
+    torch.cuda.synchronize()
+    result = {name: {"max_abs_err": worst[name],
+                     "greedy_agreement": agree[name] / steps[name]}
+              for name in worst}
+    for name, r in result.items():
+        check(r["greedy_agreement"] >= 0.9,
+              f"quant_path {name}: greedy agreement {r['greedy_agreement']}")
+    emit("quant_path", layers=cfg.num_layers, weights="int4",
+         pages="int8", tolerance=PATH_TOL,
+         gather_view_chunk_max_abs_err=gather_chunk_err, **result)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1145,8 +1689,9 @@ def main() -> int:
          contiguous_decode_cases=kernels["cdecode_cases"],
          contiguous_prefill_cases=kernels["cprefill_cases"])
     emit("kernels_timing", **kernels["timing"])
+    qerrs, qtiming, w4 = quant_kernels_phase(torch, kattn)
 
-    launches, engine, paged_generated = engine_phase(torch, kattn)
+    launches, engine, reference = engine_phase(torch, kattn)
     profile_phase(torch, engine)
     path_phase(torch, engine)
     ragged_path_phase(torch, engine)
@@ -1161,12 +1706,35 @@ def main() -> int:
     del engine
     gc.collect()
     torch.cuda.empty_cache()
-    contiguous, engine = contiguous_phase(torch, kattn, paged_generated)
+    contiguous, engine = contiguous_phase(torch, kattn,
+                                          reference["generated"])
     for name in CONTIGUOUS_KERNELS:
         launches[name] = contiguous[name]
     profile_phase(torch, engine, phase="contiguous_profile")
     contiguous_path_phase(torch, engine)
     scheduler_phase(torch, kattn, engine, phase="contiguous_scheduler")
+
+    # Quantization: int8 weights on int8 pages, then int4 on int4 pages
+    # with its scheduler phase (K3 on int4 pages), then the 2-layer path.
+    quant = {}
+    for phase in QUANT_CONFIGS:
+        reset_engines()
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+        quant[phase], engine = quant_engine_phase(torch, kattn, phase,
+                                                  reference)
+    sched = scheduler_phase(torch, kattn, engine, phase="quant_scheduler")
+    check(sched["ragged_paged_attention:int4"] > 0,
+          f"quant_scheduler: K3 never launched on int4 pages: {sched}")
+    for name, n in sched.items():
+        quant["quant_int4"][name] += n
+    cfg = engine.cfg
+    reset_engines()
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    quant_path_phase(torch, cfg)
 
     src = "theroundtaible_tpu_torch/engine/kernels/csrc/"
     rows = []
@@ -1197,6 +1765,41 @@ def main() -> int:
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t[library] if library else None,
             "sdpa_view_ms": t.get("sdpa_view_ms", t.get("sdpa_ms"))})
+    # K4: K1 at the decode serving shape on int8 / int4 pages; its
+    # yardstick is the same kernel on the unquantized pool. Launches: the
+    # K1-K3 launches on quantized pools in the quant phases.
+    for bits in (8, 4):
+        t = qtiming[bits]["decode"]
+        rows.append({
+            "name": f"kv_dequant_int{bits}", "route": "cuda",
+            "source": src + "paged_common.cuh",
+            "replaces": "theroundtaible_tpu/engine/pallas/attention.py:48",
+            "launches": sum(n for counts in quant.values()
+                            for k, n in counts.items()
+                            if k.endswith(f":int{bits}")),
+            "max_abs_err": max(c["max_abs_err"] for c in qerrs[bits]),
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"]})
+    # K5: one layer's seven decode projections; K6: the 128256-row head.
+    # Yardstick: torch.matmul on the weight dequantized to bf16 beforehand.
+    k5 = [(t, t["per_layer"]) for n, t in w4.items() if n != "lm_head"]
+    for name, replaces, parts in (
+            ("mm_pack_out", "theroundtaible_tpu/engine/pallas/int4mm.py:165",
+             k5),
+            ("mm_pack_contract",
+             "theroundtaible_tpu/engine/pallas/int4mm.py:205",
+             [(w4["lm_head"], 1)])):
+        total = {k: sum(t[k] * n for t, n in parts)
+                 for k in ("ms", "plain_ms", "library_ms", "bytes", "flops")}
+        bound, by = bound_ms(total["bytes"], total["flops"])
+        rows.append({
+            "name": name, "route": "cuda", "source": src + "int4mm.cu",
+            "replaces": replaces, "launches": quant["quant_int4"][name],
+            "max_abs_err": max(t["max_abs_err"] for t, _ in parts),
+            "ms": total["ms"], "plain_ms": total["plain_ms"],
+            "bound_ms": bound, "bound_by": by,
+            "library_ms": total["library_ms"]})
     summary = {"kernels": rows}
     (OUT / "summary.json").write_text(json.dumps(summary, indent=1))
     print(json.dumps(summary), flush=True)

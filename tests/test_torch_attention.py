@@ -158,7 +158,7 @@ def test_wrappers_refuse_what_they_do_not_take():
     pool = torch.zeros(5, 16, 2, 16)
     table = torch.ones(2, 4, dtype=torch.int32)
     valid = torch.ones(2, dtype=torch.int32)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="int8 payloads"):
         kattn.paged_decode_attention(q, pool, pool, table, valid,
                                      k_scale=pool, v_scale=pool)
     with pytest.raises(ValueError):

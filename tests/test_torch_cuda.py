@@ -1,6 +1,7 @@
-"""PyTorch port, CUDA kernels K1/K2/K3/K8/K9 against their plain versions
-on the card (`cuda` marker; each test skips itself where there is no card).
-The
+"""PyTorch port, CUDA kernels K1/K2/K3/K8/K9, K4 (in-kernel KV dequant
+inside K1-K3, int8 and int4 pages) and K5/K6 (w4a16 decode products)
+against their plain versions on the card (`cuda` marker; each test skips
+itself where there is no card). The
 file imports neither jax nor the JAX package, so it runs on a machine that
 has only the port's dependencies:
 
@@ -12,6 +13,10 @@ import pytest
 import torch
 
 from theroundtaible_tpu_torch.engine.kernels import attention as kattn
+from theroundtaible_tpu_torch.engine.kernels import int4mm
+from theroundtaible_tpu_torch.engine.kv_quant import (KVQuantSpec,
+                                                      quantize_cells)
+from theroundtaible_tpu_torch.engine.models.common import Int4Leaf
 
 WINDOW_SOFTCAP = [(None, None), (48, None), (None, 30.0), (700, None),
                   (48, 30.0)]
@@ -211,3 +216,238 @@ def test_cuda_contiguous_prefill_kernel_matches_plain(cuda_device, dtype,
             *args, sliding_window=window, softcap=softcap, rows=rows_t)
         torch.testing.assert_close(out.float(), ref.float(), atol=tol,
                                    rtol=tol)
+
+
+# --- K4: quantized pages inside K1-K3 ---
+
+
+def quantized_pools(rng, k_pool, v_pool, tables, valid, bits):
+    """int8/int4 payload and f32 scale pools of the f32 pools (quantized on
+    the CPU by kv_quant.quantize_cells); every cell at or past a row's
+    kv_valid gets a random payload and NaN scales - stale cells the kernels
+    must never load."""
+    spec = KVQuantSpec(bits=bits)
+    out = []
+    for pool in (k_pool, v_pool):
+        q, sc = quantize_cells(torch.from_numpy(np.nan_to_num(pool)), spec)
+        q, sc = q.numpy().copy(), sc.numpy().copy()
+        ps = pool.shape[1]
+        for row, n in zip(tables, valid):
+            for j, page in enumerate(row):
+                lo = max(n - j * ps, 0)
+                if lo < ps:
+                    q[page, lo:] = rng.integers(-128, 128,
+                                                size=q[page, lo:].shape)
+                    sc[page, lo:] = np.nan
+        out += [q, sc]
+    return out
+
+
+QUANT_CASES = [(bits, dtype, tol) for bits in (8, 4)
+               for dtype, tol in DTYPES]
+
+
+def _pool_args(dev, dtype, q, pools):
+    kq, ks, vq, vs = pools
+    return ([torch.from_numpy(q).to(dev, dtype),
+             torch.from_numpy(kq).to(dev), torch.from_numpy(vq).to(dev)],
+            dict(k_scale=torch.from_numpy(ks).to(dev),
+                 v_scale=torch.from_numpy(vs).to(dev)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits,dtype,tol", QUANT_CASES)
+def test_cuda_quantized_decode_kernel_matches_plain(cuda_device, bits,
+                                                    dtype, tol):
+    """K1 with K4's in-kernel dequant against its plain version on int8
+    and int4 pages (H=32, K=8, D=128, ps=128)."""
+    B, S, K, D, ps = 4, 2048, 8, 128, 128
+    rng = np.random.default_rng(21)
+    k_pool, v_pool, table = shuffled_pool(rng, B, S, K, D, ps)
+    valid = np.asarray([1, 129, 1000, 2048], np.int32)
+    pools = quantized_pools(rng, k_pool, v_pool, table, valid, bits)
+    q = rng.normal(size=(B, 1, 32, D)).astype(np.float32) * D ** -0.5
+    dev = cuda_device
+    args, kw = _pool_args(dev, dtype, q, pools)
+    args += [torch.from_numpy(table).to(dev), torch.from_numpy(valid).to(dev)]
+    for window, softcap in WINDOW_SOFTCAP:
+        out = kattn.paged_decode_attention(*args, sliding_window=window,
+                                           softcap=softcap, kv_bits=bits,
+                                           **kw)
+        ref = kattn.paged_decode_attention_ref(
+            *args, sliding_window=window, softcap=softcap, kv_bits=bits,
+            **kw)
+        torch.testing.assert_close(out.float(), ref.float(), atol=tol,
+                                   rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits,dtype,tol", QUANT_CASES)
+def test_cuda_quantized_prefill_kernel_matches_plain(cuda_device, bits,
+                                                     dtype, tol):
+    """K2 with K4 on int8 and int4 pages, offsets and partial lengths."""
+    B, T, K, D, S, ps = 3, 256, 8, 128, 2048, 128
+    rng = np.random.default_rng(22)
+    k_pool, v_pool, table = shuffled_pool(rng, B, S, K, D, ps)
+    offsets = np.asarray([0, 100, 1700], np.int32)
+    lengths = np.asarray([256, 77, 256], np.int32)
+    pools = quantized_pools(rng, k_pool, v_pool, table, offsets + lengths,
+                            bits)
+    q = rng.normal(size=(B, T, 32, D)).astype(np.float32) * D ** -0.5
+    dev = cuda_device
+    args, kw = _pool_args(dev, dtype, q, pools)
+    args += [torch.from_numpy(x).to(dev)
+             for x in (table, offsets, offsets + lengths)]
+    for window, softcap in WINDOW_SOFTCAP:
+        out = kattn.paged_prefill_attention(*args, sliding_window=window,
+                                            softcap=softcap, kv_bits=bits,
+                                            **kw)
+        ref = kattn.paged_prefill_attention_ref(
+            *args, sliding_window=window, softcap=softcap, kv_bits=bits,
+            **kw)
+        for b, n in enumerate(lengths):
+            torch.testing.assert_close(out[b, :n].float(),
+                                       ref[b, :n].float(), atol=tol,
+                                       rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits,dtype,tol", QUANT_CASES)
+def test_cuda_quantized_ragged_kernel_matches_plain(cuda_device, bits,
+                                                    dtype, tol):
+    """K3 with K4 on int8 and int4 pages: decode rows, a mid-page chunk and
+    inert blocks; every row compared."""
+    S, K, D, ps, T = 2048, 8, 128, 128, 384
+    rng = np.random.default_rng(23)
+    k_pool, v_pool, table = shuffled_pool(rng, 4, S, K, D, ps)
+    tables = np.concatenate([table, np.zeros((1, S // ps), np.int32)])
+    offsets = np.asarray([1599, 1649, 1699, 200, 0], np.int32)
+    valid = np.asarray([1600, 1650, 1700, 500, 1], np.int32)
+    pools = quantized_pools(rng, k_pool, v_pool, tables[:4], valid[:4],
+                            bits)
+    seq_of_block, block_qstart = flat_buffer(
+        [(0, 1), (1, 1), (2, 1), (3, 300)], T, 4)
+    q = rng.normal(size=(T, 32, D)).astype(np.float32) * D ** -0.5
+    dev = cuda_device
+    args, kw = _pool_args(dev, dtype, q, pools)
+    args += [torch.from_numpy(x).to(dev) for x in (
+        tables, seq_of_block, block_qstart, offsets, valid)]
+    for window, softcap in WINDOW_SOFTCAP:
+        out = kattn.ragged_paged_attention(*args, sliding_window=window,
+                                           softcap=softcap, kv_bits=bits,
+                                           **kw)
+        ref = kattn.ragged_paged_attention_ref(
+            *args, sliding_window=window, softcap=softcap, kv_bits=bits,
+            **kw)
+        torch.testing.assert_close(out.float(), ref.float(), atol=tol,
+                                   rtol=tol)
+
+
+# --- K5/K6: w4a16 decode products ---
+
+
+def int4_leaf(rng, spec, shape, dtype, dev, group=64):
+    """A random packed weight planned for the call site `spec`: any byte
+    is two valid nibbles; positive scales around an absmax/7 of 0.1."""
+    q4 = rng.integers(-128, 128, size=(*shape[:-1], shape[-1] // 2),
+                      dtype=np.int8)
+    s4 = rng.uniform(0.005, 0.03, size=(*shape[:-1], shape[-1] // group))
+    return int4mm.plan_leaf(spec, Int4Leaf(
+        q4=torch.from_numpy(q4).to(dev), s4=torch.from_numpy(s4).to(dev, dtype),
+        axis=len(shape) - 1, group=group))
+
+
+# Llama-3-8B's five decode projections at 3 rows: (spec, x shape, weight).
+K5_SHAPES = {
+    "q_proj": ("bte,ehd->bthd", (3, 1, 4096), (4096, 32, 128)),
+    "kv_proj": ("bte,ekd->btkd", (3, 1, 4096), (4096, 8, 128)),
+    "o_proj": ("bthd,hde->bte", (3, 1, 32, 128), (32, 128, 4096)),
+    "gate_up_proj": ("bte,ef->btf", (3, 1, 4096), (4096, 14336)),
+    "down_proj": ("btf,fe->bte", (3, 1, 14336), (14336, 4096)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("name", sorted(K5_SHAPES))
+def test_cuda_mm_pack_out_matches_plain(cuda_device, name, dtype, tol):
+    """K5 through the int4 seam at each Llama-3-8B decode projection,
+    against its plain version on the same flattened operands."""
+    spec, a_shape, w_shape = K5_SHAPES[name]
+    rng = np.random.default_rng(31)
+    dev = cuda_device
+    leaf = int4_leaf(rng, spec, w_shape, dtype, dev)
+    a = torch.from_numpy(rng.normal(size=a_shape).astype(np.float32)).to(
+        dev, dtype)
+    before = int4mm.launch_counts()["mm_pack_out"]
+    out, reason = int4mm.einsum_int4_or_reason(spec, a, leaf)
+    assert reason is None and out.dtype == torch.float32
+    assert int4mm.launch_counts()["mm_pack_out"] == before + 1
+    n_cont = 2 if name == "o_proj" else 1
+    c = int(np.prod(w_shape[:n_cont]))
+    ref = int4mm.mm_pack_out_ref(
+        a.reshape(-1, c), leaf.q4.reshape(c, -1),
+        leaf.s4.reshape(c, -1), leaf.group // 2)
+    torch.testing.assert_close(out.reshape(ref.shape), ref, atol=tol,
+                               rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("rows", [1, 3, 9])
+def test_cuda_mm_pack_contract_matches_plain(cuda_device, rows, dtype, tol):
+    """K6 (the int4 lm head, "bte,ve->btv") at a 4096-wide head with
+    20000 vocabulary rows; 9 rows take three passes over the weight."""
+    rng = np.random.default_rng(32)
+    dev = cuda_device
+    leaf = int4_leaf(rng, "bte,ve->btv", (20000, 4096), dtype, dev)
+    a = torch.from_numpy(rng.normal(size=(rows, 1, 4096)).astype(
+        np.float32)).to(dev, dtype)
+    out, reason = int4mm.einsum_int4_or_reason("bte,ve->btv", a, leaf)
+    assert reason is None and out.shape == (rows, 1, 20000)
+    ref = int4mm.mm_pack_contract_ref(a.reshape(rows, -1), leaf.q4,
+                                      leaf.s4, leaf.group // 2)
+    torch.testing.assert_close(out.reshape(ref.shape), ref, atol=tol,
+                               rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(K5_SHAPES) + ["lm_head"])
+def test_cuda_int4_products_are_bit_identical_across_calls(cuda_device,
+                                                           name):
+    """K5 (split C summed in split order, warps in a fixed tree) and K6
+    give the same bits on two identical calls, so a greedy decode step
+    does not change between runs."""
+    spec, a_shape, w_shape = K5_SHAPES.get(
+        name, ("bte,ve->btv", (3, 1, 4096), (20000, 4096)))
+    rng = np.random.default_rng(33)
+    leaf = int4_leaf(rng, spec, w_shape, torch.bfloat16, cuda_device)
+    a = torch.from_numpy(rng.normal(size=a_shape).astype(np.float32)).to(
+        cuda_device, torch.bfloat16)
+    first, _ = int4mm.einsum_int4_or_reason(spec, a, leaf)
+    for _ in range(3):
+        again, _ = int4mm.einsum_int4_or_reason(spec, a, leaf)
+        assert torch.equal(first, again)
+
+
+@pytest.mark.cuda
+def test_cuda_engine_refuses_int4_leaves_the_kernels_decline(cuda_device,
+                                                             monkeypatch):
+    """On a card the engine is not built when K5/K6 decline a leaf
+    (tiny-llama's q/k/v have groups of 16) or ROUNDTABLE_INT4_MM=0 turns
+    them off: decode never leaves the kernels; a declined leaf's product
+    raises rather than dequantizing."""
+    from theroundtaible_tpu_torch.engine.engine import InferenceEngine
+    config = {"model": "tiny-llama", "max_seq_len": 256,
+              "kv_layout": "paged", "quant": "int4"}
+    with pytest.raises(ValueError, match="pack:group 16"):
+        InferenceEngine.from_config(config, device="cuda")
+    monkeypatch.setenv("ROUNDTABLE_INT4_MM", "0")
+    with pytest.raises(ValueError, match="kernel-disabled"):
+        InferenceEngine.from_config(config, device="cuda")
+    rng = np.random.default_rng(34)
+    leaf = int4_leaf(rng, "bte,ef->btf", (256, 512), torch.bfloat16,
+                     cuda_device)
+    a = torch.ones(1, 1, 256, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="kernel-disabled"):
+        int4mm.einsum_int4_or_reason("bte,ef->btf", a, leaf)

@@ -24,7 +24,24 @@ the segment's tokens at its end. CUDA graphs are later work.
 The ragged seam (_ragged_dispatch: forward_ragged through K3) serves the
 continuous-batching scheduler's mixed prefill/decode dispatches; it is on
 by default for the paged pool and off on the contiguous layout, as in the
-JAX engine. Features the JAX
+JAX engine.
+
+Quantization, as in the JAX engine: `quant` "int8"/"int4" quantizes the
+weights after init (engine/quant.py; int4 products run K5/K6 at decode
+by each leaf's plan, reported in `int4_paths`; on a card a leaf the
+kernels decline, ROUNDTABLE_INT4_MM=0 among them, fails construction), on
+both layouts. `kv_quant`
+"int8"/"int4" (or {"bits", "group"}) stores the paged pool's pages
+quantized (engine/kv_quant.py) and K1-K3 dequantize in-kernel (K4); a
+shape K4 declines fails construction; the contiguous layout records
+`kv_layout:contiguous` and serves unquantized, and ROUNDTABLE_KV_QUANT=0
+restores unquantized pools. `attn: "dense"` on the paged pool serves
+through the gather view (each chunk, and each decode segment, gathers its
+rows' pages into a position-aligned cache, dequantized, runs the dense
+forward and scatters it back, requantized), with the ragged seam off
+(`attn=dense`: the JAX engine's dense ragged fallback is not ported).
+
+Features the JAX
 engine also turns on by default (prefix cache, host offload, speculative
 decoding) stay off here, with `<feature>_reason: "not_ported"` in
 describe(); asking for them - or for any other unported option - raises
@@ -44,14 +61,18 @@ import numpy as np
 import torch
 
 from . import deadlines, faults
+from . import kv_quant as kvq
 from .device import resolve_device
 from .kernels import attention as kattn
 from .kernels import build as kbuild
+from .kernels import int4mm
 from .kvcache import KVCache, scoped_slot, share_prefixes
-from .models.common import (ModelConfig, forward_cached, init_params,
-                            param_count)
+from .models.common import (Int4Leaf, ModelConfig, forward_cached,
+                            init_params, int4_sites, param_count)
 from .models.registry import get_model_config
-from .paged_forward import forward_paged, forward_ragged
+from .paged_forward import (forward_paged, forward_ragged, gather_view,
+                            scatter_view)
+from .quant import quantize_params, quantized
 from .paging import SCRATCH_PAGE, PagedKVCache
 from .sampling import SamplingParams, sample_token_batch, sampling_arrays
 from .serving_loop import (DECODE_SEGMENT, MAX_PREFILL_CHUNK,
@@ -77,6 +98,15 @@ _FEATURES = {
 }
 
 
+def _quant_mode(params: dict) -> str:
+    """"none", "int8" or "int4": how a parameter tree is quantized."""
+    leaves = [params["embedding"]] + [v for layer in params["layers"]
+                                      for v in layer.values()]
+    if any(isinstance(x, Int4Leaf) for x in leaves):
+        return "int4"
+    return "int8" if any(quantized(x) for x in leaves) else "none"
+
+
 @dataclass
 class GenStats:
     prefill_tokens: int = 0
@@ -90,6 +120,10 @@ class GenStats:
     # continuous-batching SessionScheduler (queue_wait_s, segments,
     # occupancy_mean/max, sessions_max, ttft_s); None on direct calls.
     sched: Optional[dict] = None
+    # int4 path provenance: which path each Int4Leaf product takes -
+    # {"cuda_w4a16"|"plain_w4a16": [...], "xla_dequant": [...]}; None on
+    # engines without int4 weights.
+    int4_paths: Optional[dict] = None
 
     @property
     def prefill_tps(self) -> float:
@@ -151,31 +185,64 @@ class InferenceEngine:
         self.quant = quant
         self.dtype = dtype
         self.kv_layout = kv_layout
-        if params is None:
-            gen = torch.Generator(device=self.device).manual_seed(seed)
-            params = init_params(model_cfg, gen, dtype, self.device)
-        self.params = params
-        self.num_params = param_count(params)
+        self.params = self._build_params(model_cfg, params, quant, dtype,
+                                         seed)
+        self.num_params = param_count(self.params)
+        # int4 path provenance, from the leaves' plans: on a card a leaf
+        # K5/K6 decline fails construction, as a pool K1-K4 decline does.
+        self._int4_paths = (int4mm.route_report(
+            int4_sites(self.params, model_cfg), self.device)
+            if quant == "int4" else None)
+
+        # Quantized KV pages: resolved against the ROUNDTABLE_KV_QUANT kill
+        # switch before the pool is built. The contiguous layout has no
+        # page to quantize: it records why and serves unquantized.
+        self.kv_quant_spec: Optional[kvq.KVQuantSpec] = None
+        self.kv_quant_reason: Optional[str] = None
+        self._kv_quant_dispatches: dict[str, int] = {}
+        self._kv_quant_recent: deque = deque(maxlen=32)
+        if kv_layout != "paged":
+            self.kv_quant_reason = ("kv_layout:contiguous"
+                                    if kv_quant and kv_quant != "none"
+                                    else "disabled:config")
+        else:
+            self.kv_quant_spec, self.kv_quant_reason = kvq.resolve_spec(
+                kv_quant)
 
         group = model_cfg.num_heads // model_cfg.num_kv_heads
+        # Paged decode: pool-direct through K1/K2 unless attn "dense" asks
+        # for the gather view.
+        self.paged_direct = kv_layout == "paged" and attn != "dense"
         if kv_layout == "contiguous":
             self.kv = KVCache(model_cfg, num_slots, self.max_seq_len, dtype,
                               self.device)
         else:
             # Pool-direct serving needs both kernels to take the pool
             # shape (chunks up to MAX_PREFILL_CHUNK rows and decode steps);
-            # a shape they decline fails construction - there is no
-            # gather-view path.
-            reason = kattn.pool_direct_decline_reason(
+            # a shape they decline fails construction.
+            reason = (kattn.pool_direct_decline_reason(
                 MAX_PREFILL_CHUNK, page_size, model_cfg.head_dim,
                 model_cfg.num_kv_heads, group, self.device)
+                if self.paged_direct else None)
             if reason is not None:
                 raise ValueError(
                     f"the paged attention kernels decline this pool shape "
                     f"on {self.device}: {reason}")
+            spec = self.kv_quant_spec
+            if spec is not None:
+                # K4's gate: a quantized pool the kernels cannot dequantize
+                # in-kernel fails construction with the reason.
+                reason = kattn.kv_quant_decline_reason(
+                    page_size, model_cfg.head_dim, model_cfg.num_kv_heads,
+                    group, spec.bits, spec.group, self.device)
+                if reason is not None:
+                    raise ValueError(
+                        f"the paged attention kernels cannot dequantize "
+                        f"this {spec.dtype_name} pool on {self.device}: "
+                        f"kv_quant:{reason}")
             self.kv = PagedKVCache(model_cfg, num_slots, self.max_seq_len,
                                    dtype, self.device, page_size=page_size,
-                                   num_pages=num_pages)
+                                   num_pages=num_pages, kv_quant=spec)
         # Ragged mixed prefill/decode dispatch (the scheduler's chunk-
         # interleaved admission): on by default for the paged pool;
         # ragged_attn=False or ROUNDTABLE_RAGGED_ATTN=0 turns the seam off
@@ -197,6 +264,8 @@ class InferenceEngine:
             pass
         elif not env_flag(ragged_attn, "ROUNDTABLE_RAGGED_ATTN"):
             self.ragged_reason = "disabled:config/env"
+        elif not self.paged_direct:
+            self.ragged_reason = "attn=dense"
         else:
             reason = kattn.ragged_decline_reason(
                 page_size, model_cfg.head_dim, model_cfg.num_kv_heads,
@@ -221,6 +290,28 @@ class InferenceEngine:
         # The attached SessionScheduler (scheduler.acquire_scheduler).
         self._scheduler = None
 
+    def _build_params(self, cfg, params, quant: str, dtype, seed: int):
+        """The engine's weights: `params` as given, or seeded random ones;
+        then quantized as `quant` says (JAX engine, after init). A given
+        tree that is quantized already (a bridged JAX tree) must match
+        `quant`. Weights the engine made itself are freed leaf by leaf as
+        their quantized replacements land."""
+        owned = params is None
+        if owned:
+            gen = torch.Generator(device=self.device).manual_seed(seed)
+            params = init_params(cfg, gen, dtype, self.device)
+        mode = _quant_mode(params)
+        if mode != "none":
+            if mode != quant:
+                raise ValueError(f"params are {mode}-quantized but quant is "
+                                 f"{quant!r}")
+            return params
+        if quant == "none":
+            return params
+        return quantize_params(params, cfg, act_dtype=dtype,
+                               free_source=owned,
+                               bits=8 if quant == "int8" else 4)
+
     @staticmethod
     def _check_ported(cfg, checkpoint, mesh_shape, dtype, seq_parallel,
                       attn, kv_layout, quant, lora, kv_quant,
@@ -236,15 +327,8 @@ class InferenceEngine:
         if kv_layout not in ("contiguous", "paged"):
             raise ValueError(
                 f"kv_layout must be contiguous|paged, got {kv_layout!r}")
-        if quant != "none":
-            if quant not in ("int8", "int4"):
-                raise ValueError(
-                    f"quant must be none|int8|int4, got {quant!r}")
-            raise _not_ported(f"quant {quant!r}",
-                              "slice 5: quantization, K4/K5/K6")
-        if kv_quant not in (None, False, "none"):
-            raise _not_ported("kv_quant",
-                              "slice 5: quantization, K4/K5/K6")
+        if quant not in ("none", "int8", "int4"):
+            raise ValueError(f"quant must be none|int8|int4, got {quant!r}")
         if lora:
             raise _not_ported("lora", "slice 6: LoRA, K7")
         if seq_parallel and seq_parallel > 0:
@@ -259,11 +343,6 @@ class InferenceEngine:
                                   "slice 7: multi-device")
         if attn not in ("auto", "flash", "dense"):
             raise ValueError(f"attn must be auto|flash|dense, got {attn!r}")
-        if attn == "dense" and kv_layout == "paged":
-            # The JAX engine's gather view of the pool, which kv_quant
-            # declines also route to.
-            raise _not_ported("attn 'dense' on the paged pool (the gather "
-                              "view)", "slice 5: quantization, K4/K5/K6")
         if cfg.num_experts:
             raise _not_ported("MoE models", "slice 7: MoE and float16")
         if dtype not in _DTYPES.values():
@@ -467,11 +546,21 @@ class InferenceEngine:
                         self.params, self.cfg, tokens, positions,
                         self.kv.layers, index, offs_t, offs_t + lengths_t,
                         last_pos=lengths_t - 1)
-                else:
+                elif self.paged_direct:
                     logits = forward_paged(
                         self.params, self.cfg, tokens, positions,
                         self.kv.pools, index, offs_t + lengths_t,
+                        last_pos=lengths_t - 1, scales=self.kv.scales,
+                        quant_spec=self.kv_quant_spec)
+                else:
+                    view = self._gather(index)
+                    logits = forward_cached(
+                        self.params, self.cfg, tokens, positions, view,
+                        self._view_rows(index), offs_t, offs_t + lengths_t,
                         last_pos=lengths_t - 1)
+                    self._scatter(index, view)
+            if not contiguous:
+                self._note_kv_quant("prefill", kernel=self.paged_direct)
             return logits[:, 0]
 
         return chunked_prefill(dispatch, token_lists, offsets,
@@ -650,19 +739,55 @@ class InferenceEngine:
                 "top_ks": top_ks, "top_ps": top_ps, "greedy": greedy,
                 "first_np": first_np}
 
+    def _gather(self, table: torch.Tensor) -> list:
+        """The gather view of the rows' pages (attn "dense")."""
+        return gather_view(self.kv.pools, self.kv.scales, table,
+                           self.kv_quant_spec, self.dtype)
+
+    def _scatter(self, table: torch.Tensor, view: list) -> None:
+        scatter_view(self.kv.pools, self.kv.scales, table, view,
+                     self.kv_quant_spec)
+
+    def _view_rows(self, table: torch.Tensor) -> torch.Tensor:
+        return torch.arange(table.shape[0], dtype=torch.int32,
+                            device=self.device)
+
     def _decode_dispatch_paged(self, table, first_token, start_valid,
                                budget, temps, top_ks, top_ps, row_budgets,
                                done0, *, greedy: bool,
                                max_new: int = DECODE_SEGMENT):
         """One paged decode segment: single-token forward_paged steps over
-        the rows' page tables (_decode_segment)."""
-        def step(last, valid):
-            return forward_paged(self.params, self.cfg, last.long()[:, None],
-                                 valid[:, None], self.kv.pools, table,
-                                 valid + 1)
-        return self._decode_segment(step, first_token, start_valid, budget,
-                                    temps, top_ks, top_ps, row_budgets,
-                                    done0, greedy=greedy, max_new=max_new)
+        the rows' page tables (_decode_segment) - or, on the gather view,
+        forward_cached steps on the rows' view, gathered once before the
+        segment and scattered back after it (skipped when every row is
+        done already, as the JAX engine's segment is)."""
+        if self.paged_direct:
+            def step(last, valid):
+                return forward_paged(
+                    self.params, self.cfg, last.long()[:, None],
+                    valid[:, None], self.kv.pools, table, valid + 1,
+                    scales=self.kv.scales, quant_spec=self.kv_quant_spec)
+            out = self._decode_segment(
+                step, first_token, start_valid, budget, temps, top_ks,
+                top_ps, row_budgets, done0, greedy=greedy, max_new=max_new)
+        elif bool(torch.all(done0).item()):
+            out = self._decode_segment(
+                None, first_token, start_valid, budget, temps, top_ks,
+                top_ps, row_budgets, done0, greedy=greedy, max_new=max_new)
+        else:
+            view, rows = self._gather(table), self._view_rows(table)
+
+            def step(last, valid):
+                return forward_cached(self.params, self.cfg,
+                                      last.long()[:, None], valid[:, None],
+                                      view, rows, valid, valid + 1)
+            out = self._decode_segment(
+                step, first_token, start_valid, budget, temps, top_ks,
+                top_ps, row_budgets, done0, greedy=greedy, max_new=max_new)
+            with deadlines.commit_guard():
+                self._scatter(table, view)
+        self._note_kv_quant("decode", kernel=self.paged_direct)
+        return out
 
     def _decode_dispatch_slots(self, slot_idx, first_token, start_valid,
                                budget, temps, top_ks, top_ps, row_budgets,
@@ -743,7 +868,9 @@ class InferenceEngine:
                 self.params, self.cfg, t["tokens"].long(), t["positions"],
                 self.kv.pools, t["tables"], t["seq_of_block"],
                 t["block_qstart"], t["query_offsets"], t["kv_valid"],
-                t["token_pages"], t["token_offs"], t["last_rows"])
+                t["token_pages"], t["token_offs"], t["last_rows"],
+                scales=self.kv.scales, quant_spec=self.kv_quant_spec)
+        self._note_kv_quant("ragged", kernel=True)
         if batch["greedy"]:
             nxt = torch.argmax(logits, dim=-1)
         else:
@@ -759,6 +886,53 @@ class InferenceEngine:
                                     "tokens": int(batch["n_tokens"]),
                                     "seqs": int(batch["n_seqs"])})
         return nxt.to(torch.int32)
+
+    def _note_kv_quant(self, seam: str, kernel: bool) -> None:
+        """Record one serving dispatch that read quantized pages: `kernel`
+        when K1-K3 dequantized in-kernel (pool-direct, ragged), else the
+        gather view dequantized at the gather, with its reason."""
+        if self.kv_quant_spec is None:
+            return
+        kvq.note_quant_dispatch(kernel)
+        path = "kernel_dequant" if kernel else "xla_dequant"
+        key = f"{seam}:{path}"
+        self._kv_quant_dispatches[key] = \
+            self._kv_quant_dispatches.get(key, 0) + 1
+        entry: dict[str, Any] = {"seam": seam, "path": path}
+        if not kernel:
+            entry["fallback_reason"] = "gather_view:pool-direct-off"
+        self._kv_quant_recent.append(entry)
+
+    def kv_quant_describe(self) -> dict[str, Any]:
+        """Quantized-KV provenance (the JAX engine's keys): the resolved
+        spec, why it is off (`reason`), the per-seam dispatch counts and
+        the recent-dispatch ring, and on a quantized pool its group and
+        the bytes it saves against the unquantized layout.
+        `fallback_reason` stays None: a pool K4 declines fails
+        construction instead of serving without the kernels."""
+        spec = self.kv_quant_spec
+        info: dict[str, Any] = {
+            "enabled": spec is not None,
+            "dtype": spec.dtype_name if spec is not None else None,
+            "bits": spec.bits if spec is not None else None,
+            "reason": self.kv_quant_reason,
+            "fallback_reason": None,
+            "dispatches": dict(self._kv_quant_dispatches),
+            "recent": list(self._kv_quant_recent)[-8:],
+        }
+        if spec is not None and self.kv_layout == "paged":
+            info["group"] = spec.effective_group(self.cfg.head_dim)
+            info["bytes_saved"] = max(
+                self.kv.hbm_bytes_logical() - self.kv.hbm_bytes(), 0)
+        return info
+
+    def int4_path_report(self) -> Optional[dict]:
+        """Which path the Int4Leaf products take, by call site and weight
+        shape (kernels/int4mm.route_report): {kernel path: [...],
+        "xla_dequant": [{..., "fallback_reason"}]}, the kernel path
+        "cuda_w4a16" on a card, "plain_w4a16" on the CPU. None on engines
+        without int4 weights."""
+        return self._int4_paths
 
     def ragged_describe(self) -> dict[str, Any]:
         """Ragged-path provenance: the resolved path, why the seam is off,
@@ -866,15 +1040,17 @@ class InferenceEngine:
             turns, first_np, out_np, all_tokens, max_new,
             self.tokenizer.eos_id, self.kv.commit, self.tokenizer.decode,
             stats)
+        stats.int4_paths = self.int4_path_report()
         self.last_stats = stats
         return results, stats
 
     # --- introspection ---
 
     def describe(self) -> dict[str, Any]:
-        """The JAX engine's keys for this layout (page keys, pool-direct
-        decode and the ragged block on the paged pool only), plus the
-        resolved attention, the kernels' route and launch counts."""
+        """The JAX engine's keys for this layout (page keys, the paged
+        decode path, the ragged and kv_quant blocks on the paged pool only;
+        int4_paths on int4 engines), plus the resolved attention, the
+        kernels' route and launch counts."""
         paged = self.kv_layout == "paged"
         kernels = "cuda" if self.device.type == "cuda" else "plain"
         info = {
@@ -888,13 +1064,20 @@ class InferenceEngine:
             "devices": [str(self.device)],
             "kv_hbm_bytes": self.kv.hbm_bytes(),
             "attention_kernels": kernels,
-            "kernel_launches": kattn.launch_counts(),
+            "kernel_launches": {**kattn.launch_counts(),
+                                **int4mm.launch_counts()},
         }
+        if self.quant == "int4":
+            info["int4_paths"] = self.int4_path_report()
         if paged:
             info.update({"page_size": self.kv.page_size,
                          "num_pages": self.kv.num_pages,
-                         "paged_decode": "pool-direct",
-                         "ragged": self.ragged_describe()})
+                         "paged_decode": ("pool-direct" if self.paged_direct
+                                          else "gather-view"),
+                         "ragged": self.ragged_describe(),
+                         "kv_quant": self.kv_quant_describe()})
+            if not self.paged_direct:
+                info["attention_kernels"] = "none"
         else:
             info["attn"] = self.cfg.attn_impl
             if self.cfg.attn_impl == "dense":

@@ -27,6 +27,14 @@ row to cache row: the engine passes its batch's slot ids, so the kernels
 read the slots in place from the [num_slots, S, K, D] cache. rows=None
 reads cache row b for batch row b, which is the JAX call.
 
+K1-K3 also serve quantized pools (engine/kv_quant.py): int8 payload pools
+[P,ps,K,Dp] (Dp = D for int8, D/2 for int4) with f32 scale pools
+`k_scale`/`v_scale` [P,ps,K,G] and `kv_bits` 8 or 4. Each kernel
+dequantizes every staged tile in-kernel (K4, csrc/paged_common.cuh);
+the plain versions dequantize the gathered cells with
+kv_quant.dequantize_cells, the same math, then run the unquantized math.
+kv_quant_decline_reason is K4's gate.
+
 Each wrapper checks device, dtype, shape and contiguity and raises on what
 its kernel does not take. A tensor on the CPU takes the plain version (the
 CPU tests); a CUDA tensor launches the kernel or raises - there is no
@@ -46,8 +54,9 @@ from typing import Optional
 
 import torch
 
+from ..kv_quant import KVQuantSpec, dequantize_cells
 from ..models.common import MASK_VALUE
-from ..serving_loop import RAGGED_BLOCK_Q
+from ..serving_loop import MAX_PREFILL_CHUNK, RAGGED_BLOCK_Q
 from . import build
 
 KERNELS = ("paged_decode_attention", "paged_prefill_attention",
@@ -63,14 +72,31 @@ MAX_GROUP = 16
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+# Launches of K1-K3 on quantized pools (K4 ran inside), by kernel and
+# payload: "paged_decode_attention:int8", ...
+_dequant_launches = {f"{k}:int{b}": 0 for k in KERNELS[:3] for b in (8, 4)}
+
+
 def launch_counts() -> dict[str, int]:
     """Kernel launches per wrapper since the last reset."""
     return dict(_launches)
 
 
+def dequant_launch_counts() -> dict[str, int]:
+    """Of those, the K1-K3 launches on quantized pools, by payload."""
+    return dict(_dequant_launches)
+
+
 def reset_launch_counts() -> None:
-    for name in _launches:
-        _launches[name] = 0
+    for counts in (_launches, _dequant_launches):
+        for name in counts:
+            counts[name] = 0
+
+
+def _count(what: str, bits: int) -> None:
+    _launches[what] += 1
+    if bits:
+        _dequant_launches[f"{what}:int{bits}"] += 1
 
 
 # --- gates ---
@@ -165,6 +191,43 @@ def contiguous_decline_reason(chunk: int, d: int, group: int,
             or _decline("rdecode", 1, 0, d, group, device))
 
 
+# K4's payloads: int8, and int4 whose scale group spans whole 16-byte
+# payload vectors (32 values).
+KV_BITS = (8, 4)
+INT4_GROUP_MULTIPLE = 32
+
+
+def kv_quant_decline_reason(page_size: int, d: int, kh: int, group: int,
+                            bits: int = 8, quant_group: int = 32,
+                            device="cpu") -> Optional[str]:
+    """Why K1-K3 cannot serve a QUANTIZED pool of this shape on `device`
+    (in-kernel dequant, K4), or None when they can. The JAX package's
+    checks (bits, an int4 head and grouping that are well-formed), then on
+    a card the unquantized kernels' gates and the payload/group
+    instantiations the kernels take: int8 (one scale per cell), int4 with
+    a group that is a multiple of 32 values."""
+    if bits not in KV_BITS:
+        return f"kv_bits:{bits}"
+    g = d
+    if bits == 4:
+        if d % 2:
+            return f"int4_head_dim:{d}"
+        g = KVQuantSpec(bits=4, group=quant_group).effective_group(d)
+        if d % g or g % 2:
+            return f"int4_group:d={d},g={quant_group}"
+    if torch.device(device).type == "cpu":
+        return None
+    base = (ragged_decline_reason(page_size, d, kh, group, device)
+            or pool_direct_decline_reason(MAX_PREFILL_CHUNK, page_size, d,
+                                          kh, group, device))
+    if base is not None:
+        return base
+    if bits == 4 and g % INT4_GROUP_MULTIPLE:
+        return (f"int4_group:{g} not a multiple of {INT4_GROUP_MULTIPLE} "
+                f"(the kernels' payload vector)")
+    return None
+
+
 def paged_pool_direct_supported(chunk: int, page_size: int, d: int,
                                 kh_local: int, group: int,
                                 device="cpu") -> bool:
@@ -175,11 +238,24 @@ def paged_pool_direct_supported(chunk: int, page_size: int, d: int,
 # --- plain versions ---
 
 
+def _gather(pool, scale, idx, kv_bits: int, dtype):
+    """pool[idx]: the cells of the pages `idx`, dequantized to `dtype`
+    (kv_quant.dequantize_cells, K4's math) when `scale` is given."""
+    cells = pool[idx]
+    if scale is None:
+        return cells
+    return dequantize_cells(cells, scale[idx], KVQuantSpec(bits=kv_bits),
+                            dtype)
+
+
 def paged_prefill_attention_ref(q, k_pool, v_pool, table, offsets, kv_valid,
                                 *, sliding_window: Optional[int] = None,
-                                softcap: Optional[float] = None):
-    """Plain version of K2: gather every row's pages, masked softmax in
-    f32, p cast to v's dtype before the PV product. [B,T,H,D]."""
+                                softcap: Optional[float] = None,
+                                k_scale=None, v_scale=None,
+                                kv_bits: int = 8):
+    """Plain version of K2: gather every row's pages (dequantized when the
+    pools are quantized), masked softmax in f32, p cast to v's dtype before
+    the PV product. [B,T,H,D]."""
     b, t, h, d = q.shape
     ps, kh = k_pool.shape[1], k_pool.shape[2]
     group = h // kh
@@ -188,8 +264,8 @@ def paged_prefill_attention_ref(q, k_pool, v_pool, table, offsets, kv_valid,
     kv_pos = torch.arange(s, device=dev)
     live = kv_pos[None, :] < kv_valid.to(dev)[:, None].long()   # [B,S]
     idx = table.to(dev).long()
-    k = k_pool[idx].reshape(b, s, kh, d)
-    v = v_pool[idx].reshape(b, s, kh, d)
+    k = _gather(k_pool, k_scale, idx, kv_bits, q.dtype).reshape(b, s, kh, d)
+    v = _gather(v_pool, v_scale, idx, kv_bits, q.dtype).reshape(b, s, kh, d)
     zero = torch.zeros((), dtype=k.dtype, device=dev)
     k = torch.where(live[:, :, None, None], k, zero)
     v = torch.where(live[:, :, None, None], v, zero)
@@ -210,18 +286,23 @@ def paged_prefill_attention_ref(q, k_pool, v_pool, table, offsets, kv_valid,
 
 def paged_decode_attention_ref(q, k_pool, v_pool, table, kv_valid, *,
                                sliding_window: Optional[int] = None,
-                               softcap: Optional[float] = None):
+                               softcap: Optional[float] = None,
+                               k_scale=None, v_scale=None,
+                               kv_bits: int = 8):
     """Plain version of K1: the prefill math at one position per row,
     q position kv_valid - 1 (kv_valid includes this step). [B,1,H,D]."""
     return paged_prefill_attention_ref(
         q, k_pool, v_pool, table, kv_valid - 1, kv_valid,
-        sliding_window=sliding_window, softcap=softcap)
+        sliding_window=sliding_window, softcap=softcap, k_scale=k_scale,
+        v_scale=v_scale, kv_bits=kv_bits)
 
 
 def ragged_paged_attention_ref(q, k_pool, v_pool, tables, seq_of_block,
                                block_qstart, query_offsets, kv_valid, *,
                                sliding_window: Optional[int] = None,
-                               softcap: Optional[float] = None):
+                               softcap: Optional[float] = None,
+                               k_scale=None, v_scale=None,
+                               kv_bits: int = 8):
     """Plain version of K3. Loops over the sequences present in the flat
     buffer: each gathers its pages once, up to its own frontier, and its
     rows run the masked f32 softmax, p cast to v's dtype before the PV
@@ -254,11 +335,13 @@ def ragged_paged_attention_ref(q, k_pool, v_pool, tables, seq_of_block,
         idx = tables[s, :n_pages].to(dev).long()
         kv_pos = torch.arange(length, device=dev)
         live = kv_pos < valid[s]
-        zero = torch.zeros((), dtype=k_pool.dtype, device=dev)
-        k = torch.where(live[:, None, None],
-                        k_pool[idx].reshape(length, kh, d), zero)
-        v = torch.where(live[:, None, None],
-                        v_pool[idx].reshape(length, kh, d), zero)
+        zero = torch.zeros((), dtype=q.dtype, device=dev)
+        k = torch.where(live[:, None, None], _gather(
+            k_pool, k_scale, idx, kv_bits, q.dtype).reshape(length, kh, d),
+            zero)
+        v = torch.where(live[:, None, None], _gather(
+            v_pool, v_scale, idx, kv_bits, q.dtype).reshape(length, kh, d),
+            zero)
         mask = (kv_pos[None, :] <= q_pos[:, None]) & live[None, :]
         if sliding_window is not None:
             mask &= kv_pos[None, :] > q_pos[:, None] - sliding_window
@@ -333,15 +416,54 @@ def ragged_decode_attention_ref(q, k_cache, v_cache, kv_valid, *,
 # --- kernel wrappers ---
 
 
-def _check(q, k_pool, v_pool, table, rows, what: str) -> None:
-    b, _, h, d = q.shape
+def _check_pools(q, k_pool, v_pool, k_scale, v_scale, kv_bits: int,
+                 what: str) -> int:
+    """Shape/dtype checks of the pools (and scale pools) against q
+    [..., H, D]; returns the kernel's kv_bits (0: unquantized pools)."""
+    h, d = q.shape[-2], q.shape[-1]
     if k_pool.dim() != 4 or k_pool.shape != v_pool.shape:
         raise ValueError(f"{what}: pools must be [P,ps,K,D] and equal, got "
                          f"{tuple(k_pool.shape)} / {tuple(v_pool.shape)}")
     kh = k_pool.shape[2]
-    if k_pool.shape[3] != d or h % kh:
+    if h % kh:
         raise ValueError(f"{what}: q {tuple(q.shape)} does not match pools "
                          f"{tuple(k_pool.shape)}")
+    if k_scale is None and v_scale is None:
+        if k_pool.shape[3] != d:
+            raise ValueError(f"{what}: q {tuple(q.shape)} does not match "
+                             f"pools {tuple(k_pool.shape)}")
+        if k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
+            raise ValueError(f"{what}: pool dtype {k_pool.dtype} != q dtype "
+                             f"{q.dtype}")
+        return 0
+    if k_scale is None or v_scale is None:
+        raise ValueError(f"{what}: k_scale and v_scale come together")
+    if kv_bits not in KV_BITS:
+        raise ValueError(f"{what}: kv_bits must be one of {KV_BITS}, got "
+                         f"{kv_bits}")
+    dp = d if kv_bits == 8 else d // 2
+    if k_pool.dtype != torch.int8 or v_pool.dtype != torch.int8:
+        raise ValueError(f"{what}: quantized pools must be int8 payloads, "
+                         f"got {k_pool.dtype}")
+    if k_pool.shape[3] != dp:
+        raise ValueError(f"{what}: an int{kv_bits} pool of D={d} holds {dp} "
+                         f"bytes per cell, got {tuple(k_pool.shape)}")
+    if (k_scale.dim() != 4 or k_scale.shape != v_scale.shape
+            or k_scale.shape[:3] != k_pool.shape[:3]
+            or d % k_scale.shape[3]):
+        raise ValueError(f"{what}: scale pools must be [P,ps,K,G] beside "
+                         f"the payload, G dividing D={d}, got "
+                         f"{tuple(k_scale.shape)} / {tuple(v_scale.shape)}")
+    if k_scale.dtype != torch.float32 or v_scale.dtype != torch.float32:
+        raise ValueError(f"{what}: scales must be float32, got "
+                         f"{k_scale.dtype}")
+    return kv_bits
+
+
+def _check(q, k_pool, v_pool, table, rows, what: str, k_scale=None,
+           v_scale=None, kv_bits: int = 8) -> int:
+    b = q.shape[0]
+    bits = _check_pools(q, k_pool, v_pool, k_scale, v_scale, kv_bits, what)
     if table.dim() != 2 or table.shape[0] != b:
         raise ValueError(f"{what}: table must be [B, pages_per_seq], got "
                          f"{tuple(table.shape)}")
@@ -349,20 +471,28 @@ def _check(q, k_pool, v_pool, table, rows, what: str) -> None:
         if x.shape != (b,):
             raise ValueError(f"{what}: {name} must be [B], got "
                              f"{tuple(x.shape)}")
-    if k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
-        raise ValueError(f"{what}: pool dtype {k_pool.dtype} != q dtype "
-                         f"{q.dtype}")
-    devices = {x.device for x in (q, k_pool, v_pool, table, *rows.values())}
+    _same_device(what, q, k_pool, v_pool, table, *rows.values(), k_scale,
+                 v_scale)
+    return bits
+
+
+def _same_device(what: str, *xs) -> None:
+    devices = {x.device for x in xs if x is not None}
     if len(devices) != 1:
         raise ValueError(f"{what}: operands on several devices {devices}")
 
 
-def _cuda_operands(q, k_pool, v_pool, index: dict, what: str):
-    """Kernel-side checks of q, the caches and the index tensors."""
+def _cuda_operands(q, k_pool, v_pool, index: dict, what: str,
+                   k_scale=None, v_scale=None):
+    """Kernel-side checks of q, the caches (and scales) and the index
+    tensors."""
     if q.dtype not in _DTYPE_CODES:
         raise ValueError(f"{what}: dtype {q.dtype} not in "
                          f"{tuple(_DTYPE_CODES)}")
-    for name, x in (("q", q), ("k_cache", k_pool), ("v_cache", v_pool)):
+    for name, x in (("q", q), ("k_cache", k_pool), ("v_cache", v_pool),
+                    ("k_scale", k_scale), ("v_scale", v_scale)):
+        if x is None:
+            continue
         if not x.is_contiguous():
             raise ValueError(f"{what}: {name} must be contiguous")
         if x.data_ptr() % 16:
@@ -375,88 +505,117 @@ def _cuda_operands(q, k_pool, v_pool, index: dict, what: str):
     return ints
 
 
+def _quant_args(k_scale, v_scale, bits: int) -> tuple:
+    """(k_scale ptr, v_scale ptr, kv_bits, G) of a launch (0s when the
+    pools are unquantized)."""
+    if not bits:
+        return None, None, 0, 0
+    return k_scale.data_ptr(), v_scale.data_ptr(), bits, k_scale.shape[3]
+
+
+_kv_declines: dict[tuple, Optional[str]] = {}
+
+
+def _kv_decline(bits: int, ps: int, d: int, kh: int, group: int,
+                k_scale, device) -> Optional[str]:
+    """K4's gate for a quantized launch (None for unquantized pools),
+    remembered per shape."""
+    if not bits:
+        return None
+    key = (bits, ps, d, kh, group, k_scale.shape[3], device)
+    if key not in _kv_declines:
+        _kv_declines[key] = kv_quant_decline_reason(
+            ps, d, kh, group, bits, d // k_scale.shape[3], device)
+    return _kv_declines[key]
+
+
 def paged_decode_attention(q, k_pool, v_pool, table, kv_valid, *,
                            sliding_window: Optional[int] = None,
                            softcap: Optional[float] = None,
-                           k_scale=None, v_scale=None):
+                           k_scale=None, v_scale=None, kv_bits: int = 8):
     """Single-position decode attention straight off the page pool (K1).
 
-    q [B,1,H,D] pre-scaled and rope'd; pools [P,ps,K,D]; table [B,pp]
-    int32; kv_valid [B] int32 INCLUDING this step, whose K/V the caller
-    has written into the pool already. Returns [B,1,H,D] in q's dtype."""
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError(
-            "quantized KV pages (in-kernel dequant, K4) are not ported yet")
+    q [B,1,H,D] pre-scaled and rope'd; pools [P,ps,K,D] (quantized: int8
+    [P,ps,K,Dp] with f32 `k_scale`/`v_scale` [P,ps,K,G], `kv_bits` 8 or
+    4); table [B,pp] int32; kv_valid [B] int32 INCLUDING this step, whose
+    K/V the caller has written into the pool already. Returns [B,1,H,D]
+    in q's dtype."""
+    what = "paged_decode_attention"
     if q.dim() != 4 or q.shape[1] != 1:
-        raise ValueError(f"paged_decode_attention serves one position, got "
-                         f"q {tuple(q.shape)}")
-    _check(q, k_pool, v_pool, table, {"kv_valid": kv_valid},
-           "paged_decode_attention")
+        raise ValueError(f"{what} serves one position, got q "
+                         f"{tuple(q.shape)}")
+    bits = _check(q, k_pool, v_pool, table, {"kv_valid": kv_valid}, what,
+                  k_scale, v_scale, kv_bits)
     if q.device.type == "cpu":
         return paged_decode_attention_ref(
             q, k_pool, v_pool, table, kv_valid,
-            sliding_window=sliding_window, softcap=softcap)
+            sliding_window=sliding_window, softcap=softcap, k_scale=k_scale,
+            v_scale=v_scale, kv_bits=kv_bits)
     b, _, h, d = q.shape
     p, ps, kh, _ = k_pool.shape
-    reason = _decline("decode", 1, ps, d, h // kh, q.device)
+    reason = (_decline("decode", 1, ps, d, h // kh, q.device)
+              or _kv_decline(bits, ps, d, kh, h // kh, k_scale, q.device))
     if reason is not None:
-        raise ValueError(f"paged_decode_attention declines: {reason}")
+        raise ValueError(f"{what} declines: {reason}")
     ints = _cuda_operands(q, k_pool, v_pool,
-                          {"table": table, "kv_valid": kv_valid},
-                          "paged_decode_attention")
+                          {"table": table, "kv_valid": kv_valid}, what,
+                          k_scale, v_scale)
+    ks, vs, bits, groups = _quant_args(k_scale, v_scale, bits)
     out = torch.empty_like(q)
     rc = build.library("paged_decode").rt_paged_decode(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), ks, vs,
         ints["table"].data_ptr(), ints["kv_valid"].data_ptr(),
         out.data_ptr(), b, h, kh, d, ps, table.shape[1],
         int(sliding_window or 0), float(softcap or 0.0),
-        _DTYPE_CODES[q.dtype], q.device.index or 0,
+        _DTYPE_CODES[q.dtype], bits, groups, q.device.index or 0,
         torch.cuda.current_stream(q.device).cuda_stream)
-    build.check(rc, "paged_decode_attention launch")
-    _launches["paged_decode_attention"] += 1
+    build.check(rc, f"{what} launch")
+    _count(what, bits)
     return out
 
 
 def paged_prefill_attention(q, k_pool, v_pool, table, offsets, kv_valid, *,
                             sliding_window: Optional[int] = None,
                             softcap: Optional[float] = None,
-                            k_scale=None, v_scale=None):
+                            k_scale=None, v_scale=None, kv_bits: int = 8):
     """Causal prefill attention of a chunk straight off the page pool (K2).
 
     q [B,T,H,D] pre-scaled and rope'd, row i of batch row b at absolute
-    position offsets[b] + i; kv_valid [B] = offsets + real lengths. The
-    caller has scattered the chunk's K/V into the rows' pages; pages below
-    a row's offset may be aliased donor pages and are only read. Returns
-    [B,T,H,D] in q's dtype; rows past a row's real length are garbage the
-    caller drops."""
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError(
-            "quantized KV pages (in-kernel dequant, K4) are not ported yet")
+    position offsets[b] + i; kv_valid [B] = offsets + real lengths;
+    quantized pools as for K1. The caller has scattered the chunk's K/V
+    into the rows' pages; pages below a row's offset may be aliased donor
+    pages and are only read. Returns [B,T,H,D] in q's dtype; rows past a
+    row's real length are garbage the caller drops."""
+    what = "paged_prefill_attention"
     if q.dim() != 4:
         raise ValueError(f"q must be [B,T,H,D], got {tuple(q.shape)}")
     rows = {"offsets": offsets, "kv_valid": kv_valid}
-    _check(q, k_pool, v_pool, table, rows, "paged_prefill_attention")
+    bits = _check(q, k_pool, v_pool, table, rows, what, k_scale, v_scale,
+                  kv_bits)
     if q.device.type == "cpu":
         return paged_prefill_attention_ref(
             q, k_pool, v_pool, table, offsets, kv_valid,
-            sliding_window=sliding_window, softcap=softcap)
+            sliding_window=sliding_window, softcap=softcap, k_scale=k_scale,
+            v_scale=v_scale, kv_bits=kv_bits)
     b, t, h, d = q.shape
     p, ps, kh, _ = k_pool.shape
-    reason = _decline("prefill", t, ps, d, h // kh, q.device)
+    reason = (_decline("prefill", t, ps, d, h // kh, q.device)
+              or _kv_decline(bits, ps, d, kh, h // kh, k_scale, q.device))
     if reason is not None:
-        raise ValueError(f"paged_prefill_attention declines: {reason}")
-    ints = _cuda_operands(q, k_pool, v_pool, {"table": table, **rows},
-                          "paged_prefill_attention")
+        raise ValueError(f"{what} declines: {reason}")
+    ints = _cuda_operands(q, k_pool, v_pool, {"table": table, **rows}, what,
+                          k_scale, v_scale)
+    ks, vs, bits, groups = _quant_args(k_scale, v_scale, bits)
     out = torch.empty_like(q)
     rc = build.library("paged_prefill").rt_paged_prefill(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), ks, vs,
         ints["table"].data_ptr(), ints["offsets"].data_ptr(),
         ints["kv_valid"].data_ptr(), out.data_ptr(), b, t, h, kh, d, ps,
         table.shape[1], int(sliding_window or 0), float(softcap or 0.0),
-        _DTYPE_CODES[q.dtype], q.device.index or 0,
+        _DTYPE_CODES[q.dtype], bits, groups, q.device.index or 0,
         torch.cuda.current_stream(q.device).cuda_stream)
-    build.check(rc, "paged_prefill_attention launch")
-    _launches["paged_prefill_attention"] += 1
+    build.check(rc, f"{what} launch")
+    _count(what, bits)
     return out
 
 
@@ -464,7 +623,7 @@ def ragged_paged_attention(q, k_pool, v_pool, tables, seq_of_block,
                            block_qstart, query_offsets, kv_valid, *,
                            sliding_window: Optional[int] = None,
                            softcap: Optional[float] = None,
-                           k_scale=None, v_scale=None):
+                           k_scale=None, v_scale=None, kv_bits: int = 8):
     """Mixed prefill/decode attention over a flat token buffer straight off
     the page pool (K3).
 
@@ -472,25 +631,18 @@ def ragged_paged_attention(q, k_pool, v_pool, tables, seq_of_block,
     qb (rows qb*8 .. qb*8+7) belongs to sequence seq_of_block[qb] and its
     row i sits at absolute position query_offsets[seq] + block_qstart[qb]
     + i, causal within the sequence; tables [S,pp] int32; kv_valid [S]
-    valid entries AFTER this call. The caller has scattered every real
-    token's K/V into its pages. Every index must lie inside its table
-    (serving_loop.build_ragged_batch keeps them there). Returns [T,H,D] in
-    q's dtype; pad rows (q_pos >= kv_valid) are 0."""
+    valid entries AFTER this call; quantized pools as for K1. The caller
+    has scattered every real token's K/V into its pages. Every index must
+    lie inside its table (serving_loop.build_ragged_batch keeps them
+    there). Returns [T,H,D] in q's dtype; pad rows (q_pos >= kv_valid) are
+    0."""
     what = "ragged_paged_attention"
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError(
-            "quantized KV pages (in-kernel dequant, K4) are not ported yet")
     if q.dim() != 3 or q.shape[0] % RAGGED_BLOCK_Q or q.shape[0] == 0:
         raise ValueError(f"{what}: q must be [T,H,D] with T a multiple of "
                          f"{RAGGED_BLOCK_Q}, got {tuple(q.shape)}")
     t, h, d = q.shape
-    if k_pool.dim() != 4 or k_pool.shape != v_pool.shape:
-        raise ValueError(f"{what}: pools must be [P,ps,K,D] and equal, got "
-                         f"{tuple(k_pool.shape)} / {tuple(v_pool.shape)}")
+    bits = _check_pools(q, k_pool, v_pool, k_scale, v_scale, kv_bits, what)
     kh = k_pool.shape[2]
-    if k_pool.shape[3] != d or h % kh:
-        raise ValueError(f"{what}: q {tuple(q.shape)} does not match pools "
-                         f"{tuple(k_pool.shape)}")
     if tables.dim() != 2:
         raise ValueError(f"{what}: tables must be [S, pages_per_seq], got "
                          f"{tuple(tables.shape)}")
@@ -503,35 +655,34 @@ def ragged_paged_attention(q, k_pool, v_pool, tables, seq_of_block,
         if x.shape != (n,):
             raise ValueError(f"{what}: {name} must be [{n}], got "
                              f"{tuple(x.shape)}")
-    if k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
-        raise ValueError(f"{what}: pool dtype {k_pool.dtype} != q dtype "
-                         f"{q.dtype}")
     rows = {name: x for name, (x, _) in shapes.items()}
-    devices = {x.device for x in (q, k_pool, v_pool, tables, *rows.values())}
-    if len(devices) != 1:
-        raise ValueError(f"{what}: operands on several devices {devices}")
+    _same_device(what, q, k_pool, v_pool, tables, *rows.values(), k_scale,
+                 v_scale)
     if q.device.type == "cpu":
         return ragged_paged_attention_ref(
             q, k_pool, v_pool, tables, seq_of_block, block_qstart,
             query_offsets, kv_valid, sliding_window=sliding_window,
-            softcap=softcap)
+            softcap=softcap, k_scale=k_scale, v_scale=v_scale,
+            kv_bits=kv_bits)
     ps = k_pool.shape[1]
-    reason = ragged_decline_reason(ps, d, kh, h // kh, q.device)
+    reason = (ragged_decline_reason(ps, d, kh, h // kh, q.device)
+              or _kv_decline(bits, ps, d, kh, h // kh, k_scale, q.device))
     if reason is not None:
         raise ValueError(f"{what} declines: {reason}")
     ints = _cuda_operands(q, k_pool, v_pool, {"table": tables, **rows},
-                          what)
+                          what, k_scale, v_scale)
+    ks, vs, bits, groups = _quant_args(k_scale, v_scale, bits)
     out = torch.empty_like(q)
     rc = build.library("ragged_paged").rt_ragged_paged(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), ks, vs,
         ints["table"].data_ptr(), ints["seq_of_block"].data_ptr(),
         ints["block_qstart"].data_ptr(), ints["query_offsets"].data_ptr(),
         ints["kv_valid"].data_ptr(), out.data_ptr(), t, h, kh, d, ps,
         tables.shape[1], int(sliding_window or 0), float(softcap or 0.0),
-        _DTYPE_CODES[q.dtype], q.device.index or 0,
+        _DTYPE_CODES[q.dtype], bits, groups, q.device.index or 0,
         torch.cuda.current_stream(q.device).cuda_stream)
-    build.check(rc, "ragged_paged_attention launch")
-    _launches["ragged_paged_attention"] += 1
+    build.check(rc, f"{what} launch")
+    _count(what, bits)
     return out
 
 

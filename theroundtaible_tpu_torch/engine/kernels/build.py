@@ -23,7 +23,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("paged_decode", "paged_prefill", "ragged_paged", "flash_prefill",
-           "ragged_decode")
+           "ragged_decode", "int4mm")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -34,16 +34,19 @@ _F = ctypes.c_float
 # are c_void_p so ctypes never truncates them to 32 bits.
 _SIGNATURES = {
     "paged_decode": {
-        "rt_paged_decode": ([_P] * 6 + [_I] * 7 + [_F, _I, _I, _P], _I),
+        "rt_paged_decode": ([_P] * 8 + [_I] * 7 + [_F] + [_I] * 4 + [_P],
+                            _I),
         "rt_paged_decode_smem_bytes": ([_I, _I, _I], ctypes.c_longlong),
     },
     "paged_prefill": {
-        "rt_paged_prefill": ([_P] * 7 + [_I] * 8 + [_F, _I, _I, _P], _I),
+        "rt_paged_prefill": ([_P] * 9 + [_I] * 8 + [_F] + [_I] * 4 + [_P],
+                             _I),
         "rt_paged_prefill_smem_bytes": ([_I, _I, _I, _I],
                                         ctypes.c_longlong),
     },
     "ragged_paged": {
-        "rt_ragged_paged": ([_P] * 9 + [_I] * 7 + [_F, _I, _I, _P], _I),
+        "rt_ragged_paged": ([_P] * 11 + [_I] * 7 + [_F] + [_I] * 4 + [_P],
+                            _I),
         "rt_ragged_smem_bytes": ([_I, _I, _I], ctypes.c_longlong),
     },
     "flash_prefill": {
@@ -53,6 +56,10 @@ _SIGNATURES = {
     "ragged_decode": {
         "rt_ragged_decode": ([_P] * 6 + [_I] * 7 + [_F, _I, _I, _P], _I),
         "rt_ragged_decode_smem_bytes": ([_I, _I], ctypes.c_longlong),
+    },
+    "int4mm": {
+        "rt_mm_pack_out": ([_P] * 5 + [_I] * 7 + [_P], _I),
+        "rt_mm_pack_contract": ([_P] * 4 + [_I] * 6 + [_P], _I),
     },
 }
 _COMMON_SIGNATURES = {

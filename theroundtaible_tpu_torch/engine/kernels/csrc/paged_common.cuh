@@ -1,6 +1,8 @@
-// Shared device helpers of the paged attention kernels (paged_decode.cu,
-// paged_prefill.cu). Plain C interface, built by engine/kernels/build.py
-// with `nvcc -gencode arch=compute_90a,code=sm_90a -shared`.
+// Shared device helpers of the hand-written kernels (paged_decode.cu,
+// paged_prefill.cu, ragged_paged.cu, flash_prefill.cu, ragged_decode.cu,
+// int4mm.cu), K4's dequantizing tile load among them. Plain C interface,
+// built by engine/kernels/build.py with
+// `nvcc -gencode arch=compute_90a,code=sm_90a -shared`.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -67,6 +69,78 @@ struct Vec<__nv_bfloat16> {
     }
   }
 };
+
+// --- K4: in-kernel dequant of quantized KV pages ---
+//
+// Replaces the TPU kernels' theroundtaible_tpu/engine/pallas/attention.py
+// _dequant_kv (called in _prefill_accumulate and _decode_accumulate): a
+// quantized pool holds an int8 payload [P,ps,K,Dp] (Dp = D for int8, D/2
+// for int4: two signed nibbles per byte, the even element in the LOW
+// nibble) beside f32 scales [P,ps,K,G], one per cell and group of D/G
+// values. K1-K3 stage each cell's payload with 16-byte loads (128 B of a
+// D=128 cell for int8, 64 B for int4) plus its scales, and dequantize
+// while staging: value = float(q) * scale in f32, rounded to the compute
+// dtype - `_dequant_kv` exactly - before it reaches shared memory in the
+// layout the unquantized path uses, so the math past the staging is
+// unchanged and shared memory per block does not grow. Decode is bound by
+// bytes, and a quantized cell moves D + 4 (int8) or D/2 + 4G (int4) bytes
+// instead of 2D. kBitsNone instantiates the unquantized staging.
+constexpr int kBitsNone = 0;
+
+template <int BITS, int D>
+struct QuantRow {  // BITS 8 or 4 (kBitsNone: sizes of 0, never loaded)
+  static constexpr int EV = BITS == 8 ? 16 : 32;  // values per 16 bytes
+  static constexpr int DP = D * BITS / 8;         // payload bytes per cell
+  static constexpr int VR = DP / 16;              // 16-byte vectors per cell
+};
+
+// Vector v of cell `cell` (= (page * ps + offset) * K + kv head): its 16
+// payload bytes and the scale of their group (a group spans a whole
+// number of vectors: the gate kv_quant_decline_reason checks it).
+template <int BITS, int D>
+__device__ __forceinline__ void load_qvec(const int8_t* __restrict__ pool,
+                                          const float* __restrict__ scale,
+                                          size_t cell, int v, int G,
+                                          uint4& raw, float& s) {
+  using Q = QuantRow<BITS, D>;
+  raw = *reinterpret_cast<const uint4*>(pool + cell * Q::DP + v * 16);
+  s = scale[cell * G + (v * Q::EV) / (D / G)];
+}
+
+// The EV values of 16 payload bytes with scale s, each rounded to T.
+// Arithmetic shifts sign-extend: int8 byte j of a word is
+// (w << (24 - 8j)) >> 24; its low nibble (w << (28 - 8j)) >> 28, its
+// high nibble (w << (24 - 8j)) >> 28 - the (q << 4) >> 4 and q >> 4 of
+// kv_quant.unpack_int4.
+template <typename T, int BITS>
+__device__ __forceinline__ void dequant16(const uint4& raw, float s,
+                                          float* out) {
+  const unsigned w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if constexpr (BITS == 8) {
+        const int q = static_cast<int>(w[i] << (24 - 8 * j)) >> 24;
+        out[4 * i + j] = round_to<T>(static_cast<float>(q) * s);
+      } else {
+        const int lo = static_cast<int>(w[i] << (28 - 8 * j)) >> 28;
+        const int hi = static_cast<int>(w[i] << (24 - 8 * j)) >> 28;
+        out[8 * i + 2 * j] = round_to<T>(static_cast<float>(lo) * s);
+        out[8 * i + 2 * j + 1] = round_to<T>(static_cast<float>(hi) * s);
+      }
+    }
+  }
+}
+
+// Host check of a launch's quantization arguments: int8 has one group, an
+// int4 group spans whole 16-byte payload vectors (32 values).
+inline bool quant_args_ok(int bits, int D, int G) {
+  if (bits == kBitsNone) return true;
+  if (G < 1 || D % G) return false;
+  if (bits == 8) return G == 1 && D % 16 == 0;
+  return bits == 4 && (D / G) % 32 == 0;
+}
 
 // Python's floor division (the bounds arithmetic of the TPU kernels uses it
 // on numerators that can be negative).

@@ -26,6 +26,10 @@
 // anything (NaN included) and contribute exactly 0. Split-KV over pages
 // (more blocks than K * B), TMA staging and tensor-core products are later
 // work.
+//
+// Quantized pools (K4, paged_common.cuh): the tile's int8/int4 payload
+// vectors and their scales are loaded into registers instead, and
+// dequantized into the same shared-memory tile in T while stored.
 #include "paged_common.cuh"
 
 namespace rt {
@@ -84,13 +88,101 @@ __device__ __forceinline__ void store_tile(T* sm, int stride,
   }
 }
 
-template <typename T, int D>
+// K4 staging of a tile: payload vectors and scales per thread.
+template <typename T, int D, int BITS>
+struct QTile {
+  using Q = QuantRow<BITS, D>;
+  static constexpr int TK = tile_tokens<T>();
+  static constexpr int LPT =
+      BITS == kBitsNone ? 1 : (TK * Q::VR + kThreads - 1) / kThreads;
+};
+
+template <typename T, int D, int BITS>
+__device__ __forceinline__ void load_qtile(const int8_t* __restrict__ pool,
+                                           const float* __restrict__ scale,
+                                           const int* __restrict__ row_table,
+                                           int kv0, int end, int ps, int K,
+                                           int kh, int G, uint4* regs,
+                                           float* sregs) {
+  using QT = QTile<T, D, BITS>;
+  constexpr int VR = QuantRow<BITS, D>::VR;
+#pragma unroll
+  for (int it = 0; it < QT::LPT; ++it) {
+    const int i = threadIdx.x + it * kThreads;
+    const int c = i / VR, v = i % VR;
+    const int pos = kv0 + c;
+    if (i < QT::TK * VR && pos < end) {
+      const size_t page = (size_t)row_table[pos / ps];
+      load_qvec<BITS, D>(pool, scale, (page * ps + pos % ps) * K + kh, v, G,
+                         regs[it], sregs[it]);
+    } else {
+      regs[it] = make_uint4(0u, 0u, 0u, 0u);
+      sregs[it] = 0.f;
+    }
+  }
+}
+
+template <typename T, int D, int BITS>
+__device__ __forceinline__ void store_qtile(T* sm, int stride,
+                                            const uint4* regs,
+                                            const float* sregs) {
+  using QT = QTile<T, D, BITS>;
+  using Q = QuantRow<BITS, D>;
+  constexpr int N = Vec<T>::N;
+#pragma unroll
+  for (int it = 0; it < QT::LPT; ++it) {
+    const int i = threadIdx.x + it * kThreads;
+    if (i < QT::TK * Q::VR) {
+      const int c = i / Q::VR, v = i % Q::VR;
+      float x[Q::EV];
+      dequant16<T, BITS>(regs[it], sregs[it], x);
+      T* dst = sm + c * stride + v * Q::EV;
+#pragma unroll
+      for (int e = 0; e < Q::EV; e += N) {
+        alignas(16) T pack[N];
+#pragma unroll
+        for (int u = 0; u < N; ++u) pack[u] = from_f32<T>(x[e + u]);
+        *reinterpret_cast<uint4*>(dst + e) =
+            *reinterpret_cast<const uint4*>(pack);
+      }
+    }
+  }
+}
+
+// One tile's K and V loads into registers: native rows, or (K4) payload
+// vectors and their scales.
+template <typename T, int D, int BITS, int LPT>
+__device__ __forceinline__ void load_kv(
+    const void* __restrict__ k_pool, const void* __restrict__ v_pool,
+    const float* __restrict__ k_scale, const float* __restrict__ v_scale,
+    const int* __restrict__ row_table, int kv0, int end, int ps, int K,
+    int kh, int SG, uint4 (&k_regs)[LPT], uint4 (&v_regs)[LPT],
+    float (&ks_regs)[LPT], float (&vs_regs)[LPT]) {
+  if constexpr (BITS == kBitsNone) {
+    load_tile<T, D>(static_cast<const T*>(k_pool), row_table, kv0, end, ps, K,
+                    kh, k_regs);
+    load_tile<T, D>(static_cast<const T*>(v_pool), row_table, kv0, end, ps, K,
+                    kh, v_regs);
+  } else {
+    load_qtile<T, D, BITS>(static_cast<const int8_t*>(k_pool), k_scale,
+                           row_table, kv0, end, ps, K, kh, SG, k_regs,
+                           ks_regs);
+    load_qtile<T, D, BITS>(static_cast<const int8_t*>(v_pool), v_scale,
+                           row_table, kv0, end, ps, K, kh, SG, v_regs,
+                           vs_regs);
+  }
+}
+
+template <typename T, int D, int BITS>
 __global__ void __launch_bounds__(kThreads)
-paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
-                    const T* __restrict__ v_pool,
+paged_decode_kernel(const T* __restrict__ q, const void* __restrict__ k_pool,
+                    const void* __restrict__ v_pool,
+                    const float* __restrict__ k_scale,
+                    const float* __restrict__ v_scale,
                     const int* __restrict__ table,
                     const int* __restrict__ kv_valid, T* __restrict__ out,
-                    int H, int K, int ps, int pp, int window, float softcap) {
+                    int H, int K, int ps, int pp, int window, float softcap,
+                    int SG) {
   using L = Layout<T, D>;
   constexpr int N = L::N, TK = L::TK, KS = L::KS;
   const int kh = blockIdx.x;
@@ -131,20 +223,29 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
   const int end = min(valid, (hi + 1) * ps);  // first position not read
   const int* row_table = table + (size_t)b * pp;
 
-  uint4 k_regs[L::LPT], v_regs[L::LPT];
-  if (lo * ps < end) {
-    load_tile<T, D>(k_pool, row_table, lo * ps, end, ps, K, kh, k_regs);
-    load_tile<T, D>(v_pool, row_table, lo * ps, end, ps, K, kh, v_regs);
-  }
+  // The tile loads in registers: native rows, or (K4) payload + scales.
+  constexpr int LPT = BITS == kBitsNone ? L::LPT : QTile<T, D, BITS>::LPT;
+  uint4 k_regs[LPT], v_regs[LPT];
+  float ks_regs[LPT], vs_regs[LPT];
+  if (lo * ps < end)
+    load_kv<T, D, BITS>(k_pool, v_pool, k_scale, v_scale, row_table, lo * ps,
+                        end, ps, K, kh, SG, k_regs, v_regs, ks_regs,
+                        vs_regs);
   for (int kv0 = lo * ps; kv0 < end; kv0 += TK) {
     __syncthreads();  // the previous tile's readers are done
-    store_tile<T, D>(k_sm, KS, k_regs);
-    store_tile<T, D>(v_sm, D, v_regs);
-    __syncthreads();
-    if (kv0 + TK < end) {  // the next tile's loads fly during this one
-      load_tile<T, D>(k_pool, row_table, kv0 + TK, end, ps, K, kh, k_regs);
-      load_tile<T, D>(v_pool, row_table, kv0 + TK, end, ps, K, kh, v_regs);
+    if constexpr (BITS == kBitsNone) {
+      store_tile<T, D>(k_sm, KS, k_regs);
+      store_tile<T, D>(v_sm, D, v_regs);
+    } else {
+      store_qtile<T, D, BITS>(k_sm, KS, k_regs, ks_regs);
+      store_qtile<T, D, BITS>(v_sm, D, v_regs, vs_regs);
     }
+    __syncthreads();
+    // the next tile's loads fly during this one
+    if (kv0 + TK < end)
+      load_kv<T, D, BITS>(k_pool, v_pool, k_scale, v_scale, row_table,
+                          kv0 + TK, end, ps, K, kh, SG, k_regs, v_regs,
+                          ks_regs, vs_regs);
 
     // Scores: (query head g, token c) pairs, K rows from shared memory.
     for (int i = tid; i < G * TK; i += kThreads) {
@@ -220,37 +321,49 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
   }
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* k_pool, const void* v_pool,
-           const int* table, const int* kv_valid, void* out, int B, int H,
-           int K, int ps, int pp, int window, float softcap,
-           cudaStream_t stream) {
-  const size_t smem = Layout<T, D>::bytes(H / K);
-  auto kernel = paged_decode_kernel<T, D>;
+struct Args {
+  const void* q;
+  const void* k_pool;
+  const void* v_pool;
+  const float* k_scale;
+  const float* v_scale;
+  const int* table;
+  const int* kv_valid;
+  void* out;
+  int B, H, K, ps, pp, window;
+  float softcap;
+  int G;  // scale groups per cell (quantized pools)
+};
+
+template <typename T, int D, int BITS>
+int launch(const Args& a, cudaStream_t stream) {
+  const size_t smem = Layout<T, D>::bytes(a.H / a.K);
+  auto kernel = paged_decode_kernel<T, D, BITS>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  kernel<<<dim3(K, B), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_pool),
-      static_cast<const T*>(v_pool), table, kv_valid, static_cast<T*>(out), H,
-      K, ps, pp, window, softcap);
+  kernel<<<dim3(a.K, a.B), kThreads, smem, stream>>>(
+      static_cast<const T*>(a.q), a.k_pool, a.v_pool, a.k_scale, a.v_scale,
+      a.table, a.kv_valid, static_cast<T*>(a.out), a.H, a.K, a.ps, a.pp,
+      a.window, a.softcap, a.G);
   return cudaGetLastError();
 }
 
+template <typename T, int D>
+int dispatch_bits(int bits, const Args& a, cudaStream_t stream) {
+  switch (bits) {
+    case kBitsNone: return launch<T, D, kBitsNone>(a, stream);
+    case 8: return launch<T, D, 8>(a, stream);
+    case 4: return launch<T, D, 4>(a, stream);
+  }
+  return cudaErrorInvalidValue;
+}
+
 template <typename T>
-int dispatch_d(int D, const void* q, const void* k_pool, const void* v_pool,
-               const int* table, const int* kv_valid, void* out, int B, int H,
-               int K, int ps, int pp, int window, float softcap,
-               cudaStream_t stream) {
+int dispatch_d(int D, int bits, const Args& a, cudaStream_t stream) {
   switch (D) {
-    case 64:
-      return launch<T, 64>(q, k_pool, v_pool, table, kv_valid, out, B, H, K,
-                           ps, pp, window, softcap, stream);
-    case 128:
-      return launch<T, 128>(q, k_pool, v_pool, table, kv_valid, out, B, H, K,
-                            ps, pp, window, softcap, stream);
-    case 256:
-      return launch<T, 256>(q, k_pool, v_pool, table, kv_valid, out, B, H, K,
-                            ps, pp, window, softcap, stream);
+    case 64: return dispatch_bits<T, 64>(bits, a, stream);
+    case 128: return dispatch_bits<T, 128>(bits, a, stream);
+    case 256: return dispatch_bits<T, 256>(bits, a, stream);
   }
   return cudaErrorInvalidValue;
 }
@@ -277,26 +390,28 @@ long long rt_paged_decode_smem_bytes(int G, int D, int ps) {
   return (long long)(f > h ? f : h);
 }
 
-// Launches K1 on `stream` (a cudaStream_t) of `device`. Returns a cudaError_t
-// code, 0 on success; the launch itself is asynchronous.
+// Launches K1 on `stream` (a cudaStream_t) of `device`. kv_bits 0: the
+// pools hold T; 8 or 4: int8 payload pools with f32 scales [P,ps,K,G]
+// (K4). Returns a cudaError_t code, 0 on success; the launch itself is
+// asynchronous.
 int rt_paged_decode(const void* q, const void* k_pool, const void* v_pool,
+                    const float* k_scale, const float* v_scale,
                     const int* table, const int* kv_valid, void* out, int B,
                     int H, int K, int D, int ps, int pp, int window,
-                    float softcap, int dtype, int device, void* stream) {
+                    float softcap, int dtype, int kv_bits, int G, int device,
+                    void* stream) {
   if (B < 1 || K < 1 || H % K != 0 || H / K > rt::kMaxGroup || ps < 1 ||
-      pp < 1)
+      pp < 1 || !rt::quant_args_ok(kv_bits, D, G) ||
+      (kv_bits != rt::kBitsNone && (k_scale == nullptr || v_scale == nullptr)))
     return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
+  const rt::Args a{q, k_pool, v_pool, k_scale, v_scale, table, kv_valid, out,
+                   B, H, K, ps, pp, window, softcap, G};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case rt::kF32:
-      return rt::dispatch_d<float>(D, q, k_pool, v_pool, table, kv_valid, out,
-                                   B, H, K, ps, pp, window, softcap, s);
-    case rt::kBF16:
-      return rt::dispatch_d<__nv_bfloat16>(D, q, k_pool, v_pool, table,
-                                           kv_valid, out, B, H, K, ps, pp,
-                                           window, softcap, s);
+    case rt::kF32: return rt::dispatch_d<float>(D, kv_bits, a, s);
+    case rt::kBF16: return rt::dispatch_d<__nv_bfloat16>(D, kv_bits, a, s);
   }
   return cudaErrorInvalidValue;
 }

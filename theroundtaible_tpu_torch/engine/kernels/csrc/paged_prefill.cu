@@ -28,6 +28,10 @@
 // value, and each thread accumulates a (D/32)x8 tile of the output in
 // registers. Tensor-core products (mma/wgmma), TMA staging and warp
 // specialisation are later work.
+//
+// Quantized pools (K4, paged_common.cuh): each thread stages whole 16-byte
+// payload vectors with their scale, dequantized (rounded to T) into the
+// same f32 sub-block.
 #include "paged_common.cuh"
 
 namespace rt {
@@ -60,15 +64,78 @@ __host__ __device__ inline size_t prefill_smem_floats(int G, int D, int ps,
          + 3 * R;                     // m, l, alpha
 }
 
-template <typename T, int D>
+// Stages keys/values [kv0, kv0 + BK) of one page (cell offset c0) into the
+// f32 sub-block; cells at or past `valid` stage as zeros and are never
+// loaded.
+template <typename T, int D, int BITS>
+__device__ __forceinline__ void stage_sub_block(
+    const void* __restrict__ k_pool, const void* __restrict__ v_pool,
+    const float* __restrict__ k_scale, const float* __restrict__ v_scale,
+    size_t page, int c0, int kv0, int valid, int BK, int ps, int K, int kh,
+    int SG, float* k_sm, float* v_sm) {
+  constexpr int KS = D + 4;
+  if constexpr (BITS == kBitsNone) {
+    constexpr int N = Vec<T>::N;
+    for (int i = threadIdx.x; i < BK * (D / N); i += kThreads) {
+      const int c = i / (D / N), d = (i % (D / N)) * N;
+      float kx[N], vx[N];
+      if (kv0 + c < valid) {
+        const size_t off = ((page * ps + c0 + c) * K + kh) * D + d;
+        Vec<T>::load(static_cast<const T*>(k_pool) + off, kx);
+        Vec<T>::load(static_cast<const T*>(v_pool) + off, vx);
+      } else {
+#pragma unroll
+        for (int e = 0; e < N; ++e) kx[e] = vx[e] = 0.f;
+      }
+#pragma unroll
+      for (int e = 0; e < N; e += 4) {
+        *reinterpret_cast<float4*>(k_sm + c * KS + d + e) =
+            make_float4(kx[e], kx[e + 1], kx[e + 2], kx[e + 3]);
+        *reinterpret_cast<float4*>(v_sm + c * D + d + e) =
+            make_float4(vx[e], vx[e + 1], vx[e + 2], vx[e + 3]);
+      }
+    }
+  } else {
+    using Q = QuantRow<BITS, D>;
+    for (int i = threadIdx.x; i < BK * Q::VR; i += kThreads) {
+      const int c = i / Q::VR, v = i % Q::VR, d = v * Q::EV;
+      float kx[Q::EV], vx[Q::EV];
+      if (kv0 + c < valid) {
+        const size_t cell = (page * ps + c0 + c) * K + kh;
+        uint4 raw;
+        float sc;
+        load_qvec<BITS, D>(static_cast<const int8_t*>(k_pool), k_scale, cell,
+                           v, SG, raw, sc);
+        dequant16<T, BITS>(raw, sc, kx);
+        load_qvec<BITS, D>(static_cast<const int8_t*>(v_pool), v_scale, cell,
+                           v, SG, raw, sc);
+        dequant16<T, BITS>(raw, sc, vx);
+      } else {
+#pragma unroll
+        for (int e = 0; e < Q::EV; ++e) kx[e] = vx[e] = 0.f;
+      }
+#pragma unroll
+      for (int e = 0; e < Q::EV; e += 4) {
+        *reinterpret_cast<float4*>(k_sm + c * KS + d + e) =
+            make_float4(kx[e], kx[e + 1], kx[e + 2], kx[e + 3]);
+        *reinterpret_cast<float4*>(v_sm + c * D + d + e) =
+            make_float4(vx[e], vx[e + 1], vx[e + 2], vx[e + 3]);
+      }
+    }
+  }
+}
+
+template <typename T, int D, int BITS>
 __global__ void __launch_bounds__(kThreads)
-paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
-                     const T* __restrict__ v_pool,
+paged_prefill_kernel(const T* __restrict__ q, const void* __restrict__ k_pool,
+                     const void* __restrict__ v_pool,
+                     const float* __restrict__ k_scale,
+                     const float* __restrict__ v_scale,
                      const int* __restrict__ table,
                      const int* __restrict__ offsets,
                      const int* __restrict__ kv_valid, T* __restrict__ out,
                      int Tq, int H, int K, int ps, int pp, int BQ, int BK,
-                     int window, float softcap) {
+                     int window, float softcap, int SG) {
   const int tile = blockIdx.x;
   const int kh = blockIdx.y;
   const int b = blockIdx.z;
@@ -151,25 +218,8 @@ paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
       if (kv0 > q_last || kv0 >= valid) break;
       if (window > 0 && kv0 + BK - 1 <= q_start - window) continue;
 
-      for (int i = tid; i < BK * (D / N); i += kThreads) {
-        const int c = i / (D / N), d = (i % (D / N)) * N;
-        float kx[N], vx[N];
-        if (kv0 + c < valid) {
-          const size_t off = ((page * ps + c0 + c) * K + kh) * D + d;
-          Vec<T>::load(k_pool + off, kx);
-          Vec<T>::load(v_pool + off, vx);
-        } else {
-#pragma unroll
-          for (int e = 0; e < N; ++e) kx[e] = vx[e] = 0.f;
-        }
-#pragma unroll
-        for (int e = 0; e < N; e += 4) {
-          *reinterpret_cast<float4*>(k_sm + c * KS + d + e) =
-              make_float4(kx[e], kx[e + 1], kx[e + 2], kx[e + 3]);
-          *reinterpret_cast<float4*>(v_sm + c * D + d + e) =
-              make_float4(vx[e], vx[e + 1], vx[e + 2], vx[e + 3]);
-        }
-      }
+      stage_sub_block<T, D, BITS>(k_pool, v_pool, k_scale, v_scale, page, c0,
+                                  kv0, valid, BK, ps, K, kh, SG, k_sm, v_sm);
       __syncthreads();
 
       {
@@ -266,40 +316,53 @@ paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
   }
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* k_pool, const void* v_pool,
-           const int* table, const int* offsets, const int* kv_valid,
-           void* out, int B, int Tq, int H, int K, int ps, int pp, int window,
-           float softcap, cudaStream_t stream) {
-  const int G = H / K;
-  const Tile tl = pick_tile(G, ps, Tq);
-  const size_t smem = sizeof(float) * prefill_smem_floats(G, D, ps, Tq);
-  auto kernel = paged_prefill_kernel<T, D>;
+struct Args {
+  const void* q;
+  const void* k_pool;
+  const void* v_pool;
+  const float* k_scale;
+  const float* v_scale;
+  const int* table;
+  const int* offsets;
+  const int* kv_valid;
+  void* out;
+  int B, Tq, H, K, ps, pp, window;
+  float softcap;
+  int G;  // scale groups per cell (quantized pools)
+};
+
+template <typename T, int D, int BITS>
+int launch(const Args& a, cudaStream_t stream) {
+  const int G = a.H / a.K;
+  const Tile tl = pick_tile(G, a.ps, a.Tq);
+  const size_t smem = sizeof(float) * prefill_smem_floats(G, D, a.ps, a.Tq);
+  auto kernel = paged_prefill_kernel<T, D, BITS>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((Tq + tl.bq - 1) / tl.bq, K, B);
+  const dim3 grid((a.Tq + tl.bq - 1) / tl.bq, a.K, a.B);
   kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_pool),
-      static_cast<const T*>(v_pool), table, offsets, kv_valid,
-      static_cast<T*>(out), Tq, H, K, ps, pp, tl.bq, tl.bk, window, softcap);
+      static_cast<const T*>(a.q), a.k_pool, a.v_pool, a.k_scale, a.v_scale,
+      a.table, a.offsets, a.kv_valid, static_cast<T*>(a.out), a.Tq, a.H, a.K,
+      a.ps, a.pp, tl.bq, tl.bk, a.window, a.softcap, a.G);
   return cudaGetLastError();
 }
 
+template <typename T, int D>
+int dispatch_bits(int bits, const Args& a, cudaStream_t stream) {
+  switch (bits) {
+    case kBitsNone: return launch<T, D, kBitsNone>(a, stream);
+    case 8: return launch<T, D, 8>(a, stream);
+    case 4: return launch<T, D, 4>(a, stream);
+  }
+  return cudaErrorInvalidValue;
+}
+
 template <typename T>
-int dispatch_d(int D, const void* q, const void* k_pool, const void* v_pool,
-               const int* table, const int* offsets, const int* kv_valid,
-               void* out, int B, int Tq, int H, int K, int ps, int pp,
-               int window, float softcap, cudaStream_t stream) {
+int dispatch_d(int D, int bits, const Args& a, cudaStream_t stream) {
   switch (D) {
-    case 64:
-      return launch<T, 64>(q, k_pool, v_pool, table, offsets, kv_valid, out,
-                           B, Tq, H, K, ps, pp, window, softcap, stream);
-    case 128:
-      return launch<T, 128>(q, k_pool, v_pool, table, offsets, kv_valid, out,
-                            B, Tq, H, K, ps, pp, window, softcap, stream);
-    case 256:
-      return launch<T, 256>(q, k_pool, v_pool, table, offsets, kv_valid, out,
-                            B, Tq, H, K, ps, pp, window, softcap, stream);
+    case 64: return dispatch_bits<T, 64>(bits, a, stream);
+    case 128: return dispatch_bits<T, 128>(bits, a, stream);
+    case 256: return dispatch_bits<T, 256>(bits, a, stream);
   }
   return cudaErrorInvalidValue;
 }
@@ -314,28 +377,29 @@ long long rt_paged_prefill_smem_bytes(int G, int D, int ps, int T) {
   return (long long)(sizeof(float) * rt::prefill_smem_floats(G, D, ps, T));
 }
 
-// Launches K2 on `stream` (a cudaStream_t) of `device`. Returns a cudaError_t
-// code, 0 on success; the launch itself is asynchronous.
+// Launches K2 on `stream` (a cudaStream_t) of `device`. kv_bits 0: the
+// pools hold T; 8 or 4: int8 payload pools with f32 scales [P,ps,K,G]
+// (K4). Returns a cudaError_t code, 0 on success; the launch itself is
+// asynchronous.
 int rt_paged_prefill(const void* q, const void* k_pool, const void* v_pool,
+                     const float* k_scale, const float* v_scale,
                      const int* table, const int* offsets,
                      const int* kv_valid, void* out, int B, int T, int H,
                      int K, int D, int ps, int pp, int window, float softcap,
-                     int dtype, int device, void* stream) {
+                     int dtype, int kv_bits, int G, int device,
+                     void* stream) {
   if (B < 1 || T < 1 || K < 1 || H % K != 0 || H / K > rt::kMaxGroup ||
-      ps < 1 || pp < 1)
+      ps < 1 || pp < 1 || !rt::quant_args_ok(kv_bits, D, G) ||
+      (kv_bits != rt::kBitsNone && (k_scale == nullptr || v_scale == nullptr)))
     return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
+  const rt::Args a{q, k_pool, v_pool, k_scale, v_scale, table, offsets,
+                   kv_valid, out, B, T, H, K, ps, pp, window, softcap, G};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case rt::kF32:
-      return rt::dispatch_d<float>(D, q, k_pool, v_pool, table, offsets,
-                                   kv_valid, out, B, T, H, K, ps, pp, window,
-                                   softcap, s);
-    case rt::kBF16:
-      return rt::dispatch_d<__nv_bfloat16>(D, q, k_pool, v_pool, table,
-                                           offsets, kv_valid, out, B, T, H, K,
-                                           ps, pp, window, softcap, s);
+    case rt::kF32: return rt::dispatch_d<float>(D, kv_bits, a, s);
+    case rt::kBF16: return rt::dispatch_d<__nv_bfloat16>(D, kv_bits, a, s);
   }
   return cudaErrorInvalidValue;
 }

@@ -38,6 +38,10 @@
 // (mma/wgmma), TMA staging, split-KV for long decode rows and packing
 // decode rows densely (7 of 8 rows of a decode block are pad) are later
 // work.
+//
+// Quantized pools (K4, paged_common.cuh): the sub-block's registers hold
+// whole 16-byte payload vectors and their scales instead, dequantized
+// (rounded to T) into the same f32 sub-block when stored.
 #include "paged_common.cuh"
 
 namespace rt {
@@ -84,52 +88,77 @@ struct Widen<__nv_bfloat16> {
   }
 };
 
-// Sixteen-byte vectors of one staged sub-block each thread moves per pool.
-template <typename T, int D>
+// Sixteen-byte vectors of one staged sub-block each thread moves per pool:
+// native rows, or (K4) payload vectors.
+template <typename T, int D, int BITS>
 struct Stage {
   static constexpr int N = Vec<T>::N;
-  static constexpr int LPT = (kMaxBK * (D / N) + kThreads - 1) / kThreads;
+  static constexpr int VR = BITS == kBitsNone ? D / N
+                                              : QuantRow<BITS, D>::VR;
+  static constexpr int LPT = (kMaxBK * VR + kThreads - 1) / kThreads;
 };
 
-// Loads the K/V cells [kv0, kv0 + BK) of one page into registers; cells at
-// or past `valid` read nothing and stage as zeros.
-template <typename T, int D>
+// Loads the K/V cells [kv0, kv0 + BK) of one page into registers (with
+// each payload vector's scale when quantized); cells at or past `valid`
+// read nothing and stage as zeros.
+template <typename T, int D, int BITS>
 __device__ __forceinline__ void load_sub_block(
-    const T* __restrict__ k_pool, const T* __restrict__ v_pool, size_t page,
-    int kv0, int valid, int BK, int ps, int K, int kh, uint4* kr,
-    uint4* vr) {
-  constexpr int N = Stage<T, D>::N, LPT = Stage<T, D>::LPT;
+    const void* __restrict__ k_pool, const void* __restrict__ v_pool,
+    const float* __restrict__ k_scale, const float* __restrict__ v_scale,
+    size_t page, int kv0, int valid, int BK, int ps, int K, int kh, int SG,
+    uint4* kr, uint4* vr, float* ksr, float* vsr) {
+  using S = Stage<T, D, BITS>;
   const int cell0 = kv0 % ps;
 #pragma unroll
-  for (int it = 0; it < LPT; ++it) {
+  for (int it = 0; it < S::LPT; ++it) {
     const int i = threadIdx.x + it * kThreads;
-    const int c = i / (D / N), v = i % (D / N);
+    const int c = i / S::VR, v = i % S::VR;
     if (c < BK && kv0 + c < valid) {
-      const size_t off = ((page * ps + cell0 + c) * K + kh) * D + v * N;
-      kr[it] = *reinterpret_cast<const uint4*>(k_pool + off);
-      vr[it] = *reinterpret_cast<const uint4*>(v_pool + off);
+      if constexpr (BITS == kBitsNone) {
+        const size_t off = ((page * ps + cell0 + c) * K + kh) * D + v * S::N;
+        kr[it] = *reinterpret_cast<const uint4*>(
+            static_cast<const T*>(k_pool) + off);
+        vr[it] = *reinterpret_cast<const uint4*>(
+            static_cast<const T*>(v_pool) + off);
+      } else {
+        const size_t cell = (page * ps + cell0 + c) * K + kh;
+        load_qvec<BITS, D>(static_cast<const int8_t*>(k_pool), k_scale, cell,
+                           v, SG, kr[it], ksr[it]);
+        load_qvec<BITS, D>(static_cast<const int8_t*>(v_pool), v_scale, cell,
+                           v, SG, vr[it], vsr[it]);
+      }
     } else {
       kr[it] = make_uint4(0u, 0u, 0u, 0u);
       vr[it] = make_uint4(0u, 0u, 0u, 0u);
+      ksr[it] = vsr[it] = 0.f;
     }
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, int BITS>
 __device__ __forceinline__ void store_sub_block(float* k_sm, float* v_sm,
                                                 int BK, const uint4* kr,
-                                                const uint4* vr) {
-  constexpr int N = Stage<T, D>::N, LPT = Stage<T, D>::LPT, KS = D + 4;
+                                                const uint4* vr,
+                                                const float* ksr,
+                                                const float* vsr) {
+  using S = Stage<T, D, BITS>;
+  constexpr int KS = D + 4;
+  constexpr int EV = BITS == kBitsNone ? S::N : QuantRow<BITS, D>::EV;
 #pragma unroll
-  for (int it = 0; it < LPT; ++it) {
+  for (int it = 0; it < S::LPT; ++it) {
     const int i = threadIdx.x + it * kThreads;
-    const int c = i / (D / N), v = (i % (D / N)) * N;
+    const int c = i / S::VR, v = (i % S::VR) * EV;
     if (c < BK) {
-      float kx[N], vx[N];
-      Widen<T>::run(kr[it], kx);
-      Widen<T>::run(vr[it], vx);
+      float kx[EV], vx[EV];
+      if constexpr (BITS == kBitsNone) {
+        Widen<T>::run(kr[it], kx);
+        Widen<T>::run(vr[it], vx);
+      } else {
+        dequant16<T, BITS>(kr[it], ksr[it], kx);
+        dequant16<T, BITS>(vr[it], vsr[it], vx);
+      }
 #pragma unroll
-      for (int e = 0; e < N; e += 4) {
+      for (int e = 0; e < EV; e += 4) {
         *reinterpret_cast<float4*>(k_sm + c * KS + v + e) =
             make_float4(kx[e], kx[e + 1], kx[e + 2], kx[e + 3]);
         *reinterpret_cast<float4*>(v_sm + c * D + v + e) =
@@ -186,17 +215,19 @@ __device__ __forceinline__ void score_rows(const float* q_sm,
   }
 }
 
-template <typename T, int D, int MAXR>
+template <typename T, int D, int MAXR, int BITS>
 __global__ void __launch_bounds__(kThreads)
-ragged_paged_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
-                    const T* __restrict__ v_pool,
+ragged_paged_kernel(const T* __restrict__ q, const void* __restrict__ k_pool,
+                    const void* __restrict__ v_pool,
+                    const float* __restrict__ k_scale,
+                    const float* __restrict__ v_scale,
                     const int* __restrict__ tables,
                     const int* __restrict__ seq_of_block,
                     const int* __restrict__ block_qstart,
                     const int* __restrict__ query_offsets,
                     const int* __restrict__ kv_valid, T* __restrict__ out,
                     int H, int K, int ps, int pp, int window,
-                    float softcap) {
+                    float softcap, int SG) {
   const int qb = blockIdx.x;
   const int kh = blockIdx.y;
   const int G = H / K;
@@ -262,19 +293,22 @@ ragged_paged_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
                       : 0;
   const int* row_table = tables + (size_t)seq * pp;
 
-  constexpr int LPT = Stage<T, D>::LPT;
+  constexpr int LPT = Stage<T, D, BITS>::LPT;
   uint4 kr[LPT], vr[LPT];
+  float ksr[LPT], vsr[LPT];
   if (start < end)
-    load_sub_block<T, D>(k_pool, v_pool, (size_t)row_table[start / ps],
-                         start, valid, BK, ps, K, kh, kr, vr);
+    load_sub_block<T, D, BITS>(k_pool, v_pool, k_scale, v_scale,
+                               (size_t)row_table[start / ps], start, valid,
+                               BK, ps, K, kh, SG, kr, vr, ksr, vsr);
   for (int kv0 = start; kv0 < end; kv0 += BK) {
     __syncthreads();  // the previous sub-block's readers are done
-    store_sub_block<T, D>(k_sm, v_sm, BK, kr, vr);
+    store_sub_block<T, D, BITS>(k_sm, v_sm, BK, kr, vr, ksr, vsr);
     __syncthreads();
     const int next = kv0 + BK;
     if (next < end)  // the next sub-block's loads fly during this one
-      load_sub_block<T, D>(k_pool, v_pool, (size_t)row_table[next / ps],
-                           next, valid, BK, ps, K, kh, kr, vr);
+      load_sub_block<T, D, BITS>(k_pool, v_pool, k_scale, v_scale,
+                                 (size_t)row_table[next / ps], next, valid,
+                                 BK, ps, K, kh, SG, kr, vr, ksr, vsr);
 
     for (int r = rg; r < R; r += 2 * RG) {
       if (r + RG < R)
@@ -345,6 +379,8 @@ struct Args {
   const void* q;
   const void* k_pool;
   const void* v_pool;
+  const float* k_scale;
+  const float* v_scale;
   const int* tables;
   const int* seq_of_block;
   const int* block_qstart;
@@ -353,40 +389,51 @@ struct Args {
   void* out;
   int T, H, K, ps, pp, window;
   float softcap;
+  int G;  // scale groups per cell (quantized pools)
 };
 
-template <typename T, int D, int MAXR>
+template <typename T, int D, int MAXR, int BITS>
 int launch(const Args& a, cudaStream_t stream) {
   const int G = a.H / a.K;
   const size_t smem = sizeof(float) * ragged_smem_floats(G, D, a.ps);
-  auto kernel = ragged_paged_kernel<T, D, MAXR>;
+  auto kernel = ragged_paged_kernel<T, D, MAXR, BITS>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(a.T / kBlockQ, a.K);
   kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k_pool),
-      static_cast<const T*>(a.v_pool), a.tables, a.seq_of_block,
-      a.block_qstart, a.query_offsets, a.kv_valid, static_cast<T*>(a.out),
-      a.H, a.K, a.ps, a.pp, a.window, a.softcap);
+      static_cast<const T*>(a.q), a.k_pool, a.v_pool, a.k_scale, a.v_scale,
+      a.tables, a.seq_of_block, a.block_qstart, a.query_offsets, a.kv_valid,
+      static_cast<T*>(a.out), a.H, a.K, a.ps, a.pp, a.window, a.softcap,
+      a.G);
   return cudaGetLastError();
+}
+
+template <typename T, int D, int MAXR>
+int dispatch_bits(int bits, const Args& a, cudaStream_t stream) {
+  switch (bits) {
+    case kBitsNone: return launch<T, D, MAXR, kBitsNone>(a, stream);
+    case 8: return launch<T, D, MAXR, 8>(a, stream);
+    case 4: return launch<T, D, MAXR, 4>(a, stream);
+  }
+  return cudaErrorInvalidValue;
 }
 
 // The accumulator tile is sized for the smallest of 32/64/128 query rows
 // that holds group * 8.
 template <typename T, int D>
-int dispatch_rows(const Args& a, cudaStream_t stream) {
+int dispatch_rows(int bits, const Args& a, cudaStream_t stream) {
   const int rows = a.H / a.K * kBlockQ;
-  if (rows <= 32) return launch<T, D, 32>(a, stream);
-  if (rows <= 64) return launch<T, D, 64>(a, stream);
-  return launch<T, D, 128>(a, stream);
+  if (rows <= 32) return dispatch_bits<T, D, 32>(bits, a, stream);
+  if (rows <= 64) return dispatch_bits<T, D, 64>(bits, a, stream);
+  return dispatch_bits<T, D, 128>(bits, a, stream);
 }
 
 template <typename T>
-int dispatch_d(int D, const Args& a, cudaStream_t stream) {
+int dispatch_d(int D, int bits, const Args& a, cudaStream_t stream) {
   switch (D) {
-    case 64: return dispatch_rows<T, 64>(a, stream);
-    case 128: return dispatch_rows<T, 128>(a, stream);
-    case 256: return dispatch_rows<T, 256>(a, stream);
+    case 64: return dispatch_rows<T, 64>(bits, a, stream);
+    case 128: return dispatch_rows<T, 128>(bits, a, stream);
+    case 256: return dispatch_rows<T, 256>(bits, a, stream);
   }
   return cudaErrorInvalidValue;
 }
@@ -401,27 +448,33 @@ long long rt_ragged_smem_bytes(int G, int D, int ps) {
   return (long long)(sizeof(float) * rt::ragged_smem_floats(G, D, ps));
 }
 
-// Launches K3 on `stream` (a cudaStream_t) of `device`. Returns a cudaError_t
-// code, 0 on success; the launch itself is asynchronous.
+// Launches K3 on `stream` (a cudaStream_t) of `device`. kv_bits 0: the
+// pools hold T; 8 or 4: int8 payload pools with f32 scales [P,ps,K,G]
+// (K4). Returns a cudaError_t code, 0 on success; the launch itself is
+// asynchronous.
 int rt_ragged_paged(const void* q, const void* k_pool, const void* v_pool,
+                    const float* k_scale, const float* v_scale,
                     const int* tables, const int* seq_of_block,
                     const int* block_qstart, const int* query_offsets,
                     const int* kv_valid, void* out, int T, int H, int K,
                     int D, int ps, int pp, int window, float softcap,
-                    int dtype, int device, void* stream) {
+                    int dtype, int kv_bits, int G, int device,
+                    void* stream) {
   const int bk = rt::sub_block(ps);
   if (T < rt::kBlockQ || T % rt::kBlockQ || K < 1 || H % K != 0 ||
-      H / K > rt::kMaxGroup || ps < 4 || bk % 4 || ps % bk || pp < 1)
+      H / K > rt::kMaxGroup || ps < 4 || bk % 4 || ps % bk || pp < 1 ||
+      !rt::quant_args_ok(kv_bits, D, G) ||
+      (kv_bits != rt::kBitsNone && (k_scale == nullptr || v_scale == nullptr)))
     return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  const rt::Args a{q, k_pool, v_pool, tables, seq_of_block, block_qstart,
-                   query_offsets, kv_valid, out, T, H, K, ps, pp, window,
-                   softcap};
+  const rt::Args a{q, k_pool, v_pool, k_scale, v_scale, tables,
+                   seq_of_block, block_qstart, query_offsets, kv_valid, out,
+                   T, H, K, ps, pp, window, softcap, G};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case rt::kF32: return rt::dispatch_d<float>(D, a, s);
-    case rt::kBF16: return rt::dispatch_d<__nv_bfloat16>(D, a, s);
+    case rt::kF32: return rt::dispatch_d<float>(D, kv_bits, a, s);
+    case rt::kBF16: return rt::dispatch_d<__nv_bfloat16>(D, kv_bits, a, s);
   }
   return cudaErrorInvalidValue;
 }

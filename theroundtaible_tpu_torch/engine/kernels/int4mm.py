@@ -1,0 +1,411 @@
+"""w4a16 decode products: hand-written CUDA kernels, their plain PyTorch
+versions, and their plan (counterpart of
+theroundtaible_tpu/engine/pallas/int4mm.py).
+
+An Int4Leaf (engine/quant.py) packs two signed nibbles per int8 byte along
+the weight's last axis, even element in the low nibble, with one scale in
+the activation dtype per `group` elements (gp = group / 2 packed bytes).
+Two kernels cover every serving call site at decode (M <= 64 activation
+rows), streaming the packed bytes instead of a dequantized copy:
+
+- mm_pack_out (K5, csrc/int4mm.cu) - x [M, C] . unpack(q4 [C, P],
+  s4 [C, P/gp]) -> [M, 2P] f32, output column 2k from byte k's low
+  nibble and 2k+1 from its high one: every per-layer projection (the
+  packed axis is an output axis). Replaces the TPU kernel `_mm_pack_out`.
+- mm_pack_contract (K6, csrc/int4mm.cu) - x [M, 2Cp] . unpack(q4 [N, Cp],
+  s4 [N, Cp/gp])^T -> [M, N] f32: the lm head ("bte,ve->btv", the packed
+  axis is contracted), tied or not. Replaces the TPU kernel
+  `_mm_pack_contract`; x's even and odd columns are read in place.
+
+Numerics of both (and of models/common.dequant_int4): each nibble times
+its scale in the activation dtype, rounded to it, then f32 products and
+sums, in an order that is the same on every call.
+
+Each leaf is planned once, when it is made (quant.quantize_params,
+weights.params_from_numpy): `plan_leaf` classifies its call site
+(`_classify`, the JAX package's, with its reason strings) and checks the
+kernels' block constraints, which take the place of the TPU plan's VMEM
+budget; the leaf keeps the Int4Plan. A product then only counts its
+activation rows (`einsum_int4_or_reason`): up to 64 run the planned
+kernel, more (prefill) take the dequant path with `rows:prefill-m`, as in
+the JAX package. A leaf whose plan declines takes the dequant path on the
+CPU, with the reason; on a CUDA tensor it raises, and the engine refuses
+such a leaf when it is built. ROUNDTABLE_INT4_MM=0, read when a leaf is
+planned, declines every leaf (`kernel-disabled`). The CPU runs the plain
+versions where a card runs the kernels; each launch adds one to its count
+(launch_counts()).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+import os
+from typing import Optional
+
+import torch
+
+from . import build
+
+KERNELS = ("mm_pack_out", "mm_pack_contract")
+_launches = dict.fromkeys(KERNELS, 0)
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+PATH_DEQUANT = "xla_dequant"
+
+
+def launch_counts() -> dict[str, int]:
+    """Kernel launches per wrapper since the last reset."""
+    return dict(_launches)
+
+
+def reset_launch_counts() -> None:
+    for name in _launches:
+        _launches[name] = 0
+
+
+def enabled() -> bool:
+    """The kernel path is on by default; ROUNDTABLE_INT4_MM=0 declines
+    every leaf planned while it is set (`kernel-disabled`): the CPU then
+    serves every product through the dequant path, and a card refuses the
+    leaves."""
+    return os.environ.get("ROUNDTABLE_INT4_MM", "") != "0"
+
+
+def kernel_path(device) -> str:
+    """Provenance name of the kernel path on `device`."""
+    return ("cuda_w4a16" if torch.device(device).type == "cuda"
+            else "plain_w4a16")
+
+
+# --- the plan ---
+
+
+def _classify(spec: str, leaf):
+    """((mode, n_cont, gp), None) with mode "out" (weight = contracted
+    prefix + kept axes, pack axis kept-minor) or "contract" (kept + one
+    contracted pack axis: the lm head), or (None, reason) when neither
+    kernel serves the spec."""
+    lhs, out_dims = spec.split("->")
+    a_dims, b_dims = lhs.split(",")
+    cont = [d for d in b_dims if d in a_dims]
+    kept = [d for d in b_dims if d not in a_dims]
+    if not cont or not kept:
+        return None, "spec:no-contraction-or-kept"
+    if a_dims[-len(cont):] != "".join(cont):
+        return None, "spec:cont-not-activation-suffix"
+    batch = a_dims[:-len(cont)]
+    if out_dims != batch + "".join(kept):
+        return None, "spec:out-layout"
+    if leaf.axis != leaf.q4.dim() - 1:
+        return None, "pack:non-minor-axis"
+    if leaf.group % 2:
+        return None, "pack:odd-group"
+    gp = leaf.group // 2
+    if list(b_dims) == cont + kept:
+        return ("out", len(cont), gp), None
+    if list(b_dims) == kept + cont and len(cont) == 1:
+        return ("contract", 1, gp), None
+    return None, "spec:mixed-kept-contracted"
+
+
+# Decode kernels: above this many activation rows a product takes the
+# dequant path, where the dequantized weight amortizes over the rows (the
+# JAX package's _plan_rows: rows padded to 8, at most 64).
+MAX_ROWS = 64
+
+# The CUDA kernels' constraints (csrc/int4mm.cu): a thread loads 16 packed
+# bytes that share one scale, so the packed width and the packed group
+# are multiples of 16; K6 stages M_TILE rows of x in shared memory.
+_VEC_BYTES = 16
+_M_TILE = 4
+_SMEM_LIMIT = 227 * 1024
+
+
+def _kernel_reason(mode: str, packed: int, gp: int, dtype) -> Optional[str]:
+    """Why the CUDA kernel of `mode` declines these operands (None: it
+    takes them). `packed`: P for K5, Cp for K6."""
+    if dtype not in _DTYPE_CODES:
+        return f"dtype:{dtype}"
+    if gp % _VEC_BYTES:
+        return f"pack:group {2 * gp} not a multiple of {2 * _VEC_BYTES}"
+    if packed % _VEC_BYTES:
+        return f"blocks:packed width {packed} not a multiple of {_VEC_BYTES}"
+    if mode == "contract" and _contract_smem_bytes(packed) > _SMEM_LIMIT:
+        return f"smem:{_contract_smem_bytes(packed)}"
+    return None
+
+
+def _contract_smem_bytes(cp: int) -> int:
+    """K6's staged x: M_TILE rows of 2*cp values as f32, each 32-value
+    chunk padded to 36 (conflict-free float4 reads)."""
+    return 4 * _M_TILE * (cp // _VEC_BYTES) * 36
+
+
+@dataclasses.dataclass(frozen=True)
+class Int4Plan:
+    """How a leaf's products run, fixed when the leaf is made. `mode` "out"
+    (K5) or "contract" (K6) once `_classify` accepts the call site, else
+    None; `reason` why no kernel serves the leaf (None: one does). The
+    activation's last `n_cont` axes (`width` values) are contracted; the
+    weight's 2-D view has `w_rows` rows; the output's trailing axes are
+    `kept`. `plain` runs the kernels' plain versions on any device."""
+
+    spec: str
+    mode: Optional[str] = None
+    reason: Optional[str] = None
+    gp: int = 0
+    n_cont: int = 0
+    width: int = 0
+    w_rows: int = 0
+    kept: tuple = ()
+    plain: bool = False
+
+
+def _plan(spec: str, leaf) -> Int4Plan:
+    cls, reason = _classify(spec, leaf)
+    if cls is None:
+        return Int4Plan(spec, reason=reason)
+    mode, n_cont, gp = cls
+    shape = tuple(leaf.q4.shape)
+    if mode == "out":
+        c = 1
+        for s in shape[:n_cont]:
+            c *= s
+        packed = leaf.q4.numel() // c
+        geo = dict(n_cont=n_cont, width=c, w_rows=c,
+                   kept=(*shape[n_cont:-1], 2 * shape[-1]))
+    else:
+        packed = shape[-1]
+        geo = dict(n_cont=1, width=2 * packed,
+                   w_rows=leaf.q4.numel() // packed, kept=shape[:-1])
+    return Int4Plan(spec, mode=mode, gp=gp,
+                    reason=_kernel_reason(mode, packed, gp, leaf.s4.dtype),
+                    **geo)
+
+
+def plan_leaf(spec: str, leaf):
+    """`leaf` with its plan for the call site `spec` (SPEC_* of
+    models/common): shapes only, once per leaf."""
+    plan = _plan(spec, leaf)
+    if not enabled():
+        plan = dataclasses.replace(plan, mode=None, reason="kernel-disabled")
+    return dataclasses.replace(leaf, plan=plan)
+
+
+def plan_reason(spec: str, a_shape: tuple, leaf) -> Optional[str]:
+    """Why `einsum(spec, a, dequant(leaf))` at activation shape `a_shape`
+    does not run a kernel (None: one does) - the JAX package's
+    plan_reason with the card's constraints in place of its VMEM plan."""
+    plan = _plan(spec, leaf)
+    if plan.mode is None:
+        return plan.reason
+    a_numel = 1
+    for s in a_shape:
+        a_numel *= s
+    if a_numel > MAX_ROWS * plan.width:
+        return "rows:prefill-m"
+    return plan.reason
+
+
+def route_report(sites, device) -> dict:
+    """int4 path provenance from the plans of `sites` ((spec, leaf) of
+    every Int4Leaf product, models/common.int4_sites), in the JAX engine's
+    shape: {kernel_path(device): [...], "xla_dequant": [{...,
+    "fallback_reason"}]}. Each call site appears once per weight shape:
+    its decode rows (`rows` "<=64") on the kernel path and its prefill
+    rows (">64") on the dequant path, or all of its rows there with the
+    reason its plan declines. On a card a declining plan raises: K5/K6
+    serve every decode product there."""
+    kernel, dequant, seen = [], [], set()
+    for spec, leaf in sites:
+        w_shape = [*leaf.q4.shape[:-1], 2 * leaf.q4.shape[-1]]
+        key = (spec, tuple(w_shape))
+        if key in seen:
+            continue
+        seen.add(key)
+        plan = leaf.plan
+        if plan is None or plan.spec != spec:
+            raise ValueError(f"{spec} {w_shape}: the Int4Leaf is not "
+                             f"planned for this call site (plan_leaf)")
+        if plan.reason is not None:
+            if torch.device(device).type == "cuda":
+                hint = (" (ROUNDTABLE_INT4_MM=0)"
+                        if plan.reason == "kernel-disabled" else "")
+                raise ValueError(
+                    f"the w4a16 kernels (K5/K6) decline {spec} {w_shape} on "
+                    f"{device}: {plan.reason}{hint}")
+            dequant.append({"spec": spec, "w_shape": w_shape, "rows": "all",
+                            "fallback_reason": plan.reason})
+            continue
+        kernel.append({"spec": spec, "w_shape": w_shape,
+                       "rows": f"<={MAX_ROWS}"})
+        dequant.append({"spec": spec, "w_shape": w_shape,
+                        "rows": f">{MAX_ROWS}",
+                        "fallback_reason": "rows:prefill-m"})
+    return {kernel_path(device): kernel, PATH_DEQUANT: dequant}
+
+
+# --- plain versions ---
+
+
+def _nibbles(q4: torch.Tensor, dtype) -> tuple[torch.Tensor, torch.Tensor]:
+    """(low, high) signed nibbles of every packed byte, in `dtype`."""
+    q = q4.to(torch.int32)
+    return ((q << 28) >> 28).to(dtype), (q >> 4).to(dtype)
+
+
+def mm_pack_out_ref(x: torch.Tensor, q4: torch.Tensor, s4: torch.Tensor,
+                    gp: int) -> torch.Tensor:
+    """Plain version of K5: x [M, C] . unpack(q4 [C, P], s4 [C, P/gp]) ->
+    [M, 2P] f32, even columns from the low nibbles."""
+    low, high = _nibbles(q4, x.dtype)
+    srep = s4.to(x.dtype).repeat_interleave(gp, dim=1)         # [C, P]
+    xf = x.float()
+    lo = torch.matmul(xf, (low * srep).float())
+    hi = torch.matmul(xf, (high * srep).float())
+    return torch.stack([lo, hi], dim=-1).reshape(x.shape[0], -1)
+
+
+def mm_pack_contract_ref(x: torch.Tensor, q4: torch.Tensor,
+                         s4: torch.Tensor, gp: int) -> torch.Tensor:
+    """Plain version of K6: x [M, 2Cp] . unpack(q4 [N, Cp],
+    s4 [N, Cp/gp])^T -> [M, N] f32 (x's even columns meet the low
+    nibbles, its odd columns the high ones)."""
+    low, high = _nibbles(q4, x.dtype)
+    srep = s4.to(x.dtype).repeat_interleave(gp, dim=1)         # [N, Cp]
+    return (torch.matmul(x[:, 0::2].float(), (low * srep).float().t())
+            + torch.matmul(x[:, 1::2].float(), (high * srep).float().t()))
+
+
+# --- kernel wrappers ---
+
+
+def _check(x, q4, s4, gp: int, what: str) -> None:
+    if x.dim() != 2 or q4.dim() != 2 or s4.dim() != 2:
+        raise ValueError(f"{what}: x, q4 and s4 must be 2-D, got "
+                         f"{tuple(x.shape)}, {tuple(q4.shape)}, "
+                         f"{tuple(s4.shape)}")
+    if q4.dtype != torch.int8:
+        raise ValueError(f"{what}: q4 must be int8, got {q4.dtype}")
+    if gp < 1 or q4.shape[1] % gp or s4.shape != (q4.shape[0],
+                                                   q4.shape[1] // gp):
+        raise ValueError(f"{what}: s4 {tuple(s4.shape)} does not group q4 "
+                         f"{tuple(q4.shape)} by {gp} bytes")
+    if len({x.device, q4.device, s4.device}) != 1:
+        raise ValueError(f"{what}: operands on several devices")
+
+
+def _cuda_operands(mode, x, q4, s4, gp, what: str) -> None:
+    if x.shape[0] > MAX_ROWS:
+        raise ValueError(f"{what} declines: rows:prefill-m ({x.shape[0]} "
+                         f"rows)")
+    reason = _kernel_reason(mode, q4.shape[1], gp, x.dtype)
+    if reason is not None:
+        raise ValueError(f"{what} declines: {reason}")
+    if s4.dtype != x.dtype:
+        raise ValueError(f"{what}: s4 must be in x's dtype {x.dtype}, got "
+                         f"{s4.dtype}")
+    for name, t in (("x", x), ("q4", q4), ("s4", s4)):
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{what}: {name} must be 16-byte aligned")
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def out_splits(c: int, p: int, sms: int) -> int:
+    """K5's C splits: enough blocks to cover the SMs twice (k/v_proj have
+    one 512-byte column tile), each split at least 64 and at most 1024
+    rows of C (csrc/int4mm.cu stages a split's x rows in shared memory)."""
+    col_tiles = -(-p // 512)
+    splits = max(1, min(-(-2 * sms // col_tiles), -(-c // 64)))
+    return max(splits, -(-c // 1024))
+
+
+def mm_pack_out(x: torch.Tensor, q4: torch.Tensor, s4: torch.Tensor,
+                gp: int) -> torch.Tensor:
+    """x [M, C] . unpack(q4 [C, P], s4 [C, P/gp]) -> [M, 2P] f32 (K5).
+    C splits write their partial sums to a workspace, which a second pass
+    adds in split order, so a call's result is the same every time."""
+    what = "mm_pack_out"
+    _check(x, q4, s4, gp, what)
+    if x.shape[1] != q4.shape[0]:
+        raise ValueError(f"{what}: x {tuple(x.shape)} does not contract "
+                         f"with q4 {tuple(q4.shape)}")
+    if x.device.type == "cpu":
+        return mm_pack_out_ref(x, q4, s4, gp)
+    _cuda_operands("out", x, q4, s4, gp, what)
+    m, c = x.shape
+    p = q4.shape[1]
+    index = x.device.index or 0
+    splits = out_splits(c, p, _sm_count(index))
+    out = torch.empty((m, 2 * p), dtype=torch.float32, device=x.device)
+    work = (torch.empty((splits, m, 2 * p), dtype=torch.float32,
+                        device=x.device) if splits > 1 else out)
+    rc = build.library("int4mm").rt_mm_pack_out(
+        x.data_ptr(), q4.data_ptr(), s4.data_ptr(), out.data_ptr(),
+        work.data_ptr(), m, c, p, gp, splits, _DTYPE_CODES[x.dtype], index,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(rc, f"{what} launch")
+    _launches[what] += 1
+    return out
+
+
+def mm_pack_contract(x: torch.Tensor, q4: torch.Tensor, s4: torch.Tensor,
+                     gp: int) -> torch.Tensor:
+    """x [M, 2Cp] . unpack(q4 [N, Cp], s4 [N, Cp/gp])^T -> [M, N] f32
+    (K6)."""
+    what = "mm_pack_contract"
+    _check(x, q4, s4, gp, what)
+    if x.shape[1] != 2 * q4.shape[1]:
+        raise ValueError(f"{what}: x {tuple(x.shape)} is not twice q4's "
+                         f"packed width {tuple(q4.shape)}")
+    if x.device.type == "cpu":
+        return mm_pack_contract_ref(x, q4, s4, gp)
+    _cuda_operands("contract", x, q4, s4, gp, what)
+    m = x.shape[0]
+    n, cp = q4.shape
+    index = x.device.index or 0
+    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    rc = build.library("int4mm").rt_mm_pack_contract(
+        x.data_ptr(), q4.data_ptr(), s4.data_ptr(), out.data_ptr(), m, n,
+        cp, gp, _DTYPE_CODES[x.dtype], index,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(rc, f"{what} launch")
+    _launches[what] += 1
+    return out
+
+
+# --- the seam ---
+
+
+def einsum_int4_or_reason(spec: str, a: torch.Tensor, leaf):
+    """(result, None) when a kernel (its plain version on the CPU) serves
+    `einsum(spec, a, dequant(leaf))` - f32, the einsum's output shape - by
+    the leaf's plan, else (None, reason) and the caller takes the dequant
+    path. A CUDA tensor whose leaf the plan declines raises."""
+    plan = leaf.plan
+    if plan is None or plan.spec != spec:
+        raise ValueError(f"{spec}: the Int4Leaf is planned for "
+                         f"{plan.spec if plan else 'no call site'} "
+                         f"(kernels/int4mm.plan_leaf)")
+    if plan.mode is not None and a.numel() > MAX_ROWS * plan.width:
+        return None, "rows:prefill-m"
+    if plan.reason is not None:
+        if a.is_cuda:
+            raise ValueError(f"{spec}: no w4a16 kernel serves this leaf on "
+                             f"the card: {plan.reason}")
+        return None, plan.reason
+    x = a.reshape(-1, plan.width)
+    q4 = leaf.q4.reshape(plan.w_rows, -1)
+    s4 = leaf.s4.reshape(plan.w_rows, -1)
+    if plan.mode == "out":
+        fn = mm_pack_out_ref if plan.plain else mm_pack_out
+    else:
+        fn = mm_pack_contract_ref if plan.plain else mm_pack_contract
+    y = fn(x.contiguous(), q4, s4, plan.gp)
+    return y.reshape(*a.shape[:a.dim() - plan.n_cont], *plan.kept), None

@@ -13,8 +13,17 @@ The dense `attention`/`forward` over a position-aligned cache is the
 whole-model oracle of the tests (it clones the cache it is given). Serving
 runs `forward_cached` below on the contiguous layout, which writes the
 cache in place and attends through K8/K9 (`attn_impl == "flash"`) or the
-dense math, and paged_forward.forward_paged on the paged pool. MoE
-(`moe_mlp`), int4/int8 leaves and LoRA routing are not ported yet.
+dense math, and paged_forward.forward_paged on the paged pool.
+
+Every weight product goes through one quant-aware seam, `_matmul` (the
+JAX package's `_einsum_base`): a dense weight is a torch.matmul, an int8
+{"q", "s"} dict (engine/quant.py) a torch.matmul on q in the working
+dtype with the per-output-channel scale applied to the product, and an
+Int4Leaf the w4a16 kernels K5/K6 (kernels/int4mm.py) at decode-sized
+products, by the plan the leaf was given when it was made, else its
+dequantized weight through torch.matmul (the JAX package's XLA path,
+which prefill always takes). MoE (`moe_mlp`) and LoRA routing are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -32,7 +41,6 @@ Params = dict[str, Any]
 # softmaxes to uniform instead of NaN. The CUDA kernels
 # (kernels/csrc/paged_common.cuh kMaskValue) use the same value.
 MASK_VALUE = -2.3819763e38
-
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
@@ -122,19 +130,135 @@ def _softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
     return cap * torch.tanh(x / cap)
 
 
-def _matmul(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """a [..., C] @ w [C, ...] -> [..., *w.shape[1:]]: the JAX einsums that
-    contract a's last axis with the weight's first. The result keeps the
-    working dtype: a bf16 product accumulates in f32 and rounds once,
-    which is the JAX einsum's f32 result cast back to the working dtype -
-    what most callers do next. Callers whose next math is f32 (biases,
-    the MLP activation) widen it."""
-    out = torch.matmul(a, w.reshape(w.shape[0], -1))
-    return out.reshape(*a.shape[:-1], *w.shape[1:])
+@dataclasses.dataclass
+class Int4Leaf:
+    """Packed w4a16 weight (engine/quant.py, bits=4): two signed nibbles
+    per int8 byte along the weight's LAST axis (even element in the low
+    nibble), with per-`group` absmax scales - `s4` has q4's shape except
+    that the last axis holds the groups. `plan` (kernels/int4mm.Int4Plan)
+    is how its products run, set once when the leaf is made
+    (kernels/int4mm.plan_leaf)."""
+
+    q4: torch.Tensor
+    s4: torch.Tensor
+    axis: int
+    group: int
+    plan: Any = None
 
 
-def embed_tokens(emb: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    """Embedding lookup; the result's dtype follows the table."""
+def dequant_int4(q4: torch.Tensor, s4: torch.Tensor, axis: int, group: int,
+                 dtype) -> torch.Tensor:
+    """Unpack + scale a last-axis int4-packed weight back to `dtype`: each
+    nibble and its group's scale in `dtype`, their product rounded to
+    `dtype` (the JAX package's dequant_int4)."""
+    if axis != q4.dim() - 1:
+        raise ValueError("int4 pack axis must be minor-most")
+    from ..kv_quant import unpack_int4
+    w = unpack_int4(q4).to(dtype)                            # [..., n]
+    shape = w.shape
+    w = w.reshape(*shape[:-1], shape[-1] // group, group) \
+        * s4[..., None].to(dtype)
+    return w.reshape(shape)
+
+
+# Call-site specs of the weight products (the JAX package's einsums).
+# Every one contracts the activation's last n axes with the weight's first
+# n, except the head, which contracts the weight's last axis.
+SPEC_QKV = "bte,ehd->bthd"
+SPEC_KV = "bte,ekd->btkd"
+SPEC_O = "bthd,hde->bte"
+SPEC_UP = "bte,ef->btf"
+SPEC_DOWN = "btf,fe->bte"
+SPEC_HEAD = "bte,ve->btv"
+# The call site of each weight leaf, by its key (a tied head's embedding
+# is the head's weight).
+LEAF_SPECS = {"q_proj": SPEC_QKV, "k_proj": SPEC_KV, "v_proj": SPEC_KV,
+              "o_proj": SPEC_O, "gate_proj": SPEC_UP, "up_proj": SPEC_UP,
+              "down_proj": SPEC_DOWN, "embedding": SPEC_HEAD,
+              "lm_head": SPEC_HEAD}
+
+
+def int4_sites(params: Params, cfg: ModelConfig) -> list:
+    """(spec, leaf) of every Int4Leaf weight product a forward makes."""
+    head = "embedding" if cfg.tie_embeddings else "lm_head"
+    sites = [(LEAF_SPECS[k], v) for layer in params["layers"]
+             for k, v in layer.items() if k in LEAF_SPECS]
+    sites.append((SPEC_HEAD, params[head]))
+    return [(spec, w) for spec, w in sites if isinstance(w, Int4Leaf)]
+
+
+def plain_weights(params: Params) -> Params:
+    """`params` with every Int4Leaf's products on the plain versions of
+    K5/K6, on any device (how forward_*(plain=True) hold a whole path
+    against the kernels); the tensors are shared."""
+    def plain(x):
+        if isinstance(x, Int4Leaf) and x.plan is not None:
+            return dataclasses.replace(
+                x, plan=dataclasses.replace(x.plan, plain=True))
+        return x
+
+    return {k: ([{n: plain(w) for n, w in layer.items()} for layer in v]
+                if k == "layers" else plain(v))
+            for k, v in params.items()}
+
+
+def _n_contracted(spec: str) -> int:
+    lhs = spec.split("->")[0]
+    a_dims, b_dims = lhs.split(",")
+    return sum(d in a_dims for d in b_dims)
+
+
+def _dense(spec: str, a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """torch.matmul of the call site's einsum in a's dtype."""
+    if spec == SPEC_HEAD:
+        return torch.matmul(a, w.t())
+    n = _n_contracted(spec)
+    lead = a.shape[:a.dim() - n]
+    c = math.prod(w.shape[:n])
+    out = torch.matmul(a.reshape(*lead, c), w.reshape(c, -1))
+    return out.reshape(*lead, *w.shape[n:])
+
+
+def _matmul(a: torch.Tensor, w, spec: str = SPEC_UP) -> torch.Tensor:
+    """The weight product of the call site `spec` (SPEC_*), for a dense,
+    int8 or int4 weight.
+
+    A dense weight's result keeps the working dtype: a bf16 product
+    accumulates in f32 and rounds once, which is the JAX einsum's f32
+    result cast back to the working dtype - what most callers do next. A
+    quantized weight's result is f32, as the JAX einsum's: int8 scales the
+    product per output channel, int4 runs K5/K6 or the dequantized
+    weight. Callers cast to what they need next."""
+    if isinstance(w, Int4Leaf):
+        return _int4_matmul(spec, a, w)
+    if isinstance(w, dict):
+        y = _dense(spec, a, w["q"].to(a.dtype)).float()
+        return y * w["s"].float()
+    return _dense(spec, a, w)
+
+
+def _int4_matmul(spec: str, a: torch.Tensor, leaf: Int4Leaf) -> torch.Tensor:
+    """An Int4Leaf product: the w4a16 kernels (K5/K6, their plain versions
+    on the CPU) by the leaf's plan, else - prefill rows, or on the CPU a
+    leaf the plan declines - the dequantized weight through
+    torch.matmul."""
+    from ..kernels import int4mm
+    y, _ = int4mm.einsum_int4_or_reason(spec, a, leaf)
+    if y is not None:
+        return y
+    w = dequant_int4(leaf.q4, leaf.s4, leaf.axis, leaf.group, a.dtype)
+    return _dense(spec, a, w).float()
+
+
+def embed_tokens(emb, tokens: torch.Tensor) -> torch.Tensor:
+    """Embedding lookup; a quantized table dequantizes only the looked-up
+    rows. The result's dtype follows the table (its scales' dtype)."""
+    if isinstance(emb, Int4Leaf):
+        return dequant_int4(emb.q4[tokens], emb.s4[tokens], tokens.dim(),
+                            emb.group, emb.s4.dtype)
+    if isinstance(emb, dict):
+        rows = emb["q"][tokens].to(emb["s"].dtype)
+        return rows * emb["s"][tokens][..., None]
     return emb[tokens]
 
 
@@ -147,9 +271,9 @@ def project_qkv(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """QKV projection + rope + query scaling. `rope_tabs`: the forward's
     rope_tables, shared by every layer."""
-    q = _matmul(x, layer["q_proj"])                          # [B,T,H,D]
-    k = _matmul(x, layer["k_proj"])                          # [B,T,K,D]
-    v = _matmul(x, layer["v_proj"])
+    q = _matmul(x, layer["q_proj"], SPEC_QKV)                # [B,T,H,D]
+    k = _matmul(x, layer["k_proj"], SPEC_KV)                 # [B,T,K,D]
+    v = _matmul(x, layer["v_proj"], SPEC_KV)
     if cfg.attn_bias:  # Qwen2: linear bias applied BEFORE rotary (HF order)
         q = q.float() + layer["q_bias"].float()
         k = k.float() + layer["k_bias"].float()
@@ -209,8 +333,8 @@ def _flash(q, k_all, v_all, cfg: ModelConfig, offsets, kv_valid,
 
 def _o_proj(out: torch.Tensor, layer: Params, cfg: ModelConfig,
             dtype) -> torch.Tensor:
-    return _matmul(out.reshape(*out.shape[:2], -1),
-                   layer["o_proj"].reshape(-1, cfg.embed_dim)).to(dtype)
+    """[B,T,H,D] attention output -> [B,T,E] in `dtype`."""
+    return _matmul(out, layer["o_proj"], SPEC_O).to(dtype)
 
 
 def attention(
@@ -251,12 +375,12 @@ def mlp(x: torch.Tensor, layer: Params, cfg: ModelConfig) -> torch.Tensor:
     if cfg.num_experts:
         raise NotImplementedError(
             "MoE (moe_mlp) is not ported yet (ROADMAP, slice 7)")
-    gate = _matmul(x, layer["gate_proj"]).float()
-    up = _matmul(x, layer["up_proj"]).float()
+    gate = _matmul(x, layer["gate_proj"], SPEC_UP).float()
+    up = _matmul(x, layer["up_proj"], SPEC_UP).float()
     act = (F.gelu(gate, approximate="tanh") if cfg.gelu_mlp
            else F.silu(gate))
     hidden = (act * up).to(x.dtype)
-    return _matmul(hidden, layer["down_proj"]).to(x.dtype)
+    return _matmul(hidden, layer["down_proj"], SPEC_DOWN).to(x.dtype)
 
 
 def transformer_block(
@@ -313,7 +437,7 @@ def lm_head(params: Params, cfg: ModelConfig,
             x: torch.Tensor) -> torch.Tensor:
     """Final-normed hidden [B,T,E] -> f32 logits [B,T,V] (softcapped)."""
     head = params["embedding"] if cfg.tie_embeddings else params["lm_head"]
-    logits = torch.matmul(x, head.t()).float()
+    logits = _matmul(x, head, SPEC_HEAD).float()
     return _softcap(logits, cfg.final_logit_softcap)
 
 
@@ -386,11 +510,14 @@ def forward_cached(
     cached_step around `forward`. Each layer writes this call's K/V in
     place into cache[rows, offsets:offsets+T], then attends through K8/K9
     reading the slots in place through `rows` (cfg.attn_impl "flash";
-    `plain=True`: their plain versions, on any device) or through the
+    `plain=True`: their plain versions, and those of K5/K6 for int4
+    weights, on any device) or through the
     dense masked softmax over the rows' gathered slots ("dense"). Where
     the JAX programs gather the batch's slots and scatter them back every
     call, nothing here copies a slot. Returns f32 logits [B,T,V], or
     [B,1,V] when `last_pos` is given (gathered before the head)."""
+    if plain:
+        params = plain_weights(params)
     n_rows, s = cache_layers[0][0].shape[:2]
     t = tokens.shape[1]
     _check_cached_write(rows, offsets, t, n_rows, s)
@@ -502,5 +629,13 @@ def _leaves(tree):
 
 def param_count(params: Params) -> int:
     """Logical parameter count: every leaf's elements (a leaf reachable
-    under two names counts twice, as jax.tree_util.tree_leaves does)."""
-    return sum(x.numel() for x in _leaves(params))
+    under two names counts twice, as jax.tree_util.tree_leaves does). An
+    Int4Leaf's packed byte holds two parameters, so it counts
+    2 * q4.numel() plus its scales, as int8 counts q plus s."""
+    total = 0
+    for x in _leaves(params):
+        if isinstance(x, Int4Leaf):
+            total += 2 * x.q4.numel() + x.s4.numel()
+        else:
+            total += x.numel()
+    return total

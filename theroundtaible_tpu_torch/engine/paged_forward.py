@@ -14,6 +14,11 @@ forward_ragged serves the scheduler's mixed dispatches: every sequence's
 prefill chunk or decode token in one flat buffer
 (serving_loop.build_ragged_batch), attending through K3.
 
+Quantized pools (`scales`, `quant_spec`: kv_quant): each written token's
+K/V is quantized on write (kv_quant.quantize_cells, its own per-cell
+scales, neighbours untouched) and its payload and scales land in the same
+[page, offset] cells; K1-K3 then dequantize in-kernel (K4).
+
 Write-exclusivity: the engine's ensure_capacity copy-on-writes any shared
 page in a row's write range before dispatch (the scheduler's
 _apply_share_plans does it at alias time), and distinct rows own their
@@ -30,10 +35,38 @@ from typing import Optional
 import torch
 
 from .kernels import attention as kattn
-from .models.common import (ModelConfig, Params, _matmul, _o_proj,
-                            embed_tokens, gather_rows, lm_head, project_qkv,
+from .kv_quant import dequantize_cells, quantize_cells
+from .models.common import (ModelConfig, Params, _o_proj, embed_tokens,
+                            gather_rows, lm_head, plain_weights, project_qkv,
                             rms_norm, rope_tables, scale_embeddings,
                             transformer_block)
+
+
+def _layer_scales(scales, quant_spec, n_layers: int) -> list:
+    """Per-layer (k_scale, v_scale) of a forward, (None, None) each on
+    unquantized pools."""
+    if scales is None:
+        return [(None, None)] * n_layers
+    if quant_spec is None or len(scales) != n_layers:
+        raise ValueError("quantized pools need quant_spec and one scale "
+                         "pair per layer")
+    return list(scales)
+
+
+def _write_kv(k_pool, v_pool, k_sc, v_sc, pages, offs, k, v, quant_spec):
+    """This call's K/V into the [pages, offs] cells, in place (the JAX
+    package's `pool.at[pages, offs].set`) - quantized on write, payload
+    and scales into the same cells, when the pools are quantized."""
+    if k_sc is None:
+        k_pool[pages, offs] = k
+        v_pool[pages, offs] = v
+        return
+    k_q, k_s = quantize_cells(k, quant_spec)
+    v_q, v_s = quantize_cells(v, quant_spec)
+    k_pool[pages, offs] = k_q
+    v_pool[pages, offs] = v_q
+    k_sc[pages, offs] = k_s
+    v_sc[pages, offs] = v_s
 
 
 def forward_paged(
@@ -45,18 +78,22 @@ def forward_paged(
     kv_valid_len: torch.Tensor,    # [B] int32 valid entries AFTER this call
     last_pos: Optional[torch.Tensor] = None,   # [B] row index into T
     plain: bool = False,
+    scales: Optional[list] = None,  # per-layer (k_s, v_s) [P,ps,K,G]
+    quant_spec=None,                # kv_quant.KVQuantSpec with scales
 ) -> torch.Tensor:
     """One serving step off the page pools - a decode step (T==1) or a
-    prefill chunk - writing this call's K/V into `pools` in place. Returns
-    f32 logits [B,T,V], or [B,1,V] when `last_pos` is given (the hidden
-    state is gathered before the head, so a chunk never materializes
-    full-sequence logits).
+    prefill chunk - writing this call's K/V into `pools` (and `scales`) in
+    place. Returns f32 logits [B,T,V], or [B,1,V] when `last_pos` is given
+    (the hidden state is gathered before the head, so a chunk never
+    materializes full-sequence logits).
 
     `plain=True` runs the kernels' plain PyTorch versions instead of the
-    CUDA kernels, on any device - how the chip smoke holds the whole path
-    against them. Pad-tail cells of a bucket land on the row's own
-    decode-reserve pages or the scratch page, both overwritten or ignored
-    before any read."""
+    CUDA kernels (K1/K2 and, for int4 weights, K5/K6), on any device - how
+    the chip smoke holds the whole path against them. Pad-tail cells of a
+    bucket land on the row's own decode-reserve pages or the scratch page,
+    both overwritten or ignored before any read."""
+    if plain:
+        params = plain_weights(params)
     page_size = pools[0][0].shape[1]
     pp = table.shape[1]
     # Positions past the table's reach clamp to its last entry, as the JAX
@@ -71,24 +108,26 @@ def forward_paged(
     prefill = (kattn.paged_prefill_attention_ref if plain
                else kattn.paged_prefill_attention)
 
+    bits = quant_spec.bits if quant_spec is not None else 8
+    layer_scales = _layer_scales(scales, quant_spec, len(pools))
     tabs = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
     x = scale_embeddings(embed_tokens(params["embedding"], tokens), cfg)
-    for layer, (k_pool, v_pool) in zip(params["layers"], pools):
+    for layer, (k_pool, v_pool), (k_sc, v_sc) in zip(params["layers"], pools,
+                                                     layer_scales):
 
-        def attn_fn(h, layer, k_pool=k_pool, v_pool=v_pool):
+        def attn_fn(h, layer, k_pool=k_pool, v_pool=v_pool, k_sc=k_sc,
+                    v_sc=v_sc):
             q, k, v = project_qkv(h, layer, cfg, positions, tabs)
-            # In place: the JAX package's `pool.at[pages, offs].set`.
-            k_pool[pages, offs] = k
-            v_pool[pages, offs] = v
+            _write_kv(k_pool, v_pool, k_sc, v_sc, pages, offs, k, v,
+                      quant_spec)
+            kw = dict(sliding_window=cfg.sliding_window,
+                      softcap=cfg.attn_logit_softcap, k_scale=k_sc,
+                      v_scale=v_sc, kv_bits=bits)
             if t == 1:
-                out = decode(q, k_pool, v_pool, table, kv_valid_len,
-                             sliding_window=cfg.sliding_window,
-                             softcap=cfg.attn_logit_softcap)
+                out = decode(q, k_pool, v_pool, table, kv_valid_len, **kw)
             else:
-                out = prefill(q, k_pool, v_pool, table, starts,
-                              kv_valid_len,
-                              sliding_window=cfg.sliding_window,
-                              softcap=cfg.attn_logit_softcap)
+                out = prefill(q, k_pool, v_pool, table, starts, kv_valid_len,
+                              **kw)
             return _o_proj(out, layer, cfg, h.dtype), None
 
         x, _ = transformer_block(x, layer, cfg, positions, None, None, None,
@@ -115,30 +154,31 @@ def forward_ragged(
     last_rows: torch.Tensor,       # [S] flat row of each seq's last token
     plain: bool = False,
     sample_rows: Optional[torch.Tensor] = None,
-    scales: Optional[list] = None,
+    scales: Optional[list] = None,  # per-layer (k_s, v_s) [P,ps,K,G]
+    quant_spec=None,                # kv_quant.KVQuantSpec with scales
     copy_src: Optional[torch.Tensor] = None,
     copy_dst: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """One mixed prefill/decode step over the flat token buffer: each
     layer writes the buffer's K/V into the owning sequences' pages in place
-    (pads land on the scratch page, never read), then attends through K3
-    (`plain=True`: its plain version, on any device). Returns f32
-    per-sequence last-token logits [S,V], gathered before the head; the
-    inert pad sequence's row is garbage the caller drops.
+    (quantized on write when `scales` is given; pads land on the scratch
+    page, never read), then attends through K3 (`plain=True`: its plain
+    version, and those of K5/K6 for int4 weights, on any device). Returns f32 per-sequence last-token logits
+    [S,V], gathered before the head; the inert pad sequence's row is
+    garbage the caller drops.
 
-    Speculative verify rows (`sample_rows`), tree pre-copies
-    (`copy_src`/`copy_dst`) and quantized pools (`scales`) are not
-    ported."""
+    Speculative verify rows (`sample_rows`) and tree pre-copies
+    (`copy_src`/`copy_dst`) are not ported."""
     if sample_rows is not None or copy_src is not None \
             or copy_dst is not None:
         raise NotImplementedError(
             "sample_rows/copy_src/copy_dst (speculative verify) are not "
             "ported to the PyTorch engine yet (ROADMAP, slice 7: "
             "speculative decoding)")
-    if scales is not None:
-        raise NotImplementedError(
-            "quantized KV pools are not ported to the PyTorch engine yet "
-            "(ROADMAP, slice 5: quantization, K4/K5/K6)")
+    if plain:
+        params = plain_weights(params)
+    bits = quant_spec.bits if quant_spec is not None else 8
+    layer_scales = _layer_scales(scales, quant_spec, len(pools))
     pos2 = positions[None]
     pages = token_pages.long()
     offs = token_offs.long()
@@ -147,23 +187,68 @@ def forward_ragged(
     tabs = rope_tables(pos2, cfg.head_dim, cfg.rope_theta)
     x = scale_embeddings(embed_tokens(params["embedding"], tokens[None]),
                          cfg)
-    for layer, (k_pool, v_pool) in zip(params["layers"], pools):
+    for layer, (k_pool, v_pool), (k_sc, v_sc) in zip(params["layers"], pools,
+                                                     layer_scales):
 
-        def attn_fn(h, layer, k_pool=k_pool, v_pool=v_pool):
+        def attn_fn(h, layer, k_pool=k_pool, v_pool=v_pool, k_sc=k_sc,
+                    v_sc=v_sc):
             q, k, v = project_qkv(h, layer, cfg, pos2, tabs)   # [1,T,.,D]
-            # In place: the JAX package's `pool.at[pages, offs].set`.
-            k_pool[pages, offs] = k[0]
-            v_pool[pages, offs] = v[0]
+            _write_kv(k_pool, v_pool, k_sc, v_sc, pages, offs, k[0], v[0],
+                      quant_spec)
             out = attend(q[0], k_pool, v_pool, tables, seq_of_block,
                          block_qstart, query_offsets, kv_valid,
                          sliding_window=cfg.sliding_window,
-                         softcap=cfg.attn_logit_softcap)
-            out = _matmul(out.reshape(1, out.shape[0], -1),
-                          layer["o_proj"].reshape(-1, cfg.embed_dim))
-            return out.to(h.dtype), None
+                         softcap=cfg.attn_logit_softcap, k_scale=k_sc,
+                         v_scale=v_sc, kv_bits=bits)
+            return _o_proj(out[None], layer, cfg, h.dtype), None
 
         x, _ = transformer_block(x, layer, cfg, pos2, None, None, None,
                                  attn_fn=attn_fn)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps,
                  cfg.rmsnorm_unit_offset)
     return lm_head(params, cfg, x[:, last_rows.long()])[0]
+
+
+# --- the gather view (attn "dense" on the paged pool) ---
+
+
+def gather_view(pools: list, scales: Optional[list], table: torch.Tensor,
+                quant_spec, dtype) -> list:
+    """The rows' pages as a position-aligned cache: per layer (k, v)
+    [B, pages_per_seq * page_size, K, D] copies in `dtype`, dequantized at
+    the gather when the pools are quantized (the JAX engine's
+    gather_view)."""
+    idx = table.long()
+    b = idx.shape[0]
+    out = []
+    for li, (k_pool, v_pool) in enumerate(pools):
+        if scales is not None:
+            k_sc, v_sc = scales[li]
+            kb = dequantize_cells(k_pool[idx], k_sc[idx], quant_spec, dtype)
+            vb = dequantize_cells(v_pool[idx], v_sc[idx], quant_spec, dtype)
+        else:
+            kb, vb = k_pool[idx], v_pool[idx]
+        out.append((kb.reshape(b, -1, *kb.shape[3:]),
+                    vb.reshape(b, -1, *vb.shape[3:])))
+    return out
+
+
+def scatter_view(pools: list, scales: Optional[list], table: torch.Tensor,
+                 view: list, quant_spec) -> None:
+    """The inverse of gather_view, in place: every cell of the view back
+    into its page - requantized cell by cell on a quantized pool (the JAX
+    engine's scatter_view). Table entries past a row's allocation are the
+    scratch page, which absorbs the tail and is never read."""
+    idx = table.long()
+    b, pp = idx.shape
+    for li, ((k_pool, v_pool), (kb, vb)) in enumerate(zip(pools, view)):
+        ps = k_pool.shape[1]
+        if scales is not None:
+            k_sc, v_sc = scales[li]
+            for pool, sc, x in ((k_pool, k_sc, kb), (v_pool, v_sc, vb)):
+                q, s = quantize_cells(x, quant_spec)
+                pool[idx] = q.reshape(b, pp, ps, *q.shape[2:])
+                sc[idx] = s.reshape(b, pp, ps, *s.shape[2:])
+        else:
+            k_pool[idx] = kb.reshape(b, pp, ps, *kb.shape[2:])
+            v_pool[idx] = vb.reshape(b, pp, ps, *vb.shape[2:])

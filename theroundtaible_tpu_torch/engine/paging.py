@@ -18,6 +18,13 @@ The host bookkeeping is the JAX package's, unchanged; the pools are
 updated in place where the JAX package donates buffers (the page copies
 here, the K/V scatter in paged_forward). The per-replica page ranges of a
 data-sharded pool and the cross-session prefix-cache hooks are not ported.
+
+Quantized pages (`kv_quant`, a kv_quant.KVQuantSpec): each layer's pools
+hold an int8 payload [P, page_size, K, Dp] beside f32 scale pools
+[P, page_size, K, G] (`scales`), indexed by the same page axis, so every
+sharing mechanism (alias, copy-on-write, adopt) moves a page's scales with
+it. The default pool keeps the unquantized default's byte budget, so the
+saved bytes become more pages.
 """
 
 from __future__ import annotations
@@ -28,6 +35,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .kv_quant import KVQuantSpec, page_ratio
 from .kvcache import lcp, session_of
 from .models.common import ModelConfig
 
@@ -49,7 +57,8 @@ class PagedKVCache:
     def __init__(self, cfg: ModelConfig, num_slots: int,
                  max_seq_len: Optional[int] = None, dtype=torch.bfloat16,
                  device="cpu", page_size: int = 128,
-                 num_pages: Optional[int] = None):
+                 num_pages: Optional[int] = None,
+                 kv_quant: Optional[KVQuantSpec] = None):
         self.cfg = cfg
         self.num_slots = num_slots
         self.max_seq_len = max_seq_len or cfg.max_seq_len
@@ -59,22 +68,40 @@ class PagedKVCache:
                 f"page_size {page_size}")
         self.page_size = page_size
         self.pages_per_seq = self.max_seq_len // page_size
-        # Default pool: HALF the contiguous budget, plus the scratch page.
+        self.kv_quant = kv_quant
+        self._kv_dtype_bytes = torch.empty((), dtype=dtype).element_size()
+        # Default pool: HALF the contiguous budget, plus the scratch page; a
+        # quantized pool keeps those bytes and so holds more pages.
         if num_pages is None:
             num_pages = max(num_slots * self.pages_per_seq // 2,
-                            self.pages_per_seq) + 1
+                            self.pages_per_seq)
+            if kv_quant is not None:
+                num_pages = int(num_pages * page_ratio(
+                    kv_quant, cfg.head_dim, self._kv_dtype_bytes))
+            num_pages += 1
         self.num_pages = num_pages
         if num_pages < self.pages_per_seq + 1:
             raise ValueError(
                 f"num_pages {num_pages} cannot hold even one full sequence "
                 f"({self.pages_per_seq} pages + scratch)")
-        shape = (num_pages, page_size, cfg.num_kv_heads, cfg.head_dim)
-        # Zeroed like jnp.zeros: stale cells past a row's frontier are never
-        # multiplied in, but a fresh pool holds no NaN either way.
-        self.pools: list[tuple[torch.Tensor, torch.Tensor]] = [
-            (torch.zeros(shape, dtype=dtype, device=device),
-             torch.zeros(shape, dtype=dtype, device=device))
-            for _ in range(cfg.num_layers)]
+        head = (num_pages, page_size, cfg.num_kv_heads)
+
+        def zeros(width, dt):
+            # Zeroed like jnp.zeros: stale cells past a row's frontier are
+            # never read, but a fresh pool holds no NaN either way.
+            return (torch.zeros(head + (width,), dtype=dt, device=device),
+                    torch.zeros(head + (width,), dtype=dt, device=device))
+
+        self.scales: Optional[list[tuple[torch.Tensor, torch.Tensor]]] = None
+        if kv_quant is None:
+            self.pools: list[tuple[torch.Tensor, torch.Tensor]] = [
+                zeros(cfg.head_dim, dtype) for _ in range(cfg.num_layers)]
+        else:
+            self.pools = [zeros(kv_quant.packed_dim(cfg.head_dim), torch.int8)
+                          for _ in range(cfg.num_layers)]
+            self.scales = [zeros(kv_quant.num_groups(cfg.head_dim),
+                                 torch.float32)
+                           for _ in range(cfg.num_layers)]
         self._slots: dict[str, PagedSlot] = {}
         self._free: list[int] = list(range(1, num_pages))
         self._refs: dict[int, int] = {}
@@ -96,16 +123,29 @@ class PagedKVCache:
                    for n in names if n in self._slots)
 
     def hbm_bytes(self) -> int:
-        """Resident pool bytes across all layers."""
-        k, _ = self.pools[0]
-        return 2 * k.numel() * k.element_size() * len(self.pools)
+        """Resident pool bytes across all layers - payload plus, on
+        quantized pools, the scale pools."""
+        total = 0
+        for k, v in list(self.pools) + list(self.scales or []):
+            total += (k.numel() * k.element_size()
+                      + v.numel() * v.element_size())
+        return total
+
+    def hbm_bytes_logical(self) -> int:
+        """What the same pools would cost unquantized (hbm_bytes on an
+        unquantized pool)."""
+        if self.kv_quant is None:
+            return self.hbm_bytes()
+        return (2 * self.num_pages * self.page_size * self.cfg.num_kv_heads
+                * self.cfg.head_dim * self._kv_dtype_bytes * len(self.pools))
 
     def _run_page_copy(self, src_ids: list[int], dst_ids: list[int]) -> None:
-        """Whole-page device copies, in place in every layer's pools."""
+        """Whole-page device copies, in place in every layer's pools and
+        scale pools: a copied page never leaves its scales behind."""
         dev = self.pools[0][0].device
         src = torch.tensor(src_ids, dtype=torch.long, device=dev)
         dst = torch.tensor(dst_ids, dtype=torch.long, device=dev)
-        for k, v in self.pools:
+        for k, v in list(self.pools) + list(self.scales or []):
             k.index_copy_(0, dst, k.index_select(0, src))
             v.index_copy_(0, dst, v.index_select(0, src))
 

@@ -1,0 +1,136 @@
+"""Weight quantization for serving: int8 (w8a16) and grouped int4 (w4a16)
+(counterpart of theroundtaible_tpu/engine/quant.py, one device).
+
+Representations (models/common's matmul seam and embed_tokens take both;
+`quantized()` is the predicate):
+
+- bits=8: each big matmul weight becomes {"q": int8[w.shape],
+  "s": act_dtype[kept axes]}, s = absmax/127 over the contracted axes, so
+  w ~ q * s with s broadcast over the output axes. The seam scales the
+  matmul's output.
+- bits=4: an Int4Leaf - two signed nibbles per int8 byte along the
+  weight's LAST axis (even element in the low nibble), per-`group`
+  absmax/7 scales in the activation dtype, planned once for its call site
+  (kernels/int4mm.plan_leaf). A leaf whose last dim cannot group falls
+  back to the int8 dict, so int4 trees are mixed.
+
+q is computed from the f32 scale, which is then stored in the activation
+dtype; the outputs equal the JAX package's bit for bit. Norms stay as
+they are. The TP-shard-aligned int4 groups (`model_shards`) and the
+sharded placement are the multi-device slice's (ROADMAP, slice 7).
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from .kernels.int4mm import plan_leaf
+from .models.common import LEAF_SPECS, Int4Leaf, ModelConfig, Params
+
+# Per weight key: the axes KEPT by the scale (the matmul's non-contracted
+# weight axes, which land trailing in its output).
+_SCALE_AXES: dict[str, tuple[int, ...]] = {
+    "q_proj": (1, 2),      # [E, H, D] -> s[H, D]
+    "k_proj": (1, 2),      # [E, K, D] -> s[K, D]
+    "v_proj": (1, 2),
+    "o_proj": (2,),        # [H, D, E] -> s[E]
+    "gate_proj": (1,),     # [E, F] -> s[F]
+    "up_proj": (1,),
+    "down_proj": (1,),     # [F, E] -> s[E]
+    "embedding": (0,),     # [V, E] -> s[V] (row scale: lookup AND head)
+    "lm_head": (0,),
+}
+
+
+def quantized(leaf: Any) -> bool:
+    return (isinstance(leaf, dict) and "q" in leaf and "s" in leaf) \
+        or isinstance(leaf, Int4Leaf)
+
+
+def _quantize_leaf(w: torch.Tensor, scale_axes: tuple[int, ...],
+                   act_dtype) -> dict[str, torch.Tensor]:
+    scale_axes = tuple(a % w.dim() for a in scale_axes)
+    reduce_axes = tuple(a for a in range(w.dim()) if a not in scale_axes)
+    w32 = w.float()
+    absmax = w32.abs().amax(dim=reduce_axes)
+    s = torch.clamp(absmax, min=1e-8) / 127.0
+    s_full = s
+    for a in reduce_axes:
+        s_full = s_full.unsqueeze(a)
+    q = torch.clamp(torch.round(w32 / s_full), -127, 127).to(torch.int8)
+    return {"q": q, "s": s.to(act_dtype)}
+
+
+def _int4_group_for(dim: int, group: int) -> int:
+    """Largest even divisor of `dim` that is <= group (0 = no valid
+    grouping; the leaf then falls back to int8)."""
+    for g in range(min(group, dim), 1, -1):
+        if g % 2 == 0 and dim % g == 0:
+            return g
+    return 0
+
+
+def _quantize_leaf_int4(w: torch.Tensor, scale_axes: tuple[int, ...],
+                        act_dtype, group: int) -> Any:
+    """Symmetric per-group int4 (w ~ q4 * s4, |q4| <= 7), two nibbles per
+    int8 byte along the LAST axis (even element -> low nibble). A last
+    dim that cannot group stays int8."""
+    dim = w.shape[-1]
+    g = _int4_group_for(dim, group)
+    if g < 2:
+        return _quantize_leaf(w, scale_axes, act_dtype)
+    wg = w.float().reshape(*w.shape[:-1], dim // g, g)
+    absmax = wg.abs().amax(dim=-1, keepdim=True)
+    s = torch.clamp(absmax, min=1e-8) / 7.0
+    q = torch.clamp(torch.round(wg / s), -8, 7).to(torch.int8)
+    q2 = q.reshape(*w.shape[:-1], dim // 2, 2).to(torch.int32)
+    packed = (((q2[..., 1] & 0xF) << 4) | (q2[..., 0] & 0xF)).to(torch.int8)
+    return Int4Leaf(q4=packed, s4=s.squeeze(-1).to(act_dtype),
+                    axis=w.dim() - 1, group=g)
+
+
+def quantize_params(params: Params, cfg: ModelConfig,
+                    act_dtype=torch.bfloat16, free_source: bool = False,
+                    bits: int = 8, group: int = 64) -> Params:
+    """Quantize the big matmul weights; returns a new tree (norms and
+    unrecognized leaves pass through). bits=8: per-output-channel int8
+    dicts; bits=4: per-`group` Int4Leafs (int8 where a leaf cannot group).
+
+    free_source=True empties each source leaf's storage as soon as its
+    replacement exists, so an 8B model peaks near bf16 plus one leaf
+    instead of bf16 plus int8: the caller must own `params` (the engine
+    does) and must not read the source tree afterwards."""
+    if bits not in (8, 4):
+        raise ValueError(f"bits must be 8 or 4, got {bits}")
+    if cfg.num_experts:
+        raise NotImplementedError(
+            "quantized MoE experts are not ported yet (ROADMAP, slice 7e)")
+
+    def one(value: torch.Tensor, key: str) -> Any:
+        scale_axes = _SCALE_AXES[key]
+        if bits == 4:
+            out = _quantize_leaf_int4(value, scale_axes, act_dtype, group)
+            if isinstance(out, Int4Leaf):
+                out = plan_leaf(LEAF_SPECS[key], out)
+        else:
+            out = _quantize_leaf(value, scale_axes, act_dtype)
+        storage = value.untyped_storage()
+        if free_source and storage.resizable():
+            # Tied leaves (post_*_norm) are never quantized, so no other
+            # name reads this storage. (A tensor over numpy memory cannot
+            # give it back and keeps it.)
+            storage.resize_(0)
+        return out
+
+    out: Params = {}
+    for key, value in params.items():
+        if key in ("embedding", "lm_head"):
+            out[key] = one(value, key)
+        elif key == "layers":
+            out[key] = [{k: (one(v, k) if k in _SCALE_AXES else v)
+                         for k, v in layer.items()} for layer in value]
+        else:
+            out[key] = value
+    return out

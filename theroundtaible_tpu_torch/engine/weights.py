@@ -3,14 +3,22 @@ port's parameter dict - the same nested structure and axis layouts
 (q_proj [E,H,D], k_proj/v_proj [E,K,D], o_proj [H,D,E], gate/up [E,F],
 down [F,E], embedding/lm_head [V,E], biases, norms). With the same weights
 both packages compute the same function, which is how the tests compare
-them: the two packages cannot share a random stream."""
+them: the two packages cannot share a random stream.
+
+Quantized trees (the JAX engine's params after quantize_params) bridge
+too: an int8 {"q", "s"} dict keeps its payload as torch.int8 and its
+scales in `dtype`, and the JAX package's Int4Leaf (any object with q4, s4,
+axis and group) becomes the port's models/common.Int4Leaf, planned for its
+call site (kernels/int4mm.plan_leaf)."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from .models.common import ModelConfig, Params
+from .kernels.int4mm import plan_leaf
+from .models.common import LEAF_SPECS, Int4Leaf, ModelConfig, Params
+from .quant import _SCALE_AXES
 
 
 def expected_shapes(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
@@ -40,10 +48,42 @@ def _tensor(x, shape, name: str, dtype, device) -> torch.Tensor:
         device=device, dtype=dtype)
 
 
+def _int8(x, shape, name: str, device) -> torch.Tensor:
+    arr = np.asarray(x)
+    if arr.dtype != np.int8 or tuple(arr.shape) != tuple(shape):
+        raise ValueError(f"{name}: int8 payload {arr.dtype} "
+                         f"{tuple(arr.shape)} != expected {tuple(shape)}")
+    return torch.from_numpy(np.array(arr)).to(device)
+
+
+def _leaf(x, shape, name: str, dtype, device):
+    """One weight leaf: dense, int8 dict or Int4Leaf, checked against the
+    dense `shape`."""
+    if isinstance(x, dict) and "q" in x and "s" in x:
+        kept = tuple(shape[a % len(shape)] for a in _SCALE_AXES[name.split(
+            ".")[-1]])
+        return {"q": _int8(x["q"], shape, f"{name}.q", device),
+                "s": _tensor(x["s"], kept, f"{name}.s", dtype, device)}
+    if all(hasattr(x, a) for a in ("q4", "s4", "axis", "group")):
+        group = int(x.group)
+        if int(x.axis) != len(shape) - 1 or group < 2 or shape[-1] % group:
+            raise ValueError(f"{name}: int4 leaf packed on axis {x.axis} in "
+                             f"groups of {group} does not fit {shape}")
+        q4 = _int8(x.q4, (*shape[:-1], shape[-1] // 2), f"{name}.q4",
+                   device)
+        s4 = _tensor(x.s4, (*shape[:-1], shape[-1] // group), f"{name}.s4",
+                     dtype, device)
+        return plan_leaf(LEAF_SPECS[name.split(".")[-1]],
+                         Int4Leaf(q4=q4, s4=s4, axis=len(shape) - 1,
+                                  group=group))
+    return _tensor(x, shape, name, dtype, device)
+
+
 def params_from_numpy(tree: dict, cfg: ModelConfig, dtype=torch.bfloat16,
                       device="cpu") -> Params:
-    """The port's parameters from `jax.device_get(engine.params)`. Raises
-    on a missing leaf or a shape that disagrees with `cfg`."""
+    """The port's parameters from `jax.device_get(engine.params)`, dense or
+    quantized. Raises on a missing leaf or a shape that disagrees with
+    `cfg`."""
     if cfg.num_experts:
         raise NotImplementedError(
             "MoE weights are not ported yet (ROADMAP, slice 7)")
@@ -52,18 +92,18 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, dtype=torch.bfloat16,
                          f"{cfg.num_layers}")
     vocab = (cfg.vocab_size, cfg.embed_dim)
     out: Params = {
-        "embedding": _tensor(tree["embedding"], vocab, "embedding", dtype,
-                             device),
+        "embedding": _leaf(tree["embedding"], vocab, "embedding", dtype,
+                           device),
         "final_norm": _tensor(tree["final_norm"], (cfg.embed_dim,),
                               "final_norm", dtype, device),
         "layers": [],
     }
     if not cfg.tie_embeddings:
-        out["lm_head"] = _tensor(tree["lm_head"], vocab, "lm_head", dtype,
-                                 device)
+        out["lm_head"] = _leaf(tree["lm_head"], vocab, "lm_head", dtype,
+                               device)
     for i, layer in enumerate(tree["layers"]):
         out["layers"].append({
-            name: _tensor(layer[name], shape, f"layers[{i}].{name}", dtype,
-                          device)
+            name: _leaf(layer[name], shape, f"layers[{i}].{name}", dtype,
+                        device)
             for name, shape in expected_shapes(cfg).items()})
     return out
