@@ -87,8 +87,34 @@ Phases, each printing one JSON line; any failure exits non-zero:
              forward_paged, forward_ragged and forward_cached through the
              kernels against their plain versions, and pool-direct against
              the gather view at each decode step.
+16. lora_kernels - K7 (grouped LoRA BGMV) at Llama-3-8B's four (C, O)
+             target shapes, 3 rows of 3 personas, rank 8, 9 slots, against
+             its plain version, called twice for the same bits; CUDA-event
+             times beside the bound and the grouped einsums (two
+             torch.einsum calls, timed only) as the yardstick.
+17. lora_round - the engine phase's config (all three knights greedy)
+             plus the README's `lora:` block (rank 8, 8 slots, scale 2.0,
+             seed personas `skeptic` and `optimist`) and `knight_adapters`
+             (lancelot the base model, gawain skeptic, percival optimist),
+             32 layers: warmup() and two rounds through execute_round. K1,
+             K2 and K7 must launch in each round; `lora_paths` must show K7
+             at decode on all seven targets and only prefill-sized rows on
+             the grouped einsums; the mixed batch must have suppressed
+             sharing. Prefill seconds, decode ms per step beside the bf16
+             rounds', and each row's greedy agreement with its adapter
+             served alone (reported, not checked). Then the profile phase
+             with the three personas (lora_profile).
+18. lora_scheduler - the scheduler phase on the LoRA engine: alpha's
+             knights under base/skeptic/optimist decode while beta's
+             (optimist/skeptic/base) join through K3 with one adapter slot
+             per token; K3 and K7 must launch.
+19. lora_path - 2 layers at full width: a 512-row chunk and 8 decode
+             steps of forward_paged with a mixed-adapter batch through K7,
+             its plain version and the grouped einsums (logits within
+             PATH_TOL), and one decode step of an int8 store (grouped
+             einsums) against K7 on its dequantized values.
 
-Run time: ~5 minutes on an H100 with the build; no earlier phase was cut.
+Run time: ~6 minutes on an H100 with the build; no earlier phase was cut.
 
 Then a `{"kernels": [...]}` line, the nvidia-smi line, and last
 `{"ok": true, "device": {...}}`. Details go to chiprun_out/chip_smoke/.
@@ -124,7 +150,13 @@ SEED = 0
 
 
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One phase's JSON line on stdout, and appended to
+    chiprun_out/chip_smoke/phases.jsonl (stdout's head can be cut)."""
+    line = json.dumps({"phase": phase, **fields})
+    print(line, flush=True)
+    if OUT.is_dir():
+        with open(OUT / "phases.jsonl", "a") as fh:
+            fh.write(line + "\n")
 
 
 def nvidia_smi() -> str:
@@ -217,6 +249,32 @@ def time_ms(torch, fn, reps, flush):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def graph_ms(torch, fn, calls=20, replays=5):
+    """Device time per call of a launch-bound function: `calls` calls
+    captured in one CUDA graph, replayed `replays` times between CUDA
+    events, so the host's launch cost is left out; the inputs stay in L2
+    between calls, as the LoRA stacks do across a decode step's layers."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (calls * replays)
 
 
 def max_err(torch, out, ref, rows=None):
@@ -656,17 +714,20 @@ GREEDY_KNIGHTS = ("lancelot", "gawain")
 
 def reset_launches() -> None:
     from theroundtaible_tpu_torch.engine.kernels import attention, int4mm
+    from theroundtaible_tpu_torch.engine.kernels import lora as klora
     attention.reset_launch_counts()
     int4mm.reset_launch_counts()
+    klora.reset_launch_counts()
 
 
 def launches_now() -> dict:
     """Every wrapper's launches since the last reset: K1-K3 and K8/K9 by
     name, K1-K3 on quantized pools ("<name>:int8", "<name>:int4": K4 ran
-    inside) and K5/K6."""
+    inside), K5/K6 and K7."""
     from theroundtaible_tpu_torch.engine.kernels import attention, int4mm
+    from theroundtaible_tpu_torch.engine.kernels import lora as klora
     return {**attention.launch_counts(), **attention.dequant_launch_counts(),
-            **int4mm.launch_counts()}
+            **int4mm.launch_counts(), **klora.launch_counts()}
 
 
 def decode_ms_per_step(stats: dict, rows: int = 3) -> float:
@@ -1022,14 +1083,17 @@ def beta_prompts() -> dict:
             for k in knights}
 
 
-def scheduler_phase(torch, kattn, engine, phase="scheduler"):
+def scheduler_phase(torch, kattn, engine, phase="scheduler", adapters=None):
     """The full-depth engine behind a SessionScheduler: alpha admits into
     an empty batch (blocking prologue) and decodes; beta submits once
     alpha has live rows. On the paged pool alpha runs K2 then K1, and beta
     joins through ragged mixed dispatches (K3). On the contiguous layout
     (no ragged seam) beta queues for alpha's segment boundary and admits
     through the blocking prologue: K8 and K9 must launch, K1-K3 never.
-    Returns the phase's launch counts."""
+    `adapters` ({session: per-knight LoRA persona ids}) serves the
+    sessions' knights under their personas: K7 must launch too. Returns
+    the phase's launch counts."""
+    adapters = adapters or {}
     from theroundtaible_tpu_torch.engine.kvcache import scoped_slot
     from theroundtaible_tpu_torch.engine.scheduler import SessionScheduler
     contiguous = engine.kv_layout == "contiguous"
@@ -1069,7 +1133,8 @@ def scheduler_phase(torch, kattn, engine, phase="scheduler"):
                     time.sleep(0.005)
             results[session] = sched.submit(
                 session, list(prompts[session].items()),
-                max_new_tokens=96, timeout_s=600)
+                max_new_tokens=96, timeout_s=600,
+                adapters_per_turn=adapters.get(session))
         except Exception as e:  # noqa: BLE001 - checked below
             errors[session] = e
 
@@ -1102,6 +1167,8 @@ def scheduler_phase(torch, kattn, engine, phase="scheduler"):
           f"max_occupancy {d['max_occupancy']} < 4")
     required, forbidden = ((CONTIGUOUS_KERNELS, PAGED_KERNELS) if contiguous
                            else (PAGED_KERNELS, CONTIGUOUS_KERNELS))
+    if adapters:
+        required += LORA_KERNELS
     check(all(launches[k] > 0 for k in required)
           and not any(launches[k] for k in forbidden),
           f"{phase}: launches {launches}, needs {required} and none of "
@@ -1112,7 +1179,8 @@ def scheduler_phase(torch, kattn, engine, phase="scheduler"):
     sched_recs = {k: list(engine.kv._slots[scoped_slot("beta", k)].tokens)
                   for k in prompts["beta"]}
     engine.generate_batch(list(prompts["beta"].items()), max_new_tokens=96,
-                          session="beta-direct")
+                          session="beta-direct",
+                          adapters_per_turn=adapters.get("beta"))
     same = total = 0
     for k, rec in sched_recs.items():
         direct = engine.kv._slots[scoped_slot("beta-direct", k)].tokens
@@ -1131,7 +1199,7 @@ def scheduler_phase(torch, kattn, engine, phase="scheduler"):
          decode_ms_per_step=[1e3 * s["wall_s"] / max(s["steps"], 1)
                              for s in segments],
          launches=launches,
-         beta_greedy_agreement=same / max(total, 1),
+         beta_greedy_agreement=same / max(total, 1), adapters=adapters,
          **{k: d[k] for k in ("segments", "ragged_segments", "ragged_joins",
                               "max_occupancy", "occupancy_mean",
                               "segment_prefill_tokens",
@@ -1141,21 +1209,22 @@ def scheduler_phase(torch, kattn, engine, phase="scheduler"):
     return launches
 
 
-def profile_phase(torch, engine, phase="profile"):
+def profile_phase(torch, engine, phase="profile", adapters=None):
     """torch.profiler over one decode-dominated call of the 8B engine: 3
     rows whose prompts are already cached (one token of prefill each),
-    then 32 decode steps. Device busy share = kernel time / wall time;
-    kernel time by name. The profiler's own overhead lengthens the wall,
-    so the share is a lower bound."""
+    then 32 decode steps; `adapters`: the rows' LoRA personas. Device busy
+    share = kernel time / wall time; kernel time by name. The profiler's
+    own overhead lengthens the wall, so the share is a lower bound."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     turns = [(f"profile{i}", [1] + [5 + i] * 1600) for i in range(3)]
-    engine.generate_batch(turns, max_new_tokens=1)
+    engine.generate_batch(turns, max_new_tokens=1, adapters_per_turn=adapters)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
-        engine.generate_batch(turns, max_new_tokens=32)
+        engine.generate_batch(turns, max_new_tokens=32,
+                              adapters_per_turn=adapters)
         torch.cuda.synchronize()
         wall_us = (time.monotonic() - t0) * 1e6
     by_name: dict[str, float] = {}
@@ -1652,6 +1721,257 @@ def quant_path_phase(torch, cfg):
          gather_view_chunk_max_abs_err=gather_chunk_err, **result)
 
 
+# --- LoRA phases ---
+
+
+LORA_KERNELS = ("lora_bgmv",)
+# The README's `lora:` block with two seed personas.
+LORA_BLOCK = {"rank": 8, "max_adapters": 8, "scale": 2.0,
+              "adapters": {"skeptic": {"seed": 7, "init_std": 0.5},
+                           "optimist": {"seed": 11, "init_std": 0.5}}}
+KNIGHT_ADAPTERS = {"lancelot": None, "gawain": "skeptic",
+                   "percival": "optimist"}
+LORA_SESSIONS = {"alpha": [None, "skeptic", "optimist"],
+                 "beta": ["optimist", "skeptic", None]}
+# K7 at Llama-3-8B width: (C, O) of each target shape and its calls per
+# layer (q/o, k/v, gate/up, down); 9 slots (8 adapters and the base).
+LORA_SHAPES = {"q_proj/o_proj": ((4096, 4096), 2),
+               "k_proj/v_proj": ((4096, 1024), 2),
+               "gate_proj/up_proj": ((4096, 14336), 2),
+               "down_proj": ((14336, 4096), 1)}
+LORA_SLOTS, LORA_RANK = 9, 8
+
+
+def lora_kernels_phase(torch):
+    """K7 at the four target shapes, 3 rows under 3 personas, against its
+    plain version (KERNEL_TOL), twice for the same bits; times beside the
+    bound (the distinct adapters' A and B rows, x and out) and the grouped
+    einsums of engine/lora.py (the yardstick: two torch.einsum calls).
+    Each call is far shorter than its launch, so `ms`, `plain_ms` and
+    `library_ms` are device times from CUDA-graph replays (graph_ms);
+    `launch_ms` is one call between CUDA events after an L2 flush, the
+    host's enqueue included."""
+    from theroundtaible_tpu_torch.engine import lora as lora_mod
+    from theroundtaible_tpu_torch.engine.kernels import lora as klora
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    flush = torch.empty(16 << 20, dtype=torch.float32, device=dev)
+    ids = torch.tensor([1, 2, 3], dtype=torch.int32, device=dev)
+    m, r = ids.numel(), LORA_RANK
+    out = {}
+    for name, ((c, o), per_layer) in LORA_SHAPES.items():
+        x = torch.randn(m, c, generator=gen, device=dev).to(bf16)
+        a_t = (torch.randn(LORA_SLOTS, r, c, generator=gen, device=dev)
+               * c ** -0.5).to(bf16)
+        b_s = (torch.randn(LORA_SLOTS, r, o, generator=gen, device=dev)
+               * 0.04).to(bf16)
+        a_t[0] = 0
+        b_s[0] = 0
+        fn = lambda: klora.lora_bgmv(x, a_t, b_s, ids)  # noqa: E731
+        ref = lambda: klora.bgmv_ref(x, a_t, b_s, ids)  # noqa: E731
+        lib = lambda: lora_mod.grouped_bmm(x, a_t, b_s, ids)  # noqa: E731
+        first = fn()
+        err, ok = max_err(torch, first, ref())
+        check(ok, f"{name}: K7 disagrees with its plain version by {err}")
+        same = bool(torch.equal(first, fn()))
+        check(same, f"{name}: two identical K7 calls differ")
+        distinct = len(set(ids.tolist()))
+        t = {"c": c, "o": o, "rows": m, "rank": r, "per_layer": per_layer,
+             "max_abs_err": err, "repeat_bit_identical": same,
+             "grouped_max_abs_err": max_err(torch, first, lib())[0],
+             "ms": graph_ms(torch, fn), "plain_ms": graph_ms(torch, ref),
+             "library_ms": graph_ms(torch, lib),
+             "launch_ms": time_ms(torch, fn, 50, flush),
+             "plain_launch_ms": time_ms(torch, ref, 10, flush),
+             "library_launch_ms": time_ms(torch, lib, 50, flush),
+             "bytes": distinct * r * (c + o) * 2 + m * c * 2 + m * o * 4,
+             "flops": 2 * m * r * (c + o)}
+        t["bound_ms"], t["bound_by"] = bound_ms(t["bytes"], t["flops"])
+        out[name] = t
+        del x, a_t, b_s
+    emit("lora_kernels", tolerance=KERNEL_TOL, cases=out)
+    return out
+
+
+def lora_round_phase(torch, reference):
+    """The engine phase's config with every knight greedy, the README's
+    `lora:` block and `knight_adapters`: warmup() and the two rounds (K1,
+    K2 and K7 must launch in each). `lora_paths` must put every decode
+    dispatch of the seven targets on K7 and only prefill-sized rows on the
+    grouped einsums; the mixed batch must have suppressed sharing. Each
+    knight's round-1 tokens against its adapter served alone are
+    reported."""
+    from theroundtaible_tpu_torch.adapters.torch_llm import TorchLlmAdapter
+    from theroundtaible_tpu_torch.engine.kernels.lora import kernel_path
+    from theroundtaible_tpu_torch.engine.kvcache import scoped_slot
+    from theroundtaible_tpu_torch.engine.lora import lora_dims
+    config = {k: v for k, v in ENGINE_CONFIG.items()
+              if k != "knight_sampling"}
+    config.update(lora=LORA_BLOCK, knight_adapters=KNIGHT_ADAPTERS)
+    torch.cuda.reset_peak_memory_stats()
+    adapter = TorchLlmAdapter.from_config("torch-llm-llama3-lora", config)
+    t0 = time.monotonic()
+    engine = adapter._get_engine()
+    torch.cuda.synchronize()
+    build_s = time.monotonic() - t0
+    check(engine.lora is not None, f"no LoRA store: {engine.lora_reason}")
+    warm_s = engine.warmup()
+    emit("lora_engine", construct_s=build_s, warmup_s=warm_s,
+         store=engine.lora.describe(),
+         memory_allocated=torch.cuda.memory_allocated())
+    totals, generated, stats = serve_rounds(
+        torch, None, adapter, engine, "lora_round",
+        required=PAGED_KERNELS[:2] + LORA_KERNELS,
+        forbidden=CONTIGUOUS_KERNELS)
+    d = engine.lora_describe()
+    paths = d["lora_paths"]
+    targets = set(lora_dims(engine.cfg))
+    kernel_leaves = {e["leaf"] for e in paths[kernel_path(engine.device)]}
+    check(kernel_leaves == targets,
+          f"lora_round: K7 served {sorted(kernel_leaves)} at decode, not "
+          f"all of {sorted(targets)}")
+    grouped = paths["xla_grouped_bmm"]
+    check(all(e.get("fallback_reason") == "rows:prefill-m" for e in grouped),
+          f"lora_round: a dispatch left K7 for another reason: {grouped}")
+    check(d["share_suppressed"] >= 1,
+          "lora_round: the mixed-adapter batch did not suppress sharing")
+    agreement = {}
+    prompts = knight_prompts(1)
+    for k, p in prompts.items():
+        engine.generate_batch([(k, p)], max_new_tokens=32,
+                              session="lora-alone",
+                              adapters_per_turn=[KNIGHT_ADAPTERS[k]])
+        start = len(engine.tokenizer.encode(p))
+        alone = engine.kv._slots[scoped_slot("lora-alone", k)].tokens[start:]
+        mixed = generated[1][k]
+        agreement[k] = sum(a == b for a, b in zip(alone, mixed)) / max(
+            len(alone), len(mixed), 1)
+    for name in engine.kv.slot_names():
+        if name.startswith(scoped_slot("lora-alone", "")):
+            engine.kv.release(name)
+    emit("lora_round_summary",
+         prefill_s=[stats[r]["prefill_seconds"] for r in (1, 2)],
+         decode_ms_per_step=[decode_ms_per_step(stats[r]) for r in (1, 2)],
+         bf16_decode_ms_per_step=reference["decode_ms_per_step"],
+         greedy_agreement_with_alone=agreement,
+         max_memory_allocated=torch.cuda.max_memory_allocated(),
+         apply_tokens=d["apply_tokens"],
+         share_suppressed=d["share_suppressed"],
+         lora_paths={p: sorted({(e["leaf"], e["rows"]) for e in v})
+                     for p, v in paths.items()},
+         launches=totals)
+    return totals, engine
+
+
+def lora_path_phase(torch, cfg):
+    """The whole path at full width, depth cut to 2 layers, a mixed-adapter
+    batch (base, skeptic, optimist): one 512-row chunk and 8 decode steps
+    of forward_paged with K7 at decode, against K7's plain version and the
+    grouped einsums on their own pools, teacher-forced with the kernel
+    path's tokens (logits within PATH_TOL); then one decode step of an
+    int8 store (grouped einsums, quant:int8-stack) against K7 over a bf16
+    store holding its dequantized values, on copies of the same pools. The
+    chunk's logits without LoRA must equal the base row's bit for bit
+    (slot 0's delta is exactly zero) and differ on the persona rows."""
+    from theroundtaible_tpu_torch.engine.lora import (LoraBatch, LoraStore,
+                                                      _dequant_stack)
+    from theroundtaible_tpu_torch.engine.models.common import init_params
+    from theroundtaible_tpu_torch.engine.paged_forward import forward_paged
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    cfg = dataclasses.replace(cfg, num_layers=2)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 17)
+    params = init_params(cfg, gen, bf16, dev)
+    kw = dict(rank=LORA_RANK, max_adapters=8, scale=2.0, dtype=bf16,
+              adapters=LORA_BLOCK["adapters"], device=dev)
+    store = LoraStore(cfg, **kw)
+    slots = store.acquire([None, "skeptic", "optimist"])
+    B, T, ps = 3, 512, 128
+    pp = cfg.max_seq_len // ps
+    table = (torch.randperm(B * pp, generator=gen, device=dev) + 1) \
+        .reshape(B, pp).to(torch.int32)
+    shape = (1 + B * pp, ps, cfg.num_kv_heads, cfg.head_dim)
+    modes = ("auto", "plain", "grouped")
+    pools = {mode: [(torch.zeros(shape, dtype=bf16, device=dev),
+                     torch.zeros(shape, dtype=bf16, device=dev))
+                    for _ in range(cfg.num_layers)] for mode in modes}
+    lengths = torch.tensor([512, 400, 300], dtype=torch.int32, device=dev)
+    tokens = torch.randint(3, 259, (B, T), generator=gen, device=dev)
+    positions = torch.arange(T, dtype=torch.int32, device=dev) \
+        .expand(B, T).contiguous()
+    worst = {"plain": 0.0, "grouped": 0.0}
+    agree = {"plain": 0, "grouped": 0}
+    steps = 0
+
+    def compare(lk, other, mode):
+        diff = (lk - other).abs()
+        worst[mode] = max(worst[mode], float(diff.max()))
+        check(bool(torch.isfinite(lk).all()), "non-finite K7 logits")
+        check(bool((diff <= PATH_TOL + PATH_TOL * other.abs()).all()),
+              f"lora_path: K7 and {mode} logits differ by {worst[mode]}")
+        agree[mode] += int((lk.argmax(-1) == other.argmax(-1)).sum())
+
+    def run(mode, tok, pos, valid, last_pos=None, pool=None, lora=None):
+        return forward_paged(
+            params, cfg, tok, pos, pool or pools[mode], table, valid,
+            last_pos=last_pos,
+            lora=lora or LoraBatch(store, slots, mode=mode))[:, 0]
+
+    out = {mode: run(mode, tokens, positions, lengths, lengths - 1)
+           for mode in modes}
+    base_pools = [(torch.zeros(shape, dtype=bf16, device=dev),
+                   torch.zeros(shape, dtype=bf16, device=dev))
+                  for _ in range(cfg.num_layers)]
+    base = forward_paged(params, cfg, tokens, positions, base_pools, table,
+                         lengths, last_pos=lengths - 1)[:, 0]
+    del base_pools
+    persona_shift = [float((base[i] - out["auto"][i]).abs().max())
+                     for i in range(B)]
+    check(persona_shift[0] == 0.0 and min(persona_shift[1:]) > 0.0,
+          f"lora_path: logits shift from the base model by {persona_shift} "
+          f"(the base row must not move, the persona rows must)")
+    for mode in ("plain", "grouped"):
+        compare(out["auto"], out[mode], mode)
+    steps += B
+    cur = out["auto"].argmax(-1)
+    valid = lengths.clone()
+    for _ in range(8):
+        out = {mode: run(mode, cur[:, None], valid[:, None], valid + 1)
+               for mode in modes}
+        for mode in ("plain", "grouped"):
+            compare(out["auto"], out[mode], mode)
+        steps += B
+        cur = out["auto"].argmax(-1)
+        valid = valid + 1
+    # One int8-store step against K7 on its dequantized values.
+    store8 = LoraStore(cfg, quant="int8", **kw)
+    check(store8.acquire([None, "skeptic", "optimist"]) == slots,
+          "the int8 store placed the personas in other slots")
+    deq = LoraStore(cfg, **kw)
+    deq.stacked = {k: {t: _dequant_stack(v, bf16) for t, v in ent.items()}
+                   for k, ent in store8.stacked.items()}
+    copies = [[(k.clone(), v.clone()) for k, v in pools["auto"]]
+              for _ in range(2)]
+    l8 = run("auto", cur[:, None], valid[:, None], valid + 1,
+             pool=copies[0], lora=LoraBatch(store8, slots))
+    lq = run("auto", cur[:, None], valid[:, None], valid + 1,
+             pool=copies[1], lora=LoraBatch(deq, slots))
+    diff8 = (lq - l8).abs()
+    check(bool(torch.isfinite(l8).all()) and bool(
+        (diff8 <= PATH_TOL + PATH_TOL * l8.abs()).all()),
+        f"lora_path: the int8 store's step differs from K7 by "
+        f"{float(diff8.max())}")
+    torch.cuda.synchronize()
+    emit("lora_path", layers=cfg.num_layers, batch=B, chunk=T,
+         decode_steps=8, adapters=[None, "skeptic", "optimist"],
+         max_abs_err_vs_plain=worst["plain"],
+         max_abs_err_vs_grouped=worst["grouped"],
+         greedy_agreement_vs_plain=agree["plain"] / steps,
+         greedy_agreement_vs_grouped=agree["grouped"] / steps,
+         int8_store_max_abs_err=float(diff8.max()), tolerance=PATH_TOL,
+         persona_shift_from_base=persona_shift)
+    del pools, copies
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1669,6 +1989,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     OUT.mkdir(parents=True, exist_ok=True)
+    (OUT / "phases.jsonl").unlink(missing_ok=True)
     smi = nvidia_smi()
     print(smi, flush=True)
     emit("device", name=torch.cuda.get_device_name(0), nvidia_smi=smi,
@@ -1736,6 +2057,25 @@ def main() -> int:
     torch.cuda.empty_cache()
     quant_path_phase(torch, cfg)
 
+    # Multi-LoRA personas: K7 alone, the 32-layer LoRA engine's rounds and
+    # its scheduler (K7 at decode, K3 with per-token adapter ids), then
+    # the 2-layer path.
+    lora_timing = lora_kernels_phase(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lora_launches, engine = lora_round_phase(torch, reference)
+    profile_phase(torch, engine, phase="lora_profile",
+                  adapters=list(KNIGHT_ADAPTERS.values()))
+    sched = scheduler_phase(torch, kattn, engine, phase="lora_scheduler",
+                            adapters=LORA_SESSIONS)
+    lora_launches = {k: n + sched[k] for k, n in lora_launches.items()}
+    cfg = engine.cfg
+    reset_engines()
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    lora_path_phase(torch, cfg)
+
     src = "theroundtaible_tpu_torch/engine/kernels/csrc/"
     rows = []
     for name, kind, source, replaces, library in (
@@ -1800,6 +2140,20 @@ def main() -> int:
             "ms": total["ms"], "plain_ms": total["plain_ms"],
             "bound_ms": bound, "bound_by": by,
             "library_ms": total["library_ms"]})
+    # K7: one layer's seven calls at 3 rows of 3 personas; yardstick: the
+    # grouped einsums. Launches: the lora_round and lora_scheduler phases.
+    parts = [(t, t["per_layer"]) for t in lora_timing.values()]
+    total = {k: sum(t[k] * n for t, n in parts)
+             for k in ("ms", "plain_ms", "library_ms", "bytes", "flops")}
+    bound, by = bound_ms(total["bytes"], total["flops"])
+    rows.append({
+        "name": "lora_bgmv", "route": "cuda", "source": src + "bgmv.cu",
+        "replaces": "theroundtaible_tpu/engine/pallas/lora.py:133",
+        "launches": lora_launches["lora_bgmv"],
+        "max_abs_err": max(t["max_abs_err"] for t, _ in parts),
+        "ms": total["ms"], "plain_ms": total["plain_ms"],
+        "bound_ms": bound, "bound_by": by,
+        "library_ms": total["library_ms"]})
     summary = {"kernels": rows}
     (OUT / "summary.json").write_text(json.dumps(summary, indent=1))
     print(json.dumps(summary), flush=True)

@@ -91,7 +91,7 @@ def test_two_rounds_match_jax(adapters):
 
 def test_breaker_opens_on_construction_failure():
     torch_engine_mod.reset_engines()
-    bad = dict(CONFIG, lora={"adapters": {}})
+    bad = dict(CONFIG, spec_decode=True)
     ad = TorchLlmAdapter.from_config("torch-llm", bad, device="cpu")
     assert not ad.is_available()
     assert "not ported" in ad.unavailable_reason()

@@ -1,6 +1,6 @@
 """PyTorch port, CUDA kernels K1/K2/K3/K8/K9, K4 (in-kernel KV dequant
-inside K1-K3, int8 and int4 pages) and K5/K6 (w4a16 decode products)
-against their plain versions on the card (`cuda` marker; each test skips
+inside K1-K3, int8 and int4 pages), K5/K6 (w4a16 decode products) and K7
+(grouped LoRA BGMV) against their plain versions on the card (`cuda` marker; each test skips
 itself where there is no card). The
 file imports neither jax nor the JAX package, so it runs on a machine that
 has only the port's dependencies:
@@ -14,6 +14,7 @@ import torch
 
 from theroundtaible_tpu_torch.engine.kernels import attention as kattn
 from theroundtaible_tpu_torch.engine.kernels import int4mm
+from theroundtaible_tpu_torch.engine.kernels import lora as klora
 from theroundtaible_tpu_torch.engine.kv_quant import (KVQuantSpec,
                                                       quantize_cells)
 from theroundtaible_tpu_torch.engine.models.common import Int4Leaf
@@ -451,3 +452,95 @@ def test_cuda_engine_refuses_int4_leaves_the_kernels_decline(cuda_device,
     a = torch.ones(1, 1, 256, device=cuda_device, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="kernel-disabled"):
         int4mm.einsum_int4_or_reason("bte,ef->btf", a, leaf)
+
+
+# K7 at Llama-3-8B's LoRA targets, (C, O): q/o, k/v, gate/up, down.
+LORA_SHAPES = {"q_proj": (4096, 4096), "k_proj": (4096, 1024),
+               "gate_proj": (4096, 14336), "down_proj": (14336, 4096)}
+
+
+def lora_operands(rng, target, rows, rank, dtype, dev, slots=9):
+    """x [rows, C] and 9-slot stacks at a persona's scale (A ~ N(0, 1/C),
+    B ~ N(0, 0.02^2) x scale 2), slot 0 zero, ids mixed with 0."""
+    c, o = LORA_SHAPES[target]
+    x = rng.normal(size=(rows, c)).astype(np.float32)
+    a_t = (rng.normal(size=(slots, rank, c)) * c ** -0.5).astype(np.float32)
+    b_s = (rng.normal(size=(slots, rank, o)) * 0.04).astype(np.float32)
+    a_t[0] = b_s[0] = 0.0
+    ids = ((np.arange(rows) * 5 + 1) % slots).astype(np.int32)
+    ids[0] = 0
+    return [torch.from_numpy(v).to(dev, dtype) for v in (x, a_t, b_s)] + [
+        torch.from_numpy(ids).to(dev)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("rank", [8, 16])
+@pytest.mark.parametrize("rows", [1, 3, 64])
+@pytest.mark.parametrize("target", sorted(LORA_SHAPES))
+def test_cuda_lora_bgmv_matches_plain(cuda_device, target, rows, rank,
+                                      dtype, tol):
+    """K7 against its plain version at the four Llama-3-8B (C, O) pairs,
+    S = 9 slots; a base row's delta is exactly zero."""
+    rng = np.random.default_rng(41 + rows + rank)
+    x, a_t, b_s, ids = lora_operands(rng, target, rows, rank, dtype,
+                                     cuda_device)
+    before = klora.launch_counts()["lora_bgmv"]
+    out = klora.lora_bgmv(x, a_t, b_s, ids)
+    ref = klora.bgmv_ref(x, a_t, b_s, ids)
+    torch.cuda.synchronize()
+    assert klora.launch_counts()["lora_bgmv"] == before + 1
+    assert out.dtype == torch.float32 and out.shape == ref.shape
+    torch.testing.assert_close(out, ref, atol=tol, rtol=tol)
+    assert not out[0].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("target", sorted(LORA_SHAPES))
+def test_cuda_lora_bgmv_is_bit_identical_across_calls(cuda_device, target):
+    """Warps and their partial sums meet in a fixed order: two identical
+    calls give the same bits."""
+    rng = np.random.default_rng(43)
+    args = lora_operands(rng, target, 3, 8, torch.bfloat16, cuda_device)
+    first = klora.lora_bgmv(*args)
+    for _ in range(3):
+        assert torch.equal(first, klora.lora_bgmv(*args))
+
+
+@pytest.mark.cuda
+def test_cuda_lora_bgmv_refuses_what_it_cannot_serve(cuda_device):
+    """On a CUDA tensor the wrapper launches or raises: prefill rows, a
+    dtype mix and a misaligned width raise instead of falling back."""
+    rng = np.random.default_rng(44)
+    x, a_t, b_s, ids = lora_operands(rng, "k_proj", 65, 8, torch.bfloat16,
+                                     cuda_device)
+    with pytest.raises(ValueError, match="rows:prefill-m"):
+        klora.lora_bgmv(x, a_t, b_s, ids)
+    with pytest.raises(ValueError, match="dtype"):
+        klora.lora_bgmv(x[:3], a_t.float(), b_s, ids[:3])
+    with pytest.raises(ValueError, match="dims:contract-misaligned"):
+        klora.lora_bgmv(x[:3, :100].contiguous(),
+                        a_t[:, :, :100].contiguous(), b_s, ids[:3])
+
+
+@pytest.mark.cuda
+def test_cuda_engine_refuses_lora_shapes_k7_declines(cuda_device,
+                                                     monkeypatch):
+    """On a card a LoRA engine is not built when K7 would decline its
+    decode dispatches: rank 513 (rank:unsupported) or ROUNDTABLE_LORA_MM=0
+    (kernel-disabled). An int8 store takes the grouped einsums by design
+    and builds."""
+    from theroundtaible_tpu_torch.engine.engine import InferenceEngine
+    # Dense attention on contiguous slots: the tiny model's head_dim 16
+    # is no attention kernel's, and this test is about K7's gate alone.
+    config = {"model": "tiny-llama", "max_seq_len": 256, "attn": "dense",
+              "lora": {"rank": 513}}
+    with pytest.raises(ValueError, match="rank:unsupported"):
+        InferenceEngine.from_config(config, device="cuda")
+    config["lora"] = {"rank": 8, "quant": "int8"}
+    assert InferenceEngine.from_config(config, device="cuda").lora.quant \
+        == "int8"
+    monkeypatch.setenv("ROUNDTABLE_LORA_MM", "0")
+    config["lora"] = {"rank": 8}
+    with pytest.raises(ValueError, match="kernel-disabled"):
+        InferenceEngine.from_config(config, device="cuda")

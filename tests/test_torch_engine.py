@@ -120,7 +120,6 @@ def test_describe_keys_match(engines):
 @pytest.mark.parametrize("key,value", [
     ("prefix_cache", True), ("kv_offload", True), ("spec_decode", True),
     ("mesh", {"data": 1, "model": 4}), ("seq_parallel", 2),
-    ("lora", {"adapters": {}}),
     ("checkpoint", "/nonexistent"), ("dtype", "float16"),
 ])
 def test_unported_options_raise(key, value):

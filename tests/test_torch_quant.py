@@ -496,18 +496,18 @@ def test_adapter_builds_a_quantized_engine():
 
 @pytest.mark.parametrize("extra,item", [
     ({"quant": "int4", "mesh": {"data": 1, "model": 2}}, "slice 7"),
-    ({"quant": "int8", "lora": {"adapters": {}}}, "slice 6"),
     ({"kv_quant": "int8", "kv_layout": "paged", "prefix_cache": True},
      "slice 7"),
     ({"kv_quant": "int4", "kv_layout": "paged", "kv_offload": True},
      "slice 7"),
     ({"quant": "int8", "model": "tiny-mixtral"}, "slice 7"),
-], ids=["int4-sharded", "quantized-lora", "quantized-prefix-cache",
-        "quantized-offload", "quantized-moe"])
+], ids=["int4-sharded", "quantized-prefix-cache", "quantized-offload",
+        "quantized-moe"])
 def test_out_of_scope_quant_options_still_raise(extra, item):
-    """Quantization is ported on one device; its sharded, LoRA, prefix
-    cache, offload and MoE companions still refuse, naming their ROADMAP
-    item."""
+    """Quantization is ported on one device; its sharded, prefix cache,
+    offload and MoE companions still refuse, naming their ROADMAP item
+    (quantized weights under LoRA personas serve:
+    tests/test_torch_lora.py)."""
     config = {"model": "tiny-llama", "max_seq_len": 128, **extra}
     with pytest.raises(NotImplementedError, match=item):
         InferenceEngine.from_config(config, device="cpu")

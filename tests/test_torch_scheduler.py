@@ -270,8 +270,12 @@ def test_unported_scheduler_options_raise(jax_engine):
         SessionScheduler(eng, idle_spill_s=1.0)
     sched = SessionScheduler(eng)
     try:
-        with pytest.raises(NotImplementedError, match="LoRA"):
-            sched.submit("s", [("a", "hi")], adapters_per_turn=["persona"])
+        # LoRA personas are ported: an engine without a `lora:` store
+        # serves the base model and ignores adapters_per_turn, as the JAX
+        # scheduler does (tests/test_torch_lora.py covers a LoRA engine).
+        texts, _ = sched.submit("s", [("a", "hi")],
+                                adapters_per_turn=["persona"])
+        assert texts == sched.submit("s2", [("a", "hi")])[0]
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             sched.submit_async("s", [("a", "hi")], on_commit=print)
     finally:

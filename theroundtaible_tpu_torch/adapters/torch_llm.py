@@ -10,7 +10,11 @@ outcome feeds the engine's shared circuit breaker, and an open breaker
 makes is_available() False with its reason. With a SessionScheduler
 attached (attach_scheduler), every rung - the batched attempt and the
 serial retries - goes through the scheduler's queue instead of the engine.
-LoRA personas come with a later slice.
+LoRA personas: `lora_adapter` names the adapter-level persona and
+`knight_adapters: {name: id}` overrides it per seat; a round's persona ids
+ride into the engine or the scheduler only when the engine serves LoRA, so
+an engine without a store (no `lora:` block, or ROUNDTABLE_LORA=0) keeps
+the exact base-model call.
 """
 
 from __future__ import annotations
@@ -32,6 +36,12 @@ MIN_AVAILABLE_TOKENS = 2000
 BATCH_BUDGET_FRACTION = 0.6
 
 
+def _engine_serves_lora(engine) -> bool:
+    """True when the engine resolved an adapter store: only then does a
+    round pass `adapters_per_turn`."""
+    return getattr(engine, "lora", None) is not None
+
+
 class TorchLlmAdapter(BaseAdapter):
     """BaseAdapter over the port's engine (theroundtaible_tpu_torch.engine).
     `device` is where the engine runs: the card unless the caller asks for
@@ -48,6 +58,10 @@ class TorchLlmAdapter(BaseAdapter):
         # Namespaces this adapter's KV slot names (kvcache.scoped_slot).
         self.session = session
         self.device = device
+        # The LoRA persona this adapter's knights speak through on a
+        # shared-base engine (None: the base model); `knight_adapters`
+        # overrides it per seat.
+        self.persona_adapter = engine_config.get("lora_adapter")
         self._engine = None
         self._engine_error: Optional[str] = None
         self._scheduler = None
@@ -177,6 +191,18 @@ class TorchLlmAdapter(BaseAdapter):
     def supports_batched_rounds(self) -> bool:
         return True
 
+    def _adapter_for(self, knight_name: str) -> Optional[str]:
+        """A seat's LoRA persona id: `knight_adapters` first, then the
+        adapter-level `lora_adapter`."""
+        overrides = self.engine_config.get("knight_adapters", {})
+        return overrides.get(knight_name, self.persona_adapter)
+
+    def _adapters_for(self, turns) -> Optional[list]:
+        """Per-turn persona ids of a round, or None when every seat serves
+        the base model (the call then keeps its base-model signature)."""
+        ads = [self._adapter_for(t.knight_name) for t in turns]
+        return ads if any(a is not None for a in ads) else None
+
     def _sampling_for(self, knight_name: str):
         """Per-knight SamplingParams from `knight_sampling: {name: {...}}`,
         over the engine default; None when the knight has no override."""
@@ -256,6 +282,11 @@ class TorchLlmAdapter(BaseAdapter):
         kwargs: dict[str, Any] = {
             "timeout_s": max(batch_budget.remaining(), 0.0),
             "budget": batch_budget}
+        ads = self._adapters_for(turns)
+        if ads is not None and _engine_serves_lora(engine):
+            # Knights of different personas decode in one mixed-adapter
+            # batch; engines without a store serve the base model.
+            kwargs["adapters_per_turn"] = ads
         if per_turn is not None:
             kwargs["sampling_per_turn"] = per_turn
             # call-level cap = the LARGEST per-knight budget; row budgets
@@ -306,6 +337,9 @@ class TorchLlmAdapter(BaseAdapter):
             kwargs: dict[str, Any] = {
                 "timeout_s": max(knight_budget.remaining(), 0.0),
                 "budget": knight_budget}
+            ad = self._adapter_for(t.knight_name)
+            if ad is not None and _engine_serves_lora(engine):
+                kwargs["adapters_per_turn"] = [ad]
             if per_turn is not None:
                 kwargs["sampling_per_turn"] = [per_turn[i]]
                 kwargs["max_new_tokens"] = per_turn[i].max_new_tokens

@@ -72,3 +72,17 @@ def reset_engines() -> None:
     with _lock:
         _engines.clear()
         _breakers.clear()
+
+
+# The multi-LoRA surface: `from theroundtaible_tpu_torch.engine import
+# LoraStore` without deep paths (loaded on first use, as in the JAX
+# package).
+_LORA_EXPORTS = ("LoraStore", "lora_enabled", "lora_dims",
+                 "save_pair_tree")
+
+
+def __getattr__(name: str):
+    if name in _LORA_EXPORTS:
+        from . import lora as _lora
+        return getattr(_lora, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -41,6 +41,18 @@ rows' pages into a position-aligned cache, dequantized, runs the dense
 forward and scatters it back, requantized), with the ragged seam off
 (`attn=dense`: the JAX engine's dense ragged fallback is not ported).
 
+Multi-LoRA personas, as in the JAX engine: a `lora:` block builds a
+LoraStore (engine/lora.py; ROUNDTABLE_LORA=0 serves the base model byte
+for byte), and `adapters_per_turn` names each row's persona. Every
+dispatch gets one LoraBatch of adapter slots - per row for prefill chunks
+and decode segments on both layouts, per token for ragged dispatches -
+and the tagged projections add the deltas through K7 (the grouped einsums
+for prefill rows and int8 stacks; `lora_paths` in describe()). On a card a
+decode shape K7 declines, ROUNDTABLE_LORA_MM=0 among them, fails
+construction. A mixed-adapter batch shares no prefix, a uniform one only
+with donors of its adapter, and a slot re-served under another adapter is
+released first.
+
 Features the JAX
 engine also turns on by default (prefix cache, host offload, speculative
 decoding) stay off here, with `<feature>_reason: "not_ported"` in
@@ -66,7 +78,11 @@ from .device import resolve_device
 from .kernels import attention as kattn
 from .kernels import build as kbuild
 from .kernels import int4mm
+from .kernels import lora as klora
 from .kvcache import KVCache, scoped_slot, share_prefixes
+from .lora import (DEFAULT_MAX_ADAPTERS, DEFAULT_RANK, DEFAULT_SCALE,
+                   LoraBatch, LoraStore, lora_enabled, note_dispatch_ids,
+                   summarize_lora_paths)
 from .models.common import (Int4Leaf, ModelConfig, forward_cached,
                             init_params, int4_sites, param_count)
 from .models.registry import get_model_config
@@ -78,10 +94,10 @@ from .sampling import SamplingParams, sample_token_batch, sampling_arrays
 from .serving_loop import (DECODE_SEGMENT, MAX_PREFILL_CHUNK,
                            PREFILL_BUCKETS, RaggedSeq, bucket_for,
                            build_ragged_batch, chunked_prefill,
-                           clamp_max_new, decode_segments, finalize_outputs,
-                           host_sync, prompt_budget, ragged_defer_min,
-                           ragged_shape_grid, ragged_token_budget,
-                           row_budget_fn)
+                           clamp_max_new, decode_segments, eos_trim,
+                           finalize_outputs, host_sync, prompt_budget,
+                           ragged_defer_min, ragged_shape_grid,
+                           ragged_token_budget, row_budget_fn)
 from .tokenizer import load_tokenizer
 
 # Below this many shared tokens a plain prefill beats sharing a span.
@@ -173,7 +189,7 @@ class InferenceEngine:
                  params: Optional[dict] = None, device="cuda"):
         self.device = resolve_device(device)
         self._check_ported(model_cfg, checkpoint, mesh_shape, dtype,
-                           seq_parallel, attn, kv_layout, quant, lora,
+                           seq_parallel, attn, kv_layout, quant,
                            kv_quant, prefix_cache=prefix_cache,
                            kv_offload=kv_offload, spec_decode=spec_decode)
         if kv_layout == "contiguous":
@@ -280,6 +296,7 @@ class InferenceEngine:
             self.ragged_tokens = ragged_token_budget(num_slots)
             self.ragged_shapes = ragged_shape_grid(self.ragged_tokens)
             self.ragged_defer_min = ragged_defer_min()
+        self._build_lora(lora, model_cfg, dtype)
         self._generator = torch.Generator(
             device=self.device).manual_seed(seed + 1)
         self._chars_per_token: Optional[float] = None
@@ -289,6 +306,46 @@ class InferenceEngine:
         self.retry = faults.DEFAULT_RETRY
         # The attached SessionScheduler (scheduler.acquire_scheduler).
         self._scheduler = None
+
+    def _build_lora(self, lora, model_cfg, dtype) -> None:
+        """The multi-LoRA store for a `lora:` block (None without one, or
+        under ROUNDTABLE_LORA=0, with `lora_reason`), the lora_paths sink
+        and the sharing bookkeeping. On a card, a target whose decode
+        dispatches K7 declines fails construction, as K5/K6 do."""
+        self._lora_dispatches: dict = {}
+        self.lora: Optional[LoraStore] = None
+        self.lora_reason: Optional[str] = None
+        self._lora_tokens = 0
+        self._lora_share_suppressed = 0
+        # Adapter label per slot NAME: sharing never crosses slots served
+        # under different adapters (the K/V bytes differ).
+        self._slot_adapters: dict[str, Optional[str]] = {}
+        if not lora:
+            self.lora_reason = "disabled:config"
+            return
+        if not lora_enabled(lora):
+            self.lora_reason = "disabled:env"
+            return
+        lora_cfg = lora if isinstance(lora, dict) else {}
+        store = LoraStore(
+            model_cfg,
+            max_adapters=int(lora_cfg.get("max_adapters",
+                                          DEFAULT_MAX_ADAPTERS)),
+            rank=int(lora_cfg.get("rank", DEFAULT_RANK)),
+            scale=float(lora_cfg.get("scale", DEFAULT_SCALE)),
+            dtype=dtype, quant=lora_cfg.get("quant", "none"),
+            adapters=lora_cfg.get("adapters"),
+            targets=lora_cfg.get("targets"),
+            device=self.device)
+        if self.device.type == "cuda":
+            declines = store.decode_declines(dtype)
+            if declines:
+                hint = (" (ROUNDTABLE_LORA_MM=0)"
+                        if "kernel-disabled" in declines.values() else "")
+                raise ValueError(
+                    f"the LoRA kernel (K7) declines the decode dispatches "
+                    f"of {declines} on {self.device}{hint}")
+        self.lora = store
 
     def _build_params(self, cfg, params, quant: str, dtype, seed: int):
         """The engine's weights: `params` as given, or seeded random ones;
@@ -314,7 +371,7 @@ class InferenceEngine:
 
     @staticmethod
     def _check_ported(cfg, checkpoint, mesh_shape, dtype, seq_parallel,
-                      attn, kv_layout, quant, lora, kv_quant,
+                      attn, kv_layout, quant, kv_quant,
                       **features) -> None:
         """Raise NotImplementedError for every option this slice does not
         serve, naming the ROADMAP item that brings it."""
@@ -329,8 +386,6 @@ class InferenceEngine:
                 f"kv_layout must be contiguous|paged, got {kv_layout!r}")
         if quant not in ("none", "int8", "int4"):
             raise ValueError(f"quant must be none|int8|int4, got {quant!r}")
-        if lora:
-            raise _not_ported("lora", "slice 6: LoRA, K7")
         if seq_parallel and seq_parallel > 0:
             raise _not_ported("seq_parallel",
                               "slice 7: multi-device")
@@ -435,6 +490,10 @@ class InferenceEngine:
         t0 = time.monotonic()
         if self.device.type == "cuda":
             kbuild.build_all()
+        if self.lora is not None:
+            # The store's slot writes first, as the JAX engine warms its
+            # setters before the serving programs.
+            self.lora.warm()
         limit = min(max_prompt_tokens, self.max_seq_len - DECODE_SEGMENT - 1)
         for b in batch_sizes:
             if b > self.kv.num_slots:
@@ -523,13 +582,18 @@ class InferenceEngine:
 
     def _prefill(self, token_lists: list[list[int]], offsets: list[int],
                  rows, deadline: float = float("inf"),
-                 budget=None) -> torch.Tensor:
+                 budget=None, lora_ids=None) -> torch.Tensor:
         """Chunked, bucketed prefill of B rows: through forward_cached at
         the rows' slot ids (`rows` [B], contiguous layout) or through
         forward_paged over their page tables (`rows` [B, pages], paged).
-        Returns last-token logits [B, V]."""
+        `lora_ids`: the rows' adapter slots (None: all base); one
+        LoraBatch serves every chunk. Returns last-token logits [B, V]."""
         index = self._ints(rows)
         contiguous = self.kv_layout == "contiguous"
+        lora = None
+        if self.lora is not None:
+            lora = self._lora_args(lora_ids if lora_ids is not None
+                                   else [0] * len(token_lists))
 
         def dispatch(chunk, offs, lengths):
             t = chunk.shape[1]
@@ -545,19 +609,19 @@ class InferenceEngine:
                     logits = forward_cached(
                         self.params, self.cfg, tokens, positions,
                         self.kv.layers, index, offs_t, offs_t + lengths_t,
-                        last_pos=lengths_t - 1)
+                        last_pos=lengths_t - 1, lora=lora)
                 elif self.paged_direct:
                     logits = forward_paged(
                         self.params, self.cfg, tokens, positions,
                         self.kv.pools, index, offs_t + lengths_t,
                         last_pos=lengths_t - 1, scales=self.kv.scales,
-                        quant_spec=self.kv_quant_spec)
+                        quant_spec=self.kv_quant_spec, lora=lora)
                 else:
                     view = self._gather(index)
                     logits = forward_cached(
                         self.params, self.cfg, tokens, positions, view,
                         self._view_rows(index), offs_t, offs_t + lengths_t,
-                        last_pos=lengths_t - 1)
+                        last_pos=lengths_t - 1, lora=lora)
                     self._scatter(index, view)
             if not contiguous:
                 self._note_kv_quant("prefill", kernel=self.paged_direct)
@@ -585,12 +649,15 @@ class InferenceEngine:
     def _share_prefixes(self, names: list[str], slot_ids: list[int],
                         all_tokens, offsets, deadline: float, budget=None,
                         extra_pinned: tuple[str, ...] = (),
-                        defer_span=None) -> tuple[list[int], int]:
+                        defer_span=None, row_adapters=None,
+                        row_lora_slots=None) -> tuple[list[int], int]:
         """Cross-knight shared-prefix reuse (kvcache.share_prefixes): paged
         slots ALIAS the donor's whole pages and copy only partial boundary
         pages, contiguous slots queue K/V span copies; a batch's common
-        span is prefilled once by its leader, or, with `defer_span`,
-        recorded for the scheduler's ragged chunks."""
+        span is prefilled once by its leader (under its adapter slot,
+        `row_lora_slots`), or, with `defer_span`, recorded for the
+        scheduler's ragged chunks. With `row_adapters` a donor serves only
+        rows of its own adapter label."""
         paged = self.kv_layout == "paged"
         pinned = tuple(names) + tuple(extra_pinned)
         copies: list[tuple[int, int, int, int]] = []
@@ -613,18 +680,31 @@ class InferenceEngine:
             else:
                 rows = [slot_ids[m]]
             self._prefill([all_tokens[m][lo:hi]], [lo], rows, deadline,
-                          budget=budget)
+                          budget=budget,
+                          lora_ids=([row_lora_slots[m]]
+                                    if row_lora_slots is not None
+                                    else None))
+
+        # Adapter-identity donor filter: K/V computed under one adapter is
+        # wrong under another.
+        donor_ok = None
+        if row_adapters is not None:
+            labels = self._slot_adapters
+
+            def donor_ok(donor, i):
+                return labels.get(donor.name) == row_adapters[i]
 
         return share_prefixes(
             self.kv, names, all_tokens, offsets,
             min_shared=MIN_SHARED_PREFIX, add_share=add_share,
             flush_shares=flush_shares, prefill_span=prefill_span,
-            extra_pinned=extra_pinned, defer_span=defer_span)
+            extra_pinned=extra_pinned, defer_span=defer_span,
+            donor_ok=donor_ok)
 
     def _prepare_batch(self, turns, max_new_padded, deadline, pre_budget,
                        sampling_per_turn=None,
                        extra_pinned: tuple[str, ...] = (),
-                       defer_prefill: bool = False) -> dict:
+                       defer_prefill: bool = False, adapters=None) -> dict:
         """The pre-decode phase, one definition shared by generate_batch
         and the session scheduler's admission: tokenize + tail-truncate ->
         own-slot reuse_plan -> cross-knight share_prefixes -> capacity/COW
@@ -641,8 +721,18 @@ class InferenceEngine:
         ragged dispatches, first_np is None and temps/top_ks/top_ps are
         None, and `share_plan` lists the deferred leader spans
         ({"leader", "lo", "hi", "followers"}). A join whose suffixes sum
-        below ragged_defer_min resolves back to the prologue."""
+        below ragged_defer_min resolves back to the prologue.
+
+        `adapters`: per-turn LoRA adapter ids (None = base), acquired by
+        the caller so residency cannot change under this call. They give
+        the rows' adapter slots (`lora_slots` in the result, with
+        `adapters`), the adapter-flip release, the mixed-adapter share
+        suppression and the donor filter."""
         pinned = tuple(name for name, _ in turns) + tuple(extra_pinned)
+        ad: Optional[list] = None
+        lora_slots: Optional[list[int]] = None
+        if self.lora is not None:
+            ad, lora_slots = self._lora_rows(turns, adapters)
         slot_ids, offsets, all_tokens = [], [], []
         for name, prompt in turns:
             # A list of ids is accepted as a pre-tokenized prompt.
@@ -670,10 +760,20 @@ class InferenceEngine:
             def defer_span(m, lo, hi, followers):
                 share_plan.append({"leader": m, "lo": lo, "hi": hi,
                                    "followers": followers})
-        offsets, leader_prefill = self._share_prefixes(
-            names, slot_ids, all_tokens, offsets, deadline,
-            budget=pre_budget, extra_pinned=tuple(extra_pinned),
-            defer_span=defer_span)
+        # (The JAX engine's prefix-cache gating for persona rows - base
+        # rows alone consult the cross-session index - belongs to the
+        # prefix cache, which the port does not have yet: ROADMAP 7a.)
+        if lora_slots is not None and len(set(lora_slots)) > 1:
+            # Mixed-adapter batch: no donor or leader span is valid across
+            # rows of different adapters, so both share passes are off.
+            self._lora_share_suppressed += 1
+            leader_prefill = 0
+        else:
+            offsets, leader_prefill = self._share_prefixes(
+                names, slot_ids, all_tokens, offsets, deadline,
+                budget=pre_budget, extra_pinned=tuple(extra_pinned),
+                defer_span=defer_span, row_adapters=ad,
+                row_lora_slots=lora_slots)
         # Pages for the whole call (prompt + padded decode); copy-on-write
         # any shared page in the write range, so no step below allocates
         # or writes an aliased page. Deferred-share laggards skip this:
@@ -701,6 +801,7 @@ class InferenceEngine:
             "offsets": offsets, "tables_np": tables_np,
             "prefill_tokens": prefill_tokens,
             "reused_tokens": reused_tokens, "prefix_reused_tokens": 0,
+            "lora_slots": lora_slots, "adapters": ad,
         }
         if defer_prefill:
             per_row = sampling_per_turn or [self.sampling] * len(turns)
@@ -715,7 +816,7 @@ class InferenceEngine:
         last_logits = self._prefill(
             suffixes, offsets,
             tables_np if tables_np is not None else slot_ids,
-            deadline=deadline, budget=pre_budget)
+            deadline=deadline, budget=pre_budget, lora_ids=lora_slots)
         # A blocking read (prefill time is not billed to decode), through
         # the deadline seam.
         host_sync(lambda: float(last_logits[0, 0]), pre_budget, "prefill")
@@ -739,6 +840,71 @@ class InferenceEngine:
                 "top_ks": top_ks, "top_ps": top_ps, "greedy": greedy,
                 "first_np": first_np}
 
+    def _lora_rows(self, turns, adapters) -> tuple[list, list[int]]:
+        """(per-turn adapter ids, their resident slots) of a batch, with
+        the adapter-flip release: a slot re-served under another adapter
+        (base to persona included) must not reuse K/V computed under the
+        old one, so it is released and prefills afresh."""
+        ad = (list(adapters) if adapters is not None
+              else [None] * len(turns))
+        if len(ad) != len(turns):
+            raise ValueError(f"adapters has {len(ad)} entries for "
+                             f"{len(turns)} turns")
+        lora_slots = []
+        for a in ad:
+            slot = 0 if a is None else self.lora.slot_of(a)
+            if slot is None:
+                raise RuntimeError(
+                    f"lora adapter {a!r} is not resident - callers "
+                    "acquire() adapters before _prepare_batch")
+            lora_slots.append(slot)
+        # Base rows label None, so "never seen" needs its own sentinel. (The
+        # JAX engine also keeps the labels of sessions spilled to host RAM;
+        # the port has no spill yet: ROADMAP 7a.)
+        unset = object()
+        for (name, _p), a in zip(turns, ad):
+            prev = self._slot_adapters.get(name, unset)
+            if prev is not unset and prev != a:
+                self.kv.release(name)
+            self._slot_adapters[name] = a
+        if len(self._slot_adapters) > 4 * self.kv.num_slots:
+            live = set(self.kv.slot_names()) | {name for name, _ in turns}
+            self._slot_adapters = {n: a_ for n, a_ in
+                                   self._slot_adapters.items() if n in live}
+        return ad, lora_slots
+
+    def _lora_args(self, ids) -> Optional[LoraBatch]:
+        """One dispatch's LoraBatch: adapter slot ids per row (batched
+        dispatches) or per token (ragged), checked and moved to the device
+        once; None on engines without a store. Records the dispatch's
+        adapter mix (lora.note_dispatch_ids)."""
+        if self.lora is None:
+            return None
+        ids_np = np.asarray(ids, np.int32)
+        note_dispatch_ids(ids_np)
+        return LoraBatch(self.lora, ids_np, sink=self._lora_dispatches)
+
+    def note_lora_tokens(self, n: int) -> None:
+        """Account tokens served through a persona adapter."""
+        if n > 0:
+            self._lora_tokens += n
+
+    def lora_describe(self) -> dict[str, Any]:
+        """Multi-LoRA provenance (the JAX engine's keys): the resolved
+        state, persona tokens served, share suppressions, and with a store
+        its residency and the routes each (target, rows) took."""
+        info: dict[str, Any] = {
+            "enabled": self.lora is not None,
+            "reason": self.lora_reason,
+            "apply_tokens": self._lora_tokens,
+            "share_suppressed": self._lora_share_suppressed,
+        }
+        if self.lora is not None:
+            info["store"] = self.lora.describe()
+            info["lora_paths"] = summarize_lora_paths(self._lora_dispatches,
+                                                      self.device)
+        return info
+
     def _gather(self, table: torch.Tensor) -> list:
         """The gather view of the rows' pages (attn "dense")."""
         return gather_view(self.kv.pools, self.kv.scales, table,
@@ -755,18 +921,20 @@ class InferenceEngine:
     def _decode_dispatch_paged(self, table, first_token, start_valid,
                                budget, temps, top_ks, top_ps, row_budgets,
                                done0, *, greedy: bool,
-                               max_new: int = DECODE_SEGMENT):
+                               max_new: int = DECODE_SEGMENT, lora=None):
         """One paged decode segment: single-token forward_paged steps over
         the rows' page tables (_decode_segment) - or, on the gather view,
         forward_cached steps on the rows' view, gathered once before the
         segment and scattered back after it (skipped when every row is
-        done already, as the JAX engine's segment is)."""
+        done already, as the JAX engine's segment is). `lora`: the rows'
+        LoraBatch."""
         if self.paged_direct:
             def step(last, valid):
                 return forward_paged(
                     self.params, self.cfg, last.long()[:, None],
                     valid[:, None], self.kv.pools, table, valid + 1,
-                    scales=self.kv.scales, quant_spec=self.kv_quant_spec)
+                    scales=self.kv.scales, quant_spec=self.kv_quant_spec,
+                    lora=lora)
             out = self._decode_segment(
                 step, first_token, start_valid, budget, temps, top_ks,
                 top_ps, row_budgets, done0, greedy=greedy, max_new=max_new)
@@ -780,7 +948,8 @@ class InferenceEngine:
             def step(last, valid):
                 return forward_cached(self.params, self.cfg,
                                       last.long()[:, None], valid[:, None],
-                                      view, rows, valid, valid + 1)
+                                      view, rows, valid, valid + 1,
+                                      lora=lora)
             out = self._decode_segment(
                 step, first_token, start_valid, budget, temps, top_ks,
                 top_ps, row_budgets, done0, greedy=greedy, max_new=max_new)
@@ -792,7 +961,7 @@ class InferenceEngine:
     def _decode_dispatch_slots(self, slot_idx, first_token, start_valid,
                                budget, temps, top_ks, top_ps, row_budgets,
                                done0, *, greedy: bool,
-                               max_new: int = DECODE_SEGMENT):
+                               max_new: int = DECODE_SEGMENT, lora=None):
         """Contiguous-layout counterpart of _decode_dispatch_paged:
         single-token forward_cached steps over the rows' slots `slot_idx`
         [B] int32 (the JAX engine's cached_step: write at `valid`, attend
@@ -801,7 +970,7 @@ class InferenceEngine:
             return forward_cached(self.params, self.cfg,
                                   last.long()[:, None], valid[:, None],
                                   self.kv.layers, slot_idx, valid,
-                                  valid + 1)
+                                  valid + 1, lora=lora)
         return self._decode_segment(step, first_token, start_valid, budget,
                                     temps, top_ks, top_ps, row_budgets,
                                     done0, greedy=greedy, max_new=max_new)
@@ -869,7 +1038,8 @@ class InferenceEngine:
                 self.kv.pools, t["tables"], t["seq_of_block"],
                 t["block_qstart"], t["query_offsets"], t["kv_valid"],
                 t["token_pages"], t["token_offs"], t["last_rows"],
-                scales=self.kv.scales, quant_spec=self.kv_quant_spec)
+                scales=self.kv.scales, quant_spec=self.kv_quant_spec,
+                lora=self._lora_args(batch["token_adapter"]))
         self._note_kv_quant("ragged", kernel=True)
         if batch["greedy"]:
             nxt = torch.argmax(logits, dim=-1)
@@ -963,11 +1133,13 @@ class InferenceEngine:
                        sampling_per_turn: Optional[
                            list[SamplingParams]] = None,
                        budget=None,
-                       session: Optional[str] = None) -> list[str]:
+                       session: Optional[str] = None,
+                       adapters_per_turn: Optional[
+                           list[Optional[str]]] = None) -> list[str]:
         return self.generate_batch_with_stats(
             turns, max_new_tokens=max_new_tokens, timeout_s=timeout_s,
             sampling_per_turn=sampling_per_turn, budget=budget,
-            session=session)[0]
+            session=session, adapters_per_turn=adapters_per_turn)[0]
 
     def generate_batch_with_stats(
             self, turns: list[tuple[str, Any]],
@@ -976,24 +1148,44 @@ class InferenceEngine:
             sampling_per_turn: Optional[list[SamplingParams]] = None,
             budget=None,
             session: Optional[str] = None,
+            adapters_per_turn: Optional[list[Optional[str]]] = None,
     ) -> tuple[list[str], GenStats]:
         """Serve N (slot_name, prompt) turns as one batch.
 
         sampling_per_turn: per-row SamplingParams (None = the engine
         default); `budget`: a turn-rung deadlines.Budget (None builds a
         root from `timeout_s`); `session` namespaces the slot names so two
-        discussions' same-named knights never collide. Returns (responses,
-        this call's stats)."""
+        discussions' same-named knights never collide;
+        `adapters_per_turn`: per-row LoRA persona ids (None = base), every
+        persona in one batch - ignored on engines without a store, so
+        ROUNDTABLE_LORA=0 serves the base model instead of raising.
+        Returns (responses, this call's stats)."""
         if session:
             turns = [(scoped_slot(session, name), prompt)
                      for name, prompt in turns]
         deadlines.check_admission()
         with self._serve_lock:
-            return self._generate_batch_locked(
-                turns, max_new_tokens, timeout_s, sampling_per_turn, budget)
+            # Residency refs for the call, under the serve lock so a swap
+            # never races a dispatch; acquire() is exception-atomic, so
+            # `acquired` is set only once the refs are taken.
+            acquired = None
+            if self.lora is not None and adapters_per_turn:
+                self.lora.validate(adapters_per_turn, len(turns))
+                self.lora.acquire(adapters_per_turn)
+                acquired = list(adapters_per_turn)
+            elif self.lora is None:
+                adapters_per_turn = None
+            try:
+                return self._generate_batch_locked(
+                    turns, max_new_tokens, timeout_s, sampling_per_turn,
+                    budget, adapters_per_turn)
+            finally:
+                if acquired:
+                    self.lora.release(acquired)
 
     def _generate_batch_locked(self, turns, max_new_tokens, timeout_s,
-                               sampling_per_turn=None, budget=None):
+                               sampling_per_turn=None, budget=None,
+                               adapters_per_turn=None):
         stats = GenStats()
         turn_budget = budget if budget is not None \
             else deadlines.Budget.root(timeout_s, rung="turn")
@@ -1005,7 +1197,8 @@ class InferenceEngine:
 
         t0 = time.monotonic()
         prep = self._prepare_batch(turns, max_new_padded, deadline,
-                                   pre_budget, sampling_per_turn)
+                                   pre_budget, sampling_per_turn,
+                                   adapters=adapters_per_turn)
         stats.prefill_tokens = prep["prefill_tokens"]
         stats.reused_tokens = prep["reused_tokens"]
         stats.prefill_seconds = time.monotonic() - t0
@@ -1025,11 +1218,14 @@ class InferenceEngine:
             index = self._ints(prep["slot_ids"])
         row_remaining = row_budget_fn(per_row, sampling_per_turn, max_new,
                                       self.device)
+        lora_slots = prep["lora_slots"]
+        dec_lora = (self._lora_args(lora_slots) if lora_slots is not None
+                    else None)
 
         def decode_dispatch(cur_last, cur_valid, budget, done0):
             return seam(index, cur_last, cur_valid, budget, prep["temps"],
                         prep["top_ks"], prep["top_ps"], row_remaining(budget),
-                        done0, greedy=prep["greedy"])
+                        done0, greedy=prep["greedy"], lora=dec_lora)
 
         out_np = decode_segments(decode_dispatch, first, cur_valid,
                                  self.tokenizer.eos_id, max_new, deadline,
@@ -1040,6 +1236,18 @@ class InferenceEngine:
             turns, first_np, out_np, all_tokens, max_new,
             self.tokenizer.eos_id, self.kv.commit, self.tokenizer.decode,
             stats)
+        if lora_slots and any(lora_slots):
+            # Persona tokens: each persona row's prefilled suffix and its
+            # eos-trimmed output.
+            n = 0
+            for i, sl in enumerate(lora_slots):
+                if sl:
+                    ids_row = eos_trim(
+                        [int(first_np[i])] + [int(x) for x in out_np[i]],
+                        self.tokenizer.eos_id, max_new)
+                    n += len(ids_row) + len(all_tokens[i]) \
+                        - prep["offsets"][i]
+            self.note_lora_tokens(n)
         stats.int4_paths = self.int4_path_report()
         self.last_stats = stats
         return results, stats
@@ -1049,8 +1257,8 @@ class InferenceEngine:
     def describe(self) -> dict[str, Any]:
         """The JAX engine's keys for this layout (page keys, the paged
         decode path, the ragged and kv_quant blocks on the paged pool only;
-        int4_paths on int4 engines), plus the resolved attention, the
-        kernels' route and launch counts."""
+        int4_paths on int4 engines; the lora block), plus the resolved
+        attention, the kernels' route and launch counts."""
         paged = self.kv_layout == "paged"
         kernels = "cuda" if self.device.type == "cuda" else "plain"
         info = {
@@ -1065,7 +1273,8 @@ class InferenceEngine:
             "kv_hbm_bytes": self.kv.hbm_bytes(),
             "attention_kernels": kernels,
             "kernel_launches": {**kattn.launch_counts(),
-                                **int4mm.launch_counts()},
+                                **int4mm.launch_counts(),
+                                **klora.launch_counts()},
         }
         if self.quant == "int4":
             info["int4_paths"] = self.int4_path_report()
@@ -1082,6 +1291,7 @@ class InferenceEngine:
             info["attn"] = self.cfg.attn_impl
             if self.cfg.attn_impl == "dense":
                 info["attention_kernels"] = "none"
+        info["lora"] = self.lora_describe()
         for feature in _FEATURES:
             info[f"{feature}_reason"] = "not_ported"
         if self._scheduler is not None:

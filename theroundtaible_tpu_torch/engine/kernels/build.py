@@ -23,7 +23,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("paged_decode", "paged_prefill", "ragged_paged", "flash_prefill",
-           "ragged_decode", "int4mm")
+           "ragged_decode", "int4mm", "bgmv")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -60,6 +60,9 @@ _SIGNATURES = {
     "int4mm": {
         "rt_mm_pack_out": ([_P] * 5 + [_I] * 7 + [_P], _I),
         "rt_mm_pack_contract": ([_P] * 4 + [_I] * 6 + [_P], _I),
+    },
+    "bgmv": {
+        "rt_bgmv": ([_P] * 5 + [_I] * 7 + [_P], _I),
     },
 }
 _COMMON_SIGNATURES = {

@@ -180,7 +180,8 @@ class SlotBook:
 def share_prefixes(kv, names, all_tokens, offsets, *, min_shared: int,
                    add_share, flush_shares, prefill_span,
                    extra_pinned: tuple[str, ...] = (),
-                   defer_span=None) -> tuple[list[int], int]:
+                   defer_span=None,
+                   donor_ok=None) -> tuple[list[int], int]:
     """Two-pass cross-knight shared-prefix reuse:
 
     (a) donor pass - a slot committed by an earlier call that shares a
@@ -204,6 +205,12 @@ def share_prefixes(kv, names, all_tokens, offsets, *, min_shared: int,
     [(laggard, its pre-raise coverage), ...]) so the caller aliases the
     laggards once the leader's chunks have written the span. A leader that
     already covers the span aliases at once.
+
+    `donor_ok(donor_state, row_i)`: an extra donor gate - LoRA engines
+    pass an adapter-identity check, since K/V computed under one adapter
+    is wrong under another. A rejected best donor is dropped, not
+    searched past. The leader pass needs no gate: LoRA engines reach it
+    only with uniform-adapter batches (mixed ones skip sharing).
     Returns (updated offsets, leader-prefilled token count)."""
     b = len(names)
     pinned = tuple(names) + tuple(extra_pinned)
@@ -214,6 +221,9 @@ def share_prefixes(kv, names, all_tokens, offsets, *, min_shared: int,
         cap = len(all_tokens[i]) - 1
         donor, dlen = kv.best_donor(names[i], all_tokens[i])
         dlen = min(dlen, cap)
+        if donor is not None and donor_ok is not None \
+                and not donor_ok(donor, i):
+            donor = None
         if donor is not None and dlen - offsets[i] >= min_shared:
             add_share(donor, i, offsets[i], dlen)
             offsets[i] = dlen

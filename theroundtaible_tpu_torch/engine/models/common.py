@@ -22,8 +22,18 @@ dtype with the per-output-channel scale applied to the product, and an
 Int4Leaf the w4a16 kernels K5/K6 (kernels/int4mm.py) at decode-sized
 products, by the plan the leaf was given when it was made, else its
 dequantized weight through torch.matmul (the JAX package's XLA path,
-which prefill always takes). MoE (`moe_mlp`) and LoRA routing are not
-ported yet.
+which prefill always takes). MoE (`moe_mlp`) is not ported yet.
+
+LoRA: the seam's call sites in `project_qkv`, `_o_proj` and `mlp` carry
+their target's name, as the JAX package's `_einsum(..., lora=key)` does
+(the head stays untagged). A forward given a LoraBatch (engine/lora.py)
+adds each row's adapter delta there (lora.apply_current), through the
+kernel K7 or the grouped einsums. The JAX einsum adds the f32 delta to its
+f32 result and rounds once; the port's dense product has already rounded
+to the working dtype, so a bf16 row with a delta rounds the base product
+once more (at most one bf16 ulp, a relative 2^-8; f32 is exact). A base
+row's delta is exactly zero and its product rounds to the same bits as
+without LoRA.
 """
 
 from __future__ import annotations
@@ -34,6 +44,8 @@ from typing import Any, Callable, Optional
 
 import torch
 import torch.nn.functional as F
+
+from ..lora import apply_current
 
 Params = dict[str, Any]
 
@@ -219,22 +231,28 @@ def _dense(spec: str, a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out.reshape(*lead, *w.shape[n:])
 
 
-def _matmul(a: torch.Tensor, w, spec: str = SPEC_UP) -> torch.Tensor:
+def _matmul(a: torch.Tensor, w, spec: str = SPEC_UP, lora=None,
+            target: Optional[str] = None) -> torch.Tensor:
     """The weight product of the call site `spec` (SPEC_*), for a dense,
-    int8 or int4 weight.
+    int8 or int4 weight, plus the LoRA delta of `target` for the rows of
+    `lora` (a LoraBatch, engine/lora.py), added in f32.
 
     A dense weight's result keeps the working dtype: a bf16 product
     accumulates in f32 and rounds once, which is the JAX einsum's f32
     result cast back to the working dtype - what most callers do next. A
     quantized weight's result is f32, as the JAX einsum's: int8 scales the
     product per output channel, int4 runs K5/K6 or the dequantized
-    weight. Callers cast to what they need next."""
+    weight. With a delta the result is f32. Callers cast to what they
+    need next."""
     if isinstance(w, Int4Leaf):
-        return _int4_matmul(spec, a, w)
-    if isinstance(w, dict):
-        y = _dense(spec, a, w["q"].to(a.dtype)).float()
-        return y * w["s"].float()
-    return _dense(spec, a, w)
+        y = _int4_matmul(spec, a, w)
+    elif isinstance(w, dict):
+        y = _dense(spec, a, w["q"].to(a.dtype)).float() * w["s"].float()
+    else:
+        y = _dense(spec, a, w)
+    if lora is not None:
+        y = apply_current(target, a, y, lora)
+    return y
 
 
 def _int4_matmul(spec: str, a: torch.Tensor, leaf: Int4Leaf) -> torch.Tensor:
@@ -268,12 +286,14 @@ def project_qkv(
     cfg: ModelConfig,
     positions: torch.Tensor,      # [B, T] absolute positions
     rope_tabs: Optional[tuple[torch.Tensor, torch.Tensor]] = None,
+    lora=None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """QKV projection + rope + query scaling. `rope_tabs`: the forward's
-    rope_tables, shared by every layer."""
-    q = _matmul(x, layer["q_proj"], SPEC_QKV)                # [B,T,H,D]
-    k = _matmul(x, layer["k_proj"], SPEC_KV)                 # [B,T,K,D]
-    v = _matmul(x, layer["v_proj"], SPEC_KV)
+    rope_tables, shared by every layer; `lora`: the dispatch's
+    LoraBatch."""
+    q = _matmul(x, layer["q_proj"], SPEC_QKV, lora, "q_proj")  # [B,T,H,D]
+    k = _matmul(x, layer["k_proj"], SPEC_KV, lora, "k_proj")   # [B,T,K,D]
+    v = _matmul(x, layer["v_proj"], SPEC_KV, lora, "v_proj")
     if cfg.attn_bias:  # Qwen2: linear bias applied BEFORE rotary (HF order)
         q = q.float() + layer["q_bias"].float()
         k = k.float() + layer["k_bias"].float()
@@ -332,9 +352,9 @@ def _flash(q, k_all, v_all, cfg: ModelConfig, offsets, kv_valid,
 
 
 def _o_proj(out: torch.Tensor, layer: Params, cfg: ModelConfig,
-            dtype) -> torch.Tensor:
+            dtype, lora=None) -> torch.Tensor:
     """[B,T,H,D] attention output -> [B,T,E] in `dtype`."""
-    return _matmul(out, layer["o_proj"], SPEC_O).to(dtype)
+    return _matmul(out, layer["o_proj"], SPEC_O, lora, "o_proj").to(dtype)
 
 
 def attention(
@@ -347,13 +367,15 @@ def attention(
     attn_mask: torch.Tensor,      # [B, T, S] bool, True = attend
     rope_tabs=None,
     kv_valid: Optional[torch.Tensor] = None,  # [B] valid after the step
+    lora=None,
 ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
     """GQA attention over a position-aligned cache. Returns (output
     [B,T,E], updated (k_cache, v_cache)); the input cache is not modified.
     With kv_cache None the k/v of this call form the cache. With
     cfg.attn_impl "flash" and kv_valid given, K8/K9 attend (their plain
-    versions on the CPU), else the dense math."""
-    q, k, v = project_qkv(x, layer, cfg, positions, rope_tabs)
+    versions on the CPU), else the dense math. `lora`: the dispatch's
+    LoraBatch."""
+    q, k, v = project_qkv(x, layer, cfg, positions, rope_tabs, lora)
     if kv_cache is not None:
         k_cache, v_cache = kv_cache[0].clone(), kv_cache[1].clone()
         t = k.shape[1]
@@ -368,36 +390,40 @@ def attention(
                      kv_valid)
     else:
         out = dense_attend(q, k_cache, v_cache, attn_mask, cfg, x.dtype)
-    return _o_proj(out, layer, cfg, x.dtype), (k_cache, v_cache)
+    return _o_proj(out, layer, cfg, x.dtype, lora), (k_cache, v_cache)
 
 
-def mlp(x: torch.Tensor, layer: Params, cfg: ModelConfig) -> torch.Tensor:
+def mlp(x: torch.Tensor, layer: Params, cfg: ModelConfig,
+        lora=None) -> torch.Tensor:
     if cfg.num_experts:
         raise NotImplementedError(
             "MoE (moe_mlp) is not ported yet (ROADMAP, slice 7)")
-    gate = _matmul(x, layer["gate_proj"], SPEC_UP).float()
-    up = _matmul(x, layer["up_proj"], SPEC_UP).float()
+    gate = _matmul(x, layer["gate_proj"], SPEC_UP, lora, "gate_proj").float()
+    up = _matmul(x, layer["up_proj"], SPEC_UP, lora, "up_proj").float()
     act = (F.gelu(gate, approximate="tanh") if cfg.gelu_mlp
            else F.silu(gate))
     hidden = (act * up).to(x.dtype)
-    return _matmul(hidden, layer["down_proj"], SPEC_DOWN).to(x.dtype)
+    return _matmul(hidden, layer["down_proj"], SPEC_DOWN, lora,
+                   "down_proj").to(x.dtype)
 
 
 def transformer_block(
     x: torch.Tensor, layer: Params, cfg: ModelConfig,
     positions: torch.Tensor, kv_cache, cache_offset, attn_mask,
     attn_fn: Optional[Callable] = None, rope_tabs=None, kv_valid=None,
+    lora=None,
 ) -> tuple[torch.Tensor, Any]:
     """One block. `attn_fn(h, layer) -> (out, cache)`, when given,
     replaces `attention` - the hook forward_cached and paged_forward use,
     so the norm/residual/MLP wiring and every family flag live in one
-    place."""
+    place (a hook applies `lora` itself). `lora`: the dispatch's
+    LoraBatch."""
     h = rms_norm(x, layer["input_norm"], cfg.norm_eps,
                  cfg.rmsnorm_unit_offset)
     if attn_fn is None:
         attn_out, new_cache = attention(h, layer, cfg, positions, kv_cache,
                                         cache_offset, attn_mask, rope_tabs,
-                                        kv_valid=kv_valid)
+                                        kv_valid=kv_valid, lora=lora)
     else:
         attn_out, new_cache = attn_fn(h, layer)
     if cfg.post_attn_norm:
@@ -406,7 +432,7 @@ def transformer_block(
     x = x + attn_out
     h = rms_norm(x, layer["pre_mlp_norm"], cfg.norm_eps,
                  cfg.rmsnorm_unit_offset)
-    mlp_out = mlp(h, layer, cfg)
+    mlp_out = mlp(h, layer, cfg, lora)
     if cfg.post_mlp_norm:
         mlp_out = rms_norm(mlp_out, layer["post_mlp_norm"], cfg.norm_eps,
                            cfg.rmsnorm_unit_offset)
@@ -449,10 +475,12 @@ def forward(
     cache_offset: Optional[torch.Tensor],   # [B]
     kv_valid_len: torch.Tensor,    # [B] valid entries AFTER this step
     last_pos: Optional[torch.Tensor] = None,   # [B] row index into T
+    lora=None,
 ) -> tuple[torch.Tensor, list[tuple[torch.Tensor, torch.Tensor]]]:
     """Full model forward over a position-aligned cache. Returns (logits
     [B,T,V] - [B,1,V] when `last_pos` is given, gathered before the head -
-    and the updated caches)."""
+    and the updated caches). `lora`: a LoraBatch with one adapter slot per
+    row."""
     x = scale_embeddings(embed_tokens(params["embedding"], tokens), cfg)
     kv_len = (kv_caches[0][0].shape[1] if kv_caches is not None
               else tokens.shape[1])
@@ -464,7 +492,7 @@ def forward(
         cache_i = kv_caches[i] if kv_caches is not None else None
         x, new_cache = transformer_block(x, layer, cfg, positions, cache_i,
                                          cache_offset, mask, rope_tabs=tabs,
-                                         kv_valid=kv_valid_len)
+                                         kv_valid=kv_valid_len, lora=lora)
         new_caches.append(new_cache)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps,
                  cfg.rmsnorm_unit_offset)
@@ -504,6 +532,7 @@ def forward_cached(
     kv_valid: torch.Tensor,        # [B] int32 valid entries AFTER this call
     last_pos: Optional[torch.Tensor] = None,   # [B] row index into T
     plain: bool = False,
+    lora=None,
 ) -> torch.Tensor:
     """One serving step against the contiguous cache - a prefill chunk or a
     decode step; the counterpart of the JAX engine's prefill_step and
@@ -514,8 +543,9 @@ def forward_cached(
     weights, on any device) or through the
     dense masked softmax over the rows' gathered slots ("dense"). Where
     the JAX programs gather the batch's slots and scatter them back every
-    call, nothing here copies a slot. Returns f32 logits [B,T,V], or
-    [B,1,V] when `last_pos` is given (gathered before the head)."""
+    call, nothing here copies a slot. `lora`: a LoraBatch with one adapter
+    slot per row. Returns f32 logits [B,T,V], or [B,1,V] when `last_pos`
+    is given (gathered before the head)."""
     if plain:
         params = plain_weights(params)
     n_rows, s = cache_layers[0][0].shape[:2]
@@ -532,7 +562,7 @@ def forward_cached(
     for layer, (k_cache, v_cache) in zip(params["layers"], cache_layers):
 
         def attn_fn(h, layer, k_cache=k_cache, v_cache=v_cache):
-            q, k, v = project_qkv(h, layer, cfg, positions, tabs)
+            q, k, v = project_qkv(h, layer, cfg, positions, tabs, lora)
             # In place: JAX's per-row dynamic_update_slice of the chunk.
             k_cache[rows_l[:, None], write_pos] = k
             v_cache[rows_l[:, None], write_pos] = v
@@ -542,10 +572,10 @@ def forward_cached(
             else:
                 out = dense_attend(q, k_cache[rows_l], v_cache[rows_l],
                                    mask, cfg, h.dtype)
-            return _o_proj(out, layer, cfg, h.dtype), None
+            return _o_proj(out, layer, cfg, h.dtype, lora), None
 
         x, _ = transformer_block(x, layer, cfg, positions, None, None, None,
-                                 attn_fn=attn_fn)
+                                 attn_fn=attn_fn, lora=lora)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps,
                  cfg.rmsnorm_unit_offset)
     if last_pos is not None:

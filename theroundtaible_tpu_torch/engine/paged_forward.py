@@ -19,6 +19,11 @@ K/V is quantized on write (kv_quant.quantize_cells, its own per-cell
 scales, neighbours untouched) and its payload and scales land in the same
 [page, offset] cells; K1-K3 then dequantize in-kernel (K4).
 
+LoRA (`lora`, an engine/lora.LoraBatch): the tagged projections add each
+row's adapter delta - one adapter slot per batch row in forward_paged, one
+per token of the flat buffer in forward_ragged (pads keep slot 0, the
+base).
+
 Write-exclusivity: the engine's ensure_capacity copy-on-writes any shared
 page in a row's write range before dispatch (the scheduler's
 _apply_share_plans does it at alias time), and distinct rows own their
@@ -80,6 +85,7 @@ def forward_paged(
     plain: bool = False,
     scales: Optional[list] = None,  # per-layer (k_s, v_s) [P,ps,K,G]
     quant_spec=None,                # kv_quant.KVQuantSpec with scales
+    lora=None,                      # LoraBatch, one adapter slot per row
 ) -> torch.Tensor:
     """One serving step off the page pools - a decode step (T==1) or a
     prefill chunk - writing this call's K/V into `pools` (and `scales`) in
@@ -117,7 +123,7 @@ def forward_paged(
 
         def attn_fn(h, layer, k_pool=k_pool, v_pool=v_pool, k_sc=k_sc,
                     v_sc=v_sc):
-            q, k, v = project_qkv(h, layer, cfg, positions, tabs)
+            q, k, v = project_qkv(h, layer, cfg, positions, tabs, lora)
             _write_kv(k_pool, v_pool, k_sc, v_sc, pages, offs, k, v,
                       quant_spec)
             kw = dict(sliding_window=cfg.sliding_window,
@@ -128,10 +134,10 @@ def forward_paged(
             else:
                 out = prefill(q, k_pool, v_pool, table, starts, kv_valid_len,
                               **kw)
-            return _o_proj(out, layer, cfg, h.dtype), None
+            return _o_proj(out, layer, cfg, h.dtype, lora), None
 
         x, _ = transformer_block(x, layer, cfg, positions, None, None, None,
-                                 attn_fn=attn_fn)
+                                 attn_fn=attn_fn, lora=lora)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps,
                  cfg.rmsnorm_unit_offset)
     if last_pos is not None:
@@ -158,6 +164,7 @@ def forward_ragged(
     quant_spec=None,                # kv_quant.KVQuantSpec with scales
     copy_src: Optional[torch.Tensor] = None,
     copy_dst: Optional[torch.Tensor] = None,
+    lora=None,                      # LoraBatch, one adapter slot per token
 ) -> torch.Tensor:
     """One mixed prefill/decode step over the flat token buffer: each
     layer writes the buffer's K/V into the owning sequences' pages in place
@@ -192,7 +199,8 @@ def forward_ragged(
 
         def attn_fn(h, layer, k_pool=k_pool, v_pool=v_pool, k_sc=k_sc,
                     v_sc=v_sc):
-            q, k, v = project_qkv(h, layer, cfg, pos2, tabs)   # [1,T,.,D]
+            q, k, v = project_qkv(h, layer, cfg, pos2, tabs,
+                                  lora)                    # [1,T,.,D]
             _write_kv(k_pool, v_pool, k_sc, v_sc, pages, offs, k[0], v[0],
                       quant_spec)
             out = attend(q[0], k_pool, v_pool, tables, seq_of_block,
@@ -200,10 +208,10 @@ def forward_ragged(
                          sliding_window=cfg.sliding_window,
                          softcap=cfg.attn_logit_softcap, k_scale=k_sc,
                          v_scale=v_sc, kv_bits=bits)
-            return _o_proj(out[None], layer, cfg, h.dtype), None
+            return _o_proj(out[None], layer, cfg, h.dtype, lora), None
 
         x, _ = transformer_block(x, layer, cfg, pos2, None, None, None,
-                                 attn_fn=attn_fn)
+                                 attn_fn=attn_fn, lora=lora)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps,
                  cfg.rmsnorm_unit_offset)
     return lm_head(params, cfg, x[:, last_rows.long()])[0]

@@ -16,8 +16,10 @@ Representations (models/common's matmul seam and embed_tokens take both;
 
 q is computed from the f32 scale, which is then stored in the activation
 dtype; the outputs equal the JAX package's bit for bit. Norms stay as
-they are. The TP-shard-aligned int4 groups (`model_shards`) and the
-sharded placement are the multi-device slice's (ROADMAP, slice 7).
+they are. LoRA stacks quantize the same way, per (slot, rank row)
+(`quantize_lora_stack`, `quantize_lora_slot`). The TP-shard-aligned int4
+groups (`model_shards`) and the sharded placement are the multi-device
+slice's (ROADMAP, slice 7).
 """
 
 from __future__ import annotations
@@ -134,3 +136,29 @@ def quantize_params(params: Params, cfg: ModelConfig,
         else:
             out[key] = value
     return out
+
+
+def quantize_lora_stack(stack: torch.Tensor, act_dtype) -> dict[str, Any]:
+    """Symmetric int8 quantization of a stacked LoRA tensor [S, r, X]
+    (engine/lora.LoraStore with `quant: "int8"`): per-(slot, rank-row)
+    absmax/127 scales over the last axis, stored in `act_dtype`, the
+    {"q", "s"} contract of the int8 weight dicts. The all-zero base slot
+    quantizes to zeros exactly. The kernel K7 declines such stacks
+    (`quant:int8-stack`); the grouped einsums serve them."""
+    w32 = stack.float()
+    s = torch.clamp(w32.abs().amax(dim=-1), min=1e-8) / 127.0
+    q = torch.clamp(torch.round(w32 / s[..., None]), -127, 127)
+    return {"q": q.to(torch.int8), "s": s.to(act_dtype)}
+
+
+def quantize_lora_slot(leaf: dict[str, Any], slot: int,
+                       value32: torch.Tensor) -> dict[str, Any]:
+    """Write ONE slot of an int8 LoRA stack: the f32 [r, X] rows
+    quantized by quantize_lora_stack's rule, in place (a dispatch queued
+    earlier on the same stream reads the slot before this write lands).
+    Returns `leaf`."""
+    s = torch.clamp(value32.abs().amax(dim=-1), min=1e-8) / 127.0
+    q = torch.clamp(torch.round(value32 / s[..., None]), -127, 127)
+    leaf["q"][slot] = q.to(torch.int8)
+    leaf["s"][slot] = s.to(leaf["s"].dtype)
+    return leaf

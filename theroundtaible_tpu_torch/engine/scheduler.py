@@ -35,9 +35,16 @@ continuously instead:
   failed dispatch is preempted into per-session dispatches: the sick
   session fails into its adapter's ladder while every other session's rows
   continue from their host-side state.
+- **Multi-LoRA personas.** `adapters_per_turn` names each knight's
+  persona on a LoRA engine: a request's adapters are acquired at admission
+  and released at retirement or failure, a request naming more distinct
+  personas than the store holds is refused, and one that cannot load now
+  waits (backpressure). Rows of different personas share one decode
+  segment (one adapter slot per row) and one ragged dispatch (one per
+  token).
 
 Not ported here (each parameter that asks for one raises, naming its
-ROADMAP item): speculative decoding, LoRA personas, host-RAM spill, the
+ROADMAP item): speculative decoding, host-RAM spill, the
 session journal, the supervisor, streaming `on_commit`, replica labels,
 and the telemetry registry series and spans. The engine's pools are
 updated in place and never donated, so no dispatch failure takes the
@@ -102,9 +109,10 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 
 class SchedulerRefused(RuntimeError):
     """The request can never fit this engine (more knights than rows, or
-    more pages than the whole pool): refused at submission, not queued to
-    deadlock. `reason` is the machine-readable refusal tag
-    ("rows_never_fit", "pages_never_fit")."""
+    more pages than the whole pool, or more distinct LoRA personas than the
+    store holds): refused at submission, not queued to deadlock. `reason`
+    is the machine-readable refusal tag ("rows_never_fit",
+    "adapters_never_fit", "pages_never_fit")."""
 
     def __init__(self, message: str, reason: Optional[str] = None):
         super().__init__(message)
@@ -145,6 +153,9 @@ class _Row:
     pending: list[int] = field(default_factory=list)
     pos: int = 0
     blocked: bool = False
+    # LoRA adapter slot of this row (0 = base): a value, so rows of
+    # different personas share one segment.
+    adapter_slot: int = 0
 
 
 class _Request:
@@ -155,10 +166,11 @@ class _Request:
                  "enqueued", "admitted_at", "rows", "stats", "deadline",
                  "turn_budget", "dec_budget", "abandoned", "seg_count",
                  "occ_sum", "occ_max", "sess_max", "requeues",
-                 "fits_below", "first_token_at", "share_plans")
+                 "fits_below", "first_token_at", "share_plans",
+                 "adapters", "adapters_held")
 
     def __init__(self, session, turns, sampling_per_turn, max_new,
-                 timeout_s, budget, stats):
+                 timeout_s, budget, stats, adapters=None):
         self.session = session
         self.turns = turns
         self.sampling_per_turn = sampling_per_turn
@@ -188,6 +200,10 @@ class _Request:
         # Deferred leader-span share plans: [{"leader": _Row, "hi": int,
         # "followers": [(_Row, lo), ...]}].
         self.share_plans: list[dict] = []
+        # Per-turn LoRA persona ids (None = base); adapters_held flips once
+        # acquire() took the residency refs, so release runs exactly once.
+        self.adapters = adapters
+        self.adapters_held = False
 
 
 class SessionScheduler:
@@ -273,7 +289,9 @@ class SessionScheduler:
         """Serve one session round through the shared batch. Blocks the
         calling (session) thread until the round completes; returns
         (responses, GenStats) - the generate_batch_with_stats contract, so
-        the adapter ladder above is unchanged."""
+        the adapter ladder above is unchanged. `adapters_per_turn`:
+        per-knight LoRA persona ids (None = base); rows of different
+        personas share one decode segment."""
         req = self.submit_async(
             session, turns, max_new_tokens=max_new_tokens,
             timeout_s=timeout_s, sampling_per_turn=sampling_per_turn,
@@ -284,10 +302,6 @@ class SessionScheduler:
                      timeout_s: float = 600.0, sampling_per_turn=None,
                      budget=None, adapters_per_turn=None,
                      on_commit=None) -> _Request:
-        if adapters_per_turn is not None and any(
-                a is not None for a in adapters_per_turn):
-            raise _not_ported("adapters_per_turn (LoRA personas)",
-                              "slice 6: LoRA, K7")
         if on_commit is not None:
             raise _not_ported("on_commit (committed-token streaming)",
                               "slice 7: serving tier")
@@ -319,6 +333,28 @@ class SessionScheduler:
                 f"{engine.kv.num_slots}) - raise num_slots / max_rows",
                 reason="rows_never_fit")
         max_new = max_new_tokens or engine.sampling.max_new_tokens
+        store = getattr(engine, "lora", None)
+        if store is None:
+            adapters_per_turn = None
+        elif adapters_per_turn is not None:
+            # Validated at the queue mouth: more distinct personas than the
+            # store can ever hold would deadlock the FIFO head (a refusal,
+            # counted); the rest is LoraStore.validate, shared with the
+            # direct generate path.
+            distinct = {a for a in adapters_per_turn if a is not None}
+            if (len(adapters_per_turn) == len(turns)
+                    and len(distinct) > store.max_adapters):
+                with self._cv:
+                    self.refused += 1
+                self._event("refuse", session=session,
+                            reason=f"{len(distinct)} adapters > store "
+                                   f"{store.max_adapters}")
+                raise SchedulerRefused(
+                    f"session {session!r} names {len(distinct)} distinct "
+                    f"lora adapters but the store holds at most "
+                    f"{store.max_adapters} - raise lora.max_adapters",
+                    reason="adapters_never_fit")
+            store.validate(adapters_per_turn, len(turns))
         # Never-fits is a LOWER bound (1-token prompts): a request
         # generate_batch could serve is never refused here. Paged only:
         # contiguous slots hold any prompt within max_seq_len.
@@ -336,7 +372,8 @@ class SessionScheduler:
                 "num_pages or lower max_new_tokens",
                 reason="pages_never_fit")
         req = _Request(session, list(turns), sampling_per_turn, max_new,
-                       timeout_s, budget, self._fresh_stats())
+                       timeout_s, budget, self._fresh_stats(),
+                       adapters=adapters_per_turn)
         with self._cv:
             # Re-checked under the lock: close() flips `closed` and drains
             # the queue under it, so no request lands in a dead queue.
@@ -614,6 +651,7 @@ class SessionScheduler:
                 or "pool exhausted" not in str(err).lower()):
             return False
         self._release_request_slots(req)
+        self._release_adapters(req)
         req.requeues += 1
         req.fits_below = len(self._active)
         req.admitted_at = None
@@ -632,6 +670,12 @@ class SessionScheduler:
                 and len(self._active) >= req.fits_below):
             # An earlier admission of this request hit real pool
             # exhaustion at this batch size: wait for retirement.
+            return False
+        store = getattr(engine, "lora", None)
+        if (store is not None and req.adapters
+                and not store.can_admit(req.adapters)):
+            # Adapter-residency backpressure: every store slot is held by
+            # live rows; retirement frees refs, then the LRU evicts.
             return False
         if engine.kv_layout == "paged" and self._active:
             # Pages the live rows pin are untouchable; the rest (free, or
@@ -661,6 +705,16 @@ class SessionScheduler:
         pre_budget = turn_budget.child("prefill")
         max_new, max_new_padded = clamp_max_new(req.max_new,
                                                 engine.max_seq_len)
+        # Adapter residency, taken on the loop thread under the serve lock
+        # (a load's slot write never races a dispatch) for the request's
+        # lifetime; released at retirement or failure.
+        store = getattr(engine, "lora", None)
+        row_slots = None
+        if store is not None:
+            ads = req.adapters or [None] * len(req.turns)
+            row_slots = store.acquire(ads)
+            req.adapters = ads
+            req.adapters_held = True
         active_names = tuple(r.name for r in self._active)
         scoped_turns = [(scoped_slot(req.session, n), p)
                         for n, p in req.turns]
@@ -672,7 +726,7 @@ class SessionScheduler:
         prep = engine._prepare_batch(
             scoped_turns, max_new_padded, deadline, pre_budget,
             req.sampling_per_turn, extra_pinned=active_names,
-            defer_prefill=deferred)
+            defer_prefill=deferred, adapters=req.adapters)
         # The engine may resolve a warm join back to the prologue (suffix
         # below ragged_defer_min); first_np says which mode served.
         deferred = prep["first_np"] is None
@@ -680,6 +734,11 @@ class SessionScheduler:
         stats.reused_tokens = prep["reused_tokens"]
         stats.prefix_reused_tokens = prep["prefix_reused_tokens"]
         stats.prefill_seconds = time.monotonic() - t0
+        if row_slots and any(row_slots) and not deferred:
+            engine.note_lora_tokens(sum(
+                len(t) - o for t, o, sl in zip(prep["all_tokens"],
+                                               prep["offsets"],
+                                               row_slots) if sl))
 
         eos = engine.tokenizer.eos_id
         per_row = prep["per_row"]
@@ -704,14 +763,16 @@ class SessionScheduler:
                 rows.append(_Row(
                     name=scoped, tokens=toks, sampling=per_row[i],
                     max_new=row_cap, slot_id=prep["slot_ids"][i],
-                    pending=list(toks[off:]), pos=off, valid=off))
+                    pending=list(toks[off:]), pos=off, valid=off,
+                    adapter_slot=(row_slots[i] if row_slots else 0)))
             else:
                 tok = int(prep["first_np"][i])
                 rows.append(_Row(
                     name=scoped, tokens=toks, sampling=per_row[i],
                     max_new=row_cap, slot_id=prep["slot_ids"][i],
                     produced=[tok], last=tok, valid=len(toks),
-                    done=(tok == eos)))
+                    done=(tok == eos),
+                    adapter_slot=(row_slots[i] if row_slots else 0)))
         req.rows = rows
         if deferred:
             # Laggard rows block until the leader's chunks have written
@@ -909,7 +970,8 @@ class SessionScheduler:
             seqs.append(RaggedSeq(
                 [r.last], r.valid, engine.kv.table_for([r.name])[0],
                 temperature=r.sampling.temperature,
-                top_k=r.sampling.top_k, top_p=r.sampling.top_p))
+                top_k=r.sampling.top_k, top_p=r.sampling.top_p,
+                adapter=r.adapter_slot))
             rows_in.append(("decode", r, 1))
         slots_left = shape - RAGGED_BLOCK_Q * len(live)
         for r in filling:
@@ -920,7 +982,8 @@ class SessionScheduler:
                 list(r.pending[:take]), r.pos,
                 engine.kv.table_for([r.name])[0],
                 temperature=r.sampling.temperature,
-                top_k=r.sampling.top_k, top_p=r.sampling.top_p))
+                top_k=r.sampling.top_k, top_p=r.sampling.top_p,
+                adapter=r.adapter_slot))
             rows_in.append(("prefill", r, take))
             slots_left -= -(-take // RAGGED_BLOCK_Q) * RAGGED_BLOCK_Q
         batch = build_ragged_batch(
@@ -943,10 +1006,12 @@ class SessionScheduler:
 
         eos = engine.tokenizer.eos_id
         now = time.monotonic()
-        n_prefill = n_decode = 0
+        n_prefill = n_decode = lora_toks = 0
         for i, (kind, r, take) in enumerate(rows_in):
             tok = int(nxt[i])
             req = self._row_req.get(id(r))
+            if r.adapter_slot:
+                lora_toks += take
             if kind == "decode":
                 r.produced.append(tok)
                 r.last = tok
@@ -974,6 +1039,7 @@ class SessionScheduler:
         # Provenance + attribution: the mixed dispatch splits its wall by
         # per-row token counts - decode rows' share lands in their
         # requests' decode_seconds, chunk tokens in prefill_seconds.
+        engine.note_lora_tokens(lora_toks)
         self.ragged_segments += 1
         self._note_segment_tokens(n_prefill, n_decode)
         occ = len(seqs)
@@ -1120,6 +1186,9 @@ class SessionScheduler:
         params = [r.sampling for r in rows] + [
             SamplingParams(temperature=1.0)] * pad
         temps, top_ks, top_ps = sampling_arrays(params, dev)
+        # Per-row adapter slots; pad rows take the base (zero) adapter,
+        # their outputs are masked anyway.
+        lora = engine._lora_args([r.adapter_slot for r in rows] + [0] * pad)
         return {
             "rows": rows, "reqs": reqs,
             "index": torch.as_tensor(index, device=dev),
@@ -1129,7 +1198,7 @@ class SessionScheduler:
             "top_ks": top_ks, "top_ps": top_ps,
             "greedy": all(r.sampling.temperature <= 0.0 for r in rows),
             "seg_budget": seg_budget, "deadline": deadline,
-            "budgets_max": max(budgets) if budgets else 0,
+            "budgets_max": max(budgets) if budgets else 0, "lora": lora,
         }
 
     def _dispatch(self, ctx: dict):
@@ -1145,7 +1214,8 @@ class SessionScheduler:
             lambda: seam(
                 ctx["index"], ctx["last_d"], ctx["valid_d"],
                 DECODE_SEGMENT, ctx["temps"], ctx["top_ks"], ctx["top_ps"],
-                ctx["budgets_d"], ctx["done_d"], greedy=ctx["greedy"]),
+                ctx["budgets_d"], ctx["done_d"], greedy=ctx["greedy"],
+                lora=ctx["lora"]),
             engine.retry, ctx["deadline"], budget=ctx["seg_budget"])
 
     def _advance(self, ctx: dict, handles) -> dict:
@@ -1171,13 +1241,22 @@ class SessionScheduler:
 
         out_np, last_np, valid_np, done_np = host_sync(
             read, ctx["seg_budget"], "decode")
+        eos = self.engine.tokenizer.eos_id
+        lora_toks = 0
         for i, r in enumerate(ctx["rows"]):
             if r.done:
                 continue  # masked rows emit eos filler - not output
-            r.produced.extend(int(x) for x in out_np[i])
+            row = [int(x) for x in out_np[i]]
+            r.produced.extend(row)
             r.last = int(last_np[i])
             r.valid = int(valid_np[i])
             r.done = bool(done_np[i]) or len(r.produced) >= r.max_new
+            if r.adapter_slot:
+                # Tokens up to and including the row's eos: the filler
+                # after it is not served work.
+                lora_toks += (row.index(eos) + 1 if eos in row
+                              else len(row))
+        self.engine.note_lora_tokens(lora_toks)
         return steps
 
     # --- failure containment ---
@@ -1201,9 +1280,16 @@ class SessionScheduler:
                 continue
             req.stats.decode_seconds += time.monotonic() - t0
 
+    def _release_adapters(self, req: _Request) -> None:
+        store = getattr(self.engine, "lora", None)
+        if store is not None and req.adapters_held:
+            req.adapters_held = False
+            store.release(req.adapters or [])
+
     def _fail_request(self, req: _Request, err: BaseException) -> None:
-        """Fail one request into its submitter, releasing its slots.
-        Loop thread only."""
+        """Fail one request into its submitter, releasing its slots and
+        adapters. Loop thread only."""
+        self._release_adapters(req)
         for r in req.rows:
             self.engine.kv.release(r.name)
         self._drop_request(req)
@@ -1240,6 +1326,7 @@ class SessionScheduler:
                 fed = ids[:-1] if ids else []
                 engine.kv.commit(r.name, r.tokens + fed)
                 texts.append(engine.tokenizer.decode(ids))
+            self._release_adapters(req)
             req.stats.sched = {
                 "queue_wait_s": round(
                     (req.admitted_at or req.enqueued) - req.enqueued, 3),
@@ -1254,6 +1341,9 @@ class SessionScheduler:
                 # sampled token.
                 req.stats.sched["ttft_s"] = round(
                     req.first_token_at - req.enqueued, 3)
+            if req.adapters and any(a is not None for a in req.adapters):
+                # Which persona served each knight of the round.
+                req.stats.sched["lora_adapters"] = list(req.adapters)
             self._drop_request(req)
             req.result = (texts, req.stats)
             self.completed += 1

@@ -267,22 +267,24 @@ def decode_segments(
 class RaggedSeq:
     """One sequence's slice of a ragged dispatch: the tokens it feeds this
     call (a prefill chunk, or the single last-sampled token of a decode
-    row), the absolute position of the first one, its page-table row and
-    its sampling params. The JAX fields `n_scores` (speculative verify)
-    and `adapter` (LoRA slot) come with their slices."""
+    row), the absolute position of the first one, its page-table row, its
+    sampling params and its LoRA adapter slot (`adapter`, 0 = the base
+    model: the flat buffer mixes adapters, so the slot rides per token).
+    The JAX field `n_scores` (speculative verify) comes with its slice."""
 
     __slots__ = ("tokens", "pos", "table", "temperature", "top_k",
-                 "top_p")
+                 "top_p", "adapter")
 
     def __init__(self, tokens: list[int], pos: int, table: np.ndarray,
                  temperature: float = 0.0, top_k: int = 0,
-                 top_p: float = 1.0):
+                 top_p: float = 1.0, adapter: int = 0):
         self.tokens = tokens
         self.pos = pos
         self.table = table
         self.temperature = temperature
         self.top_k = top_k
         self.top_p = top_p
+        self.adapter = adapter
 
 
 def build_ragged_batch(seqs: list[RaggedSeq], *, t_budget: int,
@@ -304,8 +306,9 @@ def build_ragged_batch(seqs: list[RaggedSeq], *, t_budget: int,
     Returns flat tokens/positions/token_pages/token_offs/token_seq
     [t_budget], per-block seq_of_block/block_qstart [t_budget/8], per-seq
     tables/query_offsets/kv_valid/last_rows/temps/top_ks/top_ps
-    [s_max, ...], token_adapter (all 0, the base model: LoRA is not
-    ported), `greedy`, and the accounting fields
+    [s_max, ...], token_adapter [t_budget] (each real token's sequence
+    adapter slot; pad tokens keep 0, the base), `greedy`, and the
+    accounting fields
     n_seqs/n_tokens. Speculative verify (`score_width`) and tree copies
     (`copy_pairs`/`copy_slots`) belong to speculative decoding, which is
     not ported."""
@@ -357,6 +360,9 @@ def build_ragged_batch(seqs: list[RaggedSeq], *, t_budget: int,
         token_pages[row:row + n] = s.table[pos_n // page_size]
         token_offs[row:row + n] = pos_n % page_size
         token_seq[row:row + span] = i
+        # Pad rows inside the span keep adapter 0: their K/V lands on the
+        # scratch page and their outputs are dropped.
+        token_adapter[row:row + n] = s.adapter
         b0 = row // bq
         for k in range(span // bq):
             seq_of_block[b0 + k] = i
