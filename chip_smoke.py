@@ -114,7 +114,36 @@ Phases, each printing one JSON line; any failure exits non-zero:
              PATH_TOL), and one decode step of an int8 store (grouped
              einsums) against K7 on its dequantized values.
 
-Run time: ~6 minutes on an H100 with the build; no earlier phase was cut.
+20. tp_kernels - two ranks spawned on the card (engine/distributed.launch,
+             backend gloo, the kernels built beforehand by this process):
+             the SPMD wrappers K10a-d (flash_attention_spmd over K8/K9,
+             paged_decode_spmd over K1, paged_prefill_spmd over K2,
+             ragged_paged_spmd over K3; K10b/c also on int8 and int4 pages)
+             on each rank's half of the kernels phase's heads (H=16, K=4,
+             same rows, chunks and kv_valid), each against its plain
+             version (KERNEL_TOL) and, bit for bit, against the
+             single-device kernel's output on the full heads; CUDA-event times per rank (one rank at a time),
+             the per-shard bound and SDPA on the per-shard gathered view.
+21. tp_round, tp_contiguous_round - the engine phase's config plus
+             `"mesh": {"data": 1, "model": 2}` (then minus `kv_layout`) on
+             two ranks, 32 layers: warmup() and the two rounds; K10b/c and
+             K1/K2 (paged) or K10a and K8/K9 (contiguous) must launch on
+             every rank, the other layout's kernels never, and both ranks
+             must return the same tokens. Prefill seconds and decode ms per
+             step beside this run's single-device rounds, per-rank peak
+             memory, the rounds' collectives (calls, the host's wait for
+             the card, the gloo calls), greedy agreement with the
+             single-device rounds (reported).
+22. tp_path - 2 layers at full width: a 512-row chunk and 16 decode steps
+             of forward_paged and forward_cached under TP=2 against the
+             single-device forward on the same weights, logits within
+             PATH_TOL.
+23. tp_ragged_path - the ragged_path phase's flat buffer through
+             forward_ragged under TP=2 (K10d over K3) against its plain
+             version, forward_paged under TP=2 and the single-device
+             forward_ragged.
+
+Run time: ~9 minutes on an H100 with the build; no earlier phase was cut.
 
 Then a `{"kernels": [...]}` line, the nvidia-smi line, and last
 `{"ok": true, "device": {...}}`. Details go to chiprun_out/chip_smoke/.
@@ -153,6 +182,9 @@ def emit(phase: str, **fields) -> None:
     """One phase's JSON line on stdout, and appended to
     chiprun_out/chip_smoke/phases.jsonl (stdout's head can be cut)."""
     line = json.dumps({"phase": phase, **fields})
+    if _IN_RANK:    # a spawned rank: the parent prints (tp_launch)
+        _CAPTURE.append(json.loads(line))
+        return
     print(line, flush=True)
     if OUT.is_dir():
         with open(OUT / "phases.jsonl", "a") as fh:
@@ -815,6 +847,7 @@ def engine_phase(torch, kattn):
     reference = {"num_pages": engine.kv.num_pages,
                  "kv_pool_bytes": engine.kv.hbm_bytes(),
                  "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                 "prefill_s": [stats[r]["prefill_seconds"] for r in (1, 2)],
                  "decode_ms_per_step": [decode_ms_per_step(stats[r])
                                         for r in (1, 2)],
                  "generated": generated}
@@ -841,7 +874,7 @@ def contiguous_phase(torch, kattn, paged_generated):
     emit("contiguous_engine", construct_s=build_s, warmup_s=warm_s,
          kv_cache_bytes=engine.kv.hbm_bytes(),
          memory_allocated=torch.cuda.memory_allocated())
-    totals, generated, _ = serve_rounds(
+    totals, generated, stats = serve_rounds(
         torch, kattn, adapter, engine, "contiguous_round",
         required=CONTIGUOUS_KERNELS, forbidden=PAGED_KERNELS)
     # bf16 K8/K9 and K1/K2 sum in other orders: reported, not checked.
@@ -850,7 +883,11 @@ def contiguous_phase(torch, kattn, paged_generated):
          greedy_agreement_with_paged=greedy_agreement(generated,
                                                       paged_generated),
          launches=totals)
-    return totals, engine
+    single = {"prefill_s": [stats[r]["prefill_seconds"] for r in (1, 2)],
+              "decode_ms_per_step": [decode_ms_per_step(stats[r])
+                                     for r in (1, 2)],
+              "generated": generated}
+    return totals, engine, single
 
 
 # --- whole-path phase ---
@@ -1972,6 +2009,556 @@ def lora_path_phase(torch, cfg):
     del pools, copies
 
 
+# --- tensor parallelism: two ranks on one card ---
+
+TP_MESH = {"data": 1, "model": 2}
+TP_BACKEND = "gloo"     # NCCL refuses two ranks on one card
+TP_KERNELS = ("flash_attention_spmd", "paged_decode_spmd",
+              "paged_prefill_spmd", "ragged_paged_spmd")
+# Lines a rank's phase function emits are kept here and handed to the
+# parent, which prints one line per phase.
+_CAPTURE: list = []
+_IN_RANK = False
+
+
+def tp_launch(phase, *args):
+    """`phase` (a tp_* function below, by name) on 2 spawned ranks sharing
+    cuda:0 over gloo. Returns each rank's (result, captured lines); a
+    failing rank raises here (distributed.RankFailed)."""
+    from theroundtaible_tpu_torch.engine import distributed
+    return distributed.launch(tp_rank, 2, TP_BACKEND, "cuda:0",
+                              args=(phase, args), timeout_s=900)
+
+
+def tp_rank(rank, phase, args):
+    """A spawned rank: run the phase function `phase`, capturing what it
+    emits."""
+    global _IN_RANK
+    import torch
+    sys.path.insert(0, str(ROOT))
+    _IN_RANK = True
+    _CAPTURE.clear()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    result = globals()[phase](torch, rank, *args)
+    return result, list(_CAPTURE)
+
+
+def tp_mesh():
+    from theroundtaible_tpu_torch.engine.sharding import build_mesh
+    return build_mesh(dict(TP_MESH))
+
+
+def _shard(x, axis, rank, parts=2):
+    n = x.shape[axis] // parts
+    return x.narrow(axis, rank * n, n).contiguous()
+
+
+def _turns(torch, rank, fn):
+    """fn() on each rank in turn (a barrier between), so CUDA-event times
+    of one rank never overlap the other's launches on the shared card."""
+    import torch.distributed as dist
+    out = None
+    for r in range(2):
+        if r == rank:
+            out = fn()
+        torch.cuda.synchronize()
+        dist.barrier()
+    return out
+
+
+def tp_kernels_rank(torch, rank):
+    """K10a-d on this rank's half of the kernels phase's shapes (H=16, K=4
+    per rank, D=128, page 128; the same rows, chunks and kv_valid), plus
+    K10b/c on int8 and int4 pages (K4): each against its plain version on
+    the card, and against the single-device kernel's output on the full
+    heads (this rank's slice of it). Times per rank from CUDA events, each
+    rank timing alone; the per-shard bound; SDPA on the per-shard gathered
+    view as the yardstick."""
+    from theroundtaible_tpu_torch.engine import kv_quant as kvq
+    from theroundtaible_tpu_torch.engine.kernels import attention as kattn
+    mesh = tp_mesh()
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(SEED)   # same draws
+    flush = torch.empty(16 << 20, dtype=torch.float32, device=dev)
+    H, K, D, ps, B = 32, 8, 128, 128, 3
+    heads = (H, K)
+    i32 = lambda x: torch.tensor(x, dtype=torch.int32, device=dev)  # noqa
+    errs, timing = {}, {}
+
+    def check_case(name, out, plain, full, rows=None):
+        # The plain version within KERNEL_TOL; the single-device kernel's
+        # output on this rank's heads bit for bit (the same kernel on the
+        # same heads).
+        err, ok = max_err(torch, out, plain, rows)
+        err_full, _ = max_err(torch, out, full, rows)
+        errs[name] = {"max_abs_err": err, "vs_single_device": err_full}
+        check(ok and err_full == 0.0, f"{name} on rank {rank}: {errs[name]}")
+
+    def rank_times(name, fn, ref, sdpa, bytes_, flops, reps=20):
+        t = _turns(torch, rank, lambda: {
+            "ms": time_ms(torch, fn, reps, flush),
+            "plain_ms": time_ms(torch, ref, 3, flush),
+            "sdpa_view_ms": sdpa()})
+        t["bytes"], t["flops"] = bytes_, flops
+        t["bound_ms"], t["bound_by"] = bound_ms(bytes_, flops)
+        timing[name] = t
+
+    # K10b (K1): decode at 1600/1650/1700 cached tokens
+    k_pool, v_pool, table = make_pool(torch, gen, B, 8192, K, D, ps, bf16,
+                                      dev)
+    valid_l = [1600, 1650, 1700]
+    valid = i32(valid_l)
+    poison_past_frontier(k_pool, v_pool, table, valid, ps)
+    q = (torch.randn(B, 1, H, D, generator=gen, device=dev)
+         * D ** -0.5).to(bf16)
+    full = kattn.paged_decode_attention(q, k_pool, v_pool, table, valid)
+    ql, kp, vp = _shard(q, 2, rank), _shard(k_pool, 2, rank), \
+        _shard(v_pool, 2, rank)
+    args = (mesh, ql, kp, vp, table, valid)
+    check_case("paged_decode_spmd",
+               kattn.paged_decode_spmd(*args, heads=heads),
+               kattn.paged_decode_spmd_ref(*args, heads=heads),
+               _shard(full, 2, rank))
+    cells = kv_cells(valid_l, [v - 1 for v in valid_l], None)
+    rank_times(
+        "paged_decode_spmd",
+        lambda: kattn.paged_decode_spmd(*args, heads=heads),
+        lambda: kattn.paged_decode_spmd_ref(*args, heads=heads),
+        lambda: sdpa_view_ms(torch, ql, kp, vp, table, valid, None, flush),
+        2 * ql.numel() * 2 + cells * (K // 2) * D * 2 * 2,
+        cells * (H // 2) * D * 4, reps=50)
+    # K4 inside K1/K2 under the wrappers: int8 and int4 pages
+    for bits in (8, 4):
+        kq, vq, kw = quantized_pools(kvq, k_pool, v_pool, bits)
+        fq = kattn.paged_decode_attention(q, kq, vq, table, valid, **kw)
+        kql, vql = _shard(kq, 2, rank), _shard(vq, 2, rank)
+        kwl = dict(kw, k_scale=_shard(kw["k_scale"], 2, rank),
+                   v_scale=_shard(kw["v_scale"], 2, rank))
+        args_q = (mesh, ql, kql, vql, table, valid)
+        check_case(f"paged_decode_spmd:int{bits}",
+                   kattn.paged_decode_spmd(*args_q, heads=heads, **kwl),
+                   kattn.paged_decode_spmd_ref(*args_q, heads=heads, **kwl),
+                   _shard(fq, 2, rank))
+        qp = (torch.randn(B, 256, H, D, generator=gen, device=dev)
+              * D ** -0.5).to(bf16)
+        offs = i32([1200, 1200, 1200])
+        vpre = offs + 256
+        fq = kattn.paged_prefill_attention(qp, kq, vq, table, offs, vpre,
+                                           **kw)
+        args_q = (mesh, _shard(qp, 2, rank), kql, vql, table, offs, vpre)
+        check_case(f"paged_prefill_spmd:int{bits}",
+                   kattn.paged_prefill_spmd(*args_q, heads=heads, **kwl),
+                   kattn.paged_prefill_spmd_ref(*args_q, heads=heads,
+                                                **kwl),
+                   _shard(fq, 2, rank))
+        del kq, vq, kw, kwl, kql, vql
+    # K10c (K2): a 512-row chunk over a 1.2k prefix
+    offsets_l, lengths_l, T = [1200, 1200, 1200], [300, 320, 340], 512
+    offsets = i32(offsets_l)
+    valid_l = [o + n for o, n in zip(offsets_l, lengths_l)]
+    valid = i32(valid_l)
+    q = (torch.randn(B, T, H, D, generator=gen, device=dev)
+         * D ** -0.5).to(bf16)
+    full = kattn.paged_prefill_attention(q, k_pool, v_pool, table, offsets,
+                                         valid)
+    ql = _shard(q, 2, rank)
+    args = (mesh, ql, kp, vp, table, offsets, valid)
+    check_case("paged_prefill_spmd",
+               kattn.paged_prefill_spmd(*args, heads=heads),
+               kattn.paged_prefill_spmd_ref(*args, heads=heads),
+               _shard(full, 2, rank), rows=lengths_l)
+    cells = kv_cells(valid_l, offsets_l, None)
+    pairs = attended_pairs(valid_l, offsets_l, lengths_l, None)
+    rank_times(
+        "paged_prefill_spmd",
+        lambda: kattn.paged_prefill_spmd(*args, heads=heads),
+        lambda: kattn.paged_prefill_spmd_ref(*args, heads=heads),
+        lambda: sdpa_view_ms(torch, ql, kp, vp, table, valid, offsets,
+                             flush),
+        2 * sum(lengths_l) * (H // 2) * D * 2
+        + cells * (K // 2) * D * 2 * 2,
+        pairs * (H // 2) * D * 4)
+    del k_pool, v_pool, kp, vp
+    # K10d (K3): 3 decode rows and a 1000-row chunk in a 1024-row buffer
+    T = 1024
+    rargs = ragged_inputs(torch, gen, RAGGED_MAIN, T, H, K, D, ps, bf16, dev)
+    full = kattn.ragged_paged_attention(*rargs)
+    local = (_shard(rargs[0], 1, rank), _shard(rargs[1], 2, rank),
+             _shard(rargs[2], 2, rank)) + tuple(rargs[3:])
+    check_case("ragged_paged_spmd",
+               kattn.ragged_paged_spmd(mesh, *local, heads=heads),
+               kattn.ragged_paged_spmd_ref(mesh, *local, heads=heads),
+               _shard(full, 1, rank))
+    valid_l = [o + m for o, m in RAGGED_MAIN]
+    cells = kv_cells(valid_l, [o for o, _ in RAGGED_MAIN], None)
+    pairs = attended_pairs(valid_l, [o for o, _ in RAGGED_MAIN],
+                           [m for _, m in RAGGED_MAIN], None)
+    rank_times(
+        "ragged_paged_spmd",
+        lambda: kattn.ragged_paged_spmd(mesh, *local, heads=heads),
+        lambda: kattn.ragged_paged_spmd_ref(mesh, *local, heads=heads),
+        lambda: sdpa_ragged_ms(torch, local, RAGGED_MAIN, flush),
+        2 * T * (H // 2) * D * 2 + cells * (K // 2) * D * 2 * 2,
+        pairs * (H // 2) * D * 4, reps=20)
+    del rargs, local
+    # K10a (K9 decode, K8 prefill) on an 8-slot cache through a row map
+    rows_l = [5, 2, 7]
+    rows = i32(rows_l)
+    valid_l = [1600, 1650, 1700]
+    valid = i32(valid_l)
+    kc, vc = slot_cache(torch, gen, K, D, bf16, dev, valid_l, rows_l)
+    kcl, vcl = _shard(kc, 2, rank), _shard(vc, 2, rank)
+    q = (torch.randn(B, 1, H, D, generator=gen, device=dev)
+         * D ** -0.5).to(bf16)
+    full = kattn.ragged_decode_attention(q, kc, vc, valid, rows=rows)
+    ql = _shard(q, 2, rank)
+    args = (mesh, ql, kcl, vcl, valid - 1, valid)
+    check_case("flash_attention_spmd",
+               kattn.flash_attention_spmd(*args, heads=heads, rows=rows),
+               kattn.flash_attention_spmd_ref(*args, heads=heads, rows=rows),
+               _shard(full, 2, rank))
+    cells = kv_cells(valid_l, [v - 1 for v in valid_l], None)
+    rank_times(
+        "flash_attention_spmd",
+        lambda: kattn.flash_attention_spmd(*args, heads=heads, rows=rows),
+        lambda: kattn.flash_attention_spmd_ref(*args, heads=heads,
+                                               rows=rows),
+        lambda: sdpa_slots_ms(torch, ql, kcl, vcl, rows, valid, None, flush),
+        2 * ql.numel() * 2 + cells * (K // 2) * D * 2 * 2,
+        cells * (H // 2) * D * 4, reps=50)
+    offsets_l, lengths_l, T = [1200, 1200, 1200], [300, 320, 340], 512
+    offsets = i32(offsets_l)
+    valid_l = [o + n for o, n in zip(offsets_l, lengths_l)]
+    valid = i32(valid_l)
+    q = (torch.randn(B, T, H, D, generator=gen, device=dev)
+         * D ** -0.5).to(bf16)
+    full = kattn.flash_prefill_attention(q, kc, vc, offsets, valid,
+                                         rows=rows)
+    ql = _shard(q, 2, rank)
+    args = (mesh, ql, kcl, vcl, offsets, valid)
+    check_case("flash_attention_spmd:prefill",
+               kattn.flash_attention_spmd(*args, heads=heads, rows=rows),
+               kattn.flash_attention_spmd_ref(*args, heads=heads, rows=rows),
+               _shard(full, 2, rank), rows=lengths_l)
+    cells = kv_cells(valid_l, offsets_l, None)
+    pairs = attended_pairs(valid_l, offsets_l, lengths_l, None)
+    rank_times(
+        "flash_attention_spmd:prefill",
+        lambda: kattn.flash_attention_spmd(*args, heads=heads, rows=rows),
+        lambda: kattn.flash_attention_spmd_ref(*args, heads=heads,
+                                               rows=rows),
+        lambda: sdpa_slots_ms(torch, ql, kcl, vcl, rows, valid, offsets,
+                              flush),
+        2 * sum(lengths_l) * (H // 2) * D * 2
+        + cells * (K // 2) * D * 2 * 2,
+        pairs * (H // 2) * D * 4)
+    torch.cuda.synchronize()
+    return {"errs": errs, "timing": timing}
+
+
+def tp_kernels_phase(torch):
+    ranks = tp_launch("tp_kernels_rank")
+    per_rank = [r for r, _ in ranks]
+    emit("tp_kernels", backend=TP_BACKEND, mesh=TP_MESH, tolerance=KERNEL_TOL,
+         shapes={"H_per_rank": 16, "K_per_rank": 4, "D": 128, "ps": 128},
+         ranks=per_rank)
+    return per_rank
+
+
+def time_collectives(torch):
+    """Wrap the forward's two collectives (engine/distributed.py) to add
+    up, per call, the host's wait for the card's queued work (the gloo
+    path's host copy waits for it anyway) and the collective itself.
+    Returns the running totals."""
+    from theroundtaible_tpu_torch.engine import distributed
+    totals = {"calls": 0, "device_wait_s": 0.0, "collective_s": 0.0}
+
+    def timed(fn):
+        def call(*args, **kwargs):
+            t0 = time.monotonic()
+            torch.cuda.synchronize()
+            t1 = time.monotonic()
+            out = fn(*args, **kwargs)
+            totals["calls"] += 1
+            totals["device_wait_s"] += t1 - t0
+            totals["collective_s"] += time.monotonic() - t1
+            return out
+        return call
+
+    for name in ("all_reduce_sum", "all_gather_cat"):
+        setattr(distributed, name, timed(getattr(distributed, name)))
+    return totals
+
+
+def tp_round_rank(torch, rank, layout):
+    """A 32-layer llama-3-8b-instruct engine on this rank's half of the
+    model (`"mesh": {"data": 1, "model": 2}`), warmup() and the engine
+    phase's two rounds through execute_round; the layout's K10 wrappers
+    and kernels must launch in each round, the other layout's never. The
+    rounds' collectives are timed (time_collectives)."""
+    from theroundtaible_tpu_torch.adapters.torch_llm import TorchLlmAdapter
+    from theroundtaible_tpu_torch.engine.kernels import attention as kattn
+    config = dict(ENGINE_CONFIG, mesh=dict(TP_MESH))
+    if layout == "contiguous":
+        del config["kv_layout"]
+        required = ("flash_attention_spmd",) + CONTIGUOUS_KERNELS
+        forbidden = PAGED_KERNELS + TP_KERNELS[1:]
+    else:
+        required = TP_KERNELS[1:3] + PAGED_KERNELS[:2]
+        forbidden = CONTIGUOUS_KERNELS + TP_KERNELS[:1]
+    torch.cuda.reset_peak_memory_stats()
+    adapter = TorchLlmAdapter.from_config("torch-llm-llama3", config)
+    t0 = time.monotonic()
+    engine = adapter._get_engine()
+    torch.cuda.synchronize()
+    construct_s = time.monotonic() - t0
+    d = engine.describe()
+    check(d["mesh"] == TP_MESH and d["kv_layout"] == layout,
+          f"built mesh {d['mesh']}, layout {d['kv_layout']}")
+    warm_s = engine.warmup()
+    phase = "tp_round" if layout == "paged" else "tp_contiguous_round"
+    collectives = time_collectives(torch)
+    t0 = time.monotonic()
+    totals, generated, stats = serve_rounds(
+        torch, kattn, adapter, engine, phase, required=required,
+        forbidden=forbidden)
+    rounds_s = time.monotonic() - t0
+    out = {"construct_s": construct_s, "warmup_s": warm_s,
+           "kv_bytes": engine.kv.hbm_bytes(),
+           "params_per_rank": sum(
+               x.numel() for layer in engine.params["layers"]
+               for x in layer.values()),
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "prefill_s": [stats[r]["prefill_seconds"] for r in (1, 2)],
+           "decode_ms_per_step": [decode_ms_per_step(stats[r])
+                                  for r in (1, 2)],
+           "rounds_s": rounds_s, "collectives": collectives,
+           "launches": totals, "generated": generated}
+    from theroundtaible_tpu_torch.engine import reset_engines
+    reset_engines()
+    return out
+
+
+def tp_round_phase(torch, layout, single):
+    """Both ranks' rounds: identical tokens on both ranks (checked), beside
+    the single-device rounds of the same layout in this run (prefill
+    seconds, decode ms per step, greedy agreement: reported)."""
+    phase = "tp_round" if layout == "paged" else "tp_contiguous_round"
+    ranks = tp_launch("tp_round_rank", layout)
+    outs = [r for r, _ in ranks]
+    check(outs[0]["generated"] == outs[1]["generated"],
+          f"{phase}: the two ranks returned different tokens")
+    emit(phase, backend=TP_BACKEND, mesh=TP_MESH, layers=32,
+         ranks=[{k: v for k, v in o.items() if k != "generated"}
+                for o in outs],
+         round_lines=[lines for _, lines in ranks],
+         single_device={"prefill_s": single["prefill_s"],
+                        "decode_ms_per_step": single["decode_ms_per_step"]},
+         greedy_agreement_with_single_device=greedy_agreement(
+             outs[0]["generated"], single["generated"]))
+    totals = dict.fromkeys(outs[0]["launches"], 0)
+    for o in outs:
+        for k, n in o["launches"].items():
+            totals[k] += n
+    return totals
+
+
+def _tp_weights(torch, mesh, seed):
+    """Full-width llama-3-8b-instruct cut to 2 layers: the single-device
+    weights from `seed`, and this rank's shard of the same tensors."""
+    from theroundtaible_tpu_torch.engine.models.common import init_params
+    from theroundtaible_tpu_torch.engine.models.registry import \
+        get_model_config
+    from theroundtaible_tpu_torch.engine.sharding import shard_params
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(
+        get_model_config("llama-3-8b-instruct"), num_layers=2,
+        attn_impl="flash")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    full = init_params(cfg, gen, torch.bfloat16, dev)
+    shard = shard_params(full, cfg, mesh)
+    shard = {k: ([{n: w.clone() for n, w in layer.items()} for layer in v]
+                 if k == "layers" else v.clone()) for k, v in shard.items()}
+    return cfg, full, shard
+
+
+def tp_path_rank(torch, rank):
+    """2 layers at full width: one 512-row prefill chunk (rows of
+    512/400/300 real tokens) and 16 decode steps of forward_paged (K10c/b)
+    and of forward_cached (K10a) under TP=2, each against the
+    single-device forward on the same weights, tokens and pages/slots,
+    teacher-forced with the single-device greedy tokens."""
+    from theroundtaible_tpu_torch.engine.models.common import forward_cached
+    from theroundtaible_tpu_torch.engine.paged_forward import forward_paged
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    mesh = tp_mesh()
+    cfg, full, shard = _tp_weights(torch, mesh, SEED + 7)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    B, T, ps = 3, 512, 128
+    pp = cfg.max_seq_len // ps
+    table = (torch.randperm(B * pp, generator=gen, device=dev) + 1) \
+        .reshape(B, pp).to(torch.int32)
+    rows = torch.tensor([5, 2, 7], dtype=torch.int32, device=dev)
+
+    def zeros(shape):
+        return [(torch.zeros(shape, dtype=bf16, device=dev),
+                 torch.zeros(shape, dtype=bf16, device=dev))
+                for _ in range(cfg.num_layers)]
+
+    K, D = cfg.num_kv_heads, cfg.head_dim
+    pools = {"single": zeros((1 + B * pp, ps, K, D)),
+             "tp": zeros((1 + B * pp, ps, K // 2, D))}
+    caches = {"single": zeros((SLOTS, cfg.max_seq_len, K, D)),
+              "tp": zeros((SLOTS, cfg.max_seq_len, K // 2, D))}
+    lengths = torch.tensor([512, 400, 300], dtype=torch.int32, device=dev)
+    zero = torch.zeros(B, dtype=torch.int32, device=dev)
+    tokens = torch.randint(3, 259, (B, T), generator=gen, device=dev)
+    positions = torch.arange(T, dtype=torch.int32, device=dev) \
+        .expand(B, T).contiguous()
+    worst = {"paged": 0.0, "cached": 0.0}
+    agree = {"paged": 0, "cached": 0}
+    steps = 0
+
+    def run(toks, pos, valid, last=None, offs=None):
+        out = {}
+        for name, params, m in (("single", full, None), ("tp", shard, mesh)):
+            out[("paged", name)] = forward_paged(
+                params, cfg, toks, pos, pools[name], table, valid,
+                last_pos=last, mesh=m)[:, 0]
+            out[("cached", name)] = forward_cached(
+                params, cfg, toks, pos, caches[name], rows,
+                pos[:, 0].contiguous() if offs is None else offs, valid,
+                last_pos=last, mesh=m)[:, 0]
+        for path in worst:
+            ref, got = out[(path, "single")], out[(path, "tp")]
+            diff = (got - ref).abs()
+            worst[path] = max(worst[path], float(diff.max()))
+            check(bool(torch.isfinite(got).all()), "non-finite TP logits")
+            check(bool((diff <= PATH_TOL + PATH_TOL * ref.abs()).all()),
+                  f"tp_path {path} on rank {rank}: TP and single-device "
+                  f"logits differ by {worst[path]}")
+            agree[path] += int((got.argmax(-1) == ref.argmax(-1)).sum())
+        return out[("paged", "single")].argmax(-1)
+
+    reset_launches()
+    cur = run(tokens, positions, lengths, last=lengths - 1, offs=zero)
+    steps += B
+    valid = lengths.clone()
+    for _ in range(16):
+        cur = run(cur[:, None], valid[:, None], valid + 1)
+        steps += B
+        valid = valid + 1
+    torch.cuda.synchronize()
+    return {"max_abs_err": worst,
+            "greedy_agreement": {k: v / steps for k, v in agree.items()},
+            "launches": launches_now()}
+
+
+def tp_path_phase(torch):
+    ranks = tp_launch("tp_path_rank")
+    outs = [r for r, _ in ranks]
+    for o in outs:
+        check(all(o["launches"][k] > 0 for k in TP_KERNELS[:3]),
+              f"tp_path: a K10 wrapper never launched: {o['launches']}")
+    emit("tp_path", backend=TP_BACKEND, mesh=TP_MESH, layers=2, batch=3,
+         chunk=512, decode_steps=16, tolerance=PATH_TOL,
+         ranks=[{k: o[k] for k in ("max_abs_err", "greedy_agreement")}
+                for o in outs])
+
+
+def tp_ragged_path_rank(torch, rank):
+    """The ragged_path phase's flat buffer (3 decode rows at ~1.6k cached
+    tokens, a 1000-row chunk) through forward_ragged under TP=2 (K10d over
+    K3) at full width, 2 layers: against its plain version, against
+    forward_paged under TP=2 (K10b/c) on identical pools, and against the
+    single-device forward_ragged on the whole weights and pools. The
+    launch counts are zeroed just before the TP forward_ragged and read
+    just after."""
+    from theroundtaible_tpu_torch.engine.paged_forward import (
+        forward_paged, forward_ragged)
+    from theroundtaible_tpu_torch.engine.serving_loop import (
+        RaggedSeq, build_ragged_batch)
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    mesh = tp_mesh()
+    cfg, full, shard = _tp_weights(torch, mesh, SEED + 11)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+    ps, S = 128, 4
+    pp = cfg.max_seq_len // ps
+    table = (torch.randperm(S * pp, generator=gen, device=dev) + 1) \
+        .reshape(S, pp).to(torch.int32)
+    shape = (1 + S * pp, ps, cfg.num_kv_heads, cfg.head_dim)
+    base = [(torch.randn(shape, generator=gen, device=dev).to(bf16),
+             torch.randn(shape, generator=gen, device=dev).to(bf16))
+            for _ in range(cfg.num_layers)]
+    single = [(k.clone(), v.clone()) for k, v in base]
+    local = [(_shard(k, 2, rank), _shard(v, 2, rank)) for k, v in base]
+    kernel_pools, plain_pools, paged_pools = (
+        [(k.clone(), v.clone()) for k, v in local] for _ in range(3))
+    del base, local
+    starts = [1599, 1649, 1699]
+    dec = torch.randint(3, 259, (3,), generator=gen, device=dev)
+    chunk = torch.randint(3, 259, (1000,), generator=gen, device=dev)
+    table_np = table.cpu().numpy()
+    seqs = [RaggedSeq([int(dec[i])], starts[i], table_np[i])
+            for i in range(3)]
+    seqs.append(RaggedSeq(chunk.tolist(), 0, table_np[3]))
+    batch = build_ragged_batch(seqs, t_budget=1024, s_max=S + 1,
+                               pages_per_seq=pp, scratch_page=0, pad_id=0,
+                               page_size=ps)
+    t = {k: torch.as_tensor(batch[k], device=dev) for k in (
+        "tokens", "positions", "tables", "seq_of_block", "block_qstart",
+        "query_offsets", "kv_valid", "token_pages", "token_offs",
+        "last_rows")}
+
+    def ragged(params, pools, plain, m):
+        return forward_ragged(
+            params, cfg, t["tokens"].long(), t["positions"], pools,
+            t["tables"], t["seq_of_block"], t["block_qstart"],
+            t["query_offsets"], t["kv_valid"], t["token_pages"],
+            t["token_offs"], t["last_rows"], plain=plain, mesh=m)[:S]
+
+    reset_launches()
+    lk = ragged(shard, kernel_pools, False, mesh)
+    torch.cuda.synchronize()
+    launches = launches_now()
+    check(launches["ragged_paged_spmd"] > 0
+          and launches["ragged_paged_attention"] > 0,
+          f"tp_ragged_path: K10d/K3 never launched: {launches}")
+    lp = ragged(shard, plain_pools, True, mesh)
+    ls = ragged(full, single, False, None)
+    starts_t = torch.tensor(starts, dtype=torch.int32, device=dev)
+    ld = forward_paged(shard, cfg, dec.long()[:, None], starts_t[:, None],
+                       paged_pools, table[:3], starts_t + 1, mesh=mesh)
+    n = torch.tensor([1000], dtype=torch.int32, device=dev)
+    lc = forward_paged(shard, cfg, chunk.long()[None],
+                       torch.arange(1000, dtype=torch.int32,
+                                    device=dev)[None],
+                       paged_pools, table[3:], n, last_pos=n - 1, mesh=mesh)
+    lpg = torch.cat([ld[:, 0], lc[:, 0]])
+    torch.cuda.synchronize()
+    result = {"launches": launches}
+    for name, other in (("vs_plain", lp), ("vs_paged", lpg),
+                        ("vs_single_device", ls)):
+        diff = (lk - other).abs()
+        err = float(diff.max())
+        check(bool(torch.isfinite(lk).all()), "non-finite TP ragged logits")
+        check(bool((diff <= PATH_TOL + PATH_TOL * other.abs()).all()),
+              f"tp_ragged_path {name} on rank {rank}: logits differ by "
+              f"{err}")
+        result[name] = {"max_abs_err": err, "greedy_agreement": float(
+            (lk.argmax(-1) == other.argmax(-1)).float().mean())}
+    return result
+
+
+def tp_ragged_path_phase(torch):
+    ranks = tp_launch("tp_ragged_path_rank")
+    outs = [r for r, _ in ranks]
+    emit("tp_ragged_path", backend=TP_BACKEND, mesh=TP_MESH, layers=2,
+         buffer=1024, tolerance=PATH_TOL, ranks=outs)
+    return {k: sum(o["launches"][k] for o in outs) for k in TP_KERNELS}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2027,8 +2614,8 @@ def main() -> int:
     del engine
     gc.collect()
     torch.cuda.empty_cache()
-    contiguous, engine = contiguous_phase(torch, kattn,
-                                          reference["generated"])
+    contiguous, engine, contiguous_ref = contiguous_phase(
+        torch, kattn, reference["generated"])
     for name in CONTIGUOUS_KERNELS:
         launches[name] = contiguous[name]
     profile_phase(torch, engine, phase="contiguous_profile")
@@ -2075,6 +2662,21 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     lora_path_phase(torch, cfg)
+
+    # Tensor parallelism: two ranks sharing the card over gloo (the kernels
+    # built above; every engine of this process released first): K10a-d
+    # alone, the 32-layer TP rounds on both layouts beside this run's
+    # single-device rounds, then the 2-layer paths.
+    gc.collect()
+    torch.cuda.empty_cache()
+    tp_timing = tp_kernels_phase(torch)
+    tp_launches = tp_round_phase(torch, "paged", reference)
+    for name, n in tp_round_phase(torch, "contiguous",
+                                  contiguous_ref).items():
+        tp_launches[name] += n
+    tp_path_phase(torch)
+    tp_launches["ragged_paged_spmd"] = tp_ragged_path_phase(torch)[
+        "ragged_paged_spmd"]
 
     src = "theroundtaible_tpu_torch/engine/kernels/csrc/"
     rows = []
@@ -2154,6 +2756,29 @@ def main() -> int:
         "ms": total["ms"], "plain_ms": total["plain_ms"],
         "bound_ms": bound, "bound_by": by,
         "library_ms": total["library_ms"]})
+    # K10a-d: each wrapper over its CUDA kernel on one rank's half of the
+    # heads (K10a at K9's decode shape, K10b/c/d at K1/K2/K3's); the slower
+    # rank's time (each rank timed alone), the per-shard bound, SDPA on
+    # the per-shard gathered view. Launches: both ranks' in the TP rounds
+    # (K10a-c) and tp_ragged_path (K10d).
+    pallas = "theroundtaible_tpu/engine/pallas/attention.py"
+    for name, line in (("flash_attention_spmd", 570),
+                       ("paged_decode_spmd", 806),
+                       ("paged_prefill_spmd", 464),
+                       ("ragged_paged_spmd", 1266)):
+        per = [r["timing"][name] for r in tp_timing]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "theroundtaible_tpu_torch/engine/kernels/attention.py",
+            "replaces": f"{pallas}:{line}", "launches": tp_launches[name],
+            "max_abs_err": max(e["max_abs_err"] for r in tp_timing
+                               for k, e in r["errs"].items()
+                               if k.split(":")[0] == name),
+            "ms": max(t["ms"] for t in per),
+            "plain_ms": max(t["plain_ms"] for t in per),
+            "bound_ms": per[0]["bound_ms"], "bound_by": per[0]["bound_by"],
+            "library_ms": max(t["sdpa_view_ms"] for t in per),
+            "ms_per_rank": [t["ms"] for t in per]})
     summary = {"kernels": rows}
     (OUT / "summary.json").write_text(json.dumps(summary, indent=1))
     print(json.dumps(summary), flush=True)

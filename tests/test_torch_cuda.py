@@ -1,7 +1,9 @@
 """PyTorch port, CUDA kernels K1/K2/K3/K8/K9, K4 (in-kernel KV dequant
-inside K1-K3, int8 and int4 pages), K5/K6 (w4a16 decode products) and K7
-(grouped LoRA BGMV) against their plain versions on the card (`cuda` marker; each test skips
-itself where there is no card). The
+inside K1-K3, int8 and int4 pages), K5/K6 (w4a16 decode products), K7
+(grouped LoRA BGMV), K10's attention wrappers on two gloo ranks sharing the
+card, and the bf16 products with f32 results, against their plain versions
+on the card (`cuda` marker; each test skips itself where there is no
+card). The
 file imports neither jax nor the JAX package, so it runs on a machine that
 has only the port's dependencies:
 
@@ -544,3 +546,167 @@ def test_cuda_engine_refuses_lora_shapes_k7_declines(cuda_device,
     config["lora"] = {"rank": 8}
     with pytest.raises(ValueError, match="kernel-disabled"):
         InferenceEngine.from_config(config, device="cuda")
+
+
+# --- the weight products' f32 results (models/common._mm_f32) ---
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,c,n", [(3, 4096, 4096), (512, 4096, 1024),
+                                   (3, 4096, 128256)])
+def test_cuda_bf16_products_have_f32_results(cuda_device, m, c, n):
+    """A bf16 GEMM writing f32 (torch.mm's out_dtype, aten::mm.dtype)
+    against the f32 product of the same bf16 values: every bf16 product is
+    exact in f32, so only the summation order differs (f32 rounding over
+    c terms). Its result is not rounded to bf16."""
+    from theroundtaible_tpu_torch.engine.models import common
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    a = torch.randn(m, c, generator=gen, device=cuda_device).bfloat16()
+    w = (torch.randn(c, n, generator=gen, device=cuda_device)
+         * c ** -0.5).bfloat16()
+    out = common._mm_f32(a, w)
+    assert out.dtype == torch.float32
+    ref = torch.mm(a.float(), w.float())
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)
+    assert not torch.equal(out, out.bfloat16().float())
+    head = common._dense(common.SPEC_HEAD, a[None], w.t().contiguous())
+    torch.testing.assert_close(head[0], ref, atol=1e-4, rtol=1e-4)
+
+
+# --- K10: the attention wrappers on two ranks sharing the card ---
+
+
+def _spmd_rank(rank):
+    """One of two gloo ranks on cuda:0 (tensor parallel, model axis 2):
+    K10a-d on this rank's kv heads of Llama-3-8B's attention (H=32, K=8,
+    D=128, page 128) in bf16, each against its plain version on the same
+    local tensors. Returns ({wrapper: (max |diff|, within atol = rtol =
+    2e-2)}, launch counts)."""
+    from theroundtaible_tpu_torch.engine.sharding import Mesh
+    dev = torch.device("cuda", 0)
+    mesh = Mesh(1, 2, rank)
+    heads, h, kh, D, ps = (32, 8), 16, 4, 128, 128
+    gen = torch.Generator(device=dev).manual_seed(7)   # same on both ranks
+    bf16 = torch.bfloat16
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(bf16)
+
+    def shard(x, axis):
+        n = x.shape[axis] // 2
+        return x.narrow(axis, rank * n, n).contiguous()
+
+    kattn.reset_launch_counts()
+    errs = {}
+
+    def diff(out, ref):
+        out, ref = out.float(), ref.float()
+        d = (out - ref).abs()
+        return (float(d.max()), bool(torch.isfinite(out).all())
+                and bool((d <= 2e-2 + 2e-2 * ref.abs()).all()))
+
+    # K10b/c: a pool of 3 rows x 16 pages, decode at ~1.6k, a 256-row chunk
+    B, pp = 3, 16
+    k_pool, v_pool = randn(1 + B * pp, ps, 8, D), randn(1 + B * pp, ps, 8, D)
+    table = (torch.randperm(B * pp, generator=gen, device=dev) + 1) \
+        .reshape(B, pp).to(torch.int32)
+    kp, vp = shard(k_pool, 2), shard(v_pool, 2)
+    valid = torch.tensor([1600, 1650, 1700], dtype=torch.int32, device=dev)
+    q = shard(randn(B, 1, 32, D) * D ** -0.5, 2)
+    args = (mesh, q, kp, vp, table, valid)
+    errs["paged_decode_spmd"] = diff(
+        kattn.paged_decode_spmd(*args, heads=heads),
+        kattn.paged_decode_spmd_ref(*args, heads=heads))
+    offsets = torch.tensor([0, 700, 1200], dtype=torch.int32, device=dev)
+    q = shard(randn(B, 256, 32, D) * D ** -0.5, 2)
+    args = (mesh, q, kp, vp, table, offsets, offsets + 256)
+    errs["paged_prefill_spmd"] = diff(
+        kattn.paged_prefill_spmd(*args, heads=heads),
+        kattn.paged_prefill_spmd_ref(*args, heads=heads))
+    # int8 pages (K4 inside K1 under the wrapper)
+    spec = KVQuantSpec(bits=8)
+    (kq, ks), (vq, vs) = quantize_cells(kp, spec), quantize_cells(vp, spec)
+    args = (mesh, shard(randn(B, 1, 32, D) * D ** -0.5, 2), kq, vq, table,
+            valid)
+    kw = dict(heads=heads, k_scale=ks, v_scale=vs, kv_bits=8)
+    errs["paged_decode_spmd:int8"] = diff(
+        kattn.paged_decode_spmd(*args, **kw),
+        kattn.paged_decode_spmd_ref(*args, **kw))
+    # K10d: 3 decode rows and a 200-row chunk in one 256-row buffer
+    tables = torch.cat([table, torch.zeros(1, pp, dtype=torch.int32,
+                                           device=dev)])
+    sob, bqs = flat_buffer([(0, 1), (1, 1), (2, 200)], 256, 3)
+    qo = torch.tensor([1599, 1649, 0, 0], dtype=torch.int32, device=dev)
+    rv = torch.tensor([1600, 1650, 200, 1], dtype=torch.int32, device=dev)
+    q = shard(randn(256, 32, D) * D ** -0.5, 1)
+    args = (mesh, q, kp, vp, tables, torch.from_numpy(sob).to(dev),
+            torch.from_numpy(bqs).to(dev), qo, rv)
+    errs["ragged_paged_spmd"] = diff(
+        kattn.ragged_paged_spmd(*args, heads=heads),
+        kattn.ragged_paged_spmd_ref(*args, heads=heads))
+    # K10a: 8 slots x 2048 positions read through a row map
+    kc, vc = shard(randn(8, 2048, 8, D), 2), shard(randn(8, 2048, 8, D), 2)
+    rows = torch.tensor([5, 0, 3], dtype=torch.int32, device=dev)
+    for t, name in ((1, "flash_attention_spmd:decode"),
+                    (128, "flash_attention_spmd:prefill")):
+        q = shard(randn(B, t, 32, D) * D ** -0.5, 2)
+        offs = valid - 1 if t == 1 else offsets
+        args = (mesh, q, kc, vc, offs, offs + t)
+        errs[name] = diff(
+            kattn.flash_attention_spmd(*args, heads=heads, rows=rows),
+            kattn.flash_attention_spmd_ref(*args, heads=heads, rows=rows))
+    torch.cuda.synchronize()
+    return errs, kattn.launch_counts()
+
+
+@pytest.mark.cuda
+def test_cuda_spmd_wrappers_on_two_ranks_match_plain(cuda_device):
+    """Two gloo ranks on one card, each running K10a-d over the CUDA
+    kernels on its half of Llama-3-8B's heads, within the bf16 tolerance
+    of the plain versions; every wrapper and its kernel launched on both
+    ranks."""
+    from theroundtaible_tpu_torch.engine import distributed
+    from theroundtaible_tpu_torch.engine.kernels import build
+    build.build_all()      # once, before the ranks load the libraries
+    ranks = distributed.launch(_spmd_rank, 2, "gloo", "cuda:0",
+                               timeout_s=600)
+    for errs, counts in ranks:
+        assert all(ok for _, ok in errs.values()), errs
+        for name in kattn.SPMD_WRAPPERS + kattn.KERNELS:
+            assert counts[name] > 0, (name, counts)
+
+
+@pytest.mark.cuda
+def test_cuda_attention_refuses_a_shard_the_kernels_decline(cuda_device):
+    """Under a mesh, models/common.attention on the card serves through
+    flash_attention_spmd or raises: a shard K8/K9 decline (64 q heads on 2
+    kv heads over a 2-way model axis leaves one rank 32 q heads on one kv
+    head, a GQA group above MAX_GROUP) fails with the reason and is not
+    served by dense math."""
+    import dataclasses
+    from theroundtaible_tpu_torch.engine.models import common
+    from theroundtaible_tpu_torch.engine.models.registry import \
+        get_model_config
+    from theroundtaible_tpu_torch.engine.sharding import Mesh
+    cfg = dataclasses.replace(get_model_config("tiny-llama"), embed_dim=256,
+                              num_heads=64, num_kv_heads=2, head_dim=128,
+                              attn_impl="flash")
+    mesh = Mesh(1, 2, 0)
+    assert kattn.spmd_decline_reason(
+        "flash", mesh, (64, 2), 1, 8, 0, 128, cuda_device) == \
+        f"group:32 not in 1..{kattn.MAX_GROUP}"
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+
+    def randn(*shape):
+        return (torch.randn(*shape, generator=gen, device=cuda_device)
+                * 0.05).bfloat16()
+
+    layer = {"q_proj": randn(256, 32, 128), "k_proj": randn(256, 1, 128),
+             "v_proj": randn(256, 1, 128), "o_proj": randn(32, 128, 256)}
+    x = randn(1, 8, 256)
+    positions = torch.arange(8, device=cuda_device)[None]
+    mask = torch.ones(1, 8, 8, dtype=torch.bool, device=cuda_device).tril()
+    valid = torch.tensor([8], dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="flash attention under mesh"):
+        common.attention(x, layer, cfg, positions, None, None, mask,
+                         kv_valid=valid, mesh=mesh)

@@ -119,7 +119,8 @@ def test_describe_keys_match(engines):
 
 @pytest.mark.parametrize("key,value", [
     ("prefix_cache", True), ("kv_offload", True), ("spec_decode", True),
-    ("mesh", {"data": 1, "model": 4}), ("seq_parallel", 2),
+    # a data axis (TP alone is served: tests/test_torch_tp.py)
+    ("mesh", {"data": 2, "model": 2}), ("seq_parallel", 2),
     ("checkpoint", "/nonexistent"), ("dtype", "float16"),
 ])
 def test_unported_options_raise(key, value):

@@ -53,6 +53,19 @@ construction. A mixed-adapter batch shares no prefix, a uniform one only
 with donors of its adapter, and a slot re-served under another adapter is
 released first.
 
+Tensor parallelism, as in the JAX engine's `mesh`: `{"data": 1, "model":
+m}` with m > 1 serves one model over m ranks of an initialized
+torch.distributed group (engine/distributed.py), one process per device,
+every rank calling the same methods in lockstep. Each rank holds its slice
+of the weights (sharding.shard_params: its q/k/v heads, o_proj rows, MLP
+hidden, vocab) and of the cache or pool (its kv heads); the forward
+all-reduces the row-parallel products in f32 and gathers the head's
+logits, so every rank samples the same tokens from the same generator.
+Attention runs through the K10 wrappers (kernels/attention.py); a shape
+they decline fails construction on a card. A data axis, quantized
+weights, LoRA and the SessionScheduler on a mesh raise
+NotImplementedError naming their slice.
+
 Features the JAX
 engine also turns on by default (prefix cache, host offload, speculative
 decoding) stay off here, with `<feature>_reason: "not_ported"` in
@@ -90,15 +103,18 @@ from .paged_forward import (forward_paged, forward_ragged, gather_view,
                             scatter_view)
 from .quant import quantize_params, quantized
 from .paging import SCRATCH_PAGE, PagedKVCache
+from .sharding import build_mesh, local_config, mesh_size
 from .sampling import SamplingParams, sample_token_batch, sampling_arrays
 from .serving_loop import (DECODE_SEGMENT, MAX_PREFILL_CHUNK,
-                           PREFILL_BUCKETS, RaggedSeq, bucket_for,
+                           PREFILL_BUCKETS, RAGGED_BLOCK_Q, RaggedSeq,
+                           bucket_for,
                            build_ragged_batch, chunked_prefill,
                            clamp_max_new, decode_segments, eos_trim,
                            finalize_outputs, host_sync, prompt_budget,
                            ragged_defer_min, ragged_shape_grid,
                            ragged_token_budget, row_budget_fn)
 from .tokenizer import load_tokenizer
+from .weights import dense_param_count
 
 # Below this many shared tokens a plain prefill beats sharing a span.
 MIN_SHARED_PREFIX = 64
@@ -112,6 +128,9 @@ _FEATURES = {
     "kv_offload": "slice 7: prefix cache and host-RAM offload",
     "spec_decode": "slice 7: speculative decoding",
 }
+# What a mesh does not serve yet, with its slice.
+_MESH_SLICE = ("slice 7: data axis, quantized weights, LoRA and the "
+               "scheduler on a mesh")
 
 
 def _quant_mode(params: dict) -> str:
@@ -191,9 +210,16 @@ class InferenceEngine:
         self._check_ported(model_cfg, checkpoint, mesh_shape, dtype,
                            seq_parallel, attn, kv_layout, quant,
                            kv_quant, prefix_cache=prefix_cache,
-                           kv_offload=kv_offload, spec_decode=spec_decode)
+                           kv_offload=kv_offload, spec_decode=spec_decode,
+                           lora=lora)
+        # This rank's Mesh under tensor parallelism, else None (one
+        # device); `local_cfg` is the slice of the model it holds.
+        self.mesh = (build_mesh(mesh_shape) if mesh_size(mesh_shape) > 1
+                     else None)
+        self.local_cfg = local_config(model_cfg, self.mesh)
         if kv_layout == "contiguous":
-            model_cfg = self._resolve_attn(model_cfg, attn, self.device)
+            model_cfg = self._resolve_attn(model_cfg, attn, self.device,
+                                           self.mesh)
         self.cfg = model_cfg
         self.max_seq_len = model_cfg.max_seq_len
         self.sampling = sampling or SamplingParams()
@@ -203,7 +229,10 @@ class InferenceEngine:
         self.kv_layout = kv_layout
         self.params = self._build_params(model_cfg, params, quant, dtype,
                                          seed)
-        self.num_params = param_count(self.params)
+        # The whole model's count, as the JAX engine's sharded tree gives
+        # (a rank holds a slice).
+        self.num_params = (param_count(self.params) if self.mesh is None
+                           else dense_param_count(model_cfg))
         # int4 path provenance, from the leaves' plans: on a card a leaf
         # K5/K6 decline fails construction, as a pool K1-K4 decline does.
         self._int4_paths = (int4mm.route_report(
@@ -225,12 +254,18 @@ class InferenceEngine:
             self.kv_quant_spec, self.kv_quant_reason = kvq.resolve_spec(
                 kv_quant)
 
-        group = model_cfg.num_heads // model_cfg.num_kv_heads
+        # The kernels see this rank's heads: its kv heads and GQA group.
+        local = self.local_cfg
+        group = local.num_heads // local.num_kv_heads
         # Paged decode: pool-direct through K1/K2 unless attn "dense" asks
-        # for the gather view.
+        # for the gather view (or, under a mesh on the CPU, the heads do
+        # not partition: JAX engine.py:505-550).
         self.paged_direct = kv_layout == "paged" and attn != "dense"
+        if self.paged_direct and self.mesh is not None:
+            self.paged_direct = self._spmd_paged_direct(model_cfg,
+                                                        page_size)
         if kv_layout == "contiguous":
-            self.kv = KVCache(model_cfg, num_slots, self.max_seq_len, dtype,
+            self.kv = KVCache(local, num_slots, self.max_seq_len, dtype,
                               self.device)
         else:
             # Pool-direct serving needs both kernels to take the pool
@@ -238,7 +273,7 @@ class InferenceEngine:
             # a shape they decline fails construction.
             reason = (kattn.pool_direct_decline_reason(
                 MAX_PREFILL_CHUNK, page_size, model_cfg.head_dim,
-                model_cfg.num_kv_heads, group, self.device)
+                local.num_kv_heads, group, self.device)
                 if self.paged_direct else None)
             if reason is not None:
                 raise ValueError(
@@ -249,14 +284,14 @@ class InferenceEngine:
                 # K4's gate: a quantized pool the kernels cannot dequantize
                 # in-kernel fails construction with the reason.
                 reason = kattn.kv_quant_decline_reason(
-                    page_size, model_cfg.head_dim, model_cfg.num_kv_heads,
+                    page_size, model_cfg.head_dim, local.num_kv_heads,
                     group, spec.bits, spec.group, self.device)
                 if reason is not None:
                     raise ValueError(
                         f"the paged attention kernels cannot dequantize "
                         f"this {spec.dtype_name} pool on {self.device}: "
                         f"kv_quant:{reason}")
-            self.kv = PagedKVCache(model_cfg, num_slots, self.max_seq_len,
+            self.kv = PagedKVCache(local, num_slots, self.max_seq_len,
                                    dtype, self.device, page_size=page_size,
                                    num_pages=num_pages, kv_quant=spec)
         # Ragged mixed prefill/decode dispatch (the scheduler's chunk-
@@ -281,11 +316,21 @@ class InferenceEngine:
         elif not env_flag(ragged_attn, "ROUNDTABLE_RAGGED_ATTN"):
             self.ragged_reason = "disabled:config/env"
         elif not self.paged_direct:
-            self.ragged_reason = "attn=dense"
+            # (JAX's own dense ragged fallback is not ported: the seam is
+            # off and the scheduler keeps its blocking prologue.)
+            self.ragged_reason = ("attn=dense" if attn == "dense"
+                                  else "heads:model-axis")
         else:
-            reason = kattn.ragged_decline_reason(
-                page_size, model_cfg.head_dim, model_cfg.num_kv_heads,
-                group, self.device)
+            if self.mesh is not None:
+                reason = kattn.spmd_decline_reason(
+                    "ragged", self.mesh,
+                    (model_cfg.num_heads, model_cfg.num_kv_heads), 1,
+                    RAGGED_BLOCK_Q, page_size, model_cfg.head_dim,
+                    self.device)
+            else:
+                reason = kattn.ragged_decline_reason(
+                    page_size, model_cfg.head_dim, local.num_kv_heads,
+                    group, self.device)
             if reason is not None:
                 raise ValueError(
                     f"the ragged attention kernel declines this pool shape "
@@ -297,8 +342,11 @@ class InferenceEngine:
             self.ragged_shapes = ragged_shape_grid(self.ragged_tokens)
             self.ragged_defer_min = ragged_defer_min()
         self._build_lora(lora, model_cfg, dtype)
+        # Every rank of a mesh seeds its generator alike: the gathered
+        # logits are identical, so are the sampled tokens.
         self._generator = torch.Generator(
             device=self.device).manual_seed(seed + 1)
+        self._devices = self._mesh_devices()
         self._chars_per_token: Optional[float] = None
         self.last_stats = GenStats()
         # Serving mutates the slot cache: one generation at a time.
@@ -306,6 +354,36 @@ class InferenceEngine:
         self.retry = faults.DEFAULT_RETRY
         # The attached SessionScheduler (scheduler.acquire_scheduler).
         self._scheduler = None
+
+    def _spmd_paged_direct(self, cfg: ModelConfig, page_size: int) -> bool:
+        """Pool-direct serving under the mesh: the K10 wrappers must
+        partition the heads (else the gather view on the CPU, as the JAX
+        engine; a failed construction on a card) and take the per-rank
+        prefill and decode shapes (a failed construction otherwise)."""
+        heads = (cfg.num_heads, cfg.num_kv_heads)
+        reason = (kattn.spmd_decline_reason(
+            "prefill", self.mesh, heads, 1, MAX_PREFILL_CHUNK, page_size,
+            cfg.head_dim, self.device) or kattn.spmd_decline_reason(
+            "decode", self.mesh, heads, 1, 1, page_size, cfg.head_dim,
+            self.device))
+        if reason == "heads:model-axis" and self.device.type == "cpu":
+            return False
+        if reason is not None:
+            raise ValueError(
+                f"the paged attention kernels under mesh "
+                f"{self.mesh.shape} decline this pool shape on "
+                f"{self.device}: {reason}")
+        return True
+
+    def _mesh_devices(self) -> list[str]:
+        """Every rank's device, in rank order (one entry without a
+        mesh)."""
+        if self.mesh is None:
+            return [str(self.device)]
+        import torch.distributed as dist
+        names: list = [None] * dist.get_world_size()
+        dist.all_gather_object(names, str(self.device))
+        return names
 
     def _build_lora(self, lora, model_cfg, dtype) -> None:
         """The multi-LoRA store for a `lora:` block (None without one, or
@@ -355,8 +433,9 @@ class InferenceEngine:
         their quantized replacements land."""
         owned = params is None
         if owned:
+            # Under a mesh: this rank's shards of the same draws.
             gen = torch.Generator(device=self.device).manual_seed(seed)
-            params = init_params(cfg, gen, dtype, self.device)
+            params = init_params(cfg, gen, dtype, self.device, self.mesh)
         mode = _quant_mode(params)
         if mode != "none":
             if mode != quant:
@@ -371,7 +450,7 @@ class InferenceEngine:
 
     @staticmethod
     def _check_ported(cfg, checkpoint, mesh_shape, dtype, seq_parallel,
-                      attn, kv_layout, quant, kv_quant,
+                      attn, kv_layout, quant, kv_quant, lora=None,
                       **features) -> None:
         """Raise NotImplementedError for every option this slice does not
         serve, naming the ROADMAP item that brings it."""
@@ -389,13 +468,16 @@ class InferenceEngine:
         if seq_parallel and seq_parallel > 0:
             raise _not_ported("seq_parallel",
                               "slice 7: multi-device")
-        if mesh_shape:
-            size = 1
-            for n in mesh_shape.values():
-                size *= max(int(n), 1)
-            if size > 1:
-                raise _not_ported(f"mesh {mesh_shape}",
-                                  "slice 7: multi-device")
+        if mesh_size(mesh_shape) > 1:
+            if int(mesh_shape.get("data", 1)) != 1:
+                raise _not_ported(
+                    f"mesh {mesh_shape} (a data axis: per-replica pools "
+                    f"and the ReplicaGroupPlan)", _MESH_SLICE)
+            if quant != "none":
+                raise _not_ported(f"quant {quant!r} on a mesh",
+                                  _MESH_SLICE)
+            if lora:
+                raise _not_ported("LoRA on a mesh", _MESH_SLICE)
         if attn not in ("auto", "flash", "dense"):
             raise ValueError(f"attn must be auto|flash|dense, got {attn!r}")
         if cfg.num_experts:
@@ -406,19 +488,36 @@ class InferenceEngine:
 
     @staticmethod
     def _resolve_attn(model_cfg: ModelConfig, attn: str,
-                      device: torch.device) -> ModelConfig:
+                      device: torch.device, mesh=None) -> ModelConfig:
         """The contiguous layout's attention implementation (JAX
-        _resolve_attn for one device): "auto" is "flash" on a card and
+        _resolve_attn, engine.py:1149-1180): "auto" is "flash" on a card and
         "dense" on the CPU - what the JAX engine's auto gives off a TPU;
         explicit "flash"/"dense" always win ("flash" on the CPU runs the
         kernels' plain versions). On a card, a shape K8/K9 decline fails
         construction with the reason: there is no silent dense
-        fallback."""
+        fallback. Under a mesh spmd_partitionable decides as in JAX:
+        explicit "flash" on heads the model axis does not divide raises,
+        and the per-rank shapes go through flash_attention_spmd's gate."""
         import dataclasses
         impl = attn
         if attn == "auto":
             impl = "flash" if device.type == "cuda" else "dense"
-        if impl == "flash":
+        if mesh is not None and impl == "flash":
+            heads = (model_cfg.num_heads, model_cfg.num_kv_heads)
+            if not kattn.spmd_partitionable(*heads, mesh.model):
+                raise ValueError(
+                    f"attn={attn!r} on a {mesh.model}-way model axis needs "
+                    f"head counts divisible by it (got H={heads[0]}, "
+                    f"K={heads[1]}) - use attn='dense'")
+            reason = kattn.spmd_decline_reason(
+                "flash", mesh, heads, 1, MAX_PREFILL_CHUNK, 0,
+                model_cfg.head_dim, device)
+            if reason is not None:
+                raise ValueError(
+                    f"the contiguous attention kernels (K8/K9) under mesh "
+                    f"{mesh.shape} decline this shape on {device}: "
+                    f"{reason}")
+        elif impl == "flash":
             reason = kattn.contiguous_decline_reason(
                 MAX_PREFILL_CHUNK, model_cfg.head_dim,
                 model_cfg.num_heads // model_cfg.num_kv_heads, device)
@@ -609,19 +708,20 @@ class InferenceEngine:
                     logits = forward_cached(
                         self.params, self.cfg, tokens, positions,
                         self.kv.layers, index, offs_t, offs_t + lengths_t,
-                        last_pos=lengths_t - 1, lora=lora)
+                        last_pos=lengths_t - 1, lora=lora, mesh=self.mesh)
                 elif self.paged_direct:
                     logits = forward_paged(
                         self.params, self.cfg, tokens, positions,
                         self.kv.pools, index, offs_t + lengths_t,
                         last_pos=lengths_t - 1, scales=self.kv.scales,
-                        quant_spec=self.kv_quant_spec, lora=lora)
+                        quant_spec=self.kv_quant_spec, lora=lora,
+                        mesh=self.mesh)
                 else:
                     view = self._gather(index)
                     logits = forward_cached(
                         self.params, self.cfg, tokens, positions, view,
                         self._view_rows(index), offs_t, offs_t + lengths_t,
-                        last_pos=lengths_t - 1, lora=lora)
+                        last_pos=lengths_t - 1, lora=lora, mesh=self.mesh)
                     self._scatter(index, view)
             if not contiguous:
                 self._note_kv_quant("prefill", kernel=self.paged_direct)
@@ -934,7 +1034,7 @@ class InferenceEngine:
                     self.params, self.cfg, last.long()[:, None],
                     valid[:, None], self.kv.pools, table, valid + 1,
                     scales=self.kv.scales, quant_spec=self.kv_quant_spec,
-                    lora=lora)
+                    lora=lora, mesh=self.mesh)
             out = self._decode_segment(
                 step, first_token, start_valid, budget, temps, top_ks,
                 top_ps, row_budgets, done0, greedy=greedy, max_new=max_new)
@@ -949,7 +1049,7 @@ class InferenceEngine:
                 return forward_cached(self.params, self.cfg,
                                       last.long()[:, None], valid[:, None],
                                       view, rows, valid, valid + 1,
-                                      lora=lora)
+                                      lora=lora, mesh=self.mesh)
             out = self._decode_segment(
                 step, first_token, start_valid, budget, temps, top_ks,
                 top_ps, row_budgets, done0, greedy=greedy, max_new=max_new)
@@ -970,7 +1070,7 @@ class InferenceEngine:
             return forward_cached(self.params, self.cfg,
                                   last.long()[:, None], valid[:, None],
                                   self.kv.layers, slot_idx, valid,
-                                  valid + 1, lora=lora)
+                                  valid + 1, lora=lora, mesh=self.mesh)
         return self._decode_segment(step, first_token, start_valid, budget,
                                     temps, top_ks, top_ps, row_budgets,
                                     done0, greedy=greedy, max_new=max_new)
@@ -1039,7 +1139,7 @@ class InferenceEngine:
                 t["block_qstart"], t["query_offsets"], t["kv_valid"],
                 t["token_pages"], t["token_offs"], t["last_rows"],
                 scales=self.kv.scales, quant_spec=self.kv_quant_spec,
-                lora=self._lora_args(batch["token_adapter"]))
+                lora=self._lora_args(batch["token_adapter"]), mesh=self.mesh)
         self._note_kv_quant("ragged", kernel=True)
         if batch["greedy"]:
             nxt = torch.argmax(logits, dim=-1)
@@ -1265,11 +1365,13 @@ class InferenceEngine:
             "model": self.cfg.name,
             "params": self.num_params,
             "max_seq_len": self.max_seq_len,
+            "mesh": (self.mesh.shape if self.mesh is not None
+                     else {"data": 1, "model": 1}),
             "num_slots": self.kv.num_slots,
             "kv_layout": self.kv_layout,
             "quant": self.quant,
             "dtype": str(self.dtype).replace("torch.", ""),
-            "devices": [str(self.device)],
+            "devices": list(self._devices),
             "kv_hbm_bytes": self.kv.hbm_bytes(),
             "attention_kernels": kernels,
             "kernel_launches": {**kattn.launch_counts(),

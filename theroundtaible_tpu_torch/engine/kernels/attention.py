@@ -22,6 +22,20 @@ cache's (models/common's forward_cached):
   per row against the position-aligned cache; replaces the TPU kernel
   `ragged_decode_attention`.
 
+Under a (data, model) mesh of ranks (engine/sharding.py Mesh) the SPMD
+wrappers partition those kernels as the TPU package's shard_map wrappers
+do (K10): flash_attention_spmd (K8/K9), paged_decode_spmd (K1),
+paged_prefill_spmd (K2) and ragged_paged_spmd (K3). Each takes this
+rank's local tensors - its kv heads on "model", its rows on "data" - and
+the global head counts, applies the wrapped kernel's gate to the
+per-shard shapes, rebases a replica's page table to its local pages, and
+runs the same hand-written kernel on the shard (its plain version on the
+CPU). Attention is embarrassingly parallel over (row, kv head), so no
+wrapper has a collective; the o_proj all-reduce after it belongs to the
+forward. Each returns None where the TPU wrapper does (a head layout that
+does not partition, a data axis the call cannot split, a declined
+shard), with the reason from spmd_decline_reason.
+
 K8 and K9 take the JAX signature plus `rows`, a [B] int32 map from batch
 row to cache row: the engine passes its batch's slot ids, so the kernels
 read the slots in place from the [num_slots, S, K, D] cache. rows=None
@@ -62,7 +76,11 @@ from . import build
 KERNELS = ("paged_decode_attention", "paged_prefill_attention",
            "ragged_paged_attention", "flash_prefill_attention",
            "ragged_decode_attention")
-_launches = dict.fromkeys(KERNELS, 0)
+# K10's attention wrappers: a launch on a card counts here AND under the
+# kernel it ran.
+SPMD_WRAPPERS = ("flash_attention_spmd", "paged_decode_spmd",
+                 "paged_prefill_spmd", "ragged_paged_spmd")
+_launches = dict.fromkeys(KERNELS + SPMD_WRAPPERS, 0)
 
 # What the CUDA kernels take (csrc/paged_common.cuh kMaxGroup; the D and
 # page sizes each kernel is instantiated and tested for).
@@ -794,3 +812,288 @@ def ragged_decode_attention(q, k_cache, v_cache, kv_valid, *,
     build.check(rc, f"{what} launch")
     _launches[what] += 1
     return out
+
+
+# --- K10: the kernels under a (data, model) mesh ---
+
+
+def spmd_partitionable(num_heads: int, num_kv_heads: int,
+                       n_model: int) -> bool:
+    """Can the SPMD wrappers partition this head layout over an n_model-way
+    model axis? (The JAX package's rule, shared with the engine's
+    _resolve_attn.) True when q heads divide AND (kv heads divide, or
+    MQA's single kv head replicates)."""
+    if num_heads % n_model:
+        return False
+    return num_kv_heads % n_model == 0 or num_kv_heads == 1
+
+
+def _spmd_axes(mesh, h: int, kh: int, b: int):
+    """(batch_ax, head_ax, kv_head_ax) of a call over `mesh` (JAX
+    attention.py:547), or None when the head layout cannot partition.
+    `h`, `kh`, `b`: the GLOBAL head, kv-head and row counts."""
+    if not spmd_partitionable(h, kh, mesh.model):
+        return None
+    kv_head_ax = "model" if mesh.splits(kh) else None
+    batch_ax = "data" if mesh.splits(b, "data") else None
+    head_ax = "model" if mesh.splits(h) else None
+    return batch_ax, head_ax, kv_head_ax
+
+
+def spmd_decline_reason(kind: str, mesh, heads: tuple[int, int],
+                        batch: int, t: int, page_size: int, d: int,
+                        device, pool_replicas: int = 1) -> Optional[str]:
+    """Why the SPMD wrapper `kind` ("flash", "decode", "prefill",
+    "ragged") returns None for this call, or None when it serves it: the
+    TPU wrappers' partitioning rules on the global `heads` (H, K) and
+    `batch`, then the wrapped kernel's gate on the per-shard shapes (`t`
+    query rows, the pool's `page_size`, head dim `d`, the local GQA
+    group). The engine asks it at construction, the wrappers at every
+    call."""
+    h, kh = heads
+    if kind == "ragged" and mesh.data > 1:
+        return "mesh:data-axis"
+    axes = _spmd_axes(mesh, h, kh, batch)
+    if axes is None:
+        return "heads:model-axis"
+    batch_ax = axes[0]
+    if pool_replicas > 1 and (batch_ax != "data"
+                              or mesh.data != pool_replicas):
+        return (f"pool_replicas:{pool_replicas} needs rows split over a "
+                f"data axis of that size (data {mesh.data}, rows {batch})")
+    h_local, kh_local = mesh.local(h), mesh.local(kh)
+    group = h_local // kh_local
+    if kind == "flash":
+        return _decline("flash", t, 0, d, group, device) or (
+            _decline("rdecode", 1, 0, d, group, device))
+    rows = {"prefill": t, "decode": 1, "ragged": RAGGED_BLOCK_Q}[kind]
+    return _decline(kind, rows, page_size, d, group, device)
+
+
+def _spmd_local(what: str, mesh, heads, batch: Optional[int], q_rows: int,
+                h_local: int, kh_local: int) -> int:
+    """The global row count of a call (`batch`, required on a data axis),
+    after checking that the local tensors are the shard the mesh gives
+    this rank."""
+    if batch is None:
+        if mesh.data > 1:
+            raise ValueError(f"{what}: pass the global row count `batch` on "
+                             f"a mesh with a data axis")
+        batch = q_rows
+    if _spmd_axes(mesh, heads[0], heads[1], batch) is not None:
+        want = (mesh.local(batch, "data"), mesh.local(heads[0]),
+                mesh.local(heads[1]))
+        if (q_rows, h_local, kh_local) != want:
+            raise ValueError(
+                f"{what}: local (rows, heads, kv heads) "
+                f"{(q_rows, h_local, kh_local)} are not this rank's shard "
+                f"{want} of rows {batch}, heads {tuple(heads)} on mesh "
+                f"{mesh.shape}")
+    return batch
+
+
+def _spmd_count(name: str, q) -> None:
+    if q.device.type == "cuda":
+        _launches[name] += 1
+
+
+def _flash_spmd(mesh, q, k, v, offsets, kv_valid, *, heads, batch,
+                sliding_window, softcap, rows, plain: bool):
+    what = "flash_attention_spmd"
+    b, t, h_local, d = q.shape
+    batch = _spmd_local(what, mesh, heads, batch, b, h_local, k.shape[2])
+    if spmd_decline_reason("flash", mesh, heads, batch, t, 0, d,
+                           q.device) is not None:
+        return None
+    kw = dict(sliding_window=sliding_window, softcap=softcap, rows=rows)
+    if t > 1:
+        fn = flash_prefill_attention_ref if plain else flash_prefill_attention
+        out = fn(q, k, v, offsets, kv_valid, **kw)
+    else:
+        fn = ragged_decode_attention_ref if plain else ragged_decode_attention
+        out = fn(q, k, v, kv_valid, **kw)
+    if not plain:
+        _spmd_count(what, q)
+    return out
+
+
+def flash_attention_spmd(mesh, q, k, v, offsets, kv_valid, *, heads,
+                         batch: Optional[int] = None,
+                         sliding_window: Optional[int] = None,
+                         softcap: Optional[float] = None, rows=None):
+    """K8 (a chunk, T > 1) or K9 (one position) on this rank's shard
+    (JAX attention.py:570): q [B_l,T,H_l,D] and the caches [N,S,K_l,D]
+    hold this rank's rows and kv heads (MQA replicates its kv head),
+    `rows` maps batch rows to cache rows as in K8/K9. `heads` = global
+    (H, K); `batch` = global rows (needed on a data axis). Returns
+    [B_l,T,H_l,D], or None where the TPU wrapper returns None
+    (spmd_decline_reason)."""
+    return _flash_spmd(mesh, q, k, v, offsets, kv_valid, heads=heads,
+                       batch=batch, sliding_window=sliding_window,
+                       softcap=softcap, rows=rows,
+                       plain=q.device.type == "cpu")
+
+
+def flash_attention_spmd_ref(mesh, q, k, v, offsets, kv_valid, *, heads,
+                             batch: Optional[int] = None,
+                             sliding_window: Optional[int] = None,
+                             softcap: Optional[float] = None, rows=None):
+    """Plain version of flash_attention_spmd: K8/K9's plain versions on the
+    same local slices, on any device."""
+    return _flash_spmd(mesh, q, k, v, offsets, kv_valid, heads=heads,
+                       batch=batch, sliding_window=sliding_window,
+                       softcap=softcap, rows=rows, plain=True)
+
+
+def _rebase(mesh, table, k_pool, pool_replicas: int):
+    """A replica's page table in its local page range: the pool's page axis
+    is sharded over "data", so shard r holds global pages
+    [r * P_l, (r + 1) * P_l) (JAX: table - axis_index("data") *
+    per_replica)."""
+    if pool_replicas <= 1:
+        return table
+    return table - mesh.data_index * k_pool.shape[0]
+
+
+def _paged_spmd(kind: str, mesh, q, k_pool, v_pool, table, offsets,
+                kv_valid, *, heads, batch, sliding_window, softcap,
+                pool_replicas, k_scale, v_scale, kv_bits, plain: bool):
+    what = f"paged_{kind}_spmd"
+    b, t, h_local, d = q.shape
+    batch = _spmd_local(what, mesh, heads, batch, b, h_local,
+                        k_pool.shape[2])
+    if spmd_decline_reason(kind, mesh, heads, batch, t, k_pool.shape[1], d,
+                           q.device, pool_replicas) is not None:
+        return None
+    table = _rebase(mesh, table, k_pool, pool_replicas)
+    kw = dict(sliding_window=sliding_window, softcap=softcap,
+              k_scale=k_scale, v_scale=v_scale, kv_bits=kv_bits)
+    if kind == "decode":
+        fn = paged_decode_attention_ref if plain else paged_decode_attention
+        out = fn(q, k_pool, v_pool, table, kv_valid, **kw)
+    else:
+        fn = paged_prefill_attention_ref if plain else paged_prefill_attention
+        out = fn(q, k_pool, v_pool, table, offsets, kv_valid, **kw)
+    if not plain:
+        _spmd_count(what, q)
+    return out
+
+
+def paged_decode_spmd(mesh, q, k_pool, v_pool, table, kv_valid, *, heads,
+                      batch: Optional[int] = None,
+                      sliding_window: Optional[int] = None,
+                      softcap: Optional[float] = None,
+                      pool_replicas: int = 1, k_scale=None, v_scale=None,
+                      kv_bits: int = 8):
+    """K1 (with K4 on quantized pools) on this rank's shard (JAX
+    attention.py:806): q [B_l,1,H_l,D], pools [P_l,ps,K_l,D] (scale pools
+    split like them), table/kv_valid row-aligned with q. With
+    `pool_replicas` > 1 the pool's page axis is sharded over "data" and
+    each replica's rows reference only its own pages: the table is rebased
+    to the local range. Returns [B_l,1,H_l,D] or None
+    (spmd_decline_reason)."""
+    return _paged_spmd("decode", mesh, q, k_pool, v_pool, table, None,
+                       kv_valid, heads=heads, batch=batch,
+                       sliding_window=sliding_window, softcap=softcap,
+                       pool_replicas=pool_replicas, k_scale=k_scale,
+                       v_scale=v_scale, kv_bits=kv_bits,
+                       plain=q.device.type == "cpu")
+
+
+def paged_decode_spmd_ref(mesh, q, k_pool, v_pool, table, kv_valid, *,
+                          heads, batch: Optional[int] = None,
+                          sliding_window: Optional[int] = None,
+                          softcap: Optional[float] = None,
+                          pool_replicas: int = 1, k_scale=None,
+                          v_scale=None, kv_bits: int = 8):
+    """Plain version of paged_decode_spmd (K1's plain version on the same
+    local slices)."""
+    return _paged_spmd("decode", mesh, q, k_pool, v_pool, table, None,
+                       kv_valid, heads=heads, batch=batch,
+                       sliding_window=sliding_window, softcap=softcap,
+                       pool_replicas=pool_replicas, k_scale=k_scale,
+                       v_scale=v_scale, kv_bits=kv_bits, plain=True)
+
+
+def paged_prefill_spmd(mesh, q, k_pool, v_pool, table, offsets, kv_valid, *,
+                       heads, batch: Optional[int] = None,
+                       sliding_window: Optional[int] = None,
+                       softcap: Optional[float] = None,
+                       pool_replicas: int = 1, k_scale=None, v_scale=None,
+                       kv_bits: int = 8):
+    """K2 (with K4 on quantized pools) on this rank's shard (JAX
+    attention.py:464), partitioned as paged_decode_spmd. Returns
+    [B_l,T,H_l,D] or None (spmd_decline_reason)."""
+    return _paged_spmd("prefill", mesh, q, k_pool, v_pool, table, offsets,
+                       kv_valid, heads=heads, batch=batch,
+                       sliding_window=sliding_window, softcap=softcap,
+                       pool_replicas=pool_replicas, k_scale=k_scale,
+                       v_scale=v_scale, kv_bits=kv_bits,
+                       plain=q.device.type == "cpu")
+
+
+def paged_prefill_spmd_ref(mesh, q, k_pool, v_pool, table, offsets,
+                           kv_valid, *, heads, batch: Optional[int] = None,
+                           sliding_window: Optional[int] = None,
+                           softcap: Optional[float] = None,
+                           pool_replicas: int = 1, k_scale=None,
+                           v_scale=None, kv_bits: int = 8):
+    """Plain version of paged_prefill_spmd (K2's plain version on the same
+    local slices)."""
+    return _paged_spmd("prefill", mesh, q, k_pool, v_pool, table, offsets,
+                       kv_valid, heads=heads, batch=batch,
+                       sliding_window=sliding_window, softcap=softcap,
+                       pool_replicas=pool_replicas, k_scale=k_scale,
+                       v_scale=v_scale, kv_bits=kv_bits, plain=True)
+
+
+def _ragged_spmd(mesh, q, k_pool, v_pool, tables, seq_of_block, block_qstart,
+                 query_offsets, kv_valid, *, heads, sliding_window, softcap,
+                 k_scale, v_scale, kv_bits, plain: bool):
+    what = "ragged_paged_spmd"
+    t, h_local, d = q.shape
+    if mesh.data > 1:
+        return None
+    _spmd_local(what, mesh, heads, None, t, h_local, k_pool.shape[2])
+    if spmd_decline_reason("ragged", mesh, heads, t, RAGGED_BLOCK_Q,
+                           k_pool.shape[1], d, q.device) is not None:
+        return None
+    fn = ragged_paged_attention_ref if plain else ragged_paged_attention
+    out = fn(q, k_pool, v_pool, tables, seq_of_block, block_qstart,
+             query_offsets, kv_valid, sliding_window=sliding_window,
+             softcap=softcap, k_scale=k_scale, v_scale=v_scale,
+             kv_bits=kv_bits)
+    if not plain:
+        _spmd_count(what, q)
+    return out
+
+
+def ragged_paged_spmd(mesh, q, k_pool, v_pool, tables, seq_of_block,
+                      block_qstart, query_offsets, kv_valid, *, heads,
+                      sliding_window: Optional[int] = None,
+                      softcap: Optional[float] = None, k_scale=None,
+                      v_scale=None, kv_bits: int = 8):
+    """K3 (with K4 on quantized pools) on this rank's kv heads (JAX
+    attention.py:1266): q [T,H_l,D], pools [P,ps,K_l,D]; the flat buffer
+    and every metadata array are whole on every rank. Returns [T,H_l,D],
+    or None on a mesh with a data axis (a flat buffer mixing replicas'
+    rows cannot split) or where spmd_decline_reason declines."""
+    return _ragged_spmd(mesh, q, k_pool, v_pool, tables, seq_of_block,
+                        block_qstart, query_offsets, kv_valid, heads=heads,
+                        sliding_window=sliding_window, softcap=softcap,
+                        k_scale=k_scale, v_scale=v_scale, kv_bits=kv_bits,
+                        plain=q.device.type == "cpu")
+
+
+def ragged_paged_spmd_ref(mesh, q, k_pool, v_pool, tables, seq_of_block,
+                          block_qstart, query_offsets, kv_valid, *, heads,
+                          sliding_window: Optional[int] = None,
+                          softcap: Optional[float] = None, k_scale=None,
+                          v_scale=None, kv_bits: int = 8):
+    """Plain version of ragged_paged_spmd (K3's plain version on the same
+    local slices)."""
+    return _ragged_spmd(mesh, q, k_pool, v_pool, tables, seq_of_block,
+                        block_qstart, query_offsets, kv_valid, heads=heads,
+                        sliding_window=sliding_window, softcap=softcap,
+                        k_scale=k_scale, v_scale=v_scale, kv_bits=kv_bits,
+                        plain=True)

@@ -16,24 +16,35 @@ cache in place and attends through K8/K9 (`attn_impl == "flash"`) or the
 dense math, and paged_forward.forward_paged on the paged pool.
 
 Every weight product goes through one quant-aware seam, `_matmul` (the
-JAX package's `_einsum_base`): a dense weight is a torch.matmul, an int8
-{"q", "s"} dict (engine/quant.py) a torch.matmul on q in the working
-dtype with the per-output-channel scale applied to the product, and an
-Int4Leaf the w4a16 kernels K5/K6 (kernels/int4mm.py) at decode-sized
-products, by the plan the leaf was given when it was made, else its
-dequantized weight through torch.matmul (the JAX package's XLA path,
-which prefill always takes). MoE (`moe_mlp`) is not ported yet.
+JAX package's `_einsum_base`), and returns f32, as the JAX einsums'
+`preferred_element_type=f32` do: a dense weight is one 2-D product with an
+f32 result (`_dense`), an int8 {"q", "s"} dict (engine/quant.py) that
+product on q in the working dtype with the per-output-channel scale
+applied to it, and an Int4Leaf the w4a16 kernels K5/K6
+(kernels/int4mm.py) at decode-sized products, by the plan the leaf was
+given when it was made, else its dequantized weight through `_dense` (the
+JAX package's XLA path, which prefill always takes). Callers cast where
+the JAX package's callers cast: q/k/v after the Qwen2 bias, o_proj and
+down_proj after their all-reduce, the MLP's hidden after silu/gelu and the
+product; the head's logits stay f32. MoE (`moe_mlp`) is not ported yet.
 
 LoRA: the seam's call sites in `project_qkv`, `_o_proj` and `mlp` carry
 their target's name, as the JAX package's `_einsum(..., lora=key)` does
 (the head stays untagged). A forward given a LoraBatch (engine/lora.py)
-adds each row's adapter delta there (lora.apply_current), through the
-kernel K7 or the grouped einsums. The JAX einsum adds the f32 delta to its
-f32 result and rounds once; the port's dense product has already rounded
-to the working dtype, so a bf16 row with a delta rounds the base product
-once more (at most one bf16 ulp, a relative 2^-8; f32 is exact). A base
-row's delta is exactly zero and its product rounds to the same bits as
-without LoRA.
+adds each row's f32 adapter delta to the f32 product there
+(lora.apply_current), through the kernel K7 or the grouped einsums, and
+the caller rounds once, as the JAX einsum does.
+
+Tensor parallelism (`mesh`, an engine/sharding.Mesh with a model axis
+> 1): every rank holds its slice of the weights (sharding.shard_params)
+and of the cache, and the forward issues the collectives XLA inserts for
+the JAX package: the o_proj and down_proj partial sums are all-reduced in
+f32 before the cast (JAX l.424-425, l.464-465), the vocab-sharded
+embedding is a masked local lookup plus an all-reduce, and the
+vocab-sharded head's f32 logits are gathered along the vocab. A dimension
+the model axis does not divide is replicated and needs no collective.
+Attention runs through the K10 wrappers (kernels/attention.py
+flash_attention_spmd), or the dense math on the local heads.
 """
 
 from __future__ import annotations
@@ -220,14 +231,29 @@ def _n_contracted(spec: str) -> int:
     return sum(d in a_dims for d in b_dims)
 
 
+def _mm_f32(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """a [M, C] @ w [C, N] with an f32 result. On a card a bf16 GEMM writes
+    f32 (torch.mm's out_dtype, aten::mm.dtype): the JAX einsum's
+    preferred_element_type=f32, no rounding of the product. The CPU build
+    has no kernel for that, so there the operands widen to f32 first
+    (every bf16 product is exact in f32; the sums run in f32 either
+    way)."""
+    if a.dtype == torch.float32:
+        return torch.mm(a, w.float())
+    if a.is_cuda:
+        return torch.mm(a, w.to(a.dtype), out_dtype=torch.float32)
+    return torch.mm(a.float(), w.float())
+
+
 def _dense(spec: str, a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """torch.matmul of the call site's einsum in a's dtype."""
+    """The call site's einsum as one 2-D product, f32 result."""
     if spec == SPEC_HEAD:
-        return torch.matmul(a, w.t())
+        out = _mm_f32(a.reshape(-1, a.shape[-1]), w.t())
+        return out.reshape(*a.shape[:-1], w.shape[0])
     n = _n_contracted(spec)
     lead = a.shape[:a.dim() - n]
     c = math.prod(w.shape[:n])
-    out = torch.matmul(a.reshape(*lead, c), w.reshape(c, -1))
+    out = _mm_f32(a.reshape(-1, c), w.reshape(c, -1))
     return out.reshape(*lead, *w.shape[n:])
 
 
@@ -235,19 +261,14 @@ def _matmul(a: torch.Tensor, w, spec: str = SPEC_UP, lora=None,
             target: Optional[str] = None) -> torch.Tensor:
     """The weight product of the call site `spec` (SPEC_*), for a dense,
     int8 or int4 weight, plus the LoRA delta of `target` for the rows of
-    `lora` (a LoraBatch, engine/lora.py), added in f32.
-
-    A dense weight's result keeps the working dtype: a bf16 product
-    accumulates in f32 and rounds once, which is the JAX einsum's f32
-    result cast back to the working dtype - what most callers do next. A
-    quantized weight's result is f32, as the JAX einsum's: int8 scales the
-    product per output channel, int4 runs K5/K6 or the dequantized
-    weight. With a delta the result is f32. Callers cast to what they
-    need next."""
+    `lora` (a LoraBatch, engine/lora.py). The result is f32 for every
+    weight kind, as the JAX einsum's: int8 scales the f32 product per
+    output channel, int4 runs K5/K6 (f32 out) or the dequantized weight,
+    a delta is added in f32. Callers cast to what they need next."""
     if isinstance(w, Int4Leaf):
         y = _int4_matmul(spec, a, w)
     elif isinstance(w, dict):
-        y = _dense(spec, a, w["q"].to(a.dtype)).float() * w["s"].float()
+        y = _dense(spec, a, w["q"].to(a.dtype)) * w["s"].float()
     else:
         y = _dense(spec, a, w)
     if lora is not None:
@@ -265,7 +286,7 @@ def _int4_matmul(spec: str, a: torch.Tensor, leaf: Int4Leaf) -> torch.Tensor:
     if y is not None:
         return y
     w = dequant_int4(leaf.q4, leaf.s4, leaf.axis, leaf.group, a.dtype)
-    return _dense(spec, a, w).float()
+    return _dense(spec, a, w)
 
 
 def embed_tokens(emb, tokens: torch.Tensor) -> torch.Tensor:
@@ -280,6 +301,36 @@ def embed_tokens(emb, tokens: torch.Tensor) -> torch.Tensor:
     return emb[tokens]
 
 
+def _model_tp(mesh):
+    """`mesh` when it has a model axis to shard over, else None."""
+    return mesh if mesh is not None and mesh.model > 1 else None
+
+
+def _splits(n: int, mesh) -> bool:
+    """Whether the model axis of `mesh` (None: no mesh) shards a dimension
+    of n (sharding.Mesh.splits)."""
+    return mesh is not None and mesh.splits(n)
+
+
+def embed(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+          mesh=None) -> torch.Tensor:
+    """The scaled embedding rows of `tokens`. Under a mesh that shards the
+    vocab, each rank looks up the ids inside its slice of the table (zeros
+    for the rest) and one f32 all-reduce sums the rows - exact, since one
+    rank contributes each row."""
+    emb = params["embedding"]
+    if not _splits(cfg.vocab_size, mesh):
+        return scale_embeddings(embed_tokens(emb, tokens), cfg)
+    from ..distributed import all_reduce_sum
+    n = mesh.local(cfg.vocab_size)
+    local = tokens - mesh.model_index * n
+    inside = (local >= 0) & (local < n)
+    rows = embed_tokens(emb, torch.where(inside, local, 0))
+    part = torch.where(inside[..., None], rows.float(), 0.0)
+    return scale_embeddings(
+        all_reduce_sum(part, mesh.model_group).to(rows.dtype), cfg)
+
+
 def project_qkv(
     x: torch.Tensor,              # [B, T, E]
     layer: Params,
@@ -291,13 +342,15 @@ def project_qkv(
     """QKV projection + rope + query scaling. `rope_tabs`: the forward's
     rope_tables, shared by every layer; `lora`: the dispatch's
     LoraBatch."""
+    # f32 products; under a mesh this rank's heads (column-parallel, no
+    # collective)
     q = _matmul(x, layer["q_proj"], SPEC_QKV, lora, "q_proj")  # [B,T,H,D]
     k = _matmul(x, layer["k_proj"], SPEC_KV, lora, "k_proj")   # [B,T,K,D]
     v = _matmul(x, layer["v_proj"], SPEC_KV, lora, "v_proj")
     if cfg.attn_bias:  # Qwen2: linear bias applied BEFORE rotary (HF order)
-        q = q.float() + layer["q_bias"].float()
-        k = k.float() + layer["k_bias"].float()
-        v = v.float() + layer["v_bias"].float()
+        q = q + layer["q_bias"].float()
+        k = k + layer["k_bias"].float()
+        v = v + layer["v_bias"].float()
     if rope_tabs is None:
         rope_tabs = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
     q = rope(q.to(x.dtype), positions, cfg.rope_theta, rope_tabs)
@@ -309,13 +362,35 @@ def project_qkv(
     return q * scale, k, v
 
 
+def kv_head_index(cfg: ModelConfig, mesh, h_local: int,
+                  kh_local: int) -> Optional[torch.Tensor]:
+    """For dense attention on one rank's heads: the local kv head of each
+    local q head, where plain GQA repetition would pair them wrongly - q
+    heads sharded over the model axis while more than one kv head is
+    replicated (a kv-head count the axis does not divide). None where
+    repetition is right."""
+    if not _splits(cfg.num_heads, mesh) or kh_local == 1 \
+            or _splits(cfg.num_kv_heads, mesh):
+        return None
+    group = cfg.num_heads // cfg.num_kv_heads
+    first = mesh.model_index * h_local
+    return torch.arange(first, first + h_local) // group
+
+
 def dense_attend(q: torch.Tensor, k_all: torch.Tensor, v_all: torch.Tensor,
                  attn_mask: torch.Tensor, cfg: ModelConfig,
-                 dtype) -> torch.Tensor:
+                 dtype, kv_index: Optional[torch.Tensor] = None
+                 ) -> torch.Tensor:
     """softmax(QK^T)V of q [B,T,H,D] against k/v [B,S,K,D] under the
-    [B,T,S] mask, GQA by repeating kv heads; [B,T,H,D] in `dtype`."""
-    k_att = k_all.repeat_interleave(cfg.kv_repeat, dim=2)
-    v_att = v_all.repeat_interleave(cfg.kv_repeat, dim=2)
+    [B,T,S] mask, GQA by repeating kv heads (or by `kv_index`, the kv head
+    of each q head: kv_head_index); [B,T,H,D] in `dtype`."""
+    if kv_index is not None:
+        idx = kv_index.to(k_all.device)
+        k_att, v_att = k_all[:, :, idx], v_all[:, :, idx]
+    else:
+        repeat = q.shape[2] // k_all.shape[2]
+        k_att = k_all.repeat_interleave(repeat, dim=2)
+        v_att = v_all.repeat_interleave(repeat, dim=2)
     # f32 products of the working-dtype values, as the JAX einsums'
     # preferred_element_type=f32 gives
     logits = torch.einsum("bthd,bshd->bhts", q.float(), k_att.float())
@@ -337,10 +412,34 @@ def _kernels(plain: bool):
     return kattn.flash_prefill_attention, kattn.ragged_decode_attention
 
 
+def _flash_spmd(q, k_all, v_all, cfg: ModelConfig, offsets, kv_valid, mesh,
+                plain: bool = False, rows=None) -> Optional[torch.Tensor]:
+    """K8/K9 on this rank's shard (kernels/attention.flash_attention_spmd,
+    its plain version with `plain`); None where the wrapper declines."""
+    from ..kernels import attention as kattn
+    fn = (kattn.flash_attention_spmd_ref if plain
+          else kattn.flash_attention_spmd)
+    return fn(mesh, q, k_all, v_all, offsets, kv_valid,
+              heads=(cfg.num_heads, cfg.num_kv_heads),
+              sliding_window=cfg.sliding_window,
+              softcap=cfg.attn_logit_softcap, rows=rows)
+
+
 def _flash(q, k_all, v_all, cfg: ModelConfig, offsets, kv_valid,
-           plain: bool = False, rows=None) -> torch.Tensor:
+           plain: bool = False, rows=None, mesh=None) -> torch.Tensor:
     """JAX common.attention's flash branch: K8 for a chunk, K9 for one
-    position."""
+    position; under a mesh through flash_attention_spmd, which must serve
+    the call (the engine checked the shapes at construction)."""
+    if _model_tp(mesh) is not None:
+        out = _flash_spmd(q, k_all, v_all, cfg, offsets, kv_valid, mesh,
+                          plain, rows)
+        if out is None:
+            raise ValueError(
+                f"flash attention under mesh {mesh.shape} needs a head "
+                f"layout that partitions over the model axis (H="
+                f"{cfg.num_heads}, K={cfg.num_kv_heads}) and shards the "
+                f"kernels take")
+        return out
     prefill, decode = _kernels(plain)
     if q.shape[1] > 1:
         return prefill(q, k_all, v_all, offsets, kv_valid,
@@ -351,10 +450,22 @@ def _flash(q, k_all, v_all, cfg: ModelConfig, offsets, kv_valid,
                   softcap=cfg.attn_logit_softcap, rows=rows)
 
 
+def _row_parallel(y: torch.Tensor, n: int, mesh, dtype) -> torch.Tensor:
+    """A row-parallel product's f32 result in `dtype`: under a mesh that
+    shards its contraction (of n) the partial sums are all-reduced in f32
+    first, as the JAX einsum's f32 result is reduced before its cast."""
+    if _splits(n, mesh):
+        from ..distributed import all_reduce_sum
+        y = all_reduce_sum(y, mesh.model_group)
+    return y.to(dtype)
+
+
 def _o_proj(out: torch.Tensor, layer: Params, cfg: ModelConfig,
-            dtype, lora=None) -> torch.Tensor:
+            dtype, lora=None, mesh=None) -> torch.Tensor:
     """[B,T,H,D] attention output -> [B,T,E] in `dtype`."""
-    return _matmul(out, layer["o_proj"], SPEC_O, lora, "o_proj").to(dtype)
+    return _row_parallel(
+        _matmul(out, layer["o_proj"], SPEC_O, lora, "o_proj"),
+        cfg.num_heads, mesh, dtype)
 
 
 def attention(
@@ -368,13 +479,16 @@ def attention(
     rope_tabs=None,
     kv_valid: Optional[torch.Tensor] = None,  # [B] valid after the step
     lora=None,
+    mesh=None,
 ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
     """GQA attention over a position-aligned cache. Returns (output
     [B,T,E], updated (k_cache, v_cache)); the input cache is not modified.
     With kv_cache None the k/v of this call form the cache. With
     cfg.attn_impl "flash" and kv_valid given, K8/K9 attend (their plain
-    versions on the CPU), else the dense math. `lora`: the dispatch's
-    LoraBatch."""
+    versions on the CPU; under a mesh flash_attention_spmd, whose decline
+    takes the dense math on the CPU, as in JAX, and raises on a card),
+    else the dense math. `lora`: the
+    dispatch's LoraBatch; `mesh`: this rank's Mesh (tensor parallel)."""
     q, k, v = project_qkv(x, layer, cfg, positions, rope_tabs, lora)
     if kv_cache is not None:
         k_cache, v_cache = kv_cache[0].clone(), kv_cache[1].clone()
@@ -385,45 +499,61 @@ def attention(
             v_cache[row, off:off + t] = v[row]
     else:
         k_cache, v_cache = k, v
+    out = None
     if cfg.attn_impl == "flash" and kv_valid is not None:
-        out = _flash(q, k_cache, v_cache, cfg, positions[:, 0].contiguous(),
-                     kv_valid)
-    else:
-        out = dense_attend(q, k_cache, v_cache, attn_mask, cfg, x.dtype)
-    return _o_proj(out, layer, cfg, x.dtype, lora), (k_cache, v_cache)
+        offsets = positions[:, 0].contiguous()
+        if _model_tp(mesh) is not None and q.device.type == "cpu":
+            # JAX's attention() takes the dense math where
+            # flash_attention_spmd declines; on a card _flash raises
+            out = _flash_spmd(q, k_cache, v_cache, cfg, offsets, kv_valid,
+                              mesh)
+        else:
+            out = _flash(q, k_cache, v_cache, cfg, offsets, kv_valid,
+                         mesh=mesh)
+    if out is None:
+        out = dense_attend(q, k_cache, v_cache, attn_mask, cfg, x.dtype,
+                           kv_head_index(cfg, mesh, q.shape[2],
+                                         k_cache.shape[2]))
+    return _o_proj(out, layer, cfg, x.dtype, lora, mesh), (k_cache, v_cache)
 
 
 def mlp(x: torch.Tensor, layer: Params, cfg: ModelConfig,
-        lora=None) -> torch.Tensor:
+        lora=None, mesh=None) -> torch.Tensor:
+    """Gated MLP (JAX l.456-465): gate and up stay f32 through silu/gelu
+    and their product, the hidden is cast to x's dtype, down_proj's f32
+    result (all-reduced under a mesh that shards the hidden) is cast
+    last."""
     if cfg.num_experts:
         raise NotImplementedError(
             "MoE (moe_mlp) is not ported yet (ROADMAP, slice 7)")
-    gate = _matmul(x, layer["gate_proj"], SPEC_UP, lora, "gate_proj").float()
-    up = _matmul(x, layer["up_proj"], SPEC_UP, lora, "up_proj").float()
+    gate = _matmul(x, layer["gate_proj"], SPEC_UP, lora, "gate_proj")
+    up = _matmul(x, layer["up_proj"], SPEC_UP, lora, "up_proj")
     act = (F.gelu(gate, approximate="tanh") if cfg.gelu_mlp
            else F.silu(gate))
     hidden = (act * up).to(x.dtype)
-    return _matmul(hidden, layer["down_proj"], SPEC_DOWN, lora,
-                   "down_proj").to(x.dtype)
+    return _row_parallel(
+        _matmul(hidden, layer["down_proj"], SPEC_DOWN, lora, "down_proj"),
+        cfg.mlp_dim, mesh, x.dtype)
 
 
 def transformer_block(
     x: torch.Tensor, layer: Params, cfg: ModelConfig,
     positions: torch.Tensor, kv_cache, cache_offset, attn_mask,
     attn_fn: Optional[Callable] = None, rope_tabs=None, kv_valid=None,
-    lora=None,
+    lora=None, mesh=None,
 ) -> tuple[torch.Tensor, Any]:
     """One block. `attn_fn(h, layer) -> (out, cache)`, when given,
     replaces `attention` - the hook forward_cached and paged_forward use,
     so the norm/residual/MLP wiring and every family flag live in one
-    place (a hook applies `lora` itself). `lora`: the dispatch's
-    LoraBatch."""
+    place (a hook applies `lora` and `mesh` itself). `lora`: the
+    dispatch's LoraBatch; `mesh`: this rank's Mesh."""
     h = rms_norm(x, layer["input_norm"], cfg.norm_eps,
                  cfg.rmsnorm_unit_offset)
     if attn_fn is None:
         attn_out, new_cache = attention(h, layer, cfg, positions, kv_cache,
                                         cache_offset, attn_mask, rope_tabs,
-                                        kv_valid=kv_valid, lora=lora)
+                                        kv_valid=kv_valid, lora=lora,
+                                        mesh=mesh)
     else:
         attn_out, new_cache = attn_fn(h, layer)
     if cfg.post_attn_norm:
@@ -432,7 +562,7 @@ def transformer_block(
     x = x + attn_out
     h = rms_norm(x, layer["pre_mlp_norm"], cfg.norm_eps,
                  cfg.rmsnorm_unit_offset)
-    mlp_out = mlp(h, layer, cfg, lora)
+    mlp_out = mlp(h, layer, cfg, lora, mesh)
     if cfg.post_mlp_norm:
         mlp_out = rms_norm(mlp_out, layer["post_mlp_norm"], cfg.norm_eps,
                            cfg.rmsnorm_unit_offset)
@@ -459,11 +589,17 @@ def scale_embeddings(x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
                             dtype=torch.float32).to(x.dtype)
 
 
-def lm_head(params: Params, cfg: ModelConfig,
-            x: torch.Tensor) -> torch.Tensor:
-    """Final-normed hidden [B,T,E] -> f32 logits [B,T,V] (softcapped)."""
+def lm_head(params: Params, cfg: ModelConfig, x: torch.Tensor,
+            mesh=None) -> torch.Tensor:
+    """Final-normed hidden [B,T,E] -> f32 logits [B,T,V] (softcapped; JAX
+    l.591-593). Under a mesh that shards the vocab each rank's f32 logits
+    of its slice are gathered along the vocab (identical on every
+    rank)."""
     head = params["embedding"] if cfg.tie_embeddings else params["lm_head"]
-    logits = _matmul(x, head, SPEC_HEAD).float()
+    logits = _matmul(x, head, SPEC_HEAD)
+    if _splits(cfg.vocab_size, mesh):
+        from ..distributed import all_gather_cat
+        logits = all_gather_cat(logits, mesh.model_group, dim=-1)
     return _softcap(logits, cfg.final_logit_softcap)
 
 
@@ -476,12 +612,14 @@ def forward(
     kv_valid_len: torch.Tensor,    # [B] valid entries AFTER this step
     last_pos: Optional[torch.Tensor] = None,   # [B] row index into T
     lora=None,
+    mesh=None,
 ) -> tuple[torch.Tensor, list[tuple[torch.Tensor, torch.Tensor]]]:
     """Full model forward over a position-aligned cache. Returns (logits
     [B,T,V] - [B,1,V] when `last_pos` is given, gathered before the head -
     and the updated caches). `lora`: a LoraBatch with one adapter slot per
-    row."""
-    x = scale_embeddings(embed_tokens(params["embedding"], tokens), cfg)
+    row; `mesh`: this rank's Mesh, with `params` and the caches its
+    shards."""
+    x = embed(params, cfg, tokens, mesh)
     kv_len = (kv_caches[0][0].shape[1] if kv_caches is not None
               else tokens.shape[1])
     mask = make_attention_mask(positions, kv_len, kv_valid_len,
@@ -492,13 +630,14 @@ def forward(
         cache_i = kv_caches[i] if kv_caches is not None else None
         x, new_cache = transformer_block(x, layer, cfg, positions, cache_i,
                                          cache_offset, mask, rope_tabs=tabs,
-                                         kv_valid=kv_valid_len, lora=lora)
+                                         kv_valid=kv_valid_len, lora=lora,
+                                         mesh=mesh)
         new_caches.append(new_cache)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps,
                  cfg.rmsnorm_unit_offset)
     if last_pos is not None:
         x = gather_rows(x, last_pos)
-    return lm_head(params, cfg, x), new_caches
+    return lm_head(params, cfg, x, mesh), new_caches
 
 
 def _check_cached_write(rows: torch.Tensor, offsets: torch.Tensor, t: int,
@@ -533,6 +672,7 @@ def forward_cached(
     last_pos: Optional[torch.Tensor] = None,   # [B] row index into T
     plain: bool = False,
     lora=None,
+    mesh=None,
 ) -> torch.Tensor:
     """One serving step against the contiguous cache - a prefill chunk or a
     decode step; the counterpart of the JAX engine's prefill_step and
@@ -544,8 +684,9 @@ def forward_cached(
     dense masked softmax over the rows' gathered slots ("dense"). Where
     the JAX programs gather the batch's slots and scatter them back every
     call, nothing here copies a slot. `lora`: a LoraBatch with one adapter
-    slot per row. Returns f32 logits [B,T,V], or [B,1,V] when `last_pos`
-    is given (gathered before the head)."""
+    slot per row. `mesh`: this rank's Mesh - the caches hold its kv heads
+    and K8/K9 run through flash_attention_spmd. Returns f32 logits [B,T,V],
+    or [B,1,V] when `last_pos` is given (gathered before the head)."""
     if plain:
         params = plain_weights(params)
     n_rows, s = cache_layers[0][0].shape[:2]
@@ -558,7 +699,7 @@ def forward_cached(
     mask = (None if flash else
             make_attention_mask(positions, s, kv_valid, cfg.sliding_window))
     tabs = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
-    x = scale_embeddings(embed_tokens(params["embedding"], tokens), cfg)
+    x = embed(params, cfg, tokens, mesh)
     for layer, (k_cache, v_cache) in zip(params["layers"], cache_layers):
 
         def attn_fn(h, layer, k_cache=k_cache, v_cache=v_cache):
@@ -568,19 +709,21 @@ def forward_cached(
             v_cache[rows_l[:, None], write_pos] = v
             if flash:
                 out = _flash(q, k_cache, v_cache, cfg, offsets, kv_valid,
-                             plain=plain, rows=rows)
+                             plain=plain, rows=rows, mesh=mesh)
             else:
                 out = dense_attend(q, k_cache[rows_l], v_cache[rows_l],
-                                   mask, cfg, h.dtype)
-            return _o_proj(out, layer, cfg, h.dtype, lora), None
+                                   mask, cfg, h.dtype,
+                                   kv_head_index(cfg, mesh, q.shape[2],
+                                                 k_cache.shape[2]))
+            return _o_proj(out, layer, cfg, h.dtype, lora, mesh), None
 
         x, _ = transformer_block(x, layer, cfg, positions, None, None, None,
-                                 attn_fn=attn_fn, lora=lora)
+                                 attn_fn=attn_fn, lora=lora, mesh=mesh)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps,
                  cfg.rmsnorm_unit_offset)
     if last_pos is not None:
         x = gather_rows(x, last_pos)
-    return lm_head(params, cfg, x)
+    return lm_head(params, cfg, x, mesh)
 
 
 def gather_rows(x: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
@@ -593,13 +736,29 @@ def gather_rows(x: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
-                dtype=torch.bfloat16, device="cpu") -> Params:
+                dtype=torch.bfloat16, device="cpu", mesh=None) -> Params:
     """Random init with the JAX package's distributions (normal scaled by
     fan_in^-0.5, unit or zero norms, 0.02 biases), drawn in a fixed order
     from `generator` - the counterpart of the JAX key splits. The values
     differ from jax.random's; tests bridge weights instead
-    (engine/weights.py)."""
+    (engine/weights.py). Under a `mesh` every rank draws the same whole
+    tensors in the same order and keeps its slice of each
+    (sharding.shard_params): the shards of the weights one device would
+    draw from the same generator, with one whole layer alive at a
+    time."""
     device = torch.device(device)
+    if mesh is not None:
+        from ..sharding import param_specs, shard_leaf
+        specs = param_specs(cfg)
+
+        def keep(tree, spec):
+            return {k: shard_leaf(v, spec[k], mesh).clone()
+                    for k, v in tree.items()}
+    else:
+        specs = None
+
+        def keep(tree, spec):
+            return tree
 
     def normal(shape, scale):
         x = torch.randn(shape, generator=generator, dtype=torch.float32,
@@ -616,7 +775,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
             "MoE parameters are not ported yet (ROADMAP, slice 7)")
     e, h, k_, d, f = (cfg.embed_dim, cfg.num_heads, cfg.num_kv_heads,
                       cfg.head_dim, cfg.mlp_dim)
-    params: Params = {"embedding": normal((cfg.vocab_size, e), e ** -0.5)}
+    params: Params = keep(
+        {"embedding": normal((cfg.vocab_size, e), e ** -0.5)}, specs)
     layers = []
     for _ in range(cfg.num_layers):
         layer = {
@@ -638,11 +798,12 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
             layer["post_attn_norm"] = layer["input_norm"]
         if cfg.post_mlp_norm:
             layer["post_mlp_norm"] = layer["pre_mlp_norm"]
-        layers.append(layer)
+        layers.append(keep(layer, specs and specs["layers"][len(layers)]))
     params["layers"] = layers
     params["final_norm"] = norm(e)
     if not cfg.tie_embeddings:
-        params["lm_head"] = normal((cfg.vocab_size, e), e ** -0.5)
+        params.update(keep({"lm_head": normal((cfg.vocab_size, e),
+                                              e ** -0.5)}, specs))
     return params
 
 

@@ -24,6 +24,13 @@ row's adapter delta - one adapter slot per batch row in forward_paged, one
 per token of the flat buffer in forward_ragged (pads keep slot 0, the
 base).
 
+Tensor parallelism (`mesh`, an engine/sharding.Mesh with a model axis
+> 1): the pools hold this rank's kv heads and the kernels run through the
+K10 wrappers (kernels/attention.py paged_decode_spmd, paged_prefill_spmd,
+ragged_paged_spmd; JAX paged_forward.py:130-160, :336); the page tables
+and every index are the same on every rank. The block's collectives are
+models/common's.
+
 Write-exclusivity: the engine's ensure_capacity copy-on-writes any shared
 page in a row's write range before dispatch (the scheduler's
 _apply_share_plans does it at alias time), and distinct rows own their
@@ -41,10 +48,9 @@ import torch
 
 from .kernels import attention as kattn
 from .kv_quant import dequantize_cells, quantize_cells
-from .models.common import (ModelConfig, Params, _o_proj, embed_tokens,
+from .models.common import (ModelConfig, Params, _model_tp, _o_proj, embed,
                             gather_rows, lm_head, plain_weights, project_qkv,
-                            rms_norm, rope_tables, scale_embeddings,
-                            transformer_block)
+                            rms_norm, rope_tables, transformer_block)
 
 
 def _layer_scales(scales, quant_spec, n_layers: int) -> list:
@@ -56,6 +62,18 @@ def _layer_scales(scales, quant_spec, n_layers: int) -> list:
         raise ValueError("quantized pools need quant_spec and one scale "
                          "pair per layer")
     return list(scales)
+
+
+def _spmd(out, what: str, mesh, t: int, page_size: int):
+    """A K10 wrapper's output; its None fails loudly (the engine checked
+    the shapes at construction, so this is direct misuse)."""
+    if out is None:
+        raise ValueError(
+            f"{what} under mesh {mesh.shape} needs a head layout that "
+            f"partitions over the model axis and a shard the kernel takes "
+            f"(T={t}, page {page_size}); see "
+            f"kernels/attention.spmd_decline_reason")
+    return out
 
 
 def _write_kv(k_pool, v_pool, k_sc, v_sc, pages, offs, k, v, quant_spec):
@@ -86,6 +104,7 @@ def forward_paged(
     scales: Optional[list] = None,  # per-layer (k_s, v_s) [P,ps,K,G]
     quant_spec=None,                # kv_quant.KVQuantSpec with scales
     lora=None,                      # LoraBatch, one adapter slot per row
+    mesh=None,                      # this rank's sharding.Mesh
 ) -> torch.Tensor:
     """One serving step off the page pools - a decode step (T==1) or a
     prefill chunk - writing this call's K/V into `pools` (and `scales`) in
@@ -109,15 +128,33 @@ def forward_paged(
     offs = (positions % page_size).long()
     starts = positions[:, 0].contiguous()
     t = tokens.shape[1]
-    decode = (kattn.paged_decode_attention_ref if plain
-              else kattn.paged_decode_attention)
-    prefill = (kattn.paged_prefill_attention_ref if plain
-               else kattn.paged_prefill_attention)
+    tp = _model_tp(mesh)
+    if tp is not None:
+        heads = (cfg.num_heads, cfg.num_kv_heads)
+        spmd_decode = (kattn.paged_decode_spmd_ref if plain
+                       else kattn.paged_decode_spmd)
+        spmd_prefill = (kattn.paged_prefill_spmd_ref if plain
+                        else kattn.paged_prefill_spmd)
+
+        def decode(q, kp, vp, tb, valid, **kw):
+            return _spmd(spmd_decode(tp, q, kp, vp, tb, valid, heads=heads,
+                                     **kw),
+                         "paged_decode_spmd", tp, 1, page_size)
+
+        def prefill(q, kp, vp, tb, offs_, valid, **kw):
+            return _spmd(spmd_prefill(tp, q, kp, vp, tb, offs_, valid,
+                                      heads=heads, **kw),
+                         "paged_prefill_spmd", tp, q.shape[1], page_size)
+    else:
+        decode = (kattn.paged_decode_attention_ref if plain
+                  else kattn.paged_decode_attention)
+        prefill = (kattn.paged_prefill_attention_ref if plain
+                   else kattn.paged_prefill_attention)
 
     bits = quant_spec.bits if quant_spec is not None else 8
     layer_scales = _layer_scales(scales, quant_spec, len(pools))
     tabs = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
-    x = scale_embeddings(embed_tokens(params["embedding"], tokens), cfg)
+    x = embed(params, cfg, tokens, mesh)
     for layer, (k_pool, v_pool), (k_sc, v_sc) in zip(params["layers"], pools,
                                                      layer_scales):
 
@@ -134,15 +171,15 @@ def forward_paged(
             else:
                 out = prefill(q, k_pool, v_pool, table, starts, kv_valid_len,
                               **kw)
-            return _o_proj(out, layer, cfg, h.dtype, lora), None
+            return _o_proj(out, layer, cfg, h.dtype, lora, mesh), None
 
         x, _ = transformer_block(x, layer, cfg, positions, None, None, None,
-                                 attn_fn=attn_fn, lora=lora)
+                                 attn_fn=attn_fn, lora=lora, mesh=mesh)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps,
                  cfg.rmsnorm_unit_offset)
     if last_pos is not None:
         x = gather_rows(x, last_pos)
-    return lm_head(params, cfg, x)
+    return lm_head(params, cfg, x, mesh)
 
 
 def forward_ragged(
@@ -165,6 +202,7 @@ def forward_ragged(
     copy_src: Optional[torch.Tensor] = None,
     copy_dst: Optional[torch.Tensor] = None,
     lora=None,                      # LoraBatch, one adapter slot per token
+    mesh=None,                      # this rank's sharding.Mesh
 ) -> torch.Tensor:
     """One mixed prefill/decode step over the flat token buffer: each
     layer writes the buffer's K/V into the owning sequences' pages in place
@@ -189,11 +227,20 @@ def forward_ragged(
     pos2 = positions[None]
     pages = token_pages.long()
     offs = token_offs.long()
-    attend = (kattn.ragged_paged_attention_ref if plain
-              else kattn.ragged_paged_attention)
+    tp = _model_tp(mesh)
+    if tp is not None:
+        spmd = (kattn.ragged_paged_spmd_ref if plain
+                else kattn.ragged_paged_spmd)
+        heads = (cfg.num_heads, cfg.num_kv_heads)
+
+        def attend(q, kp, *args, **kw):
+            return _spmd(spmd(tp, q, kp, *args, heads=heads, **kw),
+                         "ragged_paged_spmd", tp, q.shape[0], kp.shape[1])
+    else:
+        attend = (kattn.ragged_paged_attention_ref if plain
+                  else kattn.ragged_paged_attention)
     tabs = rope_tables(pos2, cfg.head_dim, cfg.rope_theta)
-    x = scale_embeddings(embed_tokens(params["embedding"], tokens[None]),
-                         cfg)
+    x = embed(params, cfg, tokens[None], mesh)
     for layer, (k_pool, v_pool), (k_sc, v_sc) in zip(params["layers"], pools,
                                                      layer_scales):
 
@@ -208,13 +255,13 @@ def forward_ragged(
                          sliding_window=cfg.sliding_window,
                          softcap=cfg.attn_logit_softcap, k_scale=k_sc,
                          v_scale=v_sc, kv_bits=bits)
-            return _o_proj(out[None], layer, cfg, h.dtype, lora), None
+            return _o_proj(out[None], layer, cfg, h.dtype, lora, mesh), None
 
         x, _ = transformer_block(x, layer, cfg, pos2, None, None, None,
-                                 attn_fn=attn_fn, lora=lora)
+                                 attn_fn=attn_fn, lora=lora, mesh=mesh)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps,
                  cfg.rmsnorm_unit_offset)
-    return lm_head(params, cfg, x[:, last_rows.long()])[0]
+    return lm_head(params, cfg, x[:, last_rows.long()], mesh)[0]
 
 
 # --- the gather view (attn "dense" on the paged pool) ---

@@ -238,6 +238,11 @@ class SessionScheduler:
         if journal is not None:
             raise _not_ported("the session journal",
                               "slice 7: supervision")
+        if getattr(engine, "mesh", None) is not None:
+            # Admission decisions come from threads: the ranks of a mesh
+            # would need rank 0's plan broadcast at every dispatch.
+            raise _not_ported("the SessionScheduler on a mesh",
+                              "slice 7: the scheduler on a mesh")
         self.engine = engine
         self.admit_hold_s = admit_hold_s
         self.max_rows = min(max_rows or engine.kv.num_slots,

@@ -9,9 +9,16 @@ Quantized trees (the JAX engine's params after quantize_params) bridge
 too: an int8 {"q", "s"} dict keeps its payload as torch.int8 and its
 scales in `dtype`, and the JAX package's Int4Leaf (any object with q4, s4,
 axis and group) becomes the port's models/common.Int4Leaf, planned for its
-call site (kernels/int4mm.plan_leaf)."""
+call site (kernels/int4mm.plan_leaf).
+
+Under a mesh (`mesh`, an engine/sharding.Mesh) each rank keeps its slice of
+every leaf (sharding.shard_params: the JAX package's param_specs), so the
+ranks of a tensor-parallel engine together hold the same weights as the
+JAX engine sharded over the same mesh."""
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -35,6 +42,15 @@ def expected_shapes(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
     if cfg.post_mlp_norm:
         shapes["post_mlp_norm"] = (e,)
     return shapes
+
+
+def dense_param_count(cfg: ModelConfig) -> int:
+    """Parameters of an unquantized tree of `cfg` (models/common
+    param_count's count), from its shapes."""
+    per_layer = sum(math.prod(s) for s in expected_shapes(cfg).values())
+    heads = 1 if cfg.tie_embeddings else 2
+    return (cfg.num_layers * per_layer + heads * cfg.vocab_size
+            * cfg.embed_dim + cfg.embed_dim)
 
 
 def _tensor(x, shape, name: str, dtype, device) -> torch.Tensor:
@@ -80,16 +96,21 @@ def _leaf(x, shape, name: str, dtype, device):
 
 
 def params_from_numpy(tree: dict, cfg: ModelConfig, dtype=torch.bfloat16,
-                      device="cpu") -> Params:
+                      device="cpu", mesh=None) -> Params:
     """The port's parameters from `jax.device_get(engine.params)`, dense or
-    quantized. Raises on a missing leaf or a shape that disagrees with
-    `cfg`."""
+    quantized; under `mesh` this rank's slices of the dense leaves
+    (quantized leaves under a mesh raise NotImplementedError). Raises on a
+    missing leaf or a shape that disagrees with `cfg`."""
     if cfg.num_experts:
         raise NotImplementedError(
             "MoE weights are not ported yet (ROADMAP, slice 7)")
     if len(tree["layers"]) != cfg.num_layers:
         raise ValueError(f"tree has {len(tree['layers'])} layers, config "
                          f"{cfg.num_layers}")
+    if mesh is not None and mesh.model > 1:
+        from .sharding import local_config, shard_params
+        tree = shard_params(tree, cfg, mesh)
+        cfg = local_config(cfg, mesh)
     vocab = (cfg.vocab_size, cfg.embed_dim)
     out: Params = {
         "embedding": _leaf(tree["embedding"], vocab, "embedding", dtype,
