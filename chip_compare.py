@@ -3,7 +3,7 @@
 one NVIDIA card, in one run - to compare a change with its parent on the
 same card under the same power limit.
 
-    python3 chip_compare.py DIR [DIR ...]
+    python3 chip_compare.py [--kernels | --k5-splits] DIR [DIR ...]
 
 Each DIR is a checkout (or `git archive`) holding chip_smoke.py and
 theroundtaible_tpu_torch/. For each DIR, in the order given, a fresh
@@ -17,6 +17,19 @@ and runs its single-device phases at Llama-3-8B width, 32 layers:
 - lora_round, lora_profile: the LoRA engine's two rounds (three personas)
   and its profiled call.
 
+With --kernels each run builds the kernels and runs only the quant_kernels
+phase instead: K4 in K1-K3, K5 at the five decode projections and K6 at
+the head, each timed with CUDA events; the summary holds K5's time for one
+layer's seven products and K6's.
+
+With --k5-splits each run builds the kernels and times K5 alone at the
+per-rank column shards of K10e on a 2-way model axis at Llama-3-8B width
+(q_proj, k_proj/v_proj, gate_proj/up_proj; 3 decode rows): each shard with
+the C splits chosen for its own width and with those chosen for the whole
+weight's width, beside K5 on the whole weight: the three launches
+interleaved, each time the median of 300 CUDA-event timings of one launch
+with L2 flushed (and the medians of each half of them).
+
 Each phase's JSON line is printed as `{"run": i, "dir": DIR, ...}`; the
 last line is one JSON object `{"card": ..., "runs": [...]}` with each
 run's decode ms per step, prefill seconds and profiled wall and device
@@ -27,6 +40,7 @@ chiprun_out/chip_compare/ under the current directory.
 
 from __future__ import annotations
 
+import functools
 import json
 import subprocess
 import sys
@@ -37,8 +51,62 @@ OUT = Path("chiprun_out") / "chip_compare"
 RUN_TIMEOUT_S = 900
 
 
-def child(root: str) -> None:
-    """One checkout's single-device phases, in this process."""
+def k5_splits_phase(torch, cs, reps: int = 300) -> None:
+    """K5 at K10e's column shards with the shard's own C splits and with
+    the whole weight's (see the module docstring)."""
+    import statistics
+    from theroundtaible_tpu_torch.engine.kernels import int4mm
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(0)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    sms = int4mm._sm_count(0)
+    gp = cs.INT4_GROUP // 2
+    out = {}
+    for name, width in (("q_proj", 4096), ("k_proj/v_proj", 1024),
+                        ("gate_proj/up_proj", 14336)):
+        x = torch.randn(3, 4096, generator=gen, device=dev).to(bf16)
+        q4, s4 = cs.int4_weight(torch, gen, (4096, width), dev)
+        half = width // 4      # packed columns of one of two shards
+        q4_l = q4[:, :half].contiguous()
+        s4_l = s4[:, :half // gp].contiguous()
+        splits = {"own": int4mm.out_splits(4096, half, sms),
+                  "whole": int4mm.out_splits(4096, 2 * half, sms)}
+        calls = {k: functools.partial(int4mm._launch_pack_out, x, q4_l,
+                                      s4_l, gp, n)
+                 for k, n in splits.items()}
+        calls["whole_weight"] = functools.partial(
+            int4mm._launch_pack_out, x, q4, s4, gp, splits["whole"])
+        times = {k: [] for k in calls}
+        for fn in calls.values():
+            fn()
+        for rep in range(reps):   # interleaved, the order turning each rep
+            names = list(calls)
+            for k in names[rep % 3:] + names[:rep % 3]:
+                flush.zero_()
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                calls[k]()
+                end.record()
+                end.synchronize()
+                times[k].append(start.elapsed_time(end))
+        own, whole = calls["own"](), calls["whole"]()
+        out[name] = {
+            "shard_weight": [4096, 2 * half], "splits": splits,
+            "col_tiles": -(-half // 512),
+            **{f"ms_{k}": statistics.median(v) for k, v in times.items()},
+            **{f"ms_{k}_halves": [statistics.median(v[:reps // 2]),
+                                  statistics.median(v[reps // 2:])]
+               for k, v in times.items()},
+            "max_abs_diff": float((own - whole).abs().max()),
+            "bit_identical": bool(torch.equal(own, whole))}
+    cs.emit("k5_splits", sms=sms, reps=reps, shards=out)
+
+
+def child(root: str, kernels: bool = False, splits: bool = False) -> None:
+    """One checkout's single-device phases (or, with `kernels`, its
+    quant_kernels phase; with `splits`, k5_splits_phase), in this
+    process."""
     sys.path[0] = root              # that checkout's chip_smoke and package
     import gc
 
@@ -52,6 +120,12 @@ def child(root: str) -> None:
     t0 = time.monotonic()
     build.build_all()
     cs.emit("build", seconds=time.monotonic() - t0)
+    if kernels:
+        cs.quant_kernels_phase(torch, kattn)
+        return
+    if splits:
+        k5_splits_phase(torch, cs)
+        return
 
     def release(engine):
         reset_engines()
@@ -62,9 +136,10 @@ def child(root: str) -> None:
     _, engine, reference = cs.engine_phase(torch, kattn)
     cs.profile_phase(torch, engine)
     release(engine)
-    _, engine = cs.quant_engine_phase(torch, kattn, "quant_int8", reference)
+    # [1]: the engine (later trees also return their rounds)
+    engine = cs.quant_engine_phase(torch, kattn, "quant_int8", reference)[1]
     release(engine)
-    _, engine = cs.lora_round_phase(torch, reference)
+    engine = cs.lora_round_phase(torch, reference)[1]
     cs.profile_phase(torch, engine, phase="lora_profile",
                      adapters=list(cs.KNIGHT_ADAPTERS.values()))
     release(engine)
@@ -84,6 +159,15 @@ def summarize(phases: list[dict]) -> dict:
         p = by.get(name, [None])[0]
         return p and {"wall_ms": p["wall_ms"], "device_ms": p["device_ms"]}
 
+    if "k5_splits" in by:
+        return {"k5_splits": by["k5_splits"][0]["shards"]}
+    w4 = by.get("quant_kernels", [{}])[0].get("w4a16")
+    if w4:
+        return {"k5_layer_ms": sum(t["ms"] * t["per_layer"]
+                                   for n, t in w4.items() if n != "lm_head"),
+                "k6_ms": w4["lm_head"]["ms"],
+                "k5_ms": {n: t["ms"] for n, t in w4.items()
+                          if n != "lm_head"}}
     return {"round": rounds("round"), "profile": profile("profile"),
             "quant_int8": rounds("quant_int8"),
             "quant_int8_profile": profile("quant_int8_profile"),
@@ -91,7 +175,7 @@ def summarize(phases: list[dict]) -> dict:
             "lora_profile": profile("lora_profile")}
 
 
-def main(dirs: list[str]) -> int:
+def main(dirs: list[str], mode: list[str]) -> int:
     OUT.mkdir(parents=True, exist_ok=True)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -103,7 +187,8 @@ def main(dirs: list[str]) -> int:
         for i, root in enumerate(dirs):
             root = str(Path(root).resolve())
             proc = subprocess.run(
-                [sys.executable, __file__, "--child", root], cwd=root,
+                [sys.executable, __file__, "--child", root] + mode,
+                cwd=root,
                 capture_output=True, text=True, timeout=RUN_TIMEOUT_S)
             (OUT / f"run{i}.err").write_text(proc.stderr)
             phases = []
@@ -127,9 +212,13 @@ def main(dirs: list[str]) -> int:
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--child"]:
-        child(sys.argv[2])
+        child(sys.argv[2], kernels="--kernels" in sys.argv[3:],
+              splits="--k5-splits" in sys.argv[3:])
         sys.exit(0)
-    if len(sys.argv) < 2:
+    args = sys.argv[1:]
+    modes = [a for a in args if a in ("--kernels", "--k5-splits")]
+    dirs = [a for a in args if a not in modes]
+    if not dirs or len(modes) > 1:
         print(__doc__, file=sys.stderr)
         sys.exit(2)
-    sys.exit(main(sys.argv[1:]))
+    sys.exit(main(dirs, modes))

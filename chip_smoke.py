@@ -114,16 +114,25 @@ Phases, each printing one JSON line; any failure exits non-zero:
              PATH_TOL), and one decode step of an int8 store (grouped
              einsums) against K7 on its dequantized values.
 
-20. tp_kernels - two ranks spawned on the card (engine/distributed.launch,
-             backend gloo, the kernels built beforehand by this process):
-             the SPMD wrappers K10a-d (flash_attention_spmd over K8/K9,
+The tensor-parallel phases run on two ranks sharing the card
+(engine/distributed.launch, backend gloo, the kernels built beforehand by
+this process), spawned three times: phases 20 and 24, then 21 and 25 (the
+five 32-layer TP engines one after another, each freed before the next),
+then 22 and 23.
+
+20. tp_kernels - the SPMD wrappers K10a-d (flash_attention_spmd over K8/K9,
              paged_decode_spmd over K1, paged_prefill_spmd over K2,
              ragged_paged_spmd over K3; K10b/c also on int8 and int4 pages)
              on each rank's half of the kernels phase's heads (H=16, K=4,
              same rows, chunks and kv_valid), each against its plain
              version (KERNEL_TOL) and, bit for bit, against the
-             single-device kernel's output on the full heads; CUDA-event times per rank (one rank at a time),
-             the per-shard bound and SDPA on the per-shard gathered view.
+             single-device kernel's output on the full heads; CUDA-event
+             times per rank (one rank at a time), the per-shard bound and
+             SDPA on the per-shard gathered view. Then K10b/c's
+             pool_replicas branch on a {"data": 2, "model": 1} mesh of the
+             same ranks: 4 rows, each replica's pages in its half of the
+             pool, against the plain version and the single-device kernel
+             on the replica's rows.
 21. tp_round, tp_contiguous_round - the engine phase's config plus
              `"mesh": {"data": 1, "model": 2}` (then minus `kv_layout`) on
              two ranks, 32 layers: warmup() and the two rounds; K10b/c and
@@ -142,8 +151,34 @@ Phases, each printing one JSON line; any failure exits non-zero:
              forward_ragged under TP=2 (K10d over K3) against its plain
              version, forward_paged under TP=2 and the single-device
              forward_ragged.
+24. tp_quant_kernels - K10e (einsum_int4_spmd over K5/K6) at the six
+             per-shard products of Llama-3-8B on 2 ranks (q [4096,16,128],
+             k/v [4096,4,128], o [16,128,4096], gate/up [4096,7168], down
+             [7168,4096], the untied head [64128,4096]; 3 rows, int4
+             groups of 64) and K10f (lora_bgmv_spmd over K7) at the seven
+             targets (3 rows of 3 personas, rank 8) on each rank's half:
+             each against its plain version (KERNEL_TOL), a column
+             product against its slice of the single-device kernel's
+             output (K10f bit for bit; K10e within KERNEL_TOL, as K5
+             splits C by the shard's own width), a row product's
+             all-reduced partial sums against that output (KERNEL_TOL);
+             times per rank, one rank at
+             a time, beside the per-shard bound and the library call per
+             shard (torch.matmul on the rank's pre-dequantized weight; the
+             grouped einsums).
+25. tp_quant_int8, tp_quant_int4, tp_lora_round - the quant_int8 and
+             quant_int4 configs and lora_round's (the `lora:` block and
+             knight_adapters) plus `"mesh": {"data": 1, "model": 2}`, 32
+             layers: warmup() and the two rounds; K10b/c with K1/K2 on the
+             pool must launch on every rank, K10e with K5/K6 on int4 and
+             K10f with K7 under personas, nothing else's kernels, and both
+             ranks must return the same tokens. Prefill seconds, decode ms
+             per step, peak memory and collectives per rank beside this
+             run's single-device rounds of the same config, and each
+             knight's greedy agreement with them (reported).
 
-Run time: ~9 minutes on an H100 with the build; no earlier phase was cut.
+Run time: 570 s on an H100 80GB HBM3 at 700 W with the build; no earlier
+phase was cut.
 
 Then a `{"kernels": [...]}` line, the nvidia-smi line, and last
 `{"ok": true, "device": {...}}`. Details go to chiprun_out/chip_smoke/.
@@ -178,10 +213,15 @@ PATH_TOL = 5e-2
 SEED = 0
 
 
+_T0 = time.monotonic()
+
+
 def emit(phase: str, **fields) -> None:
     """One phase's JSON line on stdout, and appended to
-    chiprun_out/chip_smoke/phases.jsonl (stdout's head can be cut)."""
-    line = json.dumps({"phase": phase, **fields})
+    chiprun_out/chip_smoke/phases.jsonl (stdout's head can be cut), with
+    the seconds since the process started."""
+    line = json.dumps({"phase": phase, **fields,
+                       "elapsed_s": time.monotonic() - _T0})
     if _IN_RANK:    # a spawned rank: the parent prints (tp_launch)
         _CAPTURE.append(json.loads(line))
         return
@@ -1576,7 +1616,10 @@ def quant_engine_phase(torch, kattn, phase, reference):
          kv_quant=engine.kv_quant_describe()["dispatches"],
          int4_paths=paths, launches=totals)
     profile_phase(torch, engine, phase=f"{phase}_profile")
-    return totals, engine
+    return totals, engine, {
+        "prefill_s": [stats[r]["prefill_seconds"] for r in (1, 2)],
+        "decode_ms_per_step": [decode_ms_per_step(stats[r]) for r in (1, 2)],
+        "generated": generated}
 
 
 def quant_path_phase(torch, cfg):
@@ -1897,7 +1940,10 @@ def lora_round_phase(torch, reference):
          lora_paths={p: sorted({(e["leaf"], e["rows"]) for e in v})
                      for p, v in paths.items()},
          launches=totals)
-    return totals, engine
+    return totals, engine, {
+        "prefill_s": [stats[r]["prefill_seconds"] for r in (1, 2)],
+        "decode_ms_per_step": [decode_ms_per_step(stats[r]) for r in (1, 2)],
+        "generated": generated}
 
 
 def lora_path_phase(torch, cfg):
@@ -2021,27 +2067,33 @@ _CAPTURE: list = []
 _IN_RANK = False
 
 
-def tp_launch(phase, *args):
-    """`phase` (a tp_* function below, by name) on 2 spawned ranks sharing
-    cuda:0 over gloo. Returns each rank's (result, captured lines); a
-    failing rank raises here (distributed.RankFailed)."""
+def tp_launch(*calls):
+    """`calls` - (name of a tp_* rank function below, its arguments) - one
+    after another on 2 ranks spawned once, sharing cuda:0 over gloo (a
+    spawn and its ranks' CUDA start cost seconds each). Returns, per call,
+    each rank's (result, captured lines); a failing rank raises here
+    (distributed.RankFailed)."""
     from theroundtaible_tpu_torch.engine import distributed
-    return distributed.launch(tp_rank, 2, TP_BACKEND, "cuda:0",
-                              args=(phase, args), timeout_s=900)
+    ranks = distributed.launch(tp_rank, 2, TP_BACKEND, "cuda:0",
+                               args=(calls,), timeout_s=1100)
+    return [[r[i] for r in ranks] for i in range(len(calls))]
 
 
-def tp_rank(rank, phase, args):
-    """A spawned rank: run the phase function `phase`, capturing what it
+def tp_rank(rank, calls):
+    """A spawned rank: run each call's phase function, capturing what it
     emits."""
     global _IN_RANK
     import torch
     sys.path.insert(0, str(ROOT))
     _IN_RANK = True
-    _CAPTURE.clear()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    result = globals()[phase](torch, rank, *args)
-    return result, list(_CAPTURE)
+    out = []
+    for phase, args in calls:
+        _CAPTURE.clear()
+        result = globals()[phase](torch, rank, *args)
+        out.append((result, list(_CAPTURE)))
+    return out
 
 
 def tp_mesh():
@@ -2253,12 +2305,60 @@ def tp_kernels_rank(torch, rank):
         2 * sum(lengths_l) * (H // 2) * D * 2
         + cells * (K // 2) * D * 2 * 2,
         pairs * (H // 2) * D * 4)
+    del kc, vc, kcl, vcl
+    replica_cases(torch, kattn, rank, gen, check_case)
     torch.cuda.synchronize()
     return {"errs": errs, "timing": timing}
 
 
-def tp_kernels_phase(torch):
-    ranks = tp_launch("tp_kernels_rank")
+def replica_cases(torch, kattn, rank, gen, check_case):
+    """K10b/c's pool_replicas branch on a {"data": 2, "model": 1} mesh of
+    the same two ranks: 4 rows, 2 per replica, each replica's pages in its
+    own half of a 2-replica pool (page ids global in the table, rebased by
+    the wrapper to the rank's local half); all 32/8 heads on each rank.
+    Each replica's K1/K2 output against its plain version and, bit for
+    bit, against the single-device kernel on that replica's rows of the
+    whole pool."""
+    from theroundtaible_tpu_torch.engine.sharding import Mesh
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    mesh = Mesh(2, 1, rank)
+    H, K, D, ps, S = 32, 8, 128, 128, 2048
+    heads = (H, K)
+    pools = [make_pool(torch, gen, 2, S, K, D, ps, bf16, dev)
+             for _ in range(2)]
+    per = pools[0][0].shape[0]
+    k_pool = torch.cat([p[0] for p in pools])
+    v_pool = torch.cat([p[1] for p in pools])
+    table = torch.cat([pools[0][2], pools[1][2] + per])
+    valid = torch.tensor([1600, 1650, 1700, 1750], dtype=torch.int32,
+                         device=dev)
+    poison_past_frontier(k_pool, v_pool, table, valid, ps)
+    local = slice(2 * rank, 2 * rank + 2)
+    kp, vp = k_pool[rank * per:(rank + 1) * per], \
+        v_pool[rank * per:(rank + 1) * per]
+    kw = dict(heads=heads, batch=4, pool_replicas=2)
+    q = (torch.randn(4, 1, H, D, generator=gen, device=dev)
+         * D ** -0.5).to(bf16)
+    full = kattn.paged_decode_attention(q, k_pool, v_pool, table, valid)
+    args = (mesh, q[local].contiguous(), kp, vp, table[local].contiguous(),
+            valid[local].contiguous())
+    check_case("paged_decode_spmd:replicas",
+               kattn.paged_decode_spmd(*args, **kw),
+               kattn.paged_decode_spmd_ref(*args, **kw), full[local])
+    T = 256
+    offsets = valid - T
+    q = (torch.randn(4, T, H, D, generator=gen, device=dev)
+         * D ** -0.5).to(bf16)
+    full = kattn.paged_prefill_attention(q, k_pool, v_pool, table, offsets,
+                                         valid)
+    args = (mesh, q[local].contiguous(), kp, vp, table[local].contiguous(),
+            offsets[local].contiguous(), valid[local].contiguous())
+    check_case("paged_prefill_spmd:replicas",
+               kattn.paged_prefill_spmd(*args, **kw),
+               kattn.paged_prefill_spmd_ref(*args, **kw), full[local])
+
+
+def tp_kernels_phase(ranks):
     per_rank = [r for r, _ in ranks]
     emit("tp_kernels", backend=TP_BACKEND, mesh=TP_MESH, tolerance=KERNEL_TOL,
          shapes={"H_per_rank": 16, "K_per_rank": 4, "D": 128, "ps": 128},
@@ -2266,13 +2366,20 @@ def tp_kernels_phase(torch):
     return per_rank
 
 
+_COLLECTIVES: dict = {}
+
+
 def time_collectives(torch):
-    """Wrap the forward's two collectives (engine/distributed.py) to add
-    up, per call, the host's wait for the card's queued work (the gloo
-    path's host copy waits for it anyway) and the collective itself.
-    Returns the running totals."""
+    """Wrap the forward's two collectives (engine/distributed.py), once per
+    process, to add up, per call, the host's wait for the card's queued
+    work (the gloo path's host copy waits for it anyway) and the
+    collective itself. Returns the running totals: a phase reads their
+    change over its rounds."""
     from theroundtaible_tpu_torch.engine import distributed
-    totals = {"calls": 0, "device_wait_s": 0.0, "collective_s": 0.0}
+    if _COLLECTIVES:
+        return _COLLECTIVES
+    totals = _COLLECTIVES
+    totals.update(calls=0, device_wait_s=0.0, collective_s=0.0)
 
     def timed(fn):
         def call(*args, **kwargs):
@@ -2307,6 +2414,8 @@ def tp_round_rank(torch, rank, layout):
     else:
         required = TP_KERNELS[1:3] + PAGED_KERNELS[:2]
         forbidden = CONTIGUOUS_KERNELS + TP_KERNELS[:1]
+    gc.collect()
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     adapter = TorchLlmAdapter.from_config("torch-llm-llama3", config)
     t0 = time.monotonic()
@@ -2319,6 +2428,7 @@ def tp_round_rank(torch, rank, layout):
     warm_s = engine.warmup()
     phase = "tp_round" if layout == "paged" else "tp_contiguous_round"
     collectives = time_collectives(torch)
+    before = dict(collectives)
     t0 = time.monotonic()
     totals, generated, stats = serve_rounds(
         torch, kattn, adapter, engine, phase, required=required,
@@ -2333,19 +2443,20 @@ def tp_round_rank(torch, rank, layout):
            "prefill_s": [stats[r]["prefill_seconds"] for r in (1, 2)],
            "decode_ms_per_step": [decode_ms_per_step(stats[r])
                                   for r in (1, 2)],
-           "rounds_s": rounds_s, "collectives": collectives,
+           "rounds_s": rounds_s,
+           "collectives": {k: collectives[k] - before[k]
+                           for k in collectives},
            "launches": totals, "generated": generated}
     from theroundtaible_tpu_torch.engine import reset_engines
     reset_engines()
     return out
 
 
-def tp_round_phase(torch, layout, single):
+def tp_round_phase(ranks, layout, single):
     """Both ranks' rounds: identical tokens on both ranks (checked), beside
     the single-device rounds of the same layout in this run (prefill
     seconds, decode ms per step, greedy agreement: reported)."""
     phase = "tp_round" if layout == "paged" else "tp_contiguous_round"
-    ranks = tp_launch("tp_round_rank", layout)
     outs = [r for r, _ in ranks]
     check(outs[0]["generated"] == outs[1]["generated"],
           f"{phase}: the two ranks returned different tokens")
@@ -2455,8 +2566,7 @@ def tp_path_rank(torch, rank):
             "launches": launches_now()}
 
 
-def tp_path_phase(torch):
-    ranks = tp_launch("tp_path_rank")
+def tp_path_phase(ranks):
     outs = [r for r, _ in ranks]
     for o in outs:
         check(all(o["launches"][k] > 0 for k in TP_KERNELS[:3]),
@@ -2551,12 +2661,323 @@ def tp_ragged_path_rank(torch, rank):
     return result
 
 
-def tp_ragged_path_phase(torch):
-    ranks = tp_launch("tp_ragged_path_rank")
+def tp_ragged_path_phase(ranks):
     outs = [r for r, _ in ranks]
     emit("tp_ragged_path", backend=TP_BACKEND, mesh=TP_MESH, layers=2,
          buffer=1024, tolerance=PATH_TOL, ranks=outs)
     return {k: sum(o["launches"][k] for o in outs) for k in TP_KERNELS}
+
+
+# K10e at Llama-3-8B on 2 ranks: (spec, tp, whole weight shape, activation
+# shape, weight axis the model axis shards, activation axis a row product
+# contracts over it, calls per layer). Per shard: q [4096, 16, 128], k/v
+# [4096, 4, 128], o [16, 128, 4096], gate/up [4096, 7168], down
+# [7168, 4096] (K5) and the untied head [64128, 4096] (K6).
+TP_INT4_SHAPES = {
+    "q_proj": ("bte,ehd->bthd", "col", (4096, 32, 128), (3, 1, 4096), 1,
+               None, 1),
+    "k_proj/v_proj": ("bte,ekd->btkd", "col", (4096, 8, 128), (3, 1, 4096),
+                      1, None, 2),
+    "o_proj": ("bthd,hde->bte", "row", (32, 128, 4096), (3, 1, 32, 128), 0,
+               2, 1),
+    "gate_proj/up_proj": ("bte,ef->btf", "col", (4096, 14336),
+                          (3, 1, 4096), 1, None, 2),
+    "down_proj": ("btf,fe->bte", "row", (14336, 4096), (3, 1, 14336), 0, 2,
+                  1),
+    "lm_head": ("bte,ve->btv", "col", (128256, 4096), (3, 1, 4096), 0, None,
+                0),
+}
+# K10f: ((C, O), tp, the base weight's units along the sharded axis, calls
+# per layer); 3 rows of 3 personas, rank 8, 9 slots.
+TP_LORA_SHAPES = {
+    "q_proj": ((4096, 4096), "col", 32, 1),
+    "k_proj/v_proj": ((4096, 1024), "col", 8, 2),
+    "o_proj": ((4096, 4096), "row", 32, 1),
+    "gate_proj/up_proj": ((4096, 14336), "col", 14336, 2),
+    "down_proj": ((14336, 4096), "row", 14336, 1),
+}
+TP_QUANT_WRAPPERS = ("einsum_int4_spmd", "lora_bgmv_spmd")
+
+
+def _layer_total(cases):
+    """One layer's calls summed: ms, plain_ms, library_ms, bytes, flops,
+    and the bound of the sum."""
+    total = {k: sum(t[k] * t["per_layer"] for t in cases.values())
+             for k in ("ms", "plain_ms", "library_ms", "bytes", "flops")}
+    total["bound_ms"], total["bound_by"] = bound_ms(total["bytes"],
+                                                    total["flops"])
+    return total
+
+
+def tp_quant_kernels_rank(torch, rank):
+    """K10e (einsum_int4_spmd over K5/K6) at the six per-shard products
+    and K10f (lora_bgmv_spmd over K7) at the seven targets, on this rank's
+    half of Llama-3-8B's weights (int4 groups of 64; LoRA rank 8, 3 rows
+    of 3 personas): each against its plain version (KERNEL_TOL); a column
+    product's output against its slice of the single-device kernel's (K10f
+    bit for bit, K10e within KERNEL_TOL); a row product's all-reduced
+    partial sums against the single-device output (KERNEL_TOL). Times per
+    rank, each rank timing alone: CUDA events after an L2 flush for K10e,
+    CUDA-graph replays for K10f (as lora_kernels); the per-shard bound;
+    the library call per shard: torch.matmul on the rank's weight
+    dequantized to bf16 beforehand (K10e), the two grouped einsums
+    (K10f)."""
+    from theroundtaible_tpu_torch.engine import distributed, sharding
+    from theroundtaible_tpu_torch.engine import lora as lora_mod
+    from theroundtaible_tpu_torch.engine.kernels import int4mm
+    from theroundtaible_tpu_torch.engine.kernels import lora as klora
+    from theroundtaible_tpu_torch.engine.models import common
+    mesh = tp_mesh()
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)  # same draws
+    flush = torch.empty(16 << 20, dtype=torch.float32, device=dev)
+    int4, lora = {}, {}
+
+    def compare(name, tp, out, plain, full, out_axis, exact):
+        # A column shard against its slice of the one-device output: bit
+        # for bit where `exact` (K7 sums every output column alike at any
+        # width), else within KERNEL_TOL (K5 splits C by the shard's own
+        # width, so gate/up's shard sums in another order).
+        err, ok = max_err(torch, out, plain)
+        if tp == "col" and exact:
+            err_full = float((out - _shard(full, out_axis, rank)).abs().max())
+            ok_full = err_full == 0.0
+        elif tp == "col":
+            err_full, ok_full = max_err(torch, out,
+                                        _shard(full, out_axis, rank))
+        else:
+            total = distributed.all_reduce_sum(out.clone(), mesh.model_group)
+            err_full, ok_full = max_err(torch, total, full)
+        check(ok and ok_full, f"{name} on rank {rank}: plain {err}, "
+                              f"single device {err_full}")
+        return {"max_abs_err": err, "vs_single_device": err_full}
+
+    for name, (spec, tp, w_shape, a_shape, w_ax, a_ax, per_layer) in \
+            TP_INT4_SHAPES.items():
+        axis = len(w_shape) - 1
+        q4 = torch.randint(-128, 128, (*w_shape[:-1], w_shape[-1] // 2),
+                           generator=gen, device=dev, dtype=torch.int8)
+        s4 = (torch.rand(*w_shape[:-1], w_shape[-1] // INT4_GROUP,
+                         generator=gen, device=dev) * 0.025
+              + 0.005).to(bf16)
+        a = torch.randn(*a_shape, generator=gen, device=dev).to(bf16)
+        whole = int4mm.plan_leaf(spec, common.Int4Leaf(q4, s4, axis,
+                                                       INT4_GROUP))
+        full, why = int4mm.einsum_int4_or_reason(spec, a, whole)
+        check(full is not None, f"{name}: K5/K6 declined: {why}")
+        local = sharding.plan_int4_shard(spec, common.Int4Leaf(
+            _shard(q4, w_ax, rank), _shard(s4, w_ax, rank), axis,
+            INT4_GROUP), mesh, w_shape, tp)
+        del whole, q4, s4
+        a_l = _shard(a, a_ax, rank) if a_ax is not None else a
+        kw = dict(w_shape=w_shape, tp=tp)
+        fn = lambda: int4mm.einsum_int4_spmd(  # noqa: E731
+            mesh, spec, a_l, local, **kw)[0]
+        ref = lambda: int4mm.einsum_int4_spmd_ref(  # noqa: E731
+            mesh, spec, a_l, local, **kw)[0]
+        out = fn()
+        check(out is not None, f"{name}: K10e declined on rank {rank}")
+        t = compare(name, tp, out, ref(), full, a.dim() - 1, exact=False)
+        w = common.dequant_int4(local.q4, local.s4, axis, INT4_GROUP, bf16)
+        x2 = a_l.reshape(3, -1)
+        if spec == common.SPEC_HEAD:
+            w2 = w.t()
+        else:
+            w2 = w.reshape(x2.shape[1], -1)
+        lib = lambda: torch.matmul(x2, w2)  # noqa: E731
+        t.update(_turns(torch, rank, lambda: {
+            "ms": time_ms(torch, fn, 50, flush),
+            "plain_ms": time_ms(torch, ref, 3, flush),
+            "library_ms": time_ms(torch, lib, 50, flush)}))
+        t.update(weight_per_rank=[n // 2 if i == w_ax else n
+                                  for i, n in enumerate(w_shape)],
+                 tp=tp, per_layer=per_layer,
+                 bytes=(local.q4.numel() + local.s4.numel() * 2
+                        + a_l.numel() * 2 + out.numel() * 4),
+                 flops=2 * 3 * x2.shape[1] * w2.shape[1])
+        t["bound_ms"], t["bound_by"] = bound_ms(t["bytes"], t["flops"])
+        int4[name] = t
+        del local, w, w2, full, out
+    ids = torch.tensor([1, 2, 3], dtype=torch.int32, device=dev)
+    m, r = ids.numel(), LORA_RANK
+    for name, ((c, o), tp, units, per_layer) in TP_LORA_SHAPES.items():
+        x = torch.randn(m, c, generator=gen, device=dev).to(bf16)
+        a_t = (torch.randn(LORA_SLOTS, r, c, generator=gen, device=dev)
+               * c ** -0.5).to(bf16)
+        b_s = (torch.randn(LORA_SLOTS, r, o, generator=gen, device=dev)
+               * 0.04).to(bf16)
+        a_t[0] = 0
+        b_s[0] = 0
+        full = klora.lora_bgmv(x, a_t, b_s, ids)
+        if tp == "row":
+            x_l, a_l, b_l = _shard(x, 1, rank), _shard(a_t, 2, rank), b_s
+        else:
+            x_l, a_l, b_l = x, a_t, _shard(b_s, 2, rank)
+        kw = dict(dims=(c, o), tp=tp, units=units)
+        fn = lambda: klora.lora_bgmv_spmd(  # noqa: E731
+            mesh, x_l, a_l, b_l, ids, **kw)[0]
+        ref = lambda: klora.lora_bgmv_spmd_ref(  # noqa: E731
+            mesh, x_l, a_l, b_l, ids, **kw)[0]
+        lib = lambda: lora_mod.grouped_bmm(x_l, a_l, b_l, ids)  # noqa
+        out = fn()
+        check(out is not None, f"{name}: K10f declined on rank {rank}")
+        t = compare(name, tp, out, ref(), full, 1, exact=True)
+        t.update(_turns(torch, rank, lambda: {
+            "ms": graph_ms(torch, fn), "plain_ms": graph_ms(torch, ref),
+            "library_ms": graph_ms(torch, lib)}))
+        c_l, o_l = x_l.shape[1], b_l.shape[2]
+        t.update(c_o_per_rank=[c_l, o_l], tp=tp, per_layer=per_layer,
+                 bytes=3 * r * (c_l + o_l) * 2 + m * c_l * 2 + m * o_l * 4,
+                 flops=2 * m * r * (c_l + o_l))
+        t["bound_ms"], t["bound_by"] = bound_ms(t["bytes"], t["flops"])
+        lora[name] = t
+        del x, a_t, b_s, full, out
+    torch.cuda.synchronize()
+    layer = {k: v for k, v in int4.items() if v["per_layer"]}
+    return {"einsum_int4_spmd": {"cases": int4, "layer": _layer_total(layer),
+                                 "head": int4["lm_head"]},
+            "lora_bgmv_spmd": {"cases": lora, "layer": _layer_total(lora)}}
+
+
+def tp_quant_kernels_phase(ranks):
+    per_rank = [r for r, _ in ranks]
+    emit("tp_quant_kernels", backend=TP_BACKEND, mesh=TP_MESH,
+         tolerance=KERNEL_TOL, int4_group=INT4_GROUP, lora_rank=LORA_RANK,
+         ranks=per_rank)
+    return per_rank
+
+
+TP_QUANT_PHASES = ("tp_quant_int8", "tp_quant_int4", "tp_lora_round")
+
+
+def tp_quant_rank(torch, rank):
+    """The three TP engines of this run, one after another on this rank's
+    half of llama-3-8b-instruct (32 layers, `"mesh": {"data": 1, "model":
+    2}`), each freed before the next: the quant_int8 and quant_int4
+    configs (int8/int4 weights on int8/int4 pages), then lora_round's
+    (the README's `lora:` block, knight_adapters, every knight greedy).
+    warmup() and the two rounds; K10b/c with K1/K2 on the pool (K4 inside
+    on quantized pages) must launch in each round, K10e with K5/K6 on
+    int4, K10f with K7 under personas, and nothing else's kernels. The
+    rounds' collectives are timed (time_collectives)."""
+    from theroundtaible_tpu_torch.adapters.torch_llm import TorchLlmAdapter
+    from theroundtaible_tpu_torch.engine import reset_engines
+    from theroundtaible_tpu_torch.engine.kernels import attention as kattn
+    from theroundtaible_tpu_torch.engine.kernels.int4mm import \
+        kernel_path as w4a16_path
+    from theroundtaible_tpu_torch.engine.kernels.lora import kernel_path
+    from theroundtaible_tpu_torch.engine.lora import lora_dims
+    collectives = time_collectives(torch)
+    outs = {}
+    for phase in TP_QUANT_PHASES:
+        lora = phase == "tp_lora_round"
+        required = TP_KERNELS[1:3] + PAGED_KERNELS[:2]
+        forbidden = CONTIGUOUS_KERNELS + TP_KERNELS[:1]
+        if lora:
+            config = {k: v for k, v in ENGINE_CONFIG.items()
+                      if k != "knight_sampling"}
+            config.update(lora=LORA_BLOCK, knight_adapters=KNIGHT_ADAPTERS)
+            required += LORA_KERNELS + ("lora_bgmv_spmd",)
+            forbidden += INT4_KERNELS + ("einsum_int4_spmd",)
+        else:
+            extra = QUANT_CONFIGS[phase[3:]]
+            bits = 8 if extra["kv_quant"] == "int8" else 4
+            config = {**ENGINE_CONFIG, **extra}
+            required += tuple(f"{k}:int{bits}" for k in PAGED_KERNELS[:2])
+            int4 = ("einsum_int4_spmd",) + INT4_KERNELS
+            if extra["quant"] == "int4":
+                required += int4
+                forbidden += LORA_KERNELS + ("lora_bgmv_spmd",)
+            else:
+                forbidden += int4 + LORA_KERNELS + ("lora_bgmv_spmd",)
+        config["mesh"] = dict(TP_MESH)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        adapter = TorchLlmAdapter.from_config(f"torch-llm-{phase}", config)
+        t0 = time.monotonic()
+        engine = adapter._get_engine()
+        torch.cuda.synchronize()
+        construct_s = time.monotonic() - t0
+        d = engine.describe()
+        check(d["mesh"] == TP_MESH and d["quant"] == config.get(
+            "quant", "none"), f"{phase} built {d['mesh']} {d['quant']}")
+        warm_s = engine.warmup()
+        before = dict(collectives)
+        t0 = time.monotonic()
+        totals, generated, stats = serve_rounds(
+            torch, kattn, adapter, engine, phase, required=required,
+            forbidden=forbidden)
+        rounds_s = time.monotonic() - t0
+        out = {"construct_s": construct_s, "warmup_s": warm_s,
+               "params": engine.num_params,
+               "kv_bytes": engine.kv.hbm_bytes(),
+               "num_pages": engine.kv.num_pages,
+               "max_memory_allocated": torch.cuda.max_memory_allocated(),
+               "prefill_s": [stats[r]["prefill_seconds"] for r in (1, 2)],
+               "decode_ms_per_step": [decode_ms_per_step(stats[r])
+                                      for r in (1, 2)],
+               "rounds_s": rounds_s,
+               "collectives": {k: collectives[k] - before[k]
+                               for k in collectives},
+               "launches": totals, "generated": generated}
+        if lora:
+            paths = engine.lora_describe()["lora_paths"]
+            kernel_leaves = {e["leaf"] for e in paths[kernel_path(
+                engine.device)]}
+            check(kernel_leaves == set(lora_dims(engine.cfg)),
+                  f"{phase}: K10f served {sorted(kernel_leaves)} at decode")
+            out["store"] = engine.lora.describe()
+            reasons = {e.get("fallback_reason")
+                       for e in paths["xla_grouped_bmm"]}
+        elif config["quant"] == "int4":
+            paths = d["int4_paths"]
+            reasons = {e.get("fallback_reason")
+                       for e in paths["xla_dequant"]}
+            check(paths[w4a16_path(engine.device)] and reasons <= {
+                "rows:prefill-m/sharded", "rows:prefill-m"},
+                f"{phase}: a decode product left K10e: {reasons}")
+        else:
+            reasons = set()
+        out["fallback_reasons"] = sorted(r for r in reasons if r)
+        outs[phase] = out
+        reset_engines()
+        del engine, adapter
+    return outs
+
+
+def tp_quant_phase(ranks, single):
+    """Both ranks' int8, int4 and LoRA rounds: identical tokens on both
+    ranks (checked), beside this run's single-device rounds of the same
+    config (prefill seconds, decode ms per step, greedy agreement per
+    knight - the persona rows against the single-device persona rows -
+    reported). Returns the launches of both ranks, by wrapper."""
+    totals = {}
+    for phase in TP_QUANT_PHASES:
+        outs = [r[phase] for r, _ in ranks]
+        check(outs[0]["generated"] == outs[1]["generated"],
+              f"{phase}: the two ranks returned different tokens")
+        ref = single[phase]
+        agreement = {}
+        for k in ref["generated"][1]:
+            same = total = 0
+            for rnd in (1, 2):
+                a, b = outs[0]["generated"][rnd][k], ref["generated"][rnd][k]
+                total += max(len(a), len(b))
+                same += sum(x == y for x, y in zip(a, b))
+            agreement[k] = same / max(total, 1)
+        emit(phase, backend=TP_BACKEND, mesh=TP_MESH, layers=32,
+             ranks=[{k: v for k, v in o.items() if k != "generated"}
+                    for o in outs],
+             round_lines=[[x for x in lines if x["phase"] == phase]
+                          for _, lines in ranks],
+             single_device={"prefill_s": ref["prefill_s"],
+                            "decode_ms_per_step": ref["decode_ms_per_step"]},
+             greedy_agreement_with_single_device=agreement)
+        for o in outs:
+            for k, n in o["launches"].items():
+                totals[k] = totals.get(k, 0) + n
+    return totals
 
 
 def main() -> int:
@@ -2624,14 +3045,14 @@ def main() -> int:
 
     # Quantization: int8 weights on int8 pages, then int4 on int4 pages
     # with its scheduler phase (K3 on int4 pages), then the 2-layer path.
-    quant = {}
+    quant, single = {}, {}
     for phase in QUANT_CONFIGS:
         reset_engines()
         del engine
         gc.collect()
         torch.cuda.empty_cache()
-        quant[phase], engine = quant_engine_phase(torch, kattn, phase,
-                                                  reference)
+        quant[phase], engine, single[f"tp_{phase}"] = quant_engine_phase(
+            torch, kattn, phase, reference)
     sched = scheduler_phase(torch, kattn, engine, phase="quant_scheduler")
     check(sched["ragged_paged_attention:int4"] > 0,
           f"quant_scheduler: K3 never launched on int4 pages: {sched}")
@@ -2650,7 +3071,8 @@ def main() -> int:
     lora_timing = lora_kernels_phase(torch)
     gc.collect()
     torch.cuda.empty_cache()
-    lora_launches, engine = lora_round_phase(torch, reference)
+    lora_launches, engine, single["tp_lora_round"] = lora_round_phase(
+        torch, reference)
     profile_phase(torch, engine, phase="lora_profile",
                   adapters=list(KNIGHT_ADAPTERS.values()))
     sched = scheduler_phase(torch, kattn, engine, phase="lora_scheduler",
@@ -2664,18 +3086,27 @@ def main() -> int:
     lora_path_phase(torch, cfg)
 
     # Tensor parallelism: two ranks sharing the card over gloo (the kernels
-    # built above; every engine of this process released first): K10a-d
-    # alone, the 32-layer TP rounds on both layouts beside this run's
-    # single-device rounds, then the 2-layer paths.
+    # built above; every engine of this process released first), three
+    # spawns: the K10 wrappers alone (K10a-d, then K10e/K10f); the 32-layer
+    # TP engines one after another - bf16 on both layouts, then int8, int4
+    # and LoRA on the paged pool - beside this run's single-device rounds
+    # of the same configs; the 2-layer paths.
     gc.collect()
     torch.cuda.empty_cache()
-    tp_timing = tp_kernels_phase(torch)
-    tp_launches = tp_round_phase(torch, "paged", reference)
-    for name, n in tp_round_phase(torch, "contiguous",
+    runs = tp_launch(("tp_kernels_rank", ()), ("tp_quant_kernels_rank", ()))
+    tp_timing = tp_kernels_phase(runs[0])
+    tp_quant_timing = tp_quant_kernels_phase(runs[1])
+    runs = tp_launch(("tp_round_rank", ("paged",)),
+                     ("tp_round_rank", ("contiguous",)),
+                     ("tp_quant_rank", ()))
+    tp_launches = tp_round_phase(runs[0], "paged", reference)
+    for name, n in tp_round_phase(runs[1], "contiguous",
                                   contiguous_ref).items():
         tp_launches[name] += n
-    tp_path_phase(torch)
-    tp_launches["ragged_paged_spmd"] = tp_ragged_path_phase(torch)[
+    tp_quant_launches = tp_quant_phase(runs[2], single)
+    runs = tp_launch(("tp_path_rank", ()), ("tp_ragged_path_rank", ()))
+    tp_path_phase(runs[0])
+    tp_launches["ragged_paged_spmd"] = tp_ragged_path_phase(runs[1])[
         "ragged_paged_spmd"]
 
     src = "theroundtaible_tpu_torch/engine/kernels/csrc/"
@@ -2779,6 +3210,29 @@ def main() -> int:
             "bound_ms": per[0]["bound_ms"], "bound_by": per[0]["bound_by"],
             "library_ms": max(t["sdpa_view_ms"] for t in per),
             "ms_per_rank": [t["ms"] for t in per]})
+    # K10e/K10f: one layer's seven per-shard products (K5) or calls (K7)
+    # on one rank, the slower rank's time (each rank timed alone), the
+    # per-shard bound, the library call per shard (torch.matmul on the
+    # rank's pre-dequantized weight; the grouped einsums). Launches: both
+    # ranks' in tp_quant_int4 / tp_lora_round.
+    for name, replaces, source in (
+            ("einsum_int4_spmd", "theroundtaible_tpu/engine/pallas/"
+             "int4mm.py:428", "int4mm.py"),
+            ("lora_bgmv_spmd", "theroundtaible_tpu/engine/pallas/"
+             "lora.py:179", "lora.py")):
+        per = [r[name] for r in tp_quant_timing]
+        layer = [p["layer"] for p in per]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": f"theroundtaible_tpu_torch/engine/kernels/{source}",
+            "replaces": replaces, "launches": tp_quant_launches[name],
+            "max_abs_err": max(t["max_abs_err"] for p in per
+                               for t in p["cases"].values()),
+            "ms": max(t["ms"] for t in layer),
+            "plain_ms": max(t["plain_ms"] for t in layer),
+            "bound_ms": layer[0]["bound_ms"], "bound_by": layer[0]["bound_by"],
+            "library_ms": max(t["library_ms"] for t in layer),
+            "ms_per_rank": [t["ms"] for t in layer]})
     summary = {"kernels": rows}
     (OUT / "summary.json").write_text(json.dumps(summary, indent=1))
     print(json.dumps(summary), flush=True)

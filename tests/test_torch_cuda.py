@@ -1,7 +1,8 @@
 """PyTorch port, CUDA kernels K1/K2/K3/K8/K9, K4 (in-kernel KV dequant
 inside K1-K3, int8 and int4 pages), K5/K6 (w4a16 decode products), K7
-(grouped LoRA BGMV), K10's attention wrappers on two gloo ranks sharing the
-card, and the bf16 products with f32 results, against their plain versions
+(grouped LoRA BGMV), K10's attention wrappers (K10a-d) and K10e/K10f
+(K5/K6 and K7 per shard) on two gloo ranks sharing the card, and the bf16
+products with f32 results, against their plain versions
 on the card (`cuda` marker; each test skips itself where there is no
 card). The
 file imports neither jax nor the JAX package, so it runs on a machine that
@@ -9,6 +10,8 @@ has only the port's dependencies:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -710,3 +713,180 @@ def test_cuda_attention_refuses_a_shard_the_kernels_decline(cuda_device):
     with pytest.raises(ValueError, match="flash attention under mesh"):
         common.attention(x, layer, cfg, positions, None, None, mask,
                          kv_valid=valid, mesh=mesh)
+
+
+# --- K10e/K10f: the w4a16 and LoRA wrappers on two ranks sharing the card ---
+
+
+def _quant_spmd_rank(rank):
+    """One of two gloo ranks on cuda:0 (model axis 2): K10e on this rank's
+    shard of a gate/up (column), a down (row) and a head (K6, column)
+    weight, K10f on a column and a row target, in bf16. Each against its
+    plain version (atol = rtol = 2e-2); a column product against its slice
+    of the single-device kernel's output bit for bit, a row product's
+    all-reduced partial sums against it within the tolerance. Returns
+    ({name: (plain diff, single-device diff, ok)}, launch counts)."""
+    from theroundtaible_tpu_torch.engine import distributed, sharding
+    from theroundtaible_tpu_torch.engine.sharding import build_mesh
+    dev, bf16 = torch.device("cuda", 0), torch.bfloat16
+    mesh = build_mesh({"data": 1, "model": 2})
+    gen = torch.Generator(device=dev).manual_seed(9)   # same on both ranks
+    int4mm.reset_launch_counts()
+    klora.reset_launch_counts()
+    errs = {}
+
+    def shard(x, axis):
+        n = x.shape[axis] // 2
+        return x.narrow(axis, rank * n, n).contiguous()
+
+    def diff(out, ref):
+        d = (out.float() - ref.float()).abs()
+        return float(d.max()), bool(torch.isfinite(out).all()) and bool(
+            (d <= 2e-2 + 2e-2 * ref.float().abs()).all())
+
+    def record(name, tp, out, plain, full, axis, exact):
+        e_plain, ok_plain = diff(out, plain)
+        if tp == "col" and exact:
+            e_full = float((out - shard(full, axis)).abs().max())
+            ok_full = e_full == 0.0
+        elif tp == "col":
+            e_full, ok_full = diff(out, shard(full, axis))
+        else:
+            total = distributed.all_reduce_sum(out.clone(), mesh.model_group)
+            e_full, ok_full = diff(total, full)
+        errs[name] = (e_plain, e_full, ok_plain and ok_full)
+
+    for name, spec, tp, w_shape, w_ax, a_shape, a_ax in (
+            ("gate", "bte,ef->btf", "col", (1024, 4096), 1, (3, 1, 1024),
+             None),
+            ("down", "btf,fe->bte", "row", (4096, 1024), 0, (3, 1, 4096), 2),
+            ("head", "bte,ve->btv", "col", (8192, 1024), 0, (3, 1, 1024),
+             None)):
+        q4 = torch.randint(-128, 128, (w_shape[0], w_shape[1] // 2),
+                           generator=gen, device=dev, dtype=torch.int8)
+        s4 = (torch.rand(w_shape[0], w_shape[1] // 64, generator=gen,
+                         device=dev) * 0.02 + 0.005).to(bf16)
+        a = torch.randn(*a_shape, generator=gen, device=dev).to(bf16)
+        full, _ = int4mm.einsum_int4_or_reason(
+            spec, a, int4mm.plan_leaf(spec, Int4Leaf(q4, s4, 1, 64)))
+        local = sharding.plan_int4_shard(
+            spec, Int4Leaf(shard(q4, w_ax), shard(s4, w_ax), 1, 64), mesh,
+            w_shape, tp)
+        a_l = shard(a, a_ax) if a_ax is not None else a
+        kw = dict(w_shape=w_shape, tp=tp)
+        out, _ = int4mm.einsum_int4_spmd(mesh, spec, a_l, local, **kw)
+        plain, _ = int4mm.einsum_int4_spmd_ref(mesh, spec, a_l, local, **kw)
+        record(name, tp, out, plain, full, 2, exact=False)
+    ids = torch.tensor([1, 2, 0], dtype=torch.int32, device=dev)
+    for name, tp, c, o in (("lora_col", "col", 1024, 4096),
+                           ("lora_row", "row", 4096, 1024)):
+        x = torch.randn(3, c, generator=gen, device=dev).to(bf16)
+        a_t = (torch.randn(4, 8, c, generator=gen, device=dev)
+               * c ** -0.5).to(bf16)
+        b_s = (torch.randn(4, 8, o, generator=gen, device=dev)
+               * 0.05).to(bf16)
+        full = klora.lora_bgmv(x, a_t, b_s, ids)
+        if tp == "col":
+            args = (x, a_t, shard(b_s, 2), ids)
+        else:
+            args = (shard(x, 1), shard(a_t, 2), b_s, ids)
+        kw = dict(dims=(c, o), tp=tp, units=o if tp == "col" else c)
+        out, _ = klora.lora_bgmv_spmd(mesh, *args, **kw)
+        plain, _ = klora.lora_bgmv_spmd_ref(mesh, *args, **kw)
+        record(name, tp, out, plain, full, 1, exact=True)
+    torch.cuda.synchronize()
+    return errs, {**int4mm.launch_counts(), **klora.launch_counts()}
+
+
+@pytest.mark.cuda
+def test_cuda_quant_spmd_wrappers_on_two_ranks(cuda_device):
+    """K10e over K5/K6 and K10f over K7 on two gloo ranks sharing the card:
+    within the bf16 tolerance of their plain versions, column shards equal
+    to the single-device output's slice (K10f bit for bit; K10e within the
+    tolerance, as K5 splits C by the shard's own width), row shards' sums
+    within the tolerance of it; every wrapper and kernel launched on both
+    ranks."""
+    from theroundtaible_tpu_torch.engine import distributed
+    from theroundtaible_tpu_torch.engine.kernels import build
+    build.build_all()
+    ranks = distributed.launch(_quant_spmd_rank, 2, "gloo", "cuda:0",
+                               timeout_s=600)
+    for errs, counts in ranks:
+        assert all(ok for *_, ok in errs.values()), errs
+        for name in ("einsum_int4_spmd", "mm_pack_out", "mm_pack_contract",
+                     "lora_bgmv_spmd", "lora_bgmv"):
+            assert counts[name] > 0, (name, counts)
+
+
+def _declining_shard_rank(rank):
+    """On cuda:0 under a 2-way model axis: a K10e shard the kernels decline
+    raises where it is called; a TP int4 engine whose q/k/v shards K5
+    declines (tiny-llama's groups of 16), and a TP LoRA engine whose MLP
+    shards K7 declines (a hidden of 100: 50 per rank), fail construction
+    with the reasons. Returns the messages."""
+    from theroundtaible_tpu_torch.engine.engine import InferenceEngine
+    from theroundtaible_tpu_torch.engine.models.registry import \
+        get_model_config
+    from theroundtaible_tpu_torch.engine.sharding import (build_mesh,
+                                                          plan_int4_shard)
+    dev = torch.device("cuda", 0)
+    mesh = build_mesh({"data": 1, "model": 2})
+    out = {}
+    q4 = torch.zeros(256, 12, dtype=torch.int8, device=dev)   # F 48 / rank
+    s4 = torch.ones(256, 1, dtype=torch.bfloat16, device=dev)
+    leaf = plan_int4_shard("bte,ef->btf", Int4Leaf(q4, s4, 1, 24), mesh,
+                           (256, 48), "col")
+    out["plan"] = leaf.plan.reason
+    try:
+        int4mm.einsum_int4_spmd(mesh, "bte,ef->btf",
+                                torch.ones(1, 1, 256, dtype=torch.bfloat16,
+                                           device=dev), leaf,
+                                w_shape=(256, 48), tp="col")
+        out["call"] = "served"
+    except ValueError as e:
+        out["call"] = str(e)
+    tiny = get_model_config("tiny-llama", max_seq_len=256)
+    for name, cfg, kw in (
+            ("int4", tiny, {"quant": "int4"}),
+            ("lora", dataclasses.replace(tiny, head_dim=64, mlp_dim=100),
+             {"lora": {"rank": 4, "max_adapters": 2}})):
+        try:
+            InferenceEngine(cfg, mesh_shape={"data": 1, "model": 2},
+                            kv_layout="paged", page_size=32, num_slots=2,
+                            device=dev, **kw)
+            out[name] = "built"
+        except ValueError as e:
+            out[name] = str(e)
+    return out
+
+
+@pytest.mark.cuda
+def test_cuda_tp_refuses_shards_the_kernels_decline(cuda_device):
+    """On the card a per-shard shape K5/K6/K7 decline is refused: the K10e
+    call raises with the reason, and an engine holding such a shard fails
+    construction, naming the reason with "/sharded"."""
+    from theroundtaible_tpu_torch.engine import distributed
+    from theroundtaible_tpu_torch.engine.kernels import build
+    build.build_all()
+    for out in distributed.launch(_declining_shard_rank, 2, "gloo",
+                                  "cuda:0", timeout_s=600):
+        assert out["plan"] == ("pack:group 24 not a multiple of 32"
+                               "/sharded"), out
+        assert "no w4a16 kernel serves this leaf on the card" in out["call"]
+        assert "pack:group 16 not a multiple of 32/sharded" in out["int4"]
+        assert "dims:out-misaligned/sharded" in out["lora"]
+
+
+def _device_rank(rank):
+    return str(torch.empty(0).cuda().device), torch.cuda.current_device()
+
+
+@pytest.mark.cuda
+def test_cuda_launch_defaults_to_the_card(cuda_device):
+    """distributed.launch without device= runs the ranks on the card (rank
+    r on card r modulo the cards: both on card 0 of a one-card machine,
+    over gloo)."""
+    from theroundtaible_tpu_torch.engine import distributed
+    n = torch.cuda.device_count()
+    ranks = distributed.launch(_device_rank, 2, "gloo", timeout_s=300)
+    assert ranks == [(f"cuda:{r % n}", r % n) for r in range(2)]

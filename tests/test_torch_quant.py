@@ -189,7 +189,7 @@ def test_plain_k5_k6_match_jax_kernels_at_every_call_site(name):
     params = quant.quantize_params(tparams, tc, act_dtype=tdt, bits=4)
     rng = np.random.default_rng(9)
     for spec, shape, leaf in call_sites(tc, params, rows=3):
-        mode, n_cont, gp = int4mm._classify(spec, leaf)[0]
+        mode, n_cont, gp = int4mm.classify(spec, leaf)[0]
         a = rng.normal(size=shape).astype(np.float32)
         q4, s4 = leaf.q4, leaf.s4
         if mode == "out":
@@ -495,7 +495,7 @@ def test_adapter_builds_a_quantized_engine():
 
 
 @pytest.mark.parametrize("extra,item", [
-    ({"quant": "int4", "mesh": {"data": 1, "model": 2}}, "slice 7"),
+    ({"quant": "int4", "mesh": {"data": 2, "model": 1}}, "slice 7e-ii"),
     ({"kv_quant": "int8", "kv_layout": "paged", "prefix_cache": True},
      "slice 7"),
     ({"kv_quant": "int4", "kv_layout": "paged", "kv_offload": True},
@@ -504,10 +504,11 @@ def test_adapter_builds_a_quantized_engine():
 ], ids=["int4-sharded", "quantized-prefix-cache", "quantized-offload",
         "quantized-moe"])
 def test_out_of_scope_quant_options_still_raise(extra, item):
-    """Quantization is ported on one device; its sharded, prefix cache,
-    offload and MoE companions still refuse, naming their ROADMAP item
-    (quantized weights under LoRA personas serve:
-    tests/test_torch_lora.py)."""
+    """Quantization is ported on one device and on a model axis; on a
+    data axis, and its prefix cache, offload and MoE companions, it still
+    refuses, naming their ROADMAP item (quantized weights under LoRA
+    personas serve: tests/test_torch_lora.py; on a model axis:
+    tests/test_torch_tp_quant.py)."""
     config = {"model": "tiny-llama", "max_seq_len": 128, **extra}
     with pytest.raises(NotImplementedError, match=item):
         InferenceEngine.from_config(config, device="cpu")

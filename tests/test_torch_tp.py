@@ -874,12 +874,12 @@ def test_scheduler_on_a_mesh_raises(engine_runs):
     ("lora", {"rank": 4, "max_adapters": 2}),
 ])
 def test_unported_mesh_options_raise(key, value):
-    """A data axis, quantized weights and LoRA on a mesh raise
-    NotImplementedError naming their slice, before any group is
-    needed."""
+    """A data axis raises NotImplementedError naming its slice before any
+    group is needed, alone and with quantized weights or LoRA, which a
+    model axis serves (tests/test_torch_tp_quant.py)."""
     from theroundtaible_tpu_torch.engine.engine import InferenceEngine
-    config = {"model": "tiny-llama", "max_seq_len": 128, "mesh": dict(MESH),
-              key: value}
+    config = {"model": "tiny-llama", "max_seq_len": 128,
+              "mesh": {"data": 2, "model": 2}, key: value}
     with pytest.raises(NotImplementedError, match="ROADMAP, slice 7"):
         InferenceEngine.from_config(config, device="cpu")
 
@@ -907,6 +907,17 @@ def test_mesh_of_another_size_than_the_group_raises():
                  "mesh": dict(MESH)}, device="cpu")
     finally:
         dist.destroy_process_group()
+
+
+def test_launch_defaults_to_the_card():
+    """launch without device= asks for the card, as every entry point of
+    the port does: with none it raises before any rank starts (device="cpu"
+    runs the ranks on the CPU, as every other test here)."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: tests/test_torch_cuda.py runs the "
+                    "default there")
+    with pytest.raises(RuntimeError, match="no CUDA device.*device='cpu'"):
+        distributed.launch(_failing_rank, 2, "gloo")
 
 
 def test_launch_reraises_a_rank_failure():

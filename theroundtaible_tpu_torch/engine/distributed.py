@@ -17,8 +17,11 @@ Starting the group:
     torchrun --nproc-per-node 2 serve.py
 
 and in the program `initialize(backend="nccl", device=...)`; or, from one
-parent, `launch(fn, world_size=2, backend="gloo", device="cpu")` spawns
-the ranks and returns what each `fn(rank, *args)` returned.
+parent, `launch(fn, world_size=2, backend="nccl")` spawns one rank per
+card (`device="cuda"`, the default), `launch(fn, 2, "gloo",
+device="cuda:0")` two ranks sharing card 0, and `launch(fn, 2, "gloo",
+device="cpu")` two CPU ranks; each returns what every `fn(rank, *args)`
+returned.
 
 The backend is always the caller's choice: "nccl" for one rank per card,
 "gloo" for the CPU and for several ranks on one card (NCCL refuses two
@@ -38,6 +41,8 @@ from typing import Any, Callable, Optional
 
 import torch
 import torch.distributed as dist
+
+from .device import resolve_device
 
 # The JAX package's names (engine/distributed.py), then torchrun's.
 ENV_COORDINATOR = "ROUNDTABLE_COORDINATOR"
@@ -122,15 +127,18 @@ class RankFailed(RuntimeError):
     """A spawned rank raised or died; the message carries its traceback."""
 
 
-def launch(fn: Callable, world_size: int, backend: str, device="cpu",
+def launch(fn: Callable, world_size: int, backend: str, device="cuda",
            args: tuple = (), timeout_s: float = 600.0) -> list[Any]:
     """Run `fn(rank, *args)` on `world_size` spawned ranks that share one
-    process group on `backend`: on `device` ("cuda" puts rank r on card r,
-    "cuda:0" puts every rank on card 0 - gloo only). `fn` must be
-    importable by name (a module-level
-    function) and its arguments and result picklable. Returns the ranks'
-    results in rank order; raises RankFailed with a rank's traceback when
-    one raised, died or outlived `timeout_s`, after stopping the others."""
+    process group on `backend`: on `device` ("cuda", the default, puts
+    rank r on card r, "cuda:0" puts every rank on card 0 - gloo only;
+    "cpu" runs the ranks on the CPU). Without a card a CUDA device raises
+    before any rank starts. `fn` must be importable by name (a
+    module-level function) and its arguments and result picklable. Returns
+    the ranks' results in rank order; raises RankFailed with a rank's
+    traceback when one raised, died or outlived `timeout_s`, after
+    stopping the others."""
+    resolve_device(device)
     import torch.multiprocessing as mp
     ctx = mp.get_context("spawn")
     results = ctx.Queue()

@@ -62,9 +62,15 @@ hidden, vocab) and of the cache or pool (its kv heads); the forward
 all-reduces the row-parallel products in f32 and gathers the head's
 logits, so every rank samples the same tokens from the same generator.
 Attention runs through the K10 wrappers (kernels/attention.py); a shape
-they decline fails construction on a card. A data axis, quantized
-weights, LoRA and the SessionScheduler on a mesh raise
-NotImplementedError naming their slice.
+they decline fails construction on a card. Quantized weights and LoRA
+personas serve on the mesh too: each rank's int8/int4 leaves are its
+slices of the whole leaves' quantization (every scale the whole leaf's;
+int4 groups aligned to the shards), their products run K10e
+(kernels/int4mm.einsum_int4_spmd) over K5/K6, and the LoRA store's stacks
+are sharded where their base weights are, their deltas run K10f
+(kernels/lora.lora_bgmv_spmd) over K7 and land on the partial products
+before the one all-reduce of o_proj and down_proj. A data axis and the
+SessionScheduler on a mesh raise NotImplementedError naming their slice.
 
 Features the JAX
 engine also turns on by default (prefix cache, host offload, speculative
@@ -75,6 +81,7 @@ NotImplementedError naming the ROADMAP item.
 
 from __future__ import annotations
 
+import functools
 import os
 import threading
 import time
@@ -101,9 +108,9 @@ from .models.common import (Int4Leaf, ModelConfig, forward_cached,
 from .models.registry import get_model_config
 from .paged_forward import (forward_paged, forward_ragged, gather_view,
                             scatter_view)
-from .quant import quantize_params, quantized
+from .quant import quantize_leaves, quantize_params, quantized
 from .paging import SCRATCH_PAGE, PagedKVCache
-from .sharding import build_mesh, local_config, mesh_size
+from .sharding import build_mesh, local_config, mesh_size, model_axis_size
 from .sampling import SamplingParams, sample_token_batch, sampling_arrays
 from .serving_loop import (DECODE_SEGMENT, MAX_PREFILL_CHUNK,
                            PREFILL_BUCKETS, RAGGED_BLOCK_Q, RaggedSeq,
@@ -114,7 +121,7 @@ from .serving_loop import (DECODE_SEGMENT, MAX_PREFILL_CHUNK,
                            ragged_defer_min, ragged_shape_grid,
                            ragged_token_budget, row_budget_fn)
 from .tokenizer import load_tokenizer
-from .weights import dense_param_count
+from .weights import param_count_of
 
 # Below this many shared tokens a plain prefill beats sharing a span.
 MIN_SHARED_PREFIX = 64
@@ -129,8 +136,8 @@ _FEATURES = {
     "spec_decode": "slice 7: speculative decoding",
 }
 # What a mesh does not serve yet, with its slice.
-_MESH_SLICE = ("slice 7: data axis, quantized weights, LoRA and the "
-               "scheduler on a mesh")
+_MESH_SLICE = ("slice 7e-ii: a data axis (per-replica pools and the "
+               "ReplicaGroupPlan) and the scheduler on a mesh")
 
 
 def _quant_mode(params: dict) -> str:
@@ -232,7 +239,7 @@ class InferenceEngine:
         # The whole model's count, as the JAX engine's sharded tree gives
         # (a rank holds a slice).
         self.num_params = (param_count(self.params) if self.mesh is None
-                           else dense_param_count(model_cfg))
+                           else param_count_of(self.params, model_cfg))
         # int4 path provenance, from the leaves' plans: on a card a leaf
         # K5/K6 decline fails construction, as a pool K1-K4 decline does.
         self._int4_paths = (int4mm.route_report(
@@ -414,7 +421,7 @@ class InferenceEngine:
             dtype=dtype, quant=lora_cfg.get("quant", "none"),
             adapters=lora_cfg.get("adapters"),
             targets=lora_cfg.get("targets"),
-            device=self.device)
+            device=self.device, mesh=self.mesh)
         if self.device.type == "cuda":
             declines = store.decode_declines(dtype)
             if declines:
@@ -426,26 +433,35 @@ class InferenceEngine:
         self.lora = store
 
     def _build_params(self, cfg, params, quant: str, dtype, seed: int):
-        """The engine's weights: `params` as given, or seeded random ones;
-        then quantized as `quant` says (JAX engine, after init). A given
-        tree that is quantized already (a bridged JAX tree) must match
-        `quant`. Weights the engine made itself are freed leaf by leaf as
-        their quantized replacements land."""
-        owned = params is None
-        if owned:
-            # Under a mesh: this rank's shards of the same draws.
+        """The engine's weights: `params` as given, or seeded random ones
+        quantized as `quant` says as each whole leaf is drawn (JAX engine:
+        after init, on the global arrays), under a mesh before the rank
+        keeps its slice, int4 groups aligned to the model axis. A given
+        tree must be quantized as `quant` says already (a bridged JAX
+        tree); on one device a dense one is quantized here."""
+        if params is None:
+            quantize = None
+            if quant != "none":
+                quantize = functools.partial(
+                    quantize_leaves, cfg=cfg, act_dtype=dtype,
+                    free_source=True, bits=8 if quant == "int8" else 4,
+                    model_shards=model_axis_size(self.mesh))
             gen = torch.Generator(device=self.device).manual_seed(seed)
-            params = init_params(cfg, gen, dtype, self.device, self.mesh)
+            return init_params(cfg, gen, dtype, self.device, self.mesh,
+                               quantize=quantize)
         mode = _quant_mode(params)
+        if mode == quant:
+            return params
         if mode != "none":
-            if mode != quant:
-                raise ValueError(f"params are {mode}-quantized but quant is "
-                                 f"{quant!r}")
-            return params
-        if quant == "none":
-            return params
+            raise ValueError(f"params are {mode}-quantized but quant is "
+                             f"{quant!r}")
+        if self.mesh is not None:
+            raise ValueError(
+                f"quant {quant!r} on a mesh needs params quantized whole "
+                f"before they were sharded (weights.params_from_numpy of a "
+                f"quantized tree): a rank's slice has not the whole leaf's "
+                f"scales")
         return quantize_params(params, cfg, act_dtype=dtype,
-                               free_source=owned,
                                bits=8 if quant == "int8" else 4)
 
     @staticmethod
@@ -470,14 +486,8 @@ class InferenceEngine:
                               "slice 7: multi-device")
         if mesh_size(mesh_shape) > 1:
             if int(mesh_shape.get("data", 1)) != 1:
-                raise _not_ported(
-                    f"mesh {mesh_shape} (a data axis: per-replica pools "
-                    f"and the ReplicaGroupPlan)", _MESH_SLICE)
-            if quant != "none":
-                raise _not_ported(f"quant {quant!r} on a mesh",
+                raise _not_ported(f"mesh {mesh_shape} (a data axis)",
                                   _MESH_SLICE)
-            if lora:
-                raise _not_ported("LoRA on a mesh", _MESH_SLICE)
         if attn not in ("auto", "flash", "dense"):
             raise ValueError(f"attn must be auto|flash|dense, got {attn!r}")
         if cfg.num_experts:

@@ -23,7 +23,7 @@ sums, in an order that is the same on every call.
 
 Each leaf is planned once, when it is made (quant.quantize_params,
 weights.params_from_numpy): `plan_leaf` classifies its call site
-(`_classify`, the JAX package's, with its reason strings) and checks the
+(`classify`, the JAX package's, with its reason strings) and checks the
 kernels' block constraints, which take the place of the TPU plan's VMEM
 budget; the leaf keeps the Int4Plan. A product then only counts its
 activation rows (`einsum_int4_or_reason`): up to 64 run the planned
@@ -34,6 +34,22 @@ such a leaf when it is built. ROUNDTABLE_INT4_MM=0, read when a leaf is
 planned, declines every leaf (`kernel-disabled`). The CPU runs the plain
 versions where a card runs the kernels; each launch adds one to its count
 (launch_counts()).
+
+Under a tensor-parallel mesh (engine/sharding.py Mesh) `einsum_int4_spmd`
+(K10e, the counterpart of the TPU package's einsum_int4_spmd) runs the same
+kernels on this rank's shard of the leaf: column-parallel products (q/k/v,
+gate/up, the head) on the rank's output slice, row-parallel ones (o_proj,
+down_proj) on its slice of the contraction. It takes the rank's local leaf,
+the global weight shape and the call site's `tp`; the leaf must carry
+the plan sharding.plan_int4_shard made for that mesh: split where
+sharding.int4_shard_axis says and the mesh divides both q4 and s4 (else
+whole on every rank), checked to be that shard, planned on the per-shard
+shapes, a decline of a sharded leaf carrying the JAX package's "/sharded"
+suffix. A row product returns this
+rank's partial sum: the one all-reduce per row-parallel projection belongs
+to the forward (models/common._row_parallel), after the int8 scale and the
+LoRA delta are added, so it never runs twice. A launch counts under
+einsum_int4_spmd and under the kernel it ran.
 """
 
 from __future__ import annotations
@@ -48,7 +64,9 @@ import torch
 from . import build
 
 KERNELS = ("mm_pack_out", "mm_pack_contract")
-_launches = dict.fromkeys(KERNELS, 0)
+# K10e: a launch on a card counts here AND under the kernel it ran.
+SPMD_WRAPPERS = ("einsum_int4_spmd",)
+_launches = dict.fromkeys(KERNELS + SPMD_WRAPPERS, 0)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 PATH_DEQUANT = "xla_dequant"
 
@@ -80,7 +98,7 @@ def kernel_path(device) -> str:
 # --- the plan ---
 
 
-def _classify(spec: str, leaf):
+def classify(spec: str, leaf):
     """((mode, n_cont, gp), None) with mode "out" (weight = contracted
     prefix + kept axes, pack axis kept-minor) or "contract" (kept + one
     contracted pack axis: the lm head), or (None, reason) when neither
@@ -144,11 +162,16 @@ def _contract_smem_bytes(cp: int) -> int:
 @dataclasses.dataclass(frozen=True)
 class Int4Plan:
     """How a leaf's products run, fixed when the leaf is made. `mode` "out"
-    (K5) or "contract" (K6) once `_classify` accepts the call site, else
+    (K5) or "contract" (K6) once `classify` accepts the call site, else
     None; `reason` why no kernel serves the leaf (None: one does). The
     activation's last `n_cont` axes (`width` values) are contracted; the
     weight's 2-D view has `w_rows` rows; the output's trailing axes are
-    `kept`. `plain` runs the kernels' plain versions on any device."""
+    `kept`. `plain` runs the kernels' plain versions on any device. A plan
+    for a mesh (K10e) also holds the mesh's (data, model) sizes
+    `mesh_shape` (() without one), the whole weight's dense shape
+    `w_shape`, the call site's `tp` and `shard_axis`, the weight axis that
+    carries the model shards (None: the leaf is whole on every rank);
+    `psum` says that the product is a partial sum to all-reduce."""
 
     spec: str
     mode: Optional[str] = None
@@ -159,10 +182,15 @@ class Int4Plan:
     w_rows: int = 0
     kept: tuple = ()
     plain: bool = False
+    mesh_shape: tuple = ()
+    w_shape: tuple = ()
+    tp: Optional[str] = None
+    shard_axis: Optional[int] = None
+    psum: bool = False
 
 
 def _plan(spec: str, leaf) -> Int4Plan:
-    cls, reason = _classify(spec, leaf)
+    cls, reason = classify(spec, leaf)
     if cls is None:
         return Int4Plan(spec, reason=reason)
     mode, n_cont, gp = cls
@@ -183,10 +211,41 @@ def _plan(spec: str, leaf) -> Int4Plan:
                     **geo)
 
 
-def plan_leaf(spec: str, leaf):
+def plan_leaf(spec: str, leaf, mesh=None, w_shape=(),
+              tp: Optional[str] = None, shard_axis: Optional[int] = None,
+              psum: bool = False):
     """`leaf` with its plan for the call site `spec` (SPEC_* of
-    models/common): shapes only, once per leaf."""
-    plan = _plan(spec, leaf)
+    models/common): shapes only, once per leaf. With a `mesh` the plan is
+    K10e's for this rank's shard of a weight of whole dense shape
+    `w_shape` at a call site of convention `tp`, split on `shard_axis`
+    (None: whole on every rank; `psum`: a partial sum) as
+    sharding.plan_int4_shard places it: the local leaf must be that shard,
+    and a sharded leaf's decline carries "/sharded"."""
+    if mesh is None:
+        plan = _plan(spec, leaf)
+    else:
+        w_shape = tuple(int(n) for n in w_shape)
+
+        def local(shape):
+            return tuple(n // mesh.model if i == shard_axis else n
+                         for i, n in enumerate(shape))
+
+        want = (local((*w_shape[:-1], w_shape[-1] // 2)),
+                local((*w_shape[:-1], w_shape[-1] // leaf.group)))
+        got = (tuple(leaf.q4.shape), tuple(leaf.s4.shape))
+        if got != want:
+            raise ValueError(
+                f"{spec}: the local Int4Leaf (q4 {got[0]}, s4 {got[1]}) is "
+                f"not this rank's shard (q4 {want[0]}, s4 {want[1]}) of the "
+                f"{list(w_shape)} weight on mesh {mesh.shape}")
+        plan = _plan(spec, leaf)
+        reason = plan.reason
+        if reason is not None and shard_axis is not None \
+                and plan.mode is not None:
+            reason += "/sharded"
+        plan = dataclasses.replace(plan, reason=reason, w_shape=w_shape,
+                                   tp=tp, shard_axis=shard_axis, psum=psum,
+                                   mesh_shape=(mesh.data, mesh.model))
     if not enabled():
         plan = dataclasses.replace(plan, mode=None, reason="kernel-disabled")
     return dataclasses.replace(leaf, plan=plan)
@@ -218,12 +277,15 @@ def route_report(sites, device) -> dict:
     serve every decode product there."""
     kernel, dequant, seen = [], [], set()
     for spec, leaf in sites:
-        w_shape = [*leaf.q4.shape[:-1], 2 * leaf.q4.shape[-1]]
+        plan = leaf.plan
+        # Under a mesh the whole weight's shape, as the JAX engine records
+        # its global leaf.
+        w_shape = (list(plan.w_shape) if plan is not None and plan.w_shape
+                   else [*leaf.q4.shape[:-1], 2 * leaf.q4.shape[-1]])
         key = (spec, tuple(w_shape))
         if key in seen:
             continue
         seen.add(key)
-        plan = leaf.plan
         if plan is None or plan.spec != spec:
             raise ValueError(f"{spec} {w_shape}: the Int4Leaf is not "
                              f"planned for this call site (plan_leaf)")
@@ -241,7 +303,7 @@ def route_report(sites, device) -> dict:
                        "rows": f"<={MAX_ROWS}"})
         dequant.append({"spec": spec, "w_shape": w_shape,
                         "rows": f">{MAX_ROWS}",
-                        "fallback_reason": "rows:prefill-m"})
+                        "fallback_reason": _rows_reason(plan)})
     return {kernel_path(device): kernel, PATH_DEQUANT: dequant}
 
 
@@ -330,7 +392,10 @@ def mm_pack_out(x: torch.Tensor, q4: torch.Tensor, s4: torch.Tensor,
                 gp: int) -> torch.Tensor:
     """x [M, C] . unpack(q4 [C, P], s4 [C, P/gp]) -> [M, 2P] f32 (K5).
     C splits write their partial sums to a workspace, which a second pass
-    adds in split order, so a call's result is the same every time."""
+    adds in split order, so a call's result is the same every time. The
+    splits follow this product's width: a column shard of a wider weight
+    (K10e) may split C otherwise than the whole product and then sums in
+    another order."""
     what = "mm_pack_out"
     _check(x, q4, s4, gp, what)
     if x.shape[1] != q4.shape[0]:
@@ -339,10 +404,19 @@ def mm_pack_out(x: torch.Tensor, q4: torch.Tensor, s4: torch.Tensor,
     if x.device.type == "cpu":
         return mm_pack_out_ref(x, q4, s4, gp)
     _cuda_operands("out", x, q4, s4, gp, what)
+    splits = out_splits(x.shape[1], q4.shape[1],
+                        _sm_count(x.device.index or 0))
+    out = _launch_pack_out(x, q4, s4, gp, splits)
+    _launches[what] += 1
+    return out
+
+
+def _launch_pack_out(x: torch.Tensor, q4: torch.Tensor, s4: torch.Tensor,
+                     gp: int, splits: int) -> torch.Tensor:
+    """K5's launch on checked CUDA operands with `splits` C splits."""
     m, c = x.shape
     p = q4.shape[1]
     index = x.device.index or 0
-    splits = out_splits(c, p, _sm_count(index))
     out = torch.empty((m, 2 * p), dtype=torch.float32, device=x.device)
     work = (torch.empty((splits, m, 2 * p), dtype=torch.float32,
                         device=x.device) if splits > 1 else out)
@@ -350,8 +424,7 @@ def mm_pack_out(x: torch.Tensor, q4: torch.Tensor, s4: torch.Tensor,
         x.data_ptr(), q4.data_ptr(), s4.data_ptr(), out.data_ptr(),
         work.data_ptr(), m, c, p, gp, splits, _DTYPE_CODES[x.dtype], index,
         torch.cuda.current_stream(x.device).cuda_stream)
-    build.check(rc, f"{what} launch")
-    _launches[what] += 1
+    build.check(rc, "mm_pack_out launch")
     return out
 
 
@@ -383,18 +456,17 @@ def mm_pack_contract(x: torch.Tensor, q4: torch.Tensor, s4: torch.Tensor,
 # --- the seam ---
 
 
-def einsum_int4_or_reason(spec: str, a: torch.Tensor, leaf):
-    """(result, None) when a kernel (its plain version on the CPU) serves
-    `einsum(spec, a, dequant(leaf))` - f32, the einsum's output shape - by
-    the leaf's plan, else (None, reason) and the caller takes the dequant
-    path. A CUDA tensor whose leaf the plan declines raises."""
-    plan = leaf.plan
-    if plan is None or plan.spec != spec:
-        raise ValueError(f"{spec}: the Int4Leaf is planned for "
-                         f"{plan.spec if plan else 'no call site'} "
-                         f"(kernels/int4mm.plan_leaf)")
+def _rows_reason(plan: Int4Plan) -> str:
+    return "rows:prefill-m" + ("/sharded" if plan.shard_axis is not None
+                               else "")
+
+
+def _run(spec: str, a: torch.Tensor, leaf, plan: Int4Plan):
+    """(result, None) when the kernel of `plan` (its plain version on the
+    CPU, or with plan.plain) serves the product, else (None, reason); a
+    CUDA tensor whose leaf the plan declines raises."""
     if plan.mode is not None and a.numel() > MAX_ROWS * plan.width:
-        return None, "rows:prefill-m"
+        return None, _rows_reason(plan)
     if plan.reason is not None:
         if a.is_cuda:
             raise ValueError(f"{spec}: no w4a16 kernel serves this leaf on "
@@ -409,3 +481,61 @@ def einsum_int4_or_reason(spec: str, a: torch.Tensor, leaf):
         fn = mm_pack_contract_ref if plan.plain else mm_pack_contract
     y = fn(x.contiguous(), q4, s4, plan.gp)
     return y.reshape(*a.shape[:a.dim() - plan.n_cont], *plan.kept), None
+
+
+def einsum_int4_or_reason(spec: str, a: torch.Tensor, leaf):
+    """(result, None) when a kernel (its plain version on the CPU) serves
+    `einsum(spec, a, dequant(leaf))` - f32, the einsum's output shape - by
+    the leaf's plan, else (None, reason) and the caller takes the dequant
+    path. A CUDA tensor whose leaf the plan declines raises."""
+    plan = leaf.plan
+    if plan is None or plan.spec != spec:
+        raise ValueError(f"{spec}: the Int4Leaf is planned for "
+                         f"{plan.spec if plan else 'no call site'} "
+                         f"(kernels/int4mm.plan_leaf)")
+    if plan.mesh_shape:
+        raise ValueError(f"{spec}: the Int4Leaf is a shard planned for mesh "
+                         f"{plan.mesh_shape} (einsum_int4_spmd)")
+    return _run(spec, a, leaf, plan)
+
+
+def _spmd(mesh, spec, a, leaf, w_shape, tp, plain: bool):
+    plan = leaf.plan
+    if (plan is None or plan.mesh_shape != (mesh.data, mesh.model)
+            or plan.spec != spec
+            or plan.w_shape != tuple(w_shape) or plan.tp != tp):
+        raise ValueError(
+            f"{spec}: the Int4Leaf is not planned as a shard of the "
+            f"{list(w_shape)} weight ({tp}) on mesh {mesh.shape} "
+            f"(sharding.plan_int4_shard)")
+    if plain:
+        plan = dataclasses.replace(plan, plain=True)
+    y, reason = _run(spec, a, leaf, plan)
+    if y is not None and y.is_cuda and not plan.plain:
+        _launches["einsum_int4_spmd"] += 1
+    return y, reason
+
+
+def einsum_int4_spmd(mesh, spec: str, a: torch.Tensor, leaf, *, w_shape,
+                     tp: Optional[str] = None):
+    """K10e (the TPU package's int4mm.py:428): `einsum(spec, a,
+    dequant(leaf))` on this rank's shard under `mesh` - `a` the rank's
+    local activation (its heads or hidden slice for a row product, the
+    whole input for a column one), `leaf` its shard of the packed weight
+    of whole dense shape `w_shape`, `tp` the call site's convention
+    ("col"/"row", models/common.SPEC_TP). K5 or K6 on a card, their plain
+    versions on the CPU. Returns (f32 result, None) - the rank's output
+    slice for "col", its partial sum for a sharded "row" product, which the
+    caller all-reduces once - or (None, reason): prefill rows
+    ("rows:prefill-m", "/sharded" on a sharded leaf) and, on the CPU, a
+    shard the kernels decline; the caller then multiplies the dequantized
+    local weight. A shard the kernels decline raises on a card, and a
+    local leaf that is not this rank's shard raises anywhere."""
+    return _spmd(mesh, spec, a, leaf, w_shape, tp, plain=False)
+
+
+def einsum_int4_spmd_ref(mesh, spec: str, a: torch.Tensor, leaf, *,
+                         w_shape, tp: Optional[str] = None):
+    """Plain version of einsum_int4_spmd: K5/K6's plain versions on the
+    same shard, on any device (counts nothing)."""
+    return _spmd(mesh, spec, a, leaf, w_shape, tp, plain=True)

@@ -27,6 +27,17 @@ ROUNDTABLE_LORA_MM=0, read when a store is built, declines every dispatch
 refuses to build the engine. The wrapper takes the plain version only for
 a CPU tensor; on a CUDA tensor it launches the kernel or raises. Each
 launch adds one to its count (launch_counts()).
+
+Under a tensor-parallel mesh `lora_bgmv_spmd` (K10f, the counterpart of
+the TPU package's lora_bgmv_spmd) runs K7 on this rank's shard of a
+target's stacks: a column-parallel target ("col": q/k/v, gate/up) shards
+B's output axis and gives the rank its slice of the delta; a row-parallel
+one ("row": o_proj, down_proj) shards A's contraction and gives the rank a
+partial delta, which the caller all-reduces once with the base product
+(models/common._row_parallel). Where the model axis does not divide the
+sharded axis the stacks are whole on every rank. The plan runs on the
+per-shard dims, a sharded target's decline carrying "/sharded". A launch
+counts under lora_bgmv_spmd and under lora_bgmv.
 """
 
 from __future__ import annotations
@@ -40,7 +51,9 @@ import torch
 from . import build
 
 KERNELS = ("lora_bgmv",)
-_launches = dict.fromkeys(KERNELS, 0)
+# K10f: a launch on a card counts here AND under lora_bgmv.
+SPMD_WRAPPERS = ("lora_bgmv_spmd",)
+_launches = dict.fromkeys(KERNELS + SPMD_WRAPPERS, 0)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # Decode kernel only: past this many rows the grouped einsums amortize
@@ -178,3 +191,84 @@ def lora_bgmv_or_reason(x2: torch.Tensor, a_t: torch.Tensor,
     if reason is not None:
         return None, reason
     return lora_bgmv(x2, a_t, b_s, ids), None
+
+
+# --- K10f: the kernel under a (data, model) mesh ---
+
+
+def spmd_dims(mesh, c_dim: int, o_dim: int, tp: Optional[str],
+              units: int) -> tuple:
+    """(which, local C, local O) of a target of global (C, O) under `mesh`:
+    which stack axis carries the model shards - "in" (A's contraction, tp
+    "row") or "out" (B's output, tp "col") - where the model axis divides
+    `units`, the count of whole units along it, else None (the stacks
+    whole on every rank). The engine's store passes its base weight's
+    heads or hidden count (engine/lora.base_units), so a stack is split
+    exactly where its base weight is. The JAX package divides the flat
+    dim itself: passing the flat dim as `units` gives its placement."""
+    from ..sharding import lora_shard_axis
+    which = lora_shard_axis(tp) if mesh.model > 1 else None
+    if which is not None and not mesh.splits(units):
+        which = None
+    return (which, c_dim // mesh.model if which == "in" else c_dim,
+            o_dim // mesh.model if which == "out" else o_dim)
+
+
+def plan_bgmv_spmd(mesh, m_rows: int, c_dim: int, r: int, o_dim: int,
+                   tp: Optional[str], dtype, units: int):
+    """plan_bgmv on the per-shard dims of a target of global (C, O) under
+    `mesh`, "/sharded" added to a sharded target's reason (the JAX
+    package's lora_bgmv_spmd plan)."""
+    which, c_l, o_l = spmd_dims(mesh, c_dim, o_dim, tp, units)
+    plan, reason = plan_bgmv(m_rows, c_l, r, o_l, dtype)
+    if reason is not None and which is not None:
+        reason += "/sharded"
+    return plan, reason
+
+
+def _spmd(mesh, x2, a_t, b_s, ids, dims, tp, units, plain: bool):
+    what = "lora_bgmv_spmd"
+    c_dim, o_dim = dims
+    which, c_l, o_l = spmd_dims(mesh, c_dim, o_dim, tp, units)
+    s, r = b_s.shape[:2]
+    want = ((x2.shape[0], c_l), (s, r, c_l), (s, r, o_l))
+    got = (tuple(x2.shape), tuple(a_t.shape), tuple(b_s.shape))
+    if got != want:
+        raise ValueError(
+            f"{what}: local x2/a_t/b_s {got} are not this rank's shard "
+            f"{want} of (C, O) {tuple(dims)} ({tp}) on mesh {mesh.shape}")
+    _plan, reason = plan_bgmv_spmd(mesh, x2.shape[0], c_dim, r, o_dim, tp,
+                                   x2.dtype, units)
+    if reason is not None:
+        return None, reason
+    if plain:
+        return bgmv_ref(x2, a_t, b_s, ids), None
+    delta = lora_bgmv(x2, a_t, b_s, ids)
+    if delta.is_cuda:
+        _launches[what] += 1
+    return delta, None
+
+
+def lora_bgmv_spmd(mesh, x2: torch.Tensor, a_t: torch.Tensor,
+                   b_s: torch.Tensor, ids: torch.Tensor, *, dims,
+                   tp: Optional[str], units: int):
+    """K10f (the TPU package's lora.py:179): K7 on this rank's shard of a
+    target of global (C, O) = `dims` under `mesh`. x2 [M, C_l] is the
+    rank's local activation (the whole input for "col", its slice of the
+    contraction for a sharded "row"), a_t [S, r, C_l] and b_s [S, r, O_l]
+    its shards of the stacks (spmd_dims, with `units` as there). Returns
+    (delta [M, O_l] f32, None) - the rank's output slice for "col", its
+    partial delta for a sharded "row", which the caller all-reduces once -
+    or (None, reason) where the plan declines the per-shard dims. K7 on a
+    card (raising where it cannot launch), its plain version on the CPU;
+    local tensors that are not the rank's shard raise."""
+    return _spmd(mesh, x2, a_t, b_s, ids, dims, tp, units,
+                 plain=x2.device.type == "cpu")
+
+
+def lora_bgmv_spmd_ref(mesh, x2: torch.Tensor, a_t: torch.Tensor,
+                       b_s: torch.Tensor, ids: torch.Tensor, *, dims,
+                       tp: Optional[str], units: int):
+    """Plain version of lora_bgmv_spmd: K7's plain version on the same
+    shard, on any device (counts nothing)."""
+    return _spmd(mesh, x2, a_t, b_s, ids, dims, tp, units, plain=True)

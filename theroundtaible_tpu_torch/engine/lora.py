@@ -32,9 +32,25 @@ another, so a mixed-adapter batch suppresses cross-knight prefix sharing,
 a uniform batch takes only donors of its own adapter, and a slot re-served
 under another adapter is released first (engine._prepare_batch).
 
-Not ported here, each with its ROADMAP item: the sharded stacks (7e), the
-telemetry series and the perf model's per-row bytes (7c), the jaxpr-audit
-registration of the slot setter (no compiled setter exists here).
+Tensor parallelism (`mesh`, an engine/sharding.Mesh with a model axis):
+each rank holds its shard of every target's stacks - B's output axis for a
+column-parallel target, A's contraction axis for a row-parallel one - and
+runs K10f (kernels/lora.lora_bgmv_spmd) on it; a row target's partial
+delta lands on the base's partial product, and the forward's one
+all-reduce of o_proj/down_proj sums both. A stack is sharded exactly
+where its base weight is (`base_units`: the base's heads or hidden count
+must divide the model axis). The JAX package shards a stack where its
+flat dim divides (heads x head_dim), which differs where heads do not
+divide but heads x head_dim does (gemma-2b's one kv head on two ranks:
+JAX splits the k/v stacks' B on D, the port keeps them whole with the
+whole k/v weight); the delta is then the same sum in another order, and
+no collective of its own is needed. A seed or npz persona writes each
+rank's slice of the whole pair, so a persona row on a mesh is the
+single-device persona; an int8 stack's scales are the whole rows'.
+
+Not ported here, each with its ROADMAP item: the telemetry series and the
+perf model's per-row bytes (7c), the jaxpr-audit registration of the slot
+setter (no compiled setter exists here).
 """
 
 from __future__ import annotations
@@ -94,6 +110,17 @@ def lora_dims(model_cfg) -> dict[str, tuple[int, int, str]]:
             "down_proj": (f, e, "row"),
         })
     return dims
+
+
+def base_units(model_cfg) -> dict[str, int]:
+    """Per target, the count of whole units of its base weight along the
+    axis its stacks shard: q/o heads, k/v kv heads, the MLP hidden. A
+    mesh splits a stack where it splits these (the base weight's
+    placement, sharding.param_specs)."""
+    h, k, f = (model_cfg.num_heads, model_cfg.num_kv_heads,
+               model_cfg.mlp_dim)
+    return {"q_proj": h, "k_proj": k, "v_proj": k, "o_proj": h,
+            "gate_proj": f, "up_proj": f, "down_proj": f}
 
 
 def _dequant_stack(leaf, dtype) -> torch.Tensor:
@@ -193,8 +220,8 @@ def apply_current(key: str, x: torch.Tensor, y: torch.Tensor,
     reason = (store.route(key, m, x2.dtype) if lora.mode != "grouped"
               else "mode:grouped")
     if reason is None:
-        fn = klora.bgmv_ref if lora.mode == "plain" else klora.lora_bgmv
-        delta = fn(x2.contiguous(), a, b, ids)
+        delta = store.kernel_delta(key, x2.contiguous(), ids,
+                                   plain=lora.mode == "plain")
         _record(lora.sink, key, m, klora.kernel_path(store.device), None)
     else:
         delta = grouped_bmm(x2, _dequant_stack(a, x.dtype),
@@ -237,7 +264,8 @@ class LoraStore:
                  rank: int = DEFAULT_RANK, scale: float = DEFAULT_SCALE,
                  dtype=torch.bfloat16, quant: str = "none",
                  adapters: Optional[dict] = None,
-                 targets: Optional[list] = None, device="cuda"):
+                 targets: Optional[list] = None, device="cuda",
+                 mesh=None):
         if max_adapters < 1:
             raise ValueError(f"max_adapters must be >= 1, got "
                              f"{max_adapters}")
@@ -261,12 +289,21 @@ class LoraStore:
                     f"{sorted(dims)}")
             dims = {k: v for k, v in dims.items() if k in targets}
         self.dims = dims
+        # Under a model axis: this rank's shard of each target's stacks -
+        # (which axis is split or None, local C, local O) - placed as its
+        # base weight (kernels/lora.spmd_dims with base_units).
+        self.mesh = mesh if mesh is not None and mesh.model > 1 else None
+        self.units = base_units(model_cfg)
+        self.shards = {
+            key: (klora.spmd_dims(self.mesh, c, o, tp, self.units[key])
+                  if self.mesh is not None else (None, c, o))
+            for key, (c, o, tp) in dims.items()}
         # Registered persona configs, loadable on demand at acquire:
         # {name: {"seed": int, "init_std": float} or {"path": npz}}.
         self.personas: dict[str, dict] = dict(adapters or {})
         s = max_adapters + 1
         self.stacked: dict[str, dict[str, Any]] = {}
-        for key, (c, o, _tp) in dims.items():
+        for key, (_which, c, o) in self.shards.items():
             a = torch.zeros((s, rank, c), dtype=dtype, device=self.device)
             b = torch.zeros((s, rank, o), dtype=dtype, device=self.device)
             if quant == "int8":
@@ -292,19 +329,41 @@ class LoraStore:
     def route(self, key: str, m: int, dtype) -> Optional[str]:
         """Why a dispatch of `m` rows at target `key` does not run K7
         (None: it does), planned once per (key, m, dtype): the stack's
-        quantization first, then the kill switch, then the kernel's
-        plan."""
+        quantization first, then the kill switch, then the kernel's plan
+        (K10f's, on the per-shard dims, under a mesh)."""
         k = (key, m, dtype)
         if k not in self._routes:
-            c, o, _tp = self.dims[key]
+            c, o, tp = self.dims[key]
             if self.quant != "none":
                 reason = QUANT_REASON
             elif not self.kernel_enabled:
                 reason = "kernel-disabled"
+            elif self.mesh is not None:
+                reason = klora.plan_bgmv_spmd(self.mesh, m, c, self.rank, o,
+                                              tp, dtype, self.units[key])[1]
             else:
                 reason = klora.plan_bgmv(m, c, self.rank, o, dtype)[1]
             self._routes[k] = reason
         return self._routes[k]
+
+    def kernel_delta(self, key: str, x2: torch.Tensor, ids: torch.Tensor,
+                     plain: bool = False) -> torch.Tensor:
+        """The delta of target `key` for rows x2 [M, C_l] through K7 (K10f
+        under a mesh: this rank's delta slice, or its partial delta of a
+        row target), or their plain versions with `plain`. The caller has
+        routed the dispatch to the kernel (route)."""
+        a, b = self.stacked[key]["a"], self.stacked[key]["b"]
+        if self.mesh is None:
+            fn = klora.bgmv_ref if plain else klora.lora_bgmv
+            return fn(x2, a, b, ids)
+        c, o, tp = self.dims[key]
+        fn = klora.lora_bgmv_spmd_ref if plain else klora.lora_bgmv_spmd
+        delta, reason = fn(self.mesh, x2, a, b, ids, dims=(c, o), tp=tp,
+                           units=self.units[key])
+        if delta is None:
+            raise ValueError(f"lora target {key}: K10f declines a dispatch "
+                             f"its route planned: {reason}")
+        return delta
 
     def decode_declines(self, dtype) -> dict[str, str]:
         """Targets whose decode dispatches K7 would not serve, with the
@@ -332,18 +391,18 @@ class LoraStore:
 
     def adapter_bytes(self) -> int:
         """Device bytes ONE resident adapter costs to store (its A and B
-        rows across the targets)."""
+        rows across the targets) on this rank: its shards under a mesh."""
         per_elt = 1 if self.quant == "int8" else torch.empty(
             (), dtype=self.dtype).element_size()
         return sum(self.rank * (c + o) * per_elt
-                   for c, o, _tp in self.dims.values())
+                   for _which, c, o in self.shards.values())
 
     def resident_bytes(self) -> int:
         return len(self._slots) * self.adapter_bytes()
 
     def stack_bytes(self) -> int:
-        """Bytes of the stacked tensors (every slot is allocated up
-        front)."""
+        """Bytes of the stacked tensors on this rank (every slot is
+        allocated up front)."""
         total = 0
         for ent in self.stacked.values():
             for leaf in ent.values():
@@ -427,7 +486,8 @@ class LoraStore:
 
     def _write_slot(self, slot: int, pair_tree: dict) -> None:
         """Every target's slot values, in place: A as given, B times the
-        scale, each through f32."""
+        scale, each through f32; under a mesh this rank's slice of the
+        whole pair (an int8 stack quantizes the whole rows)."""
         for key in self.stacked:
             if key not in pair_tree:
                 raise ValueError(f"lora pair tree missing target "
@@ -443,13 +503,20 @@ class LoraStore:
                     f"A{tuple(a.shape)} B{tuple(b.shape)}, want "
                     f"A{(self.rank, c)} B{(self.rank, o)}")
             a, b = a.to(self.device), b.to(self.device)
+            which, c_l, o_l = self.shards[key]
+            cols = {"a": slice(None), "b": slice(None)}
+            if which is not None:
+                i = self.mesh.model_index
+                cols["a" if which == "in" else "b"] = (
+                    slice(i * c_l, (i + 1) * c_l) if which == "in"
+                    else slice(i * o_l, (i + 1) * o_l))
             if self.quant == "int8":
                 from .quant import quantize_lora_slot
-                quantize_lora_slot(ent["a"], slot, a)
-                quantize_lora_slot(ent["b"], slot, b)
+                quantize_lora_slot(ent["a"], slot, a, cols["a"])
+                quantize_lora_slot(ent["b"], slot, b, cols["b"])
             else:
-                ent["a"][slot] = a.to(self.dtype)
-                ent["b"][slot] = b.to(self.dtype)
+                ent["a"][slot] = a[:, cols["a"]].to(self.dtype)
+                ent["b"][slot] = b[:, cols["b"]].to(self.dtype)
 
     def _evict_lru(self) -> None:
         victims = [a for a, r in self._refs.items()

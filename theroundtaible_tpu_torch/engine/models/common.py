@@ -199,6 +199,11 @@ LEAF_SPECS = {"q_proj": SPEC_QKV, "k_proj": SPEC_KV, "v_proj": SPEC_KV,
               "o_proj": SPEC_O, "gate_proj": SPEC_UP, "up_proj": SPEC_UP,
               "down_proj": SPEC_DOWN, "embedding": SPEC_HEAD,
               "lm_head": SPEC_HEAD}
+# The TP convention of each call site (the JAX package's `tp=` hints):
+# "col" shards the output (no collective), "row" the contraction (one
+# all-reduce, _row_parallel).
+SPEC_TP = {SPEC_QKV: "col", SPEC_KV: "col", SPEC_O: "row", SPEC_UP: "col",
+           SPEC_DOWN: "row", SPEC_HEAD: "col"}
 
 
 def int4_sites(params: Params, cfg: ModelConfig) -> list:
@@ -258,15 +263,16 @@ def _dense(spec: str, a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def _matmul(a: torch.Tensor, w, spec: str = SPEC_UP, lora=None,
-            target: Optional[str] = None) -> torch.Tensor:
+            target: Optional[str] = None, mesh=None) -> torch.Tensor:
     """The weight product of the call site `spec` (SPEC_*), for a dense,
     int8 or int4 weight, plus the LoRA delta of `target` for the rows of
     `lora` (a LoraBatch, engine/lora.py). The result is f32 for every
     weight kind, as the JAX einsum's: int8 scales the f32 product per
-    output channel, int4 runs K5/K6 (f32 out) or the dequantized weight,
-    a delta is added in f32. Callers cast to what they need next."""
+    output channel, int4 runs K5/K6 (f32 out; K10e on this rank's shard
+    under `mesh`) or the dequantized weight, a delta is added in f32.
+    Callers cast to what they need next."""
     if isinstance(w, Int4Leaf):
-        y = _int4_matmul(spec, a, w)
+        y = _int4_matmul(spec, a, w, mesh)
     elif isinstance(w, dict):
         y = _dense(spec, a, w["q"].to(a.dtype)) * w["s"].float()
     else:
@@ -276,13 +282,22 @@ def _matmul(a: torch.Tensor, w, spec: str = SPEC_UP, lora=None,
     return y
 
 
-def _int4_matmul(spec: str, a: torch.Tensor, leaf: Int4Leaf) -> torch.Tensor:
+def _int4_matmul(spec: str, a: torch.Tensor, leaf: Int4Leaf,
+                 mesh=None) -> torch.Tensor:
     """An Int4Leaf product: the w4a16 kernels (K5/K6, their plain versions
-    on the CPU) by the leaf's plan, else - prefill rows, or on the CPU a
-    leaf the plan declines - the dequantized weight through
+    on the CPU) by the leaf's plan - under a mesh with a model axis
+    through K10e (einsum_int4_spmd) on this rank's shard, which must be
+    planned for that mesh, a row-parallel product's partial sum left to
+    _row_parallel's one all-reduce - else (prefill rows, or on the CPU a
+    leaf the plan declines) the dequantized local weight through
     torch.matmul."""
     from ..kernels import int4mm
-    y, _ = int4mm.einsum_int4_or_reason(spec, a, leaf)
+    if _model_tp(mesh) is not None:
+        y, _ = int4mm.einsum_int4_spmd(
+            mesh, spec, a, leaf, tp=SPEC_TP[spec],
+            w_shape=leaf.plan.w_shape if leaf.plan is not None else ())
+    else:
+        y, _ = int4mm.einsum_int4_or_reason(spec, a, leaf)
     if y is not None:
         return y
     w = dequant_int4(leaf.q4, leaf.s4, leaf.axis, leaf.group, a.dtype)
@@ -338,15 +353,16 @@ def project_qkv(
     positions: torch.Tensor,      # [B, T] absolute positions
     rope_tabs: Optional[tuple[torch.Tensor, torch.Tensor]] = None,
     lora=None,
+    mesh=None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """QKV projection + rope + query scaling. `rope_tabs`: the forward's
-    rope_tables, shared by every layer; `lora`: the dispatch's
-    LoraBatch."""
+    rope_tables, shared by every layer; `lora`: the dispatch's LoraBatch;
+    `mesh`: this rank's Mesh."""
     # f32 products; under a mesh this rank's heads (column-parallel, no
     # collective)
-    q = _matmul(x, layer["q_proj"], SPEC_QKV, lora, "q_proj")  # [B,T,H,D]
-    k = _matmul(x, layer["k_proj"], SPEC_KV, lora, "k_proj")   # [B,T,K,D]
-    v = _matmul(x, layer["v_proj"], SPEC_KV, lora, "v_proj")
+    q = _matmul(x, layer["q_proj"], SPEC_QKV, lora, "q_proj", mesh)
+    k = _matmul(x, layer["k_proj"], SPEC_KV, lora, "k_proj", mesh)
+    v = _matmul(x, layer["v_proj"], SPEC_KV, lora, "v_proj", mesh)
     if cfg.attn_bias:  # Qwen2: linear bias applied BEFORE rotary (HF order)
         q = q + layer["q_bias"].float()
         k = k + layer["k_bias"].float()
@@ -453,7 +469,11 @@ def _flash(q, k_all, v_all, cfg: ModelConfig, offsets, kv_valid,
 def _row_parallel(y: torch.Tensor, n: int, mesh, dtype) -> torch.Tensor:
     """A row-parallel product's f32 result in `dtype`: under a mesh that
     shards its contraction (of n) the partial sums are all-reduced in f32
-    first, as the JAX einsum's f32 result is reduced before its cast."""
+    first, as the JAX einsum's f32 result is reduced before its cast. The
+    one all-reduce of o_proj and down_proj for every weight kind: `y`
+    already holds the int8 scale (its axis is never the sharded one), the
+    K10e partial of an int4 weight and the K10f partial LoRA delta, whose
+    stacks are sharded exactly where the weight is (engine/lora.py)."""
     if _splits(n, mesh):
         from ..distributed import all_reduce_sum
         y = all_reduce_sum(y, mesh.model_group)
@@ -464,7 +484,7 @@ def _o_proj(out: torch.Tensor, layer: Params, cfg: ModelConfig,
             dtype, lora=None, mesh=None) -> torch.Tensor:
     """[B,T,H,D] attention output -> [B,T,E] in `dtype`."""
     return _row_parallel(
-        _matmul(out, layer["o_proj"], SPEC_O, lora, "o_proj"),
+        _matmul(out, layer["o_proj"], SPEC_O, lora, "o_proj", mesh),
         cfg.num_heads, mesh, dtype)
 
 
@@ -489,7 +509,7 @@ def attention(
     takes the dense math on the CPU, as in JAX, and raises on a card),
     else the dense math. `lora`: the
     dispatch's LoraBatch; `mesh`: this rank's Mesh (tensor parallel)."""
-    q, k, v = project_qkv(x, layer, cfg, positions, rope_tabs, lora)
+    q, k, v = project_qkv(x, layer, cfg, positions, rope_tabs, lora, mesh)
     if kv_cache is not None:
         k_cache, v_cache = kv_cache[0].clone(), kv_cache[1].clone()
         t = k.shape[1]
@@ -526,13 +546,14 @@ def mlp(x: torch.Tensor, layer: Params, cfg: ModelConfig,
     if cfg.num_experts:
         raise NotImplementedError(
             "MoE (moe_mlp) is not ported yet (ROADMAP, slice 7)")
-    gate = _matmul(x, layer["gate_proj"], SPEC_UP, lora, "gate_proj")
-    up = _matmul(x, layer["up_proj"], SPEC_UP, lora, "up_proj")
+    gate = _matmul(x, layer["gate_proj"], SPEC_UP, lora, "gate_proj", mesh)
+    up = _matmul(x, layer["up_proj"], SPEC_UP, lora, "up_proj", mesh)
     act = (F.gelu(gate, approximate="tanh") if cfg.gelu_mlp
            else F.silu(gate))
     hidden = (act * up).to(x.dtype)
     return _row_parallel(
-        _matmul(hidden, layer["down_proj"], SPEC_DOWN, lora, "down_proj"),
+        _matmul(hidden, layer["down_proj"], SPEC_DOWN, lora, "down_proj",
+                mesh),
         cfg.mlp_dim, mesh, x.dtype)
 
 
@@ -596,7 +617,7 @@ def lm_head(params: Params, cfg: ModelConfig, x: torch.Tensor,
     of its slice are gathered along the vocab (identical on every
     rank)."""
     head = params["embedding"] if cfg.tie_embeddings else params["lm_head"]
-    logits = _matmul(x, head, SPEC_HEAD)
+    logits = _matmul(x, head, SPEC_HEAD, mesh=mesh)
     if _splits(cfg.vocab_size, mesh):
         from ..distributed import all_gather_cat
         logits = all_gather_cat(logits, mesh.model_group, dim=-1)
@@ -703,7 +724,8 @@ def forward_cached(
     for layer, (k_cache, v_cache) in zip(params["layers"], cache_layers):
 
         def attn_fn(h, layer, k_cache=k_cache, v_cache=v_cache):
-            q, k, v = project_qkv(h, layer, cfg, positions, tabs, lora)
+            q, k, v = project_qkv(h, layer, cfg, positions, tabs, lora,
+                                  mesh)
             # In place: JAX's per-row dynamic_update_slice of the chunk.
             k_cache[rows_l[:, None], write_pos] = k
             v_cache[rows_l[:, None], write_pos] = v
@@ -736,29 +758,35 @@ def gather_rows(x: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
-                dtype=torch.bfloat16, device="cpu", mesh=None) -> Params:
+                dtype=torch.bfloat16, device="cpu", mesh=None,
+                quantize: Optional[Callable] = None) -> Params:
     """Random init with the JAX package's distributions (normal scaled by
     fan_in^-0.5, unit or zero norms, 0.02 biases), drawn in a fixed order
     from `generator` - the counterpart of the JAX key splits. The values
     differ from jax.random's; tests bridge weights instead
-    (engine/weights.py). Under a `mesh` every rank draws the same whole
-    tensors in the same order and keeps its slice of each
-    (sharding.shard_params): the shards of the weights one device would
-    draw from the same generator, with one whole layer alive at a
+    (engine/weights.py). `quantize` (engine/quant.quantize_leaves with its
+    options bound) maps each dict of whole drawn leaves to their quantized
+    forms as soon as they are drawn. Under a `mesh` every rank draws the
+    same whole tensors in the same order, quantizes them whole (every
+    scale the whole leaf's) and keeps its slice of each
+    (sharding.shard_tree): the shards of the weights one device would draw
+    and quantize from the same generator. One whole layer is alive at a
     time."""
     device = torch.device(device)
     if mesh is not None:
-        from ..sharding import param_specs, shard_leaf
+        from ..sharding import materialize, param_specs, shard_tree
         specs = param_specs(cfg)
 
         def keep(tree, spec):
-            return {k: shard_leaf(v, spec[k], mesh).clone()
-                    for k, v in tree.items()}
+            if quantize is not None:
+                tree = quantize(tree)
+            return {k: materialize(v)
+                    for k, v in shard_tree(tree, spec, mesh).items()}
     else:
         specs = None
 
         def keep(tree, spec):
-            return tree
+            return tree if quantize is None else quantize(tree)
 
     def normal(shape, scale):
         x = torch.randn(shape, generator=generator, dtype=torch.float32,

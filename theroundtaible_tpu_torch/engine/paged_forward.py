@@ -160,7 +160,8 @@ def forward_paged(
 
         def attn_fn(h, layer, k_pool=k_pool, v_pool=v_pool, k_sc=k_sc,
                     v_sc=v_sc):
-            q, k, v = project_qkv(h, layer, cfg, positions, tabs, lora)
+            q, k, v = project_qkv(h, layer, cfg, positions, tabs, lora,
+                                  mesh)
             _write_kv(k_pool, v_pool, k_sc, v_sc, pages, offs, k, v,
                       quant_spec)
             kw = dict(sliding_window=cfg.sliding_window,
@@ -246,8 +247,8 @@ def forward_ragged(
 
         def attn_fn(h, layer, k_pool=k_pool, v_pool=v_pool, k_sc=k_sc,
                     v_sc=v_sc):
-            q, k, v = project_qkv(h, layer, cfg, pos2, tabs,
-                                  lora)                    # [1,T,.,D]
+            q, k, v = project_qkv(h, layer, cfg, pos2, tabs, lora,
+                                  mesh)                    # [1,T,.,D]
             _write_kv(k_pool, v_pool, k_sc, v_sc, pages, offs, k[0], v[0],
                       quant_spec)
             out = attend(q[0], k_pool, v_pool, tables, seq_of_block,

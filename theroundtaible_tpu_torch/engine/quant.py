@@ -17,9 +17,17 @@ Representations (models/common's matmul seam and embed_tokens take both;
 q is computed from the f32 scale, which is then stored in the activation
 dtype; the outputs equal the JAX package's bit for bit. Norms stay as
 they are. LoRA stacks quantize the same way, per (slot, rank row)
-(`quantize_lora_stack`, `quantize_lora_slot`). The TP-shard-aligned int4
-groups (`model_shards`) and the sharded placement are the multi-device
-slice's (ROADMAP, slice 7).
+(`quantize_lora_stack`, `quantize_lora_slot`).
+
+Under a tensor-parallel mesh every scale is the whole leaf's, as in the
+JAX engine, which quantizes its global arrays: o_proj's and down_proj's
+int8 scale s[E] reduces over the sharded axis, so a leaf is quantized
+before a rank keeps its slice (`quantize_leaves` inside
+models/common.init_params). `model_shards` aligns an int4 leaf whose pack
+axis is model-sharded (gate/up [E, F]) to groups that divide the
+per-shard dim, so no group straddles two ranks. `quantized_specs` is the
+JAX package's spec tree of a quantized tree (engine/sharding.py places by
+it).
 """
 
 from __future__ import annotations
@@ -65,9 +73,13 @@ def _quantize_leaf(w: torch.Tensor, scale_axes: tuple[int, ...],
     return {"q": q, "s": s.to(act_dtype)}
 
 
-def _int4_group_for(dim: int, group: int) -> int:
+def _int4_group_for(dim: int, group: int, shards: int = 1) -> int:
     """Largest even divisor of `dim` that is <= group (0 = no valid
-    grouping; the leaf then falls back to int8)."""
+    grouping; the leaf then falls back to int8). With the pack axis
+    sharded over `shards` ranks the group divides the per-shard dim, so
+    every shard holds whole groups (and whole packed bytes)."""
+    if shards > 1 and dim % shards == 0:
+        dim = dim // shards
     for g in range(min(group, dim), 1, -1):
         if g % 2 == 0 and dim % g == 0:
             return g
@@ -75,12 +87,13 @@ def _int4_group_for(dim: int, group: int) -> int:
 
 
 def _quantize_leaf_int4(w: torch.Tensor, scale_axes: tuple[int, ...],
-                        act_dtype, group: int) -> Any:
+                        act_dtype, group: int, pack_shards: int = 1) -> Any:
     """Symmetric per-group int4 (w ~ q4 * s4, |q4| <= 7), two nibbles per
-    int8 byte along the LAST axis (even element -> low nibble). A last
-    dim that cannot group stays int8."""
+    int8 byte along the LAST axis (even element -> low nibble); groups
+    aligned to `pack_shards` shards of that axis. A last dim that cannot
+    group stays int8."""
     dim = w.shape[-1]
-    g = _int4_group_for(dim, group)
+    g = _int4_group_for(dim, group, pack_shards)
     if g < 2:
         return _quantize_leaf(w, scale_axes, act_dtype)
     wg = w.float().reshape(*w.shape[:-1], dim // g, g)
@@ -93,17 +106,28 @@ def _quantize_leaf_int4(w: torch.Tensor, scale_axes: tuple[int, ...],
                     axis=w.dim() - 1, group=g)
 
 
-def quantize_params(params: Params, cfg: ModelConfig,
-                    act_dtype=torch.bfloat16, free_source: bool = False,
-                    bits: int = 8, group: int = 64) -> Params:
-    """Quantize the big matmul weights; returns a new tree (norms and
-    unrecognized leaves pass through). bits=8: per-output-channel int8
-    dicts; bits=4: per-`group` Int4Leafs (int8 where a leaf cannot group).
+def _pack_shards(cfg: ModelConfig, key: str, value, model_shards: int
+                 ) -> int:
+    """model_shards when the leaf's last (pack) axis is the model-sharded
+    one by param_specs and divides, else 1 (JAX l.200-214)."""
+    if model_shards <= 1:
+        return 1
+    from .sharding import MODEL_AXIS, param_specs
+    specs = param_specs(cfg)
+    spec = specs.get(key, specs["layers"][0].get(key))
+    if (spec is not None and len(spec) == value.dim()
+            and spec[-1] == MODEL_AXIS
+            and value.shape[-1] % model_shards == 0):
+        return model_shards
+    return 1
 
-    free_source=True empties each source leaf's storage as soon as its
-    replacement exists, so an 8B model peaks near bf16 plus one leaf
-    instead of bf16 plus int8: the caller must own `params` (the engine
-    does) and must not read the source tree afterwards."""
+
+def quantize_leaves(tree: dict, cfg: ModelConfig, act_dtype=torch.bfloat16,
+                    free_source: bool = False, bits: int = 8,
+                    group: int = 64, model_shards: int = 1) -> dict:
+    """quantize_params for one flat dict of named leaves (a layer, or the
+    embedding or head alone): every weight of _SCALE_AXES quantized and
+    planned for its call site on one device, the rest passed through."""
     if bits not in (8, 4):
         raise ValueError(f"bits must be 8 or 4, got {bits}")
     if cfg.num_experts:
@@ -113,7 +137,9 @@ def quantize_params(params: Params, cfg: ModelConfig,
     def one(value: torch.Tensor, key: str) -> Any:
         scale_axes = _SCALE_AXES[key]
         if bits == 4:
-            out = _quantize_leaf_int4(value, scale_axes, act_dtype, group)
+            out = _quantize_leaf_int4(
+                value, scale_axes, act_dtype, group,
+                _pack_shards(cfg, key, value, model_shards))
             if isinstance(out, Int4Leaf):
                 out = plan_leaf(LEAF_SPECS[key], out)
         else:
@@ -126,13 +152,62 @@ def quantize_params(params: Params, cfg: ModelConfig,
             storage.resize_(0)
         return out
 
+    return {k: (one(v, k) if k in _SCALE_AXES else v)
+            for k, v in tree.items()}
+
+
+def quantize_params(params: Params, cfg: ModelConfig,
+                    act_dtype=torch.bfloat16, free_source: bool = False,
+                    bits: int = 8, group: int = 64,
+                    model_shards: int = 1) -> Params:
+    """Quantize the big matmul weights; returns a new tree (norms and
+    unrecognized leaves pass through). bits=8: per-output-channel int8
+    dicts; bits=4: per-`group` Int4Leafs (int8 where a leaf cannot group),
+    with groups aligned to `model_shards` where the pack axis is
+    model-sharded (the mesh's model axis size; JAX quantize_params).
+
+    free_source=True empties each source leaf's storage as soon as its
+    replacement exists, so an 8B model peaks near bf16 plus one leaf
+    instead of bf16 plus int8: the caller must own `params` and must not
+    read the source tree afterwards."""
+    kw = dict(act_dtype=act_dtype, free_source=free_source, bits=bits,
+              group=group, model_shards=model_shards)
+    top = quantize_leaves({k: v for k, v in params.items()
+                           if k != "layers"}, cfg, **kw)
+    return {k: ([quantize_leaves(layer, cfg, **kw) for layer in v]
+                if k == "layers" else top[k]) for k, v in params.items()}
+
+
+def _spec_for_scale(spec, scale_axes: tuple[int, ...]) -> tuple:
+    """The spec of a scale leaf: `s` keeps exactly `scale_axes` of the
+    weight, so it keeps those axes' entries (JAX l.260)."""
+    entries = tuple(spec) if spec is not None else ()
+    return tuple(entries[a] if a < len(entries) else None
+                 for a in scale_axes)
+
+
+def _qspec_leaf(spec, scale_axes: tuple[int, ...], leaf):
+    """The spec of one quantized leaf (JAX l.328): an Int4Leaf of specs
+    (q4 and s4 both take the weight's) for an Int4Leaf, else {"q": spec,
+    "s": the kept axes' spec}."""
+    if isinstance(leaf, Int4Leaf):
+        return Int4Leaf(q4=spec, s4=spec, axis=leaf.axis, group=leaf.group)
+    return {"q": spec, "s": _spec_for_scale(spec, scale_axes)}
+
+
+def quantized_specs(specs: Params, params: Params) -> Params:
+    """The spec tree (sharding.param_specs, or one flat dict of its
+    entries) matching the quantized tree `params` (JAX l.299): each weight
+    of _SCALE_AXES that is quantized there becomes _qspec_leaf's spec; a
+    dense leaf keeps its spec."""
     out: Params = {}
-    for key, value in params.items():
-        if key in ("embedding", "lm_head"):
-            out[key] = one(value, key)
-        elif key == "layers":
-            out[key] = [{k: (one(v, k) if k in _SCALE_AXES else v)
-                         for k, v in layer.items()} for layer in value]
+    for key, value in specs.items():
+        pv = params.get(key)
+        if key == "layers":
+            out[key] = [quantized_specs(layer, pv[i])
+                        for i, layer in enumerate(value)]
+        elif key in _SCALE_AXES and quantized(pv):
+            out[key] = _qspec_leaf(value, _SCALE_AXES[key], pv)
         else:
             out[key] = value
     return out
@@ -152,13 +227,16 @@ def quantize_lora_stack(stack: torch.Tensor, act_dtype) -> dict[str, Any]:
 
 
 def quantize_lora_slot(leaf: dict[str, Any], slot: int,
-                       value32: torch.Tensor) -> dict[str, Any]:
+                       value32: torch.Tensor, cols=slice(None)
+                       ) -> dict[str, Any]:
     """Write ONE slot of an int8 LoRA stack: the f32 [r, X] rows
     quantized by quantize_lora_stack's rule, in place (a dispatch queued
     earlier on the same stream reads the slot before this write lands).
-    Returns `leaf`."""
+    A stack sharded on its last axis keeps the columns `cols` of the
+    payload; the scales are the whole rows' on every rank. Returns
+    `leaf`."""
     s = torch.clamp(value32.abs().amax(dim=-1), min=1e-8) / 127.0
     q = torch.clamp(torch.round(value32 / s[..., None]), -127, 127)
-    leaf["q"][slot] = q.to(torch.int8)
+    leaf["q"][slot] = q[:, cols].to(torch.int8)
     leaf["s"][slot] = s.to(leaf["s"].dtype)
     return leaf

@@ -20,6 +20,19 @@ A spec is a tuple of axis names or None per dimension (the JAX package's
 PartitionSpec as a plain tuple). A dimension the axis size does not divide
 is replicated (`_fallback_replicated`): MQA's single kv head, or any head,
 hidden or vocab count that does not divide the model axis.
+
+Quantized leaves (engine/quant.py) take the spec tree quant.quantized_specs
+makes from param_specs, as in the JAX package: an int8 dict's payload `q`
+the weight's spec and its scale `s` the entries of the axes it keeps (so
+o_proj's and down_proj's s[E] is whole on every rank), an Int4Leaf's `q4`
+and `s4` the weight's spec, sharded only where the axis divides both (the
+K10e rule, `int4_shard_axis`), so a shard holds whole scale groups. The
+scales are the whole leaf's: a leaf is quantized before its slice is kept
+(models/common.init_params, weights.params_from_numpy). Each Int4Leaf shard
+is planned for the mesh (`plan_int4_shard`), on its own shapes.
+`int4_shard_axis` and `lora_shard_axis` say which axis of a packed weight
+or a LoRA stack carries the model shards and whether its product needs an
+all-reduce.
 """
 
 from __future__ import annotations
@@ -28,7 +41,10 @@ import dataclasses
 import math
 from typing import Any, Optional
 
-from .models.common import Int4Leaf, ModelConfig, Params
+from .models.common import (LEAF_SPECS, SPEC_TP, Int4Leaf, ModelConfig,
+                            Params)
+from .kernels import int4mm
+from .quant import quantized_specs
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
@@ -171,8 +187,39 @@ def param_specs(cfg: ModelConfig) -> Params:
 
 
 def model_axis_size(mesh: Optional[Mesh]) -> int:
-    """Model-axis (TP) shard count of a mesh, 1 without one."""
+    """Model-axis (TP) shard count of a mesh, 1 without one: the
+    `model_shards` quant.quantize_params aligns int4 groups to, and the
+    shard count K10e/K10f partition against."""
     return mesh.model if mesh is not None else 1
+
+
+def int4_shard_axis(tp: Optional[str], w_ndim: int, n_cont: int,
+                    mode: str) -> tuple[Optional[int], bool]:
+    """(weight axis carrying the model shards or None, needs_psum) of a
+    packed-int4 product (JAX l.162), kept beside param_specs so the two
+    agree. tp "col" (q/k/v, gate/up, the head): the first kept axis -
+    heads, hidden or vocab - each rank computes its output slice, no
+    collective. tp "row" (o_proj, down_proj) with `mode` "out": the first
+    contracted axis, the partial sums need one all-reduce. Anything else
+    (no tp, or "row" on the head's pack-on-contraction layout, which no
+    weight uses) replicates."""
+    if tp == "col":
+        return (n_cont if mode == "out" else 0), False
+    if tp == "row" and mode == "out":
+        return 0, True
+    return None, False
+
+
+def lora_shard_axis(tp: Optional[str]) -> Optional[str]:
+    """Which axis of a target's LoRA stacks carries the model shards (JAX
+    l.188): "out" (B's output axis) for a column-parallel target, no
+    collective; "in" (A's contraction axis) for a row-parallel one, whose
+    partial deltas need one all-reduce; None replicates."""
+    if tp == "col":
+        return "out"
+    if tp == "row":
+        return "in"
+    return None
 
 
 def kv_cache_spec() -> Spec:
@@ -208,30 +255,97 @@ def shard_slices(spec: Spec, shape: tuple[int, ...],
     return tuple(out)
 
 
-def shard_leaf(x, spec: Spec, mesh: Mesh):
-    """This rank's slice of one dense leaf (a torch tensor or a numpy
-    array) - a view; callers copy it when the full leaf must go."""
-    if isinstance(x, Int4Leaf) or (isinstance(x, dict) and "q" in x):
-        raise NotImplementedError(
-            "quantized weights under a mesh are not ported yet (ROADMAP, "
-            "slice 7: int4 weights and LoRA under a mesh)")
+def shard_leaf(x, spec, mesh: Mesh):
+    """This rank's slice of one leaf (torch tensors or numpy arrays) under
+    its spec - views; callers copy what must outlive the whole leaf
+    (`materialize`). An int8 dict takes {"q": spec, "s": spec} and an
+    Int4Leaf an Int4Leaf of specs (quant.quantized_specs) or the weight's
+    spec; an Int4Leaf axis is sharded only where it divides both q4 and s4
+    (K10e's rule), and its shard comes back unplanned."""
+    if isinstance(x, Int4Leaf):
+        spec = spec.q4 if isinstance(spec, Int4Leaf) else spec
+        q4, s4 = (_fallback_replicated(spec, tuple(t.shape), mesh)
+                  for t in (x.q4, x.s4))
+        joint = tuple(a if a == b else None for a, b in zip(q4, s4))
+        return Int4Leaf(q4=x.q4[shard_slices(joint, tuple(x.q4.shape),
+                                             mesh)],
+                        s4=x.s4[shard_slices(joint, tuple(x.s4.shape),
+                                             mesh)],
+                        axis=x.axis, group=x.group)
+    if isinstance(x, dict) and "q" in x:
+        return {"q": shard_leaf(x["q"], spec["q"], mesh),
+                "s": shard_leaf(x["s"], spec["s"], mesh)}
     return x[shard_slices(spec, tuple(x.shape), mesh)]
+
+
+def plan_int4_shard(spec: str, part: Int4Leaf, mesh: Mesh, w_shape,
+                    tp: Optional[str]) -> Int4Leaf:
+    """`part`, this rank's shard of an int4 weight of whole dense shape
+    `w_shape`, planned for K10e at the call site `spec` of convention `tp`
+    (kernels/int4mm.plan_leaf): split on int4_shard_axis's axis where the
+    model axis divides both q4 and s4 there, else whole on every rank. On
+    a mesh without a model axis the leaf's plain plan."""
+    if mesh.model == 1:
+        return int4mm.plan_leaf(spec, part)
+    axis, psum = None, False
+    cls, _ = int4mm.classify(spec, part)
+    if cls is not None:
+        mode, n_cont, _gp = cls
+        axis, psum = int4_shard_axis(tp, len(w_shape), n_cont, mode)
+        q4 = (*w_shape[:-1], w_shape[-1] // 2)
+        s4 = (*w_shape[:-1], w_shape[-1] // part.group)
+        if axis is not None and not (mesh.splits(q4[axis])
+                                     and mesh.splits(s4[axis])):
+            axis, psum = None, False
+    return int4mm.plan_leaf(spec, part, mesh, w_shape, tp, axis, psum)
+
+
+def _shard_named(name: str, x, spec, mesh: Mesh):
+    """shard_leaf of the leaf `name`, an Int4Leaf's shard planned for the
+    mesh against the whole weight's shape."""
+    part = shard_leaf(x, spec, mesh)
+    if isinstance(part, Int4Leaf):
+        part = plan_int4_shard(LEAF_SPECS[name], part, mesh,
+                               (*x.q4.shape[:-1], 2 * x.q4.shape[-1]),
+                               SPEC_TP[LEAF_SPECS[name]])
+    return part
+
+
+def shard_tree(tree: dict, specs: dict, mesh: Mesh) -> dict:
+    """shard_params for one flat dict of named leaves (a layer, or the
+    embedding or head alone) with param_specs' entries for those names;
+    quantized leaves take quant.quantized_specs' specs."""
+    qspecs = quantized_specs({k: specs[k] for k in tree}, tree)
+    return {k: _shard_named(k, v, qspecs[k], mesh) for k, v in tree.items()}
 
 
 def shard_params(tree: Params, cfg: ModelConfig, mesh: Mesh) -> Params:
     """This rank's slice of every leaf of `tree` (torch tensors or numpy
-    arrays in init_params' structure) by param_specs: q/k/v on heads,
-    o_proj on its contraction, gate/up and down on the hidden, embedding
-    and lm_head on the vocab, q/k/v biases on heads; a dimension that does
-    not divide is replicated. Slices are views of the given leaves."""
+    arrays in init_params' structure, dense or quantized) by param_specs:
+    q/k/v on heads, o_proj on its contraction, gate/up and down on the
+    hidden, embedding and lm_head on the vocab, q/k/v biases on heads; a
+    dimension that does not divide is replicated. Slices are views of the
+    given leaves; an Int4Leaf's shard is planned for the mesh."""
     specs = param_specs(cfg)
-    out: Params = {k: shard_leaf(v, specs[k], mesh)
-                   for k, v in tree.items() if k != "layers"}
-    out["layers"] = [{name: shard_leaf(w, lspec[name], mesh)
-                      for name, w in layer.items()}
+    out: Params = shard_tree({k: v for k, v in tree.items()
+                              if k != "layers"}, specs, mesh)
+    out["layers"] = [shard_tree(layer, lspec, mesh)
                      for layer, lspec in zip(tree["layers"],
                                              specs["layers"])]
     return out
+
+
+def materialize(x, device=None):
+    """A contiguous copy of one torch leaf - dense, int8 dict or Int4Leaf
+    (its plan kept) - on `device` (where it is without one)."""
+    def copy(t):
+        return t.to(device=device, copy=True).contiguous()
+
+    if isinstance(x, Int4Leaf):
+        return dataclasses.replace(x, q4=copy(x.q4), s4=copy(x.s4))
+    if isinstance(x, dict):
+        return {k: copy(v) for k, v in x.items()}
+    return copy(x)
 
 
 def local_config(cfg: ModelConfig, mesh: Optional[Mesh]) -> ModelConfig:

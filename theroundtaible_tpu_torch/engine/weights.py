@@ -12,9 +12,10 @@ axis and group) becomes the port's models/common.Int4Leaf, planned for its
 call site (kernels/int4mm.plan_leaf).
 
 Under a mesh (`mesh`, an engine/sharding.Mesh) each rank keeps its slice of
-every leaf (sharding.shard_params: the JAX package's param_specs), so the
-ranks of a tensor-parallel engine together hold the same weights as the
-JAX engine sharded over the same mesh."""
+every leaf (sharding.shard_tree: the JAX package's param_specs and, for a
+quantized leaf, quantized_specs), so the ranks of a tensor-parallel engine
+together hold the same weights as the JAX engine sharded over the same
+mesh; an Int4Leaf's shard is planned on its own shapes (K10e)."""
 
 from __future__ import annotations
 
@@ -44,13 +45,27 @@ def expected_shapes(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
     return shapes
 
 
-def dense_param_count(cfg: ModelConfig) -> int:
-    """Parameters of an unquantized tree of `cfg` (models/common
-    param_count's count), from its shapes."""
-    per_layer = sum(math.prod(s) for s in expected_shapes(cfg).values())
-    heads = 1 if cfg.tie_embeddings else 2
-    return (cfg.num_layers * per_layer + heads * cfg.vocab_size
-            * cfg.embed_dim + cfg.embed_dim)
+def param_count_of(params: Params, cfg: ModelConfig) -> int:
+    """The whole model's parameter count (models/common param_count's
+    count: an int8 dict counts q and s, an Int4Leaf two per packed byte
+    plus its scales), from the leaves' kinds and `cfg`'s whole shapes, so a
+    rank's slices count what the JAX engine's global tree counts."""
+    vocab = (cfg.vocab_size, cfg.embed_dim)
+    shapes = {**expected_shapes(cfg), "embedding": vocab, "lm_head": vocab,
+              "final_norm": (cfg.embed_dim,)}
+
+    def count(name: str, leaf) -> int:
+        shape = shapes[name]
+        n = math.prod(shape)
+        if isinstance(leaf, Int4Leaf):
+            return n + n // leaf.group
+        if isinstance(leaf, dict):
+            return n + math.prod(shape[a] for a in _SCALE_AXES[name])
+        return n
+
+    total = sum(count(k, v) for k, v in params.items() if k != "layers")
+    return total + sum(count(k, v) for layer in params["layers"]
+                       for k, v in layer.items())
 
 
 def _tensor(x, shape, name: str, dtype, device) -> torch.Tensor:
@@ -98,9 +113,10 @@ def _leaf(x, shape, name: str, dtype, device):
 def params_from_numpy(tree: dict, cfg: ModelConfig, dtype=torch.bfloat16,
                       device="cpu", mesh=None) -> Params:
     """The port's parameters from `jax.device_get(engine.params)`, dense or
-    quantized; under `mesh` this rank's slices of the dense leaves
-    (quantized leaves under a mesh raise NotImplementedError). Raises on a
-    missing leaf or a shape that disagrees with `cfg`."""
+    quantized; under `mesh` this rank's slices of them (one leaf at a time
+    is bridged whole on the CPU, sliced, and its slice copied to `device`,
+    so the host holds one whole leaf at most). Raises on a missing leaf or
+    a shape that disagrees with `cfg`."""
     if cfg.num_experts:
         raise NotImplementedError(
             "MoE weights are not ported yet (ROADMAP, slice 7)")
@@ -108,23 +124,30 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, dtype=torch.bfloat16,
         raise ValueError(f"tree has {len(tree['layers'])} layers, config "
                          f"{cfg.num_layers}")
     if mesh is not None and mesh.model > 1:
-        from .sharding import local_config, shard_params
-        tree = shard_params(tree, cfg, mesh)
-        cfg = local_config(cfg, mesh)
+        from .sharding import materialize, param_specs, shard_tree
+        specs = param_specs(cfg)
+
+        def leaf(x, shape, name):
+            key = name.split(".")[-1]
+            spec = specs[key] if key in specs else specs["layers"][0][key]
+            whole = {key: _leaf(x, shape, name, dtype, "cpu")}
+            return materialize(shard_tree(whole, {key: spec}, mesh)[key],
+                               device)
+    else:
+        def leaf(x, shape, name):
+            return _leaf(x, shape, name, dtype, device)
+
     vocab = (cfg.vocab_size, cfg.embed_dim)
     out: Params = {
-        "embedding": _leaf(tree["embedding"], vocab, "embedding", dtype,
-                           device),
-        "final_norm": _tensor(tree["final_norm"], (cfg.embed_dim,),
-                              "final_norm", dtype, device),
+        "embedding": leaf(tree["embedding"], vocab, "embedding"),
+        "final_norm": leaf(tree["final_norm"], (cfg.embed_dim,),
+                           "final_norm"),
         "layers": [],
     }
     if not cfg.tie_embeddings:
-        out["lm_head"] = _leaf(tree["lm_head"], vocab, "lm_head", dtype,
-                               device)
+        out["lm_head"] = leaf(tree["lm_head"], vocab, "lm_head")
     for i, layer in enumerate(tree["layers"]):
         out["layers"].append({
-            name: _leaf(layer[name], shape, f"layers[{i}].{name}", dtype,
-                        device)
+            name: leaf(layer[name], shape, f"layers[{i}].{name}")
             for name, shape in expected_shapes(cfg).items()})
     return out
