@@ -3,7 +3,8 @@
 one NVIDIA card, in one run - to compare a change with its parent on the
 same card under the same power limit.
 
-    python3 chip_compare.py [--kernels | --k5-splits] DIR [DIR ...]
+    python3 chip_compare.py [--kernels | --attention | --k5-splits] \
+        DIR [DIR ...]
 
 Each DIR is a checkout (or `git archive`) holding chip_smoke.py and
 theroundtaible_tpu_torch/. For each DIR, in the order given, a fresh
@@ -21,6 +22,11 @@ With --kernels each run builds the kernels and runs only the quant_kernels
 phase instead: K4 in K1-K3, K5 at the five decode projections and K6 at
 the head, each timed with CUDA events; the summary holds K5's time for one
 layer's seven products and K6's.
+
+With --attention each run builds the kernels and runs only the kernels
+phase: K1, K2, K3, K8 and K9 against their plain versions, then each
+timed with CUDA events at the serving shapes beside its SDPA yardstick;
+the summary holds each kernel's ms, its yardstick's and its bound.
 
 With --k5-splits each run builds the kernels and times K5 alone at the
 per-rank column shards of K10e on a 2-way model axis at Llama-3-8B width
@@ -103,10 +109,11 @@ def k5_splits_phase(torch, cs, reps: int = 300) -> None:
     cs.emit("k5_splits", sms=sms, reps=reps, shards=out)
 
 
-def child(root: str, kernels: bool = False, splits: bool = False) -> None:
+def child(root: str, kernels: bool = False, splits: bool = False,
+          attention: bool = False) -> None:
     """One checkout's single-device phases (or, with `kernels`, its
-    quant_kernels phase; with `splits`, k5_splits_phase), in this
-    process."""
+    quant_kernels phase; with `splits`, k5_splits_phase; with `attention`,
+    its kernels phase), in this process."""
     sys.path[0] = root              # that checkout's chip_smoke and package
     import gc
 
@@ -125,6 +132,9 @@ def child(root: str, kernels: bool = False, splits: bool = False) -> None:
         return
     if splits:
         k5_splits_phase(torch, cs)
+        return
+    if attention:
+        cs.emit("kernels_timing", **cs.kernels_phase(torch, kattn)["timing"])
         return
 
     def release(engine):
@@ -161,6 +171,14 @@ def summarize(phases: list[dict]) -> dict:
 
     if "k5_splits" in by:
         return {"k5_splits": by["k5_splits"][0]["shards"]}
+    if "kernels_timing" in by:
+        timing = dict(by["kernels_timing"][0])
+        for key in ("phase", "elapsed_s"):
+            timing.pop(key)
+        return {"attention": {
+            kind: {"ms": t["ms"], "bound_ms": t["bound_ms"],
+                   "sdpa_ms": t.get("sdpa_view_ms", t.get("sdpa_ms"))}
+            for kind, t in timing.items()}}
     w4 = by.get("quant_kernels", [{}])[0].get("w4a16")
     if w4:
         return {"k5_layer_ms": sum(t["ms"] * t["per_layer"]
@@ -213,10 +231,12 @@ def main(dirs: list[str], mode: list[str]) -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--child"]:
         child(sys.argv[2], kernels="--kernels" in sys.argv[3:],
-              splits="--k5-splits" in sys.argv[3:])
+              splits="--k5-splits" in sys.argv[3:],
+              attention="--attention" in sys.argv[3:])
         sys.exit(0)
     args = sys.argv[1:]
-    modes = [a for a in args if a in ("--kernels", "--k5-splits")]
+    modes = [a for a in args
+             if a in ("--kernels", "--attention", "--k5-splits")]
     dirs = [a for a in args if a not in modes]
     if not dirs or len(modes) > 1:
         print(__doc__, file=sys.stderr)

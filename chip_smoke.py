@@ -8,7 +8,11 @@ Run from the repository root on a machine with one NVIDIA Hopper card:
 Phases, each printing one JSON line; any failure exits non-zero:
 
 1. device  - the card's name and power limit (nvidia-smi).
-2. build   - nvcc builds the CUDA kernels from engine/kernels/csrc.
+2. build   - nvcc builds the CUDA kernels from engine/kernels/csrc;
+             `ptxas`: each kernel's registers, static shared memory and
+             spill bytes; `tensor_cores`: the HGMMA (wgmma) instructions
+             of K2's and K8's libraries, which must be above 0 where the
+             toolkit has cuobjdump.
 3. kernels - K1 (paged decode), K2 (paged prefill), K3 (ragged mixed
              prefill/decode), K8 (contiguous prefill) and K9 (contiguous
              decode) against their plain PyTorch versions on the card in
@@ -16,10 +20,13 @@ Phases, each printing one JSON line; any failure exits non-zero:
              128; K8/K9 on an 8-slot, 8192-position cache read through a
              permutation of its slots, one K8 row ending at the cache
              end), plus window, softcap, D=64 and D=256 cases (K3 also a
-             mid-page chunk with inert blocks), NaN in every cell past
-             kv_valid; kernel and plain times from CUDA events beside each
-             kernel's device-memory/operations bound and SDPA on a
-             pre-gathered view (K8/K9: on the batch's slot rows).
+             mid-page chunk with inert blocks; K2/K8 also the tensor-core
+             tile's edges, PREFILL_EDGES: G 1, 3 and 16, pages of 16 and
+             32, T = 1 and T no multiple of the tile, chunks starting
+             mid-page, a window edge inside a key tile), NaN in every
+             cell past kv_valid; kernel and plain times from CUDA events
+             beside each kernel's device-memory/operations bound and SDPA
+             on a pre-gathered view (K8/K9: on the batch's slot rows).
 4. engine  - InferenceEngine.from_config for llama-3-8b-instruct (full
              width, 32 layers, seeded random weights, byte tokenizer),
              paged pool, bf16, 8 slots, max_seq_len 8192; warmup(); two
@@ -63,7 +70,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
              admits through the blocking prologue. K8 and K9 must launch,
              K1-K3 never.
 12. quant_kernels - K4 (in-kernel dequant) inside K1, K2 and K3 on int8
-             and int4 pages at the kernels phase's cases (NaN scales in
+             and int4 pages at the kernels phase's cases (K2 also at three
+             of PREFILL_EDGES; NaN scales in
              every cell past kv_valid), K5 at Llama-3-8B's five decode
              projections (3 rows, int4 groups of 64) and K6 at the
              128256-row head, each against its plain version and K5/K6
@@ -177,8 +185,8 @@ then 22 and 23.
              run's single-device rounds of the same config, and each
              knight's greedy agreement with them (reported).
 
-Run time: 570 s on an H100 80GB HBM3 at 700 W with the build; no earlier
-phase was cut.
+Run time: 452-624 s on an H100 80GB HBM3 at 700 W with the build; no
+earlier phase was cut.
 
 Then a `{"kernels": [...]}` line, the nvidia-smi line, and last
 `{"ok": true, "device": {...}}`. Details go to chiprun_out/chip_smoke/.
@@ -237,6 +245,43 @@ def nvidia_smi() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_summary(log: str) -> dict:
+    """Registers, static shared memory and spill bytes of each kernel in
+    nvcc's `-Xptxas -v` output, by mangled name."""
+    import re
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            out[name] = {}
+        elif name is not None:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m:
+                out[name]["spill_stores"] = int(m.group(1))
+                out[name]["spill_loads"] = int(m.group(2))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                out[name]["registers"] = int(m.group(1))
+                m = re.search(r"(\d+) bytes smem", line)
+                out[name]["static_smem"] = int(m.group(1)) if m else 0
+    return out
+
+
+def hgmma_counts(build) -> dict:
+    """HGMMA (wgmma) instructions in the prefill kernels' libraries, from
+    cuobjdump where the toolkit has it (None where it does not)."""
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not shutil.which(tool):
+        return {"paged_prefill": None, "flash_prefill": None}
+    return {name: subprocess.run(
+        [tool, "-sass", str(build.library_path(name))], capture_output=True,
+        text=True, timeout=120, check=True).stdout.count("HGMMA")
+        for name in ("paged_prefill", "flash_prefill")}
 
 
 class Failed(RuntimeError):
@@ -362,6 +407,35 @@ def max_err(torch, out, ref, rows=None):
     return float(diff.max()), ok
 
 
+# K2/K8 at the edges of the tensor-core tile (64 query rows of G heads x
+# 64/G chunk rows per warpgroup, two warpgroups per block, keys in tiles of
+# 64): (H, K, D, ps, T, offsets, lengths, window, softcap) of three rows -
+# G 1, 3 and 16, pages of 16 and 32 (a key tile spans pages), T = 1 and T
+# no multiple of the tile, chunks starting mid-page, a window edge inside a
+# key tile, softcap. K8 takes the same rows on the slot cache.
+PREFILL_EDGES = [
+    (8, 8, 128, 128, 200, [0, 130, 2000], [200, 50, 150], None, None),
+    (24, 8, 128, 16, 130, [37, 0, 1000], [130, 129, 100], None, None),
+    (32, 2, 128, 32, 64, [200, 0, 3000], [64, 33, 64], 100, None),
+    (32, 8, 128, 128, 1, [0, 999, 4000], [1, 1, 1], None, None),
+    (32, 8, 128, 64, 300, [70, 1500, 3500], [300, 211, 300], 90, 50.0),
+]
+
+
+def edge_pool(torch, gen, case, dev):
+    """A PREFILL_EDGES case's q and shuffled pool (NaN past each row's
+    kv_valid): the arguments of K2 and its plain version."""
+    H, K, D, ps, T, offs, lengths, _, _ = case
+    k_pool, v_pool, table = make_pool(torch, gen, 3, 4096, K, D, ps,
+                                      torch.bfloat16, dev)
+    offsets = torch.tensor(offs, dtype=torch.int32, device=dev)
+    valid = offsets + torch.tensor(lengths, dtype=torch.int32, device=dev)
+    poison_past_frontier(k_pool, v_pool, table, valid, ps)
+    q = (torch.randn(3, T, H, D, generator=gen, device=dev)
+         * D ** -0.5).to(torch.bfloat16)
+    return q, k_pool, v_pool, table, offsets, valid
+
+
 def kernels_phase(torch, kattn):
     dev = torch.device("cuda")
     bf16 = torch.bfloat16
@@ -416,6 +490,17 @@ def kernels_phase(torch, kattn):
         err, ok = max_err(torch, out, ref, rows=lengths)
         errs.append({"H": H, "K": K, "D": D, "window": window,
                      "softcap": softcap, "max_abs_err": err})
+        check(ok, f"K2 disagrees with its plain version: {errs[-1]}")
+    for case in PREFILL_EDGES:
+        H, K, D, ps, T, offs, lengths, window, softcap = case
+        args = edge_pool(torch, gen, case, dev)
+        kw = dict(sliding_window=window, softcap=softcap)
+        err, ok = max_err(torch, kattn.paged_prefill_attention(*args, **kw),
+                          kattn.paged_prefill_attention_ref(*args, **kw),
+                          rows=lengths)
+        errs.append({"H": H, "K": K, "D": D, "ps": ps, "T": T,
+                     "offsets": offs, "window": window, "softcap": softcap,
+                     "max_abs_err": err})
         check(ok, f"K2 disagrees with its plain version: {errs[-1]}")
     results["prefill_cases"] = errs
 
@@ -681,6 +766,21 @@ def contiguous_kernel_cases(torch, kattn, gen, flush):
                           kattn.flash_prefill_attention_ref(*args, **kw))
         pre_errs.append({"H": H, "K": K, "D": D, "window": window,
                          "softcap": softcap, "max_abs_err": err})
+        check(ok, f"K8 disagrees with its plain version: {pre_errs[-1]}")
+        del k, v
+    for H, K, D, _, T, offsets, lengths, window, softcap in PREFILL_EDGES:
+        rows = [6, 1, 3]
+        valid = [o + n for o, n in zip(offsets, lengths)]
+        k, v = slot_cache(torch, gen, K, D, bf16, dev, valid, rows)
+        q = (torch.randn(3, T, H, D, generator=gen, device=dev)
+             * D ** -0.5).to(bf16)
+        args = (q, k, v, i32(offsets), i32(valid))
+        kw = dict(sliding_window=window, softcap=softcap, rows=i32(rows))
+        err, ok = max_err(torch, kattn.flash_prefill_attention(*args, **kw),
+                          kattn.flash_prefill_attention_ref(*args, **kw))
+        pre_errs.append({"H": H, "K": K, "D": D, "T": T, "offsets": offsets,
+                         "window": window, "softcap": softcap,
+                         "max_abs_err": err})
         check(ok, f"K8 disagrees with its plain version: {pre_errs[-1]}")
         del k, v
 
@@ -1413,6 +1513,22 @@ def dequant_kernel_cases(torch, kattn, kvq, gen, flush):
                                    "window": window, "softcap": softcap,
                                    "T": T, "max_abs_err": err})
                 check(ok, f"K3+K4 int{bits} disagrees: {errs[bits][-1]}")
+        # K2 at the tile's edges: G 3 on pages of 16, G 16 on pages of 32
+        # with a window edge inside a key tile, the mid-page softcap case.
+        for case in (PREFILL_EDGES[1], PREFILL_EDGES[2], PREFILL_EDGES[4]):
+            H, K, D, ps, T, _, lengths, window, softcap = case
+            kw = dict(sliding_window=window, softcap=softcap)
+            q, k_pool, v_pool, table, offsets, valid = edge_pool(
+                torch, gen, case, dev)
+            kq, vq, qkw = quantized_pools(kvq, k_pool, v_pool, bits)
+            args = (q, kq, vq, table, offsets, valid)
+            err, ok = max_err(torch, kattn.paged_prefill_attention(
+                *args, **kw, **qkw), kattn.paged_prefill_attention_ref(
+                *args, **kw, **qkw), rows=lengths)
+            errs[bits].append({"kernel": "K2", "H": H, "K": K, "D": D,
+                               "ps": ps, "T": T, "window": window,
+                               "softcap": softcap, "max_abs_err": err})
+            check(ok, f"K2+K4 int{bits} disagrees: {errs[bits][-1]}")
 
     # Times at the serving shapes (H=32, K=8, D=128): decode at ~1.7k
     # cached tokens, a 512-row delta chunk over a 1.2k prefix, K3's main
@@ -3007,8 +3123,15 @@ def main() -> int:
     build.build_all()
     emit("build", seconds=time.monotonic() - t0,
          sources=list(build.SOURCES))
-    for name, log in build.build_logs().items():
+    logs = build.build_logs()
+    for name, log in logs.items():
         (OUT / f"{name}.ptxas.log").write_text(log)
+    emit("ptxas", kernels={name: ptxas_summary(log)
+                           for name, log in logs.items()})
+    hgmma = hgmma_counts(build)
+    emit("tensor_cores", hgmma=hgmma)
+    check(all(n is None or n > 0 for n in hgmma.values()),
+          f"the bf16 prefill kernels hold no HGMMA: {hgmma}")
 
     kernels = kernels_phase(torch, kattn)
     emit("kernels_check", tolerance=KERNEL_TOL,

@@ -1,7 +1,8 @@
 """PyTorch port, kernels K1/K2: the plain versions of paged decode and
 paged prefill attention against the JAX package's Pallas kernels (run in
-interpret mode on the CPU), on the cases of tests/test_pallas.py. The same
-numpy inputs go to both; f32, atol=rtol=5e-5 as the JAX kernel tests use.
+interpret mode on the CPU), on the cases of tests/test_pallas.py and, for
+K2, at the edges of the CUDA kernel's tensor-core tile. The same numpy
+inputs go to both; f32, atol=rtol=5e-5 as the JAX kernel tests use.
 The CUDA kernels themselves run only on a card: tests/test_torch_cuda.py."""
 
 import jax.numpy as jnp
@@ -13,6 +14,8 @@ from theroundtaible_tpu.engine.pallas.attention import (
     paged_decode_attention as jax_paged_decode,
     paged_prefill_attention as jax_paged_prefill)
 from theroundtaible_tpu_torch.engine.kernels import attention as kattn
+from theroundtaible_tpu_torch.engine.kv_quant import (KVQuantSpec,
+                                                      quantize_cells)
 
 TOL = dict(atol=5e-5, rtol=5e-5)
 WINDOW_SOFTCAP = [(None, None), (48, None), (None, 30.0), (700, None),
@@ -151,6 +154,117 @@ def test_stale_cells_of_the_frontier_page_contribute_nothing():
         args[3], args[4])
     assert torch.isfinite(dirty).all()
     torch.testing.assert_close(dirty, clean, atol=0, rtol=0)
+
+
+# --- K2 at the edges of the CUDA kernel's tensor-core tile ---
+# On a card K2's bf16 body works in tiles of 64 query rows (G heads x 64/G
+# chunk rows per warpgroup, two warpgroups per block) against keys in tiles
+# of 64, and tests/test_torch_cuda.py holds it to this plain version there.
+# Here the plain version meets the TPU kernel at the same edges: (H, K, D,
+# ps, T, offsets, lengths, window, softcap) - G 1, 3, 4 and 16, D 64 and
+# 256, pages of 16 and 32 (a key tile spans pages), T = 1 and T no
+# multiple of the tile, chunks starting mid-page, a window edge inside a
+# key tile, softcap.
+EDGE_CASES = {
+    "g1_ps16": (4, 4, 32, 16, 24, [0, 21], [24, 10], None, None),
+    "g3_mid_page": (6, 2, 32, 32, 48, [5, 40], [48, 30], None, None),
+    "g4_window_in_tile": (8, 2, 32, 16, 40, [37, 3], [40, 33], 20, None),
+    "g16_softcap": (16, 1, 32, 32, 16, [70, 0], [16, 9], None, 20.0),
+    "d64_window_softcap": (4, 2, 64, 16, 24, [10, 0], [24, 24], 30, 25.0),
+    "d256": (2, 1, 256, 32, 8, [50, 0], [8, 5], None, None),
+    "t1": (8, 2, 32, 16, 1, [0, 77], [1, 1], None, None),
+}
+EDGE_S = 256
+
+
+def edge_inputs(name, seed):
+    """An EDGE_CASES entry's q and its pools twice: `clean` with every cell
+    at or past a row's kv_valid zeroed (the TPU kernel reads the frontier
+    page's tail), `dirty` with NaN there (the port must never load it)."""
+    H, K, D, ps, T, offsets, lengths, _, _ = EDGE_CASES[name]
+    rng = np.random.default_rng(seed)
+    k_pool, v_pool, table = shuffled_pool(rng, 2, EDGE_S, K, D, ps)
+    offsets = np.asarray(offsets, np.int32)
+    valid = offsets + np.asarray(lengths, np.int32)
+    clean, dirty = [k_pool, v_pool], [k_pool.copy(), v_pool.copy()]
+    for b in range(2):
+        for j in range(EDGE_S // ps):
+            lo = max(int(valid[b]) - j * ps, 0)
+            if lo < ps:
+                for pool in clean:
+                    pool[table[b, j], lo:] = 0.0
+                for pool in dirty:
+                    pool[table[b, j], lo:] = np.nan
+    q = rng.normal(size=(2, T, H, D)).astype(np.float32)
+    return rng, q, clean, dirty, table, offsets, valid
+
+
+def jax_rows(q):
+    """q for the TPU kernel, which takes T in multiples of 8: a shorter
+    chunk rides as the first rows of an 8-row one (rows attend causally,
+    so those rows are the same)."""
+    pad = -q.shape[1] % 8
+    return np.concatenate([q, np.zeros((q.shape[0], pad) + q.shape[2:],
+                                       q.dtype)], axis=1)
+
+
+@pytest.mark.parametrize("name", sorted(EDGE_CASES))
+def test_paged_prefill_at_kernel_tile_edges_matches_jax_kernel(name):
+    *_, lengths, window, softcap = EDGE_CASES[name]
+    _, q, clean, dirty, table, offsets, valid = edge_inputs(name, 9)
+    ours = kattn.paged_prefill_attention(
+        *(torch.from_numpy(x) for x in (q, *dirty, table, offsets, valid)),
+        sliding_window=window, softcap=softcap).numpy()
+    ref = np.asarray(jax_paged_prefill(
+        *(jnp.asarray(x) for x in (jax_rows(q), *clean, table, offsets,
+                                   valid)),
+        sliding_window=window, softcap=softcap, interpret=True))
+    for b, n in enumerate(lengths):
+        assert np.isfinite(ours[b, :n]).all()
+        np.testing.assert_allclose(ours[b, :n], ref[b, :n], **TOL)
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("name", ["g3_mid_page", "g4_window_in_tile",
+                                  "d64_window_softcap"])
+def test_quantized_paged_prefill_at_kernel_tile_edges_matches_jax(name,
+                                                                   bits):
+    """The same edges on int8/int4 pages (K4): the TPU kernel gets the
+    clean cells quantized, the port random payloads and NaN scales past
+    kv_valid."""
+    ps, *_, lengths, window, softcap = EDGE_CASES[name][3:]
+    rng, q, clean, _, table, offsets, valid = edge_inputs(name, 10)
+    spec = KVQuantSpec(bits=bits)
+    jax_pools, port_pools = [], []
+    for pool in clean:
+        qc, sc = (x.numpy() for x in quantize_cells(torch.from_numpy(pool),
+                                                    spec))
+        qd, sd = qc.copy(), sc.copy()
+        for b in range(2):
+            for j in range(EDGE_S // ps):
+                lo = max(int(valid[b]) - j * ps, 0)
+                if lo < ps:
+                    qd[table[b, j], lo:] = rng.integers(
+                        -128, 128, size=qd[table[b, j], lo:].shape)
+                    sd[table[b, j], lo:] = np.nan
+        jax_pools.append((qc, sc))
+        port_pools.append((qd, sd))
+    (tk, tks), (tv, tvs) = ((torch.from_numpy(x) for x in p)
+                            for p in port_pools)
+    ours = kattn.paged_prefill_attention(
+        torch.from_numpy(q), tk, tv,
+        *(torch.from_numpy(x) for x in (table, offsets, valid)),
+        sliding_window=window, softcap=softcap, k_scale=tks, v_scale=tvs,
+        kv_bits=bits).numpy()
+    (jk, jks), (jv, jvs) = ((jnp.asarray(x) for x in p) for p in jax_pools)
+    ref = np.asarray(jax_paged_prefill(
+        jnp.asarray(jax_rows(q)), jk, jv,
+        *(jnp.asarray(x) for x in (table, offsets, valid)),
+        sliding_window=window, softcap=softcap, interpret=True,
+        k_scale=jks, v_scale=jvs, kv_bits=bits))
+    for b, n in enumerate(lengths):
+        assert np.isfinite(ours[b, :n]).all()
+        np.testing.assert_allclose(ours[b, :n], ref[b, :n], **TOL)
 
 
 def test_wrappers_refuse_what_they_do_not_take():

@@ -127,6 +127,56 @@ def test_flash_prefill_matches_jax_kernel(window, softcap, heads, kv_heads):
         assert not ours[b, n:].any()
 
 
+# K8 at the edges of the CUDA kernel's tensor-core tile (64 query rows of G
+# heads x 64/G chunk rows per warpgroup, two warpgroups per block, keys in
+# tiles of 64; tests/test_torch_cuda.py holds the kernel to this plain
+# version on a card): (H, K, D, T, offsets, lengths, window, softcap) - G
+# 1, 3, 4 and 16, D 64 and 256, T = 1 and T no multiple of the tile, a
+# window edge inside a key tile, softcap.
+EDGE_CASES = {
+    "g1": (4, 4, 32, 24, [0, 21], [24, 10], None, None),
+    "g3": (6, 2, 32, 48, [5, 40], [48, 30], None, None),
+    "g4_window_in_tile": (8, 2, 32, 40, [37, 3], [40, 33], 20, None),
+    "g16_softcap": (16, 1, 32, 16, [70, 0], [16, 9], None, 20.0),
+    "d64_window_softcap": (4, 2, 64, 24, [10, 0], [24, 24], 30, 25.0),
+    "d256": (2, 1, 256, 8, [50, 0], [8, 5], None, None),
+    "t1": (8, 2, 32, 1, [0, 77], [1, 1], None, None),
+}
+
+
+@pytest.mark.parametrize("name", sorted(EDGE_CASES))
+def test_flash_prefill_at_kernel_tile_edges_matches_jax_kernel(name):
+    """Batch rows on cache rows [2, 0] of three whose cells past kv_valid
+    hold NaN (a reused slot's stale K/V); the TPU kernel reads those rows
+    zeroed there. Real rows match it, pad rows are 0. A T the TPU kernel
+    does not take (not a multiple of 8) rides as the first rows of a chunk
+    padded to a multiple of 8: rows attend causally, so those rows are the
+    same."""
+    H, K, D, T, offsets, lengths, window, softcap = EDGE_CASES[name]
+    S = 256
+    rng, k, v = cache_case(3, 3, S, K, D)
+    rows = np.asarray([2, 0], np.int32)
+    offsets = np.asarray(offsets, np.int32)
+    valid = offsets + np.asarray(lengths, np.int32)
+    clean_k, clean_v = k[rows], v[rows]
+    for b, (r, n) in enumerate(zip(rows, valid)):
+        clean_k[b, n:] = clean_v[b, n:] = 0.0
+        k[r, n:] = v[r, n:] = np.nan
+    q = rng.normal(size=(2, T, H, D)).astype(np.float32) * D ** -0.5
+    t = torch.from_numpy
+    ours = kattn.flash_prefill_attention(
+        t(q), t(k), t(v), t(offsets), t(valid), sliding_window=window,
+        softcap=softcap, rows=t(rows)).numpy()
+    qj = np.concatenate([q, np.zeros((2, -T % 8, H, D), np.float32)], 1)
+    ref = np.asarray(pattn.flash_prefill_attention(
+        *(jnp.asarray(x) for x in (qj, clean_k, clean_v, offsets, valid)),
+        sliding_window=window, softcap=softcap, interpret=True))
+    assert np.isfinite(ours).all()
+    for b, n in enumerate(lengths):
+        np.testing.assert_allclose(ours[b, :n], ref[b, :n], **TOL)
+        assert not ours[b, n:].any()
+
+
 @pytest.mark.parametrize("window,softcap", [(None, None), (48, 30.0)])
 def test_row_map_reads_cache_rows_in_place(window, softcap):
     """`rows` maps batch rows onto a permutation of the cache's rows: the

@@ -12,13 +12,15 @@ has only the port's dependencies:
 """
 
 import dataclasses
+import shutil
+import subprocess
 
 import numpy as np
 import pytest
 import torch
 
 from theroundtaible_tpu_torch.engine.kernels import attention as kattn
-from theroundtaible_tpu_torch.engine.kernels import int4mm
+from theroundtaible_tpu_torch.engine.kernels import build, int4mm
 from theroundtaible_tpu_torch.engine.kernels import lora as klora
 from theroundtaible_tpu_torch.engine.kv_quant import (KVQuantSpec,
                                                       quantize_cells)
@@ -315,6 +317,134 @@ def test_cuda_quantized_prefill_kernel_matches_plain(cuda_device, bits,
             torch.testing.assert_close(out[b, :n].float(),
                                        ref[b, :n].float(), atol=tol,
                                        rtol=tol)
+
+
+# --- K2/K8 at the edges of the tensor-core tile (64 query rows of G heads
+# x 64/G chunk rows per warpgroup, two warpgroups per block, keys in tiles
+# of 64): (H, K, D, ps, T, offsets, lengths, window, softcap). G 1, 3, 4
+# and 16; D 64 and 256; pages of 16 and 32 (a key tile spans pages); T = 1
+# and T no multiple of the tile; chunks starting mid-page; window edges
+# inside a key tile; softcap. NaN in every cell past each row's kv_valid.
+EDGE_CASES = {
+    "g1": (8, 8, 128, 128, 96, [0, 130], [96, 50], None, None),
+    "g3_mid_page": (12, 4, 128, 64, 100, [5, 300], [100, 77], None, None),
+    "g4_ps16": (16, 4, 128, 16, 130, [37, 0], [130, 129], None, None),
+    "g16_ps32_window": (16, 1, 128, 32, 64, [200, 0], [64, 33], 100, None),
+    "d64_softcap": (8, 2, 64, 32, 72, [70, 3], [72, 72], None, 30.0),
+    "d256_window_softcap": (4, 2, 256, 64, 40, [100, 0], [40, 17], 48, 30.0),
+    "t1": (16, 4, 128, 128, 1, [0, 999], [1, 1], None, None),
+    "window_in_tile": (32, 8, 128, 128, 160, [500, 800], [160, 100], 90,
+                       None),
+}
+
+
+def edge_pool(rng, case, S=1024):
+    """A shuffled pool for an EDGE_CASES entry, NaN past every row's
+    kv_valid, and its q [B,T,H,D] (f32 numpy)."""
+    H, K, D, ps, T, offsets, lengths, _, _ = case
+    B = len(offsets)
+    k_pool, v_pool, table = shuffled_pool(rng, B, S, K, D, ps)
+    valid = np.asarray(offsets, np.int32) + np.asarray(lengths, np.int32)
+    for b in range(B):
+        for j in range(S // ps):
+            lo = max(int(valid[b]) - j * ps, 0)
+            if lo < ps:
+                k_pool[table[b, j], lo:] = np.nan
+                v_pool[table[b, j], lo:] = np.nan
+    q = rng.normal(size=(B, T, H, D)).astype(np.float32) * D ** -0.5
+    return q, k_pool, v_pool, table, valid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("name", sorted(EDGE_CASES))
+def test_cuda_prefill_kernel_at_tile_edges(cuda_device, name, dtype, tol):
+    """K2 against its plain version at the tile's edges; real rows."""
+    case = EDGE_CASES[name]
+    window, softcap = case[7], case[8]
+    rng = np.random.default_rng(31)
+    q, k_pool, v_pool, table, valid = edge_pool(rng, case)
+    offsets = np.asarray(case[5], np.int32)
+    dev = cuda_device
+    args = [torch.from_numpy(q).to(dev, dtype),
+            torch.from_numpy(k_pool).to(dev, dtype),
+            torch.from_numpy(v_pool).to(dev, dtype)] + [
+        torch.from_numpy(x).to(dev) for x in (table, offsets, valid)]
+    out = kattn.paged_prefill_attention(*args, sliding_window=window,
+                                        softcap=softcap)
+    ref = kattn.paged_prefill_attention_ref(*args, sliding_window=window,
+                                            softcap=softcap)
+    for b, n in enumerate(case[6]):
+        torch.testing.assert_close(out[b, :n].float(), ref[b, :n].float(),
+                                   atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits,dtype,tol", QUANT_CASES)
+@pytest.mark.parametrize("name", ["g3_mid_page", "g4_ps16",
+                                  "d64_softcap", "d256_window_softcap"])
+def test_cuda_quantized_prefill_kernel_at_tile_edges(cuda_device, name,
+                                                     bits, dtype, tol):
+    """K2 with K4 on int8 and int4 pages at the tile's edges (random
+    payloads and NaN scales past kv_valid); real rows."""
+    case = EDGE_CASES[name]
+    window, softcap = case[7], case[8]
+    rng = np.random.default_rng(32)
+    q, k_pool, v_pool, table, valid = edge_pool(rng, case)
+    pools = quantized_pools(rng, k_pool, v_pool, table, valid, bits)
+    dev = cuda_device
+    args, kw = _pool_args(dev, dtype, q, pools)
+    args += [torch.from_numpy(x).to(dev)
+             for x in (table, np.asarray(case[5], np.int32), valid)]
+    out = kattn.paged_prefill_attention(*args, sliding_window=window,
+                                        softcap=softcap, kv_bits=bits, **kw)
+    ref = kattn.paged_prefill_attention_ref(*args, sliding_window=window,
+                                            softcap=softcap, kv_bits=bits,
+                                            **kw)
+    for b, n in enumerate(case[6]):
+        torch.testing.assert_close(out[b, :n].float(), ref[b, :n].float(),
+                                   atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("name", sorted(EDGE_CASES))
+def test_cuda_contiguous_prefill_kernel_at_tile_edges(cuda_device, name,
+                                                      dtype, tol):
+    """K8 against its plain version at the tile's edges, batch rows on a
+    permutation of the cache rows; every row (pad rows are 0 in both)."""
+    H, K, D, _, T, offsets, lengths, window, softcap = EDGE_CASES[name]
+    N, S = 4, 1024
+    rng = np.random.default_rng(33)
+    rows = np.asarray([3, 1], np.int32)
+    offsets = np.asarray(offsets, np.int32)
+    valid = offsets + np.asarray(lengths, np.int32)
+    k, v = slot_cache(rng, N, S, K, D, valid, rows)
+    q = rng.normal(size=(2, T, H, D)).astype(np.float32) * D ** -0.5
+    dev = cuda_device
+    args = [torch.from_numpy(x).to(dev, dtype) for x in (q, k, v)] + [
+        torch.from_numpy(x).to(dev) for x in (offsets, valid)]
+    kw = dict(sliding_window=window, softcap=softcap,
+              rows=torch.from_numpy(rows).to(dev))
+    torch.testing.assert_close(
+        kattn.flash_prefill_attention(*args, **kw).float(),
+        kattn.flash_prefill_attention_ref(*args, **kw).float(), atol=tol,
+        rtol=tol)
+
+
+@pytest.mark.cuda
+def test_cuda_prefill_kernels_run_on_the_tensor_cores(cuda_device):
+    """The bf16 bodies of K2 and K8 are wgmma: their libraries hold HGMMA
+    instructions (where the toolkit has cuobjdump)."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not shutil.which(tool):
+        pytest.skip("the CUDA toolkit has no cuobjdump")
+    build.build_all()
+    for name in ("paged_prefill", "flash_prefill"):
+        sass = subprocess.run([tool, "-sass", str(build.library_path(name))],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        assert sass.count("HGMMA") > 0, name
 
 
 @pytest.mark.cuda
