@@ -26,7 +26,11 @@ layer's seven products and K6's.
 With --attention each run builds the kernels and runs only the kernels
 phase: K1, K2, K3, K8 and K9 against their plain versions, then each
 timed with CUDA events at the serving shapes beside its SDPA yardstick;
-the summary holds each kernel's ms, its yardstick's and its bound.
+then K1's and K9's device time at the decode serving shape beside SDPA's
+(`decode_device`: torch.profiler, this script's chip_smoke.device_ms, so
+every tree is read the same way); the summary holds each kernel's ms, its
+yardstick's and its bound, and K1's and K9's device_ms and
+sdpa_device_ms.
 
 With --k5-splits each run builds the kernels and times K5 alone at the
 per-rank column shards of K10e on a 2-way model axis at Llama-3-8B width
@@ -109,6 +113,43 @@ def k5_splits_phase(torch, cs, reps: int = 300) -> None:
     cs.emit("k5_splits", sms=sms, reps=reps, shards=out)
 
 
+def decode_device_phase(torch, kattn, cs) -> None:
+    """K1 and K9 at the decode serving shape (B=3, H=32, K=8, D=128,
+    kv_valid 1600/1650/1700; pages of 128, or 8 slots of 8192 positions
+    read through a row map) through `kattn` - whichever tree's wrappers -
+    and SDPA on the same inputs, each read by this script's
+    chip_smoke.device_ms; `cs.emit` prints the line."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_reader", Path(__file__).resolve().parent / "chip_smoke.py")
+    here = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(here)
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(0)
+    flush = torch.empty(16 << 20, dtype=torch.float32, device=dev)
+    H, K, D, B = 32, 8, 128, 3
+    valid_l, rows_l = [1600, 1650, 1700], [5, 2, 7]
+    valid = torch.tensor(valid_l, dtype=torch.int32, device=dev)
+    rows = torch.tensor(rows_l, dtype=torch.int32, device=dev)
+    k_pool, v_pool, table = here.make_pool(torch, gen, B, 8192, K, D, 128,
+                                           bf16, dev)
+    kc, vc = here.slot_cache(torch, gen, K, D, bf16, dev, valid_l, rows_l)
+    q = (torch.randn(B, 1, H, D, generator=gen, device=dev)
+         * D ** -0.5).to(bf16)
+    k1 = functools.partial(kattn.paged_decode_attention, q, k_pool, v_pool,
+                           table, valid)
+    k9 = functools.partial(kattn.ragged_decode_attention, q, kc, vc, valid,
+                           rows=rows)
+    cs.emit("decode_device", reps=20, decode={
+        "device_ms": here.device_ms(torch, k1, flush),
+        "sdpa_device_ms": here.device_ms(torch, here.sdpa_view_call(
+            torch, q, k_pool, v_pool, table, valid, None), flush)},
+        cdecode={
+        "device_ms": here.device_ms(torch, k9, flush),
+        "sdpa_device_ms": here.device_ms(torch, here.sdpa_slots_call(
+            torch, q, kc, vc, rows, valid, None), flush)})
+
+
 def child(root: str, kernels: bool = False, splits: bool = False,
           attention: bool = False) -> None:
     """One checkout's single-device phases (or, with `kernels`, its
@@ -135,6 +176,7 @@ def child(root: str, kernels: bool = False, splits: bool = False,
         return
     if attention:
         cs.emit("kernels_timing", **cs.kernels_phase(torch, kattn)["timing"])
+        decode_device_phase(torch, kattn, cs)
         return
 
     def release(engine):
@@ -175,10 +217,14 @@ def summarize(phases: list[dict]) -> dict:
         timing = dict(by["kernels_timing"][0])
         for key in ("phase", "elapsed_s"):
             timing.pop(key)
-        return {"attention": {
+        attention = {
             kind: {"ms": t["ms"], "bound_ms": t["bound_ms"],
                    "sdpa_ms": t.get("sdpa_view_ms", t.get("sdpa_ms"))}
-            for kind, t in timing.items()}}
+            for kind, t in timing.items()}
+        for kind in ("decode", "cdecode"):
+            for p in by.get("decode_device", []):
+                attention[kind].update(p[kind])
+        return {"attention": attention}
     w4 = by.get("quant_kernels", [{}])[0].get("w4a16")
     if w4:
         return {"k5_layer_ms": sum(t["ms"] * t["per_layer"]

@@ -10,7 +10,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
 1. device  - the card's name and power limit (nvidia-smi).
 2. build   - nvcc builds the CUDA kernels from engine/kernels/csrc;
              `ptxas`: each kernel's registers, static shared memory and
-             spill bytes; `tensor_cores`: the HGMMA (wgmma) instructions
+             spill bytes (K1's and K9's libraries must hold the split-KV
+             decode kernels); `tensor_cores`: the HGMMA (wgmma) instructions
              of K2's and K8's libraries, which must be above 0 where the
              toolkit has cuobjdump.
 3. kernels - K1 (paged decode), K2 (paged prefill), K3 (ragged mixed
@@ -23,10 +24,20 @@ Phases, each printing one JSON line; any failure exits non-zero:
              mid-page chunk with inert blocks; K2/K8 also the tensor-core
              tile's edges, PREFILL_EDGES: G 1, 3 and 16, pages of 16 and
              32, T = 1 and T no multiple of the tile, chunks starting
-             mid-page, a window edge inside a key tile), NaN in every
-             cell past kv_valid; kernel and plain times from CUDA events
-             beside each kernel's device-memory/operations bound and SDPA
-             on a pre-gathered view (K8/K9: on the batch's slot rows).
+             mid-page, a window edge inside a key tile; K1/K9 also the
+             split-KV spans' edges, DECODE_EDGES: kv_valid 1, CHUNK and
+             CHUNK + 1, page ends at ps 16 and 32, G 1, 4 and 16, a window
+             edge inside a span and one leaving whole spans below it,
+             against decode_split_ref too and K1 against K9 bit for bit),
+             NaN in every cell past kv_valid; kernel and plain times from
+             CUDA events beside each kernel's device-memory/operations
+             bound and SDPA on a pre-gathered view (K8/K9: on the batch's
+             slot rows); for K1, K9 and K3 also `device_ms` and
+             `sdpa_device_ms`, the call's own kernels' device time from
+             torch.profiler (device_ms()).
+   tp_kernels_device - the same device times for K10a's decode route,
+             K10b and K10d on rank 0's shard (H=16, K=4), taken in this
+             process.
 4. engine  - InferenceEngine.from_config for llama-3-8b-instruct (full
              width, 32 layers, seeded random weights, byte tokenizer),
              paged pool, bf16, 8 slots, max_seq_len 8192; warmup(); two
@@ -78,7 +89,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
              each called twice for the same bits; CUDA-event
              times beside the bound and a yardstick (K4: the same kernel
              on the unquantized pool; K5/K6: torch.matmul on the weight
-             dequantized to bf16 beforehand).
+             dequantized to bf16 beforehand), K4 in K1/K2 and K5/K6 with
+             device times too.
 13. quant_int8, quant_int4 - the engine phase's config with `"quant":
              "int8", "kv_quant": "int8"` (the shipped knights' quant), then
              `"int4"`/`"int4"`, from TorchLlmAdapter.from_config (32
@@ -185,8 +197,8 @@ then 22 and 23.
              run's single-device rounds of the same config, and each
              knight's greedy agreement with them (reported).
 
-Run time: 452-624 s on an H100 80GB HBM3 at 700 W with the build; no
-earlier phase was cut.
+Run time: 452-624 s on an H100 80GB HBM3 at 700 W with the build (579 s
+with the device-time readings); no earlier phase was cut.
 
 Then a `{"kernels": [...]}` line, the nvidia-smi line, and last
 `{"ok": true, "device": {...}}`. Details go to chiprun_out/chip_smoke/.
@@ -394,6 +406,54 @@ def graph_ms(torch, fn, calls=20, replays=5):
     return start.elapsed_time(end) / (calls * replays)
 
 
+def device_ms(torch, fn, flush, reps=20, by_kernel=None):
+    """Median over `reps` calls of one call's device time: the time the
+    card spent in the CUDA kernels (and copies) the call launched - both of
+    K1/K9's launches, their overlap under programmatic dependent launch
+    counted once (the union of their intervals) - from torch.profiler, one
+    profiled window per call. The L2 cache is flushed (a 64 MB write) and
+    the card synchronised before each window, so the flush is left out and
+    the pages are cold. A window in which the profiler delivered no device
+    event is dropped and taken again (up to 3 * reps windows). `by_kernel`,
+    a dict, receives each kernel's median duration (ms) by name."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    times, named = [], {}
+    for _ in range(3 * reps):
+        if len(times) == reps:
+            break
+        flush.zero_()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        spans = sorted((ev.time_range.start, ev.time_range.end)
+                       for ev in prof.events()
+                       if ev.device_type == DeviceType.CUDA)
+        busy, reach = 0.0, None
+        for start, end in spans:
+            if reach is None or start > reach:
+                busy += end - start
+                reach = end
+            elif end > reach:
+                busy += end - reach
+                reach = end
+        if busy > 0:
+            times.append(busy)
+            for ev in prof.events():
+                if ev.device_type == DeviceType.CUDA:
+                    named.setdefault(ev.name[:90], []).append(
+                        ev.time_range.elapsed_us())
+    check(len(times) == reps, f"torch.profiler saw device time in only "
+                              f"{len(times)} of {3 * reps} windows")
+    if by_kernel is not None:
+        by_kernel.update({name: statistics.median(us) / 1e3
+                          for name, us in named.items()})
+    return statistics.median(times) / 1e3
+
+
 def max_err(torch, out, ref, rows=None):
     """max |out - ref| over real rows, and whether all is within the bf16
     tolerance (atol = rtol = KERNEL_TOL)."""
@@ -436,6 +496,66 @@ def edge_pool(torch, gen, case, dev):
     return q, k_pool, v_pool, table, offsets, valid
 
 
+# K1/K9 at the edges of their split-KV spans (decode_chunk: 128 positions
+# in bf16 at D = 128, 256 at D = 64, 64 at D = 256): (H, K, D, ps, S,
+# kv_valid of three rows, window, softcap) - kv_valid 1, CHUNK and
+# CHUNK + 1, page ends at ps 16 and 32, G 1, 4 and 16, a window edge inside
+# a span and a window that leaves whole spans below it, softcap. K9 reads
+# the same cells as slot rows of a permuted cache.
+DECODE_EDGES = [
+    (32, 8, 128, 16, 2048, [1, 128, 129], None, None),
+    (8, 8, 64, 32, 2048, [32, 256, 2048], None, None),
+    (16, 1, 128, 16, 2048, [200, 300, 2048], 50, None),
+    (32, 8, 128, 128, 4096, [900, 1700, 4096], 300, None),
+    (32, 8, 128, 64, 2048, [5, 257, 1700], None, 20.0),
+    (16, 4, 64, 16, 2048, [255, 256, 257], None, None),
+    (8, 2, 256, 16, 1024, [1, 64, 65], None, None),
+    (16, 1, 256, 32, 1024, [64, 100, 1000], 40, 30.0),
+]
+
+
+def decode_edge_cases(torch, kattn, gen):
+    """K1 and K9 at DECODE_EDGES in bf16, NaN in every cell past kv_valid:
+    each against its plain version and decode_split_ref (KERNEL_TOL), and
+    K1 against K9 on the same cells bit for bit (one computation)."""
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    k1, k9 = [], []
+    for H, K, D, ps, S, valid_l, window, softcap in DECODE_EDGES:
+        k_pool, v_pool, table = make_pool(torch, gen, 3, S, K, D, ps, bf16,
+                                          dev)
+        valid = torch.tensor(valid_l, dtype=torch.int32, device=dev)
+        poison_past_frontier(k_pool, v_pool, table, valid, ps)
+        q = (torch.randn(3, 1, H, D, generator=gen, device=dev)
+             * D ** -0.5).to(bf16)
+        kw = dict(sliding_window=window, softcap=softcap)
+        case = {"H": H, "K": K, "D": D, "ps": ps, "kv_valid": valid_l,
+                "window": window, "softcap": softcap}
+        out = kattn.paged_decode_attention(q, k_pool, v_pool, table, valid,
+                                           **kw)
+        err, ok = max_err(torch, out, kattn.paged_decode_attention_ref(
+            q, k_pool, v_pool, table, valid, **kw))
+        err_s, ok_s = max_err(torch, out, kattn.decode_split_ref(
+            q, k_pool, v_pool, valid, table=table, **kw))
+        k1.append({**case, "max_abs_err": err, "vs_split_ref": err_s})
+        check(ok and ok_s, f"K1 disagrees at a split edge: {k1[-1]}")
+        rows = torch.tensor([2, 0, 1], dtype=torch.int32, device=dev)
+        inv = torch.argsort(rows.long())
+        kc = k_pool[table.long()].reshape(3, S, K, D)[inv].contiguous()
+        vc = v_pool[table.long()].reshape(3, S, K, D)[inv].contiguous()
+        out9 = kattn.ragged_decode_attention(q, kc, vc, valid, rows=rows,
+                                             **kw)
+        err, ok = max_err(torch, out9, kattn.ragged_decode_attention_ref(
+            q, kc, vc, valid, rows=rows, **kw))
+        err_s, ok_s = max_err(torch, out9, kattn.decode_split_ref(
+            q, kc, vc, valid, rows=rows, **kw))
+        k9.append({**case, "max_abs_err": err, "vs_split_ref": err_s,
+                   "equals_k1": bool(torch.equal(out, out9))})
+        check(ok and ok_s and k9[-1]["equals_k1"],
+              f"K9 disagrees at a split edge: {k9[-1]}")
+        del k_pool, v_pool, kc, vc
+    return k1, k9
+
+
 def kernels_phase(torch, kattn):
     dev = torch.device("cuda")
     bf16 = torch.bfloat16
@@ -466,7 +586,8 @@ def kernels_phase(torch, kattn):
         errs.append({"H": H, "K": K, "D": D, "window": window,
                      "softcap": softcap, "max_abs_err": err})
         check(ok, f"K1 disagrees with its plain version: {errs[-1]}")
-    results["decode_cases"] = errs
+    edges_k1, edges_k9 = decode_edge_cases(torch, kattn, gen)
+    results["decode_cases"] = errs + edges_k1
 
     # K2: T=512 chunks at offsets 0/100/3000 with partial lengths.
     errs = []
@@ -516,6 +637,7 @@ def kernels_phase(torch, kattn):
          * D ** -0.5).to(bf16)
     args = (q, k_pool, v_pool, table, valid)
     cells = kv_cells(valid_l, [v - 1 for v in valid_l], None)
+    k1_kernels = {}
     timing = {"decode": {
         "shape": {"B": B, "H": H, "K": K, "D": D, "ps": ps,
                   "kv_valid": valid_l},
@@ -526,6 +648,12 @@ def kernels_phase(torch, kattn):
             flush),
         "sdpa_view_ms": sdpa_view_ms(torch, q, k_pool, v_pool, table,
                                      valid, None, flush),
+        "device_ms": device_ms(
+            torch, lambda: kattn.paged_decode_attention(*args), flush,
+            by_kernel=k1_kernels),
+        "device_kernels_ms": k1_kernels,
+        "sdpa_device_ms": device_ms(torch, sdpa_view_call(
+            torch, q, k_pool, v_pool, table, valid, None), flush),
         "bytes": 2 * q.numel() * 2 + cells * K * D * 2 * 2,
         "flops": cells * H * D * 4}}
     offsets_l, lengths_l, T = [1200, 1200, 1200], [300, 320, 340], 512
@@ -554,6 +682,7 @@ def kernels_phase(torch, kattn):
     (results["cdecode_cases"], results["cprefill_cases"],
      timing["cdecode"], timing["cprefill"]) = contiguous_kernel_cases(
         torch, kattn, gen, flush)
+    results["cdecode_cases"] += edges_k9
     for t in timing.values():
         t["bound_ms"], t["bound_by"] = bound_ms(t["bytes"], t["flops"])
     results["timing"] = timing
@@ -634,6 +763,10 @@ def ragged_kernel_cases(torch, kattn, gen, flush):
             torch, lambda: kattn.ragged_paged_attention_ref(*args), 3,
             flush),
         "sdpa_view_ms": sdpa_ragged_ms(torch, args, RAGGED_MAIN, flush),
+        "device_ms": device_ms(
+            torch, lambda: kattn.ragged_paged_attention(*args), flush),
+        "sdpa_device_ms": device_ms(
+            torch, sdpa_ragged_call(torch, args, RAGGED_MAIN), flush),
         "bytes": 2 * T * H * D * 2 + cells * K * D * 2 * 2,
         "flops": pairs * H * D * 4}
     # Where K3's time goes: the same buffer with only its decode rows, and
@@ -652,6 +785,11 @@ def sdpa_ragged_ms(torch, args, runs, flush):
     gathered and concatenated beforehand (not timed), every row masked to
     its own sequence's causal prefix (block-diagonal mask; pad rows keep
     their sequence's cells so no row is empty)."""
+    return time_ms(torch, sdpa_ragged_call(torch, args, runs), 20, flush)
+
+
+def sdpa_ragged_call(torch, args, runs):
+    """sdpa_ragged_ms's call, its cells gathered here."""
     import torch.nn.functional as F
     q, k_pool, v_pool, tables = args[:4]
     t, h, d = q.shape
@@ -680,8 +818,8 @@ def sdpa_ragged_ms(torch, args, runs, flush):
     mask = ((kv_seq[None] == row_seq[:, None])
             & (kv_pos[None] <= row_pos[:, None]))[None, None]
     qt = q.transpose(0, 1)[None].contiguous()
-    return time_ms(torch, lambda: F.scaled_dot_product_attention(
-        qt, k, v, attn_mask=mask, scale=1.0, enable_gqa=True), 20, flush)
+    return lambda: F.scaled_dot_product_attention(
+        qt, k, v, attn_mask=mask, scale=1.0, enable_gqa=True)
 
 
 def sdpa_view_ms(torch, q, k_pool, v_pool, table, valid, offsets, flush):
@@ -689,6 +827,12 @@ def sdpa_view_ms(torch, q, k_pool, v_pool, table, valid, offsets, flush):
     scaled_dot_product_attention over the rows' pages gathered into a
     contiguous view beforehand (the gather is not timed), with the causal
     and valid-length mask."""
+    return time_ms(torch, sdpa_view_call(torch, q, k_pool, v_pool, table,
+                                         valid, offsets), 20, flush)
+
+
+def sdpa_view_call(torch, q, k_pool, v_pool, table, valid, offsets):
+    """sdpa_view_ms's call, its view gathered here."""
     import torch.nn.functional as F
     b, t, h, d = q.shape
     ps, kh = k_pool.shape[1], k_pool.shape[2]
@@ -705,8 +849,8 @@ def sdpa_view_ms(torch, q, k_pool, v_pool, table, valid, offsets, flush):
     mask = ((kv_pos[None, None] <= q_pos[..., None])
             & (kv_pos[None, None] < valid.long()[:, None, None]))[:, None]
     qt = q.transpose(1, 2).contiguous()
-    return time_ms(torch, lambda: F.scaled_dot_product_attention(
-        qt, k, v, attn_mask=mask, scale=1.0, enable_gqa=True), 20, flush)
+    return lambda: F.scaled_dot_product_attention(
+        qt, k, v, attn_mask=mask, scale=1.0, enable_gqa=True)
 
 
 # K8/K9's check and timing shapes: an 8-slot cache of 8192 positions, the
@@ -794,6 +938,7 @@ def contiguous_kernel_cases(torch, kattn, gen, flush):
          * D ** -0.5).to(bf16)
     valid = i32(valid_l)
     cells = kv_cells(valid_l, [n - 1 for n in valid_l], None)
+    k9_kernels = {}
     timing = {"cdecode": {
         "shape": {"B": B, "H": H, "K": K, "D": D, "S": CACHE_LEN,
                   "slots": SLOTS, "rows": rows_l, "kv_valid": valid_l},
@@ -802,6 +947,11 @@ def contiguous_kernel_cases(torch, kattn, gen, flush):
         "plain_ms": time_ms(torch, lambda: kattn.ragged_decode_attention_ref(
             q, k, v, valid, rows=rows), 5, flush),
         "sdpa_ms": sdpa_slots_ms(torch, q, k, v, rows, valid, None, flush),
+        "device_ms": device_ms(torch, lambda: kattn.ragged_decode_attention(
+            q, k, v, valid, rows=rows), flush, by_kernel=k9_kernels),
+        "device_kernels_ms": k9_kernels,
+        "sdpa_device_ms": device_ms(torch, sdpa_slots_call(
+            torch, q, k, v, rows, valid, None), flush),
         "bytes": 2 * q.numel() * 2 + cells * K * D * 2 * 2,
         "flops": cells * H * D * 4}}
     offsets_l, lengths_l, T = [1200, 1200, 1200], [300, 320, 340], 512
@@ -831,6 +981,12 @@ def sdpa_slots_ms(torch, q, k_cache, v_cache, rows, valid, offsets, flush):
     scaled_dot_product_attention call (enable_gqa, boolean causal and
     valid-length mask) over the batch's slot rows, gathered up to the
     longest kv_valid and laid out [B,K,S,D] beforehand (not timed)."""
+    return time_ms(torch, sdpa_slots_call(torch, q, k_cache, v_cache, rows,
+                                          valid, offsets), 20, flush)
+
+
+def sdpa_slots_call(torch, q, k_cache, v_cache, rows, valid, offsets):
+    """sdpa_slots_ms's call, its slot rows gathered here."""
     import torch.nn.functional as F
     b, t, h, d = q.shape
     s = max(int(valid.max()), 1)
@@ -843,8 +999,8 @@ def sdpa_slots_ms(torch, q, k_cache, v_cache, rows, valid, offsets, flush):
     mask = ((kv_pos[None, None] <= q_pos[..., None])
             & (kv_pos[None, None] < valid.long()[:, None, None]))[:, None]
     qt = q.transpose(1, 2).contiguous()
-    return time_ms(torch, lambda: F.scaled_dot_product_attention(
-        qt, k, v, attn_mask=mask, scale=1.0, enable_gqa=True), 20, flush)
+    return lambda: F.scaled_dot_product_attention(
+        qt, k, v, attn_mask=mask, scale=1.0, enable_gqa=True)
 
 
 # --- engine phase ---
@@ -1570,6 +1726,12 @@ def dequant_kernel_cases(torch, kattn, kvq, gen, flush):
                 "library_ms": time_ms(
                     torch, lambda: kattn.paged_decode_attention(
                         q, k_pool, v_pool, table, valid), 50, flush),
+                "device_ms": device_ms(
+                    torch, lambda: kattn.paged_decode_attention(
+                        q, kq, vq, table, valid, **qkw), flush),
+                "library_device_ms": device_ms(
+                    torch, lambda: kattn.paged_decode_attention(
+                        q, k_pool, v_pool, table, valid), flush),
                 "bytes": 2 * q.numel() * 2 + quant_cell_bytes(cells, K, D,
                                                               bits),
                 "flops": cells * H * D * 4},
@@ -1582,6 +1744,12 @@ def dequant_kernel_cases(torch, kattn, kvq, gen, flush):
                 "library_ms": time_ms(
                     torch, lambda: kattn.paged_prefill_attention(
                         qp, k_pool, v_pool, table, offs, pvalid), 20, flush),
+                "device_ms": device_ms(
+                    torch, lambda: kattn.paged_prefill_attention(
+                        qp, kq, vq, table, offs, pvalid, **qkw), flush),
+                "library_device_ms": device_ms(
+                    torch, lambda: kattn.paged_prefill_attention(
+                        qp, k_pool, v_pool, table, offs, pvalid), flush),
                 "bytes": (2 * sum(lens_l) * H * D * 2
                           + quant_cell_bytes(pcells, K, D, bits)),
                 "flops": pairs * H * D * 4},
@@ -1650,6 +1818,8 @@ def w4a16_cases(torch, int4mm, common, gen, flush):
              "ms": time_ms(torch, fn, 50, flush),
              "plain_ms": time_ms(torch, ref, 3, flush),
              "library_ms": time_ms(torch, lib, 50, flush),
+             "device_ms": device_ms(torch, fn, flush),
+             "library_device_ms": device_ms(torch, lib, flush),
              "bytes": (q4.numel() + s4.numel() * 2 + x.numel() * 2
                        + m * n_out * 4),
              "flops": 2 * m * ws[0] * ws[1]}
@@ -2427,6 +2597,61 @@ def tp_kernels_rank(torch, rank):
     return {"errs": errs, "timing": timing}
 
 
+def spmd_device_phase(torch, kattn):
+    """Device times (device_ms()) of K10a's decode route, K10b and K10d on
+    rank 0's shard of tp_kernels' shapes (H=16, K=4 of H=32, K=8), beside
+    SDPA's on the shard's gathered view, cells or slot rows - taken in this
+    process: a rank's wrapper launches the one-device kernel on its shard
+    (bit for bit, tp_kernels), and torch.profiler in a spawned gloo rank
+    delivered device events for only its first profiled window."""
+    from theroundtaible_tpu_torch.engine.sharding import Mesh
+    mesh = Mesh(1, 2, 0)
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    flush = torch.empty(16 << 20, dtype=torch.float32, device=dev)
+    H, K, D, ps, B = 32, 8, 128, 128, 3
+    heads = (H, K)
+    valid_l, rows_l = [1600, 1650, 1700], [5, 2, 7]
+    valid = torch.tensor(valid_l, dtype=torch.int32, device=dev)
+    rows = torch.tensor(rows_l, dtype=torch.int32, device=dev)
+    out = {}
+    k_pool, v_pool, table = make_pool(torch, gen, B, 8192, K, D, ps, bf16,
+                                      dev)
+    poison_past_frontier(k_pool, v_pool, table, valid, ps)
+    q = (torch.randn(B, 1, H, D, generator=gen, device=dev)
+         * D ** -0.5).to(bf16)
+    ql, kp, vp = (_shard(x, 2, 0) for x in (q, k_pool, v_pool))
+    args = (mesh, ql, kp, vp, table, valid)
+    out["paged_decode_spmd"] = {
+        "device_ms": device_ms(torch, lambda: kattn.paged_decode_spmd(
+            *args, heads=heads), flush),
+        "library_device_ms": device_ms(torch, sdpa_view_call(
+            torch, ql, kp, vp, table, valid, None), flush)}
+    del k_pool, v_pool, kp, vp
+    rargs = ragged_inputs(torch, gen, RAGGED_MAIN, 1024, H, K, D, ps, bf16,
+                          dev)
+    local = (_shard(rargs[0], 1, 0), _shard(rargs[1], 2, 0),
+             _shard(rargs[2], 2, 0)) + tuple(rargs[3:])
+    out["ragged_paged_spmd"] = {
+        "device_ms": device_ms(torch, lambda: kattn.ragged_paged_spmd(
+            mesh, *local, heads=heads), flush),
+        "library_device_ms": device_ms(torch, sdpa_ragged_call(
+            torch, local, RAGGED_MAIN), flush)}
+    del rargs, local
+    kc, vc = slot_cache(torch, gen, K, D, bf16, dev, valid_l, rows_l)
+    kcl, vcl = _shard(kc, 2, 0), _shard(vc, 2, 0)
+    del kc, vc
+    args = (mesh, ql, kcl, vcl, valid - 1, valid)
+    out["flash_attention_spmd"] = {
+        "device_ms": device_ms(torch, lambda: kattn.flash_attention_spmd(
+            *args, heads=heads, rows=rows), flush),
+        "library_device_ms": device_ms(torch, sdpa_slots_call(
+            torch, ql, kcl, vcl, rows, valid, None), flush)}
+    emit("tp_kernels_device", shard={"H": H // 2, "K": K // 2, "D": D},
+         **out)
+    return out
+
+
 def replica_cases(torch, kattn, rank, gen, check_case):
     """K10b/c's pool_replicas branch on a {"data": 2, "model": 1} mesh of
     the same two ranks: 4 rows, 2 per replica, each replica's pages in its
@@ -3128,6 +3353,11 @@ def main() -> int:
         (OUT / f"{name}.ptxas.log").write_text(log)
     emit("ptxas", kernels={name: ptxas_summary(log)
                            for name, log in logs.items()})
+    for name in ("paged_decode", "ragged_decode"):
+        kernels = " ".join(ptxas_summary(logs.get(name, "")))
+        check("decode_split_kernel" in kernels
+              and "decode_combine_kernel" in kernels,
+              f"{name} holds no split-KV decode kernels")
     hgmma = hgmma_counts(build)
     emit("tensor_cores", hgmma=hgmma)
     check(all(n is None or n > 0 for n in hgmma.values()),
@@ -3141,6 +3371,7 @@ def main() -> int:
          contiguous_decode_cases=kernels["cdecode_cases"],
          contiguous_prefill_cases=kernels["cprefill_cases"])
     emit("kernels_timing", **kernels["timing"])
+    spmd_device = spmd_device_phase(torch, kattn)
     qerrs, qtiming, w4 = quant_kernels_phase(torch, kattn)
 
     launches, engine, reference = engine_phase(torch, kattn)
@@ -3260,7 +3491,10 @@ def main() -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t[library] if library else None,
-            "sdpa_view_ms": t.get("sdpa_view_ms", t.get("sdpa_ms"))})
+            "sdpa_view_ms": t.get("sdpa_view_ms", t.get("sdpa_ms")),
+            **({"device_ms": t["device_ms"],
+                "library_device_ms": t["sdpa_device_ms"]}
+               if "device_ms" in t else {})})
     # K4: K1 at the decode serving shape on int8 / int4 pages; its
     # yardstick is the same kernel on the unquantized pool. Launches: the
     # K1-K3 launches on quantized pools in the quant phases.
@@ -3276,7 +3510,8 @@ def main() -> int:
             "max_abs_err": max(c["max_abs_err"] for c in qerrs[bits]),
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"]})
+            "library_ms": t["library_ms"], "device_ms": t["device_ms"],
+            "library_device_ms": t["library_device_ms"]})
     # K5: one layer's seven decode projections; K6: the 128256-row head.
     # Yardstick: torch.matmul on the weight dequantized to bf16 beforehand.
     k5 = [(t, t["per_layer"]) for n, t in w4.items() if n != "lm_head"]
@@ -3287,7 +3522,8 @@ def main() -> int:
              "theroundtaible_tpu/engine/pallas/int4mm.py:205",
              [(w4["lm_head"], 1)])):
         total = {k: sum(t[k] * n for t, n in parts)
-                 for k in ("ms", "plain_ms", "library_ms", "bytes", "flops")}
+                 for k in ("ms", "plain_ms", "library_ms", "bytes", "flops",
+                           "device_ms", "library_device_ms")}
         bound, by = bound_ms(total["bytes"], total["flops"])
         rows.append({
             "name": name, "route": "cuda", "source": src + "int4mm.cu",
@@ -3295,7 +3531,9 @@ def main() -> int:
             "max_abs_err": max(t["max_abs_err"] for t, _ in parts),
             "ms": total["ms"], "plain_ms": total["plain_ms"],
             "bound_ms": bound, "bound_by": by,
-            "library_ms": total["library_ms"]})
+            "library_ms": total["library_ms"],
+            "device_ms": total["device_ms"],
+            "library_device_ms": total["library_device_ms"]})
     # K7: one layer's seven calls at 3 rows of 3 personas; yardstick: the
     # grouped einsums. Launches: the lora_round and lora_scheduler phases.
     parts = [(t, t["per_layer"]) for t in lora_timing.values()]
@@ -3332,7 +3570,8 @@ def main() -> int:
             "plain_ms": max(t["plain_ms"] for t in per),
             "bound_ms": per[0]["bound_ms"], "bound_by": per[0]["bound_by"],
             "library_ms": max(t["sdpa_view_ms"] for t in per),
-            "ms_per_rank": [t["ms"] for t in per]})
+            "ms_per_rank": [t["ms"] for t in per],
+            **spmd_device.get(name, {})})
     # K10e/K10f: one layer's seven per-shard products (K5) or calls (K7)
     # on one rank, the slower rank's time (each rank timed alone), the
     # per-shard bound, the library call per shard (torch.matmul on the

@@ -1,7 +1,8 @@
 """PyTorch port, kernels K1/K2: the plain versions of paged decode and
 paged prefill attention against the JAX package's Pallas kernels (run in
 interpret mode on the CPU), on the cases of tests/test_pallas.py and, for
-K2, at the edges of the CUDA kernel's tensor-core tile. The same numpy
+K2, at the edges of the CUDA kernel's tensor-core tile; K1's split-KV
+schedule (decode_split_ref) at the edges of its spans. The same numpy
 inputs go to both; f32, atol=rtol=5e-5 as the JAX kernel tests use.
 The CUDA kernels themselves run only on a card: tests/test_torch_cuda.py."""
 
@@ -265,6 +266,129 @@ def test_quantized_paged_prefill_at_kernel_tile_edges_matches_jax(name,
     for b, n in enumerate(lengths):
         assert np.isfinite(ours[b, :n]).all()
         np.testing.assert_allclose(ours[b, :n], ref[b, :n], **TOL)
+
+
+# --- K1's split-KV schedule (csrc/decode_split.cuh) at its edges ---
+# On a card K1 splits each row's positions into spans of
+# decode_chunk(D, dtype) aligned to position 0 (128 in f32 at D = 64, 32
+# at D = 256), computes each live span's (m, l, acc) and merges them in
+# order; decode_split_ref models that schedule and tests/test_torch_cuda.py
+# holds the kernel to it. Here the model meets the TPU kernel: (H, K, D, ps,
+# S, kv_valid of three rows, window, softcap) - kv_valid 1, CHUNK and
+# CHUNK + 1, page ends at ps 16 and 32, G 1, 4 and 16, D 64 and 256, a
+# window edge inside a span and a window that leaves whole spans below it,
+# softcap; NaN in every cell past kv_valid.
+DECODE_EDGES = {
+    "valid_1_chunk_chunk1_ps16": (8, 2, 64, 16, 512, [1, 128, 129], None,
+                                  None),
+    "g1_page_ends_ps32": (4, 4, 64, 32, 512, [32, 160, 512], None, None),
+    "g16_window_in_split": (16, 1, 64, 16, 512, [200, 300, 512], 50, None),
+    "window_leaves_splits_below": (8, 2, 64, 32, 512, [450, 500, 512], 100,
+                                   None),
+    "softcap": (8, 2, 64, 16, 512, [5, 257, 400], None, 20.0),
+    "d256_chunk_edges": (8, 2, 256, 16, 128, [1, 32, 33], None, None),
+    "d256_g16_window_softcap": (16, 1, 256, 32, 256, [64, 100, 250], 40,
+                                30.0),
+}
+
+
+def decode_edge_inputs(name, seed):
+    """A DECODE_EDGES case's q and pools, `clean` (zeros past kv_valid, what
+    the TPU kernel reads) and `dirty` (NaN there, never to be loaded)."""
+    H, K, D, ps, S, valid, _, _ = DECODE_EDGES[name]
+    rng = np.random.default_rng(seed)
+    k_pool, v_pool, table = shuffled_pool(rng, 3, S, K, D, ps)
+    valid = np.asarray(valid, np.int32)
+    clean, dirty = [k_pool, v_pool], [k_pool.copy(), v_pool.copy()]
+    for b in range(3):
+        for j in range(S // ps):
+            lo = max(int(valid[b]) - j * ps, 0)
+            if lo < ps:
+                for pool in clean:
+                    pool[table[b, j], lo:] = 0.0
+                for pool in dirty:
+                    pool[table[b, j], lo:] = np.nan
+    q = rng.normal(size=(3, 1, H, D)).astype(np.float32) * D ** -0.5
+    return rng, q, clean, dirty, table, valid
+
+
+@pytest.mark.parametrize("name", sorted(DECODE_EDGES))
+def test_decode_split_at_edges_matches_jax_kernel(name):
+    """decode_split_ref (and the wrapper's plain version) on the NaN pools
+    against the TPU kernel on the clean ones."""
+    *_, window, softcap = DECODE_EDGES[name]
+    _, q, clean, dirty, table, valid = decode_edge_inputs(name, 21)
+    port = [torch.from_numpy(x) for x in (q, *dirty, table, valid)]
+    kw = dict(sliding_window=window, softcap=softcap)
+    split = kattn.decode_split_ref(port[0], port[1], port[2], port[4],
+                                   table=port[3], **kw).numpy()
+    plain = kattn.paged_decode_attention(*port, **kw).numpy()
+    ref = np.asarray(jax_paged_decode(
+        *(jnp.asarray(x) for x in (q, *clean, table, valid)), **kw,
+        interpret=True))
+    assert np.isfinite(split).all()
+    np.testing.assert_allclose(split, ref, **TOL)
+    np.testing.assert_allclose(plain, ref, **TOL)
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("name", ["valid_1_chunk_chunk1_ps16",
+                                  "window_leaves_splits_below",
+                                  "d256_g16_window_softcap"])
+def test_quantized_decode_split_at_edges_matches_jax(name, bits):
+    """The same edges on int8/int4 pages (K4 inside K1): the TPU kernel gets
+    the clean cells quantized, the model random payloads and NaN scales
+    past kv_valid."""
+    ps, S, _, window, softcap = DECODE_EDGES[name][3:]
+    rng, q, clean, _, table, valid = decode_edge_inputs(name, 22)
+    spec = KVQuantSpec(bits=bits)
+    jax_pools, port_pools = [], []
+    for pool in clean:
+        qc, sc = (x.numpy() for x in quantize_cells(torch.from_numpy(pool),
+                                                    spec))
+        qd, sd = qc.copy(), sc.copy()
+        for b in range(3):
+            for j in range(S // ps):
+                lo = max(int(valid[b]) - j * ps, 0)
+                if lo < ps:
+                    qd[table[b, j], lo:] = rng.integers(
+                        -128, 128, size=qd[table[b, j], lo:].shape)
+                    sd[table[b, j], lo:] = np.nan
+        jax_pools.append((qc, sc))
+        port_pools.append((qd, sd))
+    (tk, tks), (tv, tvs) = ((torch.from_numpy(x) for x in p)
+                            for p in port_pools)
+    ours = kattn.decode_split_ref(
+        torch.from_numpy(q), tk, tv, torch.from_numpy(valid),
+        table=torch.from_numpy(table), sliding_window=window,
+        softcap=softcap, k_scale=tks, v_scale=tvs, kv_bits=bits).numpy()
+    (jk, jks), (jv, jvs) = ((jnp.asarray(x) for x in p) for p in jax_pools)
+    ref = np.asarray(jax_paged_decode(
+        jnp.asarray(q), jk, jv, jnp.asarray(table), jnp.asarray(valid),
+        sliding_window=window, softcap=softcap, interpret=True,
+        k_scale=jks, v_scale=jvs, kv_bits=bits))
+    assert np.isfinite(ours).all()
+    np.testing.assert_allclose(ours, ref, **TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", ["g1_page_ends_ps32",
+                                  "window_leaves_splits_below",
+                                  "d256_chunk_edges"])
+def test_decode_split_shard_equals_full_slice(name, dtype):
+    """K10b's premise: one shard's kv heads (and their query heads) give
+    the bits of the full-head call's slice, the spans being the same."""
+    H, K, *_, window, softcap = DECODE_EDGES[name]
+    _, q, _, dirty, table, valid = decode_edge_inputs(name, 23)
+    q, k, v = (torch.from_numpy(x).to(dtype) for x in (q, *dirty))
+    table, valid = torch.from_numpy(table), torch.from_numpy(valid)
+    kw = dict(table=table, sliding_window=window, softcap=softcap)
+    full = kattn.decode_split_ref(q, k, v, valid, **kw)
+    half_h, half_k = H // 2 if K > 1 else H, max(K // 2, 1)
+    shard = kattn.decode_split_ref(
+        q[:, :, H - half_h:].contiguous(), k[:, :, K - half_k:].contiguous(),
+        v[:, :, K - half_k:].contiguous(), valid, **kw)
+    assert torch.equal(shard, full[:, :, H - half_h:])
 
 
 def test_wrappers_refuse_what_they_do_not_take():

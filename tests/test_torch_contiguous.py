@@ -1,10 +1,11 @@
 """PyTorch port, the contiguous KV layout (the JAX engine's default): the
 plain versions of K8 (flash_prefill_attention) and K9
-(ragged_decode_attention) against the JAX package's Pallas kernels in
-interpret mode, forward_cached against the JAX prefill/decode programs,
-and the port's contiguous InferenceEngine and SessionScheduler against the
-JAX ones on tiny-llama, tiny-mistral (window 64) and tiny-gemma with the
-JAX engine's weights bridged in. Same numpy inputs on both sides, f32.
+(ragged_decode_attention), and K9's split-KV schedule (decode_split_ref),
+against the JAX package's Pallas kernels in interpret mode, forward_cached
+against the JAX prefill/decode programs, and the port's contiguous
+InferenceEngine and SessionScheduler against the JAX ones on tiny-llama,
+tiny-mistral (window 64) and tiny-gemma with the JAX engine's weights
+bridged in. Same numpy inputs on both sides, f32.
 The CUDA kernels themselves run only on a card: tests/test_torch_cuda.py.
 """
 
@@ -222,6 +223,75 @@ def test_stale_cells_past_kv_valid_contribute_nothing():
     assert torch.isfinite(dec).all() and torch.isfinite(pre).all()
     torch.testing.assert_close(dec, dec_c, atol=0, rtol=0)
     torch.testing.assert_close(pre, pre_c, atol=0, rtol=0)
+
+
+# K9's split-KV schedule (csrc/decode_split.cuh, K1's spans on the slot
+# cache) at its edges: (H, K, D, S, kv_valid of three rows, window,
+# softcap) - kv_valid 1, CHUNK and CHUNK + 1 (decode_chunk: 128 in f32 at
+# D = 64, 32 at D = 256), G 1, 4 and 16, a window edge inside a span and a
+# window that leaves whole spans below it, softcap, a row at the cache end;
+# the rows read a permutation of the cache's slots, NaN past kv_valid.
+DECODE_EDGES = {
+    "valid_1_chunk_chunk1": (8, 2, 64, 512, [1, 128, 129], None, None),
+    "g1_cache_end": (4, 4, 64, 512, [32, 160, 512], None, None),
+    "g16_window_in_split": (16, 1, 64, 512, [200, 300, 512], 50, None),
+    "window_leaves_splits_below": (8, 2, 64, 512, [450, 500, 512], 100,
+                                   None),
+    "softcap": (8, 2, 64, 512, [5, 257, 400], None, 20.0),
+    "d256_chunk_edges": (8, 2, 256, 128, [1, 32, 33], None, None),
+    "d256_g16_window_softcap": (16, 1, 256, 256, [64, 100, 250], 40, 30.0),
+}
+
+
+@pytest.mark.parametrize("name", sorted(DECODE_EDGES))
+def test_ragged_decode_split_at_edges_matches_jax_kernel(name):
+    """decode_split_ref on the slot cache (NaN past each row's kv_valid in
+    its slot) against the TPU kernel given the clean rows k[rows]."""
+    H, K, D, S, valid, window, softcap = DECODE_EDGES[name]
+    rng, k, v = cache_case(24, 5, S, K, D)
+    rows = np.asarray([3, 0, 4], np.int32)
+    valid = np.asarray(valid, np.int32)
+    dirty_k, dirty_v = k.copy(), v.copy()
+    for r, n in zip(rows, valid):
+        dirty_k[r, n:] = dirty_v[r, n:] = np.nan
+        k[r, n:] = v[r, n:] = 0.0
+    q = rng.normal(size=(3, 1, H, D)).astype(np.float32) * D ** -0.5
+    t = torch.from_numpy
+    kw = dict(sliding_window=window, softcap=softcap)
+    ours = kattn.decode_split_ref(t(q), t(dirty_k), t(dirty_v), t(valid),
+                                  rows=t(rows), **kw).numpy()
+    ref = np.asarray(pattn.ragged_decode_attention(
+        jnp.asarray(q), jnp.asarray(k[rows]), jnp.asarray(v[rows]),
+        jnp.asarray(valid), **kw, interpret=True))
+    assert np.isfinite(ours).all()
+    np.testing.assert_allclose(ours, ref, **TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_split_is_one_computation_on_both_layouts(dtype):
+    """K1 and K9 share their spans: the same cells through a page table
+    and through a slot row give the same bits."""
+    H, K, D, S, valid, window, softcap = DECODE_EDGES[
+        "window_leaves_splits_below"]
+    rng, k, v = cache_case(25, 3, S, K, D)
+    ps = 32
+    table = (rng.permutation(3 * S // ps) + 1).reshape(3, S // ps)
+    pools = []
+    for cache in (k, v):
+        pool = np.zeros((1 + 3 * S // ps, ps, K, D), np.float32)
+        pool[table.reshape(-1)] = cache.reshape(-1, ps, K, D)
+        pools.append(torch.from_numpy(pool).to(dtype))
+    q = torch.from_numpy(rng.normal(size=(3, 1, H, D)).astype(
+        np.float32)).to(dtype)
+    kw = dict(sliding_window=window, softcap=softcap)
+    valid = torch.tensor(valid, dtype=torch.int32)
+    slot = kattn.decode_split_ref(q, torch.from_numpy(k).to(dtype),
+                                  torch.from_numpy(v).to(dtype), valid,
+                                  **kw)
+    paged = kattn.decode_split_ref(q, *pools, valid, **kw,
+                                   table=torch.from_numpy(table.astype(
+                                       np.int32)))
+    assert torch.equal(slot, paged)
 
 
 def test_wrappers_refuse_what_they_do_not_take():

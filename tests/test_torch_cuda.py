@@ -1,4 +1,5 @@
-"""PyTorch port, CUDA kernels K1/K2/K3/K8/K9, K4 (in-kernel KV dequant
+"""PyTorch port, CUDA kernels K1/K2/K3/K8/K9 (K1/K9 also at the edges of
+their split-KV spans, against decode_split_ref), K4 (in-kernel KV dequant
 inside K1-K3, int8 and int4 pages), K5/K6 (w4a16 decode products), K7
 (grouped LoRA BGMV), K10's attention wrappers (K10a-d) and K10e/K10f
 (K5/K6 and K7 per shard) on two gloo ranks sharing the card, and the bf16
@@ -317,6 +318,167 @@ def test_cuda_quantized_prefill_kernel_matches_plain(cuda_device, bits,
             torch.testing.assert_close(out[b, :n].float(),
                                        ref[b, :n].float(), atol=tol,
                                        rtol=tol)
+
+
+# --- K1/K9's split-KV body at the edges of its spans ---
+# (H, K, D, ps, S, kv_valid of three rows, window, softcap): kv_valid 1,
+# CHUNK and CHUNK + 1 (decode_chunk: 128 positions in bf16 at D = 128, 64
+# in f32; 256 / 128 at D = 64; 64 / 32 at D = 256), page ends at ps 16 and
+# 32, G 1, 4 and 16, D 64 and 256, a window edge inside a span and a window
+# that leaves whole spans below it, softcap. NaN in every cell past each
+# row's kv_valid.
+DECODE_EDGES = {
+    "valid_1_chunk_chunk1": (32, 8, 128, 16, 1024, [1, 128, 129], None,
+                             None),
+    "g1_page_ends_ps32": (8, 8, 64, 32, 1024, [32, 256, 1024], None, None),
+    "g16_window_in_split": (16, 1, 128, 16, 1024, [200, 300, 1024], 50,
+                            None),
+    "window_leaves_splits_below": (32, 8, 128, 128, 2048, [900, 1700, 2048],
+                                   300, None),
+    "softcap": (32, 8, 128, 64, 1024, [5, 257, 700], None, 20.0),
+    "d64_chunk_edges": (16, 4, 64, 16, 1024, [255, 256, 257], None, None),
+    "d256_chunk_edges": (8, 2, 256, 16, 512, [1, 64, 65], None, None),
+    "d256_g16_window_softcap": (16, 1, 256, 32, 512, [64, 100, 500], 40,
+                                30.0),
+}
+
+
+def decode_edge(name, seed):
+    """A DECODE_EDGES case: q, the f32 pools with NaN past each row's
+    kv_valid, the table and kv_valid."""
+    H, K, D, ps, S, valid, _, _ = DECODE_EDGES[name]
+    rng = np.random.default_rng(seed)
+    k_pool, v_pool, table = shuffled_pool(rng, 3, S, K, D, ps)
+    valid = np.asarray(valid, np.int32)
+    for b in range(3):
+        for j in range(S // ps):
+            lo = max(int(valid[b]) - j * ps, 0)
+            if lo < ps:
+                k_pool[table[b, j], lo:] = np.nan
+                v_pool[table[b, j], lo:] = np.nan
+    q = rng.normal(size=(3, 1, H, D)).astype(np.float32) * D ** -0.5
+    return rng, q, k_pool, v_pool, table, valid
+
+
+def _close(out, ref, tol):
+    assert torch.isfinite(out).all()
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("name", sorted(DECODE_EDGES))
+def test_cuda_decode_kernels_at_split_edges(cuda_device, name, dtype, tol):
+    """K1 on the pool and K9 on the same cells laid out as slot rows,
+    each against its plain version and against decode_split_ref."""
+    *_, window, softcap = DECODE_EDGES[name]
+    _, q, k_pool, v_pool, table, valid = decode_edge(name, 31)
+    dev = cuda_device
+    q, kp, vp = (torch.from_numpy(x).to(dev, dtype)
+                 for x in (q, k_pool, v_pool))
+    table, valid = (torch.from_numpy(x).to(dev) for x in (table, valid))
+    kw = dict(sliding_window=window, softcap=softcap)
+    out = kattn.paged_decode_attention(q, kp, vp, table, valid, **kw)
+    _close(out, kattn.paged_decode_attention_ref(q, kp, vp, table, valid,
+                                                 **kw), tol)
+    _close(out, kattn.decode_split_ref(q, kp, vp, valid, table=table, **kw),
+           tol)
+    kc = kp[table.long()].reshape(3, -1, *kp.shape[2:]).contiguous()
+    vc = vp[table.long()].reshape(3, -1, *vp.shape[2:]).contiguous()
+    rows = torch.tensor([2, 0, 1], dtype=torch.int32, device=dev)
+    inv = torch.argsort(rows.long())
+    kc, vc = kc[inv].contiguous(), vc[inv].contiguous()
+    out9 = kattn.ragged_decode_attention(q, kc, vc, valid, rows=rows, **kw)
+    _close(out9, kattn.ragged_decode_attention_ref(q, kc, vc, valid,
+                                                   rows=rows, **kw), tol)
+    _close(out9, kattn.decode_split_ref(q, kc, vc, valid, rows=rows, **kw),
+           tol)
+    # One computation: the same cells through a table or a slot row.
+    assert torch.equal(out, out9)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits,dtype,tol", QUANT_CASES)
+@pytest.mark.parametrize("name", ["valid_1_chunk_chunk1",
+                                  "window_leaves_splits_below",
+                                  "d64_chunk_edges",
+                                  "d256_g16_window_softcap"])
+def test_cuda_quantized_decode_kernel_at_split_edges(cuda_device, name, bits,
+                                                     dtype, tol):
+    """K1 with K4 inside on int8/int4 pages (random payloads and NaN scales
+    past kv_valid) against its plain version and decode_split_ref."""
+    *_, window, softcap = DECODE_EDGES[name]
+    rng, q, k_pool, v_pool, table, valid = decode_edge(name, 32)
+    pools = quantized_pools(rng, k_pool, v_pool, table, valid, bits)
+    dev = cuda_device
+    args, kw = _pool_args(dev, dtype, q, pools)
+    table, valid = (torch.from_numpy(x).to(dev) for x in (table, valid))
+    kw.update(sliding_window=window, softcap=softcap, kv_bits=bits)
+    out = kattn.paged_decode_attention(*args, table, valid, **kw)
+    _close(out, kattn.paged_decode_attention_ref(*args, table, valid, **kw),
+           tol)
+    _close(out, kattn.decode_split_ref(*args, valid, table=table, **kw),
+           tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [0, 8, 4])
+def test_cuda_decode_kernels_are_bit_identical_across_calls(cuda_device,
+                                                            bits):
+    """The combine merges the spans in a fixed order without atomics: two
+    identical calls of K1 (and K9) give the same bits."""
+    rng, q, k_pool, v_pool, table, valid = decode_edge(
+        "window_leaves_splits_below", 33)
+    dev = cuda_device
+    if bits:
+        args, kw = _pool_args(dev, torch.bfloat16, q, quantized_pools(
+            rng, k_pool, v_pool, table, valid, bits))
+        kw["kv_bits"] = bits
+    else:
+        args, kw = [torch.from_numpy(x).to(dev, torch.bfloat16)
+                    for x in (q, k_pool, v_pool)], {}
+    table, valid = (torch.from_numpy(x).to(dev) for x in (table, valid))
+    first = kattn.paged_decode_attention(*args, table, valid, **kw)
+    assert torch.equal(first, kattn.paged_decode_attention(
+        *args, table, valid, **kw))
+    if not bits:
+        kc = args[1][table.long()].reshape(3, -1, *args[1].shape[2:])
+        vc = args[2][table.long()].reshape(3, -1, *args[2].shape[2:])
+        one = kattn.ragged_decode_attention(args[0], kc.contiguous(),
+                                            vc.contiguous(), valid)
+        assert torch.equal(one, kattn.ragged_decode_attention(
+            args[0], kc.contiguous(), vc.contiguous(), valid))
+
+
+@pytest.mark.cuda
+def test_cuda_decode_chunk_is_the_kernels(cuda_device):
+    """The wrappers size the split workspace by decode_chunk: it must be
+    the kernels' own split length."""
+    for name, fn in (("paged_decode", "rt_paged_decode_chunk"),
+                     ("ragged_decode", "rt_ragged_decode_chunk")):
+        lib = build.library(name)
+        for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
+            for d in kattn.HEAD_DIMS:
+                assert getattr(lib, fn)(code, d) == kattn.decode_chunk(
+                    d, dtype)
+
+
+@pytest.mark.cuda
+def test_cuda_decode_split_kernels_in_ptxas(cuda_device):
+    """K1's and K9's libraries hold the split and combine kernels of every
+    instantiation, and the bf16 split kernels at D <= 128 on unquantized
+    pages do not spill."""
+    build.build_all()
+    logs = build.build_logs()
+    for name in ("paged_decode", "ragged_decode"):
+        entries = logs[name].split("Compiling entry function '")[1:]
+        split = [e for e in entries if "decode_split_kernel" in e]
+        assert split and any("decode_combine_kernel" in e for e in entries)
+        for e in split:
+            mangled = e.split("'")[0]
+            if ("__nv_bfloat16" in mangled and "Li0EE" in mangled
+                    and ("Li64E" in mangled or "Li128E" in mangled)):
+                assert "0 bytes spill stores" in e, e[:400]
 
 
 # --- K2/K8 at the edges of the tensor-core tile (64 query rows of G heads

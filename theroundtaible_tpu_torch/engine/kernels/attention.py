@@ -36,6 +36,14 @@ forward. Each returns None where the TPU wrapper does (a head layout that
 does not partition, a data axis the call cannot split, a declined
 shard), with the reason from spmd_decline_reason.
 
+K1 and K9 are one split-KV body (csrc/decode_split.cuh) under two
+addressing policies: a block per span of decode_chunk(D, dtype) absolute
+positions, kv head and row, and a combine kernel that merges the spans in
+order. Their wrappers allocate the f32 workspace of the spans' partials
+(one torch.empty per call) and launch both kernels with one call of the C
+entry. decode_split_ref models that schedule in plain PyTorch for the
+tests and chip_smoke.py.
+
 K8 and K9 take the JAX signature plus `rows`, a [B] int32 map from batch
 row to cache row: the engine passes its batch's slot ids, so the kernels
 read the slots in place from the [num_slots, S, K, D] cache. rows=None
@@ -431,6 +439,103 @@ def ragged_decode_attention_ref(q, k_cache, v_cache, kv_valid, *,
         sliding_window=sliding_window, softcap=softcap, rows=rows)
 
 
+# K1/K9's split: bytes of K (and of V) one block stages
+# (csrc/decode_split.cuh kSplitBytes).
+DECODE_SPLIT_BYTES = 32768
+
+
+def decode_chunk(d: int, dtype) -> int:
+    """Positions per split of K1/K9 for head dim `d` and q's `dtype`: a
+    constant of (dtype, D), never of the heads, rows, pages or cache
+    length (128 in bf16 at D = 128)."""
+    return DECODE_SPLIT_BYTES // (d * dtype.itemsize)
+
+
+def _decode_workspace(q, kh: int, span: int):
+    """The f32 workspace of a K1/K9 launch: (m, l, acc[G, D]) of every
+    split of `span` positions, for every (row, kv head)."""
+    b, _, h, d = q.shape
+    n_splits = -(-span // decode_chunk(d, q.dtype))
+    return torch.empty(b * kh * n_splits * (h // kh) * (d + 2),
+                       dtype=torch.float32, device=q.device)
+
+
+def decode_split_ref(q, k, v, kv_valid, *, table=None, rows=None,
+                     sliding_window: Optional[int] = None,
+                     softcap: Optional[float] = None, k_scale=None,
+                     v_scale=None, kv_bits: int = 8):
+    """Plain model of K1/K9's algorithm (csrc/decode_split.cuh), for the
+    tests and chip_smoke.py only: with `table`, k/v are page pools
+    [P,ps,K,Dp] (quantized with `k_scale`/`v_scale`); without, caches
+    [N,S,K,D] read through `rows` (None: row b). Positions split into
+    spans of decode_chunk(D, q.dtype) aligned to 0; each live span
+    computes (m, l, acc) of its window cells - scores in f32, softcap, the
+    finite mask, p rounded to q's dtype for the PV product, l from the
+    unrounded p - and the spans merge in ascending order, the output
+    divided by max(l, 1e-30). Every kv head is computed on its own,
+    so a shard's heads give the bits of the full call's slice. Cells
+    outside [window start, kv_valid) are never read (zeroed first).
+    [B,1,H,D] in q's dtype."""
+    b, _, h, d = q.shape
+    dev = q.device
+    kh = k.shape[2]
+    if table is not None:
+        span = table.shape[1] * k.shape[1]
+        idx = table.to(dev).long()
+        kc = _gather(k, k_scale, idx, kv_bits, q.dtype).reshape(b, span,
+                                                                kh, d)
+        vc = _gather(v, v_scale, idx, kv_bits, q.dtype).reshape(b, span,
+                                                                kh, d)
+    else:
+        span = k.shape[1]
+        idx = (torch.arange(b, device=dev) if rows is None
+               else rows.to(dev).long())
+        kc, vc = k[idx], v[idx]
+    chunk = decode_chunk(d, q.dtype)
+    n = -(-span // chunk)
+    valid = kv_valid.to(dev).long()
+    end = torch.clamp(valid, max=span)
+    lo = (torch.clamp(valid - sliding_window, min=0) if sliding_window
+          else torch.zeros_like(valid))
+    pos = torch.arange(n * chunk, device=dev)
+    live = (pos[None] >= lo[:, None]) & (pos[None] < end[:, None])
+    pad = n * chunk - span
+    zero = torch.zeros((), dtype=kc.dtype, device=dev)
+    cells = [torch.where(live[:, :, None, None],
+                         torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad)),
+                         zero).float().reshape(b, n, chunk, kh, d)
+             for x in (kc, vc)]
+    live = live.reshape(b, n, chunk)
+    split_live = live.any(-1)                                  # [B, n]
+    group = h // kh
+    qg = q[:, 0].reshape(b, kh, group, d).float()
+    mask = torch.tensor(MASK_VALUE, device=dev)
+    out = []
+    for i in range(kh):
+        s = torch.einsum("bgd,bncd->bngc", qg[:, i], cells[0][:, :, :, i])
+        if softcap is not None:
+            s = softcap * torch.tanh(s / softcap)
+        s = torch.where(live[:, :, None], s, mask)
+        m = s.amax(-1)                                         # [B,n,G]
+        p = torch.exp(s - m[..., None])
+        l = p.sum(-1)
+        acc = torch.einsum("bngc,bncd->bngd", p.to(q.dtype).float(),
+                           cells[1][:, :, :, i])
+        m_all = torch.full((b, group), MASK_VALUE, device=dev)
+        for j in range(n):
+            m_all = torch.where(split_live[:, j, None],
+                                torch.maximum(m_all, m[:, j]), m_all)
+        l_all = torch.zeros(b, group, device=dev)
+        a_all = torch.zeros(b, group, d, device=dev)
+        for j in range(n):
+            w = torch.where(split_live[:, j, None],
+                            torch.exp(m[:, j] - m_all), 0.0)
+            l_all = l_all + w * l[:, j]
+            a_all = a_all + w[..., None] * acc[:, j]
+        out.append(a_all / torch.clamp(l_all, min=1e-30)[..., None])
+    return torch.stack(out, 1).reshape(b, 1, h, d).to(q.dtype)
+
+
 # --- kernel wrappers ---
 
 
@@ -580,10 +685,11 @@ def paged_decode_attention(q, k_pool, v_pool, table, kv_valid, *,
                           k_scale, v_scale)
     ks, vs, bits, groups = _quant_args(k_scale, v_scale, bits)
     out = torch.empty_like(q)
+    ws = _decode_workspace(q, kh, table.shape[1] * ps)
     rc = build.library("paged_decode").rt_paged_decode(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), ks, vs,
         ints["table"].data_ptr(), ints["kv_valid"].data_ptr(),
-        out.data_ptr(), b, h, kh, d, ps, table.shape[1],
+        out.data_ptr(), ws.data_ptr(), b, h, kh, d, ps, table.shape[1],
         int(sliding_window or 0), float(softcap or 0.0),
         _DTYPE_CODES[q.dtype], bits, groups, q.device.index or 0,
         torch.cuda.current_stream(q.device).cuda_stream)
@@ -803,11 +909,12 @@ def ragged_decode_attention(q, k_cache, v_cache, kv_valid, *,
     ints = _cuda_operands(q, k_cache, v_cache, {"rows": rows_t, **per_row},
                           what)
     out = torch.empty_like(q)
+    ws = _decode_workspace(q, kh, s)
     rc = build.library("ragged_decode").rt_ragged_decode(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         ints["rows"].data_ptr(), ints["kv_valid"].data_ptr(), out.data_ptr(),
-        b, h, kh, d, s, n, int(sliding_window or 0), float(softcap or 0.0),
-        _DTYPE_CODES[q.dtype], q.device.index or 0,
+        ws.data_ptr(), b, h, kh, d, s, n, int(sliding_window or 0),
+        float(softcap or 0.0), _DTYPE_CODES[q.dtype], q.device.index or 0,
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(rc, f"{what} launch")
     _launches[what] += 1

@@ -34,9 +34,10 @@ _F = ctypes.c_float
 # are c_void_p so ctypes never truncates them to 32 bits.
 _SIGNATURES = {
     "paged_decode": {
-        "rt_paged_decode": ([_P] * 8 + [_I] * 7 + [_F] + [_I] * 4 + [_P],
+        "rt_paged_decode": ([_P] * 9 + [_I] * 7 + [_F] + [_I] * 4 + [_P],
                             _I),
         "rt_paged_decode_smem_bytes": ([_I, _I, _I], ctypes.c_longlong),
+        "rt_paged_decode_chunk": ([_I, _I], _I),
     },
     "paged_prefill": {
         "rt_paged_prefill": ([_P] * 9 + [_I] * 8 + [_F] + [_I] * 4 + [_P],
@@ -54,8 +55,9 @@ _SIGNATURES = {
         "rt_flash_prefill_smem_bytes": ([_I, _I, _I], ctypes.c_longlong),
     },
     "ragged_decode": {
-        "rt_ragged_decode": ([_P] * 6 + [_I] * 7 + [_F, _I, _I, _P], _I),
+        "rt_ragged_decode": ([_P] * 7 + [_I] * 7 + [_F, _I, _I, _P], _I),
         "rt_ragged_decode_smem_bytes": ([_I, _I], ctypes.c_longlong),
+        "rt_ragged_decode_chunk": ([_I, _I], _I),
     },
     "int4mm": {
         "rt_mm_pack_out": ([_P] * 5 + [_I] * 7 + [_P], _I),

@@ -1,6 +1,7 @@
 // Shared device helpers of the hand-written kernels (paged_decode.cu,
 // paged_prefill.cu, ragged_paged.cu, flash_prefill.cu, ragged_decode.cu,
-// int4mm.cu), K4's dequantizing tile load among them. Plain C interface,
+// int4mm.cu, bgmv.cu), K4's dequantizing tile load, the KV addressing
+// policies and the cp.async helpers among them. Plain C interface,
 // built by engine/kernels/build.py with
 // `nvcc -gencode arch=compute_90a,code=sm_90a -shared`.
 #pragma once
@@ -163,6 +164,94 @@ __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
+}
+
+// --- KV addressing policies of the attention bodies ---
+//
+// prefill_tc.cuh (K2/K8) and decode_split.cuh (K1/K9) each hold their math
+// once; a kernel source instantiates it with the policy that locates kv
+// cell (batch row b, position pos, kv head kh). Each is built from the
+// launch's args struct, whatever its type, through the fields `index`
+// (the page table [B, pp] or the cache row of each batch row [B]), `K`,
+// `ps`, `pp`, `ps_shift` (PagedKV) and `S`, `n_rows` (SlotKV).
+//
+// - PagedKV: cell (table[b][pos >> log2 ps] * ps + pos % ps) * K + kh of
+//   the pools [P,ps,K,D] (ps a power of two);
+// - SlotKV: cell (rows[b] * S + pos) * K + kh of the caches [N,S,K,D]; a
+//   row index outside [0, N) traps (the launch fails and the next
+//   synchronisation raises).
+struct PagedKV {
+  static constexpr bool kZeroPadRows = false;
+  const int* row_table;
+  int shift, ps, pp, K, kh;  // ps = 1 << shift
+  template <class Args>
+  __device__ __forceinline__ PagedKV(const Args& a, int b, int kh_)
+      : row_table(a.index + (size_t)b * a.pp), shift(a.ps_shift), ps(a.ps),
+        pp(a.pp), K(a.K), kh(kh_) {}
+  // Positions the table covers (host side: the decode split count).
+  template <class Args>
+  static int span(const Args& a) { return a.pp * a.ps; }
+  // Positions past the table are never addressed.
+  __device__ __forceinline__ int clamp_valid(int valid) const {
+    return min(valid, pp * ps);
+  }
+  __device__ __forceinline__ size_t cell(int pos) const {
+    return (((size_t)row_table[pos >> shift] << shift) + (pos & (ps - 1))) *
+               K + kh;
+  }
+};
+
+struct SlotKV {
+  static constexpr bool kZeroPadRows = true;
+  size_t first;  // the row's first cell / K
+  int S, K, kh;
+  template <class Args>
+  __device__ __forceinline__ SlotKV(const Args& a, int b, int kh_)
+      : S(a.S), K(a.K), kh(kh_) {
+    const int slot = a.index[b];
+    if (slot < 0 || slot >= a.n_rows) __trap();
+    first = (size_t)slot * a.S;
+  }
+  template <class Args>
+  static int span(const Args& a) { return a.S; }
+  __device__ __forceinline__ int clamp_valid(int valid) const {
+    return min(valid, S);
+  }
+  __device__ __forceinline__ size_t cell(int pos) const {
+    return (first + pos) * K + kh;
+  }
+};
+
+// --- asynchronous copies (K1/K2/K8/K9 staging) ---
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronously; src_bytes 0 zero-fills the
+// destination without reading the source.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+// 4 bytes (a scale), likewise.
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // Sets the dynamic shared memory a launch needs above the 48 KB default.

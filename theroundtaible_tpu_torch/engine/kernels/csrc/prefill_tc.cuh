@@ -6,7 +6,8 @@
 // _prefill_accumulate, which the TPU's contiguous (_prefill_kernel) and
 // paged (_paged_prefill_kernel) prefill kernels share: the two differ only
 // in how a kv cell is addressed, so the math lives here once and each
-// kernel source supplies its policy:
+// kernel source supplies its policy (paged_common.cuh, shared with the
+// decode body decode_split.cuh):
 //
 // - PagedKV (K2): position pos of batch row b is cell
 //   (table[b][pos >> log2 ps] * ps + pos % ps) * K + kh of the pools
@@ -111,41 +112,6 @@ struct PrefillArgs {
   int window;
   float softcap;
   int SG;
-};
-
-struct PagedKV {
-  static constexpr bool kZeroPadRows = false;
-  const int* row_table;
-  int shift, ps, pp, K, kh;  // ps = 1 << shift
-  __device__ __forceinline__ PagedKV(const PrefillArgs& a, int b, int kh_)
-      : row_table(a.index + (size_t)b * a.pp), shift(a.ps_shift), ps(a.ps),
-        pp(a.pp), K(a.K), kh(kh_) {}
-  // Positions past the table are never addressed.
-  __device__ __forceinline__ int clamp_valid(int valid) const {
-    return min(valid, pp * ps);
-  }
-  __device__ __forceinline__ size_t cell(int pos) const {
-    return (((size_t)row_table[pos >> shift] << shift) + (pos & (ps - 1))) *
-               K + kh;
-  }
-};
-
-struct SlotKV {
-  static constexpr bool kZeroPadRows = true;
-  size_t first;  // the row's first cell / K
-  int S, K, kh;
-  __device__ __forceinline__ SlotKV(const PrefillArgs& a, int b, int kh_)
-      : S(a.S), K(a.K), kh(kh_) {
-    const int slot = a.index[b];
-    if (slot < 0 || slot >= a.n_rows) __trap();
-    first = (size_t)slot * a.S;
-  }
-  __device__ __forceinline__ int clamp_valid(int valid) const {
-    return min(valid, S);
-  }
-  __device__ __forceinline__ size_t cell(int pos) const {
-    return (first + pos) * K + kh;
-  }
 };
 
 // ---------------------------------------------------------------------------
@@ -446,10 +412,6 @@ inline size_t prefill_smem_bytes(int G, int D, int T) {
   return simt > tc ? simt : tc;
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 __device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
                "r"(count)
@@ -481,24 +443,6 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   const long long start = clock64();
   while (!mbar_try_wait(bar, parity))
     if (clock64() - start > kWaitTrapCycles) __trap();
-}
-
-// 16 bytes global -> shared, asynchronously; src_bytes 0 zero-fills the
-// destination without reading the source.
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // Orders this thread's generic-proxy shared-memory writes before later
