@@ -26,11 +26,12 @@ layer's seven products and K6's.
 With --attention each run builds the kernels and runs only the kernels
 phase: K1, K2, K3, K8 and K9 against their plain versions, then each
 timed with CUDA events at the serving shapes beside its SDPA yardstick;
-then K1's and K9's device time at the decode serving shape beside SDPA's
-(`decode_device`: torch.profiler, this script's chip_smoke.device_ms, so
-every tree is read the same way); the summary holds each kernel's ms, its
-yardstick's and its bound, and K1's and K9's device_ms and
-sdpa_device_ms.
+then K1's and K9's device time at the decode serving shape, K2's at a
+512-row chunk and K3's at RAGGED_MAIN, each beside SDPA's
+(`attention_device`: torch.profiler, this script's chip_smoke.device_ms,
+so every tree is read the same way); the summary holds each kernel's ms,
+its yardstick's and its bound, and K1's, K2's, K3's and K9's device_ms
+and sdpa_device_ms.
 
 With --k5-splits each run builds the kernels and times K5 alone at the
 per-rank column shards of K10e on a 2-way model axis at Llama-3-8B width
@@ -113,12 +114,13 @@ def k5_splits_phase(torch, cs, reps: int = 300) -> None:
     cs.emit("k5_splits", sms=sms, reps=reps, shards=out)
 
 
-def decode_device_phase(torch, kattn, cs) -> None:
+def attention_device_phase(torch, kattn, cs) -> None:
     """K1 and K9 at the decode serving shape (B=3, H=32, K=8, D=128,
     kv_valid 1600/1650/1700; pages of 128, or 8 slots of 8192 positions
-    read through a row map) through `kattn` - whichever tree's wrappers -
-    and SDPA on the same inputs, each read by this script's
-    chip_smoke.device_ms; `cs.emit` prints the line."""
+    read through a row map), K2 at a 512-row chunk of three rows over a
+    1.2k prefix and K3 at chip_smoke's RAGGED_MAIN buffer, through `kattn`
+    - whichever tree's wrappers - and SDPA on the same inputs, each read by
+    this script's chip_smoke.device_ms; `cs.emit` prints the line."""
     import importlib.util
     spec = importlib.util.spec_from_file_location(
         "chip_smoke_reader", Path(__file__).resolve().parent / "chip_smoke.py")
@@ -140,7 +142,24 @@ def decode_device_phase(torch, kattn, cs) -> None:
                            table, valid)
     k9 = functools.partial(kattn.ragged_decode_attention, q, kc, vc, valid,
                            rows=rows)
-    cs.emit("decode_device", reps=20, decode={
+    offs = torch.tensor([1200, 1200, 1200], dtype=torch.int32, device=dev)
+    pvalid = offs + torch.tensor([300, 320, 340], dtype=torch.int32,
+                                 device=dev)
+    qp = (torch.randn(B, 512, H, D, generator=gen, device=dev)
+          * D ** -0.5).to(bf16)
+    k2 = functools.partial(kattn.paged_prefill_attention, qp, k_pool, v_pool,
+                           table, offs, pvalid)
+    rargs = here.ragged_inputs(torch, gen, here.RAGGED_MAIN, 1024, H, K, D,
+                               128, bf16, dev)
+    k3 = functools.partial(kattn.ragged_paged_attention, *rargs)
+    cs.emit("attention_device", reps=20, prefill={
+        "device_ms": here.device_ms(torch, k2, flush),
+        "sdpa_device_ms": here.device_ms(torch, here.sdpa_view_call(
+            torch, qp, k_pool, v_pool, table, pvalid, offs), flush)},
+        ragged={
+        "device_ms": here.device_ms(torch, k3, flush),
+        "sdpa_device_ms": here.device_ms(torch, here.sdpa_ragged_call(
+            torch, rargs, here.RAGGED_MAIN), flush)}, decode={
         "device_ms": here.device_ms(torch, k1, flush),
         "sdpa_device_ms": here.device_ms(torch, here.sdpa_view_call(
             torch, q, k_pool, v_pool, table, valid, None), flush)},
@@ -176,7 +195,7 @@ def child(root: str, kernels: bool = False, splits: bool = False,
         return
     if attention:
         cs.emit("kernels_timing", **cs.kernels_phase(torch, kattn)["timing"])
-        decode_device_phase(torch, kattn, cs)
+        attention_device_phase(torch, kattn, cs)
         return
 
     def release(engine):
@@ -221,8 +240,8 @@ def summarize(phases: list[dict]) -> dict:
             kind: {"ms": t["ms"], "bound_ms": t["bound_ms"],
                    "sdpa_ms": t.get("sdpa_view_ms", t.get("sdpa_ms"))}
             for kind, t in timing.items()}
-        for kind in ("decode", "cdecode"):
-            for p in by.get("decode_device", []):
+        for kind in ("decode", "cdecode", "prefill", "ragged"):
+            for p in by.get("attention_device", []):
                 attention[kind].update(p[kind])
         return {"attention": attention}
     w4 = by.get("quant_kernels", [{}])[0].get("w4a16")

@@ -21,7 +21,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
              128; K8/K9 on an 8-slot, 8192-position cache read through a
              permutation of its slots, one K8 row ending at the cache
              end), plus window, softcap, D=64 and D=256 cases (K3 also a
-             mid-page chunk with inert blocks; K2/K8 also the tensor-core
+             mid-page chunk with inert blocks and RAGGED_EDGES, the edges
+             of its schedule, every case also against ragged_tile_ref;
+             K2/K8 also the tensor-core
              tile's edges, PREFILL_EDGES: G 1, 3 and 16, pages of 16 and
              32, T = 1 and T no multiple of the tile, chunks starting
              mid-page, a window edge inside a key tile; K1/K9 also the
@@ -32,12 +34,17 @@ Phases, each printing one JSON line; any failure exits non-zero:
              NaN in every cell past kv_valid; kernel and plain times from
              CUDA events beside each kernel's device-memory/operations
              bound and SDPA on a pre-gathered view (K8/K9: on the batch's
-             slot rows); for K1, K9 and K3 also `device_ms` and
+             slot rows); for K1, K2, K3, K8 and K9 also `device_ms` and
              `sdpa_device_ms`, the call's own kernels' device time from
-             torch.profiler (device_ms()).
+             torch.profiler (device_ms()); for K1, K9 and K3
+             `device_kernels_ms`, each kernel's (K3: its prefill tiles,
+             split and combine), and for K3 the same buffer with only its
+             decode rows and with only its chunk (`decode_rows_only`,
+             `chunk_only`: ms, device_ms, device_kernels_ms).
    tp_kernels_device - the same device times for K10a's decode route,
-             K10b and K10d on rank 0's shard (H=16, K=4), taken in this
-             process.
+             K10b, K10c and K10d on rank 0's shard (H=16, K=4), and K10e's
+             seven per-shard products of one layer beside torch.matmul on
+             the pre-dequantized shard, taken in this process.
 4. engine  - InferenceEngine.from_config for llama-3-8b-instruct (full
              width, 32 layers, seeded random weights, byte tokenizer),
              paged pool, bf16, 8 slots, max_seq_len 8192; warmup(); two
@@ -62,7 +69,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
              live rows, so beta joins through ragged mixed dispatches.
              K1, K2 and K3 must all launch within the phase; beta's TTFT,
              alpha's decode rate and the ragged dispatches' walls are
-             printed.
+             printed. Then the same sessions again
+             (`scheduler_profiled`) with the first three ragged dispatches
+             under torch.profiler (`ragged_profiled`: wall, device time and
+             K3's share of it).
 9. contiguous - the paged engine released, TorchLlmAdapter.from_config
              with the engine phase's config minus `kv_layout`: the default
              builds a contiguous engine (same weights, 8 slots of 8192
@@ -89,7 +99,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
              each called twice for the same bits; CUDA-event
              times beside the bound and a yardstick (K4: the same kernel
              on the unquantized pool; K5/K6: torch.matmul on the weight
-             dequantized to bf16 beforehand), K4 in K1/K2 and K5/K6 with
+             dequantized to bf16 beforehand), K4 in K1-K3 and K5/K6 with
              device times too.
 13. quant_int8, quant_int4 - the engine phase's config with `"quant":
              "int8", "kv_quant": "int8"` (the shipped knights' quant), then
@@ -406,6 +416,24 @@ def graph_ms(torch, fn, calls=20, replays=5):
     return start.elapsed_time(end) / (calls * replays)
 
 
+def device_busy_us(prof):
+    """Microseconds the card was busy in a torch.profiler window: the union
+    of its CUDA kernels' and copies' intervals."""
+    from torch.autograd import DeviceType
+    spans = sorted((ev.time_range.start, ev.time_range.end)
+                   for ev in prof.events()
+                   if ev.device_type == DeviceType.CUDA)
+    busy, reach = 0.0, None
+    for start, end in spans:
+        if reach is None or start > reach:
+            busy += end - start
+            reach = end
+        elif end > reach:
+            busy += end - reach
+            reach = end
+    return busy
+
+
 def device_ms(torch, fn, flush, reps=20, by_kernel=None):
     """Median over `reps` calls of one call's device time: the time the
     card spent in the CUDA kernels (and copies) the call launched - both of
@@ -429,17 +457,7 @@ def device_ms(torch, fn, flush, reps=20, by_kernel=None):
                                  ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-        spans = sorted((ev.time_range.start, ev.time_range.end)
-                       for ev in prof.events()
-                       if ev.device_type == DeviceType.CUDA)
-        busy, reach = 0.0, None
-        for start, end in spans:
-            if reach is None or start > reach:
-                busy += end - start
-                reach = end
-            elif end > reach:
-                busy += end - reach
-                reach = end
+        busy = device_busy_us(prof)
         if busy > 0:
             times.append(busy)
             for ev in prof.events():
@@ -675,6 +693,10 @@ def kernels_phase(torch, kattn):
             flush),
         "sdpa_view_ms": sdpa_view_ms(torch, q, k_pool, v_pool, table,
                                      valid, offsets, flush),
+        "device_ms": device_ms(
+            torch, lambda: kattn.paged_prefill_attention(*args), flush),
+        "sdpa_device_ms": device_ms(torch, sdpa_view_call(
+            torch, q, k_pool, v_pool, table, valid, offsets), flush),
         "bytes": 2 * sum(lengths_l) * H * D * 2 + cells * K * D * 2 * 2,
         "flops": pairs * H * D * 4}
     results["ragged_cases"], timing["ragged"] = ragged_kernel_cases(
@@ -722,31 +744,55 @@ def ragged_inputs(torch, gen, runs, T, H, K, D, ps, dtype, dev):
             block_qstart.to(dev), offsets.to(dev), kv_valid)
 
 
+# K3 at the edges of its schedule (attention.ragged_tiles: tiles of 2 *
+# (64 / G) rows, decode items over more than 64 cells): (H, K, D, ps, T,
+# runs, window, softcap). G 4 with runs of 1, 7, 8, 9, 31, 32 and 33 rows
+# on pages of 16; G 1 (128-row tiles) with 127 and 129 rows; G 2 with a
+# chunk starting mid-page and a window crossing a key tile; G 8 (15, 16, 17
+# rows) with softcap; G 16 at D = 256 (8-row tiles) with window and
+# softcap; G 4 at D = 64 with decode rows over 64 and 65 cells; G 3.
+RAGGED_EDGES = [
+    (8, 2, 128, 16, 176, [(100, 1), (5, 7), (30, 8), (0, 9), (41, 31),
+                          (3, 32), (70, 33)], None, None),
+    (2, 2, 128, 128, 288, [(0, 127), (200, 129), (90, 1)], None, None),
+    (4, 2, 128, 32, 160, [(13, 63), (50, 65), (300, 1)], 40, None),
+    (8, 1, 128, 16, 72, [(7, 15), (20, 16), (33, 17), (64, 1)], None, 30.0),
+    (16, 1, 256, 64, 48, [(5, 7), (10, 9), (70, 1), (0, 8)], 24, 20.0),
+    (16, 4, 64, 32, 64, [(63, 1), (64, 1), (0, 20)], None, None),
+    (12, 4, 128, 64, 136, [(500, 1), (17, 100)], 90, None),
+]
+
+
 def ragged_kernel_cases(torch, kattn, gen, flush):
-    """K3 against its plain version on every row (pad rows are 0 in both),
-    then its times at the main case."""
+    """K3 against its plain version and against ragged_tile_ref (the plain
+    model of its schedule) on every row (pad rows are 0 in all three), at
+    the serving shape's cases and RAGGED_EDGES, then its times at the main
+    case: the call, its buffer with only the decode rows and with only the
+    chunk, each with the device time of each of its kernels."""
     dev, bf16 = torch.device("cuda"), torch.bfloat16
-    cases = [(32, 8, 128, None, None, RAGGED_MAIN, 1024),
+    cases = [(32, 8, 128, 128, 1024, RAGGED_MAIN, None, None),
              # a chunk starting mid-page, inert blocks behind it
-             (32, 8, 128, None, None, [(1000, 300), (700, 1), (2000, 1)],
-              512),
-             (32, 8, 128, 4096, None, [(4999, 1), (6999, 1), (4000, 480)],
-              512),
-             (32, 8, 128, None, 50.0, RAGGED_MAIN, 1024),
-             (32, 8, 64, None, None, RAGGED_MAIN, 1024),
-             (8, 1, 256, None, None, RAGGED_MAIN, 1024)]
+             (32, 8, 128, 128, 512, [(1000, 300), (700, 1), (2000, 1)],
+              None, None),
+             (32, 8, 128, 128, 512, [(4999, 1), (6999, 1), (4000, 480)],
+              4096, None),
+             (32, 8, 128, 128, 1024, RAGGED_MAIN, None, 50.0),
+             (32, 8, 64, 128, 1024, RAGGED_MAIN, None, None),
+             (8, 1, 256, 128, 1024, RAGGED_MAIN, None, None)] + RAGGED_EDGES
     errs = []
-    for H, K, D, window, softcap, runs, T in cases:
-        args = ragged_inputs(torch, gen, runs, T, H, K, D, 128, bf16, dev)
-        out = kattn.ragged_paged_attention(*args, sliding_window=window,
-                                           softcap=softcap)
-        ref = kattn.ragged_paged_attention_ref(
-            *args, sliding_window=window, softcap=softcap)
-        err, ok = max_err(torch, out, ref)
-        errs.append({"H": H, "K": K, "D": D, "window": window,
+    for H, K, D, ps, T, runs, window, softcap in cases:
+        args = ragged_inputs(torch, gen, runs, T, H, K, D, ps, bf16, dev)
+        kw = dict(sliding_window=window, softcap=softcap)
+        out = kattn.ragged_paged_attention(*args, **kw)
+        err, ok = max_err(torch, out,
+                          kattn.ragged_paged_attention_ref(*args, **kw))
+        err_tiles, ok_tiles = max_err(torch, out,
+                                      kattn.ragged_tile_ref(*args, **kw))
+        errs.append({"H": H, "K": K, "D": D, "ps": ps, "window": window,
                      "softcap": softcap, "T": T, "runs": runs,
-                     "max_abs_err": err})
-        check(ok, f"K3 disagrees with its plain version: {errs[-1]}")
+                     "max_abs_err": err, "vs_tile_ref": err_tiles})
+        check(ok and ok_tiles,
+              f"K3 disagrees with its plain versions: {errs[-1]}")
     H, K, D, T = 32, 8, 128, 1024
     args = ragged_inputs(torch, gen, RAGGED_MAIN, T, H, K, D, 128, bf16, dev)
     valid = [o + m for o, m in RAGGED_MAIN]
@@ -754,6 +800,7 @@ def ragged_kernel_cases(torch, kattn, gen, flush):
     lengths = [m for _, m in RAGGED_MAIN]
     cells = kv_cells(valid, offsets, None)
     pairs = attended_pairs(valid, offsets, lengths, None)
+    k3_kernels = {}
     timing = {
         "shape": {"T": T, "H": H, "K": K, "D": D, "ps": 128,
                   "runs": RAGGED_MAIN},
@@ -764,18 +811,26 @@ def ragged_kernel_cases(torch, kattn, gen, flush):
             flush),
         "sdpa_view_ms": sdpa_ragged_ms(torch, args, RAGGED_MAIN, flush),
         "device_ms": device_ms(
-            torch, lambda: kattn.ragged_paged_attention(*args), flush),
+            torch, lambda: kattn.ragged_paged_attention(*args), flush,
+            by_kernel=k3_kernels),
+        "device_kernels_ms": k3_kernels,
         "sdpa_device_ms": device_ms(
             torch, sdpa_ragged_call(torch, args, RAGGED_MAIN), flush),
         "bytes": 2 * T * H * D * 2 + cells * K * D * 2 * 2,
         "flops": pairs * H * D * 4}
     # Where K3's time goes: the same buffer with only its decode rows, and
     # with only its chunk (every other block inert).
-    for key, runs in (("decode_rows_only_ms", RAGGED_MAIN[:3]),
-                      ("chunk_only_ms", RAGGED_MAIN[3:])):
+    for key, runs in (("decode_rows_only", RAGGED_MAIN[:3]),
+                      ("chunk_only", RAGGED_MAIN[3:])):
         part = ragged_inputs(torch, gen, runs, T, H, K, D, 128, bf16, dev)
-        timing[key] = time_ms(
-            torch, lambda: kattn.ragged_paged_attention(*part), 20, flush)
+        kernels = {}
+        timing[key] = {
+            "ms": time_ms(torch, lambda: kattn.ragged_paged_attention(*part),
+                          20, flush),
+            "device_ms": device_ms(
+                torch, lambda: kattn.ragged_paged_attention(*part), flush,
+                by_kernel=kernels),
+            "device_kernels_ms": kernels}
     return errs, timing
 
 
@@ -971,6 +1026,10 @@ def contiguous_kernel_cases(torch, kattn, gen, flush):
             q, k, v, offsets, valid, rows=rows), 5, flush),
         "sdpa_ms": sdpa_slots_ms(torch, q, k, v, rows, valid, offsets,
                                  flush),
+        "device_ms": device_ms(torch, lambda: kattn.flash_prefill_attention(
+            q, k, v, offsets, valid, rows=rows), flush),
+        "sdpa_device_ms": device_ms(torch, sdpa_slots_call(
+            torch, q, k, v, rows, valid, offsets), flush),
         "bytes": 2 * sum(lengths_l) * H * D * 2 + cells * K * D * 2 * 2,
         "flops": pairs * H * D * 4}
     return dec_errs, pre_errs, timing["cdecode"], timing["cprefill"]
@@ -1416,7 +1475,12 @@ def beta_prompts() -> dict:
             for k in knights}
 
 
-def scheduler_phase(torch, kattn, engine, phase="scheduler", adapters=None):
+# The kernel names of K3's launches in a trace.
+K3_KERNEL_NAMES = ("ragged_tc_kernel", "ragged_simt_kernel", "RaggedItem")
+
+
+def scheduler_phase(torch, kattn, engine, phase="scheduler", adapters=None,
+                    profiled=0):
     """The full-depth engine behind a SessionScheduler: alpha admits into
     an empty batch (blocking prologue) and decodes; beta submits once
     alpha has live rows. On the paged pool alpha runs K2 then K1, and beta
@@ -1424,25 +1488,51 @@ def scheduler_phase(torch, kattn, engine, phase="scheduler", adapters=None):
     (no ragged seam) beta queues for alpha's segment boundary and admits
     through the blocking prologue: K8 and K9 must launch, K1-K3 never.
     `adapters` ({session: per-knight LoRA persona ids}) serves the
-    sessions' knights under their personas: K7 must launch too. Returns
-    the phase's launch counts."""
+    sessions' knights under their personas: K7 must launch too. The first
+    `profiled` ragged dispatches run under torch.profiler: their device
+    time and K3's share of it (the profiler's cost lands in their walls
+    and in beta's TTFT). Returns the phase's launch counts."""
     adapters = adapters or {}
     from theroundtaible_tpu_torch.engine.kvcache import scoped_slot
     from theroundtaible_tpu_torch.engine.scheduler import SessionScheduler
     contiguous = engine.kv_layout == "contiguous"
     engine.kv.flush()   # the engine phase's slots
     prompts = {"alpha": knight_prompts(1), "beta": beta_prompts()}
-    walls, segments = [], []
+    walls, segments, traces = [], [], []
     dispatch = engine._ragged_dispatch
     seam = "_decode_dispatch_slots" if contiguous else \
         "_decode_dispatch_paged"
     decode = getattr(engine, seam)
 
     def timed(batch):   # the scheduler host-reads the result right after
+        if len(traces) < profiled:
+            return profiled_dispatch(batch)
         t0 = time.monotonic()
         out = dispatch(batch)
         torch.cuda.synchronize()
         walls.append(time.monotonic() - t0)
+        return out
+
+    def profiled_dispatch(batch):
+        # The first dispatches (beta's first chunks) under torch.profiler:
+        # the dispatch's device time and K3's share of it (its wall here
+        # includes the profiler's own cost).
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            out = dispatch(batch)
+            torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        k3 = [ev.time_range.elapsed_us() for ev in prof.events()
+              if ev.device_type == DeviceType.CUDA
+              and any(n in ev.name for n in K3_KERNEL_NAMES)]
+        traces.append({"rows": int(batch["n_tokens"]), "wall_s": wall,
+                         "device_ms": device_busy_us(prof) / 1e3,
+                         "k3_device_ms": sum(k3) / 1e3,
+                         "k3_kernel_launches": len(k3)})
         return out
 
     def timed_decode(index, *args, **kwargs):
@@ -1491,7 +1581,7 @@ def scheduler_phase(torch, kattn, engine, phase="scheduler", adapters=None):
     check(d["completed"] == 2 and d["failed"] == 0,
           f"{phase}: completed {d['completed']}, failed {d['failed']}")
     if contiguous:
-        check(d["ragged_joins"] == 0 and not walls,
+        check(d["ragged_joins"] == 0 and not walls and not traces,
               "a contiguous engine ran ragged dispatches")
     else:
         check(d["ragged_joins"] >= 1 and d["ragged_segments"] >= 1,
@@ -1526,9 +1616,10 @@ def scheduler_phase(torch, kattn, engine, phase="scheduler", adapters=None):
          alpha_decode_tokens=alpha.decode_tokens,
          alpha_decode_tps=alpha.decode_tps,
          alpha_decode_tokens_per_phase_s=alpha.decode_tokens / wall,
-         ragged_dispatches=len(walls),
+         ragged_dispatches=len(walls) + len(traces),
          ragged_mean_wall_s=(statistics.mean(walls) if walls else None),
-         ragged_walls_s=walls, decode_segments=segments,
+         ragged_walls_s=walls, ragged_profiled=traces,
+         decode_segments=segments,
          decode_ms_per_step=[1e3 * s["wall_s"] / max(s["steps"], 1)
                              for s in segments],
          launches=launches,
@@ -1761,6 +1852,12 @@ def dequant_kernel_cases(torch, kattn, kvq, gen, flush):
                         *rq, **rkw), 3, flush),
                 "library_ms": time_ms(
                     torch, lambda: kattn.ragged_paged_attention(*rargs), 20,
+                    flush),
+                "device_ms": device_ms(
+                    torch, lambda: kattn.ragged_paged_attention(*rq, **rkw),
+                    flush),
+                "library_device_ms": device_ms(
+                    torch, lambda: kattn.ragged_paged_attention(*rargs),
                     flush),
                 "bytes": (2 * 1024 * H * D * 2
                           + quant_cell_bytes(rcells, K, D, bits)),
@@ -2598,13 +2695,19 @@ def tp_kernels_rank(torch, rank):
 
 
 def spmd_device_phase(torch, kattn):
-    """Device times (device_ms()) of K10a's decode route, K10b and K10d on
-    rank 0's shard of tp_kernels' shapes (H=16, K=4 of H=32, K=8), beside
-    SDPA's on the shard's gathered view, cells or slot rows - taken in this
-    process: a rank's wrapper launches the one-device kernel on its shard
-    (bit for bit, tp_kernels), and torch.profiler in a spawned gloo rank
-    delivered device events for only its first profiled window."""
-    from theroundtaible_tpu_torch.engine.sharding import Mesh
+    """Device times (device_ms()) of K10a's decode route, K10b, K10c and
+    K10d on rank 0's shard of tp_kernels' shapes (H=16, K=4 of H=32, K=8),
+    beside SDPA's on the shard's gathered view, cells or slot rows, and of
+    K10e's seven per-shard products of one layer (tp_quant_kernels'
+    shapes) beside torch.matmul on the shard's pre-dequantized weight -
+    taken in this process: a rank's wrapper launches the one-device kernel
+    on its shard (bit for bit, tp_kernels; a row product returns its
+    partial sum, which the forward all-reduces), and torch.profiler in a
+    spawned gloo rank delivered device events for only its first profiled
+    window."""
+    from theroundtaible_tpu_torch.engine.kernels import int4mm
+    from theroundtaible_tpu_torch.engine.models import common
+    from theroundtaible_tpu_torch.engine.sharding import Mesh, plan_int4_shard
     mesh = Mesh(1, 2, 0)
     dev, bf16 = torch.device("cuda"), torch.bfloat16
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -2627,14 +2730,27 @@ def spmd_device_phase(torch, kattn):
             *args, heads=heads), flush),
         "library_device_ms": device_ms(torch, sdpa_view_call(
             torch, ql, kp, vp, table, valid, None), flush)}
-    del k_pool, v_pool, kp, vp
+    offs = torch.tensor([1200, 1200, 1200], dtype=torch.int32, device=dev)
+    pvalid = offs + torch.tensor([300, 320, 340], dtype=torch.int32,
+                                 device=dev)
+    qp = _shard((torch.randn(B, 512, H, D, generator=gen, device=dev)
+                 * D ** -0.5).to(bf16), 2, 0)
+    args = (mesh, qp, kp, vp, table, offs, pvalid)
+    out["paged_prefill_spmd"] = {
+        "device_ms": device_ms(torch, lambda: kattn.paged_prefill_spmd(
+            *args, heads=heads), flush),
+        "library_device_ms": device_ms(torch, sdpa_view_call(
+            torch, qp, kp, vp, table, pvalid, offs), flush)}
+    del k_pool, v_pool, kp, vp, qp
     rargs = ragged_inputs(torch, gen, RAGGED_MAIN, 1024, H, K, D, ps, bf16,
                           dev)
     local = (_shard(rargs[0], 1, 0), _shard(rargs[1], 2, 0),
              _shard(rargs[2], 2, 0)) + tuple(rargs[3:])
+    k10d_kernels = {}
     out["ragged_paged_spmd"] = {
         "device_ms": device_ms(torch, lambda: kattn.ragged_paged_spmd(
-            mesh, *local, heads=heads), flush),
+            mesh, *local, heads=heads), flush, by_kernel=k10d_kernels),
+        "device_kernels_ms": k10d_kernels,
         "library_device_ms": device_ms(torch, sdpa_ragged_call(
             torch, local, RAGGED_MAIN), flush)}
     del rargs, local
@@ -2647,6 +2763,38 @@ def spmd_device_phase(torch, kattn):
             *args, heads=heads, rows=rows), flush),
         "library_device_ms": device_ms(torch, sdpa_slots_call(
             torch, ql, kcl, vcl, rows, valid, None), flush)}
+    del kcl, vcl
+    products = {}
+    for name, (spec, tp, w_shape, a_shape, w_ax, a_ax, per_layer) in \
+            TP_INT4_SHAPES.items():
+        if not per_layer:
+            continue
+        axis = len(w_shape) - 1
+        q4 = _shard(torch.randint(-128, 128, (*w_shape[:-1], w_shape[-1] // 2),
+                                  generator=gen, device=dev,
+                                  dtype=torch.int8), w_ax, 0)
+        s4 = _shard((torch.rand(*w_shape[:-1], w_shape[-1] // INT4_GROUP,
+                                generator=gen, device=dev) * 0.025
+                     + 0.005).to(bf16), w_ax, 0)
+        a = torch.randn(*a_shape, generator=gen, device=dev).to(bf16)
+        a_l = _shard(a, a_ax, 0) if a_ax is not None else a
+        local = plan_int4_shard(spec, common.Int4Leaf(q4, s4, axis,
+                                                      INT4_GROUP),
+                                mesh, w_shape, tp)
+        w = common.dequant_int4(local.q4, local.s4, axis, INT4_GROUP, bf16)
+        x2 = a_l.reshape(3, -1)
+        w2 = w.reshape(x2.shape[1], -1)
+        products[name] = {
+            "per_layer": per_layer,
+            "device_ms": device_ms(torch, lambda: int4mm.einsum_int4_spmd(
+                mesh, spec, a_l, local, w_shape=w_shape, tp=tp), flush),
+            "library_device_ms": device_ms(
+                torch, lambda: torch.matmul(x2, w2), flush)}
+        del q4, s4, local, w, w2
+    out["einsum_int4_spmd"] = {
+        k: sum(p[k] * p["per_layer"] for p in products.values())
+        for k in ("device_ms", "library_device_ms")}
+    out["einsum_int4_spmd"]["products"] = products
     emit("tp_kernels_device", shard={"H": H // 2, "K": K // 2, "D": D},
          **out)
     return out
@@ -3378,9 +3526,12 @@ def main() -> int:
     profile_phase(torch, engine)
     path_phase(torch, engine)
     ragged_path_phase(torch, engine)
-    # The scheduler path's own counts: K3 runs only there.
+    # The scheduler path's own counts: K3 runs only there. Then the same
+    # two sessions again with the ragged dispatches under torch.profiler.
     launches["ragged_paged_attention"] = scheduler_phase(
         torch, kattn, engine)["ragged_paged_attention"]
+    scheduler_phase(torch, kattn, engine, phase="scheduler_profiled",
+                    profiled=3)
 
     # Release the paged engine (the engine cache holds it too) before the
     # contiguous one takes its weights and 8.6 GB of slots.
@@ -3594,7 +3745,9 @@ def main() -> int:
             "plain_ms": max(t["plain_ms"] for t in layer),
             "bound_ms": layer[0]["bound_ms"], "bound_by": layer[0]["bound_by"],
             "library_ms": max(t["library_ms"] for t in layer),
-            "ms_per_rank": [t["ms"] for t in layer]})
+            "ms_per_rank": [t["ms"] for t in layer],
+            **{k: v for k, v in spmd_device.get(name, {}).items()
+               if k != "products"}})
     summary = {"kernels": rows}
     (OUT / "summary.json").write_text(json.dumps(summary, indent=1))
     print(json.dumps(summary), flush=True)

@@ -392,7 +392,7 @@ def test_forward_cached_refuses_a_write_past_the_cache_end():
     kv = KVCache(cfg, 2, 64, torch.float32, "cpu")
     gen = torch.Generator().manual_seed(0)
     from theroundtaible_tpu_torch.engine.models.common import init_params
-    params = init_params(cfg, gen, torch.float32)
+    params = init_params(cfg, gen, torch.float32, "cpu")
     toks = torch.ones(1, 8, dtype=torch.long)
     pos = torch.arange(60, 68, dtype=torch.int32)[None]
     i32 = lambda *x: torch.tensor(x, dtype=torch.int32)  # noqa: E731

@@ -1,5 +1,6 @@
 """PyTorch port, CUDA kernels K1/K2/K3/K8/K9 (K1/K9 also at the edges of
-their split-KV spans, against decode_split_ref), K4 (in-kernel KV dequant
+their split-KV spans, against decode_split_ref; K3 at the edges of its
+schedule, against ragged_tile_ref, and per shard), K4 (in-kernel KV dequant
 inside K1-K3, int8 and int4 pages), K5/K6 (w4a16 decode products), K7
 (grouped LoRA BGMV), K10's attention wrappers (K10a-d) and K10e/K10f
 (K5/K6 and K7 per shard) on two gloo ranks sharing the card, and the bf16
@@ -639,6 +640,175 @@ def test_cuda_quantized_ragged_kernel_matches_plain(cuda_device, bits,
             **kw)
         torch.testing.assert_close(out.float(), ref.float(), atol=tol,
                                    rtol=tol)
+
+
+# --- K3 at the edges of its schedule (attention.ragged_tiles: prefill
+# tiles of 2 * (64 / G) rows on the wgmma mainloop, one-real-row tiles
+# over <= 64 cells on the CUDA cores, decode items over more than 64
+# cells on the split-KV body): (H, K, D, ps, T, runs [(offset, rows)],
+# window, softcap), each run one sequence, the rest of the buffer inert
+# blocks. G 4: runs of 1, 7, 8, 9, 31, 32 and 33 rows on pages of 16; G 1
+# (128-row tiles): 127 and 129 rows; G 2: a chunk starting mid-page, a
+# window crossing a key tile; G 8 (16-row tiles): 15, 16 and 17 rows,
+# softcap; G 16 at D = 256 (8-row tiles): window and softcap; G 4 at D =
+# 64: decode rows over 64 and 65 cells; G 3. NaN in every cell past each
+# sequence's kv_valid.
+RAGGED_EDGES = {
+    "g4_run_lengths": (8, 2, 128, 16, 176, [(100, 1), (5, 7), (30, 8),
+                                            (0, 9), (41, 31), (3, 32),
+                                            (70, 33)], None, None),
+    "g1_long_runs": (2, 2, 128, 128, 288, [(0, 127), (200, 129), (90, 1)],
+                     None, None),
+    "g2_mid_page_window": (4, 2, 128, 32, 160, [(13, 63), (50, 65),
+                                                (300, 1)], 40, None),
+    "g8_softcap": (8, 1, 128, 16, 72, [(7, 15), (20, 16), (33, 17),
+                                       (64, 1)], None, 30.0),
+    "g16_d256_window_softcap": (16, 1, 256, 64, 48, [(5, 7), (10, 9),
+                                                     (70, 1), (0, 8)],
+                                24, 20.0),
+    "g4_d64_decode_at_64_65": (16, 4, 64, 32, 64, [(63, 1), (64, 1),
+                                                   (0, 20)], None, None),
+    "g3": (12, 4, 128, 64, 136, [(500, 1), (17, 100)], 90, None),
+}
+
+
+def ragged_edge(name, seed, S=1024):
+    """q [T,H,D], NaN-poisoned f32 pools, tables (the inert sequence last,
+    on the scratch page 0) and metadata of a RAGGED_EDGES case."""
+    H, K, D, ps, T, runs, _, _ = RAGGED_EDGES[name]
+    rng = np.random.default_rng(seed)
+    n = len(runs)
+    k_pool, v_pool, table = shuffled_pool(rng, n, S, K, D, ps)
+    tables = np.concatenate([table, np.zeros((1, S // ps), np.int32)])
+    offsets = np.asarray([o for o, _ in runs] + [0], np.int32)
+    valid = np.asarray([o + m for o, m in runs] + [1], np.int32)
+    for s in range(n):
+        for j in range(S // ps):
+            lo = max(int(valid[s]) - j * ps, 0)
+            if lo < ps:
+                k_pool[tables[s, j], lo:] = np.nan
+                v_pool[tables[s, j], lo:] = np.nan
+    seq_of_block, block_qstart = flat_buffer(
+        [(s, m) for s, (_, m) in enumerate(runs)], T, n)
+    q = rng.normal(size=(T, H, D)).astype(np.float32) * D ** -0.5
+    return q, k_pool, v_pool, tables, (seq_of_block, block_qstart, offsets,
+                                       valid)
+
+
+def _ragged_check(out, args, kw, tol):
+    """K3's output against its plain version and against ragged_tile_ref,
+    every row (pad rows are 0 in all three)."""
+    assert torch.isfinite(out).all()
+    for ref in (kattn.ragged_paged_attention_ref(*args, **kw),
+                kattn.ragged_tile_ref(*args, **kw)):
+        torch.testing.assert_close(out.float(), ref.float(), atol=tol,
+                                   rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("name", sorted(RAGGED_EDGES))
+def test_cuda_ragged_kernel_at_schedule_edges(cuda_device, name, dtype,
+                                              tol):
+    """K3 at its schedule's edges against its plain version and
+    ragged_tile_ref; a second call gives the same bits."""
+    window, softcap = RAGGED_EDGES[name][6:]
+    q, k_pool, v_pool, tables, meta = ragged_edge(name, 41)
+    dev = cuda_device
+    args = [torch.from_numpy(x).to(dev, dtype) for x in (q, k_pool, v_pool)]
+    args += [torch.from_numpy(x).to(dev) for x in (tables, *meta)]
+    kw = dict(sliding_window=window, softcap=softcap)
+    out = kattn.ragged_paged_attention(*args, **kw)
+    _ragged_check(out, args, kw, tol)
+    assert torch.equal(out, kattn.ragged_paged_attention(*args, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits,dtype,tol", QUANT_CASES)
+@pytest.mark.parametrize("name", ["g4_run_lengths", "g2_mid_page_window",
+                                  "g16_d256_window_softcap"])
+def test_cuda_quantized_ragged_kernel_at_schedule_edges(cuda_device, name,
+                                                        bits, dtype, tol):
+    """K3 with K4 on int8 and int4 pages (random payloads and NaN scales
+    past kv_valid) at three of its schedule's edges."""
+    window, softcap = RAGGED_EDGES[name][6:]
+    rng = np.random.default_rng(42)
+    q, k_pool, v_pool, tables, meta = ragged_edge(name, 42)
+    pools = quantized_pools(rng, k_pool, v_pool, tables[:-1], meta[3][:-1],
+                            bits)
+    dev = cuda_device
+    args, kw = _pool_args(dev, dtype, q, pools)
+    args += [torch.from_numpy(x).to(dev) for x in (tables, *meta)]
+    kw.update(sliding_window=window, softcap=softcap, kv_bits=bits)
+    _ragged_check(kattn.ragged_paged_attention(*args, **kw), args, kw, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("name", ["g4_run_lengths", "g2_mid_page_window",
+                                  "g3"])
+def test_cuda_ragged_kernel_shard_equals_full_slice(cuda_device, name,
+                                                    dtype):
+    """K10d's premise on the card: K3 on the second half of the kv heads
+    (and their query heads) gives the bits of the full call's slice."""
+    H, K, *_ = RAGGED_EDGES[name]
+    window, softcap = RAGGED_EDGES[name][6:]
+    q, k_pool, v_pool, tables, meta = ragged_edge(name, 43)
+    dev = cuda_device
+    q, k, v = (torch.from_numpy(x).to(dev, dtype)
+               for x in (q, k_pool, v_pool))
+    rest = [torch.from_numpy(x).to(dev) for x in (tables, *meta)]
+    kw = dict(sliding_window=window, softcap=softcap)
+    full = kattn.ragged_paged_attention(q, k, v, *rest, **kw)
+    shard = kattn.ragged_paged_attention(
+        q[:, H // 2:].contiguous(), k[:, :, K // 2:].contiguous(),
+        v[:, :, K // 2:].contiguous(), *rest, **kw)
+    assert torch.equal(shard, full[:, H // 2:])
+
+
+@pytest.mark.cuda
+def test_cuda_ragged_kernels_in_ptxas(cuda_device):
+    """K3's library holds the tile kernels (wgmma and CUDA-core) and the
+    split-KV decode kernels over its decode items for every D and payload;
+    the bf16 split kernels do not spill, and the wgmma tile kernels stay
+    within the launch's 168 registers per thread."""
+    build.build_all()
+    entries = build.build_logs()["ragged_paged"].split(
+        "Compiling entry function '")[1:]
+    names = [e.split("'")[0] for e in entries]
+    # (D, payload) for the tile kernels; (dtype, D, payload) for the
+    # split kernel and (dtype, D) for the combine.
+    for kind, count in (("ragged_tc_kernel", 9), ("ragged_simt_kernel", 9),
+                        ("decode_split_kernel", 18),
+                        ("decode_combine_kernel", 6)):
+        found = [n for n in names if kind in n]
+        assert len(found) == count, (kind, found)
+    for e in entries:
+        mangled = e.split("'")[0]
+        used = int(e.split("Used ")[1].split(" registers")[0])
+        if "decode_split_kernel" in mangled and "__nv_bfloat16" in mangled:
+            assert "0 bytes spill stores" in e, e[:400]
+        if "ragged_tc_kernel" in mangled:
+            assert used <= 168, e[:400]
+
+
+@pytest.mark.cuda
+def test_cuda_allocators_default_to_the_card(cuda_device):
+    """The constructors that allocate place their tensors on the card when
+    the caller names no device (tests/test_torch_device_defaults.py holds
+    the CPU side)."""
+    from theroundtaible_tpu_torch.engine import kvcache, paging, sampling
+    from theroundtaible_tpu_torch.engine.models import common
+    from theroundtaible_tpu_torch.engine.models.registry import \
+        get_model_config
+    cfg = get_model_config("tiny-llama")
+    made = [kvcache.KVCache(cfg, 2, 64, torch.float32).layers[0][0],
+            paging.PagedKVCache(cfg, 2, 64, torch.float32,
+                                page_size=32).pools[0][0],
+            *sampling.sampling_arrays([sampling.SamplingParams()]),
+            common.init_params(cfg, torch.Generator("cuda").manual_seed(0),
+                               torch.float32)["embedding"]]
+    assert all(t.device.type == "cuda" for t in made)
 
 
 # --- K5/K6: w4a16 decode products ---

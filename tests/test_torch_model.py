@@ -175,7 +175,7 @@ def test_param_count_and_layouts_match():
     jcfg, jparams, tcfg, tparams = bridged("tiny-qwen")
     assert tcommon.param_count(tparams) == jcommon.param_count(jparams)
     gen = torch.Generator().manual_seed(0)
-    fresh = tcommon.init_params(tcfg, gen, torch.float32)
+    fresh = tcommon.init_params(tcfg, gen, torch.float32, "cpu")
     flat = jax.tree_util.tree_leaves_with_path(jparams)
     for path, leaf in flat:
         node = fresh

@@ -145,7 +145,8 @@ def test_quantize_params_bit_identical(name, dtype, bits):
 
 def test_free_source_releases_each_dense_leaf():
     tc, tdt = torch_config("tiny-llama"), torch.float32
-    tparams = common.init_params(tc, torch.Generator().manual_seed(0), tdt)
+    tparams = common.init_params(tc, torch.Generator().manual_seed(0), tdt,
+                                 "cpu")
     q_proj = tparams["layers"][0]["q_proj"]
     norm = tparams["layers"][0]["input_norm"]
     out = quant.quantize_params(tparams, tc, act_dtype=tdt, bits=4,
@@ -386,7 +387,7 @@ def test_card_refuses_int4_leaves_the_kernels_decline(monkeypatch,
     tc = torch_config("tiny-llama")
     params = quant.quantize_params(
         common.init_params(tc, torch.Generator().manual_seed(0),
-                           torch.float32), tc, act_dtype=torch.float32,
+                           torch.float32, "cpu"), tc, act_dtype=torch.float32,
         bits=4)
     sites = common.int4_sites(params, tc)
     assert len(sites) == 2 * 7 + 1

@@ -581,9 +581,9 @@ def test_bridge_and_init_shard_alike():
         local["layers"][1]["down_proj"].numpy(),
         tree["layers"][1]["down_proj"][64:])
     full = tcommon.init_params(cfg, torch.Generator().manual_seed(3),
-                               torch.float32)
+                               torch.float32, "cpu")
     mine = tcommon.init_params(cfg, torch.Generator().manual_seed(3),
-                               torch.float32, mesh=mesh)
+                               torch.float32, "cpu", mesh=mesh)
     want = shard_params(full, cfg, mesh)
     for key in ("embedding", "final_norm"):
         assert torch.equal(mine[key], want[key])

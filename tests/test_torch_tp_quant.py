@@ -416,7 +416,8 @@ def test_quantize_params_model_shards_bit_identical(group, shards):
         tree, jc, act_dtype=jnp.float32, bits=4, group=group,
         model_shards=shards))
     cfg = get_model_config("tiny-llama")
-    ours = quant.quantize_params(params_from_numpy(tree, cfg, torch.float32),
+    ours = quant.quantize_params(params_from_numpy(tree, cfg, torch.float32,
+                                                   "cpu"),
                                  cfg, act_dtype=torch.float32, bits=4,
                                  group=group, model_shards=shards)
     for a, b in zip(ours["layers"], theirs["layers"]):
@@ -454,7 +455,8 @@ def test_quantized_specs_match_jax():
                                     bits=bits, model_shards=2)
         theirs = jquant.quantized_specs(jsharding.param_specs(jc), jq)
         tq = quant.quantize_params(params_from_numpy(tree, cfg,
-                                                     torch.float32), cfg,
+                                                     torch.float32, "cpu"),
+                                   cfg,
                                    act_dtype=torch.float32, bits=bits,
                                    model_shards=2)
         ours = quant.quantized_specs(param_specs(cfg), tq)
@@ -515,9 +517,10 @@ def test_tp_quantized_tree_concatenates_to_the_single_device_tree(bits,
                              act_dtype=torch.float32, bits=bits,
                              model_shards=model)
     whole = common.init_params(cfg, torch.Generator().manual_seed(4),
-                               torch.float32, quantize=hook)
+                               torch.float32, "cpu", quantize=hook)
     ranks = [common.init_params(cfg, torch.Generator().manual_seed(4),
-                                torch.float32, mesh=Mesh(1, model, r),
+                                torch.float32, "cpu",
+                                mesh=Mesh(1, model, r),
                                 quantize=hook) for r in range(model)]
     specs = quant.quantized_specs(param_specs(cfg), whole)
     for key in ("embedding", "lm_head", "final_norm"):

@@ -44,6 +44,13 @@ order. Their wrappers allocate the f32 workspace of the spans' partials
 entry. decode_split_ref models that schedule in plain PyTorch for the
 tests and chip_smoke.py.
 
+K3 (csrc/ragged_paged.cu) launches no attention body of its own: it cuts
+the flat buffer into the work ragged_tiles lists - prefill tiles of
+TILE_PAIR * (TC_ROWS // G) rows on K2/K8's mainloop (csrc/prefill_tc.cuh)
+and decode items on K1/K9's split-KV body - which its kernels derive on
+the card from the same metadata. Its wrapper allocates the decode items'
+workspace as K1's does. ragged_tile_ref models that schedule.
+
 K8 and K9 take the JAX signature plus `rows`, a [B] int32 map from batch
 row to cache row: the engine passes its batch's slot ids, so the kernels
 read the slots in place from the [num_slots, S, K, D] cache. rows=None
@@ -451,10 +458,12 @@ def decode_chunk(d: int, dtype) -> int:
     return DECODE_SPLIT_BYTES // (d * dtype.itemsize)
 
 
-def _decode_workspace(q, kh: int, span: int):
+def _decode_workspace(q, kh: int, span: int, rows: Optional[int] = None):
     """The f32 workspace of a K1/K9 launch: (m, l, acc[G, D]) of every
-    split of `span` positions, for every (row, kv head)."""
-    b, _, h, d = q.shape
+    split of `span` positions, for every (row, kv head); K3 passes its
+    sequence count as `rows`."""
+    h, d = q.shape[-2], q.shape[-1]
+    b = q.shape[0] if rows is None else rows
     n_splits = -(-span // decode_chunk(d, q.dtype))
     return torch.empty(b * kh * n_splits * (h // kh) * (d + 2),
                        dtype=torch.float32, device=q.device)
@@ -534,6 +543,137 @@ def decode_split_ref(q, k, v, kv_valid, *, table=None, rows=None,
             a_all = a_all + w[..., None] * acc[:, j]
         out.append(a_all / torch.clamp(l_all, min=1e-30)[..., None])
     return torch.stack(out, 1).reshape(b, 1, h, d).to(q.dtype)
+
+
+# K3's schedule (csrc/ragged_paged.cu): prefill tiles of TILE_PAIR * (64 //
+# G) rows on prefill_tc.cuh's body, keys in tiles of KEY_TILE positions.
+TC_ROWS = 64        # query rows per consumer warpgroup (kTcRows)
+TILE_PAIR = 2       # consumer warpgroups per block (kTcConsumers)
+KEY_TILE = 64       # keys per staged tile (kTcBK)
+
+
+def _ints(x) -> list[int]:
+    return [int(v) for v in (x.tolist() if hasattr(x, "tolist") else x)]
+
+
+def ragged_tiles(seq_of_block, block_qstart, query_offsets, kv_valid,
+                 group: int) -> tuple[list, list]:
+    """The work K3's kernels walk over a flat buffer, which their device
+    code derives from the same metadata: (tiles, decode items).
+
+    A run is a maximal stretch of consecutive 8-row blocks of one sequence
+    whose block_qstart steps by 8; a block at block_qstart 0 always starts
+    one (every inert block is its own run). A sequence's first run in the
+    buffer is a decode item (row, seq) - its first row, at the split-KV
+    decode body - when that row is its only real one (position kv_valid -
+    1) and the sequence holds more than KEY_TILE cells. Every other run is
+    cut from its start into tiles (row0, n, pos0, seq) of TILE_PAIR *
+    (TC_ROWS // group) rows, the last one shorter: rows row0 .. row0 + n -
+    1 at positions pos0 .. pos0 + n - 1. Tile heights depend on the group
+    and the run alone."""
+    seq, qs = _ints(seq_of_block), _ints(block_qstart)
+    offs, valid = _ints(query_offsets), _ints(kv_valid)
+    bq = RAGGED_BLOCK_Q
+    runs: list[list[int]] = []                   # [first block, blocks]
+    for j in range(len(seq)):
+        if (j == 0 or qs[j] == 0 or seq[j - 1] != seq[j]
+                or qs[j - 1] + bq != qs[j]):
+            runs.append([j, 1])
+        else:
+            runs[-1][1] += 1
+    first_of: dict[int, int] = {}
+    for j, s in enumerate(seq):
+        first_of.setdefault(s, j)
+    height = TILE_PAIR * (TC_ROWS // group)
+    tiles, decode = [], []
+    for b0, n in runs:
+        s = seq[b0]
+        p0 = offs[s] + qs[b0]
+        if p0 == valid[s] - 1 and valid[s] > KEY_TILE and first_of[s] == b0:
+            decode.append((bq * b0, s))
+            continue
+        for t0 in range(0, bq * n, height):
+            tiles.append((bq * b0 + t0, min(height, bq * n - t0), p0 + t0,
+                          s))
+    return tiles, decode
+
+
+def ragged_tile_ref(q, k_pool, v_pool, tables, seq_of_block, block_qstart,
+                    query_offsets, kv_valid, *,
+                    sliding_window: Optional[int] = None,
+                    softcap: Optional[float] = None, k_scale=None,
+                    v_scale=None, kv_bits: int = 8):
+    """Plain model of K3's schedule (csrc/ragged_paged.cu), for the tests
+    and chip_smoke.py only: the work of ragged_tiles. Each tile walks its
+    sequence's keys in tiles of KEY_TILE positions, from the window's
+    first tile to the tile's causal/valid frontier, with the online
+    softmax in f32 (scores in f32, softcap, the finite mask, p rounded to
+    v's dtype for the PV product, l from the unrounded p, the output
+    divided by max(l, 1e-30)); decode items go through decode_split_ref.
+    Cells at or past kv_valid are zeroed before use. Pad rows (q_pos >=
+    kv_valid) are 0. [T,H,D] in q's dtype."""
+    t, h, d = q.shape
+    ps, kh = k_pool.shape[1], k_pool.shape[2]
+    group = h // kh
+    dev = q.device
+    span = tables.shape[1] * ps
+    tiles, decode = ragged_tiles(seq_of_block, block_qstart, query_offsets,
+                                 kv_valid, group)
+    valid = _ints(kv_valid)
+    out = torch.zeros_like(q)
+    mask = torch.tensor(MASK_VALUE, device=dev)
+    for row0, n, pos0, s in tiles:
+        v_s = min(valid[s], span)
+        if pos0 >= v_s:
+            continue
+        end = min(pos0 + n, v_s)
+        lo = max(0, pos0 - sliding_window + 1) if sliding_window else 0
+        n_lo, n_hi = lo // KEY_TILE, (end - 1) // KEY_TILE + 1
+        length = min(n_hi * KEY_TILE, span)
+        n_pages = -(-length // ps)
+        idx = tables[s, :n_pages].to(dev).long()
+        zero = torch.zeros((), dtype=q.dtype, device=dev)
+        kv_pos = torch.arange(n_pages * ps, device=dev)
+        live = (kv_pos < v_s)[:, None, None]
+        k = torch.where(live, _gather(k_pool, k_scale, idx, kv_bits,
+                                      q.dtype).reshape(-1, kh, d), zero)
+        v = torch.where(live, _gather(v_pool, v_scale, idx, kv_bits,
+                                      q.dtype).reshape(-1, kh, d), zero)
+        q_pos = pos0 + torch.arange(n, device=dev)
+        qg = q[row0:row0 + n].reshape(n, kh, group, d).float()
+        m = torch.full((kh, group, n), MASK_VALUE, device=dev)
+        l = torch.zeros(kh, group, n, device=dev)
+        acc = torch.zeros(kh, group, n, d, device=dev)
+        for j in range(n_lo, n_hi):
+            pos = torch.arange(j * KEY_TILE, min((j + 1) * KEY_TILE, length),
+                               device=dev)
+            sc = torch.einsum("nkgd,ckd->kgnc", qg, k[pos].float())
+            if softcap is not None:
+                sc = softcap * torch.tanh(sc / softcap)
+            keep = (pos[None] <= q_pos[:, None]) & (pos[None] < v_s)
+            if sliding_window:
+                keep &= pos[None] > q_pos[:, None] - sliding_window
+            sc = torch.where(keep, sc, mask)
+            m_new = torch.maximum(m, sc.amax(-1))
+            alpha = torch.exp(m - m_new)
+            p = torch.where(keep, torch.exp(sc - m_new[..., None]), 0.0)
+            l = l * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "kgnc,ckd->kgnd", p.to(v.dtype).float(), v[pos].float())
+            m = m_new
+        o = acc / torch.clamp(l, min=1e-30)[..., None]
+        o = torch.where((q_pos < v_s)[None, None, :, None], o, 0.0)
+        out[row0:row0 + n] = o.permute(2, 0, 1, 3).reshape(n, h, d).to(
+            q.dtype)
+    if decode:
+        rows = torch.tensor([r for r, _ in decode], device=dev)
+        seqs = torch.tensor([s for _, s in decode], device=dev)
+        out[rows] = decode_split_ref(
+            q[rows][:, None], k_pool, v_pool, kv_valid.to(dev)[seqs],
+            table=tables.to(dev)[seqs], sliding_window=sliding_window,
+            softcap=softcap, k_scale=k_scale, v_scale=v_scale,
+            kv_bits=kv_bits)[:, 0]
+    return out
 
 
 # --- kernel wrappers ---
@@ -759,7 +899,8 @@ def ragged_paged_attention(q, k_pool, v_pool, tables, seq_of_block,
     has scattered every real token's K/V into its pages. Every index must
     lie inside its table (serving_loop.build_ragged_batch keeps them
     there). Returns [T,H,D] in q's dtype; pad rows (q_pos >= kv_valid) are
-    0."""
+    0. On a card one call of the C entry launches the prefill tiles, then
+    the decode items' split kernel and combine (ragged_tiles)."""
     what = "ragged_paged_attention"
     if q.dim() != 3 or q.shape[0] % RAGGED_BLOCK_Q or q.shape[0] == 0:
         raise ValueError(f"{what}: q must be [T,H,D] with T a multiple of "
@@ -797,14 +938,15 @@ def ragged_paged_attention(q, k_pool, v_pool, tables, seq_of_block,
                           what, k_scale, v_scale)
     ks, vs, bits, groups = _quant_args(k_scale, v_scale, bits)
     out = torch.empty_like(q)
+    ws = _decode_workspace(q, kh, tables.shape[1] * ps, rows=s)
     rc = build.library("ragged_paged").rt_ragged_paged(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), ks, vs,
         ints["table"].data_ptr(), ints["seq_of_block"].data_ptr(),
         ints["block_qstart"].data_ptr(), ints["query_offsets"].data_ptr(),
-        ints["kv_valid"].data_ptr(), out.data_ptr(), t, h, kh, d, ps,
-        tables.shape[1], int(sliding_window or 0), float(softcap or 0.0),
-        _DTYPE_CODES[q.dtype], bits, groups, q.device.index or 0,
-        torch.cuda.current_stream(q.device).cuda_stream)
+        ints["kv_valid"].data_ptr(), out.data_ptr(), ws.data_ptr(), t, h,
+        kh, d, ps, tables.shape[1], s, int(sliding_window or 0),
+        float(softcap or 0.0), _DTYPE_CODES[q.dtype], bits, groups,
+        q.device.index or 0, torch.cuda.current_stream(q.device).cuda_stream)
     build.check(rc, f"{what} launch")
     _count(what, bits)
     return out

@@ -46,9 +46,10 @@ _SIGNATURES = {
                                         ctypes.c_longlong),
     },
     "ragged_paged": {
-        "rt_ragged_paged": ([_P] * 11 + [_I] * 7 + [_F] + [_I] * 4 + [_P],
+        "rt_ragged_paged": ([_P] * 12 + [_I] * 8 + [_F] + [_I] * 4 + [_P],
                             _I),
         "rt_ragged_smem_bytes": ([_I, _I, _I], ctypes.c_longlong),
+        "rt_ragged_chunk": ([_I, _I], _I),
     },
     "flash_prefill": {
         "rt_flash_prefill": ([_P] * 7 + [_I] * 8 + [_F, _I, _I, _P], _I),

@@ -1,6 +1,8 @@
-// The split-KV decode body shared by K1 (paged_decode.cu) and K9
-// (ragged_decode.cu): one query position per batch row against KV cells
-// that an addressing policy locates (paged_common.cuh PagedKV / SlotKV).
+// The split-KV decode body shared by K1 (paged_decode.cu), K9
+// (ragged_decode.cu) and K3's decode items (ragged_paged.cu): one query
+// position per work item against KV cells that an addressing policy
+// locates (paged_common.cuh PagedKV / SlotKV); the item's q and output row
+// is its batch row (BatchItem) or a row of K3's flat buffer.
 //
 // Counterpart of theroundtaible_tpu/engine/pallas/attention.py:631
 // _decode_accumulate, which the TPU's contiguous (_decode_kernel) and paged
@@ -91,6 +93,23 @@ struct DecodeArgs {
   float softcap;
   int SG;
   int n_splits;   // set by launch_decode
+  // K3 (ragged_paged.cu): the flat buffer's per-block metadata; a decode
+  // item of sequence b reads q and writes its output at its block's row.
+  const int* seq_of_block;
+  const int* block_qstart;
+  const int* query_offsets;
+  int n_blocks;
+};
+
+// Which row of q [rows,H,D] and of the output a work item b reads and
+// writes, and whether b has work at all. K1/K9: batch row b, always
+// (BatchItem); K3's decode items are found in its flat buffer
+// (ragged_paged.cu RaggedItem). Every thread of a block constructs it.
+struct BatchItem {
+  size_t row;
+  bool live;
+  __device__ __forceinline__ BatchItem(const DecodeArgs&, int b)
+      : row(b), live(true) {}
 };
 
 constexpr int kDecThreads = 128;
@@ -311,7 +330,7 @@ __device__ __forceinline__ void dequant_split(const DecodeArgs& a,
 // in a fixed order. No TF32: f32 stays exact.
 template <class KV, int D, int BITS>
 __device__ __forceinline__ void split_simt(const DecodeArgs& a, const KV& kv,
-                                           int b, int kh, const Span& sp,
+                                           size_t row, int kh, const Span& sp,
                                            size_t split) {
   using T = float;
   using S = DecShape<T, D>;
@@ -333,8 +352,7 @@ __device__ __forceinline__ void split_simt(const DecodeArgs& a, const KV& kv,
   stage_split<KV, T, D, BITS>(a, kv, sp, k_sm, v_sm, KS, D, raw);
   // GQA: query head h reads kv head h / G, so this block's heads are
   // kh*G .. kh*G+G-1.
-  const T* q = static_cast<const T*>(a.q) +
-               ((size_t)b * a.H + (size_t)kh * G) * D;
+  const T* q = static_cast<const T*>(a.q) + (row * a.H + (size_t)kh * G) * D;
   for (int i = tid; i < G * D; i += kDecThreads) q_sm[i] = q[i];
   cp_async_wait<1>();
   __syncthreads();
@@ -521,7 +539,7 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
 //   workspace.
 template <class KV, int D, int BITS>
 __device__ __forceinline__ void split_mma(const DecodeArgs& a, const KV& kv,
-                                          int b, int kh, const Span& sp,
+                                          size_t row, int kh, const Span& sp,
                                           size_t split) {
   using T = __nv_bfloat16;
   using M = MmaShape<D>;
@@ -543,7 +561,7 @@ __device__ __forceinline__ void split_mma(const DecodeArgs& a, const KV& kv,
   stage_split<KV, T, D, BITS>(a, kv, sp, k_sm, v_sm, KS, KS, raw);
   // q's A fragments: rows gid and gid + 8 of this kv head's G heads.
   const uint32_t* q = reinterpret_cast<const uint32_t*>(
-      static_cast<const T*>(a.q) + ((size_t)b * a.H + (size_t)kh * G) * D);
+      static_cast<const T*>(a.q) + (row * a.H + (size_t)kh * G) * D);
   uint32_t qa[D / 16][4];
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
@@ -685,7 +703,7 @@ __device__ __forceinline__ void split_mma(const DecodeArgs& a, const KV& kv,
 // heads of row b into the workspace. The split index varies slowest, so the
 // blocks of the first splits - live for every row - are dispatched first
 // and the dead tail of the grid last.
-template <class KV, typename T, int D, int BITS>
+template <class KV, class Item, typename T, int D, int BITS>
 __global__ void __launch_bounds__(kDecThreads)
 decode_split_kernel(const DecodeArgs a) {
   // The combine may launch once every block has started; it waits for
@@ -697,12 +715,14 @@ decode_split_kernel(const DecodeArgs a) {
   const DecodeRow row(a, kv, b);
   const int c0 = j * CHUNK;
   if (c0 >= row.end || c0 + CHUNK <= row.lo) return;
+  const Item item(a, b);
+  if (!item.live) return;
   const Span sp{c0, max(c0, row.lo), min(c0 + CHUNK, row.end)};
   const size_t split = ((size_t)b * a.K + kh) * a.n_splits + j;
   if constexpr (std::is_same<T, float>::value)
-    split_simt<KV, D, BITS>(a, kv, b, kh, sp, split);
+    split_simt<KV, D, BITS>(a, kv, item.row, kh, sp, split);
   else
-    split_mma<KV, D, BITS>(a, kv, b, kh, sp, split);
+    split_mma<KV, D, BITS>(a, kv, item.row, kh, sp, split);
 }
 
 // Grid (query head of the group, kv head, row): the live splits' partials
@@ -713,11 +733,13 @@ decode_split_kernel(const DecodeArgs a) {
 // exp(kMaskValue - m) = 0; one batch covers 16k positions in bf16 at
 // D = 128). Launched as a programmatic dependent of the split kernel: it
 // waits for that grid's writes before reading the workspace.
-template <class KV, typename T, int D>
+template <class KV, class Item, typename T, int D>
 __global__ void __launch_bounds__(kDecThreads)
 decode_combine_kernel(const DecodeArgs a) {
   constexpr int CHUNK = DecShape<T, D>::CHUNK;
   const int g = blockIdx.x, kh = blockIdx.y, b = blockIdx.z;
+  const Item item(a, b);
+  if (!item.live) return;
   const KV kv(a, b, kh);
   const DecodeRow row(a, kv, b);
   const int G = a.H / a.K;
@@ -781,8 +803,7 @@ decode_combine_kernel(const DecodeArgs a) {
     }
     __syncthreads();
   }
-  T* out = static_cast<T*>(a.out) +
-           ((size_t)b * a.H + (size_t)kh * G + g) * D;
+  T* out = static_cast<T*>(a.out) + (item.row * a.H + (size_t)kh * G + g) * D;
 #pragma unroll
   for (int e = 0; e < DT; ++e) {
     const int d = tid + e * kDecThreads;
@@ -792,12 +813,12 @@ decode_combine_kernel(const DecodeArgs a) {
 
 // Launches the split kernel and the combine on `stream`. Returns a
 // cudaError_t code.
-template <class KV, typename T, int D, int BITS>
+template <class KV, typename T, int D, int BITS, class Item = BatchItem>
 int launch_decode(DecodeArgs a, cudaStream_t stream) {
   constexpr int CHUNK = DecShape<T, D>::CHUNK;
   a.n_splits = (KV::span(a) + CHUNK - 1) / CHUNK;
   const size_t smem = decode_smem_bytes<T, D>(a.H / a.K, BITS, a.SG);
-  auto split = decode_split_kernel<KV, T, D, BITS>;
+  auto split = decode_split_kernel<KV, Item, T, D, BITS>;
   cudaError_t err = allow_smem(split, smem);
   if (err != cudaSuccess) return err;
   if (a.n_splits > 65535) return cudaErrorInvalidConfiguration;
@@ -813,7 +834,7 @@ int launch_decode(DecodeArgs a, cudaStream_t stream) {
   attr[0].val.programmaticStreamSerializationAllowed = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, decode_combine_kernel<KV, T, D>, a);
+  return cudaLaunchKernelEx(&cfg, decode_combine_kernel<KV, Item, T, D>, a);
 }
 
 // The split length of (dtype, D), for the wrappers' workspace; 0 when the

@@ -1,6 +1,8 @@
-// The prefill mainloop shared by K2 (paged_prefill.cu) and K8
-// (flash_prefill.cu): causal attention of a prefill chunk at per-row
-// offsets against KV cells that an addressing policy locates.
+// The prefill mainloop shared by K2 (paged_prefill.cu), K8
+// (flash_prefill.cu) and K3's prefill tiles (ragged_paged.cu): causal
+// attention of a tile of query rows at consecutive positions against KV
+// cells that an addressing policy locates; the tile's rows (TileRows) are
+// a batch row's chunk rows for K2/K8 and a run of K3's flat buffer.
 //
 // Counterpart of theroundtaible_tpu/engine/pallas/attention.py:105
 // _prefill_accumulate, which the TPU's contiguous (_prefill_kernel) and
@@ -114,6 +116,15 @@ struct PrefillArgs {
   int SG;
 };
 
+// The query rows of a tile: row i < n is flat row row0 + i of q and of the
+// output viewed as [rows, H, D], at absolute position pos0 + i. K2/K8: chunk
+// rows t0 .. of batch row b (row0 = b * T + t0, pos0 = offsets[b] + t0);
+// K3: a tile of one run of the flat buffer (ragged_paged.cu).
+struct TileRows {
+  size_t row0;
+  int pos0, n;
+};
+
 // ---------------------------------------------------------------------------
 // f32: the CUDA-core body.
 
@@ -128,13 +139,17 @@ __host__ __device__ inline int simt_bq(int G, int T) {
   return bq;
 }
 
-__host__ __device__ inline size_t simt_smem_bytes(int G, int D, int T) {
-  const size_t R = (size_t)G * simt_bq(G, T);
+// Dynamic shared memory of a block of R = G * BQ <= kSimtRows query rows.
+__host__ __device__ inline size_t simt_smem_rows(size_t R, int D) {
   return sizeof(float) * (R * D                         // q rows
                           + (size_t)kSimtBK * (D + 4)   // K (padded rows)
                           + (size_t)kSimtBK * D         // V
                           + R * (kSimtBK + 1)           // scores, then p
                           + 3 * R);                     // m, l, alpha
+}
+
+__host__ __device__ inline size_t simt_smem_bytes(int G, int D, int T) {
+  return simt_smem_rows((size_t)G * simt_bq(G, T), D);
 }
 
 // Stages positions [kv0, kv0 + 32) into the f32 sub-block; positions at or
@@ -192,16 +207,16 @@ __device__ __forceinline__ void simt_stage(const PrefillArgs& a,
   }
 }
 
-template <class KV, int D, int BITS>
-__global__ void __launch_bounds__(kSimtThreads)
-prefill_simt_kernel(const PrefillArgs a, int BQ) {
-  const int tile = blockIdx.x;
-  const int kh = blockIdx.y;
-  const int b = blockIdx.z;
-  const KV kv(a, b, kh);
-  const int Tq = a.Tq, H = a.H;
+// One block of the CUDA-core body: the rows `w` (at most BQ) of kv head kh's
+// G query heads, keys walked up to the frontier of a full BQ rows. Zero pad
+// rows (ZERO_PAD): rows at or past `valid` are written 0.
+template <class KV, int D, int BITS, bool ZERO_PAD>
+__device__ __forceinline__ void simt_tile(const PrefillArgs& a, const KV& kv,
+                                          const TileRows& w, int kh, int BQ,
+                                          int valid) {
+  const int H = a.H;
   const int G = H / a.K;
-  const int R = G * BQ;  // rows r = g * BQ + i: head kh*G+g, chunk row t0+i
+  const int R = G * BQ;  // rows r = g * BQ + i: head kh*G+g, tile row i
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
@@ -210,8 +225,8 @@ prefill_simt_kernel(const PrefillArgs a, int BQ) {
   constexpr int KS = D + 4;  // padded K row: conflict-free float4 row reads
   constexpr int PS = BK + 1;  // padded score row
 
-  extern __shared__ __align__(16) float smem[];
-  float* q_sm = smem;            // [R][D]
+  extern __shared__ __align__(16) float simt_smem[];
+  float* q_sm = simt_smem;       // [R][D]
   float* k_sm = q_sm + R * D;    // [BK][KS]
   float* v_sm = k_sm + BK * KS;  // [BK][D]
   float* p_sm = v_sm + BK * D;   // [R][PS] scores, then p
@@ -219,19 +234,18 @@ prefill_simt_kernel(const PrefillArgs a, int BQ) {
   float* l_sm = m_sm + R;        // [R]
   float* a_sm = l_sm + R;        // [R]
 
-  const int t0 = tile * BQ;
-  const int valid = kv.clamp_valid(a.kv_valid[b]);
-  const int q_start = a.offsets[b] + t0;
+  const int q_start = w.pos0;
   const int q_last = q_start + BQ - 1;
   const float* q = static_cast<const float*>(a.q);
+  __syncthreads();  // a previous tile of this block is done with the smem
 
   for (int i = tid; i < R * (D / N); i += kSimtThreads) {
     const int r = i / (D / N), d = (i % (D / N)) * N;
-    const int g = r / BQ, t = t0 + r % BQ;
+    const int g = r / BQ, t = r % BQ;
     float x[N] = {0.f, 0.f, 0.f, 0.f};
-    if (t < Tq)
+    if (t < w.n)
       Vec<float>::load(
-          q + (((size_t)b * Tq + t) * H + (size_t)kh * G + g) * D + d, x);
+          q + ((w.row0 + t) * H + (size_t)kh * G + g) * D + d, x);
     *reinterpret_cast<float4*>(q_sm + r * D + d) =
         make_float4(x[0], x[1], x[2], x[3]);
   }
@@ -346,12 +360,11 @@ prefill_simt_kernel(const PrefillArgs a, int BQ) {
 #pragma unroll
   for (int h = 0; h < TR; ++h) {
     const int r = rgv + h * RGV;
-    const int t = t0 + r % BQ;
-    if (r < R && t < Tq) {
-      const bool pad = KV::kZeroPadRows && q_start + r % BQ >= valid;
+    const int t = r % BQ;
+    if (r < R && t < w.n) {
+      const bool pad = ZERO_PAD && q_start + t >= valid;
       const float inv = pad ? 0.f : 1.f / fmaxf(l_sm[r], 1e-30f);
-      float* o =
-          out + (((size_t)b * Tq + t) * H + (size_t)kh * G + r / BQ) * D;
+      float* o = out + ((w.row0 + t) * H + (size_t)kh * G + r / BQ) * D;
       *reinterpret_cast<float4*>(o + d0) =
           make_float4(acc[h][0] * inv, acc[h][1] * inv, acc[h][2] * inv,
                       acc[h][3] * inv);
@@ -360,6 +373,20 @@ prefill_simt_kernel(const PrefillArgs a, int BQ) {
                       acc[h][7] * inv);
     }
   }
+}
+
+// Grid (q tile of BQ chunk rows, kv head, batch row).
+template <class KV, int D, int BITS>
+__global__ void __launch_bounds__(kSimtThreads)
+prefill_simt_kernel(const PrefillArgs a, int BQ) {
+  const int kh = blockIdx.y;
+  const int b = blockIdx.z;
+  const KV kv(a, b, kh);
+  const int t0 = blockIdx.x * BQ;
+  const TileRows w{(size_t)b * a.Tq + t0, a.offsets[b] + t0,
+                   min(BQ, a.Tq - t0)};
+  simt_tile<KV, D, BITS, KV::kZeroPadRows>(a, kv, w, kh, BQ,
+                                           kv.clamp_valid(a.kv_valid[b]));
 }
 
 // ---------------------------------------------------------------------------
@@ -728,12 +755,12 @@ __device__ __forceinline__ void tc_producer(const PrefillArgs& a,
 // (warp w, lane) holds rows r0 = 16w + lane/4 and r1 = r0 + 8 of wgmma's
 // accumulators: columns 8j + 2*(lane%4) + {0,1} in registers 4j + {0,1}
 // (r0) and 4j + {2,3} (r1).
-template <class KV, int D>
+template <int D, bool ZERO_PAD>
 __device__ __forceinline__ void tc_consumer(const PrefillArgs& a,
                                             uint8_t* q_sm, uint8_t* stages,
                                             uint32_t full0, uint32_t empty0,
-                                            int n_lo, int n_kv, int b, int kh,
-                                            int tw0, int BQ, int offs,
+                                            int n_lo, int n_kv,
+                                            const TileRows& w, int kh, int BQ,
                                             int valid) {
   using S = TcShape<D>;
   constexpr float kLog2e = 1.4426950408889634f;
@@ -741,28 +768,28 @@ __device__ __forceinline__ void tc_consumer(const PrefillArgs& a,
   const int tid = threadIdx.x % 128;
   const int warp = tid / 32, lane = tid % 32, quad = lane % 4;
   const int G = a.H / a.K;
-  const int Tq = a.Tq, window = a.window;
+  const int window = a.window;
   const float softcap = a.softcap;
 
-  // Q rows r = g * BQ + i: head kh*G + g, chunk row tw0 + i; rows past
-  // G * BQ or past T are zeros.
+  // Q rows r = g * BQ + i: head kh*G + g, row i of `w`; rows past G * BQ
+  // or past w.n are zeros.
   const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(a.q);
   for (int i = tid; i < kTcRows * D / 8; i += 128) {
     const int r = i / (D / 8), c = i % (D / 8);
-    const int g = r / BQ, t = tw0 + r % BQ;
+    const int g = r / BQ, t = r % BQ;
     uint4 x = make_uint4(0u, 0u, 0u, 0u);
-    if (r < G * BQ && t < Tq)
+    if (r < G * BQ && t < w.n)
       x = *reinterpret_cast<const uint4*>(
-          q + (((size_t)b * Tq + t) * a.H + (size_t)kh * G + g) * D + 8 * c);
+          q + ((w.row0 + t) * a.H + (size_t)kh * G + g) * D + 8 * c);
     *reinterpret_cast<uint4*>(q_sm + sw128_offset(r, c)) = x;
   }
   fence_async_smem();
   named_bar_sync(1 + wg, 128);
 
-  // This warpgroup's real chunk rows and their positions; `live` is false
-  // when it has none, or only a bucket's pad rows.
-  const int n_rows = min(tw0 + BQ, Tq) - tw0;
-  const int wq_first = offs + tw0, wq_last = offs + tw0 + n_rows - 1;
+  // This warpgroup's real rows and their positions; `live` is false when
+  // it has none, or only a bucket's pad rows.
+  const int n_rows = w.n;
+  const int wq_first = w.pos0, wq_last = w.pos0 + n_rows - 1;
   const bool live = n_rows > 0 && wq_first < valid;
   const int r0 = warp * 16 + lane / 4, r1 = r0 + 8;
   const int qpos0 = wq_first + r0 % BQ, qpos1 = wq_first + r1 % BQ;
@@ -918,14 +945,13 @@ __device__ __forceinline__ void tc_consumer(const PrefillArgs& a,
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int r = h ? r1 : r0;
-    const int t = tw0 + r % BQ;
-    if (r >= G * BQ || t >= Tq) continue;
+    const int t = r % BQ;
+    if (r >= G * BQ || t >= w.n) continue;
     const int q_pos = h ? qpos1 : qpos0;
-    const bool zero = !live || (KV::kZeroPadRows && q_pos >= valid);
+    const bool zero = !live || (ZERO_PAD && q_pos >= valid);
     const float inv = zero ? 0.f : 1.f / fmaxf(h ? l1 : l0, 1e-30f);
     __nv_bfloat16* row =
-        out + (((size_t)b * Tq + t) * a.H + (size_t)kh * G + r / BQ) * D +
-        2 * quad;
+        out + ((w.row0 + t) * a.H + (size_t)kh * G + r / BQ) * D + 2 * quad;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
       *reinterpret_cast<__nv_bfloat162*>(row + 8 * j) = __floats2bfloat162_rn(
@@ -933,28 +959,27 @@ __device__ __forceinline__ void tc_consumer(const PrefillArgs& a,
   }
 }
 
-// Grid: one block per (q tile, kv head, batch row), q tiles of
-// kTcConsumers * BQ chunk rows, heaviest (last) tile first.
-template <class KV, int D, int BITS>
-__global__ void __launch_bounds__(kTcThreads, 1)
-prefill_tc_kernel(const PrefillArgs a, int BQ, int n_tiles) {
-  using S = TcShape<D>;
+// The dynamic shared memory of the tensor-core body, aligned to 1024 bytes
+// (the swizzle's period).
+__device__ __forceinline__ uint8_t* tc_smem_base() {
   extern __shared__ __align__(16) uint8_t tc_raw[];
   const uint32_t raw = smem_u32(tc_raw);
-  uint8_t* tc_smem = tc_raw + (((raw + 1023) & ~1023u) - raw);
-  const int per_tile = a.K * a.B;
-  const int tile = n_tiles - 1 - (int)(blockIdx.x / per_tile);
-  const int kh = blockIdx.x % a.K;
-  const int b = (blockIdx.x / a.K) % a.B;
-  const KV kv(a, b, kh);
-  const int t0 = tile * kTcConsumers * BQ;
-  const int offs = a.offsets[b];
-  const int valid = kv.clamp_valid(a.kv_valid[b]);
-  // _prefill_blk_bounds: key tiles from the window's first position to the
-  // block's causal/valid frontier `end`; none when the block holds only a
-  // bucket's pad rows.
-  const int q_first = offs + t0;
-  const int q_last = offs + min(t0 + kTcConsumers * BQ, a.Tq) - 1;
+  return tc_raw + (((raw + 1023) & ~1023u) - raw);
+}
+
+// One block of the tensor-core body: the rows of `tile` (at most
+// kTcConsumers * BQ, BQ per consumer warpgroup) of kv head kh's G query
+// heads, against the key tiles from the window's first position to the
+// tile's causal/valid frontier (_prefill_blk_bounds' walk); none when the
+// tile holds only pad rows. Every thread of the block calls it.
+template <class KV, int D, int BITS, bool ZERO_PAD>
+__device__ __forceinline__ void tc_tile(const PrefillArgs& a, const KV& kv,
+                                        const TileRows& tile, int kh, int BQ,
+                                        int valid) {
+  using S = TcShape<D>;
+  uint8_t* tc_smem = tc_smem_base();
+  const int q_first = tile.pos0;
+  const int q_last = tile.pos0 + tile.n - 1;
   const int end = q_first < valid ? min(q_last + 1, valid) : 0;
   const int n_lo = (a.window > 0 ? max(0, q_first - a.window + 1) : 0) /
                    kTcBK;
@@ -979,9 +1004,28 @@ prefill_tc_kernel(const PrefillArgs a, int BQ, int n_tiles) {
   } else {
     setmaxnreg_inc<TcRegs<BITS>::kConsumer>();
     const int wg = threadIdx.x / 128;
-    tc_consumer<KV, D>(a, q_sm + wg * kTcRows * D * 2, stages, full0, empty0,
-                       n_lo, n_kv, b, kh, t0 + wg * BQ, BQ, offs, valid);
+    const TileRows w{tile.row0 + (size_t)wg * BQ, tile.pos0 + wg * BQ,
+                     min(BQ, tile.n - wg * BQ)};
+    tc_consumer<D, ZERO_PAD>(a, q_sm + wg * kTcRows * D * 2, stages, full0,
+                             empty0, n_lo, n_kv, w, kh, BQ, valid);
   }
+}
+
+// Grid: one block per (q tile, kv head, batch row), q tiles of
+// kTcConsumers * BQ chunk rows, heaviest (last) tile first.
+template <class KV, int D, int BITS>
+__global__ void __launch_bounds__(kTcThreads, 1)
+prefill_tc_kernel(const PrefillArgs a, int BQ, int n_tiles) {
+  const int per_tile = a.K * a.B;
+  const int tile = n_tiles - 1 - (int)(blockIdx.x / per_tile);
+  const int kh = blockIdx.x % a.K;
+  const int b = (blockIdx.x / a.K) % a.B;
+  const KV kv(a, b, kh);
+  const int t0 = tile * kTcConsumers * BQ;
+  const TileRows rows{(size_t)b * a.Tq + t0, a.offsets[b] + t0,
+                      min(t0 + kTcConsumers * BQ, a.Tq) - t0};
+  tc_tile<KV, D, BITS, KV::kZeroPadRows>(a, kv, rows, kh, BQ,
+                                         kv.clamp_valid(a.kv_valid[b]));
 }
 
 // Launches one prefill on `stream`: the tensor-core body for bf16, the

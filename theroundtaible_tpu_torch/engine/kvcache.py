@@ -16,6 +16,7 @@ from typing import Optional
 
 import torch
 
+from .device import resolve_device
 from .models.common import ModelConfig
 
 # Session-namespaced slot names: the ASCII unit separator, which no
@@ -263,11 +264,13 @@ class KVCache(SlotBook):
     bookkeeping. Layout per layer: [num_slots, max_seq_len, K, D], zeros
     at construction. Serving writes it in place (models/common
     forward_cached) and the kernels read slots through their row map, so
-    no slot is ever gathered or copied whole."""
+    no slot is ever gathered or copied whole. On the card unless the
+    caller passes device="cpu"."""
 
     def __init__(self, cfg: ModelConfig, num_slots: int,
                  max_seq_len: Optional[int] = None, dtype=torch.bfloat16,
-                 device="cpu"):
+                 device="cuda"):
+        device = resolve_device(device)
         super().__init__(num_slots)
         self.cfg = cfg
         self.max_seq_len = max_seq_len or cfg.max_seq_len

@@ -56,6 +56,7 @@ from typing import Any, Callable, Optional
 import torch
 import torch.nn.functional as F
 
+from ..device import resolve_device
 from ..lora import apply_current
 
 Params = dict[str, Any]
@@ -758,7 +759,7 @@ def gather_rows(x: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
-                dtype=torch.bfloat16, device="cpu", mesh=None,
+                dtype=torch.bfloat16, device="cuda", mesh=None,
                 quantize: Optional[Callable] = None) -> Params:
     """Random init with the JAX package's distributions (normal scaled by
     fan_in^-0.5, unit or zero norms, 0.02 biases), drawn in a fixed order
@@ -771,8 +772,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     scale the whole leaf's) and keeps its slice of each
     (sharding.shard_tree): the shards of the weights one device would draw
     and quantize from the same generator. One whole layer is alive at a
-    time."""
-    device = torch.device(device)
+    time. On the card unless the caller passes device="cpu"."""
+    device = resolve_device(device)
     if mesh is not None:
         from ..sharding import materialize, param_specs, shard_tree
         specs = param_specs(cfg)

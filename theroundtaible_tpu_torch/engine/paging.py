@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from .kv_quant import KVQuantSpec, page_ratio
+from .device import resolve_device
 from .kvcache import lcp, session_of
 from .models.common import ModelConfig
 
@@ -52,13 +53,15 @@ class PagedSlot:
 
 
 class PagedKVCache:
-    """Page-pool KV cache keyed by slot name."""
+    """Page-pool KV cache keyed by slot name, on the card unless the
+    caller passes device="cpu"."""
 
     def __init__(self, cfg: ModelConfig, num_slots: int,
                  max_seq_len: Optional[int] = None, dtype=torch.bfloat16,
-                 device="cpu", page_size: int = 128,
+                 device="cuda", page_size: int = 128,
                  num_pages: Optional[int] = None,
                  kv_quant: Optional[KVQuantSpec] = None):
+        device = resolve_device(device)
         self.cfg = cfg
         self.num_slots = num_slots
         self.max_seq_len = max_seq_len or cfg.max_seq_len

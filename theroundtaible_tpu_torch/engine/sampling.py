@@ -14,6 +14,8 @@ from typing import Optional
 
 import torch
 
+from .device import resolve_device
+
 
 @dataclass(frozen=True)
 class SamplingParams:
@@ -23,9 +25,11 @@ class SamplingParams:
     max_new_tokens: int = 1024
 
 
-def sampling_arrays(params_list: list[SamplingParams], device="cpu"):
+def sampling_arrays(params_list: list[SamplingParams], device="cuda"):
     """Per-row (temps, top_ks, top_ps) f32/i32/f32 tensors for
-    sample_token_batch."""
+    sample_token_batch, on the card unless the caller passes
+    device="cpu"."""
+    device = resolve_device(device)
     return (torch.tensor([p.temperature for p in params_list],
                          dtype=torch.float32, device=device),
             torch.tensor([p.top_k for p in params_list], dtype=torch.int32,

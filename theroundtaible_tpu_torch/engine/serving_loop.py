@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from . import deadlines
+from .device import resolve_device
 
 PREFILL_BUCKETS = (64, 128, 256, 512, 1024, 2048)
 MAX_PREFILL_CHUNK = 2048
@@ -194,12 +195,14 @@ def chunked_prefill(
 
 
 def row_budget_fn(per_row, sampling_per_turn, max_new: int,
-                  device="cpu") -> Callable:
+                  device="cuda") -> Callable:
     """Per-segment remaining-row-budget closure. Only an EXPLICIT
     sampling_per_turn carries per-row max_new_tokens budgets (capped by
     the call-level max_new); the prefill-sampled first token has already
     consumed one token of every row's budget, hence the -1. `budget` is
-    the remaining global token count."""
+    the remaining global token count. The totals live on the card unless
+    the caller passes device="cpu"."""
+    device = resolve_device(device)
     if sampling_per_turn:
         totals = [min(p.max_new_tokens, max_new) for p in per_row]
     else:

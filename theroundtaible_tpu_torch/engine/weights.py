@@ -24,6 +24,7 @@ import math
 import numpy as np
 import torch
 
+from .device import resolve_device
 from .kernels.int4mm import plan_leaf
 from .models.common import LEAF_SPECS, Int4Leaf, ModelConfig, Params
 from .quant import _SCALE_AXES
@@ -111,12 +112,14 @@ def _leaf(x, shape, name: str, dtype, device):
 
 
 def params_from_numpy(tree: dict, cfg: ModelConfig, dtype=torch.bfloat16,
-                      device="cpu", mesh=None) -> Params:
+                      device="cuda", mesh=None) -> Params:
     """The port's parameters from `jax.device_get(engine.params)`, dense or
     quantized; under `mesh` this rank's slices of them (one leaf at a time
     is bridged whole on the CPU, sliced, and its slice copied to `device`,
-    so the host holds one whole leaf at most). Raises on a missing leaf or
-    a shape that disagrees with `cfg`."""
+    so the host holds one whole leaf at most). On the card unless the
+    caller passes device="cpu". Raises on a missing leaf or a shape that
+    disagrees with `cfg`."""
+    device = resolve_device(device)
     if cfg.num_experts:
         raise NotImplementedError(
             "MoE weights are not ported yet (ROADMAP, slice 7)")
