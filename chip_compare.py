@@ -20,8 +20,9 @@ and runs its single-device phases at Llama-3-8B width, 32 layers:
 
 With --kernels each run builds the kernels and runs only the quant_kernels
 phase instead: K4 in K1-K3, K5 at the five decode projections and K6 at
-the head, each timed with CUDA events; the summary holds K5's time for one
-layer's seven products and K6's.
+the head, each timed with CUDA events and by torch.profiler beside
+torch.matmul on the pre-dequantized weight; the summary holds K5's times
+for one layer's seven products and K6's.
 
 With --attention each run builds the kernels and runs only the kernels
 phase: K1, K2, K3, K8 and K9 against their plain versions, then each
@@ -80,13 +81,14 @@ def k5_splits_phase(torch, cs, reps: int = 300) -> None:
         half = width // 4      # packed columns of one of two shards
         q4_l = q4[:, :half].contiguous()
         s4_l = s4[:, :half // gp].contiguous()
-        splits = {"own": int4mm.out_splits(4096, half, sms),
-                  "whole": int4mm.out_splits(4096, 2 * half, sms)}
+        rows = {"own": int4mm.out_plan(3, 4096, half, sms).rows,
+                "whole": int4mm.out_plan(3, 4096, 2 * half, sms).rows}
+        splits = {k: -(-4096 // n) for k, n in rows.items()}
         calls = {k: functools.partial(int4mm._launch_pack_out, x, q4_l,
                                       s4_l, gp, n)
-                 for k, n in splits.items()}
+                 for k, n in rows.items()}
         calls["whole_weight"] = functools.partial(
-            int4mm._launch_pack_out, x, q4, s4, gp, splits["whole"])
+            int4mm._launch_pack_out, x, q4, s4, gp, rows["whole"])
         times = {k: [] for k in calls}
         for fn in calls.values():
             fn()
@@ -104,7 +106,7 @@ def k5_splits_phase(torch, cs, reps: int = 300) -> None:
         own, whole = calls["own"](), calls["whole"]()
         out[name] = {
             "shard_weight": [4096, 2 * half], "splits": splits,
-            "col_tiles": -(-half // 512),
+            "col_tiles": int4mm.out_plan(3, 4096, half, sms).col_tiles,
             **{f"ms_{k}": statistics.median(v) for k, v in times.items()},
             **{f"ms_{k}_halves": [statistics.median(v[:reps // 2]),
                                   statistics.median(v[reps // 2:])]
@@ -246,11 +248,17 @@ def summarize(phases: list[dict]) -> dict:
         return {"attention": attention}
     w4 = by.get("quant_kernels", [{}])[0].get("w4a16")
     if w4:
-        return {"k5_layer_ms": sum(t["ms"] * t["per_layer"]
-                                   for n, t in w4.items() if n != "lm_head"),
+        k5 = {n: t for n, t in w4.items() if n != "lm_head"}
+        return {**{f"k5_layer_{k}": sum(t.get(k, 0.0) * t["per_layer"]
+                                        for t in k5.values())
+                   for k in ("ms", "device_ms", "library_device_ms")},
                 "k6_ms": w4["lm_head"]["ms"],
-                "k5_ms": {n: t["ms"] for n, t in w4.items()
-                          if n != "lm_head"}}
+                "k6_device_ms": w4["lm_head"].get("device_ms"),
+                "k6_library_device_ms": w4["lm_head"].get(
+                    "library_device_ms"),
+                "k5_ms": {n: t["ms"] for n, t in k5.items()},
+                "k5_device_ms": {n: t.get("device_ms")
+                                 for n, t in k5.items()}}
     return {"round": rounds("round"), "profile": profile("profile"),
             "quant_int8": rounds("quant_int8"),
             "quant_int8_profile": profile("quant_int8_profile"),

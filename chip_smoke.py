@@ -1680,7 +1680,10 @@ K5_SHAPES = {"q_proj": ((3, 4096), (4096, 4096), 1),
              "kv_proj": ((3, 4096), (4096, 1024), 2),
              "o_proj": ((3, 4096), (4096, 4096), 1),
              "gate_up_proj": ((3, 4096), (4096, 14336), 2),
-             "down_proj": ((3, 14336), (14336, 4096), 1)}
+             "down_proj": ((3, 14336), (14336, 4096), 1),
+             # 64 rows (eight n-tiles of the tensor-core body), outside
+             # the layer's sum
+             "gate_up_proj_64rows": ((64, 4096), (4096, 14336), 0)}
 K6_SHAPE = ((3, 4096), (128256, 4096))
 INT4_GROUP = 64
 
@@ -1879,10 +1882,23 @@ def int4_weight(torch, gen, shape, dev):
     return q4, s4
 
 
+def int4_kernel_ptxas(build, int4mm, m, head):
+    """ptxas's registers, static shared memory and spills of the bf16
+    kernel (tensor-core body for m rows) that K5 or K6 launches."""
+    want = (f"{'mm_pack_contract' if head else 'mm_pack_out'}"
+            f"_tc_kernelILi{int4mm.n_tiles(m)}E")
+    found = {name: v for name, v in ptxas_summary(
+        build.build_logs().get("int4mm", "")).items() if want in name}
+    check(len(found) == 1, f"ptxas lists no single {want}: {list(found)}")
+    return next(iter(found.values()))
+
+
 def w4a16_cases(torch, int4mm, common, gen, flush):
-    """K5 at the five decode projections and K6 at the 128256-row head
-    against their plain versions, with times beside `torch.matmul` on the
-    weight dequantized to bf16 beforehand (not timed), the yardstick."""
+    """K5 at the five decode projections (and gate/up at 64 rows) and K6
+    at the 128256-row head against their plain versions, with times beside
+    `torch.matmul` on the weight dequantized to bf16 beforehand (not
+    timed), the yardstick, and the launched kernel's ptxas line."""
+    from theroundtaible_tpu_torch.engine.kernels import build
     dev, bf16 = torch.device("cuda"), torch.bfloat16
     gp = INT4_GROUP // 2
     out = {}
@@ -1912,6 +1928,7 @@ def w4a16_cases(torch, int4mm, common, gen, flush):
         m = xs[0]
         t = {"x": list(xs), "weight": list(ws), "per_layer": per_layer,
              "max_abs_err": err, "repeat_bit_identical": same,
+             "ptxas": int4_kernel_ptxas(build, int4mm, m, head),
              "ms": time_ms(torch, fn, 50, flush),
              "plain_ms": time_ms(torch, ref, 3, flush),
              "library_ms": time_ms(torch, lib, 50, flush),

@@ -811,6 +811,21 @@ def test_cuda_allocators_default_to_the_card(cuda_device):
     assert all(t.device.type == "cuda" for t in made)
 
 
+@pytest.mark.cuda
+def test_cuda_engine_devices_pins_the_card(cuda_device):
+    """from_config's "devices": [0] (an index into the JAX package's
+    jax.devices()) builds the engine, its weights and its cache on
+    cuda:0 (tests/test_torch_engine.py raises the multi-device cases)."""
+    from theroundtaible_tpu_torch.engine.engine import InferenceEngine
+    eng = InferenceEngine.from_config(
+        {"model": "tiny-llama", "max_seq_len": 128, "attn": "dense",
+         "devices": [0]}, device="cuda")
+    card = torch.device("cuda", 0)
+    assert eng.device == card
+    assert eng.params["embedding"].device == card
+    assert eng.kv.layers[0][0].device == card
+
+
 # --- K5/K6: w4a16 decode products ---
 
 
@@ -861,11 +876,85 @@ def test_cuda_mm_pack_out_matches_plain(cuda_device, name, dtype, tol):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 8, 9, 64])
+@pytest.mark.parametrize("name", sorted(K5_SHAPES))
+def test_cuda_mm_pack_out_rows_match_plain(cuda_device, name, rows):
+    """bf16 K5 at each Llama-3-8B decode projection with 1 and 8 rows (one
+    n-tile of the tensor-core body), 9 (two) and 64 (eight), against its
+    plain version, and the same bits on a second call."""
+    spec, a_shape, w_shape = K5_SHAPES[name]
+    rng = np.random.default_rng(35)
+    dev = cuda_device
+    leaf = int4_leaf(rng, spec, w_shape, torch.bfloat16, dev)
+    a = torch.from_numpy(rng.normal(size=(rows, *a_shape[1:])).astype(
+        np.float32)).to(dev, torch.bfloat16)
+    out, reason = int4mm.einsum_int4_or_reason(spec, a, leaf)
+    assert reason is None
+    n_cont = 2 if name == "o_proj" else 1
+    c = int(np.prod(w_shape[:n_cont]))
+    ref = int4mm.mm_pack_out_ref(
+        a.reshape(-1, c), leaf.q4.reshape(c, -1),
+        leaf.s4.reshape(c, -1), leaf.group // 2)
+    torch.testing.assert_close(out.reshape(ref.shape), ref, atol=2e-2,
+                               rtol=2e-2)
+    again, _ = int4mm.einsum_int4_or_reason(spec, a, leaf)
+    assert torch.equal(out, again)
+
+
+# K5/K6 at the edges of their plans, (mode, rows, C, P or (N, Cp), group):
+# groups of 32 values (gp = 16); a C of 4096 + 48 that leaves a partial
+# last split and a partial 32-row stage; a packed width of 48 bytes (a
+# partial column tile) under a C of 2001 (x's rows not 16-byte aligned); a
+# head whose packed width 1040 leaves a partial 64-byte chunk and whose
+# 1000 vocab rows a partial 16-row tile; 64 rows staging x in pieces.
+INT4_EDGES = {
+    "k5_group32_partial_split": ("out", 3, 4096 + 48, 1024, 32),
+    "k5_partial_col_tile_9rows": ("out", 9, 2001, 48, 32),
+    "k5_64rows_group32": ("out", 64, 4096 + 48, 512, 32),
+    "k6_group32_partial_chunk": ("contract", 3, None, (1000, 1040), 32),
+    "k6_64rows_pieces": ("contract", 64, None, (1000, 2048), 64),
+    "k6_9rows_group32": ("contract", 9, None, (3000, 2048), 32),
+}
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", DTYPES)
-@pytest.mark.parametrize("rows", [1, 3, 9])
+@pytest.mark.parametrize("edge", sorted(INT4_EDGES))
+def test_cuda_int4_kernels_at_plan_edges(cuda_device, edge, dtype, tol):
+    """K5/K6 at INT4_EDGES against their plain versions, the same bits on
+    repeated calls."""
+    mode, rows, c, dims, group = INT4_EDGES[edge]
+    rng = np.random.default_rng(36)
+    dev = cuda_device
+    if mode == "out":
+        w_shape = (c, 2 * dims)
+        spec, x_shape = "bte,ef->btf", (rows, 1, c)
+    else:
+        w_shape = (dims[0], 2 * dims[1])
+        spec, x_shape = "bte,ve->btv", (rows, 1, 2 * dims[1])
+    leaf = int4_leaf(rng, spec, w_shape, dtype, dev, group=group)
+    a = torch.from_numpy(rng.normal(size=x_shape).astype(np.float32)).to(
+        dev, dtype)
+    out, reason = int4mm.einsum_int4_or_reason(spec, a, leaf)
+    assert reason is None
+    x2 = a.reshape(rows, -1)
+    ref = (int4mm.mm_pack_out_ref if mode == "out"
+           else int4mm.mm_pack_contract_ref)(x2, leaf.q4, leaf.s4,
+                                             group // 2)
+    torch.testing.assert_close(out.reshape(ref.shape), ref, atol=tol,
+                               rtol=tol)
+    for _ in range(2):
+        again, _ = int4mm.einsum_int4_or_reason(spec, a, leaf)
+        assert torch.equal(out, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("rows", [1, 3, 9, 64])
 def test_cuda_mm_pack_contract_matches_plain(cuda_device, rows, dtype, tol):
     """K6 (the int4 lm head, "bte,ve->btv") at a 4096-wide head with
-    20000 vocabulary rows; 9 rows take three passes over the weight."""
+    20000 vocabulary rows; 9 rows take two n-tiles of the tensor-core body
+    (three passes of the f32 body), 64 rows eight."""
     rng = np.random.default_rng(32)
     dev = cuda_device
     leaf = int4_leaf(rng, "bte,ve->btv", (20000, 4096), dtype, dev)
@@ -883,19 +972,20 @@ def test_cuda_mm_pack_contract_matches_plain(cuda_device, rows, dtype, tol):
 @pytest.mark.parametrize("name", sorted(K5_SHAPES) + ["lm_head"])
 def test_cuda_int4_products_are_bit_identical_across_calls(cuda_device,
                                                            name):
-    """K5 (split C summed in split order, warps in a fixed tree) and K6
-    give the same bits on two identical calls, so a greedy decode step
-    does not change between runs."""
+    """K5 (split C summed in split order by the last block of each column
+    tile) and K6 give the same bits on repeated identical calls, at 3 and
+    at 64 rows, so a greedy decode step does not change between runs."""
     spec, a_shape, w_shape = K5_SHAPES.get(
         name, ("bte,ve->btv", (3, 1, 4096), (20000, 4096)))
     rng = np.random.default_rng(33)
     leaf = int4_leaf(rng, spec, w_shape, torch.bfloat16, cuda_device)
-    a = torch.from_numpy(rng.normal(size=a_shape).astype(np.float32)).to(
-        cuda_device, torch.bfloat16)
-    first, _ = int4mm.einsum_int4_or_reason(spec, a, leaf)
-    for _ in range(3):
-        again, _ = int4mm.einsum_int4_or_reason(spec, a, leaf)
-        assert torch.equal(first, again)
+    for rows in (a_shape[0], 64):
+        a = torch.from_numpy(rng.normal(size=(rows, *a_shape[1:])).astype(
+            np.float32)).to(cuda_device, torch.bfloat16)
+        first, _ = int4mm.einsum_int4_or_reason(spec, a, leaf)
+        for _ in range(3):
+            again, _ = int4mm.einsum_int4_or_reason(spec, a, leaf)
+            assert torch.equal(first, again)
 
 
 @pytest.mark.cuda

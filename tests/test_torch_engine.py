@@ -122,6 +122,9 @@ def test_describe_keys_match(engines):
     # a data axis (TP alone is served: tests/test_torch_tp.py)
     ("mesh", {"data": 2, "model": 2}), ("seq_parallel", 2),
     ("checkpoint", "/nonexistent"), ("dtype", "float16"),
+    # devices beyond one card (a single index selects cuda:<i>; here the
+    # caller asked for the CPU) and a DCN axis
+    ("devices", [1]), ("devices", [0, 1]), ("dcn_axis", "data"),
 ])
 def test_unported_options_raise(key, value):
     config = {"model": "tiny-llama", "max_seq_len": 128, key: value}

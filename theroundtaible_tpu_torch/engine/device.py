@@ -16,4 +16,7 @@ def resolve_device(device="cuda") -> torch.device:
             "the CPU")
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
+    if dev.type == "cuda" and (dev.index or 0) >= torch.cuda.device_count():
+        raise ValueError(f"no card {dev}: {torch.cuda.device_count()} "
+                         f"present")
     return dev

@@ -138,6 +138,7 @@ _FEATURES = {
 # What a mesh does not serve yet, with its slice.
 _MESH_SLICE = ("slice 7e-ii: a data axis (per-replica pools and the "
                "ReplicaGroupPlan) and the scheduler on a mesh")
+_DEVICES_SLICE = "slice 7e-ii: devices and dcn_axis beyond one card"
 
 
 def _quant_mode(params: dict) -> str:
@@ -212,8 +213,11 @@ class InferenceEngine:
                  ragged_attn: Optional[bool] = None,
                  spec_decode: Optional[bool] = None,
                  lora: Optional[dict] = None, kv_quant: Any = None,
-                 params: Optional[dict] = None, device="cuda"):
-        self.device = resolve_device(device)
+                 params: Optional[dict] = None,
+                 devices: Optional[list[int]] = None,
+                 dcn_axis: Optional[str] = None, device="cuda"):
+        self.device = resolve_device(self._pinned_device(device, devices,
+                                                         dcn_axis))
         self._check_ported(model_cfg, checkpoint, mesh_shape, dtype,
                            seq_parallel, attn, kv_layout, quant,
                            kv_quant, prefix_cache=prefix_cache,
@@ -465,6 +469,30 @@ class InferenceEngine:
                                bits=8 if quant == "int8" else 4)
 
     @staticmethod
+    def _pinned_device(device, devices, dcn_axis):
+        """`device` narrowed by the JAX engine's `devices` (indices into
+        jax.devices(), which the fleet planner writes) and `dcn_axis`: one
+        index selects that card, as the index of `cuda:<i>`. Several
+        indices, an index with a CPU `device`, or any DCN axis are the
+        multi-device options still to port."""
+        if dcn_axis:
+            raise _not_ported(f"dcn_axis {dcn_axis!r}", _DEVICES_SLICE)
+        if not devices:
+            return device
+        if len(devices) != 1:
+            raise _not_ported(f"devices {list(devices)} (several cards)",
+                              _DEVICES_SLICE)
+        dev = torch.device(device)
+        if dev.type != "cuda":
+            raise _not_ported(f"devices {list(devices)} on device {dev}",
+                              _DEVICES_SLICE)
+        index = int(devices[0])
+        if dev.index is not None and dev.index != index:
+            raise ValueError(f"devices {list(devices)} contradicts device "
+                             f"{dev}")
+        return torch.device("cuda", index)
+
+    @staticmethod
     def _check_ported(cfg, checkpoint, mesh_shape, dtype, seq_parallel,
                       attn, kv_layout, quant, kv_quant, lora=None,
                       **features) -> None:
@@ -582,6 +610,8 @@ class InferenceEngine:
             spec_decode=config.get("spec_decode"),
             lora=config.get("lora"),
             kv_quant=config.get("kv_quant"),
+            devices=config.get("devices"),
+            dcn_axis=config.get("dcn_axis"),
             device=device,
         )
         if "dispatch_retries" in config:

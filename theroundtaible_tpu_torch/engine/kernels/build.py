@@ -61,8 +61,8 @@ _SIGNATURES = {
         "rt_ragged_decode_chunk": ([_I, _I], _I),
     },
     "int4mm": {
-        "rt_mm_pack_out": ([_P] * 5 + [_I] * 7 + [_P], _I),
-        "rt_mm_pack_contract": ([_P] * 4 + [_I] * 6 + [_P], _I),
+        "rt_mm_pack_out": ([_P] * 6 + [_I] * 7 + [_P], _I),
+        "rt_mm_pack_contract": ([_P] * 4 + [_I] * 8 + [_P], _I),
     },
     "bgmv": {
         "rt_bgmv": ([_P] * 5 + [_I] * 7 + [_P], _I),

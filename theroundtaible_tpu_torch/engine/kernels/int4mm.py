@@ -19,21 +19,24 @@ rows), streaming the packed bytes instead of a dequantized copy:
 
 Numerics of both (and of models/common.dequant_int4): each nibble times
 its scale in the activation dtype, rounded to it, then f32 products and
-sums, in an order that is the same on every call.
+sums, in an order that is the same on every call. bf16 runs tensor-core
+bodies (mma.sync), f32 the CUDA-core ones.
 
 Each leaf is planned once, when it is made (quant.quantize_params,
 weights.params_from_numpy): `plan_leaf` classifies its call site
 (`classify`, the JAX package's, with its reason strings) and checks the
 kernels' block constraints, which take the place of the TPU plan's VMEM
-budget; the leaf keeps the Int4Plan. A product then only counts its
-activation rows (`einsum_int4_or_reason`): up to 64 run the planned
-kernel, more (prefill) take the dequant path with `rows:prefill-m`, as in
-the JAX package. A leaf whose plan declines takes the dequant path on the
-CPU, with the reason; on a CUDA tensor it raises, and the engine refuses
-such a leaf when it is built. ROUNDTABLE_INT4_MM=0, read when a leaf is
-planned, declines every leaf (`kernel-disabled`). The CPU runs the plain
-versions where a card runs the kernels; each launch adds one to its count
-(launch_counts()).
+budget; the leaf keeps the Int4Plan. Each launch follows `out_plan` (K5's
+C splits and column tiles) or `contract_plan` (K6's blocks and staged
+pieces of x): functions of the shapes and the SM count only. A product
+then only counts its activation rows (`einsum_int4_or_reason`): up to 64
+run the planned kernel, more (prefill) take the dequant path with
+`rows:prefill-m`, as in the JAX package. A leaf whose plan declines takes
+the dequant path on the CPU, with the reason; on a CUDA tensor it raises,
+and the engine refuses such a leaf when it is built. ROUNDTABLE_INT4_MM=0,
+read when a leaf is planned, declines every leaf (`kernel-disabled`). The
+CPU runs the plain versions where a card runs the kernels; each launch
+adds one to its count (launch_counts()).
 
 Under a tensor-parallel mesh (engine/sharding.py Mesh) `einsum_int4_spmd`
 (K10e, the counterpart of the TPU package's einsum_int4_spmd) runs the same
@@ -133,9 +136,9 @@ MAX_ROWS = 64
 
 # The CUDA kernels' constraints (csrc/int4mm.cu): a thread loads 16 packed
 # bytes that share one scale, so the packed width and the packed group
-# are multiples of 16; K6 stages M_TILE rows of x in shared memory.
+# are multiples of 16. K6's f32 body stages 4 rows of x in shared memory
+# as f32, so its width is bounded; the bf16 bodies stage x in pieces.
 _VEC_BYTES = 16
-_M_TILE = 4
 _SMEM_LIMIT = 227 * 1024
 
 
@@ -148,15 +151,127 @@ def _kernel_reason(mode: str, packed: int, gp: int, dtype) -> Optional[str]:
         return f"pack:group {2 * gp} not a multiple of {2 * _VEC_BYTES}"
     if packed % _VEC_BYTES:
         return f"blocks:packed width {packed} not a multiple of {_VEC_BYTES}"
-    if mode == "contract" and _contract_smem_bytes(packed) > _SMEM_LIMIT:
-        return f"smem:{_contract_smem_bytes(packed)}"
+    if mode == "contract" and dtype == torch.float32 \
+            and _f32_contract_smem_bytes(packed) > _SMEM_LIMIT:
+        return f"smem:{_f32_contract_smem_bytes(packed)}"
     return None
 
 
-def _contract_smem_bytes(cp: int) -> int:
-    """K6's staged x: M_TILE rows of 2*cp values as f32, each 32-value
+def _f32_contract_smem_bytes(cp: int) -> int:
+    """K6 f32's staged x: 4 rows of 2*cp values as f32, each 32-value
     chunk padded to 36 (conflict-free float4 reads)."""
-    return 4 * _M_TILE * (cp // _VEC_BYTES) * 36
+    return 4 * 4 * (cp // _VEC_BYTES) * 36
+
+
+# --- the launch plans (shapes and the SM count only) ---
+
+# K5 bf16 (mm_pack_out_tc_kernel): a block owns 128 packed bytes (256
+# output columns) and one split of C; C is split for about four blocks per
+# SM, a split a whole number of 32-row ring stages, at least 128 rows per
+# n-tile where C allows (the splits' partial sums grow with the rows of
+# x) and at most 960 (x's split rows are staged whole: 8 * NT rows of 976
+# bf16).
+_OUT_BYTES = 128
+_OUT_STAGE_ROWS = 32
+_OUT_MIN_ROWS = 128
+_OUT_MAX_ROWS = 960
+_OUT_BLOCKS_PER_SM = 4
+# K5 f32 (mm_pack_out_kernel): 512-byte column tiles, splits of 64 to 1024
+# rows, a multiple of 8.
+_F32_OUT_BYTES = 512
+_F32_MAX_ROWS = 1024
+# K6 bf16 (mm_pack_contract_tc_kernel): 8 warps of 16 vocab rows a block,
+# at most two blocks per SM; x staged in pieces of E (multiples of 128)
+# whose 8 * NT rows fit 64 KB. K6 f32: 8 warps of one vocab row, at most
+# four blocks per SM.
+_CON_WARPS = 8
+_CON_X_BYTES = 64 * 1024
+
+
+def n_tiles(m: int) -> int:
+    """n-tiles of 8 rows of x a tensor-core body carries (1, 2, 4 or 8):
+    one weight read serves every row."""
+    t = -(-m // 8)
+    return 1 if t <= 1 else 2 if t <= 2 else 4 if t <= 4 else 8
+
+
+@dataclasses.dataclass(frozen=True)
+class OutPlan:
+    """K5's launch: `splits` splits of C of `rows` rows (the last one
+    shorter) by `col_tiles` column tiles of `col_bytes` packed bytes; the
+    splits' partial sums are added in split order."""
+
+    rows: int
+    splits: int
+    col_bytes: int
+    col_tiles: int
+
+    def split_ranges(self, c: int) -> list:
+        """[c_begin, c_end) of each split, in the order they are summed."""
+        return [(i * self.rows, min(c, (i + 1) * self.rows))
+                for i in range(self.splits)]
+
+    def col_ranges(self, p: int) -> list:
+        """[first, last) output column of each column tile."""
+        return [(2 * i * self.col_bytes, min(2 * p, 2 * (i + 1)
+                                             * self.col_bytes))
+                for i in range(self.col_tiles)]
+
+
+def out_plan(m: int, c: int, p: int, sms: int,
+             dtype=torch.bfloat16) -> OutPlan:
+    """K5's plan for x [m, c] and q4 [c, p] on a card of `sms` SMs: C
+    split so the grid fills the SMs (k/v_proj have few column tiles),
+    each split within its body's limits."""
+    if dtype == torch.float32:
+        tiles = -(-p // _F32_OUT_BYTES)
+        splits = max(1, min(-(-2 * sms // tiles), -(-c // 64)))
+        splits = max(splits, -(-c // _F32_MAX_ROWS))
+        rows = -(-(-(-c // splits)) // 8) * 8
+        return OutPlan(rows, -(-c // rows), _F32_OUT_BYTES, tiles)
+    tiles = -(-p // _OUT_BYTES)
+    splits = max(1, min(-(-_OUT_BLOCKS_PER_SM * sms // tiles),
+                        -(-c // (_OUT_MIN_ROWS * n_tiles(m)))))
+    rows = -(-(-(-c // splits)) // _OUT_STAGE_ROWS) * _OUT_STAGE_ROWS
+    rows = min(rows, _OUT_MAX_ROWS)
+    return OutPlan(rows, -(-c // rows), _OUT_BYTES, tiles)
+
+
+@dataclasses.dataclass(frozen=True)
+class ContractPlan:
+    """K6's launch: `blocks` blocks of `warps` warps, each warp taking the
+    vocab tiles of `tile_rows` rows at warp index + k x (blocks x warps),
+    in that order; the bf16 body stages x in pieces of `piece` contracted
+    values (0: the f32 body, which stages 4 whole rows at a time)."""
+
+    blocks: int
+    piece: int
+    warps: int = _CON_WARPS
+    tile_rows: int = 16
+
+    def piece_ranges(self, e: int) -> list:
+        """[e_begin, e_end) of each staged piece of x, in order."""
+        step = self.piece or e
+        return [(b, min(e, b + step)) for b in range(0, e, step)]
+
+    def warp_tiles(self, n: int, block: int, warp: int) -> list:
+        """First vocab row of each tile the warp computes, in order."""
+        first = (block * self.warps + warp) * self.tile_rows
+        stride = self.blocks * self.warps * self.tile_rows
+        return list(range(first, n, stride))
+
+
+def contract_plan(m: int, n: int, cp: int, sms: int,
+                  dtype=torch.bfloat16) -> ContractPlan:
+    """K6's plan for x [m, 2cp] and q4 [n, cp] on a card of `sms` SMs."""
+    if dtype == torch.float32:
+        return ContractPlan(min(-(-n // _CON_WARPS), 4 * sms), 0,
+                            tile_rows=1)
+    tiles = -(-n // 16)
+    mpad = 8 * n_tiles(m)
+    piece = min(-(-2 * cp // 128) * 128,
+                _CON_X_BYTES // (2 * mpad) // 128 * 128)
+    return ContractPlan(min(-(-tiles // _CON_WARPS), 2 * sms), piece)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -379,23 +494,28 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def out_splits(c: int, p: int, sms: int) -> int:
-    """K5's C splits: enough blocks to cover the SMs twice (k/v_proj have
-    one 512-byte column tile), each split at least 64 and at most 1024
-    rows of C (csrc/int4mm.cu stages a split's x rows in shared memory)."""
-    col_tiles = -(-p // 512)
-    splits = max(1, min(-(-2 * sms // col_tiles), -(-c // 64)))
-    return max(splits, -(-c // 1024))
+# K5 bf16's per-column-tile split counters, by (card, stream): zeroed once,
+# and the last split block of each tile resets its counter.
+_counters: dict = {}
+
+
+def _tile_counters(device, stream: int, n: int) -> torch.Tensor:
+    key = (device.index or 0, stream)
+    t = _counters.get(key)
+    if t is None or t.numel() < n:
+        t = torch.zeros(max(n, 256), dtype=torch.int32, device=device)
+        _counters[key] = t
+    return t
 
 
 def mm_pack_out(x: torch.Tensor, q4: torch.Tensor, s4: torch.Tensor,
                 gp: int) -> torch.Tensor:
     """x [M, C] . unpack(q4 [C, P], s4 [C, P/gp]) -> [M, 2P] f32 (K5).
-    C splits write their partial sums to a workspace, which a second pass
-    adds in split order, so a call's result is the same every time. The
-    splits follow this product's width: a column shard of a wider weight
-    (K10e) may split C otherwise than the whole product and then sums in
-    another order."""
+    C splits (out_plan) write their partial sums to a workspace, added in
+    split order, so a call's result is the same every time. The splits
+    follow this product's width: a column shard of a wider weight (K10e)
+    may split C otherwise than the whole product and then sums in another
+    order."""
     what = "mm_pack_out"
     _check(x, q4, s4, gp, what)
     if x.shape[1] != q4.shape[0]:
@@ -404,26 +524,31 @@ def mm_pack_out(x: torch.Tensor, q4: torch.Tensor, s4: torch.Tensor,
     if x.device.type == "cpu":
         return mm_pack_out_ref(x, q4, s4, gp)
     _cuda_operands("out", x, q4, s4, gp, what)
-    splits = out_splits(x.shape[1], q4.shape[1],
-                        _sm_count(x.device.index or 0))
-    out = _launch_pack_out(x, q4, s4, gp, splits)
+    plan = out_plan(x.shape[0], x.shape[1], q4.shape[1],
+                    _sm_count(x.device.index or 0), x.dtype)
+    out = _launch_pack_out(x, q4, s4, gp, plan.rows)
     _launches[what] += 1
     return out
 
 
 def _launch_pack_out(x: torch.Tensor, q4: torch.Tensor, s4: torch.Tensor,
-                     gp: int, splits: int) -> torch.Tensor:
-    """K5's launch on checked CUDA operands with `splits` C splits."""
+                     gp: int, rows: int) -> torch.Tensor:
+    """K5's launch on checked CUDA operands with C in splits of `rows`
+    rows."""
     m, c = x.shape
     p = q4.shape[1]
     index = x.device.index or 0
+    stream = torch.cuda.current_stream(x.device).cuda_stream
     out = torch.empty((m, 2 * p), dtype=torch.float32, device=x.device)
+    splits = -(-c // rows)
     work = (torch.empty((splits, m, 2 * p), dtype=torch.float32,
                         device=x.device) if splits > 1 else out)
+    counters = (_tile_counters(x.device, stream, -(-p // _OUT_BYTES))
+                if splits > 1 and x.dtype == torch.bfloat16 else out)
     rc = build.library("int4mm").rt_mm_pack_out(
         x.data_ptr(), q4.data_ptr(), s4.data_ptr(), out.data_ptr(),
-        work.data_ptr(), m, c, p, gp, splits, _DTYPE_CODES[x.dtype], index,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        work.data_ptr(), counters.data_ptr(), m, c, p, gp, rows,
+        _DTYPE_CODES[x.dtype], index, stream)
     build.check(rc, "mm_pack_out launch")
     return out
 
@@ -443,10 +568,11 @@ def mm_pack_contract(x: torch.Tensor, q4: torch.Tensor, s4: torch.Tensor,
     m = x.shape[0]
     n, cp = q4.shape
     index = x.device.index or 0
+    plan = contract_plan(m, n, cp, _sm_count(index), x.dtype)
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     rc = build.library("int4mm").rt_mm_pack_contract(
         x.data_ptr(), q4.data_ptr(), s4.data_ptr(), out.data_ptr(), m, n,
-        cp, gp, _DTYPE_CODES[x.dtype], index,
+        cp, gp, plan.blocks, plan.piece, _DTYPE_CODES[x.dtype], index,
         torch.cuda.current_stream(x.device).cuda_stream)
     build.check(rc, f"{what} launch")
     _launches[what] += 1
