@@ -3,8 +3,8 @@
 one NVIDIA card, in one run - to compare a change with its parent on the
 same card under the same power limit.
 
-    python3 chip_compare.py [--kernels | --attention | --k5-splits] \
-        DIR [DIR ...]
+    python3 chip_compare.py [--kernels | --attention | --k5-splits |
+                             --lora | --lora-variants] DIR [DIR ...]
 
 Each DIR is a checkout (or `git archive`) holding chip_smoke.py and
 theroundtaible_tpu_torch/. For each DIR, in the order given, a fresh
@@ -41,6 +41,22 @@ the C splits chosen for its own width and with those chosen for the whole
 weight's width, beside K5 on the whole weight: the three launches
 interleaved, each time the median of 300 CUDA-event timings of one launch
 with L2 flushed (and the medians of each half of them).
+
+With --lora each run builds the kernels and times K7 alone over one
+Llama-3-8B layer's LoRA targets at 3 decode rows of 3 personas (rank 8,
+9 slots): a tree with K7's group form makes one lora_bgmv_add call per
+input group (q/k/v, o_proj, gate/up, down_proj), an older tree one
+lora_bgmv call per target followed by the f32 add of its delta. Device ms
+per layer from CUDA graphs, warm (20 layers on the same stacks) and cold
+(48 layers' distinct stacks, 188 MB of adapter rows per replay), three
+graphs each, and the host clock around 48 eager layers ending in a
+synchronize (`eager_layer_ms`, the Python included).
+
+With --lora-variants each run builds variants of that tree's
+csrc/bgmv.cu (LORA_VARIANTS: the vectors of C per shrink lane, the B rows
+an expand lane loads before its wait, the expand's launch bounds, its
+programmatic launch) with nvcc and times each as --lora does, in the
+order given and then reversed, each checked against the plain version.
 
 Each phase's JSON line is printed as `{"run": i, "dir": DIR, ...}`; the
 last line is one JSON object `{"card": ..., "runs": [...]}` with each
@@ -171,8 +187,163 @@ def attention_device_phase(torch, kattn, cs) -> None:
             torch, q, kc, vc, rows, valid, None), flush)})
 
 
+LORA_GROUPS = [(4096, (4096, 1024, 1024)), (4096, (4096,)),
+               (4096, (14336, 14336)), (14336, (4096,))]
+# name: the text substitutions of csrc/bgmv.cu that make the variant.
+LORA_VARIANTS = {
+    "final": [],
+    "lane_vecs_1": [("kLaneVecs = 4;", "kLaneVecs = 1;")],
+    "lane_vecs_2": [("kLaneVecs = 4;", "kLaneVecs = 2;")],
+    "lane_vecs_8": [("kLaneVecs = 4;", "kLaneVecs = 8;")],
+    "prefetch_4": [("kPrefetch = 8;", "kPrefetch = 4;")],
+    "expand_default_bounds": [("__launch_bounds__(kExpandThreads, 1)",
+                               "__launch_bounds__(kExpandThreads)")],
+    "expand_not_programmatic": [("cfg.numAttrs = 1;", "cfg.numAttrs = 0;")],
+}
+
+
+def lora_layer_times(torch, klora, reps: int = 3) -> dict:
+    """K7 over one layer's targets (see --lora): warm and cold device ms
+    per layer, each graph timed `reps` times, and the eager wall per
+    layer."""
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(0)
+    ids = torch.tensor([1, 2, 3], dtype=torch.int32, device=dev)
+    xs = [torch.randn(3, c, generator=gen, device=dev).to(bf16)
+          for c, _ in LORA_GROUPS]
+    ys = [[torch.randn(3, o, generator=gen, device=dev) for o in outs]
+          for _, outs in LORA_GROUPS]
+
+    def stacks(c, o):
+        a_t = (torch.randn(9, 8, c, generator=gen, device=dev)
+               * c ** -0.5).to(bf16)
+        b_s = (torch.randn(9, 8, o, generator=gen, device=dev)
+               * 0.04).to(bf16)
+        a_t[0] = 0
+        b_s[0] = 0
+        return a_t, b_s
+
+    layers = [[[stacks(c, o) for o in outs] for c, outs in LORA_GROUPS]
+              for _ in range(48)]
+    group = hasattr(klora, "lora_bgmv_add")
+
+    def layer(st):
+        for x, g, yg in zip(xs, st, ys):
+            if group:
+                klora.lora_bgmv_add(x, g, yg, ids)
+            else:
+                for (a_t, b_s), y in zip(g, yg):
+                    klora.lora_bgmv(x, a_t, b_s, ids) + y
+
+    def graph_ms(fns, replays):
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for fn in fns:
+                fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for fn in fns:
+                fn()
+        graph.replay()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(replays):
+            graph.replay()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / (len(fns) * replays)
+
+    warm = [graph_ms([lambda: layer(layers[0])] * 20, 5)
+            for _ in range(reps)]
+    cold = [graph_ms([lambda st=st: layer(st) for st in layers], 3)
+            for _ in range(reps)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for st in layers:
+        layer(st)
+    torch.cuda.synchronize()
+    eager = (time.perf_counter() - t0) * 1e3 / len(layers)
+    return {"group_form": group, "warm_ms": warm, "cold_ms": cold,
+            "eager_layer_ms": eager}
+
+
+def lora_variants_phase(torch, cs, root: str) -> None:
+    """LORA_VARIANTS of this tree's K7, built in parallel and timed as
+    lora_layer_times in the order given and then reversed; each first
+    checked against the plain version (KERNEL_TOL) on one layer."""
+    import ctypes
+    from theroundtaible_tpu_torch.engine.kernels import build
+    from theroundtaible_tpu_torch.engine.kernels import lora as klora
+    src = (build.CSRC / "bgmv.cu").read_text()
+    out = Path(root) / "chiprun_out" / "lora_variants"
+    out.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, subs in LORA_VARIANTS.items():
+        text = src
+        for old, new in subs:
+            if old not in text:
+                raise RuntimeError(f"{name}: {old!r} not in bgmv.cu")
+            text = text.replace(old, new)
+        (out / f"{name}.cu").write_text(text)
+        cmd = [build.nvcc_path(), *build.NVCC_FLAGS, "-I", str(build.CSRC),
+               "-o", str(out / f"lib{name}.so"), str(out / f"{name}.cu")]
+        procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True)
+    libs, ptxas = {}, {}
+    for name, proc in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError(f"nvcc {name}: {log[-3000:]}")
+        ptxas[name] = cs.ptxas_summary(log)
+        lib = ctypes.CDLL(str(out / f"lib{name}.so"))
+        fn = lib.rt_bgmv_add
+        fn.argtypes, fn.restype = build._SIGNATURES["bgmv"]["rt_bgmv_add"]
+        libs[name] = lib
+    library = build.library
+
+    class Variant:
+        lib = None
+        check = staticmethod(build.check)
+
+        @classmethod
+        def library(cls, name):
+            return cls.lib if name == "bgmv" else library(name)
+
+    klora.build = Variant
+    slice_vecs = klora._SLICE_VECS
+    times = {}
+    for name in list(LORA_VARIANTS) + list(reversed(LORA_VARIANTS)):
+        Variant.lib = libs[name]
+        lane = [new for old, new in LORA_VARIANTS[name] if "kLaneVecs" in old]
+        klora._SLICE_VECS = (32 * int(lane[0].split()[-1].rstrip(";"))
+                             if lane else slice_vecs)
+        klora.plan_bgmv.cache_clear()
+        klora._workspaces.clear()
+        if name not in times:
+            dev = torch.device("cuda")
+            gen = torch.Generator(device=dev).manual_seed(1)
+            for c, outs in LORA_GROUPS:
+                x = torch.randn(3, c, generator=gen, device=dev).bfloat16()
+                st = [cs.lora_stacks(torch, gen, c, o, dev) for o in outs]
+                ids = torch.tensor([1, 2, 3], dtype=torch.int32, device=dev)
+                ys = [torch.randn(3, o, generator=gen, device=dev)
+                      for o in outs]
+                ref = [y.clone() for y in ys]
+                klora.bgmv_add_ref(x, st, ref, ids)
+                klora.lora_bgmv_add(x, st, ys, ids)
+                err = max(cs.max_err(torch, y, r)[0] for y, r in zip(ys, ref))
+                cs.check(err <= cs.KERNEL_TOL, f"{name}: {err}")
+        times.setdefault(name, []).append(lora_layer_times(torch, klora, 1))
+    cs.emit("lora_variants", ptxas=ptxas, times=times)
+
+
 def child(root: str, kernels: bool = False, splits: bool = False,
-          attention: bool = False) -> None:
+          attention: bool = False, lora: bool = False,
+          variants: bool = False) -> None:
     """One checkout's single-device phases (or, with `kernels`, its
     quant_kernels phase; with `splits`, k5_splits_phase; with `attention`,
     its kernels phase), in this process."""
@@ -198,6 +369,13 @@ def child(root: str, kernels: bool = False, splits: bool = False,
     if attention:
         cs.emit("kernels_timing", **cs.kernels_phase(torch, kattn)["timing"])
         attention_device_phase(torch, kattn, cs)
+        return
+    if lora:
+        from theroundtaible_tpu_torch.engine.kernels import lora as klora
+        cs.emit("lora_layer", **lora_layer_times(torch, klora))
+        return
+    if variants:
+        lora_variants_phase(torch, cs, root)
         return
 
     def release(engine):
@@ -232,6 +410,10 @@ def summarize(phases: list[dict]) -> dict:
         p = by.get(name, [None])[0]
         return p and {"wall_ms": p["wall_ms"], "device_ms": p["device_ms"]}
 
+    for name in ("lora_layer", "lora_variants"):
+        if name in by:
+            return {k: v for k, v in by[name][0].items()
+                    if k not in ("phase", "elapsed_s", "ptxas")}
     if "k5_splits" in by:
         return {"k5_splits": by["k5_splits"][0]["shards"]}
     if "kernels_timing" in by:
@@ -305,11 +487,14 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--child"]:
         child(sys.argv[2], kernels="--kernels" in sys.argv[3:],
               splits="--k5-splits" in sys.argv[3:],
-              attention="--attention" in sys.argv[3:])
+              attention="--attention" in sys.argv[3:],
+              lora="--lora" in sys.argv[3:],
+              variants="--lora-variants" in sys.argv[3:])
         sys.exit(0)
     args = sys.argv[1:]
     modes = [a for a in args
-             if a in ("--kernels", "--attention", "--k5-splits")]
+             if a in ("--kernels", "--attention", "--k5-splits", "--lora",
+                      "--lora-variants")]
     dirs = [a for a in args if a not in modes]
     if not dirs or len(modes) > 1:
         print(__doc__, file=sys.stderr)

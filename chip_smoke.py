@@ -117,11 +117,18 @@ Phases, each printing one JSON line; any failure exits non-zero:
              forward_paged, forward_ragged and forward_cached through the
              kernels against their plain versions, and pool-direct against
              the gather view at each decode step.
-16. lora_kernels - K7 (grouped LoRA BGMV) at Llama-3-8B's four (C, O)
-             target shapes, 3 rows of 3 personas, rank 8, 9 slots, against
-             its plain version, called twice for the same bits; CUDA-event
-             times beside the bound and the grouped einsums (two
-             torch.einsum calls, timed only) as the yardstick.
+16. lora_kernels - K7 (grouped LoRA BGMV): its group form
+             (lora_bgmv_add, y += delta in place) at one Llama-3-8B
+             layer's four input groups (q/k/v, o_proj, gate/up, down_proj)
+             for 3 rows of 3 personas, a batch with a base row and 64 rows
+             (3 personas and the base), rank 8, 9 slots, against its plain
+             version, called twice for the same bits; device times from
+             CUDA-graph replays, warm (the same stacks) and cold (distinct
+             copies of the stacks, 150 MB of adapter rows per replay, as a
+             decode step's layers read theirs), beside the bound and the
+             grouped einsums plus the add (timed only) as the yardstick;
+             then the one-target form (lora_bgmv) at the four (C, O)
+             target shapes, warm, as before.
 17. lora_round - the engine phase's config (all three knights greedy)
              plus the README's `lora:` block (rank 8, 8 slots, scale 2.0,
              seed personas `skeptic` and `optimist`) and `knight_adapters`
@@ -131,9 +138,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
              at decode on all seven targets and only prefill-sized rows on
              the grouped einsums; the mixed batch must have suppressed
              sharing. Prefill seconds, decode ms per step beside the bf16
-             rounds', and each row's greedy agreement with its adapter
+             rounds', K7 calls per decode step (one per input group and
+             layer), and each row's greedy agreement with its adapter
              served alone (reported, not checked). Then the profile phase
-             with the three personas (lora_profile).
+             with the three personas (lora_profile), and K7's device ms
+             and the f32 adds' in it beside the bf16 profile's
+             (lora_profile_kernels).
 18. lora_scheduler - the scheduler phase on the LoRA engine: alpha's
              knights under base/skeptic/optimist decode while beta's
              (optimist/skeptic/base) join through K3 with one adapter slot
@@ -185,17 +195,17 @@ then 22 and 23.
              per-shard products of Llama-3-8B on 2 ranks (q [4096,16,128],
              k/v [4096,4,128], o [16,128,4096], gate/up [4096,7168], down
              [7168,4096], the untied head [64128,4096]; 3 rows, int4
-             groups of 64) and K10f (lora_bgmv_spmd over K7) at the seven
-             targets (3 rows of 3 personas, rank 8) on each rank's half:
-             each against its plain version (KERNEL_TOL), a column
-             product against its slice of the single-device kernel's
-             output (K10f bit for bit; K10e within KERNEL_TOL, as K5
-             splits C by the shard's own width), a row product's
-             all-reduced partial sums against that output (KERNEL_TOL);
-             times per rank, one rank at
-             a time, beside the per-shard bound and the library call per
-             shard (torch.matmul on the rank's pre-dequantized weight; the
-             grouped einsums).
+             groups of 64) and K10f (lora_bgmv_add_spmd, K7's group form
+             per shard) at the four input groups (3 rows of 3 personas,
+             rank 8) on each rank's half: each against its plain version
+             (KERNEL_TOL), a column product against its slice of the
+             single-device kernel's output (K10f bit for bit; K10e within
+             KERNEL_TOL, as K5 splits C by the shard's own width), a row
+             product's all-reduced partial sums against that output
+             (KERNEL_TOL); times per rank, one rank at a time (K10f warm
+             and cold), beside the per-shard bound and the library call
+             per shard (torch.matmul on the rank's pre-dequantized weight;
+             the grouped einsums plus the add).
 25. tp_quant_int8, tp_quant_int4, tp_lora_round - the quant_int8 and
              quant_int4 configs and lora_round's (the `lora:` block and
              knight_adapters) plus `"mesh": {"data": 1, "model": 2}`, 32
@@ -390,19 +400,26 @@ def time_ms(torch, fn, reps, flush):
     return statistics.median(times)
 
 
-def graph_ms(torch, fn, calls=20, replays=5):
-    """Device time per call of a launch-bound function: `calls` calls
+def graph_ms(torch, fns, calls=20, replays=5):
+    """Device time per call of a launch-bound function: `calls` calls of
+    `fns` (or, given a list, each of its functions once, in order)
     captured in one CUDA graph, replayed `replays` times between CUDA
-    events, so the host's launch cost is left out; the inputs stay in L2
-    between calls, as the LoRA stacks do across a decode step's layers."""
+    events, so the host's launch cost is left out. One function's inputs
+    stay in L2 between its calls (warm). A decode step's LoRA stacks do
+    not: every layer has its own, ~3.9 MB for three personas at
+    Llama-3-8B width, 126 MB over 32 layers against a 50 MB L2 - so K7 and
+    K10f are also timed over a list of calls on distinct copies of their
+    stacks (cold_calls)."""
+    fns = list(fns) if isinstance(fns, (list, tuple)) else [fns] * calls
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        fn()
+        for fn in fns:
+            fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        for _ in range(calls):
+        for fn in fns:
             fn()
     graph.replay()
     torch.cuda.synchronize()
@@ -413,7 +430,22 @@ def graph_ms(torch, fn, calls=20, replays=5):
         graph.replay()
     end.record()
     end.synchronize()
-    return start.elapsed_time(end) / (calls * replays)
+    return start.elapsed_time(end) / (len(fns) * replays)
+
+
+# A cold graph walks this many bytes of distinct adapter rows per replay:
+# three times the L2, so no call finds its stacks cached.
+COLD_BYTES = 150e6
+
+
+def cold_calls(stacks, distinct_bytes, call):
+    """`call(copy)` for enough distinct copies of `stacks` (a list of (a_t,
+    b_s) pairs) that the adapter rows they read total COLD_BYTES (32 to
+    512 copies): graph_ms over the list times each call with its stacks
+    in HBM, as a decode step's layers find theirs."""
+    n = min(512, max(32, -(-int(COLD_BYTES) // int(distinct_bytes))))
+    copies = [[(a.clone(), b.clone()) for a, b in stacks] for _ in range(n)]
+    return [lambda c=c: call(c) for c in copies]
 
 
 def device_busy_us(prof):
@@ -1665,6 +1697,12 @@ def profile_phase(torch, engine, phase="profile", adapters=None):
                       for n, us in top] if device_us else [])
     for name, _ in turns:
         engine.kv.release(name)
+    return by_name
+
+
+def kernel_ms(by_name: dict, part: str) -> float:
+    """Device ms of a profile's kernels whose name holds `part`."""
+    return sum(us for name, us in by_name.items() if part in name) / 1e3
 
 
 # --- quantization phases ---
@@ -2220,33 +2258,131 @@ LORA_SHAPES = {"q_proj/o_proj": ((4096, 4096), 2),
                "gate_proj/up_proj": ((4096, 14336), 2),
                "down_proj": ((14336, 4096), 1)}
 LORA_SLOTS, LORA_RANK = 9, 8
+# K7's group form: one layer's four input groups, (C, (O_t, ...)), and the
+# rows' adapter slots of each case (3 personas; a base row; 64 rows of 3
+# personas and the base).
+LORA_GROUPS = {"q/k/v": (4096, (4096, 1024, 1024)),
+               "o_proj": (4096, (4096,)),
+               "gate/up": (4096, (14336, 14336)),
+               "down_proj": (14336, (4096,))}
+LORA_GROUP_IDS = {"3 personas": [1, 2, 3], "base row": [0, 1, 2],
+                  "64 rows": [i % 4 for i in range(64)]}
+
+
+def lora_stacks(torch, gen, c, o, dev):
+    """One target's 9-slot (a_t, b_s) at a persona's scale, slot 0 the
+    all-zero base adapter, in bf16 on the card."""
+    bf16 = torch.bfloat16
+    a_t = (torch.randn(LORA_SLOTS, LORA_RANK, c, generator=gen, device=dev)
+           * c ** -0.5).to(bf16)
+    b_s = (torch.randn(LORA_SLOTS, LORA_RANK, o, generator=gen, device=dev)
+           * 0.04).to(bf16)
+    a_t[0] = 0
+    b_s[0] = 0
+    return a_t, b_s
+
+
+def lora_group_bytes(ids, m, c, outs):
+    """(bytes, flops) one group call needs: each distinct nonzero
+    adapter's A and B rows per target, x, and every y read and written
+    once; the products of the non-base rows."""
+    distinct = len(set(ids) - {0})
+    rows = sum(1 for i in ids if i)
+    r = LORA_RANK
+    return (sum(distinct * r * (c + o) * 2 + 2 * m * o * 4 for o in outs)
+            + m * c * 2,
+            sum(2 * rows * r * (c + o) for o in outs))
+
+
+def lora_group_case(torch, klora, lora_mod, x, stacks, y0, ids, flush,
+                    distinct_bytes):
+    """One group call (lora_bgmv_add) against bgmv_add_ref (KERNEL_TOL)
+    and against itself (bit for bit), then its device times: warm
+    (graph_ms on the same stacks), cold (cold_calls), the plain version's
+    and the yardstick's (the grouped einsums plus the add, both ways);
+    `launch_ms` is one call between CUDA events after an L2 flush."""
+    def fresh():
+        return [y.clone() for y in y0]
+
+    ref = fresh()
+    klora.bgmv_add_ref(x, stacks, ref, ids)
+    out, again = fresh(), fresh()
+    klora.lora_bgmv_add(x, stacks, out, ids)
+    klora.lora_bgmv_add(x, stacks, again, ids)
+    errs = [max_err(torch, o, r) for o, r in zip(out, ref)]
+    err = max(e for e, _ in errs)
+    check(all(ok for _, ok in errs),
+          f"K7's group form disagrees with its plain version by {err}")
+    same = all(bool(torch.equal(a, b)) for a, b in zip(out, again))
+    check(same, "two identical K7 group calls differ")
+    work = fresh()
+
+    def kernel(st):
+        klora.lora_bgmv_add(x, st, work, ids)
+
+    def plain(st):
+        klora.bgmv_add_ref(x, st, work, ids)
+
+    def library(st):
+        for (a_t, b_s), y in zip(st, work):
+            y += lora_mod.grouped_bmm(x, a_t, b_s, ids)
+
+    t = {"max_abs_err": err, "repeat_bit_identical": same,
+         "ms": graph_ms(torch, lambda: kernel(stacks)),
+         "plain_ms": graph_ms(torch, lambda: plain(stacks)),
+         "library_ms": graph_ms(torch, lambda: library(stacks)),
+         "cold_ms": graph_ms(torch, cold_calls(stacks, distinct_bytes,
+                                               kernel), replays=3),
+         "library_cold_ms": graph_ms(torch, cold_calls(
+             stacks, distinct_bytes, library), replays=3),
+         "launch_ms": time_ms(torch, lambda: kernel(stacks), 50, flush)}
+    return t
 
 
 def lora_kernels_phase(torch):
-    """K7 at the four target shapes, 3 rows under 3 personas, against its
-    plain version (KERNEL_TOL), twice for the same bits; times beside the
-    bound (the distinct adapters' A and B rows, x and out) and the grouped
-    einsums of engine/lora.py (the yardstick: two torch.einsum calls).
-    Each call is far shorter than its launch, so `ms`, `plain_ms` and
-    `library_ms` are device times from CUDA-graph replays (graph_ms);
-    `launch_ms` is one call between CUDA events after an L2 flush, the
-    host's enqueue included."""
+    """K7 alone. Its group form (lora_bgmv_add, the engine's call) at one
+    layer's four input groups under three cases (3 rows of 3 personas; a
+    base row; 64 rows of 3 personas and the base), each against its plain
+    version (KERNEL_TOL) and twice for the same bits, with device times
+    from CUDA-graph replays - warm on the same stacks and cold over
+    distinct copies (cold_calls) - beside the bound (lora_group_bytes) and
+    the grouped einsums plus the add (the yardstick), timed both ways.
+    Then the one-target form (lora_bgmv, the JAX counterpart) at the four
+    target shapes, 3 rows of 3 personas, as before: against its plain
+    version, twice for the same bits, warm device times beside the
+    grouped einsums."""
     from theroundtaible_tpu_torch.engine import lora as lora_mod
     from theroundtaible_tpu_torch.engine.kernels import lora as klora
     dev, bf16 = torch.device("cuda"), torch.bfloat16
     gen = torch.Generator(device=dev).manual_seed(SEED + 5)
     flush = torch.empty(16 << 20, dtype=torch.float32, device=dev)
+    groups = {}
+    for name, (c, outs) in LORA_GROUPS.items():
+        stacks = [lora_stacks(torch, gen, c, o, dev) for o in outs]
+        for case, id_list in LORA_GROUP_IDS.items():
+            m = len(id_list)
+            ids = torch.tensor(id_list, dtype=torch.int32, device=dev)
+            x = torch.randn(m, c, generator=gen, device=dev).to(bf16)
+            y0 = [torch.randn(m, o, generator=gen, device=dev)
+                  for o in outs]
+            nbytes, flops = lora_group_bytes(id_list, m, c, outs)
+            distinct = len(set(id_list) - {0})
+            t = lora_group_case(
+                torch, klora, lora_mod, x, stacks, y0, ids, flush,
+                sum(distinct * LORA_RANK * (c + o) * 2 for o in outs))
+            t.update(c=c, o=list(outs), rows=m, adapters=distinct,
+                     base_rows=id_list.count(0), rank=LORA_RANK,
+                     bytes=nbytes, flops=flops)
+            t["bound_ms"], t["bound_by"] = bound_ms(nbytes, flops)
+            groups.setdefault(case, {})[name] = t
+            gc.collect()
+        del stacks
     ids = torch.tensor([1, 2, 3], dtype=torch.int32, device=dev)
     m, r = ids.numel(), LORA_RANK
-    out = {}
+    targets = {}
     for name, ((c, o), per_layer) in LORA_SHAPES.items():
         x = torch.randn(m, c, generator=gen, device=dev).to(bf16)
-        a_t = (torch.randn(LORA_SLOTS, r, c, generator=gen, device=dev)
-               * c ** -0.5).to(bf16)
-        b_s = (torch.randn(LORA_SLOTS, r, o, generator=gen, device=dev)
-               * 0.04).to(bf16)
-        a_t[0] = 0
-        b_s[0] = 0
+        a_t, b_s = lora_stacks(torch, gen, c, o, dev)
         fn = lambda: klora.lora_bgmv(x, a_t, b_s, ids)  # noqa: E731
         ref = lambda: klora.bgmv_ref(x, a_t, b_s, ids)  # noqa: E731
         lib = lambda: lora_mod.grouped_bmm(x, a_t, b_s, ids)  # noqa: E731
@@ -2262,15 +2398,28 @@ def lora_kernels_phase(torch):
              "ms": graph_ms(torch, fn), "plain_ms": graph_ms(torch, ref),
              "library_ms": graph_ms(torch, lib),
              "launch_ms": time_ms(torch, fn, 50, flush),
-             "plain_launch_ms": time_ms(torch, ref, 10, flush),
-             "library_launch_ms": time_ms(torch, lib, 50, flush),
              "bytes": distinct * r * (c + o) * 2 + m * c * 2 + m * o * 4,
              "flops": 2 * m * r * (c + o)}
         t["bound_ms"], t["bound_by"] = bound_ms(t["bytes"], t["flops"])
-        out[name] = t
+        targets[name] = t
         del x, a_t, b_s
-    emit("lora_kernels", tolerance=KERNEL_TOL, cases=out)
-    return out
+    layer = {case: lora_layer_total(g) for case, g in groups.items()}
+    emit("lora_kernels", tolerance=KERNEL_TOL, groups=groups, layer=layer,
+         targets=targets)
+    return {"groups": groups, "layer": layer, "targets": targets}
+
+
+LORA_TIMES = ("ms", "plain_ms", "library_ms", "cold_ms", "library_cold_ms")
+
+
+def lora_layer_total(cases):
+    """One layer's group calls summed: each time, bytes and flops, and the
+    bound of the sum."""
+    total = {k: sum(t[k] for t in cases.values())
+             for k in LORA_TIMES + ("bytes", "flops")}
+    total["bound_ms"], total["bound_by"] = bound_ms(total["bytes"],
+                                                    total["flops"])
+    return total
 
 
 def lora_round_phase(torch, reference):
@@ -2336,6 +2485,12 @@ def lora_round_phase(torch, reference):
          greedy_agreement_with_alone=agreement,
          max_memory_allocated=torch.cuda.max_memory_allocated(),
          apply_tokens=d["apply_tokens"],
+         # K7 wrapper calls per decode step of 3 rows: one per input group
+         # (q/k/v, o_proj, gate/up, down_proj) and layer, 4 x 32 = 128,
+         # where the per-target form made 7 x 32 (prefill rows take the
+         # grouped einsums).
+         lora_bgmv_per_decode_step=totals["lora_bgmv"] / max(
+             sum(stats[r]["decode_tokens"] for r in (1, 2)) / 3, 1),
          share_suppressed=d["share_suppressed"],
          lora_paths={p: sorted({(e["leaf"], e["rows"]) for e in v})
                      for p, v in paths.items()},
@@ -3193,23 +3348,26 @@ TP_INT4_SHAPES = {
     "lm_head": ("bte,ve->btv", "col", (128256, 4096), (3, 1, 4096), 0, None,
                 0),
 }
-# K10f: ((C, O), tp, the base weight's units along the sharded axis, calls
-# per layer); 3 rows of 3 personas, rank 8, 9 slots.
-TP_LORA_SHAPES = {
-    "q_proj": ((4096, 4096), "col", 32, 1),
-    "k_proj/v_proj": ((4096, 1024), "col", 8, 2),
-    "o_proj": ((4096, 4096), "row", 32, 1),
-    "gate_proj/up_proj": ((4096, 14336), "col", 14336, 2),
-    "down_proj": ((14336, 4096), "row", 14336, 1),
+# K10f's group form: (C, ((O_t, the base weight's units along the sharded
+# axis), ...), tp) of one layer's four input groups; 3 rows of 3 personas,
+# rank 8, 9 slots.
+TP_LORA_GROUPS = {
+    "q/k/v": (4096, ((4096, 32), (1024, 8), (1024, 8)), "col"),
+    "o_proj": (4096, ((4096, 32),), "row"),
+    "gate/up": (4096, ((14336, 14336), (14336, 14336)), "col"),
+    "down_proj": (14336, ((4096, 14336),), "row"),
 }
 TP_QUANT_WRAPPERS = ("einsum_int4_spmd", "lora_bgmv_spmd")
 
 
 def _layer_total(cases):
-    """One layer's calls summed: ms, plain_ms, library_ms, bytes, flops,
-    and the bound of the sum."""
+    """One layer's calls summed: ms, plain_ms, library_ms (and the cold
+    times where the cases have them), bytes, flops, and the bound of the
+    sum."""
+    keys = [k for k in LORA_TIMES + ("bytes", "flops")
+            if all(k in t for t in cases.values())]
     total = {k: sum(t[k] * t["per_layer"] for t in cases.values())
-             for k in ("ms", "plain_ms", "library_ms", "bytes", "flops")}
+             for k in keys}
     total["bound_ms"], total["bound_by"] = bound_ms(total["bytes"],
                                                     total["flops"])
     return total
@@ -3226,8 +3384,12 @@ def tp_quant_kernels_rank(torch, rank):
     rank, each rank timing alone: CUDA events after an L2 flush for K10e,
     CUDA-graph replays for K10f (as lora_kernels); the per-shard bound;
     the library call per shard: torch.matmul on the rank's weight
-    dequantized to bf16 beforehand (K10e), the two grouped einsums
-    (K10f)."""
+    dequantized to bf16 beforehand (K10e), the grouped einsums plus the
+    add (K10f). K10f runs its group form (lora_bgmv_add_spmd) at one
+    layer's four input groups: a column group's ys against their slices
+    of the one-device group call bit for bit, a row target's partial
+    (each rank adding into half the base) all-reduced against it; warm
+    and cold times (graph_ms, cold_calls)."""
     from theroundtaible_tpu_torch.engine import distributed, sharding
     from theroundtaible_tpu_torch.engine import lora as lora_mod
     from theroundtaible_tpu_torch.engine.kernels import int4mm
@@ -3306,38 +3468,64 @@ def tp_quant_kernels_rank(torch, rank):
         del local, w, w2, full, out
     ids = torch.tensor([1, 2, 3], dtype=torch.int32, device=dev)
     m, r = ids.numel(), LORA_RANK
-    for name, ((c, o), tp, units, per_layer) in TP_LORA_SHAPES.items():
+    for name, (c, members, tp) in TP_LORA_GROUPS.items():
+        outs = [o for o, _units in members]
         x = torch.randn(m, c, generator=gen, device=dev).to(bf16)
-        a_t = (torch.randn(LORA_SLOTS, r, c, generator=gen, device=dev)
-               * c ** -0.5).to(bf16)
-        b_s = (torch.randn(LORA_SLOTS, r, o, generator=gen, device=dev)
-               * 0.04).to(bf16)
-        a_t[0] = 0
-        b_s[0] = 0
-        full = klora.lora_bgmv(x, a_t, b_s, ids)
+        stacks = [lora_stacks(torch, gen, c, o, dev) for o in outs]
+        y0 = [torch.randn(m, o, generator=gen, device=dev) for o in outs]
+        full = [y.clone() for y in y0]
+        klora.lora_bgmv_add(x, stacks, full, ids)
+        kw = dict(dims=[(c, o) for o in outs], tp=tp,
+                  units=[u for _o, u in members])
+        which = [klora.spmd_dims(mesh, c, o, tp, u)[0] for o, u in members]
+        check(which == ["in" if tp == "row" else "out"] * len(members),
+              f"{name}: stacks placed {which} on {TP_MESH}")
         if tp == "row":
-            x_l, a_l, b_l = _shard(x, 1, rank), _shard(a_t, 2, rank), b_s
+            x_l = _shard(x, 1, rank)
+            local = [(_shard(a_t, 2, rank), b_s) for a_t, b_s in stacks]
+            y_l = [y / 2 for y in y0]
         else:
-            x_l, a_l, b_l = x, a_t, _shard(b_s, 2, rank)
-        kw = dict(dims=(c, o), tp=tp, units=units)
-        fn = lambda: klora.lora_bgmv_spmd(  # noqa: E731
-            mesh, x_l, a_l, b_l, ids, **kw)[0]
-        ref = lambda: klora.lora_bgmv_spmd_ref(  # noqa: E731
-            mesh, x_l, a_l, b_l, ids, **kw)[0]
-        lib = lambda: lora_mod.grouped_bmm(x_l, a_l, b_l, ids)  # noqa
-        out = fn()
-        check(out is not None, f"{name}: K10f declined on rank {rank}")
-        t = compare(name, tp, out, ref(), full, 1, exact=True)
+            x_l = x
+            local = [(a_t, _shard(b_s, 2, rank)) for a_t, b_s in stacks]
+            y_l = [_shard(y, 1, rank) for y in y0]
+        out, plain = ([y.clone() for y in y_l] for _ in range(2))
+        why = klora.lora_bgmv_add_spmd(mesh, x_l, local, out, ids, **kw)
+        check(why is None, f"{name}: K10f declined on rank {rank}: {why}")
+        klora.lora_bgmv_add_spmd_ref(mesh, x_l, local, plain, ids, **kw)
+        per = [compare(f"{name}[{n}]", tp, o, p, f, 1, exact=True)
+               for n, (o, p, f) in enumerate(zip(out, plain, full))]
+        t = {"max_abs_err": max(e["max_abs_err"] for e in per),
+             "vs_single_device": max(e["vs_single_device"] for e in per)}
+        work = [y.clone() for y in y_l]
+
+        def kernel(st, x_l=x_l, work=work, kw=kw):
+            klora.lora_bgmv_add_spmd(mesh, x_l, st, work, ids, **kw)
+
+        def ref(st, x_l=x_l, work=work, kw=kw):
+            klora.lora_bgmv_add_spmd_ref(mesh, x_l, st, work, ids, **kw)
+
+        def lib(st, x_l=x_l, work=work):
+            for (a_t, b_s), y in zip(st, work):
+                y += lora_mod.grouped_bmm(x_l, a_t, b_s, ids)
+
+        c_l = x_l.shape[1]
+        distinct = 3 * r * sum(c_l + b.shape[2] for _a, b in local) * 2
         t.update(_turns(torch, rank, lambda: {
-            "ms": graph_ms(torch, fn), "plain_ms": graph_ms(torch, ref),
-            "library_ms": graph_ms(torch, lib)}))
-        c_l, o_l = x_l.shape[1], b_l.shape[2]
-        t.update(c_o_per_rank=[c_l, o_l], tp=tp, per_layer=per_layer,
-                 bytes=3 * r * (c_l + o_l) * 2 + m * c_l * 2 + m * o_l * 4,
-                 flops=2 * m * r * (c_l + o_l))
-        t["bound_ms"], t["bound_by"] = bound_ms(t["bytes"], t["flops"])
+            "ms": graph_ms(torch, lambda: kernel(local)),
+            "plain_ms": graph_ms(torch, lambda: ref(local)),
+            "library_ms": graph_ms(torch, lambda: lib(local)),
+            "cold_ms": graph_ms(torch, cold_calls(local, distinct, kernel),
+                                replays=3),
+            "library_cold_ms": graph_ms(torch, cold_calls(
+                local, distinct, lib), replays=3)}))
+        nbytes, flops = lora_group_bytes(
+            ids.tolist(), m, c_l, [b.shape[2] for _a, b in local])
+        t.update(c_o_per_rank=[[c_l, b.shape[2]] for _a, b in local],
+                 tp=tp, per_layer=1, bytes=nbytes, flops=flops)
+        t["bound_ms"], t["bound_by"] = bound_ms(nbytes, flops)
         lora[name] = t
-        del x, a_t, b_s, full, out
+        del x, stacks, local, full, out, plain, work
+        gc.collect()
     torch.cuda.synchronize()
     layer = {k: v for k, v in int4.items() if v["per_layer"]}
     return {"einsum_int4_spmd": {"cases": int4, "layer": _layer_total(layer),
@@ -3540,7 +3728,7 @@ def main() -> int:
     qerrs, qtiming, w4 = quant_kernels_phase(torch, kattn)
 
     launches, engine, reference = engine_phase(torch, kattn)
-    profile_phase(torch, engine)
+    bf16_profile = profile_phase(torch, engine)
     path_phase(torch, engine)
     ragged_path_phase(torch, engine)
     # The scheduler path's own counts: K3 runs only there. Then the same
@@ -3595,8 +3783,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     lora_launches, engine, single["tp_lora_round"] = lora_round_phase(
         torch, reference)
-    profile_phase(torch, engine, phase="lora_profile",
-                  adapters=list(KNIGHT_ADAPTERS.values()))
+    lora_profile = profile_phase(torch, engine, phase="lora_profile",
+                                 adapters=list(KNIGHT_ADAPTERS.values()))
+    # K7's kernels, and the f32 adds of each profiled call: the bf16 call
+    # has rope's; the LoRA call's delta adds are gone into K7.
+    emit("lora_profile_kernels",
+         bgmv_ms=kernel_ms(lora_profile, "bgmv"),
+         add_f32_ms=kernel_ms(lora_profile, "CUDAFunctor_add<float>"),
+         bf16_add_f32_ms=kernel_ms(bf16_profile, "CUDAFunctor_add<float>"))
     sched = scheduler_phase(torch, kattn, engine, phase="lora_scheduler",
                             adapters=LORA_SESSIONS)
     lora_launches = {k: n + sched[k] for k, n in lora_launches.items()}
@@ -3702,20 +3896,21 @@ def main() -> int:
             "library_ms": total["library_ms"],
             "device_ms": total["device_ms"],
             "library_device_ms": total["library_device_ms"]})
-    # K7: one layer's seven calls at 3 rows of 3 personas; yardstick: the
-    # grouped einsums. Launches: the lora_round and lora_scheduler phases.
-    parts = [(t, t["per_layer"]) for t in lora_timing.values()]
-    total = {k: sum(t[k] * n for t, n in parts)
-             for k in ("ms", "plain_ms", "library_ms", "bytes", "flops")}
-    bound, by = bound_ms(total["bytes"], total["flops"])
+    # K7: one layer's four group calls at 3 rows of 3 personas, warm (`ms`)
+    # and cold; yardstick: the grouped einsums plus the add, both ways.
+    # Launches: the wrapper calls of the lora_round and lora_scheduler
+    # phases (two kernels each).
+    total = lora_timing["layer"]["3 personas"]
     rows.append({
         "name": "lora_bgmv", "route": "cuda", "source": src + "bgmv.cu",
         "replaces": "theroundtaible_tpu/engine/pallas/lora.py:133",
         "launches": lora_launches["lora_bgmv"],
-        "max_abs_err": max(t["max_abs_err"] for t, _ in parts),
-        "ms": total["ms"], "plain_ms": total["plain_ms"],
-        "bound_ms": bound, "bound_by": by,
-        "library_ms": total["library_ms"]})
+        "max_abs_err": max(
+            [t["max_abs_err"] for g in lora_timing["groups"].values()
+             for t in g.values()]
+            + [t["max_abs_err"] for t in lora_timing["targets"].values()]),
+        **{k: total[k] for k in LORA_TIMES},
+        "bound_ms": total["bound_ms"], "bound_by": total["bound_by"]})
     # K10a-d: each wrapper over its CUDA kernel on one rank's half of the
     # heads (K10a at K9's decode shape, K10b/c/d at K1/K2/K3's); the slower
     # rank's time (each rank timed alone), the per-shard bound, SDPA on
@@ -3762,6 +3957,8 @@ def main() -> int:
             "plain_ms": max(t["plain_ms"] for t in layer),
             "bound_ms": layer[0]["bound_ms"], "bound_by": layer[0]["bound_by"],
             "library_ms": max(t["library_ms"] for t in layer),
+            **{k: max(t[k] for t in layer) for k in LORA_TIMES[3:]
+               if k in layer[0]},
             "ms_per_rank": [t["ms"] for t in layer],
             **{k: v for k, v in spmd_device.get(name, {}).items()
                if k != "products"}})

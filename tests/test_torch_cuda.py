@@ -2,11 +2,11 @@
 their split-KV spans, against decode_split_ref; K3 at the edges of its
 schedule, against ragged_tile_ref, and per shard), K4 (in-kernel KV dequant
 inside K1-K3, int8 and int4 pages), K5/K6 (w4a16 decode products), K7
-(grouped LoRA BGMV), K10's attention wrappers (K10a-d) and K10e/K10f
-(K5/K6 and K7 per shard) on two gloo ranks sharing the card, and the bf16
-products with f32 results, against their plain versions
-on the card (`cuda` marker; each test skips itself where there is no
-card). The
+(grouped LoRA BGMV, one target and its in-place group form), K10's
+attention wrappers (K10a-d) and K10e/K10f (K5/K6 and K7 per shard, K7's
+group form too) on two gloo ranks sharing the card, and the bf16
+products with f32 results, against their plain versions on the card
+(`cuda` marker; each test skips itself where there is no card). The
 file imports neither jax nor the JAX package, so it runs on a machine that
 has only the port's dependencies:
 
@@ -1103,6 +1103,138 @@ def test_cuda_engine_refuses_lora_shapes_k7_declines(cuda_device,
         InferenceEngine.from_config(config, device="cuda")
 
 
+# K7's group form at Llama-3-8B's input groups: (C, (O_t, ...)).
+LORA_GROUPS = {"qkv": (4096, (4096, 1024, 1024)), "o": (4096, (4096,)),
+               "gate_up": (4096, (14336, 14336)), "down": (14336, (4096,))}
+
+
+def lora_group_operands(gen, group, rows, rank, dtype, dev, ids=None):
+    """x [rows, C], per target stacks at a persona's scale (9 slots, 4 at
+    rank 512; slot 0 zero), f32 base products y0, ids mixed with 0 and
+    repeats unless given; drawn on the card."""
+    c, outs = LORA_GROUPS[group]
+    slots = 4 if rank > 16 else 9
+    x = torch.randn(rows, c, generator=gen, device=dev).to(dtype)
+    stacks = []
+    for o in outs:
+        a_t = (torch.randn(slots, rank, c, generator=gen, device=dev)
+               * c ** -0.5).to(dtype)
+        b_s = (torch.randn(slots, rank, o, generator=gen, device=dev)
+               * 0.04).to(dtype)
+        a_t[0] = 0
+        b_s[0] = 0
+        stacks.append((a_t, b_s))
+    ys = [torch.randn(rows, o, generator=gen, device=dev) for o in outs]
+    if ids is None:
+        ids = (torch.arange(rows, device=dev) * 5 + 1) % slots
+        ids[0] = 0
+    return x, stacks, ys, ids.to(torch.int32)
+
+
+def plain_group(x, stacks, ys, ids):
+    out = [y.clone() for y in ys]
+    klora.bgmv_add_ref(x, stacks, out, ids)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("rank", [8, 16, 512])
+@pytest.mark.parametrize("rows", [1, 3, 8, 64])
+@pytest.mark.parametrize("group", sorted(LORA_GROUPS))
+def test_cuda_lora_group_matches_plain(cuda_device, group, rows, rank,
+                                       dtype, tol):
+    """K7's group form (one wrapper call, two launches) against
+    bgmv_add_ref at Llama-3-8B's four input groups: every y within the
+    tolerance of y0 plus its plain delta; base rows keep y0 bit for bit;
+    one count per call."""
+    gen = torch.Generator(device=cuda_device).manual_seed(rows + rank)
+    x, stacks, ys, ids = lora_group_operands(gen, group, rows, rank, dtype,
+                                             cuda_device)
+    ref = plain_group(x, stacks, ys, ids)
+    y0 = [y.clone() for y in ys]
+    before = klora.launch_counts()["lora_bgmv"]
+    klora.lora_bgmv_add(x, stacks, ys, ids)
+    torch.cuda.synchronize()
+    assert klora.launch_counts()["lora_bgmv"] == before + 1
+    base = ids == 0
+    for y, r, y_0 in zip(ys, ref, y0):
+        torch.testing.assert_close(y, r, atol=tol, rtol=tol)
+        assert torch.equal(y[base], y_0[base])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", sorted(LORA_GROUPS))
+def test_cuda_lora_group_base_rows_and_one_adapter(cuda_device, group):
+    """All-base rows leave every y untouched (bit for bit); 64 rows of one
+    shared adapter (one read of its A per block, 64 rows' dots) match the
+    plain version."""
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    zeros = torch.zeros(8, dtype=torch.int32, device=cuda_device)
+    x, stacks, ys, ids = lora_group_operands(
+        gen, group, 8, 8, torch.bfloat16, cuda_device, ids=zeros)
+    y0 = [y.clone() for y in ys]
+    klora.lora_bgmv_add(x, stacks, ys, ids)
+    torch.cuda.synchronize()
+    assert all(torch.equal(y, y_0) for y, y_0 in zip(ys, y0))
+    shared = torch.full((64,), 3, dtype=torch.int32, device=cuda_device)
+    x, stacks, ys, ids = lora_group_operands(
+        gen, group, 64, 8, torch.bfloat16, cuda_device, ids=shared)
+    ref = plain_group(x, stacks, ys, ids)
+    klora.lora_bgmv_add(x, stacks, ys, ids)
+    for y, r in zip(ys, ref):
+        torch.testing.assert_close(y, r, atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [3, 64])
+@pytest.mark.parametrize("group", sorted(LORA_GROUPS))
+def test_cuda_lora_group_is_bit_identical_across_calls(cuda_device, group,
+                                                       rows):
+    """The splits of xa meet in one fixed order (tickets, no float
+    atomics): repeat calls from the same y0 give the same bits, and the
+    one-target lora_bgmv plus y0 equals the group's y bit for bit."""
+    gen = torch.Generator(device=cuda_device).manual_seed(43)
+    x, stacks, ys, ids = lora_group_operands(gen, group, rows, 8,
+                                             torch.bfloat16, cuda_device)
+    first = [y.clone() for y in ys]
+    klora.lora_bgmv_add(x, stacks, first, ids)
+    for _ in range(3):
+        again = [y.clone() for y in ys]
+        klora.lora_bgmv_add(x, stacks, again, ids)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+    for (a_t, b_s), y, y_0 in zip(stacks, first, ys):
+        assert torch.equal(y, y_0 + klora.lora_bgmv(x, a_t, b_s, ids))
+
+
+@pytest.mark.cuda
+def test_cuda_lora_group_refuses_what_it_cannot_serve(cuda_device):
+    """On CUDA tensors the group wrapper launches or raises: prefill rows,
+    a non-f32, non-contiguous or overlapping y, a dtype mix, and a
+    misaligned width."""
+    gen = torch.Generator(device=cuda_device).manual_seed(44)
+    x, stacks, ys, ids = lora_group_operands(gen, "qkv", 65, 8,
+                                             torch.bfloat16, cuda_device)
+    with pytest.raises(ValueError, match="rows:prefill-m"):
+        klora.lora_bgmv_add(x, stacks, ys, ids)
+    x, ys, ids = x[:3], [y[:3].contiguous() for y in ys], ids[:3]
+    for match, bad in (
+            ("float32", [ys[0].bfloat16(), ys[1], ys[2]]),
+            ("contiguous", [ys[0], ys[1], torch.zeros(
+                1024, 3, device=cuda_device).t()]),
+            ("overlaps", [ys[0], ys[0].view(-1)[:3072].view(3, 1024),
+                          ys[2]])):
+        with pytest.raises(ValueError, match=match):
+            klora.lora_bgmv_add(x, stacks, bad, ids)
+    with pytest.raises(ValueError, match="dtype"):
+        klora.lora_bgmv_add(x, [(stacks[0][0].float(), stacks[0][1])],
+                            ys[:1], ids)
+    a_t, b_s = stacks[1]
+    with pytest.raises(ValueError, match="dims:out-misaligned"):
+        klora.lora_bgmv_add(x, [(a_t, b_s[:, :, :100].contiguous())],
+                            [torch.zeros(3, 100, device=cuda_device)], ids)
+
+
 # --- the weight products' f32 results (models/common._mm_f32) ---
 
 
@@ -1337,6 +1469,9 @@ def _quant_spmd_rank(rank):
                * c ** -0.5).to(bf16)
         b_s = (torch.randn(4, 8, o, generator=gen, device=dev)
                * 0.05).to(bf16)
+        # Slot 0 is the base adapter, all zeros (K7 skips its rows).
+        a_t[0] = 0
+        b_s[0] = 0
         full = klora.lora_bgmv(x, a_t, b_s, ids)
         if tp == "col":
             args = (x, a_t, shard(b_s, 2), ids)
@@ -1346,6 +1481,35 @@ def _quant_spmd_rank(rank):
         out, _ = klora.lora_bgmv_spmd(mesh, *args, **kw)
         plain, _ = klora.lora_bgmv_spmd_ref(mesh, *args, **kw)
         record(name, tp, out, plain, full, 1, exact=True)
+    # The group form on a q/k/v column group (k/v's one kv head unsplit):
+    # each y against its slice of the one-device group call, bit for bit.
+    c, outs, units = 1024, (2048, 256, 256), (16, 1, 1)
+    x = torch.randn(3, c, generator=gen, device=dev).to(bf16)
+    stacks = [((torch.randn(4, 8, c, generator=gen, device=dev)
+                * c ** -0.5).to(bf16),
+               (torch.randn(4, 8, o, generator=gen, device=dev)
+                * 0.05).to(bf16)) for o in outs]
+    for a_t, b_s in stacks:
+        a_t[0] = 0
+        b_s[0] = 0
+    y0 = [torch.randn(3, o, generator=gen, device=dev) for o in outs]
+    full = [y.clone() for y in y0]
+    klora.lora_bgmv_add(x, stacks, full, ids)
+    local, ys, want = [], [], []
+    for (a_t, b_s), o, u, y, f in zip(stacks, outs, units, y0, full):
+        split = klora.spmd_dims(mesh, c, o, "col", u)[0] == "out"
+        local.append((a_t, shard(b_s, 2) if split else b_s))
+        ys.append(shard(y, 1) if split else y.clone())
+        want.append(shard(f, 1) if split else f)
+    plain = [y.clone() for y in ys]
+    kw = dict(dims=[(c, o) for o in outs], tp="col", units=list(units))
+    why = klora.lora_bgmv_add_spmd(mesh, x, local, ys, ids, **kw)
+    klora.lora_bgmv_add_spmd_ref(mesh, x, local, plain, ids, **kw)
+    for n, (y, p, f) in enumerate(zip(ys, plain, want)):
+        e_plain, ok_plain = diff(y, p)
+        e_full = float((y - f).abs().max())
+        errs[f"lora_group_{n}"] = (e_plain, e_full, why is None and ok_plain
+                                   and e_full == 0.0)
     torch.cuda.synchronize()
     return errs, {**int4mm.launch_counts(), **klora.launch_counts()}
 
@@ -1354,10 +1518,10 @@ def _quant_spmd_rank(rank):
 def test_cuda_quant_spmd_wrappers_on_two_ranks(cuda_device):
     """K10e over K5/K6 and K10f over K7 on two gloo ranks sharing the card:
     within the bf16 tolerance of their plain versions, column shards equal
-    to the single-device output's slice (K10f bit for bit; K10e within the
-    tolerance, as K5 splits C by the shard's own width), row shards' sums
-    within the tolerance of it; every wrapper and kernel launched on both
-    ranks."""
+    to the single-device output's slice (K10f bit for bit, its group form
+    on a q/k/v column group too; K10e within the tolerance, as K5 splits C
+    by the shard's own width), row shards' sums within the tolerance of
+    it; every wrapper and kernel launched on both ranks."""
     from theroundtaible_tpu_torch.engine import distributed
     from theroundtaible_tpu_torch.engine.kernels import build
     build.build_all()

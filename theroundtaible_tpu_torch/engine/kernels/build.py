@@ -65,7 +65,7 @@ _SIGNATURES = {
         "rt_mm_pack_contract": ([_P] * 4 + [_I] * 8 + [_P], _I),
     },
     "bgmv": {
-        "rt_bgmv": ([_P] * 5 + [_I] * 7 + [_P], _I),
+        "rt_bgmv_add": ([_P] * 11 + [_I] * 10 + [_P, _I, _P], _I),
     },
 }
 _COMMON_SIGNATURES = {

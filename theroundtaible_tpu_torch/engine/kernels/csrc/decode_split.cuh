@@ -118,16 +118,6 @@ constexpr int kDecWarps = kDecThreads / 32;
 constexpr int kDecHeads = 4;          // query heads per O = P.V pass
 constexpr int kSplitBytes = 32768;    // bytes of K (and of V) per split
 
-// Programmatic dependent launch (sm_90): the split kernel lets the combine
-// launch early; the combine waits for the split grid's completion and
-// memory before it reads the workspace.
-__device__ __forceinline__ void griddep_launch_dependents() {
-  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
-}
-__device__ __forceinline__ void griddep_wait() {
-  asm volatile("griddepcontrol.wait;\n" ::: "memory");
-}
-
 // The split of (T, D) and the CUDA-core (f32) body's layout.
 template <typename T, int D>
 struct DecShape {

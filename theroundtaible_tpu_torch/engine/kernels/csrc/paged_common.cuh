@@ -166,6 +166,17 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// Programmatic dependent launch (sm_90): a primary kernel (K1/K9's split,
+// K7's shrink) lets its dependent (the combine, the expand) launch early;
+// the dependent waits for the primary grid's completion and memory before
+// it reads the workspace.
+__device__ __forceinline__ void griddep_launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+__device__ __forceinline__ void griddep_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
 // --- KV addressing policies of the attention bodies ---
 //
 // prefill_tc.cuh (K2/K8) and decode_split.cuh (K1/K9) each hold their math

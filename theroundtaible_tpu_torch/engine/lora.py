@@ -14,18 +14,21 @@ cost K x rank x (C + O) values per target instead of K models.
   scheduler's requests, generate calls) and eviction is LRU over
   unreferenced adapters. `lora: {quant: "int8"}` stores int8 stacks with
   per-(slot, rank-row) scales (engine/quant.quantize_lora_stack).
-- **LoraBatch / apply_current** - PyTorch runs eagerly, so where the JAX
+- **LoraBatch / apply_group** - PyTorch runs eagerly, so where the JAX
   package announces a trace-time `lora_scope`, the engine builds one
   LoraBatch per dispatch and passes it down the forward: the store (its
   stacks and per-(target, rows) routes), the adapter ids as a device
   tensor built once (per row [B] for batched programs, per token [T] for
-  the ragged flat buffer) and the engine's `lora_paths` sink. Each tagged
-  projection calls apply_current(key, x, y, lora), which flattens x to
-  [M, C], repeats the ids to one per flattened row and adds the delta in
-  f32. Routing per (target, rows): the kernel K7 (kernels/lora.py; its
-  plain version on the CPU) where the plan takes it, else the grouped
-  einsums `grouped_bmm` with the reason - prefill rows (`rows:prefill-m`)
-  and int8 stacks (`quant:int8-stack`), the JAX package's own routing.
+  the ragged flat buffer) and the engine's `lora_paths` sink. The tagged
+  projections that read one input call apply_group(keys, x, ys, lora)
+  once - q/k/v, gate/up, and o_proj and down_proj alone - which flattens
+  x to [M, C], repeats the ids to one per flattened row and adds each
+  target's delta to its f32 product. Routing per (target, rows): the
+  kernel K7 (kernels/lora.py; its plain version on the CPU) where the plan
+  takes it - one in-place call for the group's members it takes - else,
+  per target, the grouped einsums `grouped_bmm` with the reason: prefill
+  rows (`rows:prefill-m`) and int8 stacks (`quant:int8-stack`), the JAX
+  package's own routing.
 
 Sharing (correctness): K/V computed under one adapter is wrong under
 another, so a mixed-adapter batch suppresses cross-knight prefix sharing,
@@ -201,34 +204,44 @@ class LoraBatch:
         return out
 
 
-def apply_current(key: str, x: torch.Tensor, y: torch.Tensor,
-                  lora: Optional[LoraBatch]) -> torch.Tensor:
-    """`y` plus the LoRA delta of target `key` for the rows of `lora`, in
-    f32 - the tail of models/common._matmul at the tagged call sites. `y`
-    as it is without a batch, or when the store does not target `key`."""
+def apply_group(keys, x: torch.Tensor, ys, lora: Optional[LoraBatch]):
+    """`ys` - the f32 products of targets `keys`, all read from `x` - each
+    plus its LoRA delta for the rows of `lora` (a target the store does
+    not hold keeps its product). The members K7's route takes (mode "auto"
+    or "plain") share one call that adds their deltas in place
+    (LoraStore.kernel_add; their products must be contiguous); each other
+    member adds the grouped einsums' delta. Returns the products as a
+    tuple."""
+    ys = list(ys)
     if lora is None:
-        return y
+        return tuple(ys)
     store = lora.store
-    ent = store.stacked.get(key)
-    if ent is None:
-        return y
-    a, b = ent["a"], ent["b"]
-    c = (a["q"] if isinstance(a, dict) else a).shape[-1]
-    x2 = x.reshape(-1, c)
+    held = [n for n, key in enumerate(keys) if key in store.stacked]
+    if not held:
+        return tuple(ys)
+    a = store.stacked[keys[held[0]]]["a"]
+    x2 = x.reshape(-1, (a["q"] if isinstance(a, dict) else a).shape[-1])
     m = x2.shape[0]
     ids = lora.ids_for(m)
-    reason = (store.route(key, m, x2.dtype) if lora.mode != "grouped"
-              else "mode:grouped")
-    if reason is None:
-        delta = store.kernel_delta(key, x2.contiguous(), ids,
-                                   plain=lora.mode == "plain")
-        _record(lora.sink, key, m, klora.kernel_path(store.device), None)
-    else:
-        delta = grouped_bmm(x2, _dequant_stack(a, x.dtype),
-                            _dequant_stack(b, x.dtype), ids)
-        _record(lora.sink, key, m, PATH_GROUPED, reason)
-    # One kernel: the working-dtype base widens to f32 inside the add.
-    return delta.reshape(y.shape) + y
+    reasons = {n: (store.route(keys[n], m, x2.dtype)
+                   if lora.mode != "grouped" else "mode:grouped")
+               for n in held}
+    kernel = [n for n in held if reasons[n] is None]
+    if kernel:
+        store.kernel_add([keys[n] for n in kernel], x2.contiguous(),
+                         [ys[n].view(m, -1) for n in kernel], ids,
+                         plain=lora.mode == "plain")
+    path = klora.kernel_path(store.device)
+    for n in held:
+        if reasons[n] is not None:
+            ent = store.stacked[keys[n]]
+            delta = grouped_bmm(x2, _dequant_stack(ent["a"], x.dtype),
+                                _dequant_stack(ent["b"], x.dtype), ids)
+            # One kernel: the working-dtype base widens to f32 in the add.
+            ys[n] = delta.reshape(ys[n].shape) + ys[n]
+        _record(lora.sink, keys[n], m,
+                path if reasons[n] is None else PATH_GROUPED, reasons[n])
+    return tuple(ys)
 
 
 def summarize_lora_paths(dispatches: dict, device) -> dict:
@@ -346,24 +359,30 @@ class LoraStore:
             self._routes[k] = reason
         return self._routes[k]
 
-    def kernel_delta(self, key: str, x2: torch.Tensor, ids: torch.Tensor,
-                     plain: bool = False) -> torch.Tensor:
-        """The delta of target `key` for rows x2 [M, C_l] through K7 (K10f
-        under a mesh: this rank's delta slice, or its partial delta of a
-        row target), or their plain versions with `plain`. The caller has
-        routed the dispatch to the kernel (route)."""
-        a, b = self.stacked[key]["a"], self.stacked[key]["b"]
+    def kernel_add(self, keys, x2: torch.Tensor, ys, ids: torch.Tensor,
+                   plain: bool = False) -> None:
+        """ys[t] += the delta of target keys[t] for rows x2 [M, C_l], in
+        place, through one K7 group call (K10f's group form under a mesh:
+        this rank's slices of column targets, or a row target's partial),
+        or its plain version with `plain`. The targets read the same x2;
+        the caller has routed each of them to the kernel (route)."""
+        stacks = [(self.stacked[k]["a"], self.stacked[k]["b"]) for k in keys]
         if self.mesh is None:
-            fn = klora.bgmv_ref if plain else klora.lora_bgmv
-            return fn(x2, a, b, ids)
-        c, o, tp = self.dims[key]
-        fn = klora.lora_bgmv_spmd_ref if plain else klora.lora_bgmv_spmd
-        delta, reason = fn(self.mesh, x2, a, b, ids, dims=(c, o), tp=tp,
-                           units=self.units[key])
-        if delta is None:
-            raise ValueError(f"lora target {key}: K10f declines a dispatch "
-                             f"its route planned: {reason}")
-        return delta
+            fn = klora.bgmv_add_ref if plain else klora.lora_bgmv_add
+            fn(x2, stacks, ys, ids)
+            return
+        tps = {self.dims[k][2] for k in keys}
+        if len(tps) != 1:
+            raise ValueError(f"lora targets {list(keys)} mix {sorted(tps)} "
+                             f"parallel products in one group")
+        fn = (klora.lora_bgmv_add_spmd_ref if plain
+              else klora.lora_bgmv_add_spmd)
+        reason = fn(self.mesh, x2, stacks, ys, ids,
+                    dims=[self.dims[k][:2] for k in keys], tp=tps.pop(),
+                    units=[self.units[k] for k in keys])
+        if reason is not None:
+            raise ValueError(f"lora targets {list(keys)}: K10f declines a "
+                             f"dispatch their routes planned: {reason}")
 
     def decode_declines(self, dtype) -> dict[str, str]:
         """Targets whose decode dispatches K7 would not serve, with the

@@ -32,7 +32,8 @@ LoRA: the seam's call sites in `project_qkv`, `_o_proj` and `mlp` carry
 their target's name, as the JAX package's `_einsum(..., lora=key)` does
 (the head stays untagged). A forward given a LoraBatch (engine/lora.py)
 adds each row's f32 adapter delta to the f32 product there
-(lora.apply_current), through the kernel K7 or the grouped einsums, and
+(lora.apply_group: one call for q/k/v, one for gate/up, o_proj and
+down_proj each alone), through the kernel K7 or the grouped einsums, and
 the caller rounds once, as the JAX einsum does.
 
 Tensor parallelism (`mesh`, an engine/sharding.Mesh with a model axis
@@ -57,7 +58,7 @@ import torch
 import torch.nn.functional as F
 
 from ..device import resolve_device
-from ..lora import apply_current
+from ..lora import apply_group
 
 Params = dict[str, Any]
 
@@ -279,7 +280,7 @@ def _matmul(a: torch.Tensor, w, spec: str = SPEC_UP, lora=None,
     else:
         y = _dense(spec, a, w)
     if lora is not None:
-        y = apply_current(target, a, y, lora)
+        (y,) = apply_group((target,), a, (y,), lora)
     return y
 
 
@@ -361,9 +362,11 @@ def project_qkv(
     `mesh`: this rank's Mesh."""
     # f32 products; under a mesh this rank's heads (column-parallel, no
     # collective)
-    q = _matmul(x, layer["q_proj"], SPEC_QKV, lora, "q_proj", mesh)
-    k = _matmul(x, layer["k_proj"], SPEC_KV, lora, "k_proj", mesh)
-    v = _matmul(x, layer["v_proj"], SPEC_KV, lora, "v_proj", mesh)
+    q, k, v = apply_group(
+        ("q_proj", "k_proj", "v_proj"), x,
+        (_matmul(x, layer["q_proj"], SPEC_QKV, mesh=mesh),
+         _matmul(x, layer["k_proj"], SPEC_KV, mesh=mesh),
+         _matmul(x, layer["v_proj"], SPEC_KV, mesh=mesh)), lora)
     if cfg.attn_bias:  # Qwen2: linear bias applied BEFORE rotary (HF order)
         q = q + layer["q_bias"].float()
         k = k + layer["k_bias"].float()
@@ -547,8 +550,10 @@ def mlp(x: torch.Tensor, layer: Params, cfg: ModelConfig,
     if cfg.num_experts:
         raise NotImplementedError(
             "MoE (moe_mlp) is not ported yet (ROADMAP, slice 7)")
-    gate = _matmul(x, layer["gate_proj"], SPEC_UP, lora, "gate_proj", mesh)
-    up = _matmul(x, layer["up_proj"], SPEC_UP, lora, "up_proj", mesh)
+    gate, up = apply_group(
+        ("gate_proj", "up_proj"), x,
+        (_matmul(x, layer["gate_proj"], SPEC_UP, mesh=mesh),
+         _matmul(x, layer["up_proj"], SPEC_UP, mesh=mesh)), lora)
     act = (F.gelu(gate, approximate="tanh") if cfg.gelu_mlp
            else F.silu(gate))
     hidden = (act * up).to(x.dtype)
