@@ -217,6 +217,38 @@ then 22 and 23.
              run's single-device rounds of the same config, and each
              knight's greedy agreement with them (reported).
 
+Then the main path from a checkpoint, in this process again:
+
+26. checkpoint - the engine phase's model from seeded weights (paged,
+             bf16, 32 layers, every knight greedy), its tree written in HF
+             layout by hand (write_hf_checkpoint: the inverse of
+             engine/checkpoint.py's name map, 4 safetensors shards with
+             model.safetensors.index.json and config.json, no tokenizer
+             files) to a temporary directory. load_hf_checkpoint of that
+             directory alone: its leaves torch.equal to the engine's, its
+             device peak above what was allocated before it (no KV pool
+             yet) held under the tree plus one layer, and the host's
+             resident set (rss, file-backed, anonymous) sampled while it
+             runs. Then a second engine built from `checkpoint=` that
+             directory: every leaf torch.equal to the first engine's, a
+             256-token forward's logits and one round's generated tokens
+             equal bit for bit, K1 and K2 launched in that round. Write
+             seconds, load seconds (the constructor's wall), bytes read
+             (the payload of every indexed tensor), host peak RSS over the
+             process (getrusage), the constructor's device peak (KV pool
+             included).
+27. discuss  - `discuss "<topic>" --no-read-code` through cli.main on the
+             card, in a scratch git project whose .roundtable/config.json
+             seats 3 knights on one torch-llm adapter over that checkpoint
+             (the shipped example's engine settings without the mesh:
+             paged, int8 weights, 8 slots, max_seq_len 8192; each knight
+             32 new tokens; max_rounds 2). Random weights emit no consensus
+             block, so the discussion runs both rounds and escalates: rc 0,
+             the session's transcript (2 rounds x 3 turns), status,
+             discussion and metrics written, round 2 reusing tokens, K1
+             and K2 launched and no other kernel. Each round's wall,
+             prefill and reused tokens and decode ms per step.
+
 Run time: 452-624 s on an H100 80GB HBM3 at 700 W with the build (579 s
 with the device-time readings); no earlier phase was cut.
 
@@ -3674,6 +3706,397 @@ def tp_quant_phase(ranks, single):
     return totals
 
 
+# --- the main path from a checkpoint ---
+
+
+def hf_tensors(torch, params, cfg):
+    """(HF name, tensor) of a dense param tree, in the HF layout: the
+    inverse of engine/checkpoint.py's name map."""
+    e, h, k, d = cfg.embed_dim, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    yield "model.embed_tokens.weight", params["embedding"]
+    for i, layer in enumerate(params["layers"]):
+        p = f"model.layers.{i}"
+        yield f"{p}.self_attn.q_proj.weight", \
+            layer["q_proj"].reshape(e, h * d).t()
+        yield f"{p}.self_attn.k_proj.weight", \
+            layer["k_proj"].reshape(e, k * d).t()
+        yield f"{p}.self_attn.v_proj.weight", \
+            layer["v_proj"].reshape(e, k * d).t()
+        yield f"{p}.self_attn.o_proj.weight", \
+            layer["o_proj"].permute(2, 0, 1).reshape(e, h * d)
+        for name in ("q", "k", "v"):
+            if f"{name}_bias" in layer:
+                yield f"{p}.self_attn.{name}_proj.bias", \
+                    layer[f"{name}_bias"].reshape(-1)
+        for name in ("gate_proj", "up_proj", "down_proj"):
+            yield f"{p}.mlp.{name}.weight", layer[name].t()
+        yield f"{p}.input_layernorm.weight", layer["input_norm"]
+        yield f"{p}.post_attention_layernorm.weight", layer["pre_mlp_norm"]
+    yield "model.norm.weight", params["final_norm"]
+    if "lm_head" in params:
+        yield "lm_head.weight", params["lm_head"]
+
+
+_ST_DTYPES = {"torch.float32": "F32", "torch.bfloat16": "BF16",
+              "torch.float16": "F16"}
+
+
+def hf_config(cfg, dtype_name: str) -> dict:
+    """config.json of a Llama-family checkpoint of `cfg`'s shapes."""
+    return {
+        "architectures": ["LlamaForCausalLM"], "model_type": "llama",
+        "vocab_size": cfg.vocab_size, "hidden_size": cfg.embed_dim,
+        "intermediate_size": cfg.mlp_dim,
+        "num_hidden_layers": cfg.num_layers,
+        "num_attention_heads": cfg.num_heads,
+        "num_key_value_heads": cfg.num_kv_heads, "head_dim": cfg.head_dim,
+        "max_position_embeddings": cfg.max_seq_len,
+        "rms_norm_eps": cfg.norm_eps, "rope_theta": cfg.rope_theta,
+        "tie_word_embeddings": cfg.tie_embeddings, "hidden_act": "silu",
+        "attention_bias": cfg.attn_bias, "mlp_bias": False,
+        "bos_token_id": 1, "eos_token_id": 2, "torch_dtype": dtype_name}
+
+
+def write_hf_checkpoint(torch, params, cfg, out_dir, shards: int = 4) -> int:
+    """Write a dense param tree as an HF checkpoint by hand (no
+    safetensors package): `shards` safetensors files of about equal size
+    in layer order, each an 8-byte little-endian header length, the JSON
+    header padded to 8 bytes and the payload; model.safetensors.index.json
+    and config.json beside them. One tensor at a time goes to the host.
+    Returns the payload bytes written."""
+    import struct
+    out_dir = Path(out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    named = list(hf_tensors(torch, params, cfg))
+    sizes = [t.numel() * t.element_size() for _, t in named]
+    total = sum(sizes)
+    groups, acc = [[] for _ in range(shards)], 0
+    for (name, t), size in zip(named, sizes):
+        groups[min(shards - 1, acc * shards // total)].append((name, t))
+        acc += size
+    groups = [g for g in groups if g]
+    weight_map = {}
+    dtype_name = str(named[0][1].dtype).split(".")[-1]
+    for i, group in enumerate(groups):
+        fname = f"model-{i + 1:05d}-of-{len(groups):05d}.safetensors"
+        header, offset = {"__metadata__": {"format": "pt"}}, 0
+        for name, t in group:
+            n = t.numel() * t.element_size()
+            header[name] = {"dtype": _ST_DTYPES[str(t.dtype)],
+                            "shape": list(t.shape),
+                            "data_offsets": [offset, offset + n]}
+            offset += n
+            weight_map[name] = fname
+        raw = json.dumps(header).encode()
+        raw += b" " * (-len(raw) % 8)
+        with open(out_dir / fname, "wb") as fh:
+            fh.write(struct.pack("<Q", len(raw)) + raw)
+            for _, t in group:
+                host = t.detach().contiguous().cpu()
+                fh.write(host.view(torch.uint8).numpy().data)
+    (out_dir / "model.safetensors.index.json").write_text(json.dumps(
+        {"metadata": {"total_size": total}, "weight_map": weight_map},
+        indent=1))
+    (out_dir / "config.json").write_text(json.dumps(
+        hf_config(cfg, dtype_name), indent=1))
+    return total
+
+
+def tree_leaves(tree, path=""):
+    """(path, tensor) of every leaf of a param tree."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from tree_leaves(v, f"{path}.{k}" if path else k)
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from tree_leaves(v, f"{path}[{i}]")
+    else:
+        yield path, tree
+
+
+class RssSampler:
+    """The process's peak resident set while it runs, sampled every 20 ms
+    from /proc/self/statm: `rss` (resident), `shared` (resident pages
+    backed by a file or shared memory: a mapped checkpoint's pages are
+    these) and `anon` (rss - shared, the process's own allocations), each
+    peak taken on its own."""
+
+    FIELDS = ("rss", "shared", "anon")
+
+    def __init__(self):
+        self.peak = {}
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    @classmethod
+    def read(cls) -> dict:
+        import resource
+        page = resource.getpagesize()
+        _size, resident, shared = (
+            int(x) for x in Path("/proc/self/statm").read_text().split()[:3])
+        return {"rss": resident * page, "shared": shared * page,
+                "anon": (resident - shared) * page}
+
+    def _sample(self):
+        for k, v in self.read().items():
+            self.peak[k] = max(self.peak.get(k, 0), v)
+
+    def _run(self):
+        while not self._stop.is_set():
+            self._sample()
+            self._stop.wait(0.02)
+
+    def __enter__(self):
+        self._sample()
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self._sample()
+        return False
+
+
+# The checkpoint phase's model: the engine phase's, every knight greedy.
+CKPT_CONFIG = {k: v for k, v in ENGINE_CONFIG.items()
+               if k != "knight_sampling"}
+
+
+def checkpoint_phase(torch, kattn):
+    """Phase 26 (module docstring). Returns the checkpoint directory (the
+    caller removes it)."""
+    import resource
+    import shutil
+    import tempfile
+    from theroundtaible_tpu_torch.adapters.base import KnightTurn
+    from theroundtaible_tpu_torch.adapters.torch_llm import TorchLlmAdapter
+    from theroundtaible_tpu_torch.engine.checkpoint import load_hf_checkpoint
+    from theroundtaible_tpu_torch.engine.models.common import forward
+    from theroundtaible_tpu_torch.native.loader import index_safetensors
+    seeded = TorchLlmAdapter.from_config("torch-llm-seeded",
+                                         dict(CKPT_CONFIG))
+    engine = seeded._get_engine()
+    cfg = engine.cfg
+    tmp = Path(tempfile.mkdtemp(prefix="rt-ckpt-"))
+
+    def nbytes(tree):
+        return sum(t.numel() * t.element_size() for _, t in tree_leaves(tree))
+    need = nbytes(engine.params)
+    free = shutil.disk_usage(tmp).free
+    check(free > need * 1.1 + 2e9,
+          f"checkpoint: {free} bytes free in {tmp}, {need} needed")
+    ckpt = tmp / "llama-3-8b-instruct"
+    t0 = time.monotonic()
+    written = write_hf_checkpoint(torch, engine.params, cfg, ckpt)
+    write_s = time.monotonic() - t0
+    shard_files = sorted(p.name for p in ckpt.glob("*.safetensors"))
+    check(len(shard_files) == 4, f"checkpoint: shards {shard_files}")
+
+    # bytes read: the payload of every indexed tensor, each read once
+    index = index_safetensors(sorted(ckpt.glob("*.safetensors")))
+    bytes_read = sum(e.end - e.begin for e in index.values())
+    leaves = dict(tree_leaves(engine.params))
+
+    # The load alone, before any KV pool: its device peak against the tree
+    # it builds, and the host's resident set while it walks the shards.
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    rss_before = RssSampler.read()
+    with RssSampler() as rss_tree:
+        t0 = time.monotonic()
+        tree = load_hf_checkpoint(ckpt, cfg, engine.dtype, "cuda")
+        torch.cuda.synchronize()
+        tree_load_s = time.monotonic() - t0
+    rss_after_tree = RssSampler.read()
+    device_peak_load = torch.cuda.max_memory_allocated() - before
+    tree_bytes = nbytes(tree)
+    layer_bytes = max(nbytes(layer) for layer in tree["layers"])
+    check(device_peak_load <= tree_bytes + layer_bytes,
+          f"checkpoint: the load's device peak {device_peak_load} B is above "
+          f"the tree ({tree_bytes} B) plus one layer ({layer_bytes} B)")
+    got = dict(tree_leaves(tree))
+    check(got.keys() == leaves.keys(),
+          f"checkpoint: load_hf_checkpoint's leaf names differ: "
+          f"{sorted(leaves.keys() ^ got.keys())[:8]}")
+    unequal = [k for k in leaves if not torch.equal(leaves[k], got[k])]
+    check(not unequal,
+          f"checkpoint: load_hf_checkpoint's leaves differ: {unequal[:8]}")
+    del tree, got
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # The engine from `checkpoint=`: the constructor's wall (load, KV pool
+    # and tokenizer) and its device peak, pool included.
+    torch.cuda.synchronize()
+    before_engine = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    loaded = TorchLlmAdapter.from_config(
+        "torch-llm-loaded", {**CKPT_CONFIG, "checkpoint": str(ckpt)})
+    with RssSampler() as rss_engine:
+        t0 = time.monotonic()
+        engine2 = loaded._get_engine()
+        torch.cuda.synchronize()
+        load_s = time.monotonic() - t0
+    device_peak_engine = torch.cuda.max_memory_allocated() - before_engine
+    leaves2 = dict(tree_leaves(engine2.params))
+    check(leaves.keys() == leaves2.keys(),
+          f"checkpoint: leaf names differ: "
+          f"{sorted(leaves.keys() ^ leaves2.keys())[:8]}")
+    unequal = [k for k in leaves if not torch.equal(leaves[k], leaves2[k])]
+    check(not unequal, f"checkpoint: leaves differ: {unequal[:8]}")
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    tokens = torch.randint(3, cfg.vocab_size, (1, 256), generator=gen,
+                           device="cuda")
+    positions = torch.arange(256, device="cuda")[None, :]
+    valid = torch.tensor([256], dtype=torch.int32, device="cuda")
+    with torch.no_grad():
+        logits = forward(engine.params, cfg, tokens, positions, None, None,
+                         valid)[0]
+        logits2 = forward(engine2.params, cfg, tokens, positions, None,
+                          None, valid)[0]
+    check(bool(torch.isfinite(logits).all()), "checkpoint: logits")
+    check(torch.equal(logits, logits2), "checkpoint: logits differ")
+
+    prompts = knight_prompts(1)
+    turns = [KnightTurn(k, p) for k, p in prompts.items()]
+    responses = seeded.execute_round(turns, timeout_ms=600_000)
+    reset_launches()
+    responses2 = loaded.execute_round(turns, timeout_ms=600_000)
+    torch.cuda.synchronize()
+    launches = launches_now()
+    check(all(launches[k] > 0 for k in PAGED_KERNELS[:2]),
+          f"checkpoint: K1/K2 did not launch: {launches}")
+    generated = {k: engine.kv._slots[k].tokens for k in prompts}
+    generated2 = {k: engine2.kv._slots[k].tokens for k in prompts}
+    check(generated == generated2 and responses == responses2,
+          "checkpoint: the round's tokens differ")
+    emit("checkpoint", model=cfg.name, layers=cfg.num_layers,
+         shards=shard_files, bytes_written=written, write_s=write_s,
+         load_s=load_s, tree_load_s=tree_load_s, bytes_read=bytes_read,
+         host_rss_before=rss_before, host_peak_rss_load=rss_tree.peak,
+         host_rss_after_load=rss_after_tree,
+         host_peak_rss_engine=rss_engine.peak,
+         host_peak_rss_process=resource.getrusage(
+             resource.RUSAGE_SELF).ru_maxrss * 1024,
+         tree_bytes=tree_bytes, layer_bytes=layer_bytes,
+         device_peak_load=device_peak_load,
+         device_allocated_before_engine=before_engine,
+         device_peak_engine=device_peak_engine,
+         leaves=len(leaves), logits_equal=True, tokens_equal=True,
+         generated_tokens=sum(len(v) for v in generated.values()),
+         launches=launches)
+    return ckpt
+
+
+DISCUSS_TOPIC = ("Should the session store move to an append-only event "
+                 "log with periodic snapshots?")
+DISCUSS_KNIGHTS = ("Lancelot", "Gawain", "Percival")
+
+
+def discuss_config(ckpt) -> dict:
+    """The discuss phase's .roundtable/config.json: 3 knights on one
+    torch-llm adapter over `ckpt`, the shipped example's engine settings
+    (.roundtable/config.example.json, tpu-llm-claude) without the mesh."""
+    sampling = {"temperature": 0.7, "top_p": 0.95, "max_new_tokens": 32}
+    return {
+        "version": "1.0", "project": "chip-smoke", "language": "en",
+        "knights": [{"name": k, "adapter": "torch-llm",
+                     "capabilities": ["architecture"], "priority": i + 1}
+                    for i, k in enumerate(DISCUSS_KNIGHTS)],
+        "rules": {"max_rounds": 2, "consensus_threshold": 9,
+                  "timeout_per_turn_seconds": 600,
+                  "escalate_to_user_after": 3, "auto_execute": False,
+                  "parallel_rounds": True},
+        "chronicle": ".roundtable/chronicle.md",
+        "adapter_config": {"torch-llm": {
+            "model": "llama-3-8b-instruct", "checkpoint": str(ckpt),
+            "max_seq_len": 8192, "num_slots": 8, "dtype": "bfloat16",
+            "quant": "int8", "kv_layout": "paged",
+            "knight_sampling": {k: dict(sampling)
+                                for k in DISCUSS_KNIGHTS}}}}
+
+
+def discuss_phase(torch, ckpt):
+    """Phase 27 (module docstring)."""
+    import contextlib
+    import io
+    import os
+    import shutil
+    import tempfile
+    from theroundtaible_tpu_torch import cli
+    project = Path(tempfile.mkdtemp(prefix="rt-project-"))
+    if shutil.which("git"):
+        for args in (["init", "-q"], ["-c", "user.email=smoke@localhost",
+                                      "-c", "user.name=smoke", "commit",
+                                      "-q", "--allow-empty", "-m", "init"]):
+            subprocess.run(["git", *args], cwd=project, check=True,
+                           capture_output=True, timeout=60)
+    (project / ".roundtable").mkdir()
+    (project / ".roundtable" / "config.json").write_text(
+        json.dumps(discuss_config(ckpt), indent=1))
+    cwd = os.getcwd()
+    out = io.StringIO()
+    reset_launches()
+    t0 = time.monotonic()
+    try:
+        os.chdir(project)
+        with contextlib.redirect_stdout(out), \
+                contextlib.redirect_stderr(out):
+            stdin, sys.stdin = sys.stdin, io.StringIO("")
+            try:
+                rc = cli.main(["discuss", DISCUSS_TOPIC, "--no-read-code"],
+                              device="cuda")
+            finally:
+                sys.stdin = stdin
+    finally:
+        os.chdir(cwd)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = launches_now()
+    (OUT / "discuss.log").write_text(out.getvalue())
+    check(rc == 0, f"discuss: rc {rc}: {out.getvalue()[-2000:]}")
+    sessions = sorted((project / ".roundtable" / "sessions").iterdir())
+    check(len(sessions) == 1, f"discuss: sessions {sessions}")
+    session = sessions[0]
+    files = sorted(p.name for p in session.iterdir())
+    for name in ("transcript.json", "status.json", "discussion.md",
+                 "metrics.json", "topic.md"):
+        check(name in files, f"discuss: {name} not written: {files}")
+    transcript = json.loads((session / "transcript.json").read_text())
+    status = json.loads((session / "status.json").read_text())
+    metrics = json.loads((session / "metrics.json").read_text())
+    turns = sorted((e["round"], e["knight"]) for e in transcript)
+    check(turns == sorted((r, k) for r in (1, 2) for k in DISCUSS_KNIGHTS),
+          f"discuss: turns {turns}")
+    rounds = []
+    for r in metrics["rounds"]:
+        engine = [t["engine"] for t in r["turns"] if t.get("engine")]
+        check(len(engine) == 1, f"discuss: round {r['round']} engine "
+              f"stats {engine}")
+        e = engine[0]
+        rounds.append({
+            "round": r["round"], "wall_s": r["wall_s"],
+            "prefill_tokens": e["prefill_tokens"],
+            "reused_tokens": e["reused_tokens"],
+            "decode_tokens": e["decode_tokens"],
+            "decode_ms_per_step": decode_ms_per_step(e)})
+    check(len(rounds) == 2 and rounds[1]["reused_tokens"] > 0,
+          f"discuss: round 2 reused no tokens: {rounds}")
+    check(all(launches[k] > 0 for k in PAGED_KERNELS[:2]),
+          f"discuss: K1/K2 did not launch: {launches}")
+    others = {k: n for k, n in launches.items()
+              if n and k not in PAGED_KERNELS[:2]}
+    check(not others, f"discuss: other kernels launched: {others}")
+    emit("discuss", rc=rc, wall_s=wall, session=session.name, files=files,
+         phase_status=status.get("phase"), turns=len(transcript),
+         rounds=rounds, launches=launches,
+         outcome=metrics.get("outcome"))
+    shutil.rmtree(project, ignore_errors=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3824,6 +4247,20 @@ def main() -> int:
     tp_path_phase(runs[0])
     tp_launches["ragged_paged_spmd"] = tp_ragged_path_phase(runs[1])[
         "ragged_paged_spmd"]
+
+    # The main path from a checkpoint: write, load, discuss.
+    gc.collect()
+    torch.cuda.empty_cache()
+    import shutil
+    ckpt = checkpoint_phase(torch, kattn)
+    try:
+        reset_engines()
+        gc.collect()
+        torch.cuda.empty_cache()
+        discuss_phase(torch, ckpt)
+    finally:
+        reset_engines()
+        shutil.rmtree(ckpt.parent, ignore_errors=True)
 
     src = "theroundtaible_tpu_torch/engine/kernels/csrc/"
     rows = []

@@ -1606,3 +1606,136 @@ def test_cuda_launch_defaults_to_the_card(cuda_device):
     n = torch.cuda.device_count()
     ranks = distributed.launch(_device_rank, 2, "gloo", timeout_s=300)
     assert ranks == [(f"cuda:{r % n}", r % n) for r in range(2)]
+
+
+# --- checkpoint load and `discuss` on the card ---
+
+def _chip_smoke():
+    import sys
+    from pathlib import Path
+    root = str(Path(__file__).resolve().parents[1])
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    import chip_smoke
+    return chip_smoke
+
+
+# A tiny Llama whose head_dim (64) the attention kernels serve.
+def _ckpt_config(name="cuda-ckpt-llama", **kw):
+    from theroundtaible_tpu_torch.engine.models.common import ModelConfig
+    args = dict(vocab_size=512, num_layers=2, embed_dim=256, num_heads=4,
+                num_kv_heads=2, head_dim=64, mlp_dim=512, max_seq_len=4096,
+                tie_embeddings=False)
+    args.update(kw)
+    return ModelConfig(name=name, **args)
+
+
+def _write_checkpoint(cfg, path, dtype=torch.float32, seed=0):
+    """Seeded random weights of `cfg` on the CPU, written in HF layout by
+    chip_smoke.write_hf_checkpoint; returns them."""
+    from theroundtaible_tpu_torch.engine.models.common import init_params
+    params = init_params(cfg, torch.Generator().manual_seed(seed), dtype,
+                         "cpu")
+    _chip_smoke().write_hf_checkpoint(torch, params, cfg, path)
+    return params
+
+
+@pytest.mark.cuda
+def test_cuda_checkpoint_load_equals_params_from_numpy(cuda_device,
+                                                       tmp_path):
+    """A checkpoint loaded onto the card equals weights.params_from_numpy
+    of the same arrays, bit for bit, in f32 and bf16."""
+    from theroundtaible_tpu_torch.engine.checkpoint import \
+        load_hf_checkpoint
+    from theroundtaible_tpu_torch.engine.weights import params_from_numpy
+    cfg = _ckpt_config()
+    params = _write_checkpoint(cfg, tmp_path)
+    tree = {"embedding": params["embedding"].numpy(),
+            "final_norm": params["final_norm"].numpy(),
+            "lm_head": params["lm_head"].numpy(),
+            "layers": [{k: v.numpy() for k, v in layer.items()}
+                       for layer in params["layers"]]}
+    for dtype in (torch.float32, torch.bfloat16):
+        got = load_hf_checkpoint(tmp_path, cfg, dtype, cuda_device)
+        want = params_from_numpy(tree, cfg, dtype, cuda_device)
+        flat = dict(_chip_smoke().tree_leaves(got))
+        assert flat.keys() == dict(_chip_smoke().tree_leaves(want)).keys()
+        for name, leaf in _chip_smoke().tree_leaves(want):
+            assert flat[name].device.type == "cuda", name
+            assert flat[name].dtype == dtype and \
+                torch.equal(flat[name], leaf), name
+
+
+@pytest.mark.cuda
+def test_cuda_int8_load_peak_under_bf16_tree_plus_a_layer(cuda_device,
+                                                          tmp_path):
+    """Loading a bf16 checkpoint as int8 layer by layer never holds more
+    device memory than the bf16 tree plus one of its layers."""
+    import functools
+    from theroundtaible_tpu_torch.engine.checkpoint import \
+        load_hf_checkpoint
+    from theroundtaible_tpu_torch.engine.quant import quantize_leaves
+    cfg = _ckpt_config(num_layers=6, embed_dim=512, num_heads=8,
+                       num_kv_heads=2, mlp_dim=2048, vocab_size=1024)
+    params = _write_checkpoint(cfg, tmp_path, torch.bfloat16)
+    nbytes = dict((k, v.numel() * v.element_size())
+                  for k, v in _chip_smoke().tree_leaves(params))
+    tree_bytes = sum(nbytes.values())
+    layer_bytes = sum(n for k, n in nbytes.items()
+                      if k.startswith("layers[0]."))
+    quantize = functools.partial(quantize_leaves, cfg=cfg,
+                                 act_dtype=torch.bfloat16,
+                                 free_source=True, bits=8)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    got = load_hf_checkpoint(tmp_path, cfg, torch.bfloat16, cuda_device,
+                             quantize=quantize)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before
+    assert got["layers"][0]["q_proj"]["q"].dtype == torch.int8
+    assert peak < tree_bytes + layer_bytes, (peak, tree_bytes, layer_bytes)
+
+
+@pytest.mark.cuda
+def test_cuda_discuss_on_torch_llm_knights(cuda_device, tmp_path,
+                                           monkeypatch):
+    """`discuss` through cli.main on the card: three torch-llm knights on
+    one paged int8 engine built from a checkpoint run both rounds; the
+    session is written and K1 and K2 launched."""
+    import io
+    import json
+    import sys
+    from theroundtaible_tpu_torch import cli
+    from theroundtaible_tpu_torch.engine import reset_engines
+    from theroundtaible_tpu_torch.engine.models import registry
+    cfg = _ckpt_config()
+    monkeypatch.setitem(registry._REGISTRY, cfg.name, cfg)
+    _write_checkpoint(cfg, tmp_path / "ckpt", torch.bfloat16)
+    root = tmp_path / "project"
+    (root / ".roundtable").mkdir(parents=True)
+    config = _chip_smoke().discuss_config(tmp_path / "ckpt")
+    config["adapter_config"]["torch-llm"].update(
+        model=cfg.name, max_seq_len=cfg.max_seq_len)
+    (root / ".roundtable" / "config.json").write_text(json.dumps(config))
+    monkeypatch.chdir(root)
+    monkeypatch.setattr(sys, "stdin", io.StringIO(""))
+    kattn.reset_launch_counts()
+    reset_engines()
+    try:
+        rc = cli.main(["discuss", "event log or snapshots?",
+                       "--no-read-code"], device="cuda")
+    finally:
+        reset_engines()
+    assert rc == 0
+    counts = kattn.launch_counts()
+    assert counts["paged_decode_attention"] > 0
+    assert counts["paged_prefill_attention"] > 0
+    (session,) = (root / ".roundtable" / "sessions").iterdir()
+    transcript = json.loads((session / "transcript.json").read_text())
+    assert len(transcript) == 6
+    assert json.loads((session / "status.json").read_text())["phase"] == \
+        "escalated"
+    metrics = json.loads((session / "metrics.json").read_text())
+    assert [t["engine"]["reused_tokens"] > 0 for r in metrics["rounds"]
+            for t in r["turns"] if t.get("engine")][-1]

@@ -121,7 +121,7 @@ def test_describe_keys_match(engines):
     ("prefix_cache", True), ("kv_offload", True), ("spec_decode", True),
     # a data axis (TP alone is served: tests/test_torch_tp.py)
     ("mesh", {"data": 2, "model": 2}), ("seq_parallel", 2),
-    ("checkpoint", "/nonexistent"), ("dtype", "float16"),
+    ("dtype", "float16"),
     # devices beyond one card (a single index selects cuda:<i>; here the
     # caller asked for the CPU) and a DCN axis
     ("devices", [1]), ("devices", [0, 1]), ("dcn_axis", "data"),
@@ -129,6 +129,15 @@ def test_describe_keys_match(engines):
 def test_unported_options_raise(key, value):
     config = {"model": "tiny-llama", "max_seq_len": 128, key: value}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
+        InferenceEngine.from_config(config, device="cpu")
+
+
+def test_checkpoint_without_weights_raises_naming_the_dir(tmp_path):
+    """`checkpoint` is served (tests/test_torch_checkpoint.py); a
+    directory holding no weights fails construction, naming it."""
+    config = {"model": "tiny-llama", "max_seq_len": 128,
+              "checkpoint": str(tmp_path)}
+    with pytest.raises(FileNotFoundError, match=str(tmp_path)):
         InferenceEngine.from_config(config, device="cpu")
 
 

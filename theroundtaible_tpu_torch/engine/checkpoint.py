@@ -1,0 +1,311 @@
+"""Checkpoint loading: HuggingFace layouts -> the engine's param tree
+(counterpart of theroundtaible_tpu/engine/checkpoint.py).
+
+Reads safetensors shards (native/loader.py, the port's own reader: no
+`safetensors` package needed) or torch `pytorch_model*.bin` shards from a
+local directory, plus `torch.save` save/restore of the engine's own tree.
+
+HF name map (all families), as in the JAX package:
+  model.embed_tokens.weight                  -> embedding            [V, E]
+  model.layers.N.self_attn.{q,k,v}_proj      -> {q,k,v}_proj         [E, H, D]
+  model.layers.N.self_attn.{q,k,v}_proj.bias -> {q,k,v}_bias         [H, D]
+  model.layers.N.self_attn.o_proj            -> o_proj               [H, D, E]
+  model.layers.N.mlp.{gate,up,down}_proj     -> {gate,up,down}_proj
+  model.layers.N.input_layernorm             -> input_norm
+  model.layers.N.post_attention_layernorm    -> pre_mlp_norm
+  model.layers.N.pre_feedforward_layernorm   -> pre_mlp_norm  (Gemma)
+  model.layers.N.post_feedforward_layernorm  -> post_mlp_norm (Gemma)
+  model.norm.weight                          -> final_norm
+  lm_head.weight                             -> lm_head (untied only)
+Other names (rotary_emb.inv_freq, layers beyond cfg.num_layers, an
+lm_head of a tied model) are skipped, as the JAX loader skips them.
+
+Values go source dtype -> float32 -> `dtype`, as the JAX loader's
+float32 reader does, so a bf16 or f16 checkpoint gives its bits.
+
+Memory: the JAX loader assembles the whole tree on the host. Here the
+shards are indexed from their headers first, then the model is assembled
+one layer at a time through models/common.leaf_keeper - the pipeline
+init_params draws its random layers through: a whole layer is read (each
+tensor a view of its own map of the file, unmapped once copied out),
+moved to `device` and cast there, quantized whole when
+`quantize` is bound, and under a mesh cut to this rank's slices, before
+the next layer is read. No rank holds more than one whole layer beyond
+its shard, and every scale equals the one the whole leaf gives on one
+device.
+"""
+
+from __future__ import annotations
+
+import json
+import re
+from pathlib import Path
+from typing import Any, Callable, Iterator, Optional
+
+import torch
+
+from ..native.loader import SafetensorsReader, index_safetensors
+from .device import resolve_device
+from .models.common import Int4Leaf, ModelConfig, Params, leaf_keeper
+
+_MOE_ITEM = "ROADMAP, item 7e-i: MoE and float16"
+_LAYER = re.compile(r"model\.layers\.(\d+)\.(.+)")
+
+
+class _Source:
+    """name -> tensor over a checkpoint directory's shards, indexed from
+    the safetensors headers (or the lazily mapped .bin state dicts), so
+    tensors can be read in any order."""
+
+    def __init__(self, ckpt_dir: Path):
+        st_files = sorted(ckpt_dir.glob("*.safetensors"))
+        self._reader = None
+        self._state: dict[str, torch.Tensor] = {}
+        self.where: dict[str, Path] = {}
+        if st_files:
+            self._reader = SafetensorsReader(index_safetensors(st_files))
+            self.where = {n: e.path for n, e in self._reader.index.items()}
+            return
+        bin_files = sorted(ckpt_dir.glob("pytorch_model*.bin"))
+        if not bin_files:
+            raise FileNotFoundError(
+                f"No *.safetensors or pytorch_model*.bin in {ckpt_dir}")
+        for f in bin_files:
+            state = torch.load(str(f), map_location="cpu",
+                               weights_only=True, mmap=True)
+            for name, tensor in state.items():
+                self._state[name] = tensor
+                self.where[name] = f
+
+    def names(self) -> list[str]:
+        return list(self.where)
+
+    def get(self, name: str) -> torch.Tensor:
+        if self._reader is not None:
+            return self._reader.get(name)
+        return self._state[name]
+
+
+
+def _iter_hf_tensors(ckpt_dir: str | Path
+                     ) -> Iterator[tuple[str, torch.Tensor]]:
+    """(name, tensor) of every tensor of the checkpoint, in the shards'
+    order, each in its stored dtype (a view of the file where it can
+    be)."""
+    src = _Source(Path(ckpt_dir))
+    for name in src.names():
+        yield name, src.get(name)
+
+
+def _hf_shapes(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
+    """The stored HF shape of each per-layer leaf, by our name."""
+    e, h, k, d, f = (cfg.embed_dim, cfg.num_heads, cfg.num_kv_heads,
+                     cfg.head_dim, cfg.mlp_dim)
+    return {"q_proj": (h * d, e), "k_proj": (k * d, e), "v_proj": (k * d, e),
+            "o_proj": (e, h * d), "gate_proj": (f, e), "up_proj": (f, e),
+            "down_proj": (e, f), "q_bias": (h * d,), "k_bias": (k * d,),
+            "v_bias": (k * d,), "input_norm": (e,), "pre_mlp_norm": (e,),
+            "post_mlp_norm": (e,)}
+
+
+def _layer_key(rest: str) -> Optional[str]:
+    """Our leaf name for the part of an HF layer name after
+    `model.layers.N.`, or None for a name the loader skips."""
+    parts = rest.split(".")
+    if parts[0] == "self_attn" and len(parts) >= 2:
+        key = parts[1]
+        if key in ("q_proj", "k_proj", "v_proj"):
+            if len(parts) > 2 and parts[2] == "bias":
+                return key[0] + "_bias"
+            return key if parts[-1] == "weight" else None
+        if key == "o_proj" and parts[-1] == "weight":
+            return key
+        return None
+    if parts[0] == "mlp" and len(parts) >= 2:
+        if parts[1] in ("gate_proj", "up_proj", "down_proj") \
+                and parts[-1] == "weight":
+            return parts[1]
+        return None
+    return {"input_layernorm": "input_norm",
+            "post_attention_layernorm": "pre_mlp_norm",
+            "pre_feedforward_layernorm": "pre_mlp_norm",
+            "post_feedforward_layernorm": "post_mlp_norm"}.get(parts[0])
+
+
+def _plan(src: _Source, cfg: ModelConfig):
+    """Which HF tensor feeds each leaf: (top, layers) name maps. Where
+    two names feed one leaf (Gemma's post_attention_layernorm and
+    pre_feedforward_layernorm), the later in the shards' header order
+    wins, as in the JAX loader's stream."""
+    top: dict[str, str] = {}
+    layers: list[dict[str, str]] = [{} for _ in range(cfg.num_layers)]
+    for name in src.names():
+        if name == "model.embed_tokens.weight":
+            top["embedding"] = name
+        elif name == "model.norm.weight":
+            top["final_norm"] = name
+        elif name == "lm_head.weight":
+            if not cfg.tie_embeddings:
+                top["lm_head"] = name
+        else:
+            m = _LAYER.fullmatch(name)
+            if m is None:
+                continue
+            idx, rest = int(m.group(1)), m.group(2)
+            if rest.startswith("block_sparse_moe."):
+                raise NotImplementedError(
+                    f"{name} in {src.where[name]}: MoE checkpoints are not "
+                    f"ported to the PyTorch engine yet ({_MOE_ITEM})")
+            if idx >= cfg.num_layers:
+                continue
+            key = _layer_key(rest)
+            if key is not None:
+                layers[idx][key] = name
+    return top, layers
+
+
+def _validate_loaded(top: dict, layers: list[dict],
+                     cfg: ModelConfig) -> None:
+    """The JAX loader's missing-tensor report, from the names alone,
+    before anything is read."""
+    missing = []
+    if "embedding" not in top:
+        missing.append("embedding")
+    if "final_norm" not in top:
+        missing.append("final_norm")
+    if not cfg.tie_embeddings and "lm_head" not in top:
+        missing.append("lm_head")
+    required = {"q_proj", "k_proj", "v_proj", "o_proj", "input_norm",
+                "pre_mlp_norm", "gate_proj", "up_proj", "down_proj"}
+    if cfg.attn_bias:
+        required |= {"q_bias", "k_bias", "v_bias"}
+    for i, layer in enumerate(layers):
+        lacking = required - set(layer)
+        if lacking:
+            missing.append(f"layer{i}:{','.join(sorted(lacking))}")
+    if missing:
+        raise ValueError(f"Checkpoint incomplete, missing: {missing[:8]}")
+
+
+def load_hf_checkpoint(ckpt_dir: str | Path, cfg: ModelConfig,
+                       dtype=torch.bfloat16, device="cuda", mesh=None,
+                       quantize: Optional[Callable] = None) -> Params:
+    """Assemble the engine's param tree from an HF checkpoint directory,
+    one layer at a time (module docstring), on `device`: the card unless
+    the caller passes device="cpu". `quantize` (engine/quant
+    .quantize_leaves with its options bound) and `mesh` act as they do in
+    models/common.init_params. Raises ValueError on a missing tensor, a
+    tensor whose shape does not fit `cfg` (naming it and its file) or an
+    unreadable file, and NotImplementedError on a MoE config or
+    checkpoint."""
+    if cfg.num_experts:
+        raise NotImplementedError(
+            f"MoE checkpoints ({cfg.name}) are not ported to the PyTorch "
+            f"engine yet ({_MOE_ITEM})")
+    device = resolve_device(device)
+    src = _Source(Path(ckpt_dir))
+    top, layer_names = _plan(src, cfg)
+    _validate_loaded(top, layer_names, cfg)
+    keep, specs = leaf_keeper(cfg, mesh, quantize)
+    e, h, k, d = cfg.embed_dim, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    hf_shapes = _hf_shapes(cfg)
+    hf_shapes.update(embedding=(cfg.vocab_size, e),
+                     lm_head=(cfg.vocab_size, e), final_norm=(e,))
+    place: dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
+        "q_proj": lambda w: w.t().reshape(e, h, d),
+        "k_proj": lambda w: w.t().reshape(e, k, d),
+        "v_proj": lambda w: w.t().reshape(e, k, d),
+        # HF o_proj.weight is [E, H*D] (out, in); ours is [H, D, E].
+        "o_proj": lambda w: w.reshape(e, h, d).permute(1, 2, 0),
+        "gate_proj": lambda w: w.t(),
+        "up_proj": lambda w: w.t(),
+        "down_proj": lambda w: w.t(),
+        "q_bias": lambda w: w.reshape(h, d),
+        "k_bias": lambda w: w.reshape(k, d),
+        "v_bias": lambda w: w.reshape(k, d),
+    }
+    def leaf(key: str, name: str) -> torch.Tensor:
+        raw = src.get(name)
+        want = hf_shapes[key]
+        if tuple(raw.shape) != want:
+            raise ValueError(
+                f"{name} in {src.where[name]}: shape {tuple(raw.shape)} "
+                f"does not fit {cfg.name} (expected {want})")
+        # a copy on the device (never a view of the file), then source
+        # dtype -> float32 -> dtype there; a float source already in
+        # `dtype` takes that round trip as the identity it is
+        x = raw.to(device, copy=True)
+        del raw   # unmaps the tensor's pages
+        if x.dtype != dtype or not x.is_floating_point():
+            x = x.to(torch.float32).to(dtype)
+        if key in place:
+            x = place[key](x)
+        return x.contiguous()
+
+    def group(names: dict[str, str]) -> dict[str, torch.Tensor]:
+        return {key: leaf(key, name) for key, name in names.items()}
+
+    params: Params = keep(group({"embedding": top["embedding"]}), specs)
+    layers = []
+    for i, names in enumerate(layer_names):
+        layers.append(keep(group(names), specs and specs["layers"][i]))
+    params["layers"] = layers
+    params["final_norm"] = leaf("final_norm", top["final_norm"])
+    if not cfg.tie_embeddings:
+        params.update(keep(group({"lm_head": top["lm_head"]}), specs))
+    return params
+
+
+# --- the engine's own tree (orbax in the JAX package) ---
+
+
+def _to_saveable(tree):
+    if isinstance(tree, Int4Leaf):
+        return {"__int4__": True, "q4": tree.q4, "s4": tree.s4,
+                "axis": tree.axis, "group": tree.group}
+    if isinstance(tree, dict):
+        return {k: _to_saveable(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_saveable(v) for v in tree]
+    return tree
+
+
+def save_native(path: str | Path, params: Params) -> None:
+    """`torch.save` of one device's param tree (dense, int8 dicts or
+    Int4Leafs, under the same names)."""
+    torch.save(_to_saveable(params), str(path))
+
+
+def restore_native(path: str | Path, cfg: ModelConfig,
+                   device="cuda") -> Params:
+    """save_native's tree back, onto `device` (the card unless the caller
+    passes device="cpu"), each Int4Leaf planned for its call site."""
+    from .kernels.int4mm import plan_leaf
+    from .models.common import LEAF_SPECS
+    device = resolve_device(device)
+    raw = torch.load(str(path), map_location=device, weights_only=True)
+
+    def back(tree, key=None):
+        if isinstance(tree, dict) and tree.get("__int4__"):
+            return plan_leaf(LEAF_SPECS[key], Int4Leaf(
+                q4=tree["q4"], s4=tree["s4"], axis=int(tree["axis"]),
+                group=int(tree["group"])))
+        if isinstance(tree, dict):
+            return {k: back(v, k) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [back(v, key) for v in tree]
+        return tree
+
+    params = back(raw)
+    if len(params["layers"]) != cfg.num_layers:
+        raise ValueError(f"{path}: {len(params['layers'])} layers, config "
+                         f"{cfg.name} has {cfg.num_layers}")
+    return params
+
+
+def detect_config_from_hf(ckpt_dir: str | Path) -> dict[str, Any]:
+    """Read config.json from an HF checkpoint dir (for model auto-detect)."""
+    cfg_path = Path(ckpt_dir) / "config.json"
+    if not cfg_path.exists():
+        return {}
+    return json.loads(cfg_path.read_text())

@@ -1,10 +1,12 @@
 """Hierarchical time budgets, hang detection, cooperative cancellation -
 the parts of theroundtaible_tpu/engine/deadlines.py the serving path calls.
 
-- Budget tree: one `Budget` node per rung (`round -> turn -> prefill|decode
-  -> dispatch`); a child's deadline is the MIN of its parent's and its own
-  timeout, and a `CancelToken` rides the tree. Engines check it between
-  prefill chunks and decode segments.
+- Budget tree: one `Budget` node per rung (`discussion -> round -> turn ->
+  prefill|decode -> dispatch`); a child's deadline is the MIN of its
+  parent's, its own timeout and the rung's configured cap
+  (`ROUNDTABLE_RUNG_BUDGETS="dispatch:120,prefill:300"` or
+  `configure_rungs({...})`), and a `CancelToken` rides the tree. Engines
+  check it between prefill chunks and decode segments.
 - Watchdog: `watched_wait(fn, budget, rung)` runs a blocking device wait in
   a worker thread when armed (`arm_watchdog()`); a wait that outlives its
   budget raises `HangDetected` and the worker is abandoned. A late
@@ -12,12 +14,12 @@ the parts of theroundtaible_tpu/engine/deadlines.py the serving path calls.
   commit in `with commit_guard():`. Unarmed, both are a flag check.
 - Drain gate: `check_admission()` refuses new turns while DRAINING.
 
-Host-only: no torch import. Per-rung caps configured from the environment
-are not ported.
+Host-only: no torch import.
 """
 
 from __future__ import annotations
 
+import os
 import threading
 import time
 from typing import Callable, Optional
@@ -25,7 +27,12 @@ from typing import Callable, Optional
 ACTIVE = False     # watchdog armed
 DRAINING = False   # drain in progress: refuse new admissions
 
+RUNGS = ("discussion", "round", "turn", "prefill", "decode", "dispatch")
+
 _INF = float("inf")
+
+# Per-rung wall-clock caps in seconds (absent = no cap beyond the parent).
+_rung_caps: dict[str, float] = {}
 
 
 class BudgetExceeded(TimeoutError):
@@ -126,19 +133,26 @@ class Budget:
     def root(cls, timeout_s: Optional[float] = None,
              rung: str = "discussion",
              token: Optional[CancelToken] = None) -> "Budget":
-        """A tree root: `timeout_s` None means unbounded; 0 is born
-        expired."""
+        """A tree root: `timeout_s` None means unbounded (the rung cap,
+        if configured, still applies); 0 is born expired."""
         deadline = (time.monotonic() + timeout_s
                     if timeout_s is not None else _INF)
+        cap = _rung_caps.get(rung)
+        if cap:
+            deadline = min(deadline, time.monotonic() + cap)
         return cls(rung, deadline, token=token)
 
     def child(self, rung: str,
               timeout_s: Optional[float] = None) -> "Budget":
-        """Sub-budget: deadline = min(parent, own timeout), with a linked
-        CancelToken."""
+        """Sub-budget: deadline = min(parent, own timeout, rung cap), with
+        a linked CancelToken."""
         deadline = self.deadline
+        now = time.monotonic()
         if timeout_s is not None and timeout_s >= 0:
-            deadline = min(deadline, time.monotonic() + timeout_s)
+            deadline = min(deadline, now + timeout_s)
+        cap = _rung_caps.get(rung)
+        if cap:
+            deadline = min(deadline, now + cap)
         return Budget(rung, deadline, parent=self, token=self.token.child())
 
     def remaining(self) -> float:
@@ -157,6 +171,38 @@ class Budget:
             raise BudgetExceeded(
                 f"{self.rung} budget exhausted (deadline passed)",
                 rung=self.rung)
+
+
+def rung_cap(rung: str) -> Optional[float]:
+    return _rung_caps.get(rung)
+
+
+def configure_rungs(caps: dict[str, float]) -> None:
+    """Set per-rung wall-clock caps (seconds); None/0 removes a cap."""
+    for rung, cap in caps.items():
+        if rung not in RUNGS:
+            raise ValueError(f"unknown rung {rung!r} "
+                             f"(known: {', '.join(RUNGS)})")
+        if cap:
+            _rung_caps[rung] = float(cap)
+        else:
+            _rung_caps.pop(rung, None)
+
+
+def _configure_from_env() -> None:
+    """ROUNDTABLE_RUNG_BUDGETS="rung:seconds,..." parsed at import.
+    Malformed entries warn and are skipped: the knob must never itself
+    take serving down with an import-time crash."""
+    raw = os.environ.get("ROUNDTABLE_RUNG_BUDGETS", "")
+    for entry in filter(None, (p.strip() for p in raw.split(","))):
+        try:
+            rung, sec = entry.rsplit(":", 1)
+            configure_rungs({rung.strip(): float(sec)})
+        except ValueError as e:
+            import warnings
+            warnings.warn(
+                f"ignoring malformed ROUNDTABLE_RUNG_BUDGETS entry "
+                f"{entry!r}: {e}")
 
 
 # --- watchdog ---
@@ -270,3 +316,6 @@ def check_admission() -> None:
     """Raise DrainingError while draining."""
     if DRAINING:
         raise DrainingError("engine is draining: new turns are not admitted")
+
+
+_configure_from_env()

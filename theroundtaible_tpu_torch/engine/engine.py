@@ -234,12 +234,12 @@ class InferenceEngine:
         self.cfg = model_cfg
         self.max_seq_len = model_cfg.max_seq_len
         self.sampling = sampling or SamplingParams()
-        self.tokenizer = load_tokenizer(None)
+        self.tokenizer = load_tokenizer(checkpoint or None)
         self.quant = quant
         self.dtype = dtype
         self.kv_layout = kv_layout
         self.params = self._build_params(model_cfg, params, quant, dtype,
-                                         seed)
+                                         seed, checkpoint)
         # The whole model's count, as the JAX engine's sharded tree gives
         # (a rank holds a slice).
         self.num_params = (param_count(self.params) if self.mesh is None
@@ -436,13 +436,16 @@ class InferenceEngine:
                     f"of {declines} on {self.device}{hint}")
         self.lora = store
 
-    def _build_params(self, cfg, params, quant: str, dtype, seed: int):
-        """The engine's weights: `params` as given, or seeded random ones
-        quantized as `quant` says as each whole leaf is drawn (JAX engine:
-        after init, on the global arrays), under a mesh before the rank
-        keeps its slice, int4 groups aligned to the model axis. A given
-        tree must be quantized as `quant` says already (a bridged JAX
-        tree); on one device a dense one is quantized here."""
+    def _build_params(self, cfg, params, quant: str, dtype, seed: int,
+                      checkpoint: str = ""):
+        """The engine's weights: `params` as given, or those of the HF
+        checkpoint directory `checkpoint` (engine/checkpoint.py), or
+        seeded random ones - loaded or drawn one whole layer at a time and
+        quantized as `quant` says as each whole leaf arrives (JAX engine:
+        after init or load, on the global arrays), under a mesh before the
+        rank keeps its slice, int4 groups aligned to the model axis. A
+        given tree must be quantized as `quant` says already (a bridged
+        JAX tree); on one device a dense one is quantized here."""
         if params is None:
             quantize = None
             if quant != "none":
@@ -450,9 +453,16 @@ class InferenceEngine:
                     quantize_leaves, cfg=cfg, act_dtype=dtype,
                     free_source=True, bits=8 if quant == "int8" else 4,
                     model_shards=model_axis_size(self.mesh))
+            if checkpoint:
+                from .checkpoint import load_hf_checkpoint
+                return load_hf_checkpoint(checkpoint, cfg, dtype,
+                                          self.device, self.mesh,
+                                          quantize=quantize)
             gen = torch.Generator(device=self.device).manual_seed(seed)
             return init_params(cfg, gen, dtype, self.device, self.mesh,
                                quantize=quantize)
+        if checkpoint:
+            raise ValueError("pass params or checkpoint, not both")
         mode = _quant_mode(params)
         if mode == quant:
             return params
@@ -501,9 +511,6 @@ class InferenceEngine:
         for name, value in features.items():
             if value:
                 raise _not_ported(name, _FEATURES[name])
-        if checkpoint:
-            raise _not_ported("checkpoint loading",
-                              "slice 4: checkpoint load")
         if kv_layout not in ("contiguous", "paged"):
             raise ValueError(
                 f"kv_layout must be contiguous|paged, got {kv_layout!r}")

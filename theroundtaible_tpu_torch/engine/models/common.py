@@ -763,6 +763,29 @@ def gather_rows(x: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
 # --- initialization ---
 
 
+def leaf_keeper(cfg: ModelConfig, mesh=None,
+                quantize: Optional[Callable] = None):
+    """(keep, specs): `keep(tree, spec)` takes a flat dict of whole leaves
+    (a layer, or the embedding or head alone) to what this device holds of
+    them - quantized whole by `quantize` when bound (every scale the whole
+    leaf's), then under a `mesh` this rank's slices of them, copied out
+    contiguous (sharding.shard_tree); `specs` is param_specs(cfg) under a
+    mesh, else None. The one pipeline init_params and
+    engine/checkpoint.load_hf_checkpoint send each layer through."""
+    if mesh is None:
+        def keep(tree, spec):
+            return tree if quantize is None else quantize(tree)
+        return keep, None
+    from ..sharding import materialize, param_specs, shard_tree
+
+    def keep(tree, spec):
+        if quantize is not None:
+            tree = quantize(tree)
+        return {k: materialize(v)
+                for k, v in shard_tree(tree, spec, mesh).items()}
+    return keep, param_specs(cfg)
+
+
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 dtype=torch.bfloat16, device="cuda", mesh=None,
                 quantize: Optional[Callable] = None) -> Params:
@@ -779,20 +802,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     and quantize from the same generator. One whole layer is alive at a
     time. On the card unless the caller passes device="cpu"."""
     device = resolve_device(device)
-    if mesh is not None:
-        from ..sharding import materialize, param_specs, shard_tree
-        specs = param_specs(cfg)
-
-        def keep(tree, spec):
-            if quantize is not None:
-                tree = quantize(tree)
-            return {k: materialize(v)
-                    for k, v in shard_tree(tree, spec, mesh).items()}
-    else:
-        specs = None
-
-        def keep(tree, spec):
-            return tree if quantize is None else quantize(tree)
+    keep, specs = leaf_keeper(cfg, mesh, quantize)
 
     def normal(shape, scale):
         x = torch.randn(shape, generator=generator, dtype=torch.float32,
