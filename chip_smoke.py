@@ -238,19 +238,51 @@ Then the main path from a checkpoint, in this process again:
              process (getrusage), the constructor's device peak (KV pool
              included).
 27. discuss  - `discuss "<topic>" --no-read-code` through cli.main on the
-             card, in a scratch git project whose .roundtable/config.json
-             seats 3 knights on one torch-llm adapter over that checkpoint
-             (the shipped example's engine settings without the mesh:
-             paged, int8 weights, 8 slots, max_seq_len 8192; each knight
-             32 new tokens; max_rounds 2). Random weights emit no consensus
-             block, so the discussion runs both rounds and escalates: rc 0,
-             the session's transcript (2 rounds x 3 turns), status,
-             discussion and metrics written, round 2 reusing tokens, K1
-             and K2 launched and no other kernel. Each round's wall,
-             prefill and reused tokens and decode ms per step.
+             card, in a scratch git project (one tracked file, app.py)
+             whose .roundtable/config.json seats 3 knights on one
+             torch-llm adapter over that checkpoint (the shipped example's
+             engine settings without the mesh: paged, int8 weights, 8
+             slots, max_seq_len 8192; each knight 32 new tokens;
+             max_rounds 2). Random weights emit no consensus block, so the
+             discussion runs both rounds and escalates: rc 0, the
+             session's transcript (2 rounds x 3 turns), status, discussion
+             and metrics written, round 2 reusing tokens, K1 and K2
+             launched and no other kernel. Each round's wall, prefill and
+             reused tokens and decode ms per step.
+
+Then the rest of the CLI through cli.main in the same project, on the same
+resident engine (get_engine dedups it), max_rounds cut to 1. The launch
+counts are zeroed before and read after each phase, and each phase's K1-K3
+launches ride the kernels line (`cli_launches`).
+
+28. summon   - app.py changed and staged; `summon --no-read-code`: rc 0,
+             one session whose topic holds the diff preview, one round, K1
+             and K2 launched and no other kernel.
+29. serve    - `serve "<topic>" --sessions 2 --no-read-code`: two
+             concurrent discussions behind the engine's SessionScheduler:
+             rc 0, two sessions (rounds and walls from their metrics), the
+             scheduler's admitted (>= 2), max_occupancy (> 3 rows: the
+             sessions shared a batch), segments and ragged_joins; K1 and
+             K2 launched, K3's launches reported (a session joining the
+             other's decode runs it).
+30. apply    - a session written with consensus, the torch-llm Lead Knight
+             and allowed_files [app.py]; `apply --noparley`: random
+             weights emit no RTDIFF/1, so the failure path - rc is
+             FileWriteError's, the session's phase back at
+             consensus_reached, `git status --porcelain` unchanged - with
+             K1 and K2 launched.
+31. code_red - `code-red "<incident>"`, depth cut to its triage and blind
+             rounds (MAX_DIAG_ROUNDS 2; the doctors consult one after
+             another): 2 rounds x 3 doctors, no convergence, a CR-001 entry
+             in the error log; K1 and K2 launched.
+32. commands - `warmup` (batch sizes [1, 3] on the resident engine: K1 and
+             K2 launch), `status`, `list`, `chronicle`, `decrees` and
+             `manifest list`, each rc 0, the read-only ones launching
+             nothing.
 
 Run time: 452-624 s on an H100 80GB HBM3 at 700 W with the build (579 s
-with the device-time readings); no earlier phase was cut.
+with the device-time readings), 659-762 s with phases 26-27, 722.6 s with
+phases 26-32 (phases 27-32 took 38 s); no earlier phase was cut.
 
 Then a `{"kernels": [...]}` line, the nvidia-smi line, and last
 `{"ok": true, "device": {...}}`. Details go to chiprun_out/chip_smoke/.
@@ -3994,9 +4026,21 @@ def checkpoint_phase(torch, kattn):
 DISCUSS_TOPIC = ("Should the session store move to an append-only event "
                  "log with periodic snapshots?")
 DISCUSS_KNIGHTS = ("Lancelot", "Gawain", "Percival")
+SERVE_TOPIC = "Should a joining session wait for the next decode segment?"
+# Sessions sort by name (date, minute, slug): a slug starting with "w"
+# makes the apply phase's session the latest one.
+APPLY_TOPIC = "Write the session store as an append-only event log"
+CODE_RED_INCIDENT = "The session store loses the last turn after a crash"
+APP_SOURCE = ('"""The session store."""\n\nimport json\n\n\n'
+              'def save(path, turns):\n'
+              '    with open(path, "w") as fh:\n'
+              '        json.dump(turns, fh)\n\n\n'
+              'def load(path):\n'
+              '    with open(path) as fh:\n'
+              '        return json.load(fh)\n')
 
 
-def discuss_config(ckpt) -> dict:
+def discuss_config(ckpt, max_rounds: int = 2) -> dict:
     """The discuss phase's .roundtable/config.json: 3 knights on one
     torch-llm adapter over `ckpt`, the shipped example's engine settings
     (.roundtable/config.example.json, tpu-llm-claude) without the mesh."""
@@ -4006,7 +4050,7 @@ def discuss_config(ckpt) -> dict:
         "knights": [{"name": k, "adapter": "torch-llm",
                      "capabilities": ["architecture"], "priority": i + 1}
                     for i, k in enumerate(DISCUSS_KNIGHTS)],
-        "rules": {"max_rounds": 2, "consensus_threshold": 9,
+        "rules": {"max_rounds": max_rounds, "consensus_threshold": 9,
                   "timeout_per_turn_seconds": 600,
                   "escalate_to_user_after": 3, "auto_execute": False,
                   "parallel_rounds": True},
@@ -4019,24 +4063,40 @@ def discuss_config(ckpt) -> dict:
                                 for k in DISCUSS_KNIGHTS}}}}
 
 
-def discuss_phase(torch, ckpt):
-    """Phase 27 (module docstring)."""
-    import contextlib
-    import io
-    import os
-    import shutil
+def git(project, *args) -> str:
+    return subprocess.run(
+        ["git", "-c", "user.email=smoke@localhost", "-c", "user.name=smoke",
+         *args], cwd=project, check=True, capture_output=True, text=True,
+        timeout=60).stdout
+
+
+def cli_project(ckpt) -> Path:
+    """Phases 27-32's scratch git project: one tracked source file,
+    app.py, and a .roundtable/config.json seating discuss_config(ckpt).
+    The caller removes it."""
     import tempfile
-    from theroundtaible_tpu_torch import cli
     project = Path(tempfile.mkdtemp(prefix="rt-project-"))
-    if shutil.which("git"):
-        for args in (["init", "-q"], ["-c", "user.email=smoke@localhost",
-                                      "-c", "user.name=smoke", "commit",
-                                      "-q", "--allow-empty", "-m", "init"]):
-            subprocess.run(["git", *args], cwd=project, check=True,
-                           capture_output=True, timeout=60)
+    (project / "app.py").write_text(APP_SOURCE)
+    git(project, "init", "-q")
+    git(project, "add", "app.py")
+    git(project, "commit", "-q", "-m", "init")
     (project / ".roundtable").mkdir()
     (project / ".roundtable" / "config.json").write_text(
         json.dumps(discuss_config(ckpt), indent=1))
+    return project
+
+
+def run_cli(torch, project, argv, stdin=""):
+    """cli.main(argv) in `project` on the card, its output captured and
+    `stdin` scripted (an empty stdin adjourns every menu), the launch
+    counts zeroed before and read after: (rc, output, wall s, launches).
+    No outside host is reached from this script: the CLI's update check
+    (a request to PyPI) stays off."""
+    import contextlib
+    import io
+    import os
+    from theroundtaible_tpu_torch import cli
+    cli.check_for_update = lambda on_update: None
     cwd = os.getcwd()
     out = io.StringIO()
     reset_launches()
@@ -4045,20 +4105,58 @@ def discuss_phase(torch, ckpt):
         os.chdir(project)
         with contextlib.redirect_stdout(out), \
                 contextlib.redirect_stderr(out):
-            stdin, sys.stdin = sys.stdin, io.StringIO("")
+            saved, sys.stdin = sys.stdin, io.StringIO(stdin)
             try:
-                rc = cli.main(["discuss", DISCUSS_TOPIC, "--no-read-code"],
-                              device="cuda")
+                rc = cli.main(argv, device="cuda")
             finally:
-                sys.stdin = stdin
+                sys.stdin = saved
     finally:
         os.chdir(cwd)
     torch.cuda.synchronize()
-    wall = time.monotonic() - t0
-    launches = launches_now()
-    (OUT / "discuss.log").write_text(out.getvalue())
-    check(rc == 0, f"discuss: rc {rc}: {out.getvalue()[-2000:]}")
-    sessions = sorted((project / ".roundtable" / "sessions").iterdir())
+    return rc, out.getvalue(), time.monotonic() - t0, launches_now()
+
+
+def sessions_of(project) -> list:
+    sessions = project / ".roundtable" / "sessions"
+    return sorted(sessions.iterdir()) if sessions.is_dir() else []
+
+
+def session_rounds(session) -> list:
+    """Each round's wall and engine stats from a session's metrics.json
+    (one engine call per round: the knights share one adapter)."""
+    metrics = json.loads((session / "metrics.json").read_text())
+    rounds = []
+    for r in metrics["rounds"]:
+        engine = [t["engine"] for t in r["turns"] if t.get("engine")]
+        check(len(engine) == 1, f"{session.name}: round {r['round']} "
+              f"engine stats {engine}")
+        e = engine[0]
+        rounds.append({
+            "round": r["round"], "wall_s": r["wall_s"],
+            "prefill_tokens": e["prefill_tokens"],
+            "reused_tokens": e["reused_tokens"],
+            "decode_tokens": e["decode_tokens"],
+            "decode_ms_per_step": decode_ms_per_step(e)})
+    return rounds
+
+
+def require(phase, launches, required=PAGED_KERNELS[:2], allowed=()):
+    """Every `required` kernel launched; none outside `required` and
+    `allowed`."""
+    check(all(launches[k] > 0 for k in required),
+          f"{phase}: a kernel of {required} never launched: {launches}")
+    others = {k: n for k, n in launches.items()
+              if n and k not in required + tuple(allowed)}
+    check(not others, f"{phase}: other kernels launched: {others}")
+
+
+def discuss_phase(torch, project):
+    """Phase 27 (module docstring). Returns its launch counts."""
+    rc, log, wall, launches = run_cli(
+        torch, project, ["discuss", DISCUSS_TOPIC, "--no-read-code"])
+    (OUT / "discuss.log").write_text(log)
+    check(rc == 0, f"discuss: rc {rc}: {log[-2000:]}")
+    sessions = sessions_of(project)
     check(len(sessions) == 1, f"discuss: sessions {sessions}")
     session = sessions[0]
     files = sorted(p.name for p in session.iterdir())
@@ -4071,30 +4169,164 @@ def discuss_phase(torch, ckpt):
     turns = sorted((e["round"], e["knight"]) for e in transcript)
     check(turns == sorted((r, k) for r in (1, 2) for k in DISCUSS_KNIGHTS),
           f"discuss: turns {turns}")
-    rounds = []
-    for r in metrics["rounds"]:
-        engine = [t["engine"] for t in r["turns"] if t.get("engine")]
-        check(len(engine) == 1, f"discuss: round {r['round']} engine "
-              f"stats {engine}")
-        e = engine[0]
-        rounds.append({
-            "round": r["round"], "wall_s": r["wall_s"],
-            "prefill_tokens": e["prefill_tokens"],
-            "reused_tokens": e["reused_tokens"],
-            "decode_tokens": e["decode_tokens"],
-            "decode_ms_per_step": decode_ms_per_step(e)})
+    rounds = session_rounds(session)
     check(len(rounds) == 2 and rounds[1]["reused_tokens"] > 0,
           f"discuss: round 2 reused no tokens: {rounds}")
-    check(all(launches[k] > 0 for k in PAGED_KERNELS[:2]),
-          f"discuss: K1/K2 did not launch: {launches}")
-    others = {k: n for k, n in launches.items()
-              if n and k not in PAGED_KERNELS[:2]}
-    check(not others, f"discuss: other kernels launched: {others}")
+    require("discuss", launches)
     emit("discuss", rc=rc, wall_s=wall, session=session.name, files=files,
          phase_status=status.get("phase"), turns=len(transcript),
          rounds=rounds, launches=launches,
          outcome=metrics.get("outcome"))
-    shutil.rmtree(project, ignore_errors=True)
+    return launches
+
+
+def summon_phase(torch, project):
+    """Phase 28 (module docstring). Returns its launch counts."""
+    with open(project / "app.py", "a") as fh:
+        fh.write('\n\ndef append(path, turn):\n'
+                 '    with open(path, "a") as fh:\n'
+                 '        fh.write(json.dumps(turn) + "\\n")\n')
+    git(project, "add", "app.py")
+    before = set(sessions_of(project))
+    rc, log, wall, launches = run_cli(torch, project,
+                                      ["summon", "--no-read-code"])
+    (OUT / "summon.log").write_text(log)
+    check(rc == 0, f"summon: rc {rc}: {log[-2000:]}")
+    new = [s for s in sessions_of(project) if s not in before]
+    check(len(new) == 1, f"summon: new sessions {new}")
+    topic = (new[0] / "topic.md").read_text()
+    check("1 file(s) changed" in topic
+          and "Diff preview: diff --git a/app.py b/app.py" in topic
+          and "+def append(path, turn):" in topic,
+          f"summon: the topic holds no diff preview: {topic[:600]}")
+    rounds = session_rounds(new[0])
+    check(len(rounds) == 1, f"summon: rounds {rounds}")
+    require("summon", launches)
+    emit("summon", rc=rc, wall_s=wall, session=new[0].name,
+         topic_chars=len(topic), rounds=rounds, launches=launches)
+    return launches
+
+
+def serve_phase(torch, project):
+    """Phase 29 (module docstring). Returns its launch counts."""
+    from theroundtaible_tpu_torch.engine import get_engine
+    before = set(sessions_of(project))
+    rc, log, wall, launches = run_cli(
+        torch, project, ["serve", SERVE_TOPIC, "--sessions", "2",
+                         "--no-read-code"])
+    (OUT / "serve.log").write_text(log)
+    check(rc == 0, f"serve: rc {rc}: {log[-2000:]}")
+    new = [s for s in sessions_of(project) if s not in before]
+    check(len(new) == 2, f"serve: new sessions {new}")
+    sessions = [{"session": s.name, "rounds": session_rounds(s),
+                 "wall_s": sum(r["wall_s"] for r in session_rounds(s)),
+                 "phase_status": json.loads(
+                     (s / "status.json").read_text()).get("phase")}
+                for s in new]
+    config = json.loads((project / ".roundtable" / "config.json")
+                        .read_text())
+    engine = get_engine(config["adapter_config"]["torch-llm"], "cuda")
+    sched = engine._scheduler.describe()
+    check(sched["admitted"] >= 2, f"serve: admitted {sched['admitted']}")
+    check(sched["max_occupancy"] > len(DISCUSS_KNIGHTS),
+          f"serve: max occupancy {sched['max_occupancy']}: the sessions "
+          "never shared a batch")
+    require("serve", launches, allowed=PAGED_KERNELS[2:])
+    emit("serve", rc=rc, wall_s=wall, sessions=sessions,
+         admitted=sched["admitted"], completed=sched["completed"],
+         failed=sched["failed"], max_occupancy=sched["max_occupancy"],
+         segments=sched["segments"], ragged_joins=sched["ragged_joins"],
+         ragged_segments=sched["ragged_segments"],
+         k3_launches=launches["ragged_paged_attention"], launches=launches)
+    return launches
+
+
+def apply_phase(torch, project):
+    """Phase 30 (module docstring). Returns its launch counts."""
+    from theroundtaible_tpu_torch.core.errors import ExitCode
+    from theroundtaible_tpu_torch.utils import session as sessions
+    path = sessions.create_session(project, APPLY_TOPIC)
+    sessions.write_decisions(
+        path, APPLY_TOPIC, "Replace save() with an append-only event log "
+        "in app.py; load() replays it.", [])
+    sessions.update_status(path, phase="consensus_reached",
+                           consensus_reached=True,
+                           lead_knight=DISCUSS_KNIGHTS[0],
+                           allowed_files=["app.py"])
+    porcelain = git(project, "status", "--porcelain")
+    rc, log, wall, launches = run_cli(torch, project,
+                                      ["apply", "--noparley"])
+    (OUT / "apply.log").write_text(log)
+    status = json.loads((path / "status.json").read_text())
+    unchanged = git(project, "status", "--porcelain") == porcelain
+    # Random weights emit no RTDIFF/1: the Lead Knight's output does not
+    # parse, nothing is written and the session keeps its consensus.
+    check(rc == int(ExitCode.FILE_WRITE),
+          f"apply: rc {rc}, not FileWriteError's: {log[-2000:]}")
+    check("not applicable" in log, f"apply: {log[-2000:]}")
+    check(status["phase"] == "consensus_reached",
+          f"apply: the session's phase is {status['phase']}")
+    check(unchanged, "apply: the project's git status changed")
+    require("apply", launches)
+    emit("apply", rc=rc, wall_s=wall, session=path.name,
+         phase_status=status["phase"], porcelain_unchanged=unchanged,
+         error=next(line.strip() for line in log.splitlines()
+                    if "not applicable" in line)[:200], launches=launches)
+    return launches
+
+
+def code_red_phase(torch, project):
+    """Phase 31 (module docstring). Returns its launch counts."""
+    from theroundtaible_tpu_torch.commands import code_red
+    # Depth cut: the triage and the blind round, the least the command
+    # runs (the doctors consult one after another).
+    code_red.MAX_DIAG_ROUNDS = 2
+    before = set(sessions_of(project))
+    rc, log, wall, launches = run_cli(
+        torch, project, ["code-red", CODE_RED_INCIDENT])
+    (OUT / "code_red.log").write_text(log)
+    new = [s for s in sessions_of(project) if s not in before]
+    check(len(new) == 1, f"code_red: new sessions {new}")
+    import re
+    discussion = (new[0] / "discussion.md").read_text()
+    status = json.loads((new[0] / "status.json").read_text())
+    error_log = (project / ".roundtable" / "error-log.md").read_text()
+    turns = sorted((int(r), k) for r, k in re.findall(
+        r"^## Round (\d+) — (\S+)$", discussion, re.MULTILINE))
+    check(turns == sorted((r, k) for r in (1, 2) for k in DISCUSS_KNIGHTS),
+          f"code_red: turns {turns}")
+    # Random weights emit no diagnosis: no convergence, an OPEN entry.
+    check(rc in (0, 1) and "## CR-001" in error_log,
+          f"code_red: rc {rc}: {log[-2000:]}")
+    require("code_red", launches)
+    emit("code_red", rc=rc, wall_s=wall, session=new[0].name,
+         phase_status=status.get("phase"), turns=len(turns),
+         error_log_status=error_log.split("**Status:** ")[1].split()[0],
+         launches=launches)
+    return launches
+
+
+def commands_phase(torch, project):
+    """Phase 32 (module docstring). Returns the launch counts of the
+    commands that launched a kernel (warmup)."""
+    out, total = {}, dict.fromkeys(launches_now(), 0)
+    for argv in (["warmup"], ["status"], ["list"], ["chronicle"],
+                 ["decrees"], ["manifest", "list"]):
+        rc, log, wall, launches = run_cli(torch, project, argv)
+        name = " ".join(argv)
+        check(rc == 0, f"commands: {name}: rc {rc}: {log[-2000:]}")
+        if argv == ["warmup"]:
+            require("commands: warmup", launches, allowed=PAGED_KERNELS[2:])
+            check("batch sizes [1, 3]" in log, f"commands: warmup: {log}")
+        else:
+            check(not any(launches.values()),
+                  f"commands: {name} launched {launches}")
+        out[name] = {"rc": rc, "wall_s": wall, "lines": len(log.splitlines()),
+                     "launches": {k: n for k, n in launches.items() if n}}
+        for k, n in launches.items():
+            total[k] += n
+    emit("commands", commands=out)
+    return total
 
 
 def main() -> int:
@@ -4248,19 +4480,29 @@ def main() -> int:
     tp_launches["ragged_paged_spmd"] = tp_ragged_path_phase(runs[1])[
         "ragged_paged_spmd"]
 
-    # The main path from a checkpoint: write, load, discuss.
+    # The main path from a checkpoint: write, load, discuss; then the rest
+    # of the CLI on the same engine (one round each), in one project.
     gc.collect()
     torch.cuda.empty_cache()
     import shutil
     ckpt = checkpoint_phase(torch, kattn)
+    project = cli_project(ckpt)
     try:
         reset_engines()
         gc.collect()
         torch.cuda.empty_cache()
-        discuss_phase(torch, ckpt)
+        cli_launches = {"discuss": discuss_phase(torch, project)}
+        (project / ".roundtable" / "config.json").write_text(
+            json.dumps(discuss_config(ckpt, max_rounds=1), indent=1))
+        for phase, run in (("summon", summon_phase), ("serve", serve_phase),
+                           ("apply", apply_phase),
+                           ("code_red", code_red_phase),
+                           ("commands", commands_phase)):
+            cli_launches[phase] = run(torch, project)
     finally:
         reset_engines()
         shutil.rmtree(ckpt.parent, ignore_errors=True)
+        shutil.rmtree(project, ignore_errors=True)
 
     src = "theroundtaible_tpu_torch/engine/kernels/csrc/"
     rows = []
@@ -4291,6 +4533,10 @@ def main() -> int:
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t[library] if library else None,
             "sdpa_view_ms": t.get("sdpa_view_ms", t.get("sdpa_ms")),
+            # K1-K3's launches in each CLI phase (phases 27-32)
+            **({"cli_launches": {phase: counts[name] for phase, counts
+                                 in cli_launches.items()}}
+               if name in PAGED_KERNELS else {}),
             **({"device_ms": t["device_ms"],
                 "library_device_ms": t["sdpa_device_ms"]}
                if "device_ms" in t else {})})

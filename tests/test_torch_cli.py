@@ -1,21 +1,26 @@
 """PyTorch port, the CLI: `python -m theroundtaible_tpu_torch discuss`
 against the JAX package's `discuss` on the same scratch project, the
-argparse surface, `--continue`, and what is not ported.
+argparse surface, `--continue`, the update check, and what is not ported.
 
 - discuss with fake knights writes the same session files in both
   packages (normalized as in tests/test_torch_discuss.py); the port runs
-  as a real `python -m` process, the JAX CLI in-process with its update
-  check switched off (it would reach for the network).
+  its package's `__main__` in a process of its own, the JAX CLI
+  in-process. Both CLIs' update checks (a request to PyPI) are switched
+  off, except where a test holds the port's with every connection
+  refused; no vendor CLI is on PATH and no API key is set.
 - discuss on torch-llm knights runs in-process on the CPU
   (`cli.main(argv, device="cpu")`) from a checkpoint.
-- Every command the port does not serve, and every adapter id, exits
-  non-zero or raises naming its ROADMAP item; so does arming telemetry.
+- Every command the port does not serve exits non-zero naming its ROADMAP
+  item; so does arming telemetry. Every adapter id seats its knight.
 """
 
+import importlib
 import io
 import json
 import os
+import shutil
 import subprocess
+import threading
 import sys
 from pathlib import Path
 
@@ -40,6 +45,18 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
+@pytest.fixture(autouse=True)
+def _hermetic(monkeypatch, tmp_path):
+    """No update check, no vendor CLI on PATH (git only), no API key, a
+    private keystore."""
+    monkeypatch.setattr(cli, "check_for_update", lambda cb: None)
+    git = shutil.which("git")
+    monkeypatch.setenv("PATH", str(Path(git).parent))
+    for var in ("ANTHROPIC_API_KEY", "GEMINI_API_KEY", "OPENAI_API_KEY"):
+        monkeypatch.delenv(var, raising=False)
+    monkeypatch.setenv("ROUNDTABLE_KEYS_DIR", str(tmp_path / "_keys"))
+
+
 def write_config(root: Path, knights=None, adapter_config=None,
                  rules=None) -> dict:
     cfg = {
@@ -61,10 +78,20 @@ def write_config(root: Path, knights=None, adapter_config=None,
     return cfg
 
 
+# The package's __main__ as `python -m` runs it, with the update check
+# switched off first.
+_MAIN = ("import runpy, sys\n"
+         "from theroundtaible_tpu_torch import cli\n"
+         "cli.check_for_update = lambda on_update: None\n"
+         "sys.argv = ['theroundtaible_tpu_torch', *sys.argv[1:]]\n"
+         "runpy.run_module('theroundtaible_tpu_torch', run_name='__main__',"
+         " alter_sys=True)\n")
+
+
 def run_port(root: Path, *argv: str) -> subprocess.CompletedProcess:
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     return subprocess.run(
-        [sys.executable, "-m", "theroundtaible_tpu_torch", *argv], cwd=root,
+        [sys.executable, "-c", _MAIN, *argv], cwd=root,
         env=env, stdin=subprocess.DEVNULL, capture_output=True, text=True,
         timeout=120)
 
@@ -140,13 +167,12 @@ def test_parser_is_the_jax_parser():
 
 
 @pytest.mark.parametrize("argv", [
-    ["init"], ["serve", "t"], ["summon"], ["status"], ["list"],
-    ["chronicle"], ["decrees"], ["manifest", "list"], ["apply"],
-    ["code-red", "x"], ["warmup"], ["gateway"], ["loadgen", "--smoke"],
-    ["trace", "list"], ["lint"]])
+    ["gateway"], ["loadgen", "--smoke"], ["trace", "list"], ["lint"]])
 def test_unported_commands_exit_nonzero_naming_the_item(argv, tmp_path,
                                                         monkeypatch,
                                                         capsys):
+    """The serving tier's commands and lint: every other command is
+    ported (tests/test_torch_commands.py)."""
     monkeypatch.chdir(tmp_path)
     rc = cli.main(argv, device="cpu")
     err = capsys.readouterr().err
@@ -156,33 +182,47 @@ def test_unported_commands_exit_nonzero_naming_the_item(argv, tmp_path,
 
 
 def test_unported_command_through_the_module(tmp_path):
-    out = run_port(tmp_path, "status")
+    out = run_port(tmp_path, "gateway")
     assert out.returncode != 0
-    assert "item 1b" in out.stderr
+    assert "item 7d" in out.stderr
 
 
 @pytest.mark.parametrize("adapter_id", [
     "claude-cli", "gemini-cli", "openai-cli", "claude-api", "gemini-api",
     "openai-api", "local-llm", "local-llm-qwen"])
 def test_external_adapters_raise_naming_item_1b(adapter_id, tmp_path):
+    """The external knights are ported (item 1b): each id builds the JAX
+    factory's adapter class with the same settings, and with no tool on
+    PATH, no key and no server, seating reports each knight unavailable
+    (tests/test_torch_adapters_external.py holds them working)."""
+    from theroundtaible_tpu.adapters import factory as jax_factory
+    from theroundtaible_tpu.core.config import load_config as jax_load
     write_config(tmp_path, knights=[{"name": "A", "adapter": adapter_id,
                                      "capabilities": [], "priority": 1}],
-                 adapter_config={adapter_id: {"endpoint": "x",
+                 adapter_config={adapter_id: {"endpoint": "http://127.0.0.1:9",
                                               "model": "y"}})
-    config = load_config(tmp_path)
-    with pytest.raises(NotImplementedError, match="item 1b"):
-        factory.create_adapter(adapter_id, config)
-    with pytest.raises(NotImplementedError, match="item 1b"):
-        factory.initialize_adapters(config, device="cpu")
+    ours = factory.create_adapter(adapter_id, load_config(tmp_path))
+    ref = jax_factory.create_adapter(adapter_id, jax_load(tmp_path))
+    assert type(ours).__name__ == type(ref).__name__
+    assert vars(ours) == vars(ref)
+    events = []
+    assert factory.initialize_adapters(
+        load_config(tmp_path), lambda kind, msg: events.append(kind),
+        device="cpu") == {}
+    assert events == ["unavailable"]
 
 
 def test_discuss_with_an_unported_knight_exits_nonzero(tmp_path,
                                                        monkeypatch, capsys):
+    """A claude-cli knight whose tool is missing, with no API key to fall
+    back on: nobody is seated, and discuss exits with the config error."""
     write_config(tmp_path, knights=[{"name": "A", "adapter": "claude-cli",
                                      "capabilities": [], "priority": 1}])
     monkeypatch.chdir(tmp_path)
-    assert cli.main(["discuss", "t", "--no-read-code"], device="cpu") != 0
-    assert "item 1b" in capsys.readouterr().err
+    assert cli.main(["discuss", "t", "--no-read-code"], device="cpu") == 2
+    out = capsys.readouterr()
+    assert "A (claude-cli) is unavailable" in out.out
+    assert "no knights is just a table" in out.err
 
 
 def test_engine_ids_seat_torch_llm_knights_on_the_requested_device(
@@ -237,21 +277,75 @@ def test_telemetry_cannot_be_armed(monkeypatch):
     assert out.returncode != 0 and "item 7c" in out.stderr
 
 
-def test_cli_opens_no_connection(tmp_path, monkeypatch):
-    """The port's CLI reaches for no outside host: the JAX CLI's update
-    check is not ported yet (item 1b), and a discussion with local knights
-    opens no socket."""
+def test_cli_opens_no_connection(tmp_path, monkeypatch, capsys):
+    """The CLI's only outward connection is the update check's request to
+    PYPI_URL, made from a daemon thread as the JAX CLI makes it (every
+    connection refused here): the refusal leaves discuss's rc and output
+    as they are without the check, and a newer version on PyPI prints the
+    JAX CLI's notice."""
     import socket
-    assert not hasattr(cli, "check_for_update")
+    import urllib.request
 
-    def refuse(*a, **kw):
-        raise AssertionError("the CLI reached for the network")
-    monkeypatch.setattr(socket.socket, "connect", refuse)
+    from theroundtaible_tpu import cli as jax_cli
+    from theroundtaible_tpu_torch.utils import update_check
+    for var in ("http_proxy", "https_proxy", "HTTP_PROXY", "HTTPS_PROXY",
+                "all_proxy", "ALL_PROXY", "no_proxy", "NO_PROXY"):
+        monkeypatch.delenv(var, raising=False)
+    attempts = []
+
+    def refuse(address, *a, **kw):
+        attempts.append((address, threading.current_thread()))
+        raise ConnectionRefusedError("connections are refused here")
     monkeypatch.setattr(socket, "create_connection", refuse)
-    write_config(tmp_path)
-    monkeypatch.chdir(tmp_path)
-    assert cli.main(["discuss", "Should we do X?", "--no-read-code"],
-                    device="cpu") == 0
+    monkeypatch.setattr(socket, "getaddrinfo",
+                        lambda host, port, *a, **kw: refuse((host, port)))
+    monkeypatch.setattr(socket.socket, "connect",
+                        lambda self, address: refuse(address))
+    checks = []
+    monkeypatch.setattr(cli, "check_for_update", lambda on_update: checks.append(
+        update_check.check_for_update(on_update)))
+
+    def discuss(root):
+        write_config(root)
+        monkeypatch.chdir(root)
+        rc = cli.main(["discuss", "Should we do X?", "--no-read-code"],
+                      device="cpu")
+        for thread in checks:
+            thread.join(timeout=30)
+            assert not thread.is_alive()
+        out = capsys.readouterr()
+        return rc, out.out.replace(str(root), "<root>"), out.err
+    checked = discuss(tmp_path / "checked")
+    (thread,) = checks
+    assert thread.daemon
+    host = urllib.request.urlsplit(update_check.PYPI_URL).hostname
+    assert [(address, t) for address, t in attempts] == [((host, 443),
+                                                          thread)]
+    checks.clear()
+    monkeypatch.setattr(cli, "check_for_update", lambda on_update: None)
+    assert checked == discuss(tmp_path / "unchecked")
+    assert checked[0] == 0 and "actually agree" in checked[1]
+
+    class Newer(io.BytesIO):
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+    asked = []
+    monkeypatch.setattr(urllib.request, "urlopen", lambda url, timeout: (
+        asked.append((url, timeout)) or Newer(b'{"info": {"version": "9.9"}}')))
+    monkeypatch.setattr(cli, "check_for_update", lambda on_update: checks.append(
+        update_check.check_for_update(on_update)))
+    assert cli.main(["list"], device="cpu") == 0
+    checks[0].join(timeout=30)
+    jax_cli._print_update_notice(update_check.__version__, "9.9")
+    notice = capsys.readouterr().err
+    assert notice.count("Update available: 0.1.0 → 9.9") == 2
+    assert notice[:len(notice) // 2] == notice[len(notice) // 2:]
+    assert asked == [(update_check.PYPI_URL, 3)]
+    assert update_check.PYPI_URL == \
+        importlib.import_module("theroundtaible_tpu.utils.update_check").PYPI_URL
 
 
 def test_discuss_on_torch_llm_knights_from_a_checkpoint(tmp_path,

@@ -1720,6 +1720,8 @@ def test_cuda_discuss_on_torch_llm_knights(cuda_device, tmp_path,
     (root / ".roundtable" / "config.json").write_text(json.dumps(config))
     monkeypatch.chdir(root)
     monkeypatch.setattr(sys, "stdin", io.StringIO(""))
+    # the update check would reach for PyPI: off in tests
+    monkeypatch.setattr(cli, "check_for_update", lambda on_update: None)
     kattn.reset_launch_counts()
     reset_engines()
     try:

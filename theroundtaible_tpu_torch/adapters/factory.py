@@ -3,29 +3,33 @@ theroundtaible_tpu/adapters/factory.py).
 
 Parity with reference src/utils/adapters.ts:15-106: `create_adapter` switches
 over the static adapter ids plus dynamic prefix ids; `initialize_adapters`
-probes availability per knight and runs context-window detection for local
-adapters (the JAX package's init-time CLI -> API fallback comes with those
-adapters, ROADMAP item 1b). The map is keyed by **adapter id**, not knight name.
+probes availability per knight, substitutes the API adapter when a CLI is
+missing (init-time fallback), and runs context-window detection for local
+adapters. The map is keyed by **adapter id**, not knight name.
 
 Engine knights: the `torch-llm` / `torch-llm-<model>` ids and the JAX
 package's `tpu-llm` / `tpu-llm-<model>` ids both seat a TorchLlmAdapter
 (it reads the same config keys), so a project's `.roundtable/config.json`
 seats its engine knights on the port unchanged. The engines run on
 `device`: the card unless the caller asks for the CPU. The `fake` id is
-the hermetic test seam. The CLI, API and local-llm knights are not ported
-yet and raise NotImplementedError naming their ROADMAP item.
+the hermetic test seam. The CLI, API and local-llm knights are the JAX
+package's, with the same commands, requests and defaults.
 """
 
 from __future__ import annotations
 
 from typing import Any, Callable, Optional
 
-from ..core.errors import ITEM_1B, ITEM_7E_II, not_ported
+from ..core.errors import ITEM_7E_II, not_ported
 from ..core.types import RoundtableConfig
 from .base import BaseAdapter, DEFAULT_TIMEOUT_MS
 
-_EXTERNAL_IDS = ("claude-cli", "gemini-cli", "openai-cli", "claude-api",
-                 "gemini-api", "openai-api")
+# CLI id → API id used for init-time fallback (reference adapters.ts:89-100).
+_CLI_TO_API = {
+    "claude-cli": "claude-api",
+    "gemini-cli": "gemini-api",
+    "openai-cli": "openai-api",
+}
 
 
 def is_engine_adapter(adapter_id: str) -> bool:
@@ -39,8 +43,39 @@ def create_adapter(adapter_id: str, config: RoundtableConfig,
     """Instantiate one adapter by id (reference adapters.ts:15-56)."""
     cfg: dict[str, Any] = config.adapter_config.get(adapter_id, {})
 
-    if adapter_id in _EXTERNAL_IDS or adapter_id.startswith("local-llm"):
-        raise not_ported(f"the {adapter_id!r} adapter", ITEM_1B)
+    if adapter_id == "claude-cli":
+        from .cli_adapters import ClaudeCliAdapter
+        return ClaudeCliAdapter(cfg.get("command", "claude"), timeout_ms)
+    if adapter_id == "gemini-cli":
+        from .cli_adapters import GeminiCliAdapter
+        return GeminiCliAdapter(cfg.get("command", "gemini"),
+                                cfg.get("model"), timeout_ms)
+    if adapter_id == "openai-cli":
+        from .cli_adapters import OpenAICliAdapter
+        return OpenAICliAdapter(cfg.get("command", "codex"), timeout_ms)
+    if adapter_id == "claude-api":
+        from .api_adapters import ClaudeApiAdapter
+        return ClaudeApiAdapter(cfg.get("model", "claude-sonnet-4-6"),
+                                cfg.get("env_key", "ANTHROPIC_API_KEY"),
+                                timeout_ms)
+    if adapter_id == "gemini-api":
+        from .api_adapters import GeminiApiAdapter
+        return GeminiApiAdapter(cfg.get("model", "gemini-2.5-flash"),
+                                cfg.get("env_key", "GEMINI_API_KEY"),
+                                timeout_ms)
+    if adapter_id == "openai-api":
+        from .api_adapters import OpenAIApiAdapter
+        return OpenAIApiAdapter(cfg.get("model", "gpt-5.2"),
+                                cfg.get("env_key", "OPENAI_API_KEY"),
+                                timeout_ms)
+    if adapter_id.startswith("local-llm"):
+        from .local_llm import LocalLlmAdapter
+        if not cfg.get("endpoint") or not cfg.get("model"):
+            return None
+        return LocalLlmAdapter(
+            endpoint=cfg["endpoint"], model=cfg["model"],
+            name=cfg.get("name", adapter_id), source=cfg.get("source"),
+            timeout_ms=timeout_ms)
     if is_engine_adapter(adapter_id):
         from .torch_llm import TorchLlmAdapter
         return TorchLlmAdapter.from_config(adapter_id, cfg, timeout_ms,
@@ -58,7 +93,7 @@ def initialize_adapters(
 ) -> dict[str, BaseAdapter]:
     """Probe + seat every knight's adapter (reference adapters.ts:62-106).
 
-    on_event(kind, message): "seated" | "unavailable" notices
+    on_event(kind, message): "seated" | "fallback" | "unavailable" notices
     for the command layer to display. Engine knights run on `device`.
     """
     timeout_ms = config.rules.timeout_per_turn_seconds * 1000
@@ -77,6 +112,18 @@ def initialize_adapters(
             if on_event:
                 on_event("seated", f"{knight.name} ({adapter_id}) is at the table")
             continue
+
+        # Init-time CLI→API fallback (reference adapters.ts:89-100).
+        api_id = _CLI_TO_API.get(adapter_id)
+        if api_id:
+            api_adapter = create_adapter(api_id, config, timeout_ms, device)
+            if api_adapter is not None and api_adapter.is_available():
+                adapters[adapter_id] = api_adapter
+                if on_event:
+                    on_event("fallback",
+                             f"{knight.name}: {adapter_id} unavailable, "
+                             f"seated via {api_id}")
+                continue
         if on_event:
             on_event("unavailable",
                      f"{knight.name} ({adapter_id}) is unavailable")

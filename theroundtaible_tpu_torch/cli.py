@@ -3,11 +3,11 @@ theroundtaible_tpu/cli.py).
 
 Equivalent of reference src/index.ts:29-187: the JAX CLI's whole argparse
 surface, a single central error handler that is the ONLY place the process
-exits with a nonzero code. `discuss` runs on the port's engine; every other
-command raises NotImplementedError naming the ROADMAP item that brings it,
-which the handler turns into a nonzero exit. The JAX CLI's update check
-(a request to PyPI on every command) comes with the other network-facing
-host code, ROADMAP item 1b.
+exits with a nonzero code, and a fire-and-forget update check. Every
+command runs on the port, engine knights on `device`; the serving tier's
+commands (`gateway`, `loadgen`, `trace`) and `lint` raise
+NotImplementedError naming the ROADMAP item that brings them, which the
+handler turns into a nonzero exit.
 """
 
 from __future__ import annotations
@@ -16,8 +16,14 @@ import os
 import sys
 
 from . import __version__
-from .core.errors import (ITEM_1B, ITEM_7D, ITEM_7E_II, ExitCode,
-                          RoundtableError, format_error, not_ported)
+from .core.errors import (ITEM_7D, ITEM_7E_II, ExitCode, RoundtableError,
+                          format_error, not_ported)
+from .utils.update_check import check_for_update
+
+
+def _print_update_notice(current: str, latest: str) -> None:
+    print(f"\n  Update available: {current} → {latest} "
+          f"(pip install -U theroundtaible-tpu)\n", file=sys.stderr)
 
 
 def handle_cli_error(err: BaseException) -> int:
@@ -230,8 +236,8 @@ def build_parser():
     c.add_argument("description", help="What is broken")
 
     sub.add_parser("warmup",
-                   help="Pre-compile the TPU serving programs so the "
-                        "first discuss starts hot")
+                   help="Build the kernels and warm the serving shapes "
+                        "so the first discuss starts hot")
 
     li = sub.add_parser(
         "lint",
@@ -263,6 +269,7 @@ def main(argv: list[str] | None = None, device="cuda") -> int:
         build_parser().print_help()
         return 0
 
+    check_for_update(_print_update_notice)
     try:
         return dispatch(args, device) or 0
     except BaseException as err:  # noqa: BLE001 — single central handler
@@ -272,17 +279,20 @@ def main(argv: list[str] | None = None, device="cuda") -> int:
 # Commands of the JAX CLI the port does not serve yet, with the ROADMAP
 # item that brings each.
 _NOT_PORTED = {
-    "init": ITEM_1B, "serve": ITEM_1B, "summon": ITEM_1B,
-    "status": ITEM_1B, "list": ITEM_1B, "chronicle": ITEM_1B,
-    "decrees": ITEM_1B, "manifest": ITEM_1B, "apply": ITEM_1B,
-    "code-red": ITEM_1B, "warmup": ITEM_1B,
     "gateway": ITEM_7D, "loadgen": ITEM_7D, "trace": ITEM_7D,
     "lint": ITEM_7E_II,
 }
 
 
 def dispatch(args, device="cuda") -> int:
-    """Route to command modules (imported lazily to keep startup instant)."""
+    """Route to command modules (imported lazily to keep startup instant).
+    Engine knights run on `device`."""
+    if args.command in _NOT_PORTED:
+        raise not_ported(f"`roundtable {args.command}`",
+                         _NOT_PORTED[args.command])
+    if args.command == "init":
+        from .commands.init import init_command
+        return init_command(__version__)
     if args.command == "discuss":
         if getattr(args, "continue_session", False):
             from .commands.discuss import continue_command
@@ -290,9 +300,50 @@ def dispatch(args, device="cuda") -> int:
         from .commands.discuss import discuss_command
         return discuss_command(args.topic, read_code=args.read_code,
                                device=device)
-    if args.command in _NOT_PORTED:
-        raise not_ported(f"`roundtable {args.command}`",
-                         _NOT_PORTED[args.command])
+    if args.command == "serve":
+        from .commands.serve import serve_command
+        return serve_command(args.topics, sessions=args.sessions,
+                             read_code=args.read_code,
+                             journal_dir=args.journal,
+                             resume_dir=args.resume_dir,
+                             replicas=args.replicas, device=device)
+    if args.command == "summon":
+        from .commands.summon import summon_command
+        return summon_command(read_code=args.read_code, device=device)
+    if args.command == "status":
+        from .commands.status import status_command
+        return status_command(
+            telemetry_view=getattr(args, "telemetry", False),
+            perf_view=getattr(args, "perf", False),
+            kv_view=getattr(args, "kv", False),
+            health_view=getattr(args, "health", False),
+            gateway_view=getattr(args, "gateway", False),
+            fleet_view=getattr(args, "fleet", False),
+            capacity_view=getattr(args, "capacity", False),
+            slo_view=getattr(args, "slo", False))
+    if args.command == "list":
+        from .commands.list_cmd import list_command
+        return list_command()
+    if args.command == "chronicle":
+        from .commands.chronicle_cmd import chronicle_command
+        return chronicle_command()
+    if args.command == "decrees":
+        from .commands.decrees import decrees_command
+        return decrees_command()
+    if args.command == "manifest":
+        from .commands import manifest_cmd
+        return manifest_cmd.run(args)
+    if args.command == "apply":
+        from .commands.apply import apply_command
+        return apply_command(noparley=args.noparley, dry_run=args.dry_run,
+                             override_scope=args.override_scope,
+                             session_name=args.session, device=device)
+    if args.command == "code-red":
+        from .commands.code_red import code_red_command
+        return code_red_command(args.description, device=device)
+    if args.command == "warmup":
+        from .commands.warmup_cmd import warmup_command
+        return warmup_command(device=device)
     raise RoundtableError(f"Unknown command: {args.command}")
 
 

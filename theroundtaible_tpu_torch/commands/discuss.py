@@ -1,6 +1,6 @@
 """`roundtable discuss` — the main command (counterpart of
-theroundtaible_tpu/commands/discuss.py; the King's "apply now" raises
-NotImplementedError naming its ROADMAP item).
+theroundtaible_tpu/commands/discuss.py; engine knights, and the Lead Knight
+of the King's "apply now", run on `device=`).
 
 Parity with reference src/commands/discuss.ts:39-260: adapter seating, the
 read-codebase question, the discussion loop, and the King's Choice menu on
@@ -19,7 +19,7 @@ from typing import Optional
 
 from ..adapters.factory import initialize_adapters
 from ..core.config import load_config
-from ..core.errors import ITEM_1B, ConfigError, not_ported
+from ..core.errors import ConfigError
 from ..core.orchestrator import run_discussion
 from ..core.types import ContinueOptions, RoundEntry, SessionResult
 from ..utils.decree_log import add_decree_entry
@@ -132,7 +132,7 @@ def discuss_command(topic: str, read_code: Optional[bool] = None,
                 _handle_rejection(result)
             else:
                 _handle_consensus(result)
-                _kings_decree(result, topic, project_root)
+                _kings_decree(result, topic, project_root, device)
             break
         action = _handle_no_consensus(result, topic, project_root)
         if action != "send_back":
@@ -163,7 +163,7 @@ def _handle_consensus(result: SessionResult) -> None:
 
 
 def _kings_decree(result: SessionResult, topic: str,
-                  project_root: str) -> None:
+                  project_root: str, device="cuda") -> None:
     """Post-consensus decree menu: apply now / wield the sword myself /
     decide later (reference architecture-docs.md:209 'King's Choice: apply
     now, do it yourself, or decide later'; decree writes on self/later per
@@ -185,8 +185,14 @@ def _kings_decree(result: SessionResult, topic: str,
     answer = ask(style.bold(style.yellow("  Your decree? [1-3] ")),
                  default="3")
     if answer.strip() == "1":
-        # the decision is saved already; the CLI's handler reports this
-        raise not_ported("`roundtable apply`", ITEM_1B)
+        from .apply import apply_command
+        try:
+            apply_command(project_root=project_root, device=device)
+        except Exception as e:  # apply failures must not unwind discuss
+            print(style.red(f"  Apply failed: {e}"))
+            print(style.dim("  The decision is saved — retry with "
+                            "roundtable apply."))
+        return
     if answer.strip() == "2":
         add_decree_entry(project_root, "rejected_no_apply", session_name,
                          topic, "King wields the sword personally")

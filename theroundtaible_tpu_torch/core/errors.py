@@ -206,7 +206,6 @@ def format_error(err: BaseException) -> str:
 
 # --- the port's not-yet-ported seams ---
 
-ITEM_1B = "item 1b: the other commands and the external adapters"
 ITEM_7C = "item 7c: supervision and observability"
 ITEM_7D = "item 7d: the serving tier"
 ITEM_7E_II = "item 7e-ii: the rest of multi-device"
