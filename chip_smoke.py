@@ -22,7 +22,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
              permutation of its slots, one K8 row ending at the cache
              end), plus window, softcap, D=64 and D=256 cases (K3 also a
              mid-page chunk with inert blocks and RAGGED_EDGES, the edges
-             of its schedule, every case also against ragged_tile_ref;
+             of its schedule, and RAGGED_VERIFY_EDGES, speculative verify
+             buffers: 17 sequences, runs of 1-5 rows ending at kv_valid - 1
+             after 1,500-8,000 cached positions, runs crossing a page end,
+             tree paths sharing all but a loaned frontier page, G 1, 4
+             and 16, D 64 and 256, three of them on int8 and int4 pages
+             too; every case also against ragged_tile_ref;
              K2/K8 also the tensor-core
              tile's edges, PREFILL_EDGES: G 1, 3 and 16, pages of 16 and
              32, T = 1 and T no multiple of the tile, chunks starting
@@ -36,11 +41,17 @@ Phases, each printing one JSON line; any failure exits non-zero:
              bound and SDPA on a pre-gathered view (K8/K9: on the batch's
              slot rows); for K1, K2, K3, K8 and K9 also `device_ms` and
              `sdpa_device_ms`, the call's own kernels' device time from
-             torch.profiler (device_ms()); for K1, K9 and K3
+             torch.profiler (device_ms(): one session, the windows
+             holding every kernel of the call; between CUDA events where
+             fewer than 20 do, each such call in a `device_ms_by_events`
+             line and counted in the `device_timing` line); for K1, K9
+             and K3
              `device_kernels_ms`, each kernel's (K3: its prefill tiles,
              split and combine), and for K3 the same buffer with only its
              decode rows and with only its chunk (`decode_rows_only`,
-             `chunk_only`: ms, device_ms, device_kernels_ms).
+             `chunk_only`: ms, device_ms, device_kernels_ms), and the
+             17-sequence verify buffer at Llama-3-8B's shape (`verify`:
+             ms, device_ms, plain_ms, SDPA and its bound).
    tp_kernels_device - the same device times for K10a's decode route,
              K10b, K10c and K10d on rank 0's shard (H=16, K=4), and K10e's
              seven per-shard products of one layer beside torch.matmul on
@@ -72,7 +83,30 @@ Phases, each printing one JSON line; any failure exits non-zero:
              printed. Then the same sessions again
              (`scheduler_profiled`) with the first three ragged dispatches
              under torch.profiler (`ragged_profiled`: wall, device time and
-             K3's share of it).
+             K3's share of it). The phases built from ENGINE_CONFIG pin
+             `spec_decode: false`, so their numbers are the 1-token path's,
+             comparable with runs before speculative decoding.
+8a. spec_path - a speculative verify dispatch at full width, 2 layers:
+             forward_ragged with `sample_rows` (three rows' runs of 5 at
+             1.6k-1.8k cached tokens, one crossing a page end, and two
+             tree paths on loaned pages with copy pairs) through K3
+             against its plain version, and each scored row against
+             forward_paged decoding the same tokens one at a time
+             through K1 (the output invariance), logits within PATH_TOL;
+             a tree path's first row equal to its trunk's bit for bit.
+8b. spec_scheduler - one session of 3 greedy rows (the round-1 prompts,
+             160 new tokens) on the 32-layer engine six ways: speculation
+             off, the n-gram chain, the n-gram tree {branch 2, depth 3},
+             the `model` drafter on the engine's own weights (chain and
+             tree) and the `lora` drafter (lora_round's `lora:` block,
+             persona skeptic),
+             the spec runs on engines sharing the weights. Each run's wall,
+             tokens per second, verify dispatches, drafted and accepted
+             tokens, tree nodes and K1/K2/K3/K7 launches; every spec run
+             has its drafter, verify dispatches with K3 launched and
+             greedy agreement >= 0.9 with the off run, the lora run K7
+             launched in its draft dispatches, the model run acceptance
+             >= 0.9, the model tree run tree rows on loaned pages.
 9. contiguous - the paged engine released, TorchLlmAdapter.from_config
              with the engine phase's config minus `kv_layout`: the default
              builds a contiguous engine (same weights, 8 slots of 8192
@@ -259,12 +293,13 @@ launches ride the kernels line (`cli_launches`).
              one session whose topic holds the diff preview, one round, K1
              and K2 launched and no other kernel.
 29. serve    - `serve "<topic>" --sessions 2 --no-read-code`: two
-             concurrent discussions behind the engine's SessionScheduler:
-             rc 0, two sessions (rounds and walls from their metrics), the
-             scheduler's admitted (>= 2), max_occupancy (> 3 rows: the
-             sessions shared a batch), segments and ragged_joins; K1 and
-             K2 launched, K3's launches reported (a session joining the
-             other's decode runs it).
+             concurrent discussions behind the engine's SessionScheduler,
+             speculative decoding on (the default): rc 0, two sessions
+             (rounds and walls from their metrics), the scheduler's
+             admitted (>= 2), max_occupancy (> 3 rows: the sessions shared
+             a batch), segments, ragged_joins and spec_segments, the
+             engine's spec_describe() counters; K2 launched, K1 or K3 (a
+             verify tick runs K3, a joining session too).
 30. apply    - a session written with consensus, the torch-llm Lead Knight
              and allowed_files [app.py]; `apply --noparley`: random
              weights emit no RTDIFF/1, so the failure path - rc is
@@ -282,7 +317,9 @@ launches ride the kernels line (`cli_launches`).
 
 Run time: 452-624 s on an H100 80GB HBM3 at 700 W with the build (579 s
 with the device-time readings), 659-762 s with phases 26-27, 722.6 s with
-phases 26-32 (phases 27-32 took 38 s); no earlier phase was cut.
+phases 26-32 (phases 27-32 took 38 s), 797.7 s with the verify cases and
+phases 8a-8b (~75 s together; 624.5 s on another machine, whose
+host-bound phases ran faster); no earlier phase was cut.
 
 Then a `{"kernels": [...]}` line, the nvidia-smi line, and last
 `{"ok": true, "device": {...}}`. Details go to chiprun_out/chip_smoke/.
@@ -292,6 +329,7 @@ package is missing next to it.
 
 from __future__ import annotations
 
+import bisect
 import dataclasses
 import gc
 import json
@@ -300,6 +338,7 @@ import subprocess
 import sys
 import threading
 import time
+from collections import Counter
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -512,15 +551,10 @@ def cold_calls(stacks, distinct_bytes, call):
     return [lambda c=c: call(c) for c in copies]
 
 
-def device_busy_us(prof):
-    """Microseconds the card was busy in a torch.profiler window: the union
-    of its CUDA kernels' and copies' intervals."""
-    from torch.autograd import DeviceType
-    spans = sorted((ev.time_range.start, ev.time_range.end)
-                   for ev in prof.events()
-                   if ev.device_type == DeviceType.CUDA)
+def busy_us(spans) -> float:
+    """Microseconds covered by the union of (start, end) intervals."""
     busy, reach = 0.0, None
-    for start, end in spans:
+    for start, end in sorted(spans):
         if reach is None or start > reach:
             busy += end - start
             reach = end
@@ -530,42 +564,116 @@ def device_busy_us(prof):
     return busy
 
 
-def device_ms(torch, fn, flush, reps=20, by_kernel=None):
-    """Median over `reps` calls of one call's device time: the time the
-    card spent in the CUDA kernels (and copies) the call launched - both of
-    K1/K9's launches, their overlap under programmatic dependent launch
-    counted once (the union of their intervals) - from torch.profiler, one
-    profiled window per call. The L2 cache is flushed (a 64 MB write) and
-    the card synchronised before each window, so the flush is left out and
-    the pages are cold. A window in which the profiler delivered no device
-    event is dropped and taken again (up to 3 * reps windows). `by_kernel`,
-    a dict, receives each kernel's median duration (ms) by name."""
+def device_busy_us(prof):
+    """Microseconds the card was busy in a torch.profiler window: the union
+    of its CUDA kernels' and copies' intervals."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    return busy_us((ev.time_range.start, ev.time_range.end)
+                   for ev in prof.events()
+                   if ev.device_type == DeviceType.CUDA)
+
+
+# Cycles of torch.cuda._sleep queued ahead of an event-timed window (~1 ms
+# at the H100's clock): the host enqueues the call's launches while the
+# card spins, so the window holds no host launch gap.
+SPIN_CYCLES = 2_000_000
+
+# device_ms() calls in this process, and those timed by CUDA events
+# because torch.profiler delivered too few complete windows.
+DEVICE_TIMING = {"calls": 0, "by_events": 0}
+
+WINDOW = "device_ms_window"
+
+
+def event_window_ms(torch, fn, flush):
+    """One call's time between CUDA events, the L2 flushed first and the
+    launches queued behind a spin (SPIN_CYCLES): device_ms()'s fallback.
+    Unlike the profiler's union of kernel intervals it also counts the
+    card's gaps between the call's own launches."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    flush.zero_()
+    torch.cuda._sleep(SPIN_CYCLES)
+    start.record()
     fn()
-    times, named = [], {}
-    for _ in range(3 * reps):
-        if len(times) == reps:
-            break
-        flush.zero_()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def complete_windows(events, windows):
+    """The device events of each window (a sorted list of (start, end)
+    ranges) whose multiset of kernel names is the census: the most of each
+    name that any window delivered. torch.profiler on the H100 drops device
+    events at random (whole windows, or one kernel of a call), so a window
+    short of the census is left out rather than read as a faster call."""
+    starts = [w[0] for w in windows]
+    per = [[] for _ in windows]
+    for ev in events:
+        i = bisect.bisect_right(starts, ev.time_range.start) - 1
+        if i >= 0 and ev.time_range.start <= windows[i][1]:
+            per[i].append(ev)
+    census = Counter()
+    for evs in per:
+        census |= Counter(ev.name for ev in evs)
+    return [evs for evs in per
+            if evs and Counter(ev.name for ev in evs) == census]
+
+
+def device_ms(torch, fn, flush, reps=20, by_kernel=None):
+    """Median of one call's device time over the complete windows among
+    2 * `reps` calls: the time the card spent in the CUDA kernels (and
+    copies) the call launched - both of K1/K9's launches, their overlap
+    under programmatic dependent launch counted once (the union of their
+    intervals) - from one torch.profiler session, each call in a
+    record_function window of its own whose kernels are those inside its
+    annotation on the card's timeline (complete_windows()). The L2 cache
+    is flushed (a 64 MB write) and the card synchronised before each
+    window, so the flush is left out and the pages are cold. Where fewer
+    than `reps` windows are complete, the call is timed instead over
+    `reps` windows between CUDA events (event_window_ms()), counted in
+    DEVICE_TIMING and reported in a `device_ms_by_events` line.
+    `by_kernel`, a dict, receives each kernel's median duration (ms) by
+    name (nothing where the events timed the call)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    DEVICE_TIMING["calls"] += 1
+    fn()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(2 * reps):
+            flush.zero_()
             torch.cuda.synchronize()
-        busy = device_busy_us(prof)
-        if busy > 0:
-            times.append(busy)
-            for ev in prof.events():
-                if ev.device_type == DeviceType.CUDA:
-                    named.setdefault(ev.name[:90], []).append(
-                        ev.time_range.elapsed_us())
-    check(len(times) == reps, f"torch.profiler saw device time in only "
-                              f"{len(times)} of {3 * reps} windows")
+            with record_function(f"{WINDOW}{i}"):
+                fn()
+                torch.cuda.synchronize()
+    # Each window's range on the card's clock: the profiler's annotation of
+    # the record_function, from its first kernel's start to its last's end
+    # (the host's clock is offset from the card's by more than a flush).
+    device = [ev for ev in prof.events() if ev.device_type == DeviceType.CUDA]
+    windows = sorted((ev.time_range.start, ev.time_range.end)
+                     for ev in device if ev.name.startswith(WINDOW))
+    complete = complete_windows(
+        [ev for ev in device if not ev.name.startswith(WINDOW)], windows)
+    if len(complete) < reps:
+        DEVICE_TIMING["by_events"] += 1
+        ms = statistics.median(event_window_ms(torch, fn, flush)
+                               for _ in range(reps))
+        emit("device_ms_by_events", call=DEVICE_TIMING["calls"],
+             complete_windows=len(complete), windows=2 * reps, ms=ms)
+        check(ms > 0, "CUDA events timed a call at no time")
+        return ms
     if by_kernel is not None:
+        named = {}
+        for evs in complete:
+            for ev in evs:
+                named.setdefault(ev.name[:90], []).append(
+                    ev.time_range.elapsed_us())
         by_kernel.update({name: statistics.median(us) / 1e3
                           for name, us in named.items()})
-    return statistics.median(times) / 1e3
+    return statistics.median(
+        busy_us((ev.time_range.start, ev.time_range.end) for ev in evs)
+        for evs in complete) / 1e3
 
 
 def max_err(torch, out, ref, rows=None):
@@ -816,22 +924,33 @@ def ragged_inputs(torch, gen, runs, T, H, K, D, ps, dtype, dev):
     """A flat buffer of `runs` [(query offset, rows)], one sequence each,
     over shuffled pages of an 8192-token context, plus the inert sequence
     on the scratch page 0 that every unused block points at. NaN in every
-    cell past each sequence's kv_valid."""
+    cell past each sequence's kv_valid. A run (query offset, rows, path_of)
+    whose `path_of` names an earlier run is a tree path of that sequence,
+    as a verify dispatch packs it: its table shares every page below the
+    frontier page with it, and its own frontier page (a loan) holds the
+    same committed cells below the query offset."""
     n = len(runs)
     k_pool, v_pool, table = make_pool(torch, gen, n, 8192, K, D, ps, dtype,
                                       dev)
-    valid = torch.tensor([o + m for o, m in runs], dtype=torch.int32,
+    for s, (o, _m, *path_of) in enumerate(runs):
+        if path_of and path_of[0] is not None:
+            parent, j, c = path_of[0], o // ps, o % ps
+            table[s, :j] = table[parent, :j]
+            src, dst = int(table[parent, j]), int(table[s, j])
+            k_pool[dst, :c] = k_pool[src, :c]
+            v_pool[dst, :c] = v_pool[src, :c]
+    valid = torch.tensor([o + m for o, m, *_ in runs], dtype=torch.int32,
                          device=dev)
     poison_past_frontier(k_pool, v_pool, table, valid, ps)
     tables = torch.cat([table, torch.zeros_like(table[:1])])
     seq_of_block = torch.full((T // 8,), n, dtype=torch.int32)
     block_qstart = torch.zeros(T // 8, dtype=torch.int32)
     blk = 0
-    for s, (_o, m) in enumerate(runs):
+    for s, (_o, m, *_) in enumerate(runs):
         for k in range(-(-m // 8)):
             seq_of_block[blk], block_qstart[blk] = s, 8 * k
             blk += 1
-    offsets = torch.tensor([o for o, _ in runs] + [0], dtype=torch.int32)
+    offsets = torch.tensor([o for o, *_ in runs] + [0], dtype=torch.int32)
     kv_valid = torch.cat([valid, torch.ones(1, dtype=torch.int32,
                                             device=dev)])
     q = (torch.randn(T, H, D, generator=gen, device=dev)
@@ -859,6 +978,44 @@ RAGGED_EDGES = [
 ]
 
 
+# K3 in a speculative verify dispatch (runs of 1 to spec_max_draft + 1 = 5
+# rows ending at kv_valid - 1, at the frontier of a long cache), as
+# (offset, rows, path_of) runs. RAGGED_VERIFY_MAIN is the verify buffer of
+# 8 slots under a {branch: 2, depth: 3} tree at Llama-3-8B's shape: 8
+# trunks of 5 rows after 1,495-7,995 cached positions (three crossing a
+# page end) and a tree path of each (1-4 rows) sharing every page but a
+# loaned frontier page - 16 sequences and the inert one, T = 128.
+RAGGED_VERIFY_MAIN = (
+    [(o, 5, None) for o in (1495, 2045, 2500, 3199, 4094, 5000, 6141,
+                            7995)]
+    + [(o, m, i) for i, (o, m) in enumerate(zip(
+        (1495, 2045, 2500, 3199, 4094, 5000, 6141, 7995),
+        (2, 3, 4, 1, 2, 3, 4, 2)))])
+# (H, K, D, ps, T, runs, window, softcap): G 1 at pages of 64; G 4 at D 64
+# on pages of 32 (paths crossing a page end) with softcap; G 16 at D 256
+# with a window and softcap; G 4 at D 128 with a window.
+RAGGED_VERIFY_EDGES = [
+    (32, 8, 128, 128, 128, RAGGED_VERIFY_MAIN, None, None),
+    (8, 8, 128, 64, 64, [(1500, 1, None), (1999, 2, None), (3005, 3, None),
+                         (1999, 4, 1), (5000, 5, None), (7990, 5, None),
+                         (3005, 2, 2)], None, None),
+    (16, 4, 64, 32, 48, [(1535, 5, None), (1535, 3, 0), (2047, 2, None),
+                         (2047, 5, 2), (6000, 4, None), (6000, 1, 4)],
+     None, 30.0),
+    (16, 1, 256, 64, 48, [(1600, 5, None), (1600, 2, 0), (4031, 4, None),
+                          (4031, 3, 2), (7995, 5, None)], 512, 20.0),
+    (32, 8, 128, 128, 32, [(2045, 5, None), (2045, 4, 0), (4500, 1, None),
+                           (4500, 3, 2)], 1024, None),
+]
+
+
+def verify_cells(runs, ps):
+    """Distinct KV cells a verify buffer's sequences read: a tree path
+    shares its parent's pages below its frontier page."""
+    return sum(o + m - (o // ps * ps if path_of is not None else 0)
+               for o, m, path_of in runs)
+
+
 def ragged_kernel_cases(torch, kattn, gen, flush):
     """K3 against its plain version and against ragged_tile_ref (the plain
     model of its schedule) on every row (pad rows are 0 in all three), at
@@ -875,10 +1032,20 @@ def ragged_kernel_cases(torch, kattn, gen, flush):
              (32, 8, 128, 128, 1024, RAGGED_MAIN, None, 50.0),
              (32, 8, 64, 128, 1024, RAGGED_MAIN, None, None),
              (8, 1, 256, 128, 1024, RAGGED_MAIN, None, None)] + RAGGED_EDGES
+    from theroundtaible_tpu_torch.engine import kv_quant as kvq
     errs = []
-    for H, K, D, ps, T, runs, window, softcap in cases:
+    # RAGGED_VERIFY_EDGES also on int8 and int4 pages (K4 in K3), the first
+    # three of them.
+    verify = [(case, None) for case in RAGGED_VERIFY_EDGES] + [
+        (case, bits) for bits in (8, 4) for case in RAGGED_VERIFY_EDGES[:3]]
+    for (H, K, D, ps, T, runs, window, softcap), bits in (
+            [(case, None) for case in cases] + verify):
         args = ragged_inputs(torch, gen, runs, T, H, K, D, ps, bf16, dev)
         kw = dict(sliding_window=window, softcap=softcap)
+        if bits is not None:
+            kq, vq, qkw = quantized_pools(kvq, args[1], args[2], bits)
+            args = (args[0], kq, vq) + tuple(args[3:])
+            kw.update(qkw)
         out = kattn.ragged_paged_attention(*args, **kw)
         err, ok = max_err(torch, out,
                           kattn.ragged_paged_attention_ref(*args, **kw))
@@ -886,6 +1053,8 @@ def ragged_kernel_cases(torch, kattn, gen, flush):
                                       kattn.ragged_tile_ref(*args, **kw))
         errs.append({"H": H, "K": K, "D": D, "ps": ps, "window": window,
                      "softcap": softcap, "T": T, "runs": runs,
+                     "verify": any(len(r) == 3 for r in runs),
+                     "kv_bits": bits,
                      "max_abs_err": err, "vs_tile_ref": err_tiles})
         check(ok and ok_tiles,
               f"K3 disagrees with its plain versions: {errs[-1]}")
@@ -914,6 +1083,34 @@ def ragged_kernel_cases(torch, kattn, gen, flush):
             torch, sdpa_ragged_call(torch, args, RAGGED_MAIN), flush),
         "bytes": 2 * T * H * D * 2 + cells * K * D * 2 * 2,
         "flops": pairs * H * D * 4}
+    # The verify buffer of RAGGED_VERIFY_MAIN (17 sequences, T = 128).
+    vruns, vT = RAGGED_VERIFY_MAIN, 128
+    vargs = ragged_inputs(torch, gen, vruns, vT, H, K, D, 128, bf16, dev)
+    vvalid = [o + m for o, m, _ in vruns]
+    voffs = [o for o, _, _ in vruns]
+    vkernels = {}
+    verify = {
+        "shape": {"T": vT, "H": H, "K": K, "D": D, "ps": 128,
+                  "sequences": len(vruns) + 1, "runs": vruns},
+        "ms": time_ms(torch, lambda: kattn.ragged_paged_attention(*vargs),
+                      50, flush),
+        "plain_ms": time_ms(
+            torch, lambda: kattn.ragged_paged_attention_ref(*vargs), 3,
+            flush),
+        "sdpa_view_ms": sdpa_ragged_ms(torch, vargs, vruns, flush),
+        "device_ms": device_ms(
+            torch, lambda: kattn.ragged_paged_attention(*vargs), flush,
+            by_kernel=vkernels),
+        "device_kernels_ms": vkernels,
+        "sdpa_device_ms": device_ms(
+            torch, sdpa_ragged_call(torch, vargs, vruns), flush),
+        "bytes": (2 * vT * H * D * 2
+                  + verify_cells(vruns, 128) * K * D * 2 * 2),
+        "flops": attended_pairs(vvalid, voffs, [m for _, m, _ in vruns],
+                                None) * H * D * 4}
+    verify["bound_ms"], verify["bound_by"] = bound_ms(verify["bytes"],
+                                                      verify["flops"])
+    timing["verify"] = verify
     # Where K3's time goes: the same buffer with only its decode rows, and
     # with only its chunk (every other block inert).
     for key, runs in (("decode_rows_only", RAGGED_MAIN[:3]),
@@ -950,7 +1147,7 @@ def sdpa_ragged_call(torch, args, runs):
     row_seq = torch.full((t,), -1, dtype=torch.long, device=dev)
     row_pos = torch.zeros(t, dtype=torch.long, device=dev)
     row = 0
-    for s, (o, m) in enumerate(runs):
+    for s, (o, m, *_) in enumerate(runs):
         n = o + m
         pages = tables[s, :-(-n // ps)].long()
         keys.append(k_pool[pages].reshape(-1, kh, d)[:n])
@@ -1188,7 +1385,12 @@ ENGINE_CONFIG = {
     "sampling": {"temperature": 0.0, "max_new_tokens": 32},
     # one knight samples, so the sampled decode path runs too
     "knight_sampling": {"percival": {"temperature": 0.8, "top_k": 40,
-                                     "top_p": 0.95}}}
+                                     "top_p": 0.95}},
+    # The 1-token path: every phase built from this config (the rounds,
+    # profiles, scheduler phases, contiguous, quant, LoRA, TP and
+    # checkpoint phases) keeps numbers comparable with runs before
+    # speculative decoding; spec_scheduler and serve run it.
+    "spec_decode": False}
 PAGED_KERNELS = ("paged_decode_attention", "paged_prefill_attention",
                  "ragged_paged_attention")
 CONTIGUOUS_KERNELS = ("flash_prefill_attention", "ragged_decode_attention")
@@ -1625,10 +1827,11 @@ def scheduler_phase(torch, kattn, engine, phase="scheduler", adapters=None,
         k3 = [ev.time_range.elapsed_us() for ev in prof.events()
               if ev.device_type == DeviceType.CUDA
               and any(n in ev.name for n in K3_KERNEL_NAMES)]
+        busy = device_busy_us(prof)   # 0: the profiler saw no device
         traces.append({"rows": int(batch["n_tokens"]), "wall_s": wall,
-                         "device_ms": device_busy_us(prof) / 1e3,
-                         "k3_device_ms": sum(k3) / 1e3,
-                         "k3_kernel_launches": len(k3)})
+                       "device_ms": busy / 1e3 if busy else None,
+                       "k3_device_ms": sum(k3) / 1e3 if busy else None,
+                       "k3_kernel_launches": len(k3) if busy else None})
         return out
 
     def timed_decode(index, *args, **kwargs):
@@ -1734,7 +1937,9 @@ def profile_phase(torch, engine, phase="profile", adapters=None):
     rows whose prompts are already cached (one token of prefill each),
     then 32 decode steps; `adapters`: the rows' LoRA personas. Device busy
     share = kernel time / wall time; kernel time by name. The profiler's
-    own overhead lengthens the wall, so the share is a lower bound."""
+    own overhead lengthens the wall, so the share is a lower bound. Where
+    the profiler delivered no device event, device time and share are
+    null (not measured)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     turns = [(f"profile{i}", [1] + [5 + i] * 1600) for i in range(3)]
@@ -1754,8 +1959,9 @@ def profile_phase(torch, engine, phase="profile", adapters=None):
                 .elapsed_us()
     device_us = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    emit(phase, wall_ms=wall_us / 1e3, device_ms=device_us / 1e3,
-         device_busy_share=device_us / wall_us if wall_us else None,
+    emit(phase, wall_ms=wall_us / 1e3,
+         device_ms=device_us / 1e3 if device_us else None,
+         device_busy_share=device_us / wall_us if device_us else None,
          top_kernels=[{"name": n[:90], "ms": us / 1e3,
                        "share_of_device": us / device_us}
                       for n, us in top] if device_us else [])
@@ -1764,9 +1970,291 @@ def profile_phase(torch, engine, phase="profile", adapters=None):
     return by_name
 
 
-def kernel_ms(by_name: dict, part: str) -> float:
-    """Device ms of a profile's kernels whose name holds `part`."""
+def kernel_ms(by_name: dict, part: str) -> float | None:
+    """Device ms of a profile's kernels whose name holds `part` (None where
+    the profile saw no device event)."""
+    if not by_name:
+        return None
     return sum(us for name, us in by_name.items() if part in name) / 1e3
+
+
+# --- speculative decoding ---
+
+
+def spec_path_phase(torch, engine):
+    """A verify dispatch at full width, depth cut to 2 layers: three rows at
+    1599/1649/1790 cached tokens (random cache content), each with a verify
+    run [last, 4 drafts] (the last one crossing a page end), and tree paths
+    of rows 0 and 2 (2 and 3 drafts) on tables that swap the frontier page
+    (row 2's path: the next page too) for loaned pages, the frontier page
+    copied into the loan in the dispatch (copy pairs). forward_ragged with
+    `sample_rows` through K3 against its plain version; then the output
+    invariance: each scored row's logits against forward_paged decoding
+    the same tokens one at a time at the same positions (K1), on identical
+    pools (the paths' on pools with the loan copied by hand). Both within
+    PATH_TOL, as every path phase: at 2 layers in bf16 two kernel bodies
+    (K3's prefill tiles, K1's split-KV decode) or the plain path round
+    apart by ~0.045 on the logits. A tree path's first row must equal its
+    trunk's bit for bit: the same token at the same position over the same
+    committed cells (shared pages and the copied frontier page)."""
+    from theroundtaible_tpu_torch.engine.models.common import init_params
+    from theroundtaible_tpu_torch.engine.paged_forward import (
+        forward_paged, forward_ragged)
+    from theroundtaible_tpu_torch.engine.serving_loop import (
+        RaggedSeq, build_ragged_batch)
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    cfg = dataclasses.replace(engine.cfg, num_layers=2)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    params = init_params(cfg, gen, bf16, dev)
+    ps, rows, R = 128, 3, 5
+    pp = cfg.max_seq_len // ps
+    pages = torch.randperm(rows * pp + 3, generator=gen, device=dev) + 1
+    table = pages[:rows * pp].reshape(rows, pp).to(torch.int32)
+    loans = [int(x) for x in pages[rows * pp:]]
+    shape = (1 + rows * pp + 3, ps, cfg.num_kv_heads, cfg.head_dim)
+    base = [(torch.randn(shape, generator=gen, device=dev).to(bf16),
+             torch.randn(shape, generator=gen, device=dev).to(bf16))
+            for _ in range(cfg.num_layers)]
+    kernel_pools, plain_pools, paged_pools, path_pools = (
+        [(k.clone(), v.clone()) for k, v in base] for _ in range(4))
+    del base
+    starts = [1599, 1649, 1790]
+    runs = torch.randint(3, 259, (rows, R), generator=gen,
+                         device=dev).tolist()
+    table_np = table.cpu().numpy()
+    # (row, drafts, loaned pages): row 0's path stays in its frontier page,
+    # row 2's (1790..1793) crosses into the next one
+    paths = [(0, torch.randint(3, 259, (2,), generator=gen,
+                               device=dev).tolist(), loans[:1]),
+             (2, torch.randint(3, 259, (3,), generator=gen,
+                               device=dev).tolist(), loans[1:3])]
+    seqs = [RaggedSeq(runs[i], starts[i], table_np[i], n_scores=R)
+            for i in range(rows)]
+    copy_pairs, path_tables = [], []
+    for row, drafts, loan in paths:
+        j = starts[row] // ps
+        ptable = table_np[row].copy()
+        ptable[j:j + len(loan)] = loan
+        copy_pairs.append((int(table_np[row][j]), loan[0]))
+        path_tables.append(ptable)
+        seqs.append(RaggedSeq([runs[row][0]] + drafts, starts[row], ptable,
+                              n_scores=1 + len(drafts)))
+    batch = build_ragged_batch(
+        seqs, t_budget=64, s_max=2 * rows + 1, pages_per_seq=pp,
+        scratch_page=0, pad_id=0, page_size=ps, score_width=R,
+        copy_pairs=copy_pairs, copy_slots=rows)
+    t = {k: torch.as_tensor(batch[k], device=dev) for k in (
+        "tokens", "positions", "tables", "seq_of_block", "block_qstart",
+        "query_offsets", "kv_valid", "token_pages", "token_offs",
+        "last_rows", "sample_rows", "copy_src", "copy_dst")}
+
+    def verify(pools, plain):
+        return forward_ragged(
+            params, cfg, t["tokens"].long(), t["positions"], pools,
+            t["tables"], t["seq_of_block"], t["block_qstart"],
+            t["query_offsets"], t["kv_valid"], t["token_pages"],
+            t["token_offs"], t["last_rows"], plain=plain,
+            sample_rows=t["sample_rows"], copy_src=t["copy_src"],
+            copy_dst=t["copy_dst"])
+
+    reset_launches()
+    lk = verify(kernel_pools, False)
+    torch.cuda.synchronize()
+    k3 = launches_now()["ragged_paged_attention"]
+    lp = verify(plain_pools, True)
+    n_scores = [s.n_scores for s in seqs]
+
+    def decode(pools, tab, tokens, start):
+        """forward_paged one token at a time: [B, len(tokens[0]), V]."""
+        out = []
+        tab = torch.as_tensor(tab, device=dev)
+        toks = torch.as_tensor(tokens, device=dev)
+        valid = torch.as_tensor(start, dtype=torch.int32, device=dev)
+        for k in range(toks.shape[1]):
+            out.append(forward_paged(params, cfg, toks[:, k:k + 1].long(),
+                                     valid[:, None] + k, pools, tab,
+                                     valid + k + 1)[:, 0])
+        return torch.stack(out, 1)
+
+    ld = [decode(paged_pools, table_np, runs, starts)]
+    for pool_k, pool_v in path_pools:
+        for src, dst in copy_pairs:
+            pool_k[dst] = pool_k[src]
+            pool_v[dst] = pool_v[src]
+    for (row, drafts, _loan), ptable in zip(paths, path_tables):
+        ld.append(decode(path_pools, ptable[None],
+                         [[runs[row][0]] + drafts], [starts[row]]))
+    torch.cuda.synchronize()
+    decoded = [ld[0][i] for i in range(rows)] + [x[0] for x in ld[1:]]
+    result, failures = {}, []
+    for name, others, tol in (
+            ("vs_plain", [lp[s] for s in range(len(seqs))], PATH_TOL),
+            ("vs_decode", decoded, PATH_TOL)):
+        worst, agree, total = 0.0, 0, 0
+        for s, other in enumerate(others):
+            a, b = lk[s, :n_scores[s]], other[:n_scores[s]]
+            diff = (a - b).abs()
+            worst = max(worst, float(diff.max()))
+            if not bool(torch.isfinite(a).all()):
+                failures.append(f"sequence {s}: non-finite verify logits")
+            if not bool((diff <= tol + tol * b.abs()).all()):
+                failures.append(f"{name}: sequence {s}'s scored rows differ "
+                                f"by {float(diff.max())} (tolerance {tol})")
+            agree += int((a.argmax(-1) == b.argmax(-1)).sum())
+            total += n_scores[s]
+        result[name] = {"max_abs_err": worst, "tolerance": tol,
+                        "greedy_agreement": agree / total}
+    # every tree path's row 0 is its trunk's row 0: the same `last` at the
+    # same position over the same committed cells
+    path_row0 = [float((lk[rows + k, 0] - lk[row, 0]).abs().max())
+                 for k, (row, _d, _l) in enumerate(paths)]
+    emit("spec_path", layers=cfg.num_layers, sequences=len(seqs),
+         scored_rows=sum(n_scores), score_width=R,
+         copy_pairs=copy_pairs, k3_launches=k3,
+         path_row0_vs_trunk=path_row0, **result)
+    check(not failures, f"spec path: {failures}")
+    check(max(path_row0) == 0.0,
+          f"spec path: a tree path's last row differs from its trunk's by "
+          f"{max(path_row0)}")
+    check(k3 > 0, "spec path: K3 never launched")
+
+
+SPEC_TREE = {"branch": 2, "depth": 3}
+# (run, spec_decode block, with lora_round's `lora:` block): the runs of
+# spec_scheduler. Random weights repeat one token, so the n-gram tree finds
+# no second root: model_tree is the run whose tree rows ride loaned pages.
+SPEC_RUNS = (("off", False, False),
+             ("ngram_chain", True, False),
+             ("ngram_tree", {"tree": SPEC_TREE}, False),
+             ("model", {"drafter": "model"}, False),
+             ("model_tree", {"drafter": "model", "tree": SPEC_TREE}, False),
+             ("lora", {"drafter": "lora", "adapter": "skeptic"}, True))
+SPEC_KERNELS = ("paged_decode_attention", "paged_prefill_attention",
+                "ragged_paged_attention", "lora_bgmv")
+SPEC_MAX_NEW = 160
+
+
+def spec_scheduler_phase(torch, kattn, base):
+    """One session of 3 greedy rows (the round-1 prompts: ~1.5k tokens
+    repeating a passage, SPEC_MAX_NEW new tokens) through a SessionScheduler
+    on the engine phase's 32-layer engine, six ways: speculation off (that
+    engine), then on engines sharing its weights and config: the n-gram
+    chain, the n-gram tree {branch 2, depth 3}, the `model` drafter on the
+    engine's own weights (chain and tree), and the `lora` drafter on
+    lora_round's `lora:` block drafting through the persona `skeptic`.
+    Each spec run must have its drafter (no fallback), verify dispatches
+    with K3 launched, greedy agreement with the off run >= 0.9; the lora
+    run K7 launched in its draft dispatches, the self-drafting model run
+    acceptance >= 0.9, the model tree run tree rows. Returns each run's
+    launch counts."""
+    from theroundtaible_tpu_torch.engine.engine import InferenceEngine
+    from theroundtaible_tpu_torch.engine.kernels import lora as klora
+    from theroundtaible_tpu_torch.engine.kvcache import scoped_slot
+    from theroundtaible_tpu_torch.engine.scheduler import SessionScheduler
+    prompts = list(knight_prompts(1).items())
+    starts = {k: len(base.tokenizer.encode(p)) for k, p in prompts}
+    # The scheduler queues its second 64-token segment before it reads the
+    # first (the JAX scheduler's pipelining), so a drafter whose corpus is
+    # the row's own output can start only past 128 tokens on random
+    # weights, whose output never quotes the prompt: 160 new tokens.
+    max_new = SPEC_MAX_NEW
+    base.kv.flush()
+    reference, out = None, {}
+    for run, spec, with_lora in SPEC_RUNS:
+        engine = base if spec is False else InferenceEngine(
+            base.cfg, params=base.params, num_slots=base.kv.num_slots,
+            dtype=base.dtype, sampling=base.sampling, kv_layout="paged",
+            page_size=base.kv.page_size, spec_decode=spec,
+            lora=LORA_BLOCK if with_lora else None, device=base.device)
+        check(engine.spec_decode == (spec is not False),
+              f"spec_scheduler {run}: spec_decode {engine.spec_decode} "
+              f"({engine.spec_reason})")
+        dispatch, drafts = engine._ragged_dispatch, {"k7": 0, "calls": 0}
+
+        def counted(batch, dispatch=dispatch, drafts=drafts):
+            # K7's launches inside the draft dispatches
+            before = klora.launch_counts()["lora_bgmv"]
+            result = dispatch(batch)
+            if batch.get("draft"):
+                drafts["calls"] += 1
+                drafts["k7"] += klora.launch_counts()["lora_bgmv"] - before
+            return result
+
+        engine._ragged_dispatch = counted
+        sched = SessionScheduler(engine)
+        reset_launches()
+        t0 = time.monotonic()
+        try:
+            _texts, stats = sched.submit("spec", prompts,
+                                         max_new_tokens=max_new,
+                                         timeout_s=600)
+            torch.cuda.synchronize()
+        finally:
+            wall = time.monotonic() - t0
+            sched.close()
+        launches = launches_now()
+        prov = sched.describe()
+        del engine._ragged_dispatch
+        generated = {k: engine.kv._slots[scoped_slot("spec", k)]
+                     .tokens[starts[k]:] for k, _p in prompts}
+        if reference is None:
+            reference = generated
+        same = sum(sum(a == b for a, b in zip(generated[k], reference[k]))
+                   for k in generated)
+        total = sum(max(len(generated[k]), len(reference[k]))
+                    for k in generated)
+        agreement = same / max(total, 1)
+        sd = engine.spec_describe()
+        rate = sd["acceptance_rate"]
+        emit("spec_scheduler", run=run, spec_decode=spec, wall_s=wall,
+             decode_tokens=stats.decode_tokens,
+             tokens_per_s=stats.decode_tokens / wall,
+             decode_tps=stats.decode_tps,
+             verify_dispatches=sd["verify_dispatches"],
+             drafted_tokens=sd["drafted_tokens"],
+             accepted_tokens=sd["accepted_tokens"], acceptance_rate=rate,
+             tree_nodes=sd["tree_nodes"], tree_rows=sd["tree_rows"],
+             draft_dispatches=sd["draft_dispatches"],
+             throttled_rows=sd["throttled_rows"], drafter=sd["drafter"],
+             drafter_reason=sd["drafter_reason"],
+             spec_segments=prov["spec_segments"],
+             segments=prov["segments"], greedy_agreement=agreement,
+             launches={k: launches[k] for k in SPEC_KERNELS},
+             k7_in_draft_dispatches=drafts["k7"],
+             draft_calls=drafts["calls"])
+        out[run] = launches
+        if spec is not False:
+            want = (spec.get("drafter", "ngram") if isinstance(spec, dict)
+                    else "ngram")
+            check(sd["drafter"] == want and sd["drafter_reason"] is None,
+                  f"spec_scheduler {run}: drafter {sd['drafter']} "
+                  f"({sd['drafter_reason']})")
+            check(sd["verify_dispatches"] > 0
+                  and launches["ragged_paged_attention"] > 0,
+                  f"spec_scheduler {run}: {sd['verify_dispatches']} verify "
+                  f"dispatches, K3 launches "
+                  f"{launches['ragged_paged_attention']}")
+            check(agreement >= 0.9, f"spec_scheduler {run}: greedy "
+                  f"agreement with the off run {agreement}")
+        else:
+            check(sd["verify_dispatches"] == 0,
+                  "spec_scheduler off: a verify dispatch ran")
+        if run == "model":
+            check(rate is not None and rate >= 0.9,
+                  f"spec_scheduler model: self-draft acceptance {rate}")
+        if run == "model_tree":
+            check(sd["tree_rows"] > 0, "spec_scheduler model_tree: no "
+                  "tree row reached a verify dispatch")
+        if run == "lora":
+            check(drafts["k7"] > 0, "spec_scheduler lora: K7 never "
+                  f"launched while drafting: {drafts}")
+        for name in engine.kv.slot_names():
+            engine.kv.release(name)
+        if engine is not base:
+            del engine, counted
+            gc.collect()
+            torch.cuda.empty_cache()
+    return out
 
 
 # --- quantization phases ---
@@ -4227,16 +4715,30 @@ def serve_phase(torch, project):
                         .read_text())
     engine = get_engine(config["adapter_config"]["torch-llm"], "cuda")
     sched = engine._scheduler.describe()
+    spec = engine.spec_describe()
     check(sched["admitted"] >= 2, f"serve: admitted {sched['admitted']}")
     check(sched["max_occupancy"] > len(DISCUSS_KNIGHTS),
           f"serve: max occupancy {sched['max_occupancy']}: the sessions "
           "never shared a batch")
-    require("serve", launches, allowed=PAGED_KERNELS[2:])
+    check(spec["enabled"], f"serve: speculation is off ({spec['reason']})")
+    # Speculation is on by default: a verify tick runs K3 where a plain
+    # segment runs K1, so either may carry the decode.
+    require("serve", launches, required=PAGED_KERNELS[1:2],
+            allowed=(PAGED_KERNELS[0], PAGED_KERNELS[2]))
+    check(launches[PAGED_KERNELS[0]] + launches[PAGED_KERNELS[2]] > 0,
+          f"serve: neither K1 nor K3 launched: {launches}")
+    check(not spec["verify_dispatches"] or launches[PAGED_KERNELS[2]] > 0,
+          "serve: verify dispatches ran without K3")
     emit("serve", rc=rc, wall_s=wall, sessions=sessions,
          admitted=sched["admitted"], completed=sched["completed"],
          failed=sched["failed"], max_occupancy=sched["max_occupancy"],
          segments=sched["segments"], ragged_joins=sched["ragged_joins"],
          ragged_segments=sched["ragged_segments"],
+         spec_segments=sched["spec_segments"],
+         spec={k: spec[k] for k in (
+             "drafter", "verify_dispatches", "drafted_tokens",
+             "accepted_tokens", "acceptance_rate", "throttled_rows",
+             "tree_nodes", "draft_dispatches")},
          k3_launches=launches["ragged_paged_attention"], launches=launches)
     return launches
 
@@ -4392,6 +4894,10 @@ def main() -> int:
         torch, kattn, engine)["ragged_paged_attention"]
     scheduler_phase(torch, kattn, engine, phase="scheduler_profiled",
                     profiled=3)
+    # Speculative decoding: the verify dispatch at 2 layers, then the
+    # 32-layer session five ways (off, then engines sharing the weights).
+    spec_path_phase(torch, engine)
+    spec_launches = spec_scheduler_phase(torch, kattn, engine)
 
     # Release the paged engine (the engine cache holds it too) before the
     # contiguous one takes its weights and 8.6 GB of slots.
@@ -4533,10 +5039,18 @@ def main() -> int:
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t[library] if library else None,
             "sdpa_view_ms": t.get("sdpa_view_ms", t.get("sdpa_ms")),
-            # K1-K3's launches in each CLI phase (phases 27-32)
+            # K1-K3's launches in each CLI phase (phases 27-32) and in
+            # each spec_scheduler run
             **({"cli_launches": {phase: counts[name] for phase, counts
-                                 in cli_launches.items()}}
+                                 in cli_launches.items()},
+                "spec_launches": {run: counts[name] for run, counts
+                                  in spec_launches.items()}}
                if name in PAGED_KERNELS else {}),
+            # K3 at the verify buffer of RAGGED_VERIFY_MAIN
+            **({"verify": {k: t["verify"][k] for k in (
+                "shape", "ms", "plain_ms", "device_ms", "device_kernels_ms",
+                "sdpa_view_ms", "sdpa_device_ms", "bound_ms", "bound_by")}}
+               if kind == "ragged" else {}),
             **({"device_ms": t["device_ms"],
                 "library_device_ms": t["sdpa_device_ms"]}
                if "device_ms" in t else {})})
@@ -4593,7 +5107,9 @@ def main() -> int:
              for t in g.values()]
             + [t["max_abs_err"] for t in lora_timing["targets"].values()]),
         **{k: total[k] for k in LORA_TIMES},
-        "bound_ms": total["bound_ms"], "bound_by": total["bound_by"]})
+        "bound_ms": total["bound_ms"], "bound_by": total["bound_by"],
+        "spec_launches": {run: counts["lora_bgmv"]
+                          for run, counts in spec_launches.items()}})
     # K10a-d: each wrapper over its CUDA kernel on one rank's half of the
     # heads (K10a at K9's decode shape, K10b/c/d at K1/K2/K3's); the slower
     # rank's time (each rank timed alone), the per-shard bound, SDPA on
@@ -4645,6 +5161,7 @@ def main() -> int:
             "ms_per_rank": [t["ms"] for t in layer],
             **{k: v for k, v in spmd_device.get(name, {}).items()
                if k != "products"}})
+    emit("device_timing", **DEVICE_TIMING)
     summary = {"kernels": rows}
     (OUT / "summary.json").write_text(json.dumps(summary, indent=1))
     print(json.dumps(summary), flush=True)

@@ -766,6 +766,109 @@ def test_cuda_ragged_kernel_shard_equals_full_slice(cuda_device, name,
     assert torch.equal(shard, full[:, H // 2:])
 
 
+# K3 in a speculative verify dispatch: (H, K, D, ps, T, runs, window,
+# softcap), runs (offset, rows, path_of) of 1 to 5 rows ending at kv_valid -
+# 1; a run whose `path_of` names an earlier one is a tree path of it,
+# sharing every page below its frontier page, its own frontier page a copy.
+VERIFY_EDGES = {
+    "g4_paths_page_end": (32, 8, 128, 128, 64, [
+        (1000, 5, None), (1000, 3, 0), (1279, 5, None), (1279, 2, 2),
+        (1500, 1, None)], None, None),
+    "g1_ps64_softcap": (8, 8, 128, 64, 48, [
+        (700, 4, None), (700, 2, 0), (1023, 5, None), (511, 1, None)],
+        None, 30.0),
+    "g16_d256_window": (16, 1, 256, 64, 48, [
+        (900, 5, None), (900, 4, 0), (1600, 3, None)], 256, 20.0),
+    "g4_d64_ps32": (16, 4, 64, 32, 48, [
+        (1535, 5, None), (1535, 3, 0), (2000, 4, None)], None, None),
+}
+
+
+def verify_edge(name, seed, S=2048):
+    """q, NaN-poisoned f32 pools, tables and metadata of a VERIFY_EDGES
+    case, tree paths on their parents' pages."""
+    H, K, D, ps, T, runs, _, _ = VERIFY_EDGES[name]
+    rng = np.random.default_rng(seed)
+    n = len(runs)
+    k_pool, v_pool, table = shuffled_pool(rng, n, S, K, D, ps)
+    for s, (o, _m, parent) in enumerate(runs):
+        if parent is not None:
+            j, c = o // ps, o % ps
+            table[s, :j] = table[parent, :j]
+            k_pool[table[s, j], :c] = k_pool[table[parent, j], :c]
+            v_pool[table[s, j], :c] = v_pool[table[parent, j], :c]
+    tables = np.concatenate([table, np.zeros((1, S // ps), np.int32)])
+    offsets = np.asarray([o for o, _, _ in runs] + [0], np.int32)
+    valid = np.asarray([o + m for o, m, _ in runs] + [1], np.int32)
+    for s in range(n):
+        for j in range(S // ps):
+            lo = max(int(valid[s]) - j * ps, 0)
+            if lo < ps:
+                k_pool[tables[s, j], lo:] = np.nan
+                v_pool[tables[s, j], lo:] = np.nan
+    seq_of_block, block_qstart = flat_buffer(
+        [(s, m) for s, (_, m, _) in enumerate(runs)], T, n)
+    q = rng.normal(size=(T, H, D)).astype(np.float32) * D ** -0.5
+    return q, k_pool, v_pool, tables, (seq_of_block, block_qstart, offsets,
+                                       valid)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("name", sorted(VERIFY_EDGES))
+def test_cuda_ragged_kernel_on_verify_runs(cuda_device, name, dtype, tol):
+    """K3 on verify-shaped buffers (short runs at the frontier of a long
+    cache, tree paths sharing all but a loaned frontier page) against its
+    plain version and ragged_tile_ref, and on int8/int4 pages (K4)."""
+    window, softcap = VERIFY_EDGES[name][6:]
+    q, k_pool, v_pool, tables, meta = verify_edge(name, 51)
+    dev = cuda_device
+    args = [torch.from_numpy(x).to(dev, dtype) for x in (q, k_pool, v_pool)]
+    args += [torch.from_numpy(x).to(dev) for x in (tables, *meta)]
+    kw = dict(sliding_window=window, softcap=softcap)
+    _ragged_check(kattn.ragged_paged_attention(*args, **kw), args, kw, tol)
+    rng = np.random.default_rng(52)
+    for bits in (8, 4):
+        pools = quantized_pools(rng, k_pool, v_pool, tables[:-1],
+                                meta[3][:-1], bits)
+        qargs, qkw = _pool_args(dev, dtype, q, pools)
+        qargs += [torch.from_numpy(x).to(dev) for x in (tables, *meta)]
+        qkw.update(kw, kv_bits=bits)
+        _ragged_check(kattn.ragged_paged_attention(*qargs, **qkw), qargs,
+                      qkw, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", [{"drafter": "model"},
+                                  {"drafter": "model",
+                                   "tree": {"branch": 2, "depth": 3}}])
+def test_cuda_engine_verify_dispatches_through_k3(cuda_device, spec):
+    """A speculating engine on the card (f32): one scheduled session's
+    verify and draft dispatches launch K3, and its greedy tokens equal
+    those of a spec-off engine on the same weights."""
+    from theroundtaible_tpu_torch.engine.engine import InferenceEngine
+    from theroundtaible_tpu_torch.engine.scheduler import SessionScheduler
+    cfg = _ckpt_config("cuda-spec-llama", max_seq_len=1024)
+    prompts = [(f"k{i}", [1] + [5 + i, 9, 7] * 60) for i in range(2)]
+    kw = dict(num_slots=4, kv_layout="paged", page_size=64,
+              dtype=torch.float32, device="cuda")
+    off = InferenceEngine(cfg, spec_decode=False, **kw)
+    on = InferenceEngine(cfg, params=off.params, spec_decode=spec, **kw)
+    texts = []
+    for eng in (off, on):
+        sched = SessionScheduler(eng)
+        kattn.reset_launch_counts()
+        try:
+            texts.append(sched.submit("s", prompts, max_new_tokens=72)[0])
+        finally:
+            sched.close()
+    info = on.spec_describe()
+    assert info["verify_dispatches"] > 0 and info["draft_dispatches"] > 0
+    assert info["drafter"] == "model" and info["drafter_reason"] is None
+    assert kattn.launch_counts()["ragged_paged_attention"] > 0
+    assert texts[0] == texts[1]
+
+
 @pytest.mark.cuda
 def test_cuda_ragged_kernels_in_ptxas(cuda_device):
     """K3's library holds the tile kernels (wgmma and CUDA-core) and the

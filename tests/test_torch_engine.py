@@ -108,8 +108,13 @@ def test_describe_keys_match(engines):
     for key in ("model", "params", "max_seq_len", "num_slots", "kv_layout",
                 "paged_decode", "page_size", "num_pages", "kv_hbm_bytes"):
         assert dt[key] == dj[key], key
-    for feature in ("prefix_cache", "kv_offload", "spec_decode"):
+    for feature in ("prefix_cache", "kv_offload"):
         assert dt[f"{feature}_reason"] == "not_ported"
+    # speculative decoding is ported: the JAX engine's provenance block,
+    # on by default on the port's paged pool with the ragged seam
+    assert set(dt["spec_decode"]) == set(jeng.spec_describe())
+    assert dt["spec_decode"]["enabled"] is True
+    assert dt["spec_decode"]["reason"] is None
     # the ragged seam is ported: the same provenance block as JAX's
     assert set(dt["ragged"]) == set(jeng.ragged_describe())
     assert dt["ragged"]["enabled"] is True
@@ -118,7 +123,7 @@ def test_describe_keys_match(engines):
 
 
 @pytest.mark.parametrize("key,value", [
-    ("prefix_cache", True), ("kv_offload", True), ("spec_decode", True),
+    ("prefix_cache", True), ("kv_offload", True),
     # a data axis (TP alone is served: tests/test_torch_tp.py)
     ("mesh", {"data": 2, "model": 2}), ("seq_parallel", 2),
     ("dtype", "float16"),
@@ -130,6 +135,21 @@ def test_unported_options_raise(key, value):
     config = {"model": "tiny-llama", "max_seq_len": 128, key: value}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         InferenceEngine.from_config(config, device="cpu")
+
+
+def test_spec_decode_true_builds_a_speculating_engine():
+    """`spec_decode: true` is served (tests/test_torch_spec_decode.py): a
+    paged engine builds speculation on, with the JAX engine's provenance
+    at construction, `spec_max_draft` carried through from_config."""
+    config = {"model": "tiny-llama", "max_seq_len": 128,
+              "kv_layout": "paged", "page_size": 32, "spec_decode": True,
+              "spec_max_draft": 3}
+    jd = JaxEngine.from_config(dict(
+        config, mesh={"data": 1, "model": 1}, prefix_cache=False,
+        kv_offload=False)).spec_describe()
+    td = InferenceEngine.from_config(config, device="cpu").spec_describe()
+    assert td == jd
+    assert td["enabled"] is True and td["max_draft"] == 3
 
 
 def test_checkpoint_without_weights_raises_naming_the_dir(tmp_path):

@@ -169,9 +169,15 @@ def test_build_ragged_batch_errors_and_cache_end():
     with pytest.raises(ValueError, match="at least one token"):
         serving_loop.build_ragged_batch([RaggedSeq([], 0, table)],
                                         t_budget=16, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # a verify run scores at most score_width rows, copy pairs need slots
+    with pytest.raises(ValueError, match="n_scores 3 > score_width 2"):
+        serving_loop.build_ragged_batch(
+            [RaggedSeq([1, 2, 3], 0, table, n_scores=3)], t_budget=16,
+            score_width=2, **kw)
+    with pytest.raises(ValueError, match="without copy_slots"):
         serving_loop.build_ragged_batch([RaggedSeq([1], 0, table)],
-                                        t_budget=16, score_width=2, **kw)
+                                        t_budget=16, copy_pairs=[(1, 2)],
+                                        **kw)
     # A chunk ending exactly at the cache end (64 = 4 pages x 16): every
     # real token's page index stays inside the table.
     batch = serving_loop.build_ragged_batch(
@@ -298,10 +304,11 @@ def test_forward_ragged_matches_jax(case):
 def test_forward_ragged_refuses_unported_inputs():
     cfg = torch_config("tiny-llama", max_seq_len=64)
     dummy = torch.zeros(8, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="slice 7"):
+    # (verify rows and tree copies are served:
+    # tests/test_torch_spec_decode.py) copies need both page lists
+    with pytest.raises(ValueError, match="come together"):
         forward_ragged({}, cfg, dummy, dummy, [], dummy, dummy, dummy,
-                       dummy, dummy, dummy, dummy, dummy,
-                       sample_rows=dummy)
+                       dummy, dummy, dummy, dummy, dummy, copy_src=dummy)
     with pytest.raises(ValueError, match="quant_spec"):
         forward_ragged({}, cfg, dummy, dummy, [], dummy, dummy, dummy,
                        dummy, dummy, dummy, dummy, dummy, scales=[])

@@ -72,9 +72,17 @@ are sharded where their base weights are, their deltas run K10f
 before the one all-reduce of o_proj and down_proj. A data axis and the
 SessionScheduler on a mesh raise NotImplementedError naming their slice.
 
-Features the JAX
-engine also turns on by default (prefix cache, host offload, speculative
-decoding) stay off here, with `<feature>_reason: "not_ported"` in
+Speculative decoding, as in the JAX engine: on by default where the
+paged pool's ragged seam is on (`spec_decode: false` or
+ROUNDTABLE_SPEC_DECODE=0 turn it off), with the drafter, tree shape and
+draft length of the `spec_decode:` block (engine/spec_decode.py). The
+scheduler drafts per row and scores every draft in one verify dispatch
+(_ragged_dispatch with `score_width`, through K3); the `model` and `lora`
+drafters shadow each row with a draft slot in the same pool and draft
+through ordinary ragged dispatches. `spec_describe()` is its provenance.
+
+Features the JAX engine also turns on by default (prefix cache, host
+offload) stay off here, with `<feature>_reason: "not_ported"` in
 describe(); asking for them - or for any other unported option - raises
 NotImplementedError naming the ROADMAP item.
 """
@@ -82,7 +90,6 @@ NotImplementedError naming the ROADMAP item.
 from __future__ import annotations
 
 import functools
-import os
 import threading
 import time
 from collections import deque
@@ -111,7 +118,8 @@ from .paged_forward import (forward_paged, forward_ragged, gather_view,
 from .quant import quantize_leaves, quantize_params, quantized
 from .paging import SCRATCH_PAGE, PagedKVCache
 from .sharding import build_mesh, local_config, mesh_size, model_axis_size
-from .sampling import SamplingParams, sample_token_batch, sampling_arrays
+from .sampling import (SamplingParams, sample_positions, sample_token_batch,
+                       sampling_arrays)
 from .serving_loop import (DECODE_SEGMENT, MAX_PREFILL_CHUNK,
                            PREFILL_BUCKETS, RAGGED_BLOCK_Q, RaggedSeq,
                            bucket_for,
@@ -120,6 +128,9 @@ from .serving_loop import (DECODE_SEGMENT, MAX_PREFILL_CHUNK,
                            finalize_outputs, host_sync, prompt_budget,
                            ragged_defer_min, ragged_shape_grid,
                            ragged_token_budget, row_budget_fn)
+from .spec_decode import (DEFAULT_MAX_DRAFT, DRAFT_SCOPE, DRAFTER_KINDS,
+                          DeviceDrafter, SpecOptions, env_flag, spec_enabled)
+from . import spec_decode as spec_mod
 from .tokenizer import load_tokenizer
 from .weights import param_count_of
 
@@ -133,7 +144,6 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 _FEATURES = {
     "prefix_cache": "slice 7: prefix cache and host-RAM offload",
     "kv_offload": "slice 7: prefix cache and host-RAM offload",
-    "spec_decode": "slice 7: speculative decoding",
 }
 # What a mesh does not serve yet, with its slice.
 _MESH_SLICE = ("slice 7e-ii: a data axis (per-replica pools and the "
@@ -179,18 +189,6 @@ class GenStats:
             if self.decode_seconds else 0.0
 
 
-def env_flag(flag: Optional[bool], env_name: str) -> bool:
-    """On/off decision of a paged-pool subsystem: an explicit config value
-    wins, then the env kill-switch ("0", "false", "off"), then default
-    ON."""
-    if flag is not None:
-        return bool(flag)
-    env = os.environ.get(env_name)
-    if env is not None:
-        return env not in ("0", "false", "off")
-    return True
-
-
 def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to the PyTorch engine yet (ROADMAP, {item})")
@@ -211,7 +209,8 @@ class InferenceEngine:
                  prefix_cache: Optional[bool] = None,
                  kv_offload: Optional[bool] = None,
                  ragged_attn: Optional[bool] = None,
-                 spec_decode: Optional[bool] = None,
+                 spec_decode: Any = None,
+                 spec_max_draft: Optional[int] = None,
                  lora: Optional[dict] = None, kv_quant: Any = None,
                  params: Optional[dict] = None,
                  devices: Optional[list[int]] = None,
@@ -221,8 +220,7 @@ class InferenceEngine:
         self._check_ported(model_cfg, checkpoint, mesh_shape, dtype,
                            seq_parallel, attn, kv_layout, quant,
                            kv_quant, prefix_cache=prefix_cache,
-                           kv_offload=kv_offload, spec_decode=spec_decode,
-                           lora=lora)
+                           kv_offload=kv_offload, lora=lora)
         # This rank's Mesh under tensor parallelism, else None (one
         # device); `local_cfg` is the slice of the model it holds.
         self.mesh = (build_mesh(mesh_shape) if mesh_size(mesh_shape) > 1
@@ -353,6 +351,7 @@ class InferenceEngine:
             self.ragged_shapes = ragged_shape_grid(self.ragged_tokens)
             self.ragged_defer_min = ragged_defer_min()
         self._build_lora(lora, model_cfg, dtype)
+        self._resolve_spec(spec_decode, spec_max_draft, num_slots)
         # Every rank of a mesh seeds its generator alike: the gathered
         # logits are identical, so are the sampled tokens.
         self._generator = torch.Generator(
@@ -435,6 +434,178 @@ class InferenceEngine:
                     f"the LoRA kernel (K7) declines the decode dispatches "
                     f"of {declines} on {self.device}{hint}")
         self.lora = store
+
+    def _resolve_spec(self, spec_decode, spec_max_draft,
+                      num_slots: int) -> None:
+        """Speculative decoding's resolution (JAX engine.py:915-986,
+        1030-1048): the `spec_decode:` block is validated (a bad block
+        raises), speculation is on where the ragged seam is (a verify run
+        is a short multi-token row of the flat buffer) unless config or
+        ROUNDTABLE_SPEC_DECODE turn it off, and the tree statics size
+        every verify dispatch: `spec_s_max` sequences and
+        `spec_copy_slots` page copies. A drafter whose dependency is
+        missing falls back to the n-gram chain with `spec_drafter_reason`
+        recorded, as in the JAX engine."""
+        self.spec_decode = False
+        self.spec_reason: Optional[str] = None
+        self.spec_options = SpecOptions.resolve(spec_decode)
+        if spec_max_draft is None and self.spec_options.max_draft \
+                is not None:
+            spec_max_draft = self.spec_options.max_draft
+        self.spec_max_draft = (DEFAULT_MAX_DRAFT if spec_max_draft is None
+                               else int(spec_max_draft))
+        if not 1 <= self.spec_max_draft <= RAGGED_BLOCK_Q - 1:
+            raise ValueError(
+                f"spec_max_draft must be 1..{RAGGED_BLOCK_Q - 1} "
+                f"(verify run = drafts+1 tokens in one "
+                f"{RAGGED_BLOCK_Q}-row block), got {self.spec_max_draft}")
+        if (self.spec_options.tree is not None
+                and self.spec_options.tree["depth"] > self.spec_max_draft):
+            raise ValueError(
+                f"spec_decode tree depth {self.spec_options.tree['depth']}"
+                f" exceeds spec_max_draft {self.spec_max_draft} (the "
+                f"static score_width must cover every root-to-leaf run)")
+        self._spec_drafted = 0
+        self._spec_accepted = 0
+        self._spec_throttled = 0
+        self._spec_dispatches = 0
+        self._spec_tree_nodes = 0
+        self._spec_tree_rows = 0
+        # drafter kind -> [drafted, accepted]
+        self._spec_by_drafter: dict[str, list[int]] = {}
+        self._spec_recent: Optional[deque] = (
+            deque(maxlen=32) if self.kv_layout == "paged" else None)
+        if self.kv_layout != "paged":
+            self.spec_reason = "kv_layout:contiguous"
+        elif not spec_enabled(spec_decode):
+            self.spec_reason = "disabled:config/env"
+        elif not self.ragged_enabled:
+            self.spec_reason = f"ragged:{self.ragged_reason}"
+        else:
+            self.spec_decode = True
+        self.spec_tree = (self.spec_options.tree
+                          if self.spec_decode else None)
+        self.spec_branch = (self.spec_tree["branch"]
+                            if self.spec_tree else 1)
+        self.spec_s_max = num_slots * self.spec_branch + 1
+        self.spec_copy_slots = num_slots * (self.spec_branch - 1)
+        if self.spec_decode:
+            self._check_verify_head()
+        self.spec_drafter: Optional[str] = ("ngram" if self.spec_decode
+                                            else None)
+        self.spec_drafter_reason: Optional[str] = None
+        self.spec_device_drafter: Optional[DeviceDrafter] = None
+        if self.spec_decode and self.spec_options.drafter != "ngram":
+            try:
+                self._install_drafter(
+                    self.spec_options.drafter,
+                    adapter=self.spec_options.adapter,
+                    checkpoint=self.spec_options.draft_checkpoint)
+            except Exception as e:  # noqa: BLE001 - degrade, recorded
+                self.spec_drafter_reason = (
+                    f"{self.spec_options.drafter}:{str(e)[:120]}")
+
+    def _check_verify_head(self) -> None:
+        """On int4 weights the head of a verify dispatch sees spec_s_max *
+        (spec_max_draft + 1) rows: up to 64 run K6, more take the dequant
+        path by the rule every product of that many rows follows
+        (`rows:prefill-m`, in int4_paths). Any other decline of that shape
+        fails construction on a card."""
+        if self.quant != "int4" or self.device.type != "cuda":
+            return
+        from .models.common import SPEC_HEAD
+        head = (self.params["embedding"] if self.cfg.tie_embeddings
+                else self.params["lm_head"])
+        if not isinstance(head, Int4Leaf):
+            return
+        rows = self.spec_s_max * (self.spec_max_draft + 1)
+        reason = int4mm.plan_reason(SPEC_HEAD, (rows, self.cfg.embed_dim),
+                                    head)
+        if reason not in (None, "rows:prefill-m"):
+            raise ValueError(
+                f"the w4a16 head kernel (K6) declines the verify dispatch's "
+                f"{rows} rows on {self.device}: {reason}")
+
+    def _install_drafter(self, kind: str, adapter: Optional[str] = None,
+                         checkpoint: Optional[str] = None) -> None:
+        """Build (or hot-swap to) the `kind` drafter: a draft-model params
+        override of the engine's shapes, or a LoRA draft head in the
+        engine's store. Raises when the drafter's dependency is missing;
+        callers record the reason and keep the n-gram chain."""
+        if kind not in DRAFTER_KINDS:
+            raise ValueError(
+                f"drafter must be one of {DRAFTER_KINDS}, got {kind!r}")
+        if kind == "ngram":
+            self.spec_device_drafter = None
+            self.spec_drafter = "ngram"
+            self.spec_drafter_reason = None
+            return
+        if kind == "model":
+            draft_params = None
+            if checkpoint:
+                draft_params = self._load_draft_params(checkpoint)
+            self.spec_device_drafter = DeviceDrafter(
+                "model", params=draft_params)
+        else:  # lora
+            if self.lora is None:
+                raise RuntimeError(
+                    f"lora drafter needs a `lora:` store "
+                    f"({self.lora_reason or 'disabled:config'})")
+            if not adapter:
+                raise ValueError("lora drafter needs an adapter name")
+            if not self.lora.resolvable(adapter):
+                self.lora.register(adapter)
+            # The residency reference is held for the drafter's lifetime:
+            # the draft head must not be evicted under a propose dispatch.
+            slot = self.lora.acquire([adapter])[0]
+            self.spec_device_drafter = DeviceDrafter(
+                "lora", adapter_slot=slot)
+            self.spec_device_drafter.adapter_id = adapter
+        self.spec_drafter = kind
+        self.spec_drafter_reason = None
+
+    def set_spec_drafter(self, kind: str,
+                         adapter: Optional[str] = None,
+                         checkpoint: Optional[str] = None) -> None:
+        """Hot-swap the active drafter. The old LoRA draft head's residency
+        reference is released and the old drafter's draft slots freed.
+        Raises (state unchanged) when the new drafter's dependency is
+        missing or speculation is off on this engine."""
+        if not self.spec_decode:
+            raise RuntimeError(
+                f"spec_decode is off on this engine ({self.spec_reason})")
+        old = self.spec_device_drafter
+        self._install_drafter(kind, adapter=adapter, checkpoint=checkpoint)
+        if old is not None and old is not self.spec_device_drafter:
+            if (old.kind == "lora" and self.lora is not None
+                    and old.adapter_id):
+                self.lora.release([old.adapter_id])
+            self._release_draft_slots()
+
+    def _release_draft_slots(self) -> None:
+        """Release every shadow draft slot in the paged pool (a hot swap
+        away from a device drafter; the per-row release at retire is the
+        scheduler's)."""
+        if self.kv_layout != "paged":
+            return
+        for name in self.kv.slot_names():
+            if name.startswith(DRAFT_SCOPE):
+                self.kv.release(name)
+
+    def _load_draft_params(self, checkpoint: str):
+        """A draft checkpoint on the engine's ModelConfig shapes, loaded
+        like the engine's own weights (engine/checkpoint.py, under a mesh
+        this rank's slice) and quantized as the engine is."""
+        from .checkpoint import load_hf_checkpoint
+        quantize = None
+        if self.quant != "none":
+            quantize = functools.partial(
+                quantize_leaves, cfg=self.cfg, act_dtype=self.dtype,
+                free_source=True, bits=8 if self.quant == "int8" else 4,
+                model_shards=model_axis_size(self.mesh))
+        return load_hf_checkpoint(checkpoint, self.cfg, self.dtype,
+                                  self.device, self.mesh,
+                                  quantize=quantize)
 
     def _build_params(self, cfg, params, quant: str, dtype, seed: int,
                       checkpoint: str = ""):
@@ -615,6 +786,10 @@ class InferenceEngine:
             kv_offload=config.get("kv_offload"),
             ragged_attn=config.get("ragged_attn"),
             spec_decode=config.get("spec_decode"),
+            # `is not None`: spec_max_draft 0 must reach the range check.
+            spec_max_draft=(int(config["spec_max_draft"])
+                            if config.get("spec_max_draft") is not None
+                            else None),
             lora=config.get("lora"),
             kv_quant=config.get("kv_quant"),
             devices=config.get("devices"),
@@ -675,8 +850,12 @@ class InferenceEngine:
         """Run every flat-buffer shape of the ragged grid once through the
         real _ragged_dispatch seam (a prefill chunk plus a decode-shaped
         row), so K3 is built and launched before real traffic - greedy,
-        plus the sampled mode when the engine samples by default. The
-        decode-shaped row attends warm garbage; outputs are discarded."""
+        plus the sampled mode when the engine samples by default. On a
+        speculating engine also one verify-shaped batch (a run of
+        spec_max_draft + 1 scored rows beside a plain row, at the engine's
+        spec_s_max and copy slots) and, on a tree engine, one propose
+        batch, per shape. Rows attend warm garbage; outputs are
+        discarded."""
         names = ("__warmup_0", "__warmup_1")
         if self.kv.num_slots < 2:
             return
@@ -690,15 +869,35 @@ class InferenceEngine:
         if self.sampling.temperature > 0.0:
             temps.append(self.sampling.temperature)
         for temp in temps:
-            seqs = [RaggedSeq([bos] + [5] * 23, 0, t0, temperature=temp),
-                    RaggedSeq([7], 8, t1, temperature=temp)]
-            for shape in self.ragged_shapes:
-                self._ragged_dispatch(build_ragged_batch(
-                    seqs, t_budget=shape, s_max=self.kv.num_slots + 1,
-                    pages_per_seq=self.kv.pages_per_seq,
-                    scratch_page=SCRATCH_PAGE,
-                    pad_id=self.tokenizer.pad_id,
-                    page_size=self.kv.page_size))
+            # (seqs, score_width, s_max, copy_slots, propose_width)
+            batches = [([RaggedSeq([bos] + [5] * 23, 0, t0,
+                                   temperature=temp),
+                         RaggedSeq([7], 8, t1, temperature=temp)],
+                        0, self.kv.num_slots + 1, 0, 0)]
+            if self.spec_decode:
+                r = self.spec_max_draft + 1
+                batches.append((
+                    [RaggedSeq([7] * r, 8, t1, temperature=temp,
+                               n_scores=r),
+                     RaggedSeq([9], 4, t0, temperature=temp)],
+                    r, self.spec_s_max, self.spec_copy_slots, 0))
+                if self.spec_branch > 1:
+                    batches.append((
+                        [RaggedSeq([7], 8, t1, temperature=temp),
+                         RaggedSeq([9], 4, t0, temperature=temp)],
+                        0, self.kv.num_slots + 1, 0, self.spec_branch))
+            for seqs, score_width, s_max, copy_slots, pw in batches:
+                for shape in self.ragged_shapes:
+                    batch = build_ragged_batch(
+                        seqs, t_budget=shape, s_max=s_max,
+                        pages_per_seq=self.kv.pages_per_seq,
+                        scratch_page=SCRATCH_PAGE,
+                        pad_id=self.tokenizer.pad_id,
+                        page_size=self.kv.page_size,
+                        score_width=score_width, copy_slots=copy_slots)
+                    if pw:
+                        batch["propose_width"] = pw
+                    self._ragged_dispatch(batch)
         self._release_warm_slots()
 
     def _release_warm_slots(self) -> None:
@@ -1160,7 +1359,7 @@ class InferenceEngine:
             step += 1
         return out, step, last, valid, done
 
-    def _ragged_dispatch(self, batch: dict) -> torch.Tensor:
+    def _ragged_dispatch(self, batch: dict):
         """One mixed prefill/decode dispatch over a flat token buffer
         (serving_loop.build_ragged_batch output), the scheduler's
         chunk-interleaved admission seam: forward_ragged writes the pools
@@ -1168,27 +1367,51 @@ class InferenceEngine:
         greedy argmax or a sample from the engine's generator. Returns the
         next-token tensor [S_max] int32 on the device; the caller reads it
         through its own watchdog seam. On a card a K3 failure raises into
-        the scheduler's preempt ladder: there is no fallback path."""
+        the scheduler's preempt ladder: there is no fallback path.
+
+        Speculative decoding rides the same seam: a batch with
+        `score_width` (a verify dispatch, with `sample_rows` and, on a tree
+        engine, `copy_src`/`copy_dst`) returns [S_max, score_width] tokens,
+        one per scored position; `propose_width` (a draft model's propose
+        dispatch) returns (next [S_max], top ids [S_max, propose_width]);
+        `draft_params` serves the dispatch with a draft model's weights and
+        `draft` marks its provenance."""
         if not self.ragged_enabled:
             raise RuntimeError(
                 f"ragged dispatch on an engine whose ragged path is off "
                 f"({self.ragged_reason})")
+        score_width = int(batch.get("score_width", 0) or 0)
+        propose_width = int(batch.get("propose_width", 0) or 0)
+        params = (batch["draft_params"]
+                  if batch.get("draft_params") is not None else self.params)
         t = {k: self._ints(batch[k]) for k in (
             "tokens", "positions", "tables", "seq_of_block", "block_qstart",
             "query_offsets", "kv_valid", "token_pages", "token_offs",
             "last_rows")}
+        copy = batch.get("copy_src") is not None
         # The dispatch writes the pools in place: a watchdog-abandoned
         # dispatch must not write after recovery took over.
         with deadlines.commit_guard():
             logits = forward_ragged(
-                self.params, self.cfg, t["tokens"].long(), t["positions"],
+                params, self.cfg, t["tokens"].long(), t["positions"],
                 self.kv.pools, t["tables"], t["seq_of_block"],
                 t["block_qstart"], t["query_offsets"], t["kv_valid"],
                 t["token_pages"], t["token_offs"], t["last_rows"],
+                sample_rows=(self._ints(batch["sample_rows"])
+                             if score_width else None),
                 scales=self.kv.scales, quant_spec=self.kv_quant_spec,
+                copy_src=self._ints(batch["copy_src"]) if copy else None,
+                copy_dst=self._ints(batch["copy_dst"]) if copy else None,
                 lora=self._lora_args(batch["token_adapter"]), mesh=self.mesh)
         self._note_kv_quant("ragged", kernel=True)
-        if batch["greedy"]:
+        if score_width:
+            nxt = sample_positions(
+                logits, self._generator,
+                torch.as_tensor(batch["temps"], device=self.device),
+                torch.as_tensor(batch["top_ks"], device=self.device),
+                torch.as_tensor(batch["top_ps"], device=self.device),
+                greedy=batch["greedy"])
+        elif batch["greedy"]:
             nxt = torch.argmax(logits, dim=-1)
         else:
             nxt = sample_token_batch(
@@ -1199,10 +1422,101 @@ class InferenceEngine:
         path = self.ragged_path
         self._ragged_dispatches[path] = \
             self._ragged_dispatches.get(path, 0) + 1
-        self._ragged_recent.append({"path": path,
-                                    "tokens": int(batch["n_tokens"]),
-                                    "seqs": int(batch["n_seqs"])})
+        entry = {"path": path, "tokens": int(batch["n_tokens"]),
+                 "seqs": int(batch["n_seqs"])}
+        if score_width:
+            entry["spec"] = True
+        if batch.get("draft"):
+            entry["draft"] = True
+        self._ragged_recent.append(entry)
+        if propose_width:
+            # A propose dispatch's logits are [S, V]: each row's top ids,
+            # best first, seed the token tree's root branches.
+            tops = torch.topk(logits, propose_width, dim=-1).indices
+            return nxt.to(torch.int32), tops.to(torch.int32)
         return nxt.to(torch.int32)
+
+    # --- speculative-decoding provenance ---
+
+    def note_spec_dispatch(self, drafted: int, accepted: int,
+                           rows: int, tree_nodes: int = 0,
+                           tree_rows: int = 0) -> None:
+        """Record one verify dispatch's acceptance outcome (the scheduler
+        computes it after the read): the engine's provenance and the
+        registry's `roundtable_spec_*` series, labelled by drafter."""
+        from ..utils import telemetry
+        self._spec_drafted += drafted
+        self._spec_accepted += accepted
+        self._spec_dispatches += 1
+        self._spec_tree_nodes += tree_nodes
+        self._spec_tree_rows += tree_rows
+        drafter = self.spec_drafter or "ngram"
+        # Per-drafter totals: the labelled acceptance gauge reports this
+        # drafter's rate, not the blend with an earlier one's.
+        d_tot = self._spec_by_drafter.setdefault(drafter, [0, 0])
+        d_tot[0] += drafted
+        d_tot[1] += accepted
+        if self._spec_recent is not None:
+            entry = {"drafted": drafted, "accepted": accepted,
+                     "rows": rows, "path": self.ragged_path,
+                     "drafter": drafter}
+            if tree_rows:
+                entry["tree_rows"] = tree_rows
+                entry["tree_nodes"] = tree_nodes
+            self._spec_recent.append(entry)
+        spec_mod.note_spec_dispatch(drafted, accepted)
+        name = self.cfg.name
+        if drafted:
+            telemetry.inc("roundtable_spec_drafted_tokens_total",
+                          drafted, engine=name, drafter=drafter)
+            telemetry.inc("roundtable_spec_rejected_tokens_total",
+                          drafted - accepted, engine=name,
+                          drafter=drafter)
+        if accepted:
+            telemetry.inc("roundtable_spec_accepted_tokens_total",
+                          accepted, engine=name, drafter=drafter)
+        if tree_nodes:
+            telemetry.inc("roundtable_spec_tree_nodes_total",
+                          tree_nodes, engine=name, drafter=drafter)
+        if d_tot[0]:
+            telemetry.set_gauge(
+                "roundtable_spec_acceptance_rate",
+                d_tot[1] / d_tot[0], engine=name, drafter=drafter)
+
+    def note_spec_throttle(self) -> None:
+        self._spec_throttled += 1
+
+    def spec_describe(self) -> dict[str, Any]:
+        """Speculative-decoding provenance (the JAX engine's keys): the
+        resolved state, the active drafter and why a configured one fell
+        back, the tree shape, the cumulative drafted/accepted counts and
+        the recent per-dispatch ring."""
+        rate = (self._spec_accepted / self._spec_drafted
+                if self._spec_drafted else None)
+        dd = self.spec_device_drafter
+        return {
+            "enabled": self.spec_decode,
+            "reason": self.spec_reason,
+            "drafter": self.spec_drafter,
+            "drafter_reason": self.spec_drafter_reason,
+            "tree": (dict(self.spec_tree) if self.spec_tree else None),
+            "max_draft": self.spec_max_draft,
+            "verify_dispatches": self._spec_dispatches,
+            "drafted_tokens": self._spec_drafted,
+            "accepted_tokens": self._spec_accepted,
+            "rejected_tokens": self._spec_drafted - self._spec_accepted,
+            "acceptance_rate": (round(rate, 3)
+                                if rate is not None else None),
+            "throttled_rows": self._spec_throttled,
+            "by_drafter": {k: {"drafted": v[0], "accepted": v[1]}
+                           for k, v in self._spec_by_drafter.items()},
+            "tree_nodes": self._spec_tree_nodes,
+            "tree_rows": self._spec_tree_rows,
+            "draft_dispatches": (dd.draft_dispatches
+                                 if dd is not None else 0),
+            "recent": (list(self._spec_recent)[-8:]
+                       if self._spec_recent is not None else []),
+        }
 
     def _note_kv_quant(self, seam: str, kernel: bool) -> None:
         """Record one serving dispatch that read quantized pages: `kernel`
@@ -1433,6 +1747,7 @@ class InferenceEngine:
                          "paged_decode": ("pool-direct" if self.paged_direct
                                           else "gather-view"),
                          "ragged": self.ragged_describe(),
+                         "spec_decode": self.spec_describe(),
                          "kv_quant": self.kv_quant_describe()})
             if not self.paged_direct:
                 info["attention_kernels"] = "none"

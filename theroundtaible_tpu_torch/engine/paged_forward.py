@@ -11,8 +11,10 @@ causal/valid frontier. Block wiring (norms, residuals, MLP, family flags)
 comes from models/common.transformer_block through its attn_fn hook.
 
 forward_ragged serves the scheduler's mixed dispatches: every sequence's
-prefill chunk or decode token in one flat buffer
-(serving_loop.build_ragged_batch), attending through K3.
+prefill chunk, decode token or speculative verify run in one flat buffer
+(serving_loop.build_ragged_batch), attending through K3; a verify
+dispatch scores several rows per sequence (`sample_rows`) and, for tree
+paths, copies frontier pages first (`copy_src`/`copy_dst`).
 
 Quantized pools (`scales`, `quant_spec`: kv_quant): each written token's
 K/V is quantized on write (kv_quant.quantize_cells, its own per-cell
@@ -209,18 +211,22 @@ def forward_ragged(
     layer writes the buffer's K/V into the owning sequences' pages in place
     (quantized on write when `scales` is given; pads land on the scratch
     page, never read), then attends through K3 (`plain=True`: its plain
-    version, and those of K5/K6 for int4 weights, on any device). Returns f32 per-sequence last-token logits
-    [S,V], gathered before the head; the inert pad sequence's row is
-    garbage the caller drops.
+    version, and those of K5/K6 for int4 weights, on any device). Returns
+    f32 per-sequence last-token logits [S,V], gathered before the head;
+    the inert pad sequence's row is garbage the caller drops.
 
-    Speculative verify rows (`sample_rows`) and tree pre-copies
-    (`copy_src`/`copy_dst`) are not ported."""
-    if sample_rows is not None or copy_src is not None \
-            or copy_dst is not None:
-        raise NotImplementedError(
-            "sample_rows/copy_src/copy_dst (speculative verify) are not "
-            "ported to the PyTorch engine yet (ROADMAP, slice 7: "
-            "speculative decoding)")
+    `sample_rows` [S, R] (the speculative verify): score R flat rows per
+    sequence instead of one, so each speculating row's whole ``[last,
+    drafts...]`` run gets logits in this one forward; the causal mask
+    makes each position's logits what 1-token decode would compute given
+    the accepted prefix. Returns f32 [S, R, V]; the head runs on the S*R
+    gathered rows.
+
+    `copy_src`/`copy_dst` [C] (tree verify): whole pages copied pool to
+    pool in each layer before that layer's K/V write (scales with their
+    pages on a quantized pool), which gives each tree path's private
+    frontier page the committed cells its causal reads need; pads are
+    scratch-page self-copies."""
     if plain:
         params = plain_weights(params)
     bits = quant_spec.bits if quant_spec is not None else 8
@@ -228,6 +234,10 @@ def forward_ragged(
     pos2 = positions[None]
     pages = token_pages.long()
     offs = token_offs.long()
+    if (copy_src is None) != (copy_dst is None):
+        raise ValueError("copy_src and copy_dst come together")
+    if copy_src is not None:
+        csrc, cdst = copy_src.long(), copy_dst.long()
     tp = _model_tp(mesh)
     if tp is not None:
         spmd = (kattn.ragged_paged_spmd_ref if plain
@@ -249,6 +259,12 @@ def forward_ragged(
                     v_sc=v_sc):
             q, k, v = project_qkv(h, layer, cfg, pos2, tabs, lora,
                                   mesh)                    # [1,T,.,D]
+            if copy_src is not None:
+                # Gather every source before any write, as JAX's
+                # simultaneous .at[dst].set(pool[src]).
+                for pool in ((k_pool, v_pool) if k_sc is None
+                             else (k_pool, v_pool, k_sc, v_sc)):
+                    pool.index_copy_(0, cdst, pool.index_select(0, csrc))
             _write_kv(k_pool, v_pool, k_sc, v_sc, pages, offs, k[0], v[0],
                       quant_spec)
             out = attend(q[0], k_pool, v_pool, tables, seq_of_block,
@@ -262,6 +278,10 @@ def forward_ragged(
                                  attn_fn=attn_fn, lora=lora, mesh=mesh)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps,
                  cfg.rmsnorm_unit_offset)
+    if sample_rows is not None:
+        s, r = sample_rows.shape
+        sel = x[:, sample_rows.reshape(-1).long()]            # [1, S*R, E]
+        return lm_head(params, cfg, sel, mesh)[0].reshape(s, r, -1)
     return lm_head(params, cfg, x[:, last_rows.long()], mesh)[0]
 
 

@@ -242,6 +242,35 @@ class PagedKVCache:
                 "max_new_tokens")
         return self._free.pop(0)
 
+    # --- raw page loans (tree verify's private path pages) ---
+
+    def take_free_pages(self, n: int) -> Optional[list[int]]:
+        """Borrow `n` pages from the free list only: never evicts a slot,
+        so a borrower that can do without (the tree verify degrades a row
+        to chain speculation) cannot destroy resident state to get them.
+        None when the free list is short."""
+        if len(self._free) < n:
+            return None
+        return [self._free.pop(0) for _ in range(n)]
+
+    def give_back_pages(self, pages: list[int]) -> None:
+        """Return pages taken by take_free_pages (or adopted-and-replaced
+        pages): a plain decref, so a page swapped into a slot's table
+        meanwhile is not freed under it."""
+        for p in pages:
+            self._decref(p)
+
+    def swap_in_page(self, name: str, j: int, page: int) -> None:
+        """Replace slot `name`'s logical page j with `page`, whose cells
+        already hold the position range's K/V (the tree verify's accepted
+        path: its private page was copied from the old frontier page in
+        the dispatch, then received the accepted tokens' writes). The old
+        page decrefs, and the loaned page's reference becomes the slot's
+        mapping reference."""
+        state = self._slots[name]
+        self._decref(state.pages[j])
+        state.pages[j] = page
+
     # --- prefix bookkeeping ---
 
     @staticmethod

@@ -125,3 +125,21 @@ def sample_token_batch(logits: torch.Tensor,
     gumbel = -torch.log(-torch.log(torch.clamp(u, min=tiny)))
     sampled = torch.argmax(masked + gumbel, dim=-1)
     return torch.where(temps <= 0.0, greedy, sampled)
+
+
+def sample_positions(logits: torch.Tensor,
+                     generator: Optional[torch.Generator],
+                     temps: torch.Tensor, top_ks: torch.Tensor,
+                     top_ps: torch.Tensor, greedy: bool) -> torch.Tensor:
+    """A speculative verify's tokens: logits [S, R, V] f32 -> [S, R] ids,
+    one per scored position - the argmax, or a draw through
+    sample_token_batch with each sequence's temperature, top-k and top-p
+    repeated R times (one draw of S*R independent rows)."""
+    s, r, v = logits.shape
+    if greedy:
+        return torch.argmax(logits, dim=-1)
+    return sample_token_batch(
+        logits.reshape(s * r, v), generator,
+        torch.repeat_interleave(temps, r),
+        torch.repeat_interleave(top_ks, r),
+        torch.repeat_interleave(top_ps, r)).reshape(s, r)

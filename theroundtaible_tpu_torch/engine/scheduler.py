@@ -42,11 +42,19 @@ continuously instead:
   waits (backpressure). Rows of different personas share one decode
   segment (one adapter slot per row) and one ragged dispatch (one per
   token).
+- **Speculative decoding.** On a speculating engine each row carries a
+  RowSpec (engine/spec_decode.py). With no row filling and some row
+  drafting, a tick is one verify dispatch: every row's ``[last,
+  drafts...]`` run (tree rows: one run per candidate path, on loaned
+  pages) is scored in one ragged forward and each row commits its
+  accepted prefix plus one token; otherwise the plain segments serve. The
+  adaptive throttle stops a row whose drafts are rarely accepted.
 
 Not ported here (each parameter that asks for one raises, naming its
-ROADMAP item): speculative decoding, host-RAM spill, the
+ROADMAP item): host-RAM spill, the
 session journal, the supervisor, streaming `on_commit`, replica labels,
-and the telemetry registry series and spans. The engine's pools are
+and the telemetry registry series and spans (but the `roundtable_spec_*`
+ones). The engine's pools are
 updated in place and never donated, so no dispatch failure takes the
 whole pool down with it: the JAX scheduler's revive-and-fail-all rung has
 nothing to do here.
@@ -63,6 +71,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from ..utils import telemetry
 from . import deadlines
 from .kvcache import scoped_slot
 from .paging import SCRATCH_PAGE
@@ -156,6 +165,9 @@ class _Row:
     # LoRA adapter slot of this row (0 = base): a value, so rows of
     # different personas share one segment.
     adapter_slot: int = 0
+    # Speculative decoding: the row's drafter and throttle
+    # (spec_decode.RowSpec); None on engines without speculation.
+    spec: Optional[Any] = None
 
 
 class _Request:
@@ -167,7 +179,8 @@ class _Request:
                  "turn_budget", "dec_budget", "abandoned", "seg_count",
                  "occ_sum", "occ_max", "sess_max", "requeues",
                  "fits_below", "first_token_at", "share_plans",
-                 "adapters", "adapters_held")
+                 "adapters", "adapters_held", "spec_drafted",
+                 "spec_accepted")
 
     def __init__(self, session, turns, sampling_per_turn, max_new,
                  timeout_s, budget, stats, adapters=None):
@@ -204,6 +217,9 @@ class _Request:
         # acquire() took the residency refs, so release runs exactly once.
         self.adapters = adapters
         self.adapters_held = False
+        # This request's drafted / accepted totals (stats.sched["spec"]).
+        self.spec_drafted = 0
+        self.spec_accepted = 0
 
 
 class SessionScheduler:
@@ -274,6 +290,8 @@ class SessionScheduler:
         self.ragged_joins = 0
         self.segment_prefill_tokens = 0
         self.segment_decode_tokens = 0
+        # Speculative verify dispatches issued.
+        self.spec_segments = 0
         self._occupancy: deque[int] = deque(maxlen=_OCCUPANCY_LOG_CAP)
         self._events: deque[dict] = deque(maxlen=_EVENT_LOG_CAP)
         self._thread = threading.Thread(
@@ -452,8 +470,8 @@ class SessionScheduler:
 
     def describe(self) -> dict[str, Any]:
         """Scheduler provenance for engine.describe(): the JAX
-        scheduler's keys. Keys of unported parts (spill, journal,
-        speculation) read 0 or None."""
+        scheduler's keys. Keys of unported parts (spill, journal) read 0
+        or None."""
         with self._cv:
             occ = list(self._occupancy)
             events = list(self._events)
@@ -469,7 +487,7 @@ class SessionScheduler:
             "segments": self.segments,
             "ragged_segments": self.ragged_segments,
             "ragged_joins": self.ragged_joins,
-            "spec_segments": 0,
+            "spec_segments": self.spec_segments,
             "segment_prefill_tokens": self.segment_prefill_tokens,
             "segment_decode_tokens": self.segment_decode_tokens,
             "queued": len(self._queue),
@@ -568,7 +586,11 @@ class SessionScheduler:
             # filling rows' chunks ride the same dispatch.
             self._run_ragged_segment(live, filling)
         elif live:
-            self._run_segment(live)
+            # With no fills pending and drafts available, one verify
+            # dispatch advances every row by 1..spec_max_draft+1 tokens;
+            # otherwise the plain segments serve.
+            if not self._run_spec_segment(live):
+                self._run_segment(live)
         self._retire_finished()
         self._check_request_health()
 
@@ -779,6 +801,16 @@ class SessionScheduler:
                     done=(tok == eos),
                     adapter_slot=(row_slots[i] if row_slots else 0)))
         req.rows = rows
+        if getattr(engine, "spec_decode", False):
+            # Per-row drafters: the n-gram corpus is the row's own prompt,
+            # extended as output tokens commit. Device drafters keep their
+            # state in the draft slots instead (a later hot swap to ngram
+            # builds the index lazily in _spec_drafts).
+            from .spec_decode import RowSpec
+            kind = getattr(engine, "spec_drafter", None) or "ngram"
+            for r in rows:
+                r.spec = RowSpec(
+                    list(r.tokens) if kind == "ngram" else None, kind=kind)
         if deferred:
             # Laggard rows block until the leader's chunks have written
             # the common span, then alias it in (_apply_share_plans).
@@ -874,6 +906,12 @@ class SessionScheduler:
         with self._cv:
             if self._queue:
                 return False
+        if self._spec_drafts([r for r in ctx["rows"] if not r.done],
+                             probe=True) is not None:
+            # A verify tick is available: another whole segment would
+            # decode past it at one token per forward, so exit and let
+            # _tick run the speculative phase.
+            return False
         for req in ctx["reqs"]:
             if req not in self._active_reqs or req.abandoned:
                 return False
@@ -1098,6 +1136,332 @@ class SessionScheduler:
                 continue
             req.stats.decode_seconds += time.monotonic() - t0
 
+    # --- the speculative verify segment ---
+
+    def _spec_drafts(self, live: list[_Row], probe: bool = False,
+                     dispatch=None, read=None) -> Optional[dict]:
+        """Per-row draft proposals for one verify dispatch: each row whose
+        RowSpec should_draft (unthrottled, or throttled and re-probing)
+        proposes up to `branch` candidate paths (chain: one), capped by
+        its remaining budget (a verify commits up to depth+1 tokens, so a
+        row with <= 1 remaining never drafts). The n-gram drafter proposes
+        on the host per row; model/LoRA drafters batch every row through
+        the engine's DeviceDrafter. Returns {id(row): [path, ...]}, or None
+        when no row drafts: the tick then serves the plain segments.
+        `probe` only asks whether some row drafts."""
+        engine = self.engine
+        if (not getattr(engine, "spec_decode", False)
+                or not engine.ragged_enabled):
+            return None
+        if RAGGED_BLOCK_Q * len(live) > engine.ragged_tokens:
+            return None  # the flat buffer cannot carry every live row
+        tree = engine.spec_tree
+        branch = engine.spec_branch if tree else 1
+        depth = (min(tree["depth"], engine.spec_max_draft) if tree
+                 else engine.spec_max_draft)
+        dd = engine.spec_device_drafter
+
+        def cap_of(r: _Row) -> int:
+            if r.spec is None or not r.spec.should_draft(len(r.produced)):
+                return 0
+            return min(depth, r.max_new - len(r.produced) - 1)
+
+        if dd is not None:
+            from .spec_decode import DraftUnavailable
+            if probe:
+                # Eligibility alone answers the probe: a device drafter
+                # proposes >= 1 token for an eligible row, and a probe
+                # must cost no draft dispatch.
+                return ({"__probe__": True}
+                        if any(cap_of(r) >= 1 for r in live) else None)
+            rows = []
+            for r in live:
+                c = cap_of(r)
+                if c >= 1:
+                    # The row's context cache grows by the newly committed
+                    # tokens only.
+                    cc = r.spec.ctx
+                    if cc is None:
+                        cc = r.spec.ctx = list(r.tokens)
+                    need = len(r.tokens) + len(r.produced)
+                    if len(cc) < need:
+                        cc.extend(r.produced[len(cc) - len(r.tokens):])
+                    rows.append((id(r), r.name, cc, c, branch))
+            if not rows:
+                return None
+            pinned = tuple(r.name for r in self._active)
+            try:
+                proposals = dd.propose(engine, rows, pinned=pinned,
+                                       dispatch=dispatch, read=read)
+            except DraftUnavailable as e:
+                # Slot or page pressure only: serve plain decode this tick
+                # (never evict live rows to draft for them). Device
+                # failures propagate to _run_spec_segment's ladder.
+                self._event("spec_draft_unavailable", error=str(e)[:160])
+                return None
+            drafts = {id(r): proposals.get(id(r), []) for r in live}
+            return drafts if any(drafts.values()) else None
+
+        drafts: dict[int, list[list[int]]] = {}
+        any_draft = False
+        for r in live:
+            paths: list[list[int]] = []
+            cap = cap_of(r)
+            if cap >= 1:
+                if r.spec.drafter is None:
+                    # Hot-swapped from a device drafter to ngram: build this
+                    # row's index now.
+                    from .spec_decode import NGramDrafter
+                    r.spec.drafter = NGramDrafter(list(r.tokens))
+                    r.spec.kind = "ngram"
+                r.spec.drafter.sync_parts(r.tokens, r.produced)
+                if branch > 1:
+                    paths = r.spec.drafter.draft_paths(cap, branch)
+                else:
+                    d = r.spec.drafter.draft(cap)
+                    paths = [d] if d else []
+                if not paths and not probe:
+                    # The drafter proposed nothing: a probing row waits a
+                    # whole interval again (no-op for unthrottled rows).
+                    r.spec.probe_failed(len(r.produced))
+            drafts[id(r)] = paths
+            if paths:
+                any_draft = True
+                if probe:
+                    return drafts
+        return drafts if any_draft else None
+
+    def _run_spec_segment(self, live: list[_Row]) -> bool:
+        """One speculative verify dispatch over the live rows: every
+        speculating row packs its candidate paths as short multi-token runs
+        of the flat buffer (draftless or throttled rows ride as 1-token
+        runs), forward_ragged scores every draft position in one forward,
+        and the host walks the accepted chain or tree path and commits it
+        plus the correction/bonus token.
+
+        Tree rows: path 0 (the main chain) writes through the row's own
+        page table; each extra root branch becomes one more sequence whose
+        table swaps the touched pages for pages loaned from the free list
+        (take_free_pages - never evicting; a short free list degrades the
+        row to the chain), the partly committed frontier page copied into
+        the loan in the dispatch (copy_pairs) so every path's reads see the
+        committed cells. When the walk ends on a non-trunk path its loaned
+        pages hold the committed K/V: swap_in_page adopts them and the
+        trunk's pages go back; every other loan returns untouched.
+
+        Returns False without dispatching when no row drafts. A dispatch
+        failure returns every loan and takes the ragged failure ladder
+        (host state is untouched)."""
+        engine = self.engine
+        reqs = self._reqs_of(live)
+        remaining = min((req.turn_budget.remaining() for req in reqs),
+                        default=float("inf"))
+        seg_budget = deadlines.Budget.root(
+            None if remaining == float("inf") else remaining,
+            rung="decode")
+        deadline = min((req.deadline for req in reqs),
+                       default=float("inf"))
+
+        def draft_dispatch(b):
+            # Draft dispatches ride the verify's watchdog/retry/budget
+            # seams: a hang mid-propose hits the deadline ladder.
+            return run_dispatch(lambda: engine._ragged_dispatch(b),
+                                engine.retry, deadline, budget=seg_budget)
+
+        def draft_read(h):
+            from .spec_decode import to_host
+            return host_sync(lambda: to_host(h), seg_budget, "decode")
+
+        try:
+            drafts_of = self._spec_drafts(live, dispatch=draft_dispatch,
+                                          read=draft_read)
+        except Exception as e:  # noqa: BLE001 - preempt-isolate ladder
+            # A device failure while drafting is a decode failure.
+            self._handle_ragged_failure(live, [], e)
+            return True
+        if drafts_of is None:
+            return False
+
+        kv = engine.kv
+        ps = kv.page_size
+        # Main runs first, then extra tree paths while the flat buffer, the
+        # copy slots and the free list allow.
+        seqs: list[RaggedSeq] = []
+        entries: list[dict] = []
+        copy_pairs: list[tuple[int, int]] = []
+        blocks_budget = engine.ragged_tokens // RAGGED_BLOCK_Q
+        copy_budget = engine.spec_copy_slots
+        for r in live:
+            paths = drafts_of.get(id(r)) or []
+            main = list(paths[0]) if paths else []
+            entries.append({"row": r, "used": ([main] if paths else []),
+                            "rows_idx": [len(seqs)], "loans": []})
+            seqs.append(RaggedSeq(
+                [r.last] + main, r.valid, kv.table_for([r.name])[0],
+                temperature=r.sampling.temperature,
+                top_k=r.sampling.top_k, top_p=r.sampling.top_p,
+                n_scores=len(main) + 1, adapter=r.adapter_slot))
+        for e in entries:
+            r = e["row"]
+            paths = drafts_of.get(id(r)) or []
+            if len(paths) <= 1:
+                continue
+            base_table = kv.table_for([r.name])[0]
+            for p in paths[1:]:
+                if len(seqs) >= blocks_budget or copy_budget <= 0:
+                    break
+                lo = r.valid // ps
+                hi = (r.valid + len(p)) // ps
+                loan = kv.take_free_pages(hi - lo + 1)
+                if loan is None:
+                    break  # free list short: this row degrades to chain
+                ptable = np.array(base_table, copy=True)
+                ptable[lo:hi + 1] = loan
+                # Only the frontier page holds committed cells the path
+                # reads; deeper pages start past `valid`.
+                copy_pairs.append((int(base_table[lo]), loan[0]))
+                copy_budget -= 1
+                e["rows_idx"].append(len(seqs))
+                e["loans"].append((lo, loan))
+                e["used"].append(list(p))
+                seqs.append(RaggedSeq(
+                    [r.last] + list(p), r.valid, ptable,
+                    temperature=r.sampling.temperature,
+                    top_k=r.sampling.top_k, top_p=r.sampling.top_p,
+                    n_scores=len(p) + 1, adapter=r.adapter_slot))
+
+        def return_all_loans():
+            for e in entries:
+                for _lo, loan in e["loans"]:
+                    kv.give_back_pages(loan)
+
+        shape = ragged_pick_shape(
+            engine.ragged_shapes,
+            min(RAGGED_BLOCK_Q * len(seqs), engine.ragged_tokens))
+        batch = build_ragged_batch(
+            seqs, t_budget=shape, s_max=engine.spec_s_max,
+            pages_per_seq=kv.pages_per_seq, scratch_page=SCRATCH_PAGE,
+            pad_id=engine.tokenizer.pad_id, page_size=ps,
+            score_width=engine.spec_max_draft + 1,
+            copy_pairs=copy_pairs, copy_slots=engine.spec_copy_slots)
+
+        t0 = time.monotonic()
+        try:
+            handles = run_dispatch(lambda: engine._ragged_dispatch(batch),
+                                   engine.retry, deadline,
+                                   budget=seg_budget)
+            nxt = host_sync(lambda: handles.cpu().numpy(), seg_budget,
+                            "decode")
+        except Exception as e:  # noqa: BLE001 - preempt-isolate ladder
+            # Host state is untouched (the drafts go with the dispatch and
+            # the loans back to the free list).
+            return_all_loans()
+            self._handle_ragged_failure(live, [], e)
+            return True
+        wall = time.monotonic() - t0
+
+        from .spec_decode import accept_prefix, accept_tree, note_tree_row
+        eos = engine.tokenizer.eos_id
+        n_emit = lora_toks = 0
+        drafted_tot = accepted_tot = 0
+        tree_nodes_tot = tree_rows_tot = 0
+        emits: dict[int, tuple[_Request, int]] = {}
+        for e in entries:
+            r = e["row"]
+            used = e["used"]
+            if len(used) <= 1:
+                d = used[0] if used else []
+                props = [int(x) for x in nxt[e["rows_idx"][0], :len(d) + 1]]
+                emit, a = accept_prefix(d, props)
+                winner = 0
+                drafted_row = len(d)
+            else:
+                props_list = [[int(x) for x in nxt[si, :len(used[k]) + 1]]
+                              for k, si in enumerate(e["rows_idx"])]
+                emit, a, winner = accept_tree(used, props_list)
+                drafted_row = sum(len(p) for p in used)
+            # EOS inside an accepted prefix truncates as eos_trim does, and
+            # the row's budget caps the rest.
+            if eos in emit:
+                emit = emit[:emit.index(eos) + 1]
+            room = r.max_new - len(r.produced)
+            if len(emit) > room:
+                emit = emit[:room]
+            r.produced.extend(emit)
+            if emit:
+                r.last = emit[-1]
+            r.valid += len(emit)
+            r.done = (r.last == eos) or len(r.produced) >= r.max_new
+            if r.adapter_slot:
+                lora_toks += len(emit)
+            # Accepted = drafts actually committed (eos or budget
+            # truncation can drop matched drafts).
+            acc = min(a, len(emit))
+            if e["loans"]:
+                # The winner path's pages over the committed span adopt
+                # into the row's table; everything else returns. Winner 0
+                # is the trunk, whose writes went through the real table.
+                for m, (lo, loan) in enumerate(e["loans"]):
+                    if m == winner - 1:
+                        keep_hi = (r.valid - 1) // ps
+                        for k, j in enumerate(range(lo, lo + len(loan))):
+                            if j <= keep_hi:
+                                kv.swap_in_page(r.name, j, loan[k])
+                            else:
+                                kv.give_back_pages([loan[k]])
+                    else:
+                        kv.give_back_pages(loan)
+            if len(used) > 1:
+                tree_nodes_tot += drafted_row
+                tree_rows_tot += 1
+                note_tree_row(drafted_row, acc)
+            req = self._row_req.get(id(r))
+            if req is not None:
+                prev = emits.get(id(req))
+                emits[id(req)] = (req,
+                                  (prev[1] if prev else 0) + len(emit))
+                if drafted_row:
+                    req.spec_drafted += drafted_row
+                    req.spec_accepted += acc
+            n_emit += len(emit)
+            if drafted_row and r.spec is not None:
+                drafted_tot += drafted_row
+                accepted_tot += acc
+                tripped = r.spec.note(drafted_row, acc)
+                if r.spec.disabled:
+                    # Throttled (now or still): restart the re-probe
+                    # interval from the row's committed length.
+                    r.spec.mark_idle(len(r.produced))
+                telemetry.set_gauge(
+                    "roundtable_spec_row_acceptance_rate",
+                    round(r.spec.rate(), 4), engine=engine.cfg.name,
+                    row=r.name)
+                if tripped:
+                    engine.note_spec_throttle()
+                    self._event("spec_throttle", row=r.name,
+                                rate=round(r.spec.rate(), 3))
+        engine.note_lora_tokens(lora_toks)
+        engine.note_spec_dispatch(drafted_tot, accepted_tot, rows=len(live),
+                                  tree_nodes=tree_nodes_tot,
+                                  tree_rows=tree_rows_tot)
+
+        self.spec_segments += 1
+        self._note_segment_tokens(0, n_emit)
+        occ = len(seqs)
+        self.max_occupancy = max(self.max_occupancy, occ)
+        with self._cv:
+            self._occupancy.append(occ)
+        _note_rows(occ)
+        sessions = len(reqs)
+        for req, n in emits.values():
+            req.stats.decode_seconds += wall * n / max(n_emit, 1)
+        for req in reqs:
+            req.seg_count += 1
+            req.occ_sum += occ
+            req.occ_max = max(req.occ_max, occ)
+            req.sess_max = max(req.sess_max, sessions)
+        return True
+
     # --- decode batches ---
 
     def _reqs_of(self, rows: list[_Row]) -> list[_Request]:
@@ -1306,8 +1670,18 @@ class SessionScheduler:
     def _drop_request(self, req: _Request) -> None:
         if req in self._active_reqs:
             self._active_reqs.remove(req)
+        dd = getattr(self.engine, "spec_device_drafter", None)
         for r in req.rows:
             self._row_req.pop(id(r), None)
+            if dd is not None:
+                # The row's draft slot dies with it: its pages free, and a
+                # later session reusing the name starts its drafter cold.
+                dd.end_row(self.engine, r.name)
+            if r.spec is not None and r.spec.drafted:
+                # A retired row's gauge series goes with it.
+                telemetry.remove_gauge(
+                    "roundtable_spec_row_acceptance_rate",
+                    engine=self.engine.cfg.name, row=r.name)
         self._active = [r for r in self._active if r not in req.rows]
 
     # --- retirement ---
@@ -1346,6 +1720,13 @@ class SessionScheduler:
                 # sampled token.
                 req.stats.sched["ttft_s"] = round(
                     req.first_token_at - req.enqueued, 3)
+            if req.spec_drafted:
+                req.stats.sched["spec"] = {
+                    "drafted": req.spec_drafted,
+                    "accepted": req.spec_accepted,
+                    "acceptance_rate": round(
+                        req.spec_accepted / req.spec_drafted, 3),
+                }
             if req.adapters and any(a is not None for a in req.adapters):
                 # Which persona served each knight of the round.
                 req.stats.sched["lora_adapters"] = list(req.adapters)

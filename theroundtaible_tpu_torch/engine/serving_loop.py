@@ -269,24 +269,28 @@ def decode_segments(
 
 class RaggedSeq:
     """One sequence's slice of a ragged dispatch: the tokens it feeds this
-    call (a prefill chunk, or the single last-sampled token of a decode
-    row), the absolute position of the first one, its page-table row, its
-    sampling params and its LoRA adapter slot (`adapter`, 0 = the base
-    model: the flat buffer mixes adapters, so the slot rides per token).
-    The JAX field `n_scores` (speculative verify) comes with its slice."""
+    call (a prefill chunk, the single last-sampled token of a decode row,
+    or a speculative ``[last, drafts...]`` verify run), the absolute
+    position of the first one, its page-table row, its sampling params and
+    its LoRA adapter slot (`adapter`, 0 = the base model: the flat buffer
+    mixes adapters, so the slot rides per token). `n_scores` is how many
+    trailing token rows the dispatch scores: 1 for plain rows, drafts + 1
+    for a verify run."""
 
     __slots__ = ("tokens", "pos", "table", "temperature", "top_k",
-                 "top_p", "adapter")
+                 "top_p", "n_scores", "adapter")
 
     def __init__(self, tokens: list[int], pos: int, table: np.ndarray,
                  temperature: float = 0.0, top_k: int = 0,
-                 top_p: float = 1.0, adapter: int = 0):
+                 top_p: float = 1.0, n_scores: int = 1,
+                 adapter: int = 0):
         self.tokens = tokens
         self.pos = pos
         self.table = table
         self.temperature = temperature
         self.top_k = top_k
         self.top_p = top_p
+        self.n_scores = n_scores
         self.adapter = adapter
 
 
@@ -312,14 +316,17 @@ def build_ragged_batch(seqs: list[RaggedSeq], *, t_budget: int,
     [s_max, ...], token_adapter [t_budget] (each real token's sequence
     adapter slot; pad tokens keep 0, the base), `greedy`, and the
     accounting fields
-    n_seqs/n_tokens. Speculative verify (`score_width`) and tree copies
-    (`copy_pairs`/`copy_slots`) belong to speculative decoding, which is
-    not ported."""
-    if score_width or copy_pairs or copy_slots:
-        raise NotImplementedError(
-            "score_width/copy_pairs (speculative verify) are not ported to "
-            "the PyTorch engine yet (ROADMAP, slice 7: speculative "
-            "decoding)")
+    n_seqs/n_tokens.
+
+    `score_width` > 0 (the speculative verify): the dict also carries
+    `sample_rows` [s_max, score_width], for each sequence the flat rows of
+    its last n_scores tokens (pad columns repeat the last row; their
+    scores are computed and dropped). `copy_slots` > 0 (tree verify): it
+    also carries `copy_src`/`copy_dst` [copy_slots], whole pages the
+    dispatch copies before its K/V writes (a tree path's private copy of
+    the row's partly committed frontier page), padded with scratch-page
+    self-copies. Every shape follows from (t_budget, s_max, score_width,
+    copy_slots) alone."""
     bq = RAGGED_BLOCK_Q
     if t_budget % bq:
         raise ValueError(f"t_budget {t_budget} not a multiple of {bq}")
@@ -344,6 +351,21 @@ def build_ragged_batch(seqs: list[RaggedSeq], *, t_budget: int,
     temps = np.ones(s_max, np.float32)
     top_ks = np.zeros(s_max, np.int32)
     top_ps = np.ones(s_max, np.float32)
+    sample_rows = (np.zeros((s_max, score_width), np.int32)
+                   if score_width > 0 else None)
+    copy_src = copy_dst = None
+    if copy_slots > 0:
+        pairs = list(copy_pairs or [])
+        if len(pairs) > copy_slots:
+            raise ValueError(
+                f"{len(pairs)} copy pairs > copy_slots {copy_slots}")
+        copy_src = np.full(copy_slots, scratch_page, np.int32)
+        copy_dst = np.full(copy_slots, scratch_page, np.int32)
+        for k, (src, dst) in enumerate(pairs):
+            copy_src[k] = src
+            copy_dst[k] = dst
+    elif copy_pairs:
+        raise ValueError("copy_pairs given without copy_slots")
 
     row = 0
     n_tokens = 0
@@ -351,6 +373,12 @@ def build_ragged_batch(seqs: list[RaggedSeq], *, t_budget: int,
         n = len(s.tokens)
         if n < 1:
             raise ValueError("RaggedSeq needs at least one token")
+        if s.n_scores < 1 or s.n_scores > n:
+            raise ValueError(
+                f"n_scores {s.n_scores} outside 1..{n} (run length)")
+        if score_width and s.n_scores > score_width:
+            raise ValueError(
+                f"n_scores {s.n_scores} > score_width {score_width}")
         span = -(-n // bq) * bq
         if row + span > t_budget:
             raise ValueError(
@@ -374,6 +402,10 @@ def build_ragged_batch(seqs: list[RaggedSeq], *, t_budget: int,
         query_offsets[i] = s.pos
         kv_valid[i] = s.pos + n
         last_rows[i] = row + n - 1
+        if sample_rows is not None:
+            first = row + n - s.n_scores
+            sample_rows[i] = np.minimum(first + np.arange(score_width),
+                                        row + n - 1)
         temps[i] = s.temperature
         top_ks[i] = s.top_k
         top_ps[i] = s.top_p
@@ -390,6 +422,10 @@ def build_ragged_batch(seqs: list[RaggedSeq], *, t_budget: int,
         "greedy": all(s.temperature <= 0.0 for s in seqs),
         "n_seqs": len(seqs), "n_tokens": n_tokens,
         "score_width": score_width,
+        **({"sample_rows": sample_rows} if sample_rows is not None
+           else {}),
+        **({"copy_src": copy_src, "copy_dst": copy_dst}
+           if copy_src is not None else {}),
     }
 
 

@@ -2,15 +2,16 @@
 
 The names the orchestrator, the session metrics and the adapters call:
 `ACTIVE`, `span`, `session_sink`, `current_context`, `attached`, `inc`,
-`observe`, `set_profiling` and `REGISTRY`. The span tracer, its JSONL
+`set_gauge`, `remove_gauge`, `observe`, `set_profiling` and `REGISTRY`. The span tracer, its JSONL
 sinks and the flight recorder are not ported (ROADMAP item 7c), so
 `ACTIVE` is always False: `span()` is the no-op singleton, `attached` a
 no-op, `current_context()` None. What arms telemetry in the JAX package
 (`arm()`, `ROUNDTABLE_TELEMETRY` in the environment) raises
 NotImplementedError here, rather than recording nothing in silence.
 
-The metrics registry stays on, as in the JAX package: counters and
-histograms fire per event (a turn), never per token.
+The metrics registry stays on, as in the JAX package: counters, gauges
+and histograms fire per event (a turn, a verify dispatch), never per
+token.
 """
 
 from __future__ import annotations
@@ -50,17 +51,31 @@ def _label_key(labels: dict[str, Any]) -> tuple:
 
 
 class MetricsRegistry:
-    """Process-wide label-aware counters and histograms."""
+    """Process-wide label-aware counters, gauges and histograms."""
 
     def __init__(self):
         self._lock = threading.Lock()
         self._counters: dict[tuple, float] = {}
+        self._gauges: dict[tuple, float] = {}
         self._hists: dict[tuple, dict] = {}
 
     def inc(self, name: str, value: float = 1.0, **labels) -> None:
         key = (name, _label_key(labels))
         with self._lock:
             self._counters[key] = self._counters.get(key, 0.0) + value
+
+    def set_gauge(self, name: str, value: float, **labels) -> None:
+        key = (name, _label_key(labels))
+        with self._lock:
+            self._gauges[key] = float(value)
+
+    def remove_gauge(self, name: str, **labels) -> None:
+        """Drop one labeled gauge series: a per-entity series whose entity
+        retires (a row) must not stay behind for every entity ever
+        served."""
+        key = (name, _label_key(labels))
+        with self._lock:
+            self._gauges.pop(key, None)
 
     def observe(self, name: str, value: float, **labels) -> None:
         key = (name, _label_key(labels))
@@ -86,6 +101,8 @@ class MetricsRegistry:
         with self._lock:
             for (name, lkey), v in sorted(self._counters.items()):
                 lines.append(f"{name}{fmt(lkey)} {v}")
+            for (name, lkey), v in sorted(self._gauges.items()):
+                lines.append(f"{name}{fmt(lkey)} {v}")
             for (name, lkey), h in sorted(self._hists.items()):
                 cum = 0
                 for bound, n in zip(HIST_BUCKETS + (float("inf"),),
@@ -104,6 +121,14 @@ REGISTRY = MetricsRegistry()
 
 def inc(name: str, value: float = 1.0, **labels) -> None:
     REGISTRY.inc(name, value, **labels)
+
+
+def set_gauge(name: str, value: float, **labels) -> None:
+    REGISTRY.set_gauge(name, value, **labels)
+
+
+def remove_gauge(name: str, **labels) -> None:
+    REGISTRY.remove_gauge(name, **labels)
 
 
 def observe(name: str, value: float, **labels) -> None:
