@@ -84,8 +84,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
              (`scheduler_profiled`) with the first three ragged dispatches
              under torch.profiler (`ragged_profiled`: wall, device time and
              K3's share of it). The phases built from ENGINE_CONFIG pin
-             `spec_decode: false`, so their numbers are the 1-token path's,
-             comparable with runs before speculative decoding.
+             `spec_decode: false`, `prefix_cache: false` and `kv_offload:
+             false`, so their numbers are the 1-token path's without the
+             cache, comparable with runs before speculative decoding and
+             before the prefix cache.
 8a. spec_path - a speculative verify dispatch at full width, 2 layers:
              forward_ragged with `sample_rows` (three rows' runs of 5 at
              1.6k-1.8k cached tokens, one crossing a page end, and two
@@ -106,7 +108,45 @@ Phases, each printing one JSON line; any failure exits non-zero:
              has its drafter, verify dispatches with K3 launched and
              greedy agreement >= 0.9 with the off run, the lora run K7
              launched in its draft dispatches, the model run acceptance
-             >= 0.9, the model tree run tree rows on loaned pages.
+             >= 0.9, the model tree run tree rows on loaned pages. Q1:
+             where a spec run's row first differs from the off run's, the
+             off run's prefix is rerun to that position through K2 and the
+             top-2 logit margin there must be below PATH_TOL, the K3-vs-K1
+             logit difference spec_path allows (`flips`, `flip_margins`).
+8c. prefix_path - the cross-session prefix cache at full width: an engine
+             on the engine phase's weights (32 layers, paged bf16, 8 slots,
+             max_seq_len 8192, page 128, greedy) with the cache on. s1: 3
+             knights whose prompts open with one 3,000-token preamble; s2:
+             the same preamble, its own tails, on this engine and on the
+             engine phase's (cache off). s2 must attach 23 pages per row
+             (hits >= 3, prefix_reused_tokens >= 3 x 23 x 128) aliasing
+             s1's page ids (refcount >= 2), prefill from the page-multiple
+             frontier through K2 and decode through K1, agree >= 0.9 with
+             the cache-off run's greedy tokens and hold its first-position
+             logits within PATH_TOL of them. s3 attaches, then diverges
+             inside preamble page 7 at its next turn: a copy-on-write (or
+             forget), and s1's pages torch.equal to a snapshot taken before
+             s3. s2's prefill tokens, prefill seconds and TTFT (the
+             prefill seconds: the first token is read at its end) beside
+             the cache-off run's.
+8d. offload_path - the host-RAM offload tier at full width: the same
+             weights on a pool cut to 143 pages (2.2 GiB of 16 MiB pages;
+             the engine phase's has 257), the prefix cache off (the tier
+             alone, as JAX's tests isolate it), behind a SessionScheduler
+             with idle_spill_s 12. Session A (3 knights, 2.5k tokens each)
+             serves a round and goes idle; B serves one, C is admitted: A
+             must spill under pressure. A's next turn joins while C
+             decodes: its admission spills B, restores A - its pages,
+             copied to the host before the spill, torch.equal right after
+             the restore - and its delta rides C's ragged dispatches (K3
+             over the restored pages); the turn must reuse its committed
+             transcript less one page per row and agree >= 0.9 with the
+             engine phase's engine (A never leaves its pool) serving the
+             same turns; then a session idle for idle_spill_s spills
+             (reason "idle"). K1, K2 and K3 must launch. Each spill and
+             restore's ms and GB/s beside the host-link bound (nvidia-smi
+             pcie.link.gen/width, else the device's sysfs entry, else the
+             data sheet's Gen5 x16).
 9. contiguous - the paged engine released, TorchLlmAdapter.from_config
              with the engine phase's config minus `kv_layout`: the default
              builds a contiguous engine (same weights, 8 slots of 8192
@@ -145,6 +185,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
              per step beside the unquantized rounds' and the greedy
              agreement with them (reported, not checked); then the profile
              phase on each (quant_int8_profile, quant_int4_profile).
+             offload_int8: on the int8 engine, one 3-knight session
+             spilled to host RAM and restored (a HostOffloadTier over it:
+             its config pins the tier off), int8 payload and f32 scales
+             torch.equal, ms and GB/s per direction beside the host-link
+             bound.
 14. quant_scheduler - the scheduler phase on the int4 engine: K3 must
              launch on int4 pages.
 15. quant_path - 2 layers at full width, int4 weights and int8 pages:
@@ -282,7 +327,10 @@ Then the main path from a checkpoint, in this process again:
              session's transcript (2 rounds x 3 turns), status, discussion
              and metrics written, round 2 reusing tokens, K1 and K2
              launched and no other kernel. Each round's wall, prefill and
-             reused tokens and decode ms per step.
+             reused tokens and decode ms per step. The shipped config
+             keeps the defaults, so the engine builds the prefix cache and
+             the offload tier: their describe() blocks are printed here
+             and in summon and serve.
 
 Then the rest of the CLI through cli.main in the same project, on the same
 resident engine (get_engine dedups it), max_rounds cut to 1. The launch
@@ -291,7 +339,12 @@ launches ride the kernels line (`cli_launches`).
 
 28. summon   - app.py changed and staged; `summon --no-read-code`: rc 0,
              one session whose topic holds the diff preview, one round, K1
-             and K2 launched and no other kernel.
+             and K2 launched and no other kernel. Every page a summon
+             prompt shares with a discuss prompt must be served from the
+             cache (the row's reuse frontier past it): discuss and summon
+             seat the same unscoped knight slots, so the slot's own record
+             serves first and the index only beyond it; the shared pages,
+             frontiers and the index's hits are printed.
 29. serve    - `serve "<topic>" --sessions 2 --no-read-code`: two
              concurrent discussions behind the engine's SessionScheduler,
              speculative decoding on (the default): rc 0, two sessions
@@ -299,7 +352,9 @@ launches ride the kernels line (`cli_launches`).
              admitted (>= 2), max_occupancy (> 3 rows: the sessions shared
              a batch), segments, ragged_joins and spec_segments, the
              engine's spec_describe() counters; K2 launched, K1 or K3 (a
-             verify tick runs K3, a joining session too).
+             verify tick runs K3, a joining session too). serve's sessions
+             scope their slots, so where their prompts share a page with
+             discuss's or summon's the index must serve it (hits > 0).
 30. apply    - a session written with consensus, the torch-llm Lead Knight
              and allowed_files [app.py]; `apply --noparley`: random
              weights emit no RTDIFF/1, so the failure path - rc is
@@ -319,7 +374,8 @@ Run time: 452-624 s on an H100 80GB HBM3 at 700 W with the build (579 s
 with the device-time readings), 659-762 s with phases 26-27, 722.6 s with
 phases 26-32 (phases 27-32 took 38 s), 797.7 s with the verify cases and
 phases 8a-8b (~75 s together; 624.5 s on another machine, whose
-host-bound phases ran faster); no earlier phase was cut.
+host-bound phases ran faster), 741-795 s with phases 8c-8d and
+offload_int8 (~40 s together); no earlier phase was cut.
 
 Then a `{"kernels": [...]}` line, the nvidia-smi line, and last
 `{"ok": true, "device": {...}}`. Details go to chiprun_out/chip_smoke/.
@@ -1386,11 +1442,13 @@ ENGINE_CONFIG = {
     # one knight samples, so the sampled decode path runs too
     "knight_sampling": {"percival": {"temperature": 0.8, "top_k": 40,
                                      "top_p": 0.95}},
-    # The 1-token path: every phase built from this config (the rounds,
-    # profiles, scheduler phases, contiguous, quant, LoRA, TP and
-    # checkpoint phases) keeps numbers comparable with runs before
-    # speculative decoding; spec_scheduler and serve run it.
-    "spec_decode": False}
+    # The 1-token path without the prefix cache and the offload tier:
+    # every phase built from this config (the rounds, profiles, scheduler
+    # phases, contiguous, quant, LoRA, TP and checkpoint phases) keeps
+    # numbers comparable with runs before speculative decoding and before
+    # the cache; spec_scheduler, prefix_path, offload_path and the CLI
+    # phases run them.
+    "spec_decode": False, "prefix_cache": False, "kv_offload": False}
 PAGED_KERNELS = ("paged_decode_attention", "paged_prefill_attention",
                  "ragged_paged_attention")
 CONTIGUOUS_KERNELS = ("flash_prefill_attention", "ragged_decode_attention")
@@ -2134,6 +2192,39 @@ SPEC_KERNELS = ("paged_decode_attention", "paged_prefill_attention",
 SPEC_MAX_NEW = 160
 
 
+def next_token_logits(engine, tokens):
+    """The engine's logits for the token after `tokens`: one prefill from
+    position 0 (K2) on a scratch slot, released after."""
+    name = "__next_token__"
+    engine.kv.ensure_capacity(name, len(tokens), write_from=0)
+    try:
+        logits = engine._prefill([list(tokens)], [0],
+                                 engine.kv.table_for([name]))
+    finally:
+        engine.kv.release(name)
+    return logits[0].float()
+
+
+def first_flips(torch, base, prompts, generated, reference) -> list:
+    """Q1: for each greedy row whose tokens first differ from the spec-off
+    run's at position i, the spec-off prefix rerun to i on `base` and the
+    top-2 margin of its logits there (a near-tie flips when it is below
+    the K3-vs-K1 logit difference, PATH_TOL)."""
+    flips = []
+    for k, p in prompts:
+        a, b = generated[k], reference[k]
+        i = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if i is None:
+            continue
+        logits = next_token_logits(base, base.tokenizer.encode(p) + b[:i])
+        top = torch.topk(logits, 2)
+        flips.append({"knight": k, "position": i, "off_token": b[i],
+                      "spec_token": a[i],
+                      "rerun_top2": [int(x) for x in top.indices],
+                      "margin": float(top.values[0] - top.values[1])})
+    return flips
+
+
 def spec_scheduler_phase(torch, kattn, base):
     """One session of 3 greedy rows (the round-1 prompts: ~1.5k tokens
     repeating a passage, SPEC_MAX_NEW new tokens) through a SessionScheduler
@@ -2145,8 +2236,11 @@ def spec_scheduler_phase(torch, kattn, base):
     Each spec run must have its drafter (no fallback), verify dispatches
     with K3 launched, greedy agreement with the off run >= 0.9; the lora
     run K7 launched in its draft dispatches, the self-drafting model run
-    acceptance >= 0.9, the model tree run tree rows. Returns each run's
-    launch counts."""
+    acceptance >= 0.9, the model tree run tree rows. Q1: where a spec
+    run's greedy row first differs from the off run's, the off run's
+    prefix is rerun to that position and every such flip must be a near
+    tie, its top-2 logit margin below PATH_TOL (first_flips). Returns each
+    run's launch counts."""
     from theroundtaible_tpu_torch.engine.engine import InferenceEngine
     from theroundtaible_tpu_torch.engine.kernels import lora as klora
     from theroundtaible_tpu_torch.engine.kvcache import scoped_slot
@@ -2165,7 +2259,8 @@ def spec_scheduler_phase(torch, kattn, base):
             base.cfg, params=base.params, num_slots=base.kv.num_slots,
             dtype=base.dtype, sampling=base.sampling, kv_layout="paged",
             page_size=base.kv.page_size, spec_decode=spec,
-            lora=LORA_BLOCK if with_lora else None, device=base.device)
+            lora=LORA_BLOCK if with_lora else None, prefix_cache=False,
+            kv_offload=False, device=base.device)
         check(engine.spec_decode == (spec is not False),
               f"spec_scheduler {run}: spec_decode {engine.spec_decode} "
               f"({engine.spec_reason})")
@@ -2204,6 +2299,8 @@ def spec_scheduler_phase(torch, kattn, base):
         total = sum(max(len(generated[k]), len(reference[k]))
                     for k in generated)
         agreement = same / max(total, 1)
+        flips = (first_flips(torch, base, prompts, generated, reference)
+                 if spec is not False else [])
         sd = engine.spec_describe()
         rate = sd["acceptance_rate"]
         emit("spec_scheduler", run=run, spec_decode=spec, wall_s=wall,
@@ -2221,7 +2318,9 @@ def spec_scheduler_phase(torch, kattn, base):
              segments=prov["segments"], greedy_agreement=agreement,
              launches={k: launches[k] for k in SPEC_KERNELS},
              k7_in_draft_dispatches=drafts["k7"],
-             draft_calls=drafts["calls"])
+             draft_calls=drafts["calls"], flips=flips,
+             flip_margins=[f["margin"] for f in flips],
+             margin_tolerance=PATH_TOL)
         out[run] = launches
         if spec is not False:
             want = (spec.get("drafter", "ngram") if isinstance(spec, dict)
@@ -2236,6 +2335,9 @@ def spec_scheduler_phase(torch, kattn, base):
                   f"{launches['ragged_paged_attention']}")
             check(agreement >= 0.9, f"spec_scheduler {run}: greedy "
                   f"agreement with the off run {agreement}")
+            check(all(f["margin"] < PATH_TOL for f in flips),
+                  f"spec_scheduler {run}: a flip that is no near tie "
+                  f"(top-2 margin >= {PATH_TOL}): {flips}")
         else:
             check(sd["verify_dispatches"] == 0,
                   "spec_scheduler off: a verify dispatch ran")
@@ -2255,6 +2357,559 @@ def spec_scheduler_phase(torch, kattn, base):
             gc.collect()
             torch.cuda.empty_cache()
     return out
+
+
+# --- prefix cache and host-RAM offload phases ---
+
+
+# The Llama-3-8B bf16 page: 2 (K, V) x 8 kv heads x 128 dims x 2 B x 128
+# positions x 32 layers = 16 MiB.
+PAGE_MIB = 16
+# ~3,000 tokens of project context every knight's prompt opens with, as
+# discuss's system prompt does (byte tokenizer: one token per character).
+PREFIX_PREAMBLE = ("Project context. The session store keeps every turn of "
+                   "every discussion; a write-ahead journal records each "
+                   "committed turn before the reply is returned, snapshots "
+                   "compact the journal every hundred turns, and a restart "
+                   "replays the last snapshot plus the journal tail. "
+                   * 12)[:3000]
+# Per-lane transfer rate of each PCIe generation, GB/s per direction
+# (after line coding).
+PCIE_LANE_GB_S = {1: 0.25, 2: 0.5, 3: 0.985, 4: 1.969, 5: 3.938, 6: 7.563}
+
+
+def pcie_link(torch) -> dict:
+    """The card's PCIe link and the host-link bound per direction, GB/s:
+    the generation and width as nvidia-smi reads them (current and max),
+    else as the PCI device's sysfs entry reads them (a field nvidia-smi
+    reports as [N/A] in a virtual machine), else the H100 SXM5 data
+    sheet's host interface (Gen5 x16); `source` says which. A link idles
+    at a lower generation than it transfers at, so the bound is taken at
+    the maximum generation and width read."""
+    def num(text):
+        try:
+            return int(float(text.strip().split()[0]))
+        except (ValueError, IndexError):
+            return None
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=pcie.link.gen.current,"
+         "pcie.link.width.current,pcie.link.gen.max,pcie.link.width.max",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True)
+    raw = out.stdout.strip().splitlines()[0]
+    gen, width, gen_max, width_max = (num(x) for x in raw.split(","))
+    link = {"nvidia_smi": raw, "gen": gen, "width": width,
+            "gen_max": gen_max, "width_max": width_max,
+            "source": "nvidia-smi"}
+    if not (gen_max or gen) or not (width_max or width):
+        # sysfs: "<GT/s> GT/s PCIe" and the lane count
+        rates = {2.5: 1, 5.0: 2, 8.0: 3, 16.0: 4, 32.0: 5, 64.0: 6}
+        try:
+            props = torch.cuda.get_device_properties(0)
+            bus = (f"{getattr(props, 'pci_domain_id', 0):04x}:"
+                   f"{props.pci_bus_id:02x}:{props.pci_device_id:02x}.0")
+            sysfs = Path("/sys/bus/pci/devices") / bus
+            read = {f: (sysfs / f).read_text().strip() for f in (
+                "current_link_speed", "current_link_width",
+                "max_link_speed", "max_link_width")}
+            link.update(
+                sysfs=read, source=f"sysfs {bus}",
+                gen=rates.get(float(read["current_link_speed"].split()[0])),
+                width=num(read["current_link_width"]),
+                gen_max=rates.get(float(read["max_link_speed"].split()[0])),
+                width_max=num(read["max_link_width"]))
+        except (OSError, ValueError, KeyError, AttributeError) as e:
+            link.update(sysfs_error=str(e)[:200], gen_max=5, width_max=16,
+                        source="H100 SXM5 data sheet: PCIe Gen5 x16")
+    top_gen = max(g for g in (link["gen"], link["gen_max"], 0) if g)
+    top_width = max(w for w in (link["width"], link["width_max"], 0) if w)
+    link["bound_gb_s"] = PCIE_LANE_GB_S.get(top_gen, 0.0) * top_width
+    return link
+
+
+def cache_engine(base, **kw):
+    """An engine on the engine phase's weights and shapes (paged bf16, page
+    128, 8 slots, greedy), with the prefix cache and the offload tier as
+    `kw` says."""
+    from theroundtaible_tpu_torch.engine.engine import InferenceEngine
+    return InferenceEngine(
+        base.cfg, params=base.params, num_slots=base.kv.num_slots,
+        dtype=base.dtype, sampling=base.sampling, kv_layout="paged",
+        page_size=base.kv.page_size, spec_decode=False, device=base.device,
+        **kw)
+
+
+def snapshot_pages(torch, kv, pages):
+    """Every layer's (k, v) rows of `pages`, payload and scale pools, copied
+    to the host."""
+    idx = torch.tensor(pages, device=kv.pools[0][0].device)
+    return [(k.index_select(0, idx).cpu(), v.index_select(0, idx).cpu())
+            for k, v in kv.combined_pools()]
+
+
+def same_pages(torch, kv, pages, snapshot) -> bool:
+    return all(torch.equal(a, b) and torch.equal(c, d) for (a, c), (b, d)
+               in zip(snapshot_pages(torch, kv, pages), snapshot))
+
+
+def last_prefill_logits(engine):
+    """Wrap engine._prefill so each call's last-token logits are kept: the
+    last call of a generate_batch is the one its first tokens come from.
+    Returns (the list, an undo)."""
+    calls = []
+    prefill = engine._prefill
+
+    def kept(token_lists, offsets, *a, **kw):
+        logits = prefill(token_lists, offsets, *a, **kw)
+        calls.append({"offsets": list(offsets), "logits": logits})
+        return logits
+    engine._prefill = kept
+    return calls, lambda: delattr(engine, "_prefill")
+
+
+def prefix_path_phase(torch, kattn, base):
+    """The cross-session prefix cache at full width: the engine phase's
+    32-layer model (paged bf16, page 128, 8 slots, greedy) with the cache
+    on. Session s1 serves 3 knights whose prompts open with the same
+    3,000-token preamble; s2 serves the same preamble with its own tails,
+    on this engine and on the engine phase's (cache off, same weights).
+    s2 must attach 23 pages per row from the index (hits >= 3,
+    prefix_reused_tokens >= 3 x 23 x 128), alias s1's page ids (refcount
+    >= 2), prefill from the page-multiple frontier through K2 and decode
+    through K1; its greedy tokens agree with the cache-off run's >= 0.9 and
+    its first-position logits are within PATH_TOL of them. Then s3
+    attaches and, at its next turn, diverges inside preamble page 7: one
+    copy-on-write or forget, and s1's pages torch.equal to a snapshot taken
+    before s3. Returns the phase's launch counts."""
+    from theroundtaible_tpu_torch.engine.kvcache import scoped_slot
+    card = nvidia_smi()
+    engine = cache_engine(base, prefix_cache=True, kv_offload=False)
+    check(engine.prefix_cache is not None, "prefix_path: no prefix cache")
+    knights = ("lancelot", "gawain", "percival")
+    s1 = [(k, PREFIX_PREAMBLE + f" Session one: {k}, state your position on "
+           f"the journal format and the snapshot cadence.") for k in knights]
+    s2 = [(k, PREFIX_PREAMBLE + f"\n{k.upper()} (second review) asks what "
+           f"a restart costs when the journal tail is long.")
+          for k in knights]
+    base.kv.flush()
+    ps = engine.kv.page_size
+    want_pages = (len(PREFIX_PREAMBLE) + 1) // ps   # BOS + the preamble
+    engine.generate_batch(s1, max_new_tokens=32, session="s1")
+    runs, launches = {}, {}
+    for key, eng in (("cache", engine), ("off", base)):
+        calls, undo = last_prefill_logits(eng)
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        eng.generate_batch(s2, max_new_tokens=32, session="s2")
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches[key] = launches_now()
+        undo()
+        st = eng.last_stats
+        starts = {k: len(eng.tokenizer.encode(p)) for k, p in s2}
+        runs[key] = {
+            "wall_s": wall, "prefill_tokens": st.prefill_tokens,
+            "prefill_s": st.prefill_seconds, "ttft_s": st.prefill_seconds,
+            "reused_tokens": st.reused_tokens,
+            "prefix_reused_tokens": st.prefix_reused_tokens,
+            "decode_s": st.decode_seconds, "offsets": calls[-1]["offsets"],
+            "logits": calls[-1]["logits"].float(),
+            "generated": {k: eng.kv._slots[scoped_slot("s2", k)]
+                          .tokens[starts[k]:] for k in knights}}
+    cache, off = runs["cache"], runs["off"]
+    d = engine.describe()["prefix_cache"]
+    s1_pages = {k: list(engine.kv._slots[scoped_slot("s1", k)].pages)
+                for k in knights}
+    s2_pages = {k: list(engine.kv._slots[scoped_slot("s2", k)].pages)
+                for k in knights}
+    aliased = all(s2_pages[k][:want_pages] == s1_pages[k][:want_pages]
+                  for k in knights)
+    refs = min(engine.kv.refcount(p) for k in knights
+               for p in s2_pages[k][:want_pages])
+    same = total = 0
+    for k in knights:
+        a, b = cache["generated"][k], off["generated"][k]
+        total += max(len(a), len(b))
+        same += sum(x == y for x, y in zip(a, b))
+    agreement = same / max(total, 1)
+    diff = (cache["logits"] - off["logits"]).abs()
+    logits_ok = bool((diff <= PATH_TOL + PATH_TOL
+                      * off["logits"].abs()).all())
+    # s3: attach, then a next turn diverging inside preamble page 7
+    snapshot_ids = sorted({p for pages in s1_pages.values() for p in pages})
+    snap = snapshot_pages(torch, engine.kv, snapshot_ids)
+    forks = {"copies": 0, "forgets": 0}
+    run_copy, forget = (engine.kv._run_page_copy,
+                        engine.prefix_cache.forget_page)
+
+    def counted_copy(src, dst):
+        forks["copies"] += len(src)
+        run_copy(src, dst)
+
+    def counted_forget(page):
+        forks["forgets"] += 1
+        return forget(page)
+    engine.kv._run_page_copy = counted_copy
+    engine.prefix_cache.forget_page = counted_forget
+    s3 = PREFIX_PREAMBLE + " Session three opens the review."
+    engine.generate_batch([("tristan", s3)], max_new_tokens=32,
+                          session="s3")
+    s3_reused = engine.last_stats.prefix_reused_tokens
+    cut = 7 * ps + 40       # inside page 7 of the preamble
+    engine.generate_batch([("tristan", PREFIX_PREAMBLE[:cut - 1]
+                            + " -- the context changed here.")],
+                          max_new_tokens=32, session="s3")
+    del engine.kv._run_page_copy
+    del engine.prefix_cache.forget_page
+    s1_intact = same_pages(torch, engine.kv, snapshot_ids, snap)
+    ratio = (off["prefill_s"] / cache["prefill_s"]
+             if cache["prefill_s"] else None)
+    emit("prefix_path", card=card, layers=engine.cfg.num_layers,
+         preamble_tokens=len(PREFIX_PREAMBLE) + 1, page_size=ps,
+         attached_pages_per_row=want_pages, prefix_cache=d,
+         **{f"s2_{key}": {k: v for k, v in r.items()
+                          if k not in ("logits", "generated")}
+            for key, r in runs.items()},
+         s2_prefill_speedup=ratio, aliased_s1_pages=aliased,
+         min_refcount=refs, greedy_agreement_with_cache_off=agreement,
+         first_logits_max_abs_diff=float(diff.max()), tolerance=PATH_TOL,
+         s3_prefix_reused_tokens=s3_reused, s3_forks=forks,
+         s1_pages_intact=s1_intact,
+         launches={k: {n: c for n, c in v.items() if c}
+                   for k, v in launches.items()})
+    check(d["hits"] >= 3, f"prefix_path: {d['hits']} attach hits")
+    check(cache["prefix_reused_tokens"] >= 3 * want_pages * ps,
+          f"prefix_path: s2 attached {cache['prefix_reused_tokens']} tokens")
+    check(aliased and refs >= 2, f"prefix_path: s2's attached pages are not "
+          f"s1's (aliased {aliased}, min refcount {refs})")
+    check(all(o > 0 and o % ps == 0 for o in cache["offsets"]),
+          f"prefix_path: s2 prefilled from {cache['offsets']}, not from a "
+          f"nonzero page multiple")
+    check(launches["cache"]["paged_prefill_attention"] > 0
+          and launches["cache"]["paged_decode_attention"] > 0,
+          f"prefix_path: K1/K2 over attached pages: {launches['cache']}")
+    check(agreement >= 0.9, f"prefix_path: greedy agreement {agreement}")
+    check(logits_ok, f"prefix_path: first-position logits differ by "
+          f"{float(diff.max())} (tolerance {PATH_TOL})")
+    check(s3_reused >= want_pages * ps,
+          f"prefix_path: s3 attached {s3_reused} tokens")
+    check(forks["copies"] + forks["forgets"] >= 1,
+          f"prefix_path: s3's divergence forked nothing: {forks}")
+    check(s1_intact, "prefix_path: s1's pages changed under s3")
+    engine.kv.flush()
+    base.kv.flush()
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches["cache"]
+
+
+# The offload phase's pool: 143 pages (2.2 GiB of bf16 K/V), room for two
+# of its 3-knight sessions (60 pages each when idle, 63 decoding) but not
+# three. Admission estimates a string prompt at 1.25x its bytes (75-78
+# pages a session), and 142 usable pages let one session join another's
+# decode once a spill has made room beside it.
+OFFLOAD_PAGES = 143
+OFFLOAD_IDLE_S = 12.0
+
+
+def offload_prompts(session: str, round_no: int = 1) -> list:
+    """3 knights' ~2.5k-token prompts, distinct per session and knight
+    from the first character; round 2 extends round 1's."""
+    out = []
+    for k in ("lancelot", "gawain", "percival"):
+        text = (f"[{session}/{k}] The council weighs the {k} proposal for "
+                f"session {session}: journal first, then snapshot, then "
+                f"replay on restart. " * 40)[:2500]
+        if round_no > 1:
+            text += f" Round {round_no}: {k}, answer the objections."
+        out.append((k, text))
+    return out
+
+
+def timed_tier(torch, tier, log, check_restore=None):
+    """Wrap the tier's spill_session/restore_session: each call's wall
+    (the card synchronised at its end) and the host bytes it moved go to
+    `log`; `check_restore(session)` runs right after a restore, before the
+    turn that restored writes anything."""
+    spill, restore = tier.spill_session, tier.restore_session
+
+    def timed_spill(session):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        n = spill(session)
+        torch.cuda.synchronize()
+        rec = tier._spilled.get(session)
+        log.append({"op": "spill", "session": session, "slots": n,
+                    "s": time.monotonic() - t0,
+                    "bytes": rec.host_bytes() if rec else 0})
+        return n
+
+    def timed_restore(session, pinned=()):
+        rec = tier._spilled.get(session)
+        nbytes = rec.host_bytes() if rec else 0
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        n = restore(session, pinned)
+        torch.cuda.synchronize()
+        log.append({"op": "restore", "session": session, "slots": n,
+                    "s": time.monotonic() - t0, "bytes": nbytes})
+        if check_restore is not None:
+            check_restore(session)
+        return n
+    tier.spill_session = timed_spill
+    tier.restore_session = timed_restore
+
+
+def transfer_rates(log, link) -> list:
+    return [{**e, "ms": 1e3 * e["s"],
+             "gb_s": e["bytes"] / e["s"] / 1e9 if e["s"] else None,
+             "bound_gb_s": link["bound_gb_s"]} for e in log]
+
+
+def offload_path_phase(torch, kattn, base):
+    """The host-RAM offload tier at full width: the engine phase's 32-layer
+    model on a pool cut to OFFLOAD_PAGES pages (2.2 GiB), prefix cache off
+    (the tier alone, as JAX's tests isolate it), behind a SessionScheduler
+    with idle_spill_s. Session A (3 knights, ~2.5k tokens each) serves a
+    round and goes idle; B and C are admitted: A must spill under pressure
+    (event reason "pressure"). A's next turn joins while C decodes: its
+    admission spills B, restores A - whose pages, snapshotted to the host
+    before the spill, must be torch.equal right after the restore - and its
+    delta rides C's ragged dispatches (ragged_defer_min 1: K3 over the
+    restored pages). That turn must reuse its committed transcript less one
+    page per row and its greedy tokens agree >= 0.9 with the engine phase's
+    engine (257 pages: A never leaves) serving the same turns. Then a
+    session idle for idle_spill_s spills (reason "idle"). Spill and
+    restore ms and GB/s beside the host-link bound. Returns the phase's
+    launch counts."""
+    from theroundtaible_tpu_torch.engine.kvcache import scoped_slot
+    from theroundtaible_tpu_torch.engine.scheduler import SessionScheduler
+    card = nvidia_smi()
+    base.kv.flush()
+    engine = cache_engine(base, prefix_cache=False, kv_offload=True,
+                          num_pages=OFFLOAD_PAGES)
+    engine.ragged_defer_min = 1
+    tier = engine.kv_offload
+    check(tier is not None, "offload_path: no offload tier")
+    names = [scoped_slot("A", k) for k, _p in offload_prompts("A")]
+    snap, restored_equal, log = {}, {}, []
+
+    def slot_pages():
+        # every slot's pages in slot order (a sibling alias repeats)
+        return [p for n in names for p in engine.kv._slots[n].pages]
+
+    def check_restore(session):
+        if session == "A" and snap:
+            restored_equal["A"] = (
+                [len(engine.kv._slots[n].pages) for n in names]
+                == snap["lens"]
+                and same_pages(torch, engine.kv, slot_pages(),
+                               snap["bytes"]))
+    timed_tier(torch, tier, log, check_restore)
+    sched = SessionScheduler(engine, idle_spill_s=OFFLOAD_IDLE_S)
+    turns, stats = {}, {}
+    try:
+        reset_launches()
+        t0 = time.monotonic()
+        turns["A1"] = sched.submit("A", offload_prompts("A"),
+                                   max_new_tokens=32, timeout_s=600)
+        with engine._serve_lock:
+            committed = {n: len(engine.kv._slots[n].tokens) for n in names}
+            snap["lens"] = [len(engine.kv._slots[n].pages) for n in names]
+            snap["bytes"] = snapshot_pages(torch, engine.kv, slot_pages())
+        turns["B"] = sched.submit("B", offload_prompts("B"),
+                                  max_new_tokens=32, timeout_s=600)
+        # C decodes two segments (96 tokens), so A's next turn, queued
+        # while C's first runs, joins before C retires
+        c_req = sched.submit_async("C", offload_prompts("C"),
+                                   max_new_tokens=96, timeout_s=600)
+        deadline = time.monotonic() + 300
+        while not sched._active and time.monotonic() < deadline:
+            time.sleep(0.005)
+        joins = sched.ragged_joins
+        turns["A2"] = sched.submit("A", offload_prompts("A", 2),
+                                   max_new_tokens=32, timeout_s=600)
+        joined = sched.ragged_joins - joins
+        turns["C"] = sched.wait(c_req)
+        events = sched.describe()["events"]
+        pressure = [e for e in events if e["event"] == "spill"]
+        a2 = turns["A2"][1]
+        generated = {r: {k: engine.kv._slots[scoped_slot("A", k)].tokens[
+            len(engine.tokenizer.encode(p)):] for k, p in
+            offload_prompts("A", r)} for r in (2,)}
+        # the idle policy: some session idle for idle_spill_s spills
+        deadline = time.monotonic() + OFFLOAD_IDLE_S + 30
+        while time.monotonic() < deadline and not any(
+                e["event"] == "spill" and e["reason"] == "idle"
+                for e in sched.describe()["events"]):
+            time.sleep(0.2)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches = launches_now()
+        prov = sched.describe()
+        snapshot = sched.snapshot()
+    finally:
+        sched.close()
+    # reference: the engine phase's engine (257 pages) serving A's turns
+    ref = {}
+    for r in (1, 2):
+        base.generate_batch(offload_prompts("A", r), max_new_tokens=32,
+                            session="A-ref")
+        ref[r] = {k: base.kv._slots[scoped_slot("A-ref", k)].tokens[
+            len(base.tokenizer.encode(p)):] for k, p in
+            offload_prompts("A", r)}
+    same = total = 0
+    for k in ref[2]:
+        a, b = generated[2][k], ref[2][k]
+        total += max(len(a), len(b))
+        same += sum(x == y for x, y in zip(a, b))
+    agreement = same / max(total, 1)
+    spills = [e for e in prov["events"] if e["event"] == "spill"]
+    link = pcie_link(torch)
+    min_reuse = sum(committed.values()) - len(names) * engine.kv.page_size
+    emit("offload_path", card=card, layers=engine.cfg.num_layers,
+         num_pages=engine.kv.num_pages,
+         pool_cut=f"{OFFLOAD_PAGES} pages = {OFFLOAD_PAGES * PAGE_MIB} MiB "
+                  f"(the engine phase's pool: {base.kv.num_pages} pages)",
+         idle_spill_s=OFFLOAD_IDLE_S, wall_s=wall, spill_events=spills,
+         spills=prov["spills"], spilled_sessions=prov["spilled_sessions"],
+         sessions=snapshot["sessions"], kv_offload=tier.describe(),
+         a_committed_tokens=committed, a2_reused_tokens=a2.reused_tokens,
+         a2_prefill_tokens=a2.prefill_tokens, a2_min_reuse=min_reuse,
+         a_restored_equal=restored_equal.get("A"), a2_ragged_join=joined,
+         greedy_agreement_with_resident=agreement, pcie=link,
+         transfers=transfer_rates(log, link),
+         launches={n: c for n, c in launches.items() if c})
+    check(any(e["session"] == "A" and e["reason"] == "pressure"
+              for e in pressure),
+          f"offload_path: A never spilled under pressure: {pressure}")
+    check(restored_equal.get("A") is True,
+          f"offload_path: A's restored pages differ from the snapshot "
+          f"({restored_equal})")
+    check(a2.reused_tokens >= min_reuse,
+          f"offload_path: A's next turn reused {a2.reused_tokens} < "
+          f"{min_reuse}")
+    check(agreement >= 0.9, f"offload_path: greedy agreement {agreement}")
+    check(any(e["reason"] == "idle" for e in spills),
+          f"offload_path: no idle spill within {OFFLOAD_IDLE_S + 30} s")
+    check(prov["failed"] == 0, f"offload_path: {prov['failed']} failed")
+    check(joined == 1, f"offload_path: A's next turn joined C's decode "
+          f"through {joined} ragged joins")
+    check(all(launches[k] > 0 for k in PAGED_KERNELS),
+          f"offload_path: K1/K2/K3 never launched: {launches}")
+    base.kv.flush()
+    del engine, tier
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def offload_quant_phase(torch, engine):
+    """One spill/restore round trip on the quant_int8 engine (int8 pages
+    and their f32 scale pools; its config pins the tier off, so a
+    HostOffloadTier is built over it here): a 3-knight session spilled and
+    restored, payload and scales torch.equal, ms and GB/s per direction
+    beside the host-link bound. Returns the session's launch counts."""
+    from theroundtaible_tpu_torch.engine.kv_offload import HostOffloadTier
+    from theroundtaible_tpu_torch.engine.kvcache import scoped_slot
+    card = nvidia_smi()
+    tier = HostOffloadTier(engine)
+    log = []
+    timed_tier(torch, tier, log)
+    prompts = knight_prompts(1)
+    reset_launches()
+    engine.generate_batch(list(prompts.items()), max_new_tokens=32,
+                          session="int8-spill")
+    names = [scoped_slot("int8-spill", k) for k in prompts]
+    launches = launches_now()
+    lens = [len(engine.kv._slots[n].pages) for n in names]
+    pages = [p for n in names for p in engine.kv._slots[n].pages]
+    snap = snapshot_pages(torch, engine.kv, pages)
+    check(tier.spill_session("int8-spill") == len(names),
+          "offload_int8: the session did not spill")
+    check(tier.restore_session("int8-spill") == len(names),
+          "offload_int8: the session did not restore")
+    pages = [p for n in names for p in engine.kv._slots[n].pages]
+    equal = ([len(engine.kv._slots[n].pages) for n in names] == lens
+             and same_pages(torch, engine.kv, pages, snap))
+    link = pcie_link(torch)
+    emit("offload_int8", card=card, kv_quant="int8", pages=len(pages),
+         layers_spilled=len(engine.kv.combined_pools()),
+         payload_and_scales_equal=equal, pcie=link,
+         transfers=transfer_rates(log, link))
+    check(equal, "offload_int8: restored payload or scales differ")
+    for n in names:
+        engine.kv.release(n)
+    return launches
+
+
+def prefix_blocks(engine) -> dict:
+    """The engine's prefix-cache and offload-tier describe() blocks."""
+    d = engine.describe()
+    return {"prefix_cache": d.get("prefix_cache"),
+            "kv_offload": d.get("kv_offload")}
+
+
+# Each CLI phase's prepared batches: (rows' tokens, prefix-reused tokens,
+# rows' reuse frontiers), for the later phases' shared-page counts.
+PREPARED: dict = {}
+
+
+class prepared_batches:
+    """Record every _prepare_batch's token rows, prefix-reused tokens and
+    reuse frontiers (after own-slot reuse, the attach and the share
+    passes) under `phase` while the block runs (a class-level wrap: the
+    CLI builds or reuses the engine inside cli.main)."""
+
+    def __init__(self, phase):
+        self.phase = phase
+
+    def __enter__(self):
+        from theroundtaible_tpu_torch.engine.engine import InferenceEngine
+        self.cls, self.orig = InferenceEngine, InferenceEngine._prepare_batch
+        rows = PREPARED.setdefault(self.phase, [])
+        orig = self.orig
+
+        def recorded(engine, *a, **kw):
+            out = orig(engine, *a, **kw)
+            rows.append((out["all_tokens"], out["prefix_reused_tokens"],
+                         list(out["offsets"])))
+            return out
+        InferenceEngine._prepare_batch = recorded
+        return rows
+
+    def __exit__(self, *exc):
+        self.cls._prepare_batch = self.orig
+        return False
+
+
+def row_shared_pages(tokens, others, ps: int) -> int:
+    """The complete pages `tokens` shares from position 0 with the most
+    similar row of the recorded batches `others`, short of its last token
+    (at least one token is always fed)."""
+    from theroundtaible_tpu_torch.engine.kvcache import lcp
+    best = max((lcp(tokens, other) for other_list, _r, _o in others
+                for other in other_list), default=0)
+    return min(best, len(tokens) - 1) // ps
+
+
+def shared_pages(rows, others, ps: int) -> int:
+    """The most complete pages any row of `rows` shares with a row of
+    `others`."""
+    return max((row_shared_pages(tokens, others, ps)
+                for tokens_list, _r, _o in rows for tokens in tokens_list),
+               default=0)
+
+
+def unserved_rows(rows, others, ps: int) -> list:
+    """Rows of `rows` whose reuse frontier stops short of the pages they
+    share with `others`: (shared pages, frontier) of each."""
+    return [(n, off) for tokens_list, _r, offsets in rows
+            for tokens, off in zip(tokens_list, offsets)
+            for n in [row_shared_pages(tokens, others, ps)]
+            if off < n * ps]
 
 
 # --- quantization phases ---
@@ -4638,10 +5293,19 @@ def require(phase, launches, required=PAGED_KERNELS[:2], allowed=()):
     check(not others, f"{phase}: other kernels launched: {others}")
 
 
+def cli_engine(project):
+    """The resident engine of the CLI project's torch-llm adapter."""
+    from theroundtaible_tpu_torch.engine import get_engine
+    config = json.loads((project / ".roundtable" / "config.json")
+                        .read_text())
+    return get_engine(config["adapter_config"]["torch-llm"], "cuda")
+
+
 def discuss_phase(torch, project):
     """Phase 27 (module docstring). Returns its launch counts."""
-    rc, log, wall, launches = run_cli(
-        torch, project, ["discuss", DISCUSS_TOPIC, "--no-read-code"])
+    with prepared_batches("discuss"):
+        rc, log, wall, launches = run_cli(
+            torch, project, ["discuss", DISCUSS_TOPIC, "--no-read-code"])
     (OUT / "discuss.log").write_text(log)
     check(rc == 0, f"discuss: rc {rc}: {log[-2000:]}")
     sessions = sessions_of(project)
@@ -4661,10 +5325,15 @@ def discuss_phase(torch, project):
     check(len(rounds) == 2 and rounds[1]["reused_tokens"] > 0,
           f"discuss: round 2 reused no tokens: {rounds}")
     require("discuss", launches)
+    blocks = prefix_blocks(cli_engine(project))
+    check(blocks["prefix_cache"] is not None
+          and blocks["kv_offload"] is not None,
+          f"discuss: the shipped config's engine built no cache or tier: "
+          f"{blocks}")
     emit("discuss", rc=rc, wall_s=wall, session=session.name, files=files,
          phase_status=status.get("phase"), turns=len(transcript),
          rounds=rounds, launches=launches,
-         outcome=metrics.get("outcome"))
+         outcome=metrics.get("outcome"), card=nvidia_smi(), **blocks)
     return launches
 
 
@@ -4676,8 +5345,11 @@ def summon_phase(torch, project):
                  '        fh.write(json.dumps(turn) + "\\n")\n')
     git(project, "add", "app.py")
     before = set(sessions_of(project))
-    rc, log, wall, launches = run_cli(torch, project,
-                                      ["summon", "--no-read-code"])
+    engine = cli_engine(project)
+    hits0 = engine.prefix_cache.hits
+    with prepared_batches("summon") as rows:
+        rc, log, wall, launches = run_cli(torch, project,
+                                          ["summon", "--no-read-code"])
     (OUT / "summon.log").write_text(log)
     check(rc == 0, f"summon: rc {rc}: {log[-2000:]}")
     new = [s for s in sessions_of(project) if s not in before]
@@ -4690,8 +5362,24 @@ def summon_phase(torch, project):
     rounds = session_rounds(new[0])
     check(len(rounds) == 1, f"summon: rounds {rounds}")
     require("summon", launches)
+    # summon after discuss on the resident engine: every page a summon
+    # prompt shares with a discuss prompt must be served from the cache.
+    # discuss and summon seat the same unscoped knight slots, so a row's
+    # own slot covers what it shares with its own discuss turn first and
+    # the index serves only what lies beyond (hits, printed).
+    discuss = PREPARED.get("discuss", [])
+    shared = shared_pages(rows, discuss, engine.kv.page_size)
+    unserved = unserved_rows(rows, discuss, engine.kv.page_size)
+    hits = engine.prefix_cache.hits - hits0
+    reused = sum(r for _t, r, _o in rows)
     emit("summon", rc=rc, wall_s=wall, session=new[0].name,
-         topic_chars=len(topic), rounds=rounds, launches=launches)
+         topic_chars=len(topic), rounds=rounds, launches=launches,
+         card=nvidia_smi(), pages_shared_with_discuss=shared,
+         reuse_frontiers=[o for _t, _r, offs in rows for o in offs],
+         prefix_hits=hits, prefix_reused_tokens=reused,
+         **prefix_blocks(engine))
+    check(not unserved, f"summon: rows re-prefilled pages they share with "
+          f"discuss's prompts (shared pages, frontier): {unserved}")
     return launches
 
 
@@ -4699,9 +5387,11 @@ def serve_phase(torch, project):
     """Phase 29 (module docstring). Returns its launch counts."""
     from theroundtaible_tpu_torch.engine import get_engine
     before = set(sessions_of(project))
-    rc, log, wall, launches = run_cli(
-        torch, project, ["serve", SERVE_TOPIC, "--sessions", "2",
-                         "--no-read-code"])
+    hits0 = cli_engine(project).prefix_cache.hits
+    with prepared_batches("serve") as rows:
+        rc, log, wall, launches = run_cli(
+            torch, project, ["serve", SERVE_TOPIC, "--sessions", "2",
+                             "--no-read-code"])
     (OUT / "serve.log").write_text(log)
     check(rc == 0, f"serve: rc {rc}: {log[-2000:]}")
     new = [s for s in sessions_of(project) if s not in before]
@@ -4729,7 +5419,16 @@ def serve_phase(torch, project):
           f"serve: neither K1 nor K3 launched: {launches}")
     check(not spec["verify_dispatches"] or launches[PAGED_KERNELS[2]] > 0,
           "serve: verify dispatches ran without K3")
-    emit("serve", rc=rc, wall_s=wall, sessions=sessions,
+    # serve's sessions scope their slots, so every page they share with
+    # the earlier phases' committed prompts comes from the index
+    earlier = PREPARED.get("discuss", []) + PREPARED.get("summon", [])
+    shared = shared_pages(rows, earlier, engine.kv.page_size)
+    hits = engine.prefix_cache.hits - hits0
+    reused = sum(r for _t, r, _o in rows)
+    emit("serve", card=nvidia_smi(), **prefix_blocks(engine),
+         pages_shared_with_earlier=shared, prefix_hits=hits,
+         prefix_reused_tokens=reused,
+         rc=rc, wall_s=wall, sessions=sessions,
          admitted=sched["admitted"], completed=sched["completed"],
          failed=sched["failed"], max_occupancy=sched["max_occupancy"],
          segments=sched["segments"], ragged_joins=sched["ragged_joins"],
@@ -4740,6 +5439,9 @@ def serve_phase(torch, project):
              "accepted_tokens", "acceptance_rate", "throttled_rows",
              "tree_nodes", "draft_dispatches")},
          k3_launches=launches["ragged_paged_attention"], launches=launches)
+    check(shared == 0 or (hits > 0 and reused > 0),
+          f"serve: its prompts share {shared} pages with discuss's and "
+          f"summon's but the index served {hits} hits, {reused} tokens")
     return launches
 
 
@@ -4898,6 +5600,14 @@ def main() -> int:
     # 32-layer session five ways (off, then engines sharing the weights).
     spec_path_phase(torch, engine)
     spec_launches = spec_scheduler_phase(torch, kattn, engine)
+    # The prefix cache and the offload tier at full width, on engines
+    # sharing the weights: attach, copy-on-write, pressure and idle spills.
+    cache_launches = {"prefix_path": prefix_path_phase(torch, kattn, engine),
+                      "offload_path": offload_path_phase(torch, kattn,
+                                                         engine)}
+    for counts in cache_launches.values():
+        for name in PAGED_KERNELS:
+            launches[name] += counts[name]
 
     # Release the paged engine (the engine cache holds it too) before the
     # contiguous one takes its weights and 8.6 GB of slots.
@@ -4924,6 +5634,9 @@ def main() -> int:
         torch.cuda.empty_cache()
         quant[phase], engine, single[f"tp_{phase}"] = quant_engine_phase(
             torch, kattn, phase, reference)
+        if phase == "quant_int8":
+            for name, n in offload_quant_phase(torch, engine).items():
+                quant[phase][name] += n
     sched = scheduler_phase(torch, kattn, engine, phase="quant_scheduler")
     check(sched["ragged_paged_attention:int4"] > 0,
           f"quant_scheduler: K3 never launched on int4 pages: {sched}")
@@ -5039,12 +5752,15 @@ def main() -> int:
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t[library] if library else None,
             "sdpa_view_ms": t.get("sdpa_view_ms", t.get("sdpa_ms")),
-            # K1-K3's launches in each CLI phase (phases 27-32) and in
-            # each spec_scheduler run
+            # K1-K3's launches in each CLI phase (phases 27-32), in each
+            # spec_scheduler run and in prefix_path / offload_path (also
+            # in `launches`)
             **({"cli_launches": {phase: counts[name] for phase, counts
                                  in cli_launches.items()},
                 "spec_launches": {run: counts[name] for run, counts
-                                  in spec_launches.items()}}
+                                  in spec_launches.items()},
+                "cache_launches": {phase: counts[name] for phase, counts
+                                   in cache_launches.items()}}
                if name in PAGED_KERNELS else {}),
             # K3 at the verify buffer of RAGGED_VERIFY_MAIN
             **({"verify": {k: t["verify"][k] for k in (

@@ -321,6 +321,20 @@ API_CASES = {
 }
 
 
+def jax_kind_without_url(responses) -> "str | None":
+    """The kind JAX's classify_error gives a case's HttpError without its
+    URL. The port classifies an HttpError by its status and body alone;
+    JAX also sniffs the URL, so a stub port holding "401" or "403" made a
+    500 "auth" there (ROADMAP Queue 3, F4). None for a 2xx case."""
+    (status, payload), = [r[0] for r in responses.values()]
+    if status < 400:
+        return None
+    body = payload if isinstance(payload, str) else json.dumps(payload)
+    errors = mod(PACKAGES[0], "core.errors")
+    return errors.classify_error(
+        mod(PACKAGES[0], "adapters.httpx").HttpError(status, body, ""))
+
+
 @pytest.mark.parametrize("name", API_CASES)
 def test_api_knight_requests_and_parses_as_jax(name, stub, monkeypatch):
     cls, env_key, responses = API_CASES[name]
@@ -334,7 +348,13 @@ def test_api_knight_requests_and_parses_as_jax(name, stub, monkeypatch):
         result = outcome(lambda: adapter.execute("Hello there", 5_000))
         out[pkg] = (adapter.is_available(), result, asked,
                     list(stub.requests))
-    assert out[PORT] == out[PACKAGES[0]]
+    jax_out = out[PACKAGES[0]]
+    kind = jax_kind_without_url(responses)
+    if kind is not None and isinstance(jax_out[1], tuple) and \
+            jax_out[1][0] == "AdapterError" and stub.requests:
+        jax_out = (jax_out[0], (jax_out[1][0], kind, jax_out[1][2]),
+                   *jax_out[2:])
+    assert out[PORT] == jax_out
     available, result, asked, requests = out[PORT]
     assert available == bool(env_key)
     if name.endswith("_ok"):
@@ -357,6 +377,26 @@ def test_api_knight_requests_and_parses_as_jax(name, stub, monkeypatch):
         assert result[:2] == ("AdapterError", "api")
     if name == "claude_no_key":
         assert result[:2] == ("AdapterError", "auth") and requests == []
+
+
+@pytest.mark.parametrize("status,body,kind", [
+    (500, "internal", "api"), (529, "overloaded", "api"),
+    (429, "slow down", "api"), (401, "invalid x-api-key", "auth"),
+    (403, "forbidden", "auth")])
+def test_http_error_classified_without_its_url(status, body, kind):
+    """F4: an HttpError classifies by its status and body, never by its
+    URL - a loopback port or custom baseUrl holding "401" or "403" leaves
+    a 500 "api" (JAX's classify_error reads the URL too, and says "auth"
+    for the first three here)."""
+    from theroundtaible_tpu_torch.adapters.httpx import HttpError
+    from theroundtaible_tpu_torch.core.errors import classify_error
+    url = "http://127.0.0.1:40123/v1/chat/completions?key=4031"
+    assert classify_error(HttpError(status, body, url)) == kind
+    assert classify_error(HttpError(status, body, "")) == kind
+    jerr = mod(PACKAGES[0], "core.errors")
+    jhttp = mod(PACKAGES[0], "adapters.httpx")
+    assert jerr.classify_error(jhttp.HttpError(status, body, "")) == kind
+    assert jerr.classify_error(jhttp.HttpError(status, body, url)) == "auth"
 
 
 def test_httpx_equals_jax(stub):

@@ -870,6 +870,57 @@ def test_cuda_engine_verify_dispatches_through_k3(cuda_device, spec):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kv_quant", [None, "int8"])
+def test_cuda_engine_attach_and_spill_restore(cuda_device, kv_quant):
+    """A paged engine on the card (bf16, and int8 pages): a second session
+    sharing the first one's preamble attaches its pages from the prefix
+    cache and decodes through K1 over them with the tokens of a cache-off
+    engine; then the first session spills to host RAM (pinned, on the
+    card's copy engines) and restores bit for bit, payload and scales, and
+    its next turn prefills only the delta through K2."""
+    from theroundtaible_tpu_torch.engine.engine import InferenceEngine
+    from theroundtaible_tpu_torch.engine.kvcache import scoped_slot
+    cfg = _ckpt_config("cuda-cache-llama", max_seq_len=1024)
+    kw = dict(num_slots=4, kv_layout="paged", page_size=64,
+              dtype=torch.bfloat16, kv_quant=kv_quant, spec_decode=False,
+              device="cuda")
+    eng = InferenceEngine(cfg, **kw)
+    off = InferenceEngine(cfg, params=eng.params, prefix_cache=False,
+                          kv_offload=False, **kw)
+    pre = [1] + [5, 9, 7, 11] * 80
+    turns = {"a": [("kay", pre + [13, 14])], "b": [("bors", pre + [15])]}
+    out, launches = {}, {}
+    for e in (eng, off):
+        kattn.reset_launch_counts()
+        out[id(e)] = [e.generate_batch(t, max_new_tokens=24, session=s)
+                      for s, t in turns.items()]
+        launches[id(e)] = kattn.launch_counts()
+    assert out[id(eng)] == out[id(off)]
+    assert eng.last_stats.prefix_reused_tokens == 320
+    assert eng.describe()["prefix_cache"]["hits"] == 1
+    assert launches[id(eng)]["paged_decode_attention"] > 0
+    name = scoped_slot("a", "kay")
+    pages = list(eng.kv._slots[name].pages)
+    before = [(k[pages].clone(), v[pages].clone())
+              for k, v in eng.kv.combined_pools()]
+    assert eng.kv_offload.spill_session("a") == 1
+    host = eng.kv_offload._spilled["a"].host
+    assert host[0][0].is_pinned() and host[0][0].device.type == "cpu"
+    assert eng.kv_offload.restore_session("a") == 1
+    pages = list(eng.kv._slots[name].pages)
+    for (kb, vb), (k, v) in zip(before, eng.kv.combined_pools()):
+        assert torch.equal(kb, k[pages]) and torch.equal(vb, v[pages])
+    committed = len(eng.kv._slots[name].tokens)
+    kattn.reset_launch_counts()
+    eng.kv_offload.spill_session("a")
+    nxt = list(eng.kv_offload._spilled["a"].slots[name].tokens) + [17, 18]
+    eng.generate_batch([("kay", nxt)], max_new_tokens=8, session="a")
+    assert eng.last_stats.reused_tokens == committed
+    assert kattn.launch_counts()["paged_prefill_attention"] > 0
+    assert eng.describe()["kv_offload"]["restores"] == 2
+
+
+@pytest.mark.cuda
 def test_cuda_ragged_kernels_in_ptxas(cuda_device):
     """K3's library holds the tile kernels (wgmma and CUDA-core) and the
     split-KV decode kernels over its decode items for every D and payload;

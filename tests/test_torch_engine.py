@@ -108,8 +108,15 @@ def test_describe_keys_match(engines):
     for key in ("model", "params", "max_seq_len", "num_slots", "kv_layout",
                 "paged_decode", "page_size", "num_pages", "kv_hbm_bytes"):
         assert dt[key] == dj[key], key
-    for feature in ("prefix_cache", "kv_offload"):
-        assert dt[f"{feature}_reason"] == "not_ported"
+    # the prefix cache and the offload tier are ported and on by default
+    # on a paged engine: the JAX blocks' keys (the JAX engine here has
+    # both off, so its classes give them)
+    from theroundtaible_tpu.engine.kv_offload import HostOffloadTier
+    from theroundtaible_tpu.engine.prefix_cache import PrefixCache
+    assert set(dt["prefix_cache"]) == set(PrefixCache(jeng.kv).describe())
+    assert set(dt["kv_offload"]) == set(HostOffloadTier(jeng).describe())
+    assert not any(k.endswith("_reason") and v == "not_ported"
+                   for k, v in dt.items())
     # speculative decoding is ported: the JAX engine's provenance block,
     # on by default on the port's paged pool with the ragged seam
     assert set(dt["spec_decode"]) == set(jeng.spec_describe())
@@ -123,7 +130,6 @@ def test_describe_keys_match(engines):
 
 
 @pytest.mark.parametrize("key,value", [
-    ("prefix_cache", True), ("kv_offload", True),
     # a data axis (TP alone is served: tests/test_torch_tp.py)
     ("mesh", {"data": 2, "model": 2}), ("seq_parallel", 2),
     ("dtype", "float16"),
@@ -135,6 +141,31 @@ def test_unported_options_raise(key, value):
     config = {"model": "tiny-llama", "max_seq_len": 128, key: value}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         InferenceEngine.from_config(config, device="cpu")
+
+
+@pytest.mark.parametrize("key", ["prefix_cache", "kv_offload"])
+def test_cache_and_offload_true_build_and_serve(key):
+    """`prefix_cache: true` and `kv_offload: true` are served
+    (tests/test_torch_prefix_cache.py, tests/test_torch_kv_offload.py): a
+    paged engine builds the feature with the JAX engine's describe() block
+    and serves with it - a second session attaching the first one's pages,
+    or a spilled session resuming with its transcript reused."""
+    config = {"model": "tiny-llama", "max_seq_len": 256,
+              "kv_layout": "paged", "page_size": 32, "dtype": "float32",
+              "sampling": {"temperature": 0.0, "max_new_tokens": 8},
+              "spec_decode": False, key: True}
+    eng = InferenceEngine.from_config(config, device="cpu")
+    prompt = "The knights weigh the journal format at length. " * 3
+    first = eng.generate(prompt, session="a", slot_name="kay")
+    if key == "prefix_cache":
+        eng.generate(prompt + "More.", session="b", slot_name="kay")
+        assert eng.describe()["prefix_cache"]["hits"] == 1
+        assert eng.last_stats.prefix_reused_tokens > 0
+    else:
+        assert eng.kv_offload.spill_session("a") == 1
+        assert eng.generate(prompt, session="a", slot_name="kay") == first
+        assert eng.last_stats.reused_tokens == len(prompt)
+        assert eng.describe()["kv_offload"]["restores"] == 1
 
 
 def test_spec_decode_true_builds_a_speculating_engine():

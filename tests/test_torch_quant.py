@@ -154,7 +154,7 @@ def test_free_source_releases_each_dense_leaf():
     assert q_proj.untyped_storage().nbytes() == 0
     assert norm.untyped_storage().nbytes() > 0
     assert out["layers"][0]["input_norm"] is norm
-    with pytest.raises(NotImplementedError, match="slice 7e"):
+    with pytest.raises(NotImplementedError, match="item 7e-i"):
         quant.quantize_params(tparams, torch_config("tiny-mixtral"))
 
 
@@ -496,20 +496,53 @@ def test_adapter_builds_a_quantized_engine():
 
 
 @pytest.mark.parametrize("extra,item", [
-    ({"quant": "int4", "mesh": {"data": 2, "model": 1}}, "slice 7e-ii"),
-    ({"kv_quant": "int8", "kv_layout": "paged", "prefix_cache": True},
-     "slice 7"),
-    ({"kv_quant": "int4", "kv_layout": "paged", "kv_offload": True},
-     "slice 7"),
-    ({"quant": "int8", "model": "tiny-mixtral"}, "slice 7"),
-], ids=["int4-sharded", "quantized-prefix-cache", "quantized-offload",
-        "quantized-moe"])
+    ({"quant": "int4", "mesh": {"data": 2, "model": 1}}, "item 7e-ii"),
+    ({"quant": "int8", "model": "tiny-mixtral"}, "item 7e-i"),
+], ids=["int4-sharded", "quantized-moe"])
 def test_out_of_scope_quant_options_still_raise(extra, item):
     """Quantization is ported on one device and on a model axis; on a
-    data axis, and its prefix cache, offload and MoE companions, it still
-    refuses, naming their ROADMAP item (quantized weights under LoRA
-    personas serve: tests/test_torch_lora.py; on a model axis:
-    tests/test_torch_tp_quant.py)."""
+    data axis, and with MoE, it still refuses, naming their ROADMAP item
+    (quantized weights under LoRA personas serve: tests/test_torch_lora.py;
+    on a model axis: tests/test_torch_tp_quant.py; with the prefix cache
+    and the offload tier: test_quantized_paged_engine_serves_with)."""
     config = {"model": "tiny-llama", "max_seq_len": 128, **extra}
     with pytest.raises(NotImplementedError, match=item):
         InferenceEngine.from_config(config, device="cpu")
+
+
+@pytest.mark.parametrize("extra", [
+    {"kv_quant": "int8", "quant": "int8", "prefix_cache": True},
+    {"kv_quant": "int4", "quant": "int4", "kv_offload": True},
+], ids=["quantized-prefix-cache", "quantized-offload"])
+def test_quantized_paged_engine_serves_with(extra):
+    """A quantized paged engine builds and serves with the prefix cache
+    (a second session attaches the first one's int8 pages and their
+    scales) and with the offload tier (a spilled session's int4 pages and
+    scales come back bit for bit and its next turn reuses them), with the
+    greedy tokens of the same engine without either."""
+    config = {"model": "tiny-llama", "max_seq_len": 256,
+              "kv_layout": "paged", "page_size": 32, "dtype": "float32",
+              "sampling": {"temperature": 0.0, "max_new_tokens": 8},
+              "spec_decode": False, **extra}
+    off = dict(config, prefix_cache=False, kv_offload=False)
+    eng = InferenceEngine.from_config(config, device="cpu")
+    ref = InferenceEngine.from_config(off, device="cpu")
+    prompt = "The knights weigh the session store design at length. " * 3
+    for sid in ("qa", "qb"):
+        assert eng.generate(prompt + sid, session=sid, slot_name="kay") == \
+            ref.generate(prompt + sid, session=sid, slot_name="kay")
+    if "prefix_cache" in extra:
+        assert eng.describe()["prefix_cache"]["hits"] >= 1
+        assert eng.last_stats.prefix_reused_tokens > 0
+        return
+    from theroundtaible_tpu_torch.engine.kvcache import scoped_slot
+    name = scoped_slot("qa", "kay")
+    pages = list(eng.kv._slots[name].pages)
+    before = [(k[pages].clone(), v[pages].clone())
+              for k, v in eng.kv.combined_pools()]
+    assert eng.kv_offload.spill_session("qa") == 1
+    assert eng.kv_offload.restore_session("qa") == 1
+    pages = list(eng.kv._slots[name].pages)
+    for (kb, vb), (k, v) in zip(before, eng.kv.combined_pools()):
+        assert torch.equal(kb, k[pages]) and torch.equal(vb, v[pages])
+    assert eng.describe()["kv_offload"]["restores"] == 1

@@ -266,8 +266,8 @@ def test_adapter_rounds_go_through_the_scheduler(jax_engine):
 
 def test_unported_scheduler_options_raise(jax_engine):
     eng = make_engine(jax_engine, num_slots=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SessionScheduler(eng, idle_spill_s=1.0)
+    with pytest.raises(NotImplementedError, match="ROADMAP, item 7c"):
+        SessionScheduler(eng, journal=object())
     sched = SessionScheduler(eng)
     try:
         # LoRA personas are ported: an engine without a `lora:` store

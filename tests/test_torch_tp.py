@@ -624,6 +624,24 @@ def _serve(eng):
     return out
 
 
+TP_PREAMBLE = SHARED * 3
+
+
+def _prefix_sessions(eng):
+    """Two sessions sharing a preamble after _serve's workload: the second
+    attaches the first one's pages from the cross-session prefix cache.
+    Returns both texts, the second call's prefix_reused_tokens and the
+    index's hits and reused tokens."""
+    a = eng.generate(TP_PREAMBLE + "Kay speaks first.", slot_name="kay",
+                     max_new_tokens=8, session="tpA")
+    b = eng.generate(TP_PREAMBLE + "Bors answers him.", slot_name="bors",
+                     max_new_tokens=8, session="tpB")
+    d = eng.describe()["prefix_cache"]
+    return {"texts": [a, b],
+            "prefix_reused": eng.last_stats.prefix_reused_tokens,
+            "hits": d["hits"], "reused_tokens": d["reused_tokens"]}
+
+
 def _forward_inputs(vocab):
     rng = np.random.default_rng(5)
     b, t = 2, 24
@@ -709,6 +727,8 @@ def _engine_rank(rank, cases, ragged_tree):
             attn="flash" if layout == "contiguous-flash" else "auto",
             device="cpu")
         out = _serve(eng)
+        if (name, layout) == ("tiny-llama", "paged"):
+            out["prefix"] = _prefix_sessions(eng)
         d = eng.describe()
         out.update(mesh=d["mesh"], devices=d["devices"],
                    params=d["params"], attn=d.get("attn"),
@@ -795,6 +815,19 @@ def engine_runs():
                 j["valid"])[0])
         jax_out[(name, layout)] = out
         cases[(name, layout)] = (tree, fwd)
+    # The prefix cache's reference: JAX's single-device engine (cache on,
+    # the same seed's weights) through the same workload.
+    single = JaxEngine(jax_config("tiny-llama", max_seq_len=256),
+                       mesh_shape={"data": 1, "model": 1}, num_slots=5,
+                       kv_layout="paged", page_size=32, dtype=jnp.float32,
+                       sampling=JaxSampling(temperature=0.0,
+                                            max_new_tokens=8),
+                       ragged_attn=False, spec_decode=False)
+    np.testing.assert_array_equal(
+        jax.device_get(single.params)["embedding"],
+        cases[("tiny-llama", "paged")][0]["embedding"])
+    _serve(single)
+    jax_out["prefix"] = _prefix_sessions(single)
     ranks = _launch(_engine_rank, 2, cases, ragged_tree)
     return jax_out, ranks
 
@@ -859,6 +892,18 @@ def test_tp_engine_holds_its_shard(engine_runs):
         assert r[("tiny-llama", "paged")]["devices"] == ["cpu", "cpu"]
 
 
+def test_tp_prefix_cache_attaches_as_jax_single_device(engine_runs):
+    """A tensor-parallel engine builds the prefix cache (each rank's index
+    over its own pool shard): on both ranks a second session attaches the
+    first one's pages, with the tokens, prefix_reused_tokens and hits of
+    JAX's single-device engine on the same weights."""
+    jax_out, ranks = engine_runs
+    ref = jax_out["prefix"]
+    assert ref["prefix_reused"] > 0 and ref["hits"] > 0
+    for r in ranks:
+        assert r[("tiny-llama", "paged")]["prefix"] == ref
+
+
 def test_scheduler_on_a_mesh_raises(engine_runs):
     _, ranks = engine_runs
     for r in ranks:
@@ -880,7 +925,7 @@ def test_unported_mesh_options_raise(key, value):
     from theroundtaible_tpu_torch.engine.engine import InferenceEngine
     config = {"model": "tiny-llama", "max_seq_len": 128,
               "mesh": {"data": 2, "model": 2}, key: value}
-    with pytest.raises(NotImplementedError, match="ROADMAP, slice 7"):
+    with pytest.raises(NotImplementedError, match="ROADMAP, item 7e-ii"):
         InferenceEngine.from_config(config, device="cpu")
 
 

@@ -160,13 +160,23 @@ ERROR_KIND_TABLE: dict[str, str] = {
 }
 
 
+def _classified_text(err: BaseException) -> str:
+    """The text the markers are sniffed in: an HttpError's status and body
+    without its URL (a loopback port or a custom baseUrl holding "401"
+    would otherwise classify a 500 as "auth"), else str(err)."""
+    from ..adapters.httpx import HttpError
+    if isinstance(err, HttpError):
+        return f"HTTP {err.status}: {err.body}"
+    return str(err)
+
+
 def classify_error(err: BaseException) -> str:
     """Map a raw exception onto an actionable kind: message sniffing
     first (fault injections mimic real kinds by message), then the
     declarative in-tree class table for marker-less classes."""
     if isinstance(err, AdapterError):
         return err.kind
-    msg = str(err).lower()
+    msg = _classified_text(err).lower()
     if any(m in msg for m in _DEVICE_LOST_MARKERS):
         return "device_lost"
     if any(m in msg for m in _NOT_INSTALLED_MARKERS):
@@ -206,8 +216,11 @@ def format_error(err: BaseException) -> str:
 
 # --- the port's not-yet-ported seams ---
 
+# Item 7a is ported: nothing raises under it any more.
+ITEM_7A = "item 7a: prefix cache and host-RAM offload"
 ITEM_7C = "item 7c: supervision and observability"
 ITEM_7D = "item 7d: the serving tier"
+ITEM_7E_I = "item 7e-i: MoE and float16"
 ITEM_7E_II = "item 7e-ii: the rest of multi-device"
 
 

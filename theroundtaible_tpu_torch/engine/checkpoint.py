@@ -44,11 +44,11 @@ from typing import Any, Callable, Iterator, Optional
 
 import torch
 
+from ..core.errors import ITEM_7E_I, not_ported
 from ..native.loader import SafetensorsReader, index_safetensors
 from .device import resolve_device
 from .models.common import Int4Leaf, ModelConfig, Params, leaf_keeper
 
-_MOE_ITEM = "ROADMAP, item 7e-i: MoE and float16"
 _LAYER = re.compile(r"model\.layers\.(\d+)\.(.+)")
 
 
@@ -153,9 +153,9 @@ def _plan(src: _Source, cfg: ModelConfig):
                 continue
             idx, rest = int(m.group(1)), m.group(2)
             if rest.startswith("block_sparse_moe."):
-                raise NotImplementedError(
-                    f"{name} in {src.where[name]}: MoE checkpoints are not "
-                    f"ported to the PyTorch engine yet ({_MOE_ITEM})")
+                raise not_ported(
+                    f"{name} in {src.where[name]}: MoE checkpoints",
+                    ITEM_7E_I)
             if idx >= cfg.num_layers:
                 continue
             key = _layer_key(rest)
@@ -199,9 +199,7 @@ def load_hf_checkpoint(ckpt_dir: str | Path, cfg: ModelConfig,
     unreadable file, and NotImplementedError on a MoE config or
     checkpoint."""
     if cfg.num_experts:
-        raise NotImplementedError(
-            f"MoE checkpoints ({cfg.name}) are not ported to the PyTorch "
-            f"engine yet ({_MOE_ITEM})")
+        raise not_ported(f"MoE checkpoints ({cfg.name})", ITEM_7E_I)
     device = resolve_device(device)
     src = _Source(Path(ckpt_dir))
     top, layer_names = _plan(src, cfg)

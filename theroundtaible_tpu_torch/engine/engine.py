@@ -81,10 +81,20 @@ scheduler drafts per row and scores every draft in one verify dispatch
 drafters shadow each row with a draft slot in the same pool and draft
 through ordinary ragged dispatches. `spec_describe()` is its provenance.
 
-Features the JAX engine also turns on by default (prefix cache, host
-offload) stay off here, with `<feature>_reason: "not_ported"` in
-describe(); asking for them - or for any other unported option - raises
-NotImplementedError naming the ROADMAP item.
+The cross-session prefix cache and the host-RAM offload tier, as in the
+JAX engine: a paged engine builds both by default (`prefix_cache: false` /
+ROUNDTABLE_PREFIX_CACHE=0 and `kv_offload: false` / ROUNDTABLE_KV_OFFLOAD=0
+turn them off; the contiguous layout has no page to share and builds
+neither). `_prepare_batch` restores a spilled session before its reuse
+plan (engine/kv_offload.py) and attaches every base row's longest indexed
+prefix after it (engine/prefix_cache.py); commits publish complete pages
+into the index, except a persona row's. The moves are whole-page gathers
+and copies; attention over attached or restored pages runs K1-K3 as any
+other page does. Under tensor parallelism each rank's index and tier keep
+its own pool's bookkeeping, identical across ranks.
+
+Asking for an option that is not ported raises NotImplementedError naming
+its ROADMAP item (core/errors.not_ported).
 """
 
 from __future__ import annotations
@@ -99,6 +109,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from ..core.errors import ITEM_7E_I, ITEM_7E_II, not_ported
 from . import deadlines, faults
 from . import kv_quant as kvq
 from .device import resolve_device
@@ -106,7 +117,8 @@ from .kernels import attention as kattn
 from .kernels import build as kbuild
 from .kernels import int4mm
 from .kernels import lora as klora
-from .kvcache import KVCache, scoped_slot, share_prefixes
+from .kv_offload import HostOffloadTier, offload_enabled
+from .kvcache import KVCache, scoped_slot, session_of, share_prefixes
 from .lora import (DEFAULT_MAX_ADAPTERS, DEFAULT_RANK, DEFAULT_SCALE,
                    LoraBatch, LoraStore, lora_enabled, note_dispatch_ids,
                    summarize_lora_paths)
@@ -117,6 +129,7 @@ from .paged_forward import (forward_paged, forward_ragged, gather_view,
                             scatter_view)
 from .quant import quantize_leaves, quantize_params, quantized
 from .paging import SCRATCH_PAGE, PagedKVCache
+from .prefix_cache import PrefixCache, cache_enabled
 from .sharding import build_mesh, local_config, mesh_size, model_axis_size
 from .sampling import (SamplingParams, sample_positions, sample_token_batch,
                        sampling_arrays)
@@ -139,17 +152,6 @@ MIN_SHARED_PREFIX = 64
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
-# Config keys of the JAX engine that select paths this port does not have
-# yet, with the ROADMAP item that brings each.
-_FEATURES = {
-    "prefix_cache": "slice 7: prefix cache and host-RAM offload",
-    "kv_offload": "slice 7: prefix cache and host-RAM offload",
-}
-# What a mesh does not serve yet, with its slice.
-_MESH_SLICE = ("slice 7e-ii: a data axis (per-replica pools and the "
-               "ReplicaGroupPlan) and the scheduler on a mesh")
-_DEVICES_SLICE = "slice 7e-ii: devices and dcn_axis beyond one card"
-
 
 def _quant_mode(params: dict) -> str:
     """"none", "int8" or "int4": how a parameter tree is quantized."""
@@ -164,7 +166,7 @@ def _quant_mode(params: dict) -> str:
 class GenStats:
     prefill_tokens: int = 0
     reused_tokens: int = 0
-    # cross-session prefix-cache hits: always 0 (not ported)
+    # of reused_tokens, those the cross-session prefix cache attached
     prefix_reused_tokens: int = 0
     decode_tokens: int = 0
     prefill_seconds: float = 0.0
@@ -189,11 +191,6 @@ class GenStats:
             if self.decode_seconds else 0.0
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to the PyTorch engine yet (ROADMAP, {item})")
-
-
 class InferenceEngine:
     """One resident model + its slot cache (contiguous or paged) on one
     device."""
@@ -207,6 +204,7 @@ class InferenceEngine:
                  page_size: int = 128, num_pages: Optional[int] = None,
                  quant: str = "none",
                  prefix_cache: Optional[bool] = None,
+                 prefix_cache_pages: Optional[int] = None,
                  kv_offload: Optional[bool] = None,
                  ragged_attn: Optional[bool] = None,
                  spec_decode: Any = None,
@@ -217,10 +215,8 @@ class InferenceEngine:
                  dcn_axis: Optional[str] = None, device="cuda"):
         self.device = resolve_device(self._pinned_device(device, devices,
                                                          dcn_axis))
-        self._check_ported(model_cfg, checkpoint, mesh_shape, dtype,
-                           seq_parallel, attn, kv_layout, quant,
-                           kv_quant, prefix_cache=prefix_cache,
-                           kv_offload=kv_offload, lora=lora)
+        self._check_ported(model_cfg, mesh_shape, dtype, seq_parallel,
+                           attn, kv_layout, quant)
         # This rank's Mesh under tensor parallelism, else None (one
         # device); `local_cfg` is the slice of the model it holds.
         self.mesh = (build_mesh(mesh_shape) if mesh_size(mesh_shape) > 1
@@ -303,6 +299,19 @@ class InferenceEngine:
             self.kv = PagedKVCache(local, num_slots, self.max_seq_len,
                                    dtype, self.device, page_size=page_size,
                                    num_pages=num_pages, kv_quant=spec)
+        # The cross-session prefix cache rides the pool (commit inserts,
+        # the allocator reclaims); the offload tier needs the engine. Both
+        # are paged-pool subsystems, default ON (JAX engine.py:773-789).
+        self.prefix_cache: Optional[PrefixCache] = None
+        self.kv_offload: Optional[HostOffloadTier] = None
+        if kv_layout == "paged":
+            if cache_enabled(prefix_cache):
+                self.prefix_cache = PrefixCache(
+                    self.kv, engine=model_cfg.name,
+                    max_pages=prefix_cache_pages)
+                self.kv.prefix_cache = self.prefix_cache
+            if offload_enabled(kv_offload):
+                self.kv_offload = HostOffloadTier(self)
         # Ragged mixed prefill/decode dispatch (the scheduler's chunk-
         # interleaved admission): on by default for the paged pool;
         # ragged_attn=False or ROUNDTABLE_RAGGED_ATTN=0 turns the seam off
@@ -657,16 +666,16 @@ class InferenceEngine:
         indices, an index with a CPU `device`, or any DCN axis are the
         multi-device options still to port."""
         if dcn_axis:
-            raise _not_ported(f"dcn_axis {dcn_axis!r}", _DEVICES_SLICE)
+            raise not_ported(f"dcn_axis {dcn_axis!r}", ITEM_7E_II)
         if not devices:
             return device
         if len(devices) != 1:
-            raise _not_ported(f"devices {list(devices)} (several cards)",
-                              _DEVICES_SLICE)
+            raise not_ported(f"devices {list(devices)} (several cards)",
+                             ITEM_7E_II)
         dev = torch.device(device)
         if dev.type != "cuda":
-            raise _not_ported(f"devices {list(devices)} on device {dev}",
-                              _DEVICES_SLICE)
+            raise not_ported(f"devices {list(devices)} on device {dev}",
+                             ITEM_7E_II)
         index = int(devices[0])
         if dev.index is not None and dev.index != index:
             raise ValueError(f"devices {list(devices)} contradicts device "
@@ -674,33 +683,28 @@ class InferenceEngine:
         return torch.device("cuda", index)
 
     @staticmethod
-    def _check_ported(cfg, checkpoint, mesh_shape, dtype, seq_parallel,
-                      attn, kv_layout, quant, kv_quant, lora=None,
-                      **features) -> None:
-        """Raise NotImplementedError for every option this slice does not
-        serve, naming the ROADMAP item that brings it."""
-        for name, value in features.items():
-            if value:
-                raise _not_ported(name, _FEATURES[name])
+    def _check_ported(cfg, mesh_shape, dtype, seq_parallel, attn,
+                      kv_layout, quant) -> None:
+        """Raise NotImplementedError for every option the port does not
+        serve yet, naming the ROADMAP item that brings it."""
         if kv_layout not in ("contiguous", "paged"):
             raise ValueError(
                 f"kv_layout must be contiguous|paged, got {kv_layout!r}")
         if quant not in ("none", "int8", "int4"):
             raise ValueError(f"quant must be none|int8|int4, got {quant!r}")
         if seq_parallel and seq_parallel > 0:
-            raise _not_ported("seq_parallel",
-                              "slice 7: multi-device")
+            raise not_ported("seq_parallel (longcontext)", ITEM_7E_II)
         if mesh_size(mesh_shape) > 1:
             if int(mesh_shape.get("data", 1)) != 1:
-                raise _not_ported(f"mesh {mesh_shape} (a data axis)",
-                                  _MESH_SLICE)
+                raise not_ported(
+                    f"mesh {mesh_shape} (a data axis: per-replica pools and "
+                    f"the ReplicaGroupPlan)", ITEM_7E_II)
         if attn not in ("auto", "flash", "dense"):
             raise ValueError(f"attn must be auto|flash|dense, got {attn!r}")
         if cfg.num_experts:
-            raise _not_ported("MoE models", "slice 7: MoE and float16")
+            raise not_ported("MoE models", ITEM_7E_I)
         if dtype not in _DTYPES.values():
-            raise _not_ported(f"dtype {dtype}",
-                              "slice 7: MoE and float16")
+            raise not_ported(f"dtype {dtype}", ITEM_7E_I)
 
     @staticmethod
     def _resolve_attn(model_cfg: ModelConfig, attn: str,
@@ -759,7 +763,7 @@ class InferenceEngine:
         if dtype_name not in _DTYPES:
             if dtype_name != "float16":
                 raise ValueError(f"unknown dtype {dtype_name!r}")
-            raise _not_ported("dtype 'float16'", "slice 7: MoE and float16")
+            raise not_ported("dtype 'float16'", ITEM_7E_I)
         sampling_cfg = config.get("sampling", {})
         sampling = SamplingParams(
             temperature=float(sampling_cfg.get("temperature", 0.7)),
@@ -783,6 +787,9 @@ class InferenceEngine:
                        if config.get("num_pages") else None),
             quant=config.get("quant", "none"),
             prefix_cache=config.get("prefix_cache"),
+            prefix_cache_pages=(int(config["prefix_cache_pages"])
+                                if config.get("prefix_cache_pages")
+                                else None),
             kv_offload=config.get("kv_offload"),
             ragged_attn=config.get("ragged_attn"),
             spec_decode=config.get("spec_decode"),
@@ -842,6 +849,8 @@ class InferenceEngine:
         self._release_warm_slots()
         if self.ragged_enabled:
             self._warm_ragged()
+        if self.kv_offload is not None:
+            self.kv_offload.warm()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         return time.monotonic() - t0
@@ -1052,13 +1061,15 @@ class InferenceEngine:
                        extra_pinned: tuple[str, ...] = (),
                        defer_prefill: bool = False, adapters=None) -> dict:
         """The pre-decode phase, one definition shared by generate_batch
-        and the session scheduler's admission: tokenize + tail-truncate ->
-        own-slot reuse_plan -> cross-knight share_prefixes -> capacity/COW
+        and the session scheduler's admission: restore spilled sessions ->
+        tokenize + tail-truncate -> own-slot reuse_plan -> cross-session
+        prefix-cache attach -> cross-knight share_prefixes -> capacity/COW
         -> chunked prefill -> first token. Returns names, slot_ids (-1 per
         paged row), all_tokens, offsets, tables_np (None on the contiguous
         layout), per_row,
         temps/top_ks/top_ps, greedy, first_np, prefill_tokens,
-        reused_tokens and prefix_reused_tokens (0: no prefix cache).
+        reused_tokens and prefix_reused_tokens (of reused_tokens, those the
+        prefix cache attached).
 
         `extra_pinned` names survive every eviction this phase can trigger
         (the scheduler pins its live rows). `defer_prefill` (the mixed-
@@ -1072,9 +1083,15 @@ class InferenceEngine:
         `adapters`: per-turn LoRA adapter ids (None = base), acquired by
         the caller so residency cannot change under this call. They give
         the rows' adapter slots (`lora_slots` in the result, with
-        `adapters`), the adapter-flip release, the mixed-adapter share
-        suppression and the donor filter."""
+        `adapters`), the adapter-flip release, the prefix cache's
+        base-rows-only filter, the mixed-adapter share suppression and the
+        donor filter."""
         pinned = tuple(name for name, _ in turns) + tuple(extra_pinned)
+        if self.kv_offload is not None:
+            # A spilled session resumes here, before reuse_plan acquires
+            # its slots: the restored tokens and pages let the LCP pass see
+            # the whole committed prefix, so the turn prefills its delta.
+            self.kv_offload.restore_for([n for n, _ in turns], pinned)
         ad: Optional[list] = None
         lora_slots: Optional[list[int]] = None
         if self.lora is not None:
@@ -1094,9 +1111,25 @@ class InferenceEngine:
             offsets.append(reuse)
             all_tokens.append(tokens)
         names = [name for name, _ in turns]
+        # Cross-session prefix cache: the content-addressed index extends
+        # each row's reuse frontier past its own slot's history by aliasing
+        # pages any earlier session committed. Its pages hold base-model
+        # K/V, so on a LoRA batch only the base rows consult it.
+        prefix_reused = 0
+        if self.prefix_cache is not None:
+            base = [i for i in range(len(names))
+                    if lora_slots is None or lora_slots[i] == 0]
+            if base:
+                sub = [offsets[i] for i in base]
+                prefix_reused = self.prefix_cache.attach_rows(
+                    [names[i] for i in base], [all_tokens[i] for i in base],
+                    sub, pinned)
+                for j, i in enumerate(base):
+                    offsets[i] = sub[j]
         if defer_prefill:
-            # Deferral pays off only for cold prefills: a warm join's few
-            # leftover tokens cost less as one blocking prefill.
+            # Deferral pays off only for cold prefills: after own-slot
+            # reuse and the attach, a warm join's few leftover tokens cost
+            # less as one blocking prefill.
             est = sum(len(t) - o for t, o in zip(all_tokens, offsets))
             if est < self.ragged_defer_min:
                 defer_prefill = False
@@ -1106,9 +1139,6 @@ class InferenceEngine:
             def defer_span(m, lo, hi, followers):
                 share_plan.append({"leader": m, "lo": lo, "hi": hi,
                                    "followers": followers})
-        # (The JAX engine's prefix-cache gating for persona rows - base
-        # rows alone consult the cross-session index - belongs to the
-        # prefix cache, which the port does not have yet: ROADMAP 7a.)
         if lora_slots is not None and len(set(lora_slots)) > 1:
             # Mixed-adapter batch: no donor or leader span is valid across
             # rows of different adapters, so both share passes are off.
@@ -1146,7 +1176,8 @@ class InferenceEngine:
             "names": names, "slot_ids": slot_ids, "all_tokens": all_tokens,
             "offsets": offsets, "tables_np": tables_np,
             "prefill_tokens": prefill_tokens,
-            "reused_tokens": reused_tokens, "prefix_reused_tokens": 0,
+            "reused_tokens": reused_tokens,
+            "prefix_reused_tokens": prefix_reused,
             "lora_slots": lora_slots, "adapters": ad,
         }
         if defer_prefill:
@@ -1204,9 +1235,10 @@ class InferenceEngine:
                     f"lora adapter {a!r} is not resident - callers "
                     "acquire() adapters before _prepare_batch")
             lora_slots.append(slot)
-        # Base rows label None, so "never seen" needs its own sentinel. (The
-        # JAX engine also keeps the labels of sessions spilled to host RAM;
-        # the port has no spill yet: ROADMAP 7a.)
+        # Base rows label None, so "never seen" needs its own sentinel. The
+        # release runs after the offload restore (_prepare_batch), or a
+        # flip across a spill gap would release a name not in the pool and
+        # the restore would bring back the old adapter's bytes.
         unset = object()
         for (name, _p), a in zip(turns, ad):
             prev = self._slot_adapters.get(name, unset)
@@ -1214,9 +1246,14 @@ class InferenceEngine:
                 self.kv.release(name)
             self._slot_adapters[name] = a
         if len(self._slot_adapters) > 4 * self.kv.num_slots:
+            # Keep the labels whose K/V still exists: pool slots, this
+            # batch, and sessions parked in the offload tier.
             live = set(self.kv.slot_names()) | {name for name, _ in turns}
-            self._slot_adapters = {n: a_ for n, a_ in
-                                   self._slot_adapters.items() if n in live}
+            spilled = (set(self.kv_offload.spilled_sessions())
+                       if self.kv_offload is not None else set())
+            self._slot_adapters = {
+                n: a_ for n, a_ in self._slot_adapters.items()
+                if n in live or session_of(n) in spilled}
         return ad, lora_slots
 
     def _lora_args(self, ids) -> Optional[LoraBatch]:
@@ -1662,6 +1699,7 @@ class InferenceEngine:
                                    adapters=adapters_per_turn)
         stats.prefill_tokens = prep["prefill_tokens"]
         stats.reused_tokens = prep["reused_tokens"]
+        stats.prefix_reused_tokens = prep["prefix_reused_tokens"]
         stats.prefill_seconds = time.monotonic() - t0
 
         all_tokens = prep["all_tokens"]
@@ -1693,9 +1731,18 @@ class InferenceEngine:
                                  timeout_s, retry=self.retry,
                                  budget=dec_budget)
         stats.decode_seconds = time.monotonic() - t1
+        commit = self.kv.commit
+        ad = prep["adapters"]
+        if ad is not None and any(a is not None for a in ad):
+            # Persona rows never feed the cross-session index: their pages
+            # hold adapter-tinted K/V no other row may alias.
+            base_row = {name: a is None for (name, _p), a in zip(turns, ad)}
+
+            def commit(name, toks):
+                self.kv.commit(name, toks, index=base_row[name])
         results = finalize_outputs(
             turns, first_np, out_np, all_tokens, max_new,
-            self.tokenizer.eos_id, self.kv.commit, self.tokenizer.decode,
+            self.tokenizer.eos_id, commit, self.tokenizer.decode,
             stats)
         if lora_slots and any(lora_slots):
             # Persona tokens: each persona row's prefilled suffix and its
@@ -1749,6 +1796,10 @@ class InferenceEngine:
                          "ragged": self.ragged_describe(),
                          "spec_decode": self.spec_describe(),
                          "kv_quant": self.kv_quant_describe()})
+            if self.prefix_cache is not None:
+                info["prefix_cache"] = self.prefix_cache.describe()
+            if self.kv_offload is not None:
+                info["kv_offload"] = self.kv_offload.describe()
             if not self.paged_direct:
                 info["attention_kernels"] = "none"
         else:
@@ -1756,8 +1807,6 @@ class InferenceEngine:
             if self.cfg.attn_impl == "dense":
                 info["attention_kernels"] = "none"
         info["lora"] = self.lora_describe()
-        for feature in _FEATURES:
-            info[f"{feature}_reason"] = "not_ported"
         if self._scheduler is not None:
             info["scheduler"] = self._scheduler.describe()
         return info

@@ -158,7 +158,12 @@ class SlotBook:
         state.tokens = state.tokens[:reuse]
         return state.slot_id, reuse
 
-    def commit(self, name: str, tokens: list[int]) -> None:
+    def commit(self, name: str, tokens: list[int],
+               index: bool = True) -> None:
+        """Record that the slot's cache now covers exactly `tokens`.
+        `index` matches PagedKVCache.commit's signature; the contiguous
+        layout has no cross-session index, so it is ignored."""
+        del index
         self.acquire(name).tokens = list(tokens)
 
     def best_donor(self, name: str,

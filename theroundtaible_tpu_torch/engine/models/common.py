@@ -57,6 +57,7 @@ from typing import Any, Callable, Optional
 import torch
 import torch.nn.functional as F
 
+from ...core.errors import ITEM_7E_I, not_ported
 from ..device import resolve_device
 from ..lora import apply_group
 
@@ -548,8 +549,7 @@ def mlp(x: torch.Tensor, layer: Params, cfg: ModelConfig,
     result (all-reduced under a mesh that shards the hidden) is cast
     last."""
     if cfg.num_experts:
-        raise NotImplementedError(
-            "MoE (moe_mlp) is not ported yet (ROADMAP, slice 7)")
+        raise not_ported("MoE (moe_mlp)", ITEM_7E_I)
     gate, up = apply_group(
         ("gate_proj", "up_proj"), x,
         (_matmul(x, layer["gate_proj"], SPEC_UP, mesh=mesh),
@@ -815,8 +815,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                 else torch.ones(n, dtype=dtype, device=device))
 
     if cfg.num_experts:
-        raise NotImplementedError(
-            "MoE parameters are not ported yet (ROADMAP, slice 7)")
+        raise not_ported("MoE parameters", ITEM_7E_I)
     e, h, k_, d, f = (cfg.embed_dim, cfg.num_heads, cfg.num_kv_heads,
                       cfg.head_dim, cfg.mlp_dim)
     params: Params = keep(

@@ -17,7 +17,17 @@ pages through a page table:
 The host bookkeeping is the JAX package's, unchanged; the pools are
 updated in place where the JAX package donates buffers (the page copies
 here, the K/V scatter in paged_forward). The per-replica page ranges of a
-data-sharded pool and the cross-session prefix-cache hooks are not ported.
+data-sharded pool are not ported: the pool is one replica range (replica
+0, scratch page 0).
+
+Sharing surface: the cross-session prefix cache (engine/prefix_cache.py)
+and the host-RAM offload tier (engine/kv_offload.py) hold page references
+of their own (`ref`/`unref`), so a page shared by several sessions and the
+index is stored once and frees only when its last holder lets go. The
+pool's couplings to the index: commit() publishes complete pages into it,
+_alloc_page reclaims its refcount-0 pages before evicting a slot, flush()
+drops it, and the write paths forget an index-only share instead of
+copying it.
 
 Quantized pages (`kv_quant`, a kv_quant.KVQuantSpec): each layer's pools
 hold an int8 payload [P, page_size, K, Dp] beside f32 scale pools
@@ -108,11 +118,21 @@ class PagedKVCache:
         self._slots: dict[str, PagedSlot] = {}
         self._free: list[int] = list(range(1, num_pages))
         self._refs: dict[int, int] = {}
+        # The cross-session prefix cache, attached by the engine after
+        # construction (None: cache off).
+        self.prefix_cache = None
 
     # --- introspection / accounting ---
 
     def pages_in_use(self) -> int:
         return self.num_pages - 1 - len(self._free)
+
+    def free_pages(self) -> int:
+        """Immediately allocatable pages. Excludes everything reclaimable
+        under pressure (idle evictable slots, refcount-0 prefix-cache
+        nodes): the scheduler's spill policy keys off this to spill idle
+        sessions before the allocator destroys their caches."""
+        return len(self._free)
 
     def usable_pages(self) -> int:
         """Total non-scratch pages."""
@@ -142,18 +162,84 @@ class PagedKVCache:
         return (2 * self.num_pages * self.page_size * self.cfg.num_kv_heads
                 * self.cfg.head_dim * self._kv_dtype_bytes * len(self.pools))
 
+    def combined_pools(self) -> list[tuple[torch.Tensor, torch.Tensor]]:
+        """Every layer's (k, v) pools, then on a quantized pool every
+        layer's scale pools: the whole state of a page, in the order the
+        offload tier spills and restores it."""
+        return list(self.pools) + list(self.scales or [])
+
     def _run_page_copy(self, src_ids: list[int], dst_ids: list[int]) -> None:
         """Whole-page device copies, in place in every layer's pools and
         scale pools: a copied page never leaves its scales behind."""
         dev = self.pools[0][0].device
         src = torch.tensor(src_ids, dtype=torch.long, device=dev)
         dst = torch.tensor(dst_ids, dtype=torch.long, device=dev)
-        for k, v in list(self.pools) + list(self.scales or []):
+        for k, v in self.combined_pools():
             k.index_copy_(0, dst, k.index_select(0, src))
             v.index_copy_(0, dst, v.index_select(0, src))
 
     def slot_names(self) -> list[str]:
         return list(self._slots)
+
+    def memory_ledger(self) -> dict:
+        """Paged-pool accounting: pages in use / usable, slot occupancy,
+        and fragmentation - the share of held page cells backing no cached
+        token, over distinct pages with each page's covered cells taken
+        once (the most any slot mapping it covers), so a page shared by N
+        sessions never counts N times. "Shared" pages have two or more slot
+        mappings or a holder besides the slots and the index (the offload
+        tier); the index's own reference is not sharing."""
+        in_use = self.pages_in_use()
+        usable = self.usable_pages()
+        cached_tokens = sum(len(s.tokens) for s in self._slots.values())
+        ps = self.page_size
+        covered: dict[int, int] = {}
+        map_counts: dict[int, int] = {}
+        for s in self._slots.values():
+            for j, p in enumerate(s.pages):
+                map_counts[p] = map_counts.get(p, 0) + 1
+                cov = max(0, min(len(s.tokens) - j * ps, ps))
+                if cov > covered.get(p, -1):
+                    covered[p] = cov
+        held_cells = len(covered) * ps
+        frag = (round(1.0 - min(sum(covered.values()) / held_cells, 1.0),
+                      3) if held_cells else 0.0)
+        pc = self.prefix_cache
+
+        def _is_shared(p: int) -> bool:
+            if map_counts.get(p, 0) >= 2:
+                return True
+            extra = self._refs.get(p, 1) - map_counts.get(p, 0)
+            if pc is not None and pc.holds_page(p):
+                extra -= 1
+            return extra >= 1
+
+        shared = sum(1 for p in covered if _is_shared(p))
+        n_slots = len(self._slots)
+        resident = self.hbm_bytes()
+        logical = self.hbm_bytes_logical()
+        return {
+            "layout": "paged",
+            "kv_dtype": (self.kv_quant.dtype_name
+                         if self.kv_quant is not None else "bf16"),
+            "kv_quant_bits": (self.kv_quant.bits
+                              if self.kv_quant is not None else 0),
+            "kv_bytes_resident": resident,
+            "kv_bytes_logical": logical,
+            "kv_quant_bytes_saved": max(logical - resident, 0),
+            "slots_in_use": n_slots,
+            "num_slots": self.num_slots,
+            "slot_occupancy": round(n_slots / max(self.num_slots, 1), 3),
+            "cached_tokens": cached_tokens,
+            "pages_in_use": in_use,
+            "usable_pages": usable,
+            "page_utilization": round(in_use / max(usable, 1), 3),
+            "fragmentation": frag,
+            "shared_pages": shared,
+            "exclusive_pages": len(covered) - shared,
+            "prefix_cache_pages": pc.page_count() if pc is not None else 0,
+            "hbm_bytes": resident,
+        }
 
     # --- slot lifecycle ---
 
@@ -180,10 +266,15 @@ class PagedKVCache:
                 self._decref(p)
 
     def flush(self) -> int:
-        """Release every slot; returns how many were flushed."""
+        """Release every slot, and drop the prefix cache's index the same
+        way: every holder unrefs, so a page shared between a slot and the
+        index frees when the last reference goes. Returns how many slots
+        were flushed."""
         names = list(self._slots)
         for name in names:
             self.release(name)
+        if self.prefix_cache is not None:
+            self.prefix_cache.drop_all()
         return len(names)
 
     def reset_slot(self, name: str) -> None:
@@ -210,6 +301,37 @@ class PagedKVCache:
     def _shared(self, page: int) -> bool:
         return self._refs.get(page, 1) > 1
 
+    def _index_only_share(self, page: int) -> bool:
+        """True when `page`'s only holder besides the mapping slot is the
+        prefix-cache index. The write paths then make the page exclusive by
+        forgetting the index entry instead of copying on write: the slot's
+        divergence invalidates that entry's continuation anyway, and under
+        a full pool the copy's allocation may be the page that does not
+        exist."""
+        return (self.prefix_cache is not None
+                and self._refs.get(page, 1) == 2
+                and self.prefix_cache.holds_page(page))
+
+    # Public refcount surface: the prefix cache and the offload tier hold
+    # references of their own; release/flush decref, never force-free.
+
+    def ref(self, page: int) -> None:
+        """Take one reference on `page` (index and offload-tier holders)."""
+        self._incref(page)
+
+    def unref(self, page: int) -> None:
+        """Drop one reference; the page frees only when the last holder
+        lets go."""
+        self._decref(page)
+
+    def refcount(self, page: int) -> int:
+        """Current holder count (1 = exactly one holder)."""
+        return self._refs.get(page, 1)
+
+    def replica_of_page(self, page: int) -> int:
+        """The replica range holding `page`: always 0 here (one range)."""
+        return 0
+
     def cow_page(self, name: str, j: int,
                  pinned: tuple[str, ...] = ()) -> int:
         """Copy-on-write: give `name` exclusive ownership of its logical
@@ -219,6 +341,9 @@ class PagedKVCache:
         p = state.pages[j]
         if not self._shared(p):
             return p
+        if self._index_only_share(p):
+            self.prefix_cache.forget_page(p)
+            return p
         pinned = tuple(pinned) + (name,)
         fresh = self._alloc_page(pinned)
         self._decref(p)
@@ -227,12 +352,22 @@ class PagedKVCache:
         return fresh
 
     def _alloc_page(self, pinned_names: tuple[str, ...]) -> int:
+        cache = self.prefix_cache
+        if not self._free and cache is not None:
+            # Cheapest first: pages only the index holds. Evicting a slot
+            # first would free almost nothing with the cache on (its
+            # complete pages stay index-held) and destroy its record.
+            cache.reclaim()
         if not self._free:
-            # Evict LRU slots (dict order = recency) until a page frees.
+            # Evict LRU slots (dict order = recency) until a page frees; a
+            # released victim's index-held pages drop to refcount 0, so
+            # reclaim between victims.
             for victim in list(self._slots):
                 if victim in pinned_names:
                     continue
                 self.release(victim)
+                if not self._free and cache is not None:
+                    cache.reclaim()
                 if self._free:
                     break
         if not self._free:
@@ -298,11 +433,19 @@ class PagedKVCache:
         while len(state.pages) > keep:
             self._decref(state.pages.pop())
 
-    def commit(self, name: str, tokens: list[int]) -> None:
-        """Record that the slot's pages now hold exactly `tokens`."""
+    def commit(self, name: str, tokens: list[int],
+               index: bool = True) -> None:
+        """Record that the slot's pages now hold exactly `tokens`, and
+        publish its complete pages into the prefix cache's index. Not with
+        `index=False` (a persona row's adapter-tinted K/V, which base rows
+        of other sessions must not alias), nor for warmup slots (crafted to
+        defeat sharing)."""
         state = self.acquire(name)
         state.tokens = list(tokens)
         self._trim_pages(state, len(tokens))
+        if (index and self.prefix_cache is not None
+                and not name.startswith("__warmup_")):
+            self.prefix_cache.insert(state)
 
     def best_donor(self, name: str,
                    tokens: list[int]) -> tuple[Optional[PagedSlot], int]:
@@ -333,6 +476,8 @@ class PagedKVCache:
         need = -(-upto_tokens // self.page_size)
         while len(state.pages) < need:
             state.pages.append(self._alloc_page(pinned))
+        # cow_page is the one fork policy: an index-only share goes
+        # exclusive by forgetting the index entry, a real share copies.
         for j in range(write_from // self.page_size, len(state.pages)):
             if self._shared(state.pages[j]):
                 self.cow_page(name, j, pinned)
@@ -409,7 +554,11 @@ class PagedKVCache:
         try:
             if lo % ps and lo_page < hi_page:
                 if lo_page < len(dst.pages):
-                    if self._shared(dst.pages[lo_page]):
+                    if self._index_only_share(dst.pages[lo_page]):
+                        # About to be overwritten by the adopted copy:
+                        # forgetting the index entry is exclusive for free.
+                        self.prefix_cache.forget_page(dst.pages[lo_page])
+                    elif self._shared(dst.pages[lo_page]):
                         fresh = self._alloc_page(pinned)
                         self._decref(dst.pages[lo_page])
                         dst.pages[lo_page] = fresh

@@ -36,6 +36,7 @@ from typing import Any
 
 import torch
 
+from ..core.errors import ITEM_7E_I, not_ported
 from .kernels.int4mm import plan_leaf
 from .models.common import LEAF_SPECS, Int4Leaf, ModelConfig, Params
 
@@ -131,8 +132,7 @@ def quantize_leaves(tree: dict, cfg: ModelConfig, act_dtype=torch.bfloat16,
     if bits not in (8, 4):
         raise ValueError(f"bits must be 8 or 4, got {bits}")
     if cfg.num_experts:
-        raise NotImplementedError(
-            "quantized MoE experts are not ported yet (ROADMAP, slice 7e)")
+        raise not_ported("quantized MoE experts", ITEM_7E_I)
 
     def one(value: torch.Tensor, key: str) -> Any:
         scale_axes = _SCALE_AXES[key]

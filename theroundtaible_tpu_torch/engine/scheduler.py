@@ -49,12 +49,19 @@ continuously instead:
   pages) is scored in one ragged forward and each row commits its
   accepted prefix plus one token; otherwise the plain segments serve. The
   adaptive throttle stops a row whose drafts are rarely accepted.
+- **Host-RAM spill.** On an engine with the offload tier
+  (engine/kv_offload.py), an admission whose new-page demand exceeds the
+  free pages first spills idle sessions (least recently active first) to
+  host RAM instead of letting the allocator evict their slots, and with
+  `idle_spill_s` a session idle that long spills on a tick. A spilled
+  session restores at its next submit (the engine's _prepare_batch) and
+  prefills only its delta. Speculative draft slots are never spilled, and
+  persona rows never feed the cross-session prefix cache.
 
 Not ported here (each parameter that asks for one raises, naming its
-ROADMAP item): host-RAM spill, the
-session journal, the supervisor, streaming `on_commit`, replica labels,
-and the telemetry registry series and spans (but the `roundtable_spec_*`
-ones). The engine's pools are
+ROADMAP item): the session journal, the supervisor, streaming
+`on_commit`, replica labels, and the telemetry registry series and spans
+(but the `roundtable_spec_*` ones). The engine's pools are
 updated in place and never donated, so no dispatch failure takes the
 whole pool down with it: the JAX scheduler's revive-and-fail-all rung has
 nothing to do here.
@@ -71,9 +78,10 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from ..core.errors import ITEM_7C, ITEM_7D, ITEM_7E_II, not_ported
 from ..utils import telemetry
 from . import deadlines
-from .kvcache import scoped_slot
+from .kvcache import scoped_slot, session_of
 from .paging import SCRATCH_PAGE
 from .sampling import SamplingParams, sampling_arrays
 from .serving_loop import (DECODE_SEGMENT, RAGGED_BLOCK_Q, RaggedSeq,
@@ -108,12 +116,6 @@ def _note_rows(n: int) -> None:
     with _test_lock:
         if n > _test_max_rows:
             _test_max_rows = n
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to the PyTorch scheduler yet (ROADMAP, "
-        f"{item})")
 
 
 class SchedulerRefused(RuntimeError):
@@ -248,21 +250,24 @@ class SessionScheduler:
                 or hasattr(engine, "_decode_dispatch_slots")):
             raise TypeError("SessionScheduler requires the port's "
                             "InferenceEngine (no decode seam)")
-        if idle_spill_s is not None:
-            raise _not_ported("idle_spill_s (host-RAM spill)",
-                              "slice 7: prefix cache and host-RAM offload")
         if journal is not None:
-            raise _not_ported("the session journal",
-                              "slice 7: supervision")
+            raise not_ported("the session journal", ITEM_7C)
         if getattr(engine, "mesh", None) is not None:
             # Admission decisions come from threads: the ranks of a mesh
             # would need rank 0's plan broadcast at every dispatch.
-            raise _not_ported("the SessionScheduler on a mesh",
-                              "slice 7: the scheduler on a mesh")
+            raise not_ported("the scheduler on a mesh (a SessionScheduler "
+                             "over tensor-parallel ranks)", ITEM_7E_II)
         self.engine = engine
         self.admit_hold_s = admit_hold_s
         self.max_rows = min(max_rows or engine.kv.num_slots,
                             engine.kv.num_slots)
+        # Host-RAM offload policy: per-session last activity drives the
+        # spills - under page pressure at admission (always, with the
+        # engine's tier) and, with idle_spill_s set, of sessions idle that
+        # long on each tick. None = pressure-driven only.
+        self.idle_spill_s = idle_spill_s
+        self._last_active: dict[str, float] = {}
+        self.spills = 0
         self._queue: deque[_Request] = deque()
         self._active: list[_Row] = []         # rows, admission order
         self._active_reqs: list[_Request] = []
@@ -326,8 +331,8 @@ class SessionScheduler:
                      budget=None, adapters_per_turn=None,
                      on_commit=None) -> _Request:
         if on_commit is not None:
-            raise _not_ported("on_commit (committed-token streaming)",
-                              "slice 7: serving tier")
+            raise not_ported("on_commit (committed-token streaming)",
+                             ITEM_7D)
         if self.closed:
             raise SchedulerClosed("scheduler is closed")
         if not turns:
@@ -404,6 +409,7 @@ class SessionScheduler:
                 raise SchedulerClosed("scheduler is closed")
             self._queue.append(req)
             self.queued_peak = max(self.queued_peak, len(self._queue))
+            self._last_active[session] = time.monotonic()
             self._cv.notify_all()
         return req
 
@@ -470,11 +476,12 @@ class SessionScheduler:
 
     def describe(self) -> dict[str, Any]:
         """Scheduler provenance for engine.describe(): the JAX
-        scheduler's keys. Keys of unported parts (spill, journal) read 0
+        scheduler's keys. Keys of unported parts (pause, journal) read 0
         or None."""
         with self._cv:
             occ = list(self._occupancy)
             events = list(self._events)
+        tier = getattr(self.engine, "kv_offload", None)
         return {
             "admitted": self.admitted,
             "refused": self.refused,
@@ -497,14 +504,40 @@ class SessionScheduler:
             "occupancy_mean": (round(sum(occ) / len(occ), 2)
                                if occ else 0.0),
             "occupancy_recent": occ[-32:],
-            "spills": 0,
-            "spilled_sessions": 0,
+            "spills": self.spills,
+            "spilled_sessions": (len(tier.spilled_sessions())
+                                 if tier is not None else 0),
             "paused": None,
             "admission": {"paused": None, "open": not self.closed,
                           "queued": len(self._queue)},
             "journal_turns": 0,
             "journal_errors": 0,
             "events": events,
+        }
+
+    def snapshot(self) -> dict[str, Any]:
+        """Cheap roll-up: queue depth and each session's state (queued,
+        active with its live rows, or spilled to host RAM). A closed
+        scheduler reports no spilled sessions: its engine may outlive it
+        and serves them through no scheduler."""
+        sessions: dict[str, str] = {}
+        with self._cv:
+            for req in self._queue:
+                sessions.setdefault(req.session, "queued")
+        for req in list(self._active_reqs):
+            live = sum(1 for r in req.rows if not r.done)
+            sessions[req.session] = f"active({live} live rows)"
+        tier = getattr(self.engine, "kv_offload", None)
+        if tier is not None and not self.closed:
+            for s in tier.spilled_sessions():
+                sessions.setdefault(s, "spilled(host RAM)")
+        return {
+            "engine": getattr(self.engine.cfg, "name", "?"),
+            "queued": len(self._queue),
+            "active_rows": len(self._active),
+            "sessions": sessions,
+            "paused": None,
+            "closed": self.closed,
         }
 
     # ------------------------------------------------------------------
@@ -552,8 +585,8 @@ class SessionScheduler:
     def _loop(self) -> None:
         while True:
             with self._cv:
-                while not self._active and not self._stop \
-                        and not self._queue:
+                while (not self._active and not self._stop
+                       and not self._queue and not self._idle_spill_due()):
                     self._cv.wait(timeout=0.25)
                 if self._stop and not self._active and not self._queue:
                     break
@@ -577,6 +610,8 @@ class SessionScheduler:
             self.reject_queued(SchedulerClosed("scheduler closed"))
         self._check_request_health()
         self._sweep_queue()
+        self._prune_last_active()
+        self._spill_idle_by_age()
         self._admit_queued()
         live = [r for r in self._active if not r.done and not r.pending]
         filling = [r for r in self._active if not r.done and r.pending]
@@ -714,6 +749,112 @@ class SessionScheduler:
                 return False
         return True
 
+    # --- host-RAM offload policy ---
+
+    def _spillable_sessions(self, exclude: set[str]) -> list[str]:
+        """Sessions whose slots sit idle in the pool: namespaced, not
+        decoding, not queued, not excluded, and not the speculative draft
+        slots' scope - least recently active first."""
+        from .spec_decode import DRAFT_SCOPE
+        busy = {session_of(r.name) for r in self._active}
+        with self._cv:
+            busy |= {r.session for r in self._queue}
+        busy |= exclude
+        busy.add(DRAFT_SCOPE)
+        seen: dict[str, None] = {}
+        for n in self.engine.kv.slot_names():
+            s = session_of(n)
+            if s and s not in busy:
+                seen.setdefault(s)
+        return sorted(seen, key=lambda s: self._last_active.get(s, 0.0))
+
+    def _spill_sessions(self, sessions: list[str], reason: str,
+                        want_pages: Optional[int] = None) -> int:
+        tier = getattr(self.engine, "kv_offload", None)
+        if tier is None:
+            return 0
+        kv = self.engine.kv
+        spilled = 0
+        for s in sessions:
+            free0 = kv.free_pages()
+            n = tier.spill_session(s)
+            if n:
+                spilled += 1
+                with self._cv:
+                    self.spills += 1
+                self._event("spill", session=s, reason=reason, slots=n,
+                            pages_freed=kv.free_pages() - free0)
+            if want_pages is not None and kv.free_pages() >= want_pages:
+                break
+        return spilled
+
+    _LAST_ACTIVE_PRUNE_AT = 1024
+
+    def _prune_last_active(self) -> None:
+        """Bound the last-activity map: once it outgrows the threshold,
+        drop the sessions that hold no pool slot and no spill record and
+        are neither active nor queued."""
+        if len(self._last_active) <= self._LAST_ACTIVE_PRUNE_AT:
+            return
+        keep = {session_of(n) for n in self.engine.kv.slot_names()}
+        tier = getattr(self.engine, "kv_offload", None)
+        if tier is not None:
+            keep |= set(tier.spilled_sessions())
+        keep |= {r.session for r in self._active_reqs}
+        # Under the cv: submit() threads insert into this dict.
+        with self._cv:
+            keep |= {r.session for r in self._queue}
+            for s in [s for s in self._last_active if s not in keep]:
+                del self._last_active[s]
+
+    def _idle_spill_due(self) -> bool:
+        """True when the idle policy has work: the loop's idle wait wakes
+        for it, or a quiet scheduler would never run the spill tick."""
+        if (self.idle_spill_s is None
+                or getattr(self.engine, "kv_offload", None) is None):
+            return False
+        now = time.monotonic()
+        return any(now - self._last_active.get(s, now) >= self.idle_spill_s
+                   for s in self._spillable_sessions(set()))
+
+    def _spill_idle_by_age(self) -> None:
+        """Proactive idle spill (idle_spill_s set): a session that has not
+        submitted for idle_spill_s moves its pages to host RAM."""
+        if (self.idle_spill_s is None
+                or getattr(self.engine, "kv_offload", None) is None):
+            return
+        now = time.monotonic()
+        idle = [s for s in self._spillable_sessions(set())
+                if now - self._last_active.get(s, now) >= self.idle_spill_s]
+        if not idle:
+            return
+        self._acquire_engine()
+        try:
+            self._spill_sessions(idle, reason="idle")
+        finally:
+            if not self._active:
+                self._release_engine()
+
+    def _spill_for_pressure(self, req: _Request) -> None:
+        """Admission-time pressure valve: when the free pages cannot cover
+        the request's new-page demand, spill idle sessions (least recently
+        active first) before _prepare_batch runs, instead of letting the
+        allocator's LRU eviction destroy their caches. The demand is new
+        pages only: a session's next turn is mostly its own committed
+        transcript, already paged in under its scoped slots."""
+        engine = self.engine
+        if (getattr(engine, "kv_offload", None) is None
+                or engine.kv_layout != "paged"):
+            return
+        scoped = [scoped_slot(req.session, n) for n, _ in req.turns]
+        need = (self._pages_needed(req.turns, req.max_new)
+                - engine.kv.pages_held(scoped))
+        if need <= engine.kv.free_pages():
+            return
+        self._spill_sessions(
+            self._spillable_sessions(exclude={req.session}),
+            reason="pressure", want_pages=need)
+
     def _start_request(self, req: _Request) -> None:
         """Admission: the engine's own pre-decode phase (_prepare_batch -
         one definition, so scheduled admission cannot drift from
@@ -732,6 +873,7 @@ class SessionScheduler:
         pre_budget = turn_budget.child("prefill")
         max_new, max_new_padded = clamp_max_new(req.max_new,
                                                 engine.max_seq_len)
+        self._spill_for_pressure(req)
         # Adapter residency, taken on the loop thread under the serve lock
         # (a load's slot write never races a dispatch) for the request's
         # lifetime; released at retirement or failure.
@@ -1662,6 +1804,7 @@ class SessionScheduler:
         for r in req.rows:
             self.engine.kv.release(r.name)
         self._drop_request(req)
+        self._last_active[req.session] = time.monotonic()
         req.error = err
         self.failed += 1
         self._event("fail", session=req.session, error=str(err)[:200])
@@ -1701,9 +1844,12 @@ class SessionScheduler:
                 ids = eos_trim(list(r.produced), eos, max_new)
                 req.stats.decode_tokens += len(ids)
                 # Commit prompt + every fed token (all but the last
-                # sampled one) - the finalize_outputs contract.
+                # sampled one) - the finalize_outputs contract. Persona
+                # rows never feed the cross-session prefix cache: their
+                # pages hold adapter-tinted K/V.
                 fed = ids[:-1] if ids else []
-                engine.kv.commit(r.name, r.tokens + fed)
+                engine.kv.commit(r.name, r.tokens + fed,
+                                 index=not r.adapter_slot)
                 texts.append(engine.tokenizer.decode(ids))
             self._release_adapters(req)
             req.stats.sched = {
@@ -1731,6 +1877,7 @@ class SessionScheduler:
                 # Which persona served each knight of the round.
                 req.stats.sched["lora_adapters"] = list(req.adapters)
             self._drop_request(req)
+            self._last_active[req.session] = time.monotonic()
             req.result = (texts, req.stats)
             self.completed += 1
             self._event("retire", session=req.session,

@@ -41,6 +41,7 @@ import dataclasses
 import math
 from typing import Any, Optional
 
+from ..core.errors import ITEM_7E_I, not_ported
 from .models.common import (LEAF_SPECS, SPEC_TP, Int4Leaf, ModelConfig,
                             Params)
 from .kernels import int4mm
@@ -155,8 +156,7 @@ def param_specs(cfg: ModelConfig) -> Params:
     query heads, k/v on kv heads, the MLP on its hidden, embedding and
     lm_head on the vocab."""
     if cfg.num_experts:
-        raise NotImplementedError(
-            "MoE sharding is not ported yet (ROADMAP, MoE and float16)")
+        raise not_ported("MoE sharding", ITEM_7E_I)
     layer = {
         "q_proj": (None, MODEL_AXIS, None),    # [E, H, D]
         "k_proj": (None, MODEL_AXIS, None),    # [E, K, D]

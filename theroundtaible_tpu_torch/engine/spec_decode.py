@@ -48,6 +48,8 @@ import threading
 from collections import deque
 from typing import Any, Optional, Protocol, runtime_checkable
 
+from .prefix_cache import env_flag
+
 SPEC_ENV = "ROUNDTABLE_SPEC_DECODE"
 
 DRAFTER_KINDS = ("ngram", "model", "lora")
@@ -73,18 +75,6 @@ SPEC_ACCEPT_FLOOR = 0.2
 # probe whose own acceptance clears the floor re-enables the row with a
 # fresh window.
 SPEC_REPROBE_DISPATCHES = 16
-
-
-def env_flag(flag: Optional[bool], env_name: str) -> bool:
-    """On/off decision of a paged-pool subsystem: an explicit config value
-    wins, then the env kill-switch ("0", "false", "off"), then default
-    ON."""
-    if flag is not None:
-        return bool(flag)
-    env = os.environ.get(env_name)
-    if env is not None:
-        return env not in ("0", "false", "off")
-    return True
 
 
 def accept_floor() -> float:

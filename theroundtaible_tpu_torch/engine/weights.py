@@ -24,6 +24,7 @@ import math
 import numpy as np
 import torch
 
+from ..core.errors import ITEM_7E_I, not_ported
 from .device import resolve_device
 from .kernels.int4mm import plan_leaf
 from .models.common import LEAF_SPECS, Int4Leaf, ModelConfig, Params
@@ -121,8 +122,7 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, dtype=torch.bfloat16,
     disagrees with `cfg`."""
     device = resolve_device(device)
     if cfg.num_experts:
-        raise NotImplementedError(
-            "MoE weights are not ported yet (ROADMAP, slice 7)")
+        raise not_ported("MoE weights", ITEM_7E_I)
     if len(tree["layers"]) != cfg.num_layers:
         raise ValueError(f"tree has {len(tree['layers'])} layers, config "
                          f"{cfg.num_layers}")
