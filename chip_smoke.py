@@ -151,13 +151,13 @@ Phases, each printing one JSON line; any failure exits non-zero:
              pcie.link.gen/width, else the device's sysfs entry, else the
              data sheet's Gen5 x16).
 9. contiguous - the paged engine released, TorchLlmAdapter.from_config
-             with the engine phase's config minus `kv_layout`: the default
-             builds a contiguous engine (same weights, 8 slots of 8192
-             positions, attention resolved to K8/K9); warmup() and the same
-             two rounds. K8 and K9 must launch in each round, K1-K3 never;
-             prefill/decode seconds, reused tokens, cache bytes, peak
-             memory and the greedy knights' token agreement with the paged
-             rounds (reported, not checked) are printed.
+             with the engine phase's config minus `kv_layout`, cut to
+             CONTIGUOUS_LAYERS = 16 layers: the default
+             builds a contiguous engine (8 slots of 8192 positions,
+             attention resolved to K8/K9); warmup() and the same two
+             rounds. K8 and K9 must launch in each round, K1-K3 never;
+             prefill/decode seconds, reused tokens, cache bytes and peak
+             memory are printed.
     contiguous_profile - the profile phase on the contiguous engine.
 10. contiguous_path - the path phase on the contiguous layout (2 layers,
              one chunk, 16 decode steps through forward_cached): K8/K9
@@ -216,7 +216,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
              plus the README's `lora:` block (rank 8, 8 slots, scale 2.0,
              seed personas `skeptic` and `optimist`) and `knight_adapters`
              (lancelot the base model, gawain skeptic, percival optimist),
-             32 layers: warmup() and two rounds through execute_round. K1,
+             LORA_LAYERS = 16 layers: warmup() and two
+             rounds through execute_round. K1,
              K2 and K7 must launch in each round; `lora_paths` must show K7
              at decode on all seven targets and only prefill-sized rows on
              the grouped einsums; the mixed batch must have suppressed
@@ -263,7 +264,7 @@ PR 19, to keep the script in its limit), then 22 and 23.
              K1/K2 (paged) or K10a and K8/K9 (contiguous) must launch on
              every rank, the other layout's kernels never, and both ranks
              must return the same tokens. Prefill seconds and decode ms per
-             step beside this run's 32-layer single-device rounds,
+             step beside this run's single-device rounds,
              per-rank peak memory, the rounds' collectives (calls, the
              host's wait for the card, the gloo calls).
 22. tp_path - 2 layers at full width: a 512-row chunk and 16 decode steps
@@ -379,8 +380,13 @@ phase's engine (telemetry disarmed and ROUNDTABLE_SUPERVISOR at its
 default in every earlier phase; flight dumps land in
 chiprun_out/chip_smoke/telemetry/):
 
-33. supervised_restart - the engine phase's config with the offload tier
-             on (32 layers, paged bf16, 8 slots, max_seq_len 8192, page
+The supervision phases 33-34 and the serving phases 38-39 run an engine
+of their own, SUPERVISION_CONFIG (the engine phase's config cut to
+SUPERVISION_LAYERS = 16 layers; the 32-layer engine released first):
+their checks compare that engine with itself.
+
+33. supervised_restart - SUPERVISION_CONFIG with the offload tier
+             on (16 layers, paged bf16, 8 slots, max_seq_len 8192, page
              128, seeded weights, greedy) from InferenceEngine.from_config
              behind a journaled SessionScheduler. Session A serves a round
              of 3 knights (~2.5k-token prompts) and goes idle; its pages
@@ -569,6 +575,56 @@ replicas live. The fleet is released before the contiguous phase.
              GatewayDriver against phase 42's two-replica gateway:
              open_loop_peak() >= 2, every session completed or shed, none
              failed. Printed: the frontier, the knee, accepted tokens/s.
+
+MoE (Mixtral) and float16, after lora_path, each engine released before
+the next:
+
+45. moe_engine - mixtral-8x7b-instruct at full width (E 4096, F 14336, 8
+             experts, top-2, H 32, K 8, D 128, V 32000) cut to MOE_LAYERS
+             = 4 layers, seeded bf16 weights: two 3-knight rounds on the
+             paged pool (K2, K1) and on the contiguous layout (K8, K9), the
+             scheduler phase on the paged engine (K3). Required: the
+             kernels launched, and each greedy knight's round-1 tokens
+             equal to greedy decoding on the plain path (forward_paged,
+             plain=True) over the same weights or leaving them at a near
+             tie: the plain logits' top-2 margin below PATH_TOL there
+             ("token"), or a router decision before it that flipped
+             between the kernels and the plain path at a router margin
+             below PATH_TOL ("router"). Printed: decode ms per step beside
+             the step's bound (every expert read once: the tree's bytes
+             over 3.35 TB/s).
+46. moe_quant - int8, then int4 experts (the router full precision) at
+             MOE_QUANT_LAYERS = 8 layers: two rounds each; int4's K5
+             launches counted by width, the expert down product's (C = X
+             * F) required; int4's dequant-path products only prefill rows
+             or the expert gate/up. Then the first 2 layers' forward over
+             the quantized tree against the one over the same tree
+             dequantized, both in f32 (a 64-row chunk and 4 decode steps,
+             teacher-forced): logits within PATH_TOL where no router flip
+             reaches them, every flip below PATH_TOL. Then K5 at the
+             expert down shape (C 114,688, N 4096, 1 and 3 rows) against
+             its plain version, timed beside torch.matmul on the weight
+             dequantized beforehand.
+47. moe_tp - in the last TP spawn: 2 gloo ranks on the card, the experts
+             split 4 and 4 (EP), 2 layers; forward_paged's logits (a
+             128-row chunk, 4 decode steps) against one device's on the
+             same weights, bf16 and int4 experts (the expert down through
+             K10e at decode rows, required), by the same flip rule.
+48. moe_checkpoint - a 2-layer Mixtral written by write_hf_checkpoint in
+             the HF block_sparse_moe layout, loaded back (every leaf
+             torch.equal), then an engine from the directory serving two
+             rounds (K1, K2).
+49. f16_kernels - K1, K4 int8/int4 in K1, K2, K3 (the main buffer and
+             the 17-sequence verify buffer), K8, K9, K5 (gate/up and the
+             expert down), K6 and K7's group form at f16 against their
+             plain versions (KERNEL_TOL) at the bf16 kernels phase's
+             serving shapes, timed beside SDPA or torch.matmul at f16.
+50. f16_engine - llama-3-8b-instruct at full width cut to F16_LAYERS = 8
+             layers in float16: two rounds on the paged pool (then the
+             scheduler phase, K3) and on the contiguous layout, each
+             against the plain path by phase 45's rule, then int4 weights
+             on int8 pages with one LoRA persona (K1/K2 with K4, K5/K6,
+             K7 required).
 
 Run time: 452-624 s on an H100 80GB HBM3 at 700 W with the build (579 s
 with the device-time readings), 659-762 s with phases 26-27, 722.6 s with
@@ -1730,18 +1786,6 @@ def serve_rounds(torch, kattn, adapter, engine, phase, required,
     return totals, generated, round_stats
 
 
-def greedy_agreement(generated, reference) -> float:
-    """Share of the greedy knights' generated tokens that equal the
-    reference rounds' at the same place."""
-    same = total = 0
-    for rnd in (1, 2):
-        for k in GREEDY_KNIGHTS:
-            a, b = generated[rnd][k], reference[rnd][k]
-            total += max(len(a), len(b))
-            same += sum(x == y for x, y in zip(a, b))
-    return same / max(total, 1)
-
-
 def engine_phase(torch, kattn):
     from theroundtaible_tpu_torch.adapters.torch_llm import TorchLlmAdapter
     torch.cuda.reset_peak_memory_stats()
@@ -1771,13 +1815,21 @@ def engine_phase(torch, kattn):
     return totals, engine, reference
 
 
-def contiguous_phase(torch, kattn, paged_generated):
-    """The engine phase's config minus `kv_layout`: the default builds a
-    contiguous engine (the same weights from the same seed), attention
-    resolved to K8/K9 on the card. warmup(), then the same two rounds:
-    K8 and K9 must launch in each, K1-K3 never."""
+# The contiguous and LoRA engines' depth: their checks compare each
+# engine with itself; the 32-layer rounds' numbers are printed beside
+# theirs.
+CONTIGUOUS_LAYERS = 16
+LORA_LAYERS = 16
+
+
+def contiguous_phase(torch, kattn):
+    """The engine phase's config minus `kv_layout` at CONTIGUOUS_LAYERS
+    layers: the default builds a contiguous engine, attention resolved to
+    K8/K9 on the card. warmup(), then the same two rounds: K8 and K9 must
+    launch in each, K1-K3 never."""
     from theroundtaible_tpu_torch.adapters.torch_llm import TorchLlmAdapter
     config = {k: v for k, v in ENGINE_CONFIG.items() if k != "kv_layout"}
+    config["model"] = register_depth(config["model"], CONTIGUOUS_LAYERS)
     torch.cuda.reset_peak_memory_stats()
     adapter = TorchLlmAdapter.from_config("torch-llm-llama3", config)
     t0 = time.monotonic()
@@ -1794,13 +1846,12 @@ def contiguous_phase(torch, kattn, paged_generated):
     totals, generated, stats = serve_rounds(
         torch, kattn, adapter, engine, "contiguous_round",
         required=CONTIGUOUS_KERNELS, forbidden=PAGED_KERNELS)
-    # bf16 K8/K9 and K1/K2 sum in other orders: reported, not checked.
-    emit("contiguous", kv_cache_bytes=engine.kv.hbm_bytes(),
+    emit("contiguous", layers=CONTIGUOUS_LAYERS,
+         kv_cache_bytes=engine.kv.hbm_bytes(),
          max_memory_allocated=torch.cuda.max_memory_allocated(),
-         greedy_agreement_with_paged=greedy_agreement(generated,
-                                                      paged_generated),
          launches=totals)
-    single = {"prefill_s": [stats[r]["prefill_seconds"] for r in (1, 2)],
+    single = {"layers": CONTIGUOUS_LAYERS,
+              "prefill_s": [stats[r]["prefill_seconds"] for r in (1, 2)],
               "decode_ms_per_step": [decode_ms_per_step(stats[r])
                                      for r in (1, 2)],
               "generated": generated}
@@ -3331,14 +3382,15 @@ def dequant_kernel_cases(torch, kattn, kvq, gen, flush):
     return errs, timing
 
 
-def int4_weight(torch, gen, shape, dev):
-    """A random packed int4 weight [rows, cols/2] with bf16 scales per
-    INT4_GROUP values (any byte is two valid nibbles)."""
+def int4_weight(torch, gen, shape, dev, dtype=None):
+    """A random packed int4 weight [rows, cols/2] with scales per
+    INT4_GROUP values in `dtype` (bf16 by default; any byte is two valid
+    nibbles)."""
     rows, cols = shape
     q4 = torch.randint(-128, 128, (rows, cols // 2), generator=gen,
                        device=dev, dtype=torch.int8)
     s4 = (torch.rand(rows, cols // INT4_GROUP, generator=gen, device=dev)
-          * 0.025 + 0.005).to(torch.bfloat16)
+          * 0.025 + 0.005).to(dtype or torch.bfloat16)
     return q4, s4
 
 
@@ -3346,7 +3398,7 @@ def int4_kernel_ptxas(build, int4mm, m, head):
     """ptxas's registers, static shared memory and spills of the bf16
     kernel (tensor-core body for m rows) that K5 or K6 launches."""
     want = (f"{'mm_pack_contract' if head else 'mm_pack_out'}"
-            f"_tc_kernelILi{int4mm.n_tiles(m)}E")
+            f"_tc_kernelI13__nv_bfloat16Li{int4mm.n_tiles(m)}E")
     found = {name: v for name, v in ptxas_summary(
         build.build_logs().get("int4mm", "")).items() if want in name}
     check(len(found) == 1, f"ptxas lists no single {want}: {list(found)}")
@@ -3692,10 +3744,10 @@ LORA_GROUP_IDS = {"3 personas": [1, 2, 3], "base row": [0, 1, 2],
                   "64 rows": [i % 4 for i in range(64)]}
 
 
-def lora_stacks(torch, gen, c, o, dev):
+def lora_stacks(torch, gen, c, o, dev, dtype=None):
     """One target's 9-slot (a_t, b_s) at a persona's scale, slot 0 the
-    all-zero base adapter, in bf16 on the card."""
-    bf16 = torch.bfloat16
+    all-zero base adapter, in `dtype` (bf16 by default) on the card."""
+    bf16 = dtype or torch.bfloat16
     a_t = (torch.randn(LORA_SLOTS, LORA_RANK, c, generator=gen, device=dev)
            * c ** -0.5).to(bf16)
     b_s = (torch.randn(LORA_SLOTS, LORA_RANK, o, generator=gen, device=dev)
@@ -3846,8 +3898,9 @@ def lora_layer_total(cases):
 
 
 def lora_round_phase(torch, reference):
-    """The engine phase's config with every knight greedy, the README's
-    `lora:` block and `knight_adapters`: warmup() and the two rounds (K1,
+    """The engine phase's config at LORA_LAYERS layers with every knight
+    greedy, the README's `lora:` block and `knight_adapters`: warmup() and
+    the two rounds (K1,
     K2 and K7 must launch in each). `lora_paths` must put every decode
     dispatch of the seven targets on K7 and only prefill-sized rows on the
     grouped einsums; the mixed batch must have suppressed sharing. Each
@@ -3857,9 +3910,8 @@ def lora_round_phase(torch, reference):
     from theroundtaible_tpu_torch.engine.kernels.lora import kernel_path
     from theroundtaible_tpu_torch.engine.kvcache import scoped_slot
     from theroundtaible_tpu_torch.engine.lora import lora_dims
-    config = {k: v for k, v in ENGINE_CONFIG.items()
-              if k != "knight_sampling"}
-    config.update(lora=LORA_BLOCK, knight_adapters=KNIGHT_ADAPTERS)
+    config = depth_config(ENGINE_CONFIG["model"], LORA_LAYERS,
+                          lora=LORA_BLOCK, knight_adapters=KNIGHT_ADAPTERS)
     torch.cuda.reset_peak_memory_stats()
     adapter = TorchLlmAdapter.from_config("torch-llm-llama3-lora", config)
     t0 = time.monotonic()
@@ -3904,14 +3956,15 @@ def lora_round_phase(torch, reference):
     emit("lora_round_summary",
          prefill_s=[stats[r]["prefill_seconds"] for r in (1, 2)],
          decode_ms_per_step=[decode_ms_per_step(stats[r]) for r in (1, 2)],
-         bf16_decode_ms_per_step=reference["decode_ms_per_step"],
+         layers=LORA_LAYERS,
+         bf16_32_layers_decode_ms_per_step=reference["decode_ms_per_step"],
          greedy_agreement_with_alone=agreement,
          max_memory_allocated=torch.cuda.max_memory_allocated(),
          apply_tokens=d["apply_tokens"],
          # K7 wrapper calls per decode step of 3 rows: one per input group
-         # (q/k/v, o_proj, gate/up, down_proj) and layer, 4 x 32 = 128,
-         # where the per-target form made 7 x 32 (prefill rows take the
-         # grouped einsums).
+         # (q/k/v, o_proj, gate/up, down_proj) and layer, 4 x LORA_LAYERS,
+         # where the per-target form made 7 per layer (prefill rows take
+         # the grouped einsums).
          lora_bgmv_per_decode_step=totals["lora_bgmv"] / max(
              sum(stats[r]["decode_tokens"] for r in (1, 2)) / 3, 1),
          share_suppressed=d["share_suppressed"],
@@ -4046,10 +4099,7 @@ TP_MODEL = f"llama-3-8b-instruct-{TP_LAYERS}l"
 
 
 def register_tp_model():
-    from theroundtaible_tpu_torch.engine.models import registry
-    registry.register(dataclasses.replace(
-        registry.get_model_config("llama-3-8b-instruct"), name=TP_MODEL,
-        num_layers=TP_LAYERS))
+    register_depth("llama-3-8b-instruct", TP_LAYERS)
 TP_KERNELS = ("flash_attention_spmd", "paged_decode_spmd",
               "paged_prefill_spmd", "ragged_paged_spmd")
 # Lines a rank's phase function emits are kept here and handed to the
@@ -4552,8 +4602,8 @@ def tp_round_rank(torch, rank, layout):
 
 def tp_round_phase(ranks, layout, single):
     """Both ranks' rounds: identical tokens on both ranks (checked), beside
-    the 32-layer single-device rounds of the same layout in this run
-    (prefill seconds, decode ms per step: reported)."""
+    the single-device rounds of the same layout in this run (prefill
+    seconds, decode ms per step: reported)."""
     phase = "tp_round" if layout == "paged" else "tp_contiguous_round"
     outs = [r for r, _ in ranks]
     check(outs[0]["generated"] == outs[1]["generated"],
@@ -4562,7 +4612,8 @@ def tp_round_phase(ranks, layout, single):
          ranks=[{k: v for k, v in o.items() if k != "generated"}
                 for o in outs],
          round_lines=[lines for _, lines in ranks],
-         single_device={"layers": 32, "prefill_s": single["prefill_s"],
+         single_device={"layers": single.get("layers", 32),
+                        "prefill_s": single["prefill_s"],
                         "decode_ms_per_step": single["decode_ms_per_step"]})
     totals = dict.fromkeys(outs[0]["launches"], 0)
     for o in outs:
@@ -5093,7 +5144,8 @@ def tp_quant_phase(ranks, single):
              round_lines=[[x for x in lines if x["phase"] == phase]
                           for _, lines in ranks],
              single_device={
-                 "layers": 32 if phase == "tp_lora_round" else TP_LAYERS,
+                 "layers": LORA_LAYERS if phase == "tp_lora_round"
+                 else TP_LAYERS,
                  "prefill_s": ref["prefill_s"],
                  "decode_ms_per_step": ref["decode_ms_per_step"]})
         for o in outs:
@@ -5124,8 +5176,19 @@ def hf_tensors(torch, params, cfg):
             if f"{name}_bias" in layer:
                 yield f"{p}.self_attn.{name}_proj.bias", \
                     layer[f"{name}_bias"].reshape(-1)
-        for name in ("gate_proj", "up_proj", "down_proj"):
-            yield f"{p}.mlp.{name}.weight", layer[name].t()
+        if "experts" in layer:
+            # Mixtral's block_sparse_moe: the router [X, E], each expert's
+            # w1 (gate) and w3 (up) [F, E] and w2 (down) [E, F]
+            m = f"{p}.block_sparse_moe"
+            yield f"{m}.gate.weight", layer["router"].t()
+            ex = layer["experts"]
+            for x in range(ex["gate_proj"].shape[0]):
+                for hf, name in (("w1", "gate_proj"), ("w3", "up_proj"),
+                                 ("w2", "down_proj")):
+                    yield f"{m}.experts.{x}.{hf}.weight", ex[name][x].t()
+        else:
+            for name in ("gate_proj", "up_proj", "down_proj"):
+                yield f"{p}.mlp.{name}.weight", layer[name].t()
         yield f"{p}.input_layernorm.weight", layer["input_norm"]
         yield f"{p}.post_attention_layernorm.weight", layer["pre_mlp_norm"]
     yield "model.norm.weight", params["final_norm"]
@@ -5138,7 +5201,12 @@ _ST_DTYPES = {"torch.float32": "F32", "torch.bfloat16": "BF16",
 
 
 def hf_config(cfg, dtype_name: str) -> dict:
-    """config.json of a Llama-family checkpoint of `cfg`'s shapes."""
+    """config.json of a Llama-family checkpoint of `cfg`'s shapes (a
+    Mixtral one for a MoE config)."""
+    moe = ({"architectures": ["MixtralForCausalLM"], "model_type": "mixtral",
+            "num_local_experts": cfg.num_experts,
+            "num_experts_per_tok": cfg.num_experts_per_tok}
+           if cfg.num_experts else {})
     return {
         "architectures": ["LlamaForCausalLM"], "model_type": "llama",
         "vocab_size": cfg.vocab_size, "hidden_size": cfg.embed_dim,
@@ -5150,7 +5218,8 @@ def hf_config(cfg, dtype_name: str) -> dict:
         "rms_norm_eps": cfg.norm_eps, "rope_theta": cfg.rope_theta,
         "tie_word_embeddings": cfg.tie_embeddings, "hidden_act": "silu",
         "attention_bias": cfg.attn_bias, "mlp_bias": False,
-        "bos_token_id": 1, "eos_token_id": 2, "torch_dtype": dtype_name}
+        "bos_token_id": 1, "eos_token_id": 2, "torch_dtype": dtype_name,
+        **moe}
 
 
 def write_hf_checkpoint(torch, params, cfg, out_dir, shards: int = 4) -> int:
@@ -5766,12 +5835,7 @@ SUPERVISION_TOPICS = ("Journal the committed turns or snapshot the pool?",
 
 
 def register_child_model():
-    from theroundtaible_tpu_torch.engine.models import registry
-    cfg = dataclasses.replace(
-        registry.get_model_config("llama-3-8b-instruct"),
-        name=CHILD_MODEL, num_layers=CHILD_LAYERS)
-    registry.register(cfg)
-    return cfg
+    register_depth("llama-3-8b-instruct", CHILD_LAYERS)
 
 
 def child_config(**over) -> dict:
@@ -5880,6 +5944,29 @@ def wait_restart_idle(sched, timeout_s: float = 120.0) -> None:
         time.sleep(0.02)
 
 
+# The supervision and serving phases 33-34 and 38-39 run an engine of their
+# own, cut to SUPERVISION_LAYERS: their checks compare it with itself (the
+# same turns, the same seeded weights), not with the 32-layer rounds.
+SUPERVISION_LAYERS = 16
+SUPERVISION_MODEL = f"llama-3-8b-instruct-{SUPERVISION_LAYERS}l"
+SUPERVISION_CONFIG = dict(ENGINE_CONFIG, model=SUPERVISION_MODEL)
+
+
+def supervision_engine(torch):
+    """The engine phases 33-34 and 38-39 share: ENGINE_CONFIG at
+    SUPERVISION_LAYERS layers, built through from_config (its rebuild
+    recipe is the config)."""
+    from theroundtaible_tpu_torch.engine.engine import InferenceEngine
+    register_depth("llama-3-8b-instruct", SUPERVISION_LAYERS)
+    t0 = time.monotonic()
+    engine = InferenceEngine.from_config(dict(SUPERVISION_CONFIG))
+    torch.cuda.synchronize()
+    emit("supervision_engine", layers=SUPERVISION_LAYERS,
+         construct_s=time.monotonic() - t0, warmup_s=engine.warmup(),
+         memory_allocated=torch.cuda.memory_allocated())
+    return engine
+
+
 def supervised_restart_phase(torch, kattn, base):
     """Phase 33 (module docstring). Returns its launch counts."""
     import contextlib
@@ -5921,7 +6008,7 @@ def supervised_restart_phase(torch, kattn, base):
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
     m0 = torch.cuda.memory_allocated()
-    cfg = dict(ENGINE_CONFIG, kv_offload=True)
+    cfg = dict(SUPERVISION_CONFIG, kv_offload=True)
     t0 = time.monotonic()
     engine = InferenceEngine.from_config(cfg)
     torch.cuda.synchronize()
@@ -7909,6 +7996,913 @@ def router_phases(torch) -> dict:
     return out
 
 
+# --- MoE (Mixtral) and float16 (phases 45-50) ---
+#
+# 45 moe_engine: Mixtral-8x7B at full width cut to MOE_LAYERS layers, a
+#    paged round (K2, K1), a contiguous round (K8, K9) and the scheduler's
+#    ragged join (K3); greedy tokens against the plain path on the card,
+#    each divergence a near tie of the tokens or of the router.
+# 46 moe_quant: int8 and int4 experts at MOE_QUANT_LAYERS layers; K5 from
+#    the expert down product, timed at its shape; the forward over the
+#    quantized tree against the one over the dequantized tree.
+# 47 moe_tp: 2 gloo ranks sharing the card, experts split over them (EP),
+#    logits against one device; int4 experts' down through K10e.
+# 48 moe_checkpoint: a 2-layer Mixtral written in the HF block_sparse_moe
+#    layout, loaded back bit for bit, one round served from it.
+# 49 f16_kernels: every kernel at f16 against its plain version, timed
+#    beside SDPA or torch.matmul at f16.
+# 50 f16_engine: Llama-3-8B width at F16_LAYERS layers in float16: paged
+#    and contiguous rounds, the scheduler's join, int4 weights with int8
+#    pages and a LoRA persona; greedy tokens against the plain path.
+
+MOE_MODEL = "mixtral-8x7b-instruct"
+MOE_LAYERS = 4
+MOE_QUANT_LAYERS = 8
+MOE_TP_LAYERS = 2
+MOE_CKPT_LAYERS = 2
+F16_MODEL = "llama-3-8b-instruct"
+F16_LAYERS = 8
+
+
+def register_depth(base: str, layers: int) -> str:
+    """`base` cut to `layers` layers, registered as "<base>-<layers>l"."""
+    from theroundtaible_tpu_torch.engine.models import registry
+    name = f"{base}-{layers}l"
+    registry.register(dataclasses.replace(
+        registry.get_model_config(base), name=name, num_layers=layers))
+    return name
+
+
+def depth_config(base: str, layers: int, **over) -> dict:
+    """ENGINE_CONFIG on `base` cut to `layers` layers, every knight
+    greedy."""
+    config = {k: v for k, v in ENGINE_CONFIG.items()
+              if k != "knight_sampling"}
+    config.update(model=register_depth(base, layers), **over)
+    return config
+
+
+class RouteLog:
+    """Records every router decision models/common.route makes while it is
+    entered: per call (one per MoE layer and forward), the top-k expert
+    sets [..., k] (sorted) and the margin between the k-th and (k+1)-th
+    router logits."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.calls: list = []
+
+    def __enter__(self):
+        from theroundtaible_tpu_torch.engine.models import common
+        self._orig = orig = common.route
+        torch = self.torch
+
+        def route(logits, cfg):
+            k = cfg.num_experts_per_tok
+            top = torch.topk(logits.float(), k + 1, dim=-1)
+            self.calls.append(
+                (torch.sort(top.indices[..., :k], dim=-1).values,
+                 top.values[..., k - 1] - top.values[..., k]))
+            return orig(logits, cfg)
+
+        common.route = route
+        return self
+
+    def __exit__(self, *exc):
+        from theroundtaible_tpu_torch.engine.models import common
+        common.route = self._orig
+        return False
+
+
+def router_flips(torch, kernel_log, plain_log, rows) -> list:
+    """Every (call, row, position) whose top-k set differs between two
+    RouteLogs of the same forwards, with the plain path's router margin
+    there; `rows[b]` positions of row b count in each call's last axis
+    (the rest are pad rows)."""
+    flips = []
+    for c, ((ki, _km), (pi, pm)) in enumerate(zip(kernel_log.calls,
+                                                  plain_log.calls)):
+        for b in range(ki.shape[0]):
+            n = min(rows[b], ki.shape[1])
+            diff = (ki[b, :n] != pi[b, :n]).any(-1)
+            for t in diff.nonzero().flatten().tolist():
+                flips.append({"call": c, "row": b, "position": t,
+                              "margin": float(pm[b, t])})
+    return flips
+
+
+def compare_unflipped(torch, got, ref, flips, layers: int, T: int):
+    """(max |got - ref|, within PATH_TOL, rows compared) over the logits of
+    a prefill of T positions ([B, V] at its last position) and of the
+    decode steps after it, leaving out each (step, row) a router flip
+    (router_flips of the same forwards, one route call per layer and
+    forward) can reach: a flip in an earlier layer at or before that
+    step, or one in the last layer at exactly the compared position."""
+    hit = set()
+    for f in flips:
+        step, layer = divmod(f["call"], layers)
+        if layer < layers - 1:
+            hit.update((j, f["row"]) for j in range(step, len(got)))
+        elif f["position"] == (T - 1 if step == 0 else 0):
+            hit.add((step, f["row"]))
+    worst, ok, compared = 0.0, True, 0
+    for j, (a, b) in enumerate(zip(got, ref)):
+        keep = [r for r in range(a.shape[0]) if (j, r) not in hit]
+        if not keep:
+            continue
+        diff = (a[keep] - b[keep]).abs()
+        worst = max(worst, float(diff.max()))
+        ok = ok and bool((diff <= PATH_TOL + PATH_TOL * b[keep].abs()).all())
+        compared += len(keep)
+    return worst, ok, compared
+
+
+def paged_steps(torch, params, cfg, prompts, steps, dtype, plain=False,
+                mesh=None, forced=None):
+    """forward_paged on pools of its own: one prefill of `prompts` (token
+    lists, right-padded), then `steps` decode steps of each row's greedy
+    token or of `forced[step]` ([B]), through the kernels or (`plain`)
+    their plain versions, under `mesh` on this rank's kv heads. Returns
+    (the f32 logits [B, V] at the prefill's last position and after each
+    step, the run's RouteLog)."""
+    from theroundtaible_tpu_torch.engine.paged_forward import forward_paged
+    dev = torch.device("cuda")
+    B, ps = len(prompts), 128
+    T = max(len(p) for p in prompts)
+    pp = -(-(T + steps + 1) // ps)
+    kv = (cfg.num_kv_heads if mesh is None
+          else mesh.local(cfg.num_kv_heads))
+    shape = (1 + B * pp, ps, kv, cfg.head_dim)
+    pools = [(torch.zeros(shape, dtype=dtype, device=dev),
+              torch.zeros(shape, dtype=dtype, device=dev))
+             for _ in range(cfg.num_layers)]
+    table = (torch.arange(B * pp, device=dev) + 1).reshape(B, pp).to(
+        torch.int32)
+    tokens = torch.zeros(B, T, dtype=torch.long, device=dev)
+    for b, p in enumerate(prompts):
+        tokens[b, :len(p)] = torch.as_tensor(p, device=dev)
+    valid = torch.tensor([len(p) for p in prompts], dtype=torch.int32,
+                         device=dev)
+    positions = torch.arange(T, dtype=torch.int32, device=dev).expand(
+        B, T).contiguous()
+    log, out = RouteLog(torch), []
+    with log:
+        out.append(forward_paged(params, cfg, tokens, positions, pools,
+                                 table, valid, last_pos=valid - 1,
+                                 plain=plain, mesh=mesh)[:, 0].float())
+        for step in range(steps):
+            cur = forced[step] if forced is not None else out[-1].argmax(-1)
+            out.append(forward_paged(params, cfg, cur[:, None],
+                                     valid[:, None], pools, table, valid + 1,
+                                     plain=plain, mesh=mesh)[:, 0].float())
+            valid = valid + 1
+    return out, log
+
+
+def greedy_against_plain(torch, engine, phase, generated, knights):
+    """The engine's greedy round-1 tokens of `knights` against greedy
+    decoding on the plain path over the same weights. Each row that
+    diverges must do so at a near tie: its first differing position's
+    top-2 margin of the plain logits below PATH_TOL ("token"), or (MoE)
+    a router decision before it that flipped between the kernels and the
+    plain path at a router margin below PATH_TOL ("router"). Returns the
+    report."""
+    prompts = knight_prompts(1)
+    rows = [engine.tokenizer.encode(prompts[k]) for k in knights]
+    steps = max(len(generated[1][k]) for k in knights)
+    logits, _log = paged_steps(torch, engine.params, engine.cfg, rows,
+                               steps, engine.dtype, plain=True)
+    plain = [[int(lg[b].argmax()) for lg in logits[:steps]]
+             for b in range(len(rows))]
+    report = []
+    for b, k in enumerate(knights):
+        mine = generated[1][k]
+        i = next((j for j, (x, y) in enumerate(zip(mine, plain[b]))
+                  if x != y), None)
+        if i is None:
+            report.append({"knight": k, "agree": True})
+            continue
+        top = torch.topk(logits[i][b], 2)
+        entry = {"knight": k, "agree": False, "position": i,
+                 "engine_token": mine[i], "plain_token": plain[b][i],
+                 "plain_top2": [int(x) for x in top.indices],
+                 "margin": float(top.values[0] - top.values[1])}
+        if entry["margin"] < PATH_TOL:
+            entry["near_tie"] = "token"
+        elif engine.cfg.num_experts:
+            forced = [torch.tensor([t], device="cuda") for t in plain[b][:i]]
+            logs = [paged_steps(torch, engine.params, engine.cfg, [rows[b]],
+                                i, engine.dtype, plain=plain_path,
+                                forced=forced)[1]
+                    for plain_path in (False, True)]
+            flips = router_flips(torch, *logs, [len(rows[b])])
+            entry["router_flips"] = flips[:8]
+            if flips and all(f["margin"] < PATH_TOL for f in flips):
+                entry["near_tie"] = "router"
+        report.append(entry)
+        check("near_tie" in entry,
+              f"{phase}: {k} left the plain path's greedy tokens at "
+              f"position {i} without a near tie: {entry}")
+    emit(f"{phase}_vs_plain", tolerance=PATH_TOL, rows=report)
+    return report
+
+
+def release(torch, engine=None):
+    from theroundtaible_tpu_torch.engine import reset_engines
+    reset_engines()
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def step_bound_ms(engine) -> tuple:
+    """(bytes a decode step streams - every weight once, all experts of
+    an expert-dense MoE among them -, their time at HBM_BYTES_PER_S)."""
+    from theroundtaible_tpu_torch.utils.perfmodel import \
+        streamed_param_bytes
+    n = streamed_param_bytes(engine.params)
+    return n, 1e3 * n / HBM_BYTES_PER_S
+
+
+def moe_engine_phase(torch, kattn):
+    """Phase 45 (above). Returns its launch counts."""
+    from theroundtaible_tpu_torch.adapters.torch_llm import TorchLlmAdapter
+    config = depth_config(MOE_MODEL, MOE_LAYERS)
+    launches = {}
+    for layout in ("paged", "contiguous"):
+        cfg = dict(config)
+        if layout == "contiguous":
+            del cfg["kv_layout"]
+        torch.cuda.reset_peak_memory_stats()
+        adapter = TorchLlmAdapter.from_config(f"torch-llm-moe-{layout}", cfg)
+        t0 = time.monotonic()
+        engine = adapter._get_engine()
+        torch.cuda.synchronize()
+        construct_s = time.monotonic() - t0
+        d = engine.describe()
+        check(d["kv_layout"] == layout and engine.cfg.num_experts == 8,
+              f"moe_engine built {d['kv_layout']}, {engine.cfg.num_experts} "
+              f"experts")
+        phase = "moe_round" if layout == "paged" else "moe_contiguous_round"
+        required, forbidden = ((PAGED_KERNELS[:2], CONTIGUOUS_KERNELS)
+                               if layout == "paged" else
+                               (CONTIGUOUS_KERNELS, PAGED_KERNELS))
+        totals, generated, stats = serve_rounds(
+            torch, kattn, adapter, engine, phase, required=required,
+            forbidden=forbidden)
+        n_bytes, bound = step_bound_ms(engine)
+        ms = [decode_ms_per_step(stats[r]) for r in (1, 2)]
+        emit(f"{phase}_summary", layers=MOE_LAYERS, params=engine.num_params,
+             construct_s=construct_s,
+             weight_bytes=n_bytes, decode_ms_per_step=ms,
+             step_bytes=n_bytes, step_bound_ms=bound,
+             bound_share=[bound / m for m in ms],
+             prefill_s=[stats[r]["prefill_seconds"] for r in (1, 2)],
+             max_memory_allocated=torch.cuda.max_memory_allocated(),
+             launches=totals)
+        greedy_against_plain(torch, engine, phase, generated,
+                             GREEDY_KNIGHTS)
+        for k, n in totals.items():
+            launches[k] = launches.get(k, 0) + n
+        if layout == "paged":
+            sched = scheduler_phase(torch, kattn, engine,
+                                    phase="moe_scheduler")
+            for k, n in sched.items():
+                launches[k] = launches.get(k, 0) + n
+        release(torch, engine)
+        del adapter
+    return launches
+
+
+def f32_tree(torch, params, layers: int):
+    """The first `layers` layers of a (quantized) tree with every float
+    tensor, int8 scale and int4 scale widened to f32 (payloads kept, each
+    Int4Leaf planned again for its f32 body): the same weights, computed
+    in f32 by the same seams."""
+    import dataclasses as dc
+    from theroundtaible_tpu_torch.engine.kernels import int4mm
+    from theroundtaible_tpu_torch.engine.models import common
+
+    def wide(key, leaf):
+        if isinstance(leaf, common.Int4Leaf):
+            return int4mm.plan_leaf(common.LEAF_SPECS[key], dc.replace(
+                leaf, s4=leaf.s4.float(), plan=None))
+        if isinstance(leaf, dict) and "q" in leaf:
+            return {"q": leaf["q"], "s": leaf["s"].float()}
+        return leaf.float() if leaf.is_floating_point() else leaf
+
+    out = {k: wide(k, v) for k, v in params.items() if k != "layers"}
+    out["layers"] = [common.nest_layer({k: wide(k, v) for k, v in
+                                        common.flat_layer(layer).items()})
+                     for layer in params["layers"][:layers]]
+    return out
+
+
+def dequantized_tree(torch, params, layers: int):
+    """The first `layers` layers of a quantized tree with every int8 and
+    int4 leaf dequantized to its scales' dtype (the JAX package's
+    "mechanics exact" reference), the rest of the tree shared."""
+    from theroundtaible_tpu_torch.engine import quant
+    from theroundtaible_tpu_torch.engine.models import common
+
+    def deq(key, leaf):
+        if isinstance(leaf, common.Int4Leaf):
+            return common.dequant_int4(leaf.q4, leaf.s4, leaf.axis,
+                                       leaf.group, leaf.s4.dtype)
+        if isinstance(leaf, dict) and "q" in leaf:
+            keep = tuple(a % leaf["q"].dim() for a in quant._SCALE_AXES[key])
+            s = leaf["s"]
+            for a in range(leaf["q"].dim()):
+                if a not in keep:
+                    s = s.unsqueeze(a)
+            return (leaf["q"].to(s.dtype) * s).to(s.dtype)
+        return leaf
+
+    out = {k: deq(k, v) for k, v in params.items() if k != "layers"}
+    out["layers"] = [common.nest_layer({k: deq(k, v) for k, v in
+                                        common.flat_layer(layer).items()})
+                     for layer in params["layers"][:layers]]
+    return out
+
+
+def k5_expert_case(torch, int4mm, common, gen, flush, cfg, rows, dtype):
+    """K5 at the expert down shape: x [rows, X*F] against the packed
+    [X*F, E] weight with scales per INT4_GROUP, against its plain version,
+    timed beside torch.matmul on the weight dequantized beforehand."""
+    dev = torch.device("cuda")
+    c, n = cfg.num_experts * cfg.mlp_dim, cfg.embed_dim
+    x = (torch.randn(rows, c, generator=gen, device=dev) * 0.05).to(dtype)
+    q4, s4 = int4_weight(torch, gen, (c, n), dev, dtype)
+    gp = INT4_GROUP // 2
+    fn = lambda: int4mm.mm_pack_out(x, q4, s4, gp)  # noqa
+    ref = lambda: int4mm.mm_pack_out_ref(x, q4, s4, gp)  # noqa
+    err, ok = max_err(torch, fn(), ref())
+    check(ok, f"K5 at the expert down shape ({rows} rows, {dtype}) "
+              f"disagrees with its plain version by {err}")
+    w = common.dequant_int4(q4, s4, 1, INT4_GROUP, dtype)
+    lib = lambda: torch.matmul(x, w)  # noqa
+    plan = int4mm.out_plan(rows, c, n // 2,
+                           torch.cuda.get_device_properties(0)
+                           .multi_processor_count, dtype)
+    t = {"x": [rows, c], "weight": [c, n], "dtype": str(dtype),
+         "splits": plan.splits, "split_rows": plan.rows,
+         "max_abs_err": err,
+         "ms": time_ms(torch, fn, 30, flush),
+         "plain_ms": time_ms(torch, ref, 2, flush),
+         "library_ms": time_ms(torch, lib, 30, flush),
+         "device_ms": device_ms(torch, fn, flush),
+         "library_device_ms": device_ms(torch, lib, flush),
+         "bytes": (q4.numel() + s4.numel() * s4.element_size()
+                   + x.numel() * x.element_size() + rows * n * 4),
+         "library_bytes": w.numel() * w.element_size(),
+         "flops": 2 * rows * c * n}
+    t["bound_ms"], t["bound_by"] = bound_ms(t["bytes"], t["flops"])
+    del x, q4, s4, w
+    return t
+
+
+def moe_quant_phase(torch, kattn):
+    """Phase 46 (above). Returns (launch counts per mode, K5's expert-down
+    cases)."""
+    from theroundtaible_tpu_torch.adapters.torch_llm import TorchLlmAdapter
+    from theroundtaible_tpu_torch.engine.kernels import int4mm
+    from theroundtaible_tpu_torch.engine.models import common
+    from theroundtaible_tpu_torch.engine.models.registry import \
+        get_model_config
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 45)
+    flush = torch.empty(16 << 20, dtype=torch.float32, device=dev)
+    launches, cases = {}, {}
+    for mode in ("int8", "int4"):
+        config = depth_config(MOE_MODEL, MOE_QUANT_LAYERS, quant=mode)
+        adapter = TorchLlmAdapter.from_config(f"torch-llm-moe-{mode}",
+                                              config)
+        t0 = time.monotonic()
+        engine = adapter._get_engine()
+        torch.cuda.synchronize()
+        construct_s = time.monotonic() - t0
+        check(engine.describe()["quant"] == mode,
+              f"moe_quant built quant {engine.describe()['quant']}")
+        cfg = engine.cfg
+        expert_c = cfg.num_experts * cfg.mlp_dim
+        by_width = Counter()
+        orig = int4mm.mm_pack_out
+
+        def counted(x, q4, s4, gp):
+            by_width[int(x.shape[1])] += 1
+            return orig(x, q4, s4, gp)
+
+        int4mm.mm_pack_out = counted
+        try:
+            totals, generated, stats = serve_rounds(
+                torch, kattn, adapter, engine, f"moe_quant_{mode}",
+                required=PAGED_KERNELS[:2] + (INT4_KERNELS if mode == "int4"
+                                              else ()),
+                forbidden=CONTIGUOUS_KERNELS + (() if mode == "int4"
+                                                else INT4_KERNELS))
+        finally:
+            int4mm.mm_pack_out = orig
+        expert_down = by_width[expert_c]
+        if mode == "int4":
+            check(expert_down > 0,
+                  f"moe_quant_int4: K5 never ran the expert down product: "
+                  f"{dict(by_width)}")
+            paths = engine.describe()["int4_paths"]
+            declines = {(e["spec"], e["fallback_reason"])
+                        for e in paths["xla_dequant"]}
+            check(all(r == "rows:prefill-m"
+                      or s == common.SPEC_EXPERT_UP for s, r in declines),
+                  f"moe_quant_int4: a decode product left K5/K6: "
+                  f"{declines}")
+        # Mechanics exact (JAX tests/test_quant.py's contract, which holds
+        # in f32): the first 2 layers' forward over the quantized tree with
+        # its scales in f32 (K5's f32 body at the decode rows) against the
+        # one over the same tree dequantized in f32 (f32 matmuls), one
+        # 64-row chunk and 4 decode steps, teacher-forced; the logits a
+        # router flip can reach are left out (compare_unflipped). (In bf16
+        # the two differ by a rounding of each dequantized weight, which
+        # the int8 seam never makes.)
+        two = dataclasses.replace(cfg, num_layers=2)
+        qtree = f32_tree(torch, engine.params, 2)
+        dtree = dequantized_tree(torch, qtree, 2)
+        B, T = 3, 64
+        prompts = torch.randint(3, 259, (B, T), generator=gen,
+                                device=dev).tolist()
+        runs = {"quantized": paged_steps(torch, qtree, two, prompts, 4,
+                                         torch.float32)}
+        runs["dequantized"] = paged_steps(
+            torch, dtree, two, prompts, 4, torch.float32,
+            forced=[lg.argmax(-1) for lg in runs["quantized"][0][:4]])
+        flips = router_flips(torch, runs["quantized"][1],
+                             runs["dequantized"][1], [T] * B)
+        worst, ok, compared = compare_unflipped(
+            torch, runs["quantized"][0], runs["dequantized"][0], flips, 2, T)
+        check(ok and compared > 0,
+              f"moe_quant_{mode}: quantized and dequantized forwards "
+              f"differ by {worst} ({compared} row-steps compared)")
+        check(all(f["margin"] < PATH_TOL for f in flips),
+              f"moe_quant_{mode}: a router flip at a margin above "
+              f"{PATH_TOL}: {flips[:4]}")
+        del dtree, qtree
+        emit(f"moe_quant_{mode}_summary", layers=MOE_QUANT_LAYERS,
+             params=engine.num_params, construct_s=construct_s,
+             weight_bytes=step_bound_ms(engine)[0],
+             step_bound_ms=step_bound_ms(engine)[1],
+             decode_ms_per_step=[decode_ms_per_step(stats[r])
+                                 for r in (1, 2)],
+             prefill_s=[stats[r]["prefill_seconds"] for r in (1, 2)],
+             k5_expert_down_launches=expert_down,
+             k5_launches_by_width=dict(by_width),
+             mechanics_max_abs_err=worst, mechanics_row_steps=compared,
+             router_flips=flips[:8],
+             tolerance=PATH_TOL, launches=totals)
+        totals["mm_pack_out:expert_down"] = expert_down
+        launches[mode] = totals
+        release(torch, engine)
+        del adapter
+    cfg = get_model_config(MOE_MODEL)
+    for rows in (1, 3):
+        cases[rows] = k5_expert_case(torch, int4mm, common, gen, flush, cfg,
+                                     rows, torch.bfloat16)
+    emit("moe_k5_expert_down", cases=cases)
+    return launches, cases
+
+
+def _moe_tp_weights(torch, mesh, seed, layers):
+    """Mixtral-8x7B at full width cut to `layers` layers: the
+    single-device weights from `seed` and this rank's EP shard (its four
+    experts) of the same tensors, as views."""
+    from theroundtaible_tpu_torch.engine.models import common
+    from theroundtaible_tpu_torch.engine.models.registry import \
+        get_model_config
+    from theroundtaible_tpu_torch.engine.sharding import shard_params
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(get_model_config(MOE_MODEL), num_layers=layers)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    full = common.init_params(cfg, gen, torch.bfloat16, dev)
+    return cfg, full, shard_params(full, cfg, mesh)
+
+
+def moe_tp_rank(torch, rank):
+    """Phase 47 on one rank: the EP forward (forward_paged, a 128-row
+    chunk of 3 rows and 4 decode steps) against one device's on the same
+    weights, dense and int4 (the expert down through K10e at decode
+    rows), teacher-forced with the single-device tokens; each rank
+    computes the single-device reference in its turn."""
+    import torch.distributed as dist
+    from theroundtaible_tpu_torch.engine import quant, sharding
+    from theroundtaible_tpu_torch.engine.kernels import int4mm
+    from theroundtaible_tpu_torch.engine.models.common import (flat_layer,
+                                                               nest_layer)
+    dev = torch.device("cuda")
+    mesh = tp_mesh()
+    out = {}
+    for mode in ("bf16", "int4"):
+        cfg, full, shard = _moe_tp_weights(torch, mesh, SEED + 47,
+                                           MOE_TP_LAYERS)
+        if mode == "int4":
+            full = quant.quantize_params(full, cfg, act_dtype=torch.bfloat16,
+                                         bits=4, model_shards=2)
+            shard = sharding.shard_params(full, cfg, mesh)
+        shard = {k: ([nest_layer({n: sharding.materialize(w) for n, w in
+                                  flat_layer(layer).items()})
+                      for layer in v]
+                     if k == "layers" else sharding.materialize(v))
+                 for k, v in shard.items()}
+        gen = torch.Generator(device=dev).manual_seed(SEED + 48)
+        B, T = 3, 128
+        prompts = torch.randint(3, 259, (B, T), generator=gen,
+                                device=dev).tolist()
+
+        def run(params, m, forced=None):
+            return paged_steps(torch, params, cfg, prompts, 4,
+                               torch.bfloat16, mesh=m, forced=forced)
+
+        single = _turns(torch, rank, lambda: run(full, None))
+        forced = [lg.argmax(-1) for lg in single[0][:4]]
+        int4mm.reset_launch_counts()
+        ep = run(shard, mesh, forced)
+        torch.cuda.synchronize()
+        spmd = int4mm.launch_counts()["einsum_int4_spmd"]
+        flips = router_flips(torch, ep[1], single[1], [T] * B)
+        worst, ok, compared = compare_unflipped(
+            torch, ep[0], single[0], flips, cfg.num_layers, T)
+        out[mode] = {"max_abs_err": worst,
+                     "within_tolerance": ok and compared > 0,
+                     "row_steps_compared": compared,
+                     "router_flips": flips[:8],
+                     "flip_margins_ok": all(f["margin"] < PATH_TOL
+                                            for f in flips),
+                     "einsum_int4_spmd": spmd,
+                     "experts_per_rank": int(
+                         (shard["layers"][0]["experts"]["down_proj"].q4
+                          if mode == "int4" else
+                          shard["layers"][0]["experts"]["down_proj"])
+                         .shape[0])}
+        del full, shard, single, ep
+        gc.collect()
+        torch.cuda.empty_cache()
+        dist.barrier()
+    return out
+
+
+def moe_tp_phase(ranks) -> dict:
+    outs = [r for r, _ in ranks]
+    for mode in ("bf16", "int4"):
+        for o in outs:
+            m = o[mode]
+            check(m["experts_per_rank"] == 4,
+                  f"moe_tp {mode}: a rank holds {m['experts_per_rank']} "
+                  f"experts")
+            check(m["within_tolerance"] and m["flip_margins_ok"],
+                  f"moe_tp {mode}: EP logits off one device's: {m}")
+        if mode == "int4":
+            check(all(o[mode]["einsum_int4_spmd"] > 0 for o in outs),
+                  "moe_tp int4: K10e never launched")
+    emit("moe_tp", backend=TP_BACKEND, mesh=TP_MESH, layers=MOE_TP_LAYERS,
+         tolerance=PATH_TOL, ranks=outs)
+    return {"einsum_int4_spmd": sum(o["int4"]["einsum_int4_spmd"]
+                                    for o in outs)}
+
+
+def moe_checkpoint_phase(torch, kattn):
+    """Phase 48 (above). Returns its launch counts."""
+    import shutil
+    import tempfile
+    from theroundtaible_tpu_torch.adapters.torch_llm import TorchLlmAdapter
+    from theroundtaible_tpu_torch.engine.checkpoint import load_hf_checkpoint
+    from theroundtaible_tpu_torch.engine.models import common
+    from theroundtaible_tpu_torch.engine.models.registry import \
+        get_model_config
+    dev = torch.device("cuda")
+    name = register_depth(MOE_MODEL, MOE_CKPT_LAYERS)
+    cfg = get_model_config(name)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 49)
+    params = common.init_params(cfg, gen, torch.bfloat16, dev)
+    d = Path(tempfile.mkdtemp(prefix="moe-ckpt-")) / "hf"
+    try:
+        t0 = time.monotonic()
+        written = write_hf_checkpoint(torch, params, cfg, d, shards=2)
+        write_s = time.monotonic() - t0
+        t0 = time.monotonic()
+        loaded = load_hf_checkpoint(d, cfg, torch.bfloat16)
+        torch.cuda.synchronize()
+        load_s = time.monotonic() - t0
+        written_leaves = dict(tree_leaves(params))
+        loaded_leaves = dict(tree_leaves(loaded))
+        check(set(written_leaves) == set(loaded_leaves),
+              f"moe_checkpoint: the loaded tree has other leaves: "
+              f"{sorted(set(written_leaves) ^ set(loaded_leaves))[:6]}")
+        equal = all(bool(torch.equal(x, loaded_leaves.get(k, x[:0])))
+                    for k, x in written_leaves.items())
+        check(equal, "moe_checkpoint: a loaded leaf differs from the "
+                     "written one")
+        pairs = written_leaves
+        names = json.loads((d / "model.safetensors.index.json")
+                           .read_text())["weight_map"]
+        last = cfg.num_experts - 1
+        check(any(f".block_sparse_moe.experts.{last}.w2." in n
+                  for n in names),
+              "moe_checkpoint: no block_sparse_moe expert tensors written")
+        del loaded, params
+        gc.collect()
+        torch.cuda.empty_cache()
+        config = depth_config(MOE_MODEL, MOE_CKPT_LAYERS,
+                              checkpoint=str(d))
+        adapter = TorchLlmAdapter.from_config("torch-llm-moe-ckpt", config)
+        engine = adapter._get_engine()
+        totals, _gen, stats = serve_rounds(
+            torch, kattn, adapter, engine, "moe_checkpoint_round",
+            required=PAGED_KERNELS[:2], forbidden=CONTIGUOUS_KERNELS)
+        emit("moe_checkpoint", layers=MOE_CKPT_LAYERS, bytes=written,
+             write_s=write_s, load_s=load_s, leaves=len(pairs),
+             bit_identical=equal, tensors=len(names),
+             decode_ms_per_step=[decode_ms_per_step(stats[r])
+                                 for r in (1, 2)], launches=totals)
+        release(torch, engine)
+        del adapter
+    finally:
+        shutil.rmtree(d.parent, ignore_errors=True)
+    return totals
+
+
+def f16_kernels_phase(torch, kattn):
+    """Phase 49 (above): each kernel at f16 against its plain version
+    (KERNEL_TOL) at the serving shapes of the bf16 kernels phase, timed
+    beside SDPA or torch.matmul at f16. Returns {kernel: timing}."""
+    from theroundtaible_tpu_torch.engine import kv_quant as kvq
+    from theroundtaible_tpu_torch.engine import lora as lora_mod
+    from theroundtaible_tpu_torch.engine.kernels import int4mm
+    from theroundtaible_tpu_torch.engine.kernels import lora as klora
+    from theroundtaible_tpu_torch.engine.models import common
+    from theroundtaible_tpu_torch.engine.models.registry import \
+        get_model_config
+    dev, f16 = torch.device("cuda"), torch.float16
+    gen = torch.Generator(device=dev).manual_seed(SEED + 50)
+    flush = torch.empty(16 << 20, dtype=torch.float32, device=dev)
+    i32 = lambda x: torch.tensor(x, dtype=torch.int32, device=dev)  # noqa
+    H, K, D, ps, B = 32, 8, 128, 128, 3
+    out = {}
+
+    def timed(name, fn, ref, lib, nbytes, flops, rows=None, reps=30,
+              plain_reps=3, library=None, **extra):
+        first = fn()
+        err, ok = max_err(torch, first, ref(), rows=rows)
+        check(ok, f"f16 {name} disagrees with its plain version by {err}")
+        t = {"max_abs_err": err, "ms": time_ms(torch, fn, reps, flush),
+             "plain_ms": time_ms(torch, ref, plain_reps, flush),
+             "library_ms": time_ms(torch, lib, reps, flush),
+             "device_ms": device_ms(torch, fn, flush),
+             "library_device_ms": device_ms(torch, lib, flush),
+             "library": library, "bytes": nbytes, "flops": flops, **extra}
+        t["bound_ms"], t["bound_by"] = bound_ms(nbytes, flops)
+        out[name] = t
+
+    # K1 (and K4 inside it) at decode: 3 rows at ~1.7k cached tokens.
+    k_pool, v_pool, table = make_pool(torch, gen, B, 8192, K, D, ps, f16,
+                                      dev)
+    valid_l = [1600, 1650, 1700]
+    valid = i32(valid_l)
+    poison_past_frontier(k_pool, v_pool, table, valid, ps)
+    q = (torch.randn(B, 1, H, D, generator=gen, device=dev)
+         * D ** -0.5).to(f16)
+    args = (q, k_pool, v_pool, table, valid)
+    cells = kv_cells(valid_l, [v - 1 for v in valid_l], None)
+    timed("paged_decode_attention",
+          lambda: kattn.paged_decode_attention(*args),
+          lambda: kattn.paged_decode_attention_ref(*args),
+          sdpa_view_call(torch, q, k_pool, v_pool, table, valid, None),
+          2 * q.numel() * 2 + cells * K * D * 2 * 2, cells * H * D * 4,
+          library="sdpa_view")
+    for bits in (8, 4):
+        kq, vq, kw = quantized_pools(kvq, k_pool, v_pool, bits)
+        qa = (q, kq, vq, table, valid)
+        timed(f"kv_dequant_int{bits}",
+              lambda: kattn.paged_decode_attention(*qa, **kw),
+              lambda: kattn.paged_decode_attention_ref(*qa, **kw),
+              sdpa_view_call(torch, q, k_pool, v_pool, table, valid, None),
+              2 * q.numel() * 2 + quant_cell_bytes(cells, K, D, bits),
+              cells * H * D * 4, library="sdpa_view on the f16 pool")
+        del kq, vq, kw
+    # K2: a 512-row delta chunk over a 1.2k shared prefix.
+    offsets_l, lengths_l, T = [1200, 1200, 1200], [300, 320, 340], 512
+    offsets = i32(offsets_l)
+    valid_l = [o + n for o, n in zip(offsets_l, lengths_l)]
+    valid = i32(valid_l)
+    q = (torch.randn(B, T, H, D, generator=gen, device=dev)
+         * D ** -0.5).to(f16)
+    args = (q, k_pool, v_pool, table, offsets, valid)
+    cells = kv_cells(valid_l, offsets_l, None)
+    pairs = attended_pairs(valid_l, offsets_l, lengths_l, None)
+    timed("paged_prefill_attention",
+          lambda: kattn.paged_prefill_attention(*args),
+          lambda: kattn.paged_prefill_attention_ref(*args),
+          sdpa_view_call(torch, q, k_pool, v_pool, table, valid, offsets),
+          2 * sum(lengths_l) * H * D * 2 + cells * K * D * 2 * 2,
+          pairs * H * D * 4, rows=lengths_l, reps=20, library="sdpa_view")
+    del k_pool, v_pool
+    # K3: the main flat buffer, then the verify buffer.
+    for name, runs, T in (("ragged_paged_attention", RAGGED_MAIN, 1024),
+                          ("ragged_paged_attention:verify",
+                           RAGGED_VERIFY_MAIN, 128)):
+        rargs = ragged_inputs(torch, gen, runs, T, H, K, D, ps, f16, dev)
+        offs = [o for o, *_ in runs]
+        lens = [m for _o, m, *_ in runs]
+        cells = (verify_cells(runs, ps) if name.endswith("verify")
+                 else kv_cells([o + m for o, m in zip(offs, lens)], offs,
+                               None))
+        pairs = attended_pairs([o + m for o, m in zip(offs, lens)], offs,
+                               lens, None)
+        timed(name, lambda: kattn.ragged_paged_attention(*rargs),
+              lambda: kattn.ragged_paged_attention_ref(*rargs),
+              sdpa_ragged_call(torch, rargs, runs),
+              2 * T * H * D * 2 + cells * K * D * 2 * 2,
+              pairs * H * D * 4, reps=20, library="sdpa_ragged")
+        del rargs
+    # K8/K9: the slot cache of 8 x 8192 positions.
+    rows_l = [5, 2, 7]
+    dec_valid = [1600, 1650, 1700]
+    kc, vc = slot_cache(torch, gen, K, D, f16, dev, dec_valid, rows_l)
+    rows = i32(rows_l)
+    q = (torch.randn(B, 1, H, D, generator=gen, device=dev)
+         * D ** -0.5).to(f16)
+    valid = i32(dec_valid)
+    dargs = (q, kc, vc, valid)
+    cells = sum(dec_valid)
+    timed("ragged_decode_attention",
+          lambda: kattn.ragged_decode_attention(*dargs, rows=rows),
+          lambda: kattn.ragged_decode_attention_ref(*dargs, rows=rows),
+          sdpa_slots_call(torch, q, kc, vc, rows, valid, None),
+          2 * q.numel() * 2 + cells * K * D * 2 * 2, cells * H * D * 4,
+          library="sdpa_slots")
+    pre_valid = [o + n for o, n in zip(offsets_l, lengths_l)]
+    q = (torch.randn(B, 512, H, D, generator=gen, device=dev)
+         * D ** -0.5).to(f16)
+    pargs = (q, kc, vc, i32(offsets_l), i32(pre_valid))
+    cells = kv_cells(pre_valid, offsets_l, None)
+    pairs = attended_pairs(pre_valid, offsets_l, lengths_l, None)
+    timed("flash_prefill_attention",
+          lambda: kattn.flash_prefill_attention(*pargs, rows=rows),
+          lambda: kattn.flash_prefill_attention_ref(*pargs, rows=rows),
+          sdpa_slots_call(torch, q, kc, vc, rows, i32(pre_valid),
+                          i32(offsets_l)),
+          2 * sum(lengths_l) * H * D * 2 + cells * K * D * 2 * 2,
+          pairs * H * D * 4, rows=lengths_l, reps=20, library="sdpa_slots")
+    del kc, vc
+    # K5 at Llama-3-8B's gate/up and at Mixtral's expert down; K6 at the
+    # head. Yardstick: torch.matmul on the weight dequantized to f16.
+    gp = INT4_GROUP // 2
+    for name, (xs, ws) in (("mm_pack_out", ((3, 4096), (4096, 14336))),
+                           ("mm_pack_contract", K6_SHAPE)):
+        x = torch.randn(*xs, generator=gen, device=dev).to(f16)
+        q4, s4 = int4_weight(torch, gen, ws, dev, f16)
+        w = common.dequant_int4(q4, s4, 1, INT4_GROUP, f16)
+        if name == "mm_pack_contract":
+            fn = lambda: int4mm.mm_pack_contract(x, q4, s4, gp)  # noqa
+            ref = lambda: int4mm.mm_pack_contract_ref(x, q4, s4, gp)  # noqa
+            lib = lambda: torch.matmul(x, w.t())  # noqa
+            n_out = ws[0]
+        else:
+            fn = lambda: int4mm.mm_pack_out(x, q4, s4, gp)  # noqa
+            ref = lambda: int4mm.mm_pack_out_ref(x, q4, s4, gp)  # noqa
+            lib = lambda: torch.matmul(x, w)  # noqa
+            n_out = ws[1]
+        timed(name, fn, ref, lib,
+              q4.numel() + s4.numel() * 2 + x.numel() * 2 + xs[0] * n_out * 4,
+              2 * xs[0] * ws[0] * ws[1], library="torch.matmul",
+              x=list(xs), weight=list(ws))
+        del x, q4, s4, w
+    out["mm_pack_out:expert_down"] = k5_expert_case(
+        torch, int4mm, common, gen, flush, get_model_config(MOE_MODEL), 3,
+        f16)
+    # K7: one layer's q/k/v group call at 3 rows of 3 personas.
+    c, outs = LORA_GROUPS["q/k/v"]
+    x = (torch.randn(3, c, generator=gen, device=dev) * 0.5).to(f16)
+    stacks = [lora_stacks(torch, gen, c, o, dev, f16) for o in outs]
+    ids = i32(LORA_GROUP_IDS["3 personas"])
+    y0 = [torch.zeros(3, o, dtype=torch.float32, device=dev) for o in outs]
+    nbytes, flops = lora_group_bytes(LORA_GROUP_IDS["3 personas"], 3, c,
+                                     outs)
+    t = lora_group_case(torch, klora, lora_mod, x, stacks, y0, ids, flush,
+                        sum(a.numel() * 2 + b.numel() * 2
+                            for a, b in stacks))
+    t["bound_ms"], t["bound_by"] = bound_ms(nbytes, flops)
+    t["library"] = "grouped einsums plus the add"
+    out["lora_bgmv"] = t
+    emit("f16_kernels", tolerance=KERNEL_TOL, kernels=out)
+    return out
+
+
+def f16_engine_phase(torch, kattn):
+    """Phase 50 (above). Returns its launch counts."""
+    from theroundtaible_tpu_torch.adapters.torch_llm import TorchLlmAdapter
+    launches = {}
+    runs = (("f16_round", {}, PAGED_KERNELS[:2], CONTIGUOUS_KERNELS),
+            ("f16_contiguous_round", {"kv_layout": None},
+             CONTIGUOUS_KERNELS, PAGED_KERNELS),
+            ("f16_quant_lora_round",
+             {"quant": "int4", "kv_quant": "int8",
+              "lora": {**LORA_BLOCK, "adapters": {
+                  "skeptic": LORA_BLOCK["adapters"]["skeptic"]}},
+              "knight_adapters": {"lancelot": None, "gawain": "skeptic",
+                                  "percival": None}},
+             PAGED_KERNELS[:2] + ("paged_decode_attention:int8",)
+             + INT4_KERNELS + LORA_KERNELS, CONTIGUOUS_KERNELS))
+    for phase, extra, required, forbidden in runs:
+        config = depth_config(F16_MODEL, F16_LAYERS, dtype="float16")
+        for k, v in extra.items():
+            if v is None:
+                config.pop(k)
+            else:
+                config[k] = v
+        adapter = TorchLlmAdapter.from_config(f"torch-llm-{phase}", config)
+        engine = adapter._get_engine()
+        check(engine.dtype == torch.float16,
+              f"{phase}: built {engine.dtype}")
+        totals, generated, stats = serve_rounds(
+            torch, kattn, adapter, engine, phase, required=required,
+            forbidden=forbidden)
+        emit(f"{phase}_summary", layers=F16_LAYERS,
+             decode_ms_per_step=[decode_ms_per_step(stats[r])
+                                 for r in (1, 2)],
+             prefill_s=[stats[r]["prefill_seconds"] for r in (1, 2)],
+             step_bound_ms=step_bound_ms(engine)[1],
+             describe={k: engine.describe().get(k) for k in (
+                 "quant", "kv_quant", "kv_layout", "attn")},
+             launches=totals)
+        if phase != "f16_quant_lora_round":
+            # the unquantized engines' greedy knights on the plain path
+            greedy_against_plain(torch, engine, phase, generated,
+                                 GREEDY_KNIGHTS)
+        for k, n in totals.items():
+            launches[k] = launches.get(k, 0) + n
+        if phase == "f16_round":
+            for k, n in scheduler_phase(torch, kattn, engine,
+                                        phase="f16_scheduler").items():
+                launches[k] = launches.get(k, 0) + n
+        release(torch, engine)
+        del adapter
+    return launches
+
+
+# The kernels line's f16 entries: the f16_kernels cases of each row, and
+# the kernels a K10 wrapper's f16 calls run.
+F16_CASES = {"paged_decode_attention": ("paged_decode_attention",),
+             "paged_prefill_attention": ("paged_prefill_attention",),
+             "ragged_paged_attention": ("ragged_paged_attention",
+                                        "ragged_paged_attention:verify"),
+             "flash_prefill_attention": ("flash_prefill_attention",),
+             "ragged_decode_attention": ("ragged_decode_attention",),
+             "kv_dequant_int8": ("kv_dequant_int8",),
+             "kv_dequant_int4": ("kv_dequant_int4",),
+             "mm_pack_out": ("mm_pack_out", "mm_pack_out:expert_down"),
+             "mm_pack_contract": ("mm_pack_contract",),
+             "lora_bgmv": ("lora_bgmv",)}
+F16_RIDES = {"flash_attention_spmd": "K8/K9", "paged_decode_spmd": "K1",
+             "paged_prefill_spmd": "K2", "ragged_paged_spmd": "K3",
+             "einsum_int4_spmd": "K5/K6", "lora_bgmv_spmd": "K7"}
+F16_FIELDS = ("max_abs_err", "ms", "plain_ms", "library_ms", "library",
+              "device_ms", "library_device_ms", "bound_ms", "bound_by",
+              "cold_ms", "library_cold_ms")
+
+
+def add_f16_and_moe(rows, f16_timing, k5_expert, moe_quant, f16_launches,
+                    moe_tp) -> None:
+    """Each kernel row gets its dtypes and its f16 cases (phase 49), K5 its
+    expert-down cases (phase 46, bf16; phase 49, f16), and K4-K7's and
+    K10e's launches in the MoE and f16 phases (added to `launches`, and
+    beside it by phase)."""
+    extra = {
+        "kv_dequant_int8": {"f16_engine": sum(
+            n for k, n in f16_launches.items() if k.endswith(":int8"))},
+        "kv_dequant_int4": {"f16_engine": sum(
+            n for k, n in f16_launches.items() if k.endswith(":int4"))},
+        "mm_pack_out": {"moe_quant": moe_quant["int4"]["mm_pack_out"],
+                        "f16_engine": f16_launches.get("mm_pack_out", 0)},
+        "mm_pack_contract": {
+            "moe_quant": moe_quant["int4"]["mm_pack_contract"],
+            "f16_engine": f16_launches.get("mm_pack_contract", 0)},
+        "lora_bgmv": {"f16_engine": f16_launches.get("lora_bgmv", 0)},
+        "einsum_int4_spmd": {"moe_tp": moe_tp["einsum_int4_spmd"]}}
+    for row in rows:
+        name = row["name"]
+        row["dtypes"] = ["float32", "bfloat16", "float16"]
+        if name in F16_CASES:
+            row["f16"] = {case: {k: f16_timing[case][k] for k in F16_FIELDS
+                                 if k in f16_timing[case]}
+                          for case in F16_CASES[name]}
+        else:
+            row["f16"] = f"the f16 bodies of {F16_RIDES[name]} per rank"
+        if name in extra:
+            row["moe_f16_launches"] = extra[name]
+            row["launches"] += sum(extra[name].values())
+        if name == "mm_pack_out":
+            row["expert_down_launches"] = moe_quant["int4"][
+                "mm_pack_out:expert_down"]
+            row["expert_down"] = {f"bf16_{m}_rows": k5_expert[m]
+                                  for m in sorted(k5_expert)}
+
+
 CHILDREN = {"device_fault": device_fault_child,
             "journal_serve": journal_serve_child,
             "journal_resume": journal_resume_child,
@@ -7999,8 +8993,15 @@ def main() -> int:
         for name in PAGED_KERNELS:
             launches[name] += counts[name]
     # Supervision and the telemetry spine: a supervised restart at full
-    # width beside the engine phase's engine, telemetry's cost on it, then
-    # the child processes (a real CUDA fault; kill -9 and resume).
+    # width beside an engine of SUPERVISION_LAYERS layers (the 32-layer
+    # engine released first), telemetry's cost on it, then the child
+    # processes (a real CUDA fault; kill -9 and resume).
+    from theroundtaible_tpu_torch.engine import reset_engines
+    reset_engines()
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    engine = supervision_engine(torch)
     supervision_launches = {
         "supervised_restart": supervised_restart_phase(torch, kattn,
                                                        engine),
@@ -8020,11 +9021,10 @@ def main() -> int:
         for name in PAGED_KERNELS:
             launches[name] += counts.get(name, 0)
 
-    # Release the paged engine (the engine cache holds it too) before the
-    # router's two replicas take two engines' memory (three during a
-    # roll), then before the contiguous engine takes its weights and
-    # 8.6 GB of slots.
-    from theroundtaible_tpu_torch.engine import reset_engines
+    # Release the supervision engine (the engine cache holds the paged
+    # engine's config too) before the router's two replicas take two
+    # engines' memory (three during a roll), then before the contiguous
+    # engine takes its weights and 8.6 GB of slots.
     reset_engines()
     del engine
     gc.collect()
@@ -8033,8 +9033,7 @@ def main() -> int:
     for counts in router_launches.values():
         for name in PAGED_KERNELS:
             launches[name] += counts.get(name, 0)
-    contiguous, engine, contiguous_ref = contiguous_phase(
-        torch, kattn, reference["generated"])
+    contiguous, engine, contiguous_ref = contiguous_phase(torch, kattn)
     for name in CONTIGUOUS_KERNELS:
         # the contiguous rounds' and the loadgen smoke's (its stack is
         # the contiguous layout)
@@ -8069,7 +9068,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     quant_path_phase(torch, cfg)
 
-    # Multi-LoRA personas: K7 alone, the 32-layer LoRA engine's rounds and
+    # Multi-LoRA personas: K7 alone, the LORA_LAYERS-deep engine's rounds and
     # its scheduler (K7 at decode, K3 with per-token adapter ids), then
     # the 2-layer path.
     lora_timing = lora_kernels_phase(torch)
@@ -8095,6 +9094,22 @@ def main() -> int:
     torch.cuda.empty_cache()
     lora_path_phase(torch, cfg)
 
+    # MoE (Mixtral at full width, cut in depth) and float16: the engines
+    # of phases 45-46 and 48-50 one after another (each released before
+    # the next); phase 47 rides the TP spawns below.
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_launches = {"moe_engine": moe_engine_phase(torch, kattn)}
+    moe_quant_launches, k5_expert = moe_quant_phase(torch, kattn)
+    moe_launches["moe_checkpoint"] = moe_checkpoint_phase(torch, kattn)
+    f16_timing = f16_kernels_phase(torch, kattn)
+    gc.collect()
+    torch.cuda.empty_cache()
+    f16_launches = f16_engine_phase(torch, kattn)
+    for name in PAGED_KERNELS + CONTIGUOUS_KERNELS:
+        launches[name] += sum(c.get(name, 0) for c in moe_launches.values())
+        launches[name] += f16_launches.get(name, 0)
+
     # Tensor parallelism: two ranks sharing the card over gloo (the kernels
     # built above; every engine of this process released first), three
     # spawns: the K10 wrappers alone (K10a-d, then K10e/K10f); the 16-layer
@@ -8114,10 +9129,12 @@ def main() -> int:
                                   contiguous_ref).items():
         tp_launches[name] += n
     tp_quant_launches = tp_quant_phase(runs[2], single)
-    runs = tp_launch(("tp_path_rank", ()), ("tp_ragged_path_rank", ()))
+    runs = tp_launch(("tp_path_rank", ()), ("tp_ragged_path_rank", ()),
+                     ("moe_tp_rank", ()))
     tp_path_phase(runs[0])
     tp_launches["ragged_paged_spmd"] = tp_ragged_path_phase(runs[1])[
         "ragged_paged_spmd"]
+    moe_tp_launches = moe_tp_phase(runs[2])
 
     # The main path from a checkpoint: write, load, discuss; then the rest
     # of the CLI on the same engine (one round each), in one project.
@@ -8307,6 +9324,8 @@ def main() -> int:
             "ms_per_rank": [t["ms"] for t in layer],
             **{k: v for k, v in spmd_device.get(name, {}).items()
                if k != "products"}})
+    add_f16_and_moe(rows, f16_timing, k5_expert, moe_quant_launches,
+                    f16_launches, moe_tp_launches)
     build_watch_phase()
     emit("device_timing", **DEVICE_TIMING)
     summary = {"kernels": rows}

@@ -462,7 +462,17 @@ def test_reader_unmaps_each_tensor_once_it_is_dropped(checkpoints,
 
 
 def test_moe_checkpoint_and_config_raise_naming_the_item(tmp_path):
+    """A Mixtral checkpoint raised NotImplementedError until item 7e-i:
+    now a dense config over it raises the JAX loader's missing-tensor error
+    (its block_sparse_moe tensors feed no dense leaf) and a MoE config
+    loads it as the JAX loader does (tests/test_torch_moe.py holds the
+    layout leaf by leaf)."""
+    import jax.numpy as jnp
     import transformers
+    from theroundtaible_tpu.engine.checkpoint import \
+        load_hf_checkpoint as jax_load
+    from theroundtaible_tpu.engine.models.registry import \
+        get_model_config as jax_config
     torch.manual_seed(0)
     hf = transformers.MixtralForCausalLM(transformers.MixtralConfig(
         vocab_size=VOCAB, hidden_size=64, intermediate_size=128,
@@ -470,14 +480,24 @@ def test_moe_checkpoint_and_config_raise_naming_the_item(tmp_path):
         num_local_experts=2, num_experts_per_tok=1,
         max_position_embeddings=256))
     hf.save_pretrained(tmp_path, safe_serialization=True)
-    with pytest.raises(NotImplementedError, match="item 7e-i"):
+    with pytest.raises(ValueError, match="Checkpoint incomplete"):
         load_hf_checkpoint(tmp_path, port_config("llama"), torch.float32,
                            "cpu")
+    import dataclasses
     from theroundtaible_tpu_torch.engine.models.registry import \
         get_model_config
-    with pytest.raises(NotImplementedError, match="item 7e-i"):
-        load_hf_checkpoint(tmp_path, get_model_config("tiny-mixtral"),
-                           torch.float32, "cpu")
+    over = dict(num_layers=1, num_experts=2, num_experts_per_tok=1,
+                vocab_size=VOCAB)
+    cfg = dataclasses.replace(get_model_config("tiny-mixtral"), **over)
+    ours = load_hf_checkpoint(tmp_path, cfg, torch.float32, "cpu")
+    theirs = jax_load(tmp_path, dataclasses.replace(
+        jax_config("tiny-mixtral"), **over), jnp.float32)
+    layer, ref = ours["layers"][0], theirs["layers"][0]
+    np.testing.assert_array_equal(layer["router"].numpy(),
+                                  np.asarray(ref["router"]))
+    for k, v in ref["experts"].items():
+        np.testing.assert_array_equal(layer["experts"][k].numpy(),
+                                      np.asarray(v), k)
 
 
 def test_detect_config_from_hf(checkpoints, tmp_path):

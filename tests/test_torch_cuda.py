@@ -53,9 +53,10 @@ def cuda_device():
     return torch.device("cuda")
 
 
-# bf16: p and the output round to bf16 and sums run in another order;
-# f32: only the summation order differs.
-DTYPES = [(torch.bfloat16, 2e-2), (torch.float32, 1e-4)]
+# bf16 and f16: p and the output round to the 16-bit type and sums run in
+# another order; f32: only the summation order differs.
+DTYPES = [(torch.bfloat16, 2e-2), (torch.float32, 1e-4),
+          (torch.float16, 2e-2)]
 
 
 @pytest.mark.cuda
@@ -458,7 +459,8 @@ def test_cuda_decode_chunk_is_the_kernels(cuda_device):
     for name, fn in (("paged_decode", "rt_paged_decode_chunk"),
                      ("ragged_decode", "rt_ragged_decode_chunk")):
         lib = build.library(name)
-        for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
+        for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1),
+                            (torch.float16, 2)):
             for d in kattn.HEAD_DIMS:
                 assert getattr(lib, fn)(code, d) == kattn.decode_chunk(
                     d, dtype)
@@ -467,8 +469,8 @@ def test_cuda_decode_chunk_is_the_kernels(cuda_device):
 @pytest.mark.cuda
 def test_cuda_decode_split_kernels_in_ptxas(cuda_device):
     """K1's and K9's libraries hold the split and combine kernels of every
-    instantiation, and the bf16 split kernels at D <= 128 on unquantized
-    pages do not spill."""
+    instantiation, and the bf16 and f16 split kernels at D <= 128 on
+    unquantized pages do not spill."""
     build.build_all()
     logs = build.build_logs()
     for name in ("paged_decode", "ragged_decode"):
@@ -477,7 +479,8 @@ def test_cuda_decode_split_kernels_in_ptxas(cuda_device):
         assert split and any("decode_combine_kernel" in e for e in entries)
         for e in split:
             mangled = e.split("'")[0]
-            if ("__nv_bfloat16" in mangled and "Li0EE" in mangled
+            if (("__nv_bfloat16" in mangled or "__half" in mangled)
+                    and "Li0EE" in mangled
                     and ("Li64E" in mangled or "Li128E" in mangled)):
                 assert "0 bytes spill stores" in e, e[:400]
 
@@ -923,24 +926,26 @@ def test_cuda_engine_attach_and_spill_restore(cuda_device, kv_quant):
 @pytest.mark.cuda
 def test_cuda_ragged_kernels_in_ptxas(cuda_device):
     """K3's library holds the tile kernels (wgmma and CUDA-core) and the
-    split-KV decode kernels over its decode items for every D and payload;
-    the bf16 split kernels do not spill, and the wgmma tile kernels stay
-    within the launch's 168 registers per thread."""
+    split-KV decode kernels over its decode items for every dtype, D and
+    payload; the bf16 and f16 split kernels do not spill, and the wgmma tile
+    kernels stay within the launch's 168 registers per thread."""
     build.build_all()
     entries = build.build_logs()["ragged_paged"].split(
         "Compiling entry function '")[1:]
     names = [e.split("'")[0] for e in entries]
-    # (D, payload) for the tile kernels; (dtype, D, payload) for the
-    # split kernel and (dtype, D) for the combine.
-    for kind, count in (("ragged_tc_kernel", 9), ("ragged_simt_kernel", 9),
-                        ("decode_split_kernel", 18),
-                        ("decode_combine_kernel", 6)):
+    # (dtype, D, payload) for the wgmma tile kernels (bf16, f16) and the
+    # split kernel (f32, bf16, f16); (D, payload) for the f32 tile kernel;
+    # (dtype, D) for the combine.
+    for kind, count in (("ragged_tc_kernel", 18), ("ragged_simt_kernel", 9),
+                        ("decode_split_kernel", 27),
+                        ("decode_combine_kernel", 9)):
         found = [n for n in names if kind in n]
         assert len(found) == count, (kind, found)
     for e in entries:
         mangled = e.split("'")[0]
         used = int(e.split("Used ")[1].split(" registers")[0])
-        if "decode_split_kernel" in mangled and "__nv_bfloat16" in mangled:
+        if "decode_split_kernel" in mangled and (
+                "__nv_bfloat16" in mangled or "__half" in mangled):
             assert "0 bytes spill stores" in e, e[:400]
         if "ragged_tc_kernel" in mangled:
             assert used <= 168, e[:400]
@@ -2203,3 +2208,91 @@ def test_cuda_loadgen_stack_builds_at_llama3_width(cuda_device, tmp_path):
     finally:
         gw.stop()
         sched.close()
+
+
+def _moe_config(**over):
+    """tiny-mixtral at head_dim 64 (the kernels' smallest), 8 heads, 4
+    experts; `over` widens it."""
+    from theroundtaible_tpu_torch.engine.models.registry import \
+        get_model_config
+    base = dict(num_heads=8, num_kv_heads=2, head_dim=64, embed_dim=512,
+                mlp_dim=512, max_seq_len=1024, name="cuda-moe")
+    base.update(over)
+    return dataclasses.replace(get_model_config("tiny-mixtral"), **base)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_cuda_moe_engine_serves_through_the_kernels(cuda_device, dtype):
+    """A MoE engine on the card (bf16 and f16, paged): a 2-knight batch
+    prefills through K2 and decodes through K1, and its logits on the
+    kernel path stay within 5e-2 of the plain path's (forward_paged with
+    plain=True) on the same weights and tokens."""
+    from theroundtaible_tpu_torch.engine.engine import InferenceEngine
+    from theroundtaible_tpu_torch.engine.paged_forward import forward_paged
+    cfg = _moe_config()
+    eng = InferenceEngine(cfg, num_slots=4, kv_layout="paged", page_size=64,
+                          dtype=dtype, spec_decode=False, device="cuda")
+    kattn.reset_launch_counts()
+    texts = eng.generate_batch([("a", [1, 5, 9, 7] * 40),
+                                ("b", [1, 8, 3] * 50)], max_new_tokens=12)
+    assert len(texts) == 2
+    counts = kattn.launch_counts()
+    assert counts["paged_prefill_attention"] > 0
+    assert counts["paged_decode_attention"] > 0
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    tokens = torch.randint(3, 259, (2, 96), generator=gen, device="cuda")
+    pos = torch.arange(96, dtype=torch.int32, device="cuda").expand(
+        2, 96).contiguous()
+    valid = torch.full((2,), 96, dtype=torch.int32, device="cuda")
+    table = torch.arange(1, 5, dtype=torch.int32, device="cuda").reshape(
+        2, 2)
+    out = []
+    for plain in (False, True):
+        pools = [(torch.zeros(5, 64, 2, 64, dtype=dtype, device="cuda"),
+                  torch.zeros(5, 64, 2, 64, dtype=dtype, device="cuda"))
+                 for _ in range(cfg.num_layers)]
+        out.append(forward_paged(eng.params, cfg, tokens, pos, pools, table,
+                                 valid, last_pos=valid - 1, plain=plain))
+    assert torch.isfinite(out[0]).all()
+    assert ((out[0] - out[1]).abs()
+            <= 5e-2 + 5e-2 * out[1].abs()).all()
+
+
+@pytest.mark.cuda
+def test_cuda_moe_int4_expert_down_runs_k5(cuda_device):
+    """int4 experts on the card: the expert down product ("btxf,xfe->bte",
+    C = X * F) launches K5 at decode rows and matches its plain version;
+    the expert gate/up take the dequant path (the one product no kernel
+    serves) instead of refusing; the engine builds and serves."""
+    from theroundtaible_tpu_torch.engine import quant
+    from theroundtaible_tpu_torch.engine.engine import InferenceEngine
+    from theroundtaible_tpu_torch.engine.models import common
+    cfg = _moe_config()
+    params = quant.quantize_params(
+        common.init_params(cfg, torch.Generator(device="cuda").manual_seed(
+            0), torch.bfloat16, "cuda"), cfg, bits=4)
+    down = params["layers"][0]["experts"]["down_proj"]
+    assert down.plan.reason is None and down.plan.width == 4 * 512
+    a = torch.randn(3, 1, 4, 512, device="cuda").to(torch.bfloat16)
+    int4mm.reset_launch_counts()
+    y, reason = int4mm.einsum_int4_or_reason(common.SPEC_EXPERT_DOWN, a,
+                                             down)
+    assert reason is None and int4mm.launch_counts()["mm_pack_out"] == 1
+    ref, _ = int4mm.einsum_int4_or_reason(
+        common.SPEC_EXPERT_DOWN, a, dataclasses.replace(
+            down, plan=dataclasses.replace(down.plan, plain=True)))
+    assert ((y - ref).abs() <= 2e-2 + 2e-2 * ref.abs()).all()
+    up = params["layers"][0]["experts"]["gate_proj"]
+    x = torch.randn(3, 1, 512, device="cuda").to(torch.bfloat16)
+    assert int4mm.einsum_int4_or_reason(common.SPEC_EXPERT_UP, x, up) == (
+        None, "spec:mixed-kept-contracted")
+    eng = InferenceEngine(cfg, num_slots=2, kv_layout="paged", page_size=64,
+                          quant="int4", params=params, spec_decode=False,
+                          device="cuda")
+    int4mm.reset_launch_counts()
+    eng.generate_batch([("a", [1, 5, 9] * 30)], max_new_tokens=6)
+    assert int4mm.launch_counts()["mm_pack_out"] > 0
+    paths = eng.describe()["int4_paths"]
+    assert common.SPEC_EXPERT_DOWN in {e["spec"]
+                                       for e in paths["cuda_w4a16"]}

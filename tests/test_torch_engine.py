@@ -132,7 +132,6 @@ def test_describe_keys_match(engines):
 @pytest.mark.parametrize("key,value", [
     # a data axis (TP alone is served: tests/test_torch_tp.py)
     ("mesh", {"data": 2, "model": 2}), ("seq_parallel", 2),
-    ("dtype", "float16"),
     # devices beyond one card (a single index selects cuda:<i>; here the
     # caller asked for the CPU) and a DCN axis
     ("devices", [1]), ("devices", [0, 1]), ("dcn_axis", "data"),
@@ -141,6 +140,25 @@ def test_unported_options_raise(key, value):
     config = {"model": "tiny-llama", "max_seq_len": 128, key: value}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         InferenceEngine.from_config(config, device="cpu")
+
+
+@pytest.mark.parametrize("key,value", [("dtype", "float16"),
+                                       ("model", "tiny-mixtral")])
+def test_float16_and_moe_build_and_serve(key, value):
+    """`"dtype": "float16"` and a MoE model raised until item 7e-i was
+    ported: both build through from_config and serve a greedy round
+    (tests/test_torch_float16.py and tests/test_torch_moe.py hold them
+    against the JAX engine)."""
+    config = {"model": "tiny-llama", "max_seq_len": 128,
+              "sampling": {"temperature": 0.0}, key: value}
+    eng = InferenceEngine.from_config(config, device="cpu")
+    texts = eng.generate_batch([("a", "the round table meets")],
+                               max_new_tokens=4)
+    assert len(texts) == 1
+    if key == "dtype":
+        assert eng.dtype == torch.float16
+    else:
+        assert "experts" in eng.params["layers"][0]
 
 
 @pytest.mark.parametrize("key", ["prefix_cache", "kv_offload"])

@@ -145,8 +145,10 @@ def test_plan_reasons_match_jax(m, r):
     assert klora.plan_bgmv(3, 256, 8, 100, torch.bfloat16)[1] == \
         "dims:out-misaligned"
     assert klora.plan_bgmv(3, 100, 8, 96, torch.float32)[1] is None
-    assert klora.plan_bgmv(3, 256, 8, 512, torch.float16)[1] == \
-        "dtype:float16"
+    # float16 is served since item 7e-i; float64 still declines
+    assert klora.plan_bgmv(3, 256, 8, 512, torch.float16)[1] is None
+    assert klora.plan_bgmv(3, 256, 8, 512, torch.float64)[1] == \
+        "dtype:float64"
 
 
 def test_lora_bgmv_or_reason_and_wrapper_checks():

@@ -154,8 +154,17 @@ def test_free_source_releases_each_dense_leaf():
     assert q_proj.untyped_storage().nbytes() == 0
     assert norm.untyped_storage().nbytes() > 0
     assert out["layers"][0]["input_norm"] is norm
-    with pytest.raises(NotImplementedError, match="item 7e-i"):
-        quant.quantize_params(tparams, torch_config("tiny-mixtral"))
+    # MoE experts (item 7e-i) release theirs too; the router stays
+    mc = torch_config("tiny-mixtral")
+    mparams = common.init_params(mc, torch.Generator().manual_seed(0), tdt,
+                                 "cpu")
+    down = mparams["layers"][0]["experts"]["down_proj"]
+    router = mparams["layers"][0]["router"]
+    mout = quant.quantize_params(mparams, mc, act_dtype=tdt, bits=4,
+                                 free_source=True)
+    assert down.untyped_storage().nbytes() == 0
+    assert mout["layers"][0]["router"] is router
+    assert isinstance(mout["layers"][0]["experts"]["down_proj"], Int4Leaf)
 
 
 def call_sites(cfg, params, rows, t=1):
@@ -497,15 +506,23 @@ def test_adapter_builds_a_quantized_engine():
 
 @pytest.mark.parametrize("extra,item", [
     ({"quant": "int4", "mesh": {"data": 2, "model": 1}}, "item 7e-ii"),
-    ({"quant": "int8", "model": "tiny-mixtral"}, "item 7e-i"),
+    ({"quant": "int8", "model": "tiny-mixtral"}, None),
 ], ids=["int4-sharded", "quantized-moe"])
 def test_out_of_scope_quant_options_still_raise(extra, item):
     """Quantization is ported on one device and on a model axis; on a
-    data axis, and with MoE, it still refuses, naming their ROADMAP item
-    (quantized weights under LoRA personas serve: tests/test_torch_lora.py;
-    on a model axis: tests/test_torch_tp_quant.py; with the prefix cache
-    and the offload tier: test_quantized_paged_engine_serves_with)."""
+    data axis it still refuses, naming its ROADMAP item (quantized weights
+    under LoRA personas serve: tests/test_torch_lora.py; on a model axis:
+    tests/test_torch_tp_quant.py; with the prefix cache and the offload
+    tier: test_quantized_paged_engine_serves_with). Quantized MoE experts
+    raised until item 7e-i was ported: now they build and serve
+    (tests/test_torch_moe.py holds them against the JAX engine)."""
     config = {"model": "tiny-llama", "max_seq_len": 128, **extra}
+    if item is None:
+        eng = InferenceEngine.from_config(config, device="cpu")
+        assert eng.describe()["quant"] == "int8"
+        assert eng.generate_batch([("a", "the round table")],
+                                  max_new_tokens=2)
+        return
     with pytest.raises(NotImplementedError, match=item):
         InferenceEngine.from_config(config, device="cpu")
 

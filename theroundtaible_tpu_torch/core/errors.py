@@ -242,7 +242,8 @@ ITEM_7D = "item 7d: the serving tier"
 ITEM_7D_II = ("item 7d-ii: the session router and the load generator "
               "(`loadgen`, `--replicas N>1`, `status --fleet`, replica "
               "labels; ported, nothing raises under it)")
-ITEM_7E_I = "item 7e-i: MoE and float16"
+ITEM_7E_I = ("item 7e-i: MoE and float16 (ported, nothing raises under "
+             "it)")
 ITEM_7E_II = "item 7e-ii: the rest of multi-device"
 
 

@@ -17,6 +17,11 @@ HF name map (all families), as in the JAX package:
   model.layers.N.post_feedforward_layernorm  -> post_mlp_norm (Gemma)
   model.norm.weight                          -> final_norm
   lm_head.weight                             -> lm_head (untied only)
+  model.layers.N.block_sparse_moe.gate       -> router [E, X] (Mixtral)
+  model.layers.N.block_sparse_moe.experts.M.{w1,w3,w2}
+                                             -> experts.{gate,up,down}_proj
+                                                stacked on a leading expert
+                                                axis: [X, E, F], [X, F, E]
 Other names (rotary_emb.inv_freq, layers beyond cfg.num_layers, an
 lm_head of a tied model) are skipped, as the JAX loader skips them.
 
@@ -44,10 +49,10 @@ from typing import Any, Callable, Iterator, Optional
 
 import torch
 
-from ..core.errors import ITEM_7E_I, not_ported
 from ..native.loader import SafetensorsReader, index_safetensors
 from .device import resolve_device
-from .models.common import Int4Leaf, ModelConfig, Params, leaf_keeper
+from .models.common import (EXPERTS, Int4Leaf, ModelConfig, Params,
+                            flat_layer, leaf_keeper, nest_layer)
 
 _LAYER = re.compile(r"model\.layers\.(\d+)\.(.+)")
 
@@ -105,7 +110,34 @@ def _hf_shapes(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
             "o_proj": (e, h * d), "gate_proj": (f, e), "up_proj": (f, e),
             "down_proj": (e, f), "q_bias": (h * d,), "k_bias": (k * d,),
             "v_bias": (k * d,), "input_norm": (e,), "pre_mlp_norm": (e,),
-            "post_mlp_norm": (e,)}
+            "post_mlp_norm": (e,), "router": (cfg.num_experts or 0, e),
+            "experts.gate_proj": (f, e), "experts.up_proj": (f, e),
+            "experts.down_proj": (e, f)}
+
+# Mixtral's expert matrices: w1 gate, w3 up, w2 down.
+_EXPERT_NAMES = {"w1": "gate_proj", "w3": "up_proj", "w2": "down_proj"}
+
+
+def _moe_key(rest: str, cfg: ModelConfig
+             ) -> Optional[tuple[str, Optional[int]]]:
+    """(our flat_layer name, expert index or None) for a
+    `block_sparse_moe.` name after `model.layers.N.` (None: skipped);
+    raises on an expert index at or beyond cfg.num_experts (JAX
+    l.122-128)."""
+    parts = rest.split(".")
+    if parts[1] == "gate" and parts[-1] == "weight":
+        return "router", None
+    if parts[1] == "experts" and len(parts) >= 4:
+        xi = int(parts[2])
+        if xi >= cfg.num_experts:
+            raise ValueError(
+                f"Checkpoint has expert index {xi} but config {cfg.name} "
+                f"expects {cfg.num_experts} experts — config/checkpoint "
+                f"mismatch")
+        tgt = _EXPERT_NAMES.get(parts[3])
+        if tgt is not None and parts[-1] == "weight":
+            return f"{EXPERTS}.{tgt}", xi
+    return None
 
 
 def _layer_key(rest: str) -> Optional[str]:
@@ -136,9 +168,11 @@ def _plan(src: _Source, cfg: ModelConfig):
     """Which HF tensor feeds each leaf: (top, layers) name maps. Where
     two names feed one leaf (Gemma's post_attention_layernorm and
     pre_feedforward_layernorm), the later in the shards' header order
-    wins, as in the JAX loader's stream."""
+    wins, as in the JAX loader's stream. An expert stack maps to the
+    list of its experts' names, by expert index (None where one is
+    missing)."""
     top: dict[str, str] = {}
-    layers: list[dict[str, str]] = [{} for _ in range(cfg.num_layers)]
+    layers: list[dict[str, Any]] = [{} for _ in range(cfg.num_layers)]
     for name in src.names():
         if name == "model.embed_tokens.weight":
             top["embedding"] = name
@@ -152,11 +186,19 @@ def _plan(src: _Source, cfg: ModelConfig):
             if m is None:
                 continue
             idx, rest = int(m.group(1)), m.group(2)
-            if rest.startswith("block_sparse_moe."):
-                raise not_ported(
-                    f"{name} in {src.where[name]}: MoE checkpoints",
-                    ITEM_7E_I)
             if idx >= cfg.num_layers:
+                continue
+            if rest.startswith("block_sparse_moe."):
+                # JAX reads these only for a MoE config
+                found = _moe_key(rest, cfg) if cfg.num_experts \
+                    else None
+                if found is not None:
+                    key, xi = found
+                    if xi is None:
+                        layers[idx][key] = name
+                    else:
+                        layers[idx].setdefault(
+                            key, [None] * cfg.num_experts)[xi] = name
                 continue
             key = _layer_key(rest)
             if key is not None:
@@ -176,13 +218,29 @@ def _validate_loaded(top: dict, layers: list[dict],
     if not cfg.tie_embeddings and "lm_head" not in top:
         missing.append("lm_head")
     required = {"q_proj", "k_proj", "v_proj", "o_proj", "input_norm",
-                "pre_mlp_norm", "gate_proj", "up_proj", "down_proj"}
+                "pre_mlp_norm"}
+    stacks = (f"{EXPERTS}.gate_proj", f"{EXPERTS}.up_proj",
+              f"{EXPERTS}.down_proj")
+    required |= ({"router", EXPERTS} if cfg.num_experts
+                 else {"gate_proj", "up_proj", "down_proj"})
     if cfg.attn_bias:
         required |= {"q_bias", "k_bias", "v_bias"}
     for i, layer in enumerate(layers):
-        lacking = required - set(layer)
+        names = set(layer) | ({EXPERTS} if any(k in layer for k in stacks)
+                              else set())
+        lacking = required - names
         if lacking:
             missing.append(f"layer{i}:{','.join(sorted(lacking))}")
+        if cfg.num_experts and EXPERTS in names:
+            # JAX l.175-184: each stack present and whole
+            for key in stacks:
+                stack = layer.get(key)
+                if stack is None:
+                    missing.append(f"layer{i}:{key}")
+                    continue
+                holes = [j for j, n in enumerate(stack) if n is None]
+                if holes:
+                    missing.append(f"layer{i}:{key}[{holes[:4]}]")
     if missing:
         raise ValueError(f"Checkpoint incomplete, missing: {missing[:8]}")
 
@@ -195,11 +253,8 @@ def load_hf_checkpoint(ckpt_dir: str | Path, cfg: ModelConfig,
     the caller passes device="cpu". `quantize` (engine/quant
     .quantize_leaves with its options bound) and `mesh` act as they do in
     models/common.init_params. Raises ValueError on a missing tensor, a
-    tensor whose shape does not fit `cfg` (naming it and its file) or an
-    unreadable file, and NotImplementedError on a MoE config or
-    checkpoint."""
-    if cfg.num_experts:
-        raise not_ported(f"MoE checkpoints ({cfg.name})", ITEM_7E_I)
+    tensor whose shape does not fit `cfg` (naming it and its file), an
+    expert index beyond cfg.num_experts or an unreadable file."""
     device = resolve_device(device)
     src = _Source(Path(ckpt_dir))
     top, layer_names = _plan(src, cfg)
@@ -221,6 +276,10 @@ def load_hf_checkpoint(ckpt_dir: str | Path, cfg: ModelConfig,
         "q_bias": lambda w: w.reshape(h, d),
         "k_bias": lambda w: w.reshape(k, d),
         "v_bias": lambda w: w.reshape(k, d),
+        "router": lambda w: w.t(),
+        f"{EXPERTS}.gate_proj": lambda w: w.t(),
+        f"{EXPERTS}.up_proj": lambda w: w.t(),
+        f"{EXPERTS}.down_proj": lambda w: w.t(),
     }
     def leaf(key: str, name: str) -> torch.Tensor:
         raw = src.get(name)
@@ -240,8 +299,13 @@ def load_hf_checkpoint(ckpt_dir: str | Path, cfg: ModelConfig,
             x = place[key](x)
         return x.contiguous()
 
-    def group(names: dict[str, str]) -> dict[str, torch.Tensor]:
-        return {key: leaf(key, name) for key, name in names.items()}
+    def group(names: dict[str, Any]) -> dict[str, torch.Tensor]:
+        # an expert stack: its experts read one by one and stacked on a
+        # leading expert axis (JAX l.145-152)
+        return nest_layer({
+            key: (torch.stack([leaf(key, n) for n in name])
+                  if isinstance(name, list) else leaf(key, name))
+            for key, name in names.items()})
 
     params: Params = keep(group({"embedding": top["embedding"]}), specs)
     layers = []
@@ -289,7 +353,9 @@ def restore_native(path: str | Path, cfg: ModelConfig,
                 q4=tree["q4"], s4=tree["s4"], axis=int(tree["axis"]),
                 group=int(tree["group"])))
         if isinstance(tree, dict):
-            return {k: back(v, k) for k, v in tree.items()}
+            # an expert stack's call site is "experts.<name>"
+            return {k: back(v, f"{EXPERTS}.{k}" if key == EXPERTS else k)
+                    for k, v in tree.items()}
         if isinstance(tree, list):
             return [back(v, key) for v in tree]
         return tree

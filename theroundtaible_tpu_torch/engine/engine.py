@@ -109,7 +109,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from ..core.errors import ITEM_7E_I, ITEM_7E_II, not_ported
+from ..core.errors import ITEM_7E_II, not_ported
 from . import compile_watch, deadlines, faults
 from . import kv_quant as kvq
 from .device import resolve_device
@@ -122,8 +122,9 @@ from .kvcache import KVCache, scoped_slot, session_of, share_prefixes
 from .lora import (DEFAULT_MAX_ADAPTERS, DEFAULT_RANK, DEFAULT_SCALE,
                    LoraBatch, LoraStore, lora_enabled, note_dispatch_ids,
                    summarize_lora_paths)
-from .models.common import (Int4Leaf, ModelConfig, forward_cached,
-                            init_params, int4_sites, param_count)
+from .models.common import (Int4Leaf, ModelConfig, flat_layer,
+                            forward_cached, init_params, int4_sites,
+                            param_count)
 from .models.registry import get_model_config
 from .paged_forward import (forward_paged, forward_ragged, gather_view,
                             scatter_view)
@@ -151,13 +152,14 @@ from .weights import param_count_of
 # Below this many shared tokens a plain prefill beats sharing a span.
 MIN_SHARED_PREFIX = 64
 
-_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+           "float16": torch.float16}
 
 
 def _quant_mode(params: dict) -> str:
     """"none", "int8" or "int4": how a parameter tree is quantized."""
     leaves = [params["embedding"]] + [v for layer in params["layers"]
-                                      for v in layer.values()]
+                                      for v in flat_layer(layer).values()]
     if any(isinstance(x, Int4Leaf) for x in leaves):
         return "int4"
     return "int8" if any(quantized(x) for x in leaves) else "none"
@@ -712,10 +714,9 @@ class InferenceEngine:
                     f"the ReplicaGroupPlan)", ITEM_7E_II)
         if attn not in ("auto", "flash", "dense"):
             raise ValueError(f"attn must be auto|flash|dense, got {attn!r}")
-        if cfg.num_experts:
-            raise not_ported("MoE models", ITEM_7E_I)
         if dtype not in _DTYPES.values():
-            raise not_ported(f"dtype {dtype}", ITEM_7E_I)
+            raise ValueError(f"dtype must be one of {list(_DTYPES)}, got "
+                             f"{dtype}")
 
     @staticmethod
     def _resolve_attn(model_cfg: ModelConfig, attn: str,
@@ -772,9 +773,7 @@ class InferenceEngine:
                                      **overrides)
         dtype_name = config.get("dtype", "bfloat16")
         if dtype_name not in _DTYPES:
-            if dtype_name != "float16":
-                raise ValueError(f"unknown dtype {dtype_name!r}")
-            raise not_ported("dtype 'float16'", ITEM_7E_I)
+            raise ValueError(f"unknown dtype {dtype_name!r}")
         sampling_cfg = config.get("sampling", {})
         sampling = SamplingParams(
             temperature=float(sampling_cfg.get("temperature", 0.7)),

@@ -102,7 +102,7 @@ _launches = dict.fromkeys(KERNELS + SPMD_WRAPPERS, 0)
 HEAD_DIMS = (64, 128, 256)
 PAGE_SIZES = (16, 32, 64, 128, 256)
 MAX_GROUP = 16
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 # Launches of K1-K3 on quantized pools (K4 ran inside), by kernel and

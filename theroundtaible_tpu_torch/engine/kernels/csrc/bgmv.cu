@@ -122,6 +122,16 @@ __device__ __forceinline__ void widen<__nv_bfloat16>(const uint4& v,
     out[2 * i + 1] = f.y;
   }
 }
+template <>
+__device__ __forceinline__ void widen<__half>(const uint4& v, float* out) {
+  const __half2* h = reinterpret_cast<const __half2*>(&v);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __half22float2(h[i]);
+    out[2 * i] = f.x;
+    out[2 * i + 1] = f.y;
+  }
+}
 
 // The block's adapter: the `lane`-th distinct nonzero id among ids[0, M) in
 // order of first appearance (0 when there are fewer), with the rows that
@@ -398,9 +408,9 @@ extern "C" {
 // Launches K7 on `stream` (a cudaStream_t) of `device` for a group of
 // `targets` (1-3) projections sharing x: ids [M] int32 with every id in
 // [0, S) and slot 0 all zeros, x [M, C], a_t [S, r, C] and b_t [S, r, O_t]
-// in one dtype (0 f32, 1 bf16), y_t [M, O_t] f32, updated in place (y_t +=
+// in one dtype (0 f32, 1 bf16, 2 f16), y_t [M, O_t] f32, updated in place (y_t +=
 // delta_t); 1 <= M <= 64, 1 <= r <= 512, C and every O_t multiples of the
-// 16-byte vector width (4 f32 or 8 bf16 values). `splits` must be
+// 16-byte vector width (4 f32 or 8 bf16/f16 values). `splits` must be
 // ceil(C / (128 x that width)): the caller sizes the workspace `part`, f32
 // [targets, splits, M, r], with it. Unused targets' pointers may be null.
 // The ids are not checked on the device: the caller built them on the host
@@ -430,6 +440,9 @@ int rt_bgmv_add(const void* ids, const void* x, const void* a0,
     case rt::kBF16:
       return rt::run<__nv_bfloat16>(ids, x, a, b, y, O, targets, M, C, r, S,
                                     splits, part, s);
+    case rt::kF16:
+      return rt::run<__half>(ids, x, a, b, y, O, targets, M, C, r, S, splits,
+                             part, s);
   }
   return cudaErrorInvalidValue;
 }

@@ -44,8 +44,8 @@
 //   from shared memory into the working-type tile the products read
 //   (paged_common.cuh dequant16, rounded to the working type), so the math
 //   past it is the unquantized path's.
-// - Products sized to G (1-16 query heads). bf16 (and quantized pools
-//   under a bf16 q): mma.sync m16n8k16 with G padded to 16 rows - each warp
+// - Products sized to G (1-16 query heads). bf16 and f16 (and quantized
+//   pools under such a q): mma.sync m16n8k16 in q's type with G padded to 16 rows - each warp
 //   computes S = q.K^T for a quarter of the split's keys and O = P.V for a
 //   quarter of D over all of them, so a split's products are 64 mma per
 //   warp and no warp's partial sums meet another's. On the CUDA cores the
@@ -138,7 +138,7 @@ struct DecShape {
                 "the PV partial sums fit in the K tile");
 };
 
-// The bf16 (tensor-core) body's layout: mma.sync m16n8k16 with the G query
+// The bf16/f16 (tensor-core) body's layout: mma.sync m16n8k16 with the G query
 // heads padded to 16 rows. Warp w computes S = q.K^T for keys
 // [w * KW, (w + 1) * KW) of the split and O = P.V for columns
 // [w * DW, (w + 1) * DW) over all its keys, so no warp's partial sums meet
@@ -487,27 +487,21 @@ __device__ __forceinline__ void split_simt(const DecodeArgs& a, const KV& kv,
   }
 }
 
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// bf16: the tensor-core body (MmaShape). Lane (gid = lane / 4, tig =
+// bf16 and f16: the tensor-core body (MmaShape), mma.sync in T. Lane (gid = lane / 4, tig =
 // lane % 4) of an m16n8k16 fragment holds rows gid and gid + 8 - query heads
 // kh*G + gid (+ 8); rows past G are zero and never written.
 // - S = q.K^T: the A fragments of q straight from device memory into
 //   registers (loaded while K lands), B from the K tile's rows, f32 sums.
 // - The split's row max and sum (of the unrounded p) meet across the four
-//   warps in shared memory, added in warp order; p rounded to bf16 is
+//   warps in shared memory, added in warp order; p rounded to T is
 //   written to the P tile.
 // - O = P.V: A by ldmatrix from P, B by ldmatrix.trans from the V tile;
 //   each warp writes its columns of the f32 partial sums straight to the
 //   workspace.
-template <class KV, int D, int BITS>
+template <class KV, typename T, int D, int BITS>
 __device__ __forceinline__ void split_mma(const DecodeArgs& a, const KV& kv,
                                           size_t row, int kh, const Span& sp,
                                           size_t split) {
-  using T = __nv_bfloat16;
   using M = MmaShape<D>;
   constexpr int CHUNK = M::CHUNK, KS = M::KS, PS = M::PS, KW = M::KW,
                 NT = M::NT, DW = M::DW, NTD = M::NTD;
@@ -555,7 +549,7 @@ __device__ __forceinline__ void split_mma(const DecodeArgs& a, const KV& kv,
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) {
       const T* kr = k_sm + (warp * KW + nt * 8 + gid) * KS + kk * 16 + tig * 2;
-      mma_bf16(s[nt], qa[kk], *reinterpret_cast<const uint32_t*>(kr),
+      mma16<T>(s[nt], qa[kk], *reinterpret_cast<const uint32_t*>(kr),
                *reinterpret_cast<const uint32_t*>(kr + 8));
     }
   }
@@ -588,7 +582,7 @@ __device__ __forceinline__ void split_mma(const DecodeArgs& a, const KV& kv,
     m[0] = fmaxf(m[0], row_max[w * 16 + gid]);
     m[1] = fmaxf(m[1], row_max[w * 16 + gid + 8]);
   }
-  // p = exp(s - m): summed unrounded, stored rounded to bf16.
+  // p = exp(s - m): summed unrounded, stored rounded to T.
   float l[2] = {0.f, 0.f};
 #pragma unroll
   for (int nt = 0; nt < NT; ++nt) {
@@ -600,9 +594,9 @@ __device__ __forceinline__ void split_mma(const DecodeArgs& a, const KV& kv,
     }
     const int c = warp * KW + nt * 8 + tig * 2;
     *reinterpret_cast<uint32_t*>(p_sm + gid * PS + c) =
-        pack_bf16x2(pr[0], pr[1]);
+        pack2<T>(pr[0], pr[1]);
     *reinterpret_cast<uint32_t*>(p_sm + (gid + 8) * PS + c) =
-        pack_bf16x2(pr[2], pr[3]);
+        pack2<T>(pr[2], pr[3]);
   }
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -638,8 +632,8 @@ __device__ __forceinline__ void split_mma(const DecodeArgs& a, const KV& kv,
       uint32_t vb[4];
       ldmatrix_x4_trans(vb, smem_u32(v_sm + (kk * 16 + (mi & 1) * 8 + r) * KS +
                                      d0 + np * 16 + (mi >> 1) * 8));
-      mma_bf16(o[2 * np], pa, vb[0], vb[1]);
-      mma_bf16(o[2 * np + 1], pa, vb[2], vb[3]);
+      mma16<T>(o[2 * np], pa, vb[0], vb[1]);
+      mma16<T>(o[2 * np + 1], pa, vb[2], vb[3]);
     }
   }
   float* ws_acc = a.ws + split * G * D;
@@ -688,7 +682,7 @@ decode_split_kernel(const DecodeArgs a) {
   if constexpr (std::is_same<T, float>::value)
     split_simt<KV, D, BITS>(a, kv, item.row, kh, sp, split);
   else
-    split_mma<KV, D, BITS>(a, kv, item.row, kh, sp, split);
+    split_mma<KV, T, D, BITS>(a, kv, item.row, kh, sp, split);
 }
 
 // Grid (query head of the group, kv head, row): the live splits' partials
@@ -806,13 +800,13 @@ int launch_decode(DecodeArgs a, cudaStream_t stream) {
 // The split length of (dtype, D), for the wrappers' workspace; 0 when the
 // pair is not instantiated.
 inline int decode_chunk(int dtype, int D) {
-  const int size = dtype == kF32 ? 4 : dtype == kBF16 ? 2 : 0;
+  const int size = dtype == kF32 ? 4 : dtype == kBF16 || dtype == kF16 ? 2 : 0;
   if (!size || (D != 64 && D != 128 && D != 256)) return 0;
   return kSplitBytes / (D * size);
 }
 
 // The largest dynamic shared memory a split block takes at (G, D), over
-// both dtypes and the unquantized, int8 and int4 (groups of 32) pools: the
+// the dtypes (f16 takes bf16's) and the unquantized, int8 and int4 (groups of 32) pools: the
 // gates decline by it. -1 for a D that is not instantiated.
 template <typename T, int D>
 inline size_t decode_smem_max(int G) {

@@ -83,6 +83,7 @@ int rt_flash_prefill(const void* q, const void* k_cache, const void* v_cache,
   switch (dtype) {
     case rt::kF32: return rt::dispatch_d<float>(D, a, s);
     case rt::kBF16: return rt::dispatch_d<__nv_bfloat16>(D, a, s);
+    case rt::kF16: return rt::dispatch_d<__half>(D, a, s);
   }
   return cudaErrorInvalidValue;
 }

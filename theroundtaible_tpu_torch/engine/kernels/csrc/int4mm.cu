@@ -17,8 +17,9 @@
 // products read 116 MB of packed weight and scales (0.035 ms at 3.35
 // TB/s) and the head 279 MB (0.084 ms), at 6 flops per weight byte.
 //
-// bf16 (the serving dtype) runs on the tensor cores, mma.sync m16n8k16
-// (mma.cuh): the dequantized weight is A (16 weight rows or columns x 16
+// bf16 (the serving dtype) and f16 run on the tensor cores, mma.sync
+// m16n8k16 in their type (mma.cuh; the bodies are templates on it, the
+// comments below say bf16 for both): the dequantized weight is A (16 weight rows or columns x 16
 // contracted values), x^T is B (16 contracted values x 8 rows of x), f32
 // sums; 1-8 rows take one n-tile of B, up to 64 rows NT = 2, 4 or 8
 // n-tiles that reuse the same A registers, so every call reads the weight
@@ -27,7 +28,8 @@
 // exact: lop3 puts (nibble ^ 8) | 0x4300 in each half of a bf16x2 (136 +
 // n), fma.rn.bf16x2 subtracts 136 (exact) and a second one multiplies by
 // the scale pair, rounding once to nearest: bf16(n * s), as
-// models/common.dequant_int4. Only how the f32 sums are taken changes
+// models/common.dequant_int4 (f16: (nibble ^ 8) | 0x6400, 1032 + n, by
+// fma.rn.f16x2). Only how the f32 sums are taken changes
 // (their order and the tensor core's alignment of the addends); a call
 // gives the same bits every time (no float atomics).
 //
@@ -316,9 +318,9 @@ mm_pack_contract_kernel(const float* __restrict__ x,
   }
 }
 
-// --- bf16: the tensor-core bodies ---
+// --- bf16 and f16: the tensor-core bodies ---
 
-// d = a * b + c on bf16x2, rounded once to nearest.
+// d = a * b + c on bf16x2 / f16x2, rounded once to nearest.
 __device__ __forceinline__ uint32_t fma_bf16x2(uint32_t a, uint32_t b,
                                                uint32_t c) {
   uint32_t d;
@@ -326,18 +328,36 @@ __device__ __forceinline__ uint32_t fma_bf16x2(uint32_t a, uint32_t b,
   return d;
 }
 
-// The signed nibbles at bits 0-3 and 16-19 of w, times the bf16x2 scale
-// pair s2, as bf16x2 (low half from bits 0-3): lop3 makes (n ^ 8) | 0x4300
-// = bf16(136 + n) in each half, the first fma subtracts 136 (exact), the
-// second multiplies by the scale and rounds once (+ -0 keeps a zero's
-// sign): bf16(n * s), bit for bit models/common.dequant_int4.
+__device__ __forceinline__ uint32_t fma_f16x2(uint32_t a, uint32_t b,
+                                              uint32_t c) {
+  uint32_t d;
+  asm("fma.rn.f16x2 %0, %1, %2, %3;\n" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+  return d;
+}
+
+// The signed nibbles at bits 0-3 and 16-19 of w, times the T x2 scale pair
+// s2, as T x2 (low half from bits 0-3). bf16: lop3 makes (n ^ 8) | 0x4300
+// = bf16(136 + n) in each half (at 128 the bf16 step is 1), the first fma
+// subtracts 136 (exact), the second multiplies by the scale and rounds once
+// (+ -0 keeps a zero's sign): bf16(n * s), bit for bit
+// models/common.dequant_int4. f16 alike from (n ^ 8) | 0x6400 = f16(1032 +
+// n) (at 1024 the f16 step is 1), minus 1032.
+template <typename T>
 __device__ __forceinline__ uint32_t dequant2(uint32_t w, uint32_t s2) {
   uint32_t v;
-  // f(a, b, c) = b ? a ^ c : c with b the nibble mask, c = 0x4308 x 2.
-  asm("lop3.b32 %0, %1, %2, %3, 0x6a;\n"
-      : "=r"(v) : "r"(w), "r"(0x000f000fu), "r"(0x43084308u));
-  v = fma_bf16x2(v, 0x3f803f80u, 0xc308c308u);  // v * 1 - 136
-  return fma_bf16x2(v, s2, 0x80008000u);        // n * s + -0
+  // f(a, b, c) = b ? a ^ c : c with b the nibble mask, c = 0x4308 (bf16) or
+  // 0x6408 (f16) x 2.
+  if constexpr (std::is_same<T, __half>::value) {
+    asm("lop3.b32 %0, %1, %2, %3, 0x6a;\n"
+        : "=r"(v) : "r"(w), "r"(0x000f000fu), "r"(0x64086408u));
+    v = fma_f16x2(v, 0x3c003c00u, 0xe408e408u);  // v * 1 - 1032
+    return fma_f16x2(v, s2, 0x80008000u);        // n * s + -0
+  } else {
+    asm("lop3.b32 %0, %1, %2, %3, 0x6a;\n"
+        : "=r"(v) : "r"(w), "r"(0x000f000fu), "r"(0x43084308u));
+    v = fma_bf16x2(v, 0x3f803f80u, 0xc308c308u);  // v * 1 - 136
+    return fma_bf16x2(v, s2, 0x80008000u);        // n * s + -0
+  }
 }
 
 // Bytes j of a and b side by side: byte 0 <- a.j, byte 2 <- b.j (bytes 1
@@ -347,7 +367,8 @@ __device__ __forceinline__ uint32_t pair_bytes(uint32_t a, uint32_t b,
   return __byte_perm(a, b, j | (j << 4) | ((4 + j) << 8) | ((4 + j) << 12));
 }
 
-__device__ __forceinline__ uint32_t load_scale(const __nv_bfloat16* p) {
+template <typename T>
+__device__ __forceinline__ uint32_t load_scale(const T* p) {
   return __ldg(reinterpret_cast<const unsigned short*>(p));
 }
 
@@ -374,18 +395,17 @@ __host__ __device__ inline size_t out_tc_smem_bytes(int nt, int rows) {
          (size_t)8 * nt * out_x_stride(rows) * 2;
 }
 
-template <int NT>
+template <typename T, int NT>
 __global__ void __launch_bounds__(kOutThreads)
-mm_pack_out_tc_kernel(const __nv_bfloat16* __restrict__ x,
+mm_pack_out_tc_kernel(const T* __restrict__ x,
                       const int8_t* __restrict__ q4,
-                      const __nv_bfloat16* __restrict__ s4,
+                      const T* __restrict__ s4,
                       float* __restrict__ out, float* __restrict__ work,
                       int* __restrict__ counters, int M, int C, int P,
                       int gp, int rows) {
   extern __shared__ __align__(128) uint8_t out_tc_smem[];
   uint8_t* ring = out_tc_smem;
-  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(
-      out_tc_smem + kOutStages * kOutStageBytes);
+  T* xs = reinterpret_cast<T*>(out_tc_smem + kOutStages * kOutStageBytes);
   __shared__ int is_last;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int gid = lane / 4, tig = lane % 4;
@@ -424,7 +444,7 @@ mm_pack_out_tc_kernel(const __nv_bfloat16* __restrict__ x,
 #pragma unroll
   for (int st = 0; st < kOutStages - 1; ++st) load_stage(st);
 
-  // x's split rows as bf16, zero past C and past M (Mpad = 8 * NT rows).
+  // x's split rows in T, zero past C and past M (Mpad = 8 * NT rows).
   if ((C & 7) == 0) {
     const int vecs = nst * kOutStageRows / 8;
     for (int i = tid; i < 8 * NT * vecs; i += kOutThreads) {
@@ -439,7 +459,7 @@ mm_pack_out_tc_kernel(const __nv_bfloat16* __restrict__ x,
     for (int i = tid; i < 8 * NT * n; i += kOutThreads) {
       const int m = i / n, c = i % n;
       xs[m * XS + c] = (m < M && c < nrows) ? x[(size_t)m * C + c0 + c]
-                                            : __float2bfloat16(0.f);
+                                            : from_f32<T>(0.f);
     }
   }
 
@@ -452,7 +472,7 @@ mm_pack_out_tc_kernel(const __nv_bfloat16* __restrict__ x,
   const int woff = (((2 * warp + gid / 4) ^ (2 * tig)) * 16) + (gid % 4) * 4;
 
   // The scale pairs of stage st: [kb][0] = rows 4 tig, 4 tig + 1 of k16
-  // block kb, [kb][1] = rows 4 tig + 2, + 3, as bf16x2.
+  // block kb, [kb][1] = rows 4 tig + 2, + 3, as T x2.
   auto load_scales = [&](int st, uint32_t (&sp)[2][2]) {
 #pragma unroll
     for (int kb = 0; kb < 2; ++kb)
@@ -502,13 +522,13 @@ mm_pack_out_tc_kernel(const __nv_bfloat16* __restrict__ x,
       for (int j = 0; j < 4; ++j) {
         const uint32_t p01 = pair_bytes(w[0], w[1], j);
         const uint32_t p23 = pair_bytes(w[2], w[3], j);
-        const uint32_t a[4] = {dequant2(p01, sc[kb][0]),
-                               dequant2(p01 >> 4, sc[kb][0]),
-                               dequant2(p23, sc[kb][1]),
-                               dequant2(p23 >> 4, sc[kb][1])};
+        const uint32_t a[4] = {dequant2<T>(p01, sc[kb][0]),
+                               dequant2<T>(p01 >> 4, sc[kb][0]),
+                               dequant2<T>(p23, sc[kb][1]),
+                               dequant2<T>(p23 >> 4, sc[kb][1])};
 #pragma unroll
         for (int nt = 0; nt < NT; ++nt)
-          mma_bf16(acc[nt][j], a, b[nt].x, b[nt].y);
+          mma16<T>(acc[nt][j], a, b[nt].x, b[nt].y);
       }
     }
 #pragma unroll
@@ -581,18 +601,18 @@ mm_pack_out_tc_kernel(const __nv_bfloat16* __restrict__ x,
 constexpr int kConThreads = 256;  // K6 bf16: 8 warps, a vocab tile each
 constexpr int kConUnroll = 2;     // K6 bf16: chunks in flight per lane
 
-// K6 bf16's staged x: `piece` contracted values of 8 * NT rows as bf16.
+// K6 bf16/f16's staged x: `piece` contracted values of 8 * NT rows in T.
 __host__ __device__ inline size_t contract_tc_smem_bytes(int nt, int piece) {
   return (size_t)piece * 8 * nt * 2;
 }
 
 // Two blocks per SM up to 4 n-tiles (ptxas otherwise caps the registers
 // lower and spills).
-template <int NT>
+template <typename T, int NT>
 __global__ void __launch_bounds__(kConThreads, NT <= 4 ? 2 : 1)
-mm_pack_contract_tc_kernel(const __nv_bfloat16* __restrict__ x,
+mm_pack_contract_tc_kernel(const T* __restrict__ x,
                            const int8_t* __restrict__ q4,
-                           const __nv_bfloat16* __restrict__ s4,
+                           const T* __restrict__ s4,
                            float* __restrict__ out, int M, int N, int Cp,
                            int gp, int piece) {
   extern __shared__ __align__(128) uint4 con_tc_xs[];  // [piece/8][NT][8]
@@ -686,8 +706,8 @@ mm_pack_contract_tc_kernel(const __nv_bfloat16* __restrict__ x,
             uint32_t r0[4], r1[4];
 #pragma unroll
             for (int k = 0; k < 4; ++k) {
-              r0[k] = dequant2(w0[q] >> (4 * k), s2[0]);
-              r1[k] = dequant2(w1[q] >> (4 * k), s2[1]);
+              r0[k] = dequant2<T>(w0[q] >> (4 * k), s2[0]);
+              r1[k] = dequant2<T>(w1[q] >> (4 * k), s2[1]);
             }
             const int u8 = 16 * ci + 4 * tig + q;
             const uint32_t a_lo[4] = {r0[0], r1[0], r0[1], r1[1]};
@@ -695,8 +715,8 @@ mm_pack_contract_tc_kernel(const __nv_bfloat16* __restrict__ x,
 #pragma unroll
             for (int nt = 0; nt < NT; ++nt) {
               const uint4 b = xs[(u8 * NT + nt) * 8 + (gid ^ (2 * tig))];
-              mma_bf16(acc[nt], a_lo, b.x, b.y);
-              mma_bf16(acc[nt], a_hi, b.z, b.w);
+              mma16<T>(acc[nt], a_lo, b.x, b.y);
+              mma16<T>(acc[nt], a_hi, b.z, b.w);
             }
           }
         }
@@ -750,41 +770,73 @@ int launch_out_f32(const void* x, const void* q4, const void* s4, float* out,
   return cudaGetLastError();
 }
 
-template <int NT>
+// n-tiles of 8 rows a tensor-core block carries: 1, 2, 4 or 8.
+inline int n_tiles(int M) {
+  const int t = (M + 7) / 8;
+  return t <= 1 ? 1 : t <= 2 ? 2 : t <= 4 ? 4 : 8;
+}
+
+template <typename T, int NT>
 int launch_out_tc(const void* x, const void* q4, const void* s4, float* out,
                   float* work, int* counters, int M, int C, int P, int gp,
                   int rows, cudaStream_t stream) {
   const int splits = (C + rows - 1) / rows;
   const dim3 grid((P + kOutBytes - 1) / kOutBytes, splits);
   const size_t smem = out_tc_smem_bytes(NT, rows);
-  auto kernel = mm_pack_out_tc_kernel<NT>;
+  auto kernel = mm_pack_out_tc_kernel<T, NT>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   kernel<<<grid, kOutThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(q4),
-      static_cast<const __nv_bfloat16*>(s4), out, work, counters, M, C, P,
-      gp, rows);
+      static_cast<const T*>(x), static_cast<const int8_t*>(q4),
+      static_cast<const T*>(s4), out, work, counters, M, C, P, gp, rows);
   return cudaGetLastError();
 }
 
-template <int NT>
+template <typename T, int NT>
 int launch_contract_tc(const void* x, const void* q4, const void* s4,
                        float* out, int M, int N, int Cp, int gp, int blocks,
                        int piece, cudaStream_t stream) {
   const size_t smem = contract_tc_smem_bytes(NT, piece);
-  auto kernel = mm_pack_contract_tc_kernel<NT>;
+  auto kernel = mm_pack_contract_tc_kernel<T, NT>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   kernel<<<blocks, kConThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(q4),
-      static_cast<const __nv_bfloat16*>(s4), out, M, N, Cp, gp, piece);
+      static_cast<const T*>(x), static_cast<const int8_t*>(q4),
+      static_cast<const T*>(s4), out, M, N, Cp, gp, piece);
   return cudaGetLastError();
 }
 
-// n-tiles of 8 rows a tensor-core block carries: 1, 2, 4 or 8.
-inline int n_tiles(int M) {
-  const int t = (M + 7) / 8;
-  return t <= 1 ? 1 : t <= 2 ? 2 : t <= 4 ? 4 : 8;
+template <typename T>
+int dispatch_out_tc(const void* x, const void* q4, const void* s4, float* o,
+                    float* w, int* n, int M, int C, int P, int gp, int rows,
+                    cudaStream_t s) {
+  switch (n_tiles(M)) {
+    case 1: return launch_out_tc<T, 1>(x, q4, s4, o, w, n, M, C, P, gp, rows, s);
+    case 2: return launch_out_tc<T, 2>(x, q4, s4, o, w, n, M, C, P, gp, rows, s);
+    case 4: return launch_out_tc<T, 4>(x, q4, s4, o, w, n, M, C, P, gp, rows, s);
+    default:
+      return launch_out_tc<T, 8>(x, q4, s4, o, w, n, M, C, P, gp, rows, s);
+  }
+}
+
+template <typename T>
+int dispatch_contract_tc(const void* x, const void* q4, const void* s4,
+                         float* o, int M, int N, int Cp, int gp, int blocks,
+                         int piece, cudaStream_t s) {
+  switch (n_tiles(M)) {
+    case 1:
+      return launch_contract_tc<T, 1>(x, q4, s4, o, M, N, Cp, gp, blocks,
+                                      piece, s);
+    case 2:
+      return launch_contract_tc<T, 2>(x, q4, s4, o, M, N, Cp, gp, blocks,
+                                      piece, s);
+    case 4:
+      return launch_contract_tc<T, 4>(x, q4, s4, o, M, N, Cp, gp, blocks,
+                                      piece, s);
+    default:
+      return launch_contract_tc<T, 8>(x, q4, s4, o, M, N, Cp, gp, blocks,
+                                      piece, s);
+  }
 }
 
 }  // namespace
@@ -793,10 +845,10 @@ inline int n_tiles(int M) {
 extern "C" {
 
 // Launches K5 on `stream` (a cudaStream_t) of `device`: x [M, C] (dtype
-// 0 f32, 1 bf16), q4 [C, P] int8, s4 [C, P/gp] in x's dtype, out [M, 2P]
-// f32, C in parts of `rows` rows (kernels/int4mm.out_plan; bf16 a multiple
-// of 32, f32 of 8 and at most 1024). With more than one part, `work` is a
-// [parts, M, 2P] f32 workspace and (bf16) `counters` P/128 rounded up
+// 0 f32, 1 bf16, 2 f16), q4 [C, P] int8, s4 [C, P/gp] in x's dtype, out [M, 2P]
+// f32, C in parts of `rows` rows (kernels/int4mm.out_plan; bf16/f16 a
+// multiple of 32, f32 of 8 and at most 1024). With more than one part,
+// `work` is a [parts, M, 2P] f32 workspace and (bf16/f16) `counters` P/128 rounded up
 // zeroed int32 that the launch leaves zeroed. P and gp multiples of 16, M
 // at most 64. Returns a cudaError_t code, 0 on success; the launches are
 // asynchronous.
@@ -807,7 +859,7 @@ int rt_mm_pack_out(const void* x, const void* q4, const void* s4, void* out,
       P % gp || rows < 1)
     return cudaErrorInvalidValue;
   const bool split = rows < C;
-  if (split && (!work || (dtype == rt::kBF16 && !counters)))
+  if (split && (!work || (dtype != rt::kF32 && !counters)))
     return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
@@ -817,23 +869,21 @@ int rt_mm_pack_out(const void* x, const void* q4, const void* s4, void* out,
   int* n = static_cast<int*>(counters);
   if (dtype == rt::kF32)
     return rt::launch_out_f32(x, q4, s4, o, w, M, C, P, gp, rows, device, s);
-  if (dtype != rt::kBF16 || rows % rt::kOutStageRows)
-    return cudaErrorInvalidValue;
-  switch (rt::n_tiles(M)) {
-    case 1:
-      return rt::launch_out_tc<1>(x, q4, s4, o, w, n, M, C, P, gp, rows, s);
-    case 2:
-      return rt::launch_out_tc<2>(x, q4, s4, o, w, n, M, C, P, gp, rows, s);
-    case 4:
-      return rt::launch_out_tc<4>(x, q4, s4, o, w, n, M, C, P, gp, rows, s);
-    default:
-      return rt::launch_out_tc<8>(x, q4, s4, o, w, n, M, C, P, gp, rows, s);
+  if (rows % rt::kOutStageRows) return cudaErrorInvalidValue;
+  switch (dtype) {
+    case rt::kBF16:
+      return rt::dispatch_out_tc<__nv_bfloat16>(x, q4, s4, o, w, n, M, C, P,
+                                                gp, rows, s);
+    case rt::kF16:
+      return rt::dispatch_out_tc<__half>(x, q4, s4, o, w, n, M, C, P, gp,
+                                         rows, s);
   }
+  return cudaErrorInvalidValue;
 }
 
 // Launches K6 on `stream` of `device`: x [M, 2Cp], q4 [N, Cp] int8,
 // s4 [N, Cp/gp] in x's dtype, out [M, N] f32, `blocks` blocks
-// (kernels/int4mm.contract_plan); bf16 stages x in pieces of `piece`
+// (kernels/int4mm.contract_plan); bf16/f16 stage x in pieces of `piece`
 // contracted values (a multiple of 128). Cp and gp multiples of 16, M at
 // most 64.
 int rt_mm_pack_contract(const void* x, const void* q4, const void* s4,
@@ -856,21 +906,15 @@ int rt_mm_pack_contract(const void* x, const void* q4, const void* s4,
         static_cast<const float*>(s4), o, M, N, Cp, gp);
     return cudaGetLastError();
   }
-  if (dtype != rt::kBF16 || piece < 128 || piece % 128)
-    return cudaErrorInvalidValue;
-  switch (rt::n_tiles(M)) {
-    case 1:
-      return rt::launch_contract_tc<1>(x, q4, s4, o, M, N, Cp, gp, blocks,
-                                       piece, s);
-    case 2:
-      return rt::launch_contract_tc<2>(x, q4, s4, o, M, N, Cp, gp, blocks,
-                                       piece, s);
-    case 4:
-      return rt::launch_contract_tc<4>(x, q4, s4, o, M, N, Cp, gp, blocks,
-                                       piece, s);
-    default:
-      return rt::launch_contract_tc<8>(x, q4, s4, o, M, N, Cp, gp, blocks,
-                                       piece, s);
+  if (piece < 128 || piece % 128) return cudaErrorInvalidValue;
+  switch (dtype) {
+    case rt::kBF16:
+      return rt::dispatch_contract_tc<__nv_bfloat16>(x, q4, s4, o, M, N, Cp,
+                                                     gp, blocks, piece, s);
+    case rt::kF16:
+      return rt::dispatch_contract_tc<__half>(x, q4, s4, o, M, N, Cp, gp,
+                                              blocks, piece, s);
   }
+  return cudaErrorInvalidValue;
 }
 }

@@ -1,15 +1,19 @@
 // Warp-level tensor-core helpers shared by the decode bodies
 // (decode_split.cuh: K1/K9 and K3's decode items) and the w4a16 products
-// (int4mm.cu: K5/K6): mma.sync m16n8k16 with bf16 operands and f32
-// accumulators, and ldmatrix. Fragment layout of m16n8k16 (lane = 4 * gid
+// (int4mm.cu: K5/K6): mma.sync m16n8k16 with bf16 or f16 operands and f32
+// accumulators (mma16<T> picks by the working type), and ldmatrix. Fragment layout of m16n8k16 (lane = 4 * gid
 // + tig): A (16 x 16, row-major) a0 = (row gid, k 2tig..2tig+1), a1 = (row
 // gid + 8, same k), a2 = (row gid, k 2tig+8..+9), a3 = (row gid + 8, same);
 // B (16 x 8) b0 = (k 2tig..2tig+1, column gid), b1 = (k 2tig+8..+9, same);
 // D (16 x 8, f32) d0, d1 = (row gid, columns 2tig, 2tig+1), d2, d3 = (row
-// gid + 8, same). A register holds two bf16, the lower k in its low half.
+// gid + 8, same). A register holds two bf16 (f16), the lower k in its low half.
 #pragma once
 
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace rt {
 
@@ -20,6 +24,24 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void mma_f16(float (&d)[4], const uint32_t (&a)[4],
+                                        uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+template <typename T>
+__device__ __forceinline__ void mma16(float (&d)[4], const uint32_t (&a)[4],
+                                      uint32_t b0, uint32_t b1) {
+  if constexpr (std::is_same<T, __half>::value)
+    mma_f16(d, a, b0, b1);
+  else
+    mma_bf16(d, a, b0, b1);
 }
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {

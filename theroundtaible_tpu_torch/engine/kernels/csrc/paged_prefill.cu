@@ -103,6 +103,7 @@ int rt_paged_prefill(const void* q, const void* k_pool, const void* v_pool,
   switch (dtype) {
     case rt::kF32: return rt::dispatch_d<float>(D, kv_bits, a, s);
     case rt::kBF16: return rt::dispatch_d<__nv_bfloat16>(D, kv_bits, a, s);
+    case rt::kF16: return rt::dispatch_d<__half>(D, kv_bits, a, s);
   }
   return cudaErrorInvalidValue;
 }

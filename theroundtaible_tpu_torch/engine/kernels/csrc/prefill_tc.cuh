@@ -390,7 +390,7 @@ prefill_simt_kernel(const PrefillArgs a, int BQ) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16: the tensor-core body.
+// bf16 and f16: the tensor-core body (wgmma in the operand type T).
 
 constexpr int kTcRows = 64;       // query rows per consumer warpgroup
 constexpr int kTcConsumers = 2;   // consumer warpgroups per block
@@ -557,100 +557,131 @@ __device__ __forceinline__ uint64_t mnmajor_desc(uint32_t tile, int kk) {
 
 // S[64 x 64] = (scale_d ? S : 0) + A[64 x 16] * B[16 x 64]; A and B K-major
 // in shared memory (descriptors a, b).
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
-                                             uint64_t b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : RT_D32(0)
-      : "l"(a), "l"(b), "r"(scale_d));
+#define RT_WGMMA_SS_N64(SUFFIX, TY)                                               \
+__device__ __forceinline__ void wgmma_ss_n64##SUFFIX(float (&d)[32], uint64_t a,  \
+                                             uint64_t b, int scale_d) {           \
+  asm volatile(                                                                   \
+      "{\n.reg .pred p;\n"                                                        \
+      "setp.ne.b32 p, %34, 0;\n"                                                  \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {"                \
+      "%0, %1, %2, %3, %4, %5, %6, %7, "                                          \
+      "%8, %9, %10, %11, %12, %13, %14, %15, "                                    \
+      "%16, %17, %18, %19, %20, %21, %22, %23, "                                  \
+      "%24, %25, %26, %27, %28, %29, %30, %31"                                    \
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"                                          \
+      : RT_D32(0)                                                                 \
+      : "l"(a), "l"(b), "r"(scale_d));                                            \
 }
+RT_WGMMA_SS_N64(_bf16, "bf16")
+RT_WGMMA_SS_N64(_f16, "f16")
+#undef RT_WGMMA_SS_N64
 
 // O[64 x N] += A[64 x 16] * B[16 x N] with A (p, bf16) in registers and B
 // the transposed (MN-major) operand in shared memory: wgmma_rs_nN.
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
-                                              const uint32_t (&a)[4],
-                                              uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : RT_D32(0)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+#define RT_WGMMA_RS_N64(SUFFIX, TY)                                    \
+__device__ __forceinline__ void wgmma_rs_n64##SUFFIX(float (&d)[32],   \
+                                              const uint32_t (&a)[4],  \
+                                              uint64_t b) {            \
+  asm volatile(                                                        \
+      "{\n.reg .pred p;\n"                                             \
+      "setp.ne.b32 p, %37, 0;\n"                                       \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {"     \
+      "%0, %1, %2, %3, %4, %5, %6, %7, "                               \
+      "%8, %9, %10, %11, %12, %13, %14, %15, "                         \
+      "%16, %17, %18, %19, %20, %21, %22, %23, "                       \
+      "%24, %25, %26, %27, %28, %29, %30, %31"                         \
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"                 \
+      : RT_D32(0)                                                      \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));   \
 }
+RT_WGMMA_RS_N64(_bf16, "bf16")
+RT_WGMMA_RS_N64(_f16, "f16")
+#undef RT_WGMMA_RS_N64
 
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
-                                              const uint32_t (&a)[4],
-                                              uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : RT_D32(0), RT_D32(32)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+#define RT_WGMMA_RS_N128(SUFFIX, TY)                                   \
+__device__ __forceinline__ void wgmma_rs_n128##SUFFIX(float (&d)[64],  \
+                                              const uint32_t (&a)[4],  \
+                                              uint64_t b) {            \
+  asm volatile(                                                        \
+      "{\n.reg .pred p;\n"                                             \
+      "setp.ne.b32 p, %69, 0;\n"                                       \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " {"    \
+      "%0, %1, %2, %3, %4, %5, %6, %7, "                               \
+      "%8, %9, %10, %11, %12, %13, %14, %15, "                         \
+      "%16, %17, %18, %19, %20, %21, %22, %23, "                       \
+      "%24, %25, %26, %27, %28, %29, %30, %31, "                       \
+      "%32, %33, %34, %35, %36, %37, %38, %39, "                       \
+      "%40, %41, %42, %43, %44, %45, %46, %47, "                       \
+      "%48, %49, %50, %51, %52, %53, %54, %55, "                       \
+      "%56, %57, %58, %59, %60, %61, %62, %63"                         \
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"                 \
+      : RT_D32(0), RT_D32(32)                                          \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));   \
 }
+RT_WGMMA_RS_N128(_bf16, "bf16")
+RT_WGMMA_RS_N128(_f16, "f16")
+#undef RT_WGMMA_RS_N128
 
-__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128],
-                                              const uint32_t (&a)[4],
-                                              uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %133, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, "
-      "%72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, "
-      "%88, %89, %90, %91, %92, %93, %94, %95, "
-      "%96, %97, %98, %99, %100, %101, %102, %103, "
-      "%104, %105, %106, %107, %108, %109, %110, %111, "
-      "%112, %113, %114, %115, %116, %117, %118, %119, "
-      "%120, %121, %122, %123, %124, %125, %126, %127"
-      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
-      : RT_D32(0), RT_D32(32), RT_D32(64), RT_D32(96)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+#define RT_WGMMA_RS_N256(SUFFIX, TY)                                    \
+__device__ __forceinline__ void wgmma_rs_n256##SUFFIX(float (&d)[128],  \
+                                              const uint32_t (&a)[4],   \
+                                              uint64_t b) {             \
+  asm volatile(                                                         \
+      "{\n.reg .pred p;\n"                                              \
+      "setp.ne.b32 p, %133, 0;\n"                                       \
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32." TY "." TY " {"     \
+      "%0, %1, %2, %3, %4, %5, %6, %7, "                                \
+      "%8, %9, %10, %11, %12, %13, %14, %15, "                          \
+      "%16, %17, %18, %19, %20, %21, %22, %23, "                        \
+      "%24, %25, %26, %27, %28, %29, %30, %31, "                        \
+      "%32, %33, %34, %35, %36, %37, %38, %39, "                        \
+      "%40, %41, %42, %43, %44, %45, %46, %47, "                        \
+      "%48, %49, %50, %51, %52, %53, %54, %55, "                        \
+      "%56, %57, %58, %59, %60, %61, %62, %63, "                        \
+      "%64, %65, %66, %67, %68, %69, %70, %71, "                        \
+      "%72, %73, %74, %75, %76, %77, %78, %79, "                        \
+      "%80, %81, %82, %83, %84, %85, %86, %87, "                        \
+      "%88, %89, %90, %91, %92, %93, %94, %95, "                        \
+      "%96, %97, %98, %99, %100, %101, %102, %103, "                    \
+      "%104, %105, %106, %107, %108, %109, %110, %111, "                \
+      "%112, %113, %114, %115, %116, %117, %118, %119, "                \
+      "%120, %121, %122, %123, %124, %125, %126, %127"                  \
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"             \
+      : RT_D32(0), RT_D32(32), RT_D32(64), RT_D32(96)                   \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));    \
 }
-
+RT_WGMMA_RS_N256(_bf16, "bf16")
+RT_WGMMA_RS_N256(_f16, "f16")
+#undef RT_WGMMA_RS_N256
 #undef RT_D32
 #undef RT_D16
 #undef RT_D4
 
-template <int D>
+// The operand type's instructions: f16 for __half, bf16 otherwise.
+template <typename T>
+constexpr bool kF16Ops = std::is_same<T, __half>::value;
+
+template <typename T>
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
+                                             uint64_t b, int scale_d) {
+  if constexpr (kF16Ops<T>)
+    wgmma_ss_n64_f16(d, a, b, scale_d);
+  else
+    wgmma_ss_n64_bf16(d, a, b, scale_d);
+}
+
+template <typename T, int D>
 __device__ __forceinline__ void wgmma_rs(float (&d)[D / 2],
                                          const uint32_t (&a)[4], uint64_t b) {
   if constexpr (D == 64) {
-    wgmma_rs_n64(d, a, b);
+    if constexpr (kF16Ops<T>) wgmma_rs_n64_f16(d, a, b);
+    else wgmma_rs_n64_bf16(d, a, b);
   } else if constexpr (D == 128) {
-    wgmma_rs_n128(d, a, b);
+    if constexpr (kF16Ops<T>) wgmma_rs_n128_f16(d, a, b);
+    else wgmma_rs_n128_bf16(d, a, b);
   } else {
-    wgmma_rs_n256(d, a, b);
+    if constexpr (kF16Ops<T>) wgmma_rs_n256_f16(d, a, b);
+    else wgmma_rs_n256_bf16(d, a, b);
   }
 }
 
@@ -662,16 +693,11 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-
 // The producer warpgroup: key tiles n_lo .. n_lo + n_kv - 1 into the stage
-// ring. bf16 tiles arrive by cp.async; a stage is signalled full once its
+// ring. bf16/f16 tiles arrive by cp.async; a stage is signalled full once its
 // copies have landed (the next tile's copies already in flight) and been
 // fenced for wgmma. Quantized tiles are dequantized in registers.
-template <class KV, int D, int BITS>
+template <class KV, typename T, int D, int BITS>
 __device__ __forceinline__ void tc_producer(const PrefillArgs& a,
                                             const KV& kv, uint8_t* stages,
                                             uint32_t full0, uint32_t empty0,
@@ -685,8 +711,8 @@ __device__ __forceinline__ void tc_producer(const PrefillArgs& a,
     uint8_t* k_sm = stages + stage * S::kStageBytes;
     uint8_t* v_sm = k_sm + S::kTileBytes;
     if constexpr (BITS == kBitsNone) {
-      const __nv_bfloat16* kp = static_cast<const __nv_bfloat16*>(a.k);
-      const __nv_bfloat16* vp = static_cast<const __nv_bfloat16*>(a.v);
+      const T* kp = static_cast<const T*>(a.k);
+      const T* vp = static_cast<const T*>(a.v);
       const uint32_t k_dst = smem_u32(k_sm), v_dst = smem_u32(v_sm);
 #pragma unroll 4
       for (int i = pt; i < kTcBK * D / 8; i += 128) {
@@ -716,10 +742,10 @@ __device__ __forceinline__ void tc_producer(const PrefillArgs& a,
           float sc;
           load_qvec<BITS, D>(static_cast<const int8_t*>(a.k), a.k_scale,
                              cell, v, a.SG, raw, sc);
-          dequant16<__nv_bfloat16, BITS>(raw, sc, kx);
+          dequant16<T, BITS>(raw, sc, kx);
           load_qvec<BITS, D>(static_cast<const int8_t*>(a.v), a.v_scale,
                              cell, v, a.SG, raw, sc);
-          dequant16<__nv_bfloat16, BITS>(raw, sc, vx);
+          dequant16<T, BITS>(raw, sc, vx);
         } else {
 #pragma unroll
           for (int e = 0; e < Q::EV; ++e) kx[e] = vx[e] = 0.f;
@@ -730,11 +756,11 @@ __device__ __forceinline__ void tc_producer(const PrefillArgs& a,
           const float* x = kx + 8 * u;
           const float* y = vx + 8 * u;
           *reinterpret_cast<uint4*>(k_sm + dst) =
-              make_uint4(pack_bf16(x[0], x[1]), pack_bf16(x[2], x[3]),
-                         pack_bf16(x[4], x[5]), pack_bf16(x[6], x[7]));
+              make_uint4(pack2<T>(x[0], x[1]), pack2<T>(x[2], x[3]),
+                         pack2<T>(x[4], x[5]), pack2<T>(x[6], x[7]));
           *reinterpret_cast<uint4*>(v_sm + dst) =
-              make_uint4(pack_bf16(y[0], y[1]), pack_bf16(y[2], y[3]),
-                         pack_bf16(y[4], y[5]), pack_bf16(y[6], y[7]));
+              make_uint4(pack2<T>(y[0], y[1]), pack2<T>(y[2], y[3]),
+                         pack2<T>(y[4], y[5]), pack2<T>(y[6], y[7]));
         }
       }
       fence_async_smem();
@@ -755,7 +781,7 @@ __device__ __forceinline__ void tc_producer(const PrefillArgs& a,
 // (warp w, lane) holds rows r0 = 16w + lane/4 and r1 = r0 + 8 of wgmma's
 // accumulators: columns 8j + 2*(lane%4) + {0,1} in registers 4j + {0,1}
 // (r0) and 4j + {2,3} (r1).
-template <int D, bool ZERO_PAD>
+template <typename T, int D, bool ZERO_PAD>
 __device__ __forceinline__ void tc_consumer(const PrefillArgs& a,
                                             uint8_t* q_sm, uint8_t* stages,
                                             uint32_t full0, uint32_t empty0,
@@ -773,7 +799,7 @@ __device__ __forceinline__ void tc_consumer(const PrefillArgs& a,
 
   // Q rows r = g * BQ + i: head kh*G + g, row i of `w`; rows past G * BQ
   // or past w.n are zeros.
-  const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(a.q);
+  const T* q = static_cast<const T*>(a.q);
   for (int i = tid; i < kTcRows * D / 8; i += 128) {
     const int r = i / (D / 8), c = i % (D / 8);
     const int g = r / BQ, t = r % BQ;
@@ -816,7 +842,8 @@ __device__ __forceinline__ void tc_consumer(const PrefillArgs& a,
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_ss_n64(s, kmajor_desc(q_addr, kk), kmajor_desc(k_addr, kk), kk);
+        wgmma_ss_n64<T>(s, kmajor_desc(q_addr, kk), kmajor_desc(k_addr, kk),
+                        kk);
       wgmma_commit();
     }
     // The previous tile's PV product ran under this tile's S product being
@@ -887,7 +914,7 @@ __device__ __forceinline__ void tc_consumer(const PrefillArgs& a,
       const float ml0 = mn0 == kMaskValue ? 0.f : mn0 * kLog2e;
       const float ml1 = mn1 == kMaskValue ? 0.f : mn1 * kLog2e;
       // p: exp(s - m) (cells past kv_valid 0), summed unrounded into l and
-      // rounded to bf16 as the PV product's A operand: keys 16kk.. of
+      // rounded to T as the PV product's A operand: keys 16kk.. of
       // register block kk are s[8kk .. 8kk + 7].
       uint32_t pa[4][4];
       float sum0 = 0.f, sum1 = 0.f;
@@ -902,8 +929,8 @@ __device__ __forceinline__ void tc_consumer(const PrefillArgs& a,
         }
         sum0 += p[0] + p[1];
         sum1 += p[2] + p[3];
-        pa[j / 2][(j % 2) * 2] = pack_bf16(p[0], p[1]);
-        pa[j / 2][(j % 2) * 2 + 1] = pack_bf16(p[2], p[3]);
+        pa[j / 2][(j % 2) * 2] = pack2<T>(p[0], p[1]);
+        pa[j / 2][(j % 2) * 2 + 1] = pack2<T>(p[2], p[3]);
       }
       l0 = l0 * alpha0 + sum0;
       l1 = l1 * alpha1 + sum1;
@@ -919,7 +946,7 @@ __device__ __forceinline__ void tc_consumer(const PrefillArgs& a,
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kTcBK / 16; ++kk)
-        wgmma_rs<D>(o, pa[kk], mnmajor_desc(v_addr, kk));
+        wgmma_rs<T, D>(o, pa[kk], mnmajor_desc(v_addr, kk));
       wgmma_commit();
       if constexpr (S::kStages > 2) {
         pv_stage = stage;
@@ -941,7 +968,7 @@ __device__ __forceinline__ void tc_consumer(const PrefillArgs& a,
     l0 += __shfl_xor_sync(0xffffffffu, l0, w);
     l1 += __shfl_xor_sync(0xffffffffu, l1, w);
   }
-  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(a.out);
+  T* out = static_cast<T*>(a.out);
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int r = h ? r1 : r0;
@@ -950,11 +977,11 @@ __device__ __forceinline__ void tc_consumer(const PrefillArgs& a,
     const int q_pos = h ? qpos1 : qpos0;
     const bool zero = !live || (ZERO_PAD && q_pos >= valid);
     const float inv = zero ? 0.f : 1.f / fmaxf(h ? l1 : l0, 1e-30f);
-    __nv_bfloat16* row =
+    T* row =
         out + ((w.row0 + t) * a.H + (size_t)kh * G + r / BQ) * D + 2 * quad;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(row + 8 * j) = __floats2bfloat162_rn(
+      *reinterpret_cast<uint32_t*>(row + 8 * j) = pack2<T>(
           o[4 * j + 2 * h] * inv, o[4 * j + 2 * h + 1] * inv);
   }
 }
@@ -972,7 +999,7 @@ __device__ __forceinline__ uint8_t* tc_smem_base() {
 // heads, against the key tiles from the window's first position to the
 // tile's causal/valid frontier (_prefill_blk_bounds' walk); none when the
 // tile holds only pad rows. Every thread of the block calls it.
-template <class KV, int D, int BITS, bool ZERO_PAD>
+template <class KV, typename T, int D, int BITS, bool ZERO_PAD>
 __device__ __forceinline__ void tc_tile(const PrefillArgs& a, const KV& kv,
                                         const TileRows& tile, int kh, int BQ,
                                         int valid) {
@@ -1000,20 +1027,21 @@ __device__ __forceinline__ void tc_tile(const PrefillArgs& a, const KV& kv,
 
   if (threadIdx.x >= 128 * kTcConsumers) {
     setmaxnreg_dec<TcRegs<BITS>::kProducer>();
-    tc_producer<KV, D, BITS>(a, kv, stages, full0, empty0, n_lo, n_kv, end);
+    tc_producer<KV, T, D, BITS>(a, kv, stages, full0, empty0, n_lo, n_kv,
+                                end);
   } else {
     setmaxnreg_inc<TcRegs<BITS>::kConsumer>();
     const int wg = threadIdx.x / 128;
     const TileRows w{tile.row0 + (size_t)wg * BQ, tile.pos0 + wg * BQ,
                      min(BQ, tile.n - wg * BQ)};
-    tc_consumer<D, ZERO_PAD>(a, q_sm + wg * kTcRows * D * 2, stages, full0,
+    tc_consumer<T, D, ZERO_PAD>(a, q_sm + wg * kTcRows * D * 2, stages, full0,
                              empty0, n_lo, n_kv, w, kh, BQ, valid);
   }
 }
 
 // Grid: one block per (q tile, kv head, batch row), q tiles of
 // kTcConsumers * BQ chunk rows, heaviest (last) tile first.
-template <class KV, int D, int BITS>
+template <class KV, typename T, int D, int BITS>
 __global__ void __launch_bounds__(kTcThreads, 1)
 prefill_tc_kernel(const PrefillArgs a, int BQ, int n_tiles) {
   const int per_tile = a.K * a.B;
@@ -1024,11 +1052,11 @@ prefill_tc_kernel(const PrefillArgs a, int BQ, int n_tiles) {
   const int t0 = tile * kTcConsumers * BQ;
   const TileRows rows{(size_t)b * a.Tq + t0, a.offsets[b] + t0,
                       min(t0 + kTcConsumers * BQ, a.Tq) - t0};
-  tc_tile<KV, D, BITS, KV::kZeroPadRows>(a, kv, rows, kh, BQ,
+  tc_tile<KV, T, D, BITS, KV::kZeroPadRows>(a, kv, rows, kh, BQ,
                                          kv.clamp_valid(a.kv_valid[b]));
 }
 
-// Launches one prefill on `stream`: the tensor-core body for bf16, the
+// Launches one prefill on `stream`: the tensor-core body for bf16 and f16, the
 // CUDA-core body for f32. Returns a cudaError_t code.
 template <class KV, typename T, int D, int BITS>
 int launch_prefill(const PrefillArgs& a, cudaStream_t stream) {
@@ -1047,7 +1075,7 @@ int launch_prefill(const PrefillArgs& a, cudaStream_t stream) {
     const int n_tiles =
         (a.Tq + kTcConsumers * bq - 1) / (kTcConsumers * bq);
     const size_t smem = TcShape<D>::kBytes;
-    auto kernel = prefill_tc_kernel<KV, D, BITS>;
+    auto kernel = prefill_tc_kernel<KV, T, D, BITS>;
     err = allow_smem(kernel, smem);
     if (err != cudaSuccess) return err;
     const long long blocks = (long long)n_tiles * a.K * a.B;

@@ -187,17 +187,15 @@ __device__ __forceinline__ bool block_tile(const PrefillArgs& a,
 }
 
 // Values [c0, c0 + n) of cell `cell` (n divides a payload vector's values),
-// as f32 (dequantized and rounded to bf16 on a quantized pool).
-template <int D, int BITS, int n>
+// as f32 (dequantized and rounded to T on a quantized pool).
+template <typename T, int D, int BITS, int n>
 __device__ __forceinline__ void cell_values(const void* pool,
                                             const float* scale, int SG,
                                             size_t cell, int c0, float* x) {
-  if constexpr (BITS == kBitsNone && n == Vec<__nv_bfloat16>::N) {
-    Vec<__nv_bfloat16>::load(
-        static_cast<const __nv_bfloat16*>(pool) + cell * D + c0, x);
+  if constexpr (BITS == kBitsNone && n == Vec<T>::N) {
+    Vec<T>::load(static_cast<const T*>(pool) + cell * D + c0, x);
   } else if constexpr (BITS == kBitsNone) {
-    const __nv_bfloat16* p = static_cast<const __nv_bfloat16*>(pool) +
-                             cell * D + c0;
+    const T* p = static_cast<const T*>(pool) + cell * D + c0;
 #pragma unroll
     for (int e = 0; e < n; ++e) x[e] = to_f32(p[e]);
   } else {
@@ -207,7 +205,7 @@ __device__ __forceinline__ void cell_values(const void* pool,
     load_qvec<BITS, D>(static_cast<const int8_t*>(pool), scale, cell,
                        c0 / Q::EV, SG, raw, sc);
     float all[Q::EV];
-    dequant16<__nv_bfloat16, BITS>(raw, sc, all);
+    dequant16<T, BITS>(raw, sc, all);
 #pragma unroll
     for (int e = 0; e < n; ++e) x[e] = all[c0 % Q::EV + e];
   }
@@ -219,9 +217,9 @@ __device__ __forceinline__ void cell_values(const void* pool,
 // two wgmma and their barriers) would dominate it, so one warp per query
 // head runs it on the CUDA cores, D / 32 columns per lane: a warp sum per
 // key for the scores (the keys' loads in flight together), p rounded to
-// bf16 for the PV product and l from the unrounded p, as in the mainloop.
+// T for the PV product and l from the unrounded p, as in the mainloop.
 // The tile's other rows are written 0.
-template <int D, int BITS>
+template <typename T, int D, int BITS>
 __device__ __forceinline__ void single_row(const PrefillArgs& a,
                                            const PagedKV& kv,
                                            const TileRows& tile, int kh,
@@ -230,8 +228,8 @@ __device__ __forceinline__ void single_row(const PrefillArgs& a,
   const int G = a.H / a.K;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int lo = a.window > 0 ? max(0, tile.pos0 - a.window + 1) : 0;
-  const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(a.q);
-  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(a.out);
+  const T* q = static_cast<const T*>(a.q);
+  T* out = static_cast<T*>(a.out);
   for (int g = warp; g < G; g += blockDim.x / 32) {
     const size_t col = (tile.row0 * a.H + (size_t)kh * G + g) * D +
                        lane * kCols;
@@ -243,7 +241,7 @@ __device__ __forceinline__ void single_row(const PrefillArgs& a,
 #pragma unroll 8
     for (int pos = lo; pos < valid; ++pos) {
       float x[kCols];
-      cell_values<D, BITS, kCols>(a.k, a.k_scale, a.SG, kv.cell(pos),
+      cell_values<T, D, BITS, kCols>(a.k, a.k_scale, a.SG, kv.cell(pos),
                                   lane * kCols, x);
       float dot = 0.f;
 #pragma unroll
@@ -269,10 +267,10 @@ __device__ __forceinline__ void single_row(const PrefillArgs& a,
     for (int e = 0; e < kCols; ++e) acc[e] = 0.f;
 #pragma unroll 8
     for (int pos = lo; pos < valid; ++pos) {
-      const float w = round_to<__nv_bfloat16>(
+      const float w = round_to<T>(
           __shfl_sync(0xffffffffu, pos < 32 ? p[0] : p[1], pos % 32));
       float x[kCols];
-      cell_values<D, BITS, kCols>(a.v, a.v_scale, a.SG, kv.cell(pos),
+      cell_values<T, D, BITS, kCols>(a.v, a.v_scale, a.SG, kv.cell(pos),
                                   lane * kCols, x);
 #pragma unroll
       for (int e = 0; e < kCols; ++e) acc[e] += w * x[e];
@@ -280,14 +278,14 @@ __device__ __forceinline__ void single_row(const PrefillArgs& a,
     const float inv = 1.f / fmaxf(l, 1e-30f);
 #pragma unroll
     for (int e = 0; e < kCols; ++e)
-      out[col + e] = __float2bfloat16(acc[e] * inv);
+      out[col + e] = from_f32<T>(acc[e] * inv);
   }
-  zero_rows<__nv_bfloat16>(a, tile.row0 + 1, tile.n - 1, kh, D);
+  zero_rows<T>(a, tile.row0 + 1, tile.n - 1, kh, D);
 }
 
-// bf16: the tile on the tensor-core body; a tile whose only real row is
-// its first over at most kTcBK cells on the CUDA cores (single_row).
-template <int D, int BITS>
+// bf16 and f16: the tile on the tensor-core body; a tile whose only real
+// row is its first over at most kTcBK cells on the CUDA cores (single_row).
+template <typename T, int D, int BITS>
 __global__ void __launch_bounds__(kTcThreads, 1)
 ragged_tc_kernel(const PrefillArgs a, const RaggedMeta m, int BQ) {
   __shared__ int sm[3];
@@ -295,14 +293,14 @@ ragged_tc_kernel(const PrefillArgs a, const RaggedMeta m, int BQ) {
   const int kh = blockIdx.x % a.K;
   TileRows tile;
   int s;
-  if (!block_tile<__nv_bfloat16>(a, m, qb, kh, D, BQ, sm, tile, s)) return;
+  if (!block_tile<T>(a, m, qb, kh, D, BQ, sm, tile, s)) return;
   const PagedKV kv(a, s, kh);
   const int valid = kv.clamp_valid(m.kv_valid[s]);
   if (tile.pos0 == valid - 1 && valid <= kTcBK) {
-    single_row<D, BITS>(a, kv, tile, kh, valid);
+    single_row<T, D, BITS>(a, kv, tile, kh, valid);
     return;
   }
-  tc_tile<PagedKV, D, BITS, true>(a, kv, tile, kh, BQ, valid);
+  tc_tile<PagedKV, T, D, BITS, true>(a, kv, tile, kh, BQ, valid);
 }
 
 // f32: the tile on the CUDA-core body, one half (BQ rows) after the other.
@@ -350,7 +348,7 @@ int launch(const PrefillArgs& p, const RaggedMeta& m, const DecodeArgs& d,
     if (err != cudaSuccess) return err;
     kernel<<<blocks, kSimtThreads, smem, stream>>>(p, m, bq);
   } else {
-    auto kernel = ragged_tc_kernel<D, BITS>;
+    auto kernel = ragged_tc_kernel<T, D, BITS>;
     err = allow_smem(kernel, smem);
     if (err != cudaSuccess) return err;
     kernel<<<blocks, kTcThreads, smem, stream>>>(p, m, bq);
@@ -488,6 +486,8 @@ int rt_ragged_paged(const void* q, const void* k_pool, const void* v_pool,
     case rt::kF32: return rt::dispatch_d<float>(D, kv_bits, p, m, d, st);
     case rt::kBF16:
       return rt::dispatch_d<__nv_bfloat16>(D, kv_bits, p, m, d, st);
+    case rt::kF16:
+      return rt::dispatch_d<__half>(D, kv_bits, p, m, d, st);
   }
   return cudaErrorInvalidValue;
 }

@@ -19,7 +19,7 @@ rows), streaming the packed bytes instead of a dequantized copy:
 
 Numerics of both (and of models/common.dequant_int4): each nibble times
 its scale in the activation dtype, rounded to it, then f32 products and
-sums, in an order that is the same on every call. bf16 runs tensor-core
+sums, in an order that is the same on every call. bf16 and f16 run tensor-core
 bodies (mma.sync), f32 the CUDA-core ones.
 
 Each leaf is planned once, when it is made (quant.quantize_params,
@@ -33,7 +33,13 @@ then only counts its activation rows (`einsum_int4_or_reason`): up to 64
 run the planned kernel, more (prefill) take the dequant path with
 `rows:prefill-m`, as in the JAX package. A leaf whose plan declines takes
 the dequant path on the CPU, with the reason; on a CUDA tensor it raises,
-and the engine refuses such a leaf when it is built. ROUNDTABLE_INT4_MM=0,
+and the engine refuses such a leaf when it is built. The one exception is
+the MoE expert gate/up ("bte,xef->btxf", DEQUANT_SPECS): its weight keeps
+the expert axis ahead of the contraction, no kernel takes it
+(`spec:mixed-kept-contracted`), and the JAX package computes it outside
+any Pallas kernel too, so it takes the dequant path on every device. The
+expert down ("btxf,xfe->bte") is pack-on-output with two contracted axes
+(C = X * F) and runs K5 like every other decode product. ROUNDTABLE_INT4_MM=0,
 read when a leaf is planned, declines every leaf (`kernel-disabled`). The
 CPU runs the plain versions where a card runs the kernels; each launch
 adds one to its count (launch_counts()).
@@ -70,8 +76,12 @@ KERNELS = ("mm_pack_out", "mm_pack_contract")
 # K10e: a launch on a card counts here AND under the kernel it ran.
 SPMD_WRAPPERS = ("einsum_int4_spmd",)
 _launches = dict.fromkeys(KERNELS + SPMD_WRAPPERS, 0)
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 PATH_DEQUANT = "xla_dequant"
+# Call sites whose products no kernel serves on any device: the JAX package
+# computes them outside Pallas (its XLA dequant path), so they are not a
+# kernel's decline on a card.
+DEQUANT_SPECS = ("bte,xef->btxf",)
 
 
 def launch_counts() -> dict[str, int]:
@@ -405,7 +415,8 @@ def route_report(sites, device) -> dict:
             raise ValueError(f"{spec} {w_shape}: the Int4Leaf is not "
                              f"planned for this call site (plan_leaf)")
         if plan.reason is not None:
-            if torch.device(device).type == "cuda":
+            if torch.device(device).type == "cuda" \
+                    and spec not in DEQUANT_SPECS:
                 hint = (" (ROUNDTABLE_INT4_MM=0)"
                         if plan.reason == "kernel-disabled" else "")
                 raise ValueError(
@@ -544,7 +555,7 @@ def _launch_pack_out(x: torch.Tensor, q4: torch.Tensor, s4: torch.Tensor,
     work = (torch.empty((splits, m, 2 * p), dtype=torch.float32,
                         device=x.device) if splits > 1 else out)
     counters = (_tile_counters(x.device, stream, -(-p // _OUT_BYTES))
-                if splits > 1 and x.dtype == torch.bfloat16 else out)
+                if splits > 1 and x.dtype != torch.float32 else out)
     rc = build.library("int4mm").rt_mm_pack_out(
         x.data_ptr(), q4.data_ptr(), s4.data_ptr(), out.data_ptr(),
         work.data_ptr(), counters.data_ptr(), m, c, p, gp, rows,
@@ -594,7 +605,7 @@ def _run(spec: str, a: torch.Tensor, leaf, plan: Int4Plan):
     if plan.mode is not None and a.numel() > MAX_ROWS * plan.width:
         return None, _rows_reason(plan)
     if plan.reason is not None:
-        if a.is_cuda:
+        if a.is_cuda and spec not in DEQUANT_SPECS:
             raise ValueError(f"{spec}: no w4a16 kernel serves this leaf on "
                              f"the card: {plan.reason}")
         return None, plan.reason

@@ -26,9 +26,10 @@ einsums of engine/lora.py) and rank (`rank:unsupported` outside 1..512).
 The TPU's lane alignment (C and O multiples of 128) and VMEM budget give
 way to the CUDA kernel's own constraints:
 
-- x2, a_t and b_s share one dtype, float32 or bfloat16 (`dtype:<dtype>`);
-- C and O are multiples of the 16-byte vector a thread loads: 8 bf16 or 4
-  f32 values (`dims:contract-misaligned`, `dims:out-misaligned`).
+- x2, a_t and b_s share one dtype, float32, bfloat16 or float16
+  (`dtype:<dtype>`);
+- C and O are multiples of the 16-byte vector a thread loads: 8 bf16/f16
+  or 4 f32 values (`dims:contract-misaligned`, `dims:out-misaligned`).
 
 The engine plans each (target, rows) once (engine/lora.LoraStore.route).
 ROUNDTABLE_LORA_MM=0, read when a store is built, declines every dispatch
@@ -67,7 +68,7 @@ KERNELS = ("lora_bgmv",)
 # K10f: a launch on a card counts here AND under lora_bgmv.
 SPMD_WRAPPERS = ("lora_bgmv_spmd",)
 _launches = dict.fromkeys(KERNELS + SPMD_WRAPPERS, 0)
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 # Decode kernel only: past this many rows the grouped einsums amortize
 # over the rows (the JAX package's _MAX_ROWS).

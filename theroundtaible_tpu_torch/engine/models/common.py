@@ -26,7 +26,19 @@ given when it was made, else its dequantized weight through `_dense` (the
 JAX package's XLA path, which prefill always takes). Callers cast where
 the JAX package's callers cast: q/k/v after the Qwen2 bias, o_proj and
 down_proj after their all-reduce, the MLP's hidden after silu/gelu and the
-product; the head's logits stay f32. MoE (`moe_mlp`) is not ported yet.
+product; the head's logits stay f32.
+
+MoE (Mixtral, `moe_mlp`): expert-dense as in the JAX package - every token
+runs every expert (gate/up [X, E, F], down [X, F, E] stacked under
+`layer["experts"]`), the f32 router [E, X] picks the top-k per token, and
+the routing weights fold into the hidden before one down contraction over
+(x, f). The expert gate/up product ("bte,xef->btxf") is the one weight
+product no kernel serves (the JAX package computes it outside Pallas
+too): a dense or int8 leaf runs one product per expert, an int4 leaf its
+dequantized experts. The expert down product is an ordinary pack-on-output
+product (K5 for an int4 leaf, K10e under a mesh). Under a mesh the experts
+ride the model axis (EP): each rank runs its experts for every token and
+the down partials meet in `_row_parallel`'s one all-reduce.
 
 LoRA: the seam's call sites in `project_qkv`, `_o_proj` and `mlp` carry
 their target's name, as the JAX package's `_einsum(..., lora=key)` does
@@ -57,7 +69,6 @@ from typing import Any, Callable, Optional
 import torch
 import torch.nn.functional as F
 
-from ...core.errors import ITEM_7E_I, not_ported
 from ..device import resolve_device
 from ..lora import apply_group
 
@@ -196,24 +207,53 @@ SPEC_O = "bthd,hde->bte"
 SPEC_UP = "bte,ef->btf"
 SPEC_DOWN = "btf,fe->bte"
 SPEC_HEAD = "bte,ve->btv"
+SPEC_ROUTER = "bte,ex->btx"
+SPEC_EXPERT_UP = "bte,xef->btxf"
+SPEC_EXPERT_DOWN = "btxf,xfe->bte"
 # The call site of each weight leaf, by its key (a tied head's embedding
-# is the head's weight).
+# is the head's weight); an expert stack's key is "experts.<name>"
+# (flat_layer).
 LEAF_SPECS = {"q_proj": SPEC_QKV, "k_proj": SPEC_KV, "v_proj": SPEC_KV,
               "o_proj": SPEC_O, "gate_proj": SPEC_UP, "up_proj": SPEC_UP,
               "down_proj": SPEC_DOWN, "embedding": SPEC_HEAD,
-              "lm_head": SPEC_HEAD}
+              "lm_head": SPEC_HEAD, "experts.gate_proj": SPEC_EXPERT_UP,
+              "experts.up_proj": SPEC_EXPERT_UP,
+              "experts.down_proj": SPEC_EXPERT_DOWN}
 # The TP convention of each call site (the JAX package's `tp=` hints):
 # "col" shards the output (no collective), "row" the contraction (one
-# all-reduce, _row_parallel).
+# all-reduce, _row_parallel). Experts under EP: gate/up keep their experts'
+# outputs, down contracts its experts.
 SPEC_TP = {SPEC_QKV: "col", SPEC_KV: "col", SPEC_O: "row", SPEC_UP: "col",
-           SPEC_DOWN: "row", SPEC_HEAD: "col"}
+           SPEC_DOWN: "row", SPEC_HEAD: "col", SPEC_EXPERT_UP: "col",
+           SPEC_EXPERT_DOWN: "row"}
+EXPERTS = "experts"
+
+
+def flat_layer(layer: Params) -> Params:
+    """A layer's leaves as one flat dict: the expert stacks under
+    "experts.<name>", every other leaf under its own key."""
+    out = {k: v for k, v in layer.items() if k != EXPERTS}
+    for name, w in layer.get(EXPERTS, {}).items():
+        out[f"{EXPERTS}.{name}"] = w
+    return out
+
+
+def nest_layer(flat: Params) -> Params:
+    """flat_layer's inverse: "experts.<name>" back under "experts"."""
+    out: Params = {}
+    for k, v in flat.items():
+        if k.startswith(EXPERTS + "."):
+            out.setdefault(EXPERTS, {})[k[len(EXPERTS) + 1:]] = v
+        else:
+            out[k] = v
+    return out
 
 
 def int4_sites(params: Params, cfg: ModelConfig) -> list:
     """(spec, leaf) of every Int4Leaf weight product a forward makes."""
     head = "embedding" if cfg.tie_embeddings else "lm_head"
     sites = [(LEAF_SPECS[k], v) for layer in params["layers"]
-             for k, v in layer.items() if k in LEAF_SPECS]
+             for k, v in flat_layer(layer).items() if k in LEAF_SPECS]
     sites.append((SPEC_HEAD, params[head]))
     return [(spec, w) for spec, w in sites if isinstance(w, Int4Leaf)]
 
@@ -228,7 +268,9 @@ def plain_weights(params: Params) -> Params:
                 x, plan=dataclasses.replace(x.plan, plain=True))
         return x
 
-    return {k: ([{n: plain(w) for n, w in layer.items()} for layer in v]
+    return {k: ([nest_layer({n: plain(w)
+                             for n, w in flat_layer(layer).items()})
+                 for layer in v]
                 if k == "layers" else plain(v))
             for k, v in params.items()}
 
@@ -240,12 +282,12 @@ def _n_contracted(spec: str) -> int:
 
 
 def _mm_f32(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """a [M, C] @ w [C, N] with an f32 result. On a card a bf16 GEMM writes
-    f32 (torch.mm's out_dtype, aten::mm.dtype): the JAX einsum's
-    preferred_element_type=f32, no rounding of the product. The CPU build
-    has no kernel for that, so there the operands widen to f32 first
-    (every bf16 product is exact in f32; the sums run in f32 either
-    way)."""
+    """a [M, C] @ w [C, N] with an f32 result. On a card a bf16 or f16
+    GEMM writes f32 (torch.mm's out_dtype, aten::mm.dtype): the JAX
+    einsum's preferred_element_type=f32, no rounding of the product. The
+    CPU build has no kernel for that, so there the operands widen to f32
+    first (every bf16 or f16 product is exact in f32; the sums run in f32
+    either way)."""
     if a.dtype == torch.float32:
         return torch.mm(a, w.float())
     if a.is_cuda:
@@ -253,8 +295,20 @@ def _mm_f32(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.mm(a.float(), w.float())
 
 
+def _per_expert(a: torch.Tensor, n: int, weight) -> torch.Tensor:
+    """The expert gate/up ("bte,xef->btxf", whose weight keeps its expert
+    axis ahead of the contraction) as one f32 product per expert;
+    `weight(x)` is expert x's [E, F] in a's dtype, made when it is used."""
+    a2 = a.reshape(-1, a.shape[-1])
+    out = torch.stack([_mm_f32(a2, weight(x)) for x in range(n)], 1)
+    return out.reshape(*a.shape[:-1], *out.shape[1:])
+
+
 def _dense(spec: str, a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """The call site's einsum as one 2-D product, f32 result."""
+    """The call site's einsum as one 2-D product (the expert gate/up one
+    per expert), f32 result."""
+    if spec == SPEC_EXPERT_UP:
+        return _per_expert(a, w.shape[0], lambda x: w[x])
     if spec == SPEC_HEAD:
         out = _mm_f32(a.reshape(-1, a.shape[-1]), w.t())
         return out.reshape(*a.shape[:-1], w.shape[0])
@@ -277,12 +331,21 @@ def _matmul(a: torch.Tensor, w, spec: str = SPEC_UP, lora=None,
     if isinstance(w, Int4Leaf):
         y = _int4_matmul(spec, a, w, mesh)
     elif isinstance(w, dict):
-        y = _dense(spec, a, w["q"].to(a.dtype)) * w["s"].float()
+        y = _int8_matmul(spec, a, w)
     else:
         y = _dense(spec, a, w)
     if lora is not None:
         (y,) = apply_group((target,), a, (y,), lora)
     return y
+
+
+def _int8_matmul(spec: str, a: torch.Tensor, w: dict) -> torch.Tensor:
+    """An int8 {"q", "s"} product: q in a's dtype, the scale applied to the
+    f32 result (the expert gate/up widens one expert at a time)."""
+    q = w["q"]
+    y = (_per_expert(a, q.shape[0], lambda x: q[x].to(a.dtype))
+         if spec == SPEC_EXPERT_UP else _dense(spec, a, q.to(a.dtype)))
+    return y * w["s"].float()
 
 
 def _int4_matmul(spec: str, a: torch.Tensor, leaf: Int4Leaf,
@@ -303,6 +366,10 @@ def _int4_matmul(spec: str, a: torch.Tensor, leaf: Int4Leaf,
         y, _ = int4mm.einsum_int4_or_reason(spec, a, leaf)
     if y is not None:
         return y
+    if spec == SPEC_EXPERT_UP:
+        # the JAX package's XLA dequant path, one expert at a time
+        return _per_expert(a, leaf.q4.shape[0], lambda x: dequant_int4(
+            leaf.q4[x], leaf.s4[x], leaf.axis - 1, leaf.group, a.dtype))
     w = dequant_int4(leaf.q4, leaf.s4, leaf.axis, leaf.group, a.dtype)
     return _dense(spec, a, w)
 
@@ -547,9 +614,9 @@ def mlp(x: torch.Tensor, layer: Params, cfg: ModelConfig,
     """Gated MLP (JAX l.456-465): gate and up stay f32 through silu/gelu
     and their product, the hidden is cast to x's dtype, down_proj's f32
     result (all-reduced under a mesh that shards the hidden) is cast
-    last."""
+    last. A MoE config runs moe_mlp (LoRA targets attention only there)."""
     if cfg.num_experts:
-        raise not_ported("MoE (moe_mlp)", ITEM_7E_I)
+        return moe_mlp(x, layer, cfg, mesh)
     gate, up = apply_group(
         ("gate_proj", "up_proj"), x,
         (_matmul(x, layer["gate_proj"], SPEC_UP, mesh=mesh),
@@ -561,6 +628,44 @@ def mlp(x: torch.Tensor, layer: Params, cfg: ModelConfig,
         _matmul(hidden, layer["down_proj"], SPEC_DOWN, lora, "down_proj",
                 mesh),
         cfg.mlp_dim, mesh, x.dtype)
+
+
+def route(router_logits: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Dense routing weights [..., X] f32 from f32 router logits [..., X]
+    (JAX moe_mlp): the top-k logits (at an exact tie the lower expert, as
+    lax.top_k picks it), a softmax over those k only, and each chosen
+    expert's weight at its index (sum of one_hot . gate)."""
+    order = torch.sort(router_logits, dim=-1, descending=True,
+                       stable=True).indices[..., :cfg.num_experts_per_tok]
+    top_vals = torch.gather(router_logits, -1, order)
+    gates = torch.softmax(top_vals, dim=-1)
+    return (F.one_hot(order, cfg.num_experts).float()
+            * gates[..., None]).sum(dim=-2)
+
+
+def moe_mlp(x: torch.Tensor, layer: Params, cfg: ModelConfig,
+            mesh=None) -> torch.Tensor:
+    """Mixtral-style MoE, expert-dense (JAX l.467-500): the f32 router
+    logits pick the top-k experts (route), gate and up run for every
+    expert and stay f32 through silu/gelu, `act * up * weights` is cast to
+    x's dtype, and one f32 down contraction over (x, f) is cast last.
+    Under a mesh that shards the experts each rank runs its own and the
+    down partials meet in _row_parallel's all-reduce (JAX's one
+    all-reduce over the sharded expert axis)."""
+    experts = layer[EXPERTS]
+    weights = route(_matmul(x, layer["router"], SPEC_ROUTER), cfg)
+    if _splits(cfg.num_experts, mesh):
+        n = mesh.local(cfg.num_experts)
+        weights = weights[..., mesh.model_index * n:
+                          (mesh.model_index + 1) * n]
+    gate = _matmul(x, experts["gate_proj"], SPEC_EXPERT_UP, mesh=mesh)
+    up = _matmul(x, experts["up_proj"], SPEC_EXPERT_UP, mesh=mesh)
+    act = (F.gelu(gate, approximate="tanh") if cfg.gelu_mlp
+           else F.silu(gate))
+    hidden = (act * up * weights[..., None]).to(x.dtype)
+    return _row_parallel(
+        _matmul(hidden, experts["down_proj"], SPEC_EXPERT_DOWN, mesh=mesh),
+        cfg.num_experts, mesh, x.dtype)
 
 
 def transformer_block(
@@ -814,8 +919,6 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                 if cfg.rmsnorm_unit_offset
                 else torch.ones(n, dtype=dtype, device=device))
 
-    if cfg.num_experts:
-        raise not_ported("MoE parameters", ITEM_7E_I)
     e, h, k_, d, f = (cfg.embed_dim, cfg.num_heads, cfg.num_kv_heads,
                       cfg.head_dim, cfg.mlp_dim)
     params: Params = keep(
@@ -829,10 +932,23 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
             "o_proj": normal((h, d, e), (h * d) ** -0.5),
             "input_norm": norm(e),
             "pre_mlp_norm": norm(e),
-            "gate_proj": normal((e, f), e ** -0.5),
-            "up_proj": normal((e, f), e ** -0.5),
-            "down_proj": normal((f, e), f ** -0.5),
         }
+        if cfg.num_experts:
+            # JAX l.632-639: router [E, X], experts gate/up [X, E, F] and
+            # down [X, F, E]
+            x_ = cfg.num_experts
+            layer["router"] = normal((e, x_), e ** -0.5)
+            layer[EXPERTS] = {
+                "gate_proj": normal((x_, e, f), e ** -0.5),
+                "up_proj": normal((x_, e, f), e ** -0.5),
+                "down_proj": normal((x_, f, e), f ** -0.5),
+            }
+        else:
+            layer.update({
+                "gate_proj": normal((e, f), e ** -0.5),
+                "up_proj": normal((e, f), e ** -0.5),
+                "down_proj": normal((f, e), f ** -0.5),
+            })
         if cfg.attn_bias:
             layer["q_bias"] = normal((h, d), 0.02)
             layer["k_bias"] = normal((k_, d), 0.02)

@@ -14,6 +14,12 @@ Representations (models/common's matmul seam and embed_tokens take both;
   (kernels/int4mm.plan_leaf). A leaf whose last dim cannot group falls
   back to the int8 dict, so int4 trees are mixed.
 
+MoE experts (gate/up [X, E, F], down [X, F, E]) quantize by the JAX
+package's _EXPERT_SCALE_AXES (s[X, F] for gate/up, s[E] for down) under
+the keys "experts.<name>" of models/common.flat_layer; the router is not
+quantized (it picks the experts: a flipped near tie changes the output by
+whole activations).
+
 q is computed from the f32 scale, which is then stored in the activation
 dtype; the outputs equal the JAX package's bit for bit. Norms stay as
 they are. LoRA stacks quantize the same way, per (slot, rank row)
@@ -36,9 +42,9 @@ from typing import Any
 
 import torch
 
-from ..core.errors import ITEM_7E_I, not_ported
 from .kernels.int4mm import plan_leaf
-from .models.common import LEAF_SPECS, Int4Leaf, ModelConfig, Params
+from .models.common import (EXPERTS, LEAF_SPECS, Int4Leaf, ModelConfig,
+                            Params, flat_layer, nest_layer)
 
 # Per weight key: the axes KEPT by the scale (the matmul's non-contracted
 # weight axes, which land trailing in its output).
@@ -52,6 +58,11 @@ _SCALE_AXES: dict[str, tuple[int, ...]] = {
     "down_proj": (1,),     # [F, E] -> s[E]
     "embedding": (0,),     # [V, E] -> s[V] (row scale: lookup AND head)
     "lm_head": (0,),
+    # MoE experts (JAX _EXPERT_SCALE_AXES); the router is absent: it stays
+    # full precision
+    "experts.gate_proj": (0, 2),   # [X, E, F] -> s[X, F]
+    "experts.up_proj": (0, 2),
+    "experts.down_proj": (2,),     # [X, F, E] -> s[E]
 }
 
 
@@ -115,7 +126,7 @@ def _pack_shards(cfg: ModelConfig, key: str, value, model_shards: int
         return 1
     from .sharding import MODEL_AXIS, param_specs
     specs = param_specs(cfg)
-    spec = specs.get(key, specs["layers"][0].get(key))
+    spec = specs.get(key, flat_layer(specs["layers"][0]).get(key))
     if (spec is not None and len(spec) == value.dim()
             and spec[-1] == MODEL_AXIS
             and value.shape[-1] % model_shards == 0):
@@ -126,13 +137,12 @@ def _pack_shards(cfg: ModelConfig, key: str, value, model_shards: int
 def quantize_leaves(tree: dict, cfg: ModelConfig, act_dtype=torch.bfloat16,
                     free_source: bool = False, bits: int = 8,
                     group: int = 64, model_shards: int = 1) -> dict:
-    """quantize_params for one flat dict of named leaves (a layer, or the
-    embedding or head alone): every weight of _SCALE_AXES quantized and
-    planned for its call site on one device, the rest passed through."""
+    """quantize_params for one dict of named leaves (a layer, its expert
+    stacks under "experts", or the embedding or head alone): every weight
+    of _SCALE_AXES quantized and planned for its call site on one device,
+    the rest passed through."""
     if bits not in (8, 4):
         raise ValueError(f"bits must be 8 or 4, got {bits}")
-    if cfg.num_experts:
-        raise not_ported("quantized MoE experts", ITEM_7E_I)
 
     def one(value: torch.Tensor, key: str) -> Any:
         scale_axes = _SCALE_AXES[key]
@@ -152,8 +162,8 @@ def quantize_leaves(tree: dict, cfg: ModelConfig, act_dtype=torch.bfloat16,
             storage.resize_(0)
         return out
 
-    return {k: (one(v, k) if k in _SCALE_AXES else v)
-            for k, v in tree.items()}
+    return nest_layer({k: (one(v, k) if k in _SCALE_AXES else v)
+                       for k, v in flat_layer(tree).items()})
 
 
 def quantize_params(params: Params, cfg: ModelConfig,
@@ -206,6 +216,11 @@ def quantized_specs(specs: Params, params: Params) -> Params:
         if key == "layers":
             out[key] = [quantized_specs(layer, pv[i])
                         for i, layer in enumerate(value)]
+        elif key == EXPERTS:
+            out[key] = {
+                n: (_qspec_leaf(v, _SCALE_AXES[f"{EXPERTS}.{n}"], pv[n])
+                    if quantized(pv.get(n)) else v)
+                for n, v in value.items()}
         elif key in _SCALE_AXES and quantized(pv):
             out[key] = _qspec_leaf(value, _SCALE_AXES[key], pv)
         else:

@@ -21,6 +21,11 @@ PartitionSpec as a plain tuple). A dimension the axis size does not divide
 is replicated (`_fallback_replicated`): MQA's single kv head, or any head,
 hidden or vocab count that does not divide the model axis.
 
+MoE (expert parallelism, JAX l.124-133): the expert stacks ride the model
+axis on their expert axis, the router is replicated; each rank runs its
+experts for every token and the down partials are all-reduced once
+(models/common.moe_mlp).
+
 Quantized leaves (engine/quant.py) take the spec tree quant.quantized_specs
 makes from param_specs, as in the JAX package: an int8 dict's payload `q`
 the weight's spec and its scale `s` the entries of the axes it keeps (so
@@ -41,9 +46,8 @@ import dataclasses
 import math
 from typing import Any, Optional
 
-from ..core.errors import ITEM_7E_I, not_ported
-from .models.common import (LEAF_SPECS, SPEC_TP, Int4Leaf, ModelConfig,
-                            Params)
+from .models.common import (EXPERTS, LEAF_SPECS, SPEC_TP, Int4Leaf,
+                            ModelConfig, Params, flat_layer, nest_layer)
 from .kernels import int4mm
 from .quant import quantized_specs
 
@@ -153,10 +157,9 @@ def build_mesh(mesh_shape: dict[str, int]) -> Mesh:
 
 def param_specs(cfg: ModelConfig) -> Params:
     """Spec tree matching init_params' structure (JAX l.106-151): q/o on
-    query heads, k/v on kv heads, the MLP on its hidden, embedding and
-    lm_head on the vocab."""
-    if cfg.num_experts:
-        raise not_ported("MoE sharding", ITEM_7E_I)
+    query heads, k/v on kv heads, the MLP on its hidden (MoE: the experts
+    on their expert axis, the router replicated), embedding and lm_head on
+    the vocab."""
     layer = {
         "q_proj": (None, MODEL_AXIS, None),    # [E, H, D]
         "k_proj": (None, MODEL_AXIS, None),    # [E, K, D]
@@ -164,10 +167,20 @@ def param_specs(cfg: ModelConfig) -> Params:
         "o_proj": (MODEL_AXIS, None, None),    # [H, D, E] contraction
         "input_norm": (None,),
         "pre_mlp_norm": (None,),
-        "gate_proj": (None, MODEL_AXIS),       # [E, F]
-        "up_proj": (None, MODEL_AXIS),
-        "down_proj": (MODEL_AXIS, None),       # [F, E]
     }
+    if cfg.num_experts:
+        layer["router"] = (None, None)         # [E, X]
+        layer[EXPERTS] = {
+            "gate_proj": (MODEL_AXIS, None, None),   # [X, E, F]
+            "up_proj": (MODEL_AXIS, None, None),
+            "down_proj": (MODEL_AXIS, None, None),   # [X, F, E]
+        }
+    else:
+        layer.update({
+            "gate_proj": (None, MODEL_AXIS),       # [E, F]
+            "up_proj": (None, MODEL_AXIS),
+            "down_proj": (MODEL_AXIS, None),       # [F, E]
+        })
     if cfg.attn_bias:
         layer["q_bias"] = (MODEL_AXIS, None)   # [H, D]
         layer["k_bias"] = (MODEL_AXIS, None)   # [K, D]
@@ -289,7 +302,13 @@ def plan_int4_shard(spec: str, part: Int4Leaf, mesh: Mesh, w_shape,
         return int4mm.plan_leaf(spec, part)
     axis, psum = None, False
     cls, _ = int4mm.classify(spec, part)
-    if cls is not None:
+    if tp is not None and spec in (LEAF_SPECS[f"{EXPERTS}.gate_proj"],
+                                   LEAF_SPECS[f"{EXPERTS}.down_proj"]):
+        # an expert stack rides the model axis on its expert axis (EP),
+        # gate/up keeping its experts' outputs and down contracting them
+        if mesh.splits(w_shape[0]):
+            axis, psum = 0, tp == "row"
+    elif cls is not None:
         mode, n_cont, _gp = cls
         axis, psum = int4_shard_axis(tp, len(w_shape), n_cont, mode)
         q4 = (*w_shape[:-1], w_shape[-1] // 2)
@@ -312,11 +331,13 @@ def _shard_named(name: str, x, spec, mesh: Mesh):
 
 
 def shard_tree(tree: dict, specs: dict, mesh: Mesh) -> dict:
-    """shard_params for one flat dict of named leaves (a layer, or the
-    embedding or head alone) with param_specs' entries for those names;
-    quantized leaves take quant.quantized_specs' specs."""
-    qspecs = quantized_specs({k: specs[k] for k in tree}, tree)
-    return {k: _shard_named(k, v, qspecs[k], mesh) for k, v in tree.items()}
+    """shard_params for one dict of named leaves (a layer with its expert
+    stacks under "experts", or the embedding or head alone) with
+    param_specs' entries for those names; quantized leaves take
+    quant.quantized_specs' specs."""
+    qspecs = flat_layer(quantized_specs({k: specs[k] for k in tree}, tree))
+    return nest_layer({k: _shard_named(k, v, qspecs[k], mesh)
+                       for k, v in flat_layer(tree).items()})
 
 
 def shard_params(tree: Params, cfg: ModelConfig, mesh: Mesh) -> Params:
@@ -348,6 +369,17 @@ def materialize(x, device=None):
     return copy(x)
 
 
+def shardable(cfg: ModelConfig, mesh: Mesh) -> bool:
+    """True when every TP/EP dimension divides by the model-axis size (JAX
+    l.225-228): heads, kv heads, the vocab, and the MLP hidden or, for
+    MoE, the expert count."""
+    m = mesh.model
+    mlp_ok = (cfg.num_experts % m == 0 if cfg.num_experts
+              else cfg.mlp_dim % m == 0)
+    return (cfg.num_heads % m == 0 and cfg.num_kv_heads % m == 0
+            and mlp_ok and cfg.vocab_size % m == 0)
+
+
 def local_config(cfg: ModelConfig, mesh: Optional[Mesh]) -> ModelConfig:
     """The shapes one rank holds: heads, kv heads, MLP hidden and vocab
     divided by the model axis where they divide (replicated where not).
@@ -358,4 +390,6 @@ def local_config(cfg: ModelConfig, mesh: Optional[Mesh]) -> ModelConfig:
     return dataclasses.replace(
         cfg, num_heads=mesh.local(cfg.num_heads),
         num_kv_heads=mesh.local(cfg.num_kv_heads),
-        mlp_dim=mesh.local(cfg.mlp_dim), vocab_size=mesh.local(cfg.vocab_size))
+        # MoE shards its experts, not their hidden
+        mlp_dim=cfg.mlp_dim if cfg.num_experts else mesh.local(cfg.mlp_dim),
+        vocab_size=mesh.local(cfg.vocab_size))

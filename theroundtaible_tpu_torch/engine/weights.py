@@ -1,7 +1,8 @@
 """Weight bridge: a JAX-package parameter tree, as numpy arrays, into the
 port's parameter dict - the same nested structure and axis layouts
 (q_proj [E,H,D], k_proj/v_proj [E,K,D], o_proj [H,D,E], gate/up [E,F],
-down [F,E], embedding/lm_head [V,E], biases, norms). With the same weights
+down [F,E], embedding/lm_head [V,E], biases, norms; MoE: router [E,X] and
+experts.gate/up [X,E,F], experts.down [X,F,E]). With the same weights
 both packages compute the same function, which is how the tests compare
 them: the two packages cannot share a random stream.
 
@@ -24,20 +25,27 @@ import math
 import numpy as np
 import torch
 
-from ..core.errors import ITEM_7E_I, not_ported
 from .device import resolve_device
 from .kernels.int4mm import plan_leaf
-from .models.common import LEAF_SPECS, Int4Leaf, ModelConfig, Params
+from .models.common import (LEAF_SPECS, Int4Leaf, ModelConfig, Params,
+                            flat_layer, nest_layer)
 from .quant import _SCALE_AXES
 
 
 def expected_shapes(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
-    """Shape of every per-layer leaf the port reads, by name."""
+    """Shape of every per-layer leaf the port reads, by its flat_layer
+    name."""
     e, h, k, d, f = (cfg.embed_dim, cfg.num_heads, cfg.num_kv_heads,
                      cfg.head_dim, cfg.mlp_dim)
     shapes = {"q_proj": (e, h, d), "k_proj": (e, k, d), "v_proj": (e, k, d),
-              "o_proj": (h, d, e), "input_norm": (e,), "pre_mlp_norm": (e,),
-              "gate_proj": (e, f), "up_proj": (e, f), "down_proj": (f, e)}
+              "o_proj": (h, d, e), "input_norm": (e,), "pre_mlp_norm": (e,)}
+    if cfg.num_experts:
+        x = cfg.num_experts
+        shapes.update({"router": (e, x), "experts.gate_proj": (x, e, f),
+                       "experts.up_proj": (x, e, f),
+                       "experts.down_proj": (x, f, e)})
+    else:
+        shapes.update(gate_proj=(e, f), up_proj=(e, f), down_proj=(f, e))
     if cfg.attn_bias:
         shapes.update(q_bias=(h, d), k_bias=(k, d), v_bias=(k, d))
     if cfg.post_attn_norm:
@@ -67,7 +75,7 @@ def param_count_of(params: Params, cfg: ModelConfig) -> int:
 
     total = sum(count(k, v) for k, v in params.items() if k != "layers")
     return total + sum(count(k, v) for layer in params["layers"]
-                       for k, v in layer.items())
+                       for k, v in flat_layer(layer).items())
 
 
 def _tensor(x, shape, name: str, dtype, device) -> torch.Tensor:
@@ -91,10 +99,11 @@ def _int8(x, shape, name: str, device) -> torch.Tensor:
 
 def _leaf(x, shape, name: str, dtype, device):
     """One weight leaf: dense, int8 dict or Int4Leaf, checked against the
-    dense `shape`."""
+    dense `shape`; `name` is "layers[i].<flat_layer name>" or a top-level
+    key."""
+    key = name.split("].", 1)[-1]
     if isinstance(x, dict) and "q" in x and "s" in x:
-        kept = tuple(shape[a % len(shape)] for a in _SCALE_AXES[name.split(
-            ".")[-1]])
+        kept = tuple(shape[a % len(shape)] for a in _SCALE_AXES[key])
         return {"q": _int8(x["q"], shape, f"{name}.q", device),
                 "s": _tensor(x["s"], kept, f"{name}.s", dtype, device)}
     if all(hasattr(x, a) for a in ("q4", "s4", "axis", "group")):
@@ -106,7 +115,7 @@ def _leaf(x, shape, name: str, dtype, device):
                    device)
         s4 = _tensor(x.s4, (*shape[:-1], shape[-1] // group), f"{name}.s4",
                      dtype, device)
-        return plan_leaf(LEAF_SPECS[name.split(".")[-1]],
+        return plan_leaf(LEAF_SPECS[key],
                          Int4Leaf(q4=q4, s4=s4, axis=len(shape) - 1,
                                   group=group))
     return _tensor(x, shape, name, dtype, device)
@@ -121,36 +130,37 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, dtype=torch.bfloat16,
     caller passes device="cpu". Raises on a missing leaf or a shape that
     disagrees with `cfg`."""
     device = resolve_device(device)
-    if cfg.num_experts:
-        raise not_ported("MoE weights", ITEM_7E_I)
     if len(tree["layers"]) != cfg.num_layers:
         raise ValueError(f"tree has {len(tree['layers'])} layers, config "
                          f"{cfg.num_layers}")
     if mesh is not None and mesh.model > 1:
         from .sharding import materialize, param_specs, shard_tree
         specs = param_specs(cfg)
+        layer_specs = flat_layer(specs["layers"][0])
 
-        def leaf(x, shape, name):
-            key = name.split(".")[-1]
-            spec = specs[key] if key in specs else specs["layers"][0][key]
-            whole = {key: _leaf(x, shape, name, dtype, "cpu")}
-            return materialize(shard_tree(whole, {key: spec}, mesh)[key],
-                               device)
+        def leaf(x, shape, name, key):
+            spec = specs[key] if key in specs else layer_specs[key]
+            whole = nest_layer({key: _leaf(x, shape, name, dtype, "cpu")})
+            part = flat_layer(shard_tree(whole, nest_layer({key: spec}),
+                                         mesh))[key]
+            return materialize(part, device)
     else:
-        def leaf(x, shape, name):
+        def leaf(x, shape, name, key):
             return _leaf(x, shape, name, dtype, device)
 
     vocab = (cfg.vocab_size, cfg.embed_dim)
     out: Params = {
-        "embedding": leaf(tree["embedding"], vocab, "embedding"),
+        "embedding": leaf(tree["embedding"], vocab, "embedding",
+                          "embedding"),
         "final_norm": leaf(tree["final_norm"], (cfg.embed_dim,),
-                           "final_norm"),
+                           "final_norm", "final_norm"),
         "layers": [],
     }
     if not cfg.tie_embeddings:
-        out["lm_head"] = leaf(tree["lm_head"], vocab, "lm_head")
+        out["lm_head"] = leaf(tree["lm_head"], vocab, "lm_head", "lm_head")
     for i, layer in enumerate(tree["layers"]):
-        out["layers"].append({
-            name: leaf(layer[name], shape, f"layers[{i}].{name}")
-            for name, shape in expected_shapes(cfg).items()})
+        flat = flat_layer(layer)
+        out["layers"].append(nest_layer({
+            name: leaf(flat[name], shape, f"layers[{i}].{name}", name)
+            for name, shape in expected_shapes(cfg).items()}))
     return out
