@@ -384,11 +384,12 @@ chiprun_out/chip_smoke/telemetry/):
 
 The supervision phases 33-34 and the serving phases 38-39 run an engine
 of their own, SUPERVISION_CONFIG (the engine phase's config cut to
-SUPERVISION_LAYERS = 16 layers; the 32-layer engine released first):
-their checks compare that engine with itself.
+SUPERVISION_LAYERS = 8 layers, 16 before phases 55-59 joined; the
+32-layer engine released first): their checks compare that engine with
+itself.
 
 33. supervised_restart - SUPERVISION_CONFIG with the offload tier
-             on (16 layers, paged bf16, 8 slots, max_seq_len 8192, page
+             on (8 layers, paged bf16, 8 slots, max_seq_len 8192, page
              128, seeded weights, greedy) from InferenceEngine.from_config
              behind a journaled SessionScheduler. Session A serves a round
              of 3 knights (~2.5k-token prompts) and goes idle; its pages
@@ -673,6 +674,40 @@ at full width cut to TP_LAYERS = 8 layers, every knight greedy):
              `gateway --port 0` on both ranks, one streamed chat request
              to rank 0 (SSE chunks ending in [DONE]), stopped by an
              interrupt that closes rank 0's scheduler and so rank 1's.
+
+The pipeline and the contiguous layout on a data axis (phases 55-59): the
+engine phase's config at TP_LAYERS layers, every knight greedy, the
+engine phase's two rounds of three knights through execute_round on each
+mesh (mesh_round_rank). Each rank checks its own launches in each round:
+its layout's kernels launched, the other layout's never. Both ranks (all
+four in phase 59) must return the same tokens, and every token must equal
+the one-device engine's of the same seed and depth or flip at a near tie
+below PATH_TOL (mesh_references_rank, on rank 0 at the end of the last
+two-rank spawn: one device's paged, contiguous, int8 and int4 engines).
+Each rank's KV bytes must be its share of one device's. Printed per rank:
+parameter and KV bytes, peak memory, prefill seconds and decode ms per
+step, the point-to-point sends and receives (calls, seconds) and the
+collectives; one device's beside them.
+
+55. pp_round - `"mesh": {"pipe": 2}` on the paged pool (DATA_PAGES pages),
+             in the last two-rank spawn: each stage holds half the layers
+             (the embedding on stage 0, the head on stage 1) and its
+             layers' pages; K2 and K1 required on both ranks, K3, K8, K9
+             and K10 never.
+56. pp_contiguous_round - the same on the contiguous layout: K8 and K9
+             required, no paged kernel.
+57. pp_quant_int8 / pp_quant_int4 - phase 55 with int8, then int4
+             weights; with int4, K5 on both stages and K6 (the head) on
+             the last.
+58. data_contiguous_round / data_gather_round - the default, contiguous
+             layout on `{"data": 2, "model": 1}`: each rank its block of
+             the slots, K8 and K9 required; then `attn: "dense"` on a
+             paged data axis (each replica's rows' gather view from its
+             own pages): no attention kernel launches.
+59. pp_tp_round - `{"pipe": 2, "model": 2}` on the paged pool: four gloo
+             ranks on the card (one spawn of its own, before the last
+             two-rank spawn), K10c and K10b over K2 and K1 required on
+             every rank.
 
 Run time: 452-624 s on an H100 80GB HBM3 at 700 W with the build (579 s
 with the device-time readings), 659-762 s with phases 26-27, 722.6 s with
@@ -2531,10 +2566,17 @@ SPEC_MAX_NEW = 160
 
 def next_token_logits(engine, tokens):
     """The engine's logits for the token after `tokens`: one prefill from
-    position 0 (K2) on a scratch slot, released after (on a data axis the
-    row padded to one per replica, as the engine pads a batch; every rank
-    of a mesh makes the same call)."""
+    position 0 (K2, or K8 on the contiguous layout) on a scratch slot,
+    released after (on a data axis the row padded to one per replica, as
+    the engine pads a batch; every rank of a mesh makes the same call)."""
     name = "__next_token__"
+    if engine.kv_layout != "paged":
+        slot, _reuse = engine.kv.reuse_plan(name, list(tokens))
+        try:
+            logits = engine._prefill([list(tokens)], [0], [slot])
+        finally:
+            engine.kv.release(name)
+        return logits[0].float()
     engine.kv.ensure_capacity(name, len(tokens), write_from=0)
     try:
         toks, offs = [list(tokens)], [0]
@@ -5755,6 +5797,259 @@ def mesh_serve_phase(ranks) -> dict:
     return totals
 
 
+# --- Queue 1 slices 2a and 3: the contiguous layout on a data axis and
+# pipeline parallelism (phases 55-59) ---
+
+PP_MESH = {"pipe": 2}
+PP_TP_MESH = {"pipe": 2, "model": 2}
+K5_K6 = ("mm_pack_out", "mm_pack_contract")
+# Rank 0's tokens of each mesh phase of the last two-rank spawn, held
+# against one device's by mesh_references_rank.
+_MESH_TOKENS: dict = {}
+
+
+def mesh_round_rank(torch, rank, phase, config, required, forbidden):
+    """One mesh engine from `config` on this rank: construction and the
+    engine phase's two rounds through execute_round (serve_rounds: every
+    `required` kernel launched on this rank in each round, no `forbidden`
+    one), then the rank's parameter and KV bytes, its peak memory, prefill
+    seconds and decode ms per step, collectives and point-to-point totals.
+    Rank 0 keeps its tokens for mesh_references_rank."""
+    from theroundtaible_tpu_torch.adapters.torch_llm import TorchLlmAdapter
+    from theroundtaible_tpu_torch.engine import distributed, reset_engines
+    from theroundtaible_tpu_torch.engine.kernels import attention as kattn
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    adapter = TorchLlmAdapter.from_config("torch-llm-llama3", config)
+    t0 = time.monotonic()
+    engine = adapter._get_engine()
+    torch.cuda.synchronize()
+    construct_s = time.monotonic() - t0
+    d = engine.describe()
+    collectives = time_collectives(torch)
+    before = dict(collectives)
+    distributed.reset_p2p_counts()
+    totals, generated, stats = serve_rounds(
+        torch, kattn, adapter, engine, phase, required=required,
+        forbidden=forbidden)
+    kv = getattr(engine, "_kv", engine.kv)
+    out = {"construct_s": construct_s,
+           "describe": {k: d.get(k) for k in (
+               "mesh", "kv_layout", "paged_decode", "attn", "quant",
+               "params", "stage", "layers")},
+           "param_bytes": tree_bytes(engine.params),
+           "kv_bytes": kv.hbm_bytes(),
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "prefill_s": [stats[r]["prefill_seconds"] for r in (1, 2)],
+           "decode_ms_per_step": [decode_ms_per_step(stats[r])
+                                  for r in (1, 2)],
+           "collectives": {k: collectives[k] - before[k]
+                           for k in collectives},
+           "p2p": distributed.p2p_counts(),
+           "launches": totals, "generated": generated}
+    if rank == 0:
+        _MESH_TOKENS[phase] = generated
+    reset_engines()
+    del engine, adapter
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _pp_forbidden(layout: str) -> tuple:
+    other = (PAGED_KERNELS if layout == "contiguous"
+             else (PAGED_KERNELS[2],) + CONTIGUOUS_KERNELS)
+    return other + TP_KERNELS
+
+
+def pp_round_rank(torch, rank):
+    """Phases 55-57 on this rank: `{"pipe": 2}` on the paged pool (K2/K1
+    required), then on the contiguous layout (K8/K9), then int8 and int4
+    weights on the paged pool (int4: K5 on both stages, K6 - the head - on
+    the last)."""
+    out = {"pp_round": mesh_round_rank(
+        torch, rank, "pp_round",
+        mesh_config(PP_MESH, num_pages=DATA_PAGES), PAGED_KERNELS[:2],
+        _pp_forbidden("paged"))}
+    contiguous = mesh_config(PP_MESH)
+    del contiguous["kv_layout"]
+    out["pp_contiguous_round"] = mesh_round_rank(
+        torch, rank, "pp_contiguous_round", contiguous, CONTIGUOUS_KERNELS,
+        _pp_forbidden("contiguous"))
+    for quant in ("int8", "int4"):
+        required = PAGED_KERNELS[:2]
+        if quant == "int4":
+            required += K5_K6 if rank == 1 else K5_K6[:1]
+        phase = f"pp_quant_{quant}"
+        out[phase] = mesh_round_rank(
+            torch, rank, phase,
+            mesh_config(PP_MESH, num_pages=DATA_PAGES, quant=quant),
+            required, _pp_forbidden("paged"))
+    return out
+
+
+def data_contiguous_round_rank(torch, rank):
+    """Phase 58 on this rank: the default, contiguous layout on `{"data":
+    2, "model": 1}` (each rank its block of 4 of the 8 slots, K8/K9
+    required), then `attn: "dense"` on a paged data axis (the gather view
+    from each replica's range: no attention kernel launches)."""
+    contiguous = mesh_config(DATA_MESH)
+    del contiguous["kv_layout"]
+    out = {"data_contiguous_round": mesh_round_rank(
+        torch, rank, "data_contiguous_round", contiguous,
+        CONTIGUOUS_KERNELS, PAGED_KERNELS + TP_KERNELS)}
+    out["data_gather_round"] = mesh_round_rank(
+        torch, rank, "data_gather_round",
+        mesh_config(DATA_MESH, num_pages=DATA_PAGES, attn="dense"), (),
+        PAGED_KERNELS + CONTIGUOUS_KERNELS + TP_KERNELS)
+    return out
+
+
+def pp_tp_round_rank(torch, rank):
+    """Phase 59 on one of four ranks: `{"pipe": 2, "model": 2}` on the
+    paged pool, K10c/K10b over K2/K1 required."""
+    return {"pp_tp_round": mesh_round_rank(
+        torch, rank, "pp_tp_round",
+        mesh_config(PP_TP_MESH, num_pages=DATA_PAGES),
+        TP_KERNELS[1:3] + PAGED_KERNELS[:2],
+        (PAGED_KERNELS[2], TP_KERNELS[0], TP_KERNELS[3])
+        + CONTIGUOUS_KERNELS)}
+
+
+# Each one-device reference (the mesh phases' configs without the mesh)
+# and the mesh phases held against it.
+MESH_REFERENCES = {
+    "paged": (dict(num_pages=DATA_PAGES),
+              ("pp_round", "pp_tp_round", "data_gather_round")),
+    "contiguous": ({"kv_layout": None},
+                   ("pp_contiguous_round", "data_contiguous_round")),
+    "int8": (dict(num_pages=DATA_PAGES, quant="int8"), ("pp_quant_int8",)),
+    "int4": (dict(num_pages=DATA_PAGES, quant="int4"), ("pp_quant_int4",)),
+}
+
+
+def mesh_references_rank(torch, rank, extra_tokens):
+    """On rank 0 (rank 1 waits at a barrier): each one-device reference's
+    two rounds, with its parameter and KV bytes, and for every mesh phase
+    held against it (rank 0's tokens of this spawn, `extra_tokens` of the
+    four-rank spawn) the first differing position of each knight's stream
+    with the reference's top-2 margin there (near_tie)."""
+    import torch.distributed as dist
+    from theroundtaible_tpu_torch.adapters.torch_llm import TorchLlmAdapter
+    from theroundtaible_tpu_torch.engine import reset_engines
+    from theroundtaible_tpu_torch.engine.kernels import attention as kattn
+    out = {}
+    if rank == 0:
+        tokens = {**_MESH_TOKENS, **extra_tokens}
+        for ref, (over, phases) in MESH_REFERENCES.items():
+            config = mesh_config(DATA_MESH, **{k: v for k, v in over.items()
+                                               if v is not None})
+            del config["mesh"]
+            if "kv_layout" in over:
+                del config["kv_layout"]
+            gc.collect()
+            torch.cuda.empty_cache()
+            adapter = TorchLlmAdapter.from_config("torch-llm-llama3", config)
+            engine = adapter._get_engine()
+            _t, sgen, sstats = serve_rounds(
+                torch, kattn, adapter, engine, f"reference_{ref}",
+                required=(), forbidden=TP_KERNELS)
+            res = {"param_bytes": tree_bytes(engine.params),
+                   "kv_bytes": engine.kv.hbm_bytes(),
+                   "prefill_s": [sstats[r]["prefill_seconds"]
+                                 for r in (1, 2)],
+                   "decode_ms_per_step": [decode_ms_per_step(sstats[r])
+                                          for r in (1, 2)],
+                   "phases": {}}
+            for phase in phases:
+                flips, prompts = [], None
+                for rnd in (1, 2):
+                    prompts = knight_prompts(rnd, prompts)
+                    for k, p in prompts.items():
+                        f = near_tie(torch, engine,
+                                     engine.tokenizer.encode(p),
+                                     tokens[phase][rnd][k], sgen[rnd][k])
+                        if f is not None:
+                            flips.append(dict(f, round=rnd, knight=k))
+                res["phases"][phase] = {"equal": tokens[phase] == sgen,
+                                        "flips": flips}
+            out[ref] = res
+            reset_engines()
+            del engine, adapter
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    return out
+
+
+def pp_tp_launch(*calls):
+    """`calls` on 4 ranks spawned once, sharing cuda:0 over gloo (the one
+    four-rank spawn: TP inside two pipeline stages)."""
+    from theroundtaible_tpu_torch.engine import distributed
+    ranks = distributed.launch(tp_rank, 4, TP_BACKEND, "cuda:0",
+                               args=(calls,), timeout_s=600)
+    return [[r[i] for r in ranks] for i in range(len(calls))]
+
+
+def mesh_layout_phase(phase, mesh, outs, lines, reference) -> dict:
+    """One mesh phase's ranks: the same tokens on every rank, every token
+    equal to one device's or a flip at a near tie (PATH_TOL), each rank's
+    KV bytes a share of one device's (pipe stages split the layers, a
+    model axis the kv heads, a data axis the slots or pages); printed per
+    rank beside one device's. Returns the launch totals."""
+    ref = reference["phases"][phase]
+    check(all(o["generated"] == outs[0]["generated"] for o in outs),
+          f"{phase}: the ranks returned different tokens")
+    check(all(f["margin"] < PATH_TOL for f in ref["flips"]),
+          f"{phase}: a token left the one-device engine's away from a near "
+          f"tie: {ref['flips']}")
+    parts = mesh.get("pipe", 1) * mesh.get("model", 1) * mesh.get("data", 1)
+    check(all(o["kv_bytes"] * parts == reference["kv_bytes"]
+              for o in outs),
+          f"{phase}: rank KV bytes {[o['kv_bytes'] for o in outs]} against "
+          f"one device's {reference['kv_bytes']} over {parts} ranks")
+    emit(phase, mesh=mesh, layers=TP_LAYERS,
+         ranks=[{k: v for k, v in o.items() if k != "generated"}
+                for o in outs],
+         single_device={k: reference[k] for k in (
+             "param_bytes", "kv_bytes", "prefill_s",
+             "decode_ms_per_step")},
+         equal=ref["equal"], flips=ref["flips"],
+         margin_tolerance=PATH_TOL, round_lines=lines)
+    totals: dict = {}
+    for o in outs:
+        for k, n in o["launches"].items():
+            totals[k] = totals.get(k, 0) + n
+    return totals
+
+
+def pp_phases(pp_ranks, data_ranks, pp_tp_ranks, references) -> dict:
+    """Phases 55-59 from their ranks' results. Returns each phase's launch
+    totals."""
+    out = {}
+    for ranks, mesh in ((pp_ranks, PP_MESH), (data_ranks, DATA_MESH),
+                        (pp_tp_ranks, PP_TP_MESH)):
+        outs = [r for r, _ in ranks]
+        lines = [lines for _, lines in ranks]
+        for phase in outs[0]:
+            ref = next(references[name] for name, (_o, phases)
+                       in MESH_REFERENCES.items() if phase in phases)
+            out[phase] = mesh_layout_phase(
+                phase, mesh, [o[phase] for o in outs], lines, ref)
+            if mesh.get("pipe"):
+                # the stages hold the layers once between them
+                layers = [o[phase]["describe"]["layers"] for o in outs]
+                check(sorted({tuple(x) for x in layers})
+                      == [(0, TP_LAYERS // 2), (TP_LAYERS // 2, TP_LAYERS)],
+                      f"{phase}: stage layers {layers}")
+                check(all(o[phase]["p2p"]["send_calls"]
+                          + o[phase]["p2p"]["recv_calls"] > 0
+                          for o in outs),
+                      f"{phase}: a rank neither sent nor received")
+    return out
+
+
 def hf_tensors(torch, params, cfg):
     """(HF name, tensor) of a dense param tree, in the HF layout: the
     inverse of engine/checkpoint.py's name map."""
@@ -6545,7 +6840,7 @@ def wait_restart_idle(sched, timeout_s: float = 120.0) -> None:
 # The supervision and serving phases 33-34 and 38-39 run an engine of their
 # own, cut to SUPERVISION_LAYERS: their checks compare it with itself (the
 # same turns, the same seeded weights), not with the 32-layer rounds.
-SUPERVISION_LAYERS = 16
+SUPERVISION_LAYERS = 8
 SUPERVISION_MODEL = f"llama-3-8b-instruct-{SUPERVISION_LAYERS}l"
 SUPERVISION_CONFIG = dict(ENGINE_CONFIG, model=SUPERVISION_MODEL)
 
@@ -9790,12 +10085,25 @@ def main() -> int:
                                   contiguous_ref).items():
         tp_launches[name] += n
     tp_quant_launches = tp_quant_phase(runs[2], single)
+    # Phase 59 first: four gloo ranks on the card, TP inside two
+    # pipeline stages; its tokens are held against one device's in the
+    # last two-rank spawn.
+    gc.collect()
+    torch.cuda.empty_cache()
+    pp_tp_runs = pp_tp_launch(("pp_tp_round_rank", ()))[0]
+    pp_tp_tokens = {"pp_tp_round":
+                    pp_tp_runs[0][0]["pp_tp_round"]["generated"]}
     # The same spawn then runs phases 51-54: lint, the data axis, the
-    # scheduler on both meshes, serve and gateway on the TP ranks.
+    # scheduler on both meshes, serve and gateway on the TP ranks; then
+    # phases 55-58: the pipeline on both layouts and with quantized
+    # weights, the contiguous layout and the gather view on a data axis,
+    # and the one-device references of phases 55-59.
     runs = tp_launch(("tp_path_rank", ()), ("tp_ragged_path_rank", ()),
                      ("moe_tp_rank", ()), ("lint_rank", ()),
                      ("data_round_rank", ()), ("mesh_scheduler_rank", ()),
-                     ("mesh_serve_rank", ()))
+                     ("mesh_serve_rank", ()), ("pp_round_rank", ()),
+                     ("data_contiguous_round_rank", ()),
+                     ("mesh_references_rank", (pp_tp_tokens,)))
     tp_path_phase(runs[0])
     tp_launches["ragged_paged_spmd"] = tp_ragged_path_phase(runs[1])[
         "ragged_paged_spmd"]
@@ -9809,6 +10117,7 @@ def main() -> int:
             tp_launches[name] += counts.get(name, 0)
         for name in PAGED_KERNELS:
             launches[name] += counts.get(name, 0)
+    pp_launches = pp_phases(runs[7], runs[8], pp_tp_runs, runs[9][0][0])
 
     # The main path from a checkpoint: write, load, discuss; then the rest
     # of the CLI on the same engine (one round each), in one project.
@@ -10010,6 +10319,15 @@ def main() -> int:
                if k != "products"}})
     add_f16_and_moe(rows, f16_timing, k5_expert, moe_quant_launches,
                     f16_launches, moe_tp_launches)
+    # Phases 55-59's launches (the pipeline, the contiguous data axis):
+    # K1/K2, K8/K9, K10b/K10c, K5/K6, by phase.
+    for row in rows:
+        extra = {phase: counts[row["name"]]
+                 for phase, counts in pp_launches.items()
+                 if counts.get(row["name"])}
+        if extra:
+            row["launches"] += sum(extra.values())
+            row["pipeline_launches"] = extra
     build_watch_phase()
     emit("device_timing", **DEVICE_TIMING)
     summary = {"kernels": rows}

@@ -2426,3 +2426,109 @@ def test_cuda_mesh_scheduler_smoke_two_ranks(cuda_device):
     assert follow["plans"]["plans"] == lead["plans"]["plans"] > 0
     assert follow["plans"]["dispatches"] == lead["plans"]["dispatches"]
     assert follow["plans"]["errors"] == 0
+
+
+# --- the contiguous layout on a data axis and a two-stage pipeline (two
+# gloo ranks on card 0) ---
+
+
+def _contiguous_data_rank(rank):
+    """On cuda:0 over {"data": 2, "model": 1} on the contiguous layout:
+    three rows (slots 0-2 of 6: two on replica 0, one on replica 1), the
+    launches and tokens, then rank 0's one-device tokens."""
+    import torch.distributed as dist
+    eng = _mesh_engine({"data": 2, "model": 1}, kv_layout="contiguous")
+    kattn.reset_launch_counts()
+    out = {"texts": eng.generate_batch(MESH_TURNS, max_new_tokens=16)}
+    torch.cuda.synchronize()
+    out["launches"] = kattn.launch_counts()
+    out["slots"] = int(eng.kv.layers[0][0].shape[0])
+    del eng
+    if rank == 0:
+        single = _mesh_engine(None, kv_layout="contiguous")
+        out["single"] = single.generate_batch(MESH_TURNS, max_new_tokens=16)
+        del single
+    dist.barrier()
+    return out
+
+
+@pytest.mark.cuda
+def test_cuda_contiguous_data_axis_runs_k8_k9_per_replica(cuda_device):
+    """A real two-rank step of the contiguous layout on a data axis: each
+    rank holds half the slots and runs its replica's rows through K8 and
+    K9 (no paged kernel), and both ranks give the one-device engine's
+    greedy tokens."""
+    from theroundtaible_tpu_torch.engine import distributed
+    build.build_all()
+    ranks = distributed.launch(_contiguous_data_rank, 2, "gloo", "cuda:0",
+                               timeout_s=600)
+    for r in ranks:
+        n = r["launches"]
+        assert n["flash_prefill_attention"] > 0, n
+        assert n["ragged_decode_attention"] > 0, n
+        assert n["paged_decode_attention"] == 0, n
+        assert r["slots"] == 3
+        assert r["texts"] == ranks[0]["single"]
+
+
+def _pp_rank(rank, layout):
+    """On cuda:0, a two-stage PPEngine of the tiny head_dim-64 Llama
+    (seeded weights: each stage keeps its layer of the same draw) on
+    `layout`: the launches, tokens and point-to-point counts, then rank
+    0's one-device tokens."""
+    import torch.distributed as dist
+    from theroundtaible_tpu_torch.engine.distributed import reset_p2p_counts
+    from theroundtaible_tpu_torch.engine.engine import InferenceEngine
+    from theroundtaible_tpu_torch.engine.pp_serving import PPEngine
+    from theroundtaible_tpu_torch.engine.sampling import SamplingParams
+    kw = {"kv_layout": layout, "page_size": 128} if layout == "paged" \
+        else {}
+    sp = SamplingParams(temperature=0.0, max_new_tokens=16)
+    cfg = _ckpt_config(max_seq_len=1024)
+    eng = PPEngine(cfg, n_stages=2, num_slots=6, dtype=torch.float32,
+                   sampling=sp, device="cuda", **kw)
+    kattn.reset_launch_counts()
+    reset_p2p_counts()
+    out = {"texts": eng.generate_batch(MESH_TURNS, max_new_tokens=16)}
+    torch.cuda.synchronize()
+    d = eng.describe()
+    out.update(launches=kattn.launch_counts(), p2p=d["p2p"],
+               layers=d["layers"], kv_layout=d["kv_layout"])
+    del eng
+    if rank == 0:
+        single = InferenceEngine(cfg, num_slots=6, dtype=torch.float32,
+                                 sampling=sp, spec_decode=False,
+                                 device="cuda", **kw)
+        out["single"] = single.generate_batch(MESH_TURNS, max_new_tokens=16)
+        del single
+    dist.barrier()
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["paged", "contiguous"])
+def test_cuda_pp_engine_two_stages(cuda_device, layout):
+    """A real two-rank pipeline step on the card: each stage holds one of
+    the two layers and runs its layout's kernels (K2/K1 pool-direct, or
+    K8/K9) on every rank, the other layout's never; the stages exchange
+    activations (rank 0 sends, rank 1 receives); both ranks give the
+    one-device engine's greedy tokens."""
+    from theroundtaible_tpu_torch.engine import distributed
+    build.build_all()
+    ranks = distributed.launch(_pp_rank, 2, "gloo", "cuda:0",
+                               args=(layout,), timeout_s=600)
+    want, other = (("paged_prefill_attention", "paged_decode_attention"),
+                   ("flash_prefill_attention", "ragged_decode_attention"))
+    if layout == "contiguous":
+        want, other = other, want
+    for r in ranks:
+        for name in want:
+            assert r["launches"][name] > 0, r["launches"]
+        for name in other:
+            assert r["launches"][name] == 0, r["launches"]
+        assert r["texts"] == ranks[0]["single"]
+    assert [r["layers"] for r in ranks] == [[0, 1], [1, 2]]
+    assert ranks[0]["p2p"]["send_calls"] > 0
+    assert ranks[1]["p2p"]["recv_calls"] == ranks[0]["p2p"]["send_calls"]
+    assert ranks[0]["kv_layout"] == f"stage-local {layout}" + (
+        " (pool-direct)" if layout == "paged" else "")

@@ -132,26 +132,29 @@ def _quant_round(eng):
 
 
 def _unported_axes():
-    """On a live group: a "pipe" or "seq" axis raises from from_config,
-    get_engine and build_mesh, naming item 7e-ii, instead of serving
-    tensor parallelism over the whole group."""
-    from theroundtaible_tpu_torch.engine import get_engine
+    """On a live group: a "pipe" mesh builds a PPEngine through get_engine
+    (pipe 2 over the group, TP inside its stages on four ranks), while
+    from_config and build_mesh refuse it with a ValueError naming PPEngine;
+    "pipe" beside "data" raises JAX's ValueError from all three; a "seq"
+    axis raises NotImplementedError naming item 7e-ii from all three."""
+    from theroundtaible_tpu_torch.engine import get_engine, reset_engines
     from theroundtaible_tpu_torch.engine.engine import InferenceEngine
     from theroundtaible_tpu_torch.engine.sharding import build_mesh
     world = torch.distributed.get_world_size()
+    pipe = {"pipe": 2, "model": world // 2} if world > 2 else {"pipe": 2}
     out = []
-    for axes in ({"pipe": world}, {"seq": world},
-                 {"data": 1, "model": 1, "pipe": world}):
+    for axes in (pipe, {"seq": world}, {"data": 1, "model": 1, "pipe": world}):
         config = {"model": "tiny-llama", "max_seq_len": 128,
-                  "kv_layout": "paged", "mesh": axes}
+                  "kv_layout": "paged", "page_size": 32, "mesh": axes}
         for build in (lambda: InferenceEngine.from_config(config, "cpu"),
                       lambda: get_engine(config, device="cpu"),
                       lambda: build_mesh(axes)):
             try:
-                build()
-                out.append(None)
-            except NotImplementedError as e:
-                out.append(str(e))
+                eng = build()
+                out.append(type(eng).__name__)
+            except (NotImplementedError, ValueError) as e:
+                out.append(f"{type(e).__name__}: {e}")
+    reset_engines()
     return out
 
 
@@ -301,13 +304,21 @@ def test_int4_weights_int8_pages_on_a_data_axis(runs):
 
 
 def test_pipe_and_seq_axes_raise_on_live_ranks(runs):
-    """A mesh with a "pipe" or "seq" axis raises NotImplementedError
-    naming item 7e-ii from from_config, get_engine and build_mesh on
-    ranks of an initialized group (where it used to build a tensor-
-    parallel engine over the whole group)."""
+    """On ranks of an initialized group a "pipe" mesh builds a PPEngine
+    through get_engine (where it used to build a tensor-parallel engine
+    over the whole group, F7), while InferenceEngine.from_config and
+    build_mesh refuse it naming PPEngine; "pipe" beside "data" raises
+    JAX's message from all three; a "seq" axis raises NotImplementedError
+    naming item 7e-ii from all three."""
     for key in MESHES:
         for r in runs[key][1]:
-            assert len(r["f7"]) == 9
-            for msg in r["f7"]:
-                assert msg is not None and "ROADMAP, item 7e-ii" in msg
-                assert "'pipe' axis" in msg or "'seq' axis" in msg
+            f7 = r["f7"]
+            assert len(f7) == 9
+            assert f7[0].startswith("ValueError") and "PPEngine" in f7[0]
+            assert f7[1] == "PPEngine"
+            assert f7[2].startswith("ValueError") and "PPEngine" in f7[2]
+            for msg in f7[3:6]:
+                assert msg.startswith("NotImplementedError")
+                assert "ROADMAP, item 7e-ii" in msg and "'seq' axis" in msg
+            for msg in f7[6:]:
+                assert msg.startswith("ValueError: mesh axes ['data']")

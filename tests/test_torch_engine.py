@@ -130,9 +130,12 @@ def test_describe_keys_match(engines):
 
 
 @pytest.mark.parametrize("key,value", [
-    # a data axis on the contiguous layout (the default here; a data axis
-    # on the paged pool is served: tests/test_torch_data_axis.py), a
-    # "pipe" or "seq" mesh axis and seq_parallel
+    # a data axis on the contiguous layout (the default here) and a "pipe"
+    # axis are served since Queue 1 slices 2a and 3: without a process
+    # group the data axis raises RuntimeError, and InferenceEngine refuses
+    # a pipe mesh, which get_engine builds a PPEngine for
+    # (tests/test_torch_data_axis.py, tests/test_torch_pp_serving.py); a
+    # "seq" mesh axis and seq_parallel
     ("mesh", {"data": 2, "model": 2}), ("mesh", {"pipe": 2}),
     ("mesh", {"seq": 2}), ("seq_parallel", 2),
     # devices beyond one card (a single index selects cuda:<i>; here the
@@ -141,7 +144,14 @@ def test_describe_keys_match(engines):
 ])
 def test_unported_options_raise(key, value):
     config = {"model": "tiny-llama", "max_seq_len": 128, key: value}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    if value == {"data": 2, "model": 2}:
+        raises = pytest.raises(RuntimeError,
+                               match="initialized torch.distributed")
+    elif value == {"pipe": 2}:
+        raises = pytest.raises(ValueError, match="PPEngine.*get_engine")
+    else:
+        raises = pytest.raises(NotImplementedError, match="ROADMAP")
+    with raises:
         InferenceEngine.from_config(config, device="cpu")
 
 

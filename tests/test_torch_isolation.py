@@ -66,6 +66,9 @@ def test_every_module_imports_here():
         importlib.import_module(name)
     assert "theroundtaible_tpu_torch.engine.kernels.attention" in names
     assert "theroundtaible_tpu_torch.engine.scheduler" in names
+    # the pipeline modules (Queue 1 slice 3)
+    assert "theroundtaible_tpu_torch.engine.pipeline" in names
+    assert "theroundtaible_tpu_torch.engine.pp_serving" in names
 
 
 def test_no_silent_cpu_fallback():
@@ -80,3 +83,14 @@ def test_no_silent_cpu_fallback():
         get_engine(config)
     assert InferenceEngine.from_config(config, device="cpu").device.type \
         == "cpu"
+
+
+def test_pipe_engine_has_no_silent_cpu_fallback():
+    """A pipe mesh's engine asks for the card too, before any process
+    group is touched."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid here")
+    from theroundtaible_tpu_torch.engine.pp_serving import PPEngine
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        PPEngine.from_config({"model": "tiny-llama", "max_seq_len": 128,
+                              "mesh": {"pipe": 2}})

@@ -506,15 +506,17 @@ def test_adapter_builds_a_quantized_engine():
 
 @pytest.mark.parametrize("extra,item", [
     ({"quant": "int4", "mesh": {"data": 2, "model": 1},
-      "kv_layout": "contiguous"}, "item 7e-ii"),
+      "kv_layout": "contiguous"}, "initialized torch.distributed"),
     ({"quant": "int8", "model": "tiny-mixtral"}, None),
 ], ids=["int4-sharded", "quantized-moe"])
 def test_out_of_scope_quant_options_still_raise(extra, item):
     """Quantization is ported on one device, on a model axis and on a
-    data axis over the paged pool (tests/test_torch_data_axis.py); on a
-    data axis over the contiguous layout it still refuses, naming its
-    ROADMAP item (quantized weights
-    under LoRA personas serve: tests/test_torch_lora.py; on a model axis:
+    data axis over either layout (tests/test_torch_data_axis.py,
+    tests/test_torch_data_contiguous.py): on the contiguous layout's data
+    axis, which refused naming its ROADMAP item until Queue 1 slice 2a
+    was ported, a mesh without a process group now raises RuntimeError
+    (quantized weights under LoRA personas serve:
+    tests/test_torch_lora.py; on a model axis:
     tests/test_torch_tp_quant.py; with the prefix cache and the offload
     tier: test_quantized_paged_engine_serves_with). Quantized MoE experts
     raised until item 7e-i was ported: now they build and serve
@@ -526,7 +528,7 @@ def test_out_of_scope_quant_options_still_raise(extra, item):
         assert eng.generate_batch([("a", "the round table")],
                                   max_new_tokens=2)
         return
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(RuntimeError, match=item):
         InferenceEngine.from_config(config, device="cpu")
 
 

@@ -925,17 +925,21 @@ def test_scheduler_on_a_mesh_raises(engine_runs):
     ("lora", {"rank": 4, "max_adapters": 2}),
 ])
 def test_unported_mesh_options_raise(key, value):
-    """What a mesh still refuses raises NotImplementedError naming its
-    slice before any group is needed: a data axis on the contiguous layout
-    (slots sharded over "data"), alone and with quantized weights or LoRA,
-    which a model axis serves (tests/test_torch_tp_quant.py) and a data
-    axis serves on the paged pool (tests/test_torch_data_axis.py), and a
-    "pipe" axis."""
+    """A data axis on the contiguous layout (slots sharded over "data",
+    Queue 1 slice 2a), alone and with quantized weights or LoRA, is served
+    now: without a process group it raises RuntimeError before anything
+    is built. A "pipe" axis raises ValueError naming PPEngine, which
+    get_engine builds for it (Queue 1 slice 3)."""
     from theroundtaible_tpu_torch.engine.engine import InferenceEngine
     config = {"model": "tiny-llama", "max_seq_len": 128,
               "kv_layout": "contiguous",
               "mesh": {"data": 2, "model": 2}, key: value}
-    with pytest.raises(NotImplementedError, match="ROADMAP, item 7e-ii"):
+    if key == "mesh":
+        raises = pytest.raises(ValueError, match="PPEngine.*get_engine")
+    else:
+        raises = pytest.raises(RuntimeError,
+                               match="initialized torch.distributed")
+    with raises:
         InferenceEngine.from_config(config, device="cpu")
 
 

@@ -10,7 +10,9 @@ N>1` serves N engines behind a session router (router/core.py): placement,
 migration, rolls (`POST /v1/admin/roll`) and failover, with admission over
 the fleet's signals. On a mesh every rank runs the same `roundtable
 gateway`: rank 0 binds the port and serves; the other ranks follow its
-scheduler's plans (engine/mesh_plan.py) and write nothing.
+scheduler's plans (engine/mesh_plan.py) and write nothing. A pipe mesh's
+PPEngine has no scheduler, and the gateway refuses it with the JAX
+package's ConfigError (rank 0 releases the followers first).
 """
 
 from __future__ import annotations
@@ -33,11 +35,17 @@ def _build_scheduler(config, journal_dir: Optional[str], device="cuda"):
     for adapter in adapters.values():
         if not hasattr(adapter, "attach_scheduler"):
             continue
+        engine = None
         try:
             engine = adapter._get_engine()
             sched, _created = acquire_scheduler(engine)
             break
         except Exception:  # noqa: BLE001 - try the next seat
+            if hasattr(engine, "lead"):
+                # A pipe mesh's PPEngine has no scheduler to serve (as in
+                # the JAX package): its followers leave with rank 0.
+                engine.lead()
+                engine.close_plans()
             continue
     if sched is None:
         raise ConfigError(

@@ -24,7 +24,11 @@ same `roundtable serve` under torchrun or the ROUNDTABLE_* variables
 (engine/distributed.py): rank 0 runs the sessions and writes
 `.roundtable/` and the journal; every other rank builds the same engine,
 follows rank 0's scheduler plans (engine/mesh_plan.py) and writes nothing.
-A router over a mesh engine (`--replicas N>1` there) is not served.
+A pipe mesh's PPEngine has no scheduler (as in the JAX package): its
+sessions are namespaced generate_batch calls, which rank 0 broadcasts as
+plans (with each slot release) and the other ranks make in the same order
+(PPEngine.lead / follow_plans). A router over a mesh engine (`--replicas
+N>1` there) is not served.
 """
 
 from __future__ import annotations
@@ -62,7 +66,8 @@ def _dedupe_topics(topics: list[str]) -> list[str]:
 
 def _attach_schedulers(adapters: dict, session_id: str,
                        admit_hold_s: float,
-                       journal=None, router=None) -> tuple[list, list]:
+                       journal=None, router=None,
+                       led: Optional[list] = None) -> tuple[list, list]:
     """Bind every torch-llm adapter in this session's seat map to its
     session id and to the SHARED per-engine scheduler (acquire_scheduler:
     one scheduler per resident engine, however many sessions share it) -
@@ -71,7 +76,9 @@ def _attach_schedulers(adapters: dict, session_id: str,
     Returns (schedulers touched, schedulers CREATED here) — the caller
     must only close the latter: a scheduler that pre-existed this serve
     call belongs to someone else's sessions too, and closing it would
-    kill their in-flight rounds with SchedulerClosed."""
+    kill their in-flight rounds with SchedulerClosed. A pipe-mesh engine
+    (no scheduler) leads its mesh's plans from here on and is appended to
+    `led`."""
     scheds, owned = [], []
     for adapter in adapters.values():
         attach = getattr(adapter, "attach_scheduler", None)
@@ -96,7 +103,19 @@ def _attach_schedulers(adapters: dict, session_id: str,
             continue
         # On a mesh this is rank 0's scheduler: the other ranks follow it.
         from ..engine.scheduler import acquire_scheduler
-        sched, created = acquire_scheduler(engine, admit_hold_s=admit_hold_s)
+        try:
+            sched, created = acquire_scheduler(engine,
+                                               admit_hold_s=admit_hold_s)
+        except TypeError:
+            # A PPEngine has no segment seam to schedule at: its sessions
+            # keep their namespace (adapter.session) and serve round-level
+            # batches, planned for the pipe mesh's other ranks.
+            adapter.session = session_id
+            if hasattr(engine, "lead"):
+                engine.lead()
+                if led is not None and engine not in led:
+                    led.append(engine)
+            continue
         if journal is not None and sched.journal is not journal:
             # One journal per serve root, shared by every scheduler:
             # committed turns fsync at retire so `serve --resume` survives
@@ -170,6 +189,7 @@ def serve_discussions(
         set_active_router(router)
     all_scheds: list = []
     owned_scheds: list = []
+    led_engines: list = []
     # Session ids carry a per-CALL unique component: two concurrent
     # serve_discussions calls share the resident engine (by design), so
     # plain "s0"/"s1" ids would merge unrelated discussions into one
@@ -193,7 +213,7 @@ def serve_discussions(
             # when the report is built.
             scheds, owned = _attach_schedulers(
                 adapters, entry["session_id"], admit_hold_s,
-                journal=journal, router=router)
+                journal=journal, router=router, led=led_engines)
             all_scheds.extend(scheds)
             owned_scheds.extend(owned)
             result = run_discussion(
@@ -227,6 +247,9 @@ def serve_discussions(
     # shared with sessions outside this call and must keep running.
     for s in {id(s): s for s in owned_scheds}.values():
         s.close()
+    for engine in {id(e): e for e in led_engines}.values():
+        # the pipe mesh's followers leave with the channel
+        engine.close_plans()
     if router is not None:
         router.close()
         for rep in router.replicas:

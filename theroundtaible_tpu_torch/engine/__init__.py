@@ -6,9 +6,11 @@ adapter uses: it caches engines by every serving-relevant config key (and
 the device), so knights with identical configs share one resident model
 while differing ones never silently collide. A config with a mesh joins
 the process group its environment describes first (torchrun or the
-ROUNDTABLE_* variables, engine/distributed.py), and a mesh axis the port
-does not serve ("pipe", "seq") raises before anything is built. Per-call
-settings such as knight_sampling are deliberately NOT in the key.
+ROUNDTABLE_* variables, engine/distributed.py); a mesh whose "pipe" entry
+is truthy builds the pipeline-parallel PPEngine (engine/pp_serving.py),
+every other config the main InferenceEngine, as in the JAX package; a mesh
+axis the port does not serve ("seq") raises before anything is built.
+Per-call settings such as knight_sampling are deliberately NOT in the key.
 """
 
 from __future__ import annotations
@@ -36,11 +38,13 @@ def _cache_key(config: dict[str, Any], device="cuda") -> str:
 
 
 def get_engine(config: dict[str, Any], device="cuda"):
-    """Build (or reuse) an engine for this adapter config on `device`."""
+    """Build (or reuse) an engine for this adapter config on `device`: a
+    PPEngine for a mesh with a truthy "pipe" entry, else an
+    InferenceEngine."""
     key = _cache_key(config, device)
     with _lock:
         if key not in _engines:
-            from .sharding import check_mesh_axes, mesh_size
+            from .sharding import check_mesh_axes, is_pipe_mesh, mesh_size
             check_mesh_axes(config.get("mesh"))
             if mesh_size(config.get("mesh")) > 1:
                 # A mesh's ranks: join the group the environment describes
@@ -48,8 +52,12 @@ def get_engine(config: dict[str, Any], device="cuda"):
                 # package's get_engine joins its own.
                 from .distributed import initialize_from_env
                 initialize_from_env(device)
-            from .engine import InferenceEngine
-            eng = InferenceEngine.from_config(config, device=device)
+            if is_pipe_mesh(config.get("mesh")):
+                from .pp_serving import PPEngine
+                eng = PPEngine.from_config(config, device=device)
+            else:
+                from .engine import InferenceEngine
+                eng = InferenceEngine.from_config(config, device=device)
             # Supervision identity + rebuild recipe: the EngineSupervisor
             # rebuilds a dead engine from exactly this config (on the
             # engine's device) and keys its restart budget by this key.

@@ -52,7 +52,8 @@ import torch
 from ..native.loader import SafetensorsReader, index_safetensors
 from .device import resolve_device
 from .models.common import (EXPERTS, Int4Leaf, ModelConfig, Params,
-                            flat_layer, leaf_keeper, nest_layer)
+                            flat_layer, leaf_keeper, nest_layer,
+                            stage_keeps)
 
 _LAYER = re.compile(r"model\.layers\.(\d+)\.(.+)")
 
@@ -247,11 +248,13 @@ def _validate_loaded(top: dict, layers: list[dict],
 
 def load_hf_checkpoint(ckpt_dir: str | Path, cfg: ModelConfig,
                        dtype=torch.bfloat16, device="cuda", mesh=None,
-                       quantize: Optional[Callable] = None) -> Params:
+                       quantize: Optional[Callable] = None,
+                       stage=None) -> Params:
     """Assemble the engine's param tree from an HF checkpoint directory,
     one layer at a time (module docstring), on `device`: the card unless
     the caller passes device="cpu". `quantize` (engine/quant
-    .quantize_leaves with its options bound) and `mesh` act as they do in
+    .quantize_leaves with its options bound), `mesh` and a pipeline
+    `stage` (only the stage's tensors are read) act as they do in
     models/common.init_params. Raises ValueError on a missing tensor, a
     tensor whose shape does not fit `cfg` (naming it and its file), an
     expert index beyond cfg.num_experts or an unreadable file."""
@@ -307,13 +310,15 @@ def load_hf_checkpoint(ckpt_dir: str | Path, cfg: ModelConfig,
                   if isinstance(name, list) else leaf(key, name))
             for key, name in names.items()})
 
-    params: Params = keep(group({"embedding": top["embedding"]}), specs)
-    layers = []
-    for i, names in enumerate(layer_names):
-        layers.append(keep(group(names), specs and specs["layers"][i]))
-    params["layers"] = layers
-    params["final_norm"] = leaf("final_norm", top["final_norm"])
-    if not cfg.tie_embeddings:
+    params: Params = (keep(group({"embedding": top["embedding"]}), specs)
+                      if stage_keeps(stage, cfg, "embedding") else {})
+    own = (stage.layers(cfg.num_layers) if stage is not None
+           else range(cfg.num_layers))
+    params["layers"] = [keep(group(layer_names[i]),
+                             specs and specs["layers"][i]) for i in own]
+    if stage_keeps(stage, cfg, "final_norm"):
+        params["final_norm"] = leaf("final_norm", top["final_norm"])
+    if not cfg.tie_embeddings and stage_keeps(stage, cfg, "lm_head"):
         params.update(keep(group({"lm_head": top["lm_head"]}), specs))
     return params
 

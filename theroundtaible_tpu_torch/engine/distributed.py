@@ -28,6 +28,11 @@ The backend is always the caller's choice: "nccl" for one rank per card,
 ranks on one GPU). Under gloo a collective on a CUDA tensor runs on a host
 copy (`all_reduce_sum`, `all_gather_cat`): correct, not NCCL's speed.
 Nothing here picks a backend on its own.
+
+The pipeline's stages pass activations with point-to-point sends
+(`send_to`, asynchronous, and `recv_into`), always over gloo, a CUDA
+tensor staged through pinned host memory; `p2p_counts()` gives this
+process's calls and seconds.
 """
 
 from __future__ import annotations
@@ -257,3 +262,81 @@ def broadcast_from(x: torch.Tensor, src: int, group) -> torch.Tensor:
     x = x.contiguous()
     dist.broadcast(x, src=src, group=group)
     return x
+
+
+# --- point-to-point sends of the pipeline (engine/pp_serving.py) ---
+
+# Calls and seconds of this process's sends and receives (the host's side:
+# the staging copy, the gloo transfer and the wait), read by
+# p2p_counts() and reset by reset_p2p_counts().
+_P2P = {"send_calls": 0, "send_s": 0.0, "recv_calls": 0, "recv_s": 0.0}
+
+
+def p2p_counts() -> dict:
+    """This process's point-to-point totals: send_calls, send_s,
+    recv_calls, recv_s."""
+    return dict(_P2P)
+
+
+def reset_p2p_counts() -> None:
+    _P2P.update(send_calls=0, send_s=0.0, recv_calls=0, recv_s=0.0)
+
+
+def _wait_bound():
+    """The plan group's timeout (mesh_plan.PLAN_TIMEOUT_S), the bound of
+    every point-to-point wait."""
+    import datetime
+    from .mesh_plan import PLAN_TIMEOUT_S
+    return datetime.timedelta(seconds=PLAN_TIMEOUT_S)
+
+
+class PendingSend:
+    """An asynchronous send in flight: `wait()` blocks until the peer has
+    taken it (within the plan group's timeout). The host copy it sends from
+    stays alive until then."""
+
+    def __init__(self, work, buf):
+        self._work = work
+        self._buf = buf
+
+    def wait(self) -> None:
+        if self._work is None:
+            return
+        t0 = time.monotonic()
+        self._work.wait(_wait_bound())
+        _P2P["send_s"] += time.monotonic() - t0
+        self._work = self._buf = None
+
+
+def send_to(x: torch.Tensor, dst: int, group) -> PendingSend:
+    """Send `x` to global rank `dst` over `group` (gloo), asynchronously:
+    a CUDA tensor is staged through pinned host memory first (the copy
+    waits for the work queued on `x`), so the caller may go on once this
+    returns. Returns the PendingSend to wait on before the next send's
+    buffer is needed or the call ends."""
+    t0 = time.monotonic()
+    if x.is_cuda:
+        buf = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+        buf.copy_(x)
+    else:
+        buf = x.detach().clone(memory_format=torch.contiguous_format)
+    work = dist.isend(buf, dst=dst, group=group)
+    _P2P["send_calls"] += 1
+    _P2P["send_s"] += time.monotonic() - t0
+    return PendingSend(work, buf)
+
+
+def recv_into(buf: torch.Tensor, src: int, group) -> torch.Tensor:
+    """Receive a tensor of `buf`'s shape and dtype from global rank `src`
+    over `group` (gloo) into `buf`, waiting at most the plan group's
+    timeout; a CUDA `buf` receives through pinned host memory. Returns
+    `buf`."""
+    t0 = time.monotonic()
+    host = (torch.empty(buf.shape, dtype=buf.dtype, pin_memory=True)
+            if buf.is_cuda else buf)
+    dist.irecv(host, src=src, group=group).wait(_wait_bound())
+    if host is not buf:
+        buf.copy_(host, non_blocking=False)
+    _P2P["recv_calls"] += 1
+    _P2P["recv_s"] += time.monotonic() - t0
+    return buf

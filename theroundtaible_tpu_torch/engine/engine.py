@@ -69,8 +69,13 @@ int4 groups aligned to the shards), their products run K10e
 (kernels/int4mm.einsum_int4_spmd) over K5/K6, and the LoRA store's stacks
 are sharded where their base weights are, their deltas run K10f
 (kernels/lora.lora_bgmv_spmd) over K7 and land on the partial products
-before the one all-reduce of o_proj and down_proj. A data axis and the
-SessionScheduler on a mesh raise NotImplementedError naming their slice.
+before the one all-reduce of o_proj and down_proj. A data axis splits the
+rows of a batch over its replicas (ReplicaGroupPlan): on the paged pool
+each data rank holds its replica's range of pages, on the contiguous
+layout its replica's block of slots (every slot where num_slots does not
+divide, as JAX's _fallback_replicated), and the logits are gathered over
+the data group. A "pipe" axis is PPEngine's (engine/pp_serving.py, which
+get_engine builds): this engine refuses it.
 
 Speculative decoding, as in the JAX engine: on by default where the
 paged pool's ragged seam is on (`spec_decode: false` or
@@ -131,8 +136,8 @@ from .paged_forward import (forward_paged, forward_ragged, gather_view,
 from .quant import quantize_leaves, quantize_params, quantized
 from .paging import SCRATCH_PAGE, PagedKVCache
 from .prefix_cache import PrefixCache, cache_enabled
-from .sharding import (build_mesh, check_mesh_axes, local_config, mesh_size,
-                       model_axis_size)
+from .sharding import (Mesh, build_mesh, check_mesh_axes, local_config,
+                       mesh_size, model_axis_size, refuse_pipe_mesh)
 from .sampling import (SamplingParams, sample_positions, sample_token_batch,
                        sampling_arrays)
 from .serving_loop import (DECODE_SEGMENT, MAX_PREFILL_CHUNK,
@@ -226,9 +231,16 @@ class InferenceEngine:
         self.mesh = (build_mesh(mesh_shape) if mesh_size(mesh_shape) > 1
                      else None)
         self.local_cfg = local_config(model_cfg, self.mesh)
+        # The forward's view of the mesh where each rank's rows are its
+        # own (the contiguous slots and the gather view on a data axis):
+        # the model axis alone.
+        self._model_mesh = (Mesh(1, self.mesh.model, self.mesh.model_index,
+                                 self.mesh.model_group)
+                            if self.mesh is not None and self.mesh.model > 1
+                            else None)
         if kv_layout == "contiguous":
             model_cfg = self._resolve_attn(model_cfg, attn, self.device,
-                                           self.mesh)
+                                           self._model_mesh)
         self.cfg = model_cfg
         self.max_seq_len = model_cfg.max_seq_len
         self.sampling = sampling or SamplingParams()
@@ -273,19 +285,24 @@ class InferenceEngine:
         if self.paged_direct and self.mesh is not None:
             self.paged_direct = self._spmd_paged_direct(model_cfg,
                                                         page_size)
-        # Data replicas of the pool (JAX engine.py:567): each data rank
-        # serves its block of the replica-grouped batch (ReplicaGroupPlan)
-        # against its own range of pages.
-        self._paged_replicas = (self.mesh.data if self.paged_direct
-                                and self.mesh is not None else 1)
-        if self.mesh is not None and self.mesh.data > 1 \
-                and not self.paged_direct:
-            raise not_ported(
-                f"mesh {self.mesh.shape} on the gather view (heads the "
-                f"model axis does not partition)", ITEM_7E_II)
+        # Data replicas (JAX engine.py:567 and kv_cache_spec): each data
+        # rank serves its block of the replica-grouped batch
+        # (ReplicaGroupPlan) against its own range of pages, or its own
+        # block of slots. JAX reports paged_replicas only for pool-direct
+        # serving; the gather view builds each replica's rows' view from
+        # its own range here. Slots that do not divide over "data" are
+        # replicated (JAX _fallback_replicated): every data rank holds
+        # every slot and serves every row.
+        data = self.mesh.data if self.mesh is not None else 1
+        self._paged_replicas = data if self.paged_direct else 1
+        self._row_replicas = (data if kv_layout == "paged"
+                              or num_slots % data == 0 else 1)
         if kv_layout == "contiguous":
             self.kv = KVCache(local, num_slots, self.max_seq_len, dtype,
-                              self.device)
+                              self.device, replicas=self._row_replicas,
+                              replica_index=(self.mesh.data_index
+                                             if self._row_replicas > 1
+                                             else 0))
         else:
             # Pool-direct serving needs both kernels to take the pool
             # shape (chunks up to MAX_PREFILL_CHUNK rows and decode steps);
@@ -727,15 +744,7 @@ class InferenceEngine:
         if seq_parallel and seq_parallel > 0:
             raise not_ported("seq_parallel (longcontext)", ITEM_7E_II)
         check_mesh_axes(mesh_shape)
-        if int((mesh_shape or {}).get("data", 1)) != 1:
-            if kv_layout != "paged":
-                raise not_ported(
-                    f"mesh {mesh_shape} on the contiguous layout (slots "
-                    f"sharded over a data axis)", ITEM_7E_II)
-            if attn == "dense":
-                raise not_ported(
-                    f"mesh {mesh_shape} with attn 'dense' (the gather view "
-                    f"over per-replica pools)", ITEM_7E_II)
+        refuse_pipe_mesh(mesh_shape, "InferenceEngine")
         if attn not in ("auto", "flash", "dense"):
             raise ValueError(f"attn must be auto|flash|dense, got {attn!r}")
         if dtype not in _DTYPES.values():
@@ -983,33 +992,58 @@ class InferenceEngine:
 
     # --- data replicas: each data rank runs its block of the rows ---
 
-    def _local_rows(self, x):
+    def _local_rows(self, x, block: Optional[slice] = None):
         """This data rank's block of a replica-grouped batch's rows (the
-        whole batch without data replicas)."""
-        if self._paged_replicas == 1:
+        whole batch without data replicas); `block` (_slot_block) keeps
+        only the block's real rows."""
+        if block is not None:
+            return x[block]
+        if self._row_replicas == 1:
             return x
-        g = len(x) // self._paged_replicas
+        g = len(x) // self._row_replicas
         r = self.mesh.data_index
         return x[r * g:(r + 1) * g]
 
-    def _gather_rows(self, out: torch.Tensor) -> torch.Tensor:
+    def _gather_rows(self, out: torch.Tensor,
+                     block: Optional[tuple] = None) -> torch.Tensor:
         """Every data rank's block of a forward's output, in row order, on
         every rank: each then samples the whole batch from the same
-        generator, so the host programs stay in lockstep."""
-        if self._paged_replicas == 1:
+        generator, so the host programs stay in lockstep. With `block`
+        (_slot_block's (rows, block size)) the block's real rows are
+        padded to the block first."""
+        if self._row_replicas == 1:
             return out
         from .distributed import all_gather_cat
+        if block is not None:
+            rows, g = block
+            n = rows.stop - rows.start
+            if n < g:
+                out = torch.cat([out, out.new_zeros((g - n,)
+                                                    + tuple(out.shape[1:]))])
         return all_gather_cat(out, self.mesh.data_group, dim=0)
+
+    def _slot_block(self, index) -> tuple[slice, int, torch.Tensor]:
+        """(rows, block size, local slot ids) of this data rank's real rows
+        in a replica-grouped slot index whose pad rows are -1: the
+        contiguous layout's pads run nowhere (no slot is theirs to
+        write); their outputs are zeros."""
+        idx = np.asarray(index.cpu() if torch.is_tensor(index) else index)
+        g = len(idx) // self._row_replicas
+        r = self.mesh.data_index
+        n = int((idx[r * g:(r + 1) * g] >= 0).sum())
+        local = [self.kv.local_slot(int(s)) for s in idx[r * g:r * g + n]]
+        return slice(r * g, r * g + n), g, self._ints(local)
 
     def _replica_plan(self, names: list[str],
                       bucket_group: bool = False
                       ) -> Optional[ReplicaGroupPlan]:
-        """The rows' ReplicaGroupPlan on a pool with data replicas (None
-        without)."""
-        if self._paged_replicas == 1:
+        """The rows' ReplicaGroupPlan with data replicas (None without):
+        each row in the block of the replica holding its pages or its
+        slot."""
+        if self._row_replicas == 1:
             return None
         return ReplicaGroupPlan([self.kv.replica_of(n) for n in names],
-                                self._paged_replicas,
+                                self._row_replicas,
                                 bucket_group=bucket_group)
 
     def _prefill(self, token_lists: list[list[int]], offsets: list[int],
@@ -1019,12 +1053,28 @@ class InferenceEngine:
         the rows' slot ids (`rows` [B], contiguous layout) or through
         forward_paged over their page tables (`rows` [B, pages], paged).
         `lora_ids`: the rows' adapter slots (None: all base); one
-        LoraBatch serves every chunk. Returns last-token logits [B, V]."""
-        index = self._local_rows(self._ints(rows))
+        LoraBatch serves every chunk. Returns last-token logits [B, V].
+
+        On data replicas the rows are replica-grouped (ReplicaGroupPlan)
+        and each data rank runs its block: the paged pool's whole block
+        (pad rows on the replica's scratch page), the contiguous slots'
+        real rows only (pad rows are slot -1)."""
         contiguous = self.kv_layout == "contiguous"
+        block = None
+        if contiguous and self._row_replicas > 1:
+            rows_blk, g, index = self._slot_block(rows)
+            block = (rows_blk, g)
+        else:
+            index = self._local_rows(self._ints(rows))
+            if not contiguous and not self.paged_direct:
+                index = self.kv.local_table(index)
+
+        def local(x):
+            return self._local_rows(x, block and block[0])
+
         lora = None
         if self.lora is not None:
-            lora = self._lora_args(self._local_rows(
+            lora = self._lora_args(local(
                 lora_ids if lora_ids is not None
                 else [0] * len(token_lists)))
 
@@ -1038,19 +1088,25 @@ class InferenceEngine:
 
         def prefill_chunk(chunk, offs, lengths):
             t = chunk.shape[1]
-            offs_t = self._local_rows(self._ints(offs))
-            lengths_t = self._local_rows(self._ints(lengths))
+            offs_t = local(self._ints(offs))
+            lengths_t = local(self._ints(lengths))
             positions = offs_t[:, None] + torch.arange(
                 t, dtype=torch.int32, device=self.device)[None, :]
-            tokens = self._local_rows(self._ints(chunk)).long()
+            tokens = local(self._ints(chunk)).long()
             # The chunk writes the cache in place: a watchdog-abandoned
             # dispatch must not write after recovery took over.
             with deadlines.commit_guard():
-                if contiguous:
+                if contiguous and tokens.shape[0] == 0:
+                    # a data replica with no row of this batch
+                    logits = torch.zeros((0, 1, self.cfg.vocab_size),
+                                         dtype=torch.float32,
+                                         device=self.device)
+                elif contiguous:
                     logits = forward_cached(
                         self.params, self.cfg, tokens, positions,
                         self.kv.layers, index, offs_t, offs_t + lengths_t,
-                        last_pos=lengths_t - 1, lora=lora, mesh=self.mesh)
+                        last_pos=lengths_t - 1, lora=lora,
+                        mesh=self._model_mesh)
                 elif self.paged_direct:
                     logits = forward_paged(
                         self.params, self.cfg, tokens, positions,
@@ -1063,11 +1119,12 @@ class InferenceEngine:
                     logits = forward_cached(
                         self.params, self.cfg, tokens, positions, view,
                         self._view_rows(index), offs_t, offs_t + lengths_t,
-                        last_pos=lengths_t - 1, lora=lora, mesh=self.mesh)
+                        last_pos=lengths_t - 1, lora=lora,
+                        mesh=self._model_mesh)
                     self._scatter(index, view)
             if not contiguous:
                 self._note_kv_quant("prefill", kernel=self.paged_direct)
-            return self._gather_rows(logits[:, 0])
+            return self._gather_rows(logits[:, 0], block)
 
         return chunked_prefill(dispatch, token_lists, offsets,
                                self.kv.max_seq_len, self.tokenizer.pad_id,
@@ -1079,14 +1136,68 @@ class InferenceEngine:
         copy_spans pads to one compiled shape; nothing compiles here).
         Sources never overlap a pass's destinations' spans (a donor's
         span ends at its own reuse frontier), so copying one by one equals
-        the JAX program's simultaneous copy."""
+        the JAX program's simultaneous copy. On data replicas each rank
+        copies the spans whose destination slot it holds; a source on
+        another replica arrives over the data group, one broadcast per
+        source replica, in replica order, which every rank enters (the
+        bookkeeping is the same on every rank)."""
         if not copies:
             return
+        kv = self.kv
         with deadlines.commit_guard():
-            for k, v in self.kv.layers:
-                for src, dst, lo, hi in copies:
-                    k[dst, lo:hi] = k[src, lo:hi]
-                    v[dst, lo:hi] = v[src, lo:hi]
+            if self._row_replicas == 1:
+                for k, v in kv.layers:
+                    for src, dst, lo, hi in copies:
+                        k[dst, lo:hi] = k[src, lo:hi]
+                        v[dst, lo:hi] = v[src, lo:hi]
+                return
+            me = self.mesh.data_index
+            for src, dst, lo, hi in copies:
+                if kv.replica_of_slot(src) == kv.replica_of_slot(dst) == me:
+                    for k, v in kv.layers:
+                        k[kv.local_slot(dst), lo:hi] = k[kv.local_slot(src),
+                                                         lo:hi]
+                        v[kv.local_slot(dst), lo:hi] = v[kv.local_slot(src),
+                                                         lo:hi]
+            cross = [c for c in copies
+                     if kv.replica_of_slot(c[0]) != kv.replica_of_slot(c[1])]
+            kv.cross_replica_copies += len(cross)
+            for r in range(self._row_replicas):
+                spans = [c for c in cross if kv.replica_of_slot(c[0]) == r]
+                if spans:
+                    self._copy_spans_from_replica(r, spans)
+
+    def _copy_spans_from_replica(self, r: int, spans) -> None:
+        """(src, dst, lo, hi) spans whose sources sit on data replica r:
+        rank r packs every layer's source cells, the data group receives
+        them, and each destination's rank writes its own."""
+        from .distributed import broadcast_from
+        kv = self.kv
+        mine = self.mesh.data_index == r
+        k0 = kv.layers[0][0]
+        parts = []
+        for src, _dst, lo, hi in spans:
+            shape = (len(kv.layers), 2, hi - lo) + tuple(k0.shape[2:])
+            if mine:
+                s = kv.local_slot(src)
+                parts.append(torch.stack([torch.stack((k[s, lo:hi],
+                                                       v[s, lo:hi]))
+                                          for k, v in kv.layers]))
+            else:
+                parts.append(torch.empty(shape, dtype=k0.dtype,
+                                         device=k0.device))
+        buf = broadcast_from(torch.cat(parts, dim=2),
+                             r * self.mesh.model + self.mesh.model_index,
+                             self.mesh.data_group)
+        at = 0
+        for _src, dst, lo, hi in spans:
+            n = hi - lo
+            if kv.replica_of_slot(dst) == self.mesh.data_index:
+                d = kv.local_slot(dst)
+                for li, (k, v) in enumerate(kv.layers):
+                    k[d, lo:hi] = buf[li, 0, at:at + n]
+                    v[d, lo:hi] = buf[li, 1, at:at + n]
+            at += n
 
     def _share_prefixes(self, names: list[str], slot_ids: list[int],
                         all_tokens, offsets, deadline: float, budget=None,
@@ -1132,6 +1243,14 @@ class InferenceEngine:
                         l_ids = plan.scatter_list(l_ids, 0)
             else:
                 rows = [slot_ids[m]]
+                plan = self._replica_plan([names[m]])
+                if plan is not None:
+                    # one row per replica; the others' rows are pads
+                    rows = plan.scatter_list(rows, -1)
+                    toks = plan.scatter_list(toks, [self.tokenizer.pad_id])
+                    offs = plan.scatter_list(offs, 0)
+                    if l_ids is not None:
+                        l_ids = plan.scatter_list(l_ids, 0)
             self._prefill(toks, offs, rows, deadline, budget=budget,
                           lora_ids=l_ids)
 
@@ -1270,6 +1389,13 @@ class InferenceEngine:
             plan = self._replica_plan(names)
             if plan is not None:
                 tables_np = plan.pad_table(tables_np, self.kv.scratch_page)
+        else:
+            # Slots on data replicas: rows go to the block of the replica
+            # holding their slot; pad rows are slot -1 and start done.
+            plan = self._replica_plan(names)
+        slot_index = (plan.scatter_list(slot_ids, -1)
+                      if plan is not None and tables_np is None
+                      else slot_ids)
         suffixes = [t[o:] for t, o in zip(all_tokens, offsets)]
         prefill_tokens = leader_prefill + sum(len(s) for s in suffixes)
         # "reused" counts own-slot LCP hits and shared donor spans
@@ -1277,6 +1403,7 @@ class InferenceEngine:
         common = {
             "names": names, "slot_ids": slot_ids, "all_tokens": all_tokens,
             "offsets": offsets, "tables_np": tables_np,
+            "slot_index": slot_index,
             "prefill_tokens": prefill_tokens,
             "reused_tokens": reused_tokens,
             "prefix_reused_tokens": prefix_reused,
@@ -1304,7 +1431,7 @@ class InferenceEngine:
                 p_lora = plan.scatter_list(p_lora, 0)
         last_logits = self._prefill(
             suffixes, p_offsets,
-            tables_np if tables_np is not None else slot_ids,
+            tables_np if tables_np is not None else slot_index,
             deadline=deadline, budget=pre_budget, lora_ids=p_lora)
         # A blocking read (prefill time is not billed to decode), through
         # the deadline seam.
@@ -1479,18 +1606,23 @@ class InferenceEngine:
                 None, first_token, start_valid, budget, temps, top_ks,
                 top_ps, row_budgets, done0, greedy=greedy, max_new=max_new)
         else:
-            view, rows = self._gather(table), self._view_rows(table)
+            # The gather view of this data rank's block of rows, from its
+            # own range of pages.
+            local_table = self.kv.local_table(self._local_rows(table))
+            view = self._gather(local_table)
+            rows = self._view_rows(local_table)
 
             def step(last, valid):
-                return forward_cached(self.params, self.cfg,
-                                      last.long()[:, None], valid[:, None],
-                                      view, rows, valid, valid + 1,
-                                      lora=lora, mesh=self.mesh)
+                last, valid = self._local_rows(last), self._local_rows(valid)
+                return self._gather_rows(forward_cached(
+                    self.params, self.cfg, last.long()[:, None],
+                    valid[:, None], view, rows, valid, valid + 1,
+                    lora=lora, mesh=self._model_mesh))
             out = self._decode_segment(
                 step, first_token, start_valid, budget, temps, top_ks,
                 top_ps, row_budgets, done0, greedy=greedy, max_new=max_new)
             with deadlines.commit_guard():
-                self._scatter(table, view)
+                self._scatter(local_table, view)
         return out
 
     def _decode_dispatch_slots(self, slot_idx, first_token, start_valid,
@@ -1500,12 +1632,24 @@ class InferenceEngine:
         """Contiguous-layout counterpart of _decode_dispatch_paged:
         single-token forward_cached steps over the rows' slots `slot_idx`
         [B] int32 (the JAX engine's cached_step: write at `valid`, attend
-        over valid + 1)."""
+        over valid + 1). On data replicas the index is replica-grouped
+        (pads -1) and each data rank steps its block's real rows."""
+        block = None
+        if self._row_replicas > 1:
+            rows_blk, g, slot_idx = self._slot_block(slot_idx)
+            block = (rows_blk, g)
+
         def step(last, valid):
-            return forward_cached(self.params, self.cfg,
-                                  last.long()[:, None], valid[:, None],
-                                  self.kv.layers, slot_idx, valid,
-                                  valid + 1, lora=lora, mesh=self.mesh)
+            if block is not None:
+                last, valid = last[block[0]], valid[block[0]]
+                if last.shape[0] == 0:
+                    return self._gather_rows(torch.zeros(
+                        (0, 1, self.cfg.vocab_size), dtype=torch.float32,
+                        device=self.device), block)
+            return self._gather_rows(forward_cached(
+                self.params, self.cfg, last.long()[:, None],
+                valid[:, None], self.kv.layers, slot_idx, valid, valid + 1,
+                lora=lora, mesh=self._model_mesh), block)
         with compile_watch.label(f"decode[b={first_token.shape[0]}]",
                                  engine=self.cfg.name):
             return self._decode_segment(
@@ -1523,7 +1667,10 @@ class InferenceEngine:
         temps, top_ks, top_ps = sampling_arrays(
             [SamplingParams(temperature=t, top_k=k, top_p=p)
              for t, k, p in host["sampling"]], dev)
-        lora = (self._lora_args(self._local_rows(host["lora"]))
+        block = (self._slot_block(host["index"])[0]
+                 if self.kv_layout == "contiguous" and self._row_replicas > 1
+                 else None)
+        lora = (self._lora_args(self._local_rows(host["lora"], block))
                 if host["lora"] is not None else None)
         seam = (self._decode_dispatch_paged if self.kv_layout == "paged"
                 else self._decode_dispatch_slots)
@@ -1933,7 +2080,7 @@ class InferenceEngine:
             index = self._ints(prep["tables_np"])
         else:
             seam = self._decode_dispatch_slots
-            index = self._ints(prep["slot_ids"])
+            index = self._ints(prep["slot_index"])
         row_remaining = row_budget_fn(per_row, sampling_per_turn, max_new,
                                       self.device)
         lora_slots = prep["lora_slots"]
@@ -1941,7 +2088,10 @@ class InferenceEngine:
         if lora_slots is not None:
             dec_ids = (plan.scatter_list(lora_slots, 0) if plan is not None
                        else lora_slots)
-            dec_lora = self._lora_args(self._local_rows(dec_ids))
+            block = (self._slot_block(prep["slot_index"])[0]
+                     if self.kv_layout == "contiguous"
+                     and self._row_replicas > 1 else None)
+            dec_lora = self._lora_args(self._local_rows(dec_ids, block))
 
         def decode_dispatch(cur_last, cur_valid, budget, done0):
             row_budgets = row_remaining(budget)

@@ -638,13 +638,16 @@ def einsum_int4_or_reason(spec: str, a: torch.Tensor, leaf):
 
 def _spmd(mesh, spec, a, leaf, w_shape, tp, plain: bool):
     plan = leaf.plan
-    if (plan is None or plan.mesh_shape != (mesh.data, mesh.model)
-            or plan.spec != spec
+    # A shard is the model axis's (the data axis replicates the weights):
+    # a data replica's rows, whichever mesh view the forward got, run the
+    # same shard.
+    if (plan is None or not plan.mesh_shape
+            or plan.mesh_shape[1] != mesh.model or plan.spec != spec
             or plan.w_shape != tuple(w_shape) or plan.tp != tp):
         raise ValueError(
             f"{spec}: the Int4Leaf is not planned as a shard of the "
-            f"{list(w_shape)} weight ({tp}) on mesh {mesh.shape} "
-            f"(sharding.plan_int4_shard)")
+            f"{list(w_shape)} weight ({tp}) on a {mesh.model}-way model "
+            f"axis (sharding.plan_int4_shard)")
     if plain:
         plan = dataclasses.replace(plan, plain=True)
     y, reason = _run(spec, a, leaf, plan)

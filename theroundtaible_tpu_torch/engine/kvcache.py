@@ -78,9 +78,13 @@ class SlotBook:
                     f"{len(pinned)} knights are pinned in one batch - "
                     "raise num_slots in the adapter config")
             self.release(victim)
-        state = SlotState(slot_id=self._free.pop(0), name=name)
+        state = SlotState(slot_id=self._take_free(), name=name)
         self._slots[name] = state
         return state
+
+    def _take_free(self) -> int:
+        """The free slot a new knight gets (the first one)."""
+        return self._free.pop(0)
 
     def release(self, name: str) -> None:
         state = self._slots.pop(name, None)
@@ -270,23 +274,68 @@ class KVCache(SlotBook):
     at construction. Serving writes it in place (models/common
     forward_cached) and the kernels read slots through their row map, so
     no slot is ever gathered or copied whole. On the card unless the
-    caller passes device="cpu"."""
+    caller passes device="cpu".
+
+    Data replicas (`replicas` > 1, a mesh's "data" axis, as the JAX
+    package's kv_cache_spec shards the slot axis): the bookkeeping covers
+    every slot on every rank, and this rank's layers hold its replica's
+    block of num_slots / replicas slots (slot s lives on replica
+    s // per_replica; a new knight's slot on the replica holding the
+    fewest, `_take_free`); the caller keeps num_slots divisible (else one
+    replica holds every slot, JAX's _fallback_replicated)."""
 
     def __init__(self, cfg: ModelConfig, num_slots: int,
                  max_seq_len: Optional[int] = None, dtype=torch.bfloat16,
-                 device="cuda"):
+                 device="cuda", replicas: int = 1, replica_index: int = 0):
         device = resolve_device(device)
         super().__init__(num_slots)
+        if num_slots % replicas:
+            raise ValueError(f"{num_slots} slots do not split over "
+                             f"{replicas} data replicas")
         self.cfg = cfg
         self.max_seq_len = max_seq_len or cfg.max_seq_len
-        shape = (num_slots, self.max_seq_len, cfg.num_kv_heads, cfg.head_dim)
+        self.replicas = replicas
+        self.replica_index = replica_index
+        self.per_replica = num_slots // replicas
+        # Donor spans copied from one replica's slot into another's.
+        self.cross_replica_copies = 0
+        shape = (self.per_replica, self.max_seq_len, cfg.num_kv_heads,
+                 cfg.head_dim)
         self.layers: list[tuple[torch.Tensor, torch.Tensor]] = [
             (torch.zeros(shape, dtype=dtype, device=device),
              torch.zeros(shape, dtype=dtype, device=device))
             for _ in range(cfg.num_layers)]
 
+    def _take_free(self) -> int:
+        """On data replicas a new knight's slot sits on the replica holding
+        the fewest slots (the lowest index on a tie, the first free slot
+        there), as the paged pool pins a new slot (paging.PagedKVCache
+        .acquire): a batch's rows spread over the replicas."""
+        if self.replicas == 1:
+            return super()._take_free()
+        held = [0] * self.replicas
+        for st in self._slots.values():
+            held[self.replica_of_slot(st.slot_id)] += 1
+        have = {self.replica_of_slot(s) for s in self._free}
+        r = min(have, key=lambda r: (held[r], r))
+        slot = next(s for s in self._free if self.replica_of_slot(s) == r)
+        self._free.remove(slot)
+        return slot
+
+    def replica_of(self, name: str) -> int:
+        """The data replica holding `name`'s slot (the engine's
+        ReplicaGroupPlan keys on it)."""
+        return self.replica_of_slot(self._slots[name].slot_id)
+
+    def replica_of_slot(self, slot_id: int) -> int:
+        return slot_id // self.per_replica
+
+    def local_slot(self, slot_id: int) -> int:
+        """`slot_id`'s index in this rank's layers (its replica's block)."""
+        return slot_id - self.replica_index * self.per_replica
+
     def hbm_bytes(self) -> int:
-        """Device bytes of every layer's K and V cache."""
+        """Device bytes of every layer's K and V cache (this rank's)."""
         k, _ = self.layers[0]
         return 2 * k.numel() * k.element_size() * len(self.layers)
 

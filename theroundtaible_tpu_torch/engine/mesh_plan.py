@@ -46,7 +46,7 @@ from typing import Any, Callable, Optional
 # The state-changing calls of each engine part the scheduler makes. The
 # engine's are its device dispatches (the followers' dispatch count).
 DISPATCHES = frozenset({"_prepare_batch", "_ragged_dispatch",
-                        "_segment_from_host"})
+                        "_segment_from_host", "_generate_planned"})
 _PARTS = {"kv": frozenset({"ensure_capacity", "alias_span", "commit",
                            "release", "take_free_pages", "give_back_pages",
                            "swap_in_page", "scratch_slot"}),
@@ -75,7 +75,10 @@ def inside_plan() -> bool:
 
 
 @contextlib.contextmanager
-def _planned():
+def lockstep():
+    """The context of a call every rank makes whole: a planned call, or a
+    pipeline engine's generate (engine/pp_serving.py), whose own
+    collectives carry rank 0's decisions. Dispatches inside run bare."""
     from . import deadlines
     _local.depth = getattr(_local, "depth", 0) + 1
     try:
@@ -144,7 +147,7 @@ class PlanChannel:
         _target, _attr, args, kwargs = plan
         with self._lock:
             self.send(plan)
-            with _planned():
+            with lockstep():
                 try:
                     out = fn(*args, **kwargs)
                 except Exception as e:
@@ -269,7 +272,7 @@ def follow(engine, channel: PlanChannel, counts: dict) -> dict:
             counts["dispatches"] += 1
         outcome = None
         try:
-            with engine._serve_lock, _planned():
+            with engine._serve_lock, lockstep():
                 getattr(parts[target], attr)(*args, **kwargs)
         except Exception as e:  # noqa: BLE001 - settled with rank 0's
             outcome = type(e).__name__
@@ -291,8 +294,9 @@ def follow_config(config, device="cuda") -> list[dict]:
     """A follower rank's `serve` / `gateway`: seat the config's knights as
     rank 0 does, build each torch-llm seat's engine (the same engines, in
     the same order, so their collectives meet), follow each engine's
-    scheduler until rank 0 closes it, and write nothing. Returns each
-    scheduler's plan counts."""
+    scheduler - or, for a pipe mesh's PPEngine, which has none, its
+    planned calls (PPEngine.follow_plans) - until rank 0 closes it, and
+    write nothing. Returns each engine's plan counts."""
     from ..adapters.factory import initialize_adapters
     from .scheduler import scheduler_for
     engines: list = []
@@ -301,7 +305,30 @@ def follow_config(config, device="cuda") -> list[dict]:
             engine = adapter._get_engine()
             if all(e is not engine for e in engines):
                 engines.append(engine)
-    scheds = [scheduler_for(e) for e in engines]
-    for sched in scheds:
+    counts: list = [None] * len(engines)
+    errors: list = []
+
+    def follow_pp(i, engine):
+        try:
+            counts[i] = engine.follow_plans()
+        except BaseException as e:  # noqa: BLE001 - re-raised below
+            errors.append(e)
+
+    threads, scheds = [], {}
+    for i, engine in enumerate(engines):
+        if hasattr(engine, "follow_plans"):
+            th = threading.Thread(target=follow_pp, args=(i, engine),
+                                  daemon=True, name=f"pp-follow-{i}")
+            th.start()
+            threads.append(th)
+        else:
+            scheds[i] = scheduler_for(engine)
+    for sched in scheds.values():
         sched.close(timeout_s=None)
-    return [sched.plan_counts() for sched in scheds]
+    for th in threads:
+        th.join()
+    if errors:
+        raise errors[0]
+    for i, sched in scheds.items():
+        counts[i] = sched.plan_counts()
+    return counts

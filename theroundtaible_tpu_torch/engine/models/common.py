@@ -254,7 +254,8 @@ def int4_sites(params: Params, cfg: ModelConfig) -> list:
     head = "embedding" if cfg.tie_embeddings else "lm_head"
     sites = [(LEAF_SPECS[k], v) for layer in params["layers"]
              for k, v in flat_layer(layer).items() if k in LEAF_SPECS]
-    sites.append((SPEC_HEAD, params[head]))
+    if head in params:   # (a pipeline stage other than the last has none)
+        sites.append((SPEC_HEAD, params[head]))
     return [(spec, w) for spec, w in sites if isinstance(w, Int4Leaf)]
 
 
@@ -745,15 +746,18 @@ def forward(
     last_pos: Optional[torch.Tensor] = None,   # [B] row index into T
     lora=None,
     mesh=None,
+    hidden: Optional[torch.Tensor] = None,     # [B, T, E] stage input
+    head: bool = True,
 ) -> tuple[torch.Tensor, list[tuple[torch.Tensor, torch.Tensor]]]:
     """Full model forward over a position-aligned cache. Returns (logits
     [B,T,V] - [B,1,V] when `last_pos` is given, gathered before the head -
     and the updated caches). `lora`: a LoraBatch with one adapter slot per
     row; `mesh`: this rank's Mesh, with `params` and the caches its
-    shards."""
-    x = embed(params, cfg, tokens, mesh)
+    shards. A pipeline stage's layer range as in forward_cached: `hidden`
+    replaces the embedding, `head=False` returns the hidden states."""
+    x = embed(params, cfg, tokens, mesh) if hidden is None else hidden
     kv_len = (kv_caches[0][0].shape[1] if kv_caches is not None
-              else tokens.shape[1])
+              else positions.shape[1])
     mask = make_attention_mask(positions, kv_len, kv_valid_len,
                                cfg.sliding_window)
     tabs = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
@@ -765,11 +769,9 @@ def forward(
                                          kv_valid=kv_valid_len, lora=lora,
                                          mesh=mesh)
         new_caches.append(new_cache)
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps,
-                 cfg.rmsnorm_unit_offset)
-    if last_pos is not None:
-        x = gather_rows(x, last_pos)
-    return lm_head(params, cfg, x, mesh), new_caches
+    if not head:
+        return x, new_caches
+    return final_head(params, cfg, x, last_pos, mesh), new_caches
 
 
 def _check_cached_write(rows: torch.Tensor, offsets: torch.Tensor, t: int,
@@ -805,6 +807,8 @@ def forward_cached(
     plain: bool = False,
     lora=None,
     mesh=None,
+    hidden: Optional[torch.Tensor] = None,     # [B, T, E] stage input
+    head: bool = True,
 ) -> torch.Tensor:
     """One serving step against the contiguous cache - a prefill chunk or a
     decode step; the counterpart of the JAX engine's prefill_step and
@@ -818,11 +822,17 @@ def forward_cached(
     call, nothing here copies a slot. `lora`: a LoraBatch with one adapter
     slot per row. `mesh`: this rank's Mesh - the caches hold its kv heads
     and K8/K9 run through flash_attention_spmd. Returns f32 logits [B,T,V],
-    or [B,1,V] when `last_pos` is given (gathered before the head)."""
+    or [B,1,V] when `last_pos` is given (gathered before the head).
+
+    The layer-range seam of a pipeline stage (engine/pp_serving.py): the
+    call runs the layers of `params["layers"]` against `cache_layers`, the
+    stage's own; `hidden` (the previous stage's output) replaces the
+    embedding of `tokens`, and `head=False` returns the last layer's
+    hidden states [B,T,E] without the final norm and head."""
     if plain:
         params = plain_weights(params)
     n_rows, s = cache_layers[0][0].shape[:2]
-    t = tokens.shape[1]
+    t = (tokens if hidden is None else hidden).shape[1]
     _check_cached_write(rows, offsets, t, n_rows, s)
     rows_l = rows.long()
     write_pos = offsets.long()[:, None] + torch.arange(
@@ -831,7 +841,7 @@ def forward_cached(
     mask = (None if flash else
             make_attention_mask(positions, s, kv_valid, cfg.sliding_window))
     tabs = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
-    x = embed(params, cfg, tokens, mesh)
+    x = embed(params, cfg, tokens, mesh) if hidden is None else hidden
     for layer, (k_cache, v_cache) in zip(params["layers"], cache_layers):
 
         def attn_fn(h, layer, k_cache=k_cache, v_cache=v_cache):
@@ -852,6 +862,14 @@ def forward_cached(
 
         x, _ = transformer_block(x, layer, cfg, positions, None, None, None,
                                  attn_fn=attn_fn, lora=lora, mesh=mesh)
+    return final_head(params, cfg, x, last_pos, mesh) if head else x
+
+
+def final_head(params: Params, cfg: ModelConfig, x: torch.Tensor,
+               last_pos: Optional[torch.Tensor] = None,
+               mesh=None) -> torch.Tensor:
+    """The last layer's hidden states [B,T,E] -> f32 logits: the final
+    norm, the rows at `last_pos` ([B,1,E] when given) and the head."""
     x = rms_norm(x, params["final_norm"], cfg.norm_eps,
                  cfg.rmsnorm_unit_offset)
     if last_pos is not None:
@@ -866,6 +884,48 @@ def gather_rows(x: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
 
 
 # --- initialization ---
+
+
+@dataclasses.dataclass(frozen=True)
+class Stage:
+    """One pipeline stage's share of a model (JAX pipeline.py
+    stack_stage_params, one stage of it): layers [index * per, (index + 1)
+    * per) of `count` equal stages; the embedding lives on the first stage,
+    the final norm and the head on the last, and with tied embeddings the
+    last stage holds the embedding as its head."""
+
+    index: int
+    count: int
+
+    @property
+    def first(self) -> bool:
+        return self.index == 0
+
+    @property
+    def last(self) -> bool:
+        return self.index == self.count - 1
+
+    def layers(self, num_layers: int) -> range:
+        if num_layers % self.count != 0:
+            raise ValueError(
+                f"{num_layers} layers do not split into {self.count} "
+                f"stages")
+        per = num_layers // self.count
+        return range(self.index * per, (self.index + 1) * per)
+
+    def keeps_embedding(self, cfg: "ModelConfig") -> bool:
+        return self.first or (self.last and cfg.tie_embeddings)
+
+
+def stage_keeps(stage: Optional[Stage], cfg: "ModelConfig",
+                name: str) -> bool:
+    """Whether a stage (None: the whole model) holds the top-level leaf
+    `name` (embedding, final_norm, lm_head)."""
+    if stage is None:
+        return True
+    if name == "embedding":
+        return stage.keeps_embedding(cfg)
+    return stage.last
 
 
 def leaf_keeper(cfg: ModelConfig, mesh=None,
@@ -893,7 +953,8 @@ def leaf_keeper(cfg: ModelConfig, mesh=None,
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 dtype=torch.bfloat16, device="cuda", mesh=None,
-                quantize: Optional[Callable] = None) -> Params:
+                quantize: Optional[Callable] = None,
+                stage: Optional[Stage] = None) -> Params:
     """Random init with the JAX package's distributions (normal scaled by
     fan_in^-0.5, unit or zero norms, 0.02 biases), drawn in a fixed order
     from `generator` - the counterpart of the JAX key splits. The values
@@ -905,9 +966,13 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     scale the whole leaf's) and keeps its slice of each
     (sharding.shard_tree): the shards of the weights one device would draw
     and quantize from the same generator. One whole layer is alive at a
-    time. On the card unless the caller passes device="cpu"."""
+    time. On the card unless the caller passes device="cpu". With a
+    pipeline `stage`, every leaf is still drawn in order and only the
+    stage's own are kept (Stage): the stage's slice of the weights one
+    device would draw from the same generator."""
     device = resolve_device(device)
     keep, specs = leaf_keeper(cfg, mesh, quantize)
+    own = stage.layers(cfg.num_layers) if stage is not None else None
 
     def normal(shape, scale):
         x = torch.randn(shape, generator=generator, dtype=torch.float32,
@@ -921,10 +986,12 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 
     e, h, k_, d, f = (cfg.embed_dim, cfg.num_heads, cfg.num_kv_heads,
                       cfg.head_dim, cfg.mlp_dim)
-    params: Params = keep(
-        {"embedding": normal((cfg.vocab_size, e), e ** -0.5)}, specs)
+    emb = {"embedding": normal((cfg.vocab_size, e), e ** -0.5)}
+    params: Params = (keep(emb, specs)
+                      if stage_keeps(stage, cfg, "embedding") else {})
+    del emb
     layers = []
-    for _ in range(cfg.num_layers):
+    for i in range(cfg.num_layers):
         layer = {
             "q_proj": normal((e, h, d), e ** -0.5),
             "k_proj": normal((e, k_, d), e ** -0.5),
@@ -957,12 +1024,16 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
             layer["post_attn_norm"] = layer["input_norm"]
         if cfg.post_mlp_norm:
             layer["post_mlp_norm"] = layer["pre_mlp_norm"]
-        layers.append(keep(layer, specs and specs["layers"][len(layers)]))
+        if own is None or i in own:
+            layers.append(keep(layer, specs and specs["layers"][i]))
+        del layer
     params["layers"] = layers
-    params["final_norm"] = norm(e)
+    if stage_keeps(stage, cfg, "final_norm"):
+        params["final_norm"] = norm(e)
     if not cfg.tie_embeddings:
-        params.update(keep({"lm_head": normal((cfg.vocab_size, e),
-                                              e ** -0.5)}, specs))
+        head = {"lm_head": normal((cfg.vocab_size, e), e ** -0.5)}
+        if stage_keeps(stage, cfg, "lm_head"):
+            params.update(keep(head, specs))
     return params
 
 

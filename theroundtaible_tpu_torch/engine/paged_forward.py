@@ -58,7 +58,7 @@ import torch
 from .kernels import attention as kattn
 from .kv_quant import dequantize_cells, quantize_cells
 from .models.common import (ModelConfig, Params, _model_tp, _o_proj, embed,
-                            gather_rows, lm_head, plain_weights, project_qkv,
+                            final_head, lm_head, plain_weights, project_qkv,
                             rms_norm, rope_tables, transformer_block)
 
 
@@ -114,6 +114,8 @@ def forward_paged(
     quant_spec=None,                # kv_quant.KVQuantSpec with scales
     lora=None,                      # LoraBatch, one adapter slot per row
     mesh=None,                      # this rank's sharding.Mesh
+    hidden: Optional[torch.Tensor] = None,   # [B, T, E] stage input
+    head: bool = True,
 ) -> torch.Tensor:
     """One serving step off the page pools - a decode step (T==1) or a
     prefill chunk - writing this call's K/V into `pools` (and `scales`) in
@@ -125,7 +127,12 @@ def forward_paged(
     CUDA kernels (K1/K2 and, for int4 weights, K5/K6), on any device - how
     the chip smoke holds the whole path against them. Pad-tail cells of a
     bucket land on the row's own decode-reserve pages or the scratch page,
-    both overwritten or ignored before any read."""
+    both overwritten or ignored before any read.
+
+    A pipeline stage's layer range (engine/pp_serving.py), as in
+    models/common.forward_cached: `params["layers"]` and `pools` are the
+    stage's own, `hidden` replaces the embedding of `tokens`, and
+    `head=False` returns the hidden states [B,T,E]."""
     if plain:
         params = plain_weights(params)
     page_size = pools[0][0].shape[1]
@@ -136,7 +143,7 @@ def forward_paged(
     pages = torch.gather(table.long(), 1, page_idx)           # [B, T]
     offs = (positions % page_size).long()
     starts = positions[:, 0].contiguous()
-    t = tokens.shape[1]
+    t = positions.shape[1]
     tp = _model_tp(mesh)
     replicas = mesh.data if mesh is not None else 1
     if replicas > 1:
@@ -149,7 +156,7 @@ def forward_paged(
                        else kattn.paged_decode_spmd)
         spmd_prefill = (kattn.paged_prefill_spmd_ref if plain
                         else kattn.paged_prefill_spmd)
-        part = dict(heads=heads, batch=tokens.shape[0] * replicas,
+        part = dict(heads=heads, batch=positions.shape[0] * replicas,
                     pool_replicas=replicas)
 
         def decode(q, kp, vp, tb, valid, **kw):
@@ -170,7 +177,7 @@ def forward_paged(
     bits = quant_spec.bits if quant_spec is not None else 8
     layer_scales = _layer_scales(scales, quant_spec, len(pools))
     tabs = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
-    x = embed(params, cfg, tokens, mesh)
+    x = embed(params, cfg, tokens, mesh) if hidden is None else hidden
     for layer, (k_pool, v_pool), (k_sc, v_sc) in zip(params["layers"], pools,
                                                      layer_scales):
 
@@ -192,11 +199,7 @@ def forward_paged(
 
         x, _ = transformer_block(x, layer, cfg, positions, None, None, None,
                                  attn_fn=attn_fn, lora=lora, mesh=mesh)
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps,
-                 cfg.rmsnorm_unit_offset)
-    if last_pos is not None:
-        x = gather_rows(x, last_pos)
-    return lm_head(params, cfg, x, mesh)
+    return final_head(params, cfg, x, last_pos, mesh) if head else x
 
 
 def forward_ragged(

@@ -733,6 +733,13 @@ class PagedKVCache:
         engine's ReplicaGroupPlan keys on it)."""
         return self._slots[name].replica
 
+    def local_table(self, table):
+        """A page table of this rank's replica's rows (global page ids,
+        tensor or array) as indices into this rank's pools."""
+        if self.data_size == 1:
+            return table
+        return table - self.data_index * self._per_replica
+
     def pages_per_replica(self) -> int:
         """Usable (non-scratch) pages in each replica's range."""
         return self._per_replica - 1

@@ -334,8 +334,10 @@ class SessionScheduler:
         for attr in ("_prefill", "_share_prefixes"):
             if not hasattr(engine, attr):
                 raise TypeError(
-                    "SessionScheduler requires the port's InferenceEngine "
-                    f"(missing {attr!r})")
+                    "SessionScheduler requires the port's single-program "
+                    f"InferenceEngine (missing {attr!r}); pipe-mesh engines "
+                    "serve round-level batches - use session-namespaced "
+                    "generate_batch calls instead")
         if not (hasattr(engine, "_decode_dispatch_paged")
                 or hasattr(engine, "_decode_dispatch_slots")):
             raise TypeError("SessionScheduler requires the port's "
@@ -2192,10 +2194,15 @@ class SessionScheduler:
                                     bucket_group=True)
         if plan is not None:
             # Data replicas: each row in its replica's block, the block
-            # padded to a power of two (JAX scheduler.py:2363-2375).
-            index = plan.pad_table(
-                engine.kv.table_for([r.name for r in rows]),
-                engine.kv.scratch_page)
+            # padded to a power of two (JAX scheduler.py:2363-2375); a
+            # contiguous pad row is slot -1 (it runs nowhere).
+            if engine.kv_layout == "paged":
+                index = plan.pad_table(
+                    engine.kv.table_for([r.name for r in rows]),
+                    engine.kv.scratch_page)
+            else:
+                index = np.asarray(plan.scatter_list(
+                    [r.slot_id for r in rows], -1), np.int32)
             pad = 0
         elif engine.kv_layout == "paged":
             index = engine.kv.table_for([r.name for r in rows])

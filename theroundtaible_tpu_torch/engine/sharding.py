@@ -11,7 +11,9 @@ spec tree (`param_specs`, JAX l.106-151); the forward
 
 Axes, as in the JAX package:
 - "data"  - batch/slot parallelism: each replica serves different slots;
-- "model" - tensor parallelism: attention heads, MLP hidden and vocab.
+- "model" - tensor parallelism: attention heads, MLP hidden and vocab;
+- "pipe"  - pipeline stages (PipeMesh, build_pipe_mesh), with "model"
+  inside each stage; engine/pp_serving.PPEngine serves such a mesh.
 
 Ranks are laid out row-major over (data, model), as the JAX package
 reshapes its device list: rank = data_index * model + model_index.
@@ -119,21 +121,50 @@ def mesh_size(mesh_shape: Optional[dict[str, int]]) -> int:
     return math.prod(max(n, 1) for n in sizes)
 
 
+PIPE_AXIS = "pipe"
+
 # The mesh axes of the JAX package that the port does not serve yet, and
 # the ROADMAP Queue 1 slice that brings each.
-_UNPORTED_AXES = {"pipe": "pipeline parallelism, Queue 1 slice 3",
-                  "seq": "sequence parallelism, Queue 1 slice 4"}
+_UNPORTED_AXES = {"seq": "sequence parallelism, Queue 1 slice 4"}
 
 
 def check_mesh_axes(mesh_shape: Optional[dict[str, int]]) -> None:
-    """Raise NotImplementedError for a mesh axis other than "data" and
-    "model", before any process group is touched: such a mesh must not
-    be served as tensor parallelism over the whole group."""
+    """Refuse a mesh no engine serves, before any process group is
+    touched: an axis other than "data", "model" and "pipe" ("seq") raises
+    NotImplementedError naming its slice, and a "pipe" axis beside any
+    axis but "model" raises the JAX package's ValueError (PPEngine.
+    from_config: a data axis inside stages is not implemented)."""
     from ..core.errors import ITEM_7E_II, not_ported
-    for axis in sorted(set(mesh_shape or {}) - {DATA_AXIS, MODEL_AXIS}):
+    axes = set(mesh_shape or {})
+    for axis in sorted(axes - {DATA_AXIS, MODEL_AXIS, PIPE_AXIS}):
         what = _UNPORTED_AXES.get(axis, "an axis the JAX package names")
         raise not_ported(f"mesh {dict(mesh_shape)} (a {axis!r} axis: "
                          f"{what})", ITEM_7E_II)
+    extra_axes = sorted(axes - {PIPE_AXIS, MODEL_AXIS})
+    if PIPE_AXIS in axes and extra_axes:
+        raise ValueError(
+            f"mesh axes {extra_axes} are not supported alongside "
+            "'pipe' — the PP engine supports mesh={'pipe': N} or "
+            "mesh={'pipe': N, 'model': M} (TP inside stages); use a "
+            "(data, model) mesh on the main engine for DP")
+
+
+def is_pipe_mesh(mesh_shape: Optional[dict[str, int]]) -> bool:
+    """Whether a configured mesh has a truthy "pipe" entry: such a mesh
+    is served by engine/pp_serving.PPEngine (get_engine routes it)."""
+    return bool((mesh_shape or {}).get(PIPE_AXIS))
+
+
+def refuse_pipe_mesh(mesh_shape: Optional[dict[str, int]],
+                     what: str) -> None:
+    """ValueError when `what` (a (data, model) construction) is asked for
+    a pipe mesh: get_engine builds a PPEngine for it."""
+    if is_pipe_mesh(mesh_shape):
+        raise ValueError(
+            f"mesh {dict(mesh_shape)} has a 'pipe' axis: pipeline "
+            f"parallelism is served by PPEngine (engine/pp_serving.py), "
+            f"which engine.get_engine builds for such a mesh; {what} "
+            f"serves (data, model) meshes")
 
 
 def build_mesh(mesh_shape: dict[str, int]) -> Mesh:
@@ -143,12 +174,8 @@ def build_mesh(mesh_shape: dict[str, int]) -> Mesh:
     Every rank must call it, in the same order: it creates the axes'
     process groups."""
     check_mesh_axes(mesh_shape)
-    import torch.distributed as dist
-    if not dist.is_available() or not dist.is_initialized():
-        raise RuntimeError(
-            f"mesh {mesh_shape} needs an initialized torch.distributed "
-            f"process group: start one rank per device "
-            f"(engine/distributed.py initialize or launch)")
+    refuse_pipe_mesh(mesh_shape, "build_mesh (build_pipe_mesh)")
+    dist = _require_group(mesh_shape)
     world = dist.get_world_size()
     data = int(mesh_shape.get(DATA_AXIS, 1))
     model = int(mesh_shape.get(MODEL_AXIS, -1))
@@ -181,6 +208,102 @@ def build_mesh(mesh_shape: dict[str, int]) -> Mesh:
     plan_group = dist.new_group(
         backend="gloo", timeout=datetime.timedelta(seconds=PLAN_TIMEOUT_S))
     return Mesh(data, model, rank, model_group, data_group, plan_group)
+
+
+def _require_group(mesh_shape) -> Any:
+    import torch.distributed as dist
+    if not dist.is_available() or not dist.is_initialized():
+        raise RuntimeError(
+            f"mesh {mesh_shape} needs an initialized torch.distributed "
+            f"process group: start one rank per device "
+            f"(engine/distributed.py initialize or launch)")
+    return dist
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class PipeMesh:
+    """A (pipe, model) mesh seen from one rank (counterpart of JAX
+    pipeline.build_pipe_mesh): `stages` pipeline stages of `model` ranks
+    each, ranks laid out row-major as JAX reshapes its devices (rank =
+    stage * model + model_index). `stage_mesh` is this stage's model axis
+    as a (1, model) Mesh for the forward's collectives (None without a
+    model axis); `pipe_group` is a gloo group over every rank that carries
+    the activations between stages and the last stage's tokens;
+    `plan_group` carries rank 0's plans (engine/mesh_plan.py). Both wait
+    at most mesh_plan.PLAN_TIMEOUT_S."""
+
+    stages: int
+    model: int
+    rank: int
+    stage_mesh: Optional[Mesh] = None
+    pipe_group: Any = None
+    plan_group: Any = None
+
+    @property
+    def shape(self) -> dict[str, int]:
+        return ({PIPE_AXIS: self.stages, MODEL_AXIS: self.model}
+                if self.model > 1 else {PIPE_AXIS: self.stages})
+
+    @property
+    def size(self) -> int:
+        return self.stages * self.model
+
+    @property
+    def stage(self) -> int:
+        return self.rank // self.model
+
+    @property
+    def model_index(self) -> int:
+        return self.rank % self.model
+
+    @property
+    def first(self) -> bool:
+        return self.stage == 0
+
+    @property
+    def last(self) -> bool:
+        return self.stage == self.stages - 1
+
+    def rank_of(self, stage: int) -> int:
+        """The global rank of `stage` at this rank's model index (its
+        peer in that stage)."""
+        return stage * self.model + self.model_index
+
+    @property
+    def sampler(self) -> int:
+        """The rank whose tokens every rank takes: the last stage's first
+        model rank."""
+        return (self.stages - 1) * self.model
+
+
+def build_pipe_mesh(mesh_shape: dict[str, int]) -> PipeMesh:
+    """This rank's PipeMesh of `mesh_shape` ({"pipe": n} or {"pipe": n,
+    "model": m}) over the initialized torch.distributed group, whose world
+    size must be n * m. Every rank must call it, in the same order: it
+    creates each stage's model group, then the pipe and plan groups."""
+    check_mesh_axes(mesh_shape)
+    stages = int(mesh_shape.get(PIPE_AXIS, 1))
+    model = int(mesh_shape.get(MODEL_AXIS, 1))
+    dist = _require_group(mesh_shape)
+    world = dist.get_world_size()
+    if stages < 1 or model < 1 or stages * model != world:
+        raise ValueError(f"need {stages * model} devices (pipe {stages} x "
+                         f"model {model}), have {world}")
+    rank = dist.get_rank()
+    model_group = None
+    for s in range(stages):
+        ranks = [s * model + j for j in range(model)]
+        group = dist.new_group(ranks) if model > 1 else None
+        if rank in ranks:
+            model_group = group
+    import datetime
+    from .mesh_plan import PLAN_TIMEOUT_S
+    timeout = datetime.timedelta(seconds=PLAN_TIMEOUT_S)
+    pipe_group = dist.new_group(backend="gloo", timeout=timeout)
+    plan_group = dist.new_group(backend="gloo", timeout=timeout)
+    stage_mesh = (Mesh(1, model, rank % model, model_group)
+                  if model > 1 else None)
+    return PipeMesh(stages, model, rank, stage_mesh, pipe_group, plan_group)
 
 
 def param_specs(cfg: ModelConfig) -> Params:

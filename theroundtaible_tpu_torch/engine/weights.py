@@ -28,7 +28,7 @@ import torch
 from .device import resolve_device
 from .kernels.int4mm import plan_leaf
 from .models.common import (LEAF_SPECS, Int4Leaf, ModelConfig, Params,
-                            flat_layer, nest_layer)
+                            flat_layer, nest_layer, stage_keeps)
 from .quant import _SCALE_AXES
 
 
@@ -122,13 +122,15 @@ def _leaf(x, shape, name: str, dtype, device):
 
 
 def params_from_numpy(tree: dict, cfg: ModelConfig, dtype=torch.bfloat16,
-                      device="cuda", mesh=None) -> Params:
+                      device="cuda", mesh=None, stage=None) -> Params:
     """The port's parameters from `jax.device_get(engine.params)`, dense or
     quantized; under `mesh` this rank's slices of them (one leaf at a time
     is bridged whole on the CPU, sliced, and its slice copied to `device`,
-    so the host holds one whole leaf at most). On the card unless the
-    caller passes device="cpu". Raises on a missing leaf or a shape that
-    disagrees with `cfg`."""
+    so the host holds one whole leaf at most). With a pipeline `stage`
+    (models/common.Stage) only the stage's leaves are bridged: its layers,
+    and the embedding, final norm and head where the stage holds them. On
+    the card unless the caller passes device="cpu". Raises on a missing
+    leaf or a shape that disagrees with `cfg`."""
     device = resolve_device(device)
     if len(tree["layers"]) != cfg.num_layers:
         raise ValueError(f"tree has {len(tree['layers'])} layers, config "
@@ -149,17 +151,17 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, dtype=torch.bfloat16,
             return _leaf(x, shape, name, dtype, device)
 
     vocab = (cfg.vocab_size, cfg.embed_dim)
-    out: Params = {
-        "embedding": leaf(tree["embedding"], vocab, "embedding",
-                          "embedding"),
-        "final_norm": leaf(tree["final_norm"], (cfg.embed_dim,),
-                           "final_norm", "final_norm"),
-        "layers": [],
-    }
-    if not cfg.tie_embeddings:
-        out["lm_head"] = leaf(tree["lm_head"], vocab, "lm_head", "lm_head")
-    for i, layer in enumerate(tree["layers"]):
-        flat = flat_layer(layer)
+    own = (stage.layers(cfg.num_layers) if stage is not None
+           else range(cfg.num_layers))
+    out: Params = {"layers": []}
+    for name, shape in (("embedding", vocab),
+                        ("final_norm", (cfg.embed_dim,)),
+                        ("lm_head", vocab)):
+        if (name != "lm_head" or not cfg.tie_embeddings) \
+                and stage_keeps(stage, cfg, name):
+            out[name] = leaf(tree[name], shape, name, name)
+    for i in own:
+        flat = flat_layer(tree["layers"][i])
         out["layers"].append(nest_layer({
             name: leaf(flat[name], shape, f"layers[{i}].{name}", name)
             for name, shape in expected_shapes(cfg).items()}))
