@@ -708,6 +708,30 @@ collectives; one device's beside them.
              ranks on the card (one spawn of its own, before the last
              two-rank spawn), K10c and K10b over K2 and K1 required on
              every rank.
+60. ring_round - sequence-parallel prefill on one card: Llama-3-8B at
+             full width, RING_LAYERS layers, paged, `seq_parallel: 2`
+             (a ring of width 1), three knights reviewing one ~4k-token
+             git diff, two rounds: round 1's shared span takes the ring
+             (at least one ring dispatch), round 2 none; tokens against
+             the chunked engine of the same seed (equal, or a flip at a
+             near tie below PATH_TOL); prefill s and peak memory of both.
+61. ring_round_mistral - the same on Mistral-7B with a ~5.2k-token diff,
+             past its 4,096-token window (the window masks the ring's
+             blocks and K1/K2's reads).
+62. ring_tp / 63. ulysses_tp - phase 60's rounds on `{"data": 1,
+             "model": 2}` (two gloo ranks on the card, in the last
+             two-rank spawn) with `long_scheme` "ring", then "ulysses":
+             a ring of the two ranks, each layer's weight shards gathered
+             just before it runs; per rank its peak memory in round 1 (the
+             ring) and round 2 (chunked), hops or all-to-alls and their
+             seconds; tokens against phase 60's (one device).
+64. fleet_trio - BASELINE.json config 3: Gemma-7B, Llama-3-8B and
+             Mistral-7B at full width and depth, planned by the factory
+             against this card's plannable memory (plan_fleet): Gemma-7B
+             auto-degraded to int4; each engine's device bytes beside its
+             estimate; one `discuss` round of three knights fanned out by
+             the orchestrator; each knight's tokens equal its engine run
+             alone.
 
 Run time: 452-624 s on an H100 80GB HBM3 at 700 W with the build (579 s
 with the device-time readings), 659-762 s with phases 26-27, 722.6 s with
@@ -724,7 +748,9 @@ slower; then the TP engines' depth from 32 layers to 16 (TP_LAYERS):
 layers: 713.7 s; then phases 51-54 with the engine phase at 16 layers:
 834.3 s, 1164.8 s on a host ~1.4x slower; then the router fleet at 16
 layers, PROFILE_STEPS 8 and 128 tokens in phase 53 to keep a slow host
-inside the limit.
+inside the limit; then phases 55-59 (~816-880 s); then phases 60-64 with
+the f16 kernel bodies built in a background thread after the kernel
+timings (the build 46.9 s in place of 80.9-88.0): 767 s.
 
 Then a `{"kernels": [...]}` line, the nvidia-smi line, and last
 `{"ok": true, "device": {...}}`. Details go to chiprun_out/chip_smoke/.
@@ -1831,25 +1857,36 @@ def decode_ms_per_step(stats: dict, rows: int = 3) -> float:
 
 
 def serve_rounds(torch, kattn, adapter, engine, phase, required,
-                 forbidden=()):
-    """Two 3-knight rounds through execute_round. The launch counts are
-    zeroed before and read after each round: every `required` kernel must
-    have launched in it, no `forbidden` one. Returns (launch totals, each
-    round's generated tokens per knight, each round's stats)."""
+                 forbidden=(), prompts_fn=None, peaks=False):
+    """Two 3-knight rounds through execute_round (`prompts_fn`'s prompts,
+    knight_prompts by default). The launch counts are zeroed before and
+    read after each round: every `required` kernel must have launched in
+    it, no `forbidden` one. A seq_parallel engine's ring dispatches of
+    each round join its stats; with `peaks`, the round's peak device
+    memory (its own window). Returns (launch totals, each round's
+    generated tokens per knight, each round's stats)."""
     from theroundtaible_tpu_torch.adapters.base import KnightTurn
+    prompts_fn = prompts_fn or knight_prompts
     totals = dict.fromkeys(launches_now(), 0)
     generated, round_stats = {}, {}
     prompts = None
     for rnd in (1, 2):
-        prompts = knight_prompts(rnd, prompts)
+        prompts = prompts_fn(rnd, prompts)
         turns = [KnightTurn(k, p) for k, p in prompts.items()]
         reset_launches()
+        rings = getattr(engine, "ring_dispatches", 0)
+        if peaks:
+            torch.cuda.reset_peak_memory_stats()
         t0 = time.monotonic()
         responses = adapter.execute_round(turns, timeout_ms=600_000)
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
         launches = launches_now()
         stats = adapter.last_stats()
+        if getattr(engine, "seq_ring", None) is not None:
+            stats["ring_dispatches"] = engine.ring_dispatches - rings
+        if peaks:
+            stats["max_memory_allocated"] = torch.cuda.max_memory_allocated()
         round_stats[rnd] = stats
         emit(phase, round=rnd, wall_s=wall,
              prompt_tokens=[len(engine.tokenizer.encode(p))
@@ -1868,7 +1905,7 @@ def serve_rounds(torch, kattn, adapter, engine, phase, required,
         if rnd == 2:
             check(stats["reused_tokens"] > 0, f"{phase} 2 reused no tokens")
         for name, n in launches.items():
-            totals[name] += n
+            totals[name] = totals.get(name, 0) + n
         generated[rnd] = {
             k: engine.kv._slots[k].tokens[len(engine.tokenizer.encode(p)):]
             for k, p in prompts.items()}
@@ -5808,7 +5845,8 @@ K5_K6 = ("mm_pack_out", "mm_pack_contract")
 _MESH_TOKENS: dict = {}
 
 
-def mesh_round_rank(torch, rank, phase, config, required, forbidden):
+def mesh_round_rank(torch, rank, phase, config, required, forbidden,
+                    prompts_fn=None):
     """One mesh engine from `config` on this rank: construction and the
     engine phase's two rounds through execute_round (serve_rounds: every
     `required` kernel launched on this rank in each round, no `forbidden`
@@ -5832,7 +5870,8 @@ def mesh_round_rank(torch, rank, phase, config, required, forbidden):
     distributed.reset_p2p_counts()
     totals, generated, stats = serve_rounds(
         torch, kattn, adapter, engine, phase, required=required,
-        forbidden=forbidden)
+        forbidden=forbidden, prompts_fn=prompts_fn,
+        peaks=prompts_fn is not None)
     kv = getattr(engine, "_kv", engine.kv)
     out = {"construct_s": construct_s,
            "describe": {k: d.get(k) for k in (
@@ -5848,6 +5887,9 @@ def mesh_round_rank(torch, rank, phase, config, required, forbidden):
                            for k in collectives},
            "p2p": distributed.p2p_counts(),
            "launches": totals, "generated": generated}
+    if prompts_fn is not None:
+        out.update({k: [stats[r].get(k) for r in (1, 2)]
+                    for k in ("ring_dispatches", "max_memory_allocated")})
     if rank == 0:
         _MESH_TOKENS[phase] = generated
     reset_engines()
@@ -6048,6 +6090,366 @@ def pp_phases(pp_ranks, data_ranks, pp_tp_ranks, references) -> dict:
                           for o in outs),
                       f"{phase}: a rank neither sent nor received")
     return out
+
+
+# --- Queue 1 slices 4 and 5: sequence-parallel long-context prefill and
+# the fleet planner (phases 60-64) ---
+
+RING_LAYERS = 8
+RING_THRESHOLD = 2048
+# The shared diff preamble of each ring phase, in characters (one token
+# each, byte tokenizer): past Mistral's 4,096-token window in its phase.
+RING_PREAMBLE = {"ring_round": 4000, "ring_round_mistral": 5200}
+RING_KNIGHTS = ("lancelot", "gawain", "percival")
+
+
+def diff_preamble(chars: int) -> str:
+    """A long git diff, as `summon` sends one: hunks of a session store's
+    changed lines, cut to `chars` characters."""
+    lines, i = [], 0
+    while sum(len(x) + 1 for x in lines) < chars:
+        f = f"src/store/journal_{i % 17}.py"
+        lines += [f"diff --git a/{f} b/{f}",
+                  f"@@ -{10 * i + 3},7 +{10 * i + 3},9 @@ def commit_{i}"
+                  f"(self, turn):",
+                  f"-        self.buffer.append(turn)  # slot {i}",
+                  f"+        self.journal.write(encode(turn, seq={i}))",
+                  "+        self.journal.flush()",
+                  "         return self.ack(turn)"]
+        i += 1
+    return "\n".join(lines)[:chars]
+
+
+def ring_prompts(chars: int):
+    """Prompts of a ring phase: three knights reviewing one diff of
+    `chars` characters (round 1 about 4.1-4.3k or 5.3-5.5k tokens); round
+    2 extends each knight's round-1 prompt."""
+    def prompts(round_no, previous=None):
+        if previous is None:
+            pre = diff_preamble(chars)
+            return {k: pre + f"\nKnight {k}, is the flush order safe "
+                    f"across a crash? " * (1 + j)
+                    for j, k in enumerate(RING_KNIGHTS)}
+        return {k: previous[k] + f" Round {round_no}: {k}, answer the "
+                "strongest objection and give a final score."
+                for k in RING_KNIGHTS}
+    return prompts
+
+
+def ring_config(base: str, **over) -> dict:
+    """The engine phase's config on `base` cut to RING_LAYERS layers, every
+    knight greedy, seq_parallel 2 with the default threshold."""
+    return depth_config(base, RING_LAYERS, **{
+        "seq_parallel": 2, "long_threshold": RING_THRESHOLD, **over})
+
+
+def ring_flips(torch, engine, prompts_fn, got, want) -> list:
+    """Every knight's first token where `got` leaves `want` (the chunked
+    engine's), with `engine`'s top-2 margin there (near_tie)."""
+    flips, prompts = [], None
+    for rnd in (1, 2):
+        prompts = prompts_fn(rnd, prompts)
+        for k, p in prompts.items():
+            f = near_tie(torch, engine, engine.tokenizer.encode(p),
+                         got[rnd][k], want[rnd][k])
+            if f is not None:
+                flips.append(dict(f, round=rnd, knight=k))
+    return flips
+
+
+def ring_round_phase(torch, kattn, phase, base):
+    """Phases 60-61: `base` at full width, RING_LAYERS layers, paged, with
+    seq_parallel 2 on one card (a ring of width 1): three knights on a
+    shared diff preamble, two rounds. Round 1's shared span (its leader's
+    offset-0 prefill, past long_threshold) takes the ring, the suffixes
+    and round 2's deltas the chunked path (K2), decode K1. The same rounds
+    on the chunked engine of the same seed: tokens equal, or a flip at a
+    near tie (PATH_TOL). Prints the ring dispatches per round, each
+    engine's prefill seconds and peak memory per round. Returns the launch
+    totals of both engines."""
+    from theroundtaible_tpu_torch.adapters.torch_llm import TorchLlmAdapter
+    from theroundtaible_tpu_torch.engine import reset_engines
+    prompts_fn = ring_prompts(RING_PREAMBLE[phase])
+    runs, totals = {}, {}
+    engines = []
+    for mode, over in (("ring", {}), ("chunked", {"seq_parallel": 0})):
+        gc.collect()
+        torch.cuda.empty_cache()
+        adapter = TorchLlmAdapter.from_config(f"torch-llm-{phase}-{mode}",
+                                              ring_config(base, **over))
+        engine = adapter._get_engine()
+        got, gen, stats = serve_rounds(
+            torch, kattn, adapter, engine, f"{phase}_{mode}",
+            required=PAGED_KERNELS[:2], forbidden=CONTIGUOUS_KERNELS,
+            prompts_fn=prompts_fn, peaks=True)
+        for name, n in got.items():
+            totals[name] = totals.get(name, 0) + n
+        runs[mode] = {"generated": gen, "stats": stats}
+        engines.append(engine)
+    ring, chunked = runs["ring"], runs["chunked"]
+    rings = [ring["stats"][r]["ring_dispatches"] for r in (1, 2)]
+    check(rings[0] >= 1 and rings[1] == 0,
+          f"{phase}: ring dispatches per round {rings} (want >= 1, 0)")
+    check(engines[0].seq_ring.size == 1, f"{phase}: ring width "
+          f"{engines[0].seq_ring.size} on one card")
+    flips = ring_flips(torch, engines[1], prompts_fn, ring["generated"],
+                       chunked["generated"])
+    check(all(f["margin"] < PATH_TOL for f in flips),
+          f"{phase}: the ring left the chunked engine's tokens away from a "
+          f"near tie: {flips}")
+    prompts = prompts_fn(1)
+    emit(phase, model=engines[0].cfg.name, layers=RING_LAYERS,
+         window=engines[0].cfg.sliding_window,
+         prompt_tokens=[len(engines[0].tokenizer.encode(p))
+                        for p in prompts.values()],
+         ring_dispatches=rings, ring_seconds=engines[0].ring_seconds,
+         equal=ring["generated"] == chunked["generated"], flips=flips,
+         margin_tolerance=PATH_TOL,
+         **{f"{mode}_{key}": [runs[mode]["stats"][r][key] for r in (1, 2)]
+            for mode in runs for key in ("prefill_seconds",
+                                         "max_memory_allocated",
+                                         "reused_tokens")},
+         decode_ms_per_step={mode: [decode_ms_per_step(runs[mode]["stats"][r])
+                                    for r in (1, 2)] for mode in runs})
+    reset_engines()
+    del engines
+    gc.collect()
+    torch.cuda.empty_cache()
+    return totals, {"generated": ring["generated"],
+                    **{f"{mode}_{key}": [runs[mode]["stats"][r][key]
+                                         for r in (1, 2)]
+                       for mode in runs for key in (
+                           "prefill_seconds", "max_memory_allocated")}}
+
+
+RING_TP_SCHEMES = ("ring", "ulysses")
+
+
+def ring_tp_rank(torch, rank, reference):
+    """Phases 62-63 on this rank: TP_MESH ({"data": 1, "model": 2}, two
+    gloo ranks on the card) at RING_LAYERS layers, seq_parallel 2 (a ring
+    of the two ranks) with long_scheme "ring", then "ulysses": the
+    ring_round phase's rounds (K10c/K10b over K2/K1 for the chunked parts),
+    per rank its peak memory in round 1 (the ring, each layer's shards
+    gathered) and in round 2 (chunked only), the hops' or all-to-alls'
+    count and seconds, prefill seconds. Rank 0 holds the tokens against
+    `reference` (ring_round's, one device); where they differ, a
+    one-device engine of the same seed gives the top-2 margin there."""
+    import torch.distributed as dist
+    from theroundtaible_tpu_torch.adapters.torch_llm import TorchLlmAdapter
+    from theroundtaible_tpu_torch.engine import reset_engines
+    prompts_fn = ring_prompts(RING_PREAMBLE["ring_round"])
+    out = {}
+    for scheme in RING_TP_SCHEMES:
+        phase = "ring_tp" if scheme == "ring" else "ulysses_tp"
+        out[phase] = mesh_round_rank(
+            torch, rank, phase,
+            ring_config("llama-3-8b-instruct", mesh=dict(TP_MESH),
+                        long_scheme=scheme),
+            TP_KERNELS[1:3] + PAGED_KERNELS[:2],
+            CONTIGUOUS_KERNELS + (TP_KERNELS[0],), prompts_fn=prompts_fn)
+        out[phase]["equal"] = out[phase]["generated"] == reference
+        out[phase]["flips"] = []
+    differ = [p for p in out if not out[p]["equal"]]
+    if rank == 0 and differ:
+        gc.collect()
+        torch.cuda.empty_cache()
+        adapter = TorchLlmAdapter.from_config(
+            "torch-llm-ring-reference",
+            ring_config("llama-3-8b-instruct", seq_parallel=0))
+        engine = adapter._get_engine()
+        for phase in differ:
+            out[phase]["flips"] = ring_flips(
+                torch, engine, prompts_fn, out[phase]["generated"],
+                reference)
+        reset_engines()
+        del engine, adapter
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    return out
+
+
+def ring_tp_phases(ranks, single) -> dict:
+    """Phases 62-63 from their ranks: both ranks' tokens the same, equal
+    to one device's or a flip at a near tie (PATH_TOL), one ring dispatch
+    in round 1 and none in round 2 on each rank, hops (ring) or
+    all-to-alls (Ulysses) counted; printed per rank beside one device's
+    ring_round. Returns each phase's launch totals."""
+    outs = [r for r, _ in ranks]
+    lines = [lines for _, lines in ranks]
+    totals = {}
+    for phase in outs[0]:
+        per = [o[phase] for o in outs]
+        check(all(p["generated"] == per[0]["generated"] for p in per),
+              f"{phase}: the ranks returned different tokens")
+        check(all(f["margin"] < PATH_TOL for f in per[0]["flips"]),
+              f"{phase}: a token left one device's away from a near tie: "
+              f"{per[0]['flips']}")
+        check(all(p["ring_dispatches"][0] >= 1 and p["ring_dispatches"][1]
+                  == 0 for p in per),
+              f"{phase}: ring dispatches {[p['ring_dispatches'] for p in per]}")
+        key = "ring_hops" if phase == "ring_tp" else "all_to_all_calls"
+        check(all(p["p2p"][key] > 0 for p in per),
+              f"{phase}: no {key} on a rank: {[p['p2p'] for p in per]}")
+        emit(phase, mesh=TP_MESH, layers=RING_LAYERS,
+             ranks=[{k: v for k, v in p.items() if k != "generated"}
+                    for p in per],
+             single_device={k: single[k] for k in (
+                 "ring_prefill_seconds", "ring_max_memory_allocated",
+                 "chunked_prefill_seconds")},
+             equal=per[0]["equal"], flips=per[0]["flips"],
+             margin_tolerance=PATH_TOL, round_lines=lines)
+        totals[phase] = {}
+        for p in per:
+            for k, n in p["launches"].items():
+                totals[phase][k] = totals[phase].get(k, 0) + n
+    return totals
+
+
+FLEET_TRIO = ("gemma-7b-it", "llama-3-8b-instruct", "mistral-7b-instruct")
+FLEET_MAX_NEW = 16
+FLEET_TOPIC = "Should the session store journal every turn before it acks?"
+
+
+def fleet_engine_config(model: str) -> dict:
+    """One knight's engine at full depth and width, the script's engine
+    shape (8 slots, 8192 positions, the paged pool), greedy."""
+    config = {k: v for k, v in ENGINE_CONFIG.items()
+              if k != "knight_sampling"}
+    config.update(model=model, seed=SEED,
+                  sampling={"temperature": 0.0,
+                            "max_new_tokens": FLEET_MAX_NEW})
+    return config
+
+
+def fleet_trio_phase(torch, kattn):
+    """Phase 64, BASELINE.json config 3: three knights on Gemma-7B,
+    Llama-3-8B and Mistral-7B at full width and depth. The factory plans
+    the fleet against this card's plannable memory (plan_fleet with
+    device_memory_bytes()); predicted: Gemma-7B degraded twice, to
+    "int4 (auto-degraded)", the other two bf16, every group [0]. Each
+    engine's measured device bytes beside its estimate; then one
+    `discuss` round (run_discussion, 16 tokens a knight, the three groups
+    fanned out by the orchestrator's thread pool), and each knight's
+    tokens against its engine run alone on the prompt it was given.
+    Returns the launch totals of the round and the alone runs."""
+    import tempfile
+    from theroundtaible_tpu_torch.adapters.factory import initialize_adapters
+    from theroundtaible_tpu_torch.core.orchestrator import run_discussion
+    from theroundtaible_tpu_torch.core.types import (KnightConfig,
+                                                     RoundtableConfig,
+                                                     RulesConfig)
+    from theroundtaible_tpu_torch.engine import fleet, reset_engines
+    ids = {m: f"torch-llm-{m}" for m in FLEET_TRIO}
+    config = RoundtableConfig(
+        version="1.0", project="fleet", language="en",
+        knights=[KnightConfig(name=f"Knight-{m.split('-')[0]}",
+                              adapter=ids[m], priority=i + 1)
+                 for i, m in enumerate(FLEET_TRIO)],
+        rules=RulesConfig(max_rounds=1, consensus_threshold=9,
+                          parallel_rounds=True,
+                          timeout_per_turn_seconds=600),
+        chronicle="chronicle.md",
+        adapter_config={ids[m]: fleet_engine_config(m) for m in FLEET_TRIO})
+    budget = fleet.device_memory_bytes()
+    estimates = {m: fleet.estimate_engine_hbm_bytes(
+        dict(config.adapter_config[ids[m]])) for m in FLEET_TRIO}
+    events = []
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    t0 = time.monotonic()
+    # seating plans the fleet, then builds each engine (is_available)
+    adapters = initialize_adapters(
+        config, lambda kind, msg: events.append((kind, msg)))
+    torch.cuda.synchronize()
+    seat_s = time.monotonic() - t0
+    fleet_bytes = torch.cuda.memory_allocated() - before
+    planned = {m: {k: config.adapter_config[ids[m]].get(k) for k in (
+        "devices", "quant", "_quant_auto_degraded")} for m in FLEET_TRIO}
+    check(not [m for k, m in events if k == "unavailable"],
+          f"fleet_trio: a knight unseated: {events}")
+    check(all(p["devices"] == [0] for p in planned.values()),
+          f"fleet_trio: planned groups {planned}")
+    built = {}
+    for m in FLEET_TRIO:
+        engine = adapters[ids[m]]._get_engine()
+        d = engine.describe()
+        # the engine's stored bytes: its weights and its page pool
+        built[m] = {"device_bytes": (tree_bytes(engine.params)
+                                     + engine.kv.hbm_bytes()),
+                    "estimate_bytes": fleet.estimate_engine_hbm_bytes(
+                        dict(config.adapter_config[ids[m]])),
+                    "estimate_bf16_bytes": estimates[m],
+                    "quant": d["quant"], "params": d["params"],
+                    "kv_pool_bytes": engine.kv.hbm_bytes()}
+    check(all(b["device_bytes"] < b["estimate_bytes"]
+              for b in built.values()),
+          f"fleet_trio: an engine holds more than its estimate: {built}")
+    check(built["gemma-7b-it"]["quant"] == "int4 (auto-degraded)",
+          f"fleet_trio: Gemma-7B serves {built['gemma-7b-it']['quant']}")
+    # Every prompt each engine serves in the round, as it gets it.
+    seen = {m: [] for m in FLEET_TRIO}
+    for m in FLEET_TRIO:
+        a = adapters[ids[m]]
+        inner = a.execute_round
+
+        def recording(turns, *args, _m=m, _inner=inner, **kw):
+            seen[_m].extend((t.knight_name, t.prompt) for t in turns)
+            return _inner(turns, *args, **kw)
+        a.execute_round = recording
+    project = Path(tempfile.mkdtemp(dir=OUT))
+    (project / ".roundtable" / "sessions").mkdir(parents=True)
+    reset_launches()
+    t0 = time.monotonic()
+    result = run_discussion(FLEET_TOPIC, config, adapters, str(project),
+                            read_source_code=False)
+    torch.cuda.synchronize()
+    round_s = time.monotonic() - t0
+    totals = launches_now()
+    check(all(len(seen[m]) == 1 for m in FLEET_TRIO),
+          f"fleet_trio: prompts served per engine "
+          f"{ {m: len(v) for m, v in seen.items()} }")
+    together = {}
+    for m in FLEET_TRIO:
+        engine = adapters[ids[m]]._get_engine()
+        name = next(iter(engine.kv.slot_names()))
+        together[m] = list(engine.kv._slots[name].tokens)
+    # Alone: each engine again, one after another, on its knight's prompt.
+    alone = {}
+    reset_launches()
+    for m in FLEET_TRIO:
+        engine = adapters[ids[m]]._get_engine()
+        engine.kv.flush()
+        knight, prompt = seen[m][0]
+        engine.generate_batch([(knight, prompt)],
+                              max_new_tokens=FLEET_MAX_NEW)
+        alone[m] = list(engine.kv._slots[knight].tokens)
+    for k, n in launches_now().items():
+        totals[k] = totals.get(k, 0) + n
+    check(all(together[m] == alone[m] for m in FLEET_TRIO),
+          f"fleet_trio: a knight's tokens in the round differ from its "
+          f"engine alone: {[m for m in FLEET_TRIO if together[m] != alone[m]]}")
+    check(totals["paged_prefill_attention"] > 0
+          and totals["paged_decode_attention"] > 0
+          and totals["mm_pack_out"] > 0 and totals["mm_pack_contract"] > 0,
+          f"fleet_trio: a kernel of the trio never launched: {totals}")
+    emit("fleet_trio", budget_bytes=budget, seat_s=seat_s, planned=planned,
+         engines=built, fleet_bytes=fleet_bytes,
+         estimate_sum=sum(b["estimate_bytes"] for b in built.values()),
+         round_s=round_s,
+         spoke=sorted({e.knight for e in result.all_rounds}),
+         equal_alone={m: together[m] == alone[m] for m in FLEET_TRIO},
+         memory_allocated=torch.cuda.memory_allocated(),
+         launches=totals)
+    reset_engines()
+    del adapters
+    gc.collect()
+    torch.cuda.empty_cache()
+    import shutil
+    shutil.rmtree(project, ignore_errors=True)
+    return totals
 
 
 def hf_tensors(torch, params, cfg):
@@ -9890,9 +10292,10 @@ def main() -> int:
     from theroundtaible_tpu_torch.engine import compile_watch
     compile_watch.install()
     t0 = time.monotonic()
-    build.build_all()
+    build.build_all(f16=False)
     emit("build", seconds=time.monotonic() - t0,
          sources=list(build.SOURCES))
+
     logs = build.build_logs()
     for name, log in logs.items():
         (OUT / f"{name}.ptxas.log").write_text(log)
@@ -9918,6 +10321,11 @@ def main() -> int:
     emit("kernels_timing", **kernels["timing"])
     spmd_device = spmd_device_phase(torch, kattn)
     qerrs, qtiming, w4 = quant_kernels_phase(torch, kattn)
+    # The f16 bodies (phases 49-50) build in the background from here, once
+    # the kernels' timings are taken, while the engine phases run.
+    f16_build = threading.Thread(target=build.build_all,
+                                 kwargs={"f16": "only"}, daemon=True)
+    f16_build.start()
 
     launches, engine, reference = engine_phase(torch, kattn)
     bf16_profile = profile_phase(torch, engine)
@@ -10057,6 +10465,10 @@ def main() -> int:
     moe_launches = {"moe_engine": moe_engine_phase(torch, kattn)}
     moe_quant_launches, k5_expert = moe_quant_phase(torch, kattn)
     moe_launches["moe_checkpoint"] = moe_checkpoint_phase(torch, kattn)
+    t0 = time.monotonic()
+    f16_build.join()
+    emit("build_f16", libraries=[n + build.F16 for n in build.SOURCES],
+         waited_s=time.monotonic() - t0)
     f16_timing = f16_kernels_phase(torch, kattn)
     gc.collect()
     torch.cuda.empty_cache()
@@ -10064,6 +10476,18 @@ def main() -> int:
     for name in PAGED_KERNELS + CONTIGUOUS_KERNELS:
         launches[name] += sum(c.get(name, 0) for c in moe_launches.values())
         launches[name] += f16_launches.get(name, 0)
+
+    # Sequence-parallel prefill on one card (phases 60-61), then the
+    # heterogeneous trio at full depth (phase 64) while no other engine is
+    # resident; phases 62-63 ride the last two-rank spawn.
+    gc.collect()
+    torch.cuda.empty_cache()
+    seq_launches = {}
+    seq_launches["ring_round"], ring_single = ring_round_phase(
+        torch, kattn, "ring_round", "llama-3-8b-instruct")
+    seq_launches["ring_round_mistral"], _ = ring_round_phase(
+        torch, kattn, "ring_round_mistral", "mistral-7b-instruct")
+    seq_launches["fleet_trio"] = fleet_trio_phase(torch, kattn)
 
     # Tensor parallelism: two ranks sharing the card over gloo (the kernels
     # built above; every engine of this process released first), three
@@ -10103,7 +10527,8 @@ def main() -> int:
                      ("data_round_rank", ()), ("mesh_scheduler_rank", ()),
                      ("mesh_serve_rank", ()), ("pp_round_rank", ()),
                      ("data_contiguous_round_rank", ()),
-                     ("mesh_references_rank", (pp_tp_tokens,)))
+                     ("mesh_references_rank", (pp_tp_tokens,)),
+                     ("ring_tp_rank", (ring_single["generated"],)))
     tp_path_phase(runs[0])
     tp_launches["ragged_paged_spmd"] = tp_ragged_path_phase(runs[1])[
         "ragged_paged_spmd"]
@@ -10118,6 +10543,7 @@ def main() -> int:
         for name in PAGED_KERNELS:
             launches[name] += counts.get(name, 0)
     pp_launches = pp_phases(runs[7], runs[8], pp_tp_runs, runs[9][0][0])
+    seq_launches.update(ring_tp_phases(runs[10], ring_single))
 
     # The main path from a checkpoint: write, load, discuss; then the rest
     # of the CLI on the same engine (one round each), in one project.
@@ -10328,6 +10754,15 @@ def main() -> int:
         if extra:
             row["launches"] += sum(extra.values())
             row["pipeline_launches"] = extra
+    # Phases 60-64's launches (the ring prefill's rounds, the fleet trio):
+    # K1/K2, K10b/K10c, K5/K6, by phase.
+    for row in rows:
+        extra = {phase: counts[row["name"]]
+                 for phase, counts in seq_launches.items()
+                 if counts.get(row["name"])}
+        if extra:
+            row["launches"] += sum(extra.values())
+            row["seq_fleet_launches"] = extra
     build_watch_phase()
     emit("device_timing", **DEVICE_TIMING)
     summary = {"kernels": rows}

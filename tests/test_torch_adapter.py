@@ -91,8 +91,8 @@ def test_two_rounds_match_jax(adapters):
 
 def test_breaker_opens_on_construction_failure():
     torch_engine_mod.reset_engines()
-    # a "seq" axis is not ported yet (item 7e-ii): construction fails
-    bad = dict(CONFIG, mesh={"seq": 2})
+    # a DCN axis is not ported yet (item 7e-ii): construction fails
+    bad = dict(CONFIG, dcn_axis="data")
     ad = TorchLlmAdapter.from_config("torch-llm", bad, device="cpu")
     assert not ad.is_available()
     assert "not ported" in ad.unavailable_reason()

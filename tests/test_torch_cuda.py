@@ -2532,3 +2532,125 @@ def test_cuda_pp_engine_two_stages(cuda_device, layout):
     assert ranks[1]["p2p"]["recv_calls"] == ranks[0]["p2p"]["send_calls"]
     assert ranks[0]["kv_layout"] == f"stage-local {layout}" + (
         " (pool-direct)" if layout == "paged" else "")
+
+
+# --- Queue 1 slices 4 and 5: the ring prefill and the fleet planner ---
+
+def _depth(base, layers):
+    """`base` at full width cut to `layers` layers, registered."""
+    from theroundtaible_tpu_torch.engine.models import registry
+    name = f"{base}-{layers}l"
+    registry.register(dataclasses.replace(registry.get_model_config(base),
+                                          name=name, num_layers=layers))
+    return name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("base", ["llama-3-8b-instruct",
+                                  "mistral-7b-instruct"])
+def test_cuda_width_1_ring_matches_the_chunked_engine(cuda_device, base):
+    """A one-card engine with seq_parallel (a ring of width 1) prefills a
+    fresh 4,500-token prompt (padded to 8192) through the ring - past
+    Mistral's 4,096-token window - then decodes through K1: its first
+    logits stay within 5e-2 of the same engine's chunked prefill (K2),
+    and its greedy tokens equal it."""
+    from theroundtaible_tpu_torch.engine.engine import InferenceEngine
+    from theroundtaible_tpu_torch.engine.models.registry import \
+        get_model_config
+    cfg = get_model_config(_depth(base, 2))
+    eng = InferenceEngine(cfg, num_slots=2, kv_layout="paged",
+                          spec_decode=False, prefix_cache=False,
+                          kv_offload=False, seq_parallel=2,
+                          long_threshold=2048, device="cuda")
+    assert eng.seq_ring.size == 1
+    gen = torch.Generator().manual_seed(5)
+    prompt = [1] + torch.randint(5, 30000, (4499,),
+                                 generator=gen).tolist()
+    outs = []
+    for ring in (True, False):
+        if not ring:
+            eng._ring_prefill = None
+        eng.kv.release("a")
+        kattn.reset_launch_counts()
+        before = eng.ring_dispatches
+        texts = eng.generate_batch([("a", prompt)], max_new_tokens=8)
+        tokens = list(eng.kv._slots["a"].tokens[len(prompt):])
+        outs.append((texts, tokens, eng.ring_dispatches - before,
+                     kattn.launch_counts()))
+    (ring_t, ring_tok, rings, ring_l), (ch_t, ch_tok, none, ch_l) = outs
+    assert rings == 1 and none == 0
+    assert ring_l["paged_prefill_attention"] == 0
+    assert ring_l["paged_decode_attention"] > 0
+    assert ch_l["paged_prefill_attention"] > 0
+    assert ring_tok == ch_tok
+
+
+@pytest.mark.cuda
+def test_cuda_device_memory_bytes_reads_the_card(cuda_device):
+    """device_memory_bytes is the card's total memory times 0.75, the
+    device count the cards'; the trio plans on that budget."""
+    from theroundtaible_tpu_torch.engine import fleet
+    total = torch.cuda.get_device_properties(0).total_memory
+    assert fleet.device_memory_bytes() == int(total * 0.75)
+    assert fleet.device_count() == torch.cuda.device_count()
+    cfgs = [{"model": m, "num_slots": 8, "max_seq_len": 8192,
+             "kv_layout": "paged"}
+            for m in ("gemma-7b-it", "llama-3-8b-instruct",
+                      "mistral-7b-instruct")]
+    fleet.plan_fleet(cfgs)
+    assert all(c["devices"] == [0] for c in cfgs)
+    assert cfgs[0].get("quant") in ("int8", "int4")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("base,quant", [("gemma-7b-it", "int4"),
+                                        ("gemma-7b-it", "none"),
+                                        ("mistral-7b-instruct", "int4")])
+def test_cuda_7b_widths_through_every_gate(cuda_device, base, quant):
+    """Gemma-7B (D 256, H = K 16, F 24,576, the tied 256,000-row head) and
+    Mistral-7B (window 4,096) at full width, 2 layers: every gate takes
+    the engine (pool-direct K1/K2, K3's ragged seam, K5/K6 on int4), a
+    batch serves through the kernels, and the kernel path's logits stay
+    within 5e-2 of the plain path's."""
+    from theroundtaible_tpu_torch.engine.engine import InferenceEngine
+    from theroundtaible_tpu_torch.engine.models.registry import \
+        get_model_config
+    from theroundtaible_tpu_torch.engine.paged_forward import forward_paged
+    cfg = get_model_config(_depth(base, 2))
+    eng = InferenceEngine(cfg, num_slots=4, kv_layout="paged", quant=quant,
+                          spec_decode=False, device="cuda")
+    assert eng.paged_direct and eng.ragged_enabled
+    if quant == "int4":
+        # every int4 product's decode rows run K5/K6 (only prefill rows
+        # take the dequantized weight)
+        assert all(e["rows"] != "all"
+                   for e in eng.int4_path_report()["xla_dequant"])
+    kattn.reset_launch_counts()
+    int4mm.reset_launch_counts()
+    texts = eng.generate_batch([("a", [1, 5, 9, 7] * 300),
+                                ("b", [1, 8, 3] * 200)], max_new_tokens=8)
+    assert len(texts) == 2
+    counts = {**kattn.launch_counts(), **int4mm.launch_counts()}
+    assert counts["paged_prefill_attention"] > 0
+    assert counts["paged_decode_attention"] > 0
+    if quant == "int4":
+        assert counts["mm_pack_out"] > 0 and counts["mm_pack_contract"] > 0
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    tokens = torch.randint(3, 30000, (2, 256), generator=gen, device="cuda")
+    pos = torch.arange(256, dtype=torch.int32, device="cuda").expand(
+        2, 256).contiguous()
+    valid = torch.full((2,), 256, dtype=torch.int32, device="cuda")
+    table = torch.arange(1, 5, dtype=torch.int32, device="cuda").reshape(
+        2, 2)
+    out = []
+    for plain in (False, True):
+        pools = [(torch.zeros(5, 128, cfg.num_kv_heads, cfg.head_dim,
+                              dtype=torch.bfloat16, device="cuda"),
+                  torch.zeros(5, 128, cfg.num_kv_heads, cfg.head_dim,
+                              dtype=torch.bfloat16, device="cuda"))
+                 for _ in range(cfg.num_layers)]
+        out.append(forward_paged(eng.params, cfg, tokens, pos, pools, table,
+                                 valid, last_pos=valid - 1, plain=plain))
+    assert torch.isfinite(out[0]).all()
+    assert ((out[0] - out[1]).abs()
+            <= 5e-2 + 5e-2 * out[1].abs()).all()

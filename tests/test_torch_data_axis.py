@@ -136,14 +136,17 @@ def _unported_axes():
     (pipe 2 over the group, TP inside its stages on four ranks), while
     from_config and build_mesh refuse it with a ValueError naming PPEngine;
     "pipe" beside "data" raises JAX's ValueError from all three; a "seq"
-    axis raises NotImplementedError naming item 7e-ii from all three."""
+    key is ignored, as JAX's build_mesh ignores it: each of the three
+    gives what it gives for the mesh without the key (the last three
+    entries)."""
     from theroundtaible_tpu_torch.engine import get_engine, reset_engines
     from theroundtaible_tpu_torch.engine.engine import InferenceEngine
     from theroundtaible_tpu_torch.engine.sharding import build_mesh
     world = torch.distributed.get_world_size()
     pipe = {"pipe": 2, "model": world // 2} if world > 2 else {"pipe": 2}
     out = []
-    for axes in (pipe, {"seq": world}, {"data": 1, "model": 1, "pipe": world}):
+    for axes in (pipe, {"seq": world}, {"data": 1, "model": 1, "pipe": world},
+                 {}):
         config = {"model": "tiny-llama", "max_seq_len": 128,
                   "kv_layout": "paged", "page_size": 32, "mesh": axes}
         for build in (lambda: InferenceEngine.from_config(config, "cpu"),
@@ -151,7 +154,9 @@ def _unported_axes():
                       lambda: build_mesh(axes)):
             try:
                 eng = build()
-                out.append(type(eng).__name__)
+                shape = (eng.shape if hasattr(eng, "shape")
+                         else eng.describe()["mesh"])
+                out.append((type(eng).__name__, shape))
             except (NotImplementedError, ValueError) as e:
                 out.append(f"{type(e).__name__}: {e}")
     reset_engines()
@@ -308,17 +313,23 @@ def test_pipe_and_seq_axes_raise_on_live_ranks(runs):
     through get_engine (where it used to build a tensor-parallel engine
     over the whole group, F7), while InferenceEngine.from_config and
     build_mesh refuse it naming PPEngine; "pipe" beside "data" raises
-    JAX's message from all three; a "seq" axis raises NotImplementedError
-    naming item 7e-ii from all three."""
+    JAX's message from all three. A "seq" key no longer raises: it is
+    ignored as JAX's build_mesh ignores it (JAX's {"seq": n} mesh is its
+    mesh without the key), so each of the three gives what it gives
+    without the key - one device for the engines (the port's default
+    mesh), data 1 and every rank on the model axis for build_mesh (JAX's
+    default)."""
     for key in MESHES:
+        world = MESHES[key]["data"] * MESHES[key]["model"]
         for r in runs[key][1]:
             f7 = r["f7"]
-            assert len(f7) == 9
+            assert len(f7) == 12
             assert f7[0].startswith("ValueError") and "PPEngine" in f7[0]
-            assert f7[1] == "PPEngine"
+            assert f7[1][0] == "PPEngine"
             assert f7[2].startswith("ValueError") and "PPEngine" in f7[2]
-            for msg in f7[3:6]:
-                assert msg.startswith("NotImplementedError")
-                assert "ROADMAP, item 7e-ii" in msg and "'seq' axis" in msg
-            for msg in f7[6:]:
+            assert f7[3:6] == f7[9:12]
+            assert f7[3] == f7[4] == ("InferenceEngine",
+                                      {"data": 1, "model": 1})
+            assert f7[5] == ("Mesh", {"data": 1, "model": world})
+            for msg in f7[6:9]:
                 assert msg.startswith("ValueError: mesh axes ['data']")

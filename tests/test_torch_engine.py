@@ -135,7 +135,8 @@ def test_describe_keys_match(engines):
     # group the data axis raises RuntimeError, and InferenceEngine refuses
     # a pipe mesh, which get_engine builds a PPEngine for
     # (tests/test_torch_data_axis.py, tests/test_torch_pp_serving.py); a
-    # "seq" mesh axis and seq_parallel
+    # "seq" mesh key and seq_parallel are served since slice 4 and are
+    # held against the JAX engine below
     ("mesh", {"data": 2, "model": 2}), ("mesh", {"pipe": 2}),
     ("mesh", {"seq": 2}), ("seq_parallel", 2),
     # devices beyond one card (a single index selects cuda:<i>; here the
@@ -144,6 +145,9 @@ def test_describe_keys_match(engines):
 ])
 def test_unported_options_raise(key, value):
     config = {"model": "tiny-llama", "max_seq_len": 128, key: value}
+    if key == "seq_parallel" or value == {"seq": 2}:
+        _served_as_jax(config, key)
+        return
     if value == {"data": 2, "model": 2}:
         raises = pytest.raises(RuntimeError,
                                match="initialized torch.distributed")
@@ -153,6 +157,27 @@ def test_unported_options_raise(key, value):
         raises = pytest.raises(NotImplementedError, match="ROADMAP")
     with raises:
         InferenceEngine.from_config(config, device="cpu")
+
+
+def _served_as_jax(config, key):
+    """`seq_parallel: 2` builds the ring over the engine's devices in both
+    packages (one device here: width 1, JAX's one-device seq mesh), and a
+    "seq" mesh key is ignored as JAX's build_mesh ignores it: each
+    package's engine for {"seq": 2} has the mesh it has without the key."""
+    from theroundtaible_tpu.engine.engine import InferenceEngine as JaxEngine
+    bare = {k: v for k, v in config.items() if k != key}
+    if key == "seq_parallel":
+        jeng = JaxEngine.from_config({**config, "mesh": {"data": 1,
+                                                         "model": 1}})
+        teng = InferenceEngine.from_config(config, device="cpu")
+        assert teng.seq_ring.size == jeng.seq_mesh.shape["seq"] == 1
+        assert teng.long_threshold == jeng.long_threshold == 2048
+        return
+    jax_mesh = JaxEngine.from_config(config).describe()["mesh"]
+    assert jax_mesh == JaxEngine.from_config(bare).describe()["mesh"]
+    got = InferenceEngine.from_config(config, device="cpu").describe()
+    want = InferenceEngine.from_config(bare, device="cpu").describe()
+    assert got["mesh"] == want["mesh"] == {"data": 1, "model": 1}
 
 
 @pytest.mark.parametrize("key,value", [("dtype", "float16"),

@@ -69,6 +69,8 @@ def test_every_module_imports_here():
     # the pipeline modules (Queue 1 slice 3)
     assert "theroundtaible_tpu_torch.engine.pipeline" in names
     assert "theroundtaible_tpu_torch.engine.pp_serving" in names
+    # sequence-parallel prefill (Queue 1 slice 4)
+    assert "theroundtaible_tpu_torch.engine.longcontext" in names
 
 
 def test_no_silent_cpu_fallback():
@@ -94,3 +96,20 @@ def test_pipe_engine_has_no_silent_cpu_fallback():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         PPEngine.from_config({"model": "tiny-llama", "max_seq_len": 128,
                               "mesh": {"pipe": 2}})
+
+
+def test_fleet_planner_has_no_silent_cpu_fallback():
+    """The fleet planner's device queries (Queue 1 slice 5) read the card:
+    without one they raise unless the caller asks for the CPU, where there
+    is one device and no limit to check."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid here")
+    from theroundtaible_tpu_torch.engine import fleet
+    cfgs = [{"model": "tiny-gemma"}, {"model": "tiny-llama"}]
+    for call in (fleet.device_memory_bytes, fleet.device_count,
+                 lambda: fleet.plan_fleet(cfgs)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert "devices" not in cfgs[0]
+    fleet.plan_fleet(cfgs, device="cpu")
+    assert cfgs[0]["devices"] == cfgs[1]["devices"] == [0]

@@ -20,7 +20,6 @@ from __future__ import annotations
 
 from typing import Any, Callable, Optional
 
-from ..core.errors import ITEM_7E_II, not_ported
 from ..core.types import RoundtableConfig
 from .base import BaseAdapter, DEFAULT_TIMEOUT_MS
 
@@ -99,7 +98,7 @@ def initialize_adapters(
     timeout_ms = config.rules.timeout_per_turn_seconds * 1000
     adapters: dict[str, BaseAdapter] = {}
 
-    _plan_engine_fleet(config, on_event)
+    _plan_engine_fleet(config, on_event, device)
 
     for knight in config.knights:
         adapter_id = knight.adapter
@@ -131,26 +130,34 @@ def initialize_adapters(
 
 
 def _plan_engine_fleet(config: RoundtableConfig,
-                       on_event: Optional[Callable[[str, str], None]]
-                       ) -> None:
-    """Heterogeneous serving: several engine knights with DIFFERENT
-    configs. The JAX package partitions the chips into per-model submeshes
-    here (engine/fleet.py); that planner is not ported, so the engines
-    share the card, and the operator hears it through the same
-    "unavailable" notice the JAX factory gives when planning fails.
-    Homogeneous setups are untouched."""
+                       on_event: Optional[Callable[[str, str], None]],
+                       device="cuda") -> None:
+    """Heterogeneous serving (the JAX package's _plan_tpu_fleet): when
+    several engine knights use DIFFERENT models, plan their device groups
+    and fit before any engine is built (engine/fleet.plan_fleet, against
+    `device`'s memory). Unconfigured engine ids get a dict inserted into
+    the config map, so the plan reaches their adapters. Homogeneous setups
+    and configs with an explicit mesh or devices are untouched. A planning
+    failure is a notice, not an error: the engines then share the
+    devices unplanned, and the operator hears why."""
     engine_cfgs = []
     for knight in config.knights:
         if is_engine_adapter(knight.adapter):
             cfg = config.adapter_config.setdefault(knight.adapter, {})
-            if isinstance(cfg, dict) and cfg not in engine_cfgs:
+            if isinstance(cfg, dict):
                 engine_cfgs.append(cfg)
     if len(engine_cfgs) < 2:
         return
-    if on_event:
-        on_event("unavailable",
-                 f"fleet planning failed ({not_ported('fleet planning', ITEM_7E_II)}); "
-                 f"engines will share the card")
+    try:
+        from ..engine.fleet import plan_fleet
+        plan_fleet(engine_cfgs, device=device)
+    except Exception as e:  # noqa: BLE001 - the engines still run, but the
+        # operator must hear that planning failed: otherwise the symptom is
+        # an unexplained out-of-memory at weight load.
+        if on_event:
+            on_event("unavailable",
+                     f"fleet planning failed ({e}); engines will share "
+                     f"the full device mesh")
 
 
 def _post_init(adapter: BaseAdapter) -> None:

@@ -39,7 +39,7 @@ def warmup_command(project_root: str | None = None, device="cuda") -> int:
 
     # The exact planning pass discuss runs (it inserts a config dict for
     # unconfigured engine ids, as discuss's seating does).
-    _plan_engine_fleet(config, None)
+    _plan_engine_fleet(config, None, device)
     configs = [config.adapter_config.get(a, {}) for a in engine_ids]
 
     # Batch sizes the orchestrator will actually dispatch: 1 (serial

@@ -8,8 +8,9 @@ while differing ones never silently collide. A config with a mesh joins
 the process group its environment describes first (torchrun or the
 ROUNDTABLE_* variables, engine/distributed.py); a mesh whose "pipe" entry
 is truthy builds the pipeline-parallel PPEngine (engine/pp_serving.py),
-every other config the main InferenceEngine, as in the JAX package; a mesh
-axis the port does not serve ("seq") raises before anything is built.
+every other config the main InferenceEngine, as in the JAX package; a
+mesh key other than "data", "model" and "pipe" (a "seq" key) is ignored,
+as the JAX package's build_mesh ignores it.
 Per-call settings such as knight_sampling are deliberately NOT in the key.
 """
 

@@ -31,8 +31,10 @@ Nothing here picks a backend on its own.
 
 The pipeline's stages pass activations with point-to-point sends
 (`send_to`, asynchronous, and `recv_into`), always over gloo, a CUDA
-tensor staged through pinned host memory; `p2p_counts()` gives this
-process's calls and seconds.
+tensor staged through pinned host memory; the sequence-parallel ring
+passes its K/V shards the same way, and Ulysses swaps sequence for heads
+with `all_to_all_cat`; `p2p_counts()` gives this process's calls and
+seconds.
 """
 
 from __future__ import annotations
@@ -267,19 +269,62 @@ def broadcast_from(x: torch.Tensor, src: int, group) -> torch.Tensor:
 # --- point-to-point sends of the pipeline (engine/pp_serving.py) ---
 
 # Calls and seconds of this process's sends and receives (the host's side:
-# the staging copy, the gloo transfer and the wait), read by
-# p2p_counts() and reset by reset_p2p_counts().
-_P2P = {"send_calls": 0, "send_s": 0.0, "recv_calls": 0, "recv_s": 0.0}
+# the staging copy, the gloo transfer and the wait), of the sequence-
+# parallel ring's hops (engine/longcontext.py: one hop passes a K/V shard
+# on, its sends and receive included) and of its all-to-alls (Ulysses),
+# read by p2p_counts() and reset by reset_p2p_counts().
+_P2P_ZERO = {"send_calls": 0, "send_s": 0.0, "recv_calls": 0, "recv_s": 0.0,
+             "ring_hops": 0, "ring_s": 0.0, "all_to_all_calls": 0,
+             "all_to_all_s": 0.0}
+_P2P = dict(_P2P_ZERO)
 
 
 def p2p_counts() -> dict:
     """This process's point-to-point totals: send_calls, send_s,
-    recv_calls, recv_s."""
+    recv_calls, recv_s, ring_hops, ring_s, all_to_all_calls,
+    all_to_all_s."""
     return dict(_P2P)
 
 
 def reset_p2p_counts() -> None:
-    _P2P.update(send_calls=0, send_s=0.0, recv_calls=0, recv_s=0.0)
+    _P2P.update(_P2P_ZERO)
+
+
+def note_ring_hop(seconds: float) -> None:
+    """Count one hop of the sequence-parallel ring and its seconds."""
+    _P2P["ring_hops"] += 1
+    _P2P["ring_s"] += seconds
+
+
+def all_to_all_cat(x: torch.Tensor, split_dim: int, concat_dim: int,
+                   group) -> torch.Tensor:
+    """The tiled all-to-all of the JAX package's `lax.all_to_all(x,
+    split_axis, concat_axis, tiled=True)` over `group`: `x` splits into one
+    equal piece per rank along `split_dim`, piece j goes to rank j, and the
+    pieces received are concatenated along `concat_dim` in rank order. A
+    CUDA tensor under gloo goes through host memory. The exchange is one
+    send and one receive per pair of ranks (gloo has no all-to-all in
+    every torch release), each wait bounded by the plan group's timeout.
+    Counted in p2p_counts()."""
+    t0 = time.monotonic()
+    n = dist.get_world_size(group)
+    me = dist.get_rank(group)
+    src = x.cpu() if _staged(x, group) else x
+    pieces = [p.contiguous() for p in src.chunk(n, dim=split_dim)]
+    outs = [torch.empty_like(pieces[0]) for _ in range(n)]
+    outs[me] = pieces[me]
+    works = []
+    for j in range(n):
+        if j != me:
+            peer = dist.get_global_rank(group, j)
+            works.append(dist.isend(pieces[j], peer, group=group))
+            works.append(dist.irecv(outs[j], peer, group=group))
+    for work in works:
+        work.wait(_wait_bound())
+    out = torch.cat(outs, dim=concat_dim).to(x.device)
+    _P2P["all_to_all_calls"] += 1
+    _P2P["all_to_all_s"] += time.monotonic() - t0
+    return out
 
 
 def _wait_bound():

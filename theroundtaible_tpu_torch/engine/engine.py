@@ -98,6 +98,15 @@ and copies; attention over attached or restored pages runs K1-K3 as any
 other page does. Under tensor parallelism each rank's index and tier keep
 its own pool's bookkeeping, identical across ranks.
 
+Sequence-parallel long-context prefill, as in the JAX engine:
+`seq_parallel` > 1 sends a batch of fresh prompts whose longest row has at
+least `long_threshold` tokens (default 2048) through the ring of the
+engine's ranks (engine/longcontext.py; `long_scheme` "ring" or
+"ulysses"), which writes every layer's whole-sequence K/V into the slots
+or pages; decode and delta prefills stay on the kernels above. One device
+rings alone. Such an engine declines LoRA (`seq_parallel:ring-prefill`).
+`ring_dispatches` counts the prefills that took the ring.
+
 Asking for an option that is not ported raises NotImplementedError naming
 its ROADMAP item (core/errors.not_ported).
 """
@@ -209,6 +218,7 @@ class InferenceEngine:
                  num_slots: int = 8, dtype=torch.bfloat16,
                  sampling: Optional[SamplingParams] = None,
                  seed: int = 0, seq_parallel: int = 0,
+                 long_threshold: int = 2048, long_scheme: str = "ring",
                  attn: str = "auto", kv_layout: str = "contiguous",
                  page_size: int = 128, num_pages: Optional[int] = None,
                  quant: str = "none",
@@ -224,8 +234,8 @@ class InferenceEngine:
                  dcn_axis: Optional[str] = None, device="cuda"):
         self.device = resolve_device(self._pinned_device(device, devices,
                                                          dcn_axis))
-        self._check_ported(model_cfg, mesh_shape, dtype, seq_parallel,
-                           attn, kv_layout, quant)
+        self._check_ported(model_cfg, mesh_shape, dtype, attn, kv_layout,
+                           quant)
         # This rank's Mesh under tensor parallelism, else None (one
         # device); `local_cfg` is the slice of the model it holds.
         self.mesh = (build_mesh(mesh_shape) if mesh_size(mesh_shape) > 1
@@ -400,7 +410,9 @@ class InferenceEngine:
         # by the generate and scheduler seams and embedded in describe().
         from ..utils import perfmodel
         self.perf = perfmodel.EnginePerf.from_engine(self)
-        self._build_lora(lora, model_cfg, dtype)
+        self._build_ring(model_cfg, seq_parallel, long_threshold,
+                         long_scheme)
+        self._build_lora(lora, model_cfg, dtype, seq_parallel)
         self._resolve_spec(spec_decode, spec_max_draft, num_slots)
         # Every rank of a mesh seeds its generator alike: the gathered
         # logits are identical, so are the sampled tokens.
@@ -411,6 +423,8 @@ class InferenceEngine:
         self.last_stats = GenStats()
         # Serving mutates the slot cache: one generation at a time.
         self._serve_lock = threading.Lock()
+        # fleet.check_fleet_fits' flip of an unpinned config (from_config).
+        self.quant_auto_degraded = False
         self.retry = faults.DEFAULT_RETRY
         # The attached SessionScheduler (scheduler.acquire_scheduler).
         self._scheduler = None
@@ -452,11 +466,39 @@ class InferenceEngine:
         dist.all_gather_object(names, str(self.device))
         return names
 
-    def _build_lora(self, lora, model_cfg, dtype) -> None:
+    def _build_ring(self, model_cfg, seq_parallel, long_threshold: int,
+                    long_scheme: str) -> None:
+        """Sequence-parallel long-context prefill (engine/longcontext.py;
+        JAX engine.py:310-325): with `seq_parallel` > 1, fresh prompts of
+        at least `long_threshold` tokens prefill through the ring (or
+        Ulysses, `long_scheme`) over the engine's ranks - the ring width
+        is the engine's rank count, as the JAX package's seq mesh spans
+        the engine mesh's devices, so seq_parallel is the opt-in and one
+        device rings alone. Every rank builds the ring's group here, in
+        the same order. Decode and delta prefills stay chunked."""
+        from .longcontext import SeqRing, build_seq_mesh, make_ring_prefill
+        self.long_threshold = long_threshold
+        self.long_scheme = long_scheme
+        self.seq_ring: Optional[SeqRing] = None
+        self._ring_prefill = None
+        # Ring dispatches and their seconds (which prefill path ran).
+        self.ring_dispatches = 0
+        self.ring_seconds = 0.0
+        if seq_parallel and seq_parallel > 1:
+            self.seq_ring = build_seq_mesh(
+                self.mesh.size if self.mesh is not None else 1)
+            self._ring_prefill = make_ring_prefill(
+                model_cfg, self.seq_ring, scheme=long_scheme,
+                mesh=self._model_mesh)
+
+    def _build_lora(self, lora, model_cfg, dtype, seq_parallel) -> None:
         """The multi-LoRA store for a `lora:` block (None without one, or
         under ROUNDTABLE_LORA=0, with `lora_reason`), the lora_paths sink
-        and the sharing bookkeeping. On a card, a target whose decode
-        dispatches K7 declines fails construction, as K5/K6 do."""
+        and the sharing bookkeeping. A seq_parallel engine declines it
+        (`seq_parallel:ring-prefill`, as the JAX engine: the ring prefill
+        has no LoRA seam, so a persona row would bake base K/V). On a
+        card, a target whose decode dispatches K7 declines fails
+        construction, as K5/K6 do."""
         self._lora_dispatches: dict = {}
         self.lora: Optional[LoraStore] = None
         self.lora_reason: Optional[str] = None
@@ -470,6 +512,9 @@ class InferenceEngine:
             return
         if not lora_enabled(lora):
             self.lora_reason = "disabled:env"
+            return
+        if seq_parallel and seq_parallel > 1:
+            self.lora_reason = "seq_parallel:ring-prefill"
             return
         lora_cfg = lora if isinstance(lora, dict) else {}
         store = LoraStore(
@@ -711,9 +756,10 @@ class InferenceEngine:
     def _pinned_device(device, devices, dcn_axis):
         """`device` narrowed by the JAX engine's `devices` (indices into
         jax.devices(), which the fleet planner writes) and `dcn_axis`: one
-        index selects that card, as the index of `cuda:<i>`. Several
-        indices, an index with a CPU `device`, or any DCN axis are the
-        multi-device options still to port."""
+        index selects that card, as the index of `cuda:<i>`; on the CPU,
+        its one device is index 0. Several indices, another index with a
+        CPU `device`, or any DCN axis are the multi-device options still to
+        port (Queue 1 slice 6)."""
         if dcn_axis:
             raise not_ported(f"dcn_axis {dcn_axis!r}", ITEM_7E_II)
         if not devices:
@@ -722,6 +768,8 @@ class InferenceEngine:
             raise not_ported(f"devices {list(devices)} (several cards)",
                              ITEM_7E_II)
         dev = torch.device(device)
+        if dev.type == "cpu" and int(devices[0]) == 0:
+            return device
         if dev.type != "cuda":
             raise not_ported(f"devices {list(devices)} on device {dev}",
                              ITEM_7E_II)
@@ -732,17 +780,15 @@ class InferenceEngine:
         return torch.device("cuda", index)
 
     @staticmethod
-    def _check_ported(cfg, mesh_shape, dtype, seq_parallel, attn,
-                      kv_layout, quant) -> None:
-        """Raise NotImplementedError for every option the port does not
-        serve yet, naming the ROADMAP item that brings it."""
+    def _check_ported(cfg, mesh_shape, dtype, attn, kv_layout,
+                      quant) -> None:
+        """Refuse the options no engine of this class serves, before any
+        process group is touched."""
         if kv_layout not in ("contiguous", "paged"):
             raise ValueError(
                 f"kv_layout must be contiguous|paged, got {kv_layout!r}")
         if quant not in ("none", "int8", "int4"):
             raise ValueError(f"quant must be none|int8|int4, got {quant!r}")
-        if seq_parallel and seq_parallel > 0:
-            raise not_ported("seq_parallel (longcontext)", ITEM_7E_II)
         check_mesh_axes(mesh_shape)
         refuse_pipe_mesh(mesh_shape, "InferenceEngine")
         if attn not in ("auto", "flash", "dense"):
@@ -823,6 +869,8 @@ class InferenceEngine:
             sampling=sampling,
             seed=int(config.get("seed", 0)),
             seq_parallel=int(config.get("seq_parallel", 0)),
+            long_threshold=int(config.get("long_threshold", 2048)),
+            long_scheme=config.get("long_scheme", "ring"),
             attn=config.get("attn", "auto"),
             kv_layout=config.get("kv_layout", "contiguous"),
             page_size=int(config.get("page_size", 128)),
@@ -846,6 +894,9 @@ class InferenceEngine:
             dcn_axis=config.get("dcn_axis"),
             device=device,
         )
+        # Set by fleet.check_fleet_fits when it flips an unpinned config to
+        # a lower quant: describe()["quant"] then says so.
+        engine.quant_auto_degraded = bool(config.get("_quant_auto_degraded"))
         # Rebuild recipe: the supervisor reconstructs a dead engine from
         # exactly this config, on the engine's device - recorded here so
         # engines built outside the get_engine cache are supervisable too.
@@ -869,28 +920,45 @@ class InferenceEngine:
         # Warming is always a sanctioned build phase, a re-warm included.
         compile_watch.reopen_warmup(self.cfg.name)
         if self.device.type == "cuda":
-            kbuild.build_all()
+            kbuild.build_all(f16=self.dtype == torch.float16)
         if self.lora is not None:
             # The store's slot writes first, as the JAX engine warms its
             # setters before the serving programs.
             self.lora.warm()
         limit = min(max_prompt_tokens, self.max_seq_len - DECODE_SEGMENT - 1)
-        for b in batch_sizes:
-            if b > self.kv.num_slots:
-                continue
-            limit_b = min(limit, self._warm_prompt_cap(b))
-            if limit_b < 2:
-                continue
-            for bucket in [x for x in PREFILL_BUCKETS
-                           if x <= bucket_for(limit_b)]:
-                n = min(bucket, limit_b)  # lands exactly in `bucket`
-                # Rows diverge at position 1 so prefix sharing cannot
-                # collapse the batch.
-                turns = [(f"__warmup_{i}",
-                          [self.tokenizer.bos_id] + [5 + i] * (n - 1))
-                         for i in range(b)]
-                self._release_warm_slots()
-                self.generate_batch(turns, max_new_tokens=1)
+        # The chunked shapes with the ring off: on a seq_parallel engine
+        # warmup's long fresh rows would otherwise take the ring, and a
+        # delta prefill's bucket would first run mid-serve.
+        ring, self._ring_prefill = self._ring_prefill, None
+        try:
+            for b in batch_sizes:
+                if b > self.kv.num_slots:
+                    continue
+                limit_b = min(limit, self._warm_prompt_cap(b))
+                if limit_b < 2:
+                    continue
+                for bucket in [x for x in PREFILL_BUCKETS
+                               if x <= bucket_for(limit_b)]:
+                    n = min(bucket, limit_b)  # lands exactly in `bucket`
+                    # Rows diverge at position 1 so prefix sharing cannot
+                    # collapse the batch.
+                    self._warm_turns(b, n)
+        finally:
+            self._ring_prefill = ring
+        # The ring's lengths run up to the cache cap, not max_prompt_tokens:
+        # long_threshold, doubling, to the cap (JAX engine.py:1332-1352).
+        ring_limit = self.max_seq_len - DECODE_SEGMENT - 1
+        if ring is not None and ring_limit >= self.long_threshold:
+            for b in batch_sizes:
+                if b > self.kv.num_slots:
+                    continue
+                cap_b = min(ring_limit, self._warm_prompt_cap(b))
+                length = self.long_threshold
+                while cap_b >= self.long_threshold:
+                    self._warm_turns(b, min(length, cap_b))
+                    if length >= cap_b:
+                        break
+                    length *= 2
         if (self.kv.num_slots >= 2
                 and min(limit, self._warm_prompt_cap(2))
                 > MIN_SHARED_PREFIX + 8):
@@ -961,6 +1029,14 @@ class InferenceEngine:
                         batch["propose_width"] = pw
                     self._ragged_dispatch(batch)
         self._release_warm_slots()
+
+    def _warm_turns(self, b: int, n: int) -> None:
+        """One warm batch of b rows of n tokens that diverge at position 1
+        (prefix sharing cannot collapse it), one new token each."""
+        self._release_warm_slots()
+        self.generate_batch([(f"__warmup_{i}",
+                              [self.tokenizer.bos_id] + [5 + i] * (n - 1))
+                             for i in range(b)], max_new_tokens=1)
 
     def _release_warm_slots(self) -> None:
         for i in range(self.kv.num_slots):
@@ -1049,6 +1125,111 @@ class InferenceEngine:
     def _prefill(self, token_lists: list[list[int]], offsets: list[int],
                  rows, deadline: float = float("inf"),
                  budget=None, lora_ids=None) -> torch.Tensor:
+        """Prefill dispatch (JAX engine.py:1867-1895): a batch of fresh
+        prompts (every offset 0) whose longest row has at least
+        long_threshold tokens goes to the sequence-parallel ring on a
+        seq_parallel engine; everything else - short prompts, delta
+        prefills on a reused prefix - takes the chunked path. On the paged
+        pool the ring's padded length must land on a page boundary (the
+        ring writes whole pages); where it does not, or the prompt does
+        not fit the cache, the chunked path serves, as in the JAX engine.
+        Every rank of a mesh decides from the same inputs."""
+        if (self._ring_prefill is not None
+                and all(o == 0 for o in offsets)
+                and max(len(t) for t in token_lists) >= self.long_threshold):
+            from .longcontext import pad_to_ring
+            tpad = pad_to_ring(max(len(t) for t in token_lists),
+                               self.seq_ring.size, self.kv.max_seq_len)
+            if tpad and (self.kv_layout != "paged"
+                         or tpad % self.kv.page_size == 0):
+                # (a LoRA engine never builds the ring: the constructor
+                # declines the store on seq_parallel engines)
+                return self._prefill_ring(token_lists, rows, tpad)
+        return self._prefill_chunked(token_lists, offsets, rows, deadline,
+                                     budget, lora_ids)
+
+    def _prefill_ring(self, token_lists: list[list[int]], rows,
+                      tpad: int) -> torch.Tensor:
+        """One sequence-parallel prefill of the whole batch, padded to
+        `tpad` (JAX _prefill_ring): every layer's whole-sequence K/V is
+        written, as each layer's arrives, into the rows' slots at offset 0
+        (contiguous, `rows` [B] slot ids) or through their page tables
+        (paged, `rows` [B, pages]; quantized on write on a quantized
+        pool), so decode and later delta prefills continue on the normal
+        path. On a data axis the rows are replica-grouped and each rank
+        keeps its replica's rows (pad rows: scratch pages, or slot -1,
+        written nowhere), and on a model axis its kv heads. Returns the
+        last-token logits [B, V] of every row, on every rank."""
+        b = len(token_lists)
+        tokens = np.full((b, tpad), self.tokenizer.pad_id, np.int32)
+        for i, t in enumerate(token_lists):
+            tokens[i, :len(t)] = t
+        positions = np.tile(np.arange(tpad, dtype=np.int32), (b, 1))
+        lengths = [len(t) for t in token_lists]
+        write = self._ring_writer(rows, tpad)
+        t0 = time.monotonic()
+        with compile_watch.label(f"ring_prefill[b={b},t={tpad}]",
+                                 engine=self.cfg.name):
+            with deadlines.commit_guard():
+                logits, _ = self._kernel_dispatch(
+                    "prefill", lambda: self._ring_prefill(
+                        self.params, self._ints(tokens).long(),
+                        self._ints(positions), self._ints(lengths),
+                        on_kv=write),
+                    kernel=False)
+        if self.kv_layout == "paged":
+            self._note_kv_quant("prefill", kernel=self.paged_direct)
+        self.ring_dispatches += 1
+        self.ring_seconds += time.monotonic() - t0
+        return logits
+
+    def _ring_writer(self, rows, tpad: int):
+        """on_kv(layer, k, v) for a ring prefill: this rank's rows and kv
+        heads of the whole-sequence K/V [B, tpad, K, D] into its slots or
+        pages."""
+        local = self.local_cfg.num_kv_heads
+        heads = slice(None)
+        if local != self.cfg.num_kv_heads:
+            j = self.mesh.model_index
+            heads = slice(j * local, (j + 1) * local)
+        if self.kv_layout == "contiguous":
+            if self._row_replicas > 1:
+                blk, _g, slots = self._slot_block(rows)
+            else:
+                blk, slots = slice(None), self._ints(rows)
+            idx = slots.long()
+
+            def write(li, k, v):
+                kc, vc = self.kv.layers[li]
+                kc[idx, :tpad] = k[blk, :, heads].to(kc.dtype)
+                vc[idx, :tpad] = v[blk, :, heads].to(vc.dtype)
+            return write
+        ps = self.kv.page_size
+        n = tpad // ps
+        table = self._local_rows(self._ints(rows))
+        pages = self.kv.local_table(table[:, :n]).long()
+        spec = self.kv_quant_spec
+
+        def write(li, k, v):
+            kp, vp = self.kv.pools[li]
+            bl = self._local_rows(k)[:, :, heads]
+            vl = self._local_rows(v)[:, :, heads]
+            shape = (bl.shape[0], n, ps) + tuple(bl.shape[2:])
+            if spec is None:
+                kp[pages] = bl.reshape(shape).to(kp.dtype)
+                vp[pages] = vl.reshape(shape).to(vp.dtype)
+                return
+            ks, vs = self.kv.scales[li]
+            for pool, sc, x in ((kp, ks, bl), (vp, vs, vl)):
+                q, qs = kvq.quantize_cells(x.to(self.dtype), spec)
+                pool[pages] = q.reshape(shape[:3] + tuple(q.shape[2:]))
+                sc[pages] = qs.reshape(shape[:3] + tuple(qs.shape[2:]))
+        return write
+
+    def _prefill_chunked(self, token_lists: list[list[int]],
+                         offsets: list[int], rows,
+                         deadline: float = float("inf"),
+                         budget=None, lora_ids=None) -> torch.Tensor:
         """Chunked, bucketed prefill of B rows: through forward_cached at
         the rows' slot ids (`rows` [B], contiguous layout) or through
         forward_paged over their page tables (`rows` [B, pages], paged).
@@ -2163,7 +2344,8 @@ class InferenceEngine:
                      else {"data": 1, "model": 1}),
             "num_slots": self.kv.num_slots,
             "kv_layout": self.kv_layout,
-            "quant": self.quant,
+            "quant": (self.quant + " (auto-degraded)"
+                      if self.quant_auto_degraded else self.quant),
             "dtype": str(self.dtype).replace("torch.", ""),
             "devices": list(self._devices),
             "kv_hbm_bytes": self.kv.hbm_bytes(),

@@ -835,7 +835,7 @@ def paged_decode_attention(q, k_pool, v_pool, table, kv_valid, *,
     ks, vs, bits, groups = _quant_args(k_scale, v_scale, bits)
     out = torch.empty_like(q)
     ws = _decode_workspace(q, kh, table.shape[1] * ps)
-    rc = build.library("paged_decode").rt_paged_decode(
+    rc = build.library("paged_decode", q.dtype).rt_paged_decode(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), ks, vs,
         ints["table"].data_ptr(), ints["kv_valid"].data_ptr(),
         out.data_ptr(), ws.data_ptr(), b, h, kh, d, ps, table.shape[1],
@@ -880,7 +880,7 @@ def paged_prefill_attention(q, k_pool, v_pool, table, offsets, kv_valid, *,
                           k_scale, v_scale)
     ks, vs, bits, groups = _quant_args(k_scale, v_scale, bits)
     out = torch.empty_like(q)
-    rc = build.library("paged_prefill").rt_paged_prefill(
+    rc = build.library("paged_prefill", q.dtype).rt_paged_prefill(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), ks, vs,
         ints["table"].data_ptr(), ints["offsets"].data_ptr(),
         ints["kv_valid"].data_ptr(), out.data_ptr(), b, t, h, kh, d, ps,
@@ -948,7 +948,7 @@ def ragged_paged_attention(q, k_pool, v_pool, tables, seq_of_block,
     ks, vs, bits, groups = _quant_args(k_scale, v_scale, bits)
     out = torch.empty_like(q)
     ws = _decode_workspace(q, kh, tables.shape[1] * ps, rows=s)
-    rc = build.library("ragged_paged").rt_ragged_paged(
+    rc = build.library("ragged_paged", q.dtype).rt_ragged_paged(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), ks, vs,
         ints["table"].data_ptr(), ints["seq_of_block"].data_ptr(),
         ints["block_qstart"].data_ptr(), ints["query_offsets"].data_ptr(),
@@ -1020,7 +1020,7 @@ def flash_prefill_attention(q, k_cache, v_cache, offsets, kv_valid, *,
     ints = _cuda_operands(q, k_cache, v_cache, {"rows": rows_t, **per_row},
                           what)
     out = torch.empty_like(q)
-    rc = build.library("flash_prefill").rt_flash_prefill(
+    rc = build.library("flash_prefill", q.dtype).rt_flash_prefill(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         ints["rows"].data_ptr(), ints["offsets"].data_ptr(),
         ints["kv_valid"].data_ptr(), out.data_ptr(), b, t, h, kh, d, s, n,
@@ -1061,7 +1061,7 @@ def ragged_decode_attention(q, k_cache, v_cache, kv_valid, *,
                           what)
     out = torch.empty_like(q)
     ws = _decode_workspace(q, kh, s)
-    rc = build.library("ragged_decode").rt_ragged_decode(
+    rc = build.library("ragged_decode", q.dtype).rt_ragged_decode(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         ints["rows"].data_ptr(), ints["kv_valid"].data_ptr(), out.data_ptr(),
         ws.data_ptr(), b, h, kh, d, s, n, int(sliding_window or 0),

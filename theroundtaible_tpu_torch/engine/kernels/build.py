@@ -1,10 +1,13 @@
 """Build and load the hand-written CUDA kernels (engine/kernels/csrc/).
 
-Each `csrc/<name>.cu` is compiled by `nvcc` for Hopper (`sm_90a`) into its
-own shared library with a plain C interface, loaded with ctypes. Builds
-happen at first use, into `engine/kernels/_build/` (git-ignored), one nvcc
-process per source, all started together. A library's file name carries a
-hash of its sources and flags, so an edited source never loads a stale
+Each `csrc/<name>.cu` is compiled by `nvcc` for Hopper (`sm_90a`) into
+shared libraries with a plain C interface, loaded with ctypes: one with
+the f32 and bf16 bodies, and one with the f16 bodies alone
+(`<name>_f16`), built only where a caller asks for f16 (`build_all(f16=
+...)`; `library(name, dtype)` picks the one a dtype needs). Builds happen
+at first use, into `engine/kernels/_build/` (git-ignored), one nvcc
+process per library, all started together. A library's file name carries
+a hash of its sources and flags, so an edited source never loads a stale
 build. Nothing here runs at import time: the CPU tests import every module
 of the package and have no nvcc.
 """
@@ -26,6 +29,9 @@ SOURCES = ("paged_decode", "paged_prefill", "ragged_paged", "flash_prefill",
            "ragged_decode", "int4mm", "bgmv")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# The two libraries of a source: its f32 and bf16 bodies, its f16 bodies.
+F16 = "_f16"
+VARIANT_FLAGS = {"": ("-DRT_WITH_F16=0",), F16: ("-DRT_WITH_BASE=0",)}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -99,9 +105,18 @@ def nvcc_path() -> str:
         "CUDA toolkit (nvcc on PATH or under /usr/local/cuda)")
 
 
-def _digest(name: str) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
+def _source(lib: str) -> str:
+    """The source of a library name (`<source>` or `<source>_f16`)."""
+    return lib[:-len(F16)] if lib.endswith(F16) else lib
+
+
+def _flags(lib: str) -> tuple:
+    return NVCC_FLAGS + VARIANT_FLAGS[F16 if lib.endswith(F16) else ""]
+
+
+def _digest(lib: str) -> str:
+    h = hashlib.sha256(" ".join(_flags(lib)).encode())
+    for path in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{_source(lib)}.cu"]:
         h.update(path.name.encode())
         h.update(path.read_bytes())
     return h.hexdigest()[:16]
@@ -111,25 +126,37 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}.{_digest(name)}.so"
 
 
-def build_all() -> float:
-    """Compile every missing library, one nvcc per source in parallel, and
-    load them all. Returns the wall seconds this call spent building
-    (0.0 when everything was already built). Raises with nvcc's output
-    when a build fails."""
+def _wanted(f16) -> list[str]:
+    """The libraries of every source: the f32/bf16 ones, with `f16` the
+    f16 ones too, or with f16 == "only" those alone."""
+    base = [] if f16 == "only" else list(SOURCES)
+    return base + ([name + F16 for name in SOURCES] if f16 else [])
+
+
+def build_all(f16=True) -> float:
+    """Compile every missing library - the f32/bf16 ones, and with `f16`
+    (the default) the f16 ones, or with f16="only" those alone - one nvcc
+    per library in parallel, and load them. Returns the wall seconds this
+    call spent building (0.0 when everything was already loaded). Raises
+    with nvcc's output when a build fails."""
+    wanted = _wanted(f16)
+    if all(name in _libs for name in wanted):
+        return 0.0
     with _lock:
-        if len(_libs) == len(SOURCES):
+        wanted = [name for name in wanted if name not in _libs]
+        if not wanted:
             return 0.0
         t0 = time.monotonic()
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         running = []
-        for name in SOURCES:
+        for name in wanted:
             out = library_path(name)
             if out.exists():
                 continue
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
             log = BUILD_DIR / f"{name}.log"
-            cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-                   str(CSRC / f"{name}.cu")]
+            cmd = [nvcc_path(), *_flags(name), "-o", str(tmp),
+                   str(CSRC / f"{_source(name)}.cu")]
             with open(log, "w") as fh:
                 proc = subprocess.Popen(cmd, stdout=fh,
                                         stderr=subprocess.STDOUT)
@@ -145,9 +172,7 @@ def build_all() -> float:
                 built[name] = time.monotonic() - t0
         if failed:
             raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
-        for name in SOURCES:
-            if name in _libs:
-                continue
+        for name in wanted:
             t_load = time.monotonic()
             _libs[name] = _load(name)
             seconds = built.get(name, 0.0) + time.monotonic() - t_load
@@ -158,7 +183,7 @@ def build_all() -> float:
 
 def _load(name: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(library_path(name)))
-    for fn, (argtypes, restype) in {**_SIGNATURES[name],
+    for fn, (argtypes, restype) in {**_SIGNATURES[_source(name)],
                                     **_COMMON_SIGNATURES}.items():
         f = getattr(lib, fn)
         f.argtypes = argtypes
@@ -166,24 +191,30 @@ def _load(name: str) -> ctypes.CDLL:
     return lib
 
 
-def library(name: str) -> ctypes.CDLL:
-    """The loaded library of csrc/<name>.cu, building every kernel first
-    if needed."""
-    lib = _libs.get(name)
+def library(name: str, dtype=None) -> ctypes.CDLL:
+    """The loaded library of csrc/<name>.cu that holds the bodies of
+    `dtype` (a torch dtype; None: the f32/bf16 one), building it (and the
+    rest of its kind) first if needed."""
+    import torch
+    f16 = dtype == torch.float16
+    key = name + F16 if f16 else name
+    lib = _libs.get(key)
     if lib is None:
-        build_all()
-        lib = _libs[name]
+        build_all(f16="only" if f16 else False)
+        lib = _libs[key]
     return lib
 
 
 def build_logs() -> dict[str, str]:
     """nvcc/ptxas output of the builds made by this checkout (registers,
-    shared memory and spills per kernel), by source name."""
+    shared memory and spills per kernel), by source name: the f32/bf16
+    library's, then the f16 library's where it was built."""
     logs = {}
     for name in SOURCES:
-        log = BUILD_DIR / f"{name}.log"
-        if log.exists():
-            logs[name] = log.read_text()
+        parts = [BUILD_DIR / f"{lib}.log" for lib in (name, name + F16)]
+        text = "".join(p.read_text() for p in parts if p.exists())
+        if text:
+            logs[name] = text
     return logs
 
 

@@ -434,15 +434,19 @@ int rt_bgmv_add(const void* ids, const void* x, const void* a0,
   const int O[rt::kMaxTargets] = {o0, o1, o2};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
+#if RT_WITH_BASE
     case rt::kF32:
       return rt::run<float>(ids, x, a, b, y, O, targets, M, C, r, S, splits,
                             part, s);
     case rt::kBF16:
       return rt::run<__nv_bfloat16>(ids, x, a, b, y, O, targets, M, C, r, S,
                                     splits, part, s);
+#endif
+#if RT_WITH_F16
     case rt::kF16:
       return rt::run<__half>(ids, x, a, b, y, O, targets, M, C, r, S, splits,
                              part, s);
+#endif
   }
   return cudaErrorInvalidValue;
 }

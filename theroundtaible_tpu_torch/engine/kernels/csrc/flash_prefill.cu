@@ -81,9 +81,13 @@ int rt_flash_prefill(const void* q, const void* k_cache, const void* v_cache,
   a.softcap = softcap;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
+#if RT_WITH_BASE
     case rt::kF32: return rt::dispatch_d<float>(D, a, s);
     case rt::kBF16: return rt::dispatch_d<__nv_bfloat16>(D, a, s);
+#endif
+#if RT_WITH_F16
     case rt::kF16: return rt::dispatch_d<__half>(D, a, s);
+#endif
   }
   return cudaErrorInvalidValue;
 }

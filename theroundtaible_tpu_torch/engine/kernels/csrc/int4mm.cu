@@ -867,16 +867,22 @@ int rt_mm_pack_out(const void* x, const void* q4, const void* s4, void* out,
   float* o = static_cast<float*>(out);
   float* w = static_cast<float*>(work);
   int* n = static_cast<int*>(counters);
+#if RT_WITH_BASE
   if (dtype == rt::kF32)
     return rt::launch_out_f32(x, q4, s4, o, w, M, C, P, gp, rows, device, s);
+#endif
   if (rows % rt::kOutStageRows) return cudaErrorInvalidValue;
   switch (dtype) {
+#if RT_WITH_BASE
     case rt::kBF16:
       return rt::dispatch_out_tc<__nv_bfloat16>(x, q4, s4, o, w, n, M, C, P,
                                                 gp, rows, s);
+#endif
+#if RT_WITH_F16
     case rt::kF16:
       return rt::dispatch_out_tc<__half>(x, q4, s4, o, w, n, M, C, P, gp,
                                          rows, s);
+#endif
   }
   return cudaErrorInvalidValue;
 }
@@ -896,6 +902,7 @@ int rt_mm_pack_contract(const void* x, const void* q4, const void* s4,
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* o = static_cast<float*>(out);
+#if RT_WITH_BASE
   if (dtype == rt::kF32) {
     const size_t smem = sizeof(float) * rt::kMT * (Cp / 16) * rt::kChunk;
     auto kernel = rt::mm_pack_contract_kernel;
@@ -906,14 +913,19 @@ int rt_mm_pack_contract(const void* x, const void* q4, const void* s4,
         static_cast<const float*>(s4), o, M, N, Cp, gp);
     return cudaGetLastError();
   }
+#endif
   if (piece < 128 || piece % 128) return cudaErrorInvalidValue;
   switch (dtype) {
+#if RT_WITH_BASE
     case rt::kBF16:
       return rt::dispatch_contract_tc<__nv_bfloat16>(x, q4, s4, o, M, N, Cp,
                                                      gp, blocks, piece, s);
+#endif
+#if RT_WITH_F16
     case rt::kF16:
       return rt::dispatch_contract_tc<__half>(x, q4, s4, o, M, N, Cp, gp,
                                               blocks, piece, s);
+#endif
   }
   return cudaErrorInvalidValue;
 }

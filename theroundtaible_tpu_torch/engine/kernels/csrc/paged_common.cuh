@@ -26,6 +26,17 @@ constexpr int kMaxGroup = 16;
 
 enum DType : int { kF32 = 0, kBF16 = 1, kF16 = 2 };
 
+// The dtype bodies a library holds: kernels/build.py compiles each source
+// twice, the f32 and bf16 bodies (RT_WITH_F16=0) and, where a caller needs
+// them, the f16 bodies alone (RT_WITH_BASE=0). A dtype a library does not
+// hold returns cudaErrorInvalidValue.
+#ifndef RT_WITH_BASE
+#define RT_WITH_BASE 1
+#endif
+#ifndef RT_WITH_F16
+#define RT_WITH_F16 1
+#endif
+
 // The 16-bit working types (bf16, f16) run the tensor-core bodies, f32 the
 // CUDA-core ones.
 template <typename T>

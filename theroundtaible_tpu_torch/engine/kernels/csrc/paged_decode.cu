@@ -104,9 +104,13 @@ int rt_paged_decode(const void* q, const void* k_pool, const void* v_pool,
   a.SG = G;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
+#if RT_WITH_BASE
     case rt::kF32: return rt::dispatch_d<float>(D, kv_bits, a, s);
     case rt::kBF16: return rt::dispatch_d<__nv_bfloat16>(D, kv_bits, a, s);
+#endif
+#if RT_WITH_F16
     case rt::kF16: return rt::dispatch_d<__half>(D, kv_bits, a, s);
+#endif
   }
   return cudaErrorInvalidValue;
 }

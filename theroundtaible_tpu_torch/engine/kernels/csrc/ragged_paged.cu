@@ -483,11 +483,15 @@ int rt_ragged_paged(const void* q, const void* k_pool, const void* v_pool,
   d.n_blocks = T / rt::kBlockQ;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
+#if RT_WITH_BASE
     case rt::kF32: return rt::dispatch_d<float>(D, kv_bits, p, m, d, st);
     case rt::kBF16:
       return rt::dispatch_d<__nv_bfloat16>(D, kv_bits, p, m, d, st);
+#endif
+#if RT_WITH_F16
     case rt::kF16:
       return rt::dispatch_d<__half>(D, kv_bits, p, m, d, st);
+#endif
   }
   return cudaErrorInvalidValue;
 }

@@ -556,7 +556,7 @@ def _launch_pack_out(x: torch.Tensor, q4: torch.Tensor, s4: torch.Tensor,
                         device=x.device) if splits > 1 else out)
     counters = (_tile_counters(x.device, stream, -(-p // _OUT_BYTES))
                 if splits > 1 and x.dtype != torch.float32 else out)
-    rc = build.library("int4mm").rt_mm_pack_out(
+    rc = build.library("int4mm", x.dtype).rt_mm_pack_out(
         x.data_ptr(), q4.data_ptr(), s4.data_ptr(), out.data_ptr(),
         work.data_ptr(), counters.data_ptr(), m, c, p, gp, rows,
         _DTYPE_CODES[x.dtype], index, stream)
@@ -581,7 +581,7 @@ def mm_pack_contract(x: torch.Tensor, q4: torch.Tensor, s4: torch.Tensor,
     index = x.device.index or 0
     plan = contract_plan(m, n, cp, _sm_count(index), x.dtype)
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    rc = build.library("int4mm").rt_mm_pack_contract(
+    rc = build.library("int4mm", x.dtype).rt_mm_pack_contract(
         x.data_ptr(), q4.data_ptr(), s4.data_ptr(), out.data_ptr(), m, n,
         cp, gp, plan.blocks, plan.piece, _DTYPE_CODES[x.dtype], index,
         torch.cuda.current_stream(x.device).cuda_stream)

@@ -272,7 +272,7 @@ def _launch_group(x2, stacks, ys, ids) -> None:
     n = len(stacks)
     part = _group_workspace(x2.device, stream, n * splits * m * r)
     pad = [None] * (MAX_TARGETS - n)
-    rc = build.library("bgmv").rt_bgmv_add(
+    rc = build.library("bgmv", x2.dtype).rt_bgmv_add(
         ids.data_ptr(), x2.data_ptr(),
         *[a.data_ptr() for a, _ in stacks], *pad,
         *[b.data_ptr() for _, b in stacks], *pad,

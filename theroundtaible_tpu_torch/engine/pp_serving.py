@@ -421,7 +421,7 @@ class PPEngine:
         t0 = time.monotonic()
         compile_watch.reopen_warmup(self.cfg.name)
         if self.device.type == "cuda":
-            kbuild.build_all()
+            kbuild.build_all(f16=self.dtype == torch.float16)
         limit = min(max_prompt_tokens,
                     self.max_seq_len - DECODE_SEGMENT - 1)
         buckets = [x for x in PREFILL_BUCKETS if x <= bucket_for(limit)]

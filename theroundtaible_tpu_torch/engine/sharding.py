@@ -113,7 +113,11 @@ class Mesh:
 def mesh_size(mesh_shape: Optional[dict[str, int]]) -> int:
     """Devices a configured mesh spans (1 without one); an axis of -1
     ("all remaining ranks") spans the initialized group."""
-    sizes = [int(n) for n in (mesh_shape or {}).values()]
+    # Only the axes the engines read: the JAX package's build_mesh reads
+    # only "data" and "model", so a {"seq": 2} mesh is the mesh without
+    # the key in both packages.
+    sizes = [int(n) for k, n in (mesh_shape or {}).items()
+             if k in (DATA_AXIS, MODEL_AXIS, PIPE_AXIS)]
     if -1 in sizes:
         import torch.distributed as dist
         return (dist.get_world_size()
@@ -123,23 +127,14 @@ def mesh_size(mesh_shape: Optional[dict[str, int]]) -> int:
 
 PIPE_AXIS = "pipe"
 
-# The mesh axes of the JAX package that the port does not serve yet, and
-# the ROADMAP Queue 1 slice that brings each.
-_UNPORTED_AXES = {"seq": "sequence parallelism, Queue 1 slice 4"}
-
 
 def check_mesh_axes(mesh_shape: Optional[dict[str, int]]) -> None:
     """Refuse a mesh no engine serves, before any process group is
-    touched: an axis other than "data", "model" and "pipe" ("seq") raises
-    NotImplementedError naming its slice, and a "pipe" axis beside any
-    axis but "model" raises the JAX package's ValueError (PPEngine.
-    from_config: a data axis inside stages is not implemented)."""
-    from ..core.errors import ITEM_7E_II, not_ported
+    touched: a "pipe" axis beside any axis but "model" raises the JAX
+    package's ValueError (PPEngine.from_config: a data axis inside stages
+    is not implemented). Any other key - "seq" among them - is ignored, as
+    the JAX package's build_mesh reads only "data" and "model"."""
     axes = set(mesh_shape or {})
-    for axis in sorted(axes - {DATA_AXIS, MODEL_AXIS, PIPE_AXIS}):
-        what = _UNPORTED_AXES.get(axis, "an axis the JAX package names")
-        raise not_ported(f"mesh {dict(mesh_shape)} (a {axis!r} axis: "
-                         f"{what})", ITEM_7E_II)
     extra_axes = sorted(axes - {PIPE_AXIS, MODEL_AXIS})
     if PIPE_AXIS in axes and extra_axes:
         raise ValueError(
@@ -505,6 +500,66 @@ def shard_params(tree: Params, cfg: ModelConfig, mesh: Mesh) -> Params:
                      for layer, lspec in zip(tree["layers"],
                                              specs["layers"])]
     return out
+
+
+def _model_dims(cfg: ModelConfig) -> dict[str, int]:
+    """The size of the dimension each layer leaf keeps on the model axis
+    (param_specs), by flat_layer name: whether the axis divides it decides
+    whether the leaf is sharded (Mesh.splits)."""
+    h, k, f = cfg.num_heads, cfg.num_kv_heads, cfg.mlp_dim
+    dims = {"q_proj": h, "k_proj": k, "v_proj": k, "o_proj": h,
+            "gate_proj": f, "up_proj": f, "down_proj": f,
+            "q_bias": h, "k_bias": k, "v_bias": k}
+    for name in ("gate_proj", "up_proj", "down_proj"):
+        dims[f"{EXPERTS}.{name}"] = cfg.num_experts or 0
+    return dims
+
+
+def gather_layer(layer: Params, cfg: ModelConfig, mesh: Optional[Mesh]
+                 ) -> Params:
+    """One layer's whole leaves, on every rank of this rank's model group
+    (shard_tree's inverse for one layer, by all-gathers over the model
+    group; the layer as it is without a model axis). Each sharded leaf -
+    dense, an int8 dict's payload and scales, an Int4Leaf's q4 and s4 on
+    its plan's shard axis - is gathered along the dimension its spec puts
+    on the model axis; a whole Int4Leaf is planned afresh for one device.
+    The caller frees the result once the layer has run: a rank never holds
+    more than one whole layer (longcontext.make_ring_prefill)."""
+    if mesh is None or mesh.model == 1:
+        return layer
+    from .distributed import all_gather_cat
+    qspecs = flat_layer(quantized_specs(param_specs(cfg)["layers"][0],
+                                        layer))
+    dims = _model_dims(cfg)
+
+    def whole(t, spec, n):
+        if MODEL_AXIS not in tuple(spec) or not mesh.splits(n):
+            return t
+        return all_gather_cat(t, mesh.model_group,
+                              dim=tuple(spec).index(MODEL_AXIS))
+
+    out = {}
+    for name, x in flat_layer(layer).items():
+        n = dims.get(name, 0)
+        if isinstance(x, Int4Leaf):
+            axis = x.plan.shard_axis if x.plan is not None else None
+            q4, s4 = x.q4, x.s4
+            if axis is not None:
+                q4 = all_gather_cat(q4, mesh.model_group, dim=axis)
+                s4 = all_gather_cat(s4, mesh.model_group, dim=axis)
+            leaf = int4mm.plan_leaf(
+                LEAF_SPECS[name], Int4Leaf(q4=q4, s4=s4, axis=x.axis,
+                                           group=x.group))
+            if x.plan is not None and x.plan.plain:
+                leaf.plan = dataclasses.replace(leaf.plan, plain=True)
+            out[name] = leaf
+        elif isinstance(x, dict):
+            spec = qspecs[name]
+            out[name] = {"q": whole(x["q"], spec["q"], n),
+                         "s": whole(x["s"], spec["s"], n)}
+        else:
+            out[name] = whole(x, qspecs[name], n)
+    return nest_layer(out)
 
 
 def materialize(x, device=None):
